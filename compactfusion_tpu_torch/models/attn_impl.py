@@ -1,0 +1,104 @@
+"""Self-attention strategies (counterpart of ``compactfusion_tpu/models/attn_impl.py``).
+
+Every strategy has the call shape ``out, state = impl(q, k, v, state)`` on
+(B, S, H, D) tensors and an ``init_state`` that builds the per-layer state
+stacked on a leading layer axis.  Ported: :class:`SingleDeviceAttn` and the
+single-device compressed-ring emulation :class:`SimRingAttn`.  The
+multi-device strategies (USP, PipeFusion, the compressed ring across GPUs)
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from compactfusion_tpu_torch import ROADMAP_HINT
+from compactfusion_tpu_torch.compact.engine import ef_compress, ef_decompress
+from compactfusion_tpu_torch.compact.ring import CompactRingState, _set_slot, _slot, init_ring_state
+from compactfusion_tpu_torch.config import CompactConfig, CompressType
+from compactfusion_tpu_torch.ops.attention import sdpa
+
+
+@dataclasses.dataclass(frozen=True)
+class SingleDeviceAttn:
+    """Plain attention: the no-parallelism baseline."""
+
+    def init_state(self, n_layers, batch, seq_local, heads, head_dim, dtype, device=None):
+        return ()
+
+    def __call__(self, q, k, v, state, *, joint_q=None, joint_k=None, joint_v=None,
+                 joint_strategy="front"):
+        if joint_q is not None:
+            if joint_strategy != "front":
+                raise ValueError(f"joint_strategy {joint_strategy!r}: only 'front'")
+            q = torch.cat([joint_q, q], dim=1)
+            k = torch.cat([joint_k, k], dim=1)
+            v = torch.cat([joint_v, v], dim=1)
+        return sdpa(q, k, v), state
+
+
+@dataclasses.dataclass(frozen=True)
+class SimRingAttn:
+    """Single-device emulation of the compressed ring, at topology fidelity.
+
+    The sequence splits into R chunks; each chunk's K/V runs the EF state
+    machine of a ring rank's own block (``engine.ef_compress``), and query
+    chunk i attends its own chunk exact plus the other R-1 chunks as the
+    receivers reconstruct them: the K/V mix device i sees in a real
+    ``ring_degree=R`` run.  Joint (text) K/V is appended exact.
+    """
+
+    cfg: CompactConfig
+    method: CompressType
+    ring_size: int
+
+    def init_state(self, n_layers, batch, seq_local, heads, head_dim, dtype, device=None):
+        """EF caches with leaves (L, R, N, C), N = batch * S / R, C = H * D."""
+        if seq_local % self.ring_size:
+            raise ValueError(f"sequence {seq_local} does not split into {self.ring_size} chunks")
+        n = batch * (seq_local // self.ring_size)
+        return init_ring_state(self.ring_size, n, heads * head_dim, dtype, self.cfg.residual,
+                               self.cfg.quantized_cache, device, layers=n_layers)
+
+    def __call__(self, q, k, v, state: CompactRingState, *, joint_q=None, joint_k=None,
+                 joint_v=None, joint_strategy="front"):
+        """``state``: this layer's caches, leaves (R, N, C).  The slots are
+        updated in place and the same state is returned."""
+        if self.cfg.log_stats:
+            raise NotImplementedError(f"log_stats taps: {ROADMAP_HINT}")
+        if joint_q is not None:
+            raise ValueError("joint queries are not emulated")
+        b, s, h, d = k.shape
+        R = self.ring_size
+        sc = s // R
+
+        k_chunks = torch.split(k, sc, dim=1)
+        v_chunks = torch.split(v, sc, dim=1)
+        recon_k, recon_v = [], []
+        for j in range(R):
+            k_st, v_st = _slot(state.k, j), _slot(state.v, j)
+            pk, k_new = ef_compress(k_chunks[j].reshape(b * sc, h * d), k_st, self.cfg, self.method)
+            pv, v_new = ef_compress(v_chunks[j].reshape(b * sc, h * d), v_st, self.cfg, self.method)
+            # receiver view from the PRE-compress state: identical to the
+            # sender's new base (the EF consistency invariant); taken before
+            # the in-place slot write below overwrites that state
+            rk, _ = ef_decompress(pk, k_st, self.cfg, self.method, update_cache=False)
+            rv, _ = ef_decompress(pv, v_st, self.cfg, self.method, update_cache=False)
+            recon_k.append(rk.reshape(b, sc, h, d).to(k.dtype))
+            recon_v.append(rv.reshape(b, sc, h, d).to(v.dtype))
+            _set_slot(state.k, j, k_new)
+            _set_slot(state.v, j, v_new)
+
+        outs = []
+        for i, q_i in enumerate(torch.split(q, sc, dim=1)):
+            kk = [k_chunks[j] if j == i else recon_k[j] for j in range(R)]
+            vv = [v_chunks[j] if j == i else recon_v[j] for j in range(R)]
+            if joint_k is not None:
+                if joint_strategy == "front":
+                    kk, vv = [joint_k] + kk, [joint_v] + vv
+                else:
+                    kk, vv = kk + [joint_k], vv + [joint_v]
+            outs.append(sdpa(q_i, torch.cat(kk, dim=1), torch.cat(vv, dim=1)))
+        return torch.cat(outs, dim=1), state

@@ -1,0 +1,191 @@
+"""PixArt-alpha DiT backbone (counterpart of ``compactfusion_tpu/models/pixart.py``).
+
+Patch embed + T5 caption projection, N blocks of [AdaLN-single
+self-attention, cross-attention to text, AdaLN-single GELU MLP], AdaLN final
+norm and a linear head predicting (noise, variance) per patch.  Block
+parameters are stacked on a leading layer axis, as in ``init_pixart`` of the
+JAX package, and the forward is a Python loop over that axis.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from compactfusion_tpu_torch import ROADMAP_HINT
+from compactfusion_tpu_torch.compact.ring import tree_map
+from compactfusion_tpu_torch.models import common as cm
+from compactfusion_tpu_torch.models.attn_impl import SingleDeviceAttn
+from compactfusion_tpu_torch.ops.attention import sdpa
+
+
+@dataclasses.dataclass(frozen=True)
+class PixArtConfig:
+    dim: int = 1152
+    depth: int = 28
+    heads: int = 16
+    patch: int = 2
+    in_channels: int = 4
+    out_channels: int = 8  # 4 noise + 4 learned-variance
+    text_dim: int = 4096  # T5-XXL
+    ffn_mult: int = 4
+    sample_size: int = 64  # latent H=W for 512px
+    interpolation_scale: float = 1.0
+    dtype: Any = torch.bfloat16
+
+    @property
+    def head_dim(self):
+        return self.dim // self.heads
+
+    @property
+    def base_size(self):
+        return self.sample_size // self.patch
+
+
+def pixart_alpha_512() -> PixArtConfig:
+    return PixArtConfig()
+
+
+def pixart_tiny() -> PixArtConfig:
+    """Scaled-down config for tests."""
+    return PixArtConfig(dim=64, depth=2, heads=4, text_dim=32, sample_size=8)
+
+
+def init_pixart(generator: torch.Generator, cfg: PixArtConfig):
+    """Random init on the generator's device; the block stack has a leading
+    layer axis (same tree as the JAX ``init_pixart``, other random draws)."""
+    d, dt, L = cfg.dim, cfg.dtype, (cfg.depth,)
+    dev = generator.device
+    blocks = {
+        "scale_shift_table": torch.zeros((cfg.depth, 6, d), dtype=dt, device=dev),
+        "attn_qkv": cm.init_linear(generator, d, 3 * d, dtype=dt, stack=L),
+        "attn_out": cm.init_linear(generator, d, d, dtype=dt, stack=L),
+        "cross_q": cm.init_linear(generator, d, d, dtype=dt, stack=L),
+        "cross_kv": cm.init_linear(generator, d, 2 * d, dtype=dt, stack=L),
+        "cross_out": cm.init_linear(generator, d, d, dtype=dt, stack=L),
+        "ffn": cm.init_ffn(generator, d, cfg.ffn_mult * d, dtype=dt, stack=L),
+    }
+    return {
+        "patch_embed": cm.init_linear(generator, cfg.patch * cfg.patch * cfg.in_channels, d, dtype=dt),
+        "t_embed": cm.init_timestep_embedder(generator, 256, d, dtype=dt),
+        "adaln_single": cm.init_linear(generator, d, 6 * d, dtype=dt),
+        "caption_fc1": cm.init_linear(generator, cfg.text_dim, d, dtype=dt),
+        "caption_fc2": cm.init_linear(generator, d, d, dtype=dt),
+        "blocks": blocks,
+        "final_scale_shift": torch.zeros((2, d), dtype=dt, device=dev),
+        "proj_out": cm.init_linear(generator, d, cfg.patch * cfg.patch * cfg.out_channels, dtype=dt),
+    }
+
+
+def _heads(x, h):
+    b, s, d = x.shape
+    return x.reshape(b, s, h, d // h)
+
+
+def _unheads(x):
+    b, s, h, dh = x.shape
+    return x.reshape(b, s, h * dh)
+
+
+def _layer(tree, l: int):
+    """Layer ``l`` of a tree of layer-stacked tensors (views)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, l) for k, v in tree.items()}
+    return tree_map(lambda a: a[l], tree)
+
+
+def pixart_embed(params, x, pos_embed, cfg: PixArtConfig):
+    """Patch-embed + positional table -> hidden tokens (B, S, dim)."""
+    return cm.linear(params["patch_embed"], x) + pos_embed.to(cfg.dtype)[None]
+
+
+def pixart_head(params, x, temb, cfg: PixArtConfig):
+    """Final AdaLN + projection (diffusers PixArt norm_out semantics)."""
+    fin = params["final_scale_shift"][None] + temb[:, None, :].repeat(1, 2, 1)
+    shift, scale = fin[:, 0][:, None], fin[:, 1][:, None]
+    x = cm.layernorm({}, x) * (1 + scale) + shift
+    return cm.linear(params["proj_out"], x)
+
+
+def precompute_text_kv(params, text: torch.Tensor) -> torch.Tensor:
+    """The step-invariant text path, once per image: caption MLP, then every
+    block's ``cross_kv`` -> (L, B, S_text, 2*dim)."""
+    text = cm.linear(params["caption_fc2"], cm.gelu(cm.linear(params["caption_fc1"], text)))
+    kv = params["blocks"]["cross_kv"]
+    return torch.stack([cm.linear(_layer(kv, l), text) for l in range(kv["w"].shape[0])])
+
+
+def pixart_forward(
+    params,
+    x: torch.Tensor,
+    t: torch.Tensor,
+    text: Optional[torch.Tensor],
+    cfg: PixArtConfig,
+    *,
+    pos_embed: torch.Tensor,
+    attn=SingleDeviceAttn(),
+    attn_state=(),
+    text_mask: Optional[torch.Tensor] = None,
+    tp_axis: Optional[str] = None,
+    pp_stages: int = 1,
+    cache_cfg=None,
+    text_kv: Optional[torch.Tensor] = None,
+):
+    """Denoiser forward on patchified latent tokens.
+
+    x: (B, S, p*p*C); t: (B,) timesteps; text: (B, S_text, text_dim) (ignored
+    when ``text_kv`` from :func:`precompute_text_kv` is given); pos_embed
+    (S, dim); attn_state: per-layer state stacked on a leading layer axis
+    (updated in place by the compressing strategies).  Returns
+    (out (B, S, p*p*out_channels), attn_state).
+    """
+    if cache_cfg is not None and getattr(cache_cfg, "mode", "none") != "none":
+        raise NotImplementedError(f"TeaCache/FBCache: {ROADMAP_HINT}")
+    if pp_stages > 1:
+        raise NotImplementedError(f"PipeFusion (pp_stages > 1): {ROADMAP_HINT}")
+    if isinstance(attn, (tuple, list)):
+        raise NotImplementedError(f"per-layer compression plans: {ROADMAP_HINT}")
+    d, h = cfg.dim, cfg.heads
+
+    x = pixart_embed(params, x, pos_embed, cfg)
+    temb = cm.timestep_embedder(params["t_embed"], t, 256)  # (B, d)
+    mod6 = cm.linear(params["adaln_single"], cm.silu(temb)).reshape(-1, 6, d)
+
+    if text_kv is None:
+        text = cm.linear(params["caption_fc2"], cm.gelu(cm.linear(params["caption_fc1"], text)))
+    # text masks are contiguous padding prefixes: a per-batch length
+    kv_lens = None if text_mask is None else text_mask.sum(dim=-1).to(torch.int32)
+
+    blocks = params["blocks"]
+    for l in range(cfg.depth):
+        p = _layer(blocks, l)
+        table = p["scale_shift_table"][None] + mod6  # (B, 6, d)
+        sh_a, sc_a, g_a, sh_m, sc_m, g_m = [table[:, i][:, None] for i in range(6)]
+
+        # self attention (AdaLN-single)
+        xn = cm.layernorm({}, x) * (1 + sc_a) + sh_a
+        q, k, v = cm.linear(p["attn_qkv"], xn).split(d, dim=-1)
+        o, _ = attn(_heads(q, h), _heads(k, h), _heads(v, h), _layer(attn_state, l))
+        x = x + g_a * cm.linear(p["attn_out"], _unheads(o))
+
+        # cross attention to text
+        q = cm.linear(p["cross_q"], x)
+        kv = cm.linear(p["cross_kv"], text) if text_kv is None else text_kv[l]
+        k, v = kv.split(d, dim=-1)
+        o = _cross_attn(_heads(q, h), _heads(k, h), _heads(v, h), None, kv_lens=kv_lens)
+        x = x + cm.linear(p["cross_out"], _unheads(o))
+
+        # mlp
+        xn = cm.layernorm({}, x) * (1 + sc_m) + sh_m
+        x = x + g_m * cm.ffn(p["ffn"], xn, tp_axis=tp_axis)
+
+    return pixart_head(params, x, temb, cfg), attn_state
+
+
+def _cross_attn(q, k, v, mask, kv_lens=None):
+    """Cross-attention to the text: ``kv_lens`` (B,) covers the contiguous
+    text padding masks; an arbitrary (B, 1, 1, Sk) bool ``mask`` takes the
+    math path of ``sdpa``, which returns 0 for a fully masked row."""
+    return sdpa(q, k, v, mask=None if kv_lens is not None else mask, kv_lens=kv_lens)

@@ -1,0 +1,114 @@
+"""Build the CUDA kernels under ``csrc/`` with ``nvcc`` and load them.
+
+Route: a plain C interface compiled into one shared library and bound with
+``ctypes`` (no PyTorch headers, so the build takes seconds).  The library
+goes to ``build/kernels/`` at the root of the checkout, named after a hash of
+the sources and flags, so an edited kernel rebuilds and an unchanged one is
+loaded as it is.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+#: seconds the last build took (0.0 when the library was already built)
+last_build_seconds = 0.0
+#: what ptxas said about registers, shared memory and spills, per kernel
+last_build_log = ""
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libcftorch_{h.hexdigest()[:16]}.so"
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; one load per process."""
+    global last_build_seconds, last_build_log
+    out = library_path()
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cus = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+        cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cus]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        last_build_seconds = time.perf_counter() - t0
+        last_build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{last_build_log}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    _declare(lib)
+    return lib
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    L = ctypes.c_longlong
+    lib.cf_flash_attn_bf16.argtypes = [
+        P, P, P,          # q, k, v
+        L, L, L,          # q strides (b, s, h) in elements
+        L, L, L,          # k strides
+        L, L, L,          # v strides
+        P, P, P,          # out (B,Sq,H,D) contiguous, lse (B,H,Sq), kv_lens or NULL
+        I, I, I, I, I,    # B, Sq, Sk, H, D
+        F,                # softmax scale
+        P,                # stream
+    ]
+    lib.cf_flash_attn_bf16.restype = I
+    lib.cf_binary_quant.argtypes = [
+        P, P, P, P, P, P,  # x, base, u, v, packed, new_base
+        I, I, I,           # N, C, K
+        I, I,              # x is bf16, base is bf16
+        P,                 # stream
+    ]
+    lib.cf_binary_quant.restype = I
+    lib.cf_binary_dequant.argtypes = [
+        P, P, P, P, P,     # packed, base, u, v, out
+        I, I, I,           # N, C, K
+        I,                 # base (and out) is bf16
+        P,                 # stream
+    ]
+    lib.cf_binary_dequant.restype = I
+    lib.cf_error_string.argtypes = [I]
+    lib.cf_error_string.restype = ctypes.c_char_p
+
+
+def check(status: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
+    if status != 0:
+        msg = load().cf_error_string(status).decode()
+        raise RuntimeError(f"{what}: CUDA error {status}: {msg}")

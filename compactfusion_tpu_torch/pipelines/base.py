@@ -1,0 +1,72 @@
+"""Shared pipeline machinery (counterpart of ``compactfusion_tpu/pipelines/base.py``).
+
+Single-device subset: CFG as a doubled batch, latent noise from a
+``torch.Generator``, EF state carried across step segments, and the
+layer-uniform compression schedule.  The cfg-parallel exchange and
+per-layer ``compress_func`` plans are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from compactfusion_tpu_torch import ROADMAP_HINT
+
+
+def cfg_combine(eps: torch.Tensor, guidance_scale: float, cfg_degree: int) -> torch.Tensor:
+    """Classifier-free guidance on a [cond; uncond] batch (cfg_degree 1)."""
+    if cfg_degree != 1:
+        raise NotImplementedError(f"cfg_degree={cfg_degree} exchange: {ROADMAP_HINT}")
+    cond, uncond = eps.chunk(2, dim=0)
+    return uncond + guidance_scale * (cond - uncond)
+
+
+def prepare_latents(generator: torch.Generator, batch: int, tokens: int, token_dim: int,
+                    dtype=torch.bfloat16, device=None) -> torch.Tensor:
+    """Standard-normal noise tokens (B, tokens, token_dim), drawn in fp32 on
+    the generator's device and moved to ``device``."""
+    z = torch.randn((batch, tokens, token_dim), generator=generator,
+                    dtype=torch.float32, device=generator.device)
+    return z.to(device=device, dtype=dtype)
+
+
+def _structure(tree):
+    """Container types and ``None`` positions of a state tree (not shapes)."""
+    if isinstance(tree, torch.Tensor):
+        return "leaf"
+    if tree is None:
+        return None
+    return (type(tree), tuple(_structure(t) for t in tree))
+
+
+def _has_leaves(tree) -> bool:
+    if isinstance(tree, torch.Tensor):
+        return True
+    return tree is not None and any(_has_leaves(t) for t in tree)
+
+
+def carry_ef_state(prev, make_fresh, device):
+    """The EF cache to enter a step segment with: ``prev`` (EF continues
+    across the warmup/steady boundary) when it has the structure of the
+    segment's own state, else ``make_fresh(device)``.  That structure is read
+    from a build on the "meta" device, so carrying ``prev`` allocates
+    nothing."""
+    if (prev is not None and _has_leaves(prev)
+            and _structure(prev) == _structure(make_fresh(torch.device("meta")))):
+        return prev
+    return make_fresh(device)
+
+
+def compact_layer_segments(compact, num_steps: int, depth: int):
+    """``[(method-or-None, [step, ...]), ...]``: contiguous runs of steps that
+    share one layer-uniform method (None = compression off)."""
+    if compact.enabled and compact.compress_func is not None:
+        raise NotImplementedError(f"per-layer compress_func plans: {ROADMAP_HINT}")
+    segments = []
+    for s in range(num_steps):
+        m = compact.type_at(0, s) if compact.enabled else None
+        if segments and segments[-1][0] == m:
+            segments[-1][1].append(s)
+        else:
+            segments.append((m, [s]))
+    return segments

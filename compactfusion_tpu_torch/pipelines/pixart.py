@@ -1,0 +1,169 @@
+"""PixArt-alpha text-to-image pipeline on one GPU
+(counterpart of ``compactfusion_tpu/pipelines/pixart.py``).
+
+CFG as a doubled batch, 20-step DPM-Solver++ 2M on the "linspace" timestep
+table, then the VAE decode.  With ``CompactConfig(enabled=True,
+simulate_ring=R)`` every self-attention runs the single-device
+compressed-ring emulation (``SimRingAttn``); its EF caches carry from the
+warmup steps into the compressed steps.  Parallel degrees > 1, the cache
+accelerators, DiTFastAttn and PipeFusion are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from compactfusion_tpu_torch import ROADMAP_HINT
+from compactfusion_tpu_torch.config import (
+    CompactConfig,
+    CompressType,
+    ParallelConfig,
+    validate_parallel_geometry,
+)
+from compactfusion_tpu_torch.models import common as cm
+from compactfusion_tpu_torch.models.attn_impl import SimRingAttn, SingleDeviceAttn
+from compactfusion_tpu_torch.models.pixart import PixArtConfig, pixart_forward, precompute_text_kv
+from compactfusion_tpu_torch.models.vae import VAEConfig, vae_decode
+from compactfusion_tpu_torch.pipelines import base
+from compactfusion_tpu_torch.schedulers.diffusion import ddpm_schedule, dpm_init_state, dpm_step
+
+
+@dataclasses.dataclass(frozen=True)
+class PixArtPipelineConfig:
+    model: PixArtConfig
+    vae: VAEConfig
+    parallel: ParallelConfig = ParallelConfig()
+    compact: CompactConfig = CompactConfig()
+    num_steps: int = 20
+    guidance_scale: float = 4.5
+    height: int = 512
+    width: int = 512
+
+    @property
+    def latent_hw(self) -> Tuple[int, int]:
+        return self.height // 8, self.width // 8
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        lh, lw = self.latent_hw
+        return lh // self.model.patch, lw // self.model.patch
+
+    @property
+    def tokens(self) -> int:
+        hp, wp = self.grid
+        return hp * wp
+
+    @property
+    def do_cfg(self) -> bool:
+        return self.guidance_scale > 1.0
+
+    def __post_init__(self):
+        validate_parallel_geometry(self.parallel, heads=self.model.heads, tokens=self.tokens,
+                                   depth=self.model.depth, family="pixart")
+        p = self.parallel
+        if p.world_size > 1 or p.vae_parallel_size or p.use_fused_ring:
+            raise NotImplementedError(f"multi-GPU PixArt ({p}): {ROADMAP_HINT}")
+
+
+def _attn_impl(cfg: PixArtPipelineConfig, method: Optional[CompressType]):
+    c = cfg.compact
+    if c.enabled and c.patch_gather:
+        raise NotImplementedError(f"patch-parallel gather: {ROADMAP_HINT}")
+    if c.enabled and c.simulate_ring > 0:
+        return SimRingAttn(cfg=c, method=method, ring_size=c.simulate_ring)
+    if c.enabled:
+        raise NotImplementedError(f"compressed ring across GPUs: {ROADMAP_HINT}")
+    return SingleDeviceAttn()
+
+
+class PixArtPipeline:
+    """User-facing pipeline: ``PixArtPipeline(params, vae_params, cfg, device)``."""
+
+    def __init__(self, params, vae_params, cfg: PixArtPipelineConfig, device):
+        # float32 matmuls and convolutions in full fp32 on the GPU: cuDNN
+        # convolutions default to TF32, which keeps ~3 decimal digits
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.params = params
+        self.vae_params = vae_params
+        self.cfg = cfg
+        self.device = torch.device(device)
+        hp, wp = cfg.grid
+        self.pos_embed = cm.sincos_pos_embed_2d(
+            cfg.model.dim, hp, wp, base_size=cfg.model.base_size,
+            interpolation_scale=cfg.model.interpolation_scale,
+        ).to(self.device)
+        self.sched = ddpm_schedule(cfg.num_steps, timestep_spacing="linspace")
+
+    def __call__(self, text, text_mask, generator: Optional[torch.Generator] = None,
+                 latents: Optional[torch.Tensor] = None, decode: bool = True):
+        """text (2, B, S_text, text_dim) = [cond, uncond]; text_mask (2, B,
+        S_text) bool or None.  Noise comes from ``latents`` (B, tokens,
+        p*p*C) when given, else from ``generator``.  Returns images
+        (B, H, W, 3) in [0, 1], or the final latent tokens when not
+        ``decode``."""
+        cfg = self.cfg
+        if text_mask is None:
+            text_mask = torch.ones(text.shape[:3], dtype=torch.bool)
+        if latents is None:
+            if generator is None:
+                raise ValueError("pass a torch.Generator or explicit latents")
+            m = cfg.model
+            latents = base.prepare_latents(generator, text.shape[1], cfg.tokens,
+                                           m.patch * m.patch * m.in_channels,
+                                           torch.float32, self.device)
+        latents = self._sample(text, text_mask, latents)
+        return self.decode(latents) if decode else latents
+
+    @torch.inference_mode()
+    def _sample(self, text, text_mask, latents):
+        cfg, m = self.cfg, self.cfg.model
+        text = text.to(self.device)
+        text_mask = text_mask.to(self.device)
+        if cfg.do_cfg:
+            text = torch.cat([text[0], text[1]], dim=0)
+            text_mask = torch.cat([text_mask[0], text_mask[1]], dim=0)
+        else:
+            text, text_mask = text[0], text_mask[0]
+        latents = latents.to(self.device, torch.float32)
+        b = latents.shape[0]
+        n_model_batch = 2 * b if cfg.do_cfg else b
+
+        dpm_state = dpm_init_state(latents.shape, self.device)
+        # the text path is step-invariant: caption MLP + every block's
+        # cross K/V once per image, kept in the model dtype
+        text_kv = precompute_text_kv(self.params, text).to(m.dtype)
+        attn_state = None
+        for method, steps in base.compact_layer_segments(cfg.compact, cfg.num_steps, m.depth):
+            attn = _attn_impl(cfg, method)
+            attn_state = base.carry_ef_state(
+                attn_state,
+                lambda dev, attn=attn: attn.init_state(m.depth, n_model_batch, cfg.tokens, m.heads,
+                                                       m.head_dim, torch.float32, dev),
+                self.device,
+            )
+            for i in steps:
+                t = torch.full((n_model_batch,), float(self.sched.timesteps[i]),
+                               dtype=torch.float32, device=self.device)
+                x = torch.cat([latents, latents], dim=0) if cfg.do_cfg else latents
+                out, attn_state = pixart_forward(
+                    self.params, x.to(m.dtype), t, None, m, pos_embed=self.pos_embed,
+                    attn=attn, attn_state=attn_state, text_mask=text_mask, text_kv=text_kv,
+                )
+                eps = out[..., : out.shape[-1] // 2]  # drop the learned-variance half
+                if cfg.do_cfg:
+                    eps = base.cfg_combine(eps, cfg.guidance_scale, 1)
+                latents, dpm_state = dpm_step(self.sched, i, cfg.num_steps, latents, eps, dpm_state)
+        return latents
+
+    @torch.inference_mode()
+    def decode(self, latent_tokens: torch.Tensor) -> torch.Tensor:
+        """Latent tokens (B, tokens, p*p*C) -> images (B, H, W, 3) in [0, 1]."""
+        m = self.cfg.model
+        hp, wp = self.cfg.grid
+        lat = cm.unpatchify(latent_tokens.to(self.device), m.patch, hp, wp, m.in_channels)
+        img = vae_decode(self.vae_params, lat, self.cfg.vae)
+        return torch.clamp(img * 0.5 + 0.5, 0.0, 1.0)

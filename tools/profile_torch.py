@@ -1,0 +1,115 @@
+#!/usr/bin/env python3
+"""Where the time of one PixArt-alpha 512 image goes on the GPU.
+
+    python3 tools/profile_torch.py [--out build/profile_torch.json] [--warm 3]
+
+Builds the same full-width pipelines as ``chip_smoke.py`` (random weights,
+spiced AdaLN tables): compression off, and the ring-8 1-bit compressed
+emulation.  For each it runs ``--warm`` requests, times two more with CUDA
+events, then profiles one request with ``torch.profiler`` (CPU + CUDA) and
+sums the device time of its kernels by category.  The device busy share is
+that sum over the mean unprofiled time (one stream, so kernels do not
+overlap).  Prints a summary per pipeline and writes everything, with the
+card's ``nvidia-smi`` name, power limit and SM clock, to ``--out``.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# kernel-name patterns, first match wins
+CATEGORIES = (
+    ("flash kernel", ("flash_fwd_kernel",)),
+    ("quant kernel", ("binary_quant_kernel",)),
+    ("dequant kernel", ("binary_dequant_kernel",)),
+    ("matmul (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
+    ("conv (cuDNN)", ("conv", "cudnn", "implicit_convolve")),
+    ("copies/cat", ("CatArray", "copy", "Memcpy", "Memset")),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def category(name):
+    for cat, keys in CATEGORIES:
+        if any(k in name for k in keys):
+            return cat
+    return "other"
+
+
+def profile_pipeline(pipe, warm, seed):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+
+    for _ in range(warm):
+        chip_smoke.request(pipe, seed)
+    walls = [chip_smoke.request(pipe, seed)[2] for _ in range(2)]
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, _, profiled_wall = chip_smoke.request(pipe, seed)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_cat, by_name = {}, {}
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        cat = category(e.name)
+        by_cat[cat] = by_cat.get(cat, 0.0) + us / 1e6
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + us / 1e6, n + 1)
+    busy = sum(by_cat.values())
+    top = sorted(((t, n, name[:90]) for name, (t, n) in by_name.items()), reverse=True)[:20]
+    return {
+        "wall_s_unprofiled": walls,
+        "wall_s_profiled": profiled_wall,
+        "device_kernel_s": busy,
+        "busy_share_vs_unprofiled_wall": busy / (sum(walls) / len(walls)),
+        "kernel_launches": len(kernels),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "by_category_s": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
+        "top": top,
+    }
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile_torch.json"))
+    ap.add_argument("--warm", type=int, default=3, help="unmeasured requests first")
+    ap.add_argument("--seed", type=int, default=1)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch: no CUDA device")
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from compactfusion_tpu_torch.pipelines.pixart import PixArtPipeline, PixArtPipelineConfig
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, torch.__version__, torch.version.cuda)
+    dev = torch.device("cuda")
+    mcfg, vcfg, params, vae_params = chip_smoke.build_models(dev)
+    report = {"smi": smi, "torch": torch.__version__, "warm": args.warm, "seed": args.seed}
+    for name, compact in (("lossless", None), ("compressed_ring8", chip_smoke.compressed_config())):
+        kw = {} if compact is None else {"compact": compact}
+        cfg = PixArtPipelineConfig(model=mcfg, vae=vcfg, num_steps=chip_smoke.STEPS,
+                                   guidance_scale=4.5, **kw)
+        r = profile_pipeline(PixArtPipeline(params, vae_params, cfg, dev), args.warm, args.seed)
+        report[name] = r
+        print(name, json.dumps({k: v for k, v in r.items() if k != "top"}))
+        for t, n, kname in r["top"][:12]:
+            print(f"  {t:10.4f} s x {n:6d}  {kname}")
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(report, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()
