@@ -3,19 +3,28 @@
 
     python3 chip_smoke.py        # from the root of a checkout, on a CUDA machine
 
-Phases (each prints one line; any failure ends the run with a non-zero exit):
+Phases (each prints its lines; any failure ends the run with a non-zero exit):
 
 1. Device: ``nvidia-smi`` name and power limit, and the time ``nvcc`` took
-   to build the kernels from ``compactfusion_tpu_torch/csrc``.
+   to build the kernels from ``compactfusion_tpu_torch/csrc`` (one ``nvcc``
+   per source, in parallel).
 2. Each kernel against its plain PyTorch twin at the shapes the main path
-   gives it, with the times of both (CUDA events).
+   gives it, with the times of both (CUDA events): flash attention, the
+   1-bit quant pair at K=1 and K=2, the 2-bit (INT2) pair on fp32 and bf16
+   bases.
 3. The full-width PixArt-alpha 512 pipeline (28 blocks, dim 1152, S=1024,
    CFG batch 2, 20 DPM-Solver++ steps, SD-VAE decode), random weights with
    spiced AdaLN tables, compression off: 3 requests, each from its own seed.
 4. The same pipeline with the 1-bit compressed-ring emulation (ring 8,
-   residual 1 + error feedback, warmup 4), from request 1's seed; its
-   latents are held against request 1's lossless latents.
+   residual 1 + error feedback, warmup 4), from request 1's seed.
+5. The same with INT2 through the fused 2-bit kernels.
+6. The same with LOW_RANK, rank 4 (subspace iteration; no quant kernel).
+7. A per-layer plan on int8-quantized EF caches: layer 0 uncompressed,
+   layers 1-13 INT2, layers 14-27 BINARY with a rank-2 scale.
 
+Phases 4-7 hold their latents against request 1's lossless latents and
+their kernel launch counts against the counts the path implies; every
+count is set to 0 just before each of phases 3-7 and read just after.
 Then one JSON line with each kernel's launches on the main path, error and
 times, and a last line ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the package beside it, the script exits non-zero and
@@ -36,16 +45,22 @@ FLASH_OUT_ATOL = 2e-2
 # both sides take the LSE in fp32 from fp32 scores of the same bf16 inputs;
 # only the summation order and exp2/log2 against exp/log differ
 FLASH_LSE_ATOL = 1e-3
-# quant new_base vs twin: the same fp32 arithmetic, K=1 scale products exact
+# quant new_base vs twin: the same fp32 arithmetic; the scale products of
+# bf16 factors are exact in fp32 at K=1, and at K=2 the one rounding of their
+# sum does not depend on the order
 QUANT_NEW_BASE_RTOL = 1e-6
-# compressed vs lossless latents (relative Frobenius error): the 1-bit ring
-# must change the result (> 0) but stay close to it
+# compressed vs lossless latents (relative Frobenius error): each codec must
+# change the result (> 0) but stay close to it
 COMPRESSED_REL_ERR_MAX = 0.05
 
 STEPS = 20
 DEPTH = 28
 RING = 8
 WARMUP = 4
+# rows and channels of one ring chunk's K or V: CFG batch 2 x 1024 / 8 tokens, 16 x 72
+CHUNK = (2 * 1024 // RING, 1152)
+# compress (or decompress) calls of one image per compressed layer: 8 chunks, K and V
+CALLS_PER_LAYER = RING * 2 * (STEPS - WARMUP)
 
 
 def _time_ms(fn, iters):
@@ -102,40 +117,46 @@ def check_flash(flash, dev, gen):
     return rows
 
 
-def check_quant(quant, codecs, dev, gen):
-    """Binary quant/dequant kernels vs twins at the ring-8 PixArt shape."""
+def check_quant(quant, codecs, dev, gen, codec, rank, base_dtype):
+    """One quant/dequant kernel pair vs its twins at the ring-8 PixArt chunk
+    shape, with the scale factors the engine gives it (``rank``: the binary
+    scale model, -1 for the mean scale; INT2 always takes the mean scale);
+    returns a report."""
     import torch
 
-    n, c = 256, 1152
-    x = torch.randn((n, c), generator=gen, device=dev)
-    base = torch.randn((n, c), generator=gen, device=dev) * 0.9
-    u, v = codecs._scale_uv(x - base, -1)
+    n, c = CHUNK
+    x = torch.randn((n, c), generator=gen, device=dev).to(base_dtype)
+    base = (torch.randn((n, c), generator=gen, device=dev) * 0.9).to(base_dtype)
+    delta = x.float() - base.float()
+    u, v = codecs._scale_uv(delta, rank) if codec == "binary" else codecs._mean_scale_uv(delta)
     u, v = codecs._wire(u), codecs._wire(v)
-    packed, new_base = quant.binary_quant_fastpath(x, base, u, v)
-    x_hat = quant.binary_dequant_fastpath(packed, base, u, v)
+    q, dq = getattr(quant, f"{codec}_quant_fastpath"), getattr(quant, f"{codec}_dequant_fastpath")
+    q_ref, dq_ref = getattr(quant, f"{codec}_quant_fastpath_ref"), getattr(quant, f"{codec}_dequant_fastpath_ref")
+    packed, new_base = q(x, base, u, v)
+    x_hat = dq(packed, base, u, v)
     torch.cuda.synchronize()
-    ref_packed, ref_base = quant.binary_quant_fastpath_ref(x, base, u, v)
-    ref_hat = quant.binary_dequant_fastpath_ref(packed, base, u, v)
+    ref_packed, ref_base = q_ref(x, base, u, v)
+    ref_hat = dq_ref(packed, base, u, v)
+    name = f"{codec} N{n} C{c} K{u.shape[1]} {str(base_dtype).replace('torch.', '')}"
     if not torch.equal(packed, ref_packed):
-        raise AssertionError("quant kernel: packed bytes differ from the twin's")
-    rel = ((new_base - ref_base).abs() / ref_base.abs().clamp_min(1e-30)).max().item()
+        raise AssertionError(f"{name} quant kernel: packed bytes differ from the twin's")
+    rel = ((new_base.float() - ref_base.float()).abs() / ref_base.float().abs().clamp_min(1e-30)).max().item()
     if rel > QUANT_NEW_BASE_RTOL:
-        raise AssertionError(f"quant kernel: new_base off the twin by {rel:.3e} relative")
+        raise AssertionError(f"{name} quant kernel: new_base off the twin by {rel:.3e} relative")
     if not torch.equal(x_hat, new_base):
-        raise AssertionError("dequant output is not bit-identical to quant's new_base")
-    err_q = (new_base - ref_base).abs().max().item()
-    err_d = (x_hat - ref_hat).abs().max().item()
-    times = {
-        "quant": (_time_ms(lambda: quant.binary_quant_fastpath(x, base, u, v), 200),
-                  _time_ms(lambda: quant.binary_quant_fastpath_ref(x, base, u, v), 200)),
-        "dequant": (_time_ms(lambda: quant.binary_dequant_fastpath(packed, base, u, v), 200),
-                    _time_ms(lambda: quant.binary_dequant_fastpath_ref(packed, base, u, v), 200)),
-    }
-    print(f"[2] binary quant N{n} C{c} K1 fp32: packed bytes equal, new_base rel err {rel:.3e} "
-          f"(tol {QUANT_NEW_BASE_RTOL}), dequant == new_base bit for bit; quant "
-          f"{times['quant'][0]:.4f} ms (twin {times['quant'][1]:.4f}), dequant "
-          f"{times['dequant'][0]:.4f} ms (twin {times['dequant'][1]:.4f})")
-    return err_q, err_d, times
+        raise AssertionError(f"{name}: dequant output is not bit-identical to quant's new_base")
+    row = {"shape": name, "new_base_rel_err": rel,
+           "max_abs_err_quant": (new_base.float() - ref_base.float()).abs().max().item(),
+           "max_abs_err_dequant": (x_hat.float() - ref_hat.float()).abs().max().item(),
+           "quant_ms": _time_ms(lambda: q(x, base, u, v), 200),
+           "quant_plain_ms": _time_ms(lambda: q_ref(x, base, u, v), 200),
+           "dequant_ms": _time_ms(lambda: dq(packed, base, u, v), 200),
+           "dequant_plain_ms": _time_ms(lambda: dq_ref(packed, base, u, v), 200)}
+    print(f"[2] {name}: packed bytes equal, new_base rel err {rel:.3e} (tol {QUANT_NEW_BASE_RTOL}), "
+          f"dequant == new_base bit for bit; quant {row['quant_ms']:.4f} ms (twin "
+          f"{row['quant_plain_ms']:.4f}), dequant {row['dequant_ms']:.4f} ms (twin "
+          f"{row['dequant_plain_ms']:.4f})")
+    return row
 
 
 def check_image(img, what):
@@ -172,14 +193,49 @@ def build_models(dev):
     return mcfg, vcfg, params, vae_params
 
 
-def compressed_config():
-    """The 1-bit compressed-ring emulation: ring 8, residual 1 with error
-    feedback, warmup 4, the fused quant kernels on."""
+def compressed_config(compress_type="binary", **kw):
+    """The compressed-ring emulation: ring 8, residual 1 with error
+    feedback, warmup 4, the fused quant kernels on; 1-bit by default."""
     from compactfusion_tpu_torch.config import CompactConfig, CompressType
 
-    return CompactConfig(enabled=True, compress_type=CompressType.BINARY, comp_rank=-1,
+    kw = {"comp_rank": -1, **kw}
+    return CompactConfig(enabled=True, compress_type=CompressType(compress_type),
                          warmup_steps=WARMUP, residual=1, error_feedback=True,
-                         fastpath=True, simulate_ring=RING)
+                         fastpath=True, simulate_ring=RING, **kw)
+
+
+def layer_plan_config():
+    """Phase 7's per-layer plan on int8-quantized EF caches: WARMUP for the
+    first 4 steps, then layer 0 IDENTITY, layers 1-13 INT2, layers 14-27
+    BINARY with a rank-2 scale."""
+    from compactfusion_tpu_torch.config import CompressType
+
+    def plan(layer, step):
+        if step < WARMUP:
+            return CompressType.WARMUP
+        if layer == 0:
+            return CompressType.IDENTITY
+        return CompressType.INT2 if layer <= 13 else CompressType.BINARY
+
+    return compressed_config("binary", comp_rank=2, quantized_cache=True, compress_func=plan)
+
+
+def wire_compression(codecs, plan):
+    """Dense bf16 K/V bytes over payload bytes for one image's compressed
+    layers: ``plan`` lists (method, comp_rank, layers); IDENTITY layers send
+    K/V dense in bf16."""
+    import torch
+
+    from compactfusion_tpu_torch.config import CompressType
+
+    dense = CHUNK[0] * CHUNK[1] * 2
+    sent = total = 0
+    for method, rank, layers in plan:
+        nbytes = dense if method == "identity" else codecs.payload_nbytes(
+            codecs.encode(torch.ones(CHUNK), CompressType(method), rank=rank))
+        sent += nbytes * layers
+        total += dense * layers
+    return total / sent
 
 
 def request(pipe, seed):
@@ -201,6 +257,33 @@ def request(pipe, seed):
     return lat, img, start.elapsed_time(end) / 1e3
 
 
+def compressed_phase(phase, what, pipe, kernels, lossless, expect):
+    """One compressed request from request 1's seed, with every launch count
+    set to 0 before it; checks the image, the launch counts against
+    ``expect`` ({kernel name: count}, any other kernel 0 unless it is the
+    flash kernel, which must run) and the latent error against lossless."""
+    import torch
+
+    _reset_counts(kernels)
+    lat, img, sec = request(pipe, 1)
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    check_image(img, what)
+    for name, count in counts.items():
+        want = expect.get(name, 0)
+        if name == "flash_attn_with_lse":
+            if count < DEPTH * STEPS:
+                raise AssertionError(f"{what}: flash launched {count} < {DEPTH * STEPS} times")
+        elif count != want:
+            raise AssertionError(f"{what}: {name} launched {count} times, expected {want}")
+    rel = (torch.linalg.vector_norm(lat - lossless) / torch.linalg.vector_norm(lossless)).item()
+    if not 0.0 < rel < COMPRESSED_REL_ERR_MAX:
+        raise AssertionError(f"{what}: latent rel err vs lossless {rel} not in (0, {COMPRESSED_REL_ERR_MAX})")
+    launched = ", ".join(f"{k} {v}" for k, v in counts.items())
+    print(f"[{phase}] {what}: latent rel err vs lossless {rel:.6f} (bound {COMPRESSED_REL_ERR_MAX}), "
+          f"{sec:.4f} s/image; launches: {launched}")
+    return {"s_per_image": sec, "latent_rel_err": rel, "launches": counts}
+
+
 def main():
     import torch
 
@@ -215,7 +298,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    kernels = (flash.flash_attn_with_lse, quant.binary_quant_fastpath, quant.binary_dequant_fastpath)
+    kernels = (flash.flash_attn_with_lse, quant.binary_quant_fastpath, quant.binary_dequant_fastpath,
+               quant.int2_quant_fastpath, quant.int2_dequant_fastpath)
 
     # -- 1. device and build ------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -231,13 +315,22 @@ def main():
     # -- 2. kernels vs twins ----------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
     flash_rows = check_flash(flash, dev, gen)
-    err_q, err_d, qtimes = check_quant(quant, codecs, dev, gen)
+    quant_rows = {
+        "binary": [check_quant(quant, codecs, dev, gen, "binary", r, torch.float32) for r in (-1, 2)],
+        "int2": [check_quant(quant, codecs, dev, gen, "int2", -1, dt)
+                 for dt in (torch.float32, torch.bfloat16)],
+    }
 
     # -- 3. full-width pipeline, compression off -----------------------------
     mcfg, vcfg, params, vae_params = build_models(dev)
-    base_cfg = PixArtPipelineConfig(model=mcfg, vae=vcfg, num_steps=STEPS, guidance_scale=4.5)
-    pipe = PixArtPipeline(params, vae_params, base_cfg, dev)
-    _reset_counts(kernels)  # the main path starts here
+
+    def pipeline(compact=None):
+        kw = {} if compact is None else {"compact": compact}
+        return PixArtPipeline(params, vae_params, PixArtPipelineConfig(
+            model=mcfg, vae=vcfg, num_steps=STEPS, guidance_scale=4.5, **kw), dev)
+
+    pipe = pipeline()
+    _reset_counts(kernels)
     lossless = None
     secs = []
     for seed in (1, 2, 3):
@@ -247,54 +340,60 @@ def main():
         launched = flash.flash_attn_with_lse.launches - before
         if launched < DEPTH * STEPS:
             raise AssertionError(f"request seed {seed}: flash launched {launched} < {DEPTH * STEPS} times")
-        if quant.binary_quant_fastpath.launches or quant.binary_dequant_fastpath.launches:
-            raise AssertionError("compression off, yet the quant kernels launched")
+        if any(fn.launches for fn in kernels[1:]):
+            raise AssertionError("compression off, yet a quant kernel launched")
         if lossless is None:
             lossless = lat
         secs.append(sec)
         print(f"[3] request seed {seed}: image (1, 512, 512, 3) in [{lo:.4f}, {hi:.4f}], "
               f"flash launches {launched}, {sec:.4f} s/image")
+    phases = {"lossless": {"s_per_image": secs,
+                           "launches": {fn.__name__: fn.launches for fn in kernels}}}
 
-    # -- 4. full-width pipeline, compressed ring emulation ---------------------
-    compact = compressed_config()
-    pipe_c = PixArtPipeline(params, vae_params, PixArtPipelineConfig(
-        model=mcfg, vae=vcfg, compact=compact, num_steps=STEPS, guidance_scale=4.5), dev)
-    before = [fn.launches for fn in kernels]
-    lat_c, img_c, sec_c = request(pipe_c, 1)
-    delta = [fn.launches - b for fn, b in zip(kernels, before)]
-    counts = {fn.__name__: fn.launches for fn in kernels}  # the main path ends here
-    check_image(img_c, "compressed request")
-    expect = DEPTH * RING * 2 * (STEPS - WARMUP)
-    if delta[1] != expect or delta[2] != expect:
-        raise AssertionError(f"quant/dequant launched {delta[1]}/{delta[2]} times, expected {expect} each")
-    rel = (torch.linalg.vector_norm(lat_c - lossless) / torch.linalg.vector_norm(lossless)).item()
-    if not 0.0 < rel < COMPRESSED_REL_ERR_MAX:
-        raise AssertionError(f"compressed vs lossless latent rel err {rel} not in (0, {COMPRESSED_REL_ERR_MAX})")
-    print(f"[4] compressed ring-{RING} binary request seed 1: latent rel err vs lossless {rel:.6f} "
-          f"(bound {COMPRESSED_REL_ERR_MAX}), quant/dequant launches {delta[1]}/{delta[2]} "
-          f"(expected {expect}), flash launches {delta[0]}, {sec_c:.4f} s/image; lossless "
-          f"s/image {', '.join(f'{s:.4f}' for s in secs)}")
+    # -- 4.-7. full-width pipeline, compressed-ring emulations ---------------
+    per_layer = CALLS_PER_LAYER
+    runs = [
+        (4, "ring-8 binary", compressed_config(), [("binary", -1, DEPTH)],
+         {"binary_quant_fastpath": DEPTH * per_layer, "binary_dequant_fastpath": DEPTH * per_layer}),
+        (5, "ring-8 int2", compressed_config("int2"), [("int2", -1, DEPTH)],
+         {"int2_quant_fastpath": DEPTH * per_layer, "int2_dequant_fastpath": DEPTH * per_layer}),
+        (6, "ring-8 low-rank r4", compressed_config("low-rank", comp_rank=4), [("low-rank", 4, DEPTH)], {}),
+        (7, "ring-8 per-layer plan (int8 EF caches)", layer_plan_config(),
+         [("identity", -1, 1), ("int2", -1, 13), ("binary", 2, 14)],
+         {"int2_quant_fastpath": 13 * per_layer, "int2_dequant_fastpath": 13 * per_layer,
+          "binary_quant_fastpath": 14 * per_layer, "binary_dequant_fastpath": 14 * per_layer}),
+    ]
+    for phase, what, compact, plan, expect in runs:
+        r = compressed_phase(phase, what, pipeline(compact), kernels, lossless, expect)
+        r["wire_compression_vs_bf16"] = wire_compression(codecs, plan)
+        print(f"[{phase}] {what}: wire compression vs dense bf16 K/V {r['wire_compression_vs_bf16']:.2f}x")
+        phases[what] = r
 
-    for name, count in counts.items():
+    totals = {fn.__name__: sum(p["launches"][fn.__name__] for p in phases.values()) for fn in kernels}
+    for name, count in totals.items():
         if count == 0:
             raise AssertionError(f"{name} never launched on the main path")
-    src = "compactfusion_tpu_torch/csrc/"
+
+    def quant_entry(codec, which, line):
+        rows = quant_rows[codec]
+        return {"name": f"{codec}_{which}_fastpath", "route": "cuda",
+                "source": f"compactfusion_tpu_torch/csrc/{codec}_quant.cu",
+                "replaces": f"compactfusion_tpu/ops/quant_pallas.py:{line}",
+                "launches": totals[f"{codec}_{which}_fastpath"],
+                "max_abs_err": max(r[f"max_abs_err_{which}"] for r in rows),
+                "ms": rows[0][f"{which}_ms"], "plain_ms": rows[0][f"{which}_plain_ms"],
+                "shapes": rows}
+
     report = {"kernels": [
-        {"name": "flash_attn_with_lse", "route": "cuda", "source": src + "flash_attn.cu",
+        {"name": "flash_attn_with_lse", "route": "cuda",
+         "source": "compactfusion_tpu_torch/csrc/flash_attn.cu",
          "replaces": "compactfusion_tpu/ops/flash_pallas.py:593",
-         "launches": counts["flash_attn_with_lse"],
+         "launches": totals["flash_attn_with_lse"],
          "max_abs_err": max(r["max_abs_err_out"] for r in flash_rows),
          "ms": flash_rows[0]["ms"], "plain_ms": flash_rows[0]["plain_ms"], "shapes": flash_rows},
-        {"name": "binary_quant_fastpath", "route": "cuda", "source": src + "binary_quant.cu",
-         "replaces": "compactfusion_tpu/ops/quant_pallas.py:118",
-         "launches": counts["binary_quant_fastpath"], "max_abs_err": err_q,
-         "ms": qtimes["quant"][0], "plain_ms": qtimes["quant"][1]},
-        {"name": "binary_dequant_fastpath", "route": "cuda", "source": src + "binary_quant.cu",
-         "replaces": "compactfusion_tpu/ops/quant_pallas.py:159",
-         "launches": counts["binary_dequant_fastpath"], "max_abs_err": err_d,
-         "ms": qtimes["dequant"][0], "plain_ms": qtimes["dequant"][1]},
-    ], "s_per_image_lossless": secs, "s_per_image_compressed": sec_c,
-       "compressed_latent_rel_err": rel}
+        quant_entry("binary", "quant", 118), quant_entry("binary", "dequant", 159),
+        quant_entry("int2", "quant", 238), quant_entry("int2", "dequant", 273),
+    ], "phases": phases}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

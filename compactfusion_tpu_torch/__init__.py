@@ -7,10 +7,12 @@ The JAX package stays the reference; this package mirrors its module paths
 ``jax`` or ``compactfusion_tpu``.
 
 Ported so far: the PixArt-alpha 512 text-to-image path on one GPU, with and
-without the single-device compressed-ring emulation (``simulate_ring``).
-Its three TPU kernels are hand-written CUDA C++ under ``csrc/``, built with
-``nvcc`` at first use (``ops/_build.py``).  Anything outside that slice
-raises ``NotImplementedError`` pointing at ``ROADMAP.md``.
+without the single-device compressed-ring emulation (``simulate_ring``),
+with every codec, residual order, int8-quantized EF caches, ``simulate``
+mode and per-layer ``compress_func`` plans.  Its five TPU kernels are
+hand-written CUDA C++ under ``csrc/``, built with ``nvcc`` at first use
+(``ops/_build.py``).  Anything outside that slice raises
+``NotImplementedError`` pointing at ``ROADMAP.md``.
 """
 
 ROADMAP_HINT = "not ported yet; see ROADMAP.md (PyTorch/CUDA port queues)"

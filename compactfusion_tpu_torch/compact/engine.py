@@ -7,9 +7,11 @@ base <- that reconstruction, so their caches stay bit-identical.  The state
 is an explicit :class:`EFState` the caller threads through; these functions
 return new tensors and never write into the state they are given.
 
-The fused CUDA kernels (``ops/quant.py``) take over residual-1 + error
-feedback + BINARY on CUDA tensors.  Quantized caches, ``simulate`` mode and
-the INT2 kernel are not ported yet.
+With ``quantized_cache`` the state's entries are :class:`codecs.Int8Payload`
+(per-channel int8): both sides dequantize to fp32 on entry and requantize
+on exit, so their caches stay identical.  The fused CUDA kernels
+(``ops/quant.py``) take over residual-1 + error feedback + BINARY or INT2 on
+CUDA tensors.
 """
 
 from __future__ import annotations
@@ -18,7 +20,6 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from compactfusion_tpu_torch import ROADMAP_HINT
 from compactfusion_tpu_torch.compact import codecs
 from compactfusion_tpu_torch.config import CompactConfig, CompressType
 
@@ -26,68 +27,104 @@ from compactfusion_tpu_torch.config import CompactConfig, CompressType
 class EFState(NamedTuple):
     """Per-tensor compression state (the reference's base / delta_base pair)."""
 
-    base: torch.Tensor  # (N, C)
-    delta_base: Optional[torch.Tensor]  # (N, C) when residual == 2, else None
+    base: torch.Tensor  # (N, C), or an Int8Payload with quantized caches
+    delta_base: Optional[torch.Tensor]  # like base when residual == 2, else None
 
 
 def init_ef_state(shape: Tuple[int, int], dtype=torch.bfloat16, residual: int = 2,
                   quantized: bool = False, device=None) -> EFState:
-    if quantized:
-        raise NotImplementedError(f"int8-quantized EF caches: {ROADMAP_HINT}")
     z = torch.zeros(shape, dtype=dtype, device=device)
+    if quantized:
+        # both entries quantize, so the state keeps one structure and dtype
+        return EFState(base=codecs.encode_int8(z),
+                       delta_base=codecs.encode_int8(z) if residual == 2 else None)
     return EFState(base=z, delta_base=z.clone() if residual == 2 else None)
+
+
+def _dequant_state(state: EFState) -> EFState:
+    return EFState(*(None if e is None else codecs.decode_int8(e, torch.float32) for e in state))
+
+
+def _requant_state(state: EFState) -> EFState:
+    return EFState(*(None if e is None else codecs.encode_int8(e) for e in state))
 
 
 def _use_fastpath(cfg: CompactConfig, method: CompressType, on_cuda: bool) -> bool:
     """The fused-kernel gate: residual 1 + error feedback + no simulate +
-    BINARY, on a CUDA tensor (the JAX gate asks for the TPU backend)."""
+    BINARY or INT2, on a CUDA tensor (the JAX gate asks for the TPU backend)."""
     if not cfg.fastpath or cfg.simulate:
         return False
     if cfg.residual != 1 or not cfg.error_feedback:
         return False
     if method not in (CompressType.BINARY, CompressType.INT2):
         return False
-    if not on_cuda:
-        return False
-    if method == CompressType.INT2:
-        raise NotImplementedError(f"INT2 fused quant kernel: {ROADMAP_HINT}")
-    return True
+    return on_cuda
 
 
-def _fastpath_compress(x, state: EFState, cfg: CompactConfig, update_cache):
-    from compactfusion_tpu_torch.ops.quant import binary_quant_fastpath
+def _fastpath_compress(x, state: EFState, cfg: CompactConfig, method: CompressType, update_cache):
+    from compactfusion_tpu_torch.ops import quant
 
     delta32 = x.float() - state.base.float()
-    u, v = codecs._scale_uv(delta32, cfg.comp_rank)
+    if method == CompressType.BINARY:
+        u, v = codecs._scale_uv(delta32, cfg.comp_rank)
+        quant_fn, payload_cls = quant.binary_quant_fastpath, codecs.BinaryPayload
+    else:  # INT2 always takes the mean scale, whatever comp_rank is
+        u, v = codecs._mean_scale_uv(delta32)
+        quant_fn, payload_cls = quant.int2_quant_fastpath, codecs.Int2Payload
     u, v = codecs._wire(u), codecs._wire(v)
-    packed, new_base = binary_quant_fastpath(x.contiguous(), state.base, u, v)
+    packed, new_base = quant_fn(x.contiguous(), state.base, u, v)
     if update_cache:
         state = EFState(base=new_base, delta_base=state.delta_base)
-    return codecs.BinaryPayload(packed, u, v), state
+    return payload_cls(packed, u, v), state
 
 
-def _fastpath_decompress(payload, state: EFState, update_cache):
-    from compactfusion_tpu_torch.ops.quant import binary_dequant_fastpath
+def _fastpath_decompress(payload, state: EFState, method: CompressType, update_cache):
+    from compactfusion_tpu_torch.ops import quant
 
-    x_hat = binary_dequant_fastpath(payload.packed, state.base, payload.scale_u, payload.scale_v)
+    dequant = quant.binary_dequant_fastpath if method == CompressType.BINARY else quant.int2_dequant_fastpath
+    x_hat = dequant(payload.packed, state.base, payload.scale_u, payload.scale_v)
     if update_cache:
         state = EFState(base=x_hat, delta_base=state.delta_base)
     return x_hat, state
 
 
-def _check_supported(cfg: CompactConfig) -> None:
-    if cfg.quantized_cache:
-        raise NotImplementedError(f"quantized_cache: {ROADMAP_HINT}")
+def _encode(x, cfg: CompactConfig, method: CompressType, awl_scale=None):
+    kw = dict(rank=cfg.comp_rank, sparse_ratio=cfg.sparse_ratio, awl_scale=awl_scale)
     if cfg.simulate:
-        raise NotImplementedError(f"simulate mode (sim_roundtrip codecs): {ROADMAP_HINT}")
+        # simulate mode sends the dense round-tripped tensor
+        return codecs.sim_roundtrip(x, method, **kw)
+    return codecs.encode(x, method, **kw)
+
+
+def _decode(payload, cfg: CompactConfig, method: CompressType, dtype):
+    if cfg.simulate:
+        return payload.to(dtype)
+    return codecs.decode(payload, method, dtype=dtype, sparse_ratio=cfg.sparse_ratio)
+
+
+def _decay(delta_base: torch.Tensor, cfg: CompactConfig) -> torch.Tensor:
+    """delta_base * decay with the factor rounded to the state's dtype first,
+    as the JAX package multiplies: a Python float would enter a bf16 product
+    unrounded.  A 0-dim CPU factor takes part in a CUDA product as a scalar,
+    with no copy to the device."""
+    return delta_base * torch.tensor(cfg.delta_decay_factor, dtype=delta_base.dtype)
 
 
 def ef_compress(x: torch.Tensor, state: EFState, cfg: CompactConfig, method: CompressType,
-                update_cache: bool = True):
+                update_cache: bool = True, awl_scale: Optional[torch.Tensor] = None):
     """Sender side: compress ``x`` against ``state`` -> (payload, new_state).
 
-    For WARMUP/IDENTITY the payload is the raw tensor."""
-    _check_supported(cfg)
+    For WARMUP/IDENTITY the payload is the raw tensor.  ``awl_scale``: (N,)
+    row weights for LOW_RANK_AWL (sender only; the receiver needs none)."""
+    if cfg.quantized_cache:
+        payload, new = _ef_compress_raw(x, _dequant_state(state), cfg, method, update_cache,
+                                        awl_scale)
+        return payload, (_requant_state(new) if update_cache else state)
+    return _ef_compress_raw(x, state, cfg, method, update_cache, awl_scale)
+
+
+def _ef_compress_raw(x, state: EFState, cfg: CompactConfig, method: CompressType,
+                     update_cache: bool, awl_scale):
     dtype = state.base.dtype
     x = x.to(dtype)
 
@@ -102,25 +139,24 @@ def ef_compress(x: torch.Tensor, state: EFState, cfg: CompactConfig, method: Com
         return x, state
 
     if cfg.residual == 0:
-        return codecs.encode(x, method, rank=cfg.comp_rank), state
+        return _encode(x, cfg, method, awl_scale), state
 
     if cfg.residual == 1:
         if _use_fastpath(cfg, method, x.is_cuda):
-            return _fastpath_compress(x, state, cfg, update_cache)
-        payload = codecs.encode(x - state.base, method, rank=cfg.comp_rank)
-        reconstructed = state.base + codecs.decode(payload, method, dtype=dtype)
+            return _fastpath_compress(x, state, cfg, method, update_cache)
+        payload = _encode(x - state.base, cfg, method, awl_scale)
+        reconstructed = state.base + _decode(payload, cfg, method, dtype)
         if update_cache:
             new_base = reconstructed if cfg.error_feedback else x
             state = EFState(base=new_base, delta_base=state.delta_base)
         return payload, state
 
     # residual == 2: second-order delta with decay
-    payload = codecs.encode(x - state.base - state.delta_base, method, rank=cfg.comp_rank)
-    rdd = codecs.decode(payload, method, dtype=dtype)
+    payload = _encode(x - state.base - state.delta_base, cfg, method, awl_scale)
+    rdd = _decode(payload, cfg, method, dtype)
     new_base = state.base + state.delta_base + rdd
-    new_delta_base = (state.delta_base + rdd) * cfg.delta_decay_factor
     if update_cache:
-        state = EFState(base=new_base, delta_base=new_delta_base)
+        state = EFState(base=new_base, delta_base=_decay(state.delta_base + rdd, cfg))
     return payload, state
 
 
@@ -128,7 +164,14 @@ def ef_decompress(payload, state: EFState, cfg: CompactConfig, method: CompressT
                   update_cache: bool = True):
     """Receiver side -> (x_hat, new_state); new_state equals the sender's
     (the error-feedback consistency invariant)."""
-    _check_supported(cfg)
+    if cfg.quantized_cache:
+        x_hat, new = _ef_decompress_raw(payload, _dequant_state(state), cfg, method, update_cache)
+        return x_hat, (_requant_state(new) if update_cache else state)
+    return _ef_decompress_raw(payload, state, cfg, method, update_cache)
+
+
+def _ef_decompress_raw(payload, state: EFState, cfg: CompactConfig, method: CompressType,
+                       update_cache: bool):
     dtype = state.base.dtype
 
     if method == CompressType.WARMUP:
@@ -142,19 +185,18 @@ def ef_decompress(payload, state: EFState, cfg: CompactConfig, method: CompressT
         return payload.to(dtype), state
 
     if cfg.residual == 0:
-        return codecs.decode(payload, method, dtype=dtype), state
+        return _decode(payload, cfg, method, dtype), state
 
     if cfg.residual == 1:
         if _use_fastpath(cfg, method, state.base.is_cuda):
-            return _fastpath_decompress(payload, state, update_cache)
-        reconstructed = state.base + codecs.decode(payload, method, dtype=dtype)
+            return _fastpath_decompress(payload, state, method, update_cache)
+        reconstructed = state.base + _decode(payload, cfg, method, dtype)
         if update_cache:
             state = EFState(base=reconstructed, delta_base=state.delta_base)
         return reconstructed, state
 
-    rdd = codecs.decode(payload, method, dtype=dtype)
+    rdd = _decode(payload, cfg, method, dtype)
     reconstructed = state.base + state.delta_base + rdd
-    new_delta_base = (state.delta_base + rdd) * cfg.delta_decay_factor
     if update_cache:
-        state = EFState(base=reconstructed, delta_base=new_delta_base)
+        state = EFState(base=reconstructed, delta_base=_decay(state.delta_base + rdd, cfg))
     return reconstructed, state

@@ -38,12 +38,14 @@ def tree_map(fn, *trees):
 def init_ring_state(ring_size: int, tokens: int, channels: int, dtype=torch.bfloat16,
                     residual: int = 1, quantized: bool = False, device=None,
                     layers: int = 0) -> CompactRingState:
-    """Zero caches with leaves (R, N, C), or (layers, R, N, C) when ``layers``."""
+    """Initial caches with leaves (R, N, C), or (layers, R, N, C) when
+    ``layers``; with ``quantized`` each entry is an ``Int8Payload`` of the
+    zero cache (its scale is not 0, so the slots are copies of one slot)."""
     lead = (layers, ring_size) if layers else (ring_size,)
     one = init_ef_state((tokens, channels), dtype, residual, quantized, device)
 
     def stacked(a):
-        return a.new_zeros(lead + tuple(a.shape))
+        return a.expand(lead + tuple(a.shape)).clone(memory_format=torch.contiguous_format)
 
     return CompactRingState(k=tree_map(stacked, one), v=tree_map(stacked, one))
 
@@ -55,6 +57,7 @@ def _slot(state: EFState, i: int) -> EFState:
 
 def _set_slot(state: EFState, i: int, new: EFState) -> EFState:
     """Write ``new`` into ring slot i IN PLACE (the stack is reused rather
-    than copied per update, which keeps one (R, N, C) buffer per layer)."""
+    than copied per update, which keeps one (R, N, C) buffer per layer).
+    Works leaf by leaf, so int8-quantized entries update the same way."""
     tree_map(lambda a, n: a[i].copy_(n), state, new)
     return state

@@ -20,32 +20,13 @@
 // (the error-feedback consistency invariant the ring emulation relies on).
 // delta >= 0 maps to +1, -0.0 included.  Needs C % 8 == 0; any N.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "quant_common.cuh"
 
 namespace {
 
-__device__ inline float to_f(float x) { return x; }
-__device__ inline float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ inline T from_f(float x);
-template <>
-__device__ inline float from_f<float>(float x) { return x; }
-template <>
-__device__ inline __nv_bfloat16 from_f<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
-
-__device__ inline float scale_at(const __nv_bfloat16* __restrict__ u,
-                                 const __nv_bfloat16* __restrict__ v, int n, int c, int C,
-                                 int K) {
-  float s = 0.f;
-  for (int kk = 0; kk < K; ++kk) {
-    s += __bfloat162float(u[static_cast<long long>(n) * K + kk]) *
-         __bfloat162float(v[static_cast<long long>(kk) * C + c]);
-  }
-  return s;
-}
+using cfq::from_f;
+using cfq::scale_at;
+using cfq::to_f;
 
 template <typename TX, typename TB>
 __global__ void binary_quant_kernel(const TX* __restrict__ x, const TB* __restrict__ base,
@@ -95,17 +76,10 @@ __global__ void binary_dequant_kernel(const uint8_t* __restrict__ packed,
   }
 }
 
-constexpr int kThreads = 256;
-
-inline unsigned int n_blocks(int N, int C) {
-  const long long total = static_cast<long long>(N) * (C / 8);
-  return static_cast<unsigned int>((total + kThreads - 1) / kThreads);
-}
-
 template <typename TX, typename TB>
 void quant(const void* x, const void* base, const void* u, const void* v, void* packed,
            void* new_base, int N, int C, int K, cudaStream_t st) {
-  binary_quant_kernel<TX, TB><<<n_blocks(N, C), kThreads, 0, st>>>(
+  binary_quant_kernel<TX, TB><<<cfq::n_blocks(N, C, 8), cfq::kThreads, 0, st>>>(
       static_cast<const TX*>(x), static_cast<const TB*>(base),
       static_cast<const __nv_bfloat16*>(u), static_cast<const __nv_bfloat16*>(v),
       static_cast<uint8_t*>(packed), static_cast<TB*>(new_base), N, C, K);
@@ -114,7 +88,7 @@ void quant(const void* x, const void* base, const void* u, const void* v, void* 
 template <typename TB>
 void dequant(const void* packed, const void* base, const void* u, const void* v, void* out,
              int N, int C, int K, cudaStream_t st) {
-  binary_dequant_kernel<TB><<<n_blocks(N, C), kThreads, 0, st>>>(
+  binary_dequant_kernel<TB><<<cfq::n_blocks(N, C, 8), cfq::kThreads, 0, st>>>(
       static_cast<const uint8_t*>(packed), static_cast<const TB*>(base),
       static_cast<const __nv_bfloat16*>(u), static_cast<const __nv_bfloat16*>(v),
       static_cast<TB*>(out), N, C, K);

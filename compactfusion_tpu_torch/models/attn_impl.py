@@ -15,6 +15,7 @@ import dataclasses
 import torch
 
 from compactfusion_tpu_torch import ROADMAP_HINT
+from compactfusion_tpu_torch.compact import codecs
 from compactfusion_tpu_torch.compact.engine import ef_compress, ef_decompress
 from compactfusion_tpu_torch.compact.ring import CompactRingState, _set_slot, _slot, init_ring_state
 from compactfusion_tpu_torch.config import CompactConfig, CompressType
@@ -55,7 +56,8 @@ class SimRingAttn:
     ring_size: int
 
     def init_state(self, n_layers, batch, seq_local, heads, head_dim, dtype, device=None):
-        """EF caches with leaves (L, R, N, C), N = batch * S / R, C = H * D."""
+        """EF caches with leaves (L, R, N, C), N = batch * S / R, C = H * D
+        (``Int8Payload`` entries with ``cfg.quantized_cache``)."""
         if seq_local % self.ring_size:
             raise ValueError(f"sequence {seq_local} does not split into {self.ring_size} chunks")
         n = batch * (seq_local // self.ring_size)
@@ -79,8 +81,12 @@ class SimRingAttn:
         recon_k, recon_v = [], []
         for j in range(R):
             k_st, v_st = _slot(state.k, j), _slot(state.v, j)
-            pk, k_new = ef_compress(k_chunks[j].reshape(b * sc, h * d), k_st, self.cfg, self.method)
-            pv, v_new = ef_compress(v_chunks[j].reshape(b * sc, h * d), v_st, self.cfg, self.method)
+            v_nc = v_chunks[j].reshape(b * sc, h * d)
+            # AWL: key-importance weights from the local V, for the K fit only
+            awl = codecs.awl_row_scale(v_nc) if self.method == CompressType.LOW_RANK_AWL else None
+            pk, k_new = ef_compress(k_chunks[j].reshape(b * sc, h * d), k_st, self.cfg, self.method,
+                                    awl_scale=awl)
+            pv, v_new = ef_compress(v_nc, v_st, self.cfg, self.method)
             # receiver view from the PRE-compress state: identical to the
             # sender's new base (the EF consistency invariant); taken before
             # the in-place slot write below overwrites that state

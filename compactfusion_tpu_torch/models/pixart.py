@@ -138,15 +138,23 @@ def pixart_forward(
     x: (B, S, p*p*C); t: (B,) timesteps; text: (B, S_text, text_dim) (ignored
     when ``text_kv`` from :func:`precompute_text_kv` is given); pos_embed
     (S, dim); attn_state: per-layer state stacked on a leading layer axis
-    (updated in place by the compressing strategies).  Returns
-    (out (B, S, p*p*out_channels), attn_state).
+    (updated in place by the compressing strategies).  A per-layer
+    compression plan passes ``attn`` as a tuple of ``(strategy, n_layers)``
+    segments covering the blocks in order, and ``attn_state`` as a tuple of
+    their states.  Returns (out (B, S, p*p*out_channels), attn_state).
     """
     if cache_cfg is not None and getattr(cache_cfg, "mode", "none") != "none":
         raise NotImplementedError(f"TeaCache/FBCache: {ROADMAP_HINT}")
     if pp_stages > 1:
         raise NotImplementedError(f"PipeFusion (pp_stages > 1): {ROADMAP_HINT}")
     if isinstance(attn, (tuple, list)):
-        raise NotImplementedError(f"per-layer compression plans: {ROADMAP_HINT}")
+        # per-layer plan: (strategy, n_layers) segments, one state each
+        layers = [(seg_attn, seg_state, seg_l)
+                  for (seg_attn, n_l), seg_state in zip(attn, attn_state) for seg_l in range(n_l)]
+        if len(layers) != cfg.depth:
+            raise ValueError(f"layer segments cover {len(layers)} of {cfg.depth} blocks")
+    else:
+        layers = [(attn, attn_state, l) for l in range(cfg.depth)]
     d, h = cfg.dim, cfg.heads
 
     x = pixart_embed(params, x, pos_embed, cfg)
@@ -159,7 +167,7 @@ def pixart_forward(
     kv_lens = None if text_mask is None else text_mask.sum(dim=-1).to(torch.int32)
 
     blocks = params["blocks"]
-    for l in range(cfg.depth):
+    for l, (layer_attn, seg_state, seg_l) in enumerate(layers):
         p = _layer(blocks, l)
         table = p["scale_shift_table"][None] + mod6  # (B, 6, d)
         sh_a, sc_a, g_a, sh_m, sc_m, g_m = [table[:, i][:, None] for i in range(6)]
@@ -167,7 +175,7 @@ def pixart_forward(
         # self attention (AdaLN-single)
         xn = cm.layernorm({}, x) * (1 + sc_a) + sh_a
         q, k, v = cm.linear(p["attn_qkv"], xn).split(d, dim=-1)
-        o, _ = attn(_heads(q, h), _heads(k, h), _heads(v, h), _layer(attn_state, l))
+        o, _ = layer_attn(_heads(q, h), _heads(k, h), _heads(v, h), _layer(seg_state, seg_l))
         x = x + g_a * cm.linear(p["attn_out"], _unheads(o))
 
         # cross attention to text

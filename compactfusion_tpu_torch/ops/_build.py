@@ -1,10 +1,11 @@
 """Build the CUDA kernels under ``csrc/`` with ``nvcc`` and load them.
 
-Route: a plain C interface compiled into one shared library and bound with
-``ctypes`` (no PyTorch headers, so the build takes seconds).  The library
-goes to ``build/kernels/`` at the root of the checkout, named after a hash of
-the sources and flags, so an edited kernel rebuilds and an unchanged one is
-loaded as it is.  Nothing here runs at import time.
+Route: a plain C interface, one ``nvcc -c`` per source run in parallel and
+linked into one shared library bound with ``ctypes`` (no PyTorch headers,
+so the build takes seconds).  The library goes to ``build/kernels/`` at the
+root of the checkout, named after a hash of the sources and flags, so an
+edited kernel rebuilds and an unchanged one is loaded as it is.  Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: seconds the last build took (0.0 when the library was already built)
 last_build_seconds = 0.0
@@ -53,6 +54,36 @@ def library_path() -> Path:
     return BUILD_DIR / f"libcftorch_{h.hexdigest()[:16]}.so"
 
 
+def _compile(out: Path) -> str:
+    """One ``nvcc -c`` per source, all started together, then one link;
+    returns what the compiler printed."""
+    obj_dir = out.with_name(f"{out.stem}.{os.getpid()}.objs")
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    cus = sorted(CSRC.glob("*.cu"))
+    objs = [obj_dir / f"{cu.stem}.o" for cu in cus]
+    procs = [
+        subprocess.Popen([_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", str(obj), str(cu)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cu, obj in zip(cus, objs)
+    ]
+    log, failed = "", []
+    for cu, proc in zip(cus, procs):
+        log += proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(cu.name)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    link = subprocess.run([_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    log += link.stdout + link.stderr
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+    os.replace(tmp, out)
+    shutil.rmtree(obj_dir, ignore_errors=True)
+    return log
+
+
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; one load per process."""
@@ -60,16 +91,9 @@ def load() -> ctypes.CDLL:
     out = library_path()
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cus = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-        cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cus]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        last_build_log = _compile(out)
         last_build_seconds = time.perf_counter() - t0
-        last_build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{last_build_log}")
-        os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     _declare(lib)
     return lib
@@ -89,20 +113,22 @@ def _declare(lib: ctypes.CDLL) -> None:
         P,                # stream
     ]
     lib.cf_flash_attn_bf16.restype = I
-    lib.cf_binary_quant.argtypes = [
-        P, P, P, P, P, P,  # x, base, u, v, packed, new_base
-        I, I, I,           # N, C, K
-        I, I,              # x is bf16, base is bf16
-        P,                 # stream
-    ]
-    lib.cf_binary_quant.restype = I
-    lib.cf_binary_dequant.argtypes = [
-        P, P, P, P, P,     # packed, base, u, v, out
-        I, I, I,           # N, C, K
-        I,                 # base (and out) is bf16
-        P,                 # stream
-    ]
-    lib.cf_binary_dequant.restype = I
+    for codec in ("binary", "int2"):
+        quant, dequant = getattr(lib, f"cf_{codec}_quant"), getattr(lib, f"cf_{codec}_dequant")
+        quant.argtypes = [
+            P, P, P, P, P, P,  # x, base, u, v, packed, new_base
+            I, I, I,           # N, C, K
+            I, I,              # x is bf16, base is bf16
+            P,                 # stream
+        ]
+        quant.restype = I
+        dequant.argtypes = [
+            P, P, P, P, P,     # packed, base, u, v, out
+            I, I, I,           # N, C, K
+            I,                 # base (and out) is bf16
+            P,                 # stream
+        ]
+        dequant.restype = I
     lib.cf_error_string.argtypes = [I]
     lib.cf_error_string.restype = ctypes.c_char_p
 

@@ -2,8 +2,8 @@
 
 Single-device subset: CFG as a doubled batch, latent noise from a
 ``torch.Generator``, EF state carried across step segments, and the
-layer-uniform compression schedule.  The cfg-parallel exchange and
-per-layer ``compress_func`` plans are not ported yet.
+compression schedule, layer-uniform or per-layer (``compress_func``).  The
+cfg-parallel exchange is not ported yet.
 """
 
 from __future__ import annotations
@@ -47,8 +47,9 @@ def _has_leaves(tree) -> bool:
 
 def carry_ef_state(prev, make_fresh, device):
     """The EF cache to enter a step segment with: ``prev`` (EF continues
-    across the warmup/steady boundary) when it has the structure of the
-    segment's own state, else ``make_fresh(device)``.  That structure is read
+    across the warmup/steady or per-layer-plan boundary) when it has the
+    structure of the segment's own state (the same layer segments, the same
+    int8 or dense entries), else ``make_fresh(device)``.  That structure is read
     from a build on the "meta" device, so carrying ``prev`` allocates
     nothing."""
     if (prev is not None and _has_leaves(prev)
@@ -57,14 +58,30 @@ def carry_ef_state(prev, make_fresh, device):
     return make_fresh(device)
 
 
+def layer_plan_segments(plans, depth: int):
+    """One layer segmentation shared by every step: ``((l0, l1), ...)`` with
+    bounds at every layer where any step's plan changes method, so the EF
+    state keeps one structure across step segments and carries through."""
+    bounds = {0, depth}
+    for plan in plans:
+        bounds.update(l for l in range(1, depth) if plan[l] != plan[l - 1])
+    edges = sorted(bounds)
+    return tuple(zip(edges[:-1], edges[1:]))
+
+
 def compact_layer_segments(compact, num_steps: int, depth: int):
-    """``[(method-or-None, [step, ...]), ...]``: contiguous runs of steps that
-    share one layer-uniform method (None = compression off)."""
+    """``[(plan, [step, ...]), ...]``: contiguous runs of steps that share
+    one plan.  ``plan`` is None (compression off), one CompressType for every
+    layer, or, with a per-layer ``compress_func``, a tuple of
+    ``(method, n_layers)`` segments over the shared segmentation."""
     if compact.enabled and compact.compress_func is not None:
-        raise NotImplementedError(f"per-layer compress_func plans: {ROADMAP_HINT}")
+        plans = [compact.layer_plan(s, depth) for s in range(num_steps)]
+        ranges = layer_plan_segments(plans, depth)
+        schedule = [tuple((plan[l0], l1 - l0) for l0, l1 in ranges) for plan in plans]
+    else:
+        schedule = [compact.type_at(0, s) if compact.enabled else None for s in range(num_steps)]
     segments = []
-    for s in range(num_steps):
-        m = compact.type_at(0, s) if compact.enabled else None
+    for s, m in enumerate(schedule):
         if segments and segments[-1][0] == m:
             segments[-1][1].append(s)
         else:

@@ -6,7 +6,9 @@ table, then the VAE decode.  With ``CompactConfig(enabled=True,
 simulate_ring=R)`` every self-attention runs the single-device
 compressed-ring emulation (``SimRingAttn``); its EF caches carry from the
 warmup steps into the compressed steps.  Parallel degrees > 1, the cache
-accelerators, DiTFastAttn and PipeFusion are not ported yet.
+accelerators, DiTFastAttn and PipeFusion are not ported yet.  A per-layer
+``compress_func`` plan runs one ``SimRingAttn`` per contiguous layer
+segment, each with its own EF state.
 """
 
 from __future__ import annotations
@@ -137,14 +139,22 @@ class PixArtPipeline:
         # cross K/V once per image, kept in the model dtype
         text_kv = precompute_text_kv(self.params, text).to(m.dtype)
         attn_state = None
-        for method, steps in base.compact_layer_segments(cfg.compact, cfg.num_steps, m.depth):
-            attn = _attn_impl(cfg, method)
-            attn_state = base.carry_ef_state(
-                attn_state,
-                lambda dev, attn=attn: attn.init_state(m.depth, n_model_batch, cfg.tokens, m.heads,
-                                                       m.head_dim, torch.float32, dev),
-                self.device,
-            )
+        for plan, steps in base.compact_layer_segments(cfg.compact, cfg.num_steps, m.depth):
+            if isinstance(plan, tuple) and len(plan) > 1:
+                # per-layer plan: one strategy and one EF state per layer segment
+                attn = tuple((_attn_impl(cfg, method), n_l) for method, n_l in plan)
+            else:
+                attn = _attn_impl(cfg, plan[0][0] if isinstance(plan, tuple) else plan)
+
+            def fresh(dev, attn=attn):
+                def init(a, n_layers):
+                    return a.init_state(n_layers, n_model_batch, cfg.tokens, m.heads, m.head_dim,
+                                        torch.float32, dev)
+                if isinstance(attn, tuple):
+                    return tuple(init(a, n_l) for a, n_l in attn)
+                return init(attn, m.depth)
+
+            attn_state = base.carry_ef_state(attn_state, fresh, self.device)
             for i in steps:
                 t = torch.full((n_model_batch,), float(self.sched.timesteps[i]),
                                dtype=torch.float32, device=self.device)

@@ -1,10 +1,13 @@
-"""Port's error-feedback engine vs the JAX package, on a 3-step sequence.
+"""Port's error-feedback engine vs the JAX package, on short step sequences.
 
-Steps: WARMUP, then BINARY twice, on slowly drifting activations (the
-temporal coherence the residual codecs exploit).  Both sides run the codec
-path on the CPU.  Packed payloads must match byte for byte; bases and
-reconstructions agree to 1e-5 relative: fp32 on both sides, with the bf16
-scale factors equal or one bf16 ulp apart (see test_torch_quant.py).
+Steps: WARMUP, then a codec, on slowly drifting activations (the temporal
+coherence the residual codecs exploit), for residual 0/1/2 on fp32 and bf16
+states, int8-quantized caches and ``simulate`` mode.  Both sides run the
+codec path on the CPU.  Packed payloads must match byte for byte; bases and
+reconstructions agree to 1e-5 relative: the same arithmetic on both sides,
+with the bf16 scale factors equal or one bf16 ulp apart (see
+test_torch_quant.py); 1e-4 where a low-rank fit is involved
+(test_torch_lowrank.py).
 """
 
 import dataclasses
@@ -17,8 +20,10 @@ import torch
 from compactfusion_tpu import config as jconfig
 from compactfusion_tpu.compact import engine as jengine
 from compactfusion_tpu_torch import config as tconfig
+from compactfusion_tpu_torch.compact import codecs as tcodecs
 from compactfusion_tpu_torch.compact import engine as tengine
 from compactfusion_tpu_torch.compact.ring import _set_slot, _slot, init_ring_state
+from compactfusion_tpu_torch.models.attn_impl import SimRingAttn
 
 REL = 1e-5
 N, C = 64, 128
@@ -51,13 +56,21 @@ def _fields(payload):
     return [_np(f) for f in payload] if isinstance(payload, tuple) else [_np(payload)]
 
 
-@pytest.mark.parametrize("residual", [0, 1, 2])
-def test_ef_sequence_matches_jax(residual):
+@pytest.mark.parametrize("residual,dtype", [
+    pytest.param(0, "float32", id="0"),
+    pytest.param(1, "float32", id="1"),
+    pytest.param(2, "float32", id="2"),
+    pytest.param(2, "bfloat16", id="2-bf16"),
+])
+def test_ef_sequence_matches_jax(residual, dtype):
+    """The bf16 residual-2 case holds the decay multiply: the JAX package
+    rounds the factor to bf16 before the product; both sides then round
+    every bf16 operation alike, so the same bound holds."""
     kw = dict(enabled=True, warmup_steps=1, residual=residual, error_feedback=residual != 0)
     jcfg = jconfig.CompactConfig(compress_type=jconfig.CompressType.BINARY, **kw)
     tcfg = tconfig.CompactConfig(compress_type=tconfig.CompressType.BINARY, **kw)
-    jst = jengine.init_ef_state((N, C), jnp.float32, residual)
-    tst = tengine.init_ef_state((N, C), torch.float32, residual)
+    jst = jengine.init_ef_state((N, C), getattr(jnp, dtype), residual)
+    tst = tengine.init_ef_state((N, C), getattr(torch, dtype), residual)
     trecv = tst
     for step, x in enumerate(_steps(seed=residual)):
         jm = jcfg.type_at(0, step)
@@ -73,31 +86,44 @@ def test_ef_sequence_matches_jax(residual):
                 np.testing.assert_array_equal(tf, jf)
             else:  # raw tensors equal; bf16 scales at most one ulp (2^-7 rel) apart
                 assert np.all(np.abs(tf - jf) <= 2.0**-7 * np.abs(jf))
-        assert _rel(that.numpy(), jhat) <= REL
-        assert _rel(tst_new.base.numpy(), jst_new.base) <= REL
+        assert _rel(_np(that), _np(jhat)) <= REL
+        assert _rel(_np(tst_new.base), _np(jst_new.base)) <= REL
         if residual == 2:
-            assert _rel(tst_new.delta_base.numpy(), jst_new.delta_base) <= REL
+            assert _rel(_np(tst_new.delta_base), _np(jst_new.delta_base)) <= REL
         # the receiver's cache equals the sender's, bit for bit
         assert torch.equal(trecv.base, tst_new.base)
         jst, tst = jst_new, tst_new
 
 
 def test_fastpath_compress_matches_codec_path():
-    """The fused path (the kernel's twin on the CPU) gives the codec path's
-    payload bytes and base."""
+    """The fused path (the kernels' twins on the CPU) gives the codec path's
+    payload bytes and base for BINARY.  For INT2 the fused path thresholds on
+    the wire-rounded scale and ``encode_int2`` on the fp32 one, so codes may
+    differ where |delta| lies between the two; the fused payload decodes with
+    the codec's decoder to the fused base update (bound 1e-6: one fp32 add)."""
     cfg = tconfig.CompactConfig(enabled=True, warmup_steps=0)
+    B, I2 = tconfig.CompressType.BINARY, tconfig.CompressType.INT2
     x0, x1, _ = _steps(seed=7)
     st = tengine.EFState(base=torch.from_numpy(x0), delta_base=None)
-    pay_f, st_f = tengine._fastpath_compress(torch.from_numpy(x1), st, cfg, True)
-    pay_c, st_c = tengine.ef_compress(torch.from_numpy(x1), st, cfg, tconfig.CompressType.BINARY)
+    pay_f, st_f = tengine._fastpath_compress(torch.from_numpy(x1), st, cfg, B, True)
+    pay_c, st_c = tengine.ef_compress(torch.from_numpy(x1), st, cfg, B)
     assert torch.equal(pay_f.packed, pay_c.packed)
     assert torch.equal(pay_f.scale_u, pay_c.scale_u) and torch.equal(pay_f.scale_v, pay_c.scale_v)
     assert _rel(st_f.base.numpy(), st_c.base.numpy()) <= 1e-6
-    hat, _ = tengine._fastpath_decompress(pay_f, st, True)
+    hat, _ = tengine._fastpath_decompress(pay_f, st, B, True)
     assert torch.equal(hat, st_f.base)
+
+    pay_i, st_i = tengine._fastpath_compress(torch.from_numpy(x1), st, cfg, I2, True)
+    assert isinstance(pay_i, tcodecs.Int2Payload) and pay_i.packed.shape == (N, C // 4)
+    assert _rel((st.base + tcodecs.decode_int2(pay_i)).numpy(), st_i.base.numpy()) <= 1e-6
+    hat, _ = tengine._fastpath_decompress(pay_i, st, I2, True)
+    assert torch.equal(hat, st_i.base)
 
 
 def test_fastpath_gate():
+    """The gate of the fused kernels: residual 1 + EF, BINARY or INT2, no
+    simulate, CUDA tensors.  Quantized caches and INT2 are ported; the
+    ``log_stats`` taps of the ring emulation are not and still raise."""
     cfg = tconfig.CompactConfig(enabled=True)
     B, I2 = tconfig.CompressType.BINARY, tconfig.CompressType.INT2
     assert tengine._use_fastpath(cfg, B, on_cuda=True)
@@ -106,13 +132,14 @@ def test_fastpath_gate():
     assert not tengine._use_fastpath(dataclasses.replace(cfg, residual=2), B, True)
     assert not tengine._use_fastpath(
         dataclasses.replace(cfg, residual=0, error_feedback=False), B, True)
+    assert tengine._use_fastpath(cfg, I2, on_cuda=True)
+    assert not tengine._use_fastpath(dataclasses.replace(cfg, simulate=True), I2, True)
+    assert not tengine._use_fastpath(cfg, tconfig.CompressType.LOW_RANK, True)
+    st = tengine.init_ef_state((4, 8), quantized=True)
+    assert isinstance(st.base, tcodecs.Int8Payload) and isinstance(st.delta_base, tcodecs.Int8Payload)
     with pytest.raises(NotImplementedError):
-        tengine._use_fastpath(cfg, I2, on_cuda=True)
-    with pytest.raises(NotImplementedError):
-        tengine.init_ef_state((4, 8), quantized=True)
-    with pytest.raises(NotImplementedError):
-        tengine.ef_compress(torch.zeros(4, 8), tengine.init_ef_state((4, 8), residual=1),
-                            dataclasses.replace(cfg, quantized_cache=True), B)
+        SimRingAttn(dataclasses.replace(cfg, log_stats=True), B, 2)(
+            *(torch.zeros(1, 4, 1, 8) for _ in range(3)), init_ring_state(2, 2, 8, torch.float32))
 
 
 def test_ring_slots_update_in_place():
@@ -172,3 +199,94 @@ def test_attention_strategies_match_jax(joint):
     with pytest.raises(NotImplementedError):
         tattn.SimRingAttn(dataclasses.replace(tcfg, log_stats=True), tm, 2)(
             *map(torch.from_numpy, (q, k, v)), tst)
+
+
+def _tree_np(state):
+    """An EF state as numpy leaves, Int8Payload entries decoded to fp32."""
+    out = []
+    for e in state:
+        if e is None:
+            out.append(None)
+        elif isinstance(e, tuple):  # Int8Payload: q * scale + min
+            q, scale, mn = (_np(f) for f in e)
+            out.append(q.astype(np.float32) * scale + mn)
+        else:
+            out.append(_np(e))
+    return out
+
+
+# (mode, codec, residual, comp_rank); bounds as test_ef_sequence_matches_jax,
+# 1e-4 for the low-rank codecs (test_torch_lowrank.py)
+MODES = [
+    ("quantized", "binary", 1, -1), ("quantized", "int2", 1, -1), ("quantized", "binary", 2, -1),
+    ("quantized", "low-rank", 1, 2), ("quantized", "sparse", 1, -1),
+    ("simulate", "binary", 1, 2), ("simulate", "int2", 0, -1), ("simulate", "int2", 1, -1),
+    ("simulate", "int2", 2, -1), ("simulate", "int2-minmax", 1, -1), ("simulate", "int4", 1, -1),
+    ("simulate", "int8", 1, -1), ("simulate", "low-rank", 1, 2), ("simulate", "low-rank-awl", 1, 2),
+    ("simulate", "low-rank-int4", 2, 2), ("simulate", "sparse", 1, -1),
+]
+
+
+@pytest.mark.parametrize("mode,codec,residual,rank", MODES)
+def test_ef_modes_match_jax(mode, codec, residual, rank, monkeypatch):
+    """int8-quantized caches and ``simulate`` mode over 2 WARMUP + 3 codec
+    steps: payloads (dense in simulate mode), reconstructions and states
+    agree with the JAX engine, and the receiver's state equals the
+    sender's leaf for leaf."""
+    from tests.test_torch_lowrank import use_jax_init_q
+
+    use_jax_init_q(monkeypatch)
+    rel = 1e-4 if codec.startswith("low-rank") or rank > 0 else REL
+    kw = dict(enabled=True, warmup_steps=2, residual=residual, error_feedback=residual != 0,
+              comp_rank=rank, quantized_cache=mode == "quantized", simulate=mode == "simulate")
+    jcfg = jconfig.CompactConfig(compress_type=jconfig.CompressType(codec), **kw)
+    tcfg = tconfig.CompactConfig(compress_type=tconfig.CompressType(codec), **kw)
+    jst = jengine.init_ef_state((N, C), jnp.float32, residual, quantized=kw["quantized_cache"])
+    tst = tengine.init_ef_state((N, C), torch.float32, residual, quantized=kw["quantized_cache"])
+    trecv = tst
+    rng = np.random.default_rng(len(codec) + residual)
+    awl = (rng.random(N) + 0.5).astype(np.float32) if codec == "low-rank-awl" else None
+    x = rng.standard_normal((N, C)).astype(np.float32)
+    for step in range(5):
+        x = x + 0.1 * rng.standard_normal((N, C)).astype(np.float32)
+        jm, tm = jcfg.type_at(0, step), tcfg.type_at(0, step)
+        jpay, jst_new = jengine.ef_compress(jnp.asarray(x), jst, jcfg, jm,
+                                            awl_scale=None if awl is None else jnp.asarray(awl))
+        jhat, _ = jengine.ef_decompress(jpay, jst, jcfg, jm)
+        tpay, tst_new = tengine.ef_compress(torch.from_numpy(x), tst, tcfg, tm,
+                                            awl_scale=None if awl is None else torch.from_numpy(awl))
+        that, trecv = tengine.ef_decompress(tpay, trecv, tcfg, tm)
+        if isinstance(tpay, torch.Tensor):
+            assert _rel(_np(tpay), _np(jpay)) <= rel, step
+        assert _rel(_np(that), _np(jhat)) <= rel, step
+        for t, j in zip(_tree_np(tst_new), _tree_np(jst_new)):
+            assert (t is None) == (j is None)
+            if t is not None:
+                assert _rel(t, j) <= rel, step
+        for t, r in zip(ring_leaves(tst_new), ring_leaves(trecv)):
+            assert torch.equal(t, r)
+        jst, tst = jst_new, tst_new
+
+
+def ring_leaves(tree):
+    """Tensor leaves of a state tree, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [leaf for t in tree if t is not None for leaf in ring_leaves(t)]
+
+
+def test_quantized_ring_state_slots():
+    """Quantized ring caches: every slot starts as the JAX package's
+    int8-coded zero cache, and slots update in place leaf by leaf."""
+    jst = jengine.init_ef_state((4, 8), jnp.float32, 2, quantized=True)
+    st = init_ring_state(3, 4, 8, torch.float32, residual=2, quantized=True, layers=2)
+    assert isinstance(st.k.base, tcodecs.Int8Payload) and st.k.base.q.shape == (2, 3, 4, 8)
+    assert st.v.delta_base.scale.shape == (2, 3, 1, 8)
+    for t, j in zip(st.k.base, jst.base):
+        np.testing.assert_array_equal(_np(t[1, 2]), _np(j))
+    layer = tengine.EFState(*(tcodecs.Int8Payload(*(a[1] for a in e)) for e in st.k))
+    new = tengine._requant_state(tengine.EFState(base=torch.ones(4, 8), delta_base=torch.eye(4, 8)))
+    _set_slot(layer, 2, new)
+    for t, n in zip(ring_leaves(_slot(layer, 2)), ring_leaves(new)):
+        assert torch.equal(t, n)
+    assert torch.equal(st.k.base.q[1, 2], new.base.q) and st.k.base.q[0].sum() == 0

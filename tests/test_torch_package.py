@@ -29,7 +29,8 @@ def _modules():
 
 def test_importing_every_module_leaves_jax_out():
     mods = _modules()
-    assert "compactfusion_tpu_torch.pipelines.pixart" in mods
+    for m in ("pipelines.pixart", "compact.lowrank", "compact.codecs", "ops.quant"):
+        assert f"compactfusion_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -7,6 +7,7 @@ only in fp32 summation order.
 """
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +23,7 @@ from compactfusion_tpu_torch.io.from_jax import params_from_numpy
 from compactfusion_tpu_torch.models import common as tcm
 from compactfusion_tpu_torch.models import pixart as tpix
 from compactfusion_tpu_torch.models import vae as tvae
+from compactfusion_tpu_torch.models.attn_impl import SingleDeviceAttn
 from compactfusion_tpu_torch.schedulers import diffusion as tdiff
 from tests.helpers import rel_err, spice_params
 
@@ -73,6 +75,8 @@ def test_pixart_forward_matches_jax(tiny):
 
 
 def test_unported_branches_raise(tiny):
+    """PipeFusion and the cache accelerators still raise; per-layer plans
+    are ported, and segments that do not cover the blocks are refused."""
     _, tcfg, _, tparams = tiny
     x = torch.zeros(1, 16, 16)
     kw = dict(pos_embed=torch.zeros(16, tcfg.dim))
@@ -81,7 +85,15 @@ def test_unported_branches_raise(tiny):
                             pp_stages=2, **kw)
     with pytest.raises(NotImplementedError):
         tpix.pixart_forward(tparams, x, torch.zeros(1), torch.zeros(1, 3, 32), tcfg,
-                            attn=((None, 2),), **kw)
+                            cache_cfg=types.SimpleNamespace(mode="teacache"), **kw)
+    with pytest.raises(ValueError):
+        tpix.pixart_forward(tparams, x, torch.zeros(1), torch.zeros(1, 3, 32), tcfg,
+                            attn=((SingleDeviceAttn(), 1),), attn_state=((),), **kw)
+    out, state = tpix.pixart_forward(tparams, x, torch.zeros(1), torch.zeros(1, 3, 32), tcfg,
+                                     attn=((SingleDeviceAttn(), 1), (SingleDeviceAttn(), 1)),
+                                     attn_state=((), ()), **kw)
+    ref, _ = tpix.pixart_forward(tparams, x, torch.zeros(1), torch.zeros(1, 3, 32), tcfg, **kw)
+    assert state == ((), ()) and torch.equal(out, ref)
 
 
 def test_patchify_roundtrip_matches_jax():

@@ -1,7 +1,9 @@
-"""Port's 1-bit quant twins, codecs and packing vs the JAX package.
+"""Port's 1-bit and 2-bit quant twins, binary codec and packing vs the JAX
+package.
 
 The JAX side runs ``binary_quant_fastpath`` / ``binary_dequant_fastpath``
-in Pallas interpret mode, as tests/compact/test_fastpath.py does.  Packed
+and the INT2 pair in Pallas interpret mode, as tests/compact/test_fastpath.py
+does.  Packed
 bytes must match exactly.  New bases agree to 1e-6 relative: fp32
 arithmetic on the same values, where only the order of the K-term scale
 sum may differ (K=1 is a single exact product of bf16 values).  Scale
@@ -69,14 +71,40 @@ def test_quant_dequant_twins_match_jax_kernels(n, c, k):
     assert torch.equal(x_hat, new_base)
 
 
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("c", [64, 1152])
+@pytest.mark.parametrize("n", [100, 256])
+def test_int2_twins_match_jax_kernels(n, c, k):
+    """INT2 twins vs ``int2_quant_fastpath`` / ``int2_dequant_fastpath`` in
+    Pallas interpret mode; bounds as for the binary pair (module doc)."""
+    x, base, u, v = _data(n, c, k, seed=n + c + k + 1)
+    s = np.asarray(u, np.float32) @ np.asarray(v, np.float32)
+    x[1, :8] = base[1, :8] + s[1, :8]  # delta at +-s, up to rounding: the
+    x[2, :8] = base[2, :8] - s[2, :8]  # threshold compare decides the level
+    jpacked, jnew = jqp.int2_quant_fastpath(
+        jnp.asarray(x), jnp.asarray(base), jnp.asarray(u), jnp.asarray(v), interpret=True)
+    tb = torch.from_numpy(base)
+    tu, tv = params_from_numpy(u), params_from_numpy(v)
+    packed, new_base = tqp.int2_quant_fastpath(torch.from_numpy(x), tb, tu, tv)
+    assert packed.shape == (n, c // 4)
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(jpacked))
+    assert _rel(new_base.numpy(), jnew) <= REL
+    jhat = jqp.int2_dequant_fastpath(jpacked, jnp.asarray(base), jnp.asarray(u), jnp.asarray(v),
+                                     interpret=True)
+    x_hat = tqp.int2_dequant_fastpath(packed, tb, tu, tv)
+    assert _rel(x_hat.numpy(), jhat) <= REL
+    assert torch.equal(x_hat, new_base)
+
+
 def test_bf16_base_kept_in_bf16():
     x, base, u, v = _data(32, 64, 1, seed=3)
     tb = torch.from_numpy(base).to(torch.bfloat16)
-    packed, new_base = tqp.binary_quant_fastpath(torch.from_numpy(x), tb, params_from_numpy(u),
-                                                 params_from_numpy(v))
-    assert new_base.dtype == torch.bfloat16
-    assert torch.equal(tqp.binary_dequant_fastpath(packed, tb, params_from_numpy(u),
-                                                   params_from_numpy(v)), new_base)
+    tu, tv = params_from_numpy(u), params_from_numpy(v)
+    for quant, dequant in ((tqp.binary_quant_fastpath, tqp.binary_dequant_fastpath),
+                           (tqp.int2_quant_fastpath, tqp.int2_dequant_fastpath)):
+        packed, new_base = quant(torch.from_numpy(x), tb, tu, tv)
+        assert new_base.dtype == torch.bfloat16
+        assert torch.equal(dequant(packed, tb, tu, tv), new_base)
 
 
 def _bf16_ulp(a):
@@ -119,8 +147,21 @@ def test_pack_unpack_bytes_match_jax():
 
 
 def test_rank_scale_and_other_codecs_raise():
+    """The rank-k scale and every codec are ported; on this path what still
+    raises is the banded flash branch (``window=``, DiTFastAttn's kernel),
+    and the quant wrappers reject what their kernels do not take."""
+    from compactfusion_tpu_torch.ops import flash
+
     x = torch.randn(16, 64)
+    assert tcodecs.encode_binary(x, rank=4).scale_u.shape == (16, 4)
+    assert isinstance(tcodecs.encode(x, tcodecs.CompressType.INT2), tcodecs.Int2Payload)
+    q = torch.randn(1, 8, 2, 16)
     with pytest.raises(NotImplementedError):
-        tcodecs.encode_binary(x, rank=4)
-    with pytest.raises(NotImplementedError):
-        tcodecs.encode(x, tcodecs.CompressType.INT2)
+        flash.flash_attn_with_lse(q, q, q, window=2)
+    u, v = torch.ones(16, 1, dtype=torch.bfloat16), torch.ones(1, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # C % 4 != 0, checked before any kernel runs
+        tqp._quant_launch("cf_int2_quant", torch.zeros(16, 66), torch.zeros(16, 66), u, v, 4)
+    with pytest.raises(TypeError):
+        tqp._quant_launch("cf_int2_quant", x, x, u.float(), v, 4)
+    with pytest.raises(ValueError):
+        tqp._dequant_launch("cf_int2_dequant", torch.zeros(16, 16, dtype=torch.uint8), x.T, u, v, 4)

@@ -4,10 +4,12 @@
     python3 tools/profile_torch.py [--out build/profile_torch.json] [--warm 3]
 
 Builds the same full-width pipelines as ``chip_smoke.py`` (random weights,
-spiced AdaLN tables): compression off, and the ring-8 1-bit compressed
-emulation.  For each it runs ``--warm`` requests, times two more with CUDA
+spiced AdaLN tables): compression off, and the ring-8 compressed emulation
+with the 1-bit codec, INT2, LOW_RANK rank 4 and the per-layer plan on int8
+EF caches.  For each it runs ``--warm`` requests, times two more with CUDA
 events, then profiles one request with ``torch.profiler`` (CPU + CUDA) and
-sums the device time of its kernels by category.  The device busy share is
+sums the device time and launches of its kernels by category (the QR
+category is ``torch.linalg.qr``'s cuSOLVER kernels).  The device busy share is
 that sum over the mean unprofiled time (one stream, so kernels do not
 overlap).  Prints a summary per pipeline and writes everything, with the
 card's ``nvidia-smi`` name, power limit and SM clock, to ``--out``.
@@ -26,6 +28,9 @@ CATEGORIES = (
     ("flash kernel", ("flash_fwd_kernel",)),
     ("quant kernel", ("binary_quant_kernel",)),
     ("dequant kernel", ("binary_dequant_kernel",)),
+    ("int2 quant kernel", ("int2_quant_kernel",)),
+    ("int2 dequant kernel", ("int2_dequant_kernel",)),
+    ("QR (cuSOLVER/MAGMA)", ("geqr", "orgqr", "ormqr", "larf", "cusolver", "magma", "householder")),
     ("matmul (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
     ("conv (cuDNN)", ("conv", "cudnn", "implicit_convolve")),
     ("copies/cat", ("CatArray", "copy", "Memcpy", "Memset")),
@@ -54,11 +59,12 @@ def profile_pipeline(pipe, warm, seed):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, _, profiled_wall = chip_smoke.request(pipe, seed)
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_cat, by_name = {}, {}
+    by_cat, n_cat, by_name = {}, {}, {}
     for e in kernels:
         us = e.time_range.elapsed_us()
         cat = category(e.name)
         by_cat[cat] = by_cat.get(cat, 0.0) + us / 1e6
+        n_cat[cat] = n_cat.get(cat, 0) + 1
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + us / 1e6, n + 1)
     busy = sum(by_cat.values())
@@ -71,6 +77,7 @@ def profile_pipeline(pipe, warm, seed):
         "kernel_launches": len(kernels),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "by_category_s": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
+        "launches_by_category": n_cat,
         "top": top,
     }
 
@@ -97,7 +104,10 @@ def main():
     dev = torch.device("cuda")
     mcfg, vcfg, params, vae_params = chip_smoke.build_models(dev)
     report = {"smi": smi, "torch": torch.__version__, "warm": args.warm, "seed": args.seed}
-    for name, compact in (("lossless", None), ("compressed_ring8", chip_smoke.compressed_config())):
+    for name, compact in (("lossless", None), ("compressed_ring8", chip_smoke.compressed_config()),
+                          ("int2_ring8", chip_smoke.compressed_config("int2")),
+                          ("low_rank4_ring8", chip_smoke.compressed_config("low-rank", comp_rank=4)),
+                          ("layer_plan_int8_ring8", chip_smoke.layer_plan_config())):
         kw = {} if compact is None else {"compact": compact}
         cfg = PixArtPipelineConfig(model=mcfg, vae=vcfg, num_steps=chip_smoke.STEPS,
                                    guidance_scale=4.5, **kw)
