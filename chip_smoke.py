@@ -9,9 +9,11 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
    to build the kernels from ``compactfusion_tpu_torch/csrc`` (one ``nvcc``
    per source, in parallel).
 2. Each kernel against its plain PyTorch twin at the shapes the main path
-   gives it, with the times of both (CUDA events): flash attention, the
-   1-bit quant pair at K=1 and K=2, the 2-bit (INT2) pair on fp32 and bf16
-   bases.
+   gives it, with the times of both (CUDA events), of one PyTorch call that
+   computes the same function where there is one (``library_ms``), and the
+   least time the card could take (``bound_ms``): flash attention, banded
+   (window) flash attention, the 1-bit quant pair at K=1 and K=2, the 2-bit
+   (INT2) pair on fp32 and bf16 bases.
 3. The full-width PixArt-alpha 512 pipeline (28 blocks, dim 1152, S=1024,
    CFG batch 2, 20 DPM-Solver++ steps, SD-VAE decode), random weights with
    spiced AdaLN tables, compression off: 3 requests, each from its own seed.
@@ -21,10 +23,18 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
 6. The same with LOW_RANK, rank 4 (subspace iteration; no quant kernel).
 7. A per-layer plan on int8-quantized EF caches: layer 0 uncompressed,
    layers 1-13 INT2, layers 14-27 BINARY with a rank-2 scale.
+8. DiTFastAttn with an all-FULL plan: the lossless latents, bit for bit.
+9. DiTFastAttn with a fixed plan that holds all seven methods after
+   ``optimize_plan`` (window 64): the banded kernel on the path.
+10. ``calibrate_pixart`` on request 1's text and noise (threshold 0.5,
+    window 64), then the request with the calibrated plan.
+11. FBCache at threshold 0 (the lossless latents, no skip) and 1e6 (18
+    skipped steps), then FBCache 0.12 and TeaCache 0.25.
 
-Phases 4-7 hold their latents against request 1's lossless latents and
+Phases 4-11 hold their latents against request 1's lossless latents and
 their kernel launch counts against the counts the path implies; every
-count is set to 0 just before each of phases 3-7 and read just after.
+count is set to 0 just before each of phases 3-11 (and the calibration)
+and read just after.
 Then one JSON line with each kernel's launches on the main path, error and
 times, and a last line ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the package beside it, the script exits non-zero and
@@ -53,8 +63,16 @@ QUANT_NEW_BASE_RTOL = 1e-6
 # change the result (> 0) but stay close to it
 COMPRESSED_REL_ERR_MAX = 0.05
 
+# the card's published peaks (H100 SXM data sheet, dense): the bound of a
+# kernel is the larger of its bytes over the memory rate and its operations
+# over the peak rate for their type
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
+
 STEPS = 20
 DEPTH = 28
+WINDOW = 64
 RING = 8
 WARMUP = 4
 # rows and channels of one ring chunk's K or V: CFG batch 2 x 1024 / 8 tokens, 16 x 72
@@ -84,6 +102,31 @@ def _reset_counts(kernels):
         fn.launches = 0
 
 
+def _nbytes(*tensors):
+    """Bytes of the tensors' elements (a strided view counts what it shows)."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(nbytes, ops, peak_ops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate for their type."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / peak_ops
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _library(q, k, v, mask=None):
+    """One ``scaled_dot_product_attention`` call on the (B, H, S, D) views of
+    the same inputs (the yardstick; the port never calls it), and the
+    backend PyTorch picks for it."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    backend = SDPBackend(torch._fused_sdp_choice(qt, kt, vt, attn_mask=mask)).name
+    return (lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)), backend
+
+
 def check_flash(flash, dev, gen):
     """Flash kernel vs twin at the three path shapes; returns a report."""
     import torch
@@ -108,13 +151,71 @@ def check_flash(flash, dev, gen):
         err_lse = (lse - ref_lse).abs().max().item()
         ms = _time_ms(lambda: flash.flash_attn_with_lse(qq, kk, vv), iters)
         plain_ms = _time_ms(lambda: flash.flash_attn_with_lse_ref(qq, kk, vv), iters)
+        lib, backend = _library(qq, kk, vv)
+        library_ms = _time_ms(lib, iters)
+        b, sq, h, d = qq.shape
+        bound_ms, bound_by = _bound(_nbytes(qq, kk, vv, out, lse), 4 * b * h * sq * kk.shape[1] * d,
+                                    PEAK_BF16_FLOPS)
         rows.append({"shape": name, "max_abs_err_out": err_out, "max_abs_err_lse": err_lse,
-                     "ms": ms, "plain_ms": plain_ms})
+                     "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "library_backend": backend, "bound_ms": bound_ms, "bound_by": bound_by})
         print(f"[2] flash {name}: out err {err_out:.3e} (tol {FLASH_OUT_ATOL}), lse err "
-              f"{err_lse:.3e} (tol {FLASH_LSE_ATOL}); kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
+              f"{err_lse:.3e} (tol {FLASH_LSE_ATOL}); kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
+              f"SDPA ({backend}) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         if not (err_out <= FLASH_OUT_ATOL and err_lse <= FLASH_LSE_ATOL):
             raise AssertionError(f"flash kernel disagrees with its twin at {name}")
     return rows
+
+
+def band_pairs(s, w):
+    """(query, key) pairs with |i - j| <= w over S tokens."""
+    return sum(min(s - 1, i + w) - max(0, i - w) + 1 for i in range(s))
+
+
+def check_window(flash, dev, gen):
+    """Banded flash kernel vs twin: PixArt's B2 self-attention on column
+    slices of one qkv tensor at w = 64, 4, 0 and 1024, the CFG half (B1) and
+    a ragged S=1000; returns a report, with the ratio of the w=64 time to the
+    full kernel's at the same shape."""
+    import torch
+
+    dim = 1152
+
+    def qkv(b, s):
+        t = torch.randn((b, s, 3 * dim), generator=gen, device=dev).to(torch.bfloat16)
+        return tuple(x.view(b, s, 16, 72) for x in t.split(dim, dim=-1))
+
+    q, k, v = qkv(2, 1024)
+    cases = [(f"B2 H16 S1024 d72 w{w}", (q, k, v), w) for w in (WINDOW, 4, 0, 1024)]
+    cases += [(f"CFG half B1 H16 S1024 d72 w{WINDOW}", (q[:1], k[:1], v[:1]), WINDOW),
+              (f"ragged B2 H16 S1000 d72 w{WINDOW}", qkv(2, 1000), WINDOW)]
+    rows = []
+    for name, (qq, kk, vv), w in cases:
+        out, lse = flash.flash_attn_window_with_lse(qq, kk, vv, w)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = flash.flash_attn_window_with_lse_ref(qq, kk, vv, w)
+        err_out = (out.float() - ref_out.float()).abs().max().item()
+        err_lse = (lse - ref_lse).abs().max().item()
+        ms = _time_ms(lambda: flash.flash_attn_window_with_lse(qq, kk, vv, w), 20)
+        plain_ms = _time_ms(lambda: flash.flash_attn_window_with_lse_ref(qq, kk, vv, w), 20)
+        b, s, h, d = qq.shape
+        lib, backend = _library(qq, kk, vv, flash.window_mask(s, w, dev))
+        library_ms = _time_ms(lib, 20)
+        bound_ms, bound_by = _bound(_nbytes(qq, kk, vv, out, lse), 4 * b * h * d * band_pairs(s, w),
+                                    PEAK_BF16_FLOPS)
+        rows.append({"shape": name, "max_abs_err_out": err_out, "max_abs_err_lse": err_lse,
+                     "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "library_backend": backend, "bound_ms": bound_ms, "bound_by": bound_by})
+        print(f"[2] window flash {name}: out err {err_out:.3e} (tol {FLASH_OUT_ATOL}), lse err "
+              f"{err_lse:.3e} (tol {FLASH_LSE_ATOL}); kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
+              f"SDPA with band mask ({backend}) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by})")
+        if not (err_out <= FLASH_OUT_ATOL and err_lse <= FLASH_LSE_ATOL):
+            raise AssertionError(f"window flash kernel disagrees with its twin at {name}")
+    full_ms = _time_ms(lambda: flash.flash_attn_with_lse(q, k, v), 20)
+    print(f"[2] window flash w{WINDOW} / full flash at B2 H16 S1024 d72: {rows[0]['ms']:.4f} / "
+          f"{full_ms:.4f} ms = {rows[0]['ms'] / full_ms:.3f}")
+    return rows, rows[0]["ms"] / full_ms
 
 
 def check_quant(quant, codecs, dev, gen, codec, rank, base_dtype):
@@ -145,7 +246,16 @@ def check_quant(quant, codecs, dev, gen, codec, rank, base_dtype):
         raise AssertionError(f"{name} quant kernel: new_base off the twin by {rel:.3e} relative")
     if not torch.equal(x_hat, new_base):
         raise AssertionError(f"{name}: dequant output is not bit-identical to quant's new_base")
+    n, c, kk = x.shape[0], x.shape[1], u.shape[1]
+    # fp32 elementwise work per value: delta, the rank-K scale, the level
+    # decision and the base update (quant); the scale and the update (dequant)
+    quant_bound = _bound(_nbytes(x, base, u, v, packed, new_base), (4 + 2 * kk) * n * c,
+                         PEAK_FP32_FLOPS)
+    dequant_bound = _bound(_nbytes(packed, base, u, v, x_hat), (3 + 2 * kk) * n * c,
+                           PEAK_FP32_FLOPS)
     row = {"shape": name, "new_base_rel_err": rel,
+           "quant_bound_ms": quant_bound[0], "quant_bound_by": quant_bound[1],
+           "dequant_bound_ms": dequant_bound[0], "dequant_bound_by": dequant_bound[1],
            "max_abs_err_quant": (new_base.float() - ref_base.float()).abs().max().item(),
            "max_abs_err_dequant": (x_hat.float() - ref_hat.float()).abs().max().item(),
            "quant_ms": _time_ms(lambda: q(x, base, u, v), 200),
@@ -154,8 +264,9 @@ def check_quant(quant, codecs, dev, gen, codec, rank, base_dtype):
            "dequant_plain_ms": _time_ms(lambda: dq_ref(packed, base, u, v), 200)}
     print(f"[2] {name}: packed bytes equal, new_base rel err {rel:.3e} (tol {QUANT_NEW_BASE_RTOL}), "
           f"dequant == new_base bit for bit; quant {row['quant_ms']:.4f} ms (twin "
-          f"{row['quant_plain_ms']:.4f}), dequant {row['dequant_ms']:.4f} ms (twin "
-          f"{row['dequant_plain_ms']:.4f})")
+          f"{row['quant_plain_ms']:.4f}, bound {quant_bound[0]:.5f}), dequant "
+          f"{row['dequant_ms']:.4f} ms (twin {row['dequant_plain_ms']:.4f}, bound "
+          f"{dequant_bound[0]:.5f})")
     return row
 
 
@@ -284,12 +395,87 @@ def compressed_phase(phase, what, pipe, kernels, lossless, expect):
     return {"s_per_image": sec, "latent_rel_err": rel, "launches": counts}
 
 
+def mixed_plan():
+    """Phase 9's fixed DiTFastAttn plan: steps 0-1 FULL, then the cycle
+    WINDOW, SHARE, FULL_CFG, WINDOW_CFG, FULL over (step + layer), in which
+    each FULL_CFG is followed by a WINDOW_CFG that reads its residual (else
+    optimize_plan rewrites it)."""
+    import numpy as np
+
+    return np.array([[0 if i < 2 else (1, 2, 3, 4, 0)[(i + l) % 5] for l in range(DEPTH)]
+                     for i in range(STEPS)], np.int32)
+
+
+def calibrated_plan(params, mcfg, vcfg, dev, threshold=0.5):
+    """Phase 10's DiTFastAttn calibration: ``calibrate_pixart`` on request
+    1's text and noise (window 64); returns (plan, seconds)."""
+    import torch
+
+    from compactfusion_tpu_torch.cache.fast_attn import calibrate_pixart
+    from compactfusion_tpu_torch.pipelines import base
+    from compactfusion_tpu_torch.pipelines.pixart import PixArtPipelineConfig
+
+    g = torch.Generator(device=dev).manual_seed(1)  # as in request(pipe, 1): text, then noise
+    text = torch.randn((2, 1, 120, mcfg.text_dim), generator=g, device=dev)
+    mask = torch.ones((2, 1, 120), dtype=torch.bool, device=dev)
+    cfg = PixArtPipelineConfig(model=mcfg, vae=vcfg, num_steps=STEPS, guidance_scale=4.5,
+                               fast_attn_window=WINDOW)
+    noise = base.prepare_latents(g, 1, cfg.tokens, mcfg.patch**2 * mcfg.in_channels,
+                                 torch.float32, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = calibrate_pixart(params, cfg, text, mask, threshold=threshold, latents=noise)
+    return plan, time.perf_counter() - t0
+
+
+def plan_launches(table):
+    """(full, window) flash launches of one image under an optimized
+    DiTFastAttn table: FULL, FULL_CFG and the two NO_RESIDUAL methods launch
+    the full kernel once per (step, layer), FULL, FULL_CFG, WINDOW and
+    WINDOW_CFG the window kernel once; the VAE adds one full launch."""
+    import numpy as np
+
+    return int(np.isin(table, (0, 3, 5, 6)).sum()) + 1, int(np.isin(table, (0, 1, 3, 4)).sum())
+
+
+def accel_phase(phase, what, pipe, kernels, lossless, full, window, exact=False):
+    """One request of a single-device accelerator (DiTFastAttn or a cache)
+    from request 1's seed, every launch count set to 0 before it: checks the
+    image, the flash and window-kernel launches against ``full`` (or
+    ``full(skipped steps)``) and ``window`` (the quant kernels 0), and the
+    latents against lossless (equal within 1e-6 with ``exact`` or when a
+    cache skipped no step, else different and finite)."""
+    import torch
+
+    _reset_counts(kernels)
+    lat, img, sec = request(pipe, 1)
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    check_image(img, what)
+    if callable(full):
+        full = full(pipe.last_skips)
+    want = {"flash_attn_with_lse": full, "flash_attn_window_with_lse": window}
+    for name, count in counts.items():
+        if count != want.get(name, 0):
+            raise AssertionError(f"{what}: {name} launched {count} times, expected {want.get(name, 0)}")
+    rel = (torch.linalg.vector_norm(lat - lossless) / torch.linalg.vector_norm(lossless)).item()
+    exact = exact or pipe.last_skips == 0  # a cache that skips nothing is the lossless path
+    if not (rel <= 1e-6 if exact else 0.0 < rel < float("inf")):
+        raise AssertionError(f"{what}: latent rel err vs lossless {rel}")
+    print(f"[{phase}] {what}: latent rel err vs lossless {rel:.6e}, {sec:.4f} s/image, skipped "
+          f"steps {pipe.last_skips}; launches: {', '.join(f'{k} {v}' for k, v in counts.items())}")
+    return {"s_per_image": sec, "latent_rel_err": rel, "skips": pipe.last_skips, "launches": counts}
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels run only on a GPU")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+
+    from compactfusion_tpu_torch.cache.accel import CacheAccelConfig
+    from compactfusion_tpu_torch.cache.fast_attn import optimize_plan
     from compactfusion_tpu_torch.compact import codecs
     from compactfusion_tpu_torch.ops import _build, flash, quant
     from compactfusion_tpu_torch.pipelines.pixart import PixArtPipeline, PixArtPipelineConfig
@@ -299,7 +485,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     kernels = (flash.flash_attn_with_lse, quant.binary_quant_fastpath, quant.binary_dequant_fastpath,
-               quant.int2_quant_fastpath, quant.int2_dequant_fastpath)
+               quant.int2_quant_fastpath, quant.int2_dequant_fastpath,
+               flash.flash_attn_window_with_lse)
 
     # -- 1. device and build ------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -315,6 +502,7 @@ def main():
     # -- 2. kernels vs twins ----------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
     flash_rows = check_flash(flash, dev, gen)
+    window_rows, window_vs_full = check_window(flash, dev, gen)
     quant_rows = {
         "binary": [check_quant(quant, codecs, dev, gen, "binary", r, torch.float32) for r in (-1, 2)],
         "int2": [check_quant(quant, codecs, dev, gen, "int2", -1, dt)
@@ -324,8 +512,9 @@ def main():
     # -- 3. full-width pipeline, compression off -----------------------------
     mcfg, vcfg, params, vae_params = build_models(dev)
 
-    def pipeline(compact=None):
-        kw = {} if compact is None else {"compact": compact}
+    def pipeline(compact=None, **kw):
+        if compact is not None:
+            kw["compact"] = compact
         return PixArtPipeline(params, vae_params, PixArtPipelineConfig(
             model=mcfg, vae=vcfg, num_steps=STEPS, guidance_scale=4.5, **kw), dev)
 
@@ -341,7 +530,7 @@ def main():
         if launched < DEPTH * STEPS:
             raise AssertionError(f"request seed {seed}: flash launched {launched} < {DEPTH * STEPS} times")
         if any(fn.launches for fn in kernels[1:]):
-            raise AssertionError("compression off, yet a quant kernel launched")
+            raise AssertionError("compression off, yet a quant or window kernel launched")
         if lossless is None:
             lossless = lat
         secs.append(sec)
@@ -369,6 +558,49 @@ def main():
         print(f"[{phase}] {what}: wire compression vs dense bf16 K/V {r['wire_compression_vs_bf16']:.2f}x")
         phases[what] = r
 
+    # -- 8.-10. DiTFastAttn: per-(step, layer) method plans, window 64 -------
+    def plan_pipeline(plan):
+        return pipeline(fast_attn_plan=tuple(tuple(int(m) for m in row) for row in plan),
+                        fast_attn_window=WINDOW)
+
+    full_plan = np.zeros((STEPS, DEPTH), np.int32)
+    phases["fast-attn all FULL"] = accel_phase(
+        8, "fast-attn all FULL", plan_pipeline(full_plan), kernels, lossless,
+        *plan_launches(optimize_plan(full_plan)), exact=True)
+    mixed = mixed_plan()
+    if sorted(set(optimize_plan(mixed).ravel().tolist())) != list(range(7)):
+        raise AssertionError("the fixed plan does not hold all seven methods after optimize_plan")
+    phases["fast-attn mixed plan"] = accel_phase(
+        9, "fast-attn mixed plan (all seven methods)", plan_pipeline(mixed), kernels, lossless,
+        *plan_launches(optimize_plan(mixed)))
+
+    _reset_counts(kernels)
+    calibrated, cal_s = calibrated_plan(params, mcfg, vcfg, dev)
+    hist = {m: int((calibrated == m).sum()) for m in range(7)}
+    cal_launches = {fn.__name__: fn.launches for fn in kernels}
+    print(f"[10] calibrate_pixart (threshold 0.5, window {WINDOW}): {cal_s:.3f} s; methods "
+          f"{hist}; optimized {({m: int((optimize_plan(calibrated) == m).sum()) for m in range(7)})}; "
+          f"launches {cal_launches}")
+    r = accel_phase(10, "fast-attn calibrated plan", plan_pipeline(calibrated), kernels, lossless,
+                    *plan_launches(optimize_plan(calibrated)))
+    phases["fast-attn calibrated plan"] = dict(r, calibration_s=cal_s, methods=hist,
+                                               calibration_launches=cal_launches)
+
+    # -- 11. TeaCache / FBCache -------------------------------------------------
+    def cache_full(skips):  # blocks 1-27 skipped on a skipped step; + VAE
+        return DEPTH * (STEPS - skips) + skips + 1
+
+    for name, mode, thr in (("fbcache 0", "fbcache", 0.0), ("fbcache 1e6", "fbcache", 1e6),
+                            ("fbcache 0.12", "fbcache", 0.12), ("teacache 0.25", "teacache", 0.25)):
+        r = accel_phase(11, name, pipeline(cache=CacheAccelConfig(mode=mode, threshold=thr)),
+                        kernels, lossless, cache_full, 0, exact=thr == 0.0)
+        # threshold 0 never skips; 1e6 skips every step but the first (no
+        # probe yet) and the forced last
+        want = {0.0: 0, 1e6: STEPS - 2}.get(thr, r["skips"])
+        if r["skips"] != want:
+            raise AssertionError(f"{name}: {r['skips']} skipped steps, expected {want}")
+        phases[name] = r
+
     totals = {fn.__name__: sum(p["launches"][fn.__name__] for p in phases.values()) for fn in kernels}
     for name, count in totals.items():
         if count == 0:
@@ -382,17 +614,23 @@ def main():
                 "launches": totals[f"{codec}_{which}_fastpath"],
                 "max_abs_err": max(r[f"max_abs_err_{which}"] for r in rows),
                 "ms": rows[0][f"{which}_ms"], "plain_ms": rows[0][f"{which}_plain_ms"],
-                "shapes": rows}
+                "bound_ms": rows[0][f"{which}_bound_ms"], "bound_by": rows[0][f"{which}_bound_by"],
+                "library_ms": None, "shapes": rows}
+
+    def flash_entry(name, line, rows, **extra):
+        return {"name": name, "route": "cuda", "source": "compactfusion_tpu_torch/csrc/flash_attn.cu",
+                "replaces": f"compactfusion_tpu/ops/flash_pallas.py:{line}", "launches": totals[name],
+                "max_abs_err": max(r["max_abs_err_out"] for r in rows),
+                "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
+                "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
+                "library_ms": rows[0]["library_ms"], "shapes": rows, **extra}
 
     report = {"kernels": [
-        {"name": "flash_attn_with_lse", "route": "cuda",
-         "source": "compactfusion_tpu_torch/csrc/flash_attn.cu",
-         "replaces": "compactfusion_tpu/ops/flash_pallas.py:593",
-         "launches": totals["flash_attn_with_lse"],
-         "max_abs_err": max(r["max_abs_err_out"] for r in flash_rows),
-         "ms": flash_rows[0]["ms"], "plain_ms": flash_rows[0]["plain_ms"], "shapes": flash_rows},
+        flash_entry("flash_attn_with_lse", 593, flash_rows),
         quant_entry("binary", "quant", 118), quant_entry("binary", "dequant", 159),
         quant_entry("int2", "quant", 238), quant_entry("int2", "dequant", 273),
+        flash_entry("flash_attn_window_with_lse", 508, window_rows,
+                    ms_vs_full_kernel=window_vs_full),
     ], "phases": phases}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,9 +9,10 @@ The JAX package stays the reference; this package mirrors its module paths
 Ported so far: the PixArt-alpha 512 text-to-image path on one GPU, with and
 without the single-device compressed-ring emulation (``simulate_ring``),
 with every codec, residual order, int8-quantized EF caches, ``simulate``
-mode and per-layer ``compress_func`` plans.  Its five TPU kernels are
-hand-written CUDA C++ under ``csrc/``, built with ``nvcc`` at first use
-(``ops/_build.py``).  Anything outside that slice raises
+mode and per-layer ``compress_func`` plans, and the single-device
+accelerators (``cache/``: DiTFastAttn plans and their calibration,
+TeaCache and FBCache).  Its six TPU kernels are hand-written CUDA C++ under
+``csrc/``, built with ``nvcc`` at first use (``ops/_build.py``).  Anything outside that slice raises
 ``NotImplementedError`` pointing at ``ROADMAP.md``.
 """
 

@@ -1,0 +1,118 @@
+"""TeaCache / First-Block-Cache: skip the block stack on small step deltas
+(counterpart of ``compactfusion_tpu/cache/accel.py``).
+
+* FBCache: run the first block; if the relative-L1 change of its residual
+  (block0(x) - x) against the last fully computed step is under the
+  threshold, skip the other blocks and replay the cached residual
+  (final - first-block output) of that step.
+* TeaCache: probe the timestep-modulated input of the first block, pass its
+  relative change through a polynomial rescale and accumulate it across
+  steps; skip while the accumulator stays under the threshold, reset it on
+  every computed step.
+
+The decision is a 0-dim tensor; ``models/pixart.pixart_forward`` reads it on
+the host once per step (the eager counterpart of the JAX ``lax.cond``).
+Incompatible with CompactFusion EF compression: skipped steps would desync
+the EF caches, and the pipelines refuse the combination.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Tuple
+
+import torch
+
+from compactfusion_tpu_torch import ROADMAP_HINT
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheAccelConfig:
+    mode: str = "none"  # "none" | "fbcache" | "teacache"
+    threshold: float = 0.12
+    #: polynomial rescale coefficients (highest order first), TeaCache only;
+    #: the default is the identity, FLUX uses the fitted polynomial below
+    poly: Tuple[float, ...] = (1.0, 0.0)
+    #: mesh axes to sum the probe over under sequence parallelism (not
+    #: ported: the port runs on one device, where it stays ())
+    sp_axes: Tuple[str, ...] = ()
+
+
+#: TeaCache's fitted degree-4 rescale polynomial for FLUX (highest order first)
+FLUX_TEACACHE_POLY: Tuple[float, ...] = (
+    498.651651,
+    -283.781631,
+    55.8554382,
+    -3.82021401,
+    0.264230861,
+)
+
+
+class CacheAccelState(NamedTuple):
+    prev_probe: torch.Tensor  # previous probe tensor
+    residual: torch.Tensor  # cached (final - first_block_out) residual
+    accum: torch.Tensor  # () fp32 TeaCache accumulator
+    has_prev: torch.Tensor  # () int32
+    skips: torch.Tensor  # () int32, number of skipped steps
+
+
+def init_cache_state(probe_shape, residual_shape, dtype, device=None) -> CacheAccelState:
+    return CacheAccelState(
+        prev_probe=torch.zeros(probe_shape, dtype=dtype, device=device),
+        residual=torch.zeros(residual_shape, dtype=dtype, device=device),
+        accum=torch.zeros((), dtype=torch.float32, device=device),
+        has_prev=torch.zeros((), dtype=torch.int32, device=device),
+        skips=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def _rel_l1(cur, prev, sp_axes) -> torch.Tensor:
+    if sp_axes:
+        raise NotImplementedError(f"cache probes summed over sp axes {sp_axes}: {ROADMAP_HINT}")
+    num = (cur.float() - prev.float()).abs().sum()
+    den = prev.float().abs().sum()
+    return num / torch.clamp(den, min=1e-8)
+
+
+def _polyval(coeffs, x: torch.Tensor) -> torch.Tensor:
+    """Horner's rule in fp32, as ``jnp.polyval`` evaluates it."""
+    c = torch.tensor(coeffs, dtype=torch.float32, device=x.device)
+    y = torch.zeros_like(x)
+    for i in range(c.shape[0]):
+        y = y * x + c[i]
+    return y
+
+
+def should_skip(cfg: CacheAccelConfig, state: CacheAccelState, probe: torch.Tensor,
+                force_compute=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (skip: 0-dim bool, new_accum).
+
+    ``probe`` is the first-block residual block0(x) - x (fbcache) or the
+    modulated first-block input (teacache).  ``force_compute``: a bool (or
+    0-dim bool tensor) forcing a full run; the pipelines pass
+    ``i == num_steps - 1`` so the final step always computes.
+    """
+    rel = _rel_l1(probe, state.prev_probe, cfg.sp_axes)
+    keep = None if force_compute is None else torch.logical_not(
+        torch.as_tensor(force_compute, device=rel.device))
+    if cfg.mode == "teacache":
+        accum = state.accum + _polyval(cfg.poly, rel)
+        skip = (state.has_prev > 0) & (accum < cfg.threshold)
+        if keep is not None:
+            skip = skip & keep
+        return skip, torch.where(skip, accum, torch.zeros_like(accum))
+    skip = (state.has_prev > 0) & (rel < cfg.threshold)
+    if keep is not None:
+        skip = skip & keep
+    return skip, state.accum
+
+
+def next_probe(cfg: CacheAccelConfig, state: CacheAccelState, probe, skip) -> torch.Tensor:
+    """The prev_probe to carry: FBCache pins it across skipped steps (slow
+    drift accumulates against a fixed reference and eventually forces a
+    recompute); TeaCache refreshes it every step (its accumulator carries
+    the history)."""
+    probe = probe.to(state.prev_probe.dtype)
+    if cfg.mode == "teacache":
+        return probe
+    return torch.where(skip, state.prev_probe, probe)

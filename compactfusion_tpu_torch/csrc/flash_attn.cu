@@ -1,8 +1,11 @@
-// Non-causal flash attention with a natural-log LSE, bf16 in, fp32 math.
+// Non-causal flash attention with a natural-log LSE, bf16 in, fp32 math:
+// full attention (flash_fwd_kernel) and banded attention |i - j| <= w
+// (flash_window_kernel), one tile layout and one body for both.
 //
 // Replaces: compactfusion_tpu/ops/flash_pallas.py::flash_attn_with_lse, main
 // branch (kernels _flash_kernel / _flash_kernel_heads, pallas_call at
-// flash_pallas.py:593).  The window= branch is not ported.
+// flash_pallas.py:593) and its window= branch (pallas_call at
+// flash_pallas.py:508).
 //
 // What bounds it on an H100: at the PixArt shapes (d=72, Sq*Sk ~ 1e6 per
 // head) attention does ~4*Sq*Sk*d FLOPs on ~8*S*d bytes, far above the
@@ -28,6 +31,19 @@
 //  * keys at or past min(kv_lens[b], Sk) are masked; tiles wholly past it
 //    are skipped.  A row with no valid key writes 0 and LSE -inf, the
 //    attn_with_lse convention.
+//
+// The banded kernel (DiTFastAttn's window attention; Sq == Sk, no kv_lens):
+//  * off-band tiles are skipped, not masked: the q-tile at q0 visits only the
+//    KV tiles from that of max(0, q0 - w) to that of min(S - 1, q0 + BQ - 1
+//    + w), and masks |i - j| > w inside them, so the work scales with S * w
+//    (at w=64, S=1024, 64x64 tiles an inner q-tile visits 3 of 16 KV tiles);
+//  * a visited tile may hold no key of some row (w=4, q0=64: row 127 has
+//    none in tile 0), so the running max can still be -inf after a tile and
+//    the exponent is taken against 0 there instead of -inf - -inf = NaN;
+//  * what bounds it: at B2 H16 S1024 d72, w=64 it must read q/k/v and write
+//    out/LSE, ~19.0 MB (~5.7 us at 3.35 TB/s), against ~1.18 GFLOP of band
+//    products (127,936 band pairs per head; ~1.2 us at 989 TFLOP/s): memory,
+//    where the full kernel is bound by math.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -115,13 +131,16 @@ __device__ inline void load_tile(__nv_bfloat16* dst, int ld, const __nv_bfloat16
   }
 }
 
-template <int NWARPS, int BK>
-__global__ void __launch_bounds__(32 * NWARPS)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, Strides sq, Strides sk, Strides sv,
-                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                 const int* __restrict__ kv_lens, int H, int Sq, int Sk, int D,
-                 float scale_log2) {
+// The kernels' common body.  BAND: keys outside |i - j| <= window are masked
+// and the KV tiles wholly outside the band of this q-tile are not visited
+// (then Sq == Sk and kv_lens is null).
+template <int NWARPS, int BK, bool BAND>
+__device__ __forceinline__ void
+flash_fwd_body(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v, Strides sq, Strides sk, Strides sv,
+               __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+               const int* __restrict__ kv_lens, int H, int Sq, int Sk, int D,
+               float scale_log2, int window) {
   constexpr int BQ = 16 * NWARPS;
   constexpr int NT = 32 * NWARPS;
   constexpr int PER_LANE = BK / 32;
@@ -159,8 +178,12 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   __syncthreads();
 
   const int r0 = warp * 16;  // this warp's rows within the tile
-  const int n_tiles = (kv_len + BK - 1) / BK;
-  for (int t = 0; t < n_tiles; ++t) {
+  int t_lo = 0, t_end = (kv_len + BK - 1) / BK;
+  if (BAND) {  // the KV tiles that the band of rows [q0, q0 + BQ) touches
+    t_lo = max(0, q0 - window) / BK;
+    t_end = min(Sk - 1, q0 + BQ - 1 + window) / BK + 1;
+  }
+  for (int t = t_lo; t < t_end; ++t) {
     const int k0 = t * BK;
     __syncthreads();  // every warp is done with the previous K/V tile
     load_tile(Ks, L.ld_in, kbh, sk.s, k0, BK, kv_len, D, L.dp, tid, NT);
@@ -182,30 +205,36 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     }
     __syncwarp();
 
-    // online softmax of the same rows; the tile holds at least one valid key
-    // (k0 < kv_len), so the running max is finite after it
+    // online softmax of the same rows.  Without a band every visited tile
+    // holds a valid key (k0 < kv_len); with one, a row may have none yet, so
+    // m_new may be -inf: the exponents are then taken against 0 (p = 0 and
+    // alpha = 0 while the row has no key) instead of giving NaN
     for (int r = r0; r < r0 + 16; ++r) {
+      const int row = q0 + r;
       float s[PER_LANE];
       float mx = -CUDART_INF_F;
 #pragma unroll
       for (int j = 0; j < PER_LANE; ++j) {
-        const int col = lane + 32 * j;
-        s[j] = (k0 + col < kv_len) ? Ss[r * L.ld_s + col] * scale_log2 : -CUDART_INF_F;
+        const int col = k0 + lane + 32 * j;
+        bool keep = col < kv_len;
+        if (BAND) keep = keep && abs(row - col) <= window;
+        s[j] = keep ? Ss[r * L.ld_s + lane + 32 * j] * scale_log2 : -CUDART_INF_F;
         mx = fmaxf(mx, s[j]);
       }
       mx = warp_max(mx);
       const float m_old = row_m[r];
       const float m_new = fmaxf(m_old, mx);
+      const float m_ref = m_new == -CUDART_INF_F ? 0.f : m_new;
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < PER_LANE; ++j) {
-        const float p = exp2f(s[j] - m_new);
+        const float p = exp2f(s[j] - m_ref);
         Ps[r * L.ld_p + lane + 32 * j] = __float2bfloat16(p);
         sum += p;
       }
       sum = warp_sum(sum);
       if (lane == 0) {
-        const float alpha = exp2f(m_old - m_new);  // 0 on the first tile
+        const float alpha = exp2f(m_old - m_ref);  // 0 while m_old is -inf
         row_a[r] = alpha;
         row_m[r] = m_new;
         row_l[r] = row_l[r] * alpha + sum;
@@ -250,30 +279,48 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 }
 
 template <int NWARPS, int BK>
+__global__ void __launch_bounds__(32 * NWARPS)
+flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v, Strides sq, Strides sk, Strides sv,
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                 const int* __restrict__ kv_lens, int H, int Sq, int Sk, int D,
+                 float scale_log2, int /*window*/) {
+  flash_fwd_body<NWARPS, BK, false>(q, k, v, sq, sk, sv, out, lse, kv_lens, H, Sq, Sk, D,
+                                    scale_log2, 0);
+}
+
+template <int NWARPS, int BK>
+__global__ void __launch_bounds__(32 * NWARPS)
+flash_window_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, Strides sq, Strides sk, Strides sv,
+                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                    const int* __restrict__ /*kv_lens*/, int H, int Sq, int Sk, int D,
+                    float scale_log2, int window) {
+  flash_fwd_body<NWARPS, BK, true>(q, k, v, sq, sk, sv, out, lse, nullptr, H, Sq, Sk, D,
+                                   scale_log2, window);
+}
+
+template <int NWARPS, int BK, bool BAND>
 int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
            Strides sq, Strides sk, Strides sv, __nv_bfloat16* out, float* lse,
            const int* kv_lens, int B, int Sq, int Sk, int H, int D, float scale_log2,
-           cudaStream_t stream) {
+           int window, cudaStream_t stream) {
   constexpr int BQ = 16 * NWARPS;
   const Layout L = make_layout(D, BQ, BK);
-  auto kern = flash_fwd_kernel<NWARPS, BK>;
+  auto kern = BAND ? flash_window_kernel<NWARPS, BK> : flash_fwd_kernel<NWARPS, BK>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kern<<<grid, 32 * NWARPS, L.bytes, stream>>>(q, k, v, sq, sk, sv, out, lse, kv_lens, H, Sq,
-                                               Sk, D, scale_log2);
+                                               Sk, D, scale_log2, window);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" int cf_flash_attn_bf16(const void* q, const void* k, const void* v,
-                                  long long qsb, long long qss, long long qsh,
-                                  long long ksb, long long kss, long long ksh,
-                                  long long vsb, long long vss, long long vsh,
-                                  void* out, void* lse, const void* kv_lens,
-                                  int B, int Sq, int Sk, int H, int D, float scale,
-                                  void* stream) {
+template <bool BAND>
+int dispatch(const void* q, const void* k, const void* v, long long qsb, long long qss,
+             long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
+             long long vss, long long vsh, void* out, void* lse, const void* kv_lens, int B,
+             int Sq, int Sk, int H, int D, float scale, int window, void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return 0;
   const Strides sq{qsb, qss, qsh}, sk{ksb, kss, ksh}, sv{vsb, vss, vsh};
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
@@ -287,12 +334,40 @@ extern "C" int cf_flash_attn_bf16(const void* q, const void* k, const void* v,
   // 64x64 tiles with 4 warps while they fit in ~200 KB of shared memory,
   // else 32x32 tiles with 2 warps (d=512 takes ~173 KB)
   if (make_layout(D, 64, 64).bytes <= 200 * 1024) {
-    return launch<4, 64>(qp, kp, vp, sq, sk, sv, op, lp, lens, B, Sq, Sk, H, D, sl2, st);
+    return launch<4, 64, BAND>(qp, kp, vp, sq, sk, sv, op, lp, lens, B, Sq, Sk, H, D, sl2,
+                               window, st);
   }
   if (make_layout(D, 32, 32).bytes <= 227 * 1024) {
-    return launch<2, 32>(qp, kp, vp, sq, sk, sv, op, lp, lens, B, Sq, Sk, H, D, sl2, st);
+    return launch<2, 32, BAND>(qp, kp, vp, sq, sk, sv, op, lp, lens, B, Sq, Sk, H, D, sl2,
+                               window, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+extern "C" int cf_flash_attn_bf16(const void* q, const void* k, const void* v,
+                                  long long qsb, long long qss, long long qsh,
+                                  long long ksb, long long kss, long long ksh,
+                                  long long vsb, long long vss, long long vsh,
+                                  void* out, void* lse, const void* kv_lens,
+                                  int B, int Sq, int Sk, int H, int D, float scale,
+                                  void* stream) {
+  return dispatch<false>(q, k, v, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, out, lse,
+                         kv_lens, B, Sq, Sk, H, D, scale, 0, stream);
+}
+
+// Banded self-attention |i - j| <= window over S keys (Sq == Sk == S); a
+// window >= S - 1 is full attention.
+extern "C" int cf_flash_attn_window_bf16(const void* q, const void* k, const void* v,
+                                         long long qsb, long long qss, long long qsh,
+                                         long long ksb, long long kss, long long ksh,
+                                         long long vsb, long long vss, long long vsh,
+                                         void* out, void* lse, int B, int S, int H, int D,
+                                         int window, float scale, void* stream) {
+  if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<true>(q, k, v, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, out, lse,
+                        nullptr, B, S, S, H, D, scale, window < S ? window : S, stream);
 }
 
 extern "C" const char* cf_error_string(int err) {

@@ -15,6 +15,7 @@ from typing import Any, Optional
 import torch
 
 from compactfusion_tpu_torch import ROADMAP_HINT
+from compactfusion_tpu_torch.cache.accel import CacheAccelState, next_probe, should_skip
 from compactfusion_tpu_torch.compact.ring import tree_map
 from compactfusion_tpu_torch.models import common as cm
 from compactfusion_tpu_torch.models.attn_impl import SingleDeviceAttn
@@ -89,6 +90,14 @@ def _unheads(x):
     return x.reshape(b, s, h * dh)
 
 
+def _has_tensors(tree) -> bool:
+    if isinstance(tree, torch.Tensor):
+        return True
+    if isinstance(tree, dict):
+        tree = tree.values()
+    return tree is not None and any(_has_tensors(t) for t in tree)
+
+
 def _layer(tree, l: int):
     """Layer ``l`` of a tree of layer-stacked tensors (views)."""
     if isinstance(tree, dict):
@@ -131,6 +140,8 @@ def pixart_forward(
     tp_axis: Optional[str] = None,
     pp_stages: int = 1,
     cache_cfg=None,
+    cache_state=None,
+    cache_force=None,
     text_kv: Optional[torch.Tensor] = None,
 ):
     """Denoiser forward on patchified latent tokens.
@@ -142,9 +153,15 @@ def pixart_forward(
     compression plan passes ``attn`` as a tuple of ``(strategy, n_layers)``
     segments covering the blocks in order, and ``attn_state`` as a tuple of
     their states.  Returns (out (B, S, p*p*out_channels), attn_state).
+
+    ``cache_cfg`` (``CacheAccelConfig`` with a mode other than "none"):
+    TeaCache/FBCache.  Block 0 runs, ``should_skip`` decides from its probe
+    (one host read of a 0-dim tensor, the eager ``lax.cond``), and blocks
+    1.. either run and refresh the cached residual or are replaced by it;
+    ``cache_force`` forces the full run.  Then it returns (out, attn_state,
+    new cache_state).
     """
-    if cache_cfg is not None and getattr(cache_cfg, "mode", "none") != "none":
-        raise NotImplementedError(f"TeaCache/FBCache: {ROADMAP_HINT}")
+    use_cache = cache_cfg is not None and cache_cfg.mode != "none"
     if pp_stages > 1:
         raise NotImplementedError(f"PipeFusion (pp_stages > 1): {ROADMAP_HINT}")
     if isinstance(attn, (tuple, list)):
@@ -167,7 +184,9 @@ def pixart_forward(
     kv_lens = None if text_mask is None else text_mask.sum(dim=-1).to(torch.int32)
 
     blocks = params["blocks"]
-    for l, (layer_attn, seg_state, seg_l) in enumerate(layers):
+
+    def block(l, x):
+        layer_attn, seg_state, seg_l = layers[l]
         p = _layer(blocks, l)
         table = p["scale_shift_table"][None] + mod6  # (B, 6, d)
         sh_a, sc_a, g_a, sh_m, sc_m, g_m = [table[:, i][:, None] for i in range(6)]
@@ -187,9 +206,38 @@ def pixart_forward(
 
         # mlp
         xn = cm.layernorm({}, x) * (1 + sc_m) + sh_m
-        x = x + g_m * cm.ffn(p["ffn"], xn, tp_axis=tp_axis)
+        return x + g_m * cm.ffn(p["ffn"], xn, tp_axis=tp_axis)
 
-    return pixart_head(params, x, temb, cfg), attn_state
+    if not use_cache:
+        for l in range(cfg.depth):
+            x = block(l, x)
+        return pixart_head(params, x, temb, cfg), attn_state
+
+    # TeaCache / FBCache: skipped blocks would desync a strategy's state
+    if _has_tensors(attn_state):
+        raise ValueError("cache acceleration is incompatible with a stateful attention strategy")
+    table0 = blocks["scale_shift_table"][0][None] + mod6
+    probe_in = cm.layernorm({}, x) * (1 + table0[:, 1][:, None]) + table0[:, 0][:, None]
+    x1 = block(0, x)
+    # FBCache probes block 0's residual, TeaCache its modulated input
+    probe = (x1 - x) if cache_cfg.mode == "fbcache" else probe_in
+    skip, accum = should_skip(cache_cfg, cache_state, probe, force_compute=cache_force)
+    skipped = bool(skip)  # the step's one host read
+    if skipped:
+        x, residual = x1 + cache_state.residual.to(x1.dtype), cache_state.residual
+    else:
+        x = x1
+        for l in range(1, cfg.depth):
+            x = block(l, x)
+        residual = (x - x1).to(cache_state.residual.dtype)
+    new_cache = CacheAccelState(
+        prev_probe=next_probe(cache_cfg, cache_state, probe, skip),
+        residual=residual,
+        accum=accum,
+        has_prev=torch.ones_like(cache_state.has_prev),
+        skips=cache_state.skips + int(skipped),
+    )
+    return pixart_head(params, x, temb, cfg), attn_state, new_cache
 
 
 def _cross_attn(q, k, v, mask, kv_lens=None):

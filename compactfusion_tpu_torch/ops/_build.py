@@ -113,6 +113,18 @@ def _declare(lib: ctypes.CDLL) -> None:
         P,                # stream
     ]
     lib.cf_flash_attn_bf16.restype = I
+    lib.cf_flash_attn_window_bf16.argtypes = [
+        P, P, P,          # q, k, v
+        L, L, L,          # q strides (b, s, h) in elements
+        L, L, L,          # k strides
+        L, L, L,          # v strides
+        P, P,             # out (B,S,H,D) contiguous, lse (B,H,S)
+        I, I, I, I,       # B, S, H, D
+        I,                # window
+        F,                # softmax scale
+        P,                # stream
+    ]
+    lib.cf_flash_attn_window_bf16.restype = I
     for codec in ("binary", "int2"):
         quant, dequant = getattr(lib, f"cf_{codec}_quant"), getattr(lib, f"cf_{codec}_dequant")
         quant.argtypes = [

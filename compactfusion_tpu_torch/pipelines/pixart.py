@@ -5,10 +5,12 @@ CFG as a doubled batch, 20-step DPM-Solver++ 2M on the "linspace" timestep
 table, then the VAE decode.  With ``CompactConfig(enabled=True,
 simulate_ring=R)`` every self-attention runs the single-device
 compressed-ring emulation (``SimRingAttn``); its EF caches carry from the
-warmup steps into the compressed steps.  Parallel degrees > 1, the cache
-accelerators, DiTFastAttn and PipeFusion are not ported yet.  A per-layer
-``compress_func`` plan runs one ``SimRingAttn`` per contiguous layer
-segment, each with its own EF state.
+warmup steps into the compressed steps.  A per-layer ``compress_func``
+plan runs one ``SimRingAttn`` per contiguous layer segment, each with its
+own EF state.  The single-device accelerators run with compression off:
+DiTFastAttn (``fast_attn_plan``, a (steps, depth) table of
+``FastAttnMethod`` values) and TeaCache/FBCache (``cache``).  Parallel
+degrees > 1 and PipeFusion are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Optional, Tuple
 import torch
 
 from compactfusion_tpu_torch import ROADMAP_HINT
+from compactfusion_tpu_torch.cache.accel import CacheAccelConfig, init_cache_state
+from compactfusion_tpu_torch.cache.fast_attn import FastAttnAttn, optimize_plan
 from compactfusion_tpu_torch.config import (
     CompactConfig,
     CompressType,
@@ -39,6 +43,12 @@ class PixArtPipelineConfig:
     vae: VAEConfig
     parallel: ParallelConfig = ParallelConfig()
     compact: CompactConfig = CompactConfig()
+    cache: CacheAccelConfig = CacheAccelConfig()
+    #: DiTFastAttn per-(step, layer) method plan as a tuple-of-tuples of ints
+    #: (FastAttnMethod values), shape (num_steps, depth); None = off.
+    fast_attn_plan: Optional[tuple] = None
+    #: DiTFastAttn window size
+    fast_attn_window: int = 64
     num_steps: int = 20
     guidance_scale: float = 4.5
     height: int = 512
@@ -72,6 +82,12 @@ class PixArtPipelineConfig:
 
 def _attn_impl(cfg: PixArtPipelineConfig, method: Optional[CompressType]):
     c = cfg.compact
+    if cfg.fast_attn_plan is not None:
+        assert cfg.parallel.sp_degree == 1, "DiTFastAttn window bands do not shard"
+        assert not c.enabled
+        # batch-doubled CFG rows [cond; uncond] enable the CFG_SHARE methods
+        return FastAttnAttn(window_size=cfg.fast_attn_window,
+                            cfg_batched=cfg.do_cfg and cfg.parallel.cfg_degree == 1)
     if c.enabled and c.patch_gather:
         raise NotImplementedError(f"patch-parallel gather: {ROADMAP_HINT}")
     if c.enabled and c.simulate_ring > 0:
@@ -99,6 +115,16 @@ class PixArtPipeline:
             interpolation_scale=cfg.model.interpolation_scale,
         ).to(self.device)
         self.sched = ddpm_schedule(cfg.num_steps, timestep_spacing="linspace")
+        # FULL -> FULL_NO_RESIDUAL where no later step reads the cached
+        # residual (skips the residual-refresh window pass); host integers
+        self.plan_table = None
+        if cfg.fast_attn_plan is not None:
+            self.plan_table = optimize_plan(cfg.fast_attn_plan)
+            if self.plan_table.shape != (cfg.num_steps, cfg.model.depth):
+                raise ValueError(f"fast_attn_plan is {self.plan_table.shape}, expected "
+                                 f"{(cfg.num_steps, cfg.model.depth)}")
+        #: skipped steps of the last request (TeaCache/FBCache), else None
+        self.last_skips = None
 
     def __call__(self, text, text_mask, generator: Optional[torch.Generator] = None,
                  latents: Optional[torch.Tensor] = None, decode: bool = True):
@@ -135,6 +161,13 @@ class PixArtPipeline:
         n_model_batch = 2 * b if cfg.do_cfg else b
 
         dpm_state = dpm_init_state(latents.shape, self.device)
+        use_cache = cfg.cache.mode != "none"
+        cache_state = None
+        if use_cache:
+            if cfg.compact.enabled:
+                raise ValueError("cache acceleration is incompatible with compact compression")
+            shp = (n_model_batch, cfg.tokens, m.dim)
+            cache_state = init_cache_state(shp, shp, torch.float32, self.device)
         # the text path is step-invariant: caption MLP + every block's
         # cross K/V once per image, kept in the model dtype
         text_kv = precompute_text_kv(self.params, text).to(m.dtype)
@@ -142,6 +175,7 @@ class PixArtPipeline:
         for plan, steps in base.compact_layer_segments(cfg.compact, cfg.num_steps, m.depth):
             if isinstance(plan, tuple) and len(plan) > 1:
                 # per-layer plan: one strategy and one EF state per layer segment
+                assert not use_cache, "per-layer compression plans compose with SP/CFG/DP only"
                 attn = tuple((_attn_impl(cfg, method), n_l) for method, n_l in plan)
             else:
                 attn = _attn_impl(cfg, plan[0][0] if isinstance(plan, tuple) else plan)
@@ -159,14 +193,24 @@ class PixArtPipeline:
                 t = torch.full((n_model_batch,), float(self.sched.timesteps[i]),
                                dtype=torch.float32, device=self.device)
                 x = torch.cat([latents, latents], dim=0) if cfg.do_cfg else latents
-                out, attn_state = pixart_forward(
+                if self.plan_table is not None:
+                    attn_state["method"].copy_(torch.from_numpy(self.plan_table[i]))
+                fwd = pixart_forward(
                     self.params, x.to(m.dtype), t, None, m, pos_embed=self.pos_embed,
                     attn=attn, attn_state=attn_state, text_mask=text_mask, text_kv=text_kv,
+                    cache_cfg=cfg.cache if use_cache else None, cache_state=cache_state,
+                    # the final, quality-critical step always computes
+                    cache_force=i == cfg.num_steps - 1,
                 )
+                if use_cache:
+                    out, attn_state, cache_state = fwd
+                else:
+                    out, attn_state = fwd
                 eps = out[..., : out.shape[-1] // 2]  # drop the learned-variance half
                 if cfg.do_cfg:
                     eps = base.cfg_combine(eps, cfg.guidance_scale, 1)
                 latents, dpm_state = dpm_step(self.sched, i, cfg.num_steps, latents, eps, dpm_state)
+        self.last_skips = int(cache_state.skips) if use_cache else None
         return latents
 
     @torch.inference_mode()

@@ -73,8 +73,11 @@ def test_wrapper_on_cpu_runs_the_twin_without_counting():
     ref_o, ref_l = tflash.flash_attn_with_lse_ref(q, k, v)
     assert torch.equal(out, ref_o) and torch.equal(lse, ref_l)
     assert tflash.flash_attn_with_lse.launches == 0
-    with pytest.raises(NotImplementedError):
-        tflash.flash_attn_with_lse(q, k, v, window=8)
+    # window= delegates to the banded wrapper, which runs its twin here
+    win_o, win_l = tflash.flash_attn_with_lse(q, k[:, :32], v[:, :32], window=8)
+    ref_o, ref_l = tflash.flash_attn_window_with_lse_ref(q, k[:, :32], v[:, :32], 8)
+    assert torch.equal(win_o, ref_o) and torch.equal(win_l, ref_l)
+    assert tflash.flash_attn_with_lse.launches == 0
 
 
 def test_math_path_matches_jax_with_mask_and_causal():

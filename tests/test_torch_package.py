@@ -1,6 +1,7 @@
 """Package-level checks of the PyTorch port: it never imports JAX, its
 configuration matches the JAX package's, and weights carry over."""
 
+import ast
 import dataclasses
 import pkgutil
 import subprocess
@@ -15,7 +16,9 @@ import torch
 
 import compactfusion_tpu_torch
 from compactfusion_tpu import config as jconfig
+from compactfusion_tpu.cache import accel as jaccel
 from compactfusion_tpu_torch import config as tconfig
+from compactfusion_tpu_torch.cache import accel as taccel
 from compactfusion_tpu_torch.io.from_jax import params_from_numpy
 
 REPO = Path(__file__).resolve().parent.parent
@@ -29,7 +32,8 @@ def _modules():
 
 def test_importing_every_module_leaves_jax_out():
     mods = _modules()
-    for m in ("pipelines.pixart", "compact.lowrank", "compact.codecs", "ops.quant"):
+    for m in ("pipelines.pixart", "compact.lowrank", "compact.codecs", "ops.quant", "cache.accel",
+              "cache.fast_attn"):
         assert f"compactfusion_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -45,12 +49,34 @@ def test_importing_every_module_leaves_jax_out():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def _imports(path):
+    """Every module an ``import``/``from ... import`` names in a file, at any
+    depth (inside functions too)."""
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            names.append(node.module)
+    return names
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/profile_torch.py"])
+def test_scripts_import_neither_jax_nor_the_jax_package(script):
+    names = _imports(REPO / script)
+    if script == "chip_smoke.py":  # its imports sit inside functions: the walk reaches them
+        assert "compactfusion_tpu_torch.pipelines.pixart" in names
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "compactfusion_tpu")]
+    assert not bad, f"{script} imports {bad}"
+
+
 @pytest.mark.parametrize(
-    "name", ["CompactConfig", "ParallelConfig"]
+    "name", ["CompactConfig", "ParallelConfig", "CacheAccelConfig"]
 )
 def test_config_fields_and_defaults_match_jax(name):
-    jf = {f.name: f.default for f in dataclasses.fields(getattr(jconfig, name))}
-    tf = {f.name: f.default for f in dataclasses.fields(getattr(tconfig, name))}
+    jmod, tmod = (jaccel, taccel) if name == "CacheAccelConfig" else (jconfig, tconfig)
+    jf = {f.name: f.default for f in dataclasses.fields(getattr(jmod, name))}
+    tf = {f.name: f.default for f in dataclasses.fields(getattr(tmod, name))}
     assert list(jf) == list(tf)
     for key, jd in jf.items():
         td = tf[key]

@@ -7,7 +7,6 @@ only in fp32 summation order.
 """
 
 import dataclasses
-import types
 
 import jax
 import jax.numpy as jnp
@@ -75,17 +74,24 @@ def test_pixart_forward_matches_jax(tiny):
 
 
 def test_unported_branches_raise(tiny):
-    """PipeFusion and the cache accelerators still raise; per-layer plans
-    are ported, and segments that do not cover the blocks are refused."""
+    """PipeFusion still raises; the cache accelerators are ported and refuse
+    a stateful attention strategy; per-layer plans are ported, and segments
+    that do not cover the blocks are refused."""
+    from compactfusion_tpu_torch.cache.accel import CacheAccelConfig, init_cache_state
+
     _, tcfg, _, tparams = tiny
     x = torch.zeros(1, 16, 16)
     kw = dict(pos_embed=torch.zeros(16, tcfg.dim))
     with pytest.raises(NotImplementedError):
         tpix.pixart_forward(tparams, x, torch.zeros(1), torch.zeros(1, 3, 32), tcfg,
                             pp_stages=2, **kw)
-    with pytest.raises(NotImplementedError):
+    cache = dict(cache_cfg=CacheAccelConfig(mode="teacache"),
+                 cache_state=init_cache_state((1, 16, tcfg.dim), (1, 16, tcfg.dim), torch.float32))
+    with pytest.raises(ValueError):
         tpix.pixart_forward(tparams, x, torch.zeros(1), torch.zeros(1, 3, 32), tcfg,
-                            cache_cfg=types.SimpleNamespace(mode="teacache"), **kw)
+                            attn_state={"residual": torch.zeros(1)}, **cache, **kw)
+    assert len(tpix.pixart_forward(tparams, x, torch.zeros(1), torch.zeros(1, 3, 32), tcfg,
+                                   **cache, **kw)) == 3
     with pytest.raises(ValueError):
         tpix.pixart_forward(tparams, x, torch.zeros(1), torch.zeros(1, 3, 32), tcfg,
                             attn=((SingleDeviceAttn(), 1),), attn_state=((),), **kw)

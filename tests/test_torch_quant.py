@@ -147,17 +147,20 @@ def test_pack_unpack_bytes_match_jax():
 
 
 def test_rank_scale_and_other_codecs_raise():
-    """The rank-k scale and every codec are ported; on this path what still
-    raises is the banded flash branch (``window=``, DiTFastAttn's kernel),
-    and the quant wrappers reject what their kernels do not take."""
+    """The rank-k scale, every codec and the banded flash branch
+    (``window=``, DiTFastAttn's kernel) are ported; the banded branch
+    refuses ``kv_lens``, and the quant wrappers reject what their kernels do
+    not take."""
     from compactfusion_tpu_torch.ops import flash
 
     x = torch.randn(16, 64)
     assert tcodecs.encode_binary(x, rank=4).scale_u.shape == (16, 4)
     assert isinstance(tcodecs.encode(x, tcodecs.CompressType.INT2), tcodecs.Int2Payload)
     q = torch.randn(1, 8, 2, 16)
-    with pytest.raises(NotImplementedError):
-        flash.flash_attn_with_lse(q, q, q, window=2)
+    assert torch.equal(flash.flash_attn_with_lse(q, q, q, window=2)[0],
+                       flash.flash_attn_window_with_lse_ref(q, q, q, 2)[0])
+    with pytest.raises(ValueError):
+        flash.flash_attn_with_lse(q, q, q, kv_lens=torch.tensor([8]), window=2)
     u, v = torch.ones(16, 1, dtype=torch.bfloat16), torch.ones(1, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # C % 4 != 0, checked before any kernel runs
         tqp._quant_launch("cf_int2_quant", torch.zeros(16, 66), torch.zeros(16, 66), u, v, 4)

@@ -4,10 +4,13 @@
     python3 tools/profile_torch.py [--out build/profile_torch.json] [--warm 3]
 
 Builds the same full-width pipelines as ``chip_smoke.py`` (random weights,
-spiced AdaLN tables): compression off, and the ring-8 compressed emulation
+spiced AdaLN tables): compression off, the ring-8 compressed emulation
 with the 1-bit codec, INT2, LOW_RANK rank 4 and the per-layer plan on int8
-EF caches.  For each it runs ``--warm`` requests, times two more with CUDA
-events, then profiles one request with ``torch.profiler`` (CPU + CUDA) and
+EF caches, DiTFastAttn with ``chip_smoke.py``'s phase-10 calibrated plan
+(threshold 0.5, window 64) and its phase-9 fixed plan (all seven methods),
+and FBCache at threshold 0.12.  For each it runs ``--warm`` requests, times
+two more with CUDA events, then profiles one request with
+``torch.profiler`` (CPU + CUDA) and
 sums the device time and launches of its kernels by category (the QR
 category is ``torch.linalg.qr``'s cuSOLVER kernels).  The device busy share is
 that sum over the mean unprofiled time (one stream, so kernels do not
@@ -26,6 +29,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # kernel-name patterns, first match wins
 CATEGORIES = (
     ("flash kernel", ("flash_fwd_kernel",)),
+    ("window flash kernel", ("flash_window_kernel",)),
     ("quant kernel", ("binary_quant_kernel",)),
     ("dequant kernel", ("binary_dequant_kernel",)),
     ("int2 quant kernel", ("int2_quant_kernel",)),
@@ -95,6 +99,7 @@ def main():
         raise SystemExit("profile_torch: no CUDA device")
     sys.path.insert(0, ROOT)
     import chip_smoke
+    from compactfusion_tpu_torch.cache.accel import CacheAccelConfig
     from compactfusion_tpu_torch.pipelines.pixart import PixArtPipeline, PixArtPipelineConfig
 
     smi = subprocess.run(
@@ -104,11 +109,20 @@ def main():
     dev = torch.device("cuda")
     mcfg, vcfg, params, vae_params = chip_smoke.build_models(dev)
     report = {"smi": smi, "torch": torch.__version__, "warm": args.warm, "seed": args.seed}
-    for name, compact in (("lossless", None), ("compressed_ring8", chip_smoke.compressed_config()),
-                          ("int2_ring8", chip_smoke.compressed_config("int2")),
-                          ("low_rank4_ring8", chip_smoke.compressed_config("low-rank", comp_rank=4)),
-                          ("layer_plan_int8_ring8", chip_smoke.layer_plan_config())):
-        kw = {} if compact is None else {"compact": compact}
+    plan, cal_s = chip_smoke.calibrated_plan(params, mcfg, vcfg, dev)
+    report["fast_attn_calibration_s"] = cal_s
+
+    def fast_attn(plan):
+        return {"fast_attn_plan": tuple(tuple(int(m) for m in row) for row in plan),
+                "fast_attn_window": chip_smoke.WINDOW}
+
+    for name, kw in (("lossless", {}), ("compressed_ring8", {"compact": chip_smoke.compressed_config()}),
+                     ("int2_ring8", {"compact": chip_smoke.compressed_config("int2")}),
+                     ("low_rank4_ring8", {"compact": chip_smoke.compressed_config("low-rank", comp_rank=4)}),
+                     ("layer_plan_int8_ring8", {"compact": chip_smoke.layer_plan_config()}),
+                     ("fast_attn_calibrated", fast_attn(plan)),
+                     ("fast_attn_mixed", fast_attn(chip_smoke.mixed_plan())),
+                     ("fbcache_0.12", {"cache": CacheAccelConfig(mode="fbcache", threshold=0.12)})):
         cfg = PixArtPipelineConfig(model=mcfg, vae=vcfg, num_steps=chip_smoke.STEPS,
                                    guidance_scale=4.5, **kw)
         r = profile_pipeline(PixArtPipeline(params, vae_params, cfg, dev), args.warm, args.seed)
