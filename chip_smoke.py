@@ -30,11 +30,29 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
     window 64), then the request with the calibrated plan.
 11. FBCache at threshold 0 (the lossless latents, no skip) and 1e6 (18
     skipped steps), then FBCache 0.12 and TeaCache 0.25.
+12. The two ring kernels against their twins, one rank's view with the
+    other ranks' blocks or payloads made in this process (each virtual rank
+    updates its own copy of the EF stacks, which must stay bit-equal):
+    ring 2 at the path's shape (512 tokens per rank, B 2 and B 1) and ring 8
+    (128 tokens per rank); BINARY at K=1 and K=2, INT2 and LOW_RANK r4 on
+    fp32 stacks, and on int8 stacks at B 1.
+13. The pipeline as a ring of 2 processes that share this GPU (a gloo
+    group: NCCL refuses two ranks on one device), lossless, unfused and
+    through the fused ring kernel, against request 1's lossless latents;
+    first cfg 2 alone (each process one CFG half, no ring), which runs the
+    model at a ring-2 rank's rows per GEMM without the ring.
+14. The same ring with BINARY compression (warmup 4), unfused and through
+    the fused compressed ring kernel, against the single-process ring-2
+    emulation of the same request, against each other and against lossless;
+    both send the same bytes.
+15. cfg 2 x ring 2 in 4 processes: fused LOW_RANK r4 on int8 EF caches
+    (B 1 per rank) with the consistency check on: the caches stay equal.
 
-Phases 4-11 hold their latents against request 1's lossless latents and
+Phases 4-15 hold their latents against request 1's lossless latents and
 their kernel launch counts against the counts the path implies; every
-count is set to 0 just before each of phases 3-11 (and the calibration)
-and read just after.
+count is set to 0 just before each of phases 3-11 and 13-15 (and the
+calibration), in every process, and read just after.  The s/image of
+phases 13-15 is that of processes sharing one card, not a ring speed.
 Then one JSON line with each kernel's launches on the main path, error and
 times, and a last line ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the package beside it, the script exits non-zero and
@@ -62,6 +80,11 @@ QUANT_NEW_BASE_RTOL = 1e-6
 # compressed vs lossless latents (relative Frobenius error): each codec must
 # change the result (> 0) but stay close to it
 COMPRESSED_REL_ERR_MAX = 0.05
+# the ring across ranks vs one process computing the same function (the
+# lossless pipeline, the ring-2 emulation, or the other route): only the
+# order of the bf16 attention partials differs; the JAX package's dryrun
+# puts this bound on its fused vs unfused ring (__graft_entry__.py:250)
+RING_REL_MAX = 2e-2
 
 # the card's published peaks (H100 SXM data sheet, dense): the bound of a
 # kernel is the larger of its bytes over the memory rate and its operations
@@ -79,6 +102,12 @@ WARMUP = 4
 CHUNK = (2 * 1024 // RING, 1152)
 # compress (or decompress) calls of one image per compressed layer: 8 chunks, K and V
 CALLS_PER_LAYER = RING * 2 * (STEPS - WARMUP)
+# phase 12's compressed-ring cases: (ring, batch, tokens per rank, codec,
+# scale rank, int8 bases); ring 2 at the path's shape, ring 8 at S/8
+_CODECS = (("binary", -1), ("binary", 2), ("int2", -1), ("lowrank", 4))
+CRING_CASES = ([(2, 2, 512, c, r, False) for c, r in _CODECS]
+               + [(2, 1, 512, c, r, True) for c, r in _CODECS if r != 2]
+               + [(RING, 2, 1024 // RING, c, r, False) for c, r in _CODECS])
 
 
 def _time_ms(fn, iters):
@@ -267,6 +296,161 @@ def check_quant(quant, codecs, dev, gen, codec, rank, base_dtype):
           f"{row['quant_plain_ms']:.4f}, bound {quant_bound[0]:.5f}), dequant "
           f"{row['dequant_ms']:.4f} ms (twin {row['dequant_plain_ms']:.4f}, bound "
           f"{dequant_bound[0]:.5f})")
+    return row
+
+
+def _shards(gen, dev, ring, b, s_local):
+    """Every virtual rank's (q, k, v), column slices of one qkv tensor each,
+    as PixArt hands them to attention: (B, S_local, 16, 72) bf16 views."""
+    import torch
+
+    dim = 1152
+    out = []
+    for _ in range(ring):
+        qkv = torch.randn((b, s_local, 3 * dim), generator=gen, device=dev).to(torch.bfloat16)
+        out.append(tuple(t.view(b, s_local, 16, 72) for t in qkv.split(dim, dim=-1)))
+    return out
+
+
+def _rel(a, b):
+    """Largest elementwise |a - b| / |b| (0 where both are 0)."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs() / b.abs().clamp_min(1e-30)).max().item()
+
+
+def check_ring_flash(rf, dev, gen):
+    """Kernel 7 (one launch per hop) vs its twin, rank 0's view of a ring:
+    its queries against its own K/V slices (hop 0) and the contiguous blocks
+    the other ranks send, in the order they arrive; timed beside one SDPA
+    call on the concatenated K/V.  Returns a report."""
+    import torch
+
+    rows = []
+    for ring, b, s_local in ((2, 2, 512), (2, 1, 512), (RING, 2, 1024 // RING)):
+        shards = _shards(gen, dev, ring, b, s_local)
+        q = shards[0][0]
+        blocks = [(shards[0][1], shards[0][2])] + [
+            (shards[(-s) % ring][1].contiguous(), shards[(-s) % ring][2].contiguous())
+            for s in range(1, ring)]
+        out, lse = rf.ring_flash_attn_with_lse(q, iter(blocks), ring)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = rf.ring_flash_attn_with_lse_ref(q, iter(blocks), ring)
+        err_out = (out.float() - ref_out.float()).abs().max().item()
+        err_lse = (lse - ref_lse).abs().max().item()
+        name = f"ring {ring} B{b} H16 Sq{s_local} Sk{ring}x{s_local} d72"
+        ms = _time_ms(lambda: rf.ring_flash_attn_with_lse(q, iter(blocks), ring), 20)
+        plain_ms = _time_ms(lambda: rf.ring_flash_attn_with_lse_ref(q, iter(blocks), ring), 20)
+        k_all = torch.cat([k for k, _ in blocks], dim=1)
+        v_all = torch.cat([v for _, v in blocks], dim=1)
+        lib, backend = _library(q, k_all, v_all)
+        library_ms = _time_ms(lib, 20)
+        bound_ms, bound_by = _bound(_nbytes(q, k_all, v_all, out, lse),
+                                    4 * b * 16 * s_local * k_all.shape[1] * 72, PEAK_BF16_FLOPS)
+        rows.append({"shape": name, "max_abs_err_out": err_out, "max_abs_err_lse": err_lse,
+                     "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "library_backend": backend, "bound_ms": bound_ms, "bound_by": bound_by})
+        print(f"[12] ring flash {name}: out err {err_out:.3e} (tol {FLASH_OUT_ATOL}), lse err "
+              f"{err_lse:.3e} (tol {FLASH_LSE_ATOL}); kernel {ms:.4f} ms ({ring} launches), twin "
+              f"{plain_ms:.4f} ms, SDPA on the gathered K/V ({backend}) {library_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
+        if not (err_out <= FLASH_OUT_ATOL and err_lse <= FLASH_LSE_ATOL):
+            raise AssertionError(f"ring flash kernel disagrees with its twin at {name}")
+    return rows
+
+
+def _stack(gen, dev, ring, n, c, quantized):
+    """A random EF stack (R, N, C): fp32, or int8-quantized slots."""
+    import torch
+
+    from compactfusion_tpu_torch.compact import codecs
+
+    slots = [torch.randn((n, c), generator=gen, device=dev) * 0.9 for _ in range(ring)]
+    if not quantized:
+        return torch.stack(slots)
+    enc = [codecs.encode_int8(x) for x in slots]
+    return codecs.Int8Payload(*(torch.stack(parts) for parts in zip(*enc)))
+
+
+def _clone(base):
+    from compactfusion_tpu_torch.compact import codecs
+
+    if isinstance(base, codecs.Int8Payload):
+        return codecs.Int8Payload(*(t.clone() for t in base))
+    return base.clone()
+
+
+def _decoded(base):
+    from compactfusion_tpu_torch.compact import codecs
+
+    if isinstance(base, codecs.Int8Payload):
+        return base.q.float() * base.scale.float() + base.minv.float()
+    return base
+
+
+def _same(a, b):
+    import torch
+
+    from compactfusion_tpu_torch.compact import codecs
+
+    if isinstance(a, codecs.Int8Payload):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def check_compact_ring(rf, dev, gen, ring, b, s_local, codec, rank, quantized):
+    """Kernel 8 vs its twin: every virtual rank of a ring of ``ring`` makes
+    its fused payload from its own K/V and EF slot, and each runs the kernel
+    on its own copy of one stack with the payloads in the order they would
+    arrive; rank 0 also runs the twin.  Checks out, LSE and rank 0's new
+    stack against the twin, and every rank's stack against every other's
+    (bit for bit).  Returns a report with rank 0's time."""
+    import torch
+
+    h, d = 16, 72
+    n, c = b * s_local, h * d
+    shards = _shards(gen, dev, ring, b, s_local)
+    kb0, vb0 = _stack(gen, dev, ring, n, c, quantized), _stack(gen, dev, ring, n, c, quantized)
+    payloads = [rf.fused_ring_payload(shards[r][1], shards[r][2], rf.decode_slot(kb0, r),
+                                      rf.decode_slot(vb0, r), codec, rank) for r in range(ring)]
+
+    def arriving(r):  # the payloads rank r works on, hop by hop
+        return iter([payloads[(r - s) % ring] for s in range(ring)])
+
+    def kernel(r, kb, vb):
+        return rf.compact_ring_flash(*shards[r], kb, vb, arriving(r), codec=codec, my=r,
+                                     ring_size=ring)
+
+    stacks = [(_clone(kb0), _clone(vb0)) for _ in range(ring)]
+    out, lse = [kernel(r, *stacks[r]) for r in range(ring)][0]
+    torch.cuda.synchronize()
+    kr, vr = _clone(kb0), _clone(vb0)
+    ref_out, ref_lse = rf.compact_ring_flash_ref(*shards[0], kr, vr, arriving(0), codec=codec,
+                                                 my=0, ring_size=ring)
+    err_out = (out.float() - ref_out.float()).abs().max().item()
+    err_lse = (lse - ref_lse).abs().max().item()
+    base_rel = max(_rel(_decoded(stacks[0][0]), _decoded(kr)), _rel(_decoded(stacks[0][1]), _decoded(vr)))
+    consistent = all(_same(stacks[r][i], stacks[0][i]) for r in range(ring) for i in range(2))
+    kname = {"binary": f"binary K{max(rank, 1)}", "int2": "int2", "lowrank": f"low-rank r{rank}"}[codec]
+    name = f"ring {ring} B{b} H16 S{s_local} d72 {kname} {'int8' if quantized else 'fp32'} bases"
+    ms = _time_ms(lambda: kernel(0, *stacks[0]), 20)
+    plain_ms = _time_ms(lambda: rf.compact_ring_flash_ref(*shards[0], kr, vr, arriving(0), codec=codec,
+                                                          my=0, ring_size=ring), 5)
+    q, k, v = shards[0]
+    payload_bytes = sum(t.numel() * t.element_size() for p in payloads for t in p)
+    # each hop reads and writes its source slot of both stacks
+    base_bytes = 2 * 2 * ring * n * c * (1 if quantized else 4)
+    bound_ms, bound_by = _bound(_nbytes(q, k, v, out, lse) + payload_bytes + base_bytes,
+                                4 * b * h * s_local * ring * s_local * d, PEAK_BF16_FLOPS)
+    row = {"shape": name, "max_abs_err_out": err_out, "max_abs_err_lse": err_lse,
+           "new_base_rel_err": base_rel, "ranks_bit_equal": consistent, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"[12] compact ring {name}: out err {err_out:.3e} (tol {FLASH_OUT_ATOL}), lse err "
+          f"{err_lse:.3e} (tol {FLASH_LSE_ATOL}), new bases rel err {base_rel:.3e} (tol "
+          f"{QUANT_NEW_BASE_RTOL}), {ring} ranks' stacks bit-equal: {consistent}; kernel {ms:.4f} ms "
+          f"({ring} launches), twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    if not (err_out <= FLASH_OUT_ATOL and err_lse <= FLASH_LSE_ATOL and base_rel <= QUANT_NEW_BASE_RTOL
+            and consistent):
+        raise AssertionError(f"compact ring kernel disagrees with its twin at {name}")
     return row
 
 
@@ -466,6 +650,110 @@ def accel_phase(phase, what, pipe, kernels, lossless, full, window, exact=False)
     return {"s_per_image": sec, "latent_rel_err": rel, "skips": pipe.last_skips, "launches": counts}
 
 
+def port_kernels():
+    """Every kernel wrapper of the port (each counts its own launches)."""
+    from compactfusion_tpu_torch.ops import flash, quant, ring_flash
+
+    return (flash.flash_attn_with_lse, quant.binary_quant_fastpath, quant.binary_dequant_fastpath,
+            quant.int2_quant_fastpath, quant.int2_dequant_fastpath, flash.flash_attn_window_with_lse,
+            ring_flash.ring_flash_attn_with_lse, ring_flash.compact_ring_flash)
+
+
+def ring_compact(compress_type, **kw):
+    """The compressed ring across ranks of phases 14-15: residual 1 with
+    error feedback, warmup 4, the fused quant kernels on for the unfused
+    route."""
+    from compactfusion_tpu_torch.config import CompactConfig, CompressType
+
+    return CompactConfig(enabled=True, compress_type=CompressType(compress_type),
+                         warmup_steps=WARMUP, residual=1, error_feedback=True, fastpath=True, **kw)
+
+
+def ring_rank(rank, world, runs):
+    """One rank of phases 13-15 (``spawn_local`` on this GPU, gloo): the
+    full-width models from the same seeds, then per run (name,
+    ParallelConfig kwargs, CompactConfig kwargs or None) request 1 with
+    every launch count set to 0 before it; returns per run the whole
+    latents, the launch counts, the bytes this rank's ring shifts sent, the
+    largest EF cache deviation across the ring and s/image."""
+    import torch
+
+    from compactfusion_tpu_torch.compact import ring as compact_ring
+    from compactfusion_tpu_torch.config import ParallelConfig
+    from compactfusion_tpu_torch.parallel.mesh import make_mesh
+    from compactfusion_tpu_torch.parallel.ring import ring_shift
+    from compactfusion_tpu_torch.pipelines.pixart import PixArtPipeline, PixArtPipelineConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    kernels = port_kernels()
+    mcfg, vcfg, params, vae_params = build_models(dev)
+    out = {}
+    for name, par, compact in runs:
+        parallel = ParallelConfig(**par)
+        kw = {} if compact is None else {"compact": ring_compact(**compact)}
+        cfg = PixArtPipelineConfig(model=mcfg, vae=vcfg, num_steps=STEPS, guidance_scale=4.5,
+                                   parallel=parallel, **kw)
+        pipe = PixArtPipeline(params, vae_params, cfg, dev, mesh=make_mesh(parallel))
+        _reset_counts(kernels)
+        ring_shift.nbytes = 0
+        compact_ring.max_consistency_dev = 0.0
+        lat, img, sec = request(pipe, 1)
+        counts = {fn.__name__: fn.launches for fn in kernels}
+        check_image(img, f"{name} rank {rank}")
+        out[name] = {"latents": lat.float().cpu().numpy(), "launches": counts,
+                     "wire_bytes": ring_shift.nbytes, "consistency_dev": compact_ring.max_consistency_dev,
+                     "s_per_image": sec}
+    return out
+
+
+def _rel_np(a, b):
+    import numpy as np
+
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def ring_phase(phase, results, name, lossless, expect, bound, reference=None, low=None):
+    """Checks one run of phases 13-15 on every rank: the same whole
+    latents, launch counts equal to ``expect`` ({kernel: count}, others 0),
+    and the latent error against ``lossless`` (below ``bound``; above
+    ``low`` when given) and against ``reference``.  Returns the phase's
+    report with the counts summed over ranks."""
+    import numpy as np
+
+    runs = [r[name] for r in results]
+    lat = runs[0]["latents"]
+    for i, r in enumerate(runs):
+        if not np.array_equal(r["latents"], lat):
+            raise AssertionError(f"{name}: rank {i}'s latents differ from rank 0's")
+        for kname, count in r["launches"].items():
+            if count != expect.get(kname, 0):
+                raise AssertionError(f"{name} rank {i}: {kname} launched {count} times, "
+                                     f"expected {expect.get(kname, 0)}")
+    rel = _rel_np(lat, lossless)
+    if not (rel <= bound and (low is None or rel > low)):
+        raise AssertionError(f"{name}: latent rel err vs lossless {rel} outside ({low}, {bound}]")
+    rep = {"latent_rel_err_vs_lossless": rel, "s_per_image": [r["s_per_image"] for r in runs],
+           "wire_bytes_per_rank": runs[0]["wire_bytes"],
+           "consistency_dev": max(r["consistency_dev"] for r in runs),
+           "launches": {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]},
+           "launches_per_rank": runs[0]["launches"]}
+    line = (f"[{phase}] {name} ({len(runs)} processes on one GPU, gloo): latents equal on every "
+            f"rank; rel err vs lossless {rel:.6f} (bound {bound}"
+            + (f", > {low}" if low is not None else "") + ")")
+    if reference is not None:
+        ref_name, ref_lat, ref_bound = reference
+        rep[f"latent_rel_err_vs_{ref_name}"] = r_ref = _rel_np(lat, ref_lat)
+        if not r_ref <= ref_bound:
+            raise AssertionError(f"{name}: latent rel err vs {ref_name} {r_ref} > {ref_bound}")
+        line += f"; vs {ref_name} {r_ref:.6f} (bound {ref_bound})"
+    print(line + f"; s/image {', '.join(f'{s:.4f}' for s in rep['s_per_image'])} (shared card, "
+          f"not a ring speed); ring-shift bytes per rank {rep['wire_bytes_per_rank']}; launches per "
+          f"rank: {', '.join(f'{k} {v}' for k, v in runs[0]['launches'].items() if v)}")
+    return rep
+
+
 def main():
     import torch
 
@@ -477,16 +765,15 @@ def main():
     from compactfusion_tpu_torch.cache.accel import CacheAccelConfig
     from compactfusion_tpu_torch.cache.fast_attn import optimize_plan
     from compactfusion_tpu_torch.compact import codecs
-    from compactfusion_tpu_torch.ops import _build, flash, quant
+    from compactfusion_tpu_torch.ops import _build, flash, quant, ring_flash
+    from compactfusion_tpu_torch.parallel.mesh import spawn_local
     from compactfusion_tpu_torch.pipelines.pixart import PixArtPipeline, PixArtPipelineConfig
 
     # float32 matmuls and convolutions in full fp32 (cuDNN defaults to TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    kernels = (flash.flash_attn_with_lse, quant.binary_quant_fastpath, quant.binary_dequant_fastpath,
-               quant.int2_quant_fastpath, quant.int2_dequant_fastpath,
-               flash.flash_attn_window_with_lse)
+    kernels = port_kernels()
 
     # -- 1. device and build ------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -601,6 +888,68 @@ def main():
             raise AssertionError(f"{name}: {r['skips']} skipped steps, expected {want}")
         phases[name] = r
 
+    # -- 12. the ring kernels vs their twins, one rank's view ------------------
+    ring_rows = check_ring_flash(ring_flash, dev, gen)
+    cring_rows = [check_compact_ring(ring_flash, dev, gen, *case) for case in CRING_CASES]
+
+    # -- 13.-15. the ring across processes that share this GPU ----------------
+    # NCCL refuses two ranks on one device, so the ranks join a gloo group
+    # and their ring shifts go through host memory; all compute runs here
+    lossless_np = lossless.float().cpu().numpy()
+    hops, comp_steps = 2 * DEPTH, STEPS - WARMUP  # ring 2: two hops per self-attention
+    ring2, fused2 = {"ring_degree": 2}, {"ring_degree": 2, "use_fused_ring": True}
+    binary = {"compress_type": "binary", "comp_rank": -1}
+    two = spawn_local(ring_rank, 2, "gloo", [
+        ("cfg2 lossless", {"cfg_degree": 2}, None),
+        ("ring2 lossless", ring2, None), ("ring2 lossless fused", fused2, None),
+        ("ring2 binary", ring2, binary), ("ring2 binary fused", fused2, binary)], threads=2)
+    # no ring: each rank runs the model on its CFG half (1024 rows per GEMM,
+    # as in a ring-2 rank, against 2048 in one process)
+    phases["cfg2 lossless"] = ring_phase(13, two, "cfg2 lossless", lossless_np,
+                                         {"flash_attn_with_lse": DEPTH * STEPS + 1}, RING_REL_MAX)
+    phases["ring2 lossless"] = ring_phase(13, two, "ring2 lossless", lossless_np,
+                                          {"flash_attn_with_lse": hops * STEPS + 1}, RING_REL_MAX)
+    phases["ring2 lossless fused"] = ring_phase(
+        13, two, "ring2 lossless fused", lossless_np,
+        {"flash_attn_with_lse": 1, "ring_flash_attn_with_lse": hops * STEPS}, RING_REL_MAX)
+    # the single-process emulation of the same ring: same codec, chunking and batch
+    _reset_counts(kernels)
+    sim_lat, sim_img, sim_sec = request(pipeline(ring_compact("binary", comp_rank=-1, simulate_ring=2)), 1)
+    check_image(sim_img, "ring-2 emulation")
+    sim_np = sim_lat.float().cpu().numpy()
+    print(f"[14] single-process ring-2 binary emulation: rel err vs lossless "
+          f"{_rel_np(sim_np, lossless_np):.6f}, {sim_sec:.4f} s/image")
+    sim_ref = ("the ring-2 emulation", sim_np, RING_REL_MAX)
+    phases["ring2 binary"] = ring_phase(
+        14, two, "ring2 binary", lossless_np,
+        {"flash_attn_with_lse": hops * STEPS + 1, "binary_quant_fastpath": hops * comp_steps,
+         "binary_dequant_fastpath": hops * comp_steps}, COMPRESSED_REL_ERR_MAX, sim_ref, low=0.0)
+    phases["ring2 binary fused"] = ring_phase(
+        14, two, "ring2 binary fused", lossless_np,
+        {"flash_attn_with_lse": hops * WARMUP + 1, "compact_ring_flash": hops * comp_steps},
+        COMPRESSED_REL_ERR_MAX, sim_ref, low=0.0)
+    fused_vs = _rel_np(two[0]["ring2 binary fused"]["latents"], two[0]["ring2 binary"]["latents"])
+    # wire bytes: the raw fp32 K/V in warmup, then the payloads; the same on both routes
+    n, c = 2 * 1024 // 2, 1152
+    payload = codecs.payload_nbytes(codecs.encode(torch.ones(n, c), codecs.CompressType.BINARY))
+    want_bytes = DEPTH * (WARMUP * 2 * n * c * 4 + comp_steps * 2 * payload)
+    got_bytes = [phases[k]["wire_bytes_per_rank"] for k in ("ring2 binary", "ring2 binary fused")]
+    print(f"[14] fused vs unfused latent rel err {fused_vs:.6f} (bound {RING_REL_MAX}); ring-shift "
+          f"bytes per rank {got_bytes}, expected {want_bytes} (payload_nbytes {payload} per K or V)")
+    if not (fused_vs <= RING_REL_MAX and got_bytes == [want_bytes, want_bytes]):
+        raise AssertionError("phase 14: the fused ring drifts from the unfused one or sends other bytes")
+    name = "cfg2 x ring2 low-rank r4 int8 fused"
+    four = spawn_local(ring_rank, 4, "gloo", [
+        (name, {"cfg_degree": 2, "ring_degree": 2, "use_fused_ring": True},
+         {"compress_type": "low-rank", "comp_rank": 4, "quantized_cache": True, "check_consistency": True})],
+        threads=2)
+    phases[name] = ring_phase(15, four, name, lossless_np,
+                              {"flash_attn_with_lse": hops * WARMUP + 1, "compact_ring_flash": hops * comp_steps},
+                              COMPRESSED_REL_ERR_MAX, low=0.0)
+    print(f"[15] EF caches across the ring: largest deviation {phases[name]['consistency_dev']}")
+    if phases[name]["consistency_dev"] != 0.0:
+        raise AssertionError(f"{name}: EF caches differ across ranks")
+
     totals = {fn.__name__: sum(p["launches"][fn.__name__] for p in phases.values()) for fn in kernels}
     for name, count in totals.items():
         if count == 0:
@@ -625,12 +974,22 @@ def main():
                 "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
                 "library_ms": rows[0]["library_ms"], "shapes": rows, **extra}
 
+    def ring_entry(name, line, rows):
+        return {"name": name, "route": "cuda", "source": "compactfusion_tpu_torch/csrc/ring_flash.cu",
+                "replaces": f"compactfusion_tpu/ops/ring_flash_pallas.py:{line}", "launches": totals[name],
+                "max_abs_err": max(r["max_abs_err_out"] for r in rows),
+                "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
+                "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
+                "library_ms": rows[0].get("library_ms"), "shapes": rows}
+
     report = {"kernels": [
         flash_entry("flash_attn_with_lse", 593, flash_rows),
         quant_entry("binary", "quant", 118), quant_entry("binary", "dequant", 159),
         quant_entry("int2", "quant", 238), quant_entry("int2", "dequant", 273),
         flash_entry("flash_attn_window_with_lse", 508, window_rows,
                     ms_vs_full_kernel=window_vs_full),
+        ring_entry("ring_flash_attn_with_lse", 347, ring_rows),
+        ring_entry("compact_ring_flash", 954, cring_rows),
     ], "phases": phases}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -200,3 +200,22 @@ def _ef_decompress_raw(payload, state: EFState, cfg: CompactConfig, method: Comp
     if update_cache:
         state = EFState(base=reconstructed, delta_base=_decay(state.delta_base + rdd, cfg))
     return reconstructed, state
+
+
+def check_consistency(state: EFState, mesh, axis: str) -> torch.Tensor:
+    """Distributed invariant oracle (the reference's
+    ``CompactCache.check_consistency``): the mean of every cache entry over
+    the ``axis`` group of ``mesh`` (an all-reduce), and the largest absolute
+    deviation of this rank's copy from it (a 0-dim fp32 tensor).  Every
+    rank's copy of every slot must be identical: the deviation is 0 unless
+    sender and receiver error feedback diverged."""
+    n = mesh.axis_size(axis)
+    devs = []
+    for entry in state:
+        if entry is None:
+            continue
+        for x in (entry if isinstance(entry, codecs.Int8Payload) else (entry,)):
+            x32 = x.float()
+            mean = mesh.all_reduce_sum(x32, axis) / n
+            devs.append((x32 - mean).abs().max())
+    return torch.stack(devs).max()

@@ -2,24 +2,34 @@
 
 Every strategy has the call shape ``out, state = impl(q, k, v, state)`` on
 (B, S, H, D) tensors and an ``init_state`` that builds the per-layer state
-stacked on a leading layer axis.  Ported: :class:`SingleDeviceAttn` and the
-single-device compressed-ring emulation :class:`SimRingAttn`.  The
-multi-device strategies (USP, PipeFusion, the compressed ring across GPUs)
-are not ported yet.
+stacked on a leading layer axis.  Ported: :class:`SingleDeviceAttn`, the
+single-device compressed-ring emulation :class:`SimRingAttn`, and the ring
+across ranks, plain (:class:`USPAttn`) and compressed
+(:class:`CompactUSPAttn`), each on a ``parallel.mesh.Mesh``.  PipeFusion
+and Ulysses are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from compactfusion_tpu_torch import ROADMAP_HINT
 from compactfusion_tpu_torch.compact import codecs
 from compactfusion_tpu_torch.compact.engine import ef_compress, ef_decompress
-from compactfusion_tpu_torch.compact.ring import CompactRingState, _set_slot, _slot, init_ring_state
+from compactfusion_tpu_torch.compact.ring import (
+    CompactRingState,
+    _set_slot,
+    _slot,
+    compact_usp_attention,
+    init_ring_state,
+)
 from compactfusion_tpu_torch.config import CompactConfig, CompressType
 from compactfusion_tpu_torch.ops.attention import sdpa
+from compactfusion_tpu_torch.parallel.mesh import AXIS_RING, Mesh
+from compactfusion_tpu_torch.parallel.usp import usp_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +48,61 @@ class SingleDeviceAttn:
             k = torch.cat([joint_k, k], dim=1)
             v = torch.cat([joint_v, v], dim=1)
         return sdpa(q, k, v), state
+
+
+@dataclasses.dataclass(frozen=True)
+class USPAttn:
+    """Uncompressed sequence parallelism: ring attention over the mesh's
+    ring axis (Ulysses not ported).  ``fused_ring``: the fused ring flash
+    kernel carries the ring."""
+
+    mesh: Optional[Mesh]
+    ulysses_size: int = 1
+    fused_ring: bool = False
+
+    def init_state(self, n_layers, batch, seq_local, heads, head_dim, dtype, device=None):
+        return ()
+
+    def __call__(self, q, k, v, state, *, joint_q=None, joint_k=None, joint_v=None,
+                 joint_strategy="front"):
+        out = usp_attention(q, k, v, mesh=self.mesh, ulysses_size=self.ulysses_size,
+                            joint_q=joint_q, joint_k=joint_k, joint_v=joint_v,
+                            joint_strategy=joint_strategy if joint_q is not None else "none",
+                            fused_ring=self.fused_ring)
+        return out, state
+
+
+@dataclasses.dataclass(frozen=True)
+class CompactUSPAttn:
+    """CompactFusion: sequence parallelism with the compressed ring and its
+    EF state.  ``method`` is the codec of the current denoise step (the
+    pipeline builds one strategy per step segment); ``fused_ring`` routes
+    residual 1 + EF BINARY/INT2/LOW_RANK through the fused compressed ring
+    kernel."""
+
+    cfg: CompactConfig
+    method: CompressType
+    mesh: Optional[Mesh]
+    ulysses_size: int = 1
+    fused_ring: bool = False
+
+    def init_state(self, n_layers, batch, seq_local, heads, head_dim, dtype, device=None):
+        """This rank's ring caches, leaves (L, R, N, C): R the mesh's ring
+        size, N = batch * seq_local, C = heads * head_dim (``Int8Payload``
+        entries with ``cfg.quantized_cache``)."""
+        ring_size = 1 if self.mesh is None else self.mesh.axis_size(AXIS_RING)
+        return init_ring_state(ring_size, batch * seq_local * self.ulysses_size,
+                               (heads // self.ulysses_size) * head_dim, dtype, self.cfg.residual,
+                               self.cfg.quantized_cache, device, layers=n_layers)
+
+    def __call__(self, q, k, v, state: CompactRingState, *, joint_q=None, joint_k=None,
+                 joint_v=None, joint_strategy="front"):
+        """``state``: this layer's caches, leaves (R, N, C), updated in place."""
+        return compact_usp_attention(
+            q, k, v, state, cfg=self.cfg, method=self.method, mesh=self.mesh,
+            ulysses_size=self.ulysses_size, joint_q=joint_q, joint_k=joint_k, joint_v=joint_v,
+            joint_strategy=joint_strategy if joint_q is not None else "none",
+            fused=self.fused_ring)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -141,6 +141,38 @@ def _declare(lib: ctypes.CDLL) -> None:
             P,                 # stream
         ]
         dequant.restype = I
+    lib.cf_ring_flash_hop_bf16.argtypes = [
+        P, P, P,          # q, k, v
+        L, L, L,          # q strides (b, s, h) in elements
+        L, L, L,          # k strides
+        L, L, L,          # v strides
+        P, P, P,          # running state m, l (B,H,Sq), acc (B,H,Sq,D) fp32
+        P, P,             # out (B,Sq,H,D) contiguous, lse (B,H,Sq)
+        I, I, I, I, I,    # B, Sq, Sk, H, D
+        F,                # softmax scale
+        I, I,             # first hop, last hop
+        P,                # stream
+    ]
+    lib.cf_ring_flash_hop_bf16.restype = I
+    lib.cf_compact_ring_hop.argtypes = [
+        P, P, P,          # q, k, v
+        L, L, L,          # q strides (b, s, h) in elements
+        L, L, L,          # k strides
+        L, L, L,          # v strides
+        P, P,             # packed codes of K and V (NULL for LOW_RANK)
+        P, P, P, P, I,    # u_k, u_v (N,K), v_k, v_v (K,C) bf16, K
+        P, P, P,          # K base slot: fp32 or int8 codes, int8 scale, int8 min
+        P, P, P,          # V base slot
+        P, P,             # reconstruction scratch of K and V (B,Sk,H,D) bf16
+        P, P, P,          # running state m, l, acc
+        P, P,             # out, lse
+        I, I, I, I, I,    # B, Sq, Sk, H, D
+        I, I,             # codec (0 binary, 1 int2, 2 lowrank), quantized
+        I, I,             # first hop, last hop
+        F,                # softmax scale
+        P,                # stream
+    ]
+    lib.cf_compact_ring_hop.restype = I
     lib.cf_error_string.argtypes = [I]
     lib.cf_error_string.restype = ctypes.c_char_p
 

@@ -1,0 +1,223 @@
+"""The device mesh as ``torch.distributed`` process groups
+(counterpart of ``compactfusion_tpu/parallel/mesh.py``).
+
+The JAX package names one mesh axis per parallel dimension and lays the
+devices out with ``np.reshape(devices, shape)`` in the axis order
+``(dp, cfg, pp, ring, ulysses, tp)``: the trailing axes vary fastest.  Here
+the ranks take exactly the places the devices take there
+(:func:`rank_grid`), and :func:`make_mesh` builds one process group per
+line of ranks along each axis of size > 1.  A collective over an axis is a
+collective over this rank's group of that axis.
+
+The backend is the caller's choice: NCCL when each rank has its own GPU;
+gloo when several ranks share one GPU (NCCL refuses two ranks on one
+device) or run on the CPU.  Under gloo, CUDA tensors travel through host
+copies (:meth:`Mesh.wire` and :meth:`Mesh.unwire`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import queue
+import time
+import traceback
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from compactfusion_tpu_torch.config import ParallelConfig
+
+AXIS_DP = "dp"
+AXIS_CFG = "cfg"
+AXIS_PP = "pp"
+AXIS_RING = "ring"
+AXIS_ULYSSES = "ulysses"
+AXIS_TP = "tp"
+
+MESH_AXIS_ORDER = (AXIS_DP, AXIS_CFG, AXIS_PP, AXIS_RING, AXIS_ULYSSES, AXIS_TP)
+
+
+def mesh_shape(parallel: ParallelConfig) -> tuple:
+    """Axis sizes in ``MESH_AXIS_ORDER``."""
+    p = parallel
+    return (p.dp_degree, p.cfg_degree, p.pp_degree, p.ring_degree, p.ulysses_degree, p.tp_degree)
+
+
+def rank_grid(parallel: ParallelConfig) -> np.ndarray:
+    """Global ranks laid out on the mesh: ``grid[dp, cfg, pp, ring, ulysses,
+    tp]`` is the rank at those coordinates (the JAX ``make_mesh`` puts
+    device i where this puts rank i)."""
+    return np.arange(parallel.world_size).reshape(mesh_shape(parallel))
+
+
+@dataclasses.dataclass(eq=False)
+class Mesh:
+    """This rank's view of the mesh: its coordinate on every axis and one
+    process group per axis of size > 1 (None for size 1)."""
+
+    parallel: ParallelConfig
+    rank: int
+    backend: Optional[str]
+    coords: Dict[str, int]
+    groups: Dict[str, Optional[dist.ProcessGroup]]
+    #: global ranks of this rank's line along each axis, in axis order
+    lines: Dict[str, List[int]]
+
+    def axis_index(self, axis: str) -> int:
+        return self.coords[axis]
+
+    def axis_size(self, axis: str) -> int:
+        return len(self.lines[axis])
+
+    def peer(self, axis: str, shift: int) -> int:
+        """Global rank ``shift`` places along ``axis`` (wrapping)."""
+        line = self.lines[axis]
+        return line[(self.coords[axis] + shift) % len(line)]
+
+    def wire(self, t: torch.Tensor) -> torch.Tensor:
+        """The buffer a collective of this mesh's backend takes for ``t``:
+        a host copy of a CUDA tensor under gloo, else ``t`` itself."""
+        return t.cpu() if self.backend == "gloo" and t.is_cuda else t
+
+    def all_reduce_sum(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """Sum of ``t`` over the axis group, on ``t``'s device."""
+        if self.axis_size(axis) == 1:
+            return t.clone()
+        buf = self.wire(t).clone()
+        dist.all_reduce(buf, group=self.groups[axis])
+        return buf.to(t.device)
+
+    def all_gather(self, t: torch.Tensor, axis: str) -> List[torch.Tensor]:
+        """Every rank's ``t`` along the axis, in axis order."""
+        if self.axis_size(axis) == 1:
+            return [t]
+        buf = self.wire(t.contiguous())
+        parts = [torch.empty_like(buf) for _ in range(self.axis_size(axis))]
+        dist.all_gather(parts, buf, group=self.groups[axis])
+        return [p.to(t.device) for p in parts]
+
+
+def make_mesh(parallel: ParallelConfig) -> Mesh:
+    """Build this rank's mesh.  With ``world_size > 1`` the default process
+    group must be initialised (``init_distributed_environment`` or
+    ``spawn_local``) with at least ``parallel.world_size`` ranks; every rank
+    must call this, in the same order as its other group creations, since
+    each group is created collectively.  The groups take the default
+    group's backend."""
+    grid = rank_grid(parallel)
+    world = parallel.world_size
+    if world == 1 and not dist.is_initialized():
+        rank, backend = 0, None
+    else:
+        if not dist.is_initialized():
+            raise RuntimeError(f"a mesh of {world} ranks needs torch.distributed initialised first")
+        rank = dist.get_rank()
+        if dist.get_world_size() < world:
+            raise ValueError(f"mesh needs {world} ranks, the process group has {dist.get_world_size()}")
+        if rank >= world:
+            raise ValueError(f"rank {rank} lies outside the {world}-rank mesh")
+        backend = dist.get_backend()
+    where = np.argwhere(grid == rank)[0]
+    coords, groups, lines = {}, {}, {}
+    for ax, name in enumerate(MESH_AXIS_ORDER):
+        coords[name] = int(where[ax])
+        moved = np.moveaxis(grid, ax, -1).reshape(-1, grid.shape[ax])
+        groups[name] = None
+        for line in moved:
+            members = [int(r) for r in line]
+            # every rank creates every group of the axis, in one order
+            g = dist.new_group(members) if len(members) > 1 else None
+            if rank in members:
+                groups[name], lines[name] = g, members
+    return Mesh(parallel, rank, backend, coords, groups, lines)
+
+
+def init_distributed_environment(backend: str) -> torch.device:
+    """Join the process group that ``torchrun`` describes (``MASTER_ADDR``,
+    ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``) and bind this
+    rank to ``cuda:<local_rank % device_count>`` where there is a GPU.
+    ``backend``: "nccl" with one GPU per rank, "gloo" otherwise.  A single
+    process (no ``WORLD_SIZE`` or 1) joins no group.  Returns the device."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    rank = int(os.environ.get("RANK", "0"))
+    local = int(os.environ.get("LOCAL_RANK", str(rank)))
+    device = torch.device("cpu")
+    if torch.cuda.is_available():
+        device = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    if world > 1 and not dist.is_initialized():
+        addr = os.environ["MASTER_ADDR"]
+        port = os.environ["MASTER_PORT"]
+        dist.init_process_group(backend, init_method=f"tcp://{addr}:{port}", rank=rank,
+                                world_size=world)
+    return device
+
+
+def _rank_main(fn, rank, world_size, backend, port, args, threads, results):
+    ok = False
+    try:
+        if threads:
+            torch.set_num_threads(threads)
+        if torch.cuda.is_available():
+            torch.cuda.set_device(rank % torch.cuda.device_count())
+        store = dist.TCPStore("127.0.0.1", port, is_master=False)
+        dist.init_process_group(backend, store=store, rank=rank, world_size=world_size)
+        results.put((rank, True, fn(rank, world_size, *args)))
+        ok = True
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+    if ok:
+        dist.destroy_process_group()
+    else:
+        raise SystemExit(1)
+
+
+def spawn_local(fn, world_size: int, backend: str, *args, threads: Optional[int] = None,
+                timeout: float = 3600.0) -> list:
+    """Run ``fn(rank, world_size, *args)`` in ``world_size`` new processes
+    joined in one process group of ``backend``, on this host; returns their
+    results in rank order.
+
+    The rendezvous store binds port 0, so the OS picks a free port and
+    concurrent callers never collide.  ``fn`` must be picklable (a module
+    level function) and return picklable CPU data.  Each rank binds
+    ``cuda:<rank % device_count>`` where there is a GPU; ``threads`` sets
+    each rank's torch CPU threads.  If a rank fails, the others are stopped
+    and a RuntimeError carries its traceback."""
+    import torch.multiprocessing as mp
+
+    store = dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False)
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main, daemon=True,
+                         args=(fn, r, world_size, backend, store.port, args, threads, results))
+             for r in range(world_size)]
+    for p in procs:
+        p.start()
+    out, deadline = {}, time.monotonic() + timeout
+    try:
+        while len(out) < world_size:
+            try:
+                rank, ok, value = results.get(timeout=1.0)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs) if r not in out and p.exitcode is not None]
+                if dead:
+                    raise RuntimeError(f"rank {dead[0]} exited with code "
+                                       f"{procs[dead[0]].exitcode} before returning")
+                if time.monotonic() > deadline:
+                    raise RuntimeError(f"ranks timed out after {timeout} s")
+                continue
+            if not ok:
+                raise RuntimeError(f"rank {rank} of {world_size} failed:\n{value}")
+            out[rank] = value
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    return [out[r] for r in range(world_size)]

@@ -1,24 +1,63 @@
 """Shared pipeline machinery (counterpart of ``compactfusion_tpu/pipelines/base.py``).
 
-Single-device subset: CFG as a doubled batch, latent noise from a
+CFG as a doubled batch or exchanged over the cfg axis, latent noise from a
 ``torch.Generator``, EF state carried across step segments, and the
-compression schedule, layer-uniform or per-layer (``compress_func``).  The
-cfg-parallel exchange is not ported yet.
+compression schedule, layer-uniform or per-layer (``compress_func``).
+Under a mesh each rank holds its share of the latents: batch over dp,
+tokens over (ring, ulysses) with the ring index major, as the JAX
+package's ``LATENT_SPEC`` shards them; :func:`gather_latents` stands in for
+that spec's out_spec and gives every rank the whole latents.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from compactfusion_tpu_torch import ROADMAP_HINT
+from compactfusion_tpu_torch.parallel.mesh import AXIS_CFG, AXIS_DP, AXIS_RING, AXIS_ULYSSES, Mesh
+from compactfusion_tpu_torch.parallel.ring import ring_shift
 
 
-def cfg_combine(eps: torch.Tensor, guidance_scale: float, cfg_degree: int) -> torch.Tensor:
-    """Classifier-free guidance on a [cond; uncond] batch (cfg_degree 1)."""
-    if cfg_degree != 1:
-        raise NotImplementedError(f"cfg_degree={cfg_degree} exchange: {ROADMAP_HINT}")
+def seq_shard_info(mesh: Optional[Mesh], ulysses_size: int, ring_size: int):
+    """(shard_index, num_shards) of this rank's tokens under the (ring,
+    ulysses) sharding."""
+    if mesh is None:
+        return 0, 1
+    idx = mesh.axis_index(AXIS_RING) * ulysses_size + mesh.axis_index(AXIS_ULYSSES)
+    return idx, ring_size * ulysses_size
+
+
+def slice_local_tokens(full: torch.Tensor, mesh: Optional[Mesh], ulysses_size: int,
+                       ring_size: int, dim: int = 0) -> torch.Tensor:
+    """This rank's token shard of a replicated table (a view)."""
+    idx, n = seq_shard_info(mesh, ulysses_size, ring_size)
+    local = full.shape[dim] // n
+    return full.narrow(dim, idx * local, local)
+
+
+def cfg_combine(eps: torch.Tensor, guidance_scale: float, cfg_degree: int,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Classifier-free guidance.  cfg_degree 1: on a [cond; uncond] batch.
+    cfg_degree 2: this rank computed the cond (cfg index 0) or the uncond
+    (1) prediction; the two exchange over the cfg axis and both form
+    ``uncond + g * (cond - uncond)``, so the latents stay the same on both."""
+    if cfg_degree == 2:
+        other = ring_shift((eps,), mesh, AXIS_CFG)[0]
+        cond, uncond = (eps, other) if mesh.axis_index(AXIS_CFG) == 0 else (other, eps)
+        return uncond + guidance_scale * (cond - uncond)
     cond, uncond = eps.chunk(2, dim=0)
     return uncond + guidance_scale * (cond - uncond)
+
+
+def gather_latents(local: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """(B_local, S_local, C) shards -> the whole (B, S, C) on every rank:
+    tokens gathered over ulysses then ring, the batch over dp."""
+    if mesh is None:
+        return local
+    x = torch.cat(mesh.all_gather(local, AXIS_ULYSSES), dim=1)
+    x = torch.cat(mesh.all_gather(x, AXIS_RING), dim=1)
+    return torch.cat(mesh.all_gather(x, AXIS_DP), dim=0)
 
 
 def prepare_latents(generator: torch.Generator, batch: int, tokens: int, token_dim: int,

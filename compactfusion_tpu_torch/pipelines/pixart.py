@@ -1,16 +1,22 @@
-"""PixArt-alpha text-to-image pipeline on one GPU
+"""PixArt-alpha text-to-image pipeline
 (counterpart of ``compactfusion_tpu/pipelines/pixart.py``).
 
-CFG as a doubled batch, 20-step DPM-Solver++ 2M on the "linspace" timestep
-table, then the VAE decode.  With ``CompactConfig(enabled=True,
-simulate_ring=R)`` every self-attention runs the single-device
-compressed-ring emulation (``SimRingAttn``); its EF caches carry from the
-warmup steps into the compressed steps.  A per-layer ``compress_func``
-plan runs one ``SimRingAttn`` per contiguous layer segment, each with its
-own EF state.  The single-device accelerators run with compression off:
-DiTFastAttn (``fast_attn_plan``, a (steps, depth) table of
-``FastAttnMethod`` values) and TeaCache/FBCache (``cache``).  Parallel
-degrees > 1 and PipeFusion are not ported yet.
+CFG as a doubled batch (or split over the cfg axis), 20-step DPM-Solver++
+2M on the "linspace" timestep table, then the VAE decode.  With
+``CompactConfig(enabled=True, simulate_ring=R)`` every self-attention runs
+the single-device compressed-ring emulation (``SimRingAttn``); its EF
+caches carry from the warmup steps into the compressed steps.  A per-layer
+``compress_func`` plan runs one strategy per contiguous layer segment,
+each with its own EF state.  The single-device accelerators run with
+compression off: DiTFastAttn (``fast_attn_plan``, a (steps, depth) table of
+``FastAttnMethod`` values) and TeaCache/FBCache (``cache``).
+
+Across ranks (``mesh=`` a ``parallel.mesh.Mesh`` of ``cfg.parallel``),
+each rank runs its share, as the JAX package's ``shard_map`` does: the text
+split over cfg, the batch over dp, the tokens over the ring, the ring
+attention plain (``USPAttn``) or compressed (``CompactUSPAttn``), fused or
+not (``use_fused_ring``); every rank gets the whole latents back.
+Ulysses, PipeFusion, TP and separate VAE ranks are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,9 +36,15 @@ from compactfusion_tpu_torch.config import (
     validate_parallel_geometry,
 )
 from compactfusion_tpu_torch.models import common as cm
-from compactfusion_tpu_torch.models.attn_impl import SimRingAttn, SingleDeviceAttn
+from compactfusion_tpu_torch.models.attn_impl import (
+    CompactUSPAttn,
+    SimRingAttn,
+    SingleDeviceAttn,
+    USPAttn,
+)
 from compactfusion_tpu_torch.models.pixart import PixArtConfig, pixart_forward, precompute_text_kv
 from compactfusion_tpu_torch.models.vae import VAEConfig, vae_decode
+from compactfusion_tpu_torch.parallel.mesh import AXIS_CFG, AXIS_DP, Mesh
 from compactfusion_tpu_torch.pipelines import base
 from compactfusion_tpu_torch.schedulers.diffusion import ddpm_schedule, dpm_init_state, dpm_step
 
@@ -76,14 +88,14 @@ class PixArtPipelineConfig:
         validate_parallel_geometry(self.parallel, heads=self.model.heads, tokens=self.tokens,
                                    depth=self.model.depth, family="pixart")
         p = self.parallel
-        if p.world_size > 1 or p.vae_parallel_size or p.use_fused_ring:
-            raise NotImplementedError(f"multi-GPU PixArt ({p}): {ROADMAP_HINT}")
+        if p.ulysses_degree > 1 or p.pp_degree > 1 or p.tp_degree > 1 or p.vae_parallel_size:
+            raise NotImplementedError(f"Ulysses, PipeFusion, TP or VAE ranks ({p}): {ROADMAP_HINT}")
 
 
-def _attn_impl(cfg: PixArtPipelineConfig, method: Optional[CompressType]):
-    c = cfg.compact
+def _attn_impl(cfg: PixArtPipelineConfig, method: Optional[CompressType], mesh: Optional[Mesh]):
+    c, p = cfg.compact, cfg.parallel
     if cfg.fast_attn_plan is not None:
-        assert cfg.parallel.sp_degree == 1, "DiTFastAttn window bands do not shard"
+        assert p.sp_degree == 1, "DiTFastAttn window bands do not shard"
         assert not c.enabled
         # batch-doubled CFG rows [cond; uncond] enable the CFG_SHARE methods
         return FastAttnAttn(window_size=cfg.fast_attn_window,
@@ -91,16 +103,29 @@ def _attn_impl(cfg: PixArtPipelineConfig, method: Optional[CompressType]):
     if c.enabled and c.patch_gather:
         raise NotImplementedError(f"patch-parallel gather: {ROADMAP_HINT}")
     if c.enabled and c.simulate_ring > 0:
+        assert p.sp_degree == 1, "simulate_ring runs on a single device"
         return SimRingAttn(cfg=c, method=method, ring_size=c.simulate_ring)
     if c.enabled:
-        raise NotImplementedError(f"compressed ring across GPUs: {ROADMAP_HINT}")
+        return CompactUSPAttn(cfg=c, method=method, mesh=mesh, ulysses_size=p.ulysses_degree,
+                              fused_ring=p.use_fused_ring)
+    if p.sp_degree > 1:
+        return USPAttn(mesh=mesh, ulysses_size=p.ulysses_degree, fused_ring=p.use_fused_ring)
     return SingleDeviceAttn()
 
 
 class PixArtPipeline:
-    """User-facing pipeline: ``PixArtPipeline(params, vae_params, cfg, device)``."""
+    """User-facing pipeline: ``PixArtPipeline(params, vae_params, cfg,
+    device, mesh=None)``.  With ``cfg.parallel.world_size > 1`` every rank
+    builds one with its ``mesh`` (``parallel.mesh.make_mesh(cfg.parallel)``)
+    and calls it with the same text and noise."""
 
-    def __init__(self, params, vae_params, cfg: PixArtPipelineConfig, device):
+    def __init__(self, params, vae_params, cfg: PixArtPipelineConfig, device,
+                 mesh: Optional[Mesh] = None):
+        if cfg.parallel.world_size > 1 and mesh is None:
+            raise ValueError(f"{cfg.parallel} runs across ranks: pass this rank's mesh")
+        if mesh is not None and mesh.parallel != cfg.parallel:
+            raise ValueError(f"mesh of {mesh.parallel} for a pipeline of {cfg.parallel}")
+        self.mesh = mesh
         # float32 matmuls and convolutions in full fp32 on the GPU: cuDNN
         # convolutions default to TF32, which keeps ~3 decimal digits
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -148,17 +173,29 @@ class PixArtPipeline:
 
     @torch.inference_mode()
     def _sample(self, text, text_mask, latents):
-        cfg, m = self.cfg, self.cfg.model
+        cfg, m, p, mesh = self.cfg, self.cfg.model, self.cfg.parallel, self.mesh
         text = text.to(self.device)
         text_mask = text_mask.to(self.device)
-        if cfg.do_cfg:
+        latents = latents.to(self.device, torch.float32)
+        if mesh is not None:
+            # this rank's share: the batch over dp, the tokens over the ring
+            b_local = latents.shape[0] // p.dp_degree
+            rows = slice(mesh.axis_index(AXIS_DP) * b_local, (mesh.axis_index(AXIS_DP) + 1) * b_local)
+            text, text_mask = text[:, rows], text_mask[:, rows]
+            latents = base.slice_local_tokens(latents[rows], mesh, p.ulysses_degree,
+                                              p.ring_degree, dim=1)
+        cfg_split = cfg.do_cfg and p.cfg_degree == 2
+        if cfg_split:
+            i = mesh.axis_index(AXIS_CFG)  # this rank's half: cond or uncond
+            text, text_mask = text[i], text_mask[i]
+        elif cfg.do_cfg:
             text = torch.cat([text[0], text[1]], dim=0)
             text_mask = torch.cat([text_mask[0], text_mask[1]], dim=0)
         else:
             text, text_mask = text[0], text_mask[0]
-        latents = latents.to(self.device, torch.float32)
-        b = latents.shape[0]
-        n_model_batch = 2 * b if cfg.do_cfg else b
+        b, s_local = latents.shape[:2]
+        n_model_batch = 2 * b if cfg.do_cfg and not cfg_split else b
+        pos_embed = base.slice_local_tokens(self.pos_embed, mesh, p.ulysses_degree, p.ring_degree)
 
         dpm_state = dpm_init_state(latents.shape, self.device)
         use_cache = cfg.cache.mode != "none"
@@ -166,7 +203,9 @@ class PixArtPipeline:
         if use_cache:
             if cfg.compact.enabled:
                 raise ValueError("cache acceleration is incompatible with compact compression")
-            shp = (n_model_batch, cfg.tokens, m.dim)
+            if p.sp_degree > 1:
+                raise NotImplementedError(f"cache probes summed over the ring: {ROADMAP_HINT}")
+            shp = (n_model_batch, s_local, m.dim)
             cache_state = init_cache_state(shp, shp, torch.float32, self.device)
         # the text path is step-invariant: caption MLP + every block's
         # cross K/V once per image, kept in the model dtype
@@ -176,13 +215,13 @@ class PixArtPipeline:
             if isinstance(plan, tuple) and len(plan) > 1:
                 # per-layer plan: one strategy and one EF state per layer segment
                 assert not use_cache, "per-layer compression plans compose with SP/CFG/DP only"
-                attn = tuple((_attn_impl(cfg, method), n_l) for method, n_l in plan)
+                attn = tuple((_attn_impl(cfg, method, mesh), n_l) for method, n_l in plan)
             else:
-                attn = _attn_impl(cfg, plan[0][0] if isinstance(plan, tuple) else plan)
+                attn = _attn_impl(cfg, plan[0][0] if isinstance(plan, tuple) else plan, mesh)
 
             def fresh(dev, attn=attn):
                 def init(a, n_layers):
-                    return a.init_state(n_layers, n_model_batch, cfg.tokens, m.heads, m.head_dim,
+                    return a.init_state(n_layers, n_model_batch, s_local, m.heads, m.head_dim,
                                         torch.float32, dev)
                 if isinstance(attn, tuple):
                     return tuple(init(a, n_l) for a, n_l in attn)
@@ -192,11 +231,11 @@ class PixArtPipeline:
             for i in steps:
                 t = torch.full((n_model_batch,), float(self.sched.timesteps[i]),
                                dtype=torch.float32, device=self.device)
-                x = torch.cat([latents, latents], dim=0) if cfg.do_cfg else latents
+                x = torch.cat([latents, latents], dim=0) if n_model_batch > b else latents
                 if self.plan_table is not None:
                     attn_state["method"].copy_(torch.from_numpy(self.plan_table[i]))
                 fwd = pixart_forward(
-                    self.params, x.to(m.dtype), t, None, m, pos_embed=self.pos_embed,
+                    self.params, x.to(m.dtype), t, None, m, pos_embed=pos_embed,
                     attn=attn, attn_state=attn_state, text_mask=text_mask, text_kv=text_kv,
                     cache_cfg=cfg.cache if use_cache else None, cache_state=cache_state,
                     # the final, quality-critical step always computes
@@ -208,10 +247,10 @@ class PixArtPipeline:
                     out, attn_state = fwd
                 eps = out[..., : out.shape[-1] // 2]  # drop the learned-variance half
                 if cfg.do_cfg:
-                    eps = base.cfg_combine(eps, cfg.guidance_scale, 1)
+                    eps = base.cfg_combine(eps, cfg.guidance_scale, p.cfg_degree, mesh)
                 latents, dpm_state = dpm_step(self.sched, i, cfg.num_steps, latents, eps, dpm_state)
         self.last_skips = int(cache_state.skips) if use_cache else None
-        return latents
+        return base.gather_latents(latents, mesh)
 
     @torch.inference_mode()
     def decode(self, latent_tokens: torch.Tensor) -> torch.Tensor:

@@ -33,7 +33,8 @@ def _modules():
 def test_importing_every_module_leaves_jax_out():
     mods = _modules()
     for m in ("pipelines.pixart", "compact.lowrank", "compact.codecs", "ops.quant", "cache.accel",
-              "cache.fast_attn"):
+              "cache.fast_attn", "ops.merge", "ops.ring_flash", "parallel.mesh", "parallel.ring",
+              "parallel.usp"):
         assert f"compactfusion_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

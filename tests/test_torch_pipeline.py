@@ -111,9 +111,15 @@ def test_generator_noise_and_unported_configs():
     with pytest.raises(ValueError):
         pipe(text, None)
     with pytest.raises(NotImplementedError):
-        PixArtPipelineConfig(model=tm, vae=tv, parallel=ParallelConfig(ring_degree=2),
+        PixArtPipelineConfig(model=tm, vae=tv, parallel=ParallelConfig(ulysses_degree=2),
                              height=64, width=64)
+    across = PixArtPipelineConfig(model=tm, vae=tv, parallel=ParallelConfig(ring_degree=2),
+                                  height=64, width=64)
+    with pytest.raises(ValueError, match="mesh"):  # a ring across ranks needs this rank's mesh
+        PixArtPipeline(params, vparams, across, "cpu")
+    # the compressed ring on one rank compresses its own K/V and attends them
+    # exact: the lossless image
     ring = PixArtPipelineConfig(model=tm, vae=tv, num_steps=2, height=64, width=64,
                                 compact=CompactConfig(enabled=True, warmup_steps=1))
-    with pytest.raises(NotImplementedError):
-        PixArtPipeline(params, vparams, ring, "cpu")(text, None, generator=torch.Generator())
+    c = PixArtPipeline(params, vparams, ring, "cpu")(text, None, generator=torch.Generator().manual_seed(3))
+    assert torch.equal(c, a)

@@ -1,0 +1,141 @@
+"""The rank halves of the port's multi-process parity tests.
+
+``parallel.mesh.spawn_local`` starts every rank in a new process, which
+imports the module of the function it runs.  The functions live here,
+apart from the test files, so that a rank imports torch and the port and
+not JAX.  Each takes its cases and inputs from the test in the parent
+process and returns plain numpy data.  This module holds no test.
+"""
+
+import torch
+
+from compactfusion_tpu_torch.compact import codecs, lowrank
+from compactfusion_tpu_torch.compact import ring as tring
+from compactfusion_tpu_torch.compact.engine import check_consistency
+from compactfusion_tpu_torch.config import CompactConfig, CompressType, ParallelConfig
+from compactfusion_tpu_torch.parallel import mesh as tmesh
+from compactfusion_tpu_torch.parallel.ring import ring_attention, ring_shift
+from compactfusion_tpu_torch.parallel.usp import usp_attention
+
+
+def _ring_meshes():
+    """Ring 2 on a dp 2 x ring 2 mesh, and ring 4 (every rank builds both,
+    in this order)."""
+    return {2: tmesh.make_mesh(ParallelConfig(dp_degree=2, ring_degree=2)),
+            4: tmesh.make_mesh(ParallelConfig(ring_degree=4))}
+
+
+def _local(arrays, mesh, s_local):
+    i = mesh.axis_index("ring")
+    return tuple(torch.from_numpy(a[:, i * s_local:(i + 1) * s_local]) for a in arrays)
+
+
+def mesh_checks(rank, world, layouts):
+    """Per layout: this rank's coordinates and lines, a ring shift of a
+    mixed-dtype payload and its byte count, a gather and a sum over the ring,
+    and the consistency oracle on identical and on rank-dependent caches."""
+    res = {}
+    for layout in layouts:
+        m = tmesh.make_mesh(ParallelConfig(**layout))
+        r = {"coords": dict(m.coords), "lines": dict(m.lines)}
+        payload = (torch.full((2, 3), rank, dtype=torch.uint8),
+                   torch.full((5,), rank + 0.5, dtype=torch.bfloat16),
+                   torch.full((1, 2), rank * 10.0, dtype=torch.float32))
+        ring_shift.nbytes = 0
+        got = ring_shift(payload, m, "ring")
+        r["shift"] = [t.float().flatten().tolist() for t in got]
+        r["shift_dtypes"] = [str(t.dtype) for t in got]
+        r["shift_bytes"] = ring_shift.nbytes
+        r["gather"] = [t.item() for t in m.all_gather(torch.tensor([float(rank)]), "ring")]
+        r["sum"] = m.all_reduce_sum(torch.tensor([float(rank)]), "ring").item()
+        st = tring.init_ring_state(m.axis_size("ring"), 4, 8, torch.float32, 1)
+        r["dev_same"] = check_consistency(st.k, m, "ring").item()
+        st.k.base[0, 0, 0] = float(rank)
+        r["dev_diff"] = check_consistency(st.k, m, "ring").item()
+        res[tuple(sorted(layout.items()))] = r
+    return res
+
+
+def ring_outputs(rank, world, cases, inputs, s_local):
+    """Per case (ring, joint strategy, fused, causal, with a joint query):
+    this rank's output shard and the bytes its ring shifts sent."""
+    meshes = _ring_meshes()
+    out, nbytes = {}, {}
+    for case in cases:
+        ring, joint, fused, causal, with_q = case
+        m = meshes[ring]
+        q, k, v = _local(inputs[ring][:3], m, s_local)
+        jq, jk, jv = (torch.from_numpy(a) for a in inputs[ring][3:])
+        kw = dict(joint_k=None if joint == "none" else jk, joint_v=None if joint == "none" else jv,
+                  joint_strategy=joint)
+        ring_shift.nbytes = 0
+        if with_q:
+            o = usp_attention(q, k, v, mesh=m, joint_q=jq, fused_ring=fused, **kw)
+        else:
+            o = ring_attention(q, k, v, mesh=m, causal=causal, fused=fused, **kw)
+        out[case] = o.numpy()
+        nbytes[case] = ring_shift.nbytes
+    return out, nbytes
+
+
+def _stack_leaves(state):
+    """The EF stacks as fp32 numpy copies (they update in place): base, or
+    (codes, scale, min) per entry."""
+    return [t.float().numpy().copy() for entry in (state.k.base, state.v.base)
+            for t in (entry if isinstance(entry, codecs.Int8Payload) else (entry,))]
+
+
+def compact_ring_outputs(rank, world, cases, inputs, init_q, s_local, channels):
+    """Per case (codec, comp_rank, batch, int8 bases, ring) and route
+    (unfused, fused): this rank's output shard and stacks after every
+    drifting step.  ``init_q`` maps (n, rank) to the JAX start basis."""
+    lowrank._init_q = lambda n, r, device=None: init_q[(n, r)]
+    meshes = _ring_meshes()
+    res = {}
+    for case in cases:
+        codec, comp_rank, b, quantized, ring = case
+        m = meshes[ring]
+        cfg = CompactConfig(enabled=True, compress_type=CompressType(codec), comp_rank=comp_rank,
+                            residual=1, error_feedback=True, warmup_steps=0,
+                            quantized_cache=quantized)
+        for fused in (False, True):
+            state = tring.init_ring_state(ring, b * s_local, channels, torch.float32, 1, quantized)
+            per_step = []
+            for step in inputs[case]:
+                q, k, v = _local(step, m, s_local)
+                out, state = tring.compact_ring_attention(q, k, v, state, cfg=cfg,
+                                                          method=cfg.compress_type, mesh=m,
+                                                          fused=fused)
+                per_step.append((out.numpy(), _stack_leaves(state)))
+            res[case + (fused,)] = per_step
+    return res
+
+
+def pipeline_latents(rank, world, configs, params, vae_params, inputs):
+    """Per configuration (name, ParallelConfig kwargs, CompactConfig kwargs
+    or None, batch): the tiny fp32 PixArt pipeline's final latents on this
+    rank (every rank gets the whole latents) from ``inputs[batch]`` = (text,
+    mask, noise), and the largest EF cache deviation across the ring that
+    the consistency check saw."""
+    import dataclasses
+
+    from compactfusion_tpu_torch.io.from_jax import params_from_numpy
+    from compactfusion_tpu_torch.models import pixart as tpix
+    from compactfusion_tpu_torch.models import vae as tvae
+    from compactfusion_tpu_torch.pipelines.pixart import PixArtPipeline, PixArtPipelineConfig
+
+    tm = dataclasses.replace(tpix.pixart_tiny(), dtype=torch.float32)
+    tv = dataclasses.replace(tvae.tiny_vae(), dtype=torch.float32)
+    tparams, tvae_params = params_from_numpy(params), params_from_numpy(vae_params)
+    res = {}
+    for name, par, compact, batch in configs:
+        parallel = ParallelConfig(**par)
+        ckw = {} if compact is None else dict(compact, compress_type=CompressType(compact["compress_type"]))
+        cfg = PixArtPipelineConfig(model=tm, vae=tv, parallel=parallel, num_steps=4, height=64,
+                                   width=64, compact=CompactConfig(**ckw))
+        pipe = PixArtPipeline(tparams, tvae_params, cfg, "cpu", mesh=tmesh.make_mesh(parallel))
+        text, mask, noise = (torch.from_numpy(a) for a in inputs[batch])
+        tring.max_consistency_dev = 0.0
+        lat = pipe(text, mask, latents=noise, decode=False)
+        res[name] = (lat.numpy(), tring.max_consistency_dev)
+    return res
