@@ -5,9 +5,9 @@
 
 Phases (each prints its lines; any failure ends the run with a non-zero exit):
 
-1. Device: ``nvidia-smi`` name and power limit, and the time ``nvcc`` took
+1. Device: ``nvidia-smi`` name and power limit, the time ``nvcc`` took
    to build the kernels from ``compactfusion_tpu_torch/csrc`` (one ``nvcc``
-   per source, in parallel).
+   per source, in parallel), and what ``ptxas -v`` said of each kernel.
 2. Each kernel against its plain PyTorch twin at the shapes the main path
    gives it, with the times of both (CUDA events), of one PyTorch call that
    computes the same function where there is one (``library_ms``), and the
@@ -47,12 +47,29 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
     both send the same bytes.
 15. cfg 2 x ring 2 in 4 processes: fused LOW_RANK r4 on int8 EF caches
     (B 1 per rank) with the consistency check on: the caches stay equal.
+16. The flash profiling probes (``compactfusion_tpu_torch/probes``): each
+    stage mask of ``flash_parts`` and ``dma_only`` against its twin at B2
+    H16 S1024 d72 (``full`` bit-equal to kernel 1 on the same views,
+    ``dma_only`` bit-equal to its twin, the others by largest and relative
+    error), ``plumb`` bit-equal to its twin on column slices of one qkv
+    tensor and timed on enough of them in turn that each call reads from
+    DRAM, not L2 (it fails below its bound); then both probes' entry
+    points: the stage breakdown of kernel 1 (nine rows and SDPA, per call
+    without dispatch cost, on inputs from DRAM) and the full-width
+    28-block forward with parts of the block switched off or replaced (per
+    forward by CUDA-graph replay and eager), with the block-level
+    breakdown.
 
 Phases 4-15 hold their latents against request 1's lossless latents and
 their kernel launch counts against the counts the path implies; every
-count is set to 0 just before each of phases 3-11 and 13-15 (and the
-calibration), in every process, and read just after.  The s/image of
-phases 13-15 is that of processes sharing one card, not a ring speed.
+count is set to 0 just before each of phases 3-11, 13-15 and 16's probes
+(and the calibration), in every process, and read just after.  A probe
+counts a launch when it captures a CUDA graph, so phase 16 reports the
+launches the device ran (the captured count times the replays).  The
+``launches`` of the pipeline's kernels are those of phases 3-15: what
+kernel 1 ran inside the probes is reported beside them, under phase 16's
+``launches_of_pipeline_kernels``.  The s/image of phases 13-15 is that of
+processes sharing one card, not a ring speed.
 Then one JSON line with each kernel's launches on the main path, error and
 times, and a last line ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the package beside it, the script exits non-zero and
@@ -85,6 +102,17 @@ COMPRESSED_REL_ERR_MAX = 0.05
 # order of the bf16 attention partials differs; the JAX package's dryrun
 # puts this bound on its fused vs unfused ring (__graft_entry__.py:250)
 RING_REL_MAX = 2e-2
+# the probes' matmuls_only divides by l = the sum of a row's raw scores,
+# which can be near 0; it is compared on the rows with |l| >= 8 * sqrt(S),
+# where one bf16 ulp of the output stays below FLASH_OUT_ATOL
+PROBE_L_FLOOR = 8.0
+# a stage mask vs its twin, relative Frobenius error: the outputs of most
+# masks are averages over 1024 keys, 0.03-0.05 in size, so FLASH_OUT_ATOL
+# alone would pass a mask wrong by tens of percent; bf16 rounding of p and
+# of the output gives at most 2.3e-3 here on an H100 (full; the other
+# masks 0 - 7.4e-4) and 2.6e-3 in the tests' CPU runs of the twins against
+# the Pallas probe
+PROBE_REL_MAX = 1e-2
 
 # the card's published peaks (H100 SXM data sheet, dense): the bound of a
 # kernel is the larger of its bytes over the memory rate and its operations
@@ -454,6 +482,77 @@ def check_compact_ring(rf, dev, gen, ring, b, s_local, codec, rank, quantized):
     return row
 
 
+def check_probes(ops_probes, flash, stage_probe, timing, dev, gen):
+    """Phase 16's kernel checks: each stage mask of ``flash_parts`` (and
+    ``dma_only``) against its twin on the (B, S, H, D) views of bf16
+    (B, H, S, D) tensors at B2 H16 S1024 d72, by largest and relative
+    error, ``full`` bit for bit against kernel 1 on the same views;
+    ``plumb`` bit for bit against its twin on column slices of one qkv
+    tensor, timed without dispatch cost on enough qkv tensors in turn that
+    each call reads from DRAM.  Returns (flash_parts rows, plumb row)."""
+    import math
+
+    import torch
+
+    q, k, v = stage_probe.make_inputs(gen)
+    s = q.shape[1]
+    kernel1, _ = flash.flash_attn_with_lse(q, k, v)
+    rows = []
+    for name, parts in stage_probe.VARIANTS.items():
+        if parts is None:
+            continue
+        out = ops_probes.flash_parts(q, k, v, parts)
+        torch.cuda.synchronize()
+        ref, l = ops_probes.flash_parts_ref(q, k, v, parts, return_l=True)
+        diff = (out.float() - ref.float()).abs()
+        what = f"{name} B2 H16 S{s} d72"
+        if name == "matmuls_only":
+            live = l.abs().transpose(1, 2) >= PROBE_L_FLOOR * math.sqrt(s)  # (B, S, H)
+            diff = diff[live]
+            what += f" on the {live.float().mean().item():.0%} of rows with |l| >= {PROBE_L_FLOOR} sqrt(S)"
+        err = diff.max().item()
+        ref_f = ref.float()[live] if name == "matmuls_only" else ref.float()
+        rel = (diff.norm() / ref_f.norm()).item()
+        ok = err == 0.0 if name == "dma_only" else err <= FLASH_OUT_ATOL and rel <= PROBE_REL_MAX
+        same_as_kernel1 = torch.equal(out, kernel1)
+        if name == "full":
+            ok = ok and same_as_kernel1
+        plain_ms = _time_ms(lambda: ops_probes.flash_parts_ref(q, k, v, parts), 5)
+        rows.append({"name": name, "max_abs_err": err, "rel_err": rel,
+                     "twin_rms": (ref_f.norm() / ref_f.numel() ** 0.5).item(), "plain_ms": plain_ms})
+        print(f"[16] flash_parts {what}: max abs err vs twin {err:.3e} (tol "
+              f"{0.0 if name == 'dma_only' else FLASH_OUT_ATOL}), relative error {rel:.3e} (tol "
+              f"{0.0 if name == 'dma_only' else PROBE_REL_MAX}), twin rms {rows[-1]['twin_rms']:.3e}"
+              + (f", bit-equal to kernel 1: {same_as_kernel1}" if name == "full" else "")
+              + f"; twin {plain_ms:.4f} ms")
+        if not ok:
+            raise AssertionError(f"flash_parts {name} disagrees with its twin or kernel 1")
+    dim = 1152
+
+    def qkv_views():
+        qkv = torch.randn((2, 1024, 3 * dim), generator=gen, device=dev).to(torch.bfloat16)
+        return tuple(t.view(2, 1024, 16, 72) for t in qkv.split(dim, dim=-1))
+
+    pq, pk, pv = qkv_views()
+    out = ops_probes.plumb(pq, pk, pv)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ops_probes.plumb_ref(pq, pk, pv)):
+        raise AssertionError("plumb differs from its twin")
+    nbytes = _nbytes(pq, pk, pv, out)
+    sets = [(pq, pk, pv)] + [qkv_views() for _ in range(timing.copies(nbytes) - 1)]
+    ms, _ = timing.per_call_ms(timing.rotate([lambda t=t: ops_probes.plumb(*t) for t in sets]), 20, 120)
+    plain_ms = _time_ms(lambda: ops_probes.plumb_ref(pq, pk, pv), 20)
+    bound_ms, bound_by = _bound(nbytes, 0, PEAK_BF16_FLOPS)
+    plumb_row = {"shape": "B2 S1024 H16 d72 column slices", "max_abs_err": 0.0, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"[16] plumb B2 S1024 H16 d72 (column slices of one qkv tensor): bit-equal to its twin; "
+          f"kernel {ms:.4f} ms per call (CUDA graphs of 20 and 120 launches on {len(sets)} qkv tensors "
+          f"in turn), twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    if ms < bound_ms:
+        raise AssertionError(f"plumb took {ms:.4f} ms, below its DRAM bound {bound_ms:.4f} ms")
+    return rows, plumb_row
+
+
 def check_image(img, what):
     import torch
 
@@ -652,11 +751,12 @@ def accel_phase(phase, what, pipe, kernels, lossless, full, window, exact=False)
 
 def port_kernels():
     """Every kernel wrapper of the port (each counts its own launches)."""
-    from compactfusion_tpu_torch.ops import flash, quant, ring_flash
+    from compactfusion_tpu_torch.ops import flash, probes, quant, ring_flash
 
     return (flash.flash_attn_with_lse, quant.binary_quant_fastpath, quant.binary_dequant_fastpath,
             quant.int2_quant_fastpath, quant.int2_dequant_fastpath, flash.flash_attn_window_with_lse,
-            ring_flash.ring_flash_attn_with_lse, ring_flash.compact_ring_flash)
+            ring_flash.ring_flash_attn_with_lse, ring_flash.compact_ring_flash,
+            probes.flash_parts, probes.plumb)
 
 
 def ring_compact(compress_type, **kw):
@@ -766,8 +866,10 @@ def main():
     from compactfusion_tpu_torch.cache.fast_attn import optimize_plan
     from compactfusion_tpu_torch.compact import codecs
     from compactfusion_tpu_torch.ops import _build, flash, quant, ring_flash
+    from compactfusion_tpu_torch.ops import probes as ops_probes
     from compactfusion_tpu_torch.parallel.mesh import spawn_local
     from compactfusion_tpu_torch.pipelines.pixart import PixArtPipeline, PixArtPipelineConfig
+    from compactfusion_tpu_torch.probes import block_parts, flash_parts, timing
 
     # float32 matmuls and convolutions in full fp32 (cuDNN defaults to TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -781,10 +883,10 @@ def main():
     print(smi)
     t0 = time.perf_counter()
     _build.load()
-    regs = [ln.split(":", 1)[1].strip() for ln in _build.last_build_log.splitlines() if "Used" in ln]
     print(f"[1] {torch.cuda.get_device_name(0)}; torch {torch.__version__} CUDA {torch.version.cuda}; "
-          f"kernels built in {_build.last_build_seconds:.1f} s (load {time.perf_counter() - t0:.1f} s); "
-          f"ptxas: {regs}")
+          f"kernels built in {_build.last_build_seconds:.1f} s (load {time.perf_counter() - t0:.1f} s)")
+    for kernel, said in _build.ptxas_summary(_build.last_build_log).items():
+        print(f"[1] ptxas {kernel}: {said}")
 
     # -- 2. kernels vs twins ----------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -950,6 +1052,44 @@ def main():
     if phases[name]["consistency_dev"] != 0.0:
         raise AssertionError(f"{name}: EF caches differ across ranks")
 
+    # -- 16. the flash profiling probes -----------------------------------------
+    part_rows, plumb_row = check_probes(ops_probes, flash, flash_parts, timing, dev, gen)
+    _reset_counts(kernels)
+    stage_rows = flash_parts.run()
+    block_rows = block_parts.run()
+    counted = {fn.__name__: fn.launches for fn in kernels}
+    ran = {k: sum(r["launches"].get(k, 0) for r in stage_rows + block_rows) for k in counted}
+    for k in ("flash_parts", "plumb"):
+        if not counted[k]:
+            raise AssertionError(f"the probes never launched {k}")
+    stage = {r["name"]: r for r in stage_rows}
+    if not torch.equal(stage["full"]["out"], stage["real"]["out"]):
+        raise AssertionError("the full stage mask differs from kernel 1 in the stage probe")
+    for r in stage_rows:
+        print(f"[16] stage probe {flash_parts.format_row(r)}")
+    for r in block_rows:
+        if tuple(r["out"].shape) != (2, 1024, 1152) or not bool(torch.isfinite(r["out"]).all()):
+            raise AssertionError(f"block probe {r['name']}: output {tuple(r['out'].shape)} not finite")
+        print(f"[16] block probe {block_parts.format_row(r)}")
+    breakdown = block_parts.breakdown(block_rows)
+    for part, cost, share in breakdown:
+        print(f"[16] block breakdown: {part} {cost:.4f} ms per forward ({share:.1%} of full)")
+    print(f"[16] launches the device ran: {', '.join(f'{k} {v}' for k, v in ran.items() if v)} "
+          f"(counted at capture: {', '.join(f'{k} {v}' for k, v in counted.items() if v)})")
+
+    def plain(rows):
+        return [{k: v for k, v in r.items() if k != "out"} for r in rows]
+
+    # the kernels line counts each kernel of the pipeline on the pipeline
+    # alone: kernel 1's runs in the probes ("real", the block forward) are
+    # reported beside it, not added to it
+    probe_kernels = ("flash_parts", "plumb")
+    phases["probes"] = {"launches": {k: v if k in probe_kernels else 0 for k, v in ran.items()},
+                        "launches_of_pipeline_kernels": {k: v for k, v in ran.items() if k not in probe_kernels},
+                        "launches_counted": counted, "stage_rows": plain(stage_rows),
+                        "block_rows": plain(block_rows),
+                        "block_breakdown": [{"part": p, "ms": c, "share": s} for p, c, s in breakdown]}
+
     totals = {fn.__name__: sum(p["launches"][fn.__name__] for p in phases.values()) for fn in kernels}
     for name, count in totals.items():
         if count == 0:
@@ -983,13 +1123,25 @@ def main():
                 "library_ms": rows[0].get("library_ms"), "shapes": rows}
 
     report = {"kernels": [
-        flash_entry("flash_attn_with_lse", 593, flash_rows),
+        flash_entry("flash_attn_with_lse", 593, flash_rows,
+                    launches_in_probes=phases["probes"]["launches_of_pipeline_kernels"]["flash_attn_with_lse"]),
         quant_entry("binary", "quant", 118), quant_entry("binary", "dequant", 159),
         quant_entry("int2", "quant", 238), quant_entry("int2", "dequant", 273),
         flash_entry("flash_attn_window_with_lse", 508, window_rows,
                     ms_vs_full_kernel=window_vs_full),
         ring_entry("ring_flash_attn_with_lse", 347, ring_rows),
         ring_entry("compact_ring_flash", 954, cring_rows),
+        {"name": "flash_parts", "route": "cuda", "source": "compactfusion_tpu_torch/csrc/probes.cu",
+         "replaces": "_prof_kernel_parts.py:69", "launches": totals["flash_parts"],
+         "max_abs_err": max(r["max_abs_err"] for r in part_rows),
+         "ms": stage["full"]["us_per_call"] / 1e3, "plain_ms": part_rows[0]["plain_ms"],
+         "bound_ms": stage["full"]["bound_ms"], "bound_by": stage["full"]["bound_by"],
+         "library_ms": stage["sdpa"]["us_per_call"] / 1e3,
+         "variants": [dict(r, **{k: stage[r["name"]][k] for k in
+                                 ("us_per_call", "us_per_bh", "delta_vs_full_us", "bound_ms", "bound_by")})
+                      for r in part_rows]},
+        {"name": "plumb", "route": "cuda", "source": "compactfusion_tpu_torch/csrc/probes.cu",
+         "replaces": "_prof2_dbg.py:75", "launches": totals["plumb"], "library_ms": None, **plumb_row},
     ], "phases": phases}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,8 +11,9 @@ without the single-device compressed-ring emulation (``simulate_ring``),
 with every codec, residual order, int8-quantized EF caches, ``simulate``
 mode and per-layer ``compress_func`` plans, and the single-device
 accelerators (``cache/``: DiTFastAttn plans and their calibration,
-TeaCache and FBCache).  Its six TPU kernels are hand-written CUDA C++ under
-``csrc/``, built with ``nvcc`` at first use (``ops/_build.py``).  Anything outside that slice raises
+TeaCache and FBCache), the ring across ranks (``parallel/``) and the flash
+profiling probes (``probes/``).  Its TPU kernels are hand-written CUDA C++
+under ``csrc/``, built with ``nvcc`` at first use (``ops/_build.py``).  Anything outside that slice raises
 ``NotImplementedError`` pointing at ``ROADMAP.md``.
 """
 

@@ -14,6 +14,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -54,15 +55,14 @@ def library_path() -> Path:
     return BUILD_DIR / f"libcftorch_{h.hexdigest()[:16]}.so"
 
 
-def _compile(out: Path) -> str:
-    """One ``nvcc -c`` per source, all started together, then one link;
-    returns what the compiler printed."""
-    obj_dir = out.with_name(f"{out.stem}.{os.getpid()}.objs")
+def compile_objects(csrc: Path, obj_dir: Path):
+    """One ``nvcc -c`` per ``csrc/*.cu``, all started together, into
+    ``obj_dir``; returns (the objects, what the compiler printed)."""
     obj_dir.mkdir(parents=True, exist_ok=True)
-    cus = sorted(CSRC.glob("*.cu"))
+    cus = sorted(csrc.glob("*.cu"))
     objs = [obj_dir / f"{cu.stem}.o" for cu in cus]
     procs = [
-        subprocess.Popen([_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", str(obj), str(cu)],
+        subprocess.Popen([_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-c", "-I", str(csrc), "-o", str(obj), str(cu)],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for cu, obj in zip(cus, objs)
     ]
@@ -73,6 +73,14 @@ def _compile(out: Path) -> str:
             failed.append(cu.name)
     if failed:
         raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+    return objs, log
+
+
+def _compile(out: Path) -> str:
+    """The objects of :func:`compile_objects`, then one link; returns what
+    the compiler printed."""
+    obj_dir = out.with_name(f"{out.stem}.{os.getpid()}.objs")
+    objs, log = compile_objects(CSRC, obj_dir)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     link = subprocess.run([_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
                           capture_output=True, text=True)
@@ -173,8 +181,68 @@ def _declare(lib: ctypes.CDLL) -> None:
         P,                # stream
     ]
     lib.cf_compact_ring_hop.restype = I
+    lib.cf_flash_parts_bf16.argtypes = [
+        P, P, P,          # q, k, v
+        L, L, L,          # q strides (b, s, h) in elements
+        L, L, L,          # k strides
+        L, L, L,          # v strides
+        P, P,             # out (B,S,H,D) contiguous, lse (B,H,S)
+        I, I, I, I,       # B, S, H, D
+        F,                # softmax scale
+        I,                # stage mask (0: dma_only)
+        P,                # stream
+    ]
+    lib.cf_flash_parts_bf16.restype = I
+    lib.cf_plumb_bf16.argtypes = [
+        P, P, P,          # q, k, v
+        L, L, L,          # q strides (b, s, h) in elements
+        L, L, L,          # k strides
+        L, L, L,          # v strides
+        P,                # out (B,S,H,D) contiguous
+        I, I, I, I,       # B, S, H, D
+        P,                # stream
+    ]
+    lib.cf_plumb_bf16.restype = I
     lib.cf_error_string.argtypes = [I]
     lib.cf_error_string.restype = ctypes.c_char_p
+
+
+def _cufilt() -> str:
+    found = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    if not Path(found).exists():
+        raise RuntimeError("cu++filt not found: kernel names are read only where the CUDA toolkit is installed")
+    return found
+
+
+def kernel_labels(mangled) -> dict:
+    """{mangled name: its label}: the name as ``cu++filt -p`` demangles it,
+    e.g. ``flash_fwd_kernel<4, 64>``, without the anonymous namespace nvcc
+    gives each ``csrc`` source (its name changes with the source) and the
+    casts of integer template arguments."""
+    mangled = list(mangled)
+    said = subprocess.run([_cufilt(), "-p"], input="\n".join(mangled), capture_output=True, text=True,
+                          check=True).stdout.splitlines()
+    return {m: _UNLABELLED.sub("", d) for m, d in zip(mangled, said)}
+
+
+# cu++filt says "<unnamed>::" and "(int)4"; GNU c++filt "(anonymous namespace)::" and "4"
+_UNLABELLED = re.compile(r"<unnamed>::|\(anonymous namespace\)::|\(int\)")
+
+
+def ptxas_summary(log: str) -> dict:
+    """{kernel (its label, :func:`kernel_labels`): what ptxas said of it}:
+    its stack frame and spills, then its registers, barriers and constant
+    memory, from the ``-Xptxas -v`` output of a build (``last_build_log``)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        text = line.split(":", 1)[1].strip() if line.startswith("ptxas info") else line.strip()
+        if text.startswith("Compiling entry function"):
+            name = text.split("'")[1]
+            out[name] = ""
+        elif name is not None and ("stack frame" in text or text.startswith("Used")):
+            out[name] = f"{out[name]}; {text}" if out[name] else text
+    labels = kernel_labels(out)
+    return {labels[name]: said for name, said in out.items()}
 
 
 def check(status: int, what: str) -> None:

@@ -34,7 +34,7 @@ def test_importing_every_module_leaves_jax_out():
     mods = _modules()
     for m in ("pipelines.pixart", "compact.lowrank", "compact.codecs", "ops.quant", "cache.accel",
               "cache.fast_attn", "ops.merge", "ops.ring_flash", "parallel.mesh", "parallel.ring",
-              "parallel.usp"):
+              "parallel.usp", "ops.probes", "probes.timing", "probes.flash_parts", "probes.block_parts"):
         assert f"compactfusion_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -62,7 +62,9 @@ def _imports(path):
     return names
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/profile_torch.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/profile_torch.py", "tools/compare_kernel_builds.py",
+                                    "compactfusion_tpu_torch/probes/flash_parts.py",
+                                    "compactfusion_tpu_torch/probes/block_parts.py"])
 def test_scripts_import_neither_jax_nor_the_jax_package(script):
     names = _imports(REPO / script)
     if script == "chip_smoke.py":  # its imports sit inside functions: the walk reaches them
