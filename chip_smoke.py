@@ -13,7 +13,10 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
    computes the same function where there is one (``library_ms``), and the
    least time the card could take (``bound_ms``): flash attention, banded
    (window) flash attention, the 1-bit quant pair at K=1 and K=2, the 2-bit
-   (INT2) pair on fp32 and bf16 bases.
+   (INT2) pair on fp32 and bf16 bases.  Flash attention also names its
+   plan (``ops/flash.py::flash_plan``: body, padded head dim, warps) and
+   CTAs, and is timed without dispatch cost on inputs read from DRAM
+   (``graph_ms``: CUDA graphs, ``probes/timing.py``).
 3. The full-width PixArt-alpha 512 pipeline (28 blocks, dim 1152, S=1024,
    CFG batch 2, 20 DPM-Solver++ steps, SD-VAE decode), random weights with
    spiced AdaLN tables, compression off: 3 requests, each from its own seed.
@@ -35,7 +38,9 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
     updates its own copy of the EF stacks, which must stay bit-equal):
     ring 2 at the path's shape (512 tokens per rank, B 2 and B 1) and ring 8
     (128 tokens per rank); BINARY at K=1 and K=2, INT2 and LOW_RANK r4 on
-    fp32 stacks, and on int8 stacks at B 1.
+    fp32 stacks, and on int8 stacks at B 1.  Kernel 7 is timed as kernel 1
+    in phase 2 (plan, ``graph_ms``), and its ring-8 hop must launch at
+    least 128 CTAs.
 13. The pipeline as a ring of 2 processes that share this GPU (a gloo
     group: NCCL refuses two ranks on one device), lossless, unfused and
     through the fused ring kernel, against request 1's lossless latents;
@@ -48,8 +53,9 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
 15. cfg 2 x ring 2 in 4 processes: fused LOW_RANK r4 on int8 EF caches
     (B 1 per rank) with the consistency check on: the caches stay equal.
 16. The flash profiling probes (``compactfusion_tpu_torch/probes``): each
-    stage mask of ``flash_parts`` and ``dma_only`` against its twin at B2
-    H16 S1024 d72 (``full`` bit-equal to kernel 1 on the same views,
+    stage mask of ``flash_parts`` (kernel 1's register body) and
+    ``dma_only`` against its twin at B2 H16 S1024 d72 (``full`` bit-equal
+    to kernel 1 on the same views,
     ``dma_only`` bit-equal to its twin, the others by largest and relative
     error), ``plumb`` bit-equal to its twin on column slices of one qkv
     tensor and timed on enough of them in turn that each call reads from
@@ -184,41 +190,81 @@ def _library(q, k, v, mask=None):
     return (lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)), backend
 
 
-def check_flash(flash, dev, gen):
-    """Flash kernel vs twin at the three path shapes; returns a report."""
+def graph_ms(timing, calls):
+    """ms per call without dispatch cost: CUDA graphs of 20 and 120 calls
+    (``timing.per_call_ms``), each call on the next of ``calls`` (one per
+    input set, as many as fill 4x the L2), so each reads its inputs from
+    DRAM."""
+    return timing.per_call_ms(timing.rotate(calls), 20, 120)[0]
+
+
+def _qkv_views(gen, dev, b, s):
+    """PixArt's q/k/v: (B, S, 16, 72) bf16 column slices of one qkv tensor."""
+    import torch
+
+    dim = 1152
+    qkv = torch.randn((b, s, 3 * dim), generator=gen, device=dev).to(torch.bfloat16)
+    return tuple(t.view(b, s, 16, 72) for t in qkv.split(dim, dim=-1))
+
+
+def flash_cases(gen, dev):
+    """Kernel 1 at the path's three shapes: (name, a maker of one input set
+    (q, k, v), eager iterations)."""
     import torch
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    dim = 1152
-    qkv = rnd(2, 1024, 3 * dim)  # PixArt's q/k/v are column slices of one tensor
-    q, k, v = (t.view(2, 1024, 16, 72) for t in qkv.split(dim, dim=-1))
-    cases = [
-        ("self-attn B2 H16 S1024 d72", (q, k, v), 20),
-        ("ring-8 query chunk B2 H16 Sq128 Sk1024 d72", (q[:, :128], k.contiguous(), v.contiguous()), 20),
-        ("VAE mid-attn B1 H1 S4096 d512", (rnd(1, 4096, 1, 512), rnd(1, 4096, 1, 512), rnd(1, 4096, 1, 512)), 5),
+    def chunk():
+        q, k, v = _qkv_views(gen, dev, 2, 1024)
+        return q[:, :128], k.contiguous(), v.contiguous()
+
+    return [
+        ("self-attn B2 H16 S1024 d72", lambda: _qkv_views(gen, dev, 2, 1024), 20),
+        ("ring-8 query chunk B2 H16 Sq128 Sk1024 d72", chunk, 20),
+        ("VAE mid-attn B1 H1 S4096 d512", lambda: tuple(rnd(1, 4096, 1, 512) for _ in range(3)), 5),
     ]
+
+
+def _ctas(plan, b, h, sq):
+    return b * h * -(-sq // (16 * plan[2]))
+
+
+def check_flash(flash, timing, dev, gen):
+    """Flash kernel vs twin at the three path shapes; returns a report.
+    Each shape is timed eager on one input set (``ms``) and by CUDA graphs
+    on inputs from DRAM (``graph_ms``)."""
+    import torch
+
     rows = []
-    for name, (qq, kk, vv), iters in cases:
+    for name, make, iters in flash_cases(gen, dev):
+        qq, kk, vv = make()
         out, lse = flash.flash_attn_with_lse(qq, kk, vv)
         torch.cuda.synchronize()
         ref_out, ref_lse = flash.flash_attn_with_lse_ref(qq, kk, vv)
         err_out = (out.float() - ref_out.float()).abs().max().item()
         err_lse = (lse - ref_lse).abs().max().item()
+        b, sq, h, d = qq.shape
+        plan = flash.flash_plan(b, h, sq, d)
         ms = _time_ms(lambda: flash.flash_attn_with_lse(qq, kk, vv), iters)
+        sets = [(qq, kk, vv)] + [make() for _ in range(timing.copies(_nbytes(qq, kk, vv, out, lse)) - 1)]
+        g_ms = graph_ms(timing, [lambda t=t: flash.flash_attn_with_lse(*t) for t in sets])
+        n_sets = len(sets)
+        del sets
         plain_ms = _time_ms(lambda: flash.flash_attn_with_lse_ref(qq, kk, vv), iters)
         lib, backend = _library(qq, kk, vv)
         library_ms = _time_ms(lib, iters)
-        b, sq, h, d = qq.shape
         bound_ms, bound_by = _bound(_nbytes(qq, kk, vv, out, lse), 4 * b * h * sq * kk.shape[1] * d,
                                     PEAK_BF16_FLOPS)
         rows.append({"shape": name, "max_abs_err_out": err_out, "max_abs_err_lse": err_lse,
-                     "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                     "library_backend": backend, "bound_ms": bound_ms, "bound_by": bound_by})
+                     "plan": list(plan), "ctas": _ctas(plan, b, h, sq), "ms": ms, "graph_ms": g_ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms, "library_backend": backend,
+                     "bound_ms": bound_ms, "bound_by": bound_by})
         print(f"[2] flash {name}: out err {err_out:.3e} (tol {FLASH_OUT_ATOL}), lse err "
-              f"{err_lse:.3e} (tol {FLASH_LSE_ATOL}); kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
-              f"SDPA ({backend}) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+              f"{err_lse:.3e} (tol {FLASH_LSE_ATOL}); plan {plan}, {rows[-1]['ctas']} CTAs; kernel "
+              f"{ms:.4f} ms eager, {g_ms:.4f} ms by CUDA graphs on {n_sets} input sets; "
+              f"twin {plain_ms:.4f} ms, SDPA ({backend}) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by})")
         if not (err_out <= FLASH_OUT_ATOL and err_lse <= FLASH_LSE_ATOL):
             raise AssertionError(f"flash kernel disagrees with its twin at {name}")
     return rows
@@ -236,11 +282,8 @@ def check_window(flash, dev, gen):
     full kernel's at the same shape."""
     import torch
 
-    dim = 1152
-
     def qkv(b, s):
-        t = torch.randn((b, s, 3 * dim), generator=gen, device=dev).to(torch.bfloat16)
-        return tuple(x.view(b, s, 16, 72) for x in t.split(dim, dim=-1))
+        return _qkv_views(gen, dev, b, s)
 
     q, k, v = qkv(2, 1024)
     cases = [(f"B2 H16 S1024 d72 w{w}", (q, k, v), w) for w in (WINDOW, 4, 0, 1024)]
@@ -327,62 +370,70 @@ def check_quant(quant, codecs, dev, gen, codec, rank, base_dtype):
     return row
 
 
-def _shards(gen, dev, ring, b, s_local):
-    """Every virtual rank's (q, k, v), column slices of one qkv tensor each,
-    as PixArt hands them to attention: (B, S_local, 16, 72) bf16 views."""
-    import torch
-
-    dim = 1152
-    out = []
-    for _ in range(ring):
-        qkv = torch.randn((b, s_local, 3 * dim), generator=gen, device=dev).to(torch.bfloat16)
-        out.append(tuple(t.view(b, s_local, 16, 72) for t in qkv.split(dim, dim=-1)))
-    return out
-
-
 def _rel(a, b):
     """Largest elementwise |a - b| / |b| (0 where both are 0)."""
     a, b = a.float(), b.float()
     return ((a - b).abs() / b.abs().clamp_min(1e-30)).max().item()
 
 
-def check_ring_flash(rf, dev, gen):
-    """Kernel 7 (one launch per hop) vs its twin, rank 0's view of a ring:
-    its queries against its own K/V slices (hop 0) and the contiguous blocks
-    the other ranks send, in the order they arrive; timed beside one SDPA
+def ring_cases(gen, dev):
+    """Kernel 7's phase-12 shapes: (ring, batch, tokens per rank) and a
+    maker of one input set: rank 0's queries, and its own K/V slices (hop
+    0) then the contiguous blocks the other ranks send, in the order they
+    arrive."""
+    def make(ring, b, s_local):
+        shards = [_qkv_views(gen, dev, b, s_local) for _ in range(ring)]
+        return shards[0][0], [(shards[0][1], shards[0][2])] + [
+            (shards[(-s) % ring][1].contiguous(), shards[(-s) % ring][2].contiguous())
+            for s in range(1, ring)]
+
+    return [((ring, b, s), lambda ring=ring, b=b, s=s: make(ring, b, s))
+            for ring, b, s in ((2, 2, 512), (2, 1, 512), (RING, 2, 1024 // RING))]
+
+
+def check_ring_flash(rf, flash, timing, dev, gen):
+    """Kernel 7 (one launch per hop) vs its twin, rank 0's view of a ring,
+    timed eager and by CUDA graphs on inputs from DRAM next to one SDPA
     call on the concatenated K/V.  Returns a report."""
     import torch
 
     rows = []
-    for ring, b, s_local in ((2, 2, 512), (2, 1, 512), (RING, 2, 1024 // RING)):
-        shards = _shards(gen, dev, ring, b, s_local)
-        q = shards[0][0]
-        blocks = [(shards[0][1], shards[0][2])] + [
-            (shards[(-s) % ring][1].contiguous(), shards[(-s) % ring][2].contiguous())
-            for s in range(1, ring)]
+    for (ring, b, s_local), make in ring_cases(gen, dev):
+        q, blocks = make()
         out, lse = rf.ring_flash_attn_with_lse(q, iter(blocks), ring)
         torch.cuda.synchronize()
         ref_out, ref_lse = rf.ring_flash_attn_with_lse_ref(q, iter(blocks), ring)
         err_out = (out.float() - ref_out.float()).abs().max().item()
         err_lse = (lse - ref_lse).abs().max().item()
         name = f"ring {ring} B{b} H16 Sq{s_local} Sk{ring}x{s_local} d72"
+        plan = flash.flash_plan(b, 16, s_local, 72)
         ms = _time_ms(lambda: rf.ring_flash_attn_with_lse(q, iter(blocks), ring), 20)
-        plain_ms = _time_ms(lambda: rf.ring_flash_attn_with_lse_ref(q, iter(blocks), ring), 20)
         k_all = torch.cat([k for k, _ in blocks], dim=1)
         v_all = torch.cat([v for _, v in blocks], dim=1)
+        nbytes = _nbytes(q, k_all, v_all, out, lse)
+        sets = [(q, blocks)] + [make() for _ in range(timing.copies(nbytes) - 1)]
+        g_ms = graph_ms(timing, [lambda t=t: rf.ring_flash_attn_with_lse(t[0], iter(t[1]), ring)
+                                 for t in sets])
+        n_sets = len(sets)
+        del sets
+        plain_ms = _time_ms(lambda: rf.ring_flash_attn_with_lse_ref(q, iter(blocks), ring), 20)
         lib, backend = _library(q, k_all, v_all)
         library_ms = _time_ms(lib, 20)
-        bound_ms, bound_by = _bound(_nbytes(q, k_all, v_all, out, lse),
-                                    4 * b * 16 * s_local * k_all.shape[1] * 72, PEAK_BF16_FLOPS)
+        bound_ms, bound_by = _bound(nbytes, 4 * b * 16 * s_local * k_all.shape[1] * 72, PEAK_BF16_FLOPS)
         rows.append({"shape": name, "max_abs_err_out": err_out, "max_abs_err_lse": err_lse,
-                     "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                     "library_backend": backend, "bound_ms": bound_ms, "bound_by": bound_by})
+                     "plan": list(plan), "ctas": _ctas(plan, b, 16, s_local), "ms": ms,
+                     "graph_ms": g_ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "library_backend": backend, "bound_ms": bound_ms,
+                     "bound_by": bound_by})
         print(f"[12] ring flash {name}: out err {err_out:.3e} (tol {FLASH_OUT_ATOL}), lse err "
-              f"{err_lse:.3e} (tol {FLASH_LSE_ATOL}); kernel {ms:.4f} ms ({ring} launches), twin "
-              f"{plain_ms:.4f} ms, SDPA on the gathered K/V ({backend}) {library_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by})")
+              f"{err_lse:.3e} (tol {FLASH_LSE_ATOL}); plan {plan}, {rows[-1]['ctas']} CTAs per hop; "
+              f"kernel {ms:.4f} ms eager ({ring} launches), {g_ms:.4f} ms by CUDA graphs on {n_sets} "
+              f"input sets; twin {plain_ms:.4f} ms, SDPA on the gathered K/V ({backend}) "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         if not (err_out <= FLASH_OUT_ATOL and err_lse <= FLASH_LSE_ATOL):
             raise AssertionError(f"ring flash kernel disagrees with its twin at {name}")
+        if ring == RING and rows[-1]["ctas"] < 128:
+            raise AssertionError(f"ring flash at ring {RING}: {rows[-1]['ctas']} CTAs per hop, fewer than 128")
     return rows
 
 
@@ -436,7 +487,7 @@ def check_compact_ring(rf, dev, gen, ring, b, s_local, codec, rank, quantized):
 
     h, d = 16, 72
     n, c = b * s_local, h * d
-    shards = _shards(gen, dev, ring, b, s_local)
+    shards = [_qkv_views(gen, dev, b, s_local) for _ in range(ring)]  # every virtual rank's
     kb0, vb0 = _stack(gen, dev, ring, n, c, quantized), _stack(gen, dev, ring, n, c, quantized)
     payloads = [rf.fused_ring_payload(shards[r][1], shards[r][2], rf.decode_slot(kb0, r),
                                       rf.decode_slot(vb0, r), codec, rank) for r in range(ring)]
@@ -527,11 +578,8 @@ def check_probes(ops_probes, flash, stage_probe, timing, dev, gen):
               + f"; twin {plain_ms:.4f} ms")
         if not ok:
             raise AssertionError(f"flash_parts {name} disagrees with its twin or kernel 1")
-    dim = 1152
-
     def qkv_views():
-        qkv = torch.randn((2, 1024, 3 * dim), generator=gen, device=dev).to(torch.bfloat16)
-        return tuple(t.view(2, 1024, 16, 72) for t in qkv.split(dim, dim=-1))
+        return _qkv_views(gen, dev, 2, 1024)
 
     pq, pk, pv = qkv_views()
     out = ops_probes.plumb(pq, pk, pv)
@@ -890,7 +938,7 @@ def main():
 
     # -- 2. kernels vs twins ----------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
-    flash_rows = check_flash(flash, dev, gen)
+    flash_rows = check_flash(flash, timing, dev, gen)
     window_rows, window_vs_full = check_window(flash, dev, gen)
     quant_rows = {
         "binary": [check_quant(quant, codecs, dev, gen, "binary", r, torch.float32) for r in (-1, 2)],
@@ -991,7 +1039,7 @@ def main():
         phases[name] = r
 
     # -- 12. the ring kernels vs their twins, one rank's view ------------------
-    ring_rows = check_ring_flash(ring_flash, dev, gen)
+    ring_rows = check_ring_flash(ring_flash, flash, timing, dev, gen)
     cring_rows = [check_compact_ring(ring_flash, dev, gen, *case) for case in CRING_CASES]
 
     # -- 13.-15. the ring across processes that share this GPU ----------------
@@ -1106,31 +1154,30 @@ def main():
                 "bound_ms": rows[0][f"{which}_bound_ms"], "bound_by": rows[0][f"{which}_bound_by"],
                 "library_ms": None, "shapes": rows}
 
-    def flash_entry(name, line, rows, **extra):
-        return {"name": name, "route": "cuda", "source": "compactfusion_tpu_torch/csrc/flash_attn.cu",
-                "replaces": f"compactfusion_tpu/ops/flash_pallas.py:{line}", "launches": totals[name],
+    def flash_entry(name, line, rows, source="flash_attn.cu", **extra):
+        """One kernel of kernels 1, 4, 7 and 8: its first shape's numbers
+        at the top (eager ``ms`` and, where measured, ``graph_ms``), every
+        shape in ``shapes`` (with the tile body it ran, where it has a
+        ``plan``); ``source`` holds the ``__global__`` functions."""
+        return {"name": name, "route": "cuda", "source": f"compactfusion_tpu_torch/csrc/{source}",
+                "replaces": line, "launches": totals[name],
                 "max_abs_err": max(r["max_abs_err_out"] for r in rows),
                 "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
                 "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
-                "library_ms": rows[0]["library_ms"], "shapes": rows, **extra}
-
-    def ring_entry(name, line, rows):
-        return {"name": name, "route": "cuda", "source": "compactfusion_tpu_torch/csrc/ring_flash.cu",
-                "replaces": f"compactfusion_tpu/ops/ring_flash_pallas.py:{line}", "launches": totals[name],
-                "max_abs_err": max(r["max_abs_err_out"] for r in rows),
-                "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
-                "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
-                "library_ms": rows[0].get("library_ms"), "shapes": rows}
+                "library_ms": rows[0].get("library_ms"), "shapes": rows,
+                **({"graph_ms": rows[0]["graph_ms"]} if "graph_ms" in rows[0] else {}), **extra}
 
     report = {"kernels": [
-        flash_entry("flash_attn_with_lse", 593, flash_rows,
+        flash_entry("flash_attn_with_lse", "compactfusion_tpu/ops/flash_pallas.py:593", flash_rows,
                     launches_in_probes=phases["probes"]["launches_of_pipeline_kernels"]["flash_attn_with_lse"]),
         quant_entry("binary", "quant", 118), quant_entry("binary", "dequant", 159),
         quant_entry("int2", "quant", 238), quant_entry("int2", "dequant", 273),
-        flash_entry("flash_attn_window_with_lse", 508, window_rows,
+        flash_entry("flash_attn_window_with_lse", "compactfusion_tpu/ops/flash_pallas.py:508", window_rows,
                     ms_vs_full_kernel=window_vs_full),
-        ring_entry("ring_flash_attn_with_lse", 347, ring_rows),
-        ring_entry("compact_ring_flash", 954, cring_rows),
+        flash_entry("ring_flash_attn_with_lse", "compactfusion_tpu/ops/ring_flash_pallas.py:347", ring_rows,
+                    "ring_flash.cu"),
+        flash_entry("compact_ring_flash", "compactfusion_tpu/ops/ring_flash_pallas.py:954", cring_rows,
+                    "ring_flash.cu"),
         {"name": "flash_parts", "route": "cuda", "source": "compactfusion_tpu_torch/csrc/probes.cu",
          "replaces": "_prof_kernel_parts.py:69", "launches": totals["flash_parts"],
          "max_abs_err": max(r["max_abs_err"] for r in part_rows),

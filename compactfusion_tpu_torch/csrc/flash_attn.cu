@@ -1,6 +1,9 @@
 // Non-causal flash attention with a natural-log LSE, bf16 in, fp32 math:
-// full attention (flash_fwd_kernel) and banded attention |i - j| <= w
-// (flash_window_kernel), one tile layout and one body for both.
+// full attention (flash_fwd_reg_kernel for head dims up to 128, on the
+// register body of flash_reg.cuh; flash_fwd_kernel above) and banded
+// attention |i - j| <= w (flash_window_kernel).  The host picks the body,
+// padded head dim and warps per CTA (ops/flash.py::flash_plan) and passes
+// them in; the entry points launch exactly that or return an error.
 //
 // Replaces: compactfusion_tpu/ops/flash_pallas.py::flash_attn_with_lse, main
 // branch (kernels _flash_kernel / _flash_kernel_heads, pallas_call at
@@ -14,7 +17,8 @@
 // The VAE mid-block shape (d=512, S=4096, one head) is the same, with a head
 // dim too wide for a register-resident accumulator.
 //
-// Design (simple first, see ROADMAP for WGMMA/TMA):
+// Design of the shared-memory body (flash_common.cuh; the register body
+// has its own note in flash_reg.cuh):
 //  * one CTA per (q-tile, head, batch); the TPU's sequential KV grid axis
 //    becomes an in-block loop over K/V tiles staged in shared memory;
 //  * warp w owns query rows [16w, 16w+16) of the tile end to end: its score
@@ -25,9 +29,9 @@
 //    (d=72 -> 80), and q/k/v are read through their (b, s, h) strides, so
 //    PixArt's column slices of one qkv tensor need no copy;
 //  * the accumulator lives in dynamic shared memory, not registers, which is
-//    what lets d=512 run: 64x64 tiles for d <= ~160, 32x32 tiles (2 warps)
-//    above, with cudaFuncAttributeMaxDynamicSharedMemorySize raised past
-//    48 KB;
+//    what lets d=512 run: 64x64 tiles (4 warps) while the layout fits in
+//    ~200 KB, 32x32 tiles (2 warps) above, with
+//    cudaFuncAttributeMaxDynamicSharedMemorySize raised past 48 KB;
 //  * keys at or past min(kv_lens[b], Sk) are masked; tiles wholly past it
 //    are skipped.  A row with no valid key writes 0 and LSE -inf, the
 //    attn_with_lse convention.
@@ -45,12 +49,41 @@
 //    products (127,936 band pairs per head; ~1.2 us at 989 TFLOP/s): memory,
 //    where the full kernel is bound by math.
 
-// The tile body lives in flash_common.cuh, shared with the ring kernels of
-// ring_flash.cu.
+// The tile bodies live in flash_common.cuh and flash_reg.cuh, shared with
+// the ring kernels of ring_flash.cu.
 
-#include "flash_common.cuh"
+#include "flash_reg.cuh"
 
 namespace {
+
+template <int DP, int NWARPS>
+__global__ void __launch_bounds__(32 * NWARPS)
+flash_fwd_reg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, Strides sq, Strides sk, Strides sv,
+                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                     const int* __restrict__ kv_lens, int H, int Sq, int Sk, int D,
+                     float scale_log2) {
+  const int b = blockIdx.z;
+  const int kv_len = kv_lens != nullptr ? min(max(kv_lens[b], 0), Sk) : Sk;
+  flash_reg_tile<__nv_bfloat16, DP, NWARPS, false>(q, k, v, sq, sk, sv, out, lse, kv_len, H, Sq, D,
+                                                   scale_log2, blockIdx.x * 16 * NWARPS,
+                                                   blockIdx.y, b, Carry{});
+}
+
+template <int DP, int NWARPS>
+int launch_reg(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+               Strides sq, Strides sk, Strides sv, __nv_bfloat16* out, float* lse,
+               const int* kv_lens, int B, int Sq, int Sk, int H, int D, float scale_log2,
+               cudaStream_t stream) {
+  constexpr int BQ = 16 * NWARPS, BYTES = RegLayout<DP, NWARPS>::kBytes;
+  auto kern = flash_fwd_reg_kernel<DP, NWARPS>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  kern<<<grid, 32 * NWARPS, BYTES, stream>>>(q, k, v, sq, sk, sv, out, lse, kv_lens, H, Sq, Sk, D,
+                                             scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <int NWARPS, int BK>
 __global__ void __launch_bounds__(32 * NWARPS)
@@ -94,11 +127,17 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launch the plan (body, dp, warps): the register body at a built (dp,
+// warps) with D <= dp, or the shared-memory body with dp = D rounded up to
+// 16 and 4 warps (64x64 tiles) or 2 (32x32); anything else is an error.
 template <bool BAND>
 int dispatch(const void* q, const void* k, const void* v, long long qsb, long long qss,
              long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
              long long vss, long long vsh, void* out, void* lse, const void* kv_lens, int B,
-             int Sq, int Sk, int H, int D, float scale, int window, void* stream) {
+             int Sq, int Sk, int H, int D, float scale, int window, int body, int dp, int warps,
+             void* stream) {
+  const cudaError_t refused = cudaErrorInvalidValue;
+  if (D % 8 != 0 || D > dp) return static_cast<int>(refused);
   if (B == 0 || Sq == 0 || H == 0) return 0;
   const Strides sq{qsb, qss, qsh}, sk{ksb, kss, ksh}, sv{vsb, vss, vsh};
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
@@ -109,17 +148,26 @@ int dispatch(const void* q, const void* k, const void* v, long long qsb, long lo
   const auto* lens = static_cast<const int*>(kv_lens);
   const auto st = static_cast<cudaStream_t>(stream);
   const float sl2 = scale * kLog2e;
-  // 64x64 tiles with 4 warps while they fit in ~200 KB of shared memory,
-  // else 32x32 tiles with 2 warps (d=512 takes ~173 KB)
-  if (make_layout(D, 64, 64).bytes <= 200 * 1024) {
+  if (body == kRegBody && !BAND) {
+#define CF_REG_CASE(DPV, W)                                                                \
+  if (dp == DPV && warps == W) {                                                            \
+    return launch_reg<DPV, W>(qp, kp, vp, sq, sk, sv, op, lp, lens, B, Sq, Sk, H, D, sl2, st); \
+  }
+    CF_REG_PLANS(CF_REG_CASE)
+#undef CF_REG_CASE
+    return static_cast<int>(refused);
+  }
+  if (body != kTileBody || dp != round_up(D, 16)) return static_cast<int>(refused);
+  // 64x64 tiles with 4 warps, 32x32 tiles with 2 (d=512: ~173 KB of shared memory)
+  if (warps == 4) {
     return launch<4, 64, BAND>(qp, kp, vp, sq, sk, sv, op, lp, lens, B, Sq, Sk, H, D, sl2,
                                window, st);
   }
-  if (make_layout(D, 32, 32).bytes <= 227 * 1024) {
+  if (warps == 2) {
     return launch<2, 32, BAND>(qp, kp, vp, sq, sk, sv, op, lp, lens, B, Sq, Sk, H, D, sl2,
                                window, st);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(refused);
 }
 
 }  // namespace
@@ -130,9 +178,9 @@ extern "C" int cf_flash_attn_bf16(const void* q, const void* k, const void* v,
                                   long long vsb, long long vss, long long vsh,
                                   void* out, void* lse, const void* kv_lens,
                                   int B, int Sq, int Sk, int H, int D, float scale,
-                                  void* stream) {
+                                  int body, int dp, int warps, void* stream) {
   return dispatch<false>(q, k, v, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, out, lse,
-                         kv_lens, B, Sq, Sk, H, D, scale, 0, stream);
+                         kv_lens, B, Sq, Sk, H, D, scale, 0, body, dp, warps, stream);
 }
 
 // Banded self-attention |i - j| <= window over S keys (Sq == Sk == S); a
@@ -142,10 +190,12 @@ extern "C" int cf_flash_attn_window_bf16(const void* q, const void* k, const voi
                                          long long ksb, long long kss, long long ksh,
                                          long long vsb, long long vss, long long vsh,
                                          void* out, void* lse, int B, int S, int H, int D,
-                                         int window, float scale, void* stream) {
+                                         int window, float scale, int body, int dp, int warps,
+                                         void* stream) {
   if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<true>(q, k, v, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, out, lse,
-                        nullptr, B, S, S, H, D, scale, window < S ? window : S, stream);
+                        nullptr, B, S, S, H, D, scale, window < S ? window : S, body, dp, warps,
+                        stream);
 }
 
 extern "C" const char* cf_error_string(int err) {

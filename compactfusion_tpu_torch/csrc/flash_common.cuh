@@ -8,9 +8,9 @@
 // registers/shared memory, so a ring folds one hop per launch into it:
 // first = no state yet, last = normalise and write out/LSE.
 //
-// PARTS switches stages of the body off for the profiling probes
-// (csrc/probes.cu); every production kernel takes the default, all stages,
-// for which each switch below compiles away.
+// Kernel 1 up to a head dim of 128, kernel 7 and the stage probe run on the
+// register body of flash_reg.cuh; this body serves the wider heads (the
+// VAE's d=512), the banded kernel 4 and the compressed ring (kernel 8).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -25,30 +25,6 @@ using namespace nvcuda;
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-// The stages of the tile body.  Switched off, each computes what the
-// doctored Pallas kernel of _prof_kernel_parts.py computes in its place:
-//   kQK    the score product; off, every score of a row is q[row, 0]
-//   kScale the softmax scale; off, the exponent takes log2e alone
-//   kMax   the running max; off, m stays 0 and alpha 1
-//   kExp   the exp2; off, p = score - running max (alpha 1)
-//   kAV    the PV product and the row sum; off, the accumulator takes p of
-//          the keys below D and l the sum of keys 0-7, both rescaled by alpha
-enum Part : int { kQK = 1, kScale = 2, kMax = 4, kExp = 8, kAV = 16 };
-constexpr int kAllParts = kQK | kScale | kMax | kExp | kAV;
-
-// A masked-in score of a probe: the stored product (or q[row, 0] without
-// one) times the factor the switches leave
-template <int PARTS>
-__device__ __forceinline__ float probe_score(const float* s, const __nv_bfloat16* q_row0,
-                                             float scale_log2) {
-  float x;
-  if constexpr ((PARTS & kQK) != 0) x = *s;
-  else x = __bfloat162float(*q_row0);
-  if constexpr ((PARTS & kScale) != 0) return x * scale_log2;
-  else if constexpr ((PARTS & kExp) != 0) return x * kLog2e;
-  else return x;
-}
 
 struct Strides {
   long long b, s, h;  // in elements; the head-dim stride is 1
@@ -136,19 +112,13 @@ __device__ inline void load_tile(__nv_bfloat16* dst, int ld, const __nv_bfloat16
 // KV tiles wholly outside the band of this q-tile are not visited (then
 // Sq == Sk and kv_len == Sk).  Keys at or past kv_len are masked.  k and v
 // carry no __restrict__: the compressed ring reads here what it wrote
-// earlier in the same launch.  With a stage switched off (PARTS) the probe
-// passes the factor of its scores as scale_log2: scale * log2e with the
-// exponent, the plain scale without it.
-template <int NWARPS, int BK, bool BAND, bool CARRY, int PARTS = kAllParts>
+// earlier in the same launch.
+template <int NWARPS, int BK, bool BAND, bool CARRY>
 __device__ __forceinline__ void
 flash_tile(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* k, const __nv_bfloat16* v,
            Strides sq, Strides sk, Strides sv, __nv_bfloat16* __restrict__ out,
            float* __restrict__ lse, int kv_len, int H, int Sq, int Sk, int D, float scale_log2,
            int window, int q0, int h, int b, Carry carry) {
-  static_assert(PARTS == kAllParts || (!BAND && !CARRY), "stage switches are for full attention");
-  constexpr bool kAll = PARTS == kAllParts;
-  // alpha can differ from 1 only with a running max inside an exponent
-  constexpr bool kRescale = (PARTS & kMax) != 0 && (PARTS & kExp) != 0;
   constexpr int BQ = 16 * NWARPS;
   constexpr int NT = 32 * NWARPS;
   constexpr int PER_LANE = BK / 32;
@@ -207,21 +177,19 @@ flash_tile(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* k, const __
     __syncthreads();
 
     // scores of this warp's 16 rows: Q[r0:r0+16] @ K^T -> Ss (fp32)
-    if constexpr ((PARTS & kQK) != 0) {
-      for (int n = 0; n < BK / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::fill_fragment(acc, 0.f);
-        for (int kk = 0; kk < L.dp / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fa, Qs + r0 * L.ld_in + kk * 16, L.ld_in);
-          wmma::load_matrix_sync(fb, Ks + n * 16 * L.ld_in + kk * 16, L.ld_in);
-          wmma::mma_sync(acc, fa, fb, acc);
-        }
-        wmma::store_matrix_sync(Ss + r0 * L.ld_s + n * 16, acc, L.ld_s, wmma::mem_row_major);
+    for (int n = 0; n < BK / 16; ++n) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.f);
+      for (int kk = 0; kk < L.dp / 16; ++kk) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
+        wmma::load_matrix_sync(fa, Qs + r0 * L.ld_in + kk * 16, L.ld_in);
+        wmma::load_matrix_sync(fb, Ks + n * 16 * L.ld_in + kk * 16, L.ld_in);
+        wmma::mma_sync(acc, fa, fb, acc);
       }
-      __syncwarp();
+      wmma::store_matrix_sync(Ss + r0 * L.ld_s + n * 16, acc, L.ld_s, wmma::mem_row_major);
     }
+    __syncwarp();
 
     // online softmax of the same rows.  Without a band every visited tile
     // holds a valid key (k0 < kv_len); with one, a row may have none yet, so
@@ -236,80 +204,36 @@ flash_tile(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* k, const __
         const int col = k0 + lane + 32 * j;
         bool keep = col < kv_len;
         if (BAND) keep = keep && abs(row - col) <= window;
-        if constexpr (kAll) {
-          s[j] = keep ? Ss[r * L.ld_s + lane + 32 * j] * scale_log2 : -CUDART_INF_F;
-        } else {
-          s[j] = keep ? probe_score<PARTS>(Ss + r * L.ld_s + lane + 32 * j, Qs + r * L.ld_in,
-                                           scale_log2)
-                      : -CUDART_INF_F;
-        }
+        s[j] = keep ? Ss[r * L.ld_s + lane + 32 * j] * scale_log2 : -CUDART_INF_F;
         mx = fmaxf(mx, s[j]);
       }
-      float m_old = 0.f, m_new = 0.f, m_ref = 0.f;
-      if constexpr ((PARTS & kMax) != 0) {
-        mx = warp_max(mx);
-        m_old = row_m[r];
-        m_new = fmaxf(m_old, mx);
-        m_ref = m_new == -CUDART_INF_F ? 0.f : m_new;
-      }
+      mx = warp_max(mx);
+      const float m_old = row_m[r];
+      const float m_new = fmaxf(m_old, mx);
+      const float m_ref = m_new == -CUDART_INF_F ? 0.f : m_new;
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < PER_LANE; ++j) {
-        const float p = (PARTS & kExp) != 0 ? exp2f(s[j] - m_ref) : s[j] - m_ref;
-        if constexpr ((PARTS & kAV) != 0) {
-          Ps[r * L.ld_p + lane + 32 * j] = __float2bfloat16(p);
-          sum += p;
-        } else {
-          s[j] = p;  // kept for the accumulator below
-        }
+        const float p = exp2f(s[j] - m_ref);
+        Ps[r * L.ld_p + lane + 32 * j] = __float2bfloat16(p);
+        sum += p;
       }
-      if constexpr ((PARTS & kAV) != 0) {
-        sum = warp_sum(sum);
-        if (lane == 0) {
-          if constexpr (kRescale) {
-            const float alpha = exp2f(m_old - m_ref);  // 0 while m_old is -inf
-            row_a[r] = alpha;
-            row_m[r] = m_new;
-            row_l[r] = row_l[r] * alpha + sum;
-          } else {
-            row_m[r] = m_new;
-            row_l[r] += sum;
-          }
-        }
-      } else {
-        // no PV product: rescale this row's accumulator, then it takes p of
-        // the keys below D (columns = key index) and l the sum of keys 0-7;
-        // each lane touches only its own columns
-        const float alpha = kRescale ? exp2f(m_old - m_ref) : 1.f;
-        float* orow = Os + r * L.ld_o;
-        if constexpr (kRescale) {
-          for (int c = lane; c < L.dp; c += 32) orow[c] *= alpha;
-        }
-#pragma unroll
-        for (int j = 0; j < PER_LANE; ++j) {
-          const int col = k0 + lane + 32 * j;
-          if (col < D) orow[col] = s[j];
-        }
-        float l8 = k0 == 0 && lane < 8 ? s[0] : 0.f;
-#pragma unroll
-        for (int o = 4; o > 0; o >>= 1) l8 += __shfl_xor_sync(0xffffffffu, l8, o);
-        if (lane == 0) {
-          row_m[r] = m_new;
-          row_l[r] = row_l[r] * alpha + l8;
-        }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float alpha = exp2f(m_old - m_ref);  // 0 while m_old is -inf
+        row_a[r] = alpha;
+        row_m[r] = m_new;
+        row_l[r] = row_l[r] * alpha + sum;
       }
     }
     __syncwarp();
-    if constexpr ((PARTS & kAV) == 0) continue;
 
     // rescale this warp's accumulator rows, then O += P @ V
-    if constexpr (kRescale) {
-      for (int i = lane; i < 16 * L.dp; i += 32) {
-        const int r = r0 + i / L.dp;
-        Os[r * L.ld_o + i % L.dp] *= row_a[r];
-      }
-      __syncwarp();
+    for (int i = lane; i < 16 * L.dp; i += 32) {
+      const int r = r0 + i / L.dp;
+      Os[r * L.ld_o + i % L.dp] *= row_a[r];
     }
+    __syncwarp();
     for (int n = 0; n < L.dp / 16; ++n) {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
       wmma::load_matrix_sync(acc, Os + r0 * L.ld_o + n * 16, L.ld_o, wmma::mem_row_major);
@@ -338,19 +262,15 @@ flash_tile(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* k, const __
     }
     return;
   }
-  // normalise and write this warp's rows: out (B, Sq, H, D), lse (B, H, Sq).
-  // A probe's l may be negative or 0 (no exponent): it divides as the
-  // doctored kernel does, by l, or by 1 where l is 0, and writes no LSE
+  // normalise and write this warp's rows: out (B, Sq, H, D), lse (B, H, Sq)
   for (int r = r0; r < r0 + 16; ++r) {
     const int row = q0 + r;
     if (row >= Sq) break;
     const float l = row_l[r];
-    float inv;
-    if constexpr (kAll) inv = l > 0.f ? 1.f / l : 0.f;
-    else inv = 1.f / (l == 0.f ? 1.f : l);
+    const float inv = l > 0.f ? 1.f / l : 0.f;
     __nv_bfloat16* orow = out + ((static_cast<long long>(b) * Sq + row) * H + h) * D;
     for (int c = lane; c < D; c += 32) orow[c] = __float2bfloat16(Os[r * L.ld_o + c] * inv);
-    if (kAll && lane == 0) {
+    if (lane == 0) {
       lse[state_row0 + row] = l > 0.f ? (row_m[r] + log2f(l)) * kLn2 : -CUDART_INF_F;
     }
   }

@@ -1,0 +1,440 @@
+// The register-resident flash tile body for Hopper: kernel 1 (non-causal
+// attention with a natural-log LSE, head dims up to 128; csrc/flash_attn.cu)
+// and kernel 7 (one ring hop folded into an fp32 (m, l, acc) state;
+// csrc/ring_flash.cu) run on it, and so does the stage probe of kernel 1
+// (csrc/probes.cu).
+//
+// Replaces: compactfusion_tpu/ops/flash_pallas.py::flash_attn_with_lse,
+// main branch (pallas_call at flash_pallas.py:593), and
+// compactfusion_tpu/ops/ring_flash_pallas.py::ring_flash_attn_with_lse
+// (pallas_call at ring_flash_pallas.py:347).
+//
+// What bounds it on an H100: operations.  At B2 H16 S1024 d72 the two
+// products are 4 * B * H * S^2 * D = 9.66 GFLOP, 9.77 us at 989 TFLOP/s
+// bf16, against 19 MB of q/k/v/out (5.6 us at 3.35 TB/s).
+//
+// Design, against the three costs of the shared-memory body
+// (flash_common.cuh::flash_tile):
+//  * the products never leave registers: warp w owns query rows
+//    [16w, 16w + 16) of the tile; its scores S (16 x BK) and its
+//    accumulator O (16 x DP) are fp32 fragments of
+//    mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32, Q's A fragments are
+//    loaded once by ldmatrix and kept for every K/V tile, K feeds QK^T by
+//    ldmatrix and V feeds PV by ldmatrix.trans, and P goes from S's
+//    accumulator fragments to bf16 A fragments in registers: no score,
+//    probability or accumulator element goes to shared memory;
+//  * the softmax is per thread: a thread holds two rows of its warp's 16
+//    (groupID and groupID + 8 of the mma layout), takes their max across
+//    its quad with two shuffles (xor 1 and 2), keeps m and a partial l in
+//    registers (the quad's partials are summed once, at the end: alpha is
+//    the same on the four threads of a row) and rescales its O fragments
+//    in place; exp2 of scores scaled by scale * log2e, with the exponent
+//    taken against 0 while a row has no key yet;
+//  * K/V tiles stream through a ring of STAGES shared-memory buffers filled
+//    by 16-byte cp.async.cg copies, one commit group per tile: tiles t + 1
+//    (and t + 2) are in flight while tile t is computed, with one
+//    __syncthreads per tile; rows at or past kv_len and the padded columns
+//    [D, DP) are zero-filled by the copy itself (src-size 0).  q/k/v are
+//    read through their (b, s, h) strides.  Rows are padded to DP + 8
+//    elements, an odd number of 16-byte segments, so the 8 rows of every
+//    ldmatrix phase fall in 8 different bank groups.
+//
+// The element type is a template parameter (MmaOps), built for bf16 only.
+// PARTS switches stages off for the stage probe; every production kernel
+// takes all stages, for which each switch compiles away.
+#pragma once
+
+#include "flash_common.cuh"
+
+namespace {
+
+// The stages of the tile body.  Switched off, each computes what the
+// doctored Pallas kernel of _prof_kernel_parts.py computes in its place:
+//   kQK    the score product; off, every score of a row is q[row, 0]
+//   kScale the softmax scale; off, the exponent takes log2e alone
+//   kMax   the running max; off, m stays 0 and alpha 1
+//   kExp   the exp2; off, p = score - running max (alpha 1)
+//   kAV    the PV product and the row sum; off, the accumulator takes p of
+//          the keys below D (columns = key index) and l the sum of keys
+//          0-7, both rescaled by alpha
+enum Part : int { kQK = 1, kScale = 2, kMax = 4, kExp = 8, kAV = 16 };
+constexpr int kAllParts = kQK | kScale | kMax | kExp | kAV;
+
+// A masked-in score of a probe: the product (or q[row, 0] without one)
+// times the factor the switches leave
+template <int PARTS>
+__device__ __forceinline__ float probe_factor(float x, float scale_log2) {
+  if constexpr ((PARTS & kScale) != 0) return x * scale_log2;
+  else if constexpr ((PARTS & kExp) != 0) return x * kLog2e;
+  else return x;
+}
+
+constexpr int kRegBK = 64;  // keys per K/V tile
+
+// The bodies a plan names (ops/flash.py::BODIES)
+enum Body : int { kTileBody = 0, kRegBody = 1 };
+
+// The (DP, warps) pairs the register kernels are built for: what
+// ops/flash.py::flash_plan can choose (REG_BUILT there)
+#define CF_REG_PLANS(X) \
+  X(64, 2) X(64, 4) X(64, 8) X(80, 2) X(80, 4) X(80, 8) X(96, 2) X(96, 4) X(96, 8) \
+  X(128, 2) X(128, 4) X(128, 8)
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory; src_bytes 0 writes zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// The tensor-core operations of one element type.  bf16: m16n8k16 with
+// fp32 accumulators; an fp32 type would add its own (tf32 m16n8k8).
+template <typename T>
+struct MmaOps;
+
+template <>
+struct MmaOps<__nv_bfloat16> {
+  static constexpr int kK = 16;  // depth of one mma
+  // d += a (16 x 16, row) * b (16 x 8, col)
+  static __device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                             unsigned b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+        "{%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  // two fp32 values rounded into one A-fragment register (lo in the low half)
+  static __device__ __forceinline__ unsigned pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<unsigned*>(&v);
+  }
+  static __device__ __forceinline__ void store2(__nv_bfloat16* p, float lo, float hi) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
+  }
+  static __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+};
+
+// The ring's depth: 3 stages where two CTAs of 3 stages still share an SM,
+// else 2
+template <int DP, int NWARPS>
+struct RegLayout {
+  static constexpr int kLd = DP + 8;  // row stride in elements (bf16)
+  static constexpr int kQBytes = 16 * NWARPS * kLd * 2;
+  static constexpr int kTileBytes = kRegBK * kLd * 2;  // one K or V tile
+  static constexpr int kStages = 2 * (kQBytes + 3 * 2 * kTileBytes) <= 227 * 1024 ? 3 : 2;
+  static constexpr int kBytes = kQBytes + kStages * 2 * kTileBytes;
+};
+
+// Copy rows [row0, row0 + ROWS) of one (b, h) slice into a shared tile of
+// row stride LD with cp.async; rows at or past valid_rows and columns at or
+// past d are zero-filled.  Needs d % 8 == 0, 16-byte aligned rows.
+template <typename T, int ROWS, int DP, int LD, int NT>
+__device__ __forceinline__ void async_tile(T* dst, const T* src, long long stride_s, int row0,
+                                           int valid_rows, int d, int tid) {
+  constexpr int kChunks = DP / 8;
+#pragma unroll
+  for (int idx = tid; idx < ROWS * kChunks; idx += NT) {
+    const int r = idx / kChunks, c = (idx % kChunks) * 8, row = row0 + r;
+    const bool live = row < valid_rows && c < d;
+    cp_async16(dst + r * LD + c, live ? src + row * stride_s + c : src, live ? 16 : 0);
+  }
+}
+
+// The tile body: the query tile [q0, q0 + 16 * NWARPS) of head h, batch b
+// against the keys [0, kv_len) in tiles of kRegBK.  CARRY: the state
+// (m, l, O) of the tile starts from (after the first hop) and ends in
+// (before the last) device memory, as in flash_tile.  A row with no key
+// writes 0 and LSE -inf.  With a stage switched off (PARTS) the probe
+// passes the factor of its scores as scale_log2: scale * log2e with the
+// exponent, the plain scale without it.
+template <typename T, int DP, int NWARPS, bool CARRY, int PARTS = kAllParts>
+__device__ __forceinline__ void
+flash_reg_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, Strides sq,
+               Strides sk, Strides sv, T* __restrict__ out, float* __restrict__ lse, int kv_len,
+               int H, int Sq, int D, float scale_log2, int q0, int h, int b, Carry carry) {
+  static_assert(DP % 16 == 0 && DP <= 128, "the register body pads the head dim to 16..128");
+  static_assert(PARTS == kAllParts || !CARRY, "stage switches are for full attention");
+  using Ops = MmaOps<T>;
+  using L = RegLayout<DP, NWARPS>;
+  constexpr bool kAll = PARTS == kAllParts;
+  constexpr bool kRescale = (PARTS & kMax) != 0 && (PARTS & kExp) != 0;
+  constexpr int BK = kRegBK, BQ = 16 * NWARPS, NT = 32 * NWARPS, LD = L::kLd, STAGES = L::kStages;
+  constexpr int NS = BK / 8;  // score fragments (8 keys each) per row strip
+  constexpr int NO = DP / 8;  // accumulator fragments (8 columns each)
+  constexpr int KQ = DP / Ops::kK;  // mma steps over the head dim
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* ring = reinterpret_cast<T*>(smem + L::kQBytes);  // stage s: K at 2s, V at 2s + 1
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tig = lane % 4;  // the mma layout: row group, thread in group
+  const int r0 = warp * 16;                // this warp's rows within the tile
+  const int rowA = q0 + r0 + g, rowB = rowA + 8;  // this thread's two rows
+  const long long state_row0 = (static_cast<long long>(b) * H + h) * Sq;
+  const T* qbh = q + b * sq.b + h * sq.h;
+  const T* kbh = k + b * sk.b + h * sk.h;
+  const T* vbh = v + b * sv.b + h * sv.h;
+  const int n_tiles = (kv_len + BK - 1) / BK;
+
+  auto load_kv = [&](int t) {
+    T* Ks = ring + (t % STAGES) * 2 * BK * LD;
+    async_tile<T, BK, DP, LD, NT>(Ks, kbh, sk.s, t * BK, kv_len, D, tid);
+    async_tile<T, BK, DP, LD, NT>(Ks + BK * LD, vbh, sv.s, t * BK, kv_len, D, tid);
+  };
+  // group 0: Q and tile 0; group s: tile s
+  async_tile<T, BQ, DP, LD, NT>(Qs, qbh, sq.s, q0, Sq, D, tid);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_tiles) load_kv(s);
+    cp_async_commit();
+  }
+
+  // the state of rows A (c[0], c[1] of a fragment) and B (c[2], c[3])
+  float o[NO][4];
+  float mA = -CUDART_INF_F, mB = -CUDART_INF_F, lA = 0.f, lB = 0.f;  // l: this thread's part
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  if (CARRY && !carry.first) {
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int c = n * 8 + tig * 2;
+      if (c < D && rowA < Sq) {
+        const float2 x = *reinterpret_cast<const float2*>(carry.acc + (state_row0 + rowA) * D + c);
+        o[n][0] = x.x;
+        o[n][1] = x.y;
+      }
+      if (c < D && rowB < Sq) {
+        const float2 x = *reinterpret_cast<const float2*>(carry.acc + (state_row0 + rowB) * D + c);
+        o[n][2] = x.x;
+        o[n][3] = x.y;
+      }
+    }
+    if (rowA < Sq) {
+      mA = carry.m[state_row0 + rowA];
+      if (tig == 0) lA = carry.l[state_row0 + rowA];  // one part per quad
+    }
+    if (rowB < Sq) {
+      mB = carry.m[state_row0 + rowB];
+      if (tig == 0) lB = carry.l[state_row0 + rowB];
+    }
+  }
+
+  unsigned qf[KQ][4];  // Q's A fragments, loaded at the first tile
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BK;
+    cp_async_wait<STAGES - 2>();  // this thread's copies of tile t (and Q) landed
+    __syncthreads();  // everyone's landed; everyone is done with tile t - 1's buffer
+    if (t + STAGES - 1 < n_tiles) load_kv(t + STAGES - 1);  // into tile t - 1's buffer
+    cp_async_commit();
+    const T* Ks = ring + (t % STAGES) * 2 * BK * LD;
+    const T* Vs = Ks + BK * LD;
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KQ; ++kk) {
+        ldmatrix_x4(qf[kk], Qs + (r0 + (lane % 16)) * LD + kk * 16 + (lane / 16) * 8);
+      }
+    }
+
+    // scores of this warp's 16 rows: S = Q K^T, fp32 fragments
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    if constexpr ((PARTS & kQK) != 0) {
+#pragma unroll
+      for (int kk = 0; kk < KQ; ++kk) {
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {  // keys [16 np, 16 np + 16)
+          unsigned kf[4];
+          ldmatrix_x4(kf, Ks + (np * 16 + (lane % 8) + (lane / 16) * 8) * LD + kk * 16 +
+                              ((lane / 8) % 2) * 8);
+          Ops::mma(s[2 * np], qf[kk], kf[0], kf[1]);
+          Ops::mma(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+        }
+      }
+    } else {
+      const float qa = Ops::to_float(Qs[(r0 + g) * LD]), qb = Ops::to_float(Qs[(r0 + g + 8) * LD]);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        s[n][0] = s[n][1] = qa;
+        s[n][2] = s[n][3] = qb;
+      }
+    }
+
+    // scale, mask the keys at or past kv_len (only the last tile has any),
+    // and the running max of the two rows across the quad
+    const bool ragged = k0 + BK > kv_len;
+    float xA = -CUDART_INF_F, xB = -CUDART_INF_F;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x;
+        if constexpr (kAll) x = s[n][i] * scale_log2;
+        else x = probe_factor<PARTS>(s[n][i], scale_log2);
+        if (ragged && k0 + n * 8 + tig * 2 + (i % 2) >= kv_len) x = -CUDART_INF_F;
+        s[n][i] = x;
+      }
+      xA = fmaxf(xA, fmaxf(s[n][0], s[n][1]));
+      xB = fmaxf(xB, fmaxf(s[n][2], s[n][3]));
+    }
+    float mA_new = 0.f, mB_new = 0.f, refA = 0.f, refB = 0.f;
+    if constexpr ((PARTS & kMax) != 0) {
+      xA = fmaxf(xA, __shfl_xor_sync(0xffffffffu, xA, 1));
+      xA = fmaxf(xA, __shfl_xor_sync(0xffffffffu, xA, 2));
+      xB = fmaxf(xB, __shfl_xor_sync(0xffffffffu, xB, 1));
+      xB = fmaxf(xB, __shfl_xor_sync(0xffffffffu, xB, 2));
+      mA_new = fmaxf(mA, xA);
+      mB_new = fmaxf(mB, xB);
+      // a row with no key yet keeps m = -inf: take its exponents against 0
+      refA = mA_new == -CUDART_INF_F ? 0.f : mA_new;
+      refB = mB_new == -CUDART_INF_F ? 0.f : mB_new;
+    }
+    float alphaA = 1.f, alphaB = 1.f;
+    if constexpr (kRescale) {
+      alphaA = exp2f(mA - refA);  // 0 while m was -inf
+      alphaB = exp2f(mB - refB);
+    }
+    mA = mA_new;
+    mB = mB_new;
+    float sumA = 0.f, sumB = 0.f;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float ref = i < 2 ? refA : refB;
+        s[n][i] = (PARTS & kExp) != 0 ? exp2f(s[n][i] - ref) : s[n][i] - ref;
+      }
+      sumA += s[n][0] + s[n][1];
+      sumB += s[n][2] + s[n][3];
+    }
+    if constexpr (kRescale) {
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        o[n][0] *= alphaA;
+        o[n][1] *= alphaA;
+        o[n][2] *= alphaB;
+        o[n][3] *= alphaB;
+      }
+    }
+
+    if constexpr ((PARTS & kAV) != 0) {
+      lA = lA * alphaA + sumA;
+      lB = lB * alphaB + sumB;
+      // O += P V: P's A fragments straight from the score fragments
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {  // keys [16 kk, 16 kk + 16)
+        unsigned pf[4];
+        pf[0] = Ops::pack(s[2 * kk][0], s[2 * kk][1]);
+        pf[1] = Ops::pack(s[2 * kk][2], s[2 * kk][3]);
+        pf[2] = Ops::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        pf[3] = Ops::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+        for (int dp = 0; dp < NO / 2; ++dp) {  // columns [16 dp, 16 dp + 16)
+          unsigned vf[4];
+          ldmatrix_x4_trans(vf, Vs + (kk * 16 + (lane % 16)) * LD + dp * 16 + (lane / 16) * 8);
+          Ops::mma(o[2 * dp], pf, vf[0], vf[1]);
+          Ops::mma(o[2 * dp + 1], pf, vf[2], vf[3]);
+        }
+      }
+    } else {
+      // no PV product: the accumulator's columns below D take p of the keys
+      // of the same index, l the sum of keys 0-7
+      if (k0 == 0) {
+        lA = lA * alphaA + s[0][0] + s[0][1];
+        lB = lB * alphaB + s[0][2] + s[0][3];
+      } else {
+        lA *= alphaA;
+        lB *= alphaB;
+      }
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          if (n * 8 == k0 + j * 8 && n * 8 < D) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) o[n][i] = s[j][i];
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+
+  // the whole row sums: the quad's parts
+  lA += __shfl_xor_sync(0xffffffffu, lA, 1);
+  lA += __shfl_xor_sync(0xffffffffu, lA, 2);
+  lB += __shfl_xor_sync(0xffffffffu, lB, 1);
+  lB += __shfl_xor_sync(0xffffffffu, lB, 2);
+
+  if (CARRY && !carry.last) {  // hand this thread's rows to the next hop
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int c = n * 8 + tig * 2;
+      if (c >= D) continue;
+      if (rowA < Sq) {
+        *reinterpret_cast<float2*>(carry.acc + (state_row0 + rowA) * D + c) = make_float2(o[n][0], o[n][1]);
+      }
+      if (rowB < Sq) {
+        *reinterpret_cast<float2*>(carry.acc + (state_row0 + rowB) * D + c) = make_float2(o[n][2], o[n][3]);
+      }
+    }
+    if (tig == 0 && rowA < Sq) {
+      carry.m[state_row0 + rowA] = mA;
+      carry.l[state_row0 + rowA] = lA;
+    }
+    if (tig == 0 && rowB < Sq) {
+      carry.m[state_row0 + rowB] = mB;
+      carry.l[state_row0 + rowB] = lB;
+    }
+    return;
+  }
+  // normalise and write: out (B, Sq, H, D), lse (B, H, Sq).  A probe's l
+  // may be negative or 0 (no exponent): it divides by l, or by 1 where l is
+  // 0, and writes no LSE
+  float invA, invB;
+  if constexpr (kAll) {
+    invA = lA > 0.f ? 1.f / lA : 0.f;
+    invB = lB > 0.f ? 1.f / lB : 0.f;
+  } else {
+    invA = 1.f / (lA == 0.f ? 1.f : lA);
+    invB = 1.f / (lB == 0.f ? 1.f : lB);
+  }
+  T* outA = out + ((static_cast<long long>(b) * Sq + rowA) * H + h) * D;
+  T* outB = out + ((static_cast<long long>(b) * Sq + rowB) * H + h) * D;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    const int c = n * 8 + tig * 2;
+    if (c >= D) continue;
+    if (rowA < Sq) Ops::store2(outA + c, o[n][0] * invA, o[n][1] * invA);
+    if (rowB < Sq) Ops::store2(outB + c, o[n][2] * invB, o[n][3] * invB);
+  }
+  if (kAll && tig == 0) {
+    if (rowA < Sq) lse[state_row0 + rowA] = lA > 0.f ? (mA + log2f(lA)) * kLn2 : -CUDART_INF_F;
+    if (rowB < Sq) lse[state_row0 + rowB] = lB > 0.f ? (mB + log2f(lB)) * kLn2 : -CUDART_INF_F;
+  }
+}
+
+}  // namespace

@@ -1,14 +1,16 @@
 // Profiling probes of the flash kernel (kernel 1, csrc/flash_attn.cu):
 //
-//  * flash_parts_kernel<PARTS>: kernel 1's grid, block and shared-memory
-//    layout around the shared tile body (flash_common.cuh) with stages
-//    switched off, one instantiation per stage mask.  Replaces the doctored
-//    copies of the single-block Pallas flash kernel in
-//    _prof_kernel_parts.py::build (pallas_call at _prof_kernel_parts.py:69,
-//    kernel at :28-65).  The full mask is the production body itself.
+//  * flash_parts_kernel<PARTS>: kernel 1's register body (flash_reg.cuh),
+//    grid, block and shared-memory ring at the self-attention shape's plan
+//    (DP 80, kProbeWarps warps) with stages switched off, one instantiation
+//    per stage mask.  Replaces the doctored copies of the single-block
+//    Pallas flash kernel in _prof_kernel_parts.py::build (pallas_call at
+//    _prof_kernel_parts.py:69, kernel at :28-65).  The full mask is the
+//    production body itself.
 //  * dma_only_kernel: the same grid and shared memory, the Q tile and every
-//    K/V tile load of the real loop, no S^2 work; it writes q + k + v of the
-//    CTA's own rows (the `dma_only` variant of the same script).
+//    K/V tile through the body's cp.async ring, no S^2 work; it writes
+//    q + k + v of the CTA's own rows (the `dma_only` variant of the same
+//    script).
 //  * plumb_kernel: reads q, k and v once through their (b, s, h) strides and
 //    writes (q + k) + v contiguous: what attention must move, none of its
 //    math.  Replaces _prof2_dbg.py::_plumb (pallas_call at _prof2_dbg.py:75).
@@ -21,12 +23,16 @@
 //
 // bf16 sums round after each add, (q + k) + v, as the Pallas kernels do.
 
-#include "flash_common.cuh"
+#include "flash_reg.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;
-constexpr int kTile = 16 * kWarps;  // query rows and keys per tile: kernel 1's 64x64 tiles
+constexpr int kTile = 16 * kWarps;  // plumb's rows per CTA
+// kernel 1's plan at B2 H16 S1024 d72 (ops/flash.py::flash_plan), which the
+// stage probe runs
+constexpr int kProbeDP = 80;
+constexpr int kProbeWarps = 8;
 
 __device__ inline __nv_bfloat16 add3(__nv_bfloat16 a, __nv_bfloat16 b, __nv_bfloat16 c) {
   const __nv_bfloat16 ab = __float2bfloat16(__bfloat162float(a) + __bfloat162float(b));
@@ -34,46 +40,61 @@ __device__ inline __nv_bfloat16 add3(__nv_bfloat16 a, __nv_bfloat16 b, __nv_bflo
 }
 
 template <int PARTS>
-__global__ void __launch_bounds__(32 * kWarps)
+__global__ void __launch_bounds__(32 * kProbeWarps)
 flash_parts_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v, Strides sq, Strides sk, Strides sv,
                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int H, int S, int D,
                    float scale_log2) {
-  flash_tile<kWarps, kTile, false, false, PARTS>(q, k, v, sq, sk, sv, out, lse, S, H, S, S, D,
-                                                 scale_log2, 0, blockIdx.x * kTile, blockIdx.y,
-                                                 blockIdx.z, Carry{});
+  flash_reg_tile<__nv_bfloat16, kProbeDP, kProbeWarps, false, PARTS>(
+      q, k, v, sq, sk, sv, out, lse, S, H, S, D, scale_log2, blockIdx.x * 16 * kProbeWarps,
+      blockIdx.y, blockIdx.z, Carry{});
 }
 
-__global__ void __launch_bounds__(32 * kWarps)
+__global__ void __launch_bounds__(32 * kProbeWarps)
 dma_only_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v, Strides sq, Strides sk, Strides sv,
                 __nv_bfloat16* __restrict__ out, int H, int S, int D) {
-  constexpr int NT = 32 * kWarps;
+  using T = __nv_bfloat16;
+  using L = RegLayout<kProbeDP, kProbeWarps>;
+  constexpr int BK = kRegBK, BQ = 16 * kProbeWarps, NT = 32 * kProbeWarps, LD = L::kLd;
+  constexpr int STAGES = L::kStages;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = make_layout(D, kTile, kTile);
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + L.off_q);
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + L.off_k);
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + L.off_v);
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* ring = reinterpret_cast<T*>(smem + L::kQBytes);
   const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const __nv_bfloat16* kbh = k + b * sk.b + h * sk.h;
-  const __nv_bfloat16* vbh = v + b * sv.b + h * sv.h;
-
-  load_tile(Qs, L.ld_in, q + b * sq.b + h * sq.h, sq.s, q0, kTile, S, D, L.dp, tid, NT);
-  const int own = q0 / kTile;  // the KV tile that holds this CTA's own rows
-  for (int t = 0; t < (S + kTile - 1) / kTile; ++t) {
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const T* kbh = k + b * sk.b + h * sk.h;
+  const T* vbh = v + b * sv.b + h * sv.h;
+  const int n_tiles = (S + BK - 1) / BK;
+  auto load_kv = [&](int t) {
+    T* Ks = ring + (t % STAGES) * 2 * BK * LD;
+    async_tile<T, BK, kProbeDP, LD, NT>(Ks, kbh, sk.s, t * BK, S, D, tid);
+    async_tile<T, BK, kProbeDP, LD, NT>(Ks + BK * LD, vbh, sv.s, t * BK, S, D, tid);
+  };
+  // the loads of flash_reg_tile: Q and the K/V tiles through the same ring
+  async_tile<T, BQ, kProbeDP, LD, NT>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S, D, tid);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_tiles) load_kv(s);
+    cp_async_commit();
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BK;
+    cp_async_wait<STAGES - 2>();
     __syncthreads();
-    load_tile(Ks, L.ld_in, kbh, sk.s, t * kTile, kTile, S, D, L.dp, tid, NT);
-    load_tile(Vs, L.ld_in, vbh, sv.s, t * kTile, kTile, S, D, L.dp, tid, NT);
-    __syncthreads();
-    if (t != own) continue;
-    for (int i = tid; i < kTile * D; i += NT) {
-      const int r = i / D, c = i % D, row = q0 + r;
-      if (row >= S) break;
-      const int at = r * L.ld_in + c;
-      out[((static_cast<long long>(b) * S + row) * H + h) * D + c] = add3(Qs[at], Ks[at], Vs[at]);
+    if (t + STAGES - 1 < n_tiles) load_kv(t + STAGES - 1);
+    cp_async_commit();
+    const T* Ks = ring + (t % STAGES) * 2 * BK * LD;
+    const T* Vs = Ks + BK * LD;
+    // the CTA's own rows that this K/V tile holds
+    const int lo = max(k0, q0), hi = min(min(k0 + BK, q0 + BQ), S);
+    for (int i = tid; i < (hi - lo) * D; i += NT) {
+      const int row = lo + i / D, c = i % D;
+      out[((static_cast<long long>(b) * S + row) * H + h) * D + c] =
+          add3(Qs[(row - q0) * LD + c], Ks[(row - k0) * LD + c], Vs[(row - k0) * LD + c]);
     }
   }
+  cp_async_wait<0>();
 }
 
 __global__ void __launch_bounds__(32 * kWarps)
@@ -103,42 +124,43 @@ template <int PARTS>
 int launch_parts(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                  Strides sq, Strides sk, Strides sv, __nv_bfloat16* out, float* lse, int B,
                  int S, int H, int D, float scale, cudaStream_t stream) {
-  const Layout L = make_layout(D, kTile, kTile);
-  const dim3 grid((S + kTile - 1) / kTile, H, B);
+  constexpr int BQ = 16 * kProbeWarps, BYTES = RegLayout<kProbeDP, kProbeWarps>::kBytes;
+  const dim3 grid((S + BQ - 1) / BQ, H, B);
   cudaError_t e;
   if constexpr (PARTS == 0) {
-    e = cudaFuncSetAttribute(dma_only_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
+    e = cudaFuncSetAttribute(dma_only_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
     if (e != cudaSuccess) return static_cast<int>(e);
-    dma_only_kernel<<<grid, 32 * kWarps, L.bytes, stream>>>(q, k, v, sq, sk, sv, out, H, S, D);
+    dma_only_kernel<<<grid, 32 * kProbeWarps, BYTES, stream>>>(q, k, v, sq, sk, sv, out, H, S, D);
   } else {
     e = cudaFuncSetAttribute(flash_parts_kernel<PARTS>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
     if (e != cudaSuccess) return static_cast<int>(e);
     // the factor of a score: kernel 1's scale * log2e with the exponent,
     // the plain scale without it
     const float factor = (PARTS & kExp) != 0 ? scale * kLog2e : scale;
-    flash_parts_kernel<PARTS><<<grid, 32 * kWarps, L.bytes, stream>>>(q, k, v, sq, sk, sv, out,
-                                                                      lse, H, S, D, factor);
+    flash_parts_kernel<PARTS><<<grid, 32 * kProbeWarps, BYTES, stream>>>(q, k, v, sq, sk, sv, out,
+                                                                         lse, H, S, D, factor);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Self-attention over S keys (Sq == Sk == S, S % 64 == 0, D % 8 == 0 and the
-// 64x64 layout within 200 KB) with the stages of `parts` (a Part mask; 0 is
-// dma_only); out (B, S, H, D) contiguous, lse (B, H, S) written only with
-// every stage on.  Only the masks of the probe's variants are built.
+// Self-attention over S keys (Sq == Sk == S, S % 64 == 0, D % 8 == 0) with
+// the stages of `parts` (a Part mask; 0 is dma_only) on the register body
+// at the plan (dp, warps), which must be the probe's (80, kProbeWarps);
+// out (B, S, H, D) contiguous, lse (B, H, S) written only with every stage
+// on.  Only the masks of the probe's variants are built.
 extern "C" int cf_flash_parts_bf16(const void* q, const void* k, const void* v,
                                    long long qsb, long long qss, long long qsh,
                                    long long ksb, long long kss, long long ksh,
                                    long long vsb, long long vss, long long vsh,
                                    void* out, void* lse, int B, int S, int H, int D, float scale,
-                                   int parts, void* stream) {
-  if (B == 0 || S == 0 || H == 0) return 0;
-  if (S % kTile || D % 8 || make_layout(D, kTile, kTile).bytes > 200 * 1024) {
+                                   int parts, int dp, int warps, void* stream) {
+  if (S % kRegBK || D % 8 || D > dp || dp != kProbeDP || warps != kProbeWarps) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (B == 0 || S == 0 || H == 0) return 0;
   const Strides sq{qsb, qss, qsh}, sk{ksb, kss, ksh}, sv{vsb, vss, vsh};
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const __nv_bfloat16*>(k);

@@ -21,9 +21,12 @@
 // stack (read and write Sk*d fp32 per head and K/V: memory).
 //
 // Design:
-//  * ring_flash_hop_kernel is flash_attn.cu's tile body with CARRY: one CTA
-//    per (q-tile, head, batch), the state of its rows loaded before and
-//    stored after the K/V loop;
+//  * kernel 7 is kernel 1's body with CARRY: one CTA per (q-tile, head,
+//    batch), the state of its rows loaded before and stored after the K/V
+//    loop.  Head dims up to 128 take the register body (flash_reg.cuh,
+//    ring_flash_hop_reg_kernel) with the tile height ops/flash.py::flash_plan
+//    picks (at ring 8, Sq = 128, shorter tiles fill the card), wider ones
+//    the shared-memory body (ring_flash_hop_kernel);
 //  * compact_ring_hop_kernel gives one CTA a whole (b, h): with residual 1
 //    the reconstruction IS the new base of slot src, so a CTA that wrote
 //    the slot in place while another CTA of the same (b, h) still read it
@@ -46,9 +49,20 @@
 //    int8 decode q * scale is exact too.  The explicit _rn intrinsics keep
 //    the remaining rounding steps as the plain twin takes them.
 
-#include "flash_common.cuh"
+#include "flash_reg.cuh"
 
 namespace {
+
+template <int DP, int NWARPS>
+__global__ void __launch_bounds__(32 * NWARPS)
+ring_flash_hop_reg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v, Strides sq, Strides sk, Strides sv,
+                          __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int H, int Sq,
+                          int Sk, int D, float scale_log2, Carry carry) {
+  flash_reg_tile<__nv_bfloat16, DP, NWARPS, true>(q, k, v, sq, sk, sv, out, lse, Sk, H, Sq, D,
+                                                  scale_log2, blockIdx.x * 16 * NWARPS, blockIdx.y,
+                                                  blockIdx.z, carry);
+}
 
 template <int NWARPS, int BK>
 __global__ void __launch_bounds__(32 * NWARPS)
@@ -209,6 +223,19 @@ int launch_ring_hop(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_b
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DP, int NWARPS>
+int launch_ring_hop_reg(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                        Strides sq, Strides sk, Strides sv, __nv_bfloat16* out, float* lse, int B,
+                        int Sq, int Sk, int H, int D, float scale_log2, Carry carry,
+                        cudaStream_t stream) {
+  constexpr int BQ = 16 * NWARPS, BYTES = RegLayout<DP, NWARPS>::kBytes;
+  if (int e = set_smem(ring_flash_hop_reg_kernel<DP, NWARPS>, BYTES)) return e;
+  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  ring_flash_hop_reg_kernel<DP, NWARPS><<<grid, 32 * NWARPS, BYTES, stream>>>(
+      q, k, v, sq, sk, sv, out, lse, H, Sq, Sk, D, scale_log2, carry);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int NWARPS, int BK>
 int launch_compact_hop(const CringArgs& a, cudaStream_t stream) {
   const int bytes = make_layout(a.D, 16 * NWARPS, BK).bytes + 2 * a.D * 4;
@@ -221,14 +248,20 @@ int launch_compact_hop(const CringArgs& a, cudaStream_t stream) {
 }  // namespace
 
 // One hop of the uncompressed ring: q (B, Sq, H, D) against this hop's
-// k/v (B, Sk, H, D), folded into the state m, l (B, H, Sq), acc (B, H, Sq, D).
+// k/v (B, Sk, H, D), folded into the state m, l (B, H, Sq), acc (B, H, Sq, D),
+// with the plan (body, dp, warps) of ops/flash.py::flash_plan: the register
+// body at a built (dp, warps) with D <= dp, or the shared-memory body with
+// dp = D rounded up to 16 and 4 or 2 warps; anything else is an error.
 extern "C" int cf_ring_flash_hop_bf16(const void* q, const void* k, const void* v,
                                       long long qsb, long long qss, long long qsh,
                                       long long ksb, long long kss, long long ksh,
                                       long long vsb, long long vss, long long vsh,
                                       void* m, void* l, void* acc, void* out, void* lse,
                                       int B, int Sq, int Sk, int H, int D, float scale,
-                                      int first, int last, void* stream) {
+                                      int first, int last, int body, int dp, int warps,
+                                      void* stream) {
+  const cudaError_t refused = cudaErrorInvalidValue;
+  if (D % 8 != 0 || D > dp) return static_cast<int>(refused);
   if (B == 0 || Sq == 0 || H == 0) return 0;
   const Carry carry{static_cast<float*>(m), static_cast<float*>(l), static_cast<float*>(acc),
                     first, last};
@@ -240,13 +273,24 @@ extern "C" int cf_ring_flash_hop_bf16(const void* q, const void* k, const void* 
   const Strides sq{qsb, qss, qsh}, sk{ksb, kss, ksh}, sv{vsb, vss, vsh};
   const auto st = static_cast<cudaStream_t>(stream);
   const float sl2 = scale * kLog2e;
-  if (make_layout(D, 64, 64).bytes <= 200 * 1024) {
+  if (body == kRegBody) {
+#define CF_REG_CASE(DPV, W)                                                                      \
+  if (dp == DPV && warps == W) {                                                                  \
+    return launch_ring_hop_reg<DPV, W>(qp, kp, vp, sq, sk, sv, op, lp, B, Sq, Sk, H, D, sl2, carry, \
+                                       st);                                                       \
+  }
+    CF_REG_PLANS(CF_REG_CASE)
+#undef CF_REG_CASE
+    return static_cast<int>(refused);
+  }
+  if (body != kTileBody || dp != round_up(D, 16)) return static_cast<int>(refused);
+  if (warps == 4) {
     return launch_ring_hop<4, 64>(qp, kp, vp, sq, sk, sv, op, lp, B, Sq, Sk, H, D, sl2, carry, st);
   }
-  if (make_layout(D, 32, 32).bytes <= 227 * 1024) {
+  if (warps == 2) {
     return launch_ring_hop<2, 32>(qp, kp, vp, sq, sk, sv, op, lp, B, Sq, Sk, H, D, sl2, carry, st);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(refused);
 }
 
 // One hop of the compressed ring.  pk/pv: per-head packed codes (null for

@@ -118,6 +118,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         P, P, P,          # out (B,Sq,H,D) contiguous, lse (B,H,Sq), kv_lens or NULL
         I, I, I, I, I,    # B, Sq, Sk, H, D
         F,                # softmax scale
+        I, I, I,          # plan: body, padded head dim, warps per CTA (ops/flash.py)
         P,                # stream
     ]
     lib.cf_flash_attn_bf16.restype = I
@@ -130,6 +131,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         I, I, I, I,       # B, S, H, D
         I,                # window
         F,                # softmax scale
+        I, I, I,          # plan: body, padded head dim, warps per CTA
         P,                # stream
     ]
     lib.cf_flash_attn_window_bf16.restype = I
@@ -159,6 +161,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         I, I, I, I, I,    # B, Sq, Sk, H, D
         F,                # softmax scale
         I, I,             # first hop, last hop
+        I, I, I,          # plan: body, padded head dim, warps per CTA
         P,                # stream
     ]
     lib.cf_ring_flash_hop_bf16.restype = I
@@ -190,6 +193,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         I, I, I, I,       # B, S, H, D
         F,                # softmax scale
         I,                # stage mask (0: dma_only)
+        I, I,             # padded head dim, warps per CTA (the probe's plan)
         P,                # stream
     ]
     lib.cf_flash_parts_bf16.restype = I

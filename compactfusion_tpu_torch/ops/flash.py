@@ -4,7 +4,11 @@ Counterpart of ``compactfusion_tpu/ops/flash_pallas.py::flash_attn_with_lse``:
 the main branch (:func:`flash_attn_with_lse`) and the ``window=`` branch
 (:func:`flash_attn_window_with_lse`, banded attention for DiTFastAttn).  The
 kernels are in ``csrc/flash_attn.cu``.  On a CUDA tensor a wrapper launches
-its kernel or raises; on a CPU tensor it runs its twin.  The TPU tuning flags
+its kernel or raises; on a CPU tensor it runs its twin.
+
+Which body, padded head dim and tile height a launch takes is decided here,
+before the launch, by :func:`flash_plan` (so the CPU tests see it), and the C
+entry points launch exactly that or return an error.  The TPU tuning flags
 of the Pallas wrapper (``fuse_sum``, ``heads_per``, ``bhsd_io``,
 ``score_bf16``, ``fold_scale``, ``exp_bf16``, ``block_q``/``block_k``) are
 not part of this API.
@@ -13,9 +17,69 @@ not part of this API.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
+
+#: the tile bodies a plan names, numbered as the C entry points take them:
+#: ``flash_common.cuh::flash_tile`` (shared-memory scores and accumulator)
+#: and ``flash_reg.cuh::flash_reg_tile`` (register fragments)
+BODIES = {"flash_tile": 0, "flash_reg_tile": 1}
+#: padded head dims of the register body
+REG_DPS = (64, 80, 96, 128)
+#: warps per CTA of the register body (16 query rows each), tried in this
+#: order until a launch has MIN_CTAS CTAs; the last is taken regardless
+REG_WARPS = (8, 4, 2)
+#: the grid a register-body launch must reach where a tile height allows it
+#: (about one CTA per SM of the 132)
+MIN_CTAS = 128
+#: (dp, warps) the register kernels are built for: ``CF_REG_PLANS`` in
+#: ``csrc/flash_reg.cuh``, which lists every plan and nothing else
+REG_BUILT = frozenset((dp, w) for dp in REG_DPS for w in REG_WARPS)
+#: widest padded head dim ``flash_tile`` takes in 64x64 tiles (4 warps);
+#: wider heads take 32x32 tiles (2 warps).  ``flash_common.cuh::make_layout``
+#: owns the shared memory: 64x64 tiles stay under 200 KB up to DP 256, and
+#: a plan whose layout the card cannot hold fails at its launch
+TILE_64_MAX_DP = 256
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def flash_plan(b: int, h: int, sq: int, d: int, band: bool = False) -> Tuple[str, int, int]:
+    """(body, padded head dim, warps per CTA) of a flash launch of ``b``
+    batches, ``h`` heads and ``sq`` queries of head dim ``d``.
+
+    Full attention up to d = 128 (kernel 1, and kernel 7 by the same rule)
+    takes the register body at the smallest of :data:`REG_DPS` that holds
+    d rounded up to 16 (d=72 -> 80), with the tallest tile of
+    :data:`REG_WARPS` that still gives :data:`MIN_CTAS` CTAs: 128-row tiles
+    (8 warps) for PixArt's self-attention (256 CTAs; 8% faster than 4 warps
+    on an H100) and a ring-2 hop at B2 (128), 64 rows at B1, 32 rows for a
+    ring-8 hop or chunk (Sq = 128: 128 CTAs).  At Sq = 128 the CTA floor
+    keeps a tile height that measured slower: 4 warps (64 CTAs) were 9%
+    faster for a ring-8 hop of kernel 7 and 23% for kernel 1's chunk
+    (``PERF.md`` §6; ROADMAP Queue 2 #1).  Banded attention (kernel 4)
+    and wider heads (the VAE's d=512) take ``flash_tile``: 64x64 tiles up
+    to :data:`TILE_64_MAX_DP`, 32x32 tiles on 2 warps above."""
+    if d % 8:
+        raise ValueError(f"flash kernel: head dim must be a multiple of 8, got {d}")
+    if not band and d <= REG_DPS[-1]:
+        dp = next(p for p in REG_DPS if p >= _round_up(d, 16))
+        for warps in REG_WARPS:
+            if b * h * math.ceil(sq / (16 * warps)) >= MIN_CTAS:
+                break
+        return "flash_reg_tile", dp, warps
+    dp = _round_up(d, 16)
+    return "flash_tile", dp, 4 if dp <= TILE_64_MAX_DP else 2
+
+
+def plan_args(plan: Tuple[str, int, int]) -> Tuple[int, int, int]:
+    """A plan as the C entry points take it: (body id, dp, warps)."""
+    body, dp, warps = plan
+    return BODIES[body], dp, warps
 
 
 def flash_attn_with_lse_ref(
@@ -48,18 +112,29 @@ def _check_bshd(name: str, t: torch.Tensor, d: int) -> None:
         )
 
 
-def _check_qkv(q, k, v) -> None:
-    """The kernels' shared contract: bf16 (B, S, H, D) views on one device,
-    d % 8 == 0, k and v of one shape that matches q in B, H and D."""
+def _check_q(q) -> None:
+    if q.shape[-1] % 8:
+        raise ValueError(f"flash kernel: head dim must be a multiple of 8, got {q.shape[-1]}")
+    _check_bshd("q", q, q.shape[-1])
+
+
+def _check_kv(q, k, v) -> None:
+    """k and v against a checked q: bf16 (B, S, H, D) views on q's device,
+    of one shape that matches q in B, H and D."""
     b, _, h, d = q.shape
-    if d % 8:
-        raise ValueError(f"flash kernel: head dim must be a multiple of 8, got {d}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("k", k), ("v", v)):
         _check_bshd(name, t, d)
         if t.device != q.device:
             raise ValueError(f"flash kernel: {name} is on {t.device}, q on {q.device}")
     if k.shape != (b, k.shape[1], h, d) or v.shape != k.shape:
         raise ValueError(f"flash kernel: k/v shapes {tuple(k.shape)}/{tuple(v.shape)} vs q {tuple(q.shape)}")
+
+
+def _check_qkv(q, k, v) -> None:
+    """The kernels' shared contract: bf16 (B, S, H, D) views on one device,
+    d % 8 == 0, k and v of one shape that matches q in B, H and D."""
+    _check_q(q)
+    _check_kv(q, k, v)
 
 
 def flash_attn_with_lse(
@@ -102,7 +177,7 @@ def flash_attn_with_lse(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         out.data_ptr(), lse.data_ptr(), lens_ptr,
-        b, sq, sk, h, d, ctypes.c_float(scale),
+        b, sq, sk, h, d, ctypes.c_float(scale), *plan_args(flash_plan(b, h, sq, d)),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, "flash_attn_with_lse")
@@ -169,6 +244,7 @@ def flash_attn_window_with_lse(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         out.data_ptr(), lse.data_ptr(),
         b, s, h, d, min(int(window), s), ctypes.c_float(scale),
+        *plan_args(flash_plan(b, h, s, d, band=True)),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, "flash_attn_window_with_lse")

@@ -4,7 +4,9 @@ Counterparts of the two Pallas probes of the JAX repo's root scripts:
 
 * :func:`flash_parts` — kernel 1's tile body with stages switched off
   (``_prof_kernel_parts.py::kernel``/``build``), and ``dma_only``, the loads
-  of kernel 1's loop with no S^2 work.  ``parts`` names the stages that stay
+  of kernel 1's loop with no S^2 work.  Both run kernel 1's plan at the
+  self-attention shape (:data:`PLAN`: the register body, DP 80), whatever
+  the shape they are given.  ``parts`` names the stages that stay
   on, as ``build(parts)`` does: ``qk``, ``scale``, ``max``, ``exp``, ``av``.
 * :func:`plumb` — q + k + v through the attention layout, none of its math
   (``_prof2_dbg.py::_plumb``).
@@ -32,7 +34,7 @@ from typing import Iterable
 
 import torch
 
-from compactfusion_tpu_torch.ops.flash import _check_qkv
+from compactfusion_tpu_torch.ops.flash import _check_qkv, flash_plan
 
 STAGES = ("qk", "scale", "max", "exp", "av")
 _BITS = {"qk": 1, "scale": 2, "max": 4, "exp": 8, "av": 16}
@@ -40,6 +42,9 @@ _BITS = {"qk": 1, "scale": 2, "max": 4, "exp": 8, "av": 16}
 _BUILT = frozenset((31, 0, 31 & ~2, 31 & ~4, 31 & ~8, 31 & ~1, 31 & ~16, 1 | 16))
 #: kernel 1's KV tile: the online max of the probes moves once per tile
 TILE = 64
+#: the plan the probe kernels are built for (``csrc/probes.cu``): kernel 1's
+#: at B2 H16 S1024 d72
+PLAN = flash_plan(2, 16, 1024, 72)
 
 
 def stage_mask(parts: Iterable[str]) -> int:
@@ -102,8 +107,9 @@ def flash_parts_ref(q, k, v, parts, return_l: bool = False):
 def flash_parts(q, k, v, parts) -> torch.Tensor:
     """Self-attention through kernel 1's tile body with only the stages in
     ``parts`` on (``STAGES`` all on: kernel 1 itself; none: ``dma_only``).
-    q/k/v (B, S, H, D) bf16 views (kernel 1's contract), S % 64 == 0; the
-    variants without ``av`` need S >= D.  The softmax scale is D^-0.5, as
+    q/k/v (B, S, H, D) bf16 views (kernel 1's contract), S % 64 == 0 and
+    D <= 80 (:data:`PLAN`'s padded head dim); the variants without ``av``
+    need S >= D.  The softmax scale is D^-0.5, as
     in the pipeline.  Returns out (B, S, H, D)."""
     mask = stage_mask(parts)
     if k.shape != q.shape or v.shape != q.shape:
@@ -126,7 +132,7 @@ def flash_parts(q, k, v, parts) -> torch.Tensor:
     status = lib.cf_flash_parts_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        out.data_ptr(), lse.data_ptr(), b, s, h, d, ctypes.c_float(d**-0.5), mask,
+        out.data_ptr(), lse.data_ptr(), b, s, h, d, ctypes.c_float(d**-0.5), mask, *PLAN[1:],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, "flash_parts")

@@ -64,16 +64,22 @@ def ring_flash_attn_with_lse(q: torch.Tensor, kv_blocks: Iterable, ring_size: in
     """Non-causal attention of the local queries q (B, Sq, H, D) over the
     ring's K/V blocks -> (out (B, Sq, H, D) q.dtype, lse (B, H, Sq) fp32).
     ``kv_blocks`` yields ``ring_size`` pairs (k, v), each (B, Sk, H, D),
-    the local shard first.  A row with no key gives 0 and LSE -inf."""
+    the local shard first.  A row with no key gives 0 and LSE -inf.
+
+    On CUDA tensors: one launch per hop with ``ops.flash.flash_plan``'s
+    plan; q and the state are checked once per call, each hop's k/v as it
+    comes."""
     if not q.is_cuda:
         return ring_flash_attn_with_lse_ref(q, kv_blocks, ring_size, scale)
 
     from compactfusion_tpu_torch.ops import _build
-    from compactfusion_tpu_torch.ops.flash import _check_qkv
+    from compactfusion_tpu_torch.ops.flash import _check_kv, _check_q, flash_plan, plan_args
 
+    _check_q(q)
     b, sq, h, d = q.shape
     if scale is None:
         scale = d**-0.5
+    plan = plan_args(flash_plan(b, h, sq, d))
     m = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     acc = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
@@ -81,17 +87,18 @@ def ring_flash_attn_with_lse(q: torch.Tensor, kv_blocks: Iterable, ring_size: in
     lse = torch.empty_like(m)
     lib = _build.load()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    fixed = (q.data_ptr(), *q.stride()[:3])
+    state = (m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(), lse.data_ptr())
+    c_scale = ctypes.c_float(scale)
     hops = 0
     for k, v in kv_blocks:
         if hops >= ring_size:
             raise ValueError(f"ring of {ring_size} got more hops")
-        _check_qkv(q, k, v)
+        _check_kv(q, k, v)
         status = lib.cf_ring_flash_hop_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            b, sq, k.shape[1], h, d, ctypes.c_float(scale),
-            int(hops == 0), int(hops == ring_size - 1), stream,
+            fixed[0], k.data_ptr(), v.data_ptr(), *fixed[1:], *k.stride()[:3], *v.stride()[:3],
+            *state, b, sq, k.shape[1], h, d, c_scale,
+            int(hops == 0), int(hops == ring_size - 1), *plan, stream,
         )
         _build.check(status, "ring_flash_attn_with_lse")
         ring_flash_attn_with_lse.launches += 1

@@ -2,9 +2,9 @@
 
 Counterpart of the JAX repo's ``_prof_kernel_parts.py`` (the Pallas flash
 kernel with stages removed, at PixArt-alpha 512's self-attention shape).
-Each variant runs kernel 1's grid, block and shared-memory layout
-(``ops.probes.flash_parts``, ``csrc/probes.cu``) with the stages it names
-on; its delta against ``full`` is what the missing stage costs:
+Each variant runs kernel 1's register body, grid, block and shared-memory
+ring (``ops.probes.flash_parts``, ``csrc/probes.cu``) with the stages it
+names on; its delta against ``full`` is what the missing stage costs:
 
 * ``full`` — every stage (kernel 1's body, bit-equal to ``real``);
 * ``dma_only`` — the Q tile and every K/V tile load, no S^2 work;

@@ -13,8 +13,6 @@ from typing import NamedTuple
 
 import torch
 
-from compactfusion_tpu_torch import ROADMAP_HINT
-
 
 class DDPMSchedule(NamedTuple):
     timesteps: torch.Tensor  # (N,) int32, descending
@@ -49,7 +47,7 @@ def ddpm_schedule(num_steps: int, num_train_timesteps: int = 1000, beta_start: f
         timesteps = torch.linspace(0.0, num_train_timesteps - 1, num_steps + 1,
                                    dtype=torch.float32).round().flip(0)[:-1].to(torch.int32)
     else:
-        raise NotImplementedError(f"timestep_spacing {timestep_spacing!r}: {ROADMAP_HINT}")
+        raise ValueError(f"unknown timestep spacing {timestep_spacing}")
 
     final = torch.tensor(1.0) if set_alpha_to_one else alphas_cumprod[0]
     return DDPMSchedule(timesteps, alphas_cumprod, final)

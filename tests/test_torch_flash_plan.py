@@ -1,0 +1,175 @@
+"""The flash kernels' routing (``ops/flash.py::flash_plan``), decided on the
+host before a launch, and the build comparison's filter
+(``tools/compare_kernel_builds.py``); both pure Python, no card."""
+
+import importlib.util
+import math
+import re
+from pathlib import Path
+
+import pytest
+
+from compactfusion_tpu_torch.ops import flash, probes
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _compare_tool():
+    spec = importlib.util.spec_from_file_location("compare_kernel_builds",
+                                                  REPO / "tools" / "compare_kernel_builds.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _ctas(plan, b, h, sq):
+    return b * h * math.ceil(sq / (16 * plan[2]))
+
+
+def test_self_attention_takes_the_register_body_at_dp_80():
+    """128-row tiles (256 CTAs): 8 % faster than 64-row tiles on an H100."""
+    plan = flash.flash_plan(2, 16, 1024, 72)
+    assert plan == ("flash_reg_tile", 80, 8) and _ctas(plan, 2, 16, 1024) == 256
+    assert plan == probes.PLAN  # the stage probe runs kernel 1's plan
+
+
+def test_ring_8_chunk_fills_the_card():
+    """Kernel 1 at the ring-8 chunk (B2 Sq128 against Sk1024) and kernel 7's
+    ring-8 hop, one rule: 32-row tiles, 128 CTAs where 64-row tiles give 64."""
+    plan = flash.flash_plan(2, 16, 128, 72)
+    assert plan == ("flash_reg_tile", 80, 2) and _ctas(plan, 2, 16, 128) == 128
+    # the shortest tile of a plan is 32 rows, however small the grid
+    assert flash.flash_plan(1, 16, 128, 72) == ("flash_reg_tile", 80, 2)
+
+
+@pytest.mark.parametrize("b,warps", [(2, 8), (1, 4)])
+def test_ring_2_takes_the_tallest_tile_with_128_ctas(b, warps):
+    plan = flash.flash_plan(b, 16, 512, 72)
+    assert plan == ("flash_reg_tile", 80, warps) and _ctas(plan, b, 16, 512) == 128
+
+
+@pytest.mark.parametrize("d,dp", [(8, 64), (64, 64), (72, 80), (80, 80), (88, 96), (96, 96),
+                                  (104, 128), (120, 128), (128, 128)])
+def test_head_dims_up_to_128_take_the_smallest_padded_dim(d, dp):
+    body, got, warps = flash.flash_plan(2, 16, 1024, d)
+    assert (body, got) == ("flash_reg_tile", dp) and (got, warps) in flash.REG_BUILT
+
+
+@pytest.mark.parametrize("d,warps", [(136, 4), (256, 4), (264, 2), (512, 2)])
+def test_wide_heads_keep_the_shared_memory_body(d, warps):
+    """d=512 is the VAE's mid-block attention: 32x32 tiles on 2 warps, as
+    before; 64x64 tiles up to a padded head dim of 256."""
+    assert flash.flash_plan(1, 1, 4096, d) == ("flash_tile", -(-d // 16) * 16, warps)
+
+
+@pytest.mark.parametrize("d", [64, 72, 512])
+def test_banded_attention_keeps_the_shared_memory_body(d):
+    body, dp, warps = flash.flash_plan(2, 16, 1024, d, band=True)
+    assert body == "flash_tile" and dp == -(-d // 16) * 16 and warps == (2 if d == 512 else 4)
+
+
+def test_plans_the_kernels_do_not_take_raise():
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash.flash_plan(1, 1, 64, 60)
+
+
+def _c_layout_bytes(d, bq, bk):
+    """``flash_common.cuh::make_layout(d, bq, bk).bytes``, run from the C
+    source: its statements are also Python once ``L.`` is a name prefix."""
+    src = (REPO / "compactfusion_tpu_torch" / "csrc" / "flash_common.cuh").read_text()
+    body = src[src.index("inline Layout make_layout("):].split("{", 1)[1].split("\n}", 1)[0]
+    env = {"d": d, "bq": bq, "bk": bk, "round_up": lambda x, m: -(-x // m) * m,
+           "align128": lambda x: (x + 127) & ~127}
+    for stmt in body.replace("L.", "L_").split(";"):
+        stmt = stmt.strip().removeprefix("int ")
+        if "=" in stmt:
+            exec(stmt, env)
+    return env["L_bytes"]
+
+
+def test_tile_64_max_dp_follows_the_c_layout():
+    """``TILE_64_MAX_DP`` is the widest padded head dim whose 64x64 layout
+    stays under 200 KB, and the VAE's d=512 fits the card in 32x32 tiles."""
+    assert _c_layout_bytes(72, 64, 64) == 11264 * 3 + 17408 + 9216 + 21504 + 256 * 3
+    assert _c_layout_bytes(flash.TILE_64_MAX_DP, 64, 64) <= 200 * 1024
+    assert _c_layout_bytes(flash.TILE_64_MAX_DP + 16, 64, 64) > 200 * 1024
+    assert _c_layout_bytes(512, 32, 32) == 33280 * 3 + 4608 + 2560 + 66048 + 128 * 3 <= 227 * 1024
+
+
+def test_every_plan_is_built():
+    """``REG_BUILT`` lists the pairs of ``CF_REG_PLANS`` in
+    ``csrc/flash_reg.cuh``: every (DP, warps) the rule can choose, and
+    nothing it cannot."""
+    src = (REPO / "compactfusion_tpu_torch" / "csrc" / "flash_reg.cuh").read_text()
+    macro = src[src.index("#define CF_REG_PLANS"):].split("\n\n")[0]
+    built = {(int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)", macro)}
+    assert built == flash.REG_BUILT
+    chosen = {flash.flash_plan(b, h, sq, dp)[1:] for dp in flash.REG_DPS
+              for b, h, sq in ((2, 16, 1024), (1, 16, 512), (2, 16, 128), (1, 1, 16), (8, 16, 4096))}
+    assert chosen == built
+
+
+def _build(labels):
+    """A made-up build: ({label: ptxas line}, {label: SASS hash})."""
+    return ({k: f"Used {r} registers" for k, (r, _) in labels.items()},
+            {k: h for k, (_, h) in labels.items()})
+
+
+BEFORE = {"flash_fwd_kernel<4, 64>": (64, "a"), "flash_fwd_kernel<2, 32>": (40, "b"),
+          "flash_window_kernel<4, 64>": (64, "c"), "flash_window_kernel<2, 32>": (40, "d"),
+          "compact_ring_hop_kernel<8, 64>": (72, "e"), "ring_flash_hop_kernel<4, 64>": (64, "f")}
+
+
+def test_compare_tool_passes_when_only_redesigned_kernels_differ():
+    tool = _compare_tool()
+    after = dict(BEFORE, **{"flash_fwd_kernel<4, 64>": (60, "x"), "ring_flash_hop_kernel<4, 64>": (64, "y"),
+                            "flash_fwd_reg_kernel<80, 4>": (128, "z")})
+    ok, report = tool.verdict(_build(after), _build(BEFORE))
+    assert ok and report["unmatched"] == []
+    kernels = report["kernels"]
+    assert kernels["flash_window_kernel<2, 32>"]["must_be_unchanged"]
+    assert kernels["flash_window_kernel<2, 32>"]["sass_equal"]
+    assert not kernels["flash_fwd_kernel<4, 64>"]["must_be_unchanged"]
+    assert not kernels["flash_fwd_kernel<4, 64>"]["sass_equal"]
+    assert kernels["flash_fwd_reg_kernel<80, 4>"]["other"] is None
+
+
+@pytest.mark.parametrize("label,change", [
+    ("flash_window_kernel<2, 32>", (40, "d2")),       # SASS
+    ("compact_ring_hop_kernel<8, 64>", (80, "e")),    # ptxas line
+    ("flash_fwd_kernel<2, 32>", None),                # missing on this side
+])
+def test_compare_tool_fails_when_a_listed_kernel_changes(label, change):
+    tool = _compare_tool()
+    after = dict(BEFORE)
+    if change is None:
+        del after[label]
+    else:
+        after[label] = change
+    ok, report = tool.verdict(_build(after), _build(BEFORE))
+    assert not ok and report["kernels"][label]["must_be_unchanged"]
+
+
+def test_compare_tool_patterns():
+    tool = _compare_tool()
+    assert tool.matches("flash_window_kernel<4, 64>", "flash_window_kernel<...>")
+    assert not tool.matches("flash_fwd_reg_kernel<80, 4>", "flash_fwd_kernel<...>")
+    assert tool.matches("flash_fwd_kernel<2, 32>", "flash_fwd_kernel<2, 32>")
+    assert not tool.matches("flash_fwd_kernel<4, 64>", "flash_fwd_kernel<2, 32>")
+    # a pattern that names nothing fails: a renamed kernel cannot pass unseen
+    ok, report = tool.verdict(_build(BEFORE), _build(BEFORE), ["flash_tile_kernel<...>"])
+    assert not ok and report["unmatched"] == ["flash_tile_kernel<...>"]
+    assert tool.verdict(_build(BEFORE), _build(BEFORE))[0]
+
+
+def test_compare_tool_reads_sass_without_the_sources_namespace_name():
+    """An edit anywhere in a source renames its anonymous namespace; the
+    instructions that name a symbol of it compare equal all the same."""
+    tool = _compare_tool()
+    before = "  /*0010*/  CALL.REL `(_ZN46_GLOBAL__N__0110b69f_13_flash_attn_cu_3b6b32e116foo) ;\n\n  EXIT ;"
+    after = before.replace("0110b69f", "9a1c0d2e").replace("3b6b32e1", "77aa01f3")
+    assert tool.sass_text(before) == tool.sass_text(after)
+    assert "_GLOBAL__N_16foo" in tool.sass_text(after)
+    # cuobjdump pads the columns of an object to its longest name
+    assert tool.sass_text(before.replace("  CALL", "        CALL")) == tool.sass_text(before)
+    assert tool.sass_text(before) != tool.sass_text(before.replace("EXIT", "BRA"))

@@ -179,3 +179,10 @@ def test_schedule_tables_match_jax(spacing, beta):
     np.testing.assert_array_equal(t.timesteps.numpy(), np.asarray(j.timesteps))
     np.testing.assert_allclose(t.alphas_cumprod.numpy(), np.asarray(j.alphas_cumprod), rtol=1e-6)
     assert float(t.final_alpha_cumprod) == float(j.final_alpha_cumprod)
+
+
+def test_unknown_timestep_spacing_is_a_value_error_in_both_packages():
+    """An unknown spacing is a caller's error, in the port as in JAX."""
+    for schedule in (jdiff.ddpm_schedule, tdiff.ddpm_schedule):
+        with pytest.raises(ValueError, match="unknown timestep spacing uniform"):
+            schedule(20, timestep_spacing="uniform")

@@ -1,23 +1,30 @@
 #!/usr/bin/env python3
 """Compare what two checkouts' CUDA sources compile to, kernel by kernel.
 
-    python3 tools/compare_kernel_builds.py OTHER_ROOT
+    python3 tools/compare_kernel_builds.py OTHER_ROOT [--unchanged LABEL ...]
 
 Compiles ``compactfusion_tpu_torch/csrc`` of this checkout and of
 ``OTHER_ROOT`` (another checkout's root, e.g. an unpacked ``git archive``
 of the parent commit) with the flags of ``ops/_build.py``, one ``nvcc -c``
 per source, all started together, into a temporary directory.  For every
-instantiation of the production kernels that share the flash tile body
-(labels from ``_build.kernel_labels``, e.g. ``flash_fwd_kernel<4, 64>``), it
-compares what ``ptxas -v`` said of it (stack, spills, registers, barriers,
-constant memory) and its SASS (``cuobjdump -sass``).  Prints one JSON
-object and exits 1 when one differs or is missing on either side.  Needs
-the CUDA toolkit (``nvcc``, ``cuobjdump``, ``cu++filt``), not a GPU.
+kernel instantiation of either side (labels from ``_build.kernel_labels``,
+e.g. ``flash_fwd_kernel<4, 64>``), it compares what ``ptxas -v`` said of it
+(stack, spills, registers, barriers, constant memory) and its SASS
+(``cuobjdump -sass``, read by :func:`sass_text`).
+
+``--unchanged`` names the instantiations that must be identical on both
+sides: a full label, or ``name<...>`` for every instantiation of ``name``
+(the default: the banded kernel 4, the compressed ring kernel 8 and kernel
+1's wide-head instantiation).  Prints one JSON object and exits 1 when one
+of them differs, is missing on either side or matches nothing; kernels
+outside the list may differ.  Needs the CUDA toolkit (``nvcc``,
+``cuobjdump``, ``cu++filt``), not a GPU.
 """
 
 import argparse
 import hashlib
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -25,8 +32,18 @@ import tempfile
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
-PRODUCTION = ("flash_fwd_kernel", "flash_window_kernel", "ring_flash_hop_kernel",
-              "compact_ring_hop_kernel")
+UNCHANGED = ("flash_window_kernel<...>", "compact_ring_hop_kernel<...>", "flash_fwd_kernel<2, 32>")
+# nvcc names each source's anonymous namespace after a hash of the source
+# (``_GLOBAL__N__0110b69f_13_flash_attn_cu_3b6b32e1``), and symbols in the
+# SASS carry it: an edit elsewhere in the file changes it
+_NAMESPACE = re.compile(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}")
+
+
+def sass_text(body: str) -> str:
+    """One function's SASS as it is compared: each line's words joined by
+    one space (cuobjdump pads its columns to the longest name in the
+    object), the source's namespace name left out."""
+    return _NAMESPACE.sub("_GLOBAL__N_", "\n".join(" ".join(ln.split()) for ln in body.splitlines() if ln.strip()))
 
 
 def _cuobjdump():
@@ -47,33 +64,52 @@ def build(root: Path, out: Path):
                               check=True).stdout
         for block in dump.split("Function : ")[1:]:
             name, _, body = block.partition("\n")
-            code = "\n".join(ln.strip() for ln in body.splitlines() if ln.strip())
-            sass[name.strip()] = hashlib.sha256(code.encode()).hexdigest()
+            sass[name.strip()] = hashlib.sha256(sass_text(body).encode()).hexdigest()
     labels = _build.kernel_labels(sass)
     return _build.ptxas_summary(log), {labels[name]: h for name, h in sass.items()}
+
+
+def matches(label: str, pattern: str) -> bool:
+    """``pattern`` is ``label`` itself, or ``name<...>`` for any
+    instantiation of ``name``."""
+    if pattern.endswith("<...>"):
+        return label.startswith(pattern[:-len("...>")])
+    return label == pattern
+
+
+def verdict(this, other, unchanged=UNCHANGED):
+    """(ok, report) of two builds, each (ptxas lines, SASS hashes) by label.
+    The report has every label of either side; ``ok`` holds when every
+    label that an ``unchanged`` pattern names has the same ptxas line and
+    SASS on both sides, and every pattern names at least one label."""
+    report, ok = {}, True
+    labels = sorted(set(this[0]) | set(other[0]) | set(this[1]) | set(other[1]))
+    for label in labels:
+        entry = {"this": this[0].get(label), "other": other[0].get(label),
+                 "sass_equal": label in this[1] and this[1].get(label) == other[1].get(label)}
+        entry["ptxas_equal"] = entry["this"] is not None and entry["this"] == entry["other"]
+        entry["must_be_unchanged"] = any(matches(label, p) for p in unchanged)
+        if entry["must_be_unchanged"]:
+            ok = ok and entry["ptxas_equal"] and entry["sass_equal"]
+        report[label] = entry
+    unmatched = [p for p in unchanged if not any(matches(label, p) for label in labels)]
+    return ok and not unmatched, {"unmatched": unmatched, "kernels": report}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", type=Path, help="the other checkout's root")
+    ap.add_argument("--unchanged", nargs="+", default=list(UNCHANGED), metavar="LABEL",
+                    help=f"instantiations that must be identical (default: {' '.join(UNCHANGED)})")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(REPO))
     (REPO / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
         this = build(REPO, Path(tmp) / "this")
         other = build(args.other.resolve(), Path(tmp) / "other")
-    report, same = {}, True
-    labels = sorted(set(this[0]) | set(other[0]))
-    for label in labels:
-        if not label.startswith(PRODUCTION):
-            continue
-        entry = {"this": this[0].get(label), "other": other[0].get(label),
-                 "sass_equal": label in this[1] and this[1].get(label) == other[1].get(label)}
-        entry["ptxas_equal"] = entry["this"] is not None and entry["this"] == entry["other"]
-        same = same and entry["ptxas_equal"] and entry["sass_equal"]
-        report[label] = entry
-    print(json.dumps({"identical": same and bool(report), "kernels": report}, indent=1))
-    return 0 if same and report else 1
+    ok, report = verdict(this, other, args.unchanged)
+    print(json.dumps({"unchanged_identical": ok, "unchanged": args.unchanged, **report}, indent=1))
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

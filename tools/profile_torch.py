@@ -2,6 +2,7 @@
 """Where the time of one PixArt-alpha 512 image goes on the GPU.
 
     python3 tools/profile_torch.py [--out build/profile_torch.json] [--warm 3]
+                                   [--only NAME ...] [--root OTHER_ROOT]
 
 Builds the same full-width pipelines as ``chip_smoke.py`` (random weights,
 spiced AdaLN tables): compression off, the ring-8 compressed emulation
@@ -16,19 +17,26 @@ category is ``torch.linalg.qr``'s cuSOLVER kernels).  The device busy share is
 that sum over the mean unprofiled time (one stream, so kernels do not
 overlap).  Prints a summary per pipeline and writes everything, with the
 card's ``nvidia-smi`` name, power limit and SM clock, to ``--out``.
+``--only`` profiles a subset of the pipelines (``NAMES``); ``--root``
+profiles another checkout's package (e.g. an unpacked ``git archive`` of
+the parent commit) with this checkout's harness (``chip_smoke.py``), so
+two trees are measured alike.
 """
 
 import argparse
+import importlib.util
 import json
 import os
 import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NAMES = ("lossless", "compressed_ring8", "int2_ring8", "low_rank4_ring8", "layer_plan_int8_ring8",
+         "fast_attn_calibrated", "fast_attn_mixed", "fbcache_0.12")
 
 # kernel-name patterns, first match wins
 CATEGORIES = (
-    ("flash kernel", ("flash_fwd_kernel",)),
+    ("flash kernel", ("flash_fwd_kernel", "flash_fwd_reg_kernel")),
     ("window flash kernel", ("flash_window_kernel",)),
     ("quant kernel", ("binary_quant_kernel",)),
     ("dequant kernel", ("binary_dequant_kernel",)),
@@ -50,11 +58,17 @@ def category(name):
     return "other"
 
 
-def profile_pipeline(pipe, warm, seed):
+def _harness():
+    """This checkout's chip_smoke.py, by path (another root may hold its own)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_harness", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def profile_pipeline(chip_smoke, pipe, warm, seed):
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    import chip_smoke
 
     for _ in range(warm):
         chip_smoke.request(pipe, seed)
@@ -91,14 +105,17 @@ def main():
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile_torch.json"))
     ap.add_argument("--warm", type=int, default=3, help="unmeasured requests first")
     ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--only", nargs="+", choices=NAMES, default=list(NAMES),
+                    help="the pipelines to profile (default: all)")
+    ap.add_argument("--root", default=ROOT, help="the checkout whose package is profiled")
     args = ap.parse_args()
 
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch: no CUDA device")
-    sys.path.insert(0, ROOT)
-    import chip_smoke
+    chip_smoke = _harness()
+    sys.path.insert(0, os.path.abspath(args.root))
     from compactfusion_tpu_torch.cache.accel import CacheAccelConfig
     from compactfusion_tpu_torch.pipelines.pixart import PixArtPipeline, PixArtPipelineConfig
 
@@ -108,24 +125,28 @@ def main():
     print(smi, torch.__version__, torch.version.cuda)
     dev = torch.device("cuda")
     mcfg, vcfg, params, vae_params = chip_smoke.build_models(dev)
-    report = {"smi": smi, "torch": torch.__version__, "warm": args.warm, "seed": args.seed}
-    plan, cal_s = chip_smoke.calibrated_plan(params, mcfg, vcfg, dev)
-    report["fast_attn_calibration_s"] = cal_s
+    report = {"smi": smi, "torch": torch.__version__, "warm": args.warm, "seed": args.seed,
+              "root": os.path.abspath(args.root)}
+    plan = None
+    if "fast_attn_calibrated" in args.only:
+        plan, report["fast_attn_calibration_s"] = chip_smoke.calibrated_plan(params, mcfg, vcfg, dev)
 
     def fast_attn(plan):
         return {"fast_attn_plan": tuple(tuple(int(m) for m in row) for row in plan),
                 "fast_attn_window": chip_smoke.WINDOW}
 
-    for name, kw in (("lossless", {}), ("compressed_ring8", {"compact": chip_smoke.compressed_config()}),
-                     ("int2_ring8", {"compact": chip_smoke.compressed_config("int2")}),
-                     ("low_rank4_ring8", {"compact": chip_smoke.compressed_config("low-rank", comp_rank=4)}),
-                     ("layer_plan_int8_ring8", {"compact": chip_smoke.layer_plan_config()}),
-                     ("fast_attn_calibrated", fast_attn(plan)),
-                     ("fast_attn_mixed", fast_attn(chip_smoke.mixed_plan())),
-                     ("fbcache_0.12", {"cache": CacheAccelConfig(mode="fbcache", threshold=0.12)})):
+    configs = {"lossless": lambda: {},
+               "compressed_ring8": lambda: {"compact": chip_smoke.compressed_config()},
+               "int2_ring8": lambda: {"compact": chip_smoke.compressed_config("int2")},
+               "low_rank4_ring8": lambda: {"compact": chip_smoke.compressed_config("low-rank", comp_rank=4)},
+               "layer_plan_int8_ring8": lambda: {"compact": chip_smoke.layer_plan_config()},
+               "fast_attn_calibrated": lambda: fast_attn(plan),
+               "fast_attn_mixed": lambda: fast_attn(chip_smoke.mixed_plan()),
+               "fbcache_0.12": lambda: {"cache": CacheAccelConfig(mode="fbcache", threshold=0.12)}}
+    for name in (n for n in NAMES if n in args.only):
         cfg = PixArtPipelineConfig(model=mcfg, vae=vcfg, num_steps=chip_smoke.STEPS,
-                                   guidance_scale=4.5, **kw)
-        r = profile_pipeline(PixArtPipeline(params, vae_params, cfg, dev), args.warm, args.seed)
+                                   guidance_scale=4.5, **configs[name]())
+        r = profile_pipeline(chip_smoke, PixArtPipeline(params, vae_params, cfg, dev), args.warm, args.seed)
         report[name] = r
         print(name, json.dumps({k: v for k, v in r.items() if k != "top"}))
         for t, n, kname in r["top"][:12]:

@@ -1,0 +1,156 @@
+#!/usr/bin/env python3
+"""Check and time kernels 1 and 7 of a checkout at the path's shapes.
+
+    python3 tools/time_flash.py [--root OTHER_ROOT] [--sweep] [--out FILE]
+
+Imports ``compactfusion_tpu_torch`` from ``--root`` (default: this
+checkout; e.g. an unpacked ``git archive`` of the parent commit) and the
+measuring code from this checkout's ``chip_smoke.py``: the shapes and
+inputs of phases 2 and 12 (``flash_cases``, ``ring_cases``), the eager
+timing, ``graph_ms`` (CUDA graphs on inputs from DRAM), the SDPA yardstick
+and the bound.  So two trees are timed by one harness, through the
+wrappers both have (``flash_attn_with_lse``, ``ring_flash_attn_with_lse``
+and their twins).  Per shape: the largest error of out and LSE against the
+twin, eager ``ms``, ``graph_ms``, SDPA's ``library_ms`` and ``bound_ms``.
+With ``--sweep`` (a tree with ``ops/flash.py::flash_plan``), a shape whose
+plan takes the register body is also timed at every tile height built for
+its padded head dim (``graph_ms_by_warps``), with ``flash_plan`` swapped
+for one that keeps the body and padded head dim but not the warps.
+Prints the card's name and power limit, one line per shape and one JSON
+line (also written to ``--out``); exits non-zero without a CUDA device or
+when a kernel disagrees with its twin.
+"""
+
+import argparse
+import contextlib
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _smoke():
+    """This checkout's chip_smoke.py, by path (the other root may hold its own)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_harness", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def tile_height(flash, warps):
+    """Within the block, every register-body launch takes ``warps`` warps
+    per CTA: ``flash.flash_plan`` (which the wrappers look up at each call)
+    is swapped for one that changes only the warps of the real plan."""
+    real = flash.flash_plan
+
+    def plan(*args, **kwargs):
+        body, dp, w = real(*args, **kwargs)
+        return body, dp, (warps if body == "flash_reg_tile" else w)
+
+    flash.flash_plan = plan
+    try:
+        yield
+    finally:
+        flash.flash_plan = real
+
+
+def row(smoke, timing, name, run, ref, sets, iters, sdpa_qkv, ops, sweep=None):
+    """Errors of ``run`` against ``ref`` (each a call of one input set) on
+    the first set, then its eager and graph times, SDPA's on ``sdpa_qkv``
+    and the bound of q, K/V, out and LSE against ``ops`` bf16 operations.
+    ``sweep``: (the flash module, the plan, its built (dp, warps) pairs)
+    to time the plan's other tile heights."""
+    import torch
+
+    out, lse = run(sets[0])
+    torch.cuda.synchronize()
+    ref_out, ref_lse = ref(sets[0])
+    err_out = (out.float() - ref_out.float()).abs().max().item()
+    err_lse = (lse - ref_lse).abs().max().item()
+    lib, backend = smoke._library(*sdpa_qkv)
+    bound_ms, bound_by = smoke._bound(smoke._nbytes(*sdpa_qkv, out, lse), ops, smoke.PEAK_BF16_FLOPS)
+    r = {"shape": name, "max_abs_err_out": err_out, "max_abs_err_lse": err_lse,
+         "ms": smoke._time_ms(lambda: run(sets[0]), iters),
+         "graph_ms": smoke.graph_ms(timing, [lambda t=t: run(t) for t in sets]),
+         "library_ms": smoke._time_ms(lib, iters), "library_backend": backend,
+         "bound_ms": bound_ms, "bound_by": bound_by}
+    alts = ""
+    if sweep is not None and sweep[1][0] == "flash_reg_tile":
+        flash, plan, built = sweep
+        r["plan"], r["graph_ms_by_warps"] = list(plan), {}
+        for w in sorted(w for dp, w in built if dp == plan[1]):
+            with tile_height(flash, w):
+                r["graph_ms_by_warps"][w] = smoke.graph_ms(timing, [lambda t=t: run(t) for t in sets])
+        alts = "; by warps " + ", ".join(f"{w}: {t:.4f}" for w, t in r["graph_ms_by_warps"].items())
+    print(f"{name}: out err {err_out:.3e}, lse err {err_lse:.3e}; eager {r['ms']:.4f} ms, graphs "
+          f"{r['graph_ms']:.4f} ms ({len(sets)} input sets){alts}, SDPA ({backend}) "
+          f"{r['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    if not (err_out <= smoke.FLASH_OUT_ATOL and err_lse <= smoke.FLASH_LSE_ATOL):
+        raise AssertionError(f"{name}: the kernel disagrees with its twin")
+    return r
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", type=Path, default=REPO, help="the checkout whose kernels to time")
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time every built tile height of the register body's plans")
+    ap.add_argument("--out", type=Path, help="also write the JSON here")
+    args = ap.parse_args(argv)
+    smoke = _smoke()
+    sys.path.insert(0, str(args.root.resolve()))
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("time_flash: no CUDA device")
+    from compactfusion_tpu_torch.ops import _build, flash, ring_flash
+    from compactfusion_tpu_torch.probes import timing
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(card)
+    _build.load()
+    print(f"{flash.__file__}: kernels built in {_build.last_build_seconds:.1f} s")
+    for kernel, said in _build.ptxas_summary(_build.last_build_log).items():
+        print(f"ptxas {kernel}: {said}")
+    if args.sweep and not hasattr(flash, "REG_BUILT"):
+        raise SystemExit(f"time_flash: {args.root} has no register-body plans to sweep")
+
+    def sweep(b, h, sq, d):
+        return (flash, flash.flash_plan(b, h, sq, d), flash.REG_BUILT) if args.sweep else None
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for name, make, iters in smoke.flash_cases(gen, dev):
+        q, k, v = first = make()
+        b, sq, h, d = q.shape
+        sets = [first] + [make() for _ in range(timing.copies(smoke._nbytes(q, k, v, q)) - 1)]
+        rows.append(row(smoke, timing, f"kernel 1 {name}", lambda t: flash.flash_attn_with_lse(*t),
+                        lambda t: flash.flash_attn_with_lse_ref(*t), sets, iters, first,
+                        4 * b * h * sq * k.shape[1] * d, sweep(b, h, sq, d)))
+    for (ring, b, s_local), make in smoke.ring_cases(gen, dev):
+        q, blocks = first = make()
+        k_all = torch.cat([k for k, _ in blocks], dim=1)
+        v_all = torch.cat([v for _, v in blocks], dim=1)
+        sets = [first] + [make() for _ in range(timing.copies(smoke._nbytes(q, k_all, v_all, q)) - 1)]
+        rows.append(row(smoke, timing, f"kernel 7 ring {ring} B{b} H16 Sq{s_local} Sk{ring}x{s_local} d72",
+                        lambda t, n=ring: ring_flash.ring_flash_attn_with_lse(t[0], iter(t[1]), n),
+                        lambda t, n=ring: ring_flash.ring_flash_attn_with_lse_ref(t[0], iter(t[1]), n),
+                        sets, 20, (q, k_all, v_all), 4 * b * 16 * s_local * k_all.shape[1] * 72,
+                        sweep(b, 16, s_local, 72)))
+    report = {"card": card, "root": str(args.root.resolve()), "rows": rows}
+    line = json.dumps(report)
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(line + "\n")
+    print(line)
+
+
+if __name__ == "__main__":
+    main()
