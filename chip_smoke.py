@@ -13,9 +13,10 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
    computes the same function where there is one (``library_ms``), and the
    least time the card could take (``bound_ms``): flash attention, banded
    (window) flash attention, the 1-bit quant pair at K=1 and K=2, the 2-bit
-   (INT2) pair on fp32 and bf16 bases.  Flash attention also names its
-   plan (``ops/flash.py::flash_plan``: body, padded head dim, warps) and
-   CTAs, and is timed without dispatch cost on inputs read from DRAM
+   (INT2) pair on fp32 and bf16 bases.  Flash and banded attention also
+   name their plan (``ops/flash.py::flash_plan``: body, padded head dim,
+   warps) and CTAs (the banded kernel must take the register body), and
+   flash is timed without dispatch cost on inputs read from DRAM
    (``graph_ms``: CUDA graphs, ``probes/timing.py``).
 3. The full-width PixArt-alpha 512 pipeline (28 blocks, dim 1152, S=1024,
    CFG batch 2, 20 DPM-Solver++ steps, SD-VAE decode), random weights with
@@ -40,12 +41,17 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
     (128 tokens per rank); BINARY at K=1 and K=2, INT2 and LOW_RANK r4 on
     fp32 stacks, and on int8 stacks at B 1.  Kernel 7 is timed as kernel 1
     in phase 2 (plan, ``graph_ms``), and its ring-8 hop must launch at
-    least 128 CTAs.
+    least 128 CTAs; so must kernel 8's flash partial, and kernel 8 and its
+    EF pass (``ef_update_slot``, checked alone against its twin) are timed
+    eager and by CUDA graphs on cloned stacks.
 13. The pipeline as a ring of 2 processes that share this GPU (a gloo
     group: NCCL refuses two ranks on one device), lossless, unfused and
     through the fused ring kernel, against request 1's lossless latents;
     first cfg 2 alone (each process one CFG half, no ring), which runs the
-    model at a ring-2 rank's rows per GEMM without the ring.
+    model at a ring-2 rank's rows per GEMM without the ring.  Before the
+    ranks, this process runs request 1 with each CFG half's forward alone
+    at B1, as a cfg-2 rank does: what the batch alone moves against the B2
+    request.  Every run of phases 13-15 is also held against it.
 14. The same ring with BINARY compression (warmup 4), unfused and through
     the fused compressed ring kernel, against the single-process ring-2
     emulation of the same request, against each other and against lossless;
@@ -82,6 +88,7 @@ device, or without the package beside it, the script exits non-zero and
 prints no result.  It imports nothing of JAX.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -108,6 +115,15 @@ COMPRESSED_REL_ERR_MAX = 0.05
 # order of the bf16 attention partials differs; the JAX package's dryrun
 # puts this bound on its fused vs unfused ring (__graft_entry__.py:250)
 RING_REL_MAX = 2e-2
+# the ring across ranks vs one process that runs each CFG half's forward at
+# B1, as a rank of cfg 2 does (phases 13-15).  That run alone is 0.016153
+# from the B2 request (batch variance of bf16 GEMMs, amplified over 20
+# steps), and the ring runs sit 0.0163-0.0173 from it (PERF.md §6):
+# any change of bf16 order lands near 0.016-0.017, so the bound leaves 7%
+# above the largest
+HALVES_REL_MAX = 0.0185
+# cfg 2 alone vs that run: the same computation per rank, bit for bit
+CFG2_VS_HALVES_MAX = 0.0
 # the probes' matmuls_only divides by l = the sum of a row's raw scores,
 # which can be near 0; it is compared on the rows with |l| >= 8 * sqrt(S),
 # where one bf16 ulp of the output stays below FLASH_OUT_ATOL
@@ -275,22 +291,30 @@ def band_pairs(s, w):
     return sum(min(s - 1, i + w) - max(0, i - w) + 1 for i in range(s))
 
 
+def window_cases(gen, dev):
+    """Kernel 4's phase-2 cases: PixArt's B2 self-attention on column slices
+    of one qkv tensor at w = 64, 4, 0 and 1024, the CFG half (B1) and a
+    ragged S=1000: (name, a maker of one input set (q, k, v), window)."""
+    def qkv(b, s):
+        return lambda: _qkv_views(gen, dev, b, s)
+
+    def half():
+        q, k, v = _qkv_views(gen, dev, 2, 1024)
+        return q[:1], k[:1], v[:1]
+
+    return ([(f"B2 H16 S1024 d72 w{w}", qkv(2, 1024), w) for w in (WINDOW, 4, 0, 1024)]
+            + [(f"CFG half B1 H16 S1024 d72 w{WINDOW}", half, WINDOW),
+               (f"ragged B2 H16 S1000 d72 w{WINDOW}", qkv(2, 1000), WINDOW)])
+
+
 def check_window(flash, dev, gen):
-    """Banded flash kernel vs twin: PixArt's B2 self-attention on column
-    slices of one qkv tensor at w = 64, 4, 0 and 1024, the CFG half (B1) and
-    a ragged S=1000; returns a report, with the ratio of the w=64 time to the
-    full kernel's at the same shape."""
+    """Banded flash kernel vs twin at ``window_cases``; returns a report, with
+    the ratio of the w=64 time to the full kernel's at the same shape."""
     import torch
 
-    def qkv(b, s):
-        return _qkv_views(gen, dev, b, s)
-
-    q, k, v = qkv(2, 1024)
-    cases = [(f"B2 H16 S1024 d72 w{w}", (q, k, v), w) for w in (WINDOW, 4, 0, 1024)]
-    cases += [(f"CFG half B1 H16 S1024 d72 w{WINDOW}", (q[:1], k[:1], v[:1]), WINDOW),
-              (f"ragged B2 H16 S1000 d72 w{WINDOW}", qkv(2, 1000), WINDOW)]
     rows = []
-    for name, (qq, kk, vv), w in cases:
+    for name, make, w in window_cases(gen, dev):
+        qq, kk, vv = make()
         out, lse = flash.flash_attn_window_with_lse(qq, kk, vv, w)
         torch.cuda.synchronize()
         ref_out, ref_lse = flash.flash_attn_window_with_lse_ref(qq, kk, vv, w)
@@ -299,19 +323,24 @@ def check_window(flash, dev, gen):
         ms = _time_ms(lambda: flash.flash_attn_window_with_lse(qq, kk, vv, w), 20)
         plain_ms = _time_ms(lambda: flash.flash_attn_window_with_lse_ref(qq, kk, vv, w), 20)
         b, s, h, d = qq.shape
+        plan = flash.flash_plan(b, h, s, d)
         lib, backend = _library(qq, kk, vv, flash.window_mask(s, w, dev))
         library_ms = _time_ms(lib, 20)
         bound_ms, bound_by = _bound(_nbytes(qq, kk, vv, out, lse), 4 * b * h * d * band_pairs(s, w),
                                     PEAK_BF16_FLOPS)
         rows.append({"shape": name, "max_abs_err_out": err_out, "max_abs_err_lse": err_lse,
+                     "plan": list(plan), "ctas": _ctas(plan, b, h, s),
                      "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                      "library_backend": backend, "bound_ms": bound_ms, "bound_by": bound_by})
         print(f"[2] window flash {name}: out err {err_out:.3e} (tol {FLASH_OUT_ATOL}), lse err "
-              f"{err_lse:.3e} (tol {FLASH_LSE_ATOL}); kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
-              f"SDPA with band mask ({backend}) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by})")
+              f"{err_lse:.3e} (tol {FLASH_LSE_ATOL}); plan {plan}, {rows[-1]['ctas']} CTAs; kernel "
+              f"{ms:.4f} ms, twin {plain_ms:.4f} ms, SDPA with band mask ({backend}) {library_ms:.4f} "
+              f"ms, bound {bound_ms:.4f} ms ({bound_by})")
         if not (err_out <= FLASH_OUT_ATOL and err_lse <= FLASH_LSE_ATOL):
             raise AssertionError(f"window flash kernel disagrees with its twin at {name}")
+        if d <= 128 and plan[0] != "flash_reg_tile":
+            raise AssertionError(f"window flash at {name}: plan {plan} is not the register body")
+    q, k, v = _qkv_views(gen, dev, 2, 1024)
     full_ms = _time_ms(lambda: flash.flash_attn_with_lse(q, k, v), 20)
     print(f"[2] window flash w{WINDOW} / full flash at B2 H16 S1024 d72: {rows[0]['ms']:.4f} / "
           f"{full_ms:.4f} ms = {rows[0]['ms'] / full_ms:.3f}")
@@ -476,60 +505,131 @@ def _same(a, b):
     return torch.equal(a, b)
 
 
-def check_compact_ring(rf, dev, gen, ring, b, s_local, codec, rank, quantized):
+def cring_inputs(rf, gen, dev, ring, b, s_local, codec, rank, quantized):
+    """One phase-12 case of kernel 8: every virtual rank's (q, k, v) shard,
+    the two EF stacks every rank starts from, and every rank's fused payload
+    made from its own K/V and EF slot."""
+    h, d = 16, 72
+    n, c = b * s_local, h * d
+    shards = [_qkv_views(gen, dev, b, s_local) for _ in range(ring)]
+    kb0, vb0 = _stack(gen, dev, ring, n, c, quantized), _stack(gen, dev, ring, n, c, quantized)
+    payloads = [rf.fused_ring_payload(shards[r][1], shards[r][2], rf.decode_slot(kb0, r),
+                                      rf.decode_slot(vb0, r), codec, rank) for r in range(ring)]
+    return shards, kb0, vb0, payloads
+
+
+def arriving(payloads, r):
+    """The payloads rank r of the ring works on, hop by hop (its own first)."""
+    ring = len(payloads)
+    return iter([payloads[(r - s) % ring] for s in range(ring)])
+
+
+def cring_name(ring, b, s_local, codec, rank, quantized):
+    kname = {"binary": f"binary K{max(rank, 1)}", "int2": "int2", "lowrank": f"low-rank r{rank}"}[codec]
+    return f"ring {ring} B{b} H16 S{s_local} d72 {kname} {'int8' if quantized else 'fp32'} bases"
+
+
+def check_compact_ring(rf, flash, timing, dev, gen, ring, b, s_local, codec, rank, quantized):
     """Kernel 8 vs its twin: every virtual rank of a ring of ``ring`` makes
     its fused payload from its own K/V and EF slot, and each runs the kernel
     on its own copy of one stack with the payloads in the order they would
     arrive; rank 0 also runs the twin.  Checks out, LSE and rank 0's new
-    stack against the twin, and every rank's stack against every other's
-    (bit for bit).  Returns a report with rank 0's time."""
+    stack against the twin, every rank's stack against every other's (bit
+    for bit), and that the flash partial runs on at least 128 CTAs; then its
+    EF pass alone (``ef_update_slot`` of rank 0's own payload) against its
+    twin: new bases and the bf16 reconstruction.  Rank 0's call and the EF
+    pass are timed eager and by CUDA graphs on cloned stacks (each launch
+    writes its stacks), enough of them in turn that each call reads from
+    DRAM.  Returns a report."""
     import torch
 
     h, d = 16, 72
     n, c = b * s_local, h * d
-    shards = [_qkv_views(gen, dev, b, s_local) for _ in range(ring)]  # every virtual rank's
-    kb0, vb0 = _stack(gen, dev, ring, n, c, quantized), _stack(gen, dev, ring, n, c, quantized)
-    payloads = [rf.fused_ring_payload(shards[r][1], shards[r][2], rf.decode_slot(kb0, r),
-                                      rf.decode_slot(vb0, r), codec, rank) for r in range(ring)]
-
-    def arriving(r):  # the payloads rank r works on, hop by hop
-        return iter([payloads[(r - s) % ring] for s in range(ring)])
+    shards, kb0, vb0, payloads = cring_inputs(rf, gen, dev, ring, b, s_local, codec, rank, quantized)
 
     def kernel(r, kb, vb):
-        return rf.compact_ring_flash(*shards[r], kb, vb, arriving(r), codec=codec, my=r,
+        return rf.compact_ring_flash(*shards[r], kb, vb, arriving(payloads, r), codec=codec, my=r,
                                      ring_size=ring)
 
     stacks = [(_clone(kb0), _clone(vb0)) for _ in range(ring)]
     out, lse = [kernel(r, *stacks[r]) for r in range(ring)][0]
     torch.cuda.synchronize()
     kr, vr = _clone(kb0), _clone(vb0)
-    ref_out, ref_lse = rf.compact_ring_flash_ref(*shards[0], kr, vr, arriving(0), codec=codec,
+    ref_out, ref_lse = rf.compact_ring_flash_ref(*shards[0], kr, vr, arriving(payloads, 0), codec=codec,
                                                  my=0, ring_size=ring)
     err_out = (out.float() - ref_out.float()).abs().max().item()
     err_lse = (lse - ref_lse).abs().max().item()
     base_rel = max(_rel(_decoded(stacks[0][0]), _decoded(kr)), _rel(_decoded(stacks[0][1]), _decoded(vr)))
     consistent = all(_same(stacks[r][i], stacks[0][i]) for r in range(ring) for i in range(2))
-    kname = {"binary": f"binary K{max(rank, 1)}", "int2": "int2", "lowrank": f"low-rank r{rank}"}[codec]
-    name = f"ring {ring} B{b} H16 S{s_local} d72 {kname} {'int8' if quantized else 'fp32'} bases"
-    ms = _time_ms(lambda: kernel(0, *stacks[0]), 20)
-    plain_ms = _time_ms(lambda: rf.compact_ring_flash_ref(*shards[0], kr, vr, arriving(0), codec=codec,
-                                                          my=0, ring_size=ring), 5)
+    name = cring_name(ring, b, s_local, codec, rank, quantized)
+    plan = flash.flash_plan(b, h, s_local, d)
+    ctas = _ctas(plan, b, h, s_local)
+    ok = (err_out <= FLASH_OUT_ATOL and err_lse <= FLASH_LSE_ATOL and base_rel <= QUANT_NEW_BASE_RTOL
+          and consistent)
+    if not ok:
+        raise AssertionError(f"compact ring kernel disagrees with its twin at {name}: out {err_out}, "
+                             f"lse {err_lse}, bases {base_rel}, ranks bit-equal {consistent}")
+    if ctas < 128:
+        raise AssertionError(f"compact ring at {name}: the flash partial has {ctas} CTAs, fewer than 128")
+
+    # the EF pass alone, on rank 0's own payload (slot 0), after hop 0 (rec kept)
+    shape = (b, s_local, h, d)
+    ek, ev = _clone(kb0), _clone(vb0)
+    rec = tuple(torch.empty(shape, dtype=torch.bfloat16, device=dev) for _ in range(2))
+    rf.ef_update_slot(ek, ev, 0, codec, payloads[0], shape, rec=rec)
+    torch.cuda.synchronize()
+    tk, tv = _clone(kb0), _clone(vb0)
+    ref_rec = rf.ef_update_slot_ref(tk, tv, 0, codec, payloads[0])
+    ef_rel = max(_rel(_decoded(ek), _decoded(tk)), _rel(_decoded(ev), _decoded(tv)))
+    ef_err = max((_decoded(x).float() - _decoded(y).float()).abs().max().item() for x, y in ((ek, tk), (ev, tv)))
+    rec_equal = all(torch.equal(r_, x.reshape(shape).to(torch.bfloat16)) for r_, x in zip(rec, ref_rec))
+    if not (ef_rel <= QUANT_NEW_BASE_RTOL and rec_equal):
+        raise AssertionError(f"EF pass at {name}: new bases {ef_rel} relative, bf16 reconstruction "
+                             f"equal to the twin's: {rec_equal}")
+
     q, k, v = shards[0]
     payload_bytes = sum(t.numel() * t.element_size() for p in payloads for t in p)
     # each hop reads and writes its source slot of both stacks
     base_bytes = 2 * 2 * ring * n * c * (1 if quantized else 4)
     bound_ms, bound_by = _bound(_nbytes(q, k, v, out, lse) + payload_bytes + base_bytes,
                                 4 * b * h * s_local * ring * s_local * d, PEAK_BF16_FLOPS)
+    # the EF pass: one slot of both stacks read and written, the payload
+    # read, the bf16 reconstruction written; (4 + 2K) fp32 operations per
+    # element (the rank-K scale, the sign or level, the base update)
+    ef_bytes = (2 * 2 * n * c * (1 if quantized else 4) + sum(_nbytes(t) for t in payloads[0])
+                + _nbytes(*rec))
+    ef_bound_ms, ef_bound_by = _bound(ef_bytes, 2 * (4 + 2 * payloads[0][-1].shape[0]) * n * c,
+                                      PEAK_FP32_FLOPS)
+
+    ms = _time_ms(lambda: kernel(0, *stacks[0]), 20)
+    plain_ms = _time_ms(lambda: rf.compact_ring_flash_ref(*shards[0], kr, vr, arriving(payloads, 0),
+                                                          codec=codec, my=0, ring_size=ring), 5)
+    ef_ms = _time_ms(lambda: rf.ef_update_slot(ek, ev, 0, codec, payloads[0], shape, rec=rec), 20)
+    ef_plain_ms = _time_ms(lambda: rf.ef_update_slot_ref(tk, tv, 0, codec, payloads[0]), 5)
+    sets = [(_clone(kb0), _clone(vb0)) for _ in range(timing.copies(base_bytes // 2 + _nbytes(q, k, v)))]
+    g_ms = graph_ms(timing, [lambda t=t: kernel(0, *t) for t in sets])
+    n_sets = len(sets)
+    sets = [(_clone(kb0), _clone(vb0), tuple(torch.empty_like(x) for x in rec))
+            for _ in range(timing.copies(ef_bytes))]
+    ef_g_ms = graph_ms(timing, [lambda t=t: rf.ef_update_slot(t[0], t[1], 0, codec, payloads[0], shape,
+                                                              rec=t[2]) for t in sets])
+    del sets
     row = {"shape": name, "max_abs_err_out": err_out, "max_abs_err_lse": err_lse,
-           "new_base_rel_err": base_rel, "ranks_bit_equal": consistent, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+           "new_base_rel_err": base_rel, "ranks_bit_equal": consistent, "plan": list(plan),
+           "ctas": ctas, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by,
+           "ef": {"max_abs_err": ef_err, "new_base_rel_err": ef_rel, "rec_bit_equal": rec_equal,
+                  "ms": ef_ms, "graph_ms": ef_g_ms, "plain_ms": ef_plain_ms, "bound_ms": ef_bound_ms,
+                  "bound_by": ef_bound_by}}
     print(f"[12] compact ring {name}: out err {err_out:.3e} (tol {FLASH_OUT_ATOL}), lse err "
           f"{err_lse:.3e} (tol {FLASH_LSE_ATOL}), new bases rel err {base_rel:.3e} (tol "
-          f"{QUANT_NEW_BASE_RTOL}), {ring} ranks' stacks bit-equal: {consistent}; kernel {ms:.4f} ms "
-          f"({ring} launches), twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    if not (err_out <= FLASH_OUT_ATOL and err_lse <= FLASH_LSE_ATOL and base_rel <= QUANT_NEW_BASE_RTOL
-            and consistent):
-        raise AssertionError(f"compact ring kernel disagrees with its twin at {name}")
+          f"{QUANT_NEW_BASE_RTOL}), {ring} ranks' stacks bit-equal: {consistent}; flash plan {plan}, "
+          f"{ctas} CTAs per hop; kernel {ms:.4f} ms eager ({ring} hops), {g_ms:.4f} ms by CUDA graphs "
+          f"on {n_sets} stack copies; twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    print(f"[12] EF pass {name}: new bases rel err {ef_rel:.3e} (tol {QUANT_NEW_BASE_RTOL}), bf16 "
+          f"reconstruction bit-equal to the twin's: {rec_equal}; {ef_ms:.4f} ms eager, {ef_g_ms:.4f} "
+          f"ms by CUDA graphs per hop; twin {ef_plain_ms:.4f} ms, bound {ef_bound_ms:.5f} ms "
+          f"({ef_bound_by})")
     return row
 
 
@@ -797,6 +897,35 @@ def accel_phase(phase, what, pipe, kernels, lossless, full, window, exact=False)
     return {"s_per_image": sec, "latent_rel_err": rel, "skips": pipe.last_skips, "launches": counts}
 
 
+@contextlib.contextmanager
+def cfg_halves_apart():
+    """Within the block, a pipeline of this process runs each CFG half's
+    text path and backbone forward alone, at B1, as a rank of cfg 2 runs its
+    half: ``pipelines.pixart``'s ``precompute_text_kv`` and
+    ``pixart_forward`` are swapped for ones that split the [cond; uncond]
+    batch, call the real function on each half and join the results.  For
+    lossless requests (no attention state, no cache)."""
+    import torch
+
+    from compactfusion_tpu_torch.pipelines import pixart as pp
+
+    real_kv, real_fwd = pp.precompute_text_kv, pp.pixart_forward
+
+    def text_kv(params, text):
+        return torch.cat([real_kv(params, t) for t in text.chunk(2)], dim=1)
+
+    def forward(params, x, t, text, cfg, *, text_mask, text_kv, attn_state, **kw):
+        outs = [real_fwd(params, x_, t_, None, cfg, text_mask=m_, text_kv=kv_, attn_state=attn_state, **kw)[0]
+                for x_, t_, m_, kv_ in zip(x.chunk(2), t.chunk(2), text_mask.chunk(2), text_kv.chunk(2, dim=1))]
+        return torch.cat(outs), attn_state
+
+    pp.precompute_text_kv, pp.pixart_forward = text_kv, forward
+    try:
+        yield
+    finally:
+        pp.precompute_text_kv, pp.pixart_forward = real_kv, real_fwd
+
+
 def port_kernels():
     """Every kernel wrapper of the port (each counts its own launches)."""
     from compactfusion_tpu_torch.ops import flash, probes, quant, ring_flash
@@ -804,7 +933,7 @@ def port_kernels():
     return (flash.flash_attn_with_lse, quant.binary_quant_fastpath, quant.binary_dequant_fastpath,
             quant.int2_quant_fastpath, quant.int2_dequant_fastpath, flash.flash_attn_window_with_lse,
             ring_flash.ring_flash_attn_with_lse, ring_flash.compact_ring_flash,
-            probes.flash_parts, probes.plumb)
+            ring_flash.ef_update_slot, probes.flash_parts, probes.plumb)
 
 
 def ring_compact(compress_type, **kw):
@@ -862,12 +991,13 @@ def _rel_np(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-def ring_phase(phase, results, name, lossless, expect, bound, reference=None, low=None):
+def ring_phase(phase, results, name, lossless, expect, bound, references=(), low=None):
     """Checks one run of phases 13-15 on every rank: the same whole
     latents, launch counts equal to ``expect`` ({kernel: count}, others 0),
     and the latent error against ``lossless`` (below ``bound``; above
-    ``low`` when given) and against ``reference``.  Returns the phase's
-    report with the counts summed over ranks."""
+    ``low`` when given) and against each of ``references`` ((name,
+    latents, bound)).  Returns the phase's report with the counts summed
+    over ranks."""
     import numpy as np
 
     runs = [r[name] for r in results]
@@ -890,8 +1020,7 @@ def ring_phase(phase, results, name, lossless, expect, bound, reference=None, lo
     line = (f"[{phase}] {name} ({len(runs)} processes on one GPU, gloo): latents equal on every "
             f"rank; rel err vs lossless {rel:.6f} (bound {bound}"
             + (f", > {low}" if low is not None else "") + ")")
-    if reference is not None:
-        ref_name, ref_lat, ref_bound = reference
+    for ref_name, ref_lat, ref_bound in references:
         rep[f"latent_rel_err_vs_{ref_name}"] = r_ref = _rel_np(lat, ref_lat)
         if not r_ref <= ref_bound:
             raise AssertionError(f"{name}: latent rel err vs {ref_name} {r_ref} > {ref_bound}")
@@ -1040,12 +1169,28 @@ def main():
 
     # -- 12. the ring kernels vs their twins, one rank's view ------------------
     ring_rows = check_ring_flash(ring_flash, flash, timing, dev, gen)
-    cring_rows = [check_compact_ring(ring_flash, dev, gen, *case) for case in CRING_CASES]
+    cring_rows = [check_compact_ring(ring_flash, flash, timing, dev, gen, *case) for case in CRING_CASES]
 
     # -- 13.-15. the ring across processes that share this GPU ----------------
     # NCCL refuses two ranks on one device, so the ranks join a gloo group
-    # and their ring shifts go through host memory; all compute runs here
+    # and their ring shifts go through host memory; all compute runs here.
+    # First, in this process, request 1 with each CFG half's text path and
+    # backbone forward run alone at B1, as a rank of cfg 2 runs its half:
+    # what the model's batch alone moves against the B2 request
     lossless_np = lossless.float().cpu().numpy()
+    _reset_counts(kernels)
+    with cfg_halves_apart():
+        halves_lat, halves_img, halves_sec = request(pipe, 1)
+    check_image(halves_img, "CFG halves at B1")
+    if flash.flash_attn_with_lse.launches != 2 * DEPTH * STEPS + 1:
+        raise AssertionError(f"CFG halves at B1: flash launched {flash.flash_attn_with_lse.launches} times")
+    halves_np = halves_lat.float().cpu().numpy()
+    halves_rel = _rel_np(halves_np, lossless_np)
+    print(f"[13] one process, each CFG half's forward at B1 (as a cfg-2 rank runs it): rel err vs the "
+          f"B2 request (lossless) {halves_rel:.6f}, {halves_sec:.4f} s/image")
+    phases["cfg halves at B1"] = {"latent_rel_err_vs_lossless": halves_rel, "s_per_image": halves_sec,
+                                  "launches": {fn.__name__: fn.launches for fn in kernels}}
+    halves_ref = ("the CFG halves at B1", halves_np, HALVES_REL_MAX)
     hops, comp_steps = 2 * DEPTH, STEPS - WARMUP  # ring 2: two hops per self-attention
     ring2, fused2 = {"ring_degree": 2}, {"ring_degree": 2, "use_fused_ring": True}
     binary = {"compress_type": "binary", "comp_rank": -1}
@@ -1053,31 +1198,35 @@ def main():
         ("cfg2 lossless", {"cfg_degree": 2}, None),
         ("ring2 lossless", ring2, None), ("ring2 lossless fused", fused2, None),
         ("ring2 binary", ring2, binary), ("ring2 binary fused", fused2, binary)], threads=2)
-    # no ring: each rank runs the model on its CFG half (1024 rows per GEMM,
-    # as in a ring-2 rank, against 2048 in one process)
+    # no ring: each rank runs the model on its CFG half, which the one-process
+    # run above does too
     phases["cfg2 lossless"] = ring_phase(13, two, "cfg2 lossless", lossless_np,
-                                         {"flash_attn_with_lse": DEPTH * STEPS + 1}, RING_REL_MAX)
+                                         {"flash_attn_with_lse": DEPTH * STEPS + 1}, RING_REL_MAX,
+                                         [("the CFG halves at B1", halves_np, CFG2_VS_HALVES_MAX)])
     phases["ring2 lossless"] = ring_phase(13, two, "ring2 lossless", lossless_np,
-                                          {"flash_attn_with_lse": hops * STEPS + 1}, RING_REL_MAX)
+                                          {"flash_attn_with_lse": hops * STEPS + 1}, RING_REL_MAX,
+                                          [halves_ref])
     phases["ring2 lossless fused"] = ring_phase(
         13, two, "ring2 lossless fused", lossless_np,
-        {"flash_attn_with_lse": 1, "ring_flash_attn_with_lse": hops * STEPS}, RING_REL_MAX)
+        {"flash_attn_with_lse": 1, "ring_flash_attn_with_lse": hops * STEPS}, RING_REL_MAX, [halves_ref])
     # the single-process emulation of the same ring: same codec, chunking and batch
     _reset_counts(kernels)
     sim_lat, sim_img, sim_sec = request(pipeline(ring_compact("binary", comp_rank=-1, simulate_ring=2)), 1)
     check_image(sim_img, "ring-2 emulation")
     sim_np = sim_lat.float().cpu().numpy()
     print(f"[14] single-process ring-2 binary emulation: rel err vs lossless "
-          f"{_rel_np(sim_np, lossless_np):.6f}, {sim_sec:.4f} s/image")
+          f"{_rel_np(sim_np, lossless_np):.6f}, vs the CFG halves at B1 {_rel_np(sim_np, halves_np):.6f}, "
+          f"{sim_sec:.4f} s/image")
     sim_ref = ("the ring-2 emulation", sim_np, RING_REL_MAX)
     phases["ring2 binary"] = ring_phase(
         14, two, "ring2 binary", lossless_np,
         {"flash_attn_with_lse": hops * STEPS + 1, "binary_quant_fastpath": hops * comp_steps,
-         "binary_dequant_fastpath": hops * comp_steps}, COMPRESSED_REL_ERR_MAX, sim_ref, low=0.0)
+         "binary_dequant_fastpath": hops * comp_steps}, COMPRESSED_REL_ERR_MAX, [sim_ref, halves_ref],
+        low=0.0)
     phases["ring2 binary fused"] = ring_phase(
         14, two, "ring2 binary fused", lossless_np,
-        {"flash_attn_with_lse": hops * WARMUP + 1, "compact_ring_flash": hops * comp_steps},
-        COMPRESSED_REL_ERR_MAX, sim_ref, low=0.0)
+        {"flash_attn_with_lse": hops * WARMUP + 1, "compact_ring_flash": hops * comp_steps,
+         "ef_update_slot": hops * comp_steps}, COMPRESSED_REL_ERR_MAX, [sim_ref, halves_ref], low=0.0)
     fused_vs = _rel_np(two[0]["ring2 binary fused"]["latents"], two[0]["ring2 binary"]["latents"])
     # wire bytes: the raw fp32 K/V in warmup, then the payloads; the same on both routes
     n, c = 2 * 1024 // 2, 1152
@@ -1093,9 +1242,11 @@ def main():
         (name, {"cfg_degree": 2, "ring_degree": 2, "use_fused_ring": True},
          {"compress_type": "low-rank", "comp_rank": 4, "quantized_cache": True, "check_consistency": True})],
         threads=2)
+    # int8 EF caches: the EF pass launches twice per hop (min-max, then codes)
     phases[name] = ring_phase(15, four, name, lossless_np,
-                              {"flash_attn_with_lse": hops * WARMUP + 1, "compact_ring_flash": hops * comp_steps},
-                              COMPRESSED_REL_ERR_MAX, low=0.0)
+                              {"flash_attn_with_lse": hops * WARMUP + 1, "compact_ring_flash": hops * comp_steps,
+                               "ef_update_slot": 2 * hops * comp_steps},
+                              COMPRESSED_REL_ERR_MAX, [halves_ref], low=0.0)
     print(f"[15] EF caches across the ring: largest deviation {phases[name]['consistency_dev']}")
     if phases[name]["consistency_dev"] != 0.0:
         raise AssertionError(f"{name}: EF caches differ across ranks")
@@ -1176,8 +1327,13 @@ def main():
                     ms_vs_full_kernel=window_vs_full),
         flash_entry("ring_flash_attn_with_lse", "compactfusion_tpu/ops/ring_flash_pallas.py:347", ring_rows,
                     "ring_flash.cu"),
-        flash_entry("compact_ring_flash", "compactfusion_tpu/ops/ring_flash_pallas.py:954", cring_rows,
-                    "ring_flash.cu"),
+        flash_entry("compact_ring_flash", "compactfusion_tpu/ops/ring_flash_pallas.py:954",
+                    [{k: v for k, v in r.items() if k != "ef"} for r in cring_rows], "ring_flash.cu"),
+        {"name": "ef_update_slot", "route": "cuda", "source": "compactfusion_tpu_torch/csrc/ring_flash.cu",
+         "replaces": "compactfusion_tpu/ops/ring_flash_pallas.py:954", "launches": totals["ef_update_slot"],
+         "max_abs_err": max(r["ef"]["max_abs_err"] for r in cring_rows), "library_ms": None,
+         **{k: cring_rows[0]["ef"][k] for k in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by")},
+         "shapes": [dict(r["ef"], shape=r["shape"]) for r in cring_rows]},
         {"name": "flash_parts", "route": "cuda", "source": "compactfusion_tpu_torch/csrc/probes.cu",
          "replaces": "_prof_kernel_parts.py:69", "launches": totals["flash_parts"],
          "max_abs_err": max(r["max_abs_err"] for r in part_rows),

@@ -1,9 +1,10 @@
 // Non-causal flash attention with a natural-log LSE, bf16 in, fp32 math:
 // full attention (flash_fwd_reg_kernel for head dims up to 128, on the
 // register body of flash_reg.cuh; flash_fwd_kernel above) and banded
-// attention |i - j| <= w (flash_window_kernel).  The host picks the body,
-// padded head dim and warps per CTA (ops/flash.py::flash_plan) and passes
-// them in; the entry points launch exactly that or return an error.
+// attention |i - j| <= w (flash_window_reg_kernel on the same register body
+// up to 128; flash_window_kernel above).  The host picks the body, padded
+// head dim and warps per CTA (ops/flash.py::flash_plan) and passes them in;
+// the entry points launch exactly that or return an error.
 //
 // Replaces: compactfusion_tpu/ops/flash_pallas.py::flash_attn_with_lse, main
 // branch (kernels _flash_kernel / _flash_kernel_heads, pallas_call at
@@ -36,11 +37,14 @@
 //    are skipped.  A row with no valid key writes 0 and LSE -inf, the
 //    attn_with_lse convention.
 //
-// The banded kernel (DiTFastAttn's window attention; Sq == Sk, no kv_lens):
+// The banded kernel (DiTFastAttn's window attention; Sq == Sk, no kv_lens),
+// on either body:
 //  * off-band tiles are skipped, not masked: the q-tile at q0 visits only the
 //    KV tiles from that of max(0, q0 - w) to that of min(S - 1, q0 + BQ - 1
 //    + w), and masks |i - j| > w inside them, so the work scales with S * w
-//    (at w=64, S=1024, 64x64 tiles an inner q-tile visits 3 of 16 KV tiles);
+//    (at w=64, S=1024, 64x64 tiles an inner q-tile visits 3 of 16 KV tiles,
+//    a 128-row tile 4); the register body masks only the tiles not wholly
+//    inside a warp's band, and a warp with no key in a visited tile skips it;
 //  * a visited tile may hold no key of some row (w=4, q0=64: row 127 has
 //    none in tile 0), so the running max can still be -inf after a tile and
 //    the exponent is taken against 0 there instead of -inf - -inf = NaN;
@@ -71,17 +75,36 @@ flash_fwd_reg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 }
 
 template <int DP, int NWARPS>
+__global__ void __launch_bounds__(32 * NWARPS)
+flash_window_reg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v, Strides sq, Strides sk, Strides sv,
+                        __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int H, int S,
+                        int D, float scale_log2, int window) {
+  flash_reg_tile<__nv_bfloat16, DP, NWARPS, false, kAllParts, true>(
+      q, k, v, sq, sk, sv, out, lse, S, H, S, D, scale_log2, blockIdx.x * 16 * NWARPS, blockIdx.y,
+      blockIdx.z, Carry{}, window);
+}
+
+template <int DP, int NWARPS, bool BAND>
 int launch_reg(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                Strides sq, Strides sk, Strides sv, __nv_bfloat16* out, float* lse,
                const int* kv_lens, int B, int Sq, int Sk, int H, int D, float scale_log2,
-               cudaStream_t stream) {
+               int window, cudaStream_t stream) {
   constexpr int BQ = 16 * NWARPS, BYTES = RegLayout<DP, NWARPS>::kBytes;
-  auto kern = flash_fwd_reg_kernel<DP, NWARPS>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kern<<<grid, 32 * NWARPS, BYTES, stream>>>(q, k, v, sq, sk, sv, out, lse, kv_lens, H, Sq, Sk, D,
-                                             scale_log2);
+  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  if constexpr (BAND) {
+    auto kern = flash_window_reg_kernel<DP, NWARPS>;
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kern<<<grid, 32 * NWARPS, BYTES, stream>>>(q, k, v, sq, sk, sv, out, lse, H, Sq, D, scale_log2,
+                                               window);
+  } else {
+    auto kern = flash_fwd_reg_kernel<DP, NWARPS>;
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kern<<<grid, 32 * NWARPS, BYTES, stream>>>(q, k, v, sq, sk, sv, out, lse, kv_lens, H, Sq, Sk,
+                                               D, scale_log2);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -130,6 +153,7 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* 
 // Launch the plan (body, dp, warps): the register body at a built (dp,
 // warps) with D <= dp, or the shared-memory body with dp = D rounded up to
 // 16 and 4 warps (64x64 tiles) or 2 (32x32); anything else is an error.
+// BAND takes the banded kernel of the same body.
 template <bool BAND>
 int dispatch(const void* q, const void* k, const void* v, long long qsb, long long qss,
              long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
@@ -148,10 +172,11 @@ int dispatch(const void* q, const void* k, const void* v, long long qsb, long lo
   const auto* lens = static_cast<const int*>(kv_lens);
   const auto st = static_cast<cudaStream_t>(stream);
   const float sl2 = scale * kLog2e;
-  if (body == kRegBody && !BAND) {
-#define CF_REG_CASE(DPV, W)                                                                \
-  if (dp == DPV && warps == W) {                                                            \
-    return launch_reg<DPV, W>(qp, kp, vp, sq, sk, sv, op, lp, lens, B, Sq, Sk, H, D, sl2, st); \
+  if (body == kRegBody) {
+#define CF_REG_CASE(DPV, W)                                                                  \
+  if (dp == DPV && warps == W) {                                                              \
+    return launch_reg<DPV, W, BAND>(qp, kp, vp, sq, sk, sv, op, lp, lens, B, Sq, Sk, H, D, sl2, \
+                                    window, st);                                              \
   }
     CF_REG_PLANS(CF_REG_CASE)
 #undef CF_REG_CASE

@@ -8,9 +8,9 @@
 // registers/shared memory, so a ring folds one hop per launch into it:
 // first = no state yet, last = normalise and write out/LSE.
 //
-// Kernel 1 up to a head dim of 128, kernel 7 and the stage probe run on the
-// register body of flash_reg.cuh; this body serves the wider heads (the
-// VAE's d=512), the banded kernel 4 and the compressed ring (kernel 8).
+// Kernels 1, 4 and 7 up to a head dim of 128, kernel 8's flash partial and
+// the stage probe run on the register body of flash_reg.cuh; this body
+// serves only the wider heads (the VAE's d=512).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -110,9 +110,7 @@ __device__ inline void load_tile(__nv_bfloat16* dst, int ld, const __nv_bfloat16
 
 // The tile body.  BAND: keys outside |i - j| <= window are masked and the
 // KV tiles wholly outside the band of this q-tile are not visited (then
-// Sq == Sk and kv_len == Sk).  Keys at or past kv_len are masked.  k and v
-// carry no __restrict__: the compressed ring reads here what it wrote
-// earlier in the same launch.
+// Sq == Sk and kv_len == Sk).  Keys at or past kv_len are masked.
 template <int NWARPS, int BK, bool BAND, bool CARRY>
 __device__ __forceinline__ void
 flash_tile(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* k, const __nv_bfloat16* v,

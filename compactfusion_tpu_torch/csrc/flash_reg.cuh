@@ -1,13 +1,14 @@
 // The register-resident flash tile body for Hopper: kernel 1 (non-causal
-// attention with a natural-log LSE, head dims up to 128; csrc/flash_attn.cu)
-// and kernel 7 (one ring hop folded into an fp32 (m, l, acc) state;
-// csrc/ring_flash.cu) run on it, and so does the stage probe of kernel 1
-// (csrc/probes.cu).
+// attention with a natural-log LSE, head dims up to 128; csrc/flash_attn.cu),
+// kernel 4 (the same, banded: BAND), kernel 7 (one ring hop folded into an
+// fp32 (m, l, acc) state; csrc/ring_flash.cu) and the flash partial of
+// kernel 8 (kernel 7's launch on the reconstructed K/V) run on it, and so
+// does the stage probe of kernel 1 (csrc/probes.cu).
 //
 // Replaces: compactfusion_tpu/ops/flash_pallas.py::flash_attn_with_lse,
-// main branch (pallas_call at flash_pallas.py:593), and
-// compactfusion_tpu/ops/ring_flash_pallas.py::ring_flash_attn_with_lse
-// (pallas_call at ring_flash_pallas.py:347).
+// main branch (pallas_call at flash_pallas.py:593) and window= branch
+// (:508), and compactfusion_tpu/ops/ring_flash_pallas.py::
+// ring_flash_attn_with_lse (pallas_call at ring_flash_pallas.py:347).
 //
 // What bounds it on an H100: operations.  At B2 H16 S1024 d72 the two
 // products are 4 * B * H * S^2 * D = 9.66 GFLOP, 9.77 us at 989 TFLOP/s
@@ -170,13 +171,26 @@ __device__ __forceinline__ void async_tile(T* dst, const T* src, long long strid
 // writes 0 and LSE -inf.  With a stage switched off (PARTS) the probe
 // passes the factor of its scores as scale_log2: scale * log2e with the
 // exponent, the plain scale without it.
-template <typename T, int DP, int NWARPS, bool CARRY, int PARTS = kAllParts>
+//
+// BAND (kernel 4; self-attention, Sq == kv_len): keys with |i - j| > window
+// are left out.  The K/V loop visits only the tiles the band of the q-tile
+// touches, from that of max(0, q0 - window) to that of min(S - 1, q0 + BQ -
+// 1 + window), and the copy ring starts at the first of them; a tile is
+// masked only where it is not wholly inside the band of every row of the
+// warp (or holds keys at or past kv_len), and a warp whose 16 rows have no
+// key in a visited tile skips its products there: that leaves its state as
+// a wholly masked tile would.  A row may have no key in the first tiles it
+// visits (w=4 at q0=64; w=0): its max stays -inf and the exponents are taken
+// against 0, as for a row with no key yet.
+template <typename T, int DP, int NWARPS, bool CARRY, int PARTS = kAllParts, bool BAND = false>
 __device__ __forceinline__ void
 flash_reg_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, Strides sq,
                Strides sk, Strides sv, T* __restrict__ out, float* __restrict__ lse, int kv_len,
-               int H, int Sq, int D, float scale_log2, int q0, int h, int b, Carry carry) {
+               int H, int Sq, int D, float scale_log2, int q0, int h, int b, Carry carry,
+               int window = 0) {
   static_assert(DP % 16 == 0 && DP <= 128, "the register body pads the head dim to 16..128");
   static_assert(PARTS == kAllParts || !CARRY, "stage switches are for full attention");
+  static_assert(!BAND || (PARTS == kAllParts && !CARRY), "the band is kernel 4's alone");
   using Ops = MmaOps<T>;
   using L = RegLayout<DP, NWARPS>;
   constexpr bool kAll = PARTS == kAllParts;
@@ -197,18 +211,22 @@ flash_reg_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   const T* qbh = q + b * sq.b + h * sq.h;
   const T* kbh = k + b * sk.b + h * sk.h;
   const T* vbh = v + b * sv.b + h * sv.h;
-  const int n_tiles = (kv_len + BK - 1) / BK;
+  int t_lo = 0, t_end = (kv_len + BK - 1) / BK;
+  if constexpr (BAND) {  // the K/V tiles the band of rows [q0, q0 + BQ) touches
+    t_lo = max(0, q0 - window) / BK;
+    t_end = min(kv_len - 1, q0 + BQ - 1 + window) / BK + 1;
+  }
 
   auto load_kv = [&](int t) {
     T* Ks = ring + (t % STAGES) * 2 * BK * LD;
     async_tile<T, BK, DP, LD, NT>(Ks, kbh, sk.s, t * BK, kv_len, D, tid);
     async_tile<T, BK, DP, LD, NT>(Ks + BK * LD, vbh, sv.s, t * BK, kv_len, D, tid);
   };
-  // group 0: Q and tile 0; group s: tile s
+  // group 0: Q and tile t_lo; group s: tile t_lo + s
   async_tile<T, BQ, DP, LD, NT>(Qs, qbh, sq.s, q0, Sq, D, tid);
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_tiles) load_kv(s);
+    if (t_lo + s < t_end) load_kv(t_lo + s);
     cp_async_commit();
   }
 
@@ -243,19 +261,27 @@ flash_reg_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   }
 
   unsigned qf[KQ][4];  // Q's A fragments, loaded at the first tile
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t_lo; t < t_end; ++t) {
     const int k0 = t * BK;
     cp_async_wait<STAGES - 2>();  // this thread's copies of tile t (and Q) landed
     __syncthreads();  // everyone's landed; everyone is done with tile t - 1's buffer
-    if (t + STAGES - 1 < n_tiles) load_kv(t + STAGES - 1);  // into tile t - 1's buffer
+    if (t + STAGES - 1 < t_end) load_kv(t + STAGES - 1);  // into tile t - 1's buffer
     cp_async_commit();
     const T* Ks = ring + (t % STAGES) * 2 * BK * LD;
     const T* Vs = Ks + BK * LD;
-    if (t == 0) {
+    if (t == t_lo) {
 #pragma unroll
       for (int kk = 0; kk < KQ; ++kk) {
         ldmatrix_x4(qf[kk], Qs + (r0 + (lane % 16)) * LD + kk * 16 + (lane / 16) * 8);
       }
+    }
+    // BAND: whether this warp's rows [w0, w0 + 16) have keys in the tile, and
+    // whether the tile lies wholly inside every one of their bands
+    bool band_ragged = false;
+    if constexpr (BAND) {
+      const int w0 = q0 + r0;
+      if (k0 > w0 + 15 + window || k0 + BK - 1 < w0 - window) continue;  // no key: skip
+      band_ragged = w0 + 15 - k0 > window || k0 + BK - 1 - w0 > window || k0 + BK > kv_len;
     }
 
     // scores of this warp's 16 rows: S = Q K^T, fp32 fragments
@@ -283,8 +309,9 @@ flash_reg_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
       }
     }
 
-    // scale, mask the keys at or past kv_len (only the last tile has any),
-    // and the running max of the two rows across the quad
+    // scale, mask the keys at or past kv_len (only the last tile has any)
+    // and, with BAND, those off the band, and the running max of the two
+    // rows across the quad
     const bool ragged = k0 + BK > kv_len;
     float xA = -CUDART_INF_F, xB = -CUDART_INF_F;
 #pragma unroll
@@ -294,7 +321,14 @@ flash_reg_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
         float x;
         if constexpr (kAll) x = s[n][i] * scale_log2;
         else x = probe_factor<PARTS>(s[n][i], scale_log2);
-        if (ragged && k0 + n * 8 + tig * 2 + (i % 2) >= kv_len) x = -CUDART_INF_F;
+        if constexpr (BAND) {
+          const int col = k0 + n * 8 + tig * 2 + (i % 2);
+          if (band_ragged && (col >= kv_len || abs((i < 2 ? rowA : rowB) - col) > window)) {
+            x = -CUDART_INF_F;
+          }
+        } else {
+          if (ragged && k0 + n * 8 + tig * 2 + (i % 2) >= kv_len) x = -CUDART_INF_F;
+        }
         s[n][i] = x;
       }
       xA = fmaxf(xA, fmaxf(s[n][0], s[n][1]));

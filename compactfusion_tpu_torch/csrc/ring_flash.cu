@@ -1,24 +1,29 @@
-// The fused ring kernels, one launch per ring hop, each folding its hop
-// into a running fp32 online-softmax state (m, l, acc) in device memory;
-// the last hop normalises and writes out (bf16) and LSE (fp32, natural log).
+// The fused ring kernels, one flash launch per ring hop, each folding its
+// hop into a running fp32 online-softmax state (m, l, acc) in device
+// memory; the last hop normalises and writes out (bf16) and LSE (fp32,
+// natural log).
 //
 // Replaces: compactfusion_tpu/ops/ring_flash_pallas.py
 //  * ring_flash_attn_with_lse (_ring_kernel, pallas_call at :347): the
-//    uncompressed ring, here ring_flash_hop_kernel;
+//    uncompressed ring, here ring_flash_hop_reg_kernel (ring_flash_hop_kernel
+//    for head dims above 128);
 //  * compact_binary_ring_flash (_cring_kernel, pallas_call at :954): the
-//    compressed ring, here compact_ring_hop_kernel: per hop, dequant of the
-//    packed payload (1-bit signs, INT2 sign+magnitude, or LOW_RANK u.v),
-//    the EF update of the source slot in place, and a flash partial on the
-//    reconstruction (the local exact K/V at hop 0).
+//    compressed ring, here two launches per hop in stream order: the EF pass
+//    (ef_update_fp32_kernel, or ef_minmax_int8_kernel then
+//    ef_codes_int8_kernel): dequant of the packed payload (1-bit signs, INT2
+//    sign+magnitude, or LOW_RANK u.v) and the EF update of the source slot
+//    in place, with a bf16 copy of the reconstruction; then kernel 7's hop
+//    on that copy (the local exact K/V at hop 0).
 // The TPU kernels move K/V or the payload between chips by RDMA inside one
 // launch, with entry and neighbour fences.  Here the host exchanges the
 // next hop's block (torch.distributed, two-sided, so ordered by itself)
-// while this hop's launch runs, and no fence is needed.
+// while this hop's launches run, and no fence is needed.
 //
 // What bounds them on an H100: the flash partial, as for flash_attn.cu
-// (~4*Sq*Sk*d FLOPs per head on ~8*S*d bytes, bound by math).  The
-// compressed hop adds an elementwise pass over the source slot of the EF
-// stack (read and write Sk*d fp32 per head and K/V: memory).
+// (~4*Sq*Sk*d FLOPs per head on ~8*S*d bytes, bound by math).  The EF pass
+// is memory: it reads and writes the source slot of both stacks (N*C fp32
+// each at ring 2 B2: ~19 MB) and writes the bf16 copy (~5 MB), ~7 us at
+// 3.35 TB/s.
 //
 // Design:
 //  * kernel 7 is kernel 1's body with CARRY: one CTA per (q-tile, head,
@@ -27,19 +32,20 @@
 //    ring_flash_hop_reg_kernel) with the tile height ops/flash.py::flash_plan
 //    picks (at ring 8, Sq = 128, shorter tiles fill the card), wider ones
 //    the shared-memory body (ring_flash_hop_kernel);
-//  * compact_ring_hop_kernel gives one CTA a whole (b, h): with residual 1
-//    the reconstruction IS the new base of slot src, so a CTA that wrote
-//    the slot in place while another CTA of the same (b, h) still read it
-//    would add the delta twice.  The CTA first rebuilds the head's Sk x D
-//    block of K and of V from base + delta, writes the new base and (after
-//    hop 0) a bf16 copy of the block into a scratch (B, Sk, H, D) tensor,
-//    then runs the flash body over its q-tiles in turn, reading K/V from
-//    the scratch (or the exact K/V at hop 0).  That is B*H CTAs: 16-32 on
-//    132 SMs at PixArt's ring 2, the first thing a perf PR should change;
-//  * int8 EF bases (B == 1): the per-channel min-max over the head's Sk rows
-//    comes first (one thread per channel), then codes, then the new bf16
-//    scale and min, as codecs.encode_int8 computes them (the scale's
-//    division by 255 a true division);
+//  * the EF pass is its own launch over tiles of 32 channels x 64 rows of
+//    the slot (K and V on the grid's z): hundreds of CTAs (1,152 at ring 2
+//    B2).  With residual 1 the reconstruction IS the slot's new base, which
+//    is written in place; each element is read and written by one thread,
+//    so no reader of an element runs after its write.  The flash partial
+//    reads only the bf16 copy, which the next hop's pass overwrites in
+//    stream order;
+//  * int8 EF bases (B == 1): the per-channel min and max over the N rows
+//    are taken across CTAs in two stages (per tile in pass 1, the tiles
+//    reduced in pass 2; min and max are exact in any order, so the bits are
+//    those of one serial loop); then the codes, then the new bf16 scale and
+//    min, as codecs.encode_int8 computes them (the scale's division by 255
+//    a true division).  Pass 2 decodes with the old scale and min from a
+//    copy pass 1 took, so it can write the new ones in place;
 //  * the EF stacks are read and written in their own (R, N, C) layout, a
 //    head being a column block of C (the TPU wrapper transposed the whole
 //    stack in and out on every call);
@@ -75,131 +81,202 @@ ring_flash_hop_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
                                       blockIdx.z, carry);
 }
 
-// One hop's payload and the source slot of the EF stacks (K at [0], V at [1]).
-struct CringArgs {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  Strides sq, sk, sv;
+// The EF pass of kernel 8: one hop's payload applied to the source slot of
+// both EF stacks (K at [0], V at [1]).
+struct SlotArgs {
   const uint8_t* packed[2];     // (B, H, Sk, D/8 or D/4) per-head grouped codes; null for LOW_RANK
   const __nv_bfloat16* u[2];    // (N, K) scale rows
   const __nv_bfloat16* vcol[2]; // (K, C) scale columns
-  int rank;                     // K
   void* base[2];                // slot src: (N, C) fp32, or (N, C) uint8 codes
   __nv_bfloat16* bscale[2];     // slot src (1, C) bf16 int8 scale, or null
   __nv_bfloat16* bmin[2];       // slot src (1, C) bf16 int8 minimum, or null
-  __nv_bfloat16* rec[2];        // (B, Sk, H, D) bf16 reconstruction scratch
-  __nv_bfloat16* out;
-  float* lse;
-  Carry carry;
-  int B, Sq, Sk, H, D;
+  __nv_bfloat16* rec[2];        // (N, C) = (B, Sk, H, D) bf16 reconstruction, or null (hop 0)
+  float* part;                  // int8: (2, row tiles, 2, C) each tile's min and max per channel
+  __nv_bfloat16* snap;          // int8: (2, 2, C) the slot's old scale and min
+  int rank;                     // K
+  int N, C, Sk, H, D;
   int codec;  // 0 binary, 1 int2, 2 lowrank
-  int quantized;
-  float scale_log2;
 };
 
-// base + delta of element (n, dd) of head h, batch b, for K (w = 0) or V (1):
-// the reconstruction, which is also the slot's new EF base.
-__device__ __forceinline__ float reconstruct(const CringArgs& a, int w, int b, int h, int n,
-                                             int dd) {
-  const int C = a.H * a.D;
-  const long long row = static_cast<long long>(b) * a.Sk + n;
-  const int col = h * a.D + dd;
-  const __nv_bfloat16* u = a.u[w] + row * a.rank;
-  const __nv_bfloat16* vc = a.vcol[w] + col;
+// One CTA of the EF pass takes a tile of kEfCols channels by kEfRows rows:
+// a warp per row lane, its 32 threads on 32 neighbouring channels.  Keep
+// kEfRows equal to ops/ring_flash.py::EF_ROWS (the int8 scratch's size).
+constexpr int kEfCols = 32;
+constexpr int kEfLanes = 8;
+constexpr int kEfRows = 64;
+
+// The pointers of K (w = 0) or V (1), picked without indexing the kernel's
+// parameter arrays by a runtime value (which would copy them to local memory)
+struct SlotOf {
+  const uint8_t* packed;
+  const __nv_bfloat16* u;
+  const __nv_bfloat16* vcol;
+  void* base;
+  __nv_bfloat16* bscale;
+  __nv_bfloat16* bmin;
+  __nv_bfloat16* rec;
+};
+
+__device__ __forceinline__ SlotOf slot_of(const SlotArgs& a, int w) {
+  const bool v = w != 0;
+  return SlotOf{v ? a.packed[1] : a.packed[0], v ? a.u[1] : a.u[0],      v ? a.vcol[1] : a.vcol[0],
+                v ? a.base[1] : a.base[0],     v ? a.bscale[1] : a.bscale[0],
+                v ? a.bmin[1] : a.bmin[0],     v ? a.rec[1] : a.rec[0]};
+}
+
+// What a thread's column fixes of its elements' addresses: the head, the
+// channel within it, and the byte and bit offset of its code
+struct ColOf {
+  int col, h, byte_col, shift;
+};
+
+__device__ __forceinline__ ColOf col_of(const SlotArgs& a, int col) {
+  const int h = col / a.D, dd = col % a.D;
+  const int g = a.codec == 1 ? a.D / 4 : a.D / 8;  // code bytes per row of a head
+  return ColOf{col, h, dd % g, (a.codec == 1 ? 2 : 1) * (dd / g)};
+}
+
+// base + delta of element (row, c.col) of the slot: the reconstruction,
+// which is also the slot's new EF base.  int8 bases decode with the given
+// scale and min (null: fp32 bases).
+__device__ __forceinline__ float reconstruct(const SlotArgs& a, const SlotOf& p, const ColOf& c,
+                                             int row, const __nv_bfloat16* scale,
+                                             const __nv_bfloat16* minv) {
+  const __nv_bfloat16* u = p.u + static_cast<long long>(row) * a.rank;
+  const __nv_bfloat16* vc = p.vcol + c.col;
   float s = __fmul_rn(__bfloat162float(u[0]), __bfloat162float(vc[0]));
   for (int i = 1; i < a.rank; ++i) {
-    s = __fadd_rn(s, __fmul_rn(__bfloat162float(u[i]), __bfloat162float(vc[static_cast<long long>(i) * C])));
+    s = __fadd_rn(s, __fmul_rn(__bfloat162float(u[i]), __bfloat162float(vc[static_cast<long long>(i) * a.C])));
   }
   float delta = s;
-  if (a.codec == 0) {
-    const int g = a.D / 8;
-    const uint8_t byte = a.packed[w][((static_cast<long long>(b) * a.H + h) * a.Sk + n) * g + dd % g];
-    delta = ((byte >> (dd / g)) & 1) ? s : -s;
-  } else if (a.codec == 1) {
-    const int g = a.D / 4;
-    const uint8_t byte = a.packed[w][((static_cast<long long>(b) * a.H + h) * a.Sk + n) * g + dd % g];
-    const int code = (byte >> (2 * (dd / g))) & 3;
-    const float val = (code >= 2 ? 1.f : -1.f) * ((code & 1) ? 2.f : 0.5f);
-    delta = __fmul_rn(val, s);
+  if (a.codec != 2) {
+    const int b = row / a.Sk, n = row - b * a.Sk;
+    const int g = a.codec == 1 ? a.D / 4 : a.D / 8;
+    const uint8_t byte = p.packed[((static_cast<long long>(b) * a.H + c.h) * a.Sk + n) * g + c.byte_col];
+    if (a.codec == 0) {
+      delta = ((byte >> c.shift) & 1) ? s : -s;
+    } else {
+      const int code = (byte >> c.shift) & 3;
+      const float val = (code >= 2 ? 1.f : -1.f) * ((code & 1) ? 2.f : 0.5f);
+      delta = __fmul_rn(val, s);
+    }
   }
+  const long long idx = static_cast<long long>(row) * a.C + c.col;
   float base;
-  if (a.quantized) {
-    const uint8_t c = static_cast<const uint8_t*>(a.base[w])[row * C + col];
-    base = __fadd_rn(__fmul_rn(static_cast<float>(c), __bfloat162float(a.bscale[w][col])),
-                     __bfloat162float(a.bmin[w][col]));
+  if (scale != nullptr) {
+    const uint8_t q = static_cast<const uint8_t*>(p.base)[idx];
+    base = __fadd_rn(__fmul_rn(static_cast<float>(q), __bfloat162float(scale[c.col])),
+                     __bfloat162float(minv[c.col]));
   } else {
-    base = static_cast<const float*>(a.base[w])[row * C + col];
+    base = static_cast<const float*>(p.base)[idx];
   }
   return __fadd_rn(base, delta);
 }
 
-template <int NWARPS, int BK>
-__global__ void __launch_bounds__(32 * NWARPS) compact_ring_hop_kernel(CringArgs a) {
-  constexpr int NT = 32 * NWARPS;
-  constexpr int BQ = 16 * NWARPS;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int D = a.D, Sk = a.Sk, C = a.H * a.D;
-  const bool keep_rec = !a.carry.first;  // hop 0 attends the exact K/V
-  // per-channel min and max of the int8 requant, after the flash layout
-  float* ch_min = reinterpret_cast<float*>(smem + make_layout(D, BQ, BK).bytes);
-  float* ch_max = ch_min + D;
+// The rows of this thread in its CTA's tile, each below N: row(i) for i in
+// [0, kEfRows / kEfLanes), unrolled so their loads are in flight together
+constexpr int kEfRowsPerThread = kEfRows / kEfLanes;
+__device__ __forceinline__ int tile_row(int i) { return blockIdx.y * kEfRows + threadIdx.y + i * kEfLanes; }
 
-  for (int w = 0; w < 2; ++w) {
-    if (!a.quantized) {
-      float* base = static_cast<float*>(a.base[w]);
-      for (int idx = tid; idx < Sk * D; idx += NT) {
-        const int n = idx / D, dd = idx % D;
-        const float blk = reconstruct(a, w, b, h, n, dd);
-        base[(static_cast<long long>(b) * Sk + n) * C + h * D + dd] = blk;
-        if (keep_rec) a.rec[w][((static_cast<long long>(b) * Sk + n) * a.H + h) * D + dd] = __float2bfloat16(blk);
-      }
-    } else {
-      // 1. min and max of the new block over the Sk rows, per channel
-      for (int dd = tid; dd < D; dd += NT) {
-        float mn = CUDART_INF_F, mx = -CUDART_INF_F;
-        for (int n = 0; n < Sk; ++n) {
-          const float blk = reconstruct(a, w, b, h, n, dd);
-          mn = fminf(mn, blk);
-          mx = fmaxf(mx, blk);
-        }
-        ch_min[dd] = mn;
-        ch_max[dd] = mx;
-      }
-      __syncthreads();
-      // 2. codes (each element read, then written, by one thread)
-      uint8_t* codes = static_cast<uint8_t*>(a.base[w]);
-      for (int idx = tid; idx < Sk * D; idx += NT) {
-        const int n = idx / D, dd = idx % D;
-        const float blk = reconstruct(a, w, b, h, n, dd);
-        const float mn = ch_min[dd];
-        const float sc = __fdiv_rn(__fadd_rn(__fsub_rn(ch_max[dd], mn), 1e-6f), 255.f);
-        const float code = fminf(fmaxf(rintf(__fdiv_rn(__fsub_rn(blk, mn), sc)), 0.f), 255.f);
-        codes[(static_cast<long long>(b) * Sk + n) * C + h * D + dd] = static_cast<uint8_t>(code);
-        if (keep_rec) a.rec[w][((static_cast<long long>(b) * Sk + n) * a.H + h) * D + dd] = __float2bfloat16(blk);
-      }
-      __syncthreads();  // every reader of the old scale and min is done
-      // 3. the new scale and min of the slot's channels
-      for (int dd = tid; dd < D; dd += NT) {
-        const float mn = ch_min[dd];
-        const float sc = __fdiv_rn(__fadd_rn(__fsub_rn(ch_max[dd], mn), 1e-6f), 255.f);
-        a.bscale[w][h * D + dd] = __float2bfloat16(sc);
-        a.bmin[w][h * D + dd] = __float2bfloat16(mn);
-      }
-      __syncthreads();  // ch_min/ch_max are free for V
+// fp32 bases: every element is read, rebuilt and written back in place by
+// one thread, and its bf16 copy goes to rec after hop 0
+__global__ void __launch_bounds__(kEfCols * kEfLanes) ef_update_fp32_kernel(SlotArgs a) {
+  const int col = blockIdx.x * kEfCols + threadIdx.x;
+  if (col >= a.C) return;
+  const SlotOf p = slot_of(a, blockIdx.z);
+  const ColOf c = col_of(a, col);
+  float* base = static_cast<float*>(p.base);
+  __nv_bfloat16* rec = p.rec;
+#pragma unroll
+  for (int i = 0; i < kEfRowsPerThread; ++i) {
+    const int row = tile_row(i);
+    if (row >= a.N) break;
+    const float blk = reconstruct(a, p, c, row, nullptr, nullptr);
+    const long long idx = static_cast<long long>(row) * a.C + col;
+    base[idx] = blk;
+    if (rec != nullptr) rec[idx] = __float2bfloat16(blk);
+  }
+}
+
+// int8 bases, pass 1: each tile's min and max of the new block per channel
+// (a thread over its rows, then the CTA's row lanes), into part; the CTAs
+// of the first row tile also copy the slot's old scale and min into snap,
+// which pass 2 decodes with while it writes the new ones in place
+__global__ void __launch_bounds__(kEfCols * kEfLanes) ef_minmax_int8_kernel(SlotArgs a) {
+  __shared__ float lo[kEfLanes][kEfCols], hi[kEfLanes][kEfCols];
+  const int w = blockIdx.z, tx = threadIdx.x, ty = threadIdx.y;
+  const int col = blockIdx.x * kEfCols + tx;
+  const SlotOf p = slot_of(a, w);
+  float mn = CUDART_INF_F, mx = -CUDART_INF_F;
+  if (col < a.C) {
+    const ColOf c = col_of(a, col);
+#pragma unroll
+    for (int i = 0; i < kEfRowsPerThread; ++i) {
+      const int row = tile_row(i);
+      if (row >= a.N) break;
+      const float blk = reconstruct(a, p, c, row, p.bscale, p.bmin);
+      mn = fminf(mn, blk);
+      mx = fmaxf(mx, blk);
     }
   }
-  __syncthreads();  // the reconstruction is written before any tile reads it
+  lo[ty][tx] = mn;
+  hi[ty][tx] = mx;
+  __syncthreads();
+  if (ty != 0 || col >= a.C) return;
+  for (int i = 1; i < kEfLanes; ++i) {
+    mn = fminf(mn, lo[i][tx]);
+    mx = fmaxf(mx, hi[i][tx]);
+  }
+  float* part = a.part + (static_cast<long long>(w) * gridDim.y + blockIdx.y) * 2 * a.C;
+  part[col] = mn;
+  part[a.C + col] = mx;
+  if (blockIdx.y == 0) {
+    a.snap[(2 * w) * a.C + col] = p.bscale[col];
+    a.snap[(2 * w + 1) * a.C + col] = p.bmin[col];
+  }
+}
 
-  const __nv_bfloat16* kk = keep_rec ? a.rec[0] : a.k;
-  const __nv_bfloat16* vv = keep_rec ? a.rec[1] : a.v;
-  const Strides rs{static_cast<long long>(Sk) * a.H * D, static_cast<long long>(a.H) * D, D};
-  const Strides sk = keep_rec ? rs : a.sk, sv = keep_rec ? rs : a.sv;
-  for (int q0 = 0; q0 < a.Sq; q0 += BQ) {
-    __syncthreads();  // the previous tile's rows are written out
-    flash_tile<NWARPS, BK, false, true>(a.q, kk, vv, a.sq, sk, sv, a.out, a.lse, Sk, a.H, a.Sq,
-                                        Sk, D, a.scale_log2, 0, q0, h, b, a.carry);
+// int8 bases, pass 2: the tiles' min and max reduced per channel (exact in
+// any order), then the codes with the scale's true division by 255, as
+// codecs.encode_int8 takes them (each element read, then written, by one
+// thread; the old scale and min read from snap); the first row tile writes
+// the new scale and min in place
+__global__ void __launch_bounds__(kEfCols * kEfLanes) ef_codes_int8_kernel(SlotArgs a) {
+  __shared__ float mn_s[kEfCols], sc_s[kEfCols];
+  const int w = blockIdx.z, tx = threadIdx.x, ty = threadIdx.y;
+  const int col = blockIdx.x * kEfCols + tx;
+  const SlotOf p = slot_of(a, w);
+  if (ty == 0 && col < a.C) {
+    const float* part = a.part + static_cast<long long>(w) * gridDim.y * 2 * a.C;
+    float mn = CUDART_INF_F, mx = -CUDART_INF_F;
+    for (int t = 0; t < static_cast<int>(gridDim.y); ++t) {
+      mn = fminf(mn, part[2 * t * a.C + col]);
+      mx = fmaxf(mx, part[(2 * t + 1) * a.C + col]);
+    }
+    const float sc = __fdiv_rn(__fadd_rn(__fsub_rn(mx, mn), 1e-6f), 255.f);
+    mn_s[tx] = mn;
+    sc_s[tx] = sc;
+    if (blockIdx.y == 0) {
+      p.bscale[col] = __float2bfloat16(sc);
+      p.bmin[col] = __float2bfloat16(mn);
+    }
+  }
+  __syncthreads();
+  if (col >= a.C) return;
+  const float mn = mn_s[tx], sc = sc_s[tx];
+  const __nv_bfloat16* old = a.snap + 2 * w * a.C;
+  uint8_t* codes = static_cast<uint8_t*>(p.base);
+  __nv_bfloat16* rec = p.rec;
+  const ColOf c = col_of(a, col);
+#pragma unroll
+  for (int i = 0; i < kEfRowsPerThread; ++i) {
+    const int row = tile_row(i);
+    if (row >= a.N) break;
+    const float blk = reconstruct(a, p, c, row, old, old + a.C);
+    const float code = fminf(fmaxf(rintf(__fdiv_rn(__fsub_rn(blk, mn), sc)), 0.f), 255.f);
+    const long long idx = static_cast<long long>(row) * a.C + col;
+    codes[idx] = static_cast<uint8_t>(code);
+    if (rec != nullptr) rec[idx] = __float2bfloat16(blk);
   }
 }
 
@@ -233,15 +310,6 @@ int launch_ring_hop_reg(const __nv_bfloat16* q, const __nv_bfloat16* k, const __
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   ring_flash_hop_reg_kernel<DP, NWARPS><<<grid, 32 * NWARPS, BYTES, stream>>>(
       q, k, v, sq, sk, sv, out, lse, H, Sq, Sk, D, scale_log2, carry);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int NWARPS, int BK>
-int launch_compact_hop(const CringArgs& a, cudaStream_t stream) {
-  const int bytes = make_layout(a.D, 16 * NWARPS, BK).bytes + 2 * a.D * 4;
-  if (int e = set_smem(compact_ring_hop_kernel<NWARPS, BK>, bytes)) return e;
-  dim3 grid(a.H, a.B);
-  compact_ring_hop_kernel<NWARPS, BK><<<grid, 32 * NWARPS, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -293,41 +361,36 @@ extern "C" int cf_ring_flash_hop_bf16(const void* q, const void* k, const void* 
   return static_cast<int>(refused);
 }
 
-// One hop of the compressed ring.  pk/pv: per-head packed codes (null for
-// LOW_RANK); uk/uv (N, K), vk/vv (K, C) bf16 scales; kb/vb the source slot
-// of the EF stacks, (N, C) fp32, or uint8 codes with ks/km, vs/vm its
-// (1, C) bf16 scale and min when quantized; rec_k/rec_v (B, Sk, H, D) bf16
-// scratch; codec 0 binary, 1 int2, 2 lowrank.
-extern "C" int cf_compact_ring_hop(const void* q, const void* k, const void* v,
-                                   long long qsb, long long qss, long long qsh,
-                                   long long ksb, long long kss, long long ksh,
-                                   long long vsb, long long vss, long long vsh,
-                                   const void* pk, const void* pv, const void* uk,
-                                   const void* uv, const void* vk, const void* vv, int rank,
-                                   void* kb, void* ks, void* km, void* vb, void* vs, void* vm,
-                                   void* rec_k, void* rec_v, void* m, void* l, void* acc,
-                                   void* out, void* lse, int B, int Sq, int Sk, int H, int D,
-                                   int codec, int quantized, int first, int last, float scale,
-                                   void* stream) {
-  if (B == 0 || H == 0) return 0;
-  if (codec < 0 || codec > 2 || rank < 1 || (codec != 2 && (pk == nullptr || pv == nullptr)) ||
-      (quantized && (ks == nullptr || km == nullptr || vs == nullptr || vm == nullptr))) {
+// The EF pass of one hop of the compressed ring (kernel 8's flash partial
+// is cf_ring_flash_hop_bf16 on its output).  pk/pv: per-head packed codes
+// (null for LOW_RANK); uk/uv (N, K), vk/vv (K, C) bf16 scales; kb/vb the
+// source slot of the EF stacks, (N, C) fp32, or uint8 codes with ks/km,
+// vs/vm its (1, C) bf16 scale and min when quantized (then B == 1, and
+// part (2, part_rows, 2, C) fp32 with part_rows = ceil(N / kEfRows) and
+// snap (2, 2, C) bf16 are scratch); rec_k/rec_v (B, Sk, H, D) bf16 for the
+// reconstruction, or null (hop 0); codec 0 binary, 1 int2, 2 lowrank.
+// Launches one kernel on fp32 bases, two on int8 bases.
+extern "C" int cf_ef_update_slot(const void* pk, const void* pv, const void* uk, const void* uv,
+                                 const void* vk, const void* vv, int rank, void* kb, void* ks,
+                                 void* km, void* vb, void* vs, void* vm, void* rec_k, void* rec_v,
+                                 void* part, void* snap, int part_rows, int B, int Sk, int H,
+                                 int D, int codec, int quantized, void* stream) {
+  const int N = B * Sk, C = H * D;
+  const int row_tiles = (N + kEfRows - 1) / kEfRows;
+  if (N == 0 || C == 0) return 0;
+  if (codec < 0 || codec > 2 || rank < 1 || D % 8 != 0 ||
+      (codec != 2 && (pk == nullptr || pv == nullptr)) || ((rec_k == nullptr) != (rec_v == nullptr)) ||
+      (quantized && (B != 1 || ks == nullptr || km == nullptr || vs == nullptr || vm == nullptr ||
+                     part == nullptr || snap == nullptr || part_rows != row_tiles))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  CringArgs a;
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.k = static_cast<const __nv_bfloat16*>(k);
-  a.v = static_cast<const __nv_bfloat16*>(v);
-  a.sq = Strides{qsb, qss, qsh};
-  a.sk = Strides{ksb, kss, ksh};
-  a.sv = Strides{vsb, vss, vsh};
+  SlotArgs a;
   a.packed[0] = static_cast<const uint8_t*>(pk);
   a.packed[1] = static_cast<const uint8_t*>(pv);
   a.u[0] = static_cast<const __nv_bfloat16*>(uk);
   a.u[1] = static_cast<const __nv_bfloat16*>(uv);
   a.vcol[0] = static_cast<const __nv_bfloat16*>(vk);
   a.vcol[1] = static_cast<const __nv_bfloat16*>(vv);
-  a.rank = rank;
   a.base[0] = kb;
   a.base[1] = vb;
   a.bscale[0] = static_cast<__nv_bfloat16*>(ks);
@@ -336,22 +399,23 @@ extern "C" int cf_compact_ring_hop(const void* q, const void* k, const void* v,
   a.bmin[1] = static_cast<__nv_bfloat16*>(vm);
   a.rec[0] = static_cast<__nv_bfloat16*>(rec_k);
   a.rec[1] = static_cast<__nv_bfloat16*>(rec_v);
-  a.out = static_cast<__nv_bfloat16*>(out);
-  a.lse = static_cast<float*>(lse);
-  a.carry = Carry{static_cast<float*>(m), static_cast<float*>(l), static_cast<float*>(acc),
-                  first, last};
-  a.B = B;
-  a.Sq = Sq;
+  a.part = static_cast<float*>(part);
+  a.snap = static_cast<__nv_bfloat16*>(snap);
+  a.rank = rank;
+  a.N = N;
+  a.C = C;
   a.Sk = Sk;
   a.H = H;
   a.D = D;
   a.codec = codec;
-  a.quantized = quantized;
-  a.scale_log2 = scale * kLog2e;
   const auto st = static_cast<cudaStream_t>(stream);
-  // 8 warps (128-row q-tiles) while the layout fits, as only B*H CTAs run
-  if (make_layout(D, 128, 64).bytes + 8 * D <= 200 * 1024) return launch_compact_hop<8, 64>(a, st);
-  if (make_layout(D, 64, 64).bytes + 8 * D <= 200 * 1024) return launch_compact_hop<4, 64>(a, st);
-  if (make_layout(D, 32, 32).bytes + 8 * D <= 227 * 1024) return launch_compact_hop<2, 32>(a, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((C + kEfCols - 1) / kEfCols, row_tiles, 2), block(kEfCols, kEfLanes);
+  if (!quantized) {
+    ef_update_fp32_kernel<<<grid, block, 0, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  ef_minmax_int8_kernel<<<grid, block, 0, st>>>(a);
+  if (cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
+  ef_codes_int8_kernel<<<grid, block, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }

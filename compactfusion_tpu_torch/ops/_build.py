@@ -165,25 +165,18 @@ def _declare(lib: ctypes.CDLL) -> None:
         P,                # stream
     ]
     lib.cf_ring_flash_hop_bf16.restype = I
-    lib.cf_compact_ring_hop.argtypes = [
-        P, P, P,          # q, k, v
-        L, L, L,          # q strides (b, s, h) in elements
-        L, L, L,          # k strides
-        L, L, L,          # v strides
+    lib.cf_ef_update_slot.argtypes = [
         P, P,             # packed codes of K and V (NULL for LOW_RANK)
         P, P, P, P, I,    # u_k, u_v (N,K), v_k, v_v (K,C) bf16, K
         P, P, P,          # K base slot: fp32 or int8 codes, int8 scale, int8 min
         P, P, P,          # V base slot
-        P, P,             # reconstruction scratch of K and V (B,Sk,H,D) bf16
-        P, P, P,          # running state m, l, acc
-        P, P,             # out, lse
-        I, I, I, I, I,    # B, Sq, Sk, H, D
+        P, P,             # reconstruction of K and V (B,Sk,H,D) bf16, or NULL (hop 0)
+        P, P, I,          # int8 scratch: tile min/max (2,T,2,C) fp32, old scale/min (2,2,C) bf16, T
+        I, I, I, I,       # B, Sk, H, D
         I, I,             # codec (0 binary, 1 int2, 2 lowrank), quantized
-        I, I,             # first hop, last hop
-        F,                # softmax scale
         P,                # stream
     ]
-    lib.cf_compact_ring_hop.restype = I
+    lib.cf_ef_update_slot.restype = I
     lib.cf_flash_parts_bf16.argtypes = [
         P, P, P,          # q, k, v
         L, L, L,          # q strides (b, s, h) in elements

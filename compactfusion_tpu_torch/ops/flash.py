@@ -48,12 +48,12 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def flash_plan(b: int, h: int, sq: int, d: int, band: bool = False) -> Tuple[str, int, int]:
+def flash_plan(b: int, h: int, sq: int, d: int) -> Tuple[str, int, int]:
     """(body, padded head dim, warps per CTA) of a flash launch of ``b``
     batches, ``h`` heads and ``sq`` queries of head dim ``d``.
 
-    Full attention up to d = 128 (kernel 1, and kernel 7 by the same rule)
-    takes the register body at the smallest of :data:`REG_DPS` that holds
+    Attention up to d = 128 (kernel 1, and kernels 4 and 7 and kernel 8's
+    flash partial by the same rule) takes the register body at the smallest of :data:`REG_DPS` that holds
     d rounded up to 16 (d=72 -> 80), with the tallest tile of
     :data:`REG_WARPS` that still gives :data:`MIN_CTAS` CTAs: 128-row tiles
     (8 warps) for PixArt's self-attention (256 CTAs; 8% faster than 4 warps
@@ -61,12 +61,21 @@ def flash_plan(b: int, h: int, sq: int, d: int, band: bool = False) -> Tuple[str
     ring-8 hop or chunk (Sq = 128: 128 CTAs).  At Sq = 128 the CTA floor
     keeps a tile height that measured slower: 4 warps (64 CTAs) were 9%
     faster for a ring-8 hop of kernel 7 and 23% for kernel 1's chunk
-    (``PERF.md`` §6; ROADMAP Queue 2 #1).  Banded attention (kernel 4)
-    and wider heads (the VAE's d=512) take ``flash_tile``: 64x64 tiles up
-    to :data:`TILE_64_MAX_DP`, 32x32 tiles on 2 warps above."""
+    (``PERF.md`` §6; ROADMAP Queue 2, left #3).
+
+    Banded attention (kernel 4) takes the same plan on its own kernel:
+    128-row tiles at PixArt's B2 and at the CFG half (B1: 128 CTAs).  A
+    taller tile reads more off-band keys per row (at w=64 a 128-row tile
+    reads 256 keys, where a row needs 129) and a shorter one gives more
+    CTAs; on an H100 at w=64 (``tools/time_flash.py --sweep``, ``PERF.md``
+    §6) 8 warps took 0.0223 ms, 4 warps 0.0226 and 2 warps 0.0289 at B2,
+    and 0.0122, 0.0126 and 0.0189 at the CFG half.
+
+    Wider heads (the VAE's d=512) take ``flash_tile``: 64x64 tiles up to
+    :data:`TILE_64_MAX_DP`, 32x32 tiles on 2 warps above."""
     if d % 8:
         raise ValueError(f"flash kernel: head dim must be a multiple of 8, got {d}")
-    if not band and d <= REG_DPS[-1]:
+    if d <= REG_DPS[-1]:
         dp = next(p for p in REG_DPS if p >= _round_up(d, 16))
         for warps in REG_WARPS:
             if b * h * math.ceil(sq / (16 * warps)) >= MIN_CTAS:
@@ -221,7 +230,7 @@ def flash_attn_window_with_lse(
     branch of the JAX ``flash_attn_with_lse``): q/k/v (B, S, H, D) -> out
     (B, S, H, D) in q.dtype, lse (B, H, S) fp32.  The kernel visits only the
     KV tiles that each query tile's band touches, so its work scales with
-    S * window."""
+    S * window; :func:`flash_plan` names its body and tile."""
     if q.shape[1] != k.shape[1]:
         raise ValueError(f"windowed attention is for self-attention (Sq == Sk), got "
                          f"Sq {q.shape[1]}, Sk {k.shape[1]}")
@@ -244,7 +253,7 @@ def flash_attn_window_with_lse(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         out.data_ptr(), lse.data_ptr(),
         b, s, h, d, min(int(window), s), ctypes.c_float(scale),
-        *plan_args(flash_plan(b, h, s, d, band=True)),
+        *plan_args(flash_plan(b, h, s, d)),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, "flash_attn_window_with_lse")

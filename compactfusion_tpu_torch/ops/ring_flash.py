@@ -5,12 +5,16 @@ The TPU kernels rotate K/V (kernel 7) or the packed compressed payload
 (kernel 8) around the ring by in-kernel RDMA inside one launch.  Here the
 transport is ``parallel/ring.ring_shift`` between launches, and each kernel
 folds one hop into a running fp32 online-softmax state (m, l, acc) held in
-device memory: one launch per hop, the last one writing out and LSE.  The
-wrappers take the hops as an iterable (``parallel/ring.ring_blocks``), so
-the exchange for hop s + 1 runs while hop s computes.  The kernels are in
-``csrc/ring_flash.cu``.  On CUDA tensors a wrapper launches its kernel or
-raises; on CPU tensors it runs its twin: per hop, attention with LSE (and,
-for kernel 8, the dequant and EF slot update), then ``merge_out_lse``.
+device memory: one flash launch per hop, the last one writing out and LSE.
+Kernel 8 runs, per hop and in stream order, the EF pass
+(:func:`ef_update_slot`: dequant of the hop's payload and the EF update of
+its source slot in place, with a bf16 copy of the reconstruction) and then
+kernel 7's launch on that copy.  The wrappers take the hops as an iterable
+(``parallel/ring.ring_blocks``), so the exchange for hop s + 1 runs while
+hop s computes.  The kernels are in ``csrc/ring_flash.cu``.  On CUDA
+tensors a wrapper launches its kernels or raises; on CPU tensors it runs
+its twin: per hop, attention with LSE (and, for kernel 8, the dequant and
+EF slot update), then ``merge_out_lse``.
 
 Fused payload (kernel 8), per call: packed codes grouped within each head
 (bit i of byte j is channel i*(D/8)+j of the head, crumb i of byte j
@@ -34,6 +38,9 @@ from compactfusion_tpu_torch.ops.merge import merge_out_lse
 
 FUSED_CODECS = ("binary", "int2", "lowrank")
 _CODEC_ID = {"binary": 0, "int2": 1, "lowrank": 2}
+#: rows of one CTA tile of the EF pass (``kEfRows`` in ``csrc/ring_flash.cu``):
+#: on int8 stacks the scratch holds a min and a max per channel and tile
+EF_ROWS = 64
 
 
 def _attn_partial(q, k, v, scale):
@@ -235,21 +242,23 @@ def _requant(x32: torch.Tensor) -> Int8Payload:
     return Int8Payload(codes, codecs._wire(sc), codecs._wire(mn))
 
 
-def _update_slot_ref(base, src: int, codec: str, packed, u, v, shape) -> torch.Tensor:
-    """Reconstruct slot ``src`` from a fused payload, write it back as the
-    slot's new EF base IN PLACE, and return the reconstruction (N, C) fp32."""
-    b, sk, h, d = shape
+def payload_delta(codec: str, packed, u, v) -> torch.Tensor:
+    """The delta (N, C) fp32 one K or V part of a fused payload carries."""
     s = _scale_sum(u, v)
     if codec == "lowrank":
-        delta = s
+        return s
+    codes = _to_nc(_unpack_per_head(packed, 1 if codec == "binary" else 2))
+    if codec == "binary":
+        val = codes.float() * 2.0 - 1.0
     else:
-        codes = _to_nc(_unpack_per_head(packed, 1 if codec == "binary" else 2))
-        if codec == "binary":
-            val = codes.float() * 2.0 - 1.0
-        else:
-            val = torch.where(codes >= 2, 1.0, -1.0) * torch.where((codes & 1).bool(), 2.0, 0.5)
-        delta = val * s
-    blk = decode_slot(base, src) + delta
+        val = torch.where(codes >= 2, 1.0, -1.0) * torch.where((codes & 1).bool(), 2.0, 0.5)
+    return val * s
+
+
+def _update_slot_ref(base, src: int, codec: str, packed, u, v) -> torch.Tensor:
+    """Reconstruct slot ``src`` from a fused payload, write it back as the
+    slot's new EF base IN PLACE, and return the reconstruction (N, C) fp32."""
+    blk = decode_slot(base, src) + payload_delta(codec, packed, u, v)
     if isinstance(base, Int8Payload):
         new = _requant(blk)
         for a, n in zip(base, new):
@@ -257,6 +266,15 @@ def _update_slot_ref(base, src: int, codec: str, packed, u, v, shape) -> torch.T
     else:
         base[src].copy_(blk)
     return blk
+
+
+def ef_update_slot_ref(k_base, v_base, src: int, codec: str, payload) -> tuple:
+    """Plain twin of :func:`ef_update_slot`: the reconstructions (N, C) fp32
+    of K and V from a fused payload, written back IN PLACE as slot ``src``'s
+    new EF bases (int8 stacks requantized)."""
+    pk, pv, uk, uv, vk, vv = _split_payload(codec, payload)
+    return (_update_slot_ref(k_base, src, codec, pk, uk, vk),
+            _update_slot_ref(v_base, src, codec, pv, uv, vv))
 
 
 def compact_ring_flash_ref(q, k, v, k_base, v_base, payloads: Iterable, *, codec: str, my: int,
@@ -269,10 +287,7 @@ def compact_ring_flash_ref(q, k, v, k_base, v_base, payloads: Iterable, *, codec
     out = lse = None
     hops = 0
     for step, payload in enumerate(payloads):
-        src = (my - step) % ring_size
-        pk, pv, uk, uv, vk, vv = _split_payload(codec, payload)
-        k_rec = _update_slot_ref(k_base, src, codec, pk, uk, vk, shape)
-        v_rec = _update_slot_ref(v_base, src, codec, pv, uv, vv, shape)
+        k_rec, v_rec = ef_update_slot_ref(k_base, v_base, (my - step) % ring_size, codec, payload)
         if step == 0:
             kk, vv_ = k, v
         else:
@@ -294,19 +309,126 @@ def _check_base(name, base, r, n, c, quantized):
                              f"got {tuple(t.shape)} {t.dtype}")
 
 
+def _check_payload(codec, payload, b, sk, h, d):
+    """The hop's payload as the EF pass takes it; returns its six parts."""
+    pk, pv, uk, uv, vk, vv = _split_payload(codec, payload)
+    n, c, rank = b * sk, h * d, uk.shape[1]
+    for t, shp in ((uk, (n, rank)), (uv, (n, rank)), (vk, (rank, c)), (vv, (rank, c))):
+        if tuple(t.shape) != shp or t.dtype != torch.bfloat16 or not t.is_contiguous():
+            raise ValueError(f"EF pass: scale factor {tuple(t.shape)} {t.dtype}, "
+                             f"want contiguous {shp} torch.bfloat16")
+    if codec != "lowrank":
+        width = d // 8 if codec == "binary" else d // 4
+        for t in (pk, pv):
+            if tuple(t.shape) != (b, h, sk, width) or t.dtype != torch.uint8 or not t.is_contiguous():
+                raise ValueError(f"EF pass: packed codes {tuple(t.shape)} {t.dtype}, "
+                                 f"want contiguous {(b, h, sk, width)} uint8")
+    return pk, pv, uk, uv, vk, vv
+
+
+def ef_update_slot(k_base, v_base, src: int, codec: str, payload, shape, rec=None) -> None:
+    """The EF pass of kernel 8 for one hop: slot ``src`` of both EF stacks
+    rebuilt from the hop's fused payload (base + delta) and written back IN
+    PLACE as the slot's new base (int8 stacks requantized), and, given
+    ``rec`` = (rec_k, rec_v) (B, Sk, H, D) bf16, the reconstruction rounded
+    to bf16 there.  ``shape`` is (B, Sk, H, D) of the K/V the stacks hold
+    (int8 stacks at B == 1 only).
+
+    On CUDA stacks: one launch on fp32 stacks, two on int8 stacks (the
+    per-channel min and max, then the codes), each counted in
+    ``ef_update_slot.launches``.  On CPU stacks the twin runs."""
+    if codec not in FUSED_CODECS:
+        raise ValueError(f"fused ring codec must be one of {FUSED_CODECS}, got {codec!r}")
+    quantized = isinstance(k_base, Int8Payload)
+    b, sk, h, d = shape
+    if quantized and b != 1:
+        raise ValueError(f"int8 EF bases take the fused ring at B == 1, got B={b}")
+    lead = k_base.q if quantized else k_base
+    if not lead.is_cuda:
+        recs = ef_update_slot_ref(k_base, v_base, src, codec, payload)
+        for t, x in zip(rec or (), recs):
+            t.copy_(x.reshape(t.shape))
+        return
+
+    from compactfusion_tpu_torch.ops import _build
+
+    n, c, ring_size = b * sk, h * d, lead.shape[0]
+    _check_base("k", k_base, ring_size, n, c, quantized)
+    _check_base("v", v_base, ring_size, n, c, quantized)
+    if not 0 <= src < ring_size:
+        raise ValueError(f"EF pass: slot {src} of a stack of {ring_size}")
+    parts = _check_payload(codec, payload, b, sk, h, d)
+    if rec is not None:
+        for t in rec:
+            if tuple(t.shape) != tuple(shape) or t.dtype != torch.bfloat16 or not t.is_contiguous() \
+                    or t.device != lead.device:
+                raise ValueError(f"EF pass: reconstruction {tuple(t.shape)} {t.dtype}, want "
+                                 f"contiguous {tuple(shape)} torch.bfloat16 on {lead.device}")
+    _ef_launch(_build.load(), k_base, v_base, src, codec, parts, shape, rec,
+               _ef_scratch(quantized, n, c, lead.device), torch.cuda.current_stream(lead.device).cuda_stream)
+
+
+def _ef_scratch(quantized: bool, n: int, c: int, device) -> tuple:
+    """(tile min/max (2, T, 2, C) fp32, old scale/min (2, 2, C) bf16, T) of
+    the EF pass on int8 stacks of N rows, T its row tiles; (None, None, T)
+    on fp32 stacks.  A ring reuses it hop to hop, in stream order."""
+    tiles = -(-n // EF_ROWS)
+    if not quantized:
+        return None, None, tiles
+    return (torch.empty((2, tiles, 2, c), dtype=torch.float32, device=device),
+            torch.empty((2, 2, c), dtype=torch.bfloat16, device=device), tiles)
+
+
+def _ef_launch(lib, k_base, v_base, src, codec, parts, shape, rec, scratch, stream) -> None:
+    """The EF pass's launch on checked inputs: ``parts`` the payload's six
+    parts (:func:`_check_payload`), ``scratch`` of :func:`_ef_scratch`."""
+    from compactfusion_tpu_torch.ops import _build
+
+    quantized = isinstance(k_base, Int8Payload)
+    pk, pv, uk, uv, vk, vv = parts
+    part, snap, tiles = scratch
+    b, sk, h, d = shape
+
+    def slot(base):
+        """(codes or fp32 base, scale, min) pointers of slot src."""
+        if quantized:
+            return base.q[src].data_ptr(), base.scale[src].data_ptr(), base.minv[src].data_ptr()
+        return base[src].data_ptr(), None, None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    status = lib.cf_ef_update_slot(
+        ptr(pk), ptr(pv), uk.data_ptr(), uv.data_ptr(), vk.data_ptr(), vv.data_ptr(), uk.shape[1],
+        *slot(k_base), *slot(v_base), *(ptr(t) for t in (rec or (None, None))),
+        ptr(part), ptr(snap), tiles, b, sk, h, d, _CODEC_ID[codec], int(quantized), stream,
+    )
+    _build.check(status, "ef_update_slot")
+    ef_update_slot.launches += 2 if quantized else 1
+
+
+#: kernel launches (one per hop on fp32 stacks, two on int8) since the count
+#: was last set to 0
+ef_update_slot.launches = 0
+
+
 def compact_ring_flash(q, k, v, k_base, v_base, payloads: Iterable, *, codec: str, my: int,
                        ring_size: int, scale: Optional[float] = None):
-    """The compressed ring, one kernel launch per hop: dequant of the hop's
-    payload, EF update of slot src = (my - s) % R in place, attention of q
-    against the local exact K/V (hop 0) or the bf16 reconstruction, folded
-    into the running softmax state.
+    """The compressed ring, per hop in stream order: the EF pass
+    (:func:`ef_update_slot`: dequant of the hop's payload, EF update of slot
+    src = (my - s) % R in place, its bf16 reconstruction into a scratch
+    reused hop to hop), then kernel 7's launch (``ops.flash.flash_plan``'s
+    plan) of q against the local exact K/V (hop 0) or the reconstruction,
+    folded into the running softmax state.
 
     q/k/v (B, S, H, D) bf16; ``k_base``/``v_base`` this layer's EF stacks,
     (R, N, C) fp32 tensors or ``Int8Payload`` stacks (codes (R, N, C),
     scale and min (R, 1, C) bf16; B == 1 only: the per-channel min-max of
-    the requant runs over one (b, h) block's Sk rows); ``payloads`` yields
+    the requant runs over the slot's N = Sk rows); ``payloads`` yields
     ``ring_size`` payload tuples of :func:`fused_ring_payload`, the own
-    first.  Returns (out (B, S, H, D), lse (B, H, S) fp32)."""
+    first.  Returns (out (B, S, H, D), lse (B, H, S) fp32).
+    ``compact_ring_flash.launches`` counts the flash launches (one per hop),
+    ``ef_update_slot.launches`` the EF pass's."""
     if codec not in FUSED_CODECS:
         raise ValueError(f"fused ring codec must be one of {FUSED_CODECS}, got {codec!r}")
     quantized = isinstance(k_base, Int8Payload)
@@ -317,7 +439,7 @@ def compact_ring_flash(q, k, v, k_base, v_base, payloads: Iterable, *, codec: st
                                       ring_size=ring_size, scale=scale)
 
     from compactfusion_tpu_torch.ops import _build
-    from compactfusion_tpu_torch.ops.flash import _check_qkv
+    from compactfusion_tpu_torch.ops.flash import _check_qkv, flash_plan, plan_args
 
     _check_qkv(q, k, v)
     b, sq, h, d = q.shape
@@ -327,52 +449,32 @@ def compact_ring_flash(q, k, v, k_base, v_base, payloads: Iterable, *, codec: st
     _check_base("v", v_base, ring_size, n, c, quantized)
     if scale is None:
         scale = d**-0.5
+    plan = plan_args(flash_plan(b, h, sq, d))
     m = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     acc = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty_like(m)
-    rec_k = torch.empty((b, sk, h, d), dtype=torch.bfloat16, device=q.device)
-    rec_v = torch.empty_like(rec_k)
+    rec = (torch.empty((b, sk, h, d), dtype=torch.bfloat16, device=q.device),
+           torch.empty((b, sk, h, d), dtype=torch.bfloat16, device=q.device))
+    scratch = _ef_scratch(quantized, n, c, q.device)
     lib = _build.load()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-
-    def slot(base, src):
-        """(codes or fp32 base, scale, min) pointers of slot src."""
-        if quantized:
-            return base.q[src].data_ptr(), base.scale[src].data_ptr(), base.minv[src].data_ptr()
-        return base[src].data_ptr(), None, None
-
+    state = (m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(), lse.data_ptr())
+    c_scale = ctypes.c_float(scale)
     hops = 0
     for payload in payloads:
         if hops >= ring_size:
             raise ValueError(f"ring of {ring_size} got more hops")
-        pk, pv, uk, uv, vk, vv = _split_payload(codec, payload)
-        rank = uk.shape[1]
-        for t, shp, dt in ((uk, (n, rank), torch.bfloat16), (uv, (n, rank), torch.bfloat16),
-                           (vk, (rank, c), torch.bfloat16), (vv, (rank, c), torch.bfloat16)):
-            if tuple(t.shape) != shp or t.dtype != dt or not t.is_contiguous():
-                raise ValueError(f"compact ring kernel: scale factor {tuple(t.shape)} {t.dtype}, "
-                                 f"want contiguous {shp} {dt}")
-        if codec != "lowrank":
-            width = d // 8 if codec == "binary" else d // 4
-            for t in (pk, pv):
-                if tuple(t.shape) != (b, h, sk, width) or t.dtype != torch.uint8 or not t.is_contiguous():
-                    raise ValueError(f"compact ring kernel: packed codes {tuple(t.shape)} {t.dtype}, "
-                                     f"want contiguous {(b, h, sk, width)} uint8")
-        src = (my - hops) % ring_size
-        kq, ks, km = slot(k_base, src)
-        vq, vs, vm = slot(v_base, src)
-        status = lib.cf_compact_ring_hop(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            None if pk is None else pk.data_ptr(), None if pv is None else pv.data_ptr(),
-            uk.data_ptr(), uv.data_ptr(), vk.data_ptr(), vv.data_ptr(), rank,
-            kq, ks, km, vq, vs, vm,
-            rec_k.data_ptr(), rec_v.data_ptr(),
-            m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            b, sq, sk, h, d, _CODEC_ID[codec], int(quantized),
-            int(hops == 0), int(hops == ring_size - 1), ctypes.c_float(scale), stream,
+        _ef_launch(lib, k_base, v_base, (my - hops) % ring_size, codec,
+                   _check_payload(codec, payload, b, sk, h, d), (b, sk, h, d), rec if hops else None,
+                   scratch, stream)
+        kk, vv = rec if hops else (k, v)
+        status = lib.cf_ring_flash_hop_bf16(
+            q.data_ptr(), kk.data_ptr(), vv.data_ptr(),
+            *q.stride()[:3], *kk.stride()[:3], *vv.stride()[:3],
+            *state, b, sq, sk, h, d, c_scale,
+            int(hops == 0), int(hops == ring_size - 1), *plan, stream,
         )
         _build.check(status, "compact_ring_flash")
         compact_ring_flash.launches += 1
@@ -382,5 +484,6 @@ def compact_ring_flash(q, k, v, k_base, v_base, payloads: Iterable, *, codec: st
     return out, lse
 
 
-#: kernel launches (one per hop) since the count was last set to 0
+#: flash launches (one per hop) since the count was last set to 0; the EF
+#: pass counts its own in ``ef_update_slot.launches``
 compact_ring_flash.launches = 0

@@ -14,9 +14,18 @@ a norm summed in another order, move the fit before that rounding), and
 every rank's stack equals every other's bit for bit.  Two fused cases are also held against the Pallas kernel
 ``compact_binary_ring_flash`` in interpret mode, and the per-head packers
 against JAX bit for bit.
+
+The CUDA kernel 8 splits each hop into an EF pass over tiles of the slot
+(int8 stacks: the per-channel min and max per row tile, reduced across the
+tiles, then the codes decoded with a copy of the old scale and min) and
+kernel 7's carried flash partial on the bf16 reconstruction.  A torch model
+of that split is held against the fused twin ``compact_ring_flash_ref``
+below, in one process: stacks bit for bit, out and LSE within 2e-5 (fp32
+summation order).
 """
 
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +41,7 @@ from compactfusion_tpu.compact.ring import init_ring_state as jinit
 from compactfusion_tpu.config import CompactConfig as JCompact
 from compactfusion_tpu.config import CompressType as JType
 from compactfusion_tpu.ops import ring_flash_pallas as jrf
+from compactfusion_tpu_torch.compact import codecs as tcodecs
 from compactfusion_tpu_torch.compact import ring as tring
 from compactfusion_tpu_torch.config import CompactConfig, CompressType
 from compactfusion_tpu_torch.ops import ring_flash as trf
@@ -187,3 +197,206 @@ def test_fused_route_conditions():
     assert not tring._fused_route(q, torch.zeros(2, 16, H, D), st, quant, B, 2, True)  # int8 at B > 1
     r2 = tring.init_ring_state(2, 16, H * D, torch.float32, 2)
     assert not tring._fused_route(q, k, r2, CompactConfig(enabled=True, residual=2), B, 2, True)
+
+
+# -- the split hop of the CUDA kernel 8, modelled in torch --------------------
+
+SPLIT_ATOL = 2e-5
+# (codec, comp_rank, batch): every fused codec; int8 stacks take B == 1
+SPLIT_CODECS = [("binary", -1), ("binary", 2), ("int2", -1), ("lowrank", 2)]
+
+
+def _tile_min_max(x):
+    """The EF pass's per-channel min and max of x (N, C): per tile of
+    ``EF_ROWS`` rows (its first kernel), then reduced across the tiles in
+    order (its second)."""
+    tiles = [torch.aminmax(x[r:r + trf.EF_ROWS], dim=0) for r in range(0, x.shape[0], trf.EF_ROWS)]
+    mn, mx = tiles[0]
+    for lo, hi in tiles[1:]:
+        mn, mx = torch.minimum(mn, lo), torch.maximum(mx, hi)
+    return mn[None], mx[None]
+
+
+def _ef_pass_model(base, src, codec, packed, u, v):
+    """The EF pass on one stack, as the kernels order it: fp32 slots rebuilt
+    in place element by element; int8 slots rebuilt from a copy of the old
+    scale and min, coded against the tiles' min and max, and the new scale
+    and min written after every code.  Returns the reconstruction (N, C)."""
+    delta = trf.payload_delta(codec, packed, u, v)
+    if not isinstance(base, tcodecs.Int8Payload):
+        blk = base[src] + delta
+        base[src].copy_(blk)
+        return blk
+    old = tcodecs.Int8Payload(base.q[src].clone(), base.scale[src].clone(), base.minv[src].clone())
+    blk = tcodecs.decode_int8(old) + delta
+    mn, mx = _tile_min_max(blk)
+    sc = (mx - mn + 1e-6) / torch.full_like(mn, 255.0)
+    base.q[src].copy_(torch.round((blk - mn) / sc).clamp(0, 255).to(torch.uint8))
+    base.scale[src].copy_(sc.to(torch.bfloat16))
+    base.minv[src].copy_(mn.to(torch.bfloat16))
+    return blk
+
+
+def _split_hops(q, k, v, k_base, v_base, payloads, codec, my, ring):
+    """Kernel 8 as the CUDA path runs it: per hop the EF pass of slot
+    (my - s) % R over the whole slot, then a flash partial carried in
+    (m, l, acc) in the exp2 domain, on the exact K/V at hop 0 and the
+    reconstruction (in k.dtype) after; the last hop normalises."""
+    b, sq, h, d = q.shape
+    scale = d**-0.5 * 1.4426950408889634
+    m = torch.full((b, h, sq), float("-inf"))
+    l = torch.zeros((b, h, sq))
+    acc = torch.zeros((b, h, sq, d))
+    for step, payload in enumerate(payloads):
+        pk, pv, uk, uv, vk, vv = trf._split_payload(codec, payload)
+        src = (my - step) % ring
+        k_rec = _ef_pass_model(k_base, src, codec, pk, uk, vk)
+        v_rec = _ef_pass_model(v_base, src, codec, pv, uv, vv)
+        kk, vv_ = (k, v) if step == 0 else (k_rec.reshape(k.shape).to(k.dtype), v_rec.reshape(v.shape).to(v.dtype))
+        sc = torch.einsum("bqhd,bkhd->bhqk", q, kk) * scale
+        m_new = torch.maximum(m, sc.amax(-1))
+        p = torch.exp2(sc - m_new[..., None])
+        alpha = torch.exp2(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vv_)
+        m = m_new
+    return (acc / l[..., None]).permute(0, 2, 1, 3), (m + torch.log2(l)) / 1.4426950408889634
+
+
+def _split_inputs(codec, rank, quantized, ring, b, sk, seed):
+    """Every virtual rank's q/k/v, the stacks they start from and every
+    rank's fused payload made from its own K/V and slot."""
+    rng = np.random.default_rng(seed)
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    n, c = b * sk, H * D
+    shards = [tuple(rnd(b, sk, H, D) for _ in range(3)) for _ in range(ring)]
+
+    def stack():
+        slots = [rnd(n, c) * 0.9 for _ in range(ring)]
+        if not quantized:
+            return torch.stack(slots)
+        return tcodecs.Int8Payload(*(torch.stack(p) for p in zip(*map(tcodecs.encode_int8, slots))))
+
+    kb0, vb0 = stack(), stack()
+    payloads = [trf.fused_ring_payload(shards[r][1], shards[r][2], trf.decode_slot(kb0, r),
+                                       trf.decode_slot(vb0, r), codec, rank) for r in range(ring)]
+    return shards, kb0, vb0, payloads
+
+
+def _clone(base):
+    if isinstance(base, tcodecs.Int8Payload):
+        return tcodecs.Int8Payload(*(t.clone() for t in base))
+    return base.clone()
+
+
+@pytest.mark.parametrize("ring,b", [(2, 1), (4, 2)])
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("codec,rank", SPLIT_CODECS, ids=lambda x: str(x))
+def test_split_hop_model_matches_the_fused_twin(codec, rank, quantized, ring, b):
+    """The EF pass over the whole slot, then a carried flash partial, hop by
+    hop: the same stacks bit for bit as the fused twin, and its out and LSE.
+    96 rows per slot at B1 (two row tiles, the second ragged)."""
+    if quantized and b != 1:
+        b = 1
+    shards, kb0, vb0, payloads = _split_inputs(codec, rank, quantized, ring, b, 96 // b, seed=ring + rank)
+    for my in range(ring):
+        arriving = [payloads[(my - s) % ring] for s in range(ring)]
+        kr, vr, km, vm = _clone(kb0), _clone(vb0), _clone(kb0), _clone(vb0)
+        ref_out, ref_lse = trf.compact_ring_flash_ref(*shards[my], kr, vr, iter(arriving), codec=codec, my=my,
+                                                      ring_size=ring)
+        out, lse = _split_hops(*shards[my], km, vm, arriving, codec, my, ring)
+        for got, want in ((km, kr), (vm, vr)):
+            for a, z in zip(got if quantized else (got,), want if quantized else (want,)):
+                assert torch.equal(a, z)
+        np.testing.assert_allclose(out.numpy(), ref_out.numpy(), atol=SPLIT_ATOL, rtol=0)
+        np.testing.assert_allclose(lse.numpy(), ref_lse.numpy(), atol=SPLIT_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 96, 512, 1000])
+def test_row_tile_min_max_equals_aminmax_bit_for_bit(n):
+    """Min and max are exact in any order: per row tile, then across the
+    tiles, they are torch.aminmax's bits (ties included)."""
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(np.round(rng.standard_normal((n, 40)) * 8).astype(np.float32) / 8 + 0.01)
+    mn, mx = _tile_min_max(x)
+    ref_mn, ref_mx = torch.aminmax(x, dim=0, keepdim=True)
+    assert torch.equal(mn.view(torch.int32), ref_mn.view(torch.int32))
+    assert torch.equal(mx.view(torch.int32), ref_mx.view(torch.int32))
+
+
+def test_ef_update_slot_runs_its_twin_on_cpu():
+    """On CPU stacks the EF pass's wrapper is its twin: the new bases, and
+    the reconstruction rounded into ``rec``; it counts no launch."""
+    shards, kb0, vb0, payloads = _split_inputs("binary", -1, False, 2, 1, 32, seed=7)
+    shape = tuple(shards[0][1].shape)
+    kr, vr, kw, vw = _clone(kb0), _clone(vb0), _clone(kb0), _clone(vb0)
+    rec = tuple(torch.empty(shape, dtype=torch.bfloat16) for _ in range(2))
+    trf.ef_update_slot.launches = 0
+    trf.ef_update_slot(kw, vw, 1, "binary", payloads[1], shape, rec=rec)
+    want = trf.ef_update_slot_ref(kr, vr, 1, "binary", payloads[1])
+    assert torch.equal(kw, kr) and torch.equal(vw, vr) and trf.ef_update_slot.launches == 0
+    for r, x in zip(rec, want):
+        assert torch.equal(r, x.reshape(shape).to(torch.bfloat16))
+    with pytest.raises(ValueError, match="B == 1"):
+        trf.ef_update_slot(tcodecs.encode_int8(kb0[0]), None, 0, "binary", payloads[0], (2, 16, H, D))
+
+
+class _FakeLib:
+    """Stands in for the kernel library: records the EF pass's C call."""
+
+    def __init__(self):
+        self.calls = []
+
+    def cf_ef_update_slot(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+def _declared_argtypes(name):
+    """The argtypes ``ops/_build.py::_declare`` gives the C entry ``name``."""
+    from compactfusion_tpu_torch.ops import _build
+
+    class Lib:
+        def __getattr__(self, attr):
+            setattr(self, attr, types.SimpleNamespace())
+            return getattr(self, attr)
+
+    lib = Lib()
+    _build._declare(lib)
+    return getattr(lib, name).argtypes
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])
+def test_ef_launch_passes_the_c_entry_its_arguments(quantized):
+    """The EF pass's launch hands ``cf_ef_update_slot`` its arguments in the
+    order ``ops/_build.py`` declares them: the payload, slot ``src`` of both
+    stacks, the reconstruction, the int8 scratch and the shape; it counts one
+    launch on fp32 stacks and two on int8 stacks."""
+    shards, kb, vb, payloads = _split_inputs("binary", 2, quantized, 2, 1, 96, seed=3)
+    shape = tuple(shards[0][1].shape)
+    n, c = 96, H * D
+    parts = trf._check_payload("binary", payloads[1], *shape)
+    rec = tuple(torch.empty(shape, dtype=torch.bfloat16) for _ in range(2))
+    scratch = trf._ef_scratch(quantized, n, c, "cpu")
+    lib = _FakeLib()
+    trf.ef_update_slot.launches = 0
+    trf._ef_launch(lib, kb, vb, 1, "binary", parts, shape, rec, scratch, 7)
+    (args,) = lib.calls
+    assert len(args) == len(_declared_argtypes("cf_ef_update_slot"))
+    pk, pv, uk, uv, vk, vv = parts
+    assert args[:7] == (pk.data_ptr(), pv.data_ptr(), uk.data_ptr(), uv.data_ptr(), vk.data_ptr(),
+                        vv.data_ptr(), 2)
+    if quantized:
+        assert args[7:13] == (kb.q[1].data_ptr(), kb.scale[1].data_ptr(), kb.minv[1].data_ptr(),
+                              vb.q[1].data_ptr(), vb.scale[1].data_ptr(), vb.minv[1].data_ptr())
+        assert args[15:18] == (scratch[0].data_ptr(), scratch[1].data_ptr(), 2)
+        assert tuple(scratch[0].shape) == (2, 2, 2, c) and tuple(scratch[1].shape) == (2, 2, c)
+    else:
+        assert args[7:13] == (kb[1].data_ptr(), None, None, vb[1].data_ptr(), None, None)
+        assert args[15:18] == (None, None, 2)
+    assert args[13:15] == (rec[0].data_ptr(), rec[1].data_ptr())
+    assert args[18:] == (1, 96, H, D, 0, int(quantized), 7)
+    assert trf.ef_update_slot.launches == (2 if quantized else 1)

@@ -64,8 +64,26 @@ def test_wide_heads_keep_the_shared_memory_body(d, warps):
 
 @pytest.mark.parametrize("d", [64, 72, 512])
 def test_banded_attention_keeps_the_shared_memory_body(d):
-    body, dp, warps = flash.flash_plan(2, 16, 1024, d, band=True)
-    assert body == "flash_tile" and dp == -(-d // 16) * 16 and warps == (2 if d == 512 else 4)
+    """Only above a head dim of 128: the banded kernel takes ``flash_plan``'s
+    plan, which keeps ``flash_tile`` there (d=512: 32x32 tiles on 2 warps)
+    and takes the register body up to 128 (and the C entry of the banded
+    kernel launches the plan of either body)."""
+    body, dp, warps = flash.flash_plan(2, 16, 1024, d)
+    if d <= 128:
+        assert body == "flash_reg_tile" and (dp, warps) in flash.REG_BUILT
+    else:
+        assert body == "flash_tile" and dp == -(-d // 16) * 16 and warps == 2
+    src = (REPO / "compactfusion_tpu_torch" / "ops" / "flash.py").read_text()
+    window = src[src.index("def flash_attn_window_with_lse("):]
+    assert "*plan_args(flash_plan(b, h, s, d))" in window
+
+
+@pytest.mark.parametrize("b,s,ctas", [(2, 1024, 256), (1, 1024, 128), (2, 1000, 256)])
+def test_banded_pixart_takes_the_register_body(b, s, ctas):
+    """Kernel 4 at phase 2's shapes (B2, the CFG half, a ragged S=1000):
+    DP 80, 128-row tiles, at least 128 CTAs."""
+    plan = flash.flash_plan(b, 16, s, 72)
+    assert plan == ("flash_reg_tile", 80, 8) and _ctas(plan, b, 16, s) == ctas
 
 
 def test_plans_the_kernels_do_not_take_raise():
@@ -109,6 +127,16 @@ def test_every_plan_is_built():
     assert chosen == built
 
 
+def test_ef_tile_rows_follow_the_c_source():
+    """``ops/ring_flash.py::EF_ROWS`` sizes the int8 EF pass's scratch (a
+    min and a max per channel and row tile); ``kEfRows`` of
+    ``csrc/ring_flash.cu`` tiles the grid."""
+    from compactfusion_tpu_torch.ops import ring_flash
+
+    src = (REPO / "compactfusion_tpu_torch" / "csrc" / "ring_flash.cu").read_text()
+    assert int(re.search(r"constexpr int kEfRows = (\d+);", src).group(1)) == ring_flash.EF_ROWS
+
+
 def _build(labels):
     """A made-up build: ({label: ptxas line}, {label: SASS hash})."""
     return ({k: f"Used {r} registers" for k, (r, _) in labels.items()},
@@ -117,27 +145,40 @@ def _build(labels):
 
 BEFORE = {"flash_fwd_kernel<4, 64>": (64, "a"), "flash_fwd_kernel<2, 32>": (40, "b"),
           "flash_window_kernel<4, 64>": (64, "c"), "flash_window_kernel<2, 32>": (40, "d"),
-          "compact_ring_hop_kernel<8, 64>": (72, "e"), "ring_flash_hop_kernel<4, 64>": (64, "f")}
+          "compact_ring_hop_kernel<8, 64>": (72, "e"), "ring_flash_hop_kernel<4, 64>": (64, "f"),
+          "flash_fwd_reg_kernel<80, 8>": (135, "g"), "ring_flash_hop_reg_kernel<80, 2>": (96, "h"),
+          "flash_parts_kernel<31>": (135, "i"), "dma_only_kernel": (40, "j"),
+          "binary_quant_kernel<float, float>": (32, "k"), "binary_dequant_kernel<float>": (30, "l"),
+          "int2_quant_kernel<float, float>": (32, "m"), "int2_dequant_kernel<float>": (30, "n")}
 
 
 def test_compare_tool_passes_when_only_redesigned_kernels_differ():
+    """Kernels 4 and 8 may change, go or come (the banded register kernel,
+    the EF pass); kernels 1 and 7, the probes and the quant kernels may not."""
     tool = _compare_tool()
-    after = dict(BEFORE, **{"flash_fwd_kernel<4, 64>": (60, "x"), "ring_flash_hop_kernel<4, 64>": (64, "y"),
-                            "flash_fwd_reg_kernel<80, 4>": (128, "z")})
+    after = dict(BEFORE, **{"flash_window_kernel<4, 64>": (60, "x"), "flash_window_reg_kernel<80, 8>": (130, "y"),
+                            "ef_update_fp32_kernel": (40, "z")})
+    del after["compact_ring_hop_kernel<8, 64>"]
     ok, report = tool.verdict(_build(after), _build(BEFORE))
     assert ok and report["unmatched"] == []
     kernels = report["kernels"]
-    assert kernels["flash_window_kernel<2, 32>"]["must_be_unchanged"]
-    assert kernels["flash_window_kernel<2, 32>"]["sass_equal"]
-    assert not kernels["flash_fwd_kernel<4, 64>"]["must_be_unchanged"]
-    assert not kernels["flash_fwd_kernel<4, 64>"]["sass_equal"]
-    assert kernels["flash_fwd_reg_kernel<80, 4>"]["other"] is None
+    assert kernels["flash_fwd_reg_kernel<80, 8>"]["must_be_unchanged"]
+    assert kernels["flash_fwd_reg_kernel<80, 8>"]["sass_equal"]
+    assert kernels["dma_only_kernel"]["must_be_unchanged"]
+    assert not kernels["flash_window_kernel<4, 64>"]["must_be_unchanged"]
+    assert not kernels["flash_window_kernel<4, 64>"]["sass_equal"]
+    assert kernels["flash_window_reg_kernel<80, 8>"]["other"] is None
+    assert kernels["compact_ring_hop_kernel<8, 64>"]["this"] is None
 
 
 @pytest.mark.parametrize("label,change", [
-    ("flash_window_kernel<2, 32>", (40, "d2")),       # SASS
-    ("compact_ring_hop_kernel<8, 64>", (80, "e")),    # ptxas line
-    ("flash_fwd_kernel<2, 32>", None),                # missing on this side
+    ("flash_fwd_reg_kernel<80, 8>", (135, "g2")),       # SASS
+    ("ring_flash_hop_kernel<4, 64>", (80, "f")),        # ptxas line
+    ("flash_fwd_kernel<2, 32>", None),                  # missing on this side
+    ("ring_flash_hop_reg_kernel<80, 2>", (96, "h2")),
+    ("flash_parts_kernel<31>", (136, "i")),
+    ("dma_only_kernel", (40, "j2")),
+    ("int2_dequant_kernel<float>", None),
 ])
 def test_compare_tool_fails_when_a_listed_kernel_changes(label, change):
     tool = _compare_tool()
@@ -154,6 +195,8 @@ def test_compare_tool_patterns():
     tool = _compare_tool()
     assert tool.matches("flash_window_kernel<4, 64>", "flash_window_kernel<...>")
     assert not tool.matches("flash_fwd_reg_kernel<80, 4>", "flash_fwd_kernel<...>")
+    assert not tool.matches("flash_window_reg_kernel<80, 8>", "flash_fwd_reg_kernel<...>")
+    assert tool.matches("dma_only_kernel", "dma_only_kernel")
     assert tool.matches("flash_fwd_kernel<2, 32>", "flash_fwd_kernel<2, 32>")
     assert not tool.matches("flash_fwd_kernel<4, 64>", "flash_fwd_kernel<2, 32>")
     # a pattern that names nothing fails: a renamed kernel cannot pass unseen

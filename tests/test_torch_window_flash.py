@@ -13,6 +13,10 @@ q-tile visits) and the online softmax over those tiles are modelled in
 torch below, so the two traps of the band (off-band tiles are skipped, and
 a visited tile may hold no key of a row) are checked against the twin; the
 kernel itself is held against the twin on the card by ``chip_smoke.py``.
+The register body (``csrc/flash_reg.cuh``, BAND) adds a per-warp schedule:
+its 16-row warps skip a visited tile that holds none of their keys and mask
+only the tiles not wholly inside their rows' bands; the model follows it at
+every tile height the plan can build (32, 64 and 128 rows of 64-key tiles).
 """
 
 import jax.numpy as jnp
@@ -110,24 +114,53 @@ def _band_tiles(q0, bq, bk, w, s):
     return range(lo, end)
 
 
-def _tiled_band(q, k, v, w, bq, bk, guard=True):
+#: q-tile heights of the register body (16 rows per warp; ops/flash.REG_WARPS)
+REG_BQ = (32, 64, 128)
+
+
+def _warp_tiles(q0, bq, bk, w, s):
+    """The register body's per-warp schedule for the q-tile at q0: (first
+    row of the warp, tile, whether the tile is masked) for every visited
+    tile where the warp's 16 rows have a key; the others it skips.  A tile
+    is masked unless it lies wholly inside every one of the warp's bands
+    and below S (``flash_reg.cuh``, BAND)."""
+    for t in _band_tiles(q0, bq, bk, w, s):
+        k0 = t * bk
+        for w0 in range(q0, q0 + bq, 16):
+            if k0 > w0 + 15 + w or k0 + bk - 1 < w0 - w:
+                continue
+            yield w0, t, w0 + 15 - k0 > w or k0 + bk - 1 - w0 > w or k0 + bk > s
+
+
+def _tiled_band(q, k, v, w, bq, bk, guard=True, per_warp=False):
     """The kernel's online softmax (exp2 domain, running max m and sum l per
-    row) over the visited tiles only, in fp32: a model of its arithmetic."""
+    row) over the visited tiles only, in fp32: a model of its arithmetic.
+    ``per_warp``: the register body's schedule (:func:`_warp_tiles`), each
+    16-row strip over its own tiles, masked only where that marks it."""
     b, s, h, d = q.shape
     scale = d**-0.5 * 1.4426950408889634
     out = torch.zeros_like(q)
     lse = torch.zeros((b, h, s))
     idx = torch.arange(s)
-    for q0 in range(0, s, bq):
-        rows = idx[q0:q0 + bq]
+    if per_warp:
+        strips = {}
+        for q0 in range(0, s, bq):
+            for w0, t, masked in _warp_tiles(q0, bq, bk, w, s):
+                strips.setdefault(w0, []).append((t, masked))
+        schedule = [(idx[w0:w0 + 16], tiles) for w0, tiles in sorted(strips.items())]
+    else:
+        schedule = [(idx[q0:q0 + bq], [(t, True) for t in _band_tiles(q0, bq, bk, w, s)])
+                    for q0 in range(0, s, bq)]
+    for rows, tiles in schedule:
         m = torch.full((b, h, len(rows)), float("-inf"))
         l = torch.zeros_like(m)
         acc = torch.zeros((b, h, len(rows), d))
-        for t in _band_tiles(q0, bq, bk, w, s):
+        for t, masked in tiles:
             cols = idx[t * bk:(t + 1) * bk]
             sc = torch.einsum("bqhd,bkhd->bhqk", q[:, rows], k[:, cols]) * scale
-            keep = (rows[:, None] - cols[None, :]).abs() <= w
-            sc = torch.where(keep, sc, torch.tensor(float("-inf")))
+            if masked:
+                keep = (rows[:, None] - cols[None, :]).abs() <= w
+                sc = torch.where(keep, sc, torch.tensor(float("-inf")))
             m_new = torch.maximum(m, sc.amax(-1))
             m_ref = torch.where(m_new == float("-inf"), torch.zeros_like(m_new), m_new) if guard else m_new
             p = torch.exp2(sc - m_ref[..., None])
@@ -156,6 +189,17 @@ def test_band_tile_schedule_skips_off_band_tiles():
             tiles = _band_tiles(q0, 64, 64, w, s)
             for i in range(q0, min(q0 + 64, s)):
                 assert max(0, i - w) // 64 in tiles and min(s - 1, i + w) // 64 in tiles
+    # the register body's tile heights: at w=64, S=1024 a 128-row tile
+    # visits 4 tiles (256 keys, where a row needs 129), a 32-row tile 3
+    assert [len(_band_tiles(q0, 128, 64, 64, 1024)) for q0 in range(0, 1024, 128)] == [3] + [4] * 6 + [3]
+    assert [len(_band_tiles(q0, 32, 64, 64, 1024)) for q0 in range(0, 1024, 32)] == [2, 2] + [3] * 28 + [2, 2]
+    # its warps skip a tile with none of their keys: at w=64 each 16-row
+    # warp of a 128-row tile computes 3 of the 4 visited tiles, or 2
+    per_warp = [sum(1 for w0, _, _ in _warp_tiles(q0, 128, 64, 64, 1024) if w0 == r)
+                for q0 in range(128, 896, 128) for r in range(q0, q0 + 128, 16)]
+    assert set(per_warp) == {3}
+    assert all(len(list(_warp_tiles(q0, bq, 64, 1024, 1024))) == 16 * bq // 16
+               for bq in REG_BQ for q0 in range(0, 1024, bq))
 
 
 def test_first_visited_tile_without_a_key_needs_the_guard():
@@ -170,3 +214,59 @@ def test_first_visited_tile_without_a_key_needs_the_guard():
     _close(lse.numpy(), ref_l.numpy())
     bad, _ = _tiled_band(q, k, v, 4, 64, 64, guard=False)
     assert torch.isnan(bad[0, 127]).all() and not torch.isnan(bad[0, 64]).any()
+    # the register body at w=4: the warp of rows 112-127 skips tile 0 (no
+    # key), but a 32-row tile at q0=96 still visits tile 1 where row 127 has
+    # none, and rows 16-31 of a 128-row tile visit tile 0 then 1 at w=0 only
+    # where their keys are; the guard keeps each equal to the twin
+    assert [t for w0, t, _ in _warp_tiles(64, 64, 64, 4, 192) if w0 == 112] == [1, 2]
+    for bq in REG_BQ:
+        for w in (0, 4):
+            out, lse = _tiled_band(q, k, v, w, bq, 64, per_warp=True)
+            ref_o, ref_l = tflash.flash_attn_window_with_lse_ref(q, k, v, w)
+            _close(out.numpy(), ref_o.numpy())
+            _close(lse.numpy(), ref_l.numpy())
+
+
+@pytest.mark.parametrize("bq", REG_BQ)
+@pytest.mark.parametrize("s,w", [(1024, 64), (1024, 4), (1024, 0), (1000, 64), (256, 100), (192, 1024)])
+def test_register_band_schedule_visits_every_band_pair_once(bq, s, w):
+    """The register body's per-warp schedule: every in-band (i, j) pair is
+    in exactly one (warp, tile) visit, every visit holds an in-band pair of
+    its warp, and a tile left unmasked holds only in-band pairs below S (of
+    the rows below S)."""
+    hits = {}
+    for q0 in range(0, s, bq):
+        for w0, t, masked in _warp_tiles(q0, bq, 64, w, s):
+            rows = np.arange(w0, w0 + 16)[:, None]
+            cols = np.arange(t * 64, t * 64 + 64)[None, :]
+            band = (np.abs(rows - cols) <= w) & (rows < s) & (cols < s)
+            assert (w0, t) not in hits and (band.any() or w0 >= s)
+            if not masked:  # rows at or past S are computed, never written
+                assert band[rows[:, 0] < s].all()
+            hits[(w0, t)] = int(band.sum())
+    assert sum(hits.values()) == sum(min(s - 1, i + w) - max(0, i - w) + 1 for i in range(s))
+
+
+@pytest.mark.parametrize("bq", REG_BQ)
+@pytest.mark.parametrize("s,w", [(1024, 0), (1024, 4), (1000, 64), (1000, 0)])
+def test_no_visited_tile_is_off_band_for_the_cta(bq, s, w):
+    """At w=0, w=4 and S=1000 a q-tile visits only K/V tiles that hold an
+    in-band key of one of its rows below S."""
+    for q0 in range(0, s, bq):
+        rows = np.arange(q0, min(q0 + bq, s))[:, None]
+        for t in _band_tiles(q0, bq, 64, w, s):
+            cols = np.arange(t * 64, min(t * 64 + 64, s))[None, :]
+            assert (np.abs(rows - cols) <= w).any(), (q0, t)
+
+
+@pytest.mark.parametrize("bq", REG_BQ)
+@pytest.mark.parametrize("w", [0, 4, 20, 200])
+def test_register_band_model_matches_the_twin(bq, w):
+    """The online softmax over the register body's schedule (per-warp skip,
+    masks on the ragged tiles only) equals the banded twin, ragged S
+    included."""
+    q, k, v = map(torch.from_numpy, _qkv(1, 200, 2, 16, seed=20 + w))
+    out, lse = _tiled_band(q, k, v, w, bq, 64, per_warp=True)
+    ref_o, ref_l = tflash.flash_attn_window_with_lse_ref(q, k, v, w)
+    _close(out.numpy(), ref_o.numpy())
+    _close(lse.numpy(), ref_l.numpy())

@@ -14,11 +14,12 @@ e.g. ``flash_fwd_kernel<4, 64>``), it compares what ``ptxas -v`` said of it
 
 ``--unchanged`` names the instantiations that must be identical on both
 sides: a full label, or ``name<...>`` for every instantiation of ``name``
-(the default: the banded kernel 4, the compressed ring kernel 8 and kernel
-1's wide-head instantiation).  Prints one JSON object and exits 1 when one
-of them differs, is missing on either side or matches nothing; kernels
-outside the list may differ.  Needs the CUDA toolkit (``nvcc``,
-``cuobjdump``, ``cu++filt``), not a GPU.
+(the default: every instantiation of kernels 1 and 7 on both bodies, the
+stage probe's kernels and the four quant kernels: what a change to the
+banded kernel 4 and the compressed ring kernel 8 must leave as it was).
+Prints one JSON object and exits 1 when one of them differs, is missing on
+either side or matches nothing; kernels outside the list may differ.
+Needs the CUDA toolkit (``nvcc``, ``cuobjdump``, ``cu++filt``), not a GPU.
 """
 
 import argparse
@@ -32,7 +33,10 @@ import tempfile
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
-UNCHANGED = ("flash_window_kernel<...>", "compact_ring_hop_kernel<...>", "flash_fwd_kernel<2, 32>")
+UNCHANGED = ("flash_fwd_reg_kernel<...>", "ring_flash_hop_reg_kernel<...>", "flash_fwd_kernel<...>",
+             "ring_flash_hop_kernel<...>", "flash_parts_kernel<...>", "dma_only_kernel",
+             "binary_quant_kernel<...>", "binary_dequant_kernel<...>", "int2_quant_kernel<...>",
+             "int2_dequant_kernel<...>")
 # nvcc names each source's anonymous namespace after a hash of the source
 # (``_GLOBAL__N__0110b69f_13_flash_attn_cu_3b6b32e1``), and symbols in the
 # SASS carry it: an edit elsewhere in the file changes it

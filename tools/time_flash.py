@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
-"""Check and time kernels 1 and 7 of a checkout at the path's shapes.
+"""Check and time kernels 1, 4, 7 and 8 of a checkout at the path's shapes.
 
     python3 tools/time_flash.py [--root OTHER_ROOT] [--sweep] [--out FILE]
 
 Imports ``compactfusion_tpu_torch`` from ``--root`` (default: this
 checkout; e.g. an unpacked ``git archive`` of the parent commit) and the
 measuring code from this checkout's ``chip_smoke.py``: the shapes and
-inputs of phases 2 and 12 (``flash_cases``, ``ring_cases``), the eager
-timing, ``graph_ms`` (CUDA graphs on inputs from DRAM), the SDPA yardstick
-and the bound.  So two trees are timed by one harness, through the
-wrappers both have (``flash_attn_with_lse``, ``ring_flash_attn_with_lse``
-and their twins).  Per shape: the largest error of out and LSE against the
-twin, eager ``ms``, ``graph_ms``, SDPA's ``library_ms`` and ``bound_ms``.
+inputs of phases 2 and 12 (``flash_cases``, ``window_cases``,
+``ring_cases``, ``CRING_CASES`` with ``cring_inputs``), the eager timing,
+``graph_ms`` (CUDA graphs on inputs from DRAM), the SDPA yardstick and the
+bound.  So two trees are timed by one harness, through the wrappers both
+have (``flash_attn_with_lse``, ``flash_attn_window_with_lse``,
+``ring_flash_attn_with_lse``, ``compact_ring_flash`` and their twins).
+Per shape: the largest error of out and LSE against the twin, eager
+``ms``, ``graph_ms``, SDPA's ``library_ms`` (with the band as a bool mask
+for kernel 4; none computes kernel 8) and ``bound_ms``.  Kernel 8 writes
+its EF stacks, so its twin runs on a fresh copy of the stacks the kernel's
+first call started from, and each timed input set has stacks of its own.
 With ``--sweep`` (a tree with ``ops/flash.py::flash_plan``), a shape whose
 plan takes the register body is also timed at every tile height built for
 its padded head dim (``graph_ms_by_warps``), with ``flash_plan`` swapped
@@ -58,12 +63,13 @@ def tile_height(flash, warps):
         flash.flash_plan = real
 
 
-def row(smoke, timing, name, run, ref, sets, iters, sdpa_qkv, ops, sweep=None):
+def row(smoke, timing, name, run, ref, sets, iters, nbytes, ops, library=None, sweep=None):
     """Errors of ``run`` against ``ref`` (each a call of one input set) on
-    the first set, then its eager and graph times, SDPA's on ``sdpa_qkv``
-    and the bound of q, K/V, out and LSE against ``ops`` bf16 operations.
-    ``sweep``: (the flash module, the plan, its built (dp, warps) pairs)
-    to time the plan's other tile heights."""
+    the first set, then its eager and graph times, ``library``'s ((a call,
+    its backend) or None) and the bound of ``nbytes`` of inputs, out and
+    LSE against ``ops`` bf16 operations.  ``sweep``: (the flash module, the
+    plan, its built (dp, warps) pairs) to time the plan's other tile
+    heights."""
     import torch
 
     out, lse = run(sets[0])
@@ -71,12 +77,12 @@ def row(smoke, timing, name, run, ref, sets, iters, sdpa_qkv, ops, sweep=None):
     ref_out, ref_lse = ref(sets[0])
     err_out = (out.float() - ref_out.float()).abs().max().item()
     err_lse = (lse - ref_lse).abs().max().item()
-    lib, backend = smoke._library(*sdpa_qkv)
-    bound_ms, bound_by = smoke._bound(smoke._nbytes(*sdpa_qkv, out, lse), ops, smoke.PEAK_BF16_FLOPS)
+    bound_ms, bound_by = smoke._bound(nbytes + smoke._nbytes(out, lse), ops, smoke.PEAK_BF16_FLOPS)
     r = {"shape": name, "max_abs_err_out": err_out, "max_abs_err_lse": err_lse,
          "ms": smoke._time_ms(lambda: run(sets[0]), iters),
          "graph_ms": smoke.graph_ms(timing, [lambda t=t: run(t) for t in sets]),
-         "library_ms": smoke._time_ms(lib, iters), "library_backend": backend,
+         "library_ms": None if library is None else smoke._time_ms(library[0], iters),
+         "library_backend": None if library is None else library[1],
          "bound_ms": bound_ms, "bound_by": bound_by}
     alts = ""
     if sweep is not None and sweep[1][0] == "flash_reg_tile":
@@ -86,9 +92,10 @@ def row(smoke, timing, name, run, ref, sets, iters, sdpa_qkv, ops, sweep=None):
             with tile_height(flash, w):
                 r["graph_ms_by_warps"][w] = smoke.graph_ms(timing, [lambda t=t: run(t) for t in sets])
         alts = "; by warps " + ", ".join(f"{w}: {t:.4f}" for w, t in r["graph_ms_by_warps"].items())
+    lib = "no library call" if library is None else f"SDPA ({library[1]}) {r['library_ms']:.4f} ms"
     print(f"{name}: out err {err_out:.3e}, lse err {err_lse:.3e}; eager {r['ms']:.4f} ms, graphs "
-          f"{r['graph_ms']:.4f} ms ({len(sets)} input sets){alts}, SDPA ({backend}) "
-          f"{r['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+          f"{r['graph_ms']:.4f} ms ({len(sets)} input sets){alts}, {lib}, bound {bound_ms:.4f} ms "
+          f"({bound_by})")
     if not (err_out <= smoke.FLASH_OUT_ATOL and err_lse <= smoke.FLASH_LSE_ATOL):
         raise AssertionError(f"{name}: the kernel disagrees with its twin")
     return r
@@ -124,26 +131,62 @@ def main(argv=None):
     def sweep(b, h, sq, d):
         return (flash, flash.flash_plan(b, h, sq, d), flash.REG_BUILT) if args.sweep else None
 
+    def sets_of(make, first, nbytes):
+        return [first] + [make() for _ in range(timing.copies(nbytes) - 1)]
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
     for name, make, iters in smoke.flash_cases(gen, dev):
         q, k, v = first = make()
         b, sq, h, d = q.shape
-        sets = [first] + [make() for _ in range(timing.copies(smoke._nbytes(q, k, v, q)) - 1)]
         rows.append(row(smoke, timing, f"kernel 1 {name}", lambda t: flash.flash_attn_with_lse(*t),
-                        lambda t: flash.flash_attn_with_lse_ref(*t), sets, iters, first,
-                        4 * b * h * sq * k.shape[1] * d, sweep(b, h, sq, d)))
+                        lambda t: flash.flash_attn_with_lse_ref(*t),
+                        sets_of(make, first, smoke._nbytes(q, k, v, q)), iters, smoke._nbytes(q, k, v),
+                        4 * b * h * sq * k.shape[1] * d, smoke._library(q, k, v), sweep(b, h, sq, d)))
+    for name, make, w in smoke.window_cases(gen, dev):
+        q, k, v = first = make()
+        b, s, h, d = q.shape
+        rows.append(row(smoke, timing, f"kernel 4 {name}",
+                        lambda t, w=w: flash.flash_attn_window_with_lse(*t, w),
+                        lambda t, w=w: flash.flash_attn_window_with_lse_ref(*t, w),
+                        sets_of(make, first, smoke._nbytes(q, k, v, q)), 20, smoke._nbytes(q, k, v),
+                        4 * b * h * d * smoke.band_pairs(s, w),
+                        smoke._library(q, k, v, flash.window_mask(s, w, dev)), sweep(b, h, s, d)))
     for (ring, b, s_local), make in smoke.ring_cases(gen, dev):
         q, blocks = first = make()
         k_all = torch.cat([k for k, _ in blocks], dim=1)
         v_all = torch.cat([v for _, v in blocks], dim=1)
-        sets = [first] + [make() for _ in range(timing.copies(smoke._nbytes(q, k_all, v_all, q)) - 1)]
         rows.append(row(smoke, timing, f"kernel 7 ring {ring} B{b} H16 Sq{s_local} Sk{ring}x{s_local} d72",
                         lambda t, n=ring: ring_flash.ring_flash_attn_with_lse(t[0], iter(t[1]), n),
                         lambda t, n=ring: ring_flash.ring_flash_attn_with_lse_ref(t[0], iter(t[1]), n),
-                        sets, 20, (q, k_all, v_all), 4 * b * 16 * s_local * k_all.shape[1] * 72,
-                        sweep(b, 16, s_local, 72)))
+                        sets_of(make, first, smoke._nbytes(q, k_all, v_all, q)), 20,
+                        smoke._nbytes(q, k_all, v_all), 4 * b * 16 * s_local * k_all.shape[1] * 72,
+                        smoke._library(q, k_all, v_all), sweep(b, 16, s_local, 72)))
+    for case in smoke.CRING_CASES:
+        ring, b, s_local, codec, rank, quantized = case
+        shards, kb0, vb0, payloads = smoke.cring_inputs(ring_flash, gen, dev, *case)
+        q, k, v = shards[0]
+        n, c = b * s_local, 16 * 72
+        stack_bytes = 2 * ring * n * c * (1 if quantized else 4)
+
+        def run(t, case=case, shards=shards, payloads=payloads):
+            return ring_flash.compact_ring_flash(*shards[0], *t, smoke.arriving(payloads, 0), codec=case[3],
+                                                 my=0, ring_size=case[0])
+
+        def ref(t, case=case, shards=shards, payloads=payloads, kb0=kb0, vb0=vb0):
+            return ring_flash.compact_ring_flash_ref(*shards[0], smoke._clone(kb0), smoke._clone(vb0),
+                                                     smoke.arriving(payloads, 0), codec=case[3], my=0,
+                                                     ring_size=case[0])
+
+        def stacks(kb0=kb0, vb0=vb0):
+            return smoke._clone(kb0), smoke._clone(vb0)
+
+        payload_bytes = sum(smoke._nbytes(*p) for p in payloads)
+        rows.append(row(smoke, timing, f"kernel 8 {smoke.cring_name(*case)}", run, ref,
+                        sets_of(stacks, stacks(), stack_bytes + smoke._nbytes(q, k, v)), 20,
+                        smoke._nbytes(q, k, v) + payload_bytes + 2 * stack_bytes,
+                        4 * b * 16 * s_local * ring * s_local * 72))
     report = {"card": card, "root": str(args.root.resolve()), "rows": rows}
     line = json.dumps(report)
     if args.out:
