@@ -17,7 +17,12 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
    name their plan (``ops/flash.py::flash_plan``: body, padded head dim,
    warps) and CTAs (the banded kernel must take the register body), and
    flash is timed without dispatch cost on inputs read from DRAM
-   (``graph_ms``: CUDA graphs, ``probes/timing.py``).
+   (``graph_ms``: CUDA graphs, ``probes/timing.py``).  The VAE's d=512
+   attention must take the wide body.  The quant pairs are also timed by
+   CUDA graphs on inputs from DRAM, beside the time of an empty kernel
+   (the least a launch costs), and binary quant runs both its plans: the
+   vector kernel at C=1152 and the scalar one at C=1160 (145 bytes per
+   row, not a multiple of 4).
 3. The full-width PixArt-alpha 512 pipeline (28 blocks, dim 1152, S=1024,
    CFG batch 2, 20 DPM-Solver++ steps, SD-VAE decode), random weights with
    spiced AdaLN tables, compression off: 3 requests, each from its own seed.
@@ -73,7 +78,9 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
     breakdown.
 
 Phases 4-15 hold their latents against request 1's lossless latents and
-their kernel launch counts against the counts the path implies; every
+their kernel launch counts against the counts the path implies (kernel 1's
+wide-body launches among them, one per decoded image, and kernel 2's on
+its vector plan, all of its launches); every
 count is set to 0 just before each of phases 3-11, 13-15 and 16's probes
 (and the calibration), in every process, and read just after.  A probe
 counts a launch when it captures a CUDA graph, so phase 16 reports the
@@ -103,6 +110,14 @@ FLASH_OUT_ATOL = 2e-2
 # both sides take the LSE in fp32 from fp32 scores of the same bf16 inputs;
 # only the summation order and exp2/log2 against exp/log differ
 FLASH_LSE_ATOL = 1e-3
+# kernel 1 vs twin, relative Frobenius error of out: its outputs are
+# averages over 1024-4096 keys, RMS 0.03-0.05, so FLASH_OUT_ATOL alone would
+# pass a P.V wrong in one head-dim slice (the VAE's d=512 at B1 H1 S4096
+# has an RMS of about 0.026); bf16 rounding of P and of the output gives
+# about 2e-3 (the stage probe's full mask on an H100, PROBE_REL_MAX's
+# note), and tests/test_torch_wide_flash.py shows faults of one slice of
+# the wide body above this limit at the VAE's shape
+FLASH_OUT_REL_MAX = 1e-2
 # quant new_base vs twin: the same fp32 arithmetic; the scale products of
 # bf16 factors are exact in fp32 at K=1, and at K=2 the one rounding of their
 # sum does not depend on the order
@@ -176,9 +191,37 @@ def _time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+#: {a wrapper's count of the launches of one route: its key in a phase's
+#: launch counts, beside every wrapper's own}: kernel 1's on the wide body
+#: (the VAE's d=512), kernel 2's on its vector plan
+ROUTES = {"wide_launches": "flash_attn_with_lse (wide body)",
+          "vec_launches": "binary_quant_fastpath (vector plan)"}
+WIDE, VEC = ROUTES.values()
+
+
 def _reset_counts(kernels):
     for fn in kernels:
         fn.launches = 0
+        for attr in ROUTES:
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
+
+
+def _counts(kernels):
+    """{wrapper name: its launches} of the kernels, and under the keys of
+    :data:`ROUTES` the launches of those routes."""
+    counts = {fn.__name__: fn.launches for fn in kernels}
+    for attr, key in ROUTES.items():
+        counts[key] = sum(getattr(fn, attr, 0) for fn in kernels)
+    return counts
+
+
+def _with_routes(expect):
+    """``expect`` ({kernel: count}) with the routes' counts the path
+    implies: one wide-body launch (one decoded image), and every binary
+    quant launch on the vector plan (the engine's chunks are aligned and
+    C/8 = 144 is a multiple of 4)."""
+    return {WIDE: 1, VEC: expect.get("binary_quant_fastpath", 0), **expect}
 
 
 def _nbytes(*tensors):
@@ -243,7 +286,9 @@ def flash_cases(gen, dev):
 
 
 def _ctas(plan, b, h, sq):
-    return b * h * -(-sq // (16 * plan[2]))
+    from compactfusion_tpu_torch.ops.flash import plan_rows
+
+    return b * h * -(-sq // plan_rows(plan))
 
 
 def check_flash(flash, timing, dev, gen):
@@ -259,6 +304,7 @@ def check_flash(flash, timing, dev, gen):
         torch.cuda.synchronize()
         ref_out, ref_lse = flash.flash_attn_with_lse_ref(qq, kk, vv)
         err_out = (out.float() - ref_out.float()).abs().max().item()
+        rel_out = rel_fro(out, ref_out)
         err_lse = (lse - ref_lse).abs().max().item()
         b, sq, h, d = qq.shape
         plan = flash.flash_plan(b, h, sq, d)
@@ -272,17 +318,21 @@ def check_flash(flash, timing, dev, gen):
         library_ms = _time_ms(lib, iters)
         bound_ms, bound_by = _bound(_nbytes(qq, kk, vv, out, lse), 4 * b * h * sq * kk.shape[1] * d,
                                     PEAK_BF16_FLOPS)
-        rows.append({"shape": name, "max_abs_err_out": err_out, "max_abs_err_lse": err_lse,
+        rows.append({"shape": name, "max_abs_err_out": err_out, "rel_err_out": rel_out,
+                     "max_abs_err_lse": err_lse,
                      "plan": list(plan), "ctas": _ctas(plan, b, h, sq), "ms": ms, "graph_ms": g_ms,
                      "plain_ms": plain_ms, "library_ms": library_ms, "library_backend": backend,
                      "bound_ms": bound_ms, "bound_by": bound_by})
-        print(f"[2] flash {name}: out err {err_out:.3e} (tol {FLASH_OUT_ATOL}), lse err "
-              f"{err_lse:.3e} (tol {FLASH_LSE_ATOL}); plan {plan}, {rows[-1]['ctas']} CTAs; kernel "
+        print(f"[2] flash {name}: out err {err_out:.3e} (tol {FLASH_OUT_ATOL}), rel {rel_out:.3e} "
+              f"(tol {FLASH_OUT_REL_MAX}), lse err {err_lse:.3e} (tol {FLASH_LSE_ATOL}); plan {plan}, "
+              f"{rows[-1]['ctas']} CTAs; kernel "
               f"{ms:.4f} ms eager, {g_ms:.4f} ms by CUDA graphs on {n_sets} input sets; "
               f"twin {plain_ms:.4f} ms, SDPA ({backend}) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by})")
-        if not (err_out <= FLASH_OUT_ATOL and err_lse <= FLASH_LSE_ATOL):
+        if not (err_out <= FLASH_OUT_ATOL and rel_out <= FLASH_OUT_REL_MAX and err_lse <= FLASH_LSE_ATOL):
             raise AssertionError(f"flash kernel disagrees with its twin at {name}")
+        if 128 < d <= 512 and plan[0] != "flash_wide_tile":
+            raise AssertionError(f"flash at {name}: plan {plan} is not the wide body")
     return rows
 
 
@@ -323,7 +373,7 @@ def check_window(flash, dev, gen):
         ms = _time_ms(lambda: flash.flash_attn_window_with_lse(qq, kk, vv, w), 20)
         plain_ms = _time_ms(lambda: flash.flash_attn_window_with_lse_ref(qq, kk, vv, w), 20)
         b, s, h, d = qq.shape
-        plan = flash.flash_plan(b, h, s, d)
+        plan = flash.flash_plan(b, h, s, d, wide=False)
         lib, backend = _library(qq, kk, vv, flash.window_mask(s, w, dev))
         library_ms = _time_ms(lib, 20)
         bound_ms, bound_by = _bound(_nbytes(qq, kk, vv, out, lse), 4 * b * h * d * band_pairs(s, w),
@@ -347,19 +397,29 @@ def check_window(flash, dev, gen):
     return rows, rows[0]["ms"] / full_ms
 
 
-def check_quant(quant, codecs, dev, gen, codec, rank, base_dtype):
-    """One quant/dequant kernel pair vs its twins at the ring-8 PixArt chunk
-    shape, with the scale factors the engine gives it (``rank``: the binary
-    scale model, -1 for the mean scale; INT2 always takes the mean scale);
-    returns a report."""
+def quant_case(codecs, dev, gen, codec, rank, base_dtype, shape=CHUNK):
+    """One input set of a quant pair at ``shape`` (default the ring-8
+    PixArt chunk): x, base (N, C) in ``base_dtype`` and the bf16 scale
+    factors u, v the engine gives it (``rank``: the binary scale model, -1
+    for the mean scale; INT2 always takes the mean scale)."""
     import torch
 
-    n, c = CHUNK
-    x = torch.randn((n, c), generator=gen, device=dev).to(base_dtype)
-    base = (torch.randn((n, c), generator=gen, device=dev) * 0.9).to(base_dtype)
+    x = torch.randn(shape, generator=gen, device=dev).to(base_dtype)
+    base = (torch.randn(shape, generator=gen, device=dev) * 0.9).to(base_dtype)
     delta = x.float() - base.float()
     u, v = codecs._scale_uv(delta, rank) if codec == "binary" else codecs._mean_scale_uv(delta)
-    u, v = codecs._wire(u), codecs._wire(v)
+    return x, base, codecs._wire(u), codecs._wire(v)
+
+
+def check_quant(quant, codecs, timing, dev, gen, codec, rank, base_dtype, shape=CHUNK):
+    """One quant/dequant kernel pair vs its twins at ``shape`` on
+    :func:`quant_case`'s inputs; each kernel timed eager (200 calls on one
+    input set) and by CUDA graphs on enough input sets to fill 4x the L2
+    (``graph_ms``).  Returns a report, with binary quant's plan (packed
+    bytes per thread: ``ops/quant.py::binary_quant_plan``)."""
+    import torch
+
+    x, base, u, v = quant_case(codecs, dev, gen, codec, rank, base_dtype, shape)
     q, dq = getattr(quant, f"{codec}_quant_fastpath"), getattr(quant, f"{codec}_dequant_fastpath")
     q_ref, dq_ref = getattr(quant, f"{codec}_quant_fastpath_ref"), getattr(quant, f"{codec}_dequant_fastpath_ref")
     packed, new_base = q(x, base, u, v)
@@ -367,36 +427,66 @@ def check_quant(quant, codecs, dev, gen, codec, rank, base_dtype):
     torch.cuda.synchronize()
     ref_packed, ref_base = q_ref(x, base, u, v)
     ref_hat = dq_ref(packed, base, u, v)
-    name = f"{codec} N{n} C{c} K{u.shape[1]} {str(base_dtype).replace('torch.', '')}"
+    n, c = x.shape
+    kk = u.shape[1]
+    name = f"{codec} N{n} C{c} K{kk} {str(base_dtype).replace('torch.', '')}"
     if not torch.equal(packed, ref_packed):
         raise AssertionError(f"{name} quant kernel: packed bytes differ from the twin's")
-    rel = ((new_base.float() - ref_base.float()).abs() / ref_base.float().abs().clamp_min(1e-30)).max().item()
+    rel = _rel(new_base, ref_base)
     if rel > QUANT_NEW_BASE_RTOL:
         raise AssertionError(f"{name} quant kernel: new_base off the twin by {rel:.3e} relative")
     if not torch.equal(x_hat, new_base):
         raise AssertionError(f"{name}: dequant output is not bit-identical to quant's new_base")
-    n, c, kk = x.shape[0], x.shape[1], u.shape[1]
     # fp32 elementwise work per value: delta, the rank-K scale, the level
     # decision and the base update (quant); the scale and the update (dequant)
-    quant_bound = _bound(_nbytes(x, base, u, v, packed, new_base), (4 + 2 * kk) * n * c,
-                         PEAK_FP32_FLOPS)
-    dequant_bound = _bound(_nbytes(packed, base, u, v, x_hat), (3 + 2 * kk) * n * c,
-                           PEAK_FP32_FLOPS)
+    quant_bytes = _nbytes(x, base, u, v, packed, new_base)
+    dequant_bytes = _nbytes(packed, base, u, v, x_hat)
+    quant_bound = _bound(quant_bytes, (4 + 2 * kk) * n * c, PEAK_FP32_FLOPS)
+    dequant_bound = _bound(dequant_bytes, (3 + 2 * kk) * n * c, PEAK_FP32_FLOPS)
+    sets = [(x, base, u, v)] + [quant_case(codecs, dev, gen, codec, rank, base_dtype, shape)
+                                for _ in range(timing.copies(quant_bytes) - 1)]
+    quant_graph = graph_ms(timing, [lambda t=t: q(*t) for t in sets])
+    sets = [(packed, base, u, v)] + [
+        (torch.randint(0, 256, tuple(packed.shape), generator=gen, device=dev, dtype=torch.uint8), *t[1:])
+        for t in sets[1:]]
+    dequant_graph = graph_ms(timing, [lambda t=t: dq(*t) for t in sets])
+    n_sets = len(sets)
+    del sets
     row = {"shape": name, "new_base_rel_err": rel,
            "quant_bound_ms": quant_bound[0], "quant_bound_by": quant_bound[1],
            "dequant_bound_ms": dequant_bound[0], "dequant_bound_by": dequant_bound[1],
            "max_abs_err_quant": (new_base.float() - ref_base.float()).abs().max().item(),
            "max_abs_err_dequant": (x_hat.float() - ref_hat.float()).abs().max().item(),
-           "quant_ms": _time_ms(lambda: q(x, base, u, v), 200),
+           "quant_ms": _time_ms(lambda: q(x, base, u, v), 200), "quant_graph_ms": quant_graph,
            "quant_plain_ms": _time_ms(lambda: q_ref(x, base, u, v), 200),
-           "dequant_ms": _time_ms(lambda: dq(packed, base, u, v), 200),
+           "dequant_ms": _time_ms(lambda: dq(packed, base, u, v), 200), "dequant_graph_ms": dequant_graph,
            "dequant_plain_ms": _time_ms(lambda: dq_ref(packed, base, u, v), 200)}
+    plan = ""
+    if codec == "binary":
+        row["quant_plan_bytes_per_thread"] = quant.binary_quant_plan(x, base, v)
+        plan = (f" on the {'vector' if row['quant_plan_bytes_per_thread'] > 1 else 'scalar'} plan "
+                f"({row['quant_plan_bytes_per_thread']} packed bytes per thread)")
     print(f"[2] {name}: packed bytes equal, new_base rel err {rel:.3e} (tol {QUANT_NEW_BASE_RTOL}), "
-          f"dequant == new_base bit for bit; quant {row['quant_ms']:.4f} ms (twin "
-          f"{row['quant_plain_ms']:.4f}, bound {quant_bound[0]:.5f}), dequant "
-          f"{row['dequant_ms']:.4f} ms (twin {row['dequant_plain_ms']:.4f}, bound "
-          f"{dequant_bound[0]:.5f})")
+          f"dequant == new_base bit for bit; quant{plan} {row['quant_ms']:.4f} ms eager, "
+          f"{quant_graph:.5f} ms by CUDA graphs on {n_sets} input sets (twin {row['quant_plain_ms']:.4f}, "
+          f"bound {quant_bound[0]:.5f}), dequant {row['dequant_ms']:.4f} ms eager, {dequant_graph:.5f} "
+          f"ms by graphs (twin {row['dequant_plain_ms']:.4f}, bound {dequant_bound[0]:.5f})")
     return row
+
+
+def launch_floor_ms(ops_probes, timing, dev):
+    """ms per launch of a kernel that does nothing, by the CUDA graphs of
+    ``graph_ms`` (no inputs): the floor under the quant kernels'
+    ``graph_ms``."""
+    return timing.per_call_ms(lambda: ops_probes.empty(dev), 20, 120)[0]
+
+
+def rel_fro(a, b):
+    """||a - b|| / ||b|| over all elements, in fp32."""
+    import torch
+
+    a, b = a.float(), b.float()
+    return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
 
 
 def _rel(a, b):
@@ -435,7 +525,7 @@ def check_ring_flash(rf, flash, timing, dev, gen):
         err_out = (out.float() - ref_out.float()).abs().max().item()
         err_lse = (lse - ref_lse).abs().max().item()
         name = f"ring {ring} B{b} H16 Sq{s_local} Sk{ring}x{s_local} d72"
-        plan = flash.flash_plan(b, 16, s_local, 72)
+        plan = flash.flash_plan(b, 16, s_local, 72, wide=False)
         ms = _time_ms(lambda: rf.ring_flash_attn_with_lse(q, iter(blocks), ring), 20)
         k_all = torch.cat([k for k, _ in blocks], dim=1)
         v_all = torch.cat([v for _, v in blocks], dim=1)
@@ -562,7 +652,7 @@ def check_compact_ring(rf, flash, timing, dev, gen, ring, b, s_local, codec, ran
     base_rel = max(_rel(_decoded(stacks[0][0]), _decoded(kr)), _rel(_decoded(stacks[0][1]), _decoded(vr)))
     consistent = all(_same(stacks[r][i], stacks[0][i]) for r in range(ring) for i in range(2))
     name = cring_name(ring, b, s_local, codec, rank, quantized)
-    plan = flash.flash_plan(b, h, s_local, d)
+    plan = flash.flash_plan(b, h, s_local, d, wide=False)
     ctas = _ctas(plan, b, h, s_local)
     ok = (err_out <= FLASH_OUT_ATOL and err_lse <= FLASH_LSE_ATOL and base_rel <= QUANT_NEW_BASE_RTOL
           and consistent)
@@ -808,8 +898,9 @@ def compressed_phase(phase, what, pipe, kernels, lossless, expect):
 
     _reset_counts(kernels)
     lat, img, sec = request(pipe, 1)
-    counts = {fn.__name__: fn.launches for fn in kernels}
+    counts = _counts(kernels)
     check_image(img, what)
+    expect = _with_routes(expect)
     for name, count in counts.items():
         want = expect.get(name, 0)
         if name == "flash_attn_with_lse":
@@ -880,11 +971,11 @@ def accel_phase(phase, what, pipe, kernels, lossless, full, window, exact=False)
 
     _reset_counts(kernels)
     lat, img, sec = request(pipe, 1)
-    counts = {fn.__name__: fn.launches for fn in kernels}
+    counts = _counts(kernels)
     check_image(img, what)
     if callable(full):
         full = full(pipe.last_skips)
-    want = {"flash_attn_with_lse": full, "flash_attn_window_with_lse": window}
+    want = {"flash_attn_with_lse": full, "flash_attn_window_with_lse": window, WIDE: 1}
     for name, count in counts.items():
         if count != want.get(name, 0):
             raise AssertionError(f"{what}: {name} launched {count} times, expected {want.get(name, 0)}")
@@ -977,7 +1068,7 @@ def ring_rank(rank, world, runs):
         ring_shift.nbytes = 0
         compact_ring.max_consistency_dev = 0.0
         lat, img, sec = request(pipe, 1)
-        counts = {fn.__name__: fn.launches for fn in kernels}
+        counts = _counts(kernels)
         check_image(img, f"{name} rank {rank}")
         out[name] = {"latents": lat.float().cpu().numpy(), "launches": counts,
                      "wire_bytes": ring_shift.nbytes, "consistency_dev": compact_ring.max_consistency_dev,
@@ -1002,6 +1093,7 @@ def ring_phase(phase, results, name, lossless, expect, bound, references=(), low
 
     runs = [r[name] for r in results]
     lat = runs[0]["latents"]
+    expect = _with_routes(expect)
     for i, r in enumerate(runs):
         if not np.array_equal(r["latents"], lat):
             raise AssertionError(f"{name}: rank {i}'s latents differ from rank 0's")
@@ -1029,6 +1121,21 @@ def ring_phase(phase, results, name, lossless, expect, bound, references=(), low
           f"not a ring speed); ring-shift bytes per rank {rep['wire_bytes_per_rank']}; launches per "
           f"rank: {', '.join(f'{k} {v}' for k, v in runs[0]['launches'].items() if v)}")
     return rep
+
+
+def quant_entry(quant_rows, totals, codec, which, line):
+    """The kernels line's entry of one quant kernel: its first shape's
+    numbers at the top, every shape in ``shapes``."""
+    rows = quant_rows[codec]
+    return {"name": f"{codec}_{which}_fastpath", "route": "cuda",
+            "source": f"compactfusion_tpu_torch/csrc/{codec}_quant.cu",
+            "replaces": f"compactfusion_tpu/ops/quant_pallas.py:{line}",
+            "launches": totals[f"{codec}_{which}_fastpath"],
+            "max_abs_err": max(r[f"max_abs_err_{which}"] for r in rows),
+            "ms": rows[0][f"{which}_ms"], "graph_ms": rows[0][f"{which}_graph_ms"],
+            "plain_ms": rows[0][f"{which}_plain_ms"],
+            "bound_ms": rows[0][f"{which}_bound_ms"], "bound_by": rows[0][f"{which}_bound_by"],
+            "library_ms": None, "shapes": rows}
 
 
 def main():
@@ -1070,10 +1177,18 @@ def main():
     flash_rows = check_flash(flash, timing, dev, gen)
     window_rows, window_vs_full = check_window(flash, dev, gen)
     quant_rows = {
-        "binary": [check_quant(quant, codecs, dev, gen, "binary", r, torch.float32) for r in (-1, 2)],
-        "int2": [check_quant(quant, codecs, dev, gen, "int2", -1, dt)
+        "binary": [check_quant(quant, codecs, timing, dev, gen, "binary", r, torch.float32)
+                   for r in (-1, 2)]
+        + [check_quant(quant, codecs, timing, dev, gen, "binary", -1, torch.float32, (CHUNK[0], 1160))],
+        "int2": [check_quant(quant, codecs, timing, dev, gen, "int2", -1, dt)
                  for dt in (torch.float32, torch.bfloat16)],
     }
+    plans = [r["quant_plan_bytes_per_thread"] for r in quant_rows["binary"]]
+    if plans != [quant.QUANT_VEC_BYTES, quant.QUANT_VEC_BYTES, 1]:
+        raise AssertionError(f"binary quant took the plans {plans}: the vector kernel at C=1152, the "
+                             f"scalar one at C=1160 expected")
+    floor_ms = launch_floor_ms(ops_probes, timing, dev)
+    print(f"[2] empty kernel: {floor_ms:.5f} ms per launch by CUDA graphs (the floor under graph_ms)")
 
     # -- 3. full-width pipeline, compression off -----------------------------
     mcfg, vcfg, params, vae_params = build_models(dev)
@@ -1090,11 +1205,14 @@ def main():
     secs = []
     for seed in (1, 2, 3):
         before = flash.flash_attn_with_lse.launches
+        wide_before = flash.flash_attn_with_lse.wide_launches
         lat, img, sec = request(pipe, seed)
         lo, hi = check_image(img, f"request seed {seed}")
         launched = flash.flash_attn_with_lse.launches - before
         if launched < DEPTH * STEPS:
             raise AssertionError(f"request seed {seed}: flash launched {launched} < {DEPTH * STEPS} times")
+        if flash.flash_attn_with_lse.wide_launches - wide_before != 1:
+            raise AssertionError(f"request seed {seed}: the VAE's attention did not launch the wide body once")
         if any(fn.launches for fn in kernels[1:]):
             raise AssertionError("compression off, yet a quant or window kernel launched")
         if lossless is None:
@@ -1102,8 +1220,7 @@ def main():
         secs.append(sec)
         print(f"[3] request seed {seed}: image (1, 512, 512, 3) in [{lo:.4f}, {hi:.4f}], "
               f"flash launches {launched}, {sec:.4f} s/image")
-    phases = {"lossless": {"s_per_image": secs,
-                           "launches": {fn.__name__: fn.launches for fn in kernels}}}
+    phases = {"lossless": {"s_per_image": secs, "launches": _counts(kernels)}}
 
     # -- 4.-7. full-width pipeline, compressed-ring emulations ---------------
     per_layer = CALLS_PER_LAYER
@@ -1143,7 +1260,7 @@ def main():
     _reset_counts(kernels)
     calibrated, cal_s = calibrated_plan(params, mcfg, vcfg, dev)
     hist = {m: int((calibrated == m).sum()) for m in range(7)}
-    cal_launches = {fn.__name__: fn.launches for fn in kernels}
+    cal_launches = _counts(kernels)
     print(f"[10] calibrate_pixart (threshold 0.5, window {WINDOW}): {cal_s:.3f} s; methods "
           f"{hist}; optimized {({m: int((optimize_plan(calibrated) == m).sum()) for m in range(7)})}; "
           f"launches {cal_launches}")
@@ -1182,14 +1299,15 @@ def main():
     with cfg_halves_apart():
         halves_lat, halves_img, halves_sec = request(pipe, 1)
     check_image(halves_img, "CFG halves at B1")
-    if flash.flash_attn_with_lse.launches != 2 * DEPTH * STEPS + 1:
-        raise AssertionError(f"CFG halves at B1: flash launched {flash.flash_attn_with_lse.launches} times")
+    if (flash.flash_attn_with_lse.launches, flash.flash_attn_with_lse.wide_launches) != (2 * DEPTH * STEPS + 1, 1):
+        raise AssertionError(f"CFG halves at B1: flash launched {flash.flash_attn_with_lse.launches} times, "
+                             f"{flash.flash_attn_with_lse.wide_launches} on the wide body")
     halves_np = halves_lat.float().cpu().numpy()
     halves_rel = _rel_np(halves_np, lossless_np)
     print(f"[13] one process, each CFG half's forward at B1 (as a cfg-2 rank runs it): rel err vs the "
           f"B2 request (lossless) {halves_rel:.6f}, {halves_sec:.4f} s/image")
     phases["cfg halves at B1"] = {"latent_rel_err_vs_lossless": halves_rel, "s_per_image": halves_sec,
-                                  "launches": {fn.__name__: fn.launches for fn in kernels}}
+                                  "launches": _counts(kernels)}
     halves_ref = ("the CFG halves at B1", halves_np, HALVES_REL_MAX)
     hops, comp_steps = 2 * DEPTH, STEPS - WARMUP  # ring 2: two hops per self-attention
     ring2, fused2 = {"ring_degree": 2}, {"ring_degree": 2, "use_fused_ring": True}
@@ -1290,20 +1408,11 @@ def main():
                         "block_breakdown": [{"part": p, "ms": c, "share": s} for p, c, s in breakdown]}
 
     totals = {fn.__name__: sum(p["launches"][fn.__name__] for p in phases.values()) for fn in kernels}
+    for key in ROUTES.values():
+        totals[key] = sum(p["launches"].get(key, 0) for p in phases.values())
     for name, count in totals.items():
         if count == 0:
             raise AssertionError(f"{name} never launched on the main path")
-
-    def quant_entry(codec, which, line):
-        rows = quant_rows[codec]
-        return {"name": f"{codec}_{which}_fastpath", "route": "cuda",
-                "source": f"compactfusion_tpu_torch/csrc/{codec}_quant.cu",
-                "replaces": f"compactfusion_tpu/ops/quant_pallas.py:{line}",
-                "launches": totals[f"{codec}_{which}_fastpath"],
-                "max_abs_err": max(r[f"max_abs_err_{which}"] for r in rows),
-                "ms": rows[0][f"{which}_ms"], "plain_ms": rows[0][f"{which}_plain_ms"],
-                "bound_ms": rows[0][f"{which}_bound_ms"], "bound_by": rows[0][f"{which}_bound_by"],
-                "library_ms": None, "shapes": rows}
 
     def flash_entry(name, line, rows, source="flash_attn.cu", **extra):
         """One kernel of kernels 1, 4, 7 and 8: its first shape's numbers
@@ -1320,9 +1429,13 @@ def main():
 
     report = {"kernels": [
         flash_entry("flash_attn_with_lse", "compactfusion_tpu/ops/flash_pallas.py:593", flash_rows,
+                    launches_by_route={"register body (d <= 128)": totals["flash_attn_with_lse"] - totals[WIDE],
+                                       "wide body (128 < d <= 512)": totals[WIDE]},
                     launches_in_probes=phases["probes"]["launches_of_pipeline_kernels"]["flash_attn_with_lse"]),
-        quant_entry("binary", "quant", 118), quant_entry("binary", "dequant", 159),
-        quant_entry("int2", "quant", 238), quant_entry("int2", "dequant", 273),
+        dict(quant_entry(quant_rows, totals, "binary", "quant", 118), launch_floor_ms=floor_ms,
+             launches_by_plan={"vector": totals[VEC], "scalar": totals["binary_quant_fastpath"] - totals[VEC]}),
+        quant_entry(quant_rows, totals, "binary", "dequant", 159),
+        quant_entry(quant_rows, totals, "int2", "quant", 238), quant_entry(quant_rows, totals, "int2", "dequant", 273),
         flash_entry("flash_attn_window_with_lse", "compactfusion_tpu/ops/flash_pallas.py:508", window_rows,
                     ms_vs_full_kernel=window_vs_full),
         flash_entry("ring_flash_attn_with_lse", "compactfusion_tpu/ops/ring_flash_pallas.py:347", ring_rows,

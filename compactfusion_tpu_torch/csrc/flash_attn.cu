@@ -1,10 +1,12 @@
 // Non-causal flash attention with a natural-log LSE, bf16 in, fp32 math:
 // full attention (flash_fwd_reg_kernel for head dims up to 128, on the
-// register body of flash_reg.cuh; flash_fwd_kernel above) and banded
-// attention |i - j| <= w (flash_window_reg_kernel on the same register body
-// up to 128; flash_window_kernel above).  The host picks the body, padded
-// head dim and warps per CTA (ops/flash.py::flash_plan) and passes them in;
-// the entry points launch exactly that or return an error.
+// register body of flash_reg.cuh; flash_fwd_wide_kernel for 128 < d <= 512,
+// on the wide body of flash_wide.cuh, the register body split over warps by
+// head-dim slices; flash_fwd_kernel on flash_common.cuh's shared-memory
+// body above) and banded attention |i - j| <= w (flash_window_reg_kernel on
+// the register body up to 128; flash_window_kernel above).  The host picks
+// the body, padded head dim and warps per CTA (ops/flash.py::flash_plan) and
+// passes them in; the entry points launch exactly that or return an error.
 //
 // Replaces: compactfusion_tpu/ops/flash_pallas.py::flash_attn_with_lse, main
 // branch (kernels _flash_kernel / _flash_kernel_heads, pallas_call at
@@ -15,30 +17,31 @@
 // head) attention does ~4*Sq*Sk*d FLOPs on ~8*S*d bytes, far above the
 // card's ~295 FLOP/byte ridge, so it is bound by math: the bf16 tensor cores
 // for the two products, and the fp32 CUDA cores for the exp2 of every score.
-// The VAE mid-block shape (d=512, S=4096, one head) is the same, with a head
-// dim too wide for a register-resident accumulator.
+// The VAE mid-block shape (d=512, S=4096, one head) is the same (34.4 GFLOP),
+// with a head dim too wide for one warp's register accumulator: the wide
+// body's note (flash_wide.cuh) says how its warps share a row.
 //
-// Design of the shared-memory body (flash_common.cuh; the register body
-// has its own note in flash_reg.cuh):
+// Design of the shared-memory body (flash_common.cuh; the register bodies
+// have their own notes):
 //  * one CTA per (q-tile, head, batch); the TPU's sequential KV grid axis
 //    becomes an in-block loop over K/V tiles staged in shared memory;
 //  * warp w owns query rows [16w, 16w+16) of the tile end to end: its score
 //    strip (WMMA 16x16x16 bf16 -> fp32), the online softmax of those rows
 //    (fp32 m/l, exp2 domain), and its rows of the fp32 accumulator, so the
 //    only block-wide barriers are around the K/V tile loads;
-//  * the head dim is zero-padded to a multiple of 16 in shared memory
-//    (d=72 -> 80), and q/k/v are read through their (b, s, h) strides, so
-//    PixArt's column slices of one qkv tensor need no copy;
+//  * the head dim is zero-padded to a multiple of 16 in shared memory, and
+//    q/k/v are read through their (b, s, h) strides;
 //  * the accumulator lives in dynamic shared memory, not registers, which is
-//    what lets d=512 run: 64x64 tiles (4 warps) while the layout fits in
-//    ~200 KB, 32x32 tiles (2 warps) above, with
-//    cudaFuncAttributeMaxDynamicSharedMemorySize raised past 48 KB;
+//    what lets any head dim run: 64x64 tiles (4 warps; banded attention up
+//    to DP 256) while the layout fits in ~200 KB, 32x32 tiles (2 warps)
+//    above, with cudaFuncAttributeMaxDynamicSharedMemorySize raised past
+//    48 KB.  Full attention takes it only above d = 512;
 //  * keys at or past min(kv_lens[b], Sk) are masked; tiles wholly past it
 //    are skipped.  A row with no valid key writes 0 and LSE -inf, the
 //    attn_with_lse convention.
 //
 // The banded kernel (DiTFastAttn's window attention; Sq == Sk, no kv_lens),
-// on either body:
+// on the register or the shared-memory body:
 //  * off-band tiles are skipped, not masked: the q-tile at q0 visits only the
 //    KV tiles from that of max(0, q0 - w) to that of min(S - 1, q0 + BQ - 1
 //    + w), and masks |i - j| > w inside them, so the work scales with S * w
@@ -53,10 +56,12 @@
 //    products (127,936 band pairs per head; ~1.2 us at 989 TFLOP/s): memory,
 //    where the full kernel is bound by math.
 
-// The tile bodies live in flash_common.cuh and flash_reg.cuh, shared with
-// the ring kernels of ring_flash.cu.
+// The tile bodies live in flash_common.cuh, flash_reg.cuh and
+// flash_wide.cuh, the first two shared with the ring kernels of
+// ring_flash.cu; the wide kernel is built in its own source,
+// flash_wide.cu, which nvcc compiles beside this one.
 
-#include "flash_reg.cuh"
+#include "flash_wide.cuh"  // the wide body's launch (flash_wide.cu)
 
 namespace {
 
@@ -141,19 +146,29 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* 
            int window, cudaStream_t stream) {
   constexpr int BQ = 16 * NWARPS;
   const Layout L = make_layout(D, BQ, BK);
-  auto kern = BAND ? flash_window_kernel<NWARPS, BK> : flash_fwd_kernel<NWARPS, BK>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kern<<<grid, 32 * NWARPS, L.bytes, stream>>>(q, k, v, sq, sk, sv, out, lse, kv_lens, H, Sq,
-                                               Sk, D, scale_log2, window);
+  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  // only the kernel of the plan's kind is instantiated
+  if constexpr (BAND) {
+    auto kern = flash_window_kernel<NWARPS, BK>;
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kern<<<grid, 32 * NWARPS, L.bytes, stream>>>(q, k, v, sq, sk, sv, out, lse, kv_lens, H, Sq,
+                                                 Sk, D, scale_log2, window);
+  } else {
+    auto kern = flash_fwd_kernel<NWARPS, BK>;
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kern<<<grid, 32 * NWARPS, L.bytes, stream>>>(q, k, v, sq, sk, sv, out, lse, kv_lens, H, Sq,
+                                                 Sk, D, scale_log2, window);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // Launch the plan (body, dp, warps): the register body at a built (dp,
-// warps) with D <= dp, or the shared-memory body with dp = D rounded up to
-// 16 and 4 warps (64x64 tiles) or 2 (32x32); anything else is an error.
-// BAND takes the banded kernel of the same body.
+// warps) with D <= dp; full attention also the wide body at a built (dp,
+// warps); or the shared-memory body with dp = D rounded up to 16 and 2 warps
+// (32x32 tiles), or, banded, 4 (64x64); anything else is an error.  BAND
+// takes the banded kernel of the same body.
 template <bool BAND>
 int dispatch(const void* q, const void* k, const void* v, long long qsb, long long qss,
              long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
@@ -182,15 +197,23 @@ int dispatch(const void* q, const void* k, const void* v, long long qsb, long lo
 #undef CF_REG_CASE
     return static_cast<int>(refused);
   }
-  if (body != kTileBody || dp != round_up(D, 16)) return static_cast<int>(refused);
-  // 64x64 tiles with 4 warps, 32x32 tiles with 2 (d=512: ~173 KB of shared memory)
-  if (warps == 4) {
-    return launch<4, 64, BAND>(qp, kp, vp, sq, sk, sv, op, lp, lens, B, Sq, Sk, H, D, sl2,
-                               window, st);
+  if (body == kWideBody) {
+    if (BAND) return static_cast<int>(refused);
+    return cf_flash_wide_launch(q, k, v, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, out, lse,
+                                kv_lens, B, Sq, Sk, H, D, sl2, dp, warps, stream);
   }
+  if (body != kTileBody || dp != round_up(D, 16)) return static_cast<int>(refused);
+  // 32x32 tiles with 2 warps (d=520: ~174 KB of shared memory); banded, also
+  // 64x64 tiles with 4
   if (warps == 2) {
     return launch<2, 32, BAND>(qp, kp, vp, sq, sk, sv, op, lp, lens, B, Sq, Sk, H, D, sl2,
                                window, st);
+  }
+  if constexpr (BAND) {
+    if (warps == 4) {
+      return launch<4, 64, BAND>(qp, kp, vp, sq, sk, sv, op, lp, lens, B, Sq, Sk, H, D, sl2,
+                                 window, st);
+    }
   }
   return static_cast<int>(refused);
 }

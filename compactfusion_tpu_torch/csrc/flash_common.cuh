@@ -9,8 +9,10 @@
 // first = no state yet, last = normalise and write out/LSE.
 //
 // Kernels 1, 4 and 7 up to a head dim of 128, kernel 8's flash partial and
-// the stage probe run on the register body of flash_reg.cuh; this body
-// serves only the wider heads (the VAE's d=512).
+// the stage probe run on the register body of flash_reg.cuh, and kernel 1
+// up to 512 (the VAE's d=512) on the wide body of flash_wide.cuh.  This
+// body serves what is left, which no path of the pipeline runs: kernel 1
+// above d = 512, and kernels 4 and 7 above d = 128.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,5 +1,6 @@
 // The register-resident flash tile body for Hopper: kernel 1 (non-causal
-// attention with a natural-log LSE, head dims up to 128; csrc/flash_attn.cu),
+// attention with a natural-log LSE, head dims up to 128; csrc/flash_attn.cu;
+// wider heads up to 512 take flash_wide.cuh, this body split over warps),
 // kernel 4 (the same, banded: BAND), kernel 7 (one ring hop folded into an
 // fp32 (m, l, acc) state; csrc/ring_flash.cu) and the flash partial of
 // kernel 8 (kernel 7's launch on the reconstructed K/V) run on it, and so
@@ -72,8 +73,9 @@ __device__ __forceinline__ float probe_factor(float x, float scale_log2) {
 
 constexpr int kRegBK = 64;  // keys per K/V tile
 
-// The bodies a plan names (ops/flash.py::BODIES)
-enum Body : int { kTileBody = 0, kRegBody = 1 };
+// The bodies a plan names (ops/flash.py::BODIES); the wide body is
+// flash_wide.cuh's
+enum Body : int { kTileBody = 0, kRegBody = 1, kWideBody = 2 };
 
 // The (DP, warps) pairs the register kernels are built for: what
 // ops/flash.py::flash_plan can choose (REG_BUILT there)

@@ -1,0 +1,281 @@
+// The wide-head flash tile body for Hopper: kernel 1 (non-causal attention
+// with a natural-log LSE, optional kv_lens) at head dims 128 < d <= 512,
+// launched as flash_fwd_wide_kernel (csrc/flash_wide.cu) by kernel 1's
+// entry in csrc/flash_attn.cu.  The SD-VAE's mid-block attention (B1 H1
+// S4096 d512) is the shape on the path.
+//
+// Replaces: compactfusion_tpu/ops/flash_pallas.py::flash_attn_with_lse,
+// main branch (pallas_call at flash_pallas.py:593), at the wide heads.
+//
+// What bounds it on an H100: operations.  At B1 H1 S4096 d512 the two
+// products are 4 * S^2 * D = 34.4 GFLOP, 34.7 us at 989 TFLOP/s bf16,
+// against 16.8 MB of q/k/v/out (5.0 us at 3.35 TB/s).  Every CTA streams
+// all of K/V (8 MB) from L2, so the L2 traffic is CTAs x 8 MB.
+//
+// Design: flash_reg.cuh's register body with the head dim split across
+// warps.  A register accumulator of 16 rows x 512 fp32 would take 256
+// registers a thread, so:
+//  * the padded head dim DP is cut into NSL slices of DS <= 128 columns
+//    (ops/flash.py::flash_plan picks DP; NSL = ceil(DP / 128)).  A CTA holds
+//    2 row groups of 16 query rows x NSL slices, one warp each: warp (r, s)
+//    keeps O[16 rows of r, slice s] as mma.sync.m16n8k16 fp32 fragments (64
+//    registers a thread at DS 128) and Q[rows, slice s] as A fragments
+//    loaded once;
+//  * per K/V tile of kWideBK keys, warp (r, s) computes the partial scores
+//    Q[:, s] K[:, s]^T over its slice alone; the NSL partials of a row group
+//    meet in a shared-memory exchange (16 x kWideBK fp32 per warp, stored as
+//    each thread's fragments, so no bank conflict) behind a named barrier
+//    of the group's warps, and every warp adds them in slice order 0..NSL-1:
+//    the warps of a group hold the same scores bit for bit, run the same
+//    online softmax (flash_reg.cuh's: two rows a thread, quad shuffles, exp2
+//    against the running max) and keep the same P as bf16 A fragments, then
+//    add P V[:, slice s] into their own O.  QK^T is computed once, and O, P
+//    and the softmax state never leave registers.  The exchange buffer is
+//    rewritten only after the next tile's __syncthreads, by which every warp
+//    has read it;
+//  * K/V tiles of kWideBK = 32 keys (a 64-key K+V tile is 133 KB at DP 512)
+//    stream through a cp.async ring of 2 or 3 stages, as many as fit beside
+//    the Q tile and the exchange in 227 KB; rows past kv_len and columns
+//    past D are zero-filled by the copy, rows are DP + 8 elements (an odd
+//    number of 16-byte segments: ldmatrix without bank conflicts), and
+//    q/k/v are read through their (b, s, h) strides.
+// A row with no key writes 0 and LSE -inf.  The body is for full
+// attention alone: banded attention and the ring hop (kernels 4 and 7) take
+// flash_common.cuh::flash_tile above d = 128.
+#pragma once
+
+#include "flash_reg.cuh"
+
+namespace {
+
+constexpr int kWideBK = 32;  // keys per K/V tile
+
+// The (DP, warps) pairs the wide kernel is built for: what
+// ops/flash.py::flash_plan can choose (WIDE_BUILT there).  DP is NSL slices
+// of DS columns, and warps = 2 row groups x NSL
+#define CF_WIDE_PLANS(X) X(160, 4) X(192, 4) X(256, 4) X(288, 6) X(384, 6) X(512, 8)
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// The shared memory of one CTA: the Q tile, the K/V ring and the exchange
+template <int DP, int NWARPS>
+struct WideLayout {
+  static constexpr int kSlices = cdiv(DP, 128);
+  static constexpr int kDs = DP / kSlices;
+  static constexpr int kGroups = NWARPS / kSlices;
+  static constexpr int kLd = DP + 8;
+  static constexpr int kQBytes = 16 * kGroups * kLd * 2;
+  static constexpr int kTileBytes = kWideBK * kLd * 2;
+  static constexpr int kXchBytes = NWARPS * 16 * kWideBK * 4;
+  static constexpr int kStages = 2 + (kQBytes + 3 * 2 * kTileBytes + kXchBytes <= 227 * 1024);
+  static constexpr int kBytes = kQBytes + kStages * 2 * kTileBytes + kXchBytes;
+};
+
+// Barrier `id` (1..15) of `threads` threads: the warps of one row group
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The query tile [q0, q0 + 16 kGroups) of head h, batch b against the keys
+// [0, kv_len) in tiles of kWideBK
+template <typename T, int DP, int NWARPS>
+__device__ __forceinline__ void
+flash_wide_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, Strides sq,
+                Strides sk, Strides sv, T* __restrict__ out, float* __restrict__ lse, int kv_len,
+                int H, int Sq, int D, float scale_log2, int q0, int h, int b) {
+  using Ops = MmaOps<T>;
+  using L = WideLayout<DP, NWARPS>;
+  constexpr int BK = kWideBK, NSL = L::kSlices, DS = L::kDs, BQ = 16 * L::kGroups;
+  constexpr int NT = 32 * NWARPS, LD = L::kLd, STAGES = L::kStages;
+  constexpr int NS = BK / 8;        // score fragments (8 keys each) per row strip
+  constexpr int NO = DS / 8;        // accumulator fragments (8 columns each) of the slice
+  constexpr int KQ = DS / Ops::kK;  // mma steps over the slice
+  static_assert(NSL > 1 && DS * NSL == DP && DS % 16 == 0 && DS <= 128, "slices of 16..128 columns");
+  static_assert(L::kGroups * NSL == NWARPS, "warps = row groups x slices");
+  static_assert(L::kBytes <= 227 * 1024, "the layout must fit one CTA's shared memory");
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* ring = reinterpret_cast<T*>(smem + L::kQBytes);  // stage s: K at 2s, V at 2s + 1
+  float4* xch = reinterpret_cast<float4*>(smem + L::kQBytes + STAGES * 2 * L::kTileBytes);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tig = lane % 4;  // the mma layout: row group, thread in group
+  const int grp = warp / NSL, sl = warp % NSL;
+  const int r0 = grp * 16, c0 = sl * DS;  // this warp's rows and columns within the tile
+  const int rowA = q0 + r0 + g, rowB = rowA + 8;
+  const long long row0 = (static_cast<long long>(b) * H + h) * Sq;
+  const T* qbh = q + b * sq.b + h * sq.h;
+  const T* kbh = k + b * sk.b + h * sk.h;
+  const T* vbh = v + b * sv.b + h * sv.h;
+  const int t_end = (kv_len + BK - 1) / BK;
+
+  auto load_kv = [&](int t) {
+    T* Ks = ring + (t % STAGES) * 2 * BK * LD;
+    async_tile<T, BK, DP, LD, NT>(Ks, kbh, sk.s, t * BK, kv_len, D, tid);
+    async_tile<T, BK, DP, LD, NT>(Ks + BK * LD, vbh, sv.s, t * BK, kv_len, D, tid);
+  };
+  // group 0: Q and tile 0; group s: tile s
+  async_tile<T, BQ, DP, LD, NT>(Qs, qbh, sq.s, q0, Sq, D, tid);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < t_end) load_kv(s);
+    cp_async_commit();
+  }
+
+  // the state of rows A (c[0], c[1] of a fragment) and B (c[2], c[3])
+  float o[NO][4];
+  float mA = -CUDART_INF_F, mB = -CUDART_INF_F, lA = 0.f, lB = 0.f;  // l: this thread's part
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  unsigned qf[KQ][4];  // Q's A fragments of the slice
+  const T* qw = Qs + (r0 + (lane % 16)) * LD + c0 + (lane / 16) * 8;
+  float4* xmine = xch + warp * NS * 32 + lane;          // this warp's partial scores
+  const float4* xgrp = xch + grp * NSL * NS * 32 + lane;  // the group's, slice by slice
+
+  for (int t = 0; t < t_end; ++t) {
+    const int k0 = t * BK;
+    cp_async_wait<STAGES - 2>();  // this thread's copies of tile t (and Q) landed
+    __syncthreads();  // everyone's landed; everyone is done with tile t - 1 and the exchange
+    if (t + STAGES - 1 < t_end) load_kv(t + STAGES - 1);  // into tile t - 1's buffer
+    cp_async_commit();
+    const T* Ks = ring + (t % STAGES) * 2 * BK * LD;
+    const T* Vs = Ks + BK * LD;
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KQ; ++kk) ldmatrix_x4(qf[kk], qw + kk * 16);
+    }
+
+    // partial scores of this warp's 16 rows over its slice: fp32 fragments
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {  // keys [16 np, 16 np + 16)
+        unsigned kf[4];
+        ldmatrix_x4(kf, Ks + (np * 16 + (lane % 8) + (lane / 16) * 8) * LD + c0 + kk * 16 +
+                            ((lane / 8) % 2) * 8);
+        Ops::mma(s[2 * np], qf[kk], kf[0], kf[1]);
+        Ops::mma(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+      }
+    }
+
+    // the group's full scores: the slices' partials added in slice order
+#pragma unroll
+    for (int n = 0; n < NS; ++n) xmine[n * 32] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+    bar_sync(1 + grp, 32 * NSL);
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      float4 x = xgrp[n * 32];
+#pragma unroll
+      for (int j = 1; j < NSL; ++j) {
+        const float4 y = xgrp[(j * NS + n) * 32];
+        x.x += y.x;
+        x.y += y.y;
+        x.z += y.z;
+        x.w += y.w;
+      }
+      s[n][0] = x.x;
+      s[n][1] = x.y;
+      s[n][2] = x.z;
+      s[n][3] = x.w;
+    }
+
+    // scale, mask the keys at or past kv_len (only the last tile has any),
+    // and the running max of the two rows across the quad
+    const bool ragged = k0 + BK > kv_len;
+    float xA = -CUDART_INF_F, xB = -CUDART_INF_F;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x = s[n][i] * scale_log2;
+        if (ragged && k0 + n * 8 + tig * 2 + (i % 2) >= kv_len) x = -CUDART_INF_F;
+        s[n][i] = x;
+      }
+      xA = fmaxf(xA, fmaxf(s[n][0], s[n][1]));
+      xB = fmaxf(xB, fmaxf(s[n][2], s[n][3]));
+    }
+    xA = fmaxf(xA, __shfl_xor_sync(0xffffffffu, xA, 1));
+    xA = fmaxf(xA, __shfl_xor_sync(0xffffffffu, xA, 2));
+    xB = fmaxf(xB, __shfl_xor_sync(0xffffffffu, xB, 1));
+    xB = fmaxf(xB, __shfl_xor_sync(0xffffffffu, xB, 2));
+    const float mA_new = fmaxf(mA, xA), mB_new = fmaxf(mB, xB);
+    // a row with no key yet keeps m = -inf: take its exponents against 0
+    const float refA = mA_new == -CUDART_INF_F ? 0.f : mA_new;
+    const float refB = mB_new == -CUDART_INF_F ? 0.f : mB_new;
+    const float alphaA = exp2f(mA - refA), alphaB = exp2f(mB - refB);  // 0 while m was -inf
+    mA = mA_new;
+    mB = mB_new;
+    float sumA = 0.f, sumB = 0.f;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = exp2f(s[n][i] - (i < 2 ? refA : refB));
+      sumA += s[n][0] + s[n][1];
+      sumB += s[n][2] + s[n][3];
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= alphaA;
+      o[n][1] *= alphaA;
+      o[n][2] *= alphaB;
+      o[n][3] *= alphaB;
+    }
+    lA = lA * alphaA + sumA;
+    lB = lB * alphaB + sumB;
+
+    // O[:, slice] += P V[:, slice]: P's A fragments straight from the scores
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {  // keys [16 kk, 16 kk + 16)
+      unsigned pf[4];
+      pf[0] = Ops::pack(s[2 * kk][0], s[2 * kk][1]);
+      pf[1] = Ops::pack(s[2 * kk][2], s[2 * kk][3]);
+      pf[2] = Ops::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pf[3] = Ops::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int dp = 0; dp < NO / 2; ++dp) {  // columns c0 + [16 dp, 16 dp + 16)
+        unsigned vf[4];
+        ldmatrix_x4_trans(vf, Vs + (kk * 16 + (lane % 16)) * LD + c0 + dp * 16 + (lane / 16) * 8);
+        Ops::mma(o[2 * dp], pf, vf[0], vf[1]);
+        Ops::mma(o[2 * dp + 1], pf, vf[2], vf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+
+  // the whole row sums: the quad's parts
+  lA += __shfl_xor_sync(0xffffffffu, lA, 1);
+  lA += __shfl_xor_sync(0xffffffffu, lA, 2);
+  lB += __shfl_xor_sync(0xffffffffu, lB, 1);
+  lB += __shfl_xor_sync(0xffffffffu, lB, 2);
+
+  // normalise and write this warp's columns: out (B, Sq, H, D); slice 0
+  // writes lse (B, H, Sq)
+  const float invA = lA > 0.f ? 1.f / lA : 0.f, invB = lB > 0.f ? 1.f / lB : 0.f;
+  T* outA = out + ((static_cast<long long>(b) * Sq + rowA) * H + h) * D;
+  T* outB = out + ((static_cast<long long>(b) * Sq + rowB) * H + h) * D;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    const int c = c0 + n * 8 + tig * 2;
+    if (c >= D) continue;
+    if (rowA < Sq) Ops::store2(outA + c, o[n][0] * invA, o[n][1] * invA);
+    if (rowB < Sq) Ops::store2(outB + c, o[n][2] * invB, o[n][3] * invB);
+  }
+  if (sl == 0 && tig == 0) {
+    if (rowA < Sq) lse[row0 + rowA] = lA > 0.f ? (mA + log2f(lA)) * kLn2 : -CUDART_INF_F;
+    if (rowB < Sq) lse[row0 + rowB] = lB > 0.f ? (mB + log2f(lB)) * kLn2 : -CUDART_INF_F;
+  }
+}
+
+}  // namespace
+
+// flash_fwd_wide_kernel's launch at the plan (dp, warps), in flash_wide.cu:
+// q/k/v strides (b, s, h) in elements, the softmax scale times log2(e)
+extern "C" int cf_flash_wide_launch(const void* q, const void* k, const void* v, long long qsb,
+                                    long long qss, long long qsh, long long ksb, long long kss,
+                                    long long ksh, long long vsb, long long vss, long long vsh,
+                                    void* out, void* lse, const void* kv_lens, int B, int Sq,
+                                    int Sk, int H, int D, float scale_log2, int dp, int warps,
+                                    void* stream);

@@ -14,6 +14,9 @@
 //  * plumb_kernel: reads q, k and v once through their (b, s, h) strides and
 //    writes (q + k) + v contiguous: what attention must move, none of its
 //    math.  Replaces _prof2_dbg.py::_plumb (pallas_call at _prof2_dbg.py:75).
+//  * empty_kernel: one CTA of one thread that does nothing: timed by CUDA
+//    graphs, the least a launch costs on the card (the floor under the
+//    quant kernels' times).  No TPU kernel stands behind it.
 //
 // What bounds them on an H100: flash_parts as kernel 1 (operations; each
 // switched-off stage shows what it costs), dma_only and plumb by bytes (at
@@ -33,6 +36,8 @@ constexpr int kTile = 16 * kWarps;  // plumb's rows per CTA
 // stage probe runs
 constexpr int kProbeDP = 80;
 constexpr int kProbeWarps = 8;
+
+__global__ void empty_kernel() {}
 
 __device__ inline __nv_bfloat16 add3(__nv_bfloat16 a, __nv_bfloat16 b, __nv_bfloat16 c) {
   const __nv_bfloat16 ab = __float2bfloat16(__bfloat162float(a) + __bfloat162float(b));
@@ -200,5 +205,11 @@ extern "C" int cf_plumb_bf16(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), Strides{qsb, qss, qsh}, Strides{ksb, kss, ksh},
       Strides{vsb, vss, vsh}, static_cast<__nv_bfloat16*>(out), H, S, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One launch of empty_kernel on the stream
+extern "C" int cf_empty(void* stream) {
+  empty_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,6 +31,37 @@ __device__ inline float scale_at(const __nv_bfloat16* __restrict__ u,
   return s;
 }
 
+// Four consecutive elements as fp32: one 16-byte load of fp32, one 8-byte
+// load of bf16 (the address aligned to that size)
+__device__ inline void load4(const float* __restrict__ p, float (&o)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  o[0] = t.x;
+  o[1] = t.y;
+  o[2] = t.z;
+  o[3] = t.w;
+}
+__device__ inline void load4(const __nv_bfloat16* __restrict__ p, float (&o)[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+  o[0] = lo.x;
+  o[1] = lo.y;
+  o[2] = hi.x;
+  o[3] = hi.y;
+}
+
+// Four consecutive elements stored from fp32 (bf16 rounded to nearest, as
+// from_f does), in one access
+__device__ inline void store4(float* __restrict__ p, const float (&o)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
+}
+__device__ inline void store4(__nv_bfloat16* __restrict__ p, const float (&o)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(o[0], o[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(o[2], o[3]);
+  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                                            *reinterpret_cast<const unsigned*>(&hi));
+}
+
 constexpr int kThreads = 256;
 
 // one thread per packed byte: N * C / per_byte threads

@@ -141,6 +141,7 @@ def _declare(lib: ctypes.CDLL) -> None:
             P, P, P, P, P, P,  # x, base, u, v, packed, new_base
             I, I, I,           # N, C, K
             I, I,              # x is bf16, base is bf16
+            *([I] if codec == "binary" else []),  # plan: packed bytes per thread (ops/quant.py)
             P,                 # stream
         ]
         quant.restype = I
@@ -200,6 +201,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         P,                # stream
     ]
     lib.cf_plumb_bf16.restype = I
+    lib.cf_empty.argtypes = [P]  # stream
+    lib.cf_empty.restype = I
     lib.cf_error_string.argtypes = [I]
     lib.cf_error_string.restype = ctypes.c_char_p
 

@@ -23,9 +23,11 @@ from typing import Optional, Tuple
 import torch
 
 #: the tile bodies a plan names, numbered as the C entry points take them:
-#: ``flash_common.cuh::flash_tile`` (shared-memory scores and accumulator)
-#: and ``flash_reg.cuh::flash_reg_tile`` (register fragments)
-BODIES = {"flash_tile": 0, "flash_reg_tile": 1}
+#: ``flash_common.cuh::flash_tile`` (shared-memory scores and accumulator),
+#: ``flash_reg.cuh::flash_reg_tile`` (register fragments) and
+#: ``flash_wide.cuh::flash_wide_tile`` (register fragments, the head dim
+#: split over warps)
+BODIES = {"flash_tile": 0, "flash_reg_tile": 1, "flash_wide_tile": 2}
 #: padded head dims of the register body
 REG_DPS = (64, 80, 96, 128)
 #: warps per CTA of the register body (16 query rows each), tried in this
@@ -37,6 +39,15 @@ MIN_CTAS = 128
 #: (dp, warps) the register kernels are built for: ``CF_REG_PLANS`` in
 #: ``csrc/flash_reg.cuh``, which lists every plan and nothing else
 REG_BUILT = frozenset((dp, w) for dp in REG_DPS for w in REG_WARPS)
+#: widest head-dim slice one warp of the wide body holds, and the widest
+#: head dim the wide body takes (kernel 1 only)
+WIDE_SLICE = 128
+WIDE_MAX_D = 512
+#: row groups (16 query rows each, one warp per slice) per CTA of the wide
+#: body: 32-row tiles.  At the VAE's B1 H1 S4096 d512 on an H100, 4 groups
+#: (64-row tiles, 64 CTAs) took 0.4381 ms by CUDA graphs against 0.2943
+#: (``tools/time_flash.py --sweep``, ``PERF.md`` §6)
+WIDE_GROUPS = 2
 #: widest padded head dim ``flash_tile`` takes in 64x64 tiles (4 warps);
 #: wider heads take 32x32 tiles (2 warps).  ``flash_common.cuh::make_layout``
 #: owns the shared memory: 64x64 tiles stay under 200 KB up to DP 256, and
@@ -48,9 +59,30 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def flash_plan(b: int, h: int, sq: int, d: int) -> Tuple[str, int, int]:
+def wide_slices(dp: int) -> int:
+    """Head-dim slices of a wide-body plan of padded head dim ``dp``."""
+    return -(-dp // WIDE_SLICE)
+
+
+def _wide_dp(d: int) -> int:
+    """The wide body's padded head dim: ceil(d / 128) slices, each the
+    smallest of :data:`REG_DPS` that holds its share of d rounded up to 16."""
+    slices = -(-d // WIDE_SLICE)
+    return slices * next(p for p in REG_DPS if p >= _round_up(-(-d // slices), 16))
+
+
+#: padded head dims of the wide body: every one the rule gives
+WIDE_DPS = tuple(sorted({_wide_dp(d) for d in range(REG_DPS[-1] + 8, WIDE_MAX_D + 1, 8)}))
+#: (dp, warps) the wide kernel is built for: ``CF_WIDE_PLANS`` in
+#: ``csrc/flash_wide.cuh``
+WIDE_BUILT = frozenset((dp, WIDE_GROUPS * wide_slices(dp)) for dp in WIDE_DPS)
+
+
+def flash_plan(b: int, h: int, sq: int, d: int, wide: bool = True) -> Tuple[str, int, int]:
     """(body, padded head dim, warps per CTA) of a flash launch of ``b``
-    batches, ``h`` heads and ``sq`` queries of head dim ``d``.
+    batches, ``h`` heads and ``sq`` queries of head dim ``d``.  ``wide``:
+    whether the launch may take the wide body (kernel 1; kernels 4 and 7
+    pass False).
 
     Attention up to d = 128 (kernel 1, and kernels 4 and 7 and kernel 8's
     flash partial by the same rule) takes the register body at the smallest of :data:`REG_DPS` that holds
@@ -71,8 +103,14 @@ def flash_plan(b: int, h: int, sq: int, d: int) -> Tuple[str, int, int]:
     §6) 8 warps took 0.0223 ms, 4 warps 0.0226 and 2 warps 0.0289 at B2,
     and 0.0122, 0.0126 and 0.0189 at the CFG half.
 
-    Wider heads (the VAE's d=512) take ``flash_tile``: 64x64 tiles up to
-    :data:`TILE_64_MAX_DP`, 32x32 tiles on 2 warps above."""
+    Kernel 1 at 128 < d <= 512 (the VAE's d=512) takes the wide body: the
+    head dim in ceil(d / 128) slices of one of :data:`REG_DPS` each (d=512:
+    4 x 128; d=136: 2 x 80), one warp per (16-row group, slice), with
+    :data:`WIDE_GROUPS` row groups a CTA (the VAE's B1 H1 S4096: 32-row
+    tiles, 8 warps, 128 CTAs).  Wider heads, and kernels 4 and 7 above d = 128, take
+    ``flash_tile``: 64x64 tiles up to :data:`TILE_64_MAX_DP`, 32x32 tiles on
+    2 warps above; full attention takes it only above d = 512, in 32x32
+    tiles."""
     if d % 8:
         raise ValueError(f"flash kernel: head dim must be a multiple of 8, got {d}")
     if d <= REG_DPS[-1]:
@@ -81,8 +119,18 @@ def flash_plan(b: int, h: int, sq: int, d: int) -> Tuple[str, int, int]:
             if b * h * math.ceil(sq / (16 * warps)) >= MIN_CTAS:
                 break
         return "flash_reg_tile", dp, warps
+    if wide and d <= WIDE_MAX_D:
+        dp = _wide_dp(d)
+        return "flash_wide_tile", dp, WIDE_GROUPS * wide_slices(dp)
     dp = _round_up(d, 16)
     return "flash_tile", dp, 4 if dp <= TILE_64_MAX_DP else 2
+
+
+def plan_rows(plan: Tuple[str, int, int]) -> int:
+    """Query rows per CTA of a plan: 16 a warp, or, on the wide body, 16 a
+    row group of one warp per head-dim slice."""
+    body, dp, warps = plan
+    return 16 * warps // (wide_slices(dp) if body == "flash_wide_tile" else 1)
 
 
 def plan_args(plan: Tuple[str, int, int]) -> Tuple[int, int, int]:
@@ -181,21 +229,26 @@ def flash_attn_with_lse(
 
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    plan = flash_plan(b, h, sq, d)
     lib = _build.load()
     status = lib.cf_flash_attn_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         out.data_ptr(), lse.data_ptr(), lens_ptr,
-        b, sq, sk, h, d, ctypes.c_float(scale), *plan_args(flash_plan(b, h, sq, d)),
+        b, sq, sk, h, d, ctypes.c_float(scale), *plan_args(plan),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, "flash_attn_with_lse")
     flash_attn_with_lse.launches += 1
+    if plan[0] == "flash_wide_tile":
+        flash_attn_with_lse.wide_launches += 1
     return out, lse
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0, and those of them on
+#: the wide body
 flash_attn_with_lse.launches = 0
+flash_attn_with_lse.wide_launches = 0
 
 
 def window_mask(s: int, window: int, device=None) -> torch.Tensor:
@@ -253,7 +306,7 @@ def flash_attn_window_with_lse(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         out.data_ptr(), lse.data_ptr(),
         b, s, h, d, min(int(window), s), ctypes.c_float(scale),
-        *plan_args(flash_plan(b, h, s, d)),
+        *plan_args(flash_plan(b, h, s, d, wide=False)),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, "flash_attn_window_with_lse")

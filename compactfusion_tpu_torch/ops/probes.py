@@ -10,6 +10,8 @@ Counterparts of the two Pallas probes of the JAX repo's root scripts:
   on, as ``build(parts)`` does: ``qk``, ``scale``, ``max``, ``exp``, ``av``.
 * :func:`plumb` — q + k + v through the attention layout, none of its math
   (``_prof2_dbg.py::_plumb``).
+* :func:`empty` — a kernel that does nothing: timed by CUDA graphs, the
+  least a launch costs on the card (no TPU kernel stands behind it).
 
 The kernels are in ``csrc/probes.cu``.  On a CUDA tensor a wrapper launches
 its kernel or raises; on a CPU tensor it runs its twin.  The twins are used
@@ -177,3 +179,15 @@ def plumb(q, k, v) -> torch.Tensor:
 
 #: kernel launches since the count was last set to 0
 plumb.launches = 0
+
+
+def empty(device) -> None:
+    """One launch of the empty kernel on ``device``'s current stream; on the
+    CPU, nothing."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return
+
+    from compactfusion_tpu_torch.ops import _build
+
+    _build.check(_build.load().cf_empty(torch.cuda.current_stream(device).cuda_stream), "empty")

@@ -65,6 +65,21 @@ def int2_dequant_fastpath_ref(packed, base, u, v) -> torch.Tensor:
     return (base.float() + step).to(base.dtype)
 
 
+#: packed bytes per thread of the vector binary quant kernel (``kVecBytes``
+#: in ``csrc/binary_quant.cu``)
+QUANT_VEC_BYTES = 4
+
+
+def binary_quant_plan(x, base, v) -> int:
+    """The plan of a binary quant launch, packed bytes per thread:
+    :data:`QUANT_VEC_BYTES` (the vector kernel: 16-byte accesses of 4
+    channels per bit group) where the channels per bit group, C/8, are a
+    multiple of it and x, base and v start 16-byte aligned; else 1 (the
+    scalar kernel, one thread per byte)."""
+    aligned = not (x.data_ptr() | base.data_ptr() | v.data_ptr()) % 16
+    return QUANT_VEC_BYTES if aligned and x.shape[-1] % (8 * QUANT_VEC_BYTES) == 0 else 1
+
+
 def _check_uv(u, v, n, c, device):
     if u.dim() != 2 or v.dim() != 2 or u.shape[0] != n or v.shape != (u.shape[1], c):
         raise ValueError(f"quant kernel: u (N, K) / v (K, C) vs N={n}, C={c}: got {tuple(u.shape)}, {tuple(v.shape)}")
@@ -82,9 +97,15 @@ def _check_nc(name, t, shape, device):
         raise ValueError(f"quant kernel: {name} must be a contiguous {tuple(shape)} tensor on {device}")
 
 
-def _quant_launch(entry: str, x, base, u, v, per_byte: int):
+def _stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as the C entries take it."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def _quant_launch(entry: str, x, base, u, v, per_byte: int, *plan: int):
     """Check the quant operands and launch ``entry`` of the kernel library
-    -> (packed (N, C//per_byte) uint8, new_base like base)."""
+    (``plan``: its plan arguments, before the stream) -> (packed (N,
+    C//per_byte) uint8, new_base like base)."""
     from compactfusion_tpu_torch.ops import _build
 
     if x.dim() != 2 or x.shape[1] % per_byte:
@@ -98,8 +119,7 @@ def _quant_launch(entry: str, x, base, u, v, per_byte: int):
     status = getattr(_build.load(), entry)(
         x.data_ptr(), base.data_ptr(), u.data_ptr(), v.data_ptr(),
         packed.data_ptr(), new_base.data_ptr(), n, c, u.shape[1],
-        int(x.dtype == torch.bfloat16), int(base.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        int(x.dtype == torch.bfloat16), int(base.dtype == torch.bfloat16), *plan, _stream(x),
     )
     _build.check(status, entry)
     return packed, new_base
@@ -117,8 +137,7 @@ def _dequant_launch(entry: str, packed, base, u, v, per_byte: int):
     out = torch.empty_like(base)
     status = getattr(_build.load(), entry)(
         packed.data_ptr(), base.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(),
-        n, c, u.shape[1], int(base.dtype == torch.bfloat16),
-        torch.cuda.current_stream(packed.device).cuda_stream,
+        n, c, u.shape[1], int(base.dtype == torch.bfloat16), _stream(packed),
     )
     _build.check(status, entry)
     return out
@@ -129,8 +148,11 @@ def binary_quant_fastpath(x, base, u, v) -> Tuple[torch.Tensor, torch.Tensor]:
     Returns (packed (N, C//8) uint8, new_base (N, C) in base.dtype)."""
     if not x.is_cuda:
         return binary_quant_fastpath_ref(x, base, u, v)
-    out = _quant_launch("cf_binary_quant", x, base, u, v, 8)
+    plan = binary_quant_plan(x, base, v)
+    out = _quant_launch("cf_binary_quant", x, base, u, v, 8, plan)
     binary_quant_fastpath.launches += 1
+    if plan > 1:
+        binary_quant_fastpath.vec_launches += 1
     return out
 
 
@@ -163,8 +185,10 @@ def int2_dequant_fastpath(packed, base, u, v) -> torch.Tensor:
     return out
 
 
-#: kernel launches since the counts were last set to 0
+#: kernel launches since the counts were last set to 0 (binary quant's on
+#: the vector plan also apart)
 binary_quant_fastpath.launches = 0
+binary_quant_fastpath.vec_launches = 0
 binary_dequant_fastpath.launches = 0
 int2_quant_fastpath.launches = 0
 int2_dequant_fastpath.launches = 0

@@ -86,7 +86,7 @@ def ring_flash_attn_with_lse(q: torch.Tensor, kv_blocks: Iterable, ring_size: in
     b, sq, h, d = q.shape
     if scale is None:
         scale = d**-0.5
-    plan = plan_args(flash_plan(b, h, sq, d))
+    plan = plan_args(flash_plan(b, h, sq, d, wide=False))
     m = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     acc = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
@@ -449,7 +449,7 @@ def compact_ring_flash(q, k, v, k_base, v_base, payloads: Iterable, *, codec: st
     _check_base("v", v_base, ring_size, n, c, quantized)
     if scale is None:
         scale = d**-0.5
-    plan = plan_args(flash_plan(b, h, sq, d))
+    plan = plan_args(flash_plan(b, h, sq, d, wide=False))
     m = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     acc = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)

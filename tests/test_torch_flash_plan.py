@@ -23,7 +23,7 @@ def _compare_tool():
 
 
 def _ctas(plan, b, h, sq):
-    return b * h * math.ceil(sq / (16 * plan[2]))
+    return b * h * math.ceil(sq / flash.plan_rows(plan))
 
 
 def test_self_attention_takes_the_register_body_at_dp_80():
@@ -57,9 +57,38 @@ def test_head_dims_up_to_128_take_the_smallest_padded_dim(d, dp):
 
 @pytest.mark.parametrize("d,warps", [(136, 4), (256, 4), (264, 2), (512, 2)])
 def test_wide_heads_keep_the_shared_memory_body(d, warps):
-    """d=512 is the VAE's mid-block attention: 32x32 tiles on 2 warps, as
-    before; 64x64 tiles up to a padded head dim of 256."""
-    assert flash.flash_plan(1, 1, 4096, d) == ("flash_tile", -(-d // 16) * 16, warps)
+    """Kernels 4 and 7 (``wide=False``) keep ``flash_tile`` above d=128:
+    64x64 tiles up to a padded head dim of 256, 32x32 tiles on 2 warps
+    above; kernel 1 keeps it only above d=512, in 32x32 tiles."""
+    assert flash.flash_plan(1, 1, 4096, d, wide=False) == ("flash_tile", -(-d // 16) * 16, warps)
+    for d1 in (520, 1024):
+        assert flash.flash_plan(1, 1, 4096, d1) == ("flash_tile", -(-d1 // 16) * 16, 2)
+
+
+@pytest.mark.parametrize("d,dp,slices,warps,ctas", [(136, 160, 2, 4, 128), (256, 256, 2, 4, 128),
+                                                    (264, 288, 3, 6, 128), (512, 512, 4, 8, 128)])
+def test_kernel_1_takes_the_wide_body_above_128(d, dp, slices, warps, ctas):
+    """Kernel 1 at 128 < d <= 512 on the VAE's B1 H1 S4096: the wide body,
+    ceil(d / 128) slices of one of ``REG_DPS`` each, 2 row groups of 16
+    (32-row tiles, 128 CTAs)."""
+    plan = flash.flash_plan(1, 1, 4096, d)
+    assert plan == ("flash_wide_tile", dp, warps) and (dp, warps) in flash.WIDE_BUILT
+    assert flash.wide_slices(dp) == slices and flash.plan_rows(plan) == 32
+    assert _ctas(plan, 1, 1, 4096) == ctas
+    # a bigger grid keeps 32-row tiles: 64-row tiles measured slower at the VAE
+    big = flash.flash_plan(2, 2, 4096, d)
+    assert big == plan and _ctas(big, 2, 2, 4096) == 4 * ctas
+
+
+@pytest.mark.parametrize("d", range(136, 513, 8))
+def test_wide_slices_cover_the_head_dim(d):
+    """Every wide head dim is cut into slices of 16..128 columns, a multiple
+    of 16 each, none of them wholly padding."""
+    _, dp, warps = flash.flash_plan(1, 1, 4096, d)
+    slices = flash.wide_slices(dp)
+    ds = dp // slices
+    assert ds * slices == dp >= d and ds % 16 == 0 and ds <= flash.WIDE_SLICE
+    assert ds * (slices - 1) < d and warps % slices == 0
 
 
 @pytest.mark.parametrize("d", [64, 72, 512])
@@ -68,14 +97,17 @@ def test_banded_attention_keeps_the_shared_memory_body(d):
     plan, which keeps ``flash_tile`` there (d=512: 32x32 tiles on 2 warps)
     and takes the register body up to 128 (and the C entry of the banded
     kernel launches the plan of either body)."""
-    body, dp, warps = flash.flash_plan(2, 16, 1024, d)
+    body, dp, warps = flash.flash_plan(2, 16, 1024, d, wide=False)
     if d <= 128:
         assert body == "flash_reg_tile" and (dp, warps) in flash.REG_BUILT
     else:
         assert body == "flash_tile" and dp == -(-d // 16) * 16 and warps == 2
     src = (REPO / "compactfusion_tpu_torch" / "ops" / "flash.py").read_text()
     window = src[src.index("def flash_attn_window_with_lse("):]
-    assert "*plan_args(flash_plan(b, h, s, d))" in window
+    assert "*plan_args(flash_plan(b, h, s, d, wide=False))" in window
+    # the ring hops (kernels 7 and 8's flash partial) take the same
+    ring = (REPO / "compactfusion_tpu_torch" / "ops" / "ring_flash.py").read_text()
+    assert ring.count("plan_args(flash_plan(b, h, sq, d, wide=False))") == 2
 
 
 @pytest.mark.parametrize("b,s,ctas", [(2, 1024, 256), (1, 1024, 128), (2, 1000, 256)])
@@ -114,6 +146,47 @@ def test_tile_64_max_dp_follows_the_c_layout():
     assert _c_layout_bytes(512, 32, 32) == 33280 * 3 + 4608 + 2560 + 66048 + 128 * 3 <= 227 * 1024
 
 
+def _wide_layout_bytes(dp, warps):
+    """``flash_wide.cuh::WideLayout<dp, warps>::kBytes``, run from the C
+    source: its statements are Python once ``static constexpr int`` goes,
+    C's integer ``/`` is ``//`` and ``cdiv`` is a ceiling division."""
+    src = (REPO / "compactfusion_tpu_torch" / "csrc" / "flash_wide.cuh").read_text()
+    body = src[src.index("struct WideLayout {"):].split("{", 1)[1].split("\n};", 1)[0]
+    env = {"DP": dp, "NWARPS": warps, "cdiv": lambda a, b: -(-a // b),
+           "kWideBK": int(re.search(r"constexpr int kWideBK = (\d+);", src).group(1))}
+    for stmt in body.split(";"):
+        stmt = stmt.strip().removeprefix("static constexpr int ")
+        if "=" in stmt:
+            exec(stmt.replace("/", "//"), env)
+    return env
+
+
+def test_wide_layout_fits_the_card():
+    """Every built wide plan's shared memory (Q tile, K/V ring, exchange)
+    fits the 227 KB a CTA may take; the VAE's plan has room for 2 ring
+    stages, and the narrower heads take 3 stages."""
+    for dp, warps in flash.WIDE_BUILT:
+        env = _wide_layout_bytes(dp, warps)
+        assert env["kBytes"] <= 227 * 1024 and env["kStages"] in (2, 3)
+        assert env["kSlices"] == flash.wide_slices(dp) and env["kGroups"] * env["kSlices"] == warps
+    vae = _wide_layout_bytes(512, 8)
+    assert (vae["kStages"], vae["kBytes"]) == (2, 33280 + 2 * 2 * 33280 + 16384)
+    assert _wide_layout_bytes(160, 4)["kStages"] == 3
+
+
+def test_every_wide_plan_is_built():
+    """``WIDE_BUILT`` lists the pairs of ``CF_WIDE_PLANS`` in
+    ``csrc/flash_wide.cuh``: every (DP, warps) the rule can choose at
+    128 < d <= 512, and nothing it cannot."""
+    src = (REPO / "compactfusion_tpu_torch" / "csrc" / "flash_wide.cuh").read_text()
+    macro = src[src.index("#define CF_WIDE_PLANS"):].split("\n\n")[0]
+    built = {(int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)", macro)}
+    assert built == flash.WIDE_BUILT
+    chosen = {flash.flash_plan(b, h, sq, d)[1:] for d in range(136, 513, 8)
+              for b, h, sq in ((1, 1, 4096), (1, 1, 64), (2, 2, 4096))}
+    assert chosen == built
+
+
 def test_every_plan_is_built():
     """``REG_BUILT`` lists the pairs of ``CF_REG_PLANS`` in
     ``csrc/flash_reg.cuh``: every (DP, warps) the rule can choose, and
@@ -145,36 +218,44 @@ def _build(labels):
 
 BEFORE = {"flash_fwd_kernel<4, 64>": (64, "a"), "flash_fwd_kernel<2, 32>": (40, "b"),
           "flash_window_kernel<4, 64>": (64, "c"), "flash_window_kernel<2, 32>": (40, "d"),
-          "compact_ring_hop_kernel<8, 64>": (72, "e"), "ring_flash_hop_kernel<4, 64>": (64, "f"),
+          "flash_window_reg_kernel<80, 8>": (130, "e"), "ring_flash_hop_kernel<4, 64>": (64, "f"),
           "flash_fwd_reg_kernel<80, 8>": (135, "g"), "ring_flash_hop_reg_kernel<80, 2>": (96, "h"),
-          "flash_parts_kernel<31>": (135, "i"), "dma_only_kernel": (40, "j"),
+          "flash_parts_kernel<31>": (135, "i"), "dma_only_kernel": (40, "j"), "plumb_kernel": (32, "p"),
+          "ef_update_fp32_kernel": (40, "q"), "ef_minmax_int8_kernel": (40, "r"),
+          "ef_codes_int8_kernel": (40, "s"),
           "binary_quant_kernel<float, float>": (32, "k"), "binary_dequant_kernel<float>": (30, "l"),
           "int2_quant_kernel<float, float>": (32, "m"), "int2_dequant_kernel<float>": (30, "n")}
 
 
 def test_compare_tool_passes_when_only_redesigned_kernels_differ():
-    """Kernels 4 and 8 may change, go or come (the banded register kernel,
-    the EF pass); kernels 1 and 7, the probes and the quant kernels may not."""
+    """Kernel 1's wide route and binary quant may change, go or come
+    (``flash_fwd_kernel<4, 64>`` goes, the wide and the vector quant kernels
+    come, the scalar quant kernel changes); kernels 1, 4 and 7 on the
+    register body, the EF pass, the probes, binary dequant and INT2 may
+    not."""
     tool = _compare_tool()
-    after = dict(BEFORE, **{"flash_window_kernel<4, 64>": (60, "x"), "flash_window_reg_kernel<80, 8>": (130, "y"),
-                            "ef_update_fp32_kernel": (40, "z")})
-    del after["compact_ring_hop_kernel<8, 64>"]
+    after = dict(BEFORE, **{"binary_quant_kernel<float, float>": (30, "x"),
+                            "binary_quant_vec_kernel<float, float>": (64, "y"),
+                            "flash_fwd_wide_kernel<512, 8>": (168, "z")})
+    del after["flash_fwd_kernel<4, 64>"]
     ok, report = tool.verdict(_build(after), _build(BEFORE))
     assert ok and report["unmatched"] == []
     kernels = report["kernels"]
     assert kernels["flash_fwd_reg_kernel<80, 8>"]["must_be_unchanged"]
     assert kernels["flash_fwd_reg_kernel<80, 8>"]["sass_equal"]
+    assert kernels["flash_window_reg_kernel<80, 8>"]["must_be_unchanged"]
+    assert kernels["ef_codes_int8_kernel"]["must_be_unchanged"]
     assert kernels["dma_only_kernel"]["must_be_unchanged"]
-    assert not kernels["flash_window_kernel<4, 64>"]["must_be_unchanged"]
-    assert not kernels["flash_window_kernel<4, 64>"]["sass_equal"]
-    assert kernels["flash_window_reg_kernel<80, 8>"]["other"] is None
-    assert kernels["compact_ring_hop_kernel<8, 64>"]["this"] is None
+    assert not kernels["binary_quant_kernel<float, float>"]["must_be_unchanged"]
+    assert not kernels["binary_quant_kernel<float, float>"]["sass_equal"]
+    assert kernels["flash_fwd_wide_kernel<512, 8>"]["other"] is None
+    assert kernels["flash_fwd_kernel<4, 64>"]["this"] is None
 
 
 @pytest.mark.parametrize("label,change", [
     ("flash_fwd_reg_kernel<80, 8>", (135, "g2")),       # SASS
-    ("ring_flash_hop_kernel<4, 64>", (80, "f")),        # ptxas line
-    ("flash_fwd_kernel<2, 32>", None),                  # missing on this side
+    ("flash_window_reg_kernel<80, 8>", (131, "e")),     # ptxas line
+    ("ef_update_fp32_kernel", None),                    # missing on this side
     ("ring_flash_hop_reg_kernel<80, 2>", (96, "h2")),
     ("flash_parts_kernel<31>", (136, "i")),
     ("dma_only_kernel", (40, "j2")),

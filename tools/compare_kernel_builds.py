@@ -14,9 +14,10 @@ e.g. ``flash_fwd_kernel<4, 64>``), it compares what ``ptxas -v`` said of it
 
 ``--unchanged`` names the instantiations that must be identical on both
 sides: a full label, or ``name<...>`` for every instantiation of ``name``
-(the default: every instantiation of kernels 1 and 7 on both bodies, the
-stage probe's kernels and the four quant kernels: what a change to the
-banded kernel 4 and the compressed ring kernel 8 must leave as it was).
+(the default: every instantiation of kernels 1, 4 and 7 on the register
+body, kernel 8's EF pass, the probe kernels, binary dequant and both INT2
+kernels: what a redesign of kernel 1's wide-head route and of binary quant
+must leave as it was).
 Prints one JSON object and exits 1 when one of them differs, is missing on
 either side or matches nothing; kernels outside the list may differ.
 Needs the CUDA toolkit (``nvcc``, ``cuobjdump``, ``cu++filt``), not a GPU.
@@ -33,10 +34,10 @@ import tempfile
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
-UNCHANGED = ("flash_fwd_reg_kernel<...>", "ring_flash_hop_reg_kernel<...>", "flash_fwd_kernel<...>",
-             "ring_flash_hop_kernel<...>", "flash_parts_kernel<...>", "dma_only_kernel",
-             "binary_quant_kernel<...>", "binary_dequant_kernel<...>", "int2_quant_kernel<...>",
-             "int2_dequant_kernel<...>")
+UNCHANGED = ("flash_fwd_reg_kernel<...>", "flash_window_reg_kernel<...>", "ring_flash_hop_reg_kernel<...>",
+             "ef_update_fp32_kernel", "ef_minmax_int8_kernel", "ef_codes_int8_kernel",
+             "flash_parts_kernel<...>", "dma_only_kernel", "plumb_kernel",
+             "binary_dequant_kernel<...>", "int2_quant_kernel<...>", "int2_dequant_kernel<...>")
 # nvcc names each source's anonymous namespace after a hash of the source
 # (``_GLOBAL__N__0110b69f_13_flash_attn_cu_3b6b32e1``), and symbols in the
 # SASS carry it: an edit elsewhere in the file changes it

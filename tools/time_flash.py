@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Check and time kernels 1, 4, 7 and 8 of a checkout at the path's shapes.
+"""Check and time kernels 1, 2, 4, 7 and 8 of a checkout at the path's shapes.
 
     python3 tools/time_flash.py [--root OTHER_ROOT] [--sweep] [--out FILE]
 
@@ -12,15 +12,28 @@ inputs of phases 2 and 12 (``flash_cases``, ``window_cases``,
 bound.  So two trees are timed by one harness, through the wrappers both
 have (``flash_attn_with_lse``, ``flash_attn_window_with_lse``,
 ``ring_flash_attn_with_lse``, ``compact_ring_flash`` and their twins).
-Per shape: the largest error of out and LSE against the twin, eager
+Per shape: the largest error of out and LSE against the twin and out's
+relative Frobenius error (kernel 1 held to ``FLASH_OUT_REL_MAX``), eager
 ``ms``, ``graph_ms``, SDPA's ``library_ms`` (with the band as a bool mask
 for kernel 4; none computes kernel 8) and ``bound_ms``.  Kernel 8 writes
 its EF stacks, so its twin runs on a fresh copy of the stacks the kernel's
 first call started from, and each timed input set has stacks of its own.
-With ``--sweep`` (a tree with ``ops/flash.py::flash_plan``), a shape whose
-plan takes the register body is also timed at every tile height built for
-its padded head dim (``graph_ms_by_warps``), with ``flash_plan`` swapped
-for one that keeps the body and padded head dim but not the warps.
+Kernel 1 is also checked, untimed, where the tree has the wide body
+(``ops/flash.py::WIDE_BUILT``), at the wide head dims off the path
+(:data:`WIDE_CASES`: every built padded head dim of the wide body, ragged
+``kv_lens``, a batch with no key, whose rows must give LSE -inf as the
+twin's do).  Kernel 2 (binary quant) at :data:`QUANT_CASES`, phase 2's K=1
+and K=2 cases (``quant_case``) first, with a few deltas of 0 planted:
+packed bytes against the twin's, the new base (``QUANT_NEW_BASE_RTOL``),
+binary dequant of the bytes bit-equal to the new base, the plan where the
+tree has ``ops/quant.py::binary_quant_plan``, eager ``ms`` (200 calls on
+one input set) and ``graph_ms``; where the tree has the empty kernel
+(``ops/probes.py::empty``), its time by the same CUDA graphs, the floor of a
+launch.  With ``--sweep`` (a tree with ``ops/flash.py::flash_plan``), a
+shape whose plan takes the register body is also timed at every tile
+height built for its padded head dim (``graph_ms_by_warps``), with
+``flash_plan`` swapped for one that keeps the body and padded head dim but
+not the warps.
 Prints the card's name and power limit, one line per shape and one JSON
 line (also written to ``--out``); exits non-zero without a CUDA device or
 when a kernel disagrees with its twin.
@@ -46,15 +59,15 @@ def _smoke():
 
 
 @contextlib.contextmanager
-def tile_height(flash, warps):
-    """Within the block, every register-body launch takes ``warps`` warps
-    per CTA: ``flash.flash_plan`` (which the wrappers look up at each call)
-    is swapped for one that changes only the warps of the real plan."""
+def tile_height(flash, body, warps):
+    """Within the block, every launch on ``body`` takes ``warps`` warps per
+    CTA: ``flash.flash_plan`` (which the wrappers look up at each call) is
+    swapped for one that changes only the warps of the real plan."""
     real = flash.flash_plan
 
     def plan(*args, **kwargs):
-        body, dp, w = real(*args, **kwargs)
-        return body, dp, (warps if body == "flash_reg_tile" else w)
+        b, dp, w = real(*args, **kwargs)
+        return b, dp, (warps if b == body else w)
 
     flash.flash_plan = plan
     try:
@@ -63,22 +76,39 @@ def tile_height(flash, warps):
         flash.flash_plan = real
 
 
-def row(smoke, timing, name, run, ref, sets, iters, nbytes, ops, library=None, sweep=None):
+def errors(smoke, out, lse, ref_out, ref_lse, rel_max=None):
+    """(largest error of out, out's relative Frobenius error, largest error
+    of LSE over the twin's finite rows) of a flash call against its twin;
+    raises where they disagree: past the phase-2 tolerances (``rel_max``:
+    the relative one, where given) or on another set of -inf LSE rows."""
+    import torch
+
+    err_out = (out.float() - ref_out.float()).abs().max().item()
+    rel_out = smoke.rel_fro(out, ref_out)
+    fin = torch.isfinite(ref_lse)
+    err_lse = (lse[fin] - ref_lse[fin]).abs().max().item()
+    if not (err_out <= smoke.FLASH_OUT_ATOL and err_lse <= smoke.FLASH_LSE_ATOL
+            and (rel_max is None or rel_out <= rel_max)
+            and torch.equal(torch.isneginf(lse), torch.isneginf(ref_lse))):
+        raise AssertionError(f"the kernel disagrees with its twin: out err {err_out:.3e}, rel "
+                             f"{rel_out:.3e}, lse err {err_lse:.3e}")
+    return err_out, rel_out, err_lse
+
+
+def row(smoke, timing, name, run, ref, sets, iters, nbytes, ops, library=None, sweep=None, rel_max=None):
     """Errors of ``run`` against ``ref`` (each a call of one input set) on
-    the first set, then its eager and graph times, ``library``'s ((a call,
-    its backend) or None) and the bound of ``nbytes`` of inputs, out and
-    LSE against ``ops`` bf16 operations.  ``sweep``: (the flash module, the
-    plan, its built (dp, warps) pairs) to time the plan's other tile
-    heights."""
+    the first set (:func:`errors`), then its eager and graph times,
+    ``library``'s ((a call, its backend) or None) and the bound of
+    ``nbytes`` of inputs, out and LSE against ``ops`` bf16 operations.
+    ``sweep``: (the flash module, the plan, its built (dp, warps) pairs) to
+    time the plan's other tile heights."""
     import torch
 
     out, lse = run(sets[0])
     torch.cuda.synchronize()
-    ref_out, ref_lse = ref(sets[0])
-    err_out = (out.float() - ref_out.float()).abs().max().item()
-    err_lse = (lse - ref_lse).abs().max().item()
+    err_out, rel_out, err_lse = errors(smoke, out, lse, *ref(sets[0]), rel_max)
     bound_ms, bound_by = smoke._bound(nbytes + smoke._nbytes(out, lse), ops, smoke.PEAK_BF16_FLOPS)
-    r = {"shape": name, "max_abs_err_out": err_out, "max_abs_err_lse": err_lse,
+    r = {"shape": name, "max_abs_err_out": err_out, "rel_err_out": rel_out, "max_abs_err_lse": err_lse,
          "ms": smoke._time_ms(lambda: run(sets[0]), iters),
          "graph_ms": smoke.graph_ms(timing, [lambda t=t: run(t) for t in sets]),
          "library_ms": None if library is None else smoke._time_ms(library[0], iters),
@@ -89,14 +119,91 @@ def row(smoke, timing, name, run, ref, sets, iters, nbytes, ops, library=None, s
         flash, plan, built = sweep
         r["plan"], r["graph_ms_by_warps"] = list(plan), {}
         for w in sorted(w for dp, w in built if dp == plan[1]):
-            with tile_height(flash, w):
+            with tile_height(flash, plan[0], w):
                 r["graph_ms_by_warps"][w] = smoke.graph_ms(timing, [lambda t=t: run(t) for t in sets])
         alts = "; by warps " + ", ".join(f"{w}: {t:.4f}" for w, t in r["graph_ms_by_warps"].items())
     lib = "no library call" if library is None else f"SDPA ({library[1]}) {r['library_ms']:.4f} ms"
-    print(f"{name}: out err {err_out:.3e}, lse err {err_lse:.3e}; eager {r['ms']:.4f} ms, graphs "
-          f"{r['graph_ms']:.4f} ms ({len(sets)} input sets){alts}, {lib}, bound {bound_ms:.4f} ms "
-          f"({bound_by})")
-    if not (err_out <= smoke.FLASH_OUT_ATOL and err_lse <= smoke.FLASH_LSE_ATOL):
+    print(f"{name}: out err {err_out:.3e}, rel {rel_out:.3e}, lse err {err_lse:.3e}; eager "
+          f"{r['ms']:.4f} ms, graphs {r['graph_ms']:.4f} ms ({len(sets)} input sets){alts}, {lib}, "
+          f"bound {bound_ms:.4f} ms ({bound_by})")
+    return r
+
+
+#: (B, Sq, Sk, H, d, kv_lens) of kernel 1's checks at the wide head dims
+#: off the path (the VAE's d=512 is one of ``flash_cases``)
+WIDE_CASES = [(2, 200, 300, 3, 136, (300, 17)), (1, 50, 80, 1, 192, (33,)), (1, 96, 256, 2, 256, None),
+              (2, 77, 129, 1, 264, (0, 100)), (1, 64, 1000, 2, 384, None), (2, 130, 96, 1, 512, (96, 5))]
+
+
+def wide_row(smoke, flash, dev, gen, case):
+    """Kernel 1 at one of :data:`WIDE_CASES` against its twin, untimed."""
+    import torch
+
+    b, sq, sk, h, d, lens = case
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, k, v = rnd(b, sq, h, d), rnd(b, sk, h, d), rnd(b, sk, h, d)
+    kl = None if lens is None else torch.tensor(lens, device=dev, dtype=torch.int32)
+    out, lse = flash.flash_attn_with_lse(q, k, v, kv_lens=kl)
+    torch.cuda.synchronize()
+    name = f"kernel 1 B{b} Sq{sq} Sk{sk} H{h} d{d} kv_lens {lens}"
+    err_out, rel_out, err_lse = errors(smoke, out, lse, *flash.flash_attn_with_lse_ref(q, k, v, kv_lens=kl),
+                                       smoke.FLASH_OUT_REL_MAX)
+    plan = flash.flash_plan(b, h, sq, d)
+    print(f"{name}: plan {plan}; out err {err_out:.3e}, rel {rel_out:.3e}, lse err {err_lse:.3e}, "
+          f"-inf rows as the twin's")
+    return {"shape": name, "plan": plan, "max_abs_err_out": err_out, "rel_err_out": rel_out,
+            "max_abs_err_lse": err_lse}
+
+
+#: ((N, C), scale rank, x dtype, base dtype) of kernel 2's cases: phase 2's
+#: K1 and K2 first, then bf16 operands, the scalar plan at C1160 and a
+#: short row at C64
+QUANT_CASES = [((256, 1152), -1, "float32", "float32"), ((256, 1152), 2, "float32", "float32"),
+               ((256, 1160), -1, "float32", "float32"), ((256, 1152), -1, "bfloat16", "float32"),
+               ((256, 1152), 2, "float32", "bfloat16"), ((256, 1152), -1, "bfloat16", "bfloat16"),
+               ((100, 64), 2, "float32", "float32"), ((256, 1160), 2, "bfloat16", "bfloat16")]
+
+
+def quant_row(smoke, timing, quant, codecs, dev, gen, case):
+    """Kernel 2 at one of :data:`QUANT_CASES`: packed bytes and new base
+    against the twin, dequant of the bytes against the new base, the plan,
+    eager ms and ``graph_ms``, the bound."""
+    import torch
+
+    shape, rank, xdt, bdt = case
+    xdt, bdt = getattr(torch, xdt), getattr(torch, bdt)
+
+    def make():
+        x, base, u, v = smoke.quant_case(codecs, dev, gen, "binary", rank, bdt, shape)
+        x = x.to(xdt)
+        x[0, :8] = base[0, :8].to(xdt)  # delta == 0 packs as +1
+        return x, base, u, v
+
+    x, base, u, v = first = make()
+    packed, new_base = quant.binary_quant_fastpath(*first)
+    x_hat = quant.binary_dequant_fastpath(packed, base, u, v)
+    torch.cuda.synchronize()
+    ref_packed, ref_base = quant.binary_quant_fastpath_ref(*first)
+    rel = smoke._rel(new_base, ref_base)
+    nbytes = smoke._nbytes(x, base, u, v, packed, new_base)
+    sets = [first] + [make() for _ in range(timing.copies(nbytes) - 1)]
+    n, c = x.shape
+    bound_ms, bound_by = smoke._bound(nbytes, (4 + 2 * u.shape[1]) * n * c, smoke.PEAK_FP32_FLOPS)
+    name = (f"kernel 2 binary quant N{n} C{c} K{u.shape[1]} x {str(xdt).replace('torch.', '')} "
+            f"base {str(bdt).replace('torch.', '')}")
+    plan = quant.binary_quant_plan(x, base, v) if hasattr(quant, "binary_quant_plan") else None
+    r = {"shape": name, "plan_bytes_per_thread": plan, "packed_equal": torch.equal(packed, ref_packed),
+         "new_base_rel_err": rel, "dequant_equal": torch.equal(x_hat, new_base),
+         "ms": smoke._time_ms(lambda: quant.binary_quant_fastpath(*first), 200),
+         "graph_ms": smoke.graph_ms(timing, [lambda t=t: quant.binary_quant_fastpath(*t) for t in sets]),
+         "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"{name}: plan {plan} packed bytes per thread; packed bytes equal {r['packed_equal']}, new_base "
+          f"rel err {rel:.3e}, dequant == new_base {r['dequant_equal']}; eager {r['ms']:.5f} ms, graphs "
+          f"{r['graph_ms']:.5f} ms ({len(sets)} input sets), bound {bound_ms:.5f} ms ({bound_by})")
+    if not (r["packed_equal"] and rel <= smoke.QUANT_NEW_BASE_RTOL and r["dequant_equal"]):
         raise AssertionError(f"{name}: the kernel disagrees with its twin")
     return r
 
@@ -114,7 +221,9 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         raise SystemExit("time_flash: no CUDA device")
-    from compactfusion_tpu_torch.ops import _build, flash, ring_flash
+    from compactfusion_tpu_torch.compact import codecs
+    from compactfusion_tpu_torch.ops import _build, flash, quant, ring_flash
+    from compactfusion_tpu_torch.ops import probes as ops_probes
     from compactfusion_tpu_torch.probes import timing
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -128,8 +237,8 @@ def main(argv=None):
     if args.sweep and not hasattr(flash, "REG_BUILT"):
         raise SystemExit(f"time_flash: {args.root} has no register-body plans to sweep")
 
-    def sweep(b, h, sq, d):
-        return (flash, flash.flash_plan(b, h, sq, d), flash.REG_BUILT) if args.sweep else None
+    def sweep(b, h, sq, d, **kw):
+        return (flash, flash.flash_plan(b, h, sq, d, **kw), flash.REG_BUILT) if args.sweep else None
 
     def sets_of(make, first, nbytes):
         return [first] + [make() for _ in range(timing.copies(nbytes) - 1)]
@@ -143,7 +252,10 @@ def main(argv=None):
         rows.append(row(smoke, timing, f"kernel 1 {name}", lambda t: flash.flash_attn_with_lse(*t),
                         lambda t: flash.flash_attn_with_lse_ref(*t),
                         sets_of(make, first, smoke._nbytes(q, k, v, q)), iters, smoke._nbytes(q, k, v),
-                        4 * b * h * sq * k.shape[1] * d, smoke._library(q, k, v), sweep(b, h, sq, d)))
+                        4 * b * h * sq * k.shape[1] * d, smoke._library(q, k, v), sweep(b, h, sq, d),
+                        smoke.FLASH_OUT_REL_MAX))
+    if hasattr(flash, "WIDE_BUILT"):
+        rows += [wide_row(smoke, flash, dev, gen, case) for case in WIDE_CASES]
     for name, make, w in smoke.window_cases(gen, dev):
         q, k, v = first = make()
         b, s, h, d = q.shape
@@ -152,7 +264,7 @@ def main(argv=None):
                         lambda t, w=w: flash.flash_attn_window_with_lse_ref(*t, w),
                         sets_of(make, first, smoke._nbytes(q, k, v, q)), 20, smoke._nbytes(q, k, v),
                         4 * b * h * d * smoke.band_pairs(s, w),
-                        smoke._library(q, k, v, flash.window_mask(s, w, dev)), sweep(b, h, s, d)))
+                        smoke._library(q, k, v, flash.window_mask(s, w, dev)), sweep(b, h, s, d, wide=False)))
     for (ring, b, s_local), make in smoke.ring_cases(gen, dev):
         q, blocks = first = make()
         k_all = torch.cat([k for k, _ in blocks], dim=1)
@@ -162,7 +274,7 @@ def main(argv=None):
                         lambda t, n=ring: ring_flash.ring_flash_attn_with_lse_ref(t[0], iter(t[1]), n),
                         sets_of(make, first, smoke._nbytes(q, k_all, v_all, q)), 20,
                         smoke._nbytes(q, k_all, v_all), 4 * b * 16 * s_local * k_all.shape[1] * 72,
-                        smoke._library(q, k_all, v_all), sweep(b, 16, s_local, 72)))
+                        smoke._library(q, k_all, v_all), sweep(b, 16, s_local, 72, wide=False)))
     for case in smoke.CRING_CASES:
         ring, b, s_local, codec, rank, quantized = case
         shards, kb0, vb0, payloads = smoke.cring_inputs(ring_flash, gen, dev, *case)
@@ -187,6 +299,11 @@ def main(argv=None):
                         sets_of(stacks, stacks(), stack_bytes + smoke._nbytes(q, k, v)), 20,
                         smoke._nbytes(q, k, v) + payload_bytes + 2 * stack_bytes,
                         4 * b * 16 * s_local * ring * s_local * 72))
+    rows += [quant_row(smoke, timing, quant, codecs, dev, gen, case) for case in QUANT_CASES]
+    if hasattr(ops_probes, "empty"):
+        floor = smoke.launch_floor_ms(ops_probes, timing, dev)
+        rows.append({"shape": "empty kernel", "graph_ms": floor})
+        print(f"empty kernel: graphs {floor:.5f} ms per launch")
     report = {"card": card, "root": str(args.root.resolve()), "rows": rows}
     line = json.dumps(report)
     if args.out:
