@@ -20,9 +20,13 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
    (``graph_ms``: CUDA graphs, ``probes/timing.py``).  The VAE's d=512
    attention must take the wide body.  The quant pairs are also timed by
    CUDA graphs on inputs from DRAM, beside the time of an empty kernel
-   (the least a launch costs), and binary quant runs both its plans: the
-   vector kernel at C=1152 and the scalar one at C=1160 (145 bytes per
-   row, not a multiple of 4).
+   (the least a launch costs).  Binary quant and both dequants run both
+   their plans (``ops/quant.py::quant_plan``): the vector kernel at C=1152
+   and the scalar one at C=1160 (145 binary and 290 INT2 bytes per row, not
+   multiples of 4).  At C=1152 every sender plan goes into every receiver
+   plan (the scalar ones forced through the wrappers' internal launches),
+   and each dequant runs on a base view 4 bytes into its storage, where it
+   must take the scalar plan: every output bit-equal to quant's new base.
 3. The full-width PixArt-alpha 512 pipeline (28 blocks, dim 1152, S=1024,
    CFG batch 2, 20 DPM-Solver++ steps, SD-VAE decode), random weights with
    spiced AdaLN tables, compression off: 3 requests, each from its own seed.
@@ -79,8 +83,8 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
 
 Phases 4-15 hold their latents against request 1's lossless latents and
 their kernel launch counts against the counts the path implies (kernel 1's
-wide-body launches among them, one per decoded image, and kernel 2's on
-its vector plan, all of its launches); every
+wide-body launches among them, one per decoded image, and those of
+kernels 2, 3 and 6 on their vector plans, all of their launches); every
 count is set to 0 just before each of phases 3-11, 13-15 and 16's probes
 (and the calibration), in every process, and read just after.  A probe
 counts a launch when it captures a CUDA graph, so phase 16 reports the
@@ -191,19 +195,24 @@ def _time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-#: {a wrapper's count of the launches of one route: its key in a phase's
-#: launch counts, beside every wrapper's own}: kernel 1's on the wide body
-#: (the VAE's d=512), kernel 2's on its vector plan
-ROUTES = {"wide_launches": "flash_attn_with_lse (wide body)",
-          "vec_launches": "binary_quant_fastpath (vector plan)"}
-WIDE, VEC = ROUTES.values()
+#: {(wrapper, its count of the launches of one route): the route's key in a
+#: phase's launch counts, beside every wrapper's own}: kernel 1's on the wide
+#: body (the VAE's d=512), and kernels 2, 3 and 6 on their vector plans
+#: (``ops/quant.py::quant_plan``)
+ROUTES = {("flash_attn_with_lse", "wide_launches"): "flash_attn_with_lse (wide body)",
+          ("binary_quant_fastpath", "vec_launches"): "binary_quant_fastpath (vector plan)",
+          ("binary_dequant_fastpath", "vec_launches"): "binary_dequant_fastpath (vector plan)",
+          ("int2_dequant_fastpath", "vec_launches"): "int2_dequant_fastpath (vector plan)"}
+WIDE = ROUTES["flash_attn_with_lse", "wide_launches"]
+#: {kernel: the key of its launches on the vector plan}
+VEC = {name: key for (name, attr), key in ROUTES.items() if attr == "vec_launches"}
 
 
 def _reset_counts(kernels):
     for fn in kernels:
         fn.launches = 0
-        for attr in ROUTES:
-            if hasattr(fn, attr):
+        for name, attr in ROUTES:
+            if fn.__name__ == name:
                 setattr(fn, attr, 0)
 
 
@@ -211,17 +220,19 @@ def _counts(kernels):
     """{wrapper name: its launches} of the kernels, and under the keys of
     :data:`ROUTES` the launches of those routes."""
     counts = {fn.__name__: fn.launches for fn in kernels}
-    for attr, key in ROUTES.items():
-        counts[key] = sum(getattr(fn, attr, 0) for fn in kernels)
+    by_name = {fn.__name__: fn for fn in kernels}
+    for (name, attr), key in ROUTES.items():
+        counts[key] = getattr(by_name[name], attr)
     return counts
 
 
 def _with_routes(expect):
     """``expect`` ({kernel: count}) with the routes' counts the path
-    implies: one wide-body launch (one decoded image), and every binary
-    quant launch on the vector plan (the engine's chunks are aligned and
-    C/8 = 144 is a multiple of 4)."""
-    return {WIDE: 1, VEC: expect.get("binary_quant_fastpath", 0), **expect}
+    implies: one wide-body launch (one decoded image), and every launch of
+    binary quant and of both dequants on the vector plan (the engine's
+    chunks and the ring's received views start 16-byte aligned, and C/8 =
+    144 and C/4 = 288 are multiples of 4)."""
+    return {WIDE: 1, **{key: expect.get(name, 0) for name, key in VEC.items()}, **expect}
 
 
 def _nbytes(*tensors):
@@ -400,23 +411,75 @@ def check_window(flash, dev, gen):
 def quant_case(codecs, dev, gen, codec, rank, base_dtype, shape=CHUNK):
     """One input set of a quant pair at ``shape`` (default the ring-8
     PixArt chunk): x, base (N, C) in ``base_dtype`` and the bf16 scale
-    factors u, v the engine gives it (``rank``: the binary scale model, -1
-    for the mean scale; INT2 always takes the mean scale)."""
+    factors u, v the engine gives it (``rank``: the scale model, -1 for the
+    mean scale, which the engine's INT2 always takes)."""
     import torch
 
     x = torch.randn(shape, generator=gen, device=dev).to(base_dtype)
     base = (torch.randn(shape, generator=gen, device=dev) * 0.9).to(base_dtype)
     delta = x.float() - base.float()
-    u, v = codecs._scale_uv(delta, rank) if codec == "binary" else codecs._mean_scale_uv(delta)
+    u, v = codecs._scale_uv(delta, rank)
     return x, base, codecs._wire(u), codecs._wire(v)
+
+
+def _plan_name(plan):
+    return f"{'vector' if plan > 1 else 'scalar'} plan ({plan} packed bytes per thread)"
+
+
+def check_across_plans(quant, codec, name, x, base, u, v, packed, new_base, x_hat):
+    """At a shape where both plans can run: every sender plan into every
+    receiver plan rebuilds quant's new base bit for bit.  The scalar plans
+    run through the wrappers' internal launches with plan 1 forced (binary
+    quant's scalar kernel into both dequant plans; each dequant's scalar
+    kernel on the bytes the wrapper's quant sent); then one case on a base
+    view 4 bytes into its storage, where no 16-byte access can start: the
+    wrapper must take the scalar plan, and the C entry must refuse the
+    vector plan there.  Returns the pairings checked."""
+    import torch
+
+    per_byte = 8 if codec == "binary" else 4
+    entry = f"cf_{codec}_dequant"
+    dq = getattr(quant, f"{codec}_dequant_fastpath")
+    pairs = {"quant -> dequant scalar": (quant._dequant_launch(entry, packed, base, u, v, per_byte, 1), new_base),
+             "quant -> dequant vector": (x_hat, new_base)}
+    if codec == "binary":
+        packed_s, new_base_s = quant._quant_launch("cf_binary_quant", x, base, u, v, 8, 1)
+        if not (torch.equal(packed_s, packed) and torch.equal(new_base_s, new_base)):
+            raise AssertionError(f"{name}: binary quant's scalar plan differs from its vector plan")
+        pairs["quant scalar -> dequant vector"] = (dq(packed_s, base, u, v), new_base_s)
+        pairs["quant scalar -> dequant scalar"] = (
+            quant._dequant_launch(entry, packed_s, base, u, v, 8, 1), new_base_s)
+    n, c = base.shape
+    off = torch.empty(n * c + 1, dtype=base.dtype, device=base.device)[1:].view(n, c)
+    off.copy_(base)
+    plan_off = quant.quant_plan(per_byte, off, v, packed=packed)
+    before = dq.vec_launches
+    pairs["quant -> dequant on a base view 4 bytes in"] = (dq(packed, off, u, v), new_base)
+    if plan_off != 1 or dq.vec_launches != before:
+        raise AssertionError(f"{name}: dequant took the vector plan on a base view 4 bytes into its storage")
+    try:
+        quant._dequant_launch(entry, packed, off, u, v, per_byte, quant.QUANT_VEC_BYTES)
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError(f"{name}: {entry} ran the vector plan on a misaligned base view")
+    torch.cuda.synchronize()
+    for what, (got, want) in pairs.items():
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: {what}: not bit-identical to quant's new base")
+    print(f"[2] {name}: across plans, bit for bit: {'; '.join(pairs)}; the C entry refuses the vector "
+          f"plan on the misaligned view")
+    return list(pairs)
 
 
 def check_quant(quant, codecs, timing, dev, gen, codec, rank, base_dtype, shape=CHUNK):
     """One quant/dequant kernel pair vs its twins at ``shape`` on
     :func:`quant_case`'s inputs; each kernel timed eager (200 calls on one
     input set) and by CUDA graphs on enough input sets to fill 4x the L2
-    (``graph_ms``).  Returns a report, with binary quant's plan (packed
-    bytes per thread: ``ops/quant.py::binary_quant_plan``)."""
+    (``graph_ms``).  Where the dequant takes the vector plan, also
+    :func:`check_across_plans`.  Returns a report, with the plans (packed
+    bytes per thread: ``ops/quant.py::quant_plan``) of binary quant and of
+    the dequant."""
     import torch
 
     x, base, u, v = quant_case(codecs, dev, gen, codec, rank, base_dtype, shape)
@@ -429,6 +492,7 @@ def check_quant(quant, codecs, timing, dev, gen, codec, rank, base_dtype, shape=
     ref_hat = dq_ref(packed, base, u, v)
     n, c = x.shape
     kk = u.shape[1]
+    per_byte = 8 if codec == "binary" else 4
     name = f"{codec} N{n} C{c} K{kk} {str(base_dtype).replace('torch.', '')}"
     if not torch.equal(packed, ref_packed):
         raise AssertionError(f"{name} quant kernel: packed bytes differ from the twin's")
@@ -437,6 +501,9 @@ def check_quant(quant, codecs, timing, dev, gen, codec, rank, base_dtype, shape=
         raise AssertionError(f"{name} quant kernel: new_base off the twin by {rel:.3e} relative")
     if not torch.equal(x_hat, new_base):
         raise AssertionError(f"{name}: dequant output is not bit-identical to quant's new_base")
+    dequant_plan = quant.quant_plan(per_byte, base, v, packed=packed)
+    across = (check_across_plans(quant, codec, name, x, base, u, v, packed, new_base, x_hat)
+              if dequant_plan > 1 else [])
     # fp32 elementwise work per value: delta, the rank-K scale, the level
     # decision and the base update (quant); the scale and the update (dequant)
     quant_bytes = _nbytes(x, base, u, v, packed, new_base)
@@ -460,17 +527,18 @@ def check_quant(quant, codecs, timing, dev, gen, codec, rank, base_dtype, shape=
            "quant_ms": _time_ms(lambda: q(x, base, u, v), 200), "quant_graph_ms": quant_graph,
            "quant_plain_ms": _time_ms(lambda: q_ref(x, base, u, v), 200),
            "dequant_ms": _time_ms(lambda: dq(packed, base, u, v), 200), "dequant_graph_ms": dequant_graph,
-           "dequant_plain_ms": _time_ms(lambda: dq_ref(packed, base, u, v), 200)}
+           "dequant_plain_ms": _time_ms(lambda: dq_ref(packed, base, u, v), 200),
+           "dequant_plan_bytes_per_thread": dequant_plan, "across_plans": across}
     plan = ""
     if codec == "binary":
-        row["quant_plan_bytes_per_thread"] = quant.binary_quant_plan(x, base, v)
-        plan = (f" on the {'vector' if row['quant_plan_bytes_per_thread'] > 1 else 'scalar'} plan "
-                f"({row['quant_plan_bytes_per_thread']} packed bytes per thread)")
+        row["quant_plan_bytes_per_thread"] = quant.quant_plan(8, base, v, x=x)
+        plan = f" on the {_plan_name(row['quant_plan_bytes_per_thread'])}"
     print(f"[2] {name}: packed bytes equal, new_base rel err {rel:.3e} (tol {QUANT_NEW_BASE_RTOL}), "
           f"dequant == new_base bit for bit; quant{plan} {row['quant_ms']:.4f} ms eager, "
           f"{quant_graph:.5f} ms by CUDA graphs on {n_sets} input sets (twin {row['quant_plain_ms']:.4f}, "
-          f"bound {quant_bound[0]:.5f}), dequant {row['dequant_ms']:.4f} ms eager, {dequant_graph:.5f} "
-          f"ms by graphs (twin {row['dequant_plain_ms']:.4f}, bound {dequant_bound[0]:.5f})")
+          f"bound {quant_bound[0]:.5f}), dequant on the {_plan_name(dequant_plan)} {row['dequant_ms']:.4f} "
+          f"ms eager, {dequant_graph:.5f} ms by graphs (twin {row['dequant_plain_ms']:.4f}, bound "
+          f"{dequant_bound[0]:.5f})")
     return row
 
 
@@ -1125,17 +1193,21 @@ def ring_phase(phase, results, name, lossless, expect, bound, references=(), low
 
 def quant_entry(quant_rows, totals, codec, which, line):
     """The kernels line's entry of one quant kernel: its first shape's
-    numbers at the top, every shape in ``shapes``."""
+    numbers at the top, every shape in ``shapes``, and for a kernel with a
+    vector plan its launches by plan."""
     rows = quant_rows[codec]
-    return {"name": f"{codec}_{which}_fastpath", "route": "cuda",
+    name = f"{codec}_{which}_fastpath"
+    by_plan = ({"launches_by_plan": {"vector": totals[VEC[name]], "scalar": totals[name] - totals[VEC[name]]}}
+               if name in VEC else {})
+    return {"name": name, "route": "cuda",
             "source": f"compactfusion_tpu_torch/csrc/{codec}_quant.cu",
             "replaces": f"compactfusion_tpu/ops/quant_pallas.py:{line}",
-            "launches": totals[f"{codec}_{which}_fastpath"],
+            "launches": totals[name],
             "max_abs_err": max(r[f"max_abs_err_{which}"] for r in rows),
             "ms": rows[0][f"{which}_ms"], "graph_ms": rows[0][f"{which}_graph_ms"],
             "plain_ms": rows[0][f"{which}_plain_ms"],
             "bound_ms": rows[0][f"{which}_bound_ms"], "bound_by": rows[0][f"{which}_bound_by"],
-            "library_ms": None, "shapes": rows}
+            "library_ms": None, "shapes": rows, **by_plan}
 
 
 def main():
@@ -1181,12 +1253,16 @@ def main():
                    for r in (-1, 2)]
         + [check_quant(quant, codecs, timing, dev, gen, "binary", -1, torch.float32, (CHUNK[0], 1160))],
         "int2": [check_quant(quant, codecs, timing, dev, gen, "int2", -1, dt)
-                 for dt in (torch.float32, torch.bfloat16)],
+                 for dt in (torch.float32, torch.bfloat16)]
+        + [check_quant(quant, codecs, timing, dev, gen, "int2", -1, torch.float32, (CHUNK[0], 1160))],
     }
-    plans = [r["quant_plan_bytes_per_thread"] for r in quant_rows["binary"]]
-    if plans != [quant.QUANT_VEC_BYTES, quant.QUANT_VEC_BYTES, 1]:
-        raise AssertionError(f"binary quant took the plans {plans}: the vector kernel at C=1152, the "
-                             f"scalar one at C=1160 expected")
+    vec_scalar = [quant.QUANT_VEC_BYTES, quant.QUANT_VEC_BYTES, 1]  # C1152, C1152, C1160
+    for what, plans in (("binary quant", [r["quant_plan_bytes_per_thread"] for r in quant_rows["binary"]]),
+                        ("binary dequant", [r["dequant_plan_bytes_per_thread"] for r in quant_rows["binary"]]),
+                        ("int2 dequant", [r["dequant_plan_bytes_per_thread"] for r in quant_rows["int2"]])):
+        if plans != vec_scalar:
+            raise AssertionError(f"{what} took the plans {plans}: the vector kernel at C=1152, the "
+                                 f"scalar one at C=1160 expected")
     floor_ms = launch_floor_ms(ops_probes, timing, dev)
     print(f"[2] empty kernel: {floor_ms:.5f} ms per launch by CUDA graphs (the floor under graph_ms)")
 
@@ -1432,10 +1508,10 @@ def main():
                     launches_by_route={"register body (d <= 128)": totals["flash_attn_with_lse"] - totals[WIDE],
                                        "wide body (128 < d <= 512)": totals[WIDE]},
                     launches_in_probes=phases["probes"]["launches_of_pipeline_kernels"]["flash_attn_with_lse"]),
-        dict(quant_entry(quant_rows, totals, "binary", "quant", 118), launch_floor_ms=floor_ms,
-             launches_by_plan={"vector": totals[VEC], "scalar": totals["binary_quant_fastpath"] - totals[VEC]}),
-        quant_entry(quant_rows, totals, "binary", "dequant", 159),
-        quant_entry(quant_rows, totals, "int2", "quant", 238), quant_entry(quant_rows, totals, "int2", "dequant", 273),
+        dict(quant_entry(quant_rows, totals, "binary", "quant", 118), launch_floor_ms=floor_ms),
+        dict(quant_entry(quant_rows, totals, "binary", "dequant", 159), launch_floor_ms=floor_ms),
+        quant_entry(quant_rows, totals, "int2", "quant", 238),
+        dict(quant_entry(quant_rows, totals, "int2", "dequant", 273), launch_floor_ms=floor_ms),
         flash_entry("flash_attn_window_with_lse", "compactfusion_tpu/ops/flash_pallas.py:508", window_rows,
                     ms_vs_full_kernel=window_vs_full),
         flash_entry("ring_flash_attn_with_lse", "compactfusion_tpu/ops/ring_flash_pallas.py:347", ring_rows,

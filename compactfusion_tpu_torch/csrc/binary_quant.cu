@@ -20,27 +20,34 @@
 // relies on).  delta >= 0 maps to +1, -0.0 included.  Needs C % 8 == 0; any
 // N.
 //
-// Quant has two kernels; ops/quant.py::binary_quant_plan picks one before
-// the launch and the C entry launches exactly that:
+// Quant and dequant have two kernels each; ops/quant.py::quant_plan picks
+// one before the launch (the rule of quant_common.cuh::vec_plan_ok) and the C
+// entry launches exactly that:
 //  * the vector kernel (kVecBytes packed bytes per thread), where C/8 is a
-//    multiple of kVecBytes and x, base and v start 16-byte aligned: thread
-//    (n, j) takes bytes j..j+3 of row n, so each of its 8 bit groups is 4
-//    consecutive channels: one 16-byte load of x and of base (8 bytes for
-//    bf16) and one store of the new base per group, neighbouring threads on
-//    neighbouring 16 bytes, and one 4-byte store of the packed bytes.  All
-//    16 loads of x and base are issued before any is used, and the grid is
-//    kVecThreads-thread CTAs (144 at N256 C1152, one per SM), so the whole
-//    call's bytes are in flight at once against the DRAM latency.  u[n, :]
-//    is read once per row and k, v[k, c..c+3] as one 8-byte load;
+//    multiple of kVecBytes and the operands start aligned for their
+//    accesses: thread (n, j) takes bytes j..j+3 of row n, so each of its 8
+//    bit groups is 4 consecutive channels: one 16-byte load of x and of
+//    base (8 bytes for bf16) and one store of the result per group,
+//    neighbouring threads on neighbouring 16 bytes, and one 4-byte access
+//    of the packed bytes.  Every load of a thread is issued before any is
+//    used, and the grid is kVecThreads-thread CTAs (144 at N256 C1152, one
+//    per SM), so the whole call's bytes are in flight at once against the
+//    DRAM latency.  u[n, :] is read once per row and k, v[k, c..c+3] as
+//    one 8-byte load.  Dequant (binary_dequant_vec_kernel) has no x: its
+//    loads are the packed word, the 8 base vectors and, with K a template
+//    argument (1 and 2, the path's), every u and v value (vec_scales), all
+//    issued in order before the first store (quant_common.cuh's in-order
+//    loads): one DRAM round trip a thread;
 //  * the scalar kernel for the other shapes and views: one thread per packed
 //    byte (n, j), its 8 channels read one by one, the scale read per element.
-// Dequant keeps the scalar form (one thread per byte).
 
 #include "quant_common.cuh"
 
 namespace {
 
 using cfq::from_f;
+using cfq::kVecBytes;
+using cfq::kVecThreads;
 using cfq::scale_at;
 using cfq::to_f;
 
@@ -69,11 +76,6 @@ __global__ void binary_quant_kernel(const TX* __restrict__ x, const TB* __restri
   }
   packed[idx] = static_cast<uint8_t>(byte);
 }
-
-// packed bytes per thread and threads per CTA of the vector quant kernel
-// (ops/quant.py::QUANT_VEC_BYTES)
-constexpr int kVecBytes = 4;
-constexpr int kVecThreads = 64;
 
 template <typename TX, typename TB>
 __global__ void __launch_bounds__(kVecThreads)
@@ -143,6 +145,38 @@ __global__ void binary_dequant_kernel(const uint8_t* __restrict__ packed,
   }
 }
 
+// The vector form of binary_dequant_kernel: thread (n, j) takes packed
+// bytes j..j+3 of row n (quant_common.cuh); KT is K where it is 1 or 2, else
+// 0 (a runtime loop over K).  out = base + (bit ? s : -s) as the scalar
+// kernel and both quant kernels form it, so every plan of either side
+// rebuilds the same new base bit for bit.  Every load goes through the
+// in-order loads of quant_common.cuh and no pointer is __restrict__, so all
+// 18 loads of a thread (27 at K = 2) lead its first store: one DRAM round
+// trip.
+template <typename TB, int KT>
+__global__ void __launch_bounds__(kVecThreads)
+binary_dequant_vec_kernel(const uint8_t* packed, const TB* base, const __nv_bfloat16* u,
+                          const __nv_bfloat16* v, TB* out, int N, int C, int K) {
+  const int G = C / 8, per_row = G / kVecBytes;
+  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<long long>(N) * per_row) return;
+  const int n = static_cast<int>(idx / per_row);
+  const int j = static_cast<int>(idx % per_row) * kVecBytes;
+  const long long at = static_cast<long long>(n) * C + j;  // channel j of row n: group 0
+  const uint32_t word = cfq::load_packed(packed + static_cast<long long>(n) * G + j);
+  float bs[8][4], sc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) cfq::load4_in_order(base + at + i * G, bs[i]);
+  cfq::vec_scales<8, KT>(u, v, n, j, G, C, K, sc);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float o[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[e] = bs[i][e] + (((word >> (8 * e + i)) & 1u) ? sc[i][e] : -sc[i][e]);
+    cfq::store4(out + at + i * G, o);
+  }
+}
+
 template <typename TX, typename TB>
 void quant(const void* x, const void* base, const void* u, const void* v, void* packed,
            void* new_base, int N, int C, int K, int vec, cudaStream_t st) {
@@ -162,27 +196,37 @@ void quant(const void* x, const void* base, const void* u, const void* v, void* 
   }
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
 template <typename TB>
 void dequant(const void* packed, const void* base, const void* u, const void* v, void* out,
-             int N, int C, int K, cudaStream_t st) {
-  binary_dequant_kernel<TB><<<cfq::n_blocks(N, C, 8), cfq::kThreads, 0, st>>>(
-      static_cast<const uint8_t*>(packed), static_cast<const TB*>(base),
-      static_cast<const __nv_bfloat16*>(u), static_cast<const __nv_bfloat16*>(v),
-      static_cast<TB*>(out), N, C, K);
+             int N, int C, int K, int vec, cudaStream_t st) {
+  const auto* pp = static_cast<const uint8_t*>(packed);
+  const auto* bp = static_cast<const TB*>(base);
+  const auto* up = static_cast<const __nv_bfloat16*>(u);
+  const auto* vp = static_cast<const __nv_bfloat16*>(v);
+  auto* op = static_cast<TB*>(out);
+  if (vec == kVecBytes) {
+    const unsigned int blocks = cfq::vec_blocks(N, C, 8);
+    if (K == 1) {
+      binary_dequant_vec_kernel<TB, 1><<<blocks, kVecThreads, 0, st>>>(pp, bp, up, vp, op, N, C, K);
+    } else if (K == 2) {
+      binary_dequant_vec_kernel<TB, 2><<<blocks, kVecThreads, 0, st>>>(pp, bp, up, vp, op, N, C, K);
+    } else {
+      binary_dequant_vec_kernel<TB, 0><<<blocks, kVecThreads, 0, st>>>(pp, bp, up, vp, op, N, C, K);
+    }
+  } else {
+    binary_dequant_kernel<TB><<<cfq::n_blocks(N, C, 8), cfq::kThreads, 0, st>>>(pp, bp, up, vp, op, N, C, K);
+  }
 }
 
 }  // namespace
 
 // vec: the plan, packed bytes per thread: 1 (the scalar kernel) or kVecBytes
-// (the vector kernel, which needs C % (8 * kVecBytes) == 0 and 16-byte
-// aligned x, base, v and new_base); anything else is an error
+// (the vector kernel, where cfq::vec_plan_ok holds); anything else is an
+// error
 extern "C" int cf_binary_quant(const void* x, const void* base, const void* u, const void* v,
                                void* packed, void* new_base, int N, int C, int K, int x_bf16,
                                int base_bf16, int vec, void* stream) {
-  const bool vec_ok = C % (8 * kVecBytes) == 0 && aligned16(x) && aligned16(base) && aligned16(v) &&
-                      aligned16(new_base) && aligned16(packed);
+  const bool vec_ok = cfq::vec_plan_ok(C, 8, packed, base, new_base, v, x);
   if (vec != 1 && !(vec == kVecBytes && vec_ok)) return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0 || C == 0) return 0;
   const auto st = static_cast<cudaStream_t>(stream);
@@ -198,15 +242,18 @@ extern "C" int cf_binary_quant(const void* x, const void* base, const void* u, c
   return static_cast<int>(cudaGetLastError());
 }
 
+// vec: the plan, as cf_binary_quant takes it
 extern "C" int cf_binary_dequant(const void* packed, const void* base, const void* u,
                                  const void* v, void* out, int N, int C, int K, int base_bf16,
-                                 void* stream) {
+                                 int vec, void* stream) {
+  const bool vec_ok = cfq::vec_plan_ok(C, 8, packed, base, out, v, nullptr);
+  if (vec != 1 && !(vec == kVecBytes && vec_ok)) return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0 || C == 0) return 0;
   const auto st = static_cast<cudaStream_t>(stream);
   if (base_bf16) {
-    dequant<__nv_bfloat16>(packed, base, u, v, out, N, C, K, st);
+    dequant<__nv_bfloat16>(packed, base, u, v, out, N, C, K, vec, st);
   } else {
-    dequant<float>(packed, base, u, v, out, N, C, K, st);
+    dequant<float>(packed, base, u, v, out, N, C, K, vec, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,19 +17,33 @@
 // ring-8 PixArt shape (N=256, C=1152, fp32) it moves ~3.5 MB per call and
 // dequant ~2.4 MB, for a few flops per element.
 //
-// Design: one thread per packed output byte (n, j).  It handles the 4
-// channels i*(C/4)+j of the grouped wire layout (crumb i of byte j, see
+// Design: quant is one thread per packed output byte (n, j).  It handles the
+// 4 channels i*(C/4)+j of the grouped wire layout (crumb i of byte j, see
 // compact/packing.py), so neighbouring threads read neighbouring addresses
-// for every i, and builds the byte in a register.  Quant and dequant form
-// the scale with the same function (quant_common.cuh), so dequant rebuilds
-// quant's new base bit for bit: the error-feedback consistency invariant.
-// Needs C % 4 == 0; any N (the ragged edge is masked).
+// for every i, and builds the byte in a register.  Dequant has two kernels;
+// ops/quant.py::quant_plan picks one before the launch (the rule of
+// quant_common.cuh::vec_plan_ok) and the C entry launches exactly that:
+//  * the vector kernel (int2_dequant_vec_kernel), where C/4 is a multiple
+//    of kVecBytes and the operands start aligned: thread (n, j) takes
+//    packed bytes j..j+3 of row n in one 4-byte load, so each of its 4
+//    crumb groups is 4 consecutive channels: one 16-byte load of base (8
+//    bytes for bf16) and one store of out.  Every load (the word, the 4
+//    base vectors, u and v with K a template argument) is issued before the
+//    first use: one DRAM round trip a thread, 288 CTAs of 64 at N256 C1152;
+//  * the scalar kernel (int2_dequant_kernel), one thread per packed byte,
+//    for the other shapes and views.
+// Every kernel forms the scale as scale_at does and the result as base +
+// int2_step * s, so dequant on either plan rebuilds quant's new base bit for
+// bit: the error-feedback consistency invariant.  Needs C % 4 == 0; any N
+// (the ragged edge is masked).
 
 #include "quant_common.cuh"
 
 namespace {
 
 using cfq::from_f;
+using cfq::kVecBytes;
+using cfq::kVecThreads;
 using cfq::scale_at;
 using cfq::to_f;
 
@@ -87,6 +101,37 @@ __global__ void int2_dequant_kernel(const uint8_t* __restrict__ packed,
   }
 }
 
+// The vector form of int2_dequant_kernel (see the file's note); KT is K where
+// it is 1 (the path's), else 0 (a runtime loop over K).  As in
+// binary_dequant_vec_kernel, the in-order loads and no __restrict__ keep
+// all 10 loads of a thread ahead of its first store.
+template <typename TB, int KT>
+__global__ void __launch_bounds__(kVecThreads)
+int2_dequant_vec_kernel(const uint8_t* packed, const TB* base, const __nv_bfloat16* u,
+                        const __nv_bfloat16* v, TB* out, int N, int C, int K) {
+  const int G = C / 4, per_row = G / kVecBytes;
+  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<long long>(N) * per_row) return;
+  const int n = static_cast<int>(idx / per_row);
+  const int j = static_cast<int>(idx % per_row) * kVecBytes;
+  const long long at = static_cast<long long>(n) * C + j;  // channel j of row n: group 0
+  const uint32_t word = cfq::load_packed(packed + static_cast<long long>(n) * G + j);
+  float bs[4][4], sc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) cfq::load4_in_order(base + at + i * G, bs[i]);
+  cfq::vec_scales<4, KT>(u, v, n, j, G, C, K, sc);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float o[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const unsigned int code = (word >> (8 * e + 2 * i)) & 3u;  // crumb i of byte j + e
+      o[e] = bs[i][e] + int2_step(code >= 2u, (code & 1u) != 0u) * sc[i][e];
+    }
+    cfq::store4(out + at + i * G, o);
+  }
+}
+
 template <typename TX, typename TB>
 void quant(const void* x, const void* base, const void* u, const void* v, void* packed,
            void* new_base, int N, int C, int K, cudaStream_t st) {
@@ -98,11 +143,22 @@ void quant(const void* x, const void* base, const void* u, const void* v, void* 
 
 template <typename TB>
 void dequant(const void* packed, const void* base, const void* u, const void* v, void* out,
-             int N, int C, int K, cudaStream_t st) {
-  int2_dequant_kernel<TB><<<cfq::n_blocks(N, C, 4), cfq::kThreads, 0, st>>>(
-      static_cast<const uint8_t*>(packed), static_cast<const TB*>(base),
-      static_cast<const __nv_bfloat16*>(u), static_cast<const __nv_bfloat16*>(v),
-      static_cast<TB*>(out), N, C, K);
+             int N, int C, int K, int vec, cudaStream_t st) {
+  const auto* pp = static_cast<const uint8_t*>(packed);
+  const auto* bp = static_cast<const TB*>(base);
+  const auto* up = static_cast<const __nv_bfloat16*>(u);
+  const auto* vp = static_cast<const __nv_bfloat16*>(v);
+  auto* op = static_cast<TB*>(out);
+  if (vec == kVecBytes) {
+    const unsigned int blocks = cfq::vec_blocks(N, C, 4);
+    if (K == 1) {
+      int2_dequant_vec_kernel<TB, 1><<<blocks, kVecThreads, 0, st>>>(pp, bp, up, vp, op, N, C, K);
+    } else {
+      int2_dequant_vec_kernel<TB, 0><<<blocks, kVecThreads, 0, st>>>(pp, bp, up, vp, op, N, C, K);
+    }
+  } else {
+    int2_dequant_kernel<TB><<<cfq::n_blocks(N, C, 4), cfq::kThreads, 0, st>>>(pp, bp, up, vp, op, N, C, K);
+  }
 }
 
 }  // namespace
@@ -124,15 +180,20 @@ extern "C" int cf_int2_quant(const void* x, const void* base, const void* u, con
   return static_cast<int>(cudaGetLastError());
 }
 
+// vec: the plan, packed bytes per thread: 1 (the scalar kernel) or kVecBytes
+// (the vector kernel, where cfq::vec_plan_ok holds); anything else is an
+// error
 extern "C" int cf_int2_dequant(const void* packed, const void* base, const void* u,
                                const void* v, void* out, int N, int C, int K, int base_bf16,
-                               void* stream) {
+                               int vec, void* stream) {
+  const bool vec_ok = cfq::vec_plan_ok(C, 4, packed, base, out, v, nullptr);
+  if (vec != 1 && !(vec == kVecBytes && vec_ok)) return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0 || C == 0) return 0;
   const auto st = static_cast<cudaStream_t>(stream);
   if (base_bf16) {
-    dequant<__nv_bfloat16>(packed, base, u, v, out, N, C, K, st);
+    dequant<__nv_bfloat16>(packed, base, u, v, out, N, C, K, vec, st);
   } else {
-    dequant<float>(packed, base, u, v, out, N, C, K, st);
+    dequant<float>(packed, base, u, v, out, N, C, K, vec, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -149,6 +149,7 @@ def _declare(lib: ctypes.CDLL) -> None:
             P, P, P, P, P,     # packed, base, u, v, out
             I, I, I,           # N, C, K
             I,                 # base (and out) is bf16
+            I,                 # plan: packed bytes per thread (ops/quant.py)
             P,                 # stream
         ]
         dequant.restype = I

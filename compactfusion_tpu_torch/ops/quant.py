@@ -65,19 +65,31 @@ def int2_dequant_fastpath_ref(packed, base, u, v) -> torch.Tensor:
     return (base.float() + step).to(base.dtype)
 
 
-#: packed bytes per thread of the vector binary quant kernel (``kVecBytes``
-#: in ``csrc/binary_quant.cu``)
+#: packed bytes per thread of the vector kernels (``kVecBytes`` in
+#: ``csrc/quant_common.cuh``)
 QUANT_VEC_BYTES = 4
 
 
-def binary_quant_plan(x, base, v) -> int:
-    """The plan of a binary quant launch, packed bytes per thread:
-    :data:`QUANT_VEC_BYTES` (the vector kernel: 16-byte accesses of 4
-    channels per bit group) where the channels per bit group, C/8, are a
-    multiple of it and x, base and v start 16-byte aligned; else 1 (the
-    scalar kernel, one thread per byte)."""
-    aligned = not (x.data_ptr() | base.data_ptr() | v.data_ptr()) % 16
-    return QUANT_VEC_BYTES if aligned and x.shape[-1] % (8 * QUANT_VEC_BYTES) == 0 else 1
+def quant_plan(per_byte: int, base, v, *, x=None, packed=None) -> int:
+    """The plan of a launch of binary quant (``per_byte`` 8, with ``x``),
+    binary dequant (8, with ``packed``) or INT2 dequant (4, with
+    ``packed``), in packed bytes per thread.
+
+    :data:`QUANT_VEC_BYTES` is the vector kernel: thread (n, j) takes
+    packed bytes j..j+3 of row n, so each of its ``per_byte`` channel
+    groups is 4 consecutive channels, one 16-byte access of fp32 (8 of
+    bf16), and all its loads are in flight at once.  It runs where the
+    packed bytes per row, C/per_byte, are a multiple of QUANT_VEC_BYTES
+    and every operand starts aligned for its access: ``base`` and ``x``
+    16 bytes, ``v`` 8 bytes (its 8-byte loads), ``packed`` 4 bytes (one
+    word a thread; quant allocates its own).  Otherwise 1: the scalar
+    kernel, one thread per packed byte.  The C entries hold the same rule
+    (``quant_common.cuh::vec_plan_ok``) and refuse a vector plan that
+    breaks it."""
+    aligned = (not (base.data_ptr() | (0 if x is None else x.data_ptr())) % 16
+               and not v.data_ptr() % 8 and (packed is None or not packed.data_ptr() % 4))
+    c = base.shape[-1]
+    return QUANT_VEC_BYTES if aligned and c % per_byte == 0 and c // per_byte % QUANT_VEC_BYTES == 0 else 1
 
 
 def _check_uv(u, v, n, c, device):
@@ -125,8 +137,9 @@ def _quant_launch(entry: str, x, base, u, v, per_byte: int, *plan: int):
     return packed, new_base
 
 
-def _dequant_launch(entry: str, packed, base, u, v, per_byte: int):
-    """Check the dequant operands and launch ``entry`` -> (N, C) like base."""
+def _dequant_launch(entry: str, packed, base, u, v, per_byte: int, *plan: int):
+    """Check the dequant operands and launch ``entry`` (``plan``: its plan
+    arguments, before the stream) -> (N, C) like base."""
     from compactfusion_tpu_torch.ops import _build
 
     if packed.dtype != torch.uint8 or packed.dim() != 2 or not packed.is_contiguous():
@@ -137,7 +150,7 @@ def _dequant_launch(entry: str, packed, base, u, v, per_byte: int):
     out = torch.empty_like(base)
     status = getattr(_build.load(), entry)(
         packed.data_ptr(), base.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(),
-        n, c, u.shape[1], int(base.dtype == torch.bfloat16), _stream(packed),
+        n, c, u.shape[1], int(base.dtype == torch.bfloat16), *plan, _stream(packed),
     )
     _build.check(status, entry)
     return out
@@ -148,7 +161,7 @@ def binary_quant_fastpath(x, base, u, v) -> Tuple[torch.Tensor, torch.Tensor]:
     Returns (packed (N, C//8) uint8, new_base (N, C) in base.dtype)."""
     if not x.is_cuda:
         return binary_quant_fastpath_ref(x, base, u, v)
-    plan = binary_quant_plan(x, base, v)
+    plan = quant_plan(8, base, v, x=x)
     out = _quant_launch("cf_binary_quant", x, base, u, v, 8, plan)
     binary_quant_fastpath.launches += 1
     if plan > 1:
@@ -160,8 +173,11 @@ def binary_dequant_fastpath(packed, base, u, v) -> torch.Tensor:
     """Unpack + dequant + base add -> (N, C) in base.dtype (= the new base)."""
     if not packed.is_cuda:
         return binary_dequant_fastpath_ref(packed, base, u, v)
-    out = _dequant_launch("cf_binary_dequant", packed, base, u, v, 8)
+    plan = quant_plan(8, base, v, packed=packed)
+    out = _dequant_launch("cf_binary_dequant", packed, base, u, v, 8, plan)
     binary_dequant_fastpath.launches += 1
+    if plan > 1:
+        binary_dequant_fastpath.vec_launches += 1
     return out
 
 
@@ -180,15 +196,20 @@ def int2_dequant_fastpath(packed, base, u, v) -> torch.Tensor:
     """Unpack crumbs + dequant + base add -> (N, C) in base.dtype (= the new base)."""
     if not packed.is_cuda:
         return int2_dequant_fastpath_ref(packed, base, u, v)
-    out = _dequant_launch("cf_int2_dequant", packed, base, u, v, 4)
+    plan = quant_plan(4, base, v, packed=packed)
+    out = _dequant_launch("cf_int2_dequant", packed, base, u, v, 4, plan)
     int2_dequant_fastpath.launches += 1
+    if plan > 1:
+        int2_dequant_fastpath.vec_launches += 1
     return out
 
 
-#: kernel launches since the counts were last set to 0 (binary quant's on
-#: the vector plan also apart)
+#: kernel launches since the counts were last set to 0 (those on the vector
+#: plan also apart, where a kernel has one)
 binary_quant_fastpath.launches = 0
 binary_quant_fastpath.vec_launches = 0
 binary_dequant_fastpath.launches = 0
+binary_dequant_fastpath.vec_launches = 0
 int2_quant_fastpath.launches = 0
 int2_dequant_fastpath.launches = 0
+int2_dequant_fastpath.vec_launches = 0

@@ -135,25 +135,33 @@ def make_mesh(parallel: ParallelConfig) -> Mesh:
     return Mesh(parallel, rank, backend, coords, groups, lines)
 
 
-def init_distributed_environment(backend: str) -> torch.device:
+def init_distributed_environment(backend: str, device: str = "cuda") -> torch.device:
     """Join the process group that ``torchrun`` describes (``MASTER_ADDR``,
     ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``) and bind this
-    rank to ``cuda:<local_rank % device_count>`` where there is a GPU.
-    ``backend``: "nccl" with one GPU per rank, "gloo" otherwise.  A single
-    process (no ``WORLD_SIZE`` or 1) joins no group.  Returns the device."""
+    rank's device.  ``backend``: "nccl" with one GPU per rank, "gloo"
+    otherwise.  ``device``: "cuda" binds ``cuda:<local_rank % device_count>``
+    and raises ``RuntimeError`` where no CUDA device is visible; "cpu" keeps
+    the rank on the CPU.  A single process (no ``WORLD_SIZE`` or 1) joins no
+    group.  Returns the device."""
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
     world = int(os.environ.get("WORLD_SIZE", "1"))
     rank = int(os.environ.get("RANK", "0"))
     local = int(os.environ.get("LOCAL_RANK", str(rank)))
-    device = torch.device("cpu")
-    if torch.cuda.is_available():
-        device = torch.device("cuda", local % torch.cuda.device_count())
-        torch.cuda.set_device(device)
+    if device == "cpu":
+        bound = torch.device("cpu")
+    elif not torch.cuda.is_available():
+        raise RuntimeError("init_distributed_environment: no CUDA device is visible to this rank; "
+                           "pass device='cpu' to run it on the CPU")
+    else:
+        bound = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(bound)
     if world > 1 and not dist.is_initialized():
         addr = os.environ["MASTER_ADDR"]
         port = os.environ["MASTER_PORT"]
         dist.init_process_group(backend, init_method=f"tcp://{addr}:{port}", rank=rank,
                                 world_size=world)
-    return device
+    return bound
 
 
 def _rank_main(fn, rank, world_size, backend, port, args, threads, results):

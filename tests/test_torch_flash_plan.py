@@ -224,32 +224,28 @@ BEFORE = {"flash_fwd_kernel<4, 64>": (64, "a"), "flash_fwd_kernel<2, 32>": (40, 
           "ef_update_fp32_kernel": (40, "q"), "ef_minmax_int8_kernel": (40, "r"),
           "ef_codes_int8_kernel": (40, "s"),
           "binary_quant_kernel<float, float>": (32, "k"), "binary_dequant_kernel<float>": (30, "l"),
-          "int2_quant_kernel<float, float>": (32, "m"), "int2_dequant_kernel<float>": (30, "n")}
+          "int2_quant_kernel<float, float>": (32, "m"), "int2_dequant_kernel<float>": (30, "n"),
+          "flash_fwd_wide_kernel<512, 8>": (210, "o"), "binary_quant_vec_kernel<float, float>": (64, "t"),
+          "empty_kernel": (8, "u")}
 
 
 def test_compare_tool_passes_when_only_redesigned_kernels_differ():
-    """Kernel 1's wide route and binary quant may change, go or come
-    (``flash_fwd_kernel<4, 64>`` goes, the wide and the vector quant kernels
-    come, the scalar quant kernel changes); kernels 1, 4 and 7 on the
-    register body, the EF pass, the probes, binary dequant and INT2 may
-    not."""
+    """The vector dequant kernels (kernels 3 and 6) may come; every other
+    kernel (every flash body, the EF pass, the probes, both binary quant
+    kernels, INT2 quant and the scalar dequants) must stay as it was."""
     tool = _compare_tool()
-    after = dict(BEFORE, **{"binary_quant_kernel<float, float>": (30, "x"),
-                            "binary_quant_vec_kernel<float, float>": (64, "y"),
-                            "flash_fwd_wide_kernel<512, 8>": (168, "z")})
-    del after["flash_fwd_kernel<4, 64>"]
+    after = dict(BEFORE, **{"binary_dequant_vec_kernel<float, 1>": (40, "x"),
+                            "int2_dequant_vec_kernel<float, 1>": (32, "y")})
     ok, report = tool.verdict(_build(after), _build(BEFORE))
     assert ok and report["unmatched"] == []
     kernels = report["kernels"]
-    assert kernels["flash_fwd_reg_kernel<80, 8>"]["must_be_unchanged"]
-    assert kernels["flash_fwd_reg_kernel<80, 8>"]["sass_equal"]
-    assert kernels["flash_window_reg_kernel<80, 8>"]["must_be_unchanged"]
-    assert kernels["ef_codes_int8_kernel"]["must_be_unchanged"]
-    assert kernels["dma_only_kernel"]["must_be_unchanged"]
-    assert not kernels["binary_quant_kernel<float, float>"]["must_be_unchanged"]
-    assert not kernels["binary_quant_kernel<float, float>"]["sass_equal"]
-    assert kernels["flash_fwd_wide_kernel<512, 8>"]["other"] is None
-    assert kernels["flash_fwd_kernel<4, 64>"]["this"] is None
+    for label in ("flash_fwd_reg_kernel<80, 8>", "flash_window_reg_kernel<80, 8>", "flash_fwd_kernel<4, 64>",
+                  "flash_fwd_wide_kernel<512, 8>", "ef_codes_int8_kernel", "dma_only_kernel",
+                  "binary_quant_kernel<float, float>", "binary_quant_vec_kernel<float, float>",
+                  "binary_dequant_kernel<float>", "int2_dequant_kernel<float>", "empty_kernel"):
+        assert kernels[label]["must_be_unchanged"] and kernels[label]["sass_equal"], label
+    for label in ("binary_dequant_vec_kernel<float, 1>", "int2_dequant_vec_kernel<float, 1>"):
+        assert not kernels[label]["must_be_unchanged"] and kernels[label]["other"] is None
 
 
 @pytest.mark.parametrize("label,change", [
@@ -260,6 +256,9 @@ def test_compare_tool_passes_when_only_redesigned_kernels_differ():
     ("flash_parts_kernel<31>", (136, "i")),
     ("dma_only_kernel", (40, "j2")),
     ("int2_dequant_kernel<float>", None),
+    ("binary_quant_vec_kernel<float, float>", (64, "t2")),
+    ("flash_fwd_wide_kernel<512, 8>", (212, "o")),
+    ("flash_fwd_kernel<4, 64>", None),
 ])
 def test_compare_tool_fails_when_a_listed_kernel_changes(label, change):
     tool = _compare_tool()
@@ -297,3 +296,12 @@ def test_compare_tool_reads_sass_without_the_sources_namespace_name():
     # cuobjdump pads the columns of an object to its longest name
     assert tool.sass_text(before.replace("  CALL", "        CALL")) == tool.sass_text(before)
     assert tool.sass_text(before) != tool.sass_text(before.replace("EXIT", "BRA"))
+
+
+def test_compare_tool_counts_the_loads_before_the_first_store():
+    tool = _compare_tool()
+    body = "\n".join(["  /*0000*/  LDG.E.128 R4, desc[UR4][R2.64] ;", "  /*0010*/  LDG.E R8, desc[UR4][R6.64] ;",
+                      "  /*0020*/  FADD R4, R4, R8 ;", "  /*0030*/  STG.E.128 desc[UR4][R10.64], R4 ;",
+                      "  /*0040*/  LDG.E R9, desc[UR4][R6.64+0x4] ;", "  /*0050*/  EXIT ;"])
+    assert tool.loads_before_store(body) == 2
+    assert tool.loads_before_store(body.replace("STG", "STS")) == 3

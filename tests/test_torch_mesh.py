@@ -57,13 +57,25 @@ def test_rank_grid_matches_jax_make_mesh(layout):
 
 def test_single_process_mesh_and_environment(monkeypatch):
     monkeypatch.delenv("WORLD_SIZE", raising=False)
-    assert tmesh.init_distributed_environment("gloo") == torch.device("cpu")
+    assert tmesh.init_distributed_environment("gloo", device="cpu") == torch.device("cpu")
     m = tmesh.make_mesh(ParallelConfig())
     assert all(m.axis_size(a) == 1 and m.axis_index(a) == 0 for a in tmesh.MESH_AXIS_ORDER)
     x = (torch.ones(3),)
     assert ring_shift(x, m, "ring") is x
     with pytest.raises(RuntimeError):
         tmesh.make_mesh(ParallelConfig(ring_degree=2))
+
+
+def test_environment_raises_without_a_cuda_device(monkeypatch):
+    """The default device is the GPU: a rank that finds none raises rather
+    than carry on on the CPU, under either backend."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for backend in ("nccl", "gloo"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tmesh.init_distributed_environment(backend)
+    with pytest.raises(ValueError):
+        tmesh.init_distributed_environment("gloo", device="tpu")
 
 
 @pytest.fixture(scope="module")

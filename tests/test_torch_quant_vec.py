@@ -1,8 +1,9 @@
 """Kernel 2's launch plan and its vector thread mapping
 (``csrc/binary_quant.cu``) on the CPU.
 
-``ops/quant.py::binary_quant_plan`` picks the vector kernel (4 packed bytes
-per thread) or the scalar one before the launch.  The kernel itself runs
+``ops/quant.py::quant_plan`` picks the vector kernel (4 packed bytes per
+thread) or the scalar one before the launch, by the rule the dequant
+kernels share (``tests/test_torch_dequant_vec.py``).  The kernel itself runs
 only on the card, so its mapping of threads to (row, bytes) and its
 arithmetic are modelled here in torch and held against the JAX
 ``binary_quant_fastpath`` in Pallas interpret mode (packed bytes exact, new
@@ -24,7 +25,7 @@ from compactfusion_tpu_torch.io.from_jax import params_from_numpy
 from compactfusion_tpu_torch.ops import quant as tqp
 
 REL = 1e-6
-SRC = Path(__file__).resolve().parent.parent / "compactfusion_tpu_torch" / "csrc" / "binary_quant.cu"
+SRC = Path(__file__).resolve().parent.parent / "compactfusion_tpu_torch" / "csrc" / "quant_common.cuh"
 
 
 def _data(n, c, k, seed):
@@ -79,23 +80,24 @@ def test_binary_quant_plan(c, vec):
     143), on fp32 and bf16 bases alike."""
     x = torch.zeros(256, c)
     v = torch.zeros(1, c, dtype=torch.bfloat16)
-    assert tqp.binary_quant_plan(x, x, v) == vec
-    assert tqp.binary_quant_plan(x, x.bfloat16(), v) == vec
+    assert tqp.quant_plan(8, x, v, x=x) == vec
+    assert tqp.quant_plan(8, x.bfloat16(), v, x=x) == vec
 
 
 def test_binary_quant_plan_takes_the_scalar_kernel_on_a_misaligned_view():
-    """A contiguous view that starts 4 bytes into its storage (x, base or
-    v) takes the scalar kernel: the vector kernel's 16-byte accesses need
-    16-byte aligned starts."""
+    """A contiguous view that starts 4 bytes into its storage (x or base)
+    or 2 bytes (v) takes the scalar kernel: the vector kernel's 16-byte
+    accesses of x and base need 16-byte aligned starts, its 8-byte loads of
+    v 8-byte aligned ones."""
     x = torch.zeros(256, 1152)
     v = torch.zeros(1, 1152, dtype=torch.bfloat16)
     off = torch.zeros(256 * 1152 + 1)[1:].view(256, 1152)
     off_v = torch.zeros(1153, dtype=torch.bfloat16)[1:].view(1, 1152)
     assert off.is_contiguous() and off.data_ptr() % 16
-    assert tqp.binary_quant_plan(x, x, v) == tqp.QUANT_VEC_BYTES
-    assert tqp.binary_quant_plan(off, x, v) == 1
-    assert tqp.binary_quant_plan(x, off, v) == 1
-    assert tqp.binary_quant_plan(x, x, off_v) == 1
+    assert tqp.quant_plan(8, x, v, x=x) == tqp.QUANT_VEC_BYTES
+    assert tqp.quant_plan(8, x, v, x=off) == 1
+    assert tqp.quant_plan(8, off, v, x=x) == 1
+    assert tqp.quant_plan(8, x, off_v, x=x) == 1
 
 
 @pytest.mark.parametrize("k", [1, 2])
@@ -104,7 +106,7 @@ def test_vector_mapping_matches_jax_and_the_twin(n, c, k):
     x, base, u, v = _data(n, c, k, seed=n + c + k)
     tx, tb = torch.from_numpy(x), torch.from_numpy(base)
     tu, tv = params_from_numpy(u), params_from_numpy(v)
-    vec = tqp.binary_quant_plan(tx, tb, tv)
+    vec = tqp.quant_plan(8, tb, tv, x=tx)
     assert vec == (1 if c == 1160 else tqp.QUANT_VEC_BYTES)
     packed, new_base = vec_model(tx, tb, tu, tv, vec)
     jpacked, jnew = jqp.binary_quant_fastpath(*map(jnp.asarray, (x, base, u, v)), interpret=True)

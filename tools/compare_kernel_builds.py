@@ -10,14 +10,18 @@ per source, all started together, into a temporary directory.  For every
 kernel instantiation of either side (labels from ``_build.kernel_labels``,
 e.g. ``flash_fwd_kernel<4, 64>``), it compares what ``ptxas -v`` said of it
 (stack, spills, registers, barriers, constant memory) and its SASS
-(``cuobjdump -sass``, read by :func:`sass_text`).
+(``cuobjdump -sass``, read by :func:`sass_text`), and reports the global
+loads its SASS issues before the first global store
+(:func:`loads_before_store`: the loads a thread can have in flight at
+once in a kernel that loads, computes, then stores).
 
 ``--unchanged`` names the instantiations that must be identical on both
 sides: a full label, or ``name<...>`` for every instantiation of ``name``
-(the default: every instantiation of kernels 1, 4 and 7 on the register
-body, kernel 8's EF pass, the probe kernels, binary dequant and both INT2
-kernels: what a redesign of kernel 1's wide-head route and of binary quant
-must leave as it was).
+(the default: every kernel but the vector dequants: every flash kernel of
+kernels 1, 4 and 7 on all three bodies, kernel 8's EF pass, the probe and
+empty kernels, both binary quant kernels, INT2 quant and the scalar
+dequants: what the redesign of kernels 3 and 6 as vector kernels must
+leave as it was).
 Prints one JSON object and exits 1 when one of them differs, is missing on
 either side or matches nothing; kernels outside the list may differ.
 Needs the CUDA toolkit (``nvcc``, ``cuobjdump``, ``cu++filt``), not a GPU.
@@ -35,9 +39,11 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 UNCHANGED = ("flash_fwd_reg_kernel<...>", "flash_window_reg_kernel<...>", "ring_flash_hop_reg_kernel<...>",
-             "ef_update_fp32_kernel", "ef_minmax_int8_kernel", "ef_codes_int8_kernel",
-             "flash_parts_kernel<...>", "dma_only_kernel", "plumb_kernel",
-             "binary_dequant_kernel<...>", "int2_quant_kernel<...>", "int2_dequant_kernel<...>")
+             "flash_fwd_wide_kernel<...>", "flash_fwd_kernel<...>", "flash_window_kernel<...>",
+             "ring_flash_hop_kernel<...>", "ef_update_fp32_kernel", "ef_minmax_int8_kernel",
+             "ef_codes_int8_kernel", "flash_parts_kernel<...>", "dma_only_kernel", "plumb_kernel", "empty_kernel",
+             "binary_quant_kernel<...>", "binary_quant_vec_kernel<...>", "int2_quant_kernel<...>",
+             "binary_dequant_kernel<...>", "int2_dequant_kernel<...>")
 # nvcc names each source's anonymous namespace after a hash of the source
 # (``_GLOBAL__N__0110b69f_13_flash_attn_cu_3b6b32e1``), and symbols in the
 # SASS carry it: an edit elsewhere in the file changes it
@@ -51,6 +57,17 @@ def sass_text(body: str) -> str:
     return _NAMESPACE.sub("_GLOBAL__N_", "\n".join(" ".join(ln.split()) for ln in body.splitlines() if ln.strip()))
 
 
+def loads_before_store(body: str) -> int:
+    """The global loads (``LDG``) in one function's SASS before its first
+    global store (``STG``), in program order."""
+    n = 0
+    for ln in body.splitlines():
+        if re.search(r"\bSTG\.", ln):
+            break
+        n += bool(re.search(r"\bLDG\.", ln))
+    return n
+
+
 def _cuobjdump():
     found = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(found).exists():
@@ -59,19 +76,22 @@ def _cuobjdump():
 
 
 def build(root: Path, out: Path):
-    """({kernel: ptxas line}, {kernel: SASS sha256}) of one checkout."""
+    """({kernel: ptxas line}, {kernel: SASS sha256}, {kernel: its
+    :func:`loads_before_store`}) of one checkout."""
     from compactfusion_tpu_torch.ops import _build
 
     objs, log = _build.compile_objects(root / "compactfusion_tpu_torch" / "csrc", out)
-    sass = {}
+    sass, loads = {}, {}
     for obj in objs:
         dump = subprocess.run([_cuobjdump(), "-sass", str(obj)], capture_output=True, text=True,
                               check=True).stdout
         for block in dump.split("Function : ")[1:]:
             name, _, body = block.partition("\n")
             sass[name.strip()] = hashlib.sha256(sass_text(body).encode()).hexdigest()
+            loads[name.strip()] = loads_before_store(body)
     labels = _build.kernel_labels(sass)
-    return _build.ptxas_summary(log), {labels[name]: h for name, h in sass.items()}
+    return (_build.ptxas_summary(log), {labels[name]: h for name, h in sass.items()},
+            {labels[name]: n for name, n in loads.items()})
 
 
 def matches(label: str, pattern: str) -> bool:
@@ -83,7 +103,8 @@ def matches(label: str, pattern: str) -> bool:
 
 
 def verdict(this, other, unchanged=UNCHANGED):
-    """(ok, report) of two builds, each (ptxas lines, SASS hashes) by label.
+    """(ok, report) of two builds, each (ptxas lines, SASS hashes[, loads
+    before the first store]) by label.
     The report has every label of either side; ``ok`` holds when every
     label that an ``unchanged`` pattern names has the same ptxas line and
     SASS on both sides, and every pattern names at least one label."""
@@ -93,6 +114,8 @@ def verdict(this, other, unchanged=UNCHANGED):
         entry = {"this": this[0].get(label), "other": other[0].get(label),
                  "sass_equal": label in this[1] and this[1].get(label) == other[1].get(label)}
         entry["ptxas_equal"] = entry["this"] is not None and entry["this"] == entry["other"]
+        if len(this) > 2:
+            entry["loads_before_store"] = {"this": this[2].get(label), "other": other[2].get(label)}
         entry["must_be_unchanged"] = any(matches(label, p) for p in unchanged)
         if entry["must_be_unchanged"]:
             ok = ok and entry["ptxas_equal"] and entry["sass_equal"]

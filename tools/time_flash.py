@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Check and time kernels 1, 2, 4, 7 and 8 of a checkout at the path's shapes.
+"""Check and time kernels 1, 2, 3, 4, 6, 7 and 8 of a checkout at the path's shapes.
 
-    python3 tools/time_flash.py [--root OTHER_ROOT] [--sweep] [--out FILE]
+    python3 tools/time_flash.py [--root OTHER_ROOT] [--sweep] [--quant] [--out FILE]
 
 Imports ``compactfusion_tpu_torch`` from ``--root`` (default: this
 checkout; e.g. an unpacked ``git archive`` of the parent commit) and the
@@ -26,10 +26,15 @@ twin's do).  Kernel 2 (binary quant) at :data:`QUANT_CASES`, phase 2's K=1
 and K=2 cases (``quant_case``) first, with a few deltas of 0 planted:
 packed bytes against the twin's, the new base (``QUANT_NEW_BASE_RTOL``),
 binary dequant of the bytes bit-equal to the new base, the plan where the
-tree has ``ops/quant.py::binary_quant_plan``, eager ``ms`` (200 calls on
-one input set) and ``graph_ms``; where the tree has the empty kernel
-(``ops/probes.py::empty``), its time by the same CUDA graphs, the floor of a
-launch.  With ``--sweep`` (a tree with ``ops/flash.py::flash_plan``), a
+tree has one (:func:`plan_of`), eager ``ms`` (200 calls on one input set)
+and ``graph_ms``.  Kernels 3 and 6 (binary and INT2 dequant) at
+:data:`DEQUANT_CASES` (kernel 2's cases, then INT2 on fp32 and bf16 bases
+at C1152 and C1160, and at K2): the output bit-equal to quant's new base and to the
+twin's, the plan (null on a tree without a dequant plan), eager ``ms`` and
+``graph_ms`` on input sets each quantized by the tree's own quant kernel.
+Where the tree has the empty kernel (``ops/probes.py::empty``), its time by
+the same CUDA graphs, the floor of a launch.  ``--quant`` times only
+kernels 2, 3 and 6 and the empty kernel.  With ``--sweep`` (a tree with ``ops/flash.py::flash_plan``), a
 shape whose plan takes the register body is also timed at every tile
 height built for its padded head dim (``graph_ms_by_warps``), with
 ``flash_plan`` swapped for one that keeps the body and padded head dim but
@@ -159,12 +164,73 @@ def wide_row(smoke, flash, dev, gen, case):
 
 
 #: ((N, C), scale rank, x dtype, base dtype) of kernel 2's cases: phase 2's
-#: K1 and K2 first, then bf16 operands, the scalar plan at C1160 and a
-#: short row at C64
+#: K1 and K2 first, then bf16 operands, the scalar plan at C1160, a short
+#: row at C64 and K4 (the vector kernels' runtime-K form)
 QUANT_CASES = [((256, 1152), -1, "float32", "float32"), ((256, 1152), 2, "float32", "float32"),
                ((256, 1160), -1, "float32", "float32"), ((256, 1152), -1, "bfloat16", "float32"),
                ((256, 1152), 2, "float32", "bfloat16"), ((256, 1152), -1, "bfloat16", "bfloat16"),
-               ((100, 64), 2, "float32", "float32"), ((256, 1160), 2, "bfloat16", "bfloat16")]
+               ((100, 64), 2, "float32", "float32"), ((256, 1160), 2, "bfloat16", "bfloat16"),
+               ((256, 1152), 4, "float32", "float32")]
+
+
+def plan_of(quant, per_byte, base, v, **operands):
+    """The tree's plan of a quant or dequant launch in packed bytes per
+    thread: ``ops/quant.py::quant_plan``; on an older tree kernel 2's
+    ``binary_quant_plan`` (quant only), else None."""
+    if hasattr(quant, "quant_plan"):
+        return quant.quant_plan(per_byte, base, v, **operands)
+    if hasattr(quant, "binary_quant_plan") and "x" in operands:
+        return quant.binary_quant_plan(operands["x"], base, v)
+    return None
+
+
+#: (codec, (N, C), scale rank, x dtype, base dtype) of kernels 3 and 6: the
+#: path's INT2 (the mean scale, K1) on fp32 and bf16 bases at both plans,
+#: then K2 (the runtime-K form)
+DEQUANT_CASES = ([("binary", *case) for case in QUANT_CASES]
+                 + [("int2", (256, c), -1, dt, dt) for c in (1152, 1160) for dt in ("float32", "bfloat16")]
+                 + [("int2", (256, 1152), 2, "float32", "float32")])
+
+
+def dequant_row(smoke, timing, quant, codecs, dev, gen, case):
+    """Kernel 3 or 6 at one of :data:`DEQUANT_CASES`: its output against
+    quant's new base and the twin's (bit for bit), the plan, eager ms and
+    ``graph_ms``, the bound."""
+    import torch
+
+    codec, shape, rank, xdt, bdt = case
+    xdt, bdt = getattr(torch, xdt), getattr(torch, bdt)
+    q, dq = getattr(quant, f"{codec}_quant_fastpath"), getattr(quant, f"{codec}_dequant_fastpath")
+
+    def make():
+        x, base, u, v = smoke.quant_case(codecs, dev, gen, codec, rank, bdt, shape)
+        packed, new_base = q(x.to(xdt), base, u, v)
+        return (packed, base, u, v), new_base
+
+    first, new_base = make()
+    packed, base, u, v = first
+    out = dq(*first)
+    torch.cuda.synchronize()
+    twin = getattr(quant, f"{codec}_dequant_fastpath_ref")(*first)
+    nbytes = smoke._nbytes(packed, base, u, v, out)
+    sets = [first] + [make()[0] for _ in range(timing.copies(nbytes) - 1)]
+    n, c = base.shape
+    bound_ms, bound_by = smoke._bound(nbytes, (3 + 2 * u.shape[1]) * n * c, smoke.PEAK_FP32_FLOPS)
+    kernel = {"binary": "kernel 3 binary", "int2": "kernel 6 INT2"}[codec]
+    name = (f"{kernel} dequant N{n} C{c} K{u.shape[1]} base {str(bdt).replace('torch.', '')}"
+            + (f" (quant x {str(xdt).replace('torch.', '')})" if xdt != bdt else ""))
+    r = {"shape": name, "plan_bytes_per_thread": plan_of(quant, 8 if codec == "binary" else 4, base, v,
+                                                         packed=packed),
+         "equal_new_base": torch.equal(out, new_base), "equal_twin": torch.equal(out, twin),
+         "ms": smoke._time_ms(lambda: dq(*first), 200),
+         "graph_ms": smoke.graph_ms(timing, [lambda t=t: dq(*t) for t in sets]),
+         "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"{name}: plan {r['plan_bytes_per_thread']} packed bytes per thread; == new_base "
+          f"{r['equal_new_base']}, == twin {r['equal_twin']}; eager {r['ms']:.5f} ms, graphs "
+          f"{r['graph_ms']:.5f} ms ({len(sets)} input sets), bound {bound_ms:.5f} ms ({bound_by})")
+    if not (r["equal_new_base"] and r["equal_twin"]):
+        raise AssertionError(f"{name}: the kernel disagrees with quant's new base or its twin")
+    return r
 
 
 def quant_row(smoke, timing, quant, codecs, dev, gen, case):
@@ -194,7 +260,7 @@ def quant_row(smoke, timing, quant, codecs, dev, gen, case):
     bound_ms, bound_by = smoke._bound(nbytes, (4 + 2 * u.shape[1]) * n * c, smoke.PEAK_FP32_FLOPS)
     name = (f"kernel 2 binary quant N{n} C{c} K{u.shape[1]} x {str(xdt).replace('torch.', '')} "
             f"base {str(bdt).replace('torch.', '')}")
-    plan = quant.binary_quant_plan(x, base, v) if hasattr(quant, "binary_quant_plan") else None
+    plan = plan_of(quant, 8, base, v, x=x)
     r = {"shape": name, "plan_bytes_per_thread": plan, "packed_equal": torch.equal(packed, ref_packed),
          "new_base_rel_err": rel, "dequant_equal": torch.equal(x_hat, new_base),
          "ms": smoke._time_ms(lambda: quant.binary_quant_fastpath(*first), 200),
@@ -213,6 +279,8 @@ def main(argv=None):
     ap.add_argument("--root", type=Path, default=REPO, help="the checkout whose kernels to time")
     ap.add_argument("--sweep", action="store_true",
                     help="also time every built tile height of the register body's plans")
+    ap.add_argument("--quant", action="store_true",
+                    help="time only the quant kernels (2, 3 and 6) and the empty kernel")
     ap.add_argument("--out", type=Path, help="also write the JSON here")
     args = ap.parse_args(argv)
     smoke = _smoke()
@@ -245,6 +313,25 @@ def main(argv=None):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    rows = [] if args.quant else flash_rows(smoke, timing, flash, ring_flash, dev, gen, sweep, sets_of)
+    rows += [quant_row(smoke, timing, quant, codecs, dev, gen, case) for case in QUANT_CASES]
+    rows += [dequant_row(smoke, timing, quant, codecs, dev, gen, case) for case in DEQUANT_CASES]
+    if hasattr(ops_probes, "empty"):
+        floor = smoke.launch_floor_ms(ops_probes, timing, dev)
+        rows.append({"shape": "empty kernel", "graph_ms": floor})
+        print(f"empty kernel: graphs {floor:.5f} ms per launch")
+    report = {"card": card, "root": str(args.root.resolve()), "rows": rows}
+    line = json.dumps(report)
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(line + "\n")
+    print(line)
+
+
+def flash_rows(smoke, timing, flash, ring_flash, dev, gen, sweep, sets_of):
+    """The rows of kernels 1, 4, 7 and 8 (and kernel 1's wide cases)."""
+    import torch
+
     rows = []
     for name, make, iters in smoke.flash_cases(gen, dev):
         q, k, v = first = make()
@@ -299,17 +386,7 @@ def main(argv=None):
                         sets_of(stacks, stacks(), stack_bytes + smoke._nbytes(q, k, v)), 20,
                         smoke._nbytes(q, k, v) + payload_bytes + 2 * stack_bytes,
                         4 * b * 16 * s_local * ring * s_local * 72))
-    rows += [quant_row(smoke, timing, quant, codecs, dev, gen, case) for case in QUANT_CASES]
-    if hasattr(ops_probes, "empty"):
-        floor = smoke.launch_floor_ms(ops_probes, timing, dev)
-        rows.append({"shape": "empty kernel", "graph_ms": floor})
-        print(f"empty kernel: graphs {floor:.5f} ms per launch")
-    report = {"card": card, "root": str(args.root.resolve()), "rows": rows}
-    line = json.dumps(report)
-    if args.out:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(line + "\n")
-    print(line)
+    return rows
 
 
 if __name__ == "__main__":
