@@ -20,13 +20,17 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
    (``graph_ms``: CUDA graphs, ``probes/timing.py``).  The VAE's d=512
    attention must take the wide body.  The quant pairs are also timed by
    CUDA graphs on inputs from DRAM, beside the time of an empty kernel
-   (the least a launch costs).  Binary quant and both dequants run both
+   (the least a launch costs).  Both quants and both dequants run both
    their plans (``ops/quant.py::quant_plan``): the vector kernel at C=1152
    and the scalar one at C=1160 (145 binary and 290 INT2 bytes per row, not
    multiples of 4).  At C=1152 every sender plan goes into every receiver
    plan (the scalar ones forced through the wrappers' internal launches),
-   and each dequant runs on a base view 4 bytes into its storage, where it
-   must take the scalar plan: every output bit-equal to quant's new base.
+   each quant runs on an x view and each dequant on a base view 4 bytes
+   into its storage, where they must take the scalar plan: every output
+   bit-equal to quant's new base.  Last, ``sdpa``'s no-LSE route (plain
+   torch) at PixArt's cross-attention shape, B2 Sq1024 H16 Sk120 d72 with
+   ``kv_lens`` (120, 120) and (120, 0): against the math path on the live
+   rows, 0 on the dead ones, timed beside the math path and SDPA.
 3. The full-width PixArt-alpha 512 pipeline (28 blocks, dim 1152, S=1024,
    CFG batch 2, 20 DPM-Solver++ steps, SD-VAE decode), random weights with
    spiced AdaLN tables, compression off: 3 requests, each from its own seed.
@@ -84,7 +88,7 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
 Phases 4-15 hold their latents against request 1's lossless latents and
 their kernel launch counts against the counts the path implies (kernel 1's
 wide-body launches among them, one per decoded image, and those of
-kernels 2, 3 and 6 on their vector plans, all of their launches); every
+kernels 2, 3, 5 and 6 on their vector plans, all of their launches); every
 count is set to 0 just before each of phases 3-11, 13-15 and 16's probes
 (and the calibration), in every process, and read just after.  A probe
 counts a launch when it captures a CUDA graph, so phase 16 reports the
@@ -126,6 +130,12 @@ FLASH_OUT_REL_MAX = 1e-2
 # bf16 factors are exact in fp32 at K=1, and at K=2 the one rounding of their
 # sum does not depend on the order
 QUANT_NEW_BASE_RTOL = 1e-6
+# sdpa's no-LSE route vs the math path at PixArt's cross-attention shape,
+# relative Frobenius error on the live rows: both round p to bf16 (the route
+# unnormalised, the math path normalised) and the output to bf16, about
+# 3e-3 (the bf16 rounding kernel 1's out shows against the same twin,
+# FLASH_OUT_REL_MAX's note)
+CROSS_REL_MAX = 1e-2
 # compressed vs lossless latents (relative Frobenius error): each codec must
 # change the result (> 0) but stay close to it
 COMPRESSED_REL_ERR_MAX = 0.05
@@ -197,12 +207,11 @@ def _time_ms(fn, iters):
 
 #: {(wrapper, its count of the launches of one route): the route's key in a
 #: phase's launch counts, beside every wrapper's own}: kernel 1's on the wide
-#: body (the VAE's d=512), and kernels 2, 3 and 6 on their vector plans
+#: body (the VAE's d=512), and kernels 2, 3, 5 and 6 on their vector plans
 #: (``ops/quant.py::quant_plan``)
 ROUTES = {("flash_attn_with_lse", "wide_launches"): "flash_attn_with_lse (wide body)",
-          ("binary_quant_fastpath", "vec_launches"): "binary_quant_fastpath (vector plan)",
-          ("binary_dequant_fastpath", "vec_launches"): "binary_dequant_fastpath (vector plan)",
-          ("int2_dequant_fastpath", "vec_launches"): "int2_dequant_fastpath (vector plan)"}
+          **{(f"{codec}_{side}_fastpath", "vec_launches"): f"{codec}_{side}_fastpath (vector plan)"
+             for codec in ("binary", "int2") for side in ("quant", "dequant")}}
 WIDE = ROUTES["flash_attn_with_lse", "wide_launches"]
 #: {kernel: the key of its launches on the vector plan}
 VEC = {name: key for (name, attr), key in ROUTES.items() if attr == "vec_launches"}
@@ -229,9 +238,9 @@ def _counts(kernels):
 def _with_routes(expect):
     """``expect`` ({kernel: count}) with the routes' counts the path
     implies: one wide-body launch (one decoded image), and every launch of
-    binary quant and of both dequants on the vector plan (the engine's
-    chunks and the ring's received views start 16-byte aligned, and C/8 =
-    144 and C/4 = 288 are multiples of 4)."""
+    both quants and both dequants on the vector plan (the engine's chunks
+    and the ring's received views start 16-byte aligned, and C/8 = 144 and
+    C/4 = 288 are multiples of 4)."""
     return {WIDE: 1, **{key: expect.get(name, 0) for name, key in VEC.items()}, **expect}
 
 
@@ -429,46 +438,62 @@ def _plan_name(plan):
 def check_across_plans(quant, codec, name, x, base, u, v, packed, new_base, x_hat):
     """At a shape where both plans can run: every sender plan into every
     receiver plan rebuilds quant's new base bit for bit.  The scalar plans
-    run through the wrappers' internal launches with plan 1 forced (binary
-    quant's scalar kernel into both dequant plans; each dequant's scalar
-    kernel on the bytes the wrapper's quant sent); then one case on a base
-    view 4 bytes into its storage, where no 16-byte access can start: the
-    wrapper must take the scalar plan, and the C entry must refuse the
-    vector plan there.  Returns the pairings checked."""
+    run through the wrappers' internal launches with plan 1 forced (quant's
+    scalar kernel into both dequant plans; the dequant's scalar kernel on
+    the bytes the wrapper's quant sent); then the misaligned views, where no
+    16-byte access can start: quant on an x view and dequant on a base view
+    4 bytes into their storage must take the scalar plan (and give the same
+    bits), and the C entries must refuse the vector plan there.  Returns the
+    pairings checked."""
     import torch
 
     per_byte = 8 if codec == "binary" else 4
-    entry = f"cf_{codec}_dequant"
-    dq = getattr(quant, f"{codec}_dequant_fastpath")
-    pairs = {"quant -> dequant scalar": (quant._dequant_launch(entry, packed, base, u, v, per_byte, 1), new_base),
-             "quant -> dequant vector": (x_hat, new_base)}
-    if codec == "binary":
-        packed_s, new_base_s = quant._quant_launch("cf_binary_quant", x, base, u, v, 8, 1)
-        if not (torch.equal(packed_s, packed) and torch.equal(new_base_s, new_base)):
-            raise AssertionError(f"{name}: binary quant's scalar plan differs from its vector plan")
-        pairs["quant scalar -> dequant vector"] = (dq(packed_s, base, u, v), new_base_s)
-        pairs["quant scalar -> dequant scalar"] = (
-            quant._dequant_launch(entry, packed_s, base, u, v, 8, 1), new_base_s)
-    n, c = base.shape
-    off = torch.empty(n * c + 1, dtype=base.dtype, device=base.device)[1:].view(n, c)
-    off.copy_(base)
-    plan_off = quant.quant_plan(per_byte, off, v, packed=packed)
+    q, dq = getattr(quant, f"{codec}_quant_fastpath"), getattr(quant, f"{codec}_dequant_fastpath")
+    q_entry, dq_entry = f"cf_{codec}_quant", f"cf_{codec}_dequant"
+    packed_s, new_base_s = quant._quant_launch(q_entry, x, base, u, v, per_byte, 1)
+    if not (torch.equal(packed_s, packed) and torch.equal(new_base_s, new_base)):
+        raise AssertionError(f"{name}: quant's scalar plan differs from its vector plan")
+    pairs = {"quant vector -> dequant scalar": (quant._dequant_launch(dq_entry, packed, base, u, v, per_byte, 1),
+                                                new_base),
+             "quant vector -> dequant vector": (x_hat, new_base),
+             "quant scalar -> dequant vector": (dq(packed_s, base, u, v), new_base_s),
+             "quant scalar -> dequant scalar": (
+                 quant._dequant_launch(dq_entry, packed_s, base, u, v, per_byte, 1), new_base_s)}
+
+    def off4(t):  # a copy of t that starts 4 bytes into its storage
+        n, c = t.shape
+        view = torch.empty(n * c + 4 // t.element_size(), dtype=t.dtype, device=t.device)
+        view = view[4 // t.element_size():].view(n, c)
+        return view.copy_(t)
+
+    x_off, base_off = off4(x), off4(base)
+    before = q.vec_launches
+    packed_off, new_base_off = q(x_off, base, u, v)
+    if quant.quant_plan(per_byte, base, v, x=x_off) != 1 or q.vec_launches != before:
+        raise AssertionError(f"{name}: quant took the vector plan on an x view 4 bytes into its storage")
     before = dq.vec_launches
-    pairs["quant -> dequant on a base view 4 bytes in"] = (dq(packed, off, u, v), new_base)
-    if plan_off != 1 or dq.vec_launches != before:
+    pairs["quant vector -> dequant on a base view 4 bytes in"] = (dq(packed, base_off, u, v), new_base)
+    if quant.quant_plan(per_byte, base_off, v, packed=packed) != 1 or dq.vec_launches != before:
         raise AssertionError(f"{name}: dequant took the vector plan on a base view 4 bytes into its storage")
-    try:
-        quant._dequant_launch(entry, packed, off, u, v, per_byte, quant.QUANT_VEC_BYTES)
-    except RuntimeError:
-        pass
-    else:
-        raise AssertionError(f"{name}: {entry} ran the vector plan on a misaligned base view")
+    pairs["quant on an x view 4 bytes in -> dequant vector"] = (dq(packed_off, base, u, v), new_base_off)
+    if not (torch.equal(packed_off, packed) and torch.equal(new_base_off, new_base)):
+        raise AssertionError(f"{name}: quant on an x view 4 bytes into its storage gave other bits")
+    for what, launch in (
+            (q_entry, lambda: quant._quant_launch(q_entry, x_off, base, u, v, per_byte, quant.QUANT_VEC_BYTES)),
+            (dq_entry, lambda: quant._dequant_launch(dq_entry, packed, base_off, u, v, per_byte,
+                                                     quant.QUANT_VEC_BYTES))):
+        try:
+            launch()
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError(f"{name}: {what} ran the vector plan on a misaligned view")
     torch.cuda.synchronize()
     for what, (got, want) in pairs.items():
         if not torch.equal(got, want):
             raise AssertionError(f"{name}: {what}: not bit-identical to quant's new base")
-    print(f"[2] {name}: across plans, bit for bit: {'; '.join(pairs)}; the C entry refuses the vector "
-          f"plan on the misaligned view")
+    print(f"[2] {name}: across plans, bit for bit: {'; '.join(pairs)}; both C entries refuse the vector "
+          f"plan on the misaligned views")
     return list(pairs)
 
 
@@ -476,10 +501,10 @@ def check_quant(quant, codecs, timing, dev, gen, codec, rank, base_dtype, shape=
     """One quant/dequant kernel pair vs its twins at ``shape`` on
     :func:`quant_case`'s inputs; each kernel timed eager (200 calls on one
     input set) and by CUDA graphs on enough input sets to fill 4x the L2
-    (``graph_ms``).  Where the dequant takes the vector plan, also
+    (``graph_ms``).  Where both take the vector plan, also
     :func:`check_across_plans`.  Returns a report, with the plans (packed
-    bytes per thread: ``ops/quant.py::quant_plan``) of binary quant and of
-    the dequant."""
+    bytes per thread: ``ops/quant.py::quant_plan``) of the quant and of the
+    dequant."""
     import torch
 
     x, base, u, v = quant_case(codecs, dev, gen, codec, rank, base_dtype, shape)
@@ -501,9 +526,10 @@ def check_quant(quant, codecs, timing, dev, gen, codec, rank, base_dtype, shape=
         raise AssertionError(f"{name} quant kernel: new_base off the twin by {rel:.3e} relative")
     if not torch.equal(x_hat, new_base):
         raise AssertionError(f"{name}: dequant output is not bit-identical to quant's new_base")
+    quant_plan = quant.quant_plan(per_byte, base, v, x=x)
     dequant_plan = quant.quant_plan(per_byte, base, v, packed=packed)
     across = (check_across_plans(quant, codec, name, x, base, u, v, packed, new_base, x_hat)
-              if dequant_plan > 1 else [])
+              if quant_plan > 1 and dequant_plan > 1 else [])
     # fp32 elementwise work per value: delta, the rank-K scale, the level
     # decision and the base update (quant); the scale and the update (dequant)
     quant_bytes = _nbytes(x, base, u, v, packed, new_base)
@@ -528,13 +554,10 @@ def check_quant(quant, codecs, timing, dev, gen, codec, rank, base_dtype, shape=
            "quant_plain_ms": _time_ms(lambda: q_ref(x, base, u, v), 200),
            "dequant_ms": _time_ms(lambda: dq(packed, base, u, v), 200), "dequant_graph_ms": dequant_graph,
            "dequant_plain_ms": _time_ms(lambda: dq_ref(packed, base, u, v), 200),
-           "dequant_plan_bytes_per_thread": dequant_plan, "across_plans": across}
-    plan = ""
-    if codec == "binary":
-        row["quant_plan_bytes_per_thread"] = quant.quant_plan(8, base, v, x=x)
-        plan = f" on the {_plan_name(row['quant_plan_bytes_per_thread'])}"
+           "quant_plan_bytes_per_thread": quant_plan, "dequant_plan_bytes_per_thread": dequant_plan,
+           "across_plans": across}
     print(f"[2] {name}: packed bytes equal, new_base rel err {rel:.3e} (tol {QUANT_NEW_BASE_RTOL}), "
-          f"dequant == new_base bit for bit; quant{plan} {row['quant_ms']:.4f} ms eager, "
+          f"dequant == new_base bit for bit; quant on the {_plan_name(quant_plan)} {row['quant_ms']:.4f} ms eager, "
           f"{quant_graph:.5f} ms by CUDA graphs on {n_sets} input sets (twin {row['quant_plain_ms']:.4f}, "
           f"bound {quant_bound[0]:.5f}), dequant on the {_plan_name(dequant_plan)} {row['dequant_ms']:.4f} "
           f"ms eager, {dequant_graph:.5f} ms by graphs (twin {row['dequant_plain_ms']:.4f}, bound "
@@ -561,6 +584,73 @@ def _rel(a, b):
     """Largest elementwise |a - b| / |b| (0 where both are 0)."""
     a, b = a.float(), b.float()
     return ((a - b).abs() / b.abs().clamp_min(1e-30)).max().item()
+
+
+def cross_inputs(gen, dev, b=2, sq=1024, sk=120):
+    """PixArt's cross-attention operands: q (B, Sq, 16, 72) bf16 heads of
+    the query projection, k and v column slices of the text's (B, Sk, 2 x
+    1152) key-value projection."""
+    import torch
+
+    dim = 1152
+    q = torch.randn((b, sq, dim), generator=gen, device=dev).to(torch.bfloat16)
+    kv = torch.randn((b, sk, 2 * dim), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = kv.split(dim, dim=-1)
+    return q.view(b, sq, 16, 72), k.view(b, sk, 16, 72), v.view(b, sk, 16, 72)
+
+
+def check_cross_attention(attention, timing, dev, gen):
+    """``sdpa``'s no-LSE route (``ops/attention.py::_attn_nolse``, plain
+    torch: no kernel of the port) at PixArt's cross-attention shape, with
+    ``kv_lens`` (120, 120) and (120, 0): the call must take the route (bit
+    for bit the direct call), agree with the math path (``_attn_math``) on
+    the live rows to :data:`CROSS_REL_MAX` and give exactly 0 on the dead
+    ones.  Timed eager and by CUDA graphs on inputs from DRAM against the
+    math path and one ``scaled_dot_product_attention`` call with the key
+    padding as a bool mask (the yardstick; the port never calls it).
+    Returns a report."""
+    import torch
+
+    rows = []
+    for lens in ((120, 120), (120, 0)):
+        q, k, v = cross_inputs(gen, dev)
+        kl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out = attention.sdpa(q, k, v, kv_lens=kl)
+        torch.cuda.synchronize()
+        nolse = attention._attn_nolse(q, k, v, None, kl)
+        ref = attention._attn_math(q, k, v, None, False, None, kl)[0]
+        live, dead = kl > 0, kl == 0
+        rel = rel_fro(out[live], ref[live])
+        dead_max = out[dead].abs().max().item() if bool(dead.any()) else 0.0
+        if not torch.equal(out, nolse):
+            raise AssertionError(f"sdpa at kv_lens {lens} did not take the no-LSE route")
+        if not (rel <= CROSS_REL_MAX and dead_max == 0.0 and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"sdpa's no-LSE route at kv_lens {lens}: rel err {rel:.3e} on live rows, "
+                                 f"{dead_max} on dead rows")
+        b, sq, h, d = q.shape
+        sk = k.shape[1]
+        mask = (torch.arange(sk, device=dev) < kl[:, None])[:, None, None, :]
+        nbytes = _nbytes(q, k, v, out, kl)
+        sets = [(q, k, v)] + [cross_inputs(gen, dev) for _ in range(timing.copies(nbytes) - 1)]
+        lib, backend = _library(q, k, v, mask)
+        bound_ms, bound_by = _bound(nbytes, 4 * b * h * sq * sk * d, PEAK_BF16_FLOPS)
+        rows.append({
+            "shape": f"B{b} Sq{sq} H{h} Sk{sk} d{d} kv_lens {lens}", "rel_err_live": rel, "dead_max": dead_max,
+            "ms": _time_ms(lambda: attention.sdpa(q, k, v, kv_lens=kl), 50),
+            "graph_ms": graph_ms(timing, [lambda t=t: attention.sdpa(*t, kv_lens=kl) for t in sets]),
+            "math_ms": _time_ms(lambda: attention._attn_math(q, k, v, None, False, None, kl), 50),
+            "math_graph_ms": graph_ms(timing, [lambda t=t: attention._attn_math(*t, None, False, None, kl)
+                                               for t in sets]),
+            "library_ms": _time_ms(lib, 50), "library_backend": backend,
+            "bound_ms": bound_ms, "bound_by": bound_by})
+        del sets
+    r = rows[0]
+    print(f"[2] sdpa cross-attention route {r['shape']}: rel err vs the math path {r['rel_err_live']:.3e} on "
+          f"live rows (tol {CROSS_REL_MAX}), kv_lens (120, 0) rel {rows[1]['rel_err_live']:.3e} and dead rows "
+          f"0; route {r['graph_ms']:.4f} ms by CUDA graphs, {r['ms']:.4f} eager; math path "
+          f"{r['math_graph_ms']:.4f} / {r['math_ms']:.4f}; SDPA with a key-padding mask ({r['library_backend']}) "
+          f"{r['library_ms']:.4f} eager; bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return rows
 
 
 def ring_cases(gen, dev):
@@ -1221,7 +1311,7 @@ def main():
     from compactfusion_tpu_torch.cache.accel import CacheAccelConfig
     from compactfusion_tpu_torch.cache.fast_attn import optimize_plan
     from compactfusion_tpu_torch.compact import codecs
-    from compactfusion_tpu_torch.ops import _build, flash, quant, ring_flash
+    from compactfusion_tpu_torch.ops import _build, attention, flash, quant, ring_flash
     from compactfusion_tpu_torch.ops import probes as ops_probes
     from compactfusion_tpu_torch.parallel.mesh import spawn_local
     from compactfusion_tpu_torch.pipelines.pixart import PixArtPipeline, PixArtPipelineConfig
@@ -1259,12 +1349,14 @@ def main():
     vec_scalar = [quant.QUANT_VEC_BYTES, quant.QUANT_VEC_BYTES, 1]  # C1152, C1152, C1160
     for what, plans in (("binary quant", [r["quant_plan_bytes_per_thread"] for r in quant_rows["binary"]]),
                         ("binary dequant", [r["dequant_plan_bytes_per_thread"] for r in quant_rows["binary"]]),
+                        ("int2 quant", [r["quant_plan_bytes_per_thread"] for r in quant_rows["int2"]]),
                         ("int2 dequant", [r["dequant_plan_bytes_per_thread"] for r in quant_rows["int2"]])):
         if plans != vec_scalar:
             raise AssertionError(f"{what} took the plans {plans}: the vector kernel at C=1152, the "
                                  f"scalar one at C=1160 expected")
     floor_ms = launch_floor_ms(ops_probes, timing, dev)
     print(f"[2] empty kernel: {floor_ms:.5f} ms per launch by CUDA graphs (the floor under graph_ms)")
+    cross_rows = check_cross_attention(attention, timing, dev, gen)
 
     # -- 3. full-width pipeline, compression off -----------------------------
     mcfg, vcfg, params, vae_params = build_models(dev)
@@ -1510,7 +1602,7 @@ def main():
                     launches_in_probes=phases["probes"]["launches_of_pipeline_kernels"]["flash_attn_with_lse"]),
         dict(quant_entry(quant_rows, totals, "binary", "quant", 118), launch_floor_ms=floor_ms),
         dict(quant_entry(quant_rows, totals, "binary", "dequant", 159), launch_floor_ms=floor_ms),
-        quant_entry(quant_rows, totals, "int2", "quant", 238),
+        dict(quant_entry(quant_rows, totals, "int2", "quant", 238), launch_floor_ms=floor_ms),
         dict(quant_entry(quant_rows, totals, "int2", "dequant", 273), launch_floor_ms=floor_ms),
         flash_entry("flash_attn_window_with_lse", "compactfusion_tpu/ops/flash_pallas.py:508", window_rows,
                     ms_vs_full_kernel=window_vs_full),
@@ -1534,7 +1626,7 @@ def main():
                       for r in part_rows]},
         {"name": "plumb", "route": "cuda", "source": "compactfusion_tpu_torch/csrc/probes.cu",
          "replaces": "_prof2_dbg.py:75", "launches": totals["plumb"], "library_ms": None, **plumb_row},
-    ], "phases": phases}
+    ], "sdpa_cross_attention": cross_rows, "phases": phases}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

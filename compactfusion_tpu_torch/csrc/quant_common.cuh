@@ -66,17 +66,17 @@ __device__ inline void store4(__nv_bfloat16* __restrict__ p, const float (&o)[4]
 
 constexpr int kThreads = 256;
 
-// The vector kernels (binary quant, binary and INT2 dequant): packed bytes
-// per thread, which ops/quant.py::QUANT_VEC_BYTES repeats, and threads per
+// The vector kernels (binary and INT2 quant and dequant): packed bytes per
+// thread, which ops/quant.py::QUANT_VEC_BYTES repeats, and threads per
 // CTA.  Thread (n, j) takes packed bytes j..j+kVecBytes-1 of row n, so each
 // of its channel groups is kVecBytes consecutive channels: one 16-byte
 // access of fp32 (8 of bf16).
 constexpr int kVecBytes = 4;
 constexpr int kVecThreads = 64;
 
-// The vector dequants' loads: plain (coherent) ld.global in inline PTX,
-// with a memory clobber, which the compiler keeps in program order ahead
-// of every later store.  Through C++ loads, with or without __restrict__,
+// The loads of the vector dequants and of INT2 quant's vector kernel: plain
+// (coherent) ld.global in inline PTX, with a memory clobber, which the
+// compiler keeps in program order ahead of every later store.  Through C++ loads, with or without __restrict__,
 // ptxas placed each group's loads next to their use, after the previous
 // group's store: 8 of a binary thread's 18 loads ahead of its first store
 // (32 registers), so each thread waited on several DRAM round trips.
@@ -110,9 +110,9 @@ __device__ inline void load4_in_order(const __nv_bfloat16* p, float (&o)[4]) {
   o[3] = hi.y;
 }
 
-// The scales of one vector dequant thread: sc[i][e] = sum_k u[n, k] * v[k,
-// i*G + j + e], each summed from 0.f with k ascending as scale_at sums it
-// (so quant and either dequant plan see the same bits).  KT > 0 is K known
+// The scales of one vector quant or dequant thread: sc[i][e] = sum_k u[n,
+// k] * v[k, i*G + j + e], each summed from 0.f with k ascending as scale_at
+// sums it (so every plan of either side sees the same bits).  KT > 0 is K known
 // at compile time: every u and v load is issued before the first product,
 // one round trip; KT == 0 walks a runtime K.
 template <int GROUPS, int KT>

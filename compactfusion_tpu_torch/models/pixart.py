@@ -242,6 +242,8 @@ def pixart_forward(
 
 def _cross_attn(q, k, v, mask, kv_lens=None):
     """Cross-attention to the text: ``kv_lens`` (B,) covers the contiguous
-    text padding masks; an arbitrary (B, 1, 1, Sk) bool ``mask`` takes the
-    math path of ``sdpa``, which returns 0 for a fully masked row."""
+    text padding masks and takes ``sdpa``'s no-LSE route (``ops/attention.py::
+    _attn_nolse``, as the JAX ``sdpa`` takes ``_xla_attn_nolse``); an
+    arbitrary (B, 1, 1, Sk) bool ``mask`` takes its math path.  Both return 0
+    for a fully masked row."""
     return sdpa(q, k, v, mask=None if kv_lens is not None else mask, kv_lens=kv_lens)

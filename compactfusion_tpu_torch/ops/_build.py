@@ -141,7 +141,7 @@ def _declare(lib: ctypes.CDLL) -> None:
             P, P, P, P, P, P,  # x, base, u, v, packed, new_base
             I, I, I,           # N, C, K
             I, I,              # x is bf16, base is bf16
-            *([I] if codec == "binary" else []),  # plan: packed bytes per thread (ops/quant.py)
+            I,                 # plan: packed bytes per thread (ops/quant.py)
             P,                 # stream
         ]
         quant.restype = I

@@ -71,9 +71,9 @@ QUANT_VEC_BYTES = 4
 
 
 def quant_plan(per_byte: int, base, v, *, x=None, packed=None) -> int:
-    """The plan of a launch of binary quant (``per_byte`` 8, with ``x``),
-    binary dequant (8, with ``packed``) or INT2 dequant (4, with
-    ``packed``), in packed bytes per thread.
+    """The plan of a launch of quant (with ``x``) or dequant (with
+    ``packed``), binary (``per_byte`` 8) or INT2 (4), in packed bytes per
+    thread.
 
     :data:`QUANT_VEC_BYTES` is the vector kernel: thread (n, j) takes
     packed bytes j..j+3 of row n, so each of its ``per_byte`` channel
@@ -187,8 +187,11 @@ def int2_quant_fastpath(x, base, u, v) -> Tuple[torch.Tensor, torch.Tensor]:
     in base.dtype)."""
     if not x.is_cuda:
         return int2_quant_fastpath_ref(x, base, u, v)
-    out = _quant_launch("cf_int2_quant", x, base, u, v, 4)
+    plan = quant_plan(4, base, v, x=x)
+    out = _quant_launch("cf_int2_quant", x, base, u, v, 4, plan)
     int2_quant_fastpath.launches += 1
+    if plan > 1:
+        int2_quant_fastpath.vec_launches += 1
     return out
 
 
@@ -205,11 +208,12 @@ def int2_dequant_fastpath(packed, base, u, v) -> torch.Tensor:
 
 
 #: kernel launches since the counts were last set to 0 (those on the vector
-#: plan also apart, where a kernel has one)
+#: plan also apart)
 binary_quant_fastpath.launches = 0
 binary_quant_fastpath.vec_launches = 0
 binary_dequant_fastpath.launches = 0
 binary_dequant_fastpath.vec_launches = 0
 int2_quant_fastpath.launches = 0
+int2_quant_fastpath.vec_launches = 0
 int2_dequant_fastpath.launches = 0
 int2_dequant_fastpath.vec_launches = 0

@@ -10,10 +10,10 @@ The variants:
 * ``no_self_attn``, ``no_cross``, ``no_ffn``, ``no_modulation`` — one part
   of the block left out;
 * ``cross_lse`` (the JAX ``cross_xla``) — cross-attention through
-  ``attn_with_lse``, the math path with its LSE.  The port's ``sdpa`` is
-  that path without the LSE (it has no counterpart of the JAX package's
-  bound-based ``_xla_attn_nolse``), so this variant measures the same work
-  as ``full``;
+  ``attn_with_lse``, the math path with its LSE, where ``full`` takes
+  ``sdpa``'s no-LSE route (``ops/attention.py::_attn_nolse``, the
+  counterpart of the JAX package's ``_xla_attn_nolse``): ``full`` against
+  ``cross_lse`` is the new route against the old one;
 * ``self_transpose`` — in place of attention, the (B, S, H, D) ->
   (B, H, S, D) -> back round trip, made contiguous both ways;
 * ``self_plumb`` — in place of attention, ``ops.probes.plumb``: q, k and v

@@ -226,26 +226,30 @@ BEFORE = {"flash_fwd_kernel<4, 64>": (64, "a"), "flash_fwd_kernel<2, 32>": (40, 
           "binary_quant_kernel<float, float>": (32, "k"), "binary_dequant_kernel<float>": (30, "l"),
           "int2_quant_kernel<float, float>": (32, "m"), "int2_dequant_kernel<float>": (30, "n"),
           "flash_fwd_wide_kernel<512, 8>": (210, "o"), "binary_quant_vec_kernel<float, float>": (64, "t"),
+          "binary_dequant_vec_kernel<float, 1>": (56, "v"), "int2_dequant_vec_kernel<float, 1>": (40, "w"),
           "empty_kernel": (8, "u")}
 
 
 def test_compare_tool_passes_when_only_redesigned_kernels_differ():
-    """The vector dequant kernels (kernels 3 and 6) may come; every other
-    kernel (every flash body, the EF pass, the probes, both binary quant
-    kernels, INT2 quant and the scalar dequants) must stay as it was."""
+    """Kernel 5's vector kernel may come and its scalar one (whose launcher
+    took the plan) may change; every other kernel (every flash body, the EF
+    pass, the probes, both binary quant kernels and all four dequant
+    kernels) must stay as it was."""
     tool = _compare_tool()
-    after = dict(BEFORE, **{"binary_dequant_vec_kernel<float, 1>": (40, "x"),
-                            "int2_dequant_vec_kernel<float, 1>": (32, "y")})
+    after = dict(BEFORE, **{"int2_quant_vec_kernel<float, float, 1>": (48, "x"),
+                            "int2_quant_kernel<float, float>": (33, "m2")})
     ok, report = tool.verdict(_build(after), _build(BEFORE))
     assert ok and report["unmatched"] == []
     kernels = report["kernels"]
     for label in ("flash_fwd_reg_kernel<80, 8>", "flash_window_reg_kernel<80, 8>", "flash_fwd_kernel<4, 64>",
                   "flash_fwd_wide_kernel<512, 8>", "ef_codes_int8_kernel", "dma_only_kernel",
                   "binary_quant_kernel<float, float>", "binary_quant_vec_kernel<float, float>",
-                  "binary_dequant_kernel<float>", "int2_dequant_kernel<float>", "empty_kernel"):
+                  "binary_dequant_kernel<float>", "int2_dequant_kernel<float>", "binary_dequant_vec_kernel<float, 1>",
+                  "int2_dequant_vec_kernel<float, 1>", "empty_kernel"):
         assert kernels[label]["must_be_unchanged"] and kernels[label]["sass_equal"], label
-    for label in ("binary_dequant_vec_kernel<float, 1>", "int2_dequant_vec_kernel<float, 1>"):
-        assert not kernels[label]["must_be_unchanged"] and kernels[label]["other"] is None
+    assert not kernels["int2_quant_vec_kernel<float, float, 1>"]["must_be_unchanged"]
+    assert kernels["int2_quant_vec_kernel<float, float, 1>"]["other"] is None
+    assert not kernels["int2_quant_kernel<float, float>"]["must_be_unchanged"]
 
 
 @pytest.mark.parametrize("label,change", [
@@ -257,6 +261,7 @@ def test_compare_tool_passes_when_only_redesigned_kernels_differ():
     ("dma_only_kernel", (40, "j2")),
     ("int2_dequant_kernel<float>", None),
     ("binary_quant_vec_kernel<float, float>", (64, "t2")),
+    ("int2_dequant_vec_kernel<float, 1>", (40, "w2")),
     ("flash_fwd_wide_kernel<512, 8>", (212, "o")),
     ("flash_fwd_kernel<4, 64>", None),
 ])

@@ -10,8 +10,9 @@ text tokens; ``_plumb``'s Pallas call runs in interpret mode.  JAX
 
 Tolerances: fp32 on both sides within the 2e-4 relative bound of
 tests/io/test_backbone_parity.py (the frameworks differ in fp32 summation
-order, and the JAX package's ``sdpa`` takes its bound-based no-LSE path
-where the port takes the max-shifted one).  The bf16 forward, the probe's
+order, and the no-LSE routes of both ``sdpa``s shift the exponent by
+different amounts: JAX by a Cauchy-Schwarz bound, the port by the row
+max).  The bf16 forward, the probe's
 own dtype, within 2e-2: XLA may keep a fused chain of bf16 elementwise ops
 in fp32 where torch rounds after each op, and two blocks compound it.
 """

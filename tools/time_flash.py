@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Check and time kernels 1, 2, 3, 4, 6, 7 and 8 of a checkout at the path's shapes.
+"""Check and time kernels 1 to 8 of a checkout at the path's shapes.
 
     python3 tools/time_flash.py [--root OTHER_ROOT] [--sweep] [--quant] [--out FILE]
 
@@ -22,19 +22,19 @@ Kernel 1 is also checked, untimed, where the tree has the wide body
 (``ops/flash.py::WIDE_BUILT``), at the wide head dims off the path
 (:data:`WIDE_CASES`: every built padded head dim of the wide body, ragged
 ``kv_lens``, a batch with no key, whose rows must give LSE -inf as the
-twin's do).  Kernel 2 (binary quant) at :data:`QUANT_CASES`, phase 2's K=1
-and K=2 cases (``quant_case``) first, with a few deltas of 0 planted:
-packed bytes against the twin's, the new base (``QUANT_NEW_BASE_RTOL``),
-binary dequant of the bytes bit-equal to the new base, the plan where the
-tree has one (:func:`plan_of`), eager ``ms`` (200 calls on one input set)
-and ``graph_ms``.  Kernels 3 and 6 (binary and INT2 dequant) at
-:data:`DEQUANT_CASES` (kernel 2's cases, then INT2 on fp32 and bf16 bases
-at C1152 and C1160, and at K2): the output bit-equal to quant's new base and to the
-twin's, the plan (null on a tree without a dequant plan), eager ``ms`` and
-``graph_ms`` on input sets each quantized by the tree's own quant kernel.
-Where the tree has the empty kernel (``ops/probes.py::empty``), its time by
-the same CUDA graphs, the floor of a launch.  ``--quant`` times only
-kernels 2, 3 and 6 and the empty kernel.  With ``--sweep`` (a tree with ``ops/flash.py::flash_plan``), a
+twin's do).  Kernels 2 and 5 (binary and INT2 quant) at
+:data:`QUANT_CASES` (binary: phase 2's K=1 and K=2 cases, ``quant_case``,
+first; INT2 on fp32 and bf16 bases at C1152 and C1160, and at K2), with a
+few deltas of 0 planted: packed bytes against the twin's, the new base
+(``QUANT_NEW_BASE_RTOL``), dequant of the bytes bit-equal to the new base,
+the plan where the tree's wrapper has one (:func:`plan_of`), eager ``ms``
+(200 calls on one input set) and ``graph_ms``.  Kernels 3 and 6 (binary
+and INT2 dequant) at the same cases: the output bit-equal to quant's new
+base and to the twin's, the plan, eager ``ms`` and ``graph_ms`` on input
+sets each quantized by the tree's own quant kernel.  Where the tree has
+the empty kernel (``ops/probes.py::empty``), its time by the same CUDA
+graphs, the floor of a launch.  ``--quant`` times only kernels 2, 3, 5 and
+6 and the empty kernel.  With ``--sweep`` (a tree with ``ops/flash.py::flash_plan``), a
 shape whose plan takes the register body is also timed at every tile
 height built for its padded head dim (``graph_ms_by_warps``), with
 ``flash_plan`` swapped for one that keeps the body and padded head dim but
@@ -163,37 +163,33 @@ def wide_row(smoke, flash, dev, gen, case):
             "max_abs_err_lse": err_lse}
 
 
-#: ((N, C), scale rank, x dtype, base dtype) of kernel 2's cases: phase 2's
-#: K1 and K2 first, then bf16 operands, the scalar plan at C1160, a short
-#: row at C64 and K4 (the vector kernels' runtime-K form)
-QUANT_CASES = [((256, 1152), -1, "float32", "float32"), ((256, 1152), 2, "float32", "float32"),
-               ((256, 1160), -1, "float32", "float32"), ((256, 1152), -1, "bfloat16", "float32"),
-               ((256, 1152), 2, "float32", "bfloat16"), ((256, 1152), -1, "bfloat16", "bfloat16"),
-               ((100, 64), 2, "float32", "float32"), ((256, 1160), 2, "bfloat16", "bfloat16"),
-               ((256, 1152), 4, "float32", "float32")]
+#: (codec, (N, C), scale rank, x dtype, base dtype) of the quant pairs:
+#: binary (kernels 2 and 3) at phase 2's K1 and K2 first, then bf16
+#: operands, the scalar plan at C1160, a short row at C64 and K4 (the
+#: vector kernels' runtime-K form); INT2 (kernels 5 and 6) at the path's K1
+#: (the mean scale) on fp32 and bf16 bases at both plans, then K2 (the
+#: runtime-K form)
+QUANT_CASES = ([("binary", *case) for case in (
+    ((256, 1152), -1, "float32", "float32"), ((256, 1152), 2, "float32", "float32"),
+    ((256, 1160), -1, "float32", "float32"), ((256, 1152), -1, "bfloat16", "float32"),
+    ((256, 1152), 2, "float32", "bfloat16"), ((256, 1152), -1, "bfloat16", "bfloat16"),
+    ((100, 64), 2, "float32", "float32"), ((256, 1160), 2, "bfloat16", "bfloat16"),
+    ((256, 1152), 4, "float32", "float32"))]
+    + [("int2", (256, c), -1, dt, dt) for c in (1152, 1160) for dt in ("float32", "bfloat16")]
+    + [("int2", (256, 1152), 2, "float32", "float32")])
+KERNEL = {("binary", "quant"): "kernel 2 binary", ("binary", "dequant"): "kernel 3 binary",
+          ("int2", "quant"): "kernel 5 INT2", ("int2", "dequant"): "kernel 6 INT2"}
 
 
-def plan_of(quant, per_byte, base, v, **operands):
+def plan_of(quant, wrapper, per_byte, base, v, **operands):
     """The tree's plan of a quant or dequant launch in packed bytes per
-    thread: ``ops/quant.py::quant_plan``; on an older tree kernel 2's
-    ``binary_quant_plan`` (quant only), else None."""
-    if hasattr(quant, "quant_plan"):
-        return quant.quant_plan(per_byte, base, v, **operands)
-    if hasattr(quant, "binary_quant_plan") and "x" in operands:
-        return quant.binary_quant_plan(operands["x"], base, v)
-    return None
-
-
-#: (codec, (N, C), scale rank, x dtype, base dtype) of kernels 3 and 6: the
-#: path's INT2 (the mean scale, K1) on fp32 and bf16 bases at both plans,
-#: then K2 (the runtime-K form)
-DEQUANT_CASES = ([("binary", *case) for case in QUANT_CASES]
-                 + [("int2", (256, c), -1, dt, dt) for c in (1152, 1160) for dt in ("float32", "bfloat16")]
-                 + [("int2", (256, 1152), 2, "float32", "float32")])
+    thread (``ops/quant.py::quant_plan``), or None where the tree's
+    ``wrapper`` has no vector plan (no ``vec_launches``)."""
+    return quant.quant_plan(per_byte, base, v, **operands) if hasattr(wrapper, "vec_launches") else None
 
 
 def dequant_row(smoke, timing, quant, codecs, dev, gen, case):
-    """Kernel 3 or 6 at one of :data:`DEQUANT_CASES`: its output against
+    """Kernel 3 or 6 at one of :data:`QUANT_CASES`: its output against
     quant's new base and the twin's (bit for bit), the plan, eager ms and
     ``graph_ms``, the bound."""
     import torch
@@ -216,10 +212,9 @@ def dequant_row(smoke, timing, quant, codecs, dev, gen, case):
     sets = [first] + [make()[0] for _ in range(timing.copies(nbytes) - 1)]
     n, c = base.shape
     bound_ms, bound_by = smoke._bound(nbytes, (3 + 2 * u.shape[1]) * n * c, smoke.PEAK_FP32_FLOPS)
-    kernel = {"binary": "kernel 3 binary", "int2": "kernel 6 INT2"}[codec]
-    name = (f"{kernel} dequant N{n} C{c} K{u.shape[1]} base {str(bdt).replace('torch.', '')}"
+    name = (f"{KERNEL[codec, 'dequant']} dequant N{n} C{c} K{u.shape[1]} base {str(bdt).replace('torch.', '')}"
             + (f" (quant x {str(xdt).replace('torch.', '')})" if xdt != bdt else ""))
-    r = {"shape": name, "plan_bytes_per_thread": plan_of(quant, 8 if codec == "binary" else 4, base, v,
+    r = {"shape": name, "plan_bytes_per_thread": plan_of(quant, dq, 8 if codec == "binary" else 4, base, v,
                                                          packed=packed),
          "equal_new_base": torch.equal(out, new_base), "equal_twin": torch.equal(out, twin),
          "ms": smoke._time_ms(lambda: dq(*first), 200),
@@ -234,37 +229,38 @@ def dequant_row(smoke, timing, quant, codecs, dev, gen, case):
 
 
 def quant_row(smoke, timing, quant, codecs, dev, gen, case):
-    """Kernel 2 at one of :data:`QUANT_CASES`: packed bytes and new base
-    against the twin, dequant of the bytes against the new base, the plan,
-    eager ms and ``graph_ms``, the bound."""
+    """Kernel 2 or 5 at one of :data:`QUANT_CASES`: packed bytes and new
+    base against the twin, dequant of the bytes against the new base, the
+    plan, eager ms and ``graph_ms``, the bound."""
     import torch
 
-    shape, rank, xdt, bdt = case
+    codec, shape, rank, xdt, bdt = case
     xdt, bdt = getattr(torch, xdt), getattr(torch, bdt)
+    q, dq = getattr(quant, f"{codec}_quant_fastpath"), getattr(quant, f"{codec}_dequant_fastpath")
 
     def make():
-        x, base, u, v = smoke.quant_case(codecs, dev, gen, "binary", rank, bdt, shape)
+        x, base, u, v = smoke.quant_case(codecs, dev, gen, codec, rank, bdt, shape)
         x = x.to(xdt)
-        x[0, :8] = base[0, :8].to(xdt)  # delta == 0 packs as +1
+        x[0, :8] = base[0, :8].to(xdt)  # delta == 0 counts as positive
         return x, base, u, v
 
     x, base, u, v = first = make()
-    packed, new_base = quant.binary_quant_fastpath(*first)
-    x_hat = quant.binary_dequant_fastpath(packed, base, u, v)
+    packed, new_base = q(*first)
+    x_hat = dq(packed, base, u, v)
     torch.cuda.synchronize()
-    ref_packed, ref_base = quant.binary_quant_fastpath_ref(*first)
+    ref_packed, ref_base = getattr(quant, f"{codec}_quant_fastpath_ref")(*first)
     rel = smoke._rel(new_base, ref_base)
     nbytes = smoke._nbytes(x, base, u, v, packed, new_base)
     sets = [first] + [make() for _ in range(timing.copies(nbytes) - 1)]
     n, c = x.shape
     bound_ms, bound_by = smoke._bound(nbytes, (4 + 2 * u.shape[1]) * n * c, smoke.PEAK_FP32_FLOPS)
-    name = (f"kernel 2 binary quant N{n} C{c} K{u.shape[1]} x {str(xdt).replace('torch.', '')} "
+    name = (f"{KERNEL[codec, 'quant']} quant N{n} C{c} K{u.shape[1]} x {str(xdt).replace('torch.', '')} "
             f"base {str(bdt).replace('torch.', '')}")
-    plan = plan_of(quant, 8, base, v, x=x)
+    plan = plan_of(quant, q, 8 if codec == "binary" else 4, base, v, x=x)
     r = {"shape": name, "plan_bytes_per_thread": plan, "packed_equal": torch.equal(packed, ref_packed),
          "new_base_rel_err": rel, "dequant_equal": torch.equal(x_hat, new_base),
-         "ms": smoke._time_ms(lambda: quant.binary_quant_fastpath(*first), 200),
-         "graph_ms": smoke.graph_ms(timing, [lambda t=t: quant.binary_quant_fastpath(*t) for t in sets]),
+         "ms": smoke._time_ms(lambda: q(*first), 200),
+         "graph_ms": smoke.graph_ms(timing, [lambda t=t: q(*t) for t in sets]),
          "bound_ms": bound_ms, "bound_by": bound_by}
     print(f"{name}: plan {plan} packed bytes per thread; packed bytes equal {r['packed_equal']}, new_base "
           f"rel err {rel:.3e}, dequant == new_base {r['dequant_equal']}; eager {r['ms']:.5f} ms, graphs "
@@ -280,7 +276,7 @@ def main(argv=None):
     ap.add_argument("--sweep", action="store_true",
                     help="also time every built tile height of the register body's plans")
     ap.add_argument("--quant", action="store_true",
-                    help="time only the quant kernels (2, 3 and 6) and the empty kernel")
+                    help="time only the quant kernels (2, 3, 5 and 6) and the empty kernel")
     ap.add_argument("--out", type=Path, help="also write the JSON here")
     args = ap.parse_args(argv)
     smoke = _smoke()
@@ -315,7 +311,7 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = [] if args.quant else flash_rows(smoke, timing, flash, ring_flash, dev, gen, sweep, sets_of)
     rows += [quant_row(smoke, timing, quant, codecs, dev, gen, case) for case in QUANT_CASES]
-    rows += [dequant_row(smoke, timing, quant, codecs, dev, gen, case) for case in DEQUANT_CASES]
+    rows += [dequant_row(smoke, timing, quant, codecs, dev, gen, case) for case in QUANT_CASES]
     if hasattr(ops_probes, "empty"):
         floor = smoke.launch_floor_ms(ops_probes, timing, dev)
         rows.append({"shape": "empty kernel", "graph_ms": floor})
