@@ -85,18 +85,42 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
     forward by CUDA-graph replay and eager), with the block-level
     breakdown.
 
-Phases 4-15 hold their latents against request 1's lossless latents and
+17. Kernels 1, 2, 3, 7 and 8 against their twins at FLUX.1-dev's shapes:
+    kernel 1 over the 512 text + 4096 image tokens at 24 heads of 128 (the
+    register body at DP 128: 8 warps, 864 CTAs), at the two hops of the
+    unfused ring 2 (the text in front of hop 0's K/V) and the fused ring's
+    text block, and on the wide body at the VAE's 128 x 128 tokens; the
+    1-bit pair at N2048 C3072 (the vector plans); kernels 7 and 8 (and 8's
+    EF pass) at the ring-2 hop, q holding the text rows in front of the
+    2048 local image rows.
+18. FLUX.1-dev at full width and depth (19 double + 38 single blocks, dim
+    3072, bf16, 11.9B parameters), 28 flow-match steps at guidance 3.5,
+    1024 x 1024, random weights with spiced modulation biases, T5 states
+    (1, 512, 4096) and a pooled vector (1, 768) from each request's seed:
+    3 requests (kernel 1 exactly 57 x 28 + 1 times, once on the wide body;
+    s/image and ``torch.cuda.max_memory_allocated``), then FBCache at
+    threshold 0 (the lossless latents, no skip) and 1e6 (26 skipped steps,
+    57 x 2 + 26 + 1 kernel 1 launches).
+19. FLUX.1-dev with its depth cut to 2 double + 4 single blocks (full
+    width) as a ring of 2 processes on this GPU: lossless and BINARY
+    (residual 1 + EF, warmup 4, the consistency check on), unfused and
+    fused, each against one process running the same cut model lossless,
+    the fused runs against the unfused ones; EF caches equal across ranks,
+    the binary runs' wire bytes those of their payloads.
+
+Phases 4-15 and 18-19 hold their latents against a lossless request and
 their kernel launch counts against the counts the path implies (kernel 1's
 wide-body launches among them, one per decoded image, and those of
 kernels 2, 3, 5 and 6 on their vector plans, all of their launches); every
-count is set to 0 just before each of phases 3-11, 13-15 and 16's probes
-(and the calibration), in every process, and read just after.  A probe
+count is set to 0 just before each of phases 3-11, 13-15, 16's probes
+(and the calibration) and 18-19, in every process, and read just after.  A probe
 counts a launch when it captures a CUDA graph, so phase 16 reports the
 launches the device ran (the captured count times the replays).  The
-``launches`` of the pipeline's kernels are those of phases 3-15: what
+``launches`` of the pipeline's kernels are those of phases 3-15 and 18-19: what
 kernel 1 ran inside the probes is reported beside them, under phase 16's
 ``launches_of_pipeline_kernels``.  The s/image of phases 13-15 is that of
-processes sharing one card, not a ring speed.
+processes sharing one card, not a ring speed (so are phase 19's).
+PixArt's models leave the card before phase 17.
 Then one JSON line with each kernel's launches on the main path, error and
 times, and a last line ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the package beside it, the script exits non-zero and
@@ -118,13 +142,14 @@ FLASH_OUT_ATOL = 2e-2
 # both sides take the LSE in fp32 from fp32 scores of the same bf16 inputs;
 # only the summation order and exp2/log2 against exp/log differ
 FLASH_LSE_ATOL = 1e-3
-# kernel 1 vs twin, relative Frobenius error of out: its outputs are
-# averages over 1024-4096 keys, RMS 0.03-0.05, so FLASH_OUT_ATOL alone would
-# pass a P.V wrong in one head-dim slice (the VAE's d=512 at B1 H1 S4096
-# has an RMS of about 0.026); bf16 rounding of P and of the output gives
-# about 2e-3 (the stage probe's full mask on an H100, PROBE_REL_MAX's
-# note), and tests/test_torch_wide_flash.py shows faults of one slice of
-# the wide body above this limit at the VAE's shape
+# kernels 1, 7 and 8 vs their twins, relative Frobenius error of out: their
+# outputs are averages over 1024-16384 keys, RMS 0.01-0.05, so FLASH_OUT_ATOL
+# alone would pass a P.V wrong in one head-dim slice or off by 5-10% (the
+# VAE's d=512 at B1 H1 S4096 has an RMS of about 0.026, FLUX's ring-2 hop
+# over 2x2048 keys at d=128 about 0.026 too); bf16 rounding of P and of the
+# output gives about 2e-3 (the stage probe's full mask on an H100,
+# PROBE_REL_MAX's note), and tests/test_torch_wide_flash.py shows faults of
+# one slice of the wide body above this limit at the VAE's shape
 FLASH_OUT_REL_MAX = 1e-2
 # quant new_base vs twin: the same fp32 arithmetic; the scale products of
 # bf16 factors are exact in fp32 at K=1, and at K=2 the one rounding of their
@@ -174,6 +199,18 @@ PEAK_FP32_FLOPS = 67e12
 
 STEPS = 20
 DEPTH = 28
+# FLUX.1-dev (phases 17-19): 28 flow-match steps at guidance 3.5, 1024 x 1024,
+# 512 T5 tokens; 24 heads of 128; a 128 x 128 latent, 4096 image tokens
+FLUX_STEPS = 28
+FLUX_GUIDANCE = 3.5
+FLUX_SIZE = 1024
+FLUX_TXT = 512
+FLUX_HEADS, FLUX_HEAD_DIM = 24, 128
+FLUX_IMG = (FLUX_SIZE // 16) ** 2
+# phase 19's depth: 2 double + 4 single blocks, FLUX's 1 : 2 ratio, at full width
+FLUX_CUT = (2, 4)
+# image tokens of one rank of a ring of 2
+FLUX_RING_LOCAL = FLUX_IMG // 2
 WINDOW = 64
 RING = 8
 WARMUP = 4
@@ -277,13 +314,14 @@ def graph_ms(timing, calls):
     return timing.per_call_ms(timing.rotate(calls), 20, 120)[0]
 
 
-def _qkv_views(gen, dev, b, s):
-    """PixArt's q/k/v: (B, S, 16, 72) bf16 column slices of one qkv tensor."""
+def _qkv_views(gen, dev, b, s, h=16, d=72):
+    """q/k/v as a block's qkv linear gives them: (B, S, H, D) bf16 column
+    slices of one qkv tensor (PixArt's 16 heads of 72 by default)."""
     import torch
 
-    dim = 1152
+    dim = h * d
     qkv = torch.randn((b, s, 3 * dim), generator=gen, device=dev).to(torch.bfloat16)
-    return tuple(t.view(b, s, 16, 72) for t in qkv.split(dim, dim=-1))
+    return tuple(t.view(b, s, h, d) for t in qkv.split(dim, dim=-1))
 
 
 def flash_cases(gen, dev):
@@ -311,14 +349,16 @@ def _ctas(plan, b, h, sq):
     return b * h * -(-sq // plan_rows(plan))
 
 
-def check_flash(flash, timing, dev, gen):
-    """Flash kernel vs twin at the three path shapes; returns a report.
-    Each shape is timed eager on one input set (``ms``) and by CUDA graphs
-    on inputs from DRAM (``graph_ms``)."""
+def check_flash(flash, timing, dev, gen, cases=None, phase=2):
+    """Flash kernel vs twin at ``cases`` (default: PixArt's three path
+    shapes, :func:`flash_cases`); returns a report.  Each shape is timed
+    eager on one input set (``ms``) and by CUDA graphs on inputs from DRAM
+    (``graph_ms``).  A head dim up to 128 must take the register body, one
+    in (128, 512] the wide body."""
     import torch
 
     rows = []
-    for name, make, iters in flash_cases(gen, dev):
+    for name, make, iters in cases or flash_cases(gen, dev):
         qq, kk, vv = make()
         out, lse = flash.flash_attn_with_lse(qq, kk, vv)
         torch.cuda.synchronize()
@@ -343,7 +383,7 @@ def check_flash(flash, timing, dev, gen):
                      "plan": list(plan), "ctas": _ctas(plan, b, h, sq), "ms": ms, "graph_ms": g_ms,
                      "plain_ms": plain_ms, "library_ms": library_ms, "library_backend": backend,
                      "bound_ms": bound_ms, "bound_by": bound_by})
-        print(f"[2] flash {name}: out err {err_out:.3e} (tol {FLASH_OUT_ATOL}), rel {rel_out:.3e} "
+        print(f"[{phase}] flash {name}: out err {err_out:.3e} (tol {FLASH_OUT_ATOL}), rel {rel_out:.3e} "
               f"(tol {FLASH_OUT_REL_MAX}), lse err {err_lse:.3e} (tol {FLASH_LSE_ATOL}); plan {plan}, "
               f"{rows[-1]['ctas']} CTAs; kernel "
               f"{ms:.4f} ms eager, {g_ms:.4f} ms by CUDA graphs on {n_sets} input sets; "
@@ -353,6 +393,8 @@ def check_flash(flash, timing, dev, gen):
             raise AssertionError(f"flash kernel disagrees with its twin at {name}")
         if 128 < d <= 512 and plan[0] != "flash_wide_tile":
             raise AssertionError(f"flash at {name}: plan {plan} is not the wide body")
+        if d <= 128 and plan[0] != "flash_reg_tile":
+            raise AssertionError(f"flash at {name}: plan {plan} is not the register body")
     return rows
 
 
@@ -435,7 +477,7 @@ def _plan_name(plan):
     return f"{'vector' if plan > 1 else 'scalar'} plan ({plan} packed bytes per thread)"
 
 
-def check_across_plans(quant, codec, name, x, base, u, v, packed, new_base, x_hat):
+def check_across_plans(quant, codec, name, x, base, u, v, packed, new_base, x_hat, phase=2):
     """At a shape where both plans can run: every sender plan into every
     receiver plan rebuilds quant's new base bit for bit.  The scalar plans
     run through the wrappers' internal launches with plan 1 forced (quant's
@@ -492,12 +534,12 @@ def check_across_plans(quant, codec, name, x, base, u, v, packed, new_base, x_ha
     for what, (got, want) in pairs.items():
         if not torch.equal(got, want):
             raise AssertionError(f"{name}: {what}: not bit-identical to quant's new base")
-    print(f"[2] {name}: across plans, bit for bit: {'; '.join(pairs)}; both C entries refuse the vector "
+    print(f"[{phase}] {name}: across plans, bit for bit: {'; '.join(pairs)}; both C entries refuse the vector "
           f"plan on the misaligned views")
     return list(pairs)
 
 
-def check_quant(quant, codecs, timing, dev, gen, codec, rank, base_dtype, shape=CHUNK):
+def check_quant(quant, codecs, timing, dev, gen, codec, rank, base_dtype, shape=CHUNK, phase=2):
     """One quant/dequant kernel pair vs its twins at ``shape`` on
     :func:`quant_case`'s inputs; each kernel timed eager (200 calls on one
     input set) and by CUDA graphs on enough input sets to fill 4x the L2
@@ -528,7 +570,7 @@ def check_quant(quant, codecs, timing, dev, gen, codec, rank, base_dtype, shape=
         raise AssertionError(f"{name}: dequant output is not bit-identical to quant's new_base")
     quant_plan = quant.quant_plan(per_byte, base, v, x=x)
     dequant_plan = quant.quant_plan(per_byte, base, v, packed=packed)
-    across = (check_across_plans(quant, codec, name, x, base, u, v, packed, new_base, x_hat)
+    across = (check_across_plans(quant, codec, name, x, base, u, v, packed, new_base, x_hat, phase)
               if quant_plan > 1 and dequant_plan > 1 else [])
     # fp32 elementwise work per value: delta, the rank-K scale, the level
     # decision and the base update (quant); the scale and the update (dequant)
@@ -556,7 +598,7 @@ def check_quant(quant, codecs, timing, dev, gen, codec, rank, base_dtype, shape=
            "dequant_plain_ms": _time_ms(lambda: dq_ref(packed, base, u, v), 200),
            "quant_plan_bytes_per_thread": quant_plan, "dequant_plan_bytes_per_thread": dequant_plan,
            "across_plans": across}
-    print(f"[2] {name}: packed bytes equal, new_base rel err {rel:.3e} (tol {QUANT_NEW_BASE_RTOL}), "
+    print(f"[{phase}] {name}: packed bytes equal, new_base rel err {rel:.3e} (tol {QUANT_NEW_BASE_RTOL}), "
           f"dequant == new_base bit for bit; quant on the {_plan_name(quant_plan)} {row['quant_ms']:.4f} ms eager, "
           f"{quant_graph:.5f} ms by CUDA graphs on {n_sets} input sets (twin {row['quant_plain_ms']:.4f}, "
           f"bound {quant_bound[0]:.5f}), dequant on the {_plan_name(dequant_plan)} {row['dequant_ms']:.4f} "
@@ -668,22 +710,25 @@ def ring_cases(gen, dev):
             for ring, b, s in ((2, 2, 512), (2, 1, 512), (RING, 2, 1024 // RING))]
 
 
-def check_ring_flash(rf, flash, timing, dev, gen):
+def check_ring_flash(rf, flash, timing, dev, gen, cases=None, phase=12):
     """Kernel 7 (one launch per hop) vs its twin, rank 0's view of a ring,
-    timed eager and by CUDA graphs on inputs from DRAM next to one SDPA
-    call on the concatenated K/V.  Returns a report."""
+    at ``cases`` (default PixArt's, :func:`ring_cases`), timed eager and by
+    CUDA graphs on inputs from DRAM next to one SDPA call on the
+    concatenated K/V.  Returns a report."""
     import torch
 
     rows = []
-    for (ring, b, s_local), make in ring_cases(gen, dev):
+    for (ring, b, s_local), make in cases or ring_cases(gen, dev):
         q, blocks = make()
+        _, sq, h, d = q.shape
         out, lse = rf.ring_flash_attn_with_lse(q, iter(blocks), ring)
         torch.cuda.synchronize()
         ref_out, ref_lse = rf.ring_flash_attn_with_lse_ref(q, iter(blocks), ring)
         err_out = (out.float() - ref_out.float()).abs().max().item()
+        rel_out = rel_fro(out, ref_out)
         err_lse = (lse - ref_lse).abs().max().item()
-        name = f"ring {ring} B{b} H16 Sq{s_local} Sk{ring}x{s_local} d72"
-        plan = flash.flash_plan(b, 16, s_local, 72, wide=False)
+        name = f"ring {ring} B{b} H{h} Sq{sq} Sk{ring}x{s_local} d{d}"
+        plan = flash.flash_plan(b, h, sq, d, wide=False)
         ms = _time_ms(lambda: rf.ring_flash_attn_with_lse(q, iter(blocks), ring), 20)
         k_all = torch.cat([k for k, _ in blocks], dim=1)
         v_all = torch.cat([v for _, v in blocks], dim=1)
@@ -696,18 +741,18 @@ def check_ring_flash(rf, flash, timing, dev, gen):
         plain_ms = _time_ms(lambda: rf.ring_flash_attn_with_lse_ref(q, iter(blocks), ring), 20)
         lib, backend = _library(q, k_all, v_all)
         library_ms = _time_ms(lib, 20)
-        bound_ms, bound_by = _bound(nbytes, 4 * b * 16 * s_local * k_all.shape[1] * 72, PEAK_BF16_FLOPS)
-        rows.append({"shape": name, "max_abs_err_out": err_out, "max_abs_err_lse": err_lse,
-                     "plan": list(plan), "ctas": _ctas(plan, b, 16, s_local), "ms": ms,
-                     "graph_ms": g_ms, "plain_ms": plain_ms,
+        bound_ms, bound_by = _bound(nbytes, 4 * b * h * sq * k_all.shape[1] * d, PEAK_BF16_FLOPS)
+        rows.append({"shape": name, "max_abs_err_out": err_out, "rel_err_out": rel_out,
+                     "max_abs_err_lse": err_lse, "plan": list(plan), "ctas": _ctas(plan, b, h, sq),
+                     "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
                      "library_ms": library_ms, "library_backend": backend, "bound_ms": bound_ms,
                      "bound_by": bound_by})
-        print(f"[12] ring flash {name}: out err {err_out:.3e} (tol {FLASH_OUT_ATOL}), lse err "
-              f"{err_lse:.3e} (tol {FLASH_LSE_ATOL}); plan {plan}, {rows[-1]['ctas']} CTAs per hop; "
+        print(f"[{phase}] ring flash {name}: out err {err_out:.3e} (tol {FLASH_OUT_ATOL}), rel "
+              f"{rel_out:.3e} (tol {FLASH_OUT_REL_MAX}), lse err {err_lse:.3e} (tol {FLASH_LSE_ATOL}); plan {plan}, {rows[-1]['ctas']} CTAs per hop; "
               f"kernel {ms:.4f} ms eager ({ring} launches), {g_ms:.4f} ms by CUDA graphs on {n_sets} "
               f"input sets; twin {plain_ms:.4f} ms, SDPA on the gathered K/V ({backend}) "
               f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        if not (err_out <= FLASH_OUT_ATOL and err_lse <= FLASH_LSE_ATOL):
+        if not (err_out <= FLASH_OUT_ATOL and rel_out <= FLASH_OUT_REL_MAX and err_lse <= FLASH_LSE_ATOL):
             raise AssertionError(f"ring flash kernel disagrees with its twin at {name}")
         if ring == RING and rows[-1]["ctas"] < 128:
             raise AssertionError(f"ring flash at ring {RING}: {rows[-1]['ctas']} CTAs per hop, fewer than 128")
@@ -753,13 +798,19 @@ def _same(a, b):
     return torch.equal(a, b)
 
 
-def cring_inputs(rf, gen, dev, ring, b, s_local, codec, rank, quantized):
-    """One phase-12 case of kernel 8: every virtual rank's (q, k, v) shard,
-    the two EF stacks every rank starts from, and every rank's fused payload
-    made from its own K/V and EF slot."""
-    h, d = 16, 72
+def cring_inputs(rf, gen, dev, ring, b, s_local, codec, rank, quantized, h=16, d=72, q_rows=None):
+    """One case of kernel 8: every virtual rank's (q, k, v) shard, the two
+    EF stacks every rank starts from, and every rank's fused payload made
+    from its own K/V and EF slot.  PixArt's 16 heads of 72 by default;
+    ``q_rows``: q has that many rows (FLUX's text rows joined in front of the
+    image's), else s_local, as a column slice beside k and v."""
+    import torch
+
     n, c = b * s_local, h * d
-    shards = [_qkv_views(gen, dev, b, s_local) for _ in range(ring)]
+    shards = [_qkv_views(gen, dev, b, s_local, h, d) for _ in range(ring)]
+    if q_rows is not None:
+        shards = [(torch.randn((b, q_rows, h, d), generator=gen, device=dev).to(torch.bfloat16), k, v)
+                  for _, k, v in shards]
     kb0, vb0 = _stack(gen, dev, ring, n, c, quantized), _stack(gen, dev, ring, n, c, quantized)
     payloads = [rf.fused_ring_payload(shards[r][1], shards[r][2], rf.decode_slot(kb0, r),
                                       rf.decode_slot(vb0, r), codec, rank) for r in range(ring)]
@@ -772,28 +823,33 @@ def arriving(payloads, r):
     return iter([payloads[(r - s) % ring] for s in range(ring)])
 
 
-def cring_name(ring, b, s_local, codec, rank, quantized):
+def cring_name(ring, b, s_local, codec, rank, quantized, h=16, d=72, q_rows=None):
     kname = {"binary": f"binary K{max(rank, 1)}", "int2": "int2", "lowrank": f"low-rank r{rank}"}[codec]
-    return f"ring {ring} B{b} H16 S{s_local} d72 {kname} {'int8' if quantized else 'fp32'} bases"
+    sq = "" if q_rows is None else f" Sq{q_rows}"
+    return f"ring {ring} B{b} H{h}{sq} S{s_local} d{d} {kname} {'int8' if quantized else 'fp32'} bases"
 
 
-def check_compact_ring(rf, flash, timing, dev, gen, ring, b, s_local, codec, rank, quantized):
+def check_compact_ring(rf, flash, timing, dev, gen, ring, b, s_local, codec, rank, quantized, h=16, d=72,
+                       q_rows=None, phase=12):
     """Kernel 8 vs its twin: every virtual rank of a ring of ``ring`` makes
     its fused payload from its own K/V and EF slot, and each runs the kernel
     on its own copy of one stack with the payloads in the order they would
-    arrive; rank 0 also runs the twin.  Checks out, LSE and rank 0's new
-    stack against the twin, every rank's stack against every other's (bit
-    for bit), and that the flash partial runs on at least 128 CTAs; then its
+    arrive; rank 0 also runs the twin.  Checks out (max-abs and relative),
+    LSE and rank 0's new stack against the twin, every rank's stack against
+    every other's (bit for bit), and that the flash partial runs on at least
+    128 CTAs; then its
     EF pass alone (``ef_update_slot`` of rank 0's own payload) against its
     twin: new bases and the bf16 reconstruction.  Rank 0's call and the EF
     pass are timed eager and by CUDA graphs on cloned stacks (each launch
     writes its stacks), enough of them in turn that each call reads from
-    DRAM.  Returns a report."""
+    DRAM.  ``h``, ``d``, ``q_rows``: as :func:`cring_inputs`.  Returns a
+    report."""
     import torch
 
-    h, d = 16, 72
     n, c = b * s_local, h * d
-    shards, kb0, vb0, payloads = cring_inputs(rf, gen, dev, ring, b, s_local, codec, rank, quantized)
+    sq = s_local if q_rows is None else q_rows
+    shards, kb0, vb0, payloads = cring_inputs(rf, gen, dev, ring, b, s_local, codec, rank, quantized, h, d,
+                                              q_rows)
 
     def kernel(r, kb, vb):
         return rf.compact_ring_flash(*shards[r], kb, vb, arriving(payloads, r), codec=codec, my=r,
@@ -806,17 +862,18 @@ def check_compact_ring(rf, flash, timing, dev, gen, ring, b, s_local, codec, ran
     ref_out, ref_lse = rf.compact_ring_flash_ref(*shards[0], kr, vr, arriving(payloads, 0), codec=codec,
                                                  my=0, ring_size=ring)
     err_out = (out.float() - ref_out.float()).abs().max().item()
+    rel_out = rel_fro(out, ref_out)
     err_lse = (lse - ref_lse).abs().max().item()
     base_rel = max(_rel(_decoded(stacks[0][0]), _decoded(kr)), _rel(_decoded(stacks[0][1]), _decoded(vr)))
     consistent = all(_same(stacks[r][i], stacks[0][i]) for r in range(ring) for i in range(2))
-    name = cring_name(ring, b, s_local, codec, rank, quantized)
-    plan = flash.flash_plan(b, h, s_local, d, wide=False)
-    ctas = _ctas(plan, b, h, s_local)
-    ok = (err_out <= FLASH_OUT_ATOL and err_lse <= FLASH_LSE_ATOL and base_rel <= QUANT_NEW_BASE_RTOL
-          and consistent)
+    name = cring_name(ring, b, s_local, codec, rank, quantized, h, d, q_rows)
+    plan = flash.flash_plan(b, h, sq, d, wide=False)
+    ctas = _ctas(plan, b, h, sq)
+    ok = (err_out <= FLASH_OUT_ATOL and rel_out <= FLASH_OUT_REL_MAX and err_lse <= FLASH_LSE_ATOL
+          and base_rel <= QUANT_NEW_BASE_RTOL and consistent)
     if not ok:
-        raise AssertionError(f"compact ring kernel disagrees with its twin at {name}: out {err_out}, "
-                             f"lse {err_lse}, bases {base_rel}, ranks bit-equal {consistent}")
+        raise AssertionError(f"compact ring kernel disagrees with its twin at {name}: out {err_out} "
+                             f"(rel {rel_out}), lse {err_lse}, bases {base_rel}, ranks bit-equal {consistent}")
     if ctas < 128:
         raise AssertionError(f"compact ring at {name}: the flash partial has {ctas} CTAs, fewer than 128")
 
@@ -840,7 +897,7 @@ def check_compact_ring(rf, flash, timing, dev, gen, ring, b, s_local, codec, ran
     # each hop reads and writes its source slot of both stacks
     base_bytes = 2 * 2 * ring * n * c * (1 if quantized else 4)
     bound_ms, bound_by = _bound(_nbytes(q, k, v, out, lse) + payload_bytes + base_bytes,
-                                4 * b * h * s_local * ring * s_local * d, PEAK_BF16_FLOPS)
+                                4 * b * h * sq * ring * s_local * d, PEAK_BF16_FLOPS)
     # the EF pass: one slot of both stacks read and written, the payload
     # read, the bf16 reconstruction written; (4 + 2K) fp32 operations per
     # element (the rank-K scale, the sign or level, the base update)
@@ -862,19 +919,19 @@ def check_compact_ring(rf, flash, timing, dev, gen, ring, b, s_local, codec, ran
     ef_g_ms = graph_ms(timing, [lambda t=t: rf.ef_update_slot(t[0], t[1], 0, codec, payloads[0], shape,
                                                               rec=t[2]) for t in sets])
     del sets
-    row = {"shape": name, "max_abs_err_out": err_out, "max_abs_err_lse": err_lse,
+    row = {"shape": name, "max_abs_err_out": err_out, "rel_err_out": rel_out, "max_abs_err_lse": err_lse,
            "new_base_rel_err": base_rel, "ranks_bit_equal": consistent, "plan": list(plan),
            "ctas": ctas, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by,
            "ef": {"max_abs_err": ef_err, "new_base_rel_err": ef_rel, "rec_bit_equal": rec_equal,
                   "ms": ef_ms, "graph_ms": ef_g_ms, "plain_ms": ef_plain_ms, "bound_ms": ef_bound_ms,
                   "bound_by": ef_bound_by}}
-    print(f"[12] compact ring {name}: out err {err_out:.3e} (tol {FLASH_OUT_ATOL}), lse err "
-          f"{err_lse:.3e} (tol {FLASH_LSE_ATOL}), new bases rel err {base_rel:.3e} (tol "
+    print(f"[{phase}] compact ring {name}: out err {err_out:.3e} (tol {FLASH_OUT_ATOL}), rel "
+          f"{rel_out:.3e} (tol {FLASH_OUT_REL_MAX}), lse err {err_lse:.3e} (tol {FLASH_LSE_ATOL}), new bases rel err {base_rel:.3e} (tol "
           f"{QUANT_NEW_BASE_RTOL}), {ring} ranks' stacks bit-equal: {consistent}; flash plan {plan}, "
           f"{ctas} CTAs per hop; kernel {ms:.4f} ms eager ({ring} hops), {g_ms:.4f} ms by CUDA graphs "
           f"on {n_sets} stack copies; twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    print(f"[12] EF pass {name}: new bases rel err {ef_rel:.3e} (tol {QUANT_NEW_BASE_RTOL}), bf16 "
+    print(f"[{phase}] EF pass {name}: new bases rel err {ef_rel:.3e} (tol {QUANT_NEW_BASE_RTOL}), bf16 "
           f"reconstruction bit-equal to the twin's: {rec_equal}; {ef_ms:.4f} ms eager, {ef_g_ms:.4f} "
           f"ms by CUDA graphs per hop; twin {ef_plain_ms:.4f} ms, bound {ef_bound_ms:.5f} ms "
           f"({ef_bound_by})")
@@ -949,10 +1006,10 @@ def check_probes(ops_probes, flash, stage_probe, timing, dev, gen):
     return rows, plumb_row
 
 
-def check_image(img, what):
+def check_image(img, what, size=512):
     import torch
 
-    if tuple(img.shape) != (1, 512, 512, 3):
+    if tuple(img.shape) != (1, size, size, 3):
         raise AssertionError(f"{what}: image shape {tuple(img.shape)}")
     f = img.float()
     if not bool(torch.isfinite(f).all()):
@@ -1195,43 +1252,253 @@ def ring_compact(compress_type, **kw):
                          warmup_steps=WARMUP, residual=1, error_feedback=True, fastpath=True, **kw)
 
 
-def ring_rank(rank, world, runs):
-    """One rank of phases 13-15 (``spawn_local`` on this GPU, gloo): the
-    full-width models from the same seeds, then per run (name,
-    ParallelConfig kwargs, CompactConfig kwargs or None) request 1 with
-    every launch count set to 0 before it; returns per run the whole
-    latents, the launch counts, the bytes this rank's ring shifts sent, the
-    largest EF cache deviation across the ring and s/image."""
+def ring_rank(rank, world, runs, family="pixart"):
+    """One rank of phases 13-15 and 19 (``spawn_local`` on this GPU, gloo):
+    the full-width models from the same seeds (``family`` "flux": FLUX.1-dev
+    at phase 19's cut depth), then per run (name, ParallelConfig kwargs,
+    CompactConfig kwargs or None) request 1 with every launch count set to
+    0 before it; returns per run the whole latents, the launch counts, the
+    bytes this rank's ring shifts sent, the largest EF cache deviation
+    across the ring and s/image."""
     import torch
 
     from compactfusion_tpu_torch.compact import ring as compact_ring
     from compactfusion_tpu_torch.config import ParallelConfig
     from compactfusion_tpu_torch.parallel.mesh import make_mesh
     from compactfusion_tpu_torch.parallel.ring import ring_shift
-    from compactfusion_tpu_torch.pipelines.pixart import PixArtPipeline, PixArtPipelineConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     kernels = port_kernels()
-    mcfg, vcfg, params, vae_params = build_models(dev)
+    if family == "flux":
+        models, make_request, size = build_flux(dev, *FLUX_CUT), flux_request, FLUX_SIZE
+    else:
+        models, make_request, size = build_models(dev), request, 512
     out = {}
     for name, par, compact in runs:
         parallel = ParallelConfig(**par)
         kw = {} if compact is None else {"compact": ring_compact(**compact)}
-        cfg = PixArtPipelineConfig(model=mcfg, vae=vcfg, num_steps=STEPS, guidance_scale=4.5,
-                                   parallel=parallel, **kw)
-        pipe = PixArtPipeline(params, vae_params, cfg, dev, mesh=make_mesh(parallel))
+        pipe = (flux_pipeline if family == "flux" else pixart_pipeline)(*models, dev, parallel=parallel,
+                                                                         mesh=make_mesh(parallel), **kw)
         _reset_counts(kernels)
         ring_shift.nbytes = 0
         compact_ring.max_consistency_dev = 0.0
-        lat, img, sec = request(pipe, 1)
+        lat, img, sec = make_request(pipe, 1)
         counts = _counts(kernels)
-        check_image(img, f"{name} rank {rank}")
+        check_image(img, f"{name} rank {rank}", size)
         out[name] = {"latents": lat.float().cpu().numpy(), "launches": counts,
                      "wire_bytes": ring_shift.nbytes, "consistency_dev": compact_ring.max_consistency_dev,
                      "s_per_image": sec}
     return out
+
+
+def pixart_pipeline(mcfg, vcfg, params, vae_params, dev, mesh=None, **kw):
+    """The full-width PixArt pipeline of phases 3-15 (20 steps, CFG 4.5)."""
+    from compactfusion_tpu_torch.pipelines.pixart import PixArtPipeline, PixArtPipelineConfig
+
+    return PixArtPipeline(params, vae_params, PixArtPipelineConfig(
+        model=mcfg, vae=vcfg, num_steps=STEPS, guidance_scale=4.5, **kw), dev, mesh=mesh)
+
+
+def _spiced(tree, rng, path=""):
+    """``tree`` with every modulation bias (a path with "mod" ending in
+    "/b", as ``tests/helpers.py::spice_params`` picks them) drawn from
+    N(0, 0.5^2): FLUX's AdaLN-Zero biases start at 0, and a zero gate
+    hides the attention (and the compression error) under bf16 rounding."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _spiced(v, rng, f"{path}/{k}") for k, v in tree.items()}
+    if "mod" in path and path.endswith("/b"):
+        return torch.from_numpy(rng.standard_normal(tuple(tree.shape)) * 0.5).to(tree.device, tree.dtype)
+    return tree
+
+
+def build_flux(dev, double_layers=19, single_layers=38):
+    """FLUX.1-dev at full width (dim 3072, 24 heads of 128) with ``double_layers``
+    and ``single_layers`` blocks (default: the full 19 + 38) and its
+    16-channel VAE, random weights from fixed seeds, modulation biases
+    spiced (:func:`_spiced`)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from compactfusion_tpu_torch.models.flux import flux_dev, init_flux
+    from compactfusion_tpu_torch.models.vae import flux_vae, init_vae_decoder
+
+    mcfg = dataclasses.replace(flux_dev(), double_layers=double_layers, single_layers=single_layers)
+    params = _spiced(init_flux(torch.Generator(device=dev).manual_seed(0), mcfg), np.random.default_rng(99))
+    vcfg = flux_vae()
+    return mcfg, vcfg, params, init_vae_decoder(torch.Generator(device=dev).manual_seed(1), vcfg)
+
+
+def flux_pipeline(mcfg, vcfg, params, vae_params, dev, mesh=None, **kw):
+    """The FLUX.1-dev pipeline of phases 18-19: 28 steps, guidance 3.5, 1024 x 1024."""
+    from compactfusion_tpu_torch.pipelines.flux import FluxPipeline, FluxPipelineConfig
+
+    cfg = FluxPipelineConfig(model=mcfg, vae=vcfg, num_steps=FLUX_STEPS, guidance_scale=FLUX_GUIDANCE,
+                             height=FLUX_SIZE, width=FLUX_SIZE, **kw)
+    return FluxPipeline(params, vae_params, cfg, dev, mesh=mesh)
+
+
+def flux_request(pipe, seed):
+    """One FLUX image: T5 states (1, 512, 4096) and a pooled CLIP vector
+    (1, 768), then the noise, all from ``seed``; returns (latents, image,
+    seconds from CUDA events)."""
+    import torch
+
+    dev, m = pipe.device, pipe.cfg.model
+    g = torch.Generator(device=dev).manual_seed(seed)
+    txt = torch.randn((1, FLUX_TXT, m.text_dim), generator=g, device=dev)
+    pooled = torch.randn((1, m.pooled_dim), generator=g, device=dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    lat = pipe(txt, pooled, generator=g, decode=False)
+    img = pipe.decode(lat)
+    end.record()
+    torch.cuda.synchronize()
+    return lat, img, start.elapsed_time(end) / 1e3
+
+
+def flux_flash_cases(gen, dev):
+    """Kernel 1 at FLUX's shapes: self-attention over the 512 text + 4096
+    image tokens (column slices of one qkv tensor, as the single blocks
+    give them), the two hops of the unfused ring 2 (hop 0 with the text as
+    joint K/V in front, hop 1 on the received block), the fused ring's
+    joint block, and the VAE's mid-block attention over 128 x 128 tokens
+    (the wide body)."""
+    import torch
+
+    h, d, s_q = FLUX_HEADS, FLUX_HEAD_DIM, FLUX_TXT + FLUX_RING_LOCAL
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def qkv(sq, sk):
+        return lambda: (rnd(1, sq, h, d), rnd(1, sk, h, d), rnd(1, sk, h, d))
+
+    s_all = FLUX_TXT + FLUX_IMG
+    return [
+        (f"FLUX self-attn B1 H{h} S{s_all} d{d}", lambda: _qkv_views(gen, dev, 1, s_all, h, d), 10),
+        (f"FLUX ring-2 hop 0 (text joint in front) B1 H{h} Sq{s_q} Sk{s_q} d{d}", qkv(s_q, s_q), 10),
+        (f"FLUX ring-2 hop 1 B1 H{h} Sq{s_q} Sk{FLUX_RING_LOCAL} d{d}", qkv(s_q, FLUX_RING_LOCAL), 10),
+        (f"FLUX fused ring-2 joint block B1 H{h} Sq{s_q} Sk{FLUX_TXT} d{d}", qkv(s_q, FLUX_TXT), 20),
+        ("FLUX VAE mid-attn B1 H1 S16384 d512", lambda: tuple(rnd(1, 16384, 1, 512) for _ in range(3)), 3),
+    ]
+
+
+def flux_ring_cases(gen, dev):
+    """Kernel 7 at FLUX's fused ring 2, rank 0's view: q (the text rows in
+    front of the 2048 local image rows), its own K/V slices at hop 0, the
+    other rank's contiguous block at hop 1."""
+    import torch
+
+    h, d = FLUX_HEADS, FLUX_HEAD_DIM
+
+    def make():
+        q = torch.randn((1, FLUX_TXT + FLUX_RING_LOCAL, h, d), generator=gen, device=dev).to(torch.bfloat16)
+        _, k0, v0 = _qkv_views(gen, dev, 1, FLUX_RING_LOCAL, h, d)
+        _, k1, v1 = _qkv_views(gen, dev, 1, FLUX_RING_LOCAL, h, d)
+        return q, [(k0, v0), (k1.contiguous(), v1.contiguous())]
+
+    return [((2, 1, FLUX_RING_LOCAL), make)]
+
+
+def check_flux_kernels(flash, quant, codecs, rf, timing, dev, gen):
+    """Phase 17: kernels 1, 2, 3, 7 and 8 (and 8's EF pass) against their
+    twins at FLUX's shapes; returns the rows by kernel."""
+    import torch
+
+    flash_rows = check_flash(flash, timing, dev, gen, flux_flash_cases(gen, dev), phase=17)
+    self_attn = flash_rows[0]
+    if (self_attn["plan"], self_attn["ctas"]) != (["flash_reg_tile", FLUX_HEAD_DIM, 8], 864):
+        raise AssertionError(f"FLUX self-attention: plan {self_attn['plan']}, {self_attn['ctas']} CTAs; "
+                             f"the register body at DP 128, 8 warps and 864 CTAs expected")
+    shape = (FLUX_RING_LOCAL, FLUX_HEADS * FLUX_HEAD_DIM)
+    quant_rows = [check_quant(quant, codecs, timing, dev, gen, "binary", -1, torch.float32, shape, phase=17)]
+    if [quant_rows[0]["quant_plan_bytes_per_thread"], quant_rows[0]["dequant_plan_bytes_per_thread"]] != \
+            [quant.QUANT_VEC_BYTES] * 2:
+        raise AssertionError(f"binary quant/dequant at N{shape[0]} C{shape[1]}: not the vector plan")
+    ring_rows = check_ring_flash(rf, flash, timing, dev, gen, flux_ring_cases(gen, dev), phase=17)
+    cring_rows = [check_compact_ring(rf, flash, timing, dev, gen, 2, 1, FLUX_RING_LOCAL, "binary", -1, False,
+                                     FLUX_HEADS, FLUX_HEAD_DIM, FLUX_TXT + FLUX_RING_LOCAL, phase=17)]
+    return {"flash": flash_rows, "quant": quant_rows, "ring": ring_rows, "cring": cring_rows}
+
+
+def _numel(tree):
+    if isinstance(tree, dict):
+        return sum(_numel(t) for t in tree.values())
+    return tree.numel()
+
+
+def _check_counts(what, counts, expect):
+    """Every kernel's (and route's) launches equal ``expect``, else 0."""
+    for name, count in counts.items():
+        if count != expect.get(name, 0):
+            raise AssertionError(f"{what}: {name} launched {count} times, expected {expect.get(name, 0)}")
+
+
+def flux_lossless_phase(kernels, dev):
+    """Phase 18: FLUX.1-dev at full width and depth, 3 requests, then
+    FBCache at thresholds 0 and 1e6 from request 1's seed.  Returns
+    (phases, request 1's latents)."""
+    import torch
+
+    t0 = time.perf_counter()
+    models = build_flux(dev)
+    torch.cuda.synchronize()
+    mcfg = models[0]
+    n_params = _numel(models[2])
+    print(f"[18] FLUX.1-dev: {mcfg.double_layers} double + {mcfg.single_layers} single blocks, dim {mcfg.dim}, "
+          f"{mcfg.heads} heads of {mcfg.head_dim}, {n_params / 1e9:.3f}B parameters in bf16, built in "
+          f"{time.perf_counter() - t0:.1f} s; {FLUX_STEPS} steps, guidance {FLUX_GUIDANCE}, "
+          f"{FLUX_SIZE} x {FLUX_SIZE}, B1")
+    blocks = mcfg.double_layers + mcfg.single_layers
+    pipe = flux_pipeline(*models, dev)
+    torch.cuda.reset_peak_memory_stats()
+    secs, lossless = [], None
+    _reset_counts(kernels)
+    for seed in (1, 2, 3):
+        before = _counts(kernels)
+        lat, img, sec = flux_request(pipe, seed)
+        lo, hi = check_image(img, f"FLUX request seed {seed}", FLUX_SIZE)
+        ran = {k: v - before[k] for k, v in _counts(kernels).items()}
+        _check_counts(f"FLUX request seed {seed}", ran, {"flash_attn_with_lse": blocks * FLUX_STEPS + 1, WIDE: 1})
+        lossless = lat if lossless is None else lossless
+        secs.append(sec)
+        print(f"[18] FLUX request seed {seed}: image (1, {FLUX_SIZE}, {FLUX_SIZE}, 3) in [{lo:.4f}, {hi:.4f}], "
+              f"kernel 1 launches {ran['flash_attn_with_lse']} (wide body {ran[WIDE]}), {sec:.4f} s/image")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[18] FLUX s/image {', '.join(f'{s:.4f}' for s in secs)}; torch.cuda.max_memory_allocated "
+          f"{peak:.3f} GiB")
+    phases = {"flux lossless": {"s_per_image": secs, "max_memory_allocated_gib": peak,
+                                "launches": _counts(kernels)}}
+    from compactfusion_tpu_torch.cache.accel import CacheAccelConfig
+
+    for thr, skips in ((0.0, 0), (1e6, FLUX_STEPS - 2)):
+        name = f"flux fbcache {thr:g}"
+        cached = flux_pipeline(*models, dev, cache=CacheAccelConfig(mode="fbcache", threshold=thr))
+        _reset_counts(kernels)
+        lat, img, sec = flux_request(cached, 1)
+        counts = _counts(kernels)
+        check_image(img, name, FLUX_SIZE)
+        # threshold 0 never skips; 1e6 skips every step but the first (no
+        # probe yet) and the last (always computed); a skipped step runs the
+        # first double block alone
+        want = blocks * (FLUX_STEPS - skips) + skips + 1
+        _check_counts(name, counts, {"flash_attn_with_lse": want, WIDE: 1})
+        rel = rel_fro(lat, lossless)
+        if cached.last_skips != skips or not (rel <= 1e-6 if skips == 0 else 0.0 < rel < float("inf")):
+            raise AssertionError(f"{name}: {cached.last_skips} skipped steps (expected {skips}), latent rel "
+                                 f"err vs lossless {rel}")
+        print(f"[18] {name}: latent rel err vs lossless {rel:.6e}, skipped steps {cached.last_skips}, kernel 1 "
+              f"launches {counts['flash_attn_with_lse']} (expected {want}), {sec:.4f} s/image")
+        phases[name] = {"s_per_image": sec, "latent_rel_err": rel, "skips": cached.last_skips,
+                        "launches": counts}
+    del pipe, models
+    return phases, lossless
 
 
 def _rel_np(a, b):
@@ -1281,6 +1548,71 @@ def ring_phase(phase, results, name, lossless, expect, bound, references=(), low
     return rep
 
 
+def flux_ring_phase(kernels, dev, codecs):
+    """Phase 19: FLUX.1-dev at full width, its depth cut to 2 double + 4
+    single blocks, as a ring of 2 processes on this card (gloo): lossless
+    and BINARY (residual 1 + EF, warmup 4, the consistency check on), each
+    unfused and fused, every run against one process running the same cut
+    model lossless, the fused runs against the unfused ones, with exact
+    launch counts on every rank.  Returns the phases."""
+    import torch
+
+    from compactfusion_tpu_torch.parallel.mesh import spawn_local
+
+    n_double, n_single = FLUX_CUT
+    layers = n_double + n_single
+    models = build_flux(dev, n_double, n_single)
+    _reset_counts(kernels)
+    lat, img, sec = flux_request(flux_pipeline(*models, dev), 1)
+    check_image(img, "FLUX cut, one process", FLUX_SIZE)
+    _check_counts("FLUX cut, one process", _counts(kernels),
+                  {"flash_attn_with_lse": layers * FLUX_STEPS + 1, WIDE: 1})
+    del models
+    torch.cuda.empty_cache()
+    one = lat.float().cpu().numpy()
+    print(f"[19] FLUX.1-dev with its depth cut to {n_double} double + {n_single} single blocks (FLUX's 1 : 2 "
+          f"ratio; full width, {FLUX_STEPS} steps, {FLUX_SIZE} x {FLUX_SIZE}): one process, lossless, "
+          f"{sec:.4f} s/image")
+    ring2, fused2 = {"ring_degree": 2}, {"ring_degree": 2, "use_fused_ring": True}
+    binary = {"compress_type": "binary", "comp_rank": -1, "check_consistency": True}
+    names = ("flux ring2 lossless", "flux ring2 lossless fused", "flux ring2 binary", "flux ring2 binary fused")
+    two = spawn_local(ring_rank, 2, "gloo", list(zip(names, (ring2, fused2, ring2, fused2),
+                                                     (None, None, binary, binary))), "flux", threads=2)
+    # ring 2: two hops per attention; the unfused ring launches kernel 1 per
+    # hop (the text joins hop 0's K/V), the fused one kernel 7 per hop and
+    # kernel 1 once for the text block; the fused compressed ring runs its
+    # warmup steps unfused, then kernel 8 and its EF pass per hop; each rank
+    # decodes its image (one wide-body launch)
+    hops, comp = 2 * layers, FLUX_STEPS - WARMUP
+    expect = [{"flash_attn_with_lse": hops * FLUX_STEPS + 1},
+              {"flash_attn_with_lse": layers * FLUX_STEPS + 1, "ring_flash_attn_with_lse": hops * FLUX_STEPS},
+              {"flash_attn_with_lse": hops * FLUX_STEPS + 1, "binary_quant_fastpath": hops * comp,
+               "binary_dequant_fastpath": hops * comp},
+              {"flash_attn_with_lse": hops * WARMUP + layers * comp + 1, "compact_ring_flash": hops * comp,
+               "ef_update_slot": hops * comp}]
+    phases = {}
+    for i, name in enumerate(names):
+        fused = name.endswith("fused")
+        refs = [(names[i - 1], two[0][names[i - 1]]["latents"], RING_REL_MAX)] if fused else []
+        if "binary" in name:
+            phases[name] = ring_phase(19, two, name, one, expect[i], COMPRESSED_REL_ERR_MAX, refs, low=0.0)
+            if phases[name]["consistency_dev"] != 0.0:
+                raise AssertionError(f"{name}: EF caches differ across ranks")
+        else:
+            phases[name] = ring_phase(19, two, name, one, expect[i], RING_REL_MAX, refs)
+    # wire bytes: the raw fp32 K/V in warmup, then the payloads; the same on both routes
+    n, c = FLUX_RING_LOCAL, FLUX_HEADS * FLUX_HEAD_DIM
+    payload = codecs.payload_nbytes(codecs.encode(torch.ones(n, c), codecs.CompressType.BINARY))
+    want_bytes = layers * (WARMUP * 2 * n * c * 4 + comp * 2 * payload)
+    got_bytes = [phases[k]["wire_bytes_per_rank"] for k in names[2:]]
+    print(f"[19] EF caches across the ring: largest deviation "
+          f"{max(phases[k]['consistency_dev'] for k in names[2:])}; ring-shift bytes per rank of the binary "
+          f"runs {got_bytes}, expected {want_bytes} (payload_nbytes {payload} per K or V)")
+    if got_bytes != [want_bytes, want_bytes]:
+        raise AssertionError("phase 19: the binary rings sent other bytes than their payloads")
+    return phases
+
+
 def quant_entry(quant_rows, totals, codec, which, line):
     """The kernels line's entry of one quant kernel: its first shape's
     numbers at the top, every shape in ``shapes``, and for a kernel with a
@@ -1305,6 +1637,7 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels run only on a GPU")
+    t_run = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
@@ -1314,7 +1647,6 @@ def main():
     from compactfusion_tpu_torch.ops import _build, attention, flash, quant, ring_flash
     from compactfusion_tpu_torch.ops import probes as ops_probes
     from compactfusion_tpu_torch.parallel.mesh import spawn_local
-    from compactfusion_tpu_torch.pipelines.pixart import PixArtPipeline, PixArtPipelineConfig
     from compactfusion_tpu_torch.probes import block_parts, flash_parts, timing
 
     # float32 matmuls and convolutions in full fp32 (cuDNN defaults to TF32)
@@ -1364,8 +1696,7 @@ def main():
     def pipeline(compact=None, **kw):
         if compact is not None:
             kw["compact"] = compact
-        return PixArtPipeline(params, vae_params, PixArtPipelineConfig(
-            model=mcfg, vae=vcfg, num_steps=STEPS, guidance_scale=4.5, **kw), dev)
+        return pixart_pipeline(mcfg, vcfg, params, vae_params, dev, **kw)
 
     pipe = pipeline()
     _reset_counts(kernels)
@@ -1575,6 +1906,20 @@ def main():
                         "block_rows": plain(block_rows),
                         "block_breakdown": [{"part": p, "ms": c, "share": s} for p, c, s in breakdown]}
 
+    # -- 17.-19. FLUX.1-dev ----------------------------------------------------
+    # PixArt's models leave the card first
+    del pipe, params, vae_params
+    torch.cuda.empty_cache()
+    flux_rows = check_flux_kernels(flash, quant, codecs, ring_flash, timing, dev, gen)
+    flux_phases, _ = flux_lossless_phase(kernels, dev)
+    phases.update(flux_phases)
+    torch.cuda.empty_cache()
+    phases.update(flux_ring_phase(kernels, dev, codecs))
+    flash_rows += flux_rows["flash"]
+    quant_rows["binary"] += flux_rows["quant"]
+    ring_rows += flux_rows["ring"]
+    cring_rows += flux_rows["cring"]
+
     totals = {fn.__name__: sum(p["launches"][fn.__name__] for p in phases.values()) for fn in kernels}
     for key in ROUTES.values():
         totals[key] = sum(p["launches"].get(key, 0) for p in phases.values())
@@ -1627,6 +1972,7 @@ def main():
         {"name": "plumb", "route": "cuda", "source": "compactfusion_tpu_torch/csrc/probes.cu",
          "replaces": "_prof2_dbg.py:75", "launches": totals["plumb"], "library_ms": None, **plumb_row},
     ], "sdpa_cross_attention": cross_rows, "phases": phases}
+    print(f"[done] phases 1-19 passed in {time.perf_counter() - t_run:.1f} s, the kernels' build included")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -9,8 +9,9 @@ return the input dtype, as in the JAX package.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -35,6 +36,10 @@ def init_linear(generator, d_in: int, d_out: int, bias: bool = True,
     if bias:
         p["b"] = torch.zeros((*stack, d_out), dtype=dtype, device=generator.device)
     return p
+
+
+def init_rmsnorm(dim: int, dtype=torch.bfloat16, device=None, stack=()):
+    return {"g": torch.ones((*stack, dim), dtype=dtype, device=device)}
 
 
 def init_timestep_embedder(generator, dim: int, hidden: int, dtype=torch.bfloat16):
@@ -78,6 +83,15 @@ def layernorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm over the last axis in fp32, cast back to x.dtype."""
+    x32 = x.float()
+    y = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    if p and "g" in p:
+        y = y * p["g"].float()
+    return y.to(x.dtype)
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """tanh-approximate GELU (``jax.nn.gelu(approximate=True)``)."""
     return F.gelu(x, approximate="tanh")
@@ -112,6 +126,18 @@ def timestep_embedder(p, t: torch.Tensor, dim: int) -> torch.Tensor:
     return linear(p["fc2"], silu(linear(p["fc1"], emb)))
 
 
+def mlp_embedder(p, x: torch.Tensor) -> torch.Tensor:
+    """MLP on a raw conditioning vector (FLUX's pooled CLIP embedding)."""
+    return linear(p["fc2"], silu(linear(p["fc1"], x)))
+
+
+def patch_positions_2d(h_patches: int, w_patches: int, device=None) -> torch.Tensor:
+    """(H*W, 2) int64 row/col indices in raster order."""
+    rows = torch.arange(h_patches, device=device).repeat_interleave(w_patches)
+    cols = torch.arange(w_patches, device=device).repeat(h_patches)
+    return torch.stack([rows, cols], dim=-1)
+
+
 def _sincos_embed_1d(x: torch.Tensor, d: int) -> torch.Tensor:
     omega = torch.arange(d // 2, dtype=torch.float32) / (d / 2.0)
     omega = 1.0 / (10000.0**omega)
@@ -133,6 +159,99 @@ def sincos_pos_embed_2d(dim: int, h_patches: int, w_patches: int,
         cols = cols / (w_patches / base_size) / interpolation_scale
     half = dim // 2
     return torch.cat([_sincos_embed_1d(cols, half), _sincos_embed_1d(rows, half)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (FLUX style, axis-split rotary)
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(positions: torch.Tensor, axes_dim: Tuple[int, ...],
+                     theta: float = 10000.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multi-axis RoPE tables: ``positions`` (S, n_axes) integer coordinates
+    per token (FLUX: [t, h, w]), ``axes_dim`` the head-dim split per axis
+    (FLUX: (16, 56, 56)) -> (cos, sin), each (S, head_dim/2) fp32 on the
+    positions' device."""
+    cos_parts, sin_parts = [], []
+    for i, d in enumerate(axes_dim):
+        pos = positions[:, i].float()
+        freqs = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32, device=pos.device) / d))
+        angles = pos[:, None] * freqs[None, :]
+        cos_parts.append(torch.cos(angles))
+        sin_parts.append(torch.sin(angles))
+    return torch.cat(cos_parts, dim=-1), torch.cat(sin_parts, dim=-1)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate (B, S, H, D) by per-token (S, D/2) tables, interleaved pairs
+    (2i, 2i+1), in fp32; returns x.dtype."""
+    xr = x.float().reshape(*x.shape[:-1], -1, 2)
+    x0, x1 = xr[..., 0], xr[..., 1]
+    c, s = cos[None, :, None, :], sin[None, :, None, :]
+    return torch.stack([x0 * c - x1 * s, x0 * s + x1 * c], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def rope_half_tables(cos: torch.Tensor, sin: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(S, D/2) tables -> the (S, D) form :func:`apply_rope_half` takes."""
+    return torch.cat([cos, cos], dim=-1), torch.cat([sin, sin], dim=-1)
+
+
+def apply_rope_half(x: torch.Tensor, cos_f: torch.Tensor, sin_f: torch.Tensor) -> torch.Tensor:
+    """Rotate-half rope on (B, S, H, D): dim pairs (i, i + D/2), in fp32;
+    returns x.dtype.  Scores equal :func:`apply_rope`'s once the Wq/Wk
+    columns and qk-norm gains are permuted per head by
+    :func:`rope_half_perm` (the FLUX converters do)."""
+    x32 = x.float()
+    d2 = x.shape[-1] // 2
+    rot = torch.cat([-x32[..., d2:], x32[..., :d2]], dim=-1)
+    return (x32 * cos_f[None, :, None, :] + rot * sin_f[None, :, None, :]).to(x.dtype)
+
+
+def rope_half_perm(dh: int) -> np.ndarray:
+    """Head-dim permutation from the interleaved-pair rope layout to the
+    rotate-half one: new[j] = old[2j], new[D/2 + j] = old[2j + 1]."""
+    return np.concatenate([np.arange(0, dh, 2), np.arange(1, dh, 2)])
+
+
+# ---------------------------------------------------------------------------
+# stacked layers
+# ---------------------------------------------------------------------------
+
+
+def layer_of(tree, l):
+    """Layer ``l`` (an index, or a slice of layers) of a tree (dicts, tuples,
+    NamedTuples) of layer-stacked tensors, as views; ``None`` stays
+    ``None``."""
+    if isinstance(tree, dict):
+        return {k: layer_of(v, l) for k, v in tree.items()}
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree[l]
+    parts = [layer_of(t, l) for t in tree]
+    return type(tree)(*parts) if hasattr(tree, "_fields") else type(tree)(parts)
+
+
+def layer_strategies(attn, attn_state, depth: int):
+    """(strategy, its state, the layer's index in that state) for each of
+    ``depth`` layers: one strategy for every layer, or ``attn`` a tuple of
+    ``(strategy, n_layers)`` segments (a per-layer compression plan) with
+    ``attn_state`` the tuple of their states."""
+    if not isinstance(attn, (tuple, list)):
+        return [(attn, attn_state, l) for l in range(depth)]
+    layers = [(seg_attn, seg_state, l) for (seg_attn, n_l), seg_state in zip(attn, attn_state)
+              for l in range(n_l)]
+    if len(layers) != depth:
+        raise ValueError(f"layer segments cover {len(layers)} of {depth} blocks")
+    return layers
+
+
+def has_tensors(tree) -> bool:
+    if isinstance(tree, torch.Tensor):
+        return True
+    if isinstance(tree, dict):
+        tree = tree.values()
+    return tree is not None and any(has_tensors(t) for t in tree)
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,6 @@ import torch
 
 from compactfusion_tpu_torch import ROADMAP_HINT
 from compactfusion_tpu_torch.cache.accel import CacheAccelState, next_probe, should_skip
-from compactfusion_tpu_torch.compact.ring import tree_map
 from compactfusion_tpu_torch.models import common as cm
 from compactfusion_tpu_torch.models.attn_impl import SingleDeviceAttn
 from compactfusion_tpu_torch.ops.attention import sdpa
@@ -90,21 +89,6 @@ def _unheads(x):
     return x.reshape(b, s, h * dh)
 
 
-def _has_tensors(tree) -> bool:
-    if isinstance(tree, torch.Tensor):
-        return True
-    if isinstance(tree, dict):
-        tree = tree.values()
-    return tree is not None and any(_has_tensors(t) for t in tree)
-
-
-def _layer(tree, l: int):
-    """Layer ``l`` of a tree of layer-stacked tensors (views)."""
-    if isinstance(tree, dict):
-        return {k: _layer(v, l) for k, v in tree.items()}
-    return tree_map(lambda a: a[l], tree)
-
-
 def pixart_embed(params, x, pos_embed, cfg: PixArtConfig):
     """Patch-embed + positional table -> hidden tokens (B, S, dim)."""
     return cm.linear(params["patch_embed"], x) + pos_embed.to(cfg.dtype)[None]
@@ -123,7 +107,7 @@ def precompute_text_kv(params, text: torch.Tensor) -> torch.Tensor:
     block's ``cross_kv`` -> (L, B, S_text, 2*dim)."""
     text = cm.linear(params["caption_fc2"], cm.gelu(cm.linear(params["caption_fc1"], text)))
     kv = params["blocks"]["cross_kv"]
-    return torch.stack([cm.linear(_layer(kv, l), text) for l in range(kv["w"].shape[0])])
+    return torch.stack([cm.linear(cm.layer_of(kv, l), text) for l in range(kv["w"].shape[0])])
 
 
 def pixart_forward(
@@ -164,14 +148,7 @@ def pixart_forward(
     use_cache = cache_cfg is not None and cache_cfg.mode != "none"
     if pp_stages > 1:
         raise NotImplementedError(f"PipeFusion (pp_stages > 1): {ROADMAP_HINT}")
-    if isinstance(attn, (tuple, list)):
-        # per-layer plan: (strategy, n_layers) segments, one state each
-        layers = [(seg_attn, seg_state, seg_l)
-                  for (seg_attn, n_l), seg_state in zip(attn, attn_state) for seg_l in range(n_l)]
-        if len(layers) != cfg.depth:
-            raise ValueError(f"layer segments cover {len(layers)} of {cfg.depth} blocks")
-    else:
-        layers = [(attn, attn_state, l) for l in range(cfg.depth)]
+    layers = cm.layer_strategies(attn, attn_state, cfg.depth)
     d, h = cfg.dim, cfg.heads
 
     x = pixart_embed(params, x, pos_embed, cfg)
@@ -187,14 +164,14 @@ def pixart_forward(
 
     def block(l, x):
         layer_attn, seg_state, seg_l = layers[l]
-        p = _layer(blocks, l)
+        p = cm.layer_of(blocks, l)
         table = p["scale_shift_table"][None] + mod6  # (B, 6, d)
         sh_a, sc_a, g_a, sh_m, sc_m, g_m = [table[:, i][:, None] for i in range(6)]
 
         # self attention (AdaLN-single)
         xn = cm.layernorm({}, x) * (1 + sc_a) + sh_a
         q, k, v = cm.linear(p["attn_qkv"], xn).split(d, dim=-1)
-        o, _ = layer_attn(_heads(q, h), _heads(k, h), _heads(v, h), _layer(seg_state, seg_l))
+        o, _ = layer_attn(_heads(q, h), _heads(k, h), _heads(v, h), cm.layer_of(seg_state, seg_l))
         x = x + g_a * cm.linear(p["attn_out"], _unheads(o))
 
         # cross attention to text
@@ -214,7 +191,7 @@ def pixart_forward(
         return pixart_head(params, x, temb, cfg), attn_state
 
     # TeaCache / FBCache: skipped blocks would desync a strategy's state
-    if _has_tensors(attn_state):
+    if cm.has_tensors(attn_state):
         raise ValueError("cache acceleration is incompatible with a stateful attention strategy")
     table0 = blocks["scale_shift_table"][0][None] + mod6
     probe_in = cm.layernorm({}, x) * (1 + table0[:, 1][:, None]) + table0[:, 0][:, None]

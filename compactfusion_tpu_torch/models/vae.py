@@ -3,8 +3,9 @@
 Public tensors are NHWC and conv weights HWIO, as in the JAX package.
 Inside :func:`_conv` the NHWC activation is viewed as NCHW in PyTorch's
 channels-last memory format, so ``F.conv2d`` needs no copy of it.  The
-mid-block attention (one head of d=512 over 64x64 = 4096 tokens at 512 px)
-meets the flash routing contract and runs the flash kernel on the GPU.
+mid-block attention (one head of d=512 over 64x64 = 4096 tokens at 512 px,
+128x128 = 16384 with FLUX at 1024 px) meets the flash routing contract and
+runs the flash kernel on the GPU.
 Tiled and sliced decode are not ported yet.
 """
 
@@ -42,6 +43,11 @@ class VAEConfig:
 
 def sd_vae() -> VAEConfig:
     return VAEConfig()
+
+
+def flux_vae() -> VAEConfig:
+    """FLUX's 16-channel AutoencoderKL (scaling and shift of the checkpoint)."""
+    return VAEConfig(latent_channels=16, scaling_factor=0.3611, shift_factor=0.1159)
 
 
 def tiny_vae() -> VAEConfig:

@@ -113,10 +113,33 @@ def compact_layer_segments(compact, num_steps: int, depth: int):
     one plan.  ``plan`` is None (compression off), one CompressType for every
     layer, or, with a per-layer ``compress_func``, a tuple of
     ``(method, n_layers)`` segments over the shared segmentation."""
+    return _group_by_method(compact, num_steps, depth, lambda plans: _family_plans(plans, 0, depth))
+
+
+def compact_two_family_segments(compact, num_steps: int, n_first: int, n_second: int):
+    """:func:`compact_layer_segments` for a model with two stacked block
+    families (FLUX's double then single blocks; a layer index runs over the
+    first family, then the second).  With a per-layer ``compress_func`` each
+    step's plan is a pair ``(first_segs, second_segs)`` of ``(method,
+    n_layers)`` tuples, each family with its own shared segmentation."""
+    return _group_by_method(compact, num_steps, n_first + n_second, lambda plans: list(zip(
+        _family_plans(plans, 0, n_first), _family_plans(plans, n_first, n_second))))
+
+
+def _family_plans(plans, lo: int, n: int):
+    """Each step's ``(method, n_layers)`` segments of layers ``[lo, lo + n)``
+    of its per-layer plan, over one segmentation shared by every step."""
+    ranges = layer_plan_segments([plan[lo:lo + n] for plan in plans], n)
+    return [tuple((plan[lo + l0], l1 - l0) for l0, l1 in ranges) for plan in plans]
+
+
+def _group_by_method(compact, num_steps: int, depth: int, per_layer):
+    """Each step's plan (``per_layer`` of the steps' per-layer plans with a
+    per-layer ``compress_func``, else one CompressType or None), grouped into
+    contiguous runs of equal plans.  One rule for the one- and two-family
+    pipelines, so their step segmentations cannot diverge."""
     if compact.enabled and compact.compress_func is not None:
-        plans = [compact.layer_plan(s, depth) for s in range(num_steps)]
-        ranges = layer_plan_segments(plans, depth)
-        schedule = [tuple((plan[l0], l1 - l0) for l0, l1 in ranges) for plan in plans]
+        schedule = per_layer([compact.layer_plan(s, depth) for s in range(num_steps)])
     else:
         schedule = [compact.type_at(0, s) if compact.enabled else None for s in range(num_steps)]
     segments = []

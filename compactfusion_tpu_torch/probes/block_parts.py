@@ -52,7 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from compactfusion_tpu_torch.models import common as cm
-from compactfusion_tpu_torch.models.pixart import _heads, _layer, _unheads
+from compactfusion_tpu_torch.models.pixart import _heads, _unheads
 from compactfusion_tpu_torch.ops import flash as ops_flash
 from compactfusion_tpu_torch.ops import probes as ops_probes
 from compactfusion_tpu_torch.ops.attention import attn_with_lse, sdpa
@@ -135,7 +135,7 @@ def make_fwd(self_attn=True, cross=True, ffn=True, modulate=True, cross_impl="au
     def fwd(params, x, text_d, mod6, lens):
         d = x.shape[-1]
         for layer in range(params["scale_shift_table"].shape[0]):
-            p = _layer(params, layer)
+            p = cm.layer_of(params, layer)
             table = p["scale_shift_table"][None] + mod6
             sh_a, sc_a, g_a, sh_m, sc_m, g_m = [table[:, i][:, None] for i in range(6)]
             xn = cm.layernorm({}, x) * (1 + sc_a) + sh_a if modulate else x

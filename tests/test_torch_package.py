@@ -34,7 +34,8 @@ def test_importing_every_module_leaves_jax_out():
     mods = _modules()
     for m in ("pipelines.pixart", "compact.lowrank", "compact.codecs", "ops.quant", "cache.accel",
               "cache.fast_attn", "ops.merge", "ops.ring_flash", "parallel.mesh", "parallel.ring",
-              "parallel.usp", "ops.probes", "probes.timing", "probes.flash_parts", "probes.block_parts"):
+              "parallel.usp", "ops.probes", "probes.timing", "probes.flash_parts", "probes.block_parts",
+              "models.flux", "pipelines.flux", "schedulers.flow_match", "io.hf"):
         assert f"compactfusion_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

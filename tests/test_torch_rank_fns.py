@@ -139,3 +139,44 @@ def pipeline_latents(rank, world, configs, params, vae_params, inputs):
         lat = pipe(text, mask, latents=noise, decode=False)
         res[name] = (lat.numpy(), tring.max_consistency_dev)
     return res
+
+
+def flux_pipeline_latents(rank, world, configs, params, vae_params, inputs):
+    """Per configuration (name, ParallelConfig kwargs, CompactConfig kwargs
+    or None): the tiny fp32 FLUX pipeline's final latents on this rank from
+    ``inputs`` = (txt, pooled, noise) and the largest EF cache deviation
+    across the ring; under "cache raises", whether a cache accelerator
+    across the ring raises NotImplementedError."""
+    import dataclasses
+
+    from compactfusion_tpu_torch.cache.accel import CacheAccelConfig
+    from compactfusion_tpu_torch.io.from_jax import params_from_numpy
+    from compactfusion_tpu_torch.models import flux as tflux
+    from compactfusion_tpu_torch.models import vae as tvae
+    from compactfusion_tpu_torch.pipelines.flux import FluxPipeline, FluxPipelineConfig
+
+    tm = dataclasses.replace(tflux.flux_tiny(), dtype=torch.float32)
+    tv = dataclasses.replace(tvae.tiny_vae(), dtype=torch.float32)
+    tparams, tvae_params = params_from_numpy(params), params_from_numpy(vae_params)
+    txt, pooled, noise = (torch.from_numpy(a) for a in inputs)
+    res = {}
+    for name, par, compact in configs:
+        parallel = ParallelConfig(**par)
+        ckw = {} if compact is None else dict(compact, compress_type=CompressType(compact["compress_type"]))
+        cfg = FluxPipelineConfig(model=tm, vae=tv, parallel=parallel, num_steps=4, height=64, width=128,
+                                 compact=CompactConfig(**ckw))
+        pipe = FluxPipeline(tparams, tvae_params, cfg, "cpu", mesh=tmesh.make_mesh(parallel))
+        tring.max_consistency_dev = 0.0
+        lat = pipe(txt, pooled, latents=noise, decode=False)
+        res[name] = (lat.numpy(), tring.max_consistency_dev)
+    parallel = ParallelConfig(ring_degree=2)
+    cached = FluxPipelineConfig(model=tm, vae=tv, parallel=parallel, num_steps=2, height=64, width=128,
+                                cache=CacheAccelConfig(mode="fbcache"))
+    try:
+        FluxPipeline(tparams, tvae_params, cached, "cpu", mesh=tmesh.make_mesh(parallel))(
+            txt, pooled, latents=noise, decode=False)
+    except NotImplementedError:
+        res["cache raises"] = True
+    else:
+        res["cache raises"] = False
+    return res

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time of one PixArt-alpha 512 image goes on the GPU.
+"""Where the time of one PixArt-alpha 512 or FLUX.1-dev 1024 image goes on the GPU.
 
     python3 tools/profile_torch.py [--out build/profile_torch.json] [--warm 3]
                                    [--only NAME ...] [--root OTHER_ROOT]
@@ -9,7 +9,9 @@ spiced AdaLN tables): compression off, the ring-8 compressed emulation
 with the 1-bit codec, INT2, LOW_RANK rank 4 and the per-layer plan on int8
 EF caches, DiTFastAttn with ``chip_smoke.py``'s phase-10 calibrated plan
 (threshold 0.5, window 64) and its phase-9 fixed plan (all seven methods),
-and FBCache at threshold 0.12.  For each it runs ``--warm`` requests, times
+and FBCache at threshold 0.12; and ``chip_smoke.py``'s phase-18 FLUX.1-dev
+(``flux_lossless``: 19 + 38 blocks at full width, 28 steps, guidance 3.5,
+1024 x 1024, spiced modulation biases).  For each it runs ``--warm`` requests, times
 two more with CUDA events, then profiles one request with
 ``torch.profiler`` (CPU + CUDA) and
 sums the device time and launches of its kernels by category (the QR
@@ -31,12 +33,13 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NAMES = ("lossless", "compressed_ring8", "int2_ring8", "low_rank4_ring8", "layer_plan_int8_ring8",
-         "fast_attn_calibrated", "fast_attn_mixed", "fbcache_0.12")
+PIXART = ("lossless", "compressed_ring8", "int2_ring8", "low_rank4_ring8", "layer_plan_int8_ring8",
+          "fast_attn_calibrated", "fast_attn_mixed", "fbcache_0.12")
+NAMES = PIXART + ("flux_lossless",)
 
 # kernel-name patterns, first match wins
 CATEGORIES = (
-    ("flash kernel", ("flash_fwd_kernel", "flash_fwd_reg_kernel")),
+    ("flash kernel", ("flash_fwd_kernel", "flash_fwd_reg_kernel", "flash_fwd_wide_kernel")),
     ("window flash kernel", ("flash_window_kernel",)),
     ("quant kernel", ("binary_quant_kernel",)),
     ("dequant kernel", ("binary_dequant_kernel",)),
@@ -66,16 +69,17 @@ def _harness():
     return mod
 
 
-def profile_pipeline(chip_smoke, pipe, warm, seed):
+def profile_pipeline(request, pipe, warm, seed):
+    """``request(pipe, seed)``: one image, as ``chip_smoke.py`` makes it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warm):
-        chip_smoke.request(pipe, seed)
-    walls = [chip_smoke.request(pipe, seed)[2] for _ in range(2)]
+        request(pipe, seed)
+    walls = [request(pipe, seed)[2] for _ in range(2)]
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, profiled_wall = chip_smoke.request(pipe, seed)
+        _, _, profiled_wall = request(pipe, seed)
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     by_cat, n_cat, by_name = {}, {}, {}
     for e in kernels:
@@ -124,9 +128,10 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi, torch.__version__, torch.version.cuda)
     dev = torch.device("cuda")
-    mcfg, vcfg, params, vae_params = chip_smoke.build_models(dev)
     report = {"smi": smi, "torch": torch.__version__, "warm": args.warm, "seed": args.seed,
               "root": os.path.abspath(args.root)}
+    if any(n in PIXART for n in args.only):
+        mcfg, vcfg, params, vae_params = chip_smoke.build_models(dev)
     plan = None
     if "fast_attn_calibrated" in args.only:
         plan, report["fast_attn_calibration_s"] = chip_smoke.calibrated_plan(params, mcfg, vcfg, dev)
@@ -143,11 +148,18 @@ def main():
                "fast_attn_calibrated": lambda: fast_attn(plan),
                "fast_attn_mixed": lambda: fast_attn(chip_smoke.mixed_plan()),
                "fbcache_0.12": lambda: {"cache": CacheAccelConfig(mode="fbcache", threshold=0.12)}}
-    for name in (n for n in NAMES if n in args.only):
+    for name in (n for n in PIXART if n in args.only):
         cfg = PixArtPipelineConfig(model=mcfg, vae=vcfg, num_steps=chip_smoke.STEPS,
                                    guidance_scale=4.5, **configs[name]())
-        r = profile_pipeline(chip_smoke, PixArtPipeline(params, vae_params, cfg, dev), args.warm, args.seed)
-        report[name] = r
+        report[name] = profile_pipeline(chip_smoke.request, PixArtPipeline(params, vae_params, cfg, dev),
+                                        args.warm, args.seed)
+    if "flux_lossless" in args.only:
+        params = vae_params = None  # PixArt's weights leave the card first
+        torch.cuda.empty_cache()
+        pipe = chip_smoke.flux_pipeline(*chip_smoke.build_flux(dev), dev)
+        report["flux_lossless"] = profile_pipeline(chip_smoke.flux_request, pipe, args.warm, args.seed)
+    for name in (n for n in NAMES if n in args.only):
+        r = report[name]
         print(name, json.dumps({k: v for k, v in r.items() if k != "top"}))
         for t, n, kname in r["top"][:12]:
             print(f"  {t:10.4f} s x {n:6d}  {kname}")
