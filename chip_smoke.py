@@ -107,16 +107,40 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
     fused, each against one process running the same cut model lossless,
     the fused runs against the unfused ones; EF caches equal across ranks,
     the binary runs' wire bytes those of their payloads.
+20. Kernels 1, 4, 7 and 8 (and 8's EF pass) on fp32 q/k/v, as the Pallas
+    kernels take the input dtype, against their fp32 twins (TF32 off):
+    kernel 1 at PixArt's self-attention (also with a batch of no key: LSE
+    -inf rows), FLUX's d=128 and the VAE's d=512 (the wide body), kernel 4
+    at w = 64, 0 and 1024, kernel 7 at ring 2 (B2, B1), ring 8 and FLUX's
+    ring 2, kernel 8 with BINARY K1 and INT2 on fp32 stacks (B2) and int8
+    stacks (B1) and at FLUX's ring 2: out within F32_OUT_REL_MAX, LSE within
+    F32_LSE_ATOL, kernel 8's stacks and fp32 reconstructions bit for bit;
+    each with its plan, eager and ``graph_ms`` times, the fp32 bound, one
+    fp32 SDPA call and what ptxas said of it.  No fp32 instantiation may
+    spill.
+21. PixArt-alpha 512 in fp32 at full width (the model and its SD-VAE,
+    ``dataclasses.replace(..., dtype=torch.float32)``): 2 requests, every
+    flash launch an fp32 one (28 x 20 + the VAE's on the wide body); one
+    CFG forward of request 1's first step against the same forward on this
+    machine's CPU through the plain versions, within F32_FORWARD_REL_MAX;
+    DiTFastAttn's fixed mixed plan in fp32 (kernel 4).
+22. That fp32 pipeline as a ring of 2 processes on this GPU (gloo),
+    lossless and BINARY (the consistency check on), unfused and fused:
+    every run within F32_RING_REL_MAX of one process (the lossless runs of
+    phase 21's request 1, the BINARY runs of the fp32 ring-2 emulation),
+    the BINARY runs also 0 < err < 0.05 from lossless, EF caches equal
+    across ranks, the same wire bytes on both routes.
 
-Phases 4-15 and 18-19 hold their latents against a lossless request and
+Phases 4-15, 18-19 and 21-22 hold their latents against a lossless request and
 their kernel launch counts against the counts the path implies (kernel 1's
 wide-body launches among them, one per decoded image, and those of
 kernels 2, 3, 5 and 6 on their vector plans, all of their launches); every
 count is set to 0 just before each of phases 3-11, 13-15, 16's probes
-(and the calibration) and 18-19, in every process, and read just after.  A probe
+(and the calibration), 18-19 and 21-22, in every process, and read just
+after; kernels 1, 4, 7 and 8 count their fp32 launches apart.  A probe
 counts a launch when it captures a CUDA graph, so phase 16 reports the
 launches the device ran (the captured count times the replays).  The
-``launches`` of the pipeline's kernels are those of phases 3-15 and 18-19: what
+``launches`` of the pipeline's kernels are those of phases 3-15, 18-19 and 21-22: what
 kernel 1 ran inside the probes is reported beside them, under phase 16's
 ``launches_of_pipeline_kernels``.  The s/image of phases 13-15 is that of
 processes sharing one card, not a ring speed (so are phase 19's).
@@ -178,6 +202,22 @@ RING_REL_MAX = 2e-2
 HALVES_REL_MAX = 0.0185
 # cfg 2 alone vs that run: the same computation per rank, bit for bit
 CFG2_VS_HALVES_MAX = 0.0
+# fp32 kernels vs their fp32 twins (phases 20-22): the kernels' products in
+# 3xTF32 (about 2^-21 relative each) against the twins' fp32 einsums with
+# TF32 off differ in summation order only: out's relative Frobenius error,
+# and LSE's largest error on the rows with a key (a row with none is -inf
+# in both)
+F32_OUT_REL_MAX = 1e-5
+F32_LSE_ATOL = 1e-4
+# one fp32 CFG forward on the card vs the same forward on this machine's
+# CPU through the plain versions (phase 21): the north star's bound for fp32
+# model math (tests/io/test_backbone_parity.py)
+F32_FORWARD_REL_MAX = 2e-4
+# the fp32 ring across ranks vs one process computing the same function
+# (phase 22): in bf16 any change of order lands 0.016-0.017 away after 20
+# steps (HALVES_REL_MAX's note); fp32 rounding is 2^16 times finer, so each
+# run must sit at least 10x under that floor
+F32_RING_REL_MAX = 1.6e-3
 # the probes' matmuls_only divides by l = the sum of a row's raw scores,
 # which can be near 0; it is compared on the rows with |l| >= 8 * sqrt(S),
 # where one bf16 ulp of the output stays below FLASH_OUT_ATOL
@@ -196,6 +236,8 @@ PROBE_REL_MAX = 1e-2
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
+#: what ``ptxas -v`` said of each kernel of this run's build (phase 1)
+PTXAS = {}
 
 STEPS = 20
 DEPTH = 28
@@ -246,9 +288,16 @@ def _time_ms(fn, iters):
 #: phase's launch counts, beside every wrapper's own}: kernel 1's on the wide
 #: body (the VAE's d=512), and kernels 2, 3, 5 and 6 on their vector plans
 #: (``ops/quant.py::quant_plan``)
+#: {kernel: the key of its launches on fp32 q/k/v}: kernels 1, 4, 7 and 8,
+#: and 8's EF pass writing fp32 reconstructions
+F32 = {name: f"{name} (fp32)" for name in ("flash_attn_with_lse", "flash_attn_window_with_lse",
+                                           "ring_flash_attn_with_lse", "compact_ring_flash", "ef_update_slot")}
+F32_WIDE = "flash_attn_with_lse (fp32, wide body)"
 ROUTES = {("flash_attn_with_lse", "wide_launches"): "flash_attn_with_lse (wide body)",
           **{(f"{codec}_{side}_fastpath", "vec_launches"): f"{codec}_{side}_fastpath (vector plan)"
-             for codec in ("binary", "int2") for side in ("quant", "dequant")}}
+             for codec in ("binary", "int2") for side in ("quant", "dequant")},
+          **{(name, "f32_launches"): key for name, key in F32.items()},
+          ("flash_attn_with_lse", "f32_wide_launches"): F32_WIDE}
 WIDE = ROUTES["flash_attn_with_lse", "wide_launches"]
 #: {kernel: the key of its launches on the vector plan}
 VEC = {name: key for (name, attr), key in ROUTES.items() if attr == "vec_launches"}
@@ -279,6 +328,14 @@ def _with_routes(expect):
     and the ring's received views start 16-byte aligned, and C/8 = 144 and
     C/4 = 288 are multiples of 4)."""
     return {WIDE: 1, **{key: expect.get(name, 0) for name, key in VEC.items()}, **expect}
+
+
+def _all_f32(expect):
+    """``expect`` ({kernel or route: count}) of a path that runs in fp32
+    throughout: every launch of kernels 1, 4, 7 and 8 (and of 1 on the wide
+    body) an fp32 one."""
+    return {**expect, **{key: expect[name] for name, key in F32.items() if name in expect},
+            F32_WIDE: expect.get(WIDE, 0)}
 
 
 def _nbytes(*tensors):
@@ -314,14 +371,68 @@ def graph_ms(timing, calls):
     return timing.per_call_ms(timing.rotate(calls), 20, 120)[0]
 
 
-def _qkv_views(gen, dev, b, s, h=16, d=72):
-    """q/k/v as a block's qkv linear gives them: (B, S, H, D) bf16 column
-    slices of one qkv tensor (PixArt's 16 heads of 72 by default)."""
+def _qkv_views(gen, dev, b, s, h=16, d=72, dtype=None):
+    """q/k/v as a block's qkv linear gives them: (B, S, H, D) column slices
+    of one qkv tensor, bf16 unless ``dtype`` says otherwise (PixArt's 16
+    heads of 72 by default)."""
     import torch
 
     dim = h * d
-    qkv = torch.randn((b, s, 3 * dim), generator=gen, device=dev).to(torch.bfloat16)
+    qkv = torch.randn((b, s, 3 * dim), generator=gen, device=dev).to(dtype or torch.bfloat16)
     return tuple(t.view(b, s, h, d) for t in qkv.split(dim, dim=-1))
+
+
+def _limits(dtype):
+    """(out max-abs, out relative Frobenius, LSE) limits of kernels 1, 4, 7
+    and 8 against their twins on ``dtype`` q/k/v (None: no limit)."""
+    import torch
+
+    if dtype == torch.float32:
+        return None, F32_OUT_REL_MAX, F32_LSE_ATOL
+    return FLASH_OUT_ATOL, FLASH_OUT_REL_MAX, FLASH_LSE_ATOL
+
+
+def _agree(out, ref_out, lse, ref_lse):
+    """(out's largest error, its relative Frobenius error, LSE's largest
+    error on the rows with a key, whether it is within :func:`_limits` and
+    the rows with no key (LSE -inf) are the twin's)"""
+    import torch
+
+    err_out = (out.float() - ref_out.float()).abs().max().item()
+    rel_out = rel_fro(out, ref_out)
+    dead = torch.isneginf(ref_lse)
+    live_err = (lse - ref_lse)[~dead]
+    err_lse = live_err.abs().max().item() if live_err.numel() else 0.0
+    atol, rtol, ltol = _limits(out.dtype)
+    ok = ((atol is None or err_out <= atol) and rel_out <= rtol and err_lse <= ltol
+          and torch.equal(torch.isneginf(lse), dead))
+    return err_out, rel_out, err_lse, ok
+
+
+def _tol_text(dtype):
+    atol, rtol, ltol = _limits(dtype)
+    return ("" if atol is None else f"abs tol {atol}, ") + f"rel tol {rtol}, lse tol {ltol}"
+
+
+def _peak(dtype):
+    """The card's peak rate for operations on ``dtype`` operands."""
+    import torch
+
+    return PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+
+
+def _ptxas(kind, plan, dtype):
+    """What ptxas said of the kernel instantiation a launch of ``kind``
+    (flash, window, ring) at ``plan`` runs, or None for ``flash_tile``."""
+    import torch
+
+    body, dp, warps = plan
+    name = {("flash", "flash_reg_tile"): "flash_fwd_reg", ("flash", "flash_wide_tile"): "flash_fwd_wide",
+            ("window", "flash_reg_tile"): "flash_window_reg",
+            ("ring", "flash_reg_tile"): "ring_flash_hop_reg"}.get((kind, body))
+    if name is None:
+        return None
+    return PTXAS.get(f"{name}{'_f32' if dtype == torch.float32 else ''}_kernel<{dp}, {warps}>")
 
 
 def flash_cases(gen, dev):
@@ -359,37 +470,39 @@ def check_flash(flash, timing, dev, gen, cases=None, phase=2):
 
     rows = []
     for name, make, iters in cases or flash_cases(gen, dev):
-        qq, kk, vv = make()
-        out, lse = flash.flash_attn_with_lse(qq, kk, vv)
+        qq, kk, vv, *lens = make()  # a fourth element: kv_lens
+        kv = {"kv_lens": lens[0]} if lens else {}
+        out, lse = flash.flash_attn_with_lse(qq, kk, vv, **kv)
         torch.cuda.synchronize()
-        ref_out, ref_lse = flash.flash_attn_with_lse_ref(qq, kk, vv)
-        err_out = (out.float() - ref_out.float()).abs().max().item()
-        rel_out = rel_fro(out, ref_out)
-        err_lse = (lse - ref_lse).abs().max().item()
+        ref_out, ref_lse = flash.flash_attn_with_lse_ref(qq, kk, vv, **kv)
+        err_out, rel_out, err_lse, ok = _agree(out, ref_out, lse, ref_lse)
         b, sq, h, d = qq.shape
-        plan = flash.flash_plan(b, h, sq, d)
-        ms = _time_ms(lambda: flash.flash_attn_with_lse(qq, kk, vv), iters)
-        sets = [(qq, kk, vv)] + [make() for _ in range(timing.copies(_nbytes(qq, kk, vv, out, lse)) - 1)]
-        g_ms = graph_ms(timing, [lambda t=t: flash.flash_attn_with_lse(*t) for t in sets])
+        plan = flash.flash_plan(b, h, sq, d, elem=qq.element_size())
+        ms = _time_ms(lambda: flash.flash_attn_with_lse(qq, kk, vv, **kv), iters)
+        sets = [(qq, kk, vv, *lens)] + [make() for _ in range(timing.copies(_nbytes(qq, kk, vv, out, lse)) - 1)]
+        g_ms = graph_ms(timing, [lambda t=t: flash.flash_attn_with_lse(*t[:3], **({"kv_lens": t[3]} if lens else {}))
+                                 for t in sets])
         n_sets = len(sets)
         del sets
-        plain_ms = _time_ms(lambda: flash.flash_attn_with_lse_ref(qq, kk, vv), iters)
-        lib, backend = _library(qq, kk, vv)
+        plain_ms = _time_ms(lambda: flash.flash_attn_with_lse_ref(qq, kk, vv, **kv), iters)
+        key_mask = (torch.arange(kk.shape[1], device=dev) < lens[0][:, None])[:, None, None, :] if lens else None
+        lib, backend = _library(qq, kk, vv, key_mask)
         library_ms = _time_ms(lib, iters)
-        bound_ms, bound_by = _bound(_nbytes(qq, kk, vv, out, lse), 4 * b * h * sq * kk.shape[1] * d,
-                                    PEAK_BF16_FLOPS)
+        # the products over the keys each batch has (kv_lens: the live ones)
+        keys = int(lens[0].clamp(0, kk.shape[1]).sum()) if lens else b * kk.shape[1]
+        bound_ms, bound_by = _bound(_nbytes(qq, kk, vv, out, lse), 4 * h * sq * keys * d, _peak(qq.dtype))
         rows.append({"shape": name, "max_abs_err_out": err_out, "rel_err_out": rel_out,
                      "max_abs_err_lse": err_lse,
                      "plan": list(plan), "ctas": _ctas(plan, b, h, sq), "ms": ms, "graph_ms": g_ms,
                      "plain_ms": plain_ms, "library_ms": library_ms, "library_backend": backend,
-                     "bound_ms": bound_ms, "bound_by": bound_by})
-        print(f"[{phase}] flash {name}: out err {err_out:.3e} (tol {FLASH_OUT_ATOL}), rel {rel_out:.3e} "
-              f"(tol {FLASH_OUT_REL_MAX}), lse err {err_lse:.3e} (tol {FLASH_LSE_ATOL}); plan {plan}, "
+                     "bound_ms": bound_ms, "bound_by": bound_by, "ptxas": _ptxas("flash", plan, qq.dtype)})
+        print(f"[{phase}] flash {name}: out err {err_out:.3e}, rel {rel_out:.3e}, lse err {err_lse:.3e} "
+              f"({_tol_text(qq.dtype)}); plan {plan}, "
               f"{rows[-1]['ctas']} CTAs; kernel "
               f"{ms:.4f} ms eager, {g_ms:.4f} ms by CUDA graphs on {n_sets} input sets; "
               f"twin {plain_ms:.4f} ms, SDPA ({backend}) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by})")
-        if not (err_out <= FLASH_OUT_ATOL and rel_out <= FLASH_OUT_REL_MAX and err_lse <= FLASH_LSE_ATOL):
+              f"({bound_by}); ptxas {rows[-1]['ptxas']}")
+        if not ok:
             raise AssertionError(f"flash kernel disagrees with its twin at {name}")
         if 128 < d <= 512 and plan[0] != "flash_wide_tile":
             raise AssertionError(f"flash at {name}: plan {plan} is not the wide body")
@@ -419,39 +532,56 @@ def window_cases(gen, dev):
                (f"ragged B2 H16 S1000 d72 w{WINDOW}", qkv(2, 1000), WINDOW)])
 
 
-def check_window(flash, dev, gen):
-    """Banded flash kernel vs twin at ``window_cases``; returns a report, with
-    the ratio of the w=64 time to the full kernel's at the same shape."""
+def check_window(flash, dev, gen, cases=None, timing=None, phase=2):
+    """Banded flash kernel vs twin at ``cases`` (default: :func:`window_cases`);
+    returns a report, with the ratio of the first case's time to the full
+    kernel's at the same shape.  With ``timing``, each case is also timed by
+    CUDA graphs on inputs from DRAM (``graph_ms``).  bf16 cases are held to
+    the absolute limits alone; fp32 ones to :func:`_limits`' relative one."""
     import torch
 
     rows = []
-    for name, make, w in window_cases(gen, dev):
+    for name, make, w in cases or window_cases(gen, dev):
         qq, kk, vv = make()
         out, lse = flash.flash_attn_window_with_lse(qq, kk, vv, w)
         torch.cuda.synchronize()
         ref_out, ref_lse = flash.flash_attn_window_with_lse_ref(qq, kk, vv, w)
-        err_out = (out.float() - ref_out.float()).abs().max().item()
-        err_lse = (lse - ref_lse).abs().max().item()
+        err_out, rel_out, err_lse, ok = _agree(out, ref_out, lse, ref_lse)
+        if qq.dtype == torch.bfloat16:
+            ok = err_out <= FLASH_OUT_ATOL and err_lse <= FLASH_LSE_ATOL
         ms = _time_ms(lambda: flash.flash_attn_window_with_lse(qq, kk, vv, w), 20)
         plain_ms = _time_ms(lambda: flash.flash_attn_window_with_lse_ref(qq, kk, vv, w), 20)
         b, s, h, d = qq.shape
-        plan = flash.flash_plan(b, h, s, d, wide=False)
+        plan = flash.flash_plan(b, h, s, d, wide=False, elem=qq.element_size())
         lib, backend = _library(qq, kk, vv, flash.window_mask(s, w, dev))
         library_ms = _time_ms(lib, 20)
         bound_ms, bound_by = _bound(_nbytes(qq, kk, vv, out, lse), 4 * b * h * d * band_pairs(s, w),
-                                    PEAK_BF16_FLOPS)
+                                    _peak(qq.dtype))
         rows.append({"shape": name, "max_abs_err_out": err_out, "max_abs_err_lse": err_lse,
                      "plan": list(plan), "ctas": _ctas(plan, b, h, s),
                      "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                     "library_backend": backend, "bound_ms": bound_ms, "bound_by": bound_by})
-        print(f"[2] window flash {name}: out err {err_out:.3e} (tol {FLASH_OUT_ATOL}), lse err "
-              f"{err_lse:.3e} (tol {FLASH_LSE_ATOL}); plan {plan}, {rows[-1]['ctas']} CTAs; kernel "
-              f"{ms:.4f} ms, twin {plain_ms:.4f} ms, SDPA with band mask ({backend}) {library_ms:.4f} "
-              f"ms, bound {bound_ms:.4f} ms ({bound_by})")
-        if not (err_out <= FLASH_OUT_ATOL and err_lse <= FLASH_LSE_ATOL):
+                     "library_backend": backend, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "ptxas": _ptxas("window", plan, qq.dtype)})
+        if timing is not None:
+            sets = [(qq, kk, vv)] + [make() for _ in range(timing.copies(_nbytes(qq, kk, vv, out, lse)) - 1)]
+            rows[-1]["graph_ms"] = graph_ms(timing, [lambda t=t: flash.flash_attn_window_with_lse(*t, w)
+                                                     for t in sets])
+            rows[-1]["rel_err_out"] = rel_out
+            del sets
+        graphs = f", {rows[-1]['graph_ms']:.4f} ms by CUDA graphs" if timing is not None else ""
+        tols = (f"tol {FLASH_OUT_ATOL}), lse err {err_lse:.3e} (tol {FLASH_LSE_ATOL})"
+                if qq.dtype == torch.bfloat16 else
+                f"rel {rel_out:.3e}), lse err {err_lse:.3e} ({_tol_text(qq.dtype)})")
+        print(f"[{phase}] window flash {name}: out err {err_out:.3e} ({tols}; plan {plan}, "
+              f"{rows[-1]['ctas']} CTAs; kernel "
+              f"{ms:.4f} ms{graphs}, twin {plain_ms:.4f} ms, SDPA with band mask ({backend}) {library_ms:.4f} "
+              f"ms, bound {bound_ms:.4f} ms ({bound_by})" + (f"; ptxas {rows[-1]['ptxas']}" if timing else ""))
+        if not ok:
             raise AssertionError(f"window flash kernel disagrees with its twin at {name}")
         if d <= 128 and plan[0] != "flash_reg_tile":
             raise AssertionError(f"window flash at {name}: plan {plan} is not the register body")
+    if cases is not None:
+        return rows, None
     q, k, v = _qkv_views(gen, dev, 2, 1024)
     full_ms = _time_ms(lambda: flash.flash_attn_with_lse(q, k, v), 20)
     print(f"[2] window flash w{WINDOW} / full flash at B2 H16 S1024 d72: {rows[0]['ms']:.4f} / "
@@ -695,13 +825,13 @@ def check_cross_attention(attention, timing, dev, gen):
     return rows
 
 
-def ring_cases(gen, dev):
+def ring_cases(gen, dev, dtype=None):
     """Kernel 7's phase-12 shapes: (ring, batch, tokens per rank) and a
     maker of one input set: rank 0's queries, and its own K/V slices (hop
     0) then the contiguous blocks the other ranks send, in the order they
-    arrive."""
+    arrive; bf16 unless ``dtype`` says otherwise."""
     def make(ring, b, s_local):
-        shards = [_qkv_views(gen, dev, b, s_local) for _ in range(ring)]
+        shards = [_qkv_views(gen, dev, b, s_local, dtype=dtype) for _ in range(ring)]
         return shards[0][0], [(shards[0][1], shards[0][2])] + [
             (shards[(-s) % ring][1].contiguous(), shards[(-s) % ring][2].contiguous())
             for s in range(1, ring)]
@@ -724,11 +854,9 @@ def check_ring_flash(rf, flash, timing, dev, gen, cases=None, phase=12):
         out, lse = rf.ring_flash_attn_with_lse(q, iter(blocks), ring)
         torch.cuda.synchronize()
         ref_out, ref_lse = rf.ring_flash_attn_with_lse_ref(q, iter(blocks), ring)
-        err_out = (out.float() - ref_out.float()).abs().max().item()
-        rel_out = rel_fro(out, ref_out)
-        err_lse = (lse - ref_lse).abs().max().item()
+        err_out, rel_out, err_lse, ok = _agree(out, ref_out, lse, ref_lse)
         name = f"ring {ring} B{b} H{h} Sq{sq} Sk{ring}x{s_local} d{d}"
-        plan = flash.flash_plan(b, h, sq, d, wide=False)
+        plan = flash.flash_plan(b, h, sq, d, wide=False, elem=q.element_size())
         ms = _time_ms(lambda: rf.ring_flash_attn_with_lse(q, iter(blocks), ring), 20)
         k_all = torch.cat([k for k, _ in blocks], dim=1)
         v_all = torch.cat([v for _, v in blocks], dim=1)
@@ -741,18 +869,18 @@ def check_ring_flash(rf, flash, timing, dev, gen, cases=None, phase=12):
         plain_ms = _time_ms(lambda: rf.ring_flash_attn_with_lse_ref(q, iter(blocks), ring), 20)
         lib, backend = _library(q, k_all, v_all)
         library_ms = _time_ms(lib, 20)
-        bound_ms, bound_by = _bound(nbytes, 4 * b * h * sq * k_all.shape[1] * d, PEAK_BF16_FLOPS)
+        bound_ms, bound_by = _bound(nbytes, 4 * b * h * sq * k_all.shape[1] * d, _peak(q.dtype))
         rows.append({"shape": name, "max_abs_err_out": err_out, "rel_err_out": rel_out,
                      "max_abs_err_lse": err_lse, "plan": list(plan), "ctas": _ctas(plan, b, h, sq),
                      "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
                      "library_ms": library_ms, "library_backend": backend, "bound_ms": bound_ms,
-                     "bound_by": bound_by})
-        print(f"[{phase}] ring flash {name}: out err {err_out:.3e} (tol {FLASH_OUT_ATOL}), rel "
-              f"{rel_out:.3e} (tol {FLASH_OUT_REL_MAX}), lse err {err_lse:.3e} (tol {FLASH_LSE_ATOL}); plan {plan}, {rows[-1]['ctas']} CTAs per hop; "
+                     "bound_by": bound_by, "ptxas": _ptxas("ring", plan, q.dtype)})
+        print(f"[{phase}] ring flash {name}: out err {err_out:.3e}, rel {rel_out:.3e}, lse err {err_lse:.3e} "
+              f"({_tol_text(q.dtype)}); plan {plan}, {rows[-1]['ctas']} CTAs per hop; "
               f"kernel {ms:.4f} ms eager ({ring} launches), {g_ms:.4f} ms by CUDA graphs on {n_sets} "
               f"input sets; twin {plain_ms:.4f} ms, SDPA on the gathered K/V ({backend}) "
-              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        if not (err_out <= FLASH_OUT_ATOL and rel_out <= FLASH_OUT_REL_MAX and err_lse <= FLASH_LSE_ATOL):
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); ptxas {rows[-1]['ptxas']}")
+        if not ok:
             raise AssertionError(f"ring flash kernel disagrees with its twin at {name}")
         if ring == RING and rows[-1]["ctas"] < 128:
             raise AssertionError(f"ring flash at ring {RING}: {rows[-1]['ctas']} CTAs per hop, fewer than 128")
@@ -798,18 +926,20 @@ def _same(a, b):
     return torch.equal(a, b)
 
 
-def cring_inputs(rf, gen, dev, ring, b, s_local, codec, rank, quantized, h=16, d=72, q_rows=None):
+def cring_inputs(rf, gen, dev, ring, b, s_local, codec, rank, quantized, h=16, d=72, q_rows=None,
+                 dtype=None):
     """One case of kernel 8: every virtual rank's (q, k, v) shard, the two
     EF stacks every rank starts from, and every rank's fused payload made
     from its own K/V and EF slot.  PixArt's 16 heads of 72 by default;
     ``q_rows``: q has that many rows (FLUX's text rows joined in front of the
-    image's), else s_local, as a column slice beside k and v."""
+    image's), else s_local, as a column slice beside k and v; bf16 unless
+    ``dtype`` says otherwise."""
     import torch
 
     n, c = b * s_local, h * d
-    shards = [_qkv_views(gen, dev, b, s_local, h, d) for _ in range(ring)]
+    shards = [_qkv_views(gen, dev, b, s_local, h, d, dtype) for _ in range(ring)]
     if q_rows is not None:
-        shards = [(torch.randn((b, q_rows, h, d), generator=gen, device=dev).to(torch.bfloat16), k, v)
+        shards = [(torch.randn((b, q_rows, h, d), generator=gen, device=dev).to(dtype or torch.bfloat16), k, v)
                   for _, k, v in shards]
     kb0, vb0 = _stack(gen, dev, ring, n, c, quantized), _stack(gen, dev, ring, n, c, quantized)
     payloads = [rf.fused_ring_payload(shards[r][1], shards[r][2], rf.decode_slot(kb0, r),
@@ -823,14 +953,17 @@ def arriving(payloads, r):
     return iter([payloads[(r - s) % ring] for s in range(ring)])
 
 
-def cring_name(ring, b, s_local, codec, rank, quantized, h=16, d=72, q_rows=None):
+def cring_name(ring, b, s_local, codec, rank, quantized, h=16, d=72, q_rows=None, dtype=None):
+    import torch
+
     kname = {"binary": f"binary K{max(rank, 1)}", "int2": "int2", "lowrank": f"low-rank r{rank}"}[codec]
     sq = "" if q_rows is None else f" Sq{q_rows}"
-    return f"ring {ring} B{b} H{h}{sq} S{s_local} d{d} {kname} {'int8' if quantized else 'fp32'} bases"
+    act = " fp32 q/k/v" if dtype == torch.float32 else ""
+    return f"ring {ring} B{b} H{h}{sq} S{s_local} d{d}{act} {kname} {'int8' if quantized else 'fp32'} bases"
 
 
 def check_compact_ring(rf, flash, timing, dev, gen, ring, b, s_local, codec, rank, quantized, h=16, d=72,
-                       q_rows=None, phase=12):
+                       q_rows=None, phase=12, dtype=None):
     """Kernel 8 vs its twin: every virtual rank of a ring of ``ring`` makes
     its fused payload from its own K/V and EF slot, and each runs the kernel
     on its own copy of one stack with the payloads in the order they would
@@ -839,17 +972,20 @@ def check_compact_ring(rf, flash, timing, dev, gen, ring, b, s_local, codec, ran
     every other's (bit for bit), and that the flash partial runs on at least
     128 CTAs; then its
     EF pass alone (``ef_update_slot`` of rank 0's own payload) against its
-    twin: new bases and the bf16 reconstruction.  Rank 0's call and the EF
+    twin: new bases and the reconstruction.  Rank 0's call and the EF
     pass are timed eager and by CUDA graphs on cloned stacks (each launch
     writes its stacks), enough of them in turn that each call reads from
-    DRAM.  ``h``, ``d``, ``q_rows``: as :func:`cring_inputs`.  Returns a
-    report."""
+    DRAM.  ``h``, ``d``, ``q_rows``, ``dtype``: as :func:`cring_inputs`; on
+    fp32 q/k/v the stacks and the fp32 reconstructions must equal the twin's
+    bit for bit.  Returns a report."""
     import torch
 
     n, c = b * s_local, h * d
     sq = s_local if q_rows is None else q_rows
+    act = dtype or torch.bfloat16
+    f32 = act == torch.float32
     shards, kb0, vb0, payloads = cring_inputs(rf, gen, dev, ring, b, s_local, codec, rank, quantized, h, d,
-                                              q_rows)
+                                              q_rows, dtype)
 
     def kernel(r, kb, vb):
         return rf.compact_ring_flash(*shards[r], kb, vb, arriving(payloads, r), codec=codec, my=r,
@@ -861,16 +997,15 @@ def check_compact_ring(rf, flash, timing, dev, gen, ring, b, s_local, codec, ran
     kr, vr = _clone(kb0), _clone(vb0)
     ref_out, ref_lse = rf.compact_ring_flash_ref(*shards[0], kr, vr, arriving(payloads, 0), codec=codec,
                                                  my=0, ring_size=ring)
-    err_out = (out.float() - ref_out.float()).abs().max().item()
-    rel_out = rel_fro(out, ref_out)
-    err_lse = (lse - ref_lse).abs().max().item()
+    err_out, rel_out, err_lse, ok = _agree(out, ref_out, lse, ref_lse)
     base_rel = max(_rel(_decoded(stacks[0][0]), _decoded(kr)), _rel(_decoded(stacks[0][1]), _decoded(vr)))
     consistent = all(_same(stacks[r][i], stacks[0][i]) for r in range(ring) for i in range(2))
-    name = cring_name(ring, b, s_local, codec, rank, quantized, h, d, q_rows)
-    plan = flash.flash_plan(b, h, sq, d, wide=False)
+    name = cring_name(ring, b, s_local, codec, rank, quantized, h, d, q_rows, dtype)
+    plan = flash.flash_plan(b, h, sq, d, wide=False, elem=shards[0][0].element_size())
     ctas = _ctas(plan, b, h, sq)
-    ok = (err_out <= FLASH_OUT_ATOL and rel_out <= FLASH_OUT_REL_MAX and err_lse <= FLASH_LSE_ATOL
-          and base_rel <= QUANT_NEW_BASE_RTOL and consistent)
+    ok = ok and base_rel <= QUANT_NEW_BASE_RTOL and consistent
+    if f32:  # the stacks bit for bit
+        ok = ok and _same(stacks[0][0], kr) and _same(stacks[0][1], vr)
     if not ok:
         raise AssertionError(f"compact ring kernel disagrees with its twin at {name}: out {err_out} "
                              f"(rel {rel_out}), lse {err_lse}, bases {base_rel}, ranks bit-equal {consistent}")
@@ -880,24 +1015,25 @@ def check_compact_ring(rf, flash, timing, dev, gen, ring, b, s_local, codec, ran
     # the EF pass alone, on rank 0's own payload (slot 0), after hop 0 (rec kept)
     shape = (b, s_local, h, d)
     ek, ev = _clone(kb0), _clone(vb0)
-    rec = tuple(torch.empty(shape, dtype=torch.bfloat16, device=dev) for _ in range(2))
-    rf.ef_update_slot(ek, ev, 0, codec, payloads[0], shape, rec=rec)
+    rec = tuple(torch.empty(shape, dtype=act, device=dev) for _ in range(2))
+    rf.ef_update_slot(ek, ev, 0, codec, payloads[0], shape, rec=rec, dtype=act)
     torch.cuda.synchronize()
     tk, tv = _clone(kb0), _clone(vb0)
     ref_rec = rf.ef_update_slot_ref(tk, tv, 0, codec, payloads[0])
     ef_rel = max(_rel(_decoded(ek), _decoded(tk)), _rel(_decoded(ev), _decoded(tv)))
     ef_err = max((_decoded(x).float() - _decoded(y).float()).abs().max().item() for x, y in ((ek, tk), (ev, tv)))
-    rec_equal = all(torch.equal(r_, x.reshape(shape).to(torch.bfloat16)) for r_, x in zip(rec, ref_rec))
-    if not (ef_rel <= QUANT_NEW_BASE_RTOL and rec_equal):
-        raise AssertionError(f"EF pass at {name}: new bases {ef_rel} relative, bf16 reconstruction "
-                             f"equal to the twin's: {rec_equal}")
+    rec_equal = all(torch.equal(r_, x.reshape(shape).to(act)) for r_, x in zip(rec, ref_rec))
+    ef_same = _same(ek, tk) and _same(ev, tv)
+    if not (ef_rel <= QUANT_NEW_BASE_RTOL and rec_equal and (ef_same or not f32)):
+        raise AssertionError(f"EF pass at {name}: new bases {ef_rel} relative (bit-equal {ef_same}), "
+                             f"{act} reconstruction equal to the twin's: {rec_equal}")
 
     q, k, v = shards[0]
     payload_bytes = sum(t.numel() * t.element_size() for p in payloads for t in p)
     # each hop reads and writes its source slot of both stacks
     base_bytes = 2 * 2 * ring * n * c * (1 if quantized else 4)
     bound_ms, bound_by = _bound(_nbytes(q, k, v, out, lse) + payload_bytes + base_bytes,
-                                4 * b * h * sq * ring * s_local * d, PEAK_BF16_FLOPS)
+                                4 * b * h * sq * ring * s_local * d, _peak(act))
     # the EF pass: one slot of both stacks read and written, the payload
     # read, the bf16 reconstruction written; (4 + 2K) fp32 operations per
     # element (the rank-K scale, the sign or level, the base update)
@@ -909,7 +1045,7 @@ def check_compact_ring(rf, flash, timing, dev, gen, ring, b, s_local, codec, ran
     ms = _time_ms(lambda: kernel(0, *stacks[0]), 20)
     plain_ms = _time_ms(lambda: rf.compact_ring_flash_ref(*shards[0], kr, vr, arriving(payloads, 0),
                                                           codec=codec, my=0, ring_size=ring), 5)
-    ef_ms = _time_ms(lambda: rf.ef_update_slot(ek, ev, 0, codec, payloads[0], shape, rec=rec), 20)
+    ef_ms = _time_ms(lambda: rf.ef_update_slot(ek, ev, 0, codec, payloads[0], shape, rec=rec, dtype=act), 20)
     ef_plain_ms = _time_ms(lambda: rf.ef_update_slot_ref(tk, tv, 0, codec, payloads[0]), 5)
     sets = [(_clone(kb0), _clone(vb0)) for _ in range(timing.copies(base_bytes // 2 + _nbytes(q, k, v)))]
     g_ms = graph_ms(timing, [lambda t=t: kernel(0, *t) for t in sets])
@@ -917,24 +1053,27 @@ def check_compact_ring(rf, flash, timing, dev, gen, ring, b, s_local, codec, ran
     sets = [(_clone(kb0), _clone(vb0), tuple(torch.empty_like(x) for x in rec))
             for _ in range(timing.copies(ef_bytes))]
     ef_g_ms = graph_ms(timing, [lambda t=t: rf.ef_update_slot(t[0], t[1], 0, codec, payloads[0], shape,
-                                                              rec=t[2]) for t in sets])
+                                                              rec=t[2], dtype=act) for t in sets])
     del sets
+    ef_kernel = ("ef_codes_int8" if quantized else "ef_update_fp32") + ("_f32rec" if f32 else "") + "_kernel"
     row = {"shape": name, "max_abs_err_out": err_out, "rel_err_out": rel_out, "max_abs_err_lse": err_lse,
            "new_base_rel_err": base_rel, "ranks_bit_equal": consistent, "plan": list(plan),
            "ctas": ctas, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by,
+           "bound_by": bound_by, "ptxas": _ptxas("ring", plan, act),
            "ef": {"max_abs_err": ef_err, "new_base_rel_err": ef_rel, "rec_bit_equal": rec_equal,
                   "ms": ef_ms, "graph_ms": ef_g_ms, "plain_ms": ef_plain_ms, "bound_ms": ef_bound_ms,
-                  "bound_by": ef_bound_by}}
-    print(f"[{phase}] compact ring {name}: out err {err_out:.3e} (tol {FLASH_OUT_ATOL}), rel "
-          f"{rel_out:.3e} (tol {FLASH_OUT_REL_MAX}), lse err {err_lse:.3e} (tol {FLASH_LSE_ATOL}), new bases rel err {base_rel:.3e} (tol "
-          f"{QUANT_NEW_BASE_RTOL}), {ring} ranks' stacks bit-equal: {consistent}; flash plan {plan}, "
+                  "bound_by": ef_bound_by, "ptxas": PTXAS.get(ef_kernel)}}
+    print(f"[{phase}] compact ring {name}: out err {err_out:.3e}, rel {rel_out:.3e}, lse err {err_lse:.3e} "
+          f"({_tol_text(act)}), new bases rel err {base_rel:.3e} (tol "
+          f"{QUANT_NEW_BASE_RTOL}{'; bit for bit' if f32 else ''}), {ring} ranks' stacks bit-equal: {consistent}; "
+          f"flash plan {plan}, "
           f"{ctas} CTAs per hop; kernel {ms:.4f} ms eager ({ring} hops), {g_ms:.4f} ms by CUDA graphs "
-          f"on {n_sets} stack copies; twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    print(f"[{phase}] EF pass {name}: new bases rel err {ef_rel:.3e} (tol {QUANT_NEW_BASE_RTOL}), bf16 "
-          f"reconstruction bit-equal to the twin's: {rec_equal}; {ef_ms:.4f} ms eager, {ef_g_ms:.4f} "
-          f"ms by CUDA graphs per hop; twin {ef_plain_ms:.4f} ms, bound {ef_bound_ms:.5f} ms "
-          f"({ef_bound_by})")
+          f"on {n_sets} stack copies; twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+          f"ptxas {row['ptxas']}")
+    print(f"[{phase}] EF pass {name}: new bases rel err {ef_rel:.3e} (tol {QUANT_NEW_BASE_RTOL}), bit-equal "
+          f"{ef_same}, {act} reconstruction bit-equal to the twin's: {rec_equal}; {ef_ms:.4f} ms eager, "
+          f"{ef_g_ms:.4f} ms by CUDA graphs per hop; twin {ef_plain_ms:.4f} ms, bound {ef_bound_ms:.5f} ms "
+          f"({ef_bound_by}); ptxas {ef_kernel}: {row['ef']['ptxas']}")
     return row
 
 
@@ -1020,10 +1159,14 @@ def check_image(img, what, size=512):
     return lo, hi
 
 
-def build_models(dev):
+def build_models(dev, dtype=None):
     """Full-width PixArt-alpha 512 + SD-VAE with random weights from fixed
     seeds; the zero-init AdaLN tables are spiced so attention (and
-    compression error) reaches the output at trained-model-like magnitude."""
+    compression error) reaches the output at trained-model-like magnitude.
+    ``dtype``: both configs in that dtype (phases 21-22: fp32; the VAE, as
+    in the JAX package, follows its own config), else their bf16."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -1031,6 +1174,8 @@ def build_models(dev):
     from compactfusion_tpu_torch.models.vae import init_vae_decoder, sd_vae
 
     mcfg, vcfg = pixart_alpha_512(), sd_vae()
+    if dtype is not None:
+        mcfg, vcfg = dataclasses.replace(mcfg, dtype=dtype), dataclasses.replace(vcfg, dtype=dtype)
     params = init_pixart(torch.Generator(device=dev).manual_seed(0), mcfg)
     spice = np.random.default_rng(99)
     for tree, key in ((params["blocks"], "scale_shift_table"), (params["adaln_single"], "b")):
@@ -1175,13 +1320,14 @@ def plan_launches(table):
     return int(np.isin(table, (0, 3, 5, 6)).sum()) + 1, int(np.isin(table, (0, 1, 3, 4)).sum())
 
 
-def accel_phase(phase, what, pipe, kernels, lossless, full, window, exact=False):
+def accel_phase(phase, what, pipe, kernels, lossless, full, window, exact=False, f32=False):
     """One request of a single-device accelerator (DiTFastAttn or a cache)
     from request 1's seed, every launch count set to 0 before it: checks the
     image, the flash and window-kernel launches against ``full`` (or
     ``full(skipped steps)``) and ``window`` (the quant kernels 0), and the
     latents against lossless (equal within 1e-6 with ``exact`` or when a
-    cache skipped no step, else different and finite)."""
+    cache skipped no step, else different and finite).  ``f32``: the
+    pipeline runs in fp32, every flash launch an fp32 one."""
     import torch
 
     _reset_counts(kernels)
@@ -1191,6 +1337,8 @@ def accel_phase(phase, what, pipe, kernels, lossless, full, window, exact=False)
     if callable(full):
         full = full(pipe.last_skips)
     want = {"flash_attn_with_lse": full, "flash_attn_window_with_lse": window, WIDE: 1}
+    if f32:
+        want = _all_f32(want)
     for name, count in counts.items():
         if count != want.get(name, 0):
             raise AssertionError(f"{what}: {name} launched {count} times, expected {want.get(name, 0)}")
@@ -1253,9 +1401,10 @@ def ring_compact(compress_type, **kw):
 
 
 def ring_rank(rank, world, runs, family="pixart"):
-    """One rank of phases 13-15 and 19 (``spawn_local`` on this GPU, gloo):
-    the full-width models from the same seeds (``family`` "flux": FLUX.1-dev
-    at phase 19's cut depth), then per run (name, ParallelConfig kwargs,
+    """One rank of phases 13-15, 19 and 22 (``spawn_local`` on this GPU,
+    gloo): the full-width models from the same seeds (``family`` "flux":
+    FLUX.1-dev at phase 19's cut depth; "pixart-fp32": PixArt and its VAE in
+    fp32, as in phase 21), then per run (name, ParallelConfig kwargs,
     CompactConfig kwargs or None) request 1 with every launch count set to
     0 before it; returns per run the whole latents, the launch counts, the
     bytes this rank's ring shifts sent, the largest EF cache deviation
@@ -1274,7 +1423,8 @@ def ring_rank(rank, world, runs, family="pixart"):
     if family == "flux":
         models, make_request, size = build_flux(dev, *FLUX_CUT), flux_request, FLUX_SIZE
     else:
-        models, make_request, size = build_models(dev), request, 512
+        dtype = torch.float32 if family == "pixart-fp32" else None
+        models, make_request, size = build_models(dev, dtype), request, 512
     out = {}
     for name, par, compact in runs:
         parallel = ParallelConfig(**par)
@@ -1389,18 +1539,19 @@ def flux_flash_cases(gen, dev):
     ]
 
 
-def flux_ring_cases(gen, dev):
+def flux_ring_cases(gen, dev, dtype=None):
     """Kernel 7 at FLUX's fused ring 2, rank 0's view: q (the text rows in
     front of the 2048 local image rows), its own K/V slices at hop 0, the
-    other rank's contiguous block at hop 1."""
+    other rank's contiguous block at hop 1; bf16 unless ``dtype`` says
+    otherwise."""
     import torch
 
     h, d = FLUX_HEADS, FLUX_HEAD_DIM
 
     def make():
-        q = torch.randn((1, FLUX_TXT + FLUX_RING_LOCAL, h, d), generator=gen, device=dev).to(torch.bfloat16)
-        _, k0, v0 = _qkv_views(gen, dev, 1, FLUX_RING_LOCAL, h, d)
-        _, k1, v1 = _qkv_views(gen, dev, 1, FLUX_RING_LOCAL, h, d)
+        q = torch.randn((1, FLUX_TXT + FLUX_RING_LOCAL, h, d), generator=gen, device=dev).to(dtype or torch.bfloat16)
+        _, k0, v0 = _qkv_views(gen, dev, 1, FLUX_RING_LOCAL, h, d, dtype)
+        _, k1, v1 = _qkv_views(gen, dev, 1, FLUX_RING_LOCAL, h, d, dtype)
         return q, [(k0, v0), (k1.contiguous(), v1.contiguous())]
 
     return [((2, 1, FLUX_RING_LOCAL), make)]
@@ -1507,18 +1658,20 @@ def _rel_np(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-def ring_phase(phase, results, name, lossless, expect, bound, references=(), low=None):
+def ring_phase(phase, results, name, lossless, expect, bound, references=(), low=None, f32=False):
     """Checks one run of phases 13-15 on every rank: the same whole
     latents, launch counts equal to ``expect`` ({kernel: count}, others 0),
     and the latent error against ``lossless`` (below ``bound``; above
     ``low`` when given) and against each of ``references`` ((name,
-    latents, bound)).  Returns the phase's report with the counts summed
-    over ranks."""
+    latents, bound)); ``f32``: the run is fp32 throughout (:func:`_all_f32`).
+    Returns the phase's report with the counts summed over ranks."""
     import numpy as np
 
     runs = [r[name] for r in results]
     lat = runs[0]["latents"]
     expect = _with_routes(expect)
+    if f32:
+        expect = _all_f32(expect)
     for i, r in enumerate(runs):
         if not np.array_equal(r["latents"], lat):
             raise AssertionError(f"{name}: rank {i}'s latents differ from rank 0's")
@@ -1613,6 +1766,205 @@ def flux_ring_phase(kernels, dev, codecs):
     return phases
 
 
+def f32_flash_cases(gen, dev):
+    """Kernel 1 in fp32 at the path's shapes: PixArt's self-attention
+    (column slices of one fp32 qkv tensor), the same with ``kv_lens`` (1000,
+    0) (a batch with no key: rows of LSE -inf), FLUX's self-attention at
+    d=128 and the VAE's d=512 (the wide body)."""
+    import torch
+
+    f32, s_all = torch.float32, FLUX_TXT + FLUX_IMG
+
+    def with_lens():
+        return (*_qkv_views(gen, dev, 2, 1024, dtype=f32), torch.tensor([1000, 0], dtype=torch.int32, device=dev))
+
+    return [
+        ("fp32 self-attn B2 H16 S1024 d72", lambda: _qkv_views(gen, dev, 2, 1024, dtype=f32), 20),
+        ("fp32 self-attn B2 H16 S1024 d72 kv_lens (1000, 0)", with_lens, 20),
+        (f"fp32 FLUX self-attn B1 H{FLUX_HEADS} S{s_all} d{FLUX_HEAD_DIM}",
+         lambda: _qkv_views(gen, dev, 1, s_all, FLUX_HEADS, FLUX_HEAD_DIM, f32), 5),
+        ("fp32 VAE mid-attn B1 H1 S4096 d512",
+         lambda: tuple(torch.randn((1, 4096, 1, 512), generator=gen, device=dev) for _ in range(3)), 5),
+    ]
+
+
+def check_f32_kernels(flash, rf, timing, dev, gen):
+    """Phase 20: kernels 1, 4, 7 and 8 (and 8's EF pass) on fp32 q/k/v
+    against their fp32 twins at the path's shapes and FLUX's d=128: out
+    within :data:`F32_OUT_REL_MAX`, LSE within :data:`F32_LSE_ATOL`, rows
+    with no key -inf in both; kernel 8's stacks and fp32 reconstructions bit
+    for bit.  No fp32 instantiation may spill (ptxas).  Returns the rows by
+    kernel."""
+    import torch
+
+    f32 = torch.float32
+    spilled = {k: v for k, v in PTXAS.items() if "_f32" in k and "0 bytes spill stores, 0 bytes spill loads" not in v}
+    built = sorted(k for k in PTXAS if "_f32" in k)
+    print(f"[20] {len(built)} fp32 kernel instantiations built, none spills: {not spilled}")
+    if not built or spilled:
+        raise AssertionError(f"fp32 kernels that spill (ptxas): {spilled}")
+    flash_rows = check_flash(flash, timing, dev, gen, f32_flash_cases(gen, dev), phase=20)
+    if [r["plan"][0] for r in flash_rows] != ["flash_reg_tile"] * 3 + ["flash_wide_tile"]:
+        raise AssertionError(f"fp32 kernel 1 took the plans {[r['plan'] for r in flash_rows]}")
+    window_rows, _ = check_window(flash, dev, gen, [
+        (f"fp32 B2 H16 S1024 d72 w{w}", lambda: _qkv_views(gen, dev, 2, 1024, dtype=f32), w)
+        for w in (WINDOW, 0, 1024)], timing, phase=20)
+    ring_rows = check_ring_flash(rf, flash, timing, dev, gen,
+                                 ring_cases(gen, dev, f32) + flux_ring_cases(gen, dev, f32), phase=20)
+    cring_rows = [check_compact_ring(rf, flash, timing, dev, gen, 2, b, 512, codec, -1, quantized, phase=20,
+                                     dtype=f32)
+                  for b, quantized in ((2, False), (1, True)) for codec in ("binary", "int2")]
+    cring_rows.append(check_compact_ring(rf, flash, timing, dev, gen, 2, 1, FLUX_RING_LOCAL, "binary", -1, False,
+                                         FLUX_HEADS, FLUX_HEAD_DIM, FLUX_TXT + FLUX_RING_LOCAL, phase=20,
+                                         dtype=f32))
+    return {"flash": flash_rows, "window": window_rows, "ring": ring_rows, "cring": cring_rows,
+            "ptxas": {k: PTXAS[k] for k in built}}
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def cfg_forward(params, mcfg, pos_embed, text, mask, x, t):
+    """One CFG forward of the PixArt denoiser as the pipeline's first step
+    runs it: the [cond; uncond] text path, then ``pixart_forward`` on the
+    latents twice over."""
+    import torch
+
+    from compactfusion_tpu_torch.models.pixart import pixart_forward, precompute_text_kv
+
+    with torch.inference_mode():
+        text2, mask2 = torch.cat([text[0], text[1]]), torch.cat([mask[0], mask[1]])
+        kv = precompute_text_kv(params, text2).to(mcfg.dtype)
+        out, _ = pixart_forward(params, torch.cat([x, x]).to(mcfg.dtype), t, None, mcfg, pos_embed=pos_embed,
+                                text_mask=mask2, text_kv=kv)
+    return out
+
+
+def f32_pipeline_phase(kernels, dev):
+    """Phase 21: full-width PixArt-alpha 512 in fp32 (the model and its VAE,
+    ``build_models(dev, torch.float32)``): 2 requests (a valid image,
+    s/image, every flash launch an fp32 one: 28 x 20 of kernel 1 and the
+    VAE's on the wide body), one CFG forward of request 1's first step on
+    the card against the same forward on this machine's CPU through the
+    plain versions, then DiTFastAttn's fixed mixed plan (kernel 4 in fp32).
+    Returns (phases, models, request 1's latents)."""
+    import torch
+
+    from compactfusion_tpu_torch.cache.fast_attn import optimize_plan
+    from compactfusion_tpu_torch.pipelines import base
+
+    t0 = time.perf_counter()
+    models = build_models(dev, torch.float32)
+    mcfg = models[0]
+    pipe = pixart_pipeline(*models, dev)
+    print(f"[21] PixArt-alpha 512 in fp32 ({mcfg.depth} blocks, dim {mcfg.dim}, {mcfg.heads} heads of "
+          f"{mcfg.head_dim}, SD-VAE in {models[1].dtype}), built in {time.perf_counter() - t0:.1f} s")
+    want = _all_f32(_with_routes({"flash_attn_with_lse": DEPTH * STEPS + 1}))
+    secs, lossless = [], None
+    _reset_counts(kernels)
+    for seed in (1, 2):
+        before = _counts(kernels)
+        lat, img, sec = request(pipe, seed)
+        lo, hi = check_image(img, f"fp32 request seed {seed}")
+        ran = {k: v - before[k] for k, v in _counts(kernels).items()}
+        _check_counts(f"fp32 request seed {seed}", ran, want)
+        lossless = lat if lossless is None else lossless
+        secs.append(sec)
+        print(f"[21] fp32 request seed {seed}: image (1, 512, 512, 3) in [{lo:.4f}, {hi:.4f}], kernel 1 launches "
+              f"{ran['flash_attn_with_lse']} (fp32 {ran[F32['flash_attn_with_lse']]}, fp32 wide body "
+              f"{ran[F32_WIDE]}), {sec:.4f} s/image")
+    phases = {"fp32 lossless": {"s_per_image": secs, "launches": _counts(kernels)}}
+
+    # request 1's first step, one CFG forward, on the card and on the CPU
+    g = torch.Generator(device=dev).manual_seed(1)  # as in request(pipe, 1): text, then noise
+    text = torch.randn((2, 1, 120, mcfg.text_dim), generator=g, device=dev)
+    mask = torch.ones((2, 1, 120), dtype=torch.bool, device=dev)
+    x = base.prepare_latents(g, 1, pipe.cfg.tokens, mcfg.patch**2 * mcfg.in_channels, torch.float32, dev)
+    t = torch.full((2,), float(pipe.sched.timesteps[0]), dtype=torch.float32, device=dev)
+    _reset_counts(kernels)
+    gpu = cfg_forward(models[2], mcfg, pipe.pos_embed, text, mask, x, t)
+    counts = _counts(kernels)
+    _check_counts("fp32 CFG forward", counts, _all_f32({"flash_attn_with_lse": DEPTH}))
+    t0 = time.perf_counter()
+    cpu = cfg_forward(_to(models[2], "cpu"), mcfg, pipe.pos_embed.cpu(), text.cpu(), mask.cpu(), x.cpu(), t.cpu())
+    cpu_s = time.perf_counter() - t0
+    rel = rel_fro(gpu.cpu(), cpu)
+    print(f"[21] one fp32 CFG forward (B2 S1024, {DEPTH} blocks) on the card vs this machine's CPU ({cpu_s:.1f} s "
+          f"through the plain versions): rel err {rel:.3e} (bound {F32_FORWARD_REL_MAX}); out "
+          f"{tuple(gpu.shape)}, finite {bool(torch.isfinite(gpu).all())}; kernel 1 launches "
+          f"{counts[F32['flash_attn_with_lse']]} fp32")
+    if not (rel <= F32_FORWARD_REL_MAX and bool(torch.isfinite(gpu).all())):
+        raise AssertionError(f"fp32 CFG forward: rel err vs the CPU {rel} > {F32_FORWARD_REL_MAX}")
+    phases["fp32 CFG forward vs CPU"] = {"rel_err": rel, "cpu_s": cpu_s, "launches": counts}
+
+    mixed = optimize_plan(mixed_plan())
+    phases["fp32 fast-attn mixed plan"] = accel_phase(
+        21, "fp32 fast-attn mixed plan (all seven methods)",
+        pixart_pipeline(*models, dev, fast_attn_plan=tuple(tuple(int(m) for m in row) for row in mixed_plan()),
+                        fast_attn_window=WINDOW),
+        kernels, lossless, *plan_launches(mixed), f32=True)
+    return phases, models, lossless
+
+
+def f32_ring_phase(kernels, dev, codecs, models, lossless):
+    """Phase 22: the fp32 pipeline of phase 21 as a ring of 2 gloo processes
+    on this card, lossless and BINARY (residual 1 + EF, warmup 4, the
+    consistency check on), each unfused and fused: every run within
+    :data:`F32_RING_REL_MAX` of one process computing the same function (the
+    lossless runs of phase 21's request 1, the BINARY runs of the fp32
+    ring-2 emulation), the BINARY runs also 0 < err < 0.05 from lossless,
+    EF caches equal across ranks, the same wire bytes on both routes, every
+    flash launch an fp32 one.  Returns the phases."""
+    import torch
+
+    from compactfusion_tpu_torch.parallel.mesh import spawn_local
+
+    lossless_np = lossless.float().cpu().numpy()
+    _reset_counts(kernels)
+    sim_lat, sim_img, sim_sec = request(pixart_pipeline(
+        *models, dev, compact=ring_compact("binary", comp_rank=-1, simulate_ring=2)), 1)
+    check_image(sim_img, "fp32 ring-2 emulation")
+    sim_np = sim_lat.float().cpu().numpy()
+    print(f"[22] single-process fp32 ring-2 binary emulation: rel err vs lossless {_rel_np(sim_np, lossless_np):.6f}, "
+          f"{sim_sec:.4f} s/image")
+    hops, comp = 2 * DEPTH, STEPS - WARMUP
+    ring2, fused2 = {"ring_degree": 2}, {"ring_degree": 2, "use_fused_ring": True}
+    binary = {"compress_type": "binary", "comp_rank": -1, "check_consistency": True}
+    names = ("fp32 ring2 lossless", "fp32 ring2 lossless fused", "fp32 ring2 binary", "fp32 ring2 binary fused")
+    two = spawn_local(ring_rank, 2, "gloo", list(zip(names, (ring2, fused2, ring2, fused2),
+                                                     (None, None, binary, binary))), "pixart-fp32", threads=2)
+    expect = [{"flash_attn_with_lse": hops * STEPS + 1},
+              {"flash_attn_with_lse": 1, "ring_flash_attn_with_lse": hops * STEPS},
+              {"flash_attn_with_lse": hops * STEPS + 1, "binary_quant_fastpath": hops * comp,
+               "binary_dequant_fastpath": hops * comp},
+              {"flash_attn_with_lse": hops * WARMUP + 1, "compact_ring_flash": hops * comp,
+               "ef_update_slot": hops * comp}]
+    phases = {}
+    for i, name in enumerate(names):
+        if "binary" in name:
+            refs = [("the fp32 ring-2 emulation", sim_np, F32_RING_REL_MAX)]
+            if name.endswith("fused"):
+                refs.append((names[i - 1], two[0][names[i - 1]]["latents"], F32_RING_REL_MAX))
+            phases[name] = ring_phase(22, two, name, lossless_np, expect[i], COMPRESSED_REL_ERR_MAX, refs, low=0.0,
+                                      f32=True)
+            if phases[name]["consistency_dev"] != 0.0:
+                raise AssertionError(f"{name}: EF caches differ across ranks")
+        else:
+            phases[name] = ring_phase(22, two, name, lossless_np, expect[i], F32_RING_REL_MAX, f32=True)
+    n, c = 2 * 1024 // 2, 1152
+    payload = codecs.payload_nbytes(codecs.encode(torch.ones(n, c), codecs.CompressType.BINARY))
+    want_bytes = DEPTH * (WARMUP * 2 * n * c * 4 + comp * 2 * payload)
+    got_bytes = [phases[k]["wire_bytes_per_rank"] for k in names[2:]]
+    print(f"[22] EF caches across the ring: largest deviation {max(phases[k]['consistency_dev'] for k in names[2:])}; "
+          f"ring-shift bytes per rank of the binary runs {got_bytes}, expected {want_bytes}")
+    if got_bytes != [want_bytes, want_bytes]:
+        raise AssertionError("phase 22: the binary rings sent other bytes than their payloads")
+    return phases
+
+
 def quant_entry(quant_rows, totals, codec, which, line):
     """The kernels line's entry of one quant kernel: its first shape's
     numbers at the top, every shape in ``shapes``, and for a kernel with a
@@ -1663,7 +2015,8 @@ def main():
     _build.load()
     print(f"[1] {torch.cuda.get_device_name(0)}; torch {torch.__version__} CUDA {torch.version.cuda}; "
           f"kernels built in {_build.last_build_seconds:.1f} s (load {time.perf_counter() - t0:.1f} s)")
-    for kernel, said in _build.ptxas_summary(_build.last_build_log).items():
+    PTXAS.update(_build.ptxas_summary(_build.last_build_log))
+    for kernel, said in PTXAS.items():
         print(f"[1] ptxas {kernel}: {said}")
 
     # -- 2. kernels vs twins ----------------------------------------------------
@@ -1920,6 +2273,15 @@ def main():
     ring_rows += flux_rows["ring"]
     cring_rows += flux_rows["cring"]
 
+    # -- 20.-22. kernels 1, 4, 7 and 8 in fp32; PixArt in fp32 ----------------
+    torch.cuda.empty_cache()
+    f32_rows = check_f32_kernels(flash, ring_flash, timing, dev, gen)
+    torch.cuda.empty_cache()
+    f32_phases, f32_models, f32_lossless = f32_pipeline_phase(kernels, dev)
+    phases.update(f32_phases)
+    phases.update(f32_ring_phase(kernels, dev, codecs, f32_models, f32_lossless))
+    del f32_models
+
     totals = {fn.__name__: sum(p["launches"][fn.__name__] for p in phases.values()) for fn in kernels}
     for key in ROUTES.values():
         totals[key] = sum(p["launches"].get(key, 0) for p in phases.values())
@@ -1927,13 +2289,14 @@ def main():
         if count == 0:
             raise AssertionError(f"{name} never launched on the main path")
 
-    def flash_entry(name, line, rows, source="flash_attn.cu", **extra):
+    def flash_entry(name, line, rows, source="flash_attn.cu", key=None, **extra):
         """One kernel of kernels 1, 4, 7 and 8: its first shape's numbers
         at the top (eager ``ms`` and, where measured, ``graph_ms``), every
         shape in ``shapes`` (with the tile body it ran, where it has a
-        ``plan``); ``source`` holds the ``__global__`` functions."""
+        ``plan``); ``source`` holds the ``__global__`` functions; ``key``
+        the count of its launches (default: ``name``'s)."""
         return {"name": name, "route": "cuda", "source": f"compactfusion_tpu_torch/csrc/{source}",
-                "replaces": line, "launches": totals[name],
+                "replaces": line, "launches": totals[key or name],
                 "max_abs_err": max(r["max_abs_err_out"] for r in rows),
                 "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
                 "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
@@ -1971,8 +2334,24 @@ def main():
                       for r in part_rows]},
         {"name": "plumb", "route": "cuda", "source": "compactfusion_tpu_torch/csrc/probes.cu",
          "replaces": "_prof2_dbg.py:75", "launches": totals["plumb"], "library_ms": None, **plumb_row},
-    ], "sdpa_cross_attention": cross_rows, "phases": phases}
-    print(f"[done] phases 1-19 passed in {time.perf_counter() - t_run:.1f} s, the kernels' build included")
+        flash_entry("flash_attn_with_lse (fp32)", "compactfusion_tpu/ops/flash_pallas.py:593", f32_rows["flash"],
+                    key=F32["flash_attn_with_lse"],
+                    launches_by_route={"register body (d <= 128)": totals[F32["flash_attn_with_lse"]] - totals[F32_WIDE],
+                                       "wide body (128 < d <= 512), csrc/flash_wide.cu": totals[F32_WIDE]}),
+        flash_entry("flash_attn_window_with_lse (fp32)", "compactfusion_tpu/ops/flash_pallas.py:508",
+                    f32_rows["window"], key=F32["flash_attn_window_with_lse"]),
+        flash_entry("ring_flash_attn_with_lse (fp32)", "compactfusion_tpu/ops/ring_flash_pallas.py:347",
+                    f32_rows["ring"], "ring_flash.cu", key=F32["ring_flash_attn_with_lse"]),
+        flash_entry("compact_ring_flash (fp32)", "compactfusion_tpu/ops/ring_flash_pallas.py:954",
+                    [{k: v for k, v in r.items() if k != "ef"} for r in f32_rows["cring"]], "ring_flash.cu",
+                    key=F32["compact_ring_flash"]),
+        {"name": "ef_update_slot (fp32)", "route": "cuda", "source": "compactfusion_tpu_torch/csrc/ring_flash.cu",
+         "replaces": "compactfusion_tpu/ops/ring_flash_pallas.py:954", "launches": totals[F32["ef_update_slot"]],
+         "max_abs_err": max(r["ef"]["max_abs_err"] for r in f32_rows["cring"]), "library_ms": None,
+         **{k: f32_rows["cring"][0]["ef"][k] for k in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by")},
+         "shapes": [dict(r["ef"], shape=r["shape"]) for r in f32_rows["cring"]]},
+    ], "sdpa_cross_attention": cross_rows, "fp32_ptxas": f32_rows["ptxas"], "phases": phases}
+    print(f"[done] phases 1-22 passed in {time.perf_counter() - t_run:.1f} s, the kernels' build included")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,4 +1,6 @@
-// Non-causal flash attention with a natural-log LSE, bf16 in, fp32 math:
+// Non-causal flash attention with a natural-log LSE, bf16 or fp32 in, fp32
+// math (fp32 in: the register and wide bodies only, their products in
+// 3xTF32, flash_reg.cuh's note; the *_f32_kernel instantiations):
 // full attention (flash_fwd_reg_kernel for head dims up to 128, on the
 // register body of flash_reg.cuh; flash_fwd_wide_kernel for 128 < d <= 512,
 // on the wide body of flash_wide.cuh, the register body split over warps by
@@ -90,21 +92,51 @@ flash_window_reg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
       blockIdx.z, Carry{}, window);
 }
 
-template <int DP, int NWARPS, bool BAND>
-int launch_reg(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-               Strides sq, Strides sk, Strides sv, __nv_bfloat16* out, float* lse,
-               const int* kv_lens, int B, int Sq, int Sk, int H, int D, float scale_log2,
-               int window, cudaStream_t stream) {
-  constexpr int BQ = 16 * NWARPS, BYTES = RegLayout<DP, NWARPS>::kBytes;
+template <int DP, int NWARPS>
+__global__ void __launch_bounds__(32 * NWARPS)
+flash_fwd_reg_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, Strides sq, Strides sk, Strides sv,
+                         float* __restrict__ out, float* __restrict__ lse,
+                         const int* __restrict__ kv_lens, int H, int Sq, int Sk, int D,
+                         float scale_log2) {
+  const int b = blockIdx.z;
+  const int kv_len = kv_lens != nullptr ? min(max(kv_lens[b], 0), Sk) : Sk;
+  flash_reg_tile<float, DP, NWARPS, false>(q, k, v, sq, sk, sv, out, lse, kv_len, H, Sq, D,
+                                           scale_log2, blockIdx.x * 16 * NWARPS, blockIdx.y, b,
+                                           Carry{});
+}
+
+template <int DP, int NWARPS>
+__global__ void __launch_bounds__(32 * NWARPS)
+flash_window_reg_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, Strides sq, Strides sk, Strides sv,
+                            float* __restrict__ out, float* __restrict__ lse, int H, int S, int D,
+                            float scale_log2, int window) {
+  flash_reg_tile<float, DP, NWARPS, false, kAllParts, true>(
+      q, k, v, sq, sk, sv, out, lse, S, H, S, D, scale_log2, blockIdx.x * 16 * NWARPS, blockIdx.y,
+      blockIdx.z, Carry{}, window);
+}
+
+template <typename T, int DP, int NWARPS, bool BAND>
+int launch_reg(const T* q, const T* k, const T* v, Strides sq, Strides sk, Strides sv, T* out,
+               float* lse, const int* kv_lens, int B, int Sq, int Sk, int H, int D,
+               float scale_log2, int window, cudaStream_t stream) {
+  constexpr int BQ = 16 * NWARPS, BYTES = RegLayout<DP, NWARPS, static_cast<int>(sizeof(T))>::kBytes;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   if constexpr (BAND) {
-    auto kern = flash_window_reg_kernel<DP, NWARPS>;
+    auto kern = [] {
+      if constexpr (sizeof(T) == 4) return flash_window_reg_f32_kernel<DP, NWARPS>;
+      else return flash_window_reg_kernel<DP, NWARPS>;
+    }();
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
     if (e != cudaSuccess) return static_cast<int>(e);
     kern<<<grid, 32 * NWARPS, BYTES, stream>>>(q, k, v, sq, sk, sv, out, lse, H, Sq, D, scale_log2,
                                                window);
   } else {
-    auto kern = flash_fwd_reg_kernel<DP, NWARPS>;
+    auto kern = [] {
+      if constexpr (sizeof(T) == 4) return flash_fwd_reg_f32_kernel<DP, NWARPS>;
+      else return flash_fwd_reg_kernel<DP, NWARPS>;
+    }();
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
     if (e != cudaSuccess) return static_cast<int>(e);
     kern<<<grid, 32 * NWARPS, BYTES, stream>>>(q, k, v, sq, sk, sv, out, lse, kv_lens, H, Sq, Sk,
@@ -164,25 +196,26 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch the plan (body, dp, warps): the register body at a built (dp,
-// warps) with D <= dp; full attention also the wide body at a built (dp,
-// warps); or the shared-memory body with dp = D rounded up to 16 and 2 warps
-// (32x32 tiles), or, banded, 4 (64x64); anything else is an error.  BAND
-// takes the banded kernel of the same body.
-template <bool BAND>
+// Launch the plan (body, dp, warps) on T elements: the register body at a
+// built (dp, warps) with D <= dp; full attention also the wide body at a
+// built (dp, warps); or, bf16 only, the shared-memory body with dp = D
+// rounded up to 16 and 2 warps (32x32 tiles), or, banded, 4 (64x64);
+// anything else is an error.  BAND takes the banded kernel of the same body.
+template <typename T, bool BAND>
 int dispatch(const void* q, const void* k, const void* v, long long qsb, long long qss,
              long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
              long long vss, long long vsh, void* out, void* lse, const void* kv_lens, int B,
              int Sq, int Sk, int H, int D, float scale, int window, int body, int dp, int warps,
              void* stream) {
+  constexpr bool kF32 = sizeof(T) == 4;
   const cudaError_t refused = cudaErrorInvalidValue;
   if (D % 8 != 0 || D > dp) return static_cast<int>(refused);
   if (B == 0 || Sq == 0 || H == 0) return 0;
   const Strides sq{qsb, qss, qsh}, sk{ksb, kss, ksh}, sv{vsb, vss, vsh};
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  auto* op = static_cast<__nv_bfloat16*>(out);
+  const auto* qp = static_cast<const T*>(q);
+  const auto* kp = static_cast<const T*>(k);
+  const auto* vp = static_cast<const T*>(v);
+  auto* op = static_cast<T*>(out);
   auto* lp = static_cast<float*>(lse);
   const auto* lens = static_cast<const int*>(kv_lens);
   const auto st = static_cast<cudaStream_t>(stream);
@@ -190,8 +223,8 @@ int dispatch(const void* q, const void* k, const void* v, long long qsb, long lo
   if (body == kRegBody) {
 #define CF_REG_CASE(DPV, W)                                                                  \
   if (dp == DPV && warps == W) {                                                              \
-    return launch_reg<DPV, W, BAND>(qp, kp, vp, sq, sk, sv, op, lp, lens, B, Sq, Sk, H, D, sl2, \
-                                    window, st);                                              \
+    return launch_reg<T, DPV, W, BAND>(qp, kp, vp, sq, sk, sv, op, lp, lens, B, Sq, Sk, H, D, sl2, \
+                                       window, st);                                              \
   }
     CF_REG_PLANS(CF_REG_CASE)
 #undef CF_REG_CASE
@@ -200,22 +233,26 @@ int dispatch(const void* q, const void* k, const void* v, long long qsb, long lo
   if (body == kWideBody) {
     if (BAND) return static_cast<int>(refused);
     return cf_flash_wide_launch(q, k, v, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, out, lse,
-                                kv_lens, B, Sq, Sk, H, D, sl2, dp, warps, stream);
+                                kv_lens, B, Sq, Sk, H, D, sl2, dp, warps, kF32, stream);
   }
-  if (body != kTileBody || dp != round_up(D, 16)) return static_cast<int>(refused);
-  // 32x32 tiles with 2 warps (d=520: ~174 KB of shared memory); banded, also
-  // 64x64 tiles with 4
-  if (warps == 2) {
-    return launch<2, 32, BAND>(qp, kp, vp, sq, sk, sv, op, lp, lens, B, Sq, Sk, H, D, sl2,
-                               window, st);
-  }
-  if constexpr (BAND) {
-    if (warps == 4) {
-      return launch<4, 64, BAND>(qp, kp, vp, sq, sk, sv, op, lp, lens, B, Sq, Sk, H, D, sl2,
+  if constexpr (kF32) {
+    return static_cast<int>(refused);  // flash_tile is bf16's
+  } else {
+    if (body != kTileBody || dp != round_up(D, 16)) return static_cast<int>(refused);
+    // 32x32 tiles with 2 warps (d=520: ~174 KB of shared memory); banded, also
+    // 64x64 tiles with 4
+    if (warps == 2) {
+      return launch<2, 32, BAND>(qp, kp, vp, sq, sk, sv, op, lp, lens, B, Sq, Sk, H, D, sl2,
                                  window, st);
     }
+    if constexpr (BAND) {
+      if (warps == 4) {
+        return launch<4, 64, BAND>(qp, kp, vp, sq, sk, sv, op, lp, lens, B, Sq, Sk, H, D, sl2,
+                                   window, st);
+      }
+    }
+    return static_cast<int>(refused);
   }
-  return static_cast<int>(refused);
 }
 
 }  // namespace
@@ -227,8 +264,21 @@ extern "C" int cf_flash_attn_bf16(const void* q, const void* k, const void* v,
                                   void* out, void* lse, const void* kv_lens,
                                   int B, int Sq, int Sk, int H, int D, float scale,
                                   int body, int dp, int warps, void* stream) {
-  return dispatch<false>(q, k, v, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, out, lse,
-                         kv_lens, B, Sq, Sk, H, D, scale, 0, body, dp, warps, stream);
+  return dispatch<__nv_bfloat16, false>(q, k, v, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, out,
+                                        lse, kv_lens, B, Sq, Sk, H, D, scale, 0, body, dp, warps,
+                                        stream);
+}
+
+// cf_flash_attn_bf16 on fp32 q/k/v and out: the register and wide bodies
+extern "C" int cf_flash_attn_f32(const void* q, const void* k, const void* v,
+                                 long long qsb, long long qss, long long qsh,
+                                 long long ksb, long long kss, long long ksh,
+                                 long long vsb, long long vss, long long vsh,
+                                 void* out, void* lse, const void* kv_lens,
+                                 int B, int Sq, int Sk, int H, int D, float scale,
+                                 int body, int dp, int warps, void* stream) {
+  return dispatch<float, false>(q, k, v, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, out, lse,
+                                kv_lens, B, Sq, Sk, H, D, scale, 0, body, dp, warps, stream);
 }
 
 // Banded self-attention |i - j| <= window over S keys (Sq == Sk == S); a
@@ -241,9 +291,23 @@ extern "C" int cf_flash_attn_window_bf16(const void* q, const void* k, const voi
                                          int window, float scale, int body, int dp, int warps,
                                          void* stream) {
   if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<true>(q, k, v, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, out, lse,
-                        nullptr, B, S, S, H, D, scale, window < S ? window : S, body, dp, warps,
-                        stream);
+  return dispatch<__nv_bfloat16, true>(q, k, v, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, out,
+                                       lse, nullptr, B, S, S, H, D, scale, window < S ? window : S,
+                                       body, dp, warps, stream);
+}
+
+// cf_flash_attn_window_bf16 on fp32 q/k/v and out: the register body
+extern "C" int cf_flash_attn_window_f32(const void* q, const void* k, const void* v,
+                                        long long qsb, long long qss, long long qsh,
+                                        long long ksb, long long kss, long long ksh,
+                                        long long vsb, long long vss, long long vsh,
+                                        void* out, void* lse, int B, int S, int H, int D,
+                                        int window, float scale, int body, int dp, int warps,
+                                        void* stream) {
+  if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<float, true>(q, k, v, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, out, lse,
+                               nullptr, B, S, S, H, D, scale, window < S ? window : S, body, dp,
+                               warps, stream);
 }
 
 extern "C" const char* cf_error_string(int err) {

@@ -41,9 +41,32 @@
 //    elements, an odd number of 16-byte segments, so the 8 rows of every
 //    ldmatrix phase fall in 8 different bank groups.
 //
-// The element type is a template parameter (MmaOps), built for bf16 only.
-// PARTS switches stages off for the stage probe; every production kernel
-// takes all stages, for which each switch compiles away.
+// The element type is a template parameter (MmaOps): bf16 as above, or
+// fp32 (kernels 1, 4 and 7 on fp32 q/k/v, and kernel 8's flash partial on
+// fp32 reconstructions).  fp32 runs the products in 3xTF32 on
+// mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32: each operand x splits into
+// hi = tf32(x) and lo = tf32(x - hi), and a product is accumulated as
+// lo.hi' + hi.lo' + hi.hi' in fp32, which leaves out lo.lo' and the rounding
+// of lo (about 2^-21 relative), where one TF32 pass would put scores about
+// 1e-3 off; each such triple goes into a zeroed fragment that fp32 adds
+// then fold into the scores or the accumulator (MmaOps<float>::mma), so no
+// truncating tensor-core accumulation runs longer than one triple.  What
+// changes against bf16:
+//  * rows are DP + 4 floats (16-byte aligned, an odd number of 16-byte
+//    segments), so ldmatrix reads Q and K without bank conflicts: an 8 x 8
+//    b16 matrix is 8 rows of 4 floats, and lane l gets row l / 4, word
+//    l % 4, which is the tf32 A fragment of Q and the B fragment of K;
+//  * Q is read from shared memory at every K/V tile (its hi and lo
+//    fragments would take 128 registers a thread at DP 128);
+//  * P's A fragments come from the score fragments with no shuffle, by
+//    reordering the keys of each 8-key step: A column t is key 2t and
+//    column t + 4 key 2t + 1, so a thread's two scores of a row (keys 2t,
+//    2t + 1) are its own A elements; V's B fragment takes the same order,
+//    V[2t][col] and V[2t + 1][col], by 32-bit shared loads (ldmatrix has no
+//    .trans for 32-bit elements), which at a row stride of 4 or 20 mod 32
+//    words fall in 32 different banks.
+// PARTS switches stages off for the stage probe (bf16 only); every
+// production kernel takes all stages, for which each switch compiles away.
 #pragma once
 
 #include "flash_common.cuh"
@@ -113,7 +136,7 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* 
 }
 
 // The tensor-core operations of one element type.  bf16: m16n8k16 with
-// fp32 accumulators; an fp32 type would add its own (tf32 m16n8k8).
+// fp32 accumulators; fp32: 3xTF32 on m16n8k8 (the note above).
 template <typename T>
 struct MmaOps;
 
@@ -140,29 +163,130 @@ struct MmaOps<__nv_bfloat16> {
   static __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 };
 
-// The ring's depth: 3 stages where two CTAs of 3 stages still share an SM,
-// else 2
-template <int DP, int NWARPS>
+template <>
+struct MmaOps<float> {
+  static constexpr int kK = 8;  // depth of one mma
+  // x as hi = tf32(x) and lo = tf32(x - hi); x - hi is exact in fp32
+  static __device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+  }
+  static __device__ __forceinline__ void split4(const unsigned (&x)[4], unsigned (&hi)[4], unsigned (&lo)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split(__uint_as_float(x[i]), hi[i], lo[i]);
+  }
+  // d += a (16 x 8, row) * b (8 x 8, col), one tf32 pass
+  static __device__ __forceinline__ void mma1(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                              unsigned b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+        "{%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  // d += a * b in 3xTF32, the small terms first (a_lo b_hi + a_hi b_lo +
+  // a_hi b_hi) into a zeroed fragment, which is then added to d by fp32
+  // adds that round to nearest: the tensor core's own accumulation
+  // truncates, and chained over the hundreds of steps of a row its bias
+  // grows with the number of keys (3.3e-5 relative at 4608 keys on an H100)
+  static __device__ __forceinline__ void mma(float (&d)[4], const unsigned (&ahi)[4],
+                                             const unsigned (&alo)[4], unsigned bhi0, unsigned bhi1,
+                                             unsigned blo0, unsigned blo1) {
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+    mma1(t, alo, bhi0, bhi1);
+    mma1(t, ahi, blo0, blo1);
+    mma1(t, ahi, bhi0, bhi1);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) d[i] = __fadd_rn(d[i], t[i]);
+  }
+  static __device__ __forceinline__ void store2(float* p, float lo, float hi) {
+    *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+  }
+};
+
+// The shared memory of one CTA for ELEM-byte elements (ops/flash.py::
+// reg_layout mirrors it): rows of DP + 8 bf16 or DP + 4 fp32 elements, an
+// odd number of 16-byte segments; the ring's depth is 3 stages where two
+// CTAs of 3 stages still share an SM, else 2
+template <int DP, int NWARPS, int ELEM = 2>
 struct RegLayout {
-  static constexpr int kLd = DP + 8;  // row stride in elements (bf16)
-  static constexpr int kQBytes = 16 * NWARPS * kLd * 2;
-  static constexpr int kTileBytes = kRegBK * kLd * 2;  // one K or V tile
-  static constexpr int kStages = 2 * (kQBytes + 3 * 2 * kTileBytes) <= 227 * 1024 ? 3 : 2;
+  static constexpr int kLd = DP + 16 / ELEM;  // row stride in elements
+  static constexpr int kQBytes = 16 * NWARPS * kLd * ELEM;
+  static constexpr int kTileBytes = kRegBK * kLd * ELEM;  // one K or V tile
+  static constexpr int kStages = 2 + (2 * (kQBytes + 3 * 2 * kTileBytes) <= 227 * 1024);
   static constexpr int kBytes = kQBytes + kStages * 2 * kTileBytes;
 };
 
 // Copy rows [row0, row0 + ROWS) of one (b, h) slice into a shared tile of
-// row stride LD with cp.async; rows at or past valid_rows and columns at or
-// past d are zero-filled.  Needs d % 8 == 0, 16-byte aligned rows.
+// row stride LD with cp.async, 16 bytes a copy; rows at or past valid_rows
+// and columns at or past d are zero-filled.  Needs d % 8 == 0, 16-byte
+// aligned rows.
 template <typename T, int ROWS, int DP, int LD, int NT>
 __device__ __forceinline__ void async_tile(T* dst, const T* src, long long stride_s, int row0,
                                            int valid_rows, int d, int tid) {
-  constexpr int kChunks = DP / 8;
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // elements per copy
+  constexpr int kChunks = DP / kVec;
 #pragma unroll
   for (int idx = tid; idx < ROWS * kChunks; idx += NT) {
-    const int r = idx / kChunks, c = (idx % kChunks) * 8, row = row0 + r;
+    const int r = idx / kChunks, c = (idx % kChunks) * kVec, row = row0 + r;
     const bool live = row < valid_rows && c < d;
     cp_async16(dst + r * LD + c, live ? src + row * stride_s + c : src, live ? 16 : 0);
+  }
+}
+
+// fp32 scores of one warp's 16 rows [r0, r0 + 16) against NS * 8 keys of
+// a K tile, over the KQ 8-column steps of its columns [c0, c0 + 8 KQ), in
+// 3xTF32: s[n] += Q[rows, c0:] K[8n .. 8n + 8, c0:]^T.  Q's A fragment
+// (rows g, g + 8 at columns t, t + 4) and K's B fragments of two 8-key
+// steps (key g at columns t, t + 4) are each one ldmatrix.x4 of 8 x 4-float
+// matrices, split into hi and lo as they arrive.
+template <int NS, int KQ>
+__device__ __forceinline__ void fp32_scores(float (&s)[NS][4], const float* Qs, const float* Ks,
+                                            int r0, int c0, int LD, int lane) {
+  using Ops = MmaOps<float>;
+#pragma unroll
+  for (int kk = 0; kk < KQ; ++kk) {
+    const int c = c0 + kk * 8;
+    unsigned qa[4], qh[4], ql[4];
+    ldmatrix_x4(qa, Qs + (r0 + (lane % 8) + ((lane / 8) % 2) * 8) * LD + c + (lane / 16) * 4);
+    Ops::split4(qa, qh, ql);
+#pragma unroll
+    for (int np = 0; np < NS / 2; ++np) {  // keys [16 np, 16 np + 16)
+      unsigned kb[4], kh[4], kl[4];
+      ldmatrix_x4(kb, Ks + (np * 16 + (lane % 8) + (lane / 16) * 8) * LD + c + ((lane / 8) % 2) * 4);
+      Ops::split4(kb, kh, kl);
+      Ops::mma(s[2 * np], qh, ql, kh[0], kh[1], kl[0], kl[1]);
+      Ops::mma(s[2 * np + 1], qh, ql, kh[2], kh[3], kl[2], kl[3]);
+    }
+  }
+}
+
+// O[:, c0 + 8n ..] += P V[:, c0 + 8n ..] for one warp in 3xTF32, P the
+// probabilities in the score fragments s (NS steps of 8 keys).  Each 8-key
+// step takes its keys in the order 0, 2, 4, 6 | 1, 3, 5, 7 (A column t is
+// key 2t, t + 4 key 2t + 1), so a thread's A fragment is its own s[n][0, 2,
+// 1, 3] and V's B fragment is V[2t][c], V[2t + 1][c] with c = c0 + 8n + g.
+template <int NS, int NO>
+__device__ __forceinline__ void fp32_pv(float (&o)[NO][4], const float (&s)[NS][4], const float* Vs,
+                                        int c0, int LD, int lane) {
+  using Ops = MmaOps<float>;
+  const int g = lane / 4, tig = lane % 4;
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+    unsigned pa[4], ph[4], pl[4];
+    pa[0] = __float_as_uint(s[n][0]);
+    pa[1] = __float_as_uint(s[n][2]);
+    pa[2] = __float_as_uint(s[n][1]);
+    pa[3] = __float_as_uint(s[n][3]);
+    Ops::split4(pa, ph, pl);
+    const float* v0 = Vs + (n * 8 + 2 * tig) * LD + c0 + g;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      unsigned bh0, bl0, bh1, bl1;
+      Ops::split(v0[j * 8], bh0, bl0);
+      Ops::split(v0[LD + j * 8], bh1, bl1);
+      Ops::mma(o[j], ph, pl, bh0, bh1, bl0, bl1);
+    }
   }
 }
 
@@ -193,8 +317,10 @@ flash_reg_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   static_assert(DP % 16 == 0 && DP <= 128, "the register body pads the head dim to 16..128");
   static_assert(PARTS == kAllParts || !CARRY, "stage switches are for full attention");
   static_assert(!BAND || (PARTS == kAllParts && !CARRY), "the band is kernel 4's alone");
+  constexpr bool kF32 = sizeof(T) == 4;
+  static_assert(!kF32 || PARTS == kAllParts, "the stage probe is bf16's");
   using Ops = MmaOps<T>;
-  using L = RegLayout<DP, NWARPS>;
+  using L = RegLayout<DP, NWARPS, static_cast<int>(sizeof(T))>;
   constexpr bool kAll = PARTS == kAllParts;
   constexpr bool kRescale = (PARTS & kMax) != 0 && (PARTS & kExp) != 0;
   constexpr int BK = kRegBK, BQ = 16 * NWARPS, NT = 32 * NWARPS, LD = L::kLd, STAGES = L::kStages;
@@ -262,7 +388,7 @@ flash_reg_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     }
   }
 
-  unsigned qf[KQ][4];  // Q's A fragments, loaded at the first tile
+  unsigned qf[kF32 ? 1 : KQ][4];  // bf16: Q's A fragments, loaded at the first tile
   for (int t = t_lo; t < t_end; ++t) {
     const int k0 = t * BK;
     cp_async_wait<STAGES - 2>();  // this thread's copies of tile t (and Q) landed
@@ -271,10 +397,12 @@ flash_reg_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     cp_async_commit();
     const T* Ks = ring + (t % STAGES) * 2 * BK * LD;
     const T* Vs = Ks + BK * LD;
-    if (t == t_lo) {
+    if constexpr (!kF32) {
+      if (t == t_lo) {
 #pragma unroll
-      for (int kk = 0; kk < KQ; ++kk) {
-        ldmatrix_x4(qf[kk], Qs + (r0 + (lane % 16)) * LD + kk * 16 + (lane / 16) * 8);
+        for (int kk = 0; kk < KQ; ++kk) {
+          ldmatrix_x4(qf[kk], Qs + (r0 + (lane % 16)) * LD + kk * 16 + (lane / 16) * 8);
+        }
       }
     }
     // BAND: whether this warp's rows [w0, w0 + 16) have keys in the tile, and
@@ -290,7 +418,10 @@ flash_reg_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     float s[NS][4];
 #pragma unroll
     for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    if constexpr ((PARTS & kQK) != 0) {
+    if constexpr (kF32) {
+      fp32_scores<NS, KQ>(s, reinterpret_cast<const float*>(Qs), reinterpret_cast<const float*>(Ks), r0,
+                          0, LD, lane);
+    } else if constexpr ((PARTS & kQK) != 0) {
 #pragma unroll
       for (int kk = 0; kk < KQ; ++kk) {
 #pragma unroll
@@ -379,6 +510,9 @@ flash_reg_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     if constexpr ((PARTS & kAV) != 0) {
       lA = lA * alphaA + sumA;
       lB = lB * alphaB + sumB;
+      if constexpr (kF32) {
+        fp32_pv<NS, NO>(o, s, reinterpret_cast<const float*>(Vs), 0, LD, lane);
+      } else {
       // O += P V: P's A fragments straight from the score fragments
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {  // keys [16 kk, 16 kk + 16)
@@ -394,6 +528,7 @@ flash_reg_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
           Ops::mma(o[2 * dp], pf, vf[0], vf[1]);
           Ops::mma(o[2 * dp + 1], pf, vf[2], vf[3]);
         }
+      }
       }
     } else {
       // no PV product: the accumulator's columns below D take p of the keys

@@ -42,13 +42,20 @@
 // A row with no key writes 0 and LSE -inf.  The body is for full
 // attention alone: banded attention and the ring hop (kernels 4 and 7) take
 // flash_common.cuh::flash_tile above d = 128.
+//
+// fp32 (flash_fwd_wide_f32_kernel) runs flash_reg.cuh's 3xTF32 products
+// (fp32_scores, fp32_pv; Q read from shared memory at every tile) on the
+// same plans.  Its rows are DP + 4 floats, and a 32-key K+V tile would be
+// 132 KB at DP 512, so its tiles hold 16 keys: at DP 512 the Q tile
+// (66,048 bytes), two stages of K and V (132,096) and the exchange (8,192)
+// come to 206,336 bytes; three stages do not fit.
 #pragma once
 
 #include "flash_reg.cuh"
 
 namespace {
 
-constexpr int kWideBK = 32;  // keys per K/V tile
+constexpr int kWideBK = 32;  // keys per bf16 K/V tile
 
 // The (DP, warps) pairs the wide kernel is built for: what
 // ops/flash.py::flash_plan can choose (WIDE_BUILT there).  DP is NSL slices
@@ -57,16 +64,19 @@ constexpr int kWideBK = 32;  // keys per K/V tile
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// The shared memory of one CTA: the Q tile, the K/V ring and the exchange
-template <int DP, int NWARPS>
+// The shared memory of one CTA for ELEM-byte elements (ops/flash.py::
+// wide_layout mirrors it): the Q tile, the K/V ring and the exchange; tiles
+// of kWideBK keys in bf16, half as many in fp32
+template <int DP, int NWARPS, int ELEM = 2>
 struct WideLayout {
   static constexpr int kSlices = cdiv(DP, 128);
   static constexpr int kDs = DP / kSlices;
   static constexpr int kGroups = NWARPS / kSlices;
-  static constexpr int kLd = DP + 8;
-  static constexpr int kQBytes = 16 * kGroups * kLd * 2;
-  static constexpr int kTileBytes = kWideBK * kLd * 2;
-  static constexpr int kXchBytes = NWARPS * 16 * kWideBK * 4;
+  static constexpr int kBK = kWideBK * 2 / ELEM;
+  static constexpr int kLd = DP + 16 / ELEM;
+  static constexpr int kQBytes = 16 * kGroups * kLd * ELEM;
+  static constexpr int kTileBytes = kBK * kLd * ELEM;
+  static constexpr int kXchBytes = NWARPS * 16 * kBK * 4;
   static constexpr int kStages = 2 + (kQBytes + 3 * 2 * kTileBytes + kXchBytes <= 227 * 1024);
   static constexpr int kBytes = kQBytes + kStages * 2 * kTileBytes + kXchBytes;
 };
@@ -77,15 +87,16 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
 }
 
 // The query tile [q0, q0 + 16 kGroups) of head h, batch b against the keys
-// [0, kv_len) in tiles of kWideBK
+// [0, kv_len) in tiles of L::kBK
 template <typename T, int DP, int NWARPS>
 __device__ __forceinline__ void
 flash_wide_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, Strides sq,
                 Strides sk, Strides sv, T* __restrict__ out, float* __restrict__ lse, int kv_len,
                 int H, int Sq, int D, float scale_log2, int q0, int h, int b) {
+  constexpr bool kF32 = sizeof(T) == 4;
   using Ops = MmaOps<T>;
-  using L = WideLayout<DP, NWARPS>;
-  constexpr int BK = kWideBK, NSL = L::kSlices, DS = L::kDs, BQ = 16 * L::kGroups;
+  using L = WideLayout<DP, NWARPS, static_cast<int>(sizeof(T))>;
+  constexpr int BK = L::kBK, NSL = L::kSlices, DS = L::kDs, BQ = 16 * L::kGroups;
   constexpr int NT = 32 * NWARPS, LD = L::kLd, STAGES = L::kStages;
   constexpr int NS = BK / 8;        // score fragments (8 keys each) per row strip
   constexpr int NO = DS / 8;        // accumulator fragments (8 columns each) of the slice
@@ -127,7 +138,7 @@ flash_wide_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   float mA = -CUDART_INF_F, mB = -CUDART_INF_F, lA = 0.f, lB = 0.f;  // l: this thread's part
 #pragma unroll
   for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  unsigned qf[KQ][4];  // Q's A fragments of the slice
+  unsigned qf[kF32 ? 1 : KQ][4];  // bf16: Q's A fragments of the slice
   const T* qw = Qs + (r0 + (lane % 16)) * LD + c0 + (lane / 16) * 8;
   float4* xmine = xch + warp * NS * 32 + lane;          // this warp's partial scores
   const float4* xgrp = xch + grp * NSL * NS * 32 + lane;  // the group's, slice by slice
@@ -140,15 +151,21 @@ flash_wide_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     cp_async_commit();
     const T* Ks = ring + (t % STAGES) * 2 * BK * LD;
     const T* Vs = Ks + BK * LD;
-    if (t == 0) {
+    if constexpr (!kF32) {
+      if (t == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KQ; ++kk) ldmatrix_x4(qf[kk], qw + kk * 16);
+        for (int kk = 0; kk < KQ; ++kk) ldmatrix_x4(qf[kk], qw + kk * 16);
+      }
     }
 
     // partial scores of this warp's 16 rows over its slice: fp32 fragments
     float s[NS][4];
 #pragma unroll
     for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    if constexpr (kF32) {
+      fp32_scores<NS, KQ>(s, reinterpret_cast<const float*>(Qs), reinterpret_cast<const float*>(Ks), r0,
+                          c0, LD, lane);
+    } else {
 #pragma unroll
     for (int kk = 0; kk < KQ; ++kk) {
 #pragma unroll
@@ -159,6 +176,7 @@ flash_wide_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __res
         Ops::mma(s[2 * np], qf[kk], kf[0], kf[1]);
         Ops::mma(s[2 * np + 1], qf[kk], kf[2], kf[3]);
       }
+    }
     }
 
     // the group's full scores: the slices' partials added in slice order
@@ -227,6 +245,9 @@ flash_wide_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     lB = lB * alphaB + sumB;
 
     // O[:, slice] += P V[:, slice]: P's A fragments straight from the scores
+    if constexpr (kF32) {
+      fp32_pv<NS, NO>(o, s, reinterpret_cast<const float*>(Vs), c0, LD, lane);
+    } else {
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {  // keys [16 kk, 16 kk + 16)
       unsigned pf[4];
@@ -241,6 +262,7 @@ flash_wide_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __res
         Ops::mma(o[2 * dp], pf, vf[0], vf[1]);
         Ops::mma(o[2 * dp + 1], pf, vf[2], vf[3]);
       }
+    }
     }
   }
   cp_async_wait<0>();  // no copy outlives the block
@@ -271,11 +293,12 @@ flash_wide_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 
 }  // namespace
 
-// flash_fwd_wide_kernel's launch at the plan (dp, warps), in flash_wide.cu:
-// q/k/v strides (b, s, h) in elements, the softmax scale times log2(e)
+// flash_fwd_wide_kernel's (f32: flash_fwd_wide_f32_kernel's) launch at the
+// plan (dp, warps), in flash_wide.cu: q/k/v strides (b, s, h) in elements,
+// the softmax scale times log2(e)
 extern "C" int cf_flash_wide_launch(const void* q, const void* k, const void* v, long long qsb,
                                     long long qss, long long qsh, long long ksb, long long kss,
                                     long long ksh, long long vsb, long long vss, long long vsh,
                                     void* out, void* lse, const void* kv_lens, int B, int Sq,
                                     int Sk, int H, int D, float scale_log2, int dp, int warps,
-                                    void* stream);
+                                    int f32, void* stream);

@@ -1,7 +1,11 @@
 // The fused ring kernels, one flash launch per ring hop, each folding its
 // hop into a running fp32 online-softmax state (m, l, acc) in device
-// memory; the last hop normalises and writes out (bf16) and LSE (fp32,
-// natural log).
+// memory; the last hop normalises and writes out (in the input dtype, bf16
+// or fp32) and LSE (fp32, natural log).  fp32 q/k/v take the register body
+// in 3xTF32 (flash_reg.cuh's note; ring_flash_hop_reg_f32_kernel, entry
+// cf_ring_flash_hop_f32), and the EF pass then writes fp32 reconstructions
+// (ef_update_fp32_f32rec_kernel, ef_codes_int8_f32rec_kernel), not rounded,
+// as ring_flash_pallas.py rounds them to the activation dtype.
 //
 // Replaces: compactfusion_tpu/ops/ring_flash_pallas.py
 //  * ring_flash_attn_with_lse (_ring_kernel, pallas_call at :347): the
@@ -12,8 +16,8 @@
 //    (ef_update_fp32_kernel, or ef_minmax_int8_kernel then
 //    ef_codes_int8_kernel): dequant of the packed payload (1-bit signs, INT2
 //    sign+magnitude, or LOW_RANK u.v) and the EF update of the source slot
-//    in place, with a bf16 copy of the reconstruction; then kernel 7's hop
-//    on that copy (the local exact K/V at hop 0).
+//    in place, with a copy of the reconstruction in the activation dtype;
+//    then kernel 7's hop on that copy (the local exact K/V at hop 0).
 // The TPU kernels move K/V or the payload between chips by RDMA inside one
 // launch, with entry and neighbour fences.  Here the host exchanges the
 // next hop's block (torch.distributed, two-sided, so ordered by itself)
@@ -70,6 +74,16 @@ ring_flash_hop_reg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
                                                   blockIdx.z, carry);
 }
 
+template <int DP, int NWARPS>
+__global__ void __launch_bounds__(32 * NWARPS)
+ring_flash_hop_reg_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, Strides sq, Strides sk, Strides sv,
+                              float* __restrict__ out, float* __restrict__ lse, int H, int Sq, int Sk,
+                              int D, float scale_log2, Carry carry) {
+  flash_reg_tile<float, DP, NWARPS, true>(q, k, v, sq, sk, sv, out, lse, Sk, H, Sq, D, scale_log2,
+                                          blockIdx.x * 16 * NWARPS, blockIdx.y, blockIdx.z, carry);
+}
+
 template <int NWARPS, int BK>
 __global__ void __launch_bounds__(32 * NWARPS)
 ring_flash_hop_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -90,7 +104,7 @@ struct SlotArgs {
   void* base[2];                // slot src: (N, C) fp32, or (N, C) uint8 codes
   __nv_bfloat16* bscale[2];     // slot src (1, C) bf16 int8 scale, or null
   __nv_bfloat16* bmin[2];       // slot src (1, C) bf16 int8 minimum, or null
-  __nv_bfloat16* rec[2];        // (N, C) = (B, Sk, H, D) bf16 reconstruction, or null (hop 0)
+  void* rec[2];                 // (N, C) = (B, Sk, H, D) reconstruction (bf16 or fp32), or null (hop 0)
   float* part;                  // int8: (2, row tiles, 2, C) each tile's min and max per channel
   __nv_bfloat16* snap;          // int8: (2, 2, C) the slot's old scale and min
   int rank;                     // K
@@ -114,7 +128,7 @@ struct SlotOf {
   void* base;
   __nv_bfloat16* bscale;
   __nv_bfloat16* bmin;
-  __nv_bfloat16* rec;
+  void* rec;
 };
 
 __device__ __forceinline__ SlotOf slot_of(const SlotArgs& a, int w) {
@@ -178,15 +192,20 @@ __device__ __forceinline__ float reconstruct(const SlotArgs& a, const SlotOf& p,
 constexpr int kEfRowsPerThread = kEfRows / kEfLanes;
 __device__ __forceinline__ int tile_row(int i) { return blockIdx.y * kEfRows + threadIdx.y + i * kEfLanes; }
 
+// The reconstruction in the activation dtype: rounded to bf16, or as it is
+__device__ __forceinline__ void put_rec(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void put_rec(float* p, float x) { *p = x; }
+
 // fp32 bases: every element is read, rebuilt and written back in place by
-// one thread, and its bf16 copy goes to rec after hop 0
-__global__ void __launch_bounds__(kEfCols * kEfLanes) ef_update_fp32_kernel(SlotArgs a) {
+// one thread, and its copy in the activation dtype R goes to rec after hop 0
+template <typename R>
+__device__ __forceinline__ void ef_update_fp32(const SlotArgs& a) {
   const int col = blockIdx.x * kEfCols + threadIdx.x;
   if (col >= a.C) return;
   const SlotOf p = slot_of(a, blockIdx.z);
   const ColOf c = col_of(a, col);
   float* base = static_cast<float*>(p.base);
-  __nv_bfloat16* rec = p.rec;
+  R* rec = static_cast<R*>(p.rec);
 #pragma unroll
   for (int i = 0; i < kEfRowsPerThread; ++i) {
     const int row = tile_row(i);
@@ -194,8 +213,16 @@ __global__ void __launch_bounds__(kEfCols * kEfLanes) ef_update_fp32_kernel(Slot
     const float blk = reconstruct(a, p, c, row, nullptr, nullptr);
     const long long idx = static_cast<long long>(row) * a.C + col;
     base[idx] = blk;
-    if (rec != nullptr) rec[idx] = __float2bfloat16(blk);
+    if (rec != nullptr) put_rec(rec + idx, blk);
   }
+}
+
+__global__ void __launch_bounds__(kEfCols * kEfLanes) ef_update_fp32_kernel(SlotArgs a) {
+  ef_update_fp32<__nv_bfloat16>(a);
+}
+
+__global__ void __launch_bounds__(kEfCols * kEfLanes) ef_update_fp32_f32rec_kernel(SlotArgs a) {
+  ef_update_fp32<float>(a);
 }
 
 // int8 bases, pass 1: each tile's min and max of the new block per channel
@@ -240,8 +267,10 @@ __global__ void __launch_bounds__(kEfCols * kEfLanes) ef_minmax_int8_kernel(Slot
 // any order), then the codes with the scale's true division by 255, as
 // codecs.encode_int8 takes them (each element read, then written, by one
 // thread; the old scale and min read from snap); the first row tile writes
-// the new scale and min in place
-__global__ void __launch_bounds__(kEfCols * kEfLanes) ef_codes_int8_kernel(SlotArgs a) {
+// the new scale and min in place; the reconstruction goes to rec in the
+// activation dtype R
+template <typename R>
+__device__ __forceinline__ void ef_codes_int8(const SlotArgs& a) {
   __shared__ float mn_s[kEfCols], sc_s[kEfCols];
   const int w = blockIdx.z, tx = threadIdx.x, ty = threadIdx.y;
   const int col = blockIdx.x * kEfCols + tx;
@@ -266,7 +295,7 @@ __global__ void __launch_bounds__(kEfCols * kEfLanes) ef_codes_int8_kernel(SlotA
   const float mn = mn_s[tx], sc = sc_s[tx];
   const __nv_bfloat16* old = a.snap + 2 * w * a.C;
   uint8_t* codes = static_cast<uint8_t*>(p.base);
-  __nv_bfloat16* rec = p.rec;
+  R* rec = static_cast<R*>(p.rec);
   const ColOf c = col_of(a, col);
 #pragma unroll
   for (int i = 0; i < kEfRowsPerThread; ++i) {
@@ -276,8 +305,16 @@ __global__ void __launch_bounds__(kEfCols * kEfLanes) ef_codes_int8_kernel(SlotA
     const float code = fminf(fmaxf(rintf(__fdiv_rn(__fsub_rn(blk, mn), sc)), 0.f), 255.f);
     const long long idx = static_cast<long long>(row) * a.C + col;
     codes[idx] = static_cast<uint8_t>(code);
-    if (rec != nullptr) rec[idx] = __float2bfloat16(blk);
+    if (rec != nullptr) put_rec(rec + idx, blk);
   }
+}
+
+__global__ void __launch_bounds__(kEfCols * kEfLanes) ef_codes_int8_kernel(SlotArgs a) {
+  ef_codes_int8<__nv_bfloat16>(a);
+}
+
+__global__ void __launch_bounds__(kEfCols * kEfLanes) ef_codes_int8_f32rec_kernel(SlotArgs a) {
+  ef_codes_int8<float>(a);
 }
 
 template <typename Kern>
@@ -300,17 +337,66 @@ int launch_ring_hop(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_b
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP, int NWARPS>
-int launch_ring_hop_reg(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                        Strides sq, Strides sk, Strides sv, __nv_bfloat16* out, float* lse, int B,
-                        int Sq, int Sk, int H, int D, float scale_log2, Carry carry,
-                        cudaStream_t stream) {
-  constexpr int BQ = 16 * NWARPS, BYTES = RegLayout<DP, NWARPS>::kBytes;
-  if (int e = set_smem(ring_flash_hop_reg_kernel<DP, NWARPS>, BYTES)) return e;
+template <typename T, int DP, int NWARPS>
+int launch_ring_hop_reg(const T* q, const T* k, const T* v, Strides sq, Strides sk, Strides sv,
+                        T* out, float* lse, int B, int Sq, int Sk, int H, int D, float scale_log2,
+                        Carry carry, cudaStream_t stream) {
+  constexpr int BQ = 16 * NWARPS, BYTES = RegLayout<DP, NWARPS, static_cast<int>(sizeof(T))>::kBytes;
+  auto kern = [] {
+    if constexpr (sizeof(T) == 4) return ring_flash_hop_reg_f32_kernel<DP, NWARPS>;
+    else return ring_flash_hop_reg_kernel<DP, NWARPS>;
+  }();
+  if (int e = set_smem(kern, BYTES)) return e;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  ring_flash_hop_reg_kernel<DP, NWARPS><<<grid, 32 * NWARPS, BYTES, stream>>>(
-      q, k, v, sq, sk, sv, out, lse, H, Sq, Sk, D, scale_log2, carry);
+  kern<<<grid, 32 * NWARPS, BYTES, stream>>>(q, k, v, sq, sk, sv, out, lse, H, Sq, Sk, D, scale_log2,
+                                             carry);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One hop at the plan (body, dp, warps) on T elements: the register body at
+// a built (dp, warps) with D <= dp, or, bf16 only, the shared-memory body
+// with dp = D rounded up to 16 and 4 or 2 warps; anything else is an error
+template <typename T>
+int ring_hop(const void* q, const void* k, const void* v, long long qsb, long long qss,
+             long long qsh, long long ksb, long long kss, long long ksh, long long vsb, long long vss,
+             long long vsh, void* m, void* l, void* acc, void* out, void* lse, int B, int Sq, int Sk,
+             int H, int D, float scale, int first, int last, int body, int dp, int warps,
+             void* stream) {
+  const cudaError_t refused = cudaErrorInvalidValue;
+  if (D % 8 != 0 || D > dp) return static_cast<int>(refused);
+  if (B == 0 || Sq == 0 || H == 0) return 0;
+  const Carry carry{static_cast<float*>(m), static_cast<float*>(l), static_cast<float*>(acc),
+                    first, last};
+  const auto* qp = static_cast<const T*>(q);
+  const auto* kp = static_cast<const T*>(k);
+  const auto* vp = static_cast<const T*>(v);
+  auto* op = static_cast<T*>(out);
+  auto* lp = static_cast<float*>(lse);
+  const Strides sq{qsb, qss, qsh}, sk{ksb, kss, ksh}, sv{vsb, vss, vsh};
+  const auto st = static_cast<cudaStream_t>(stream);
+  const float sl2 = scale * kLog2e;
+  if (body == kRegBody) {
+#define CF_REG_CASE(DPV, W)                                                                         \
+  if (dp == DPV && warps == W) {                                                                     \
+    return launch_ring_hop_reg<T, DPV, W>(qp, kp, vp, sq, sk, sv, op, lp, B, Sq, Sk, H, D, sl2, carry, \
+                                          st);                                                       \
+  }
+    CF_REG_PLANS(CF_REG_CASE)
+#undef CF_REG_CASE
+    return static_cast<int>(refused);
+  }
+  if constexpr (sizeof(T) == 4) {
+    return static_cast<int>(refused);  // flash_tile is bf16's
+  } else {
+    if (body != kTileBody || dp != round_up(D, 16)) return static_cast<int>(refused);
+    if (warps == 4) {
+      return launch_ring_hop<4, 64>(qp, kp, vp, sq, sk, sv, op, lp, B, Sq, Sk, H, D, sl2, carry, st);
+    }
+    if (warps == 2) {
+      return launch_ring_hop<2, 32>(qp, kp, vp, sq, sk, sv, op, lp, B, Sq, Sk, H, D, sl2, carry, st);
+    }
+    return static_cast<int>(refused);
+  }
 }
 
 }  // namespace
@@ -328,53 +414,37 @@ extern "C" int cf_ring_flash_hop_bf16(const void* q, const void* k, const void* 
                                       int B, int Sq, int Sk, int H, int D, float scale,
                                       int first, int last, int body, int dp, int warps,
                                       void* stream) {
-  const cudaError_t refused = cudaErrorInvalidValue;
-  if (D % 8 != 0 || D > dp) return static_cast<int>(refused);
-  if (B == 0 || Sq == 0 || H == 0) return 0;
-  const Carry carry{static_cast<float*>(m), static_cast<float*>(l), static_cast<float*>(acc),
-                    first, last};
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-  auto* lp = static_cast<float*>(lse);
-  const Strides sq{qsb, qss, qsh}, sk{ksb, kss, ksh}, sv{vsb, vss, vsh};
-  const auto st = static_cast<cudaStream_t>(stream);
-  const float sl2 = scale * kLog2e;
-  if (body == kRegBody) {
-#define CF_REG_CASE(DPV, W)                                                                      \
-  if (dp == DPV && warps == W) {                                                                  \
-    return launch_ring_hop_reg<DPV, W>(qp, kp, vp, sq, sk, sv, op, lp, B, Sq, Sk, H, D, sl2, carry, \
-                                       st);                                                       \
-  }
-    CF_REG_PLANS(CF_REG_CASE)
-#undef CF_REG_CASE
-    return static_cast<int>(refused);
-  }
-  if (body != kTileBody || dp != round_up(D, 16)) return static_cast<int>(refused);
-  if (warps == 4) {
-    return launch_ring_hop<4, 64>(qp, kp, vp, sq, sk, sv, op, lp, B, Sq, Sk, H, D, sl2, carry, st);
-  }
-  if (warps == 2) {
-    return launch_ring_hop<2, 32>(qp, kp, vp, sq, sk, sv, op, lp, B, Sq, Sk, H, D, sl2, carry, st);
-  }
-  return static_cast<int>(refused);
+  return ring_hop<__nv_bfloat16>(q, k, v, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, m, l, acc, out,
+                                 lse, B, Sq, Sk, H, D, scale, first, last, body, dp, warps, stream);
+}
+
+// cf_ring_flash_hop_bf16 on fp32 q/k/v and out: the register body
+extern "C" int cf_ring_flash_hop_f32(const void* q, const void* k, const void* v,
+                                     long long qsb, long long qss, long long qsh,
+                                     long long ksb, long long kss, long long ksh,
+                                     long long vsb, long long vss, long long vsh,
+                                     void* m, void* l, void* acc, void* out, void* lse,
+                                     int B, int Sq, int Sk, int H, int D, float scale,
+                                     int first, int last, int body, int dp, int warps,
+                                     void* stream) {
+  return ring_hop<float>(q, k, v, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, m, l, acc, out, lse, B,
+                         Sq, Sk, H, D, scale, first, last, body, dp, warps, stream);
 }
 
 // The EF pass of one hop of the compressed ring (kernel 8's flash partial
-// is cf_ring_flash_hop_bf16 on its output).  pk/pv: per-head packed codes
+// is cf_ring_flash_hop_bf16, or _f32, on its output).  pk/pv: per-head packed codes
 // (null for LOW_RANK); uk/uv (N, K), vk/vv (K, C) bf16 scales; kb/vb the
 // source slot of the EF stacks, (N, C) fp32, or uint8 codes with ks/km,
 // vs/vm its (1, C) bf16 scale and min when quantized (then B == 1, and
 // part (2, part_rows, 2, C) fp32 with part_rows = ceil(N / kEfRows) and
-// snap (2, 2, C) bf16 are scratch); rec_k/rec_v (B, Sk, H, D) bf16 for the
-// reconstruction, or null (hop 0); codec 0 binary, 1 int2, 2 lowrank.
-// Launches one kernel on fp32 bases, two on int8 bases.
+// snap (2, 2, C) bf16 are scratch); rec_k/rec_v (B, Sk, H, D) bf16 (fp32
+// with rec_f32) for the reconstruction, or null (hop 0); codec 0 binary,
+// 1 int2, 2 lowrank.  Launches one kernel on fp32 bases, two on int8 bases.
 extern "C" int cf_ef_update_slot(const void* pk, const void* pv, const void* uk, const void* uv,
                                  const void* vk, const void* vv, int rank, void* kb, void* ks,
                                  void* km, void* vb, void* vs, void* vm, void* rec_k, void* rec_v,
                                  void* part, void* snap, int part_rows, int B, int Sk, int H,
-                                 int D, int codec, int quantized, void* stream) {
+                                 int D, int codec, int quantized, int rec_f32, void* stream) {
   const int N = B * Sk, C = H * D;
   const int row_tiles = (N + kEfRows - 1) / kEfRows;
   if (N == 0 || C == 0) return 0;
@@ -397,8 +467,8 @@ extern "C" int cf_ef_update_slot(const void* pk, const void* pv, const void* uk,
   a.bscale[1] = static_cast<__nv_bfloat16*>(vs);
   a.bmin[0] = static_cast<__nv_bfloat16*>(km);
   a.bmin[1] = static_cast<__nv_bfloat16*>(vm);
-  a.rec[0] = static_cast<__nv_bfloat16*>(rec_k);
-  a.rec[1] = static_cast<__nv_bfloat16*>(rec_v);
+  a.rec[0] = rec_k;
+  a.rec[1] = rec_v;
   a.part = static_cast<float*>(part);
   a.snap = static_cast<__nv_bfloat16*>(snap);
   a.rank = rank;
@@ -411,11 +481,13 @@ extern "C" int cf_ef_update_slot(const void* pk, const void* pv, const void* uk,
   const auto st = static_cast<cudaStream_t>(stream);
   const dim3 grid((C + kEfCols - 1) / kEfCols, row_tiles, 2), block(kEfCols, kEfLanes);
   if (!quantized) {
-    ef_update_fp32_kernel<<<grid, block, 0, st>>>(a);
+    if (rec_f32) ef_update_fp32_f32rec_kernel<<<grid, block, 0, st>>>(a);
+    else ef_update_fp32_kernel<<<grid, block, 0, st>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
   ef_minmax_int8_kernel<<<grid, block, 0, st>>>(a);
   if (cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
-  ef_codes_int8_kernel<<<grid, block, 0, st>>>(a);
+  if (rec_f32) ef_codes_int8_f32rec_kernel<<<grid, block, 0, st>>>(a);
+  else ef_codes_int8_kernel<<<grid, block, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

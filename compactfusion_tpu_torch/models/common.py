@@ -139,10 +139,12 @@ def patch_positions_2d(h_patches: int, w_patches: int, device=None) -> torch.Ten
 
 
 def _sincos_embed_1d(x: torch.Tensor, d: int) -> torch.Tensor:
+    """sin and cos of the fp32 arguments x * omega, each evaluated in float64
+    by numpy (one thread) and rounded to fp32 once."""
     omega = torch.arange(d // 2, dtype=torch.float32) / (d / 2.0)
     omega = 1.0 / (10000.0**omega)
-    out = x[:, None] * omega[None, :]
-    return torch.cat([torch.sin(out), torch.cos(out)], dim=-1)
+    out = (x[:, None] * omega[None, :]).numpy().astype(np.float64)
+    return torch.from_numpy(np.concatenate([np.sin(out), np.cos(out)], axis=-1).astype(np.float32))
 
 
 def sincos_pos_embed_2d(dim: int, h_patches: int, w_patches: int,
@@ -151,7 +153,12 @@ def sincos_pos_embed_2d(dim: int, h_patches: int, w_patches: int,
     """2D sin-cos positional table (H*W, dim), raster order, fp32, on the CPU.
 
     The first half of the channels embeds the column coordinate (diffusers
-    ``get_2d_sincos_pos_embed``)."""
+    ``get_2d_sincos_pos_embed``).  The arguments are the fp32 products the
+    JAX package forms; their sin and cos are taken in float64 on one thread
+    (:func:`_sincos_embed_1d`), so every process gets the same bits: torch's
+    fp32 sin/cos over the whole table, on a busy host, gave a table that
+    differed in a few elements between processes, and with it requests of
+    one pipeline, or ranks of one ring, that disagreed."""
     rows = torch.arange(h_patches).repeat_interleave(w_patches).float()
     cols = torch.arange(w_patches).repeat(h_patches).float()
     if base_size is not None:

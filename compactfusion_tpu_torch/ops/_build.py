@@ -122,6 +122,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         P,                # stream
     ]
     lib.cf_flash_attn_bf16.restype = I
+    lib.cf_flash_attn_f32.argtypes = lib.cf_flash_attn_bf16.argtypes  # fp32 q/k/v and out
+    lib.cf_flash_attn_f32.restype = I
     lib.cf_flash_attn_window_bf16.argtypes = [
         P, P, P,          # q, k, v
         L, L, L,          # q strides (b, s, h) in elements
@@ -135,6 +137,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         P,                # stream
     ]
     lib.cf_flash_attn_window_bf16.restype = I
+    lib.cf_flash_attn_window_f32.argtypes = lib.cf_flash_attn_window_bf16.argtypes
+    lib.cf_flash_attn_window_f32.restype = I
     for codec in ("binary", "int2"):
         quant, dequant = getattr(lib, f"cf_{codec}_quant"), getattr(lib, f"cf_{codec}_dequant")
         quant.argtypes = [
@@ -167,15 +171,18 @@ def _declare(lib: ctypes.CDLL) -> None:
         P,                # stream
     ]
     lib.cf_ring_flash_hop_bf16.restype = I
+    lib.cf_ring_flash_hop_f32.argtypes = lib.cf_ring_flash_hop_bf16.argtypes  # fp32 q/k/v and out
+    lib.cf_ring_flash_hop_f32.restype = I
     lib.cf_ef_update_slot.argtypes = [
         P, P,             # packed codes of K and V (NULL for LOW_RANK)
         P, P, P, P, I,    # u_k, u_v (N,K), v_k, v_v (K,C) bf16, K
         P, P, P,          # K base slot: fp32 or int8 codes, int8 scale, int8 min
         P, P, P,          # V base slot
-        P, P,             # reconstruction of K and V (B,Sk,H,D) bf16, or NULL (hop 0)
+        P, P,             # reconstruction of K and V (B,Sk,H,D), or NULL (hop 0)
         P, P, I,          # int8 scratch: tile min/max (2,T,2,C) fp32, old scale/min (2,2,C) bf16, T
         I, I, I, I,       # B, Sk, H, D
         I, I,             # codec (0 binary, 1 int2, 2 lowrank), quantized
+        I,                # the reconstruction is fp32 (else bf16)
         P,                # stream
     ]
     lib.cf_ef_update_slot.restype = I

@@ -19,7 +19,6 @@ from typing import Optional, Tuple
 
 import torch
 
-from compactfusion_tpu_torch import ROADMAP_HINT
 from compactfusion_tpu_torch.ops.flash import flash_attn_with_lse
 
 NEG_INF = -1e30
@@ -140,10 +139,6 @@ def attn_with_lse(
     or broadcastable to (B, H, Sq, Sk); ``kv_lens`` (B,) int: per-batch
     valid key prefix."""
     if _flash_eligible(q, k, causal, mask):
-        if q.dtype != torch.bfloat16:
-            # the JAX contract runs fp32 through its Pallas kernel; the CUDA
-            # kernel takes bf16 only
-            raise NotImplementedError(f"{q.dtype} flash attention on the GPU: {ROADMAP_HINT}")
         return flash_attn_with_lse(q, k, v, scale=scale, kv_lens=kv_lens)
     return _attn_math(q, k, v, scale, causal, mask, kv_lens)
 

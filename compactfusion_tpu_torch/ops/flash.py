@@ -4,7 +4,11 @@ Counterpart of ``compactfusion_tpu/ops/flash_pallas.py::flash_attn_with_lse``:
 the main branch (:func:`flash_attn_with_lse`) and the ``window=`` branch
 (:func:`flash_attn_window_with_lse`, banded attention for DiTFastAttn).  The
 kernels are in ``csrc/flash_attn.cu``.  On a CUDA tensor a wrapper launches
-its kernel or raises; on a CPU tensor it runs its twin.
+its kernel or raises; on a CPU tensor it runs its twin.  The kernels take
+bf16 or fp32 q/k/v, as the Pallas kernels take the input dtype: fp32 runs
+the register and wide bodies in 3xTF32 (``csrc/flash_reg.cuh``), and an
+fp32 call that needs ``flash_tile`` (kernel 1 above d = 512, kernels 4 and
+7 above d = 128) raises ``NotImplementedError``.
 
 Which body, padded head dim and tile height a launch takes is decided here,
 before the launch, by :func:`flash_plan` (so the CPU tests see it), and the C
@@ -21,6 +25,19 @@ import math
 from typing import Optional, Tuple
 
 import torch
+
+from compactfusion_tpu_torch import ROADMAP_HINT
+
+#: bytes per element of the dtypes the kernels take (the ``ELEM`` of
+#: ``RegLayout`` and ``WideLayout``)
+ELEM_SIZES = {torch.bfloat16: 2, torch.float32: 4}
+#: shared memory one CTA may take on an H100
+SMEM_MAX = 227 * 1024
+#: keys per K/V tile of the register body (``kRegBK`` in ``csrc/flash_reg.cuh``)
+REG_BK = 64
+#: keys per bf16 K/V tile of the wide body (``kWideBK`` in
+#: ``csrc/flash_wide.cuh``; fp32 tiles hold half as many)
+WIDE_BK = 32
 
 #: the tile bodies a plan names, numbered as the C entry points take them:
 #: ``flash_common.cuh::flash_tile`` (shared-memory scores and accumulator),
@@ -78,11 +95,40 @@ WIDE_DPS = tuple(sorted({_wide_dp(d) for d in range(REG_DPS[-1] + 8, WIDE_MAX_D 
 WIDE_BUILT = frozenset((dp, WIDE_GROUPS * wide_slices(dp)) for dp in WIDE_DPS)
 
 
-def flash_plan(b: int, h: int, sq: int, d: int, wide: bool = True) -> Tuple[str, int, int]:
+def reg_layout(dp: int, warps: int, elem: int = 2) -> dict:
+    """The shared memory of one register-body CTA, as ``RegLayout<dp, warps,
+    elem>`` in ``csrc/flash_reg.cuh`` lays it out: rows of ``ld`` elements
+    (dp + 8 in bf16, dp + 4 in fp32: an odd number of 16-byte segments), the
+    Q tile, ``stages`` K and V tiles of :data:`REG_BK` keys (3 where two CTAs
+    of 3 stages share an SM, else 2), ``bytes`` in all."""
+    ld = dp + 16 // elem
+    q_bytes = 16 * warps * ld * elem
+    tile_bytes = REG_BK * ld * elem
+    stages = 3 if 2 * (q_bytes + 3 * 2 * tile_bytes) <= SMEM_MAX else 2
+    return {"ld": ld, "q_bytes": q_bytes, "tile_bytes": tile_bytes, "stages": stages,
+            "bytes": q_bytes + stages * 2 * tile_bytes}
+
+
+def wide_layout(dp: int, warps: int, elem: int = 2) -> dict:
+    """The shared memory of one wide-body CTA, as ``WideLayout<dp, warps,
+    elem>`` in ``csrc/flash_wide.cuh`` lays it out: K/V tiles of ``bk`` keys
+    (:data:`WIDE_BK` in bf16, half as many in fp32), rows of ``ld`` elements,
+    the Q tile of its row groups, ``stages`` K and V tiles (3 where they fit,
+    else 2) and the exchange of partial scores, ``bytes`` in all."""
+    bk, ld = WIDE_BK * 2 // elem, dp + 16 // elem
+    q_bytes = 16 * (warps // wide_slices(dp)) * ld * elem
+    tile_bytes = bk * ld * elem
+    xch_bytes = warps * 16 * bk * 4
+    stages = 3 if q_bytes + 3 * 2 * tile_bytes + xch_bytes <= SMEM_MAX else 2
+    return {"bk": bk, "ld": ld, "q_bytes": q_bytes, "tile_bytes": tile_bytes, "xch_bytes": xch_bytes,
+            "stages": stages, "bytes": q_bytes + stages * 2 * tile_bytes + xch_bytes}
+
+
+def flash_plan(b: int, h: int, sq: int, d: int, wide: bool = True, elem: int = 2) -> Tuple[str, int, int]:
     """(body, padded head dim, warps per CTA) of a flash launch of ``b``
-    batches, ``h`` heads and ``sq`` queries of head dim ``d``.  ``wide``:
-    whether the launch may take the wide body (kernel 1; kernels 4 and 7
-    pass False).
+    batches, ``h`` heads and ``sq`` queries of head dim ``d`` in ``elem``-byte
+    elements (2: bf16, 4: fp32).  ``wide``: whether the launch may take the
+    wide body (kernel 1; kernels 4 and 7 pass False).
 
     Attention up to d = 128 (kernel 1, and kernels 4 and 7 and kernel 8's
     flash partial by the same rule) takes the register body at the smallest of :data:`REG_DPS` that holds
@@ -110,18 +156,29 @@ def flash_plan(b: int, h: int, sq: int, d: int, wide: bool = True) -> Tuple[str,
     tiles, 8 warps, 128 CTAs).  Wider heads, and kernels 4 and 7 above d = 128, take
     ``flash_tile``: 64x64 tiles up to :data:`TILE_64_MAX_DP`, 32x32 tiles on
     2 warps above; full attention takes it only above d = 512, in 32x32
-    tiles."""
+    tiles.
+
+    fp32 takes the same plans: every one fits its fp32 layout
+    (:func:`reg_layout`, :func:`wide_layout`; at DP 128 and 8 warps the
+    register body holds 2 stages, 202,752 bytes, and at the VAE's DP 512 the
+    wide body 2 stages of 16-key tiles, 206,336 bytes).  ``flash_tile`` is
+    bf16's: the wrappers refuse an fp32 plan of it (:func:`launch_plan`)."""
     if d % 8:
         raise ValueError(f"flash kernel: head dim must be a multiple of 8, got {d}")
+    if elem not in ELEM_SIZES.values():
+        raise ValueError(f"flash kernel: elements of 2 (bf16) or 4 (fp32) bytes, got {elem}")
     if d <= REG_DPS[-1]:
         dp = next(p for p in REG_DPS if p >= _round_up(d, 16))
         for warps in REG_WARPS:
             if b * h * math.ceil(sq / (16 * warps)) >= MIN_CTAS:
                 break
+        assert reg_layout(dp, warps, elem)["bytes"] <= SMEM_MAX
         return "flash_reg_tile", dp, warps
     if wide and d <= WIDE_MAX_D:
         dp = _wide_dp(d)
-        return "flash_wide_tile", dp, WIDE_GROUPS * wide_slices(dp)
+        warps = WIDE_GROUPS * wide_slices(dp)
+        assert wide_layout(dp, warps, elem)["bytes"] <= SMEM_MAX
+        return "flash_wide_tile", dp, warps
     dp = _round_up(d, 16)
     return "flash_tile", dp, 4 if dp <= TILE_64_MAX_DP else 2
 
@@ -156,15 +213,22 @@ def flash_attn_with_lse_ref(
     return _attn_math(q, k, v, scale, False, None, kv_lens)
 
 
+def elem_size(dtype: torch.dtype) -> int:
+    """Bytes per element of a dtype the kernels take; TypeError otherwise
+    (fp16 is not ported)."""
+    if dtype not in ELEM_SIZES:
+        raise TypeError(f"flash kernel: q/k/v must be bfloat16 or float32, got {dtype} ({ROADMAP_HINT})")
+    return ELEM_SIZES[dtype]
+
+
 def _check_bshd(name: str, t: torch.Tensor, d: int) -> None:
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"flash kernel: {name} must be bfloat16, got {t.dtype}")
+    vec = 16 // elem_size(t.dtype)  # elements per 16-byte copy
     if t.dim() != 4 or t.shape[-1] != d:
         raise ValueError(f"flash kernel: {name} must be (B, S, H, {d}), got {tuple(t.shape)}")
-    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
+    if t.stride(-1) != 1 or any(s % vec for s in t.stride()[:3]) or t.data_ptr() % 16:
         raise ValueError(
             f"flash kernel: {name} needs a unit head-dim stride, (b, s, h) strides "
-            f"that are multiples of 8 and a 16-byte aligned start; got strides "
+            f"that are multiples of {vec} and a 16-byte aligned start; got strides "
             f"{t.stride()}"
         )
 
@@ -176,10 +240,12 @@ def _check_q(q) -> None:
 
 
 def _check_kv(q, k, v) -> None:
-    """k and v against a checked q: bf16 (B, S, H, D) views on q's device,
-    of one shape that matches q in B, H and D."""
+    """k and v against a checked q: (B, S, H, D) views of q's dtype on q's
+    device, of one shape that matches q in B, H and D."""
     b, _, h, d = q.shape
     for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash kernel: {name} is {t.dtype}, q {q.dtype}")
         _check_bshd(name, t, d)
         if t.device != q.device:
             raise ValueError(f"flash kernel: {name} is on {t.device}, q on {q.device}")
@@ -188,10 +254,21 @@ def _check_kv(q, k, v) -> None:
 
 
 def _check_qkv(q, k, v) -> None:
-    """The kernels' shared contract: bf16 (B, S, H, D) views on one device,
-    d % 8 == 0, k and v of one shape that matches q in B, H and D."""
+    """The kernels' shared contract: bf16 or fp32 (B, S, H, D) views of one
+    dtype on one device, d % 8 == 0, k and v of one shape that matches q in
+    B, H and D."""
     _check_q(q)
     _check_kv(q, k, v)
+
+
+def launch_plan(b: int, h: int, sq: int, d: int, dtype: torch.dtype, wide: bool = True):
+    """(:func:`flash_plan` of a launch on ``dtype`` q/k/v, whether it is
+    fp32); an fp32 plan of ``flash_tile`` raises ``NotImplementedError``."""
+    f32 = dtype == torch.float32
+    plan = flash_plan(b, h, sq, d, wide=wide, elem=elem_size(dtype))
+    if f32 and plan[0] == "flash_tile":
+        raise NotImplementedError(f"fp32 flash attention at d={d} on flash_tile: {ROADMAP_HINT}")
+    return plan, f32
 
 
 def flash_attn_with_lse(
@@ -202,8 +279,9 @@ def flash_attn_with_lse(
     kv_lens: Optional[torch.Tensor] = None,
     window: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q (B, Sq, H, D), k/v (B, Sk, H, D) -> out (B, Sq, H, D) in q.dtype and
-    lse (B, H, Sq) fp32.  ``kv_lens`` (B,) int: per-batch valid key prefix.
+    """q (B, Sq, H, D), k/v (B, Sk, H, D), bf16 or fp32 -> out (B, Sq, H, D)
+    in q.dtype and lse (B, H, Sq) fp32.  ``kv_lens`` (B,) int: per-batch
+    valid key prefix.
     ``window``: banded attention |i - j| <= window, delegated to
     :func:`flash_attn_window_with_lse` (Sq == Sk, no ``kv_lens``)."""
     if window is not None:
@@ -227,11 +305,11 @@ def flash_attn_with_lse(
     if scale is None:
         scale = d**-0.5
 
+    plan, f32 = launch_plan(b, h, sq, d, q.dtype)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    plan = flash_plan(b, h, sq, d)
     lib = _build.load()
-    status = lib.cf_flash_attn_bf16(
+    status = (lib.cf_flash_attn_f32 if f32 else lib.cf_flash_attn_bf16)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         out.data_ptr(), lse.data_ptr(), lens_ptr,
@@ -239,16 +317,20 @@ def flash_attn_with_lse(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, "flash_attn_with_lse")
+    wide = plan[0] == "flash_wide_tile"
     flash_attn_with_lse.launches += 1
-    if plan[0] == "flash_wide_tile":
-        flash_attn_with_lse.wide_launches += 1
+    flash_attn_with_lse.wide_launches += wide
+    flash_attn_with_lse.f32_launches += f32
+    flash_attn_with_lse.f32_wide_launches += f32 and wide
     return out, lse
 
 
-#: kernel launches since the count was last set to 0, and those of them on
-#: the wide body
+#: kernel launches since the count was last set to 0, those of them on the
+#: wide body, on fp32 q/k/v, and on fp32 q/k/v on the wide body
 flash_attn_with_lse.launches = 0
 flash_attn_with_lse.wide_launches = 0
+flash_attn_with_lse.f32_launches = 0
+flash_attn_with_lse.f32_wide_launches = 0
 
 
 def window_mask(s: int, window: int, device=None) -> torch.Tensor:
@@ -298,21 +380,24 @@ def flash_attn_window_with_lse(
     b, s, h, d = q.shape
     if scale is None:
         scale = d**-0.5
+    plan, f32 = launch_plan(b, h, s, d, q.dtype, wide=False)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     lib = _build.load()
-    status = lib.cf_flash_attn_window_bf16(
+    status = (lib.cf_flash_attn_window_f32 if f32 else lib.cf_flash_attn_window_bf16)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         out.data_ptr(), lse.data_ptr(),
-        b, s, h, d, min(int(window), s), ctypes.c_float(scale),
-        *plan_args(flash_plan(b, h, s, d, wide=False)),
+        b, s, h, d, min(int(window), s), ctypes.c_float(scale), *plan_args(plan),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, "flash_attn_window_with_lse")
     flash_attn_window_with_lse.launches += 1
+    flash_attn_window_with_lse.f32_launches += f32
     return out, lse
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0, and those of them on
+#: fp32 q/k/v
 flash_attn_window_with_lse.launches = 0
+flash_attn_window_with_lse.f32_launches = 0

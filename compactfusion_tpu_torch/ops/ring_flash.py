@@ -8,10 +8,13 @@ folds one hop into a running fp32 online-softmax state (m, l, acc) held in
 device memory: one flash launch per hop, the last one writing out and LSE.
 Kernel 8 runs, per hop and in stream order, the EF pass
 (:func:`ef_update_slot`: dequant of the hop's payload and the EF update of
-its source slot in place, with a bf16 copy of the reconstruction) and then
-kernel 7's launch on that copy.  The wrappers take the hops as an iterable
-(``parallel/ring.ring_blocks``), so the exchange for hop s + 1 runs while
-hop s computes.  The kernels are in ``csrc/ring_flash.cu``.  On CUDA
+its source slot in place, with a copy of the reconstruction in the
+activation dtype: rounded to bf16, or not rounded in fp32) and then kernel
+7's launch on that copy.  Both take bf16 or fp32 q/k/v (fp32 on the
+register body in 3xTF32, ``csrc/flash_reg.cuh``).  The wrappers take the
+hops as an iterable (``parallel/ring.ring_blocks``), so the exchange for
+hop s + 1 runs while hop s computes.  The kernels are in
+``csrc/ring_flash.cu``.  On CUDA
 tensors a wrapper launches its kernels or raises; on CPU tensors it runs
 its twin: per hop, attention with LSE (and, for kernel 8, the dequant and
 EF slot update), then ``merge_out_lse``.
@@ -80,19 +83,21 @@ def ring_flash_attn_with_lse(q: torch.Tensor, kv_blocks: Iterable, ring_size: in
         return ring_flash_attn_with_lse_ref(q, kv_blocks, ring_size, scale)
 
     from compactfusion_tpu_torch.ops import _build
-    from compactfusion_tpu_torch.ops.flash import _check_kv, _check_q, flash_plan, plan_args
+    from compactfusion_tpu_torch.ops.flash import _check_kv, _check_q, launch_plan, plan_args
 
     _check_q(q)
     b, sq, h, d = q.shape
     if scale is None:
         scale = d**-0.5
-    plan = plan_args(flash_plan(b, h, sq, d, wide=False))
+    plan, f32 = launch_plan(b, h, sq, d, q.dtype, wide=False)
+    plan = plan_args(plan)
     m = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     acc = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty_like(m)
     lib = _build.load()
+    hop = lib.cf_ring_flash_hop_f32 if f32 else lib.cf_ring_flash_hop_bf16
     stream = torch.cuda.current_stream(q.device).cuda_stream
     fixed = (q.data_ptr(), *q.stride()[:3])
     state = (m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(), lse.data_ptr())
@@ -102,21 +107,24 @@ def ring_flash_attn_with_lse(q: torch.Tensor, kv_blocks: Iterable, ring_size: in
         if hops >= ring_size:
             raise ValueError(f"ring of {ring_size} got more hops")
         _check_kv(q, k, v)
-        status = lib.cf_ring_flash_hop_bf16(
+        status = hop(
             fixed[0], k.data_ptr(), v.data_ptr(), *fixed[1:], *k.stride()[:3], *v.stride()[:3],
             *state, b, sq, k.shape[1], h, d, c_scale,
             int(hops == 0), int(hops == ring_size - 1), *plan, stream,
         )
         _build.check(status, "ring_flash_attn_with_lse")
         ring_flash_attn_with_lse.launches += 1
+        ring_flash_attn_with_lse.f32_launches += f32
         hops += 1
     if hops != ring_size:
         raise ValueError(f"ring of {ring_size} got {hops} hops")
     return out, lse
 
 
-#: kernel launches (one per hop) since the count was last set to 0
+#: kernel launches (one per hop) since the count was last set to 0, and
+#: those of them on fp32 q/k/v
 ring_flash_attn_with_lse.launches = 0
+ring_flash_attn_with_lse.f32_launches = 0
 
 
 # -- kernel 8: the compressed ring ----------------------------------------------
@@ -281,8 +289,8 @@ def compact_ring_flash_ref(q, k, v, k_base, v_base, payloads: Iterable, *, codec
                            ring_size: int, scale: Optional[float] = None):
     """Plain twin of :func:`compact_ring_flash`: per hop, the dequant and EF
     update of slot (my - s) % R, attention with LSE against the local exact
-    K/V at hop 0 and the reconstruction (rounded to k.dtype) after, merged
-    in fp32."""
+    K/V at hop 0 and the reconstruction (rounded to k.dtype: bf16, or not
+    rounded in fp32) after, merged in fp32."""
     shape = tuple(k.shape)
     out = lse = None
     hops = 0
@@ -326,17 +334,22 @@ def _check_payload(codec, payload, b, sk, h, d):
     return pk, pv, uk, uv, vk, vv
 
 
-def ef_update_slot(k_base, v_base, src: int, codec: str, payload, shape, rec=None) -> None:
+def ef_update_slot(k_base, v_base, src: int, codec: str, payload, shape, rec=None,
+                   dtype: torch.dtype = torch.bfloat16) -> None:
     """The EF pass of kernel 8 for one hop: slot ``src`` of both EF stacks
     rebuilt from the hop's fused payload (base + delta) and written back IN
     PLACE as the slot's new base (int8 stacks requantized), and, given
-    ``rec`` = (rec_k, rec_v) (B, Sk, H, D) bf16, the reconstruction rounded
-    to bf16 there.  ``shape`` is (B, Sk, H, D) of the K/V the stacks hold
+    ``rec`` = (rec_k, rec_v) (B, Sk, H, D), the reconstruction there in the
+    activation dtype ``dtype`` (bf16: rounded; fp32: as it is; ``rec`` is of
+    that dtype).  ``shape`` is (B, Sk, H, D) of the K/V the stacks hold
     (int8 stacks at B == 1 only).
 
     On CUDA stacks: one launch on fp32 stacks, two on int8 stacks (the
     per-channel min and max, then the codes), each counted in
-    ``ef_update_slot.launches``.  On CPU stacks the twin runs."""
+    ``ef_update_slot.launches`` (and, for fp32 activations, in
+    ``ef_update_slot.f32_launches``).  On CPU stacks the twin runs."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"EF pass: reconstructions in bfloat16 or float32, got {dtype}")
     if codec not in FUSED_CODECS:
         raise ValueError(f"fused ring codec must be one of {FUSED_CODECS}, got {codec!r}")
     quantized = isinstance(k_base, Int8Payload)
@@ -360,12 +373,13 @@ def ef_update_slot(k_base, v_base, src: int, codec: str, payload, shape, rec=Non
     parts = _check_payload(codec, payload, b, sk, h, d)
     if rec is not None:
         for t in rec:
-            if tuple(t.shape) != tuple(shape) or t.dtype != torch.bfloat16 or not t.is_contiguous() \
+            if tuple(t.shape) != tuple(shape) or t.dtype != dtype or not t.is_contiguous() \
                     or t.device != lead.device:
                 raise ValueError(f"EF pass: reconstruction {tuple(t.shape)} {t.dtype}, want "
-                                 f"contiguous {tuple(shape)} torch.bfloat16 on {lead.device}")
+                                 f"contiguous {tuple(shape)} {dtype} on {lead.device}")
     _ef_launch(_build.load(), k_base, v_base, src, codec, parts, shape, rec,
-               _ef_scratch(quantized, n, c, lead.device), torch.cuda.current_stream(lead.device).cuda_stream)
+               _ef_scratch(quantized, n, c, lead.device), torch.cuda.current_stream(lead.device).cuda_stream,
+               dtype)
 
 
 def _ef_scratch(quantized: bool, n: int, c: int, device) -> tuple:
@@ -379,9 +393,10 @@ def _ef_scratch(quantized: bool, n: int, c: int, device) -> tuple:
             torch.empty((2, 2, c), dtype=torch.bfloat16, device=device), tiles)
 
 
-def _ef_launch(lib, k_base, v_base, src, codec, parts, shape, rec, scratch, stream) -> None:
+def _ef_launch(lib, k_base, v_base, src, codec, parts, shape, rec, scratch, stream, dtype) -> None:
     """The EF pass's launch on checked inputs: ``parts`` the payload's six
-    parts (:func:`_check_payload`), ``scratch`` of :func:`_ef_scratch`."""
+    parts (:func:`_check_payload`), ``scratch`` of :func:`_ef_scratch`,
+    ``dtype`` the activations' (the reconstruction's)."""
     from compactfusion_tpu_torch.ops import _build
 
     quantized = isinstance(k_base, Int8Payload)
@@ -401,27 +416,30 @@ def _ef_launch(lib, k_base, v_base, src, codec, parts, shape, rec, scratch, stre
     status = lib.cf_ef_update_slot(
         ptr(pk), ptr(pv), uk.data_ptr(), uv.data_ptr(), vk.data_ptr(), vv.data_ptr(), uk.shape[1],
         *slot(k_base), *slot(v_base), *(ptr(t) for t in (rec or (None, None))),
-        ptr(part), ptr(snap), tiles, b, sk, h, d, _CODEC_ID[codec], int(quantized), stream,
+        ptr(part), ptr(snap), tiles, b, sk, h, d, _CODEC_ID[codec], int(quantized),
+        int(dtype == torch.float32), stream,
     )
     _build.check(status, "ef_update_slot")
     ef_update_slot.launches += 2 if quantized else 1
+    ef_update_slot.f32_launches += (2 if quantized else 1) * (dtype == torch.float32)
 
 
 #: kernel launches (one per hop on fp32 stacks, two on int8) since the count
-#: was last set to 0
+#: was last set to 0, and those of them for fp32 activations
 ef_update_slot.launches = 0
+ef_update_slot.f32_launches = 0
 
 
 def compact_ring_flash(q, k, v, k_base, v_base, payloads: Iterable, *, codec: str, my: int,
                        ring_size: int, scale: Optional[float] = None):
     """The compressed ring, per hop in stream order: the EF pass
     (:func:`ef_update_slot`: dequant of the hop's payload, EF update of slot
-    src = (my - s) % R in place, its bf16 reconstruction into a scratch
-    reused hop to hop), then kernel 7's launch (``ops.flash.flash_plan``'s
-    plan) of q against the local exact K/V (hop 0) or the reconstruction,
-    folded into the running softmax state.
+    src = (my - s) % R in place, its reconstruction in q's dtype into a
+    scratch reused hop to hop), then kernel 7's launch
+    (``ops.flash.flash_plan``'s plan) of q against the local exact K/V (hop
+    0) or the reconstruction, folded into the running softmax state.
 
-    q/k/v (B, S, H, D) bf16; ``k_base``/``v_base`` this layer's EF stacks,
+    q/k/v (B, S, H, D) bf16 or fp32; ``k_base``/``v_base`` this layer's EF stacks,
     (R, N, C) fp32 tensors or ``Int8Payload`` stacks (codes (R, N, C),
     scale and min (R, 1, C) bf16; B == 1 only: the per-channel min-max of
     the requant runs over the slot's N = Sk rows); ``payloads`` yields
@@ -439,7 +457,7 @@ def compact_ring_flash(q, k, v, k_base, v_base, payloads: Iterable, *, codec: st
                                       ring_size=ring_size, scale=scale)
 
     from compactfusion_tpu_torch.ops import _build
-    from compactfusion_tpu_torch.ops.flash import _check_qkv, flash_plan, plan_args
+    from compactfusion_tpu_torch.ops.flash import _check_qkv, launch_plan, plan_args
 
     _check_qkv(q, k, v)
     b, sq, h, d = q.shape
@@ -449,16 +467,18 @@ def compact_ring_flash(q, k, v, k_base, v_base, payloads: Iterable, *, codec: st
     _check_base("v", v_base, ring_size, n, c, quantized)
     if scale is None:
         scale = d**-0.5
-    plan = plan_args(flash_plan(b, h, sq, d, wide=False))
+    plan, f32 = launch_plan(b, h, sq, d, q.dtype, wide=False)
+    plan = plan_args(plan)
     m = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     acc = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty_like(m)
-    rec = (torch.empty((b, sk, h, d), dtype=torch.bfloat16, device=q.device),
-           torch.empty((b, sk, h, d), dtype=torch.bfloat16, device=q.device))
+    rec = (torch.empty((b, sk, h, d), dtype=q.dtype, device=q.device),
+           torch.empty((b, sk, h, d), dtype=q.dtype, device=q.device))
     scratch = _ef_scratch(quantized, n, c, q.device)
     lib = _build.load()
+    hop = lib.cf_ring_flash_hop_f32 if f32 else lib.cf_ring_flash_hop_bf16
     stream = torch.cuda.current_stream(q.device).cuda_stream
     state = (m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(), lse.data_ptr())
     c_scale = ctypes.c_float(scale)
@@ -468,9 +488,9 @@ def compact_ring_flash(q, k, v, k_base, v_base, payloads: Iterable, *, codec: st
             raise ValueError(f"ring of {ring_size} got more hops")
         _ef_launch(lib, k_base, v_base, (my - hops) % ring_size, codec,
                    _check_payload(codec, payload, b, sk, h, d), (b, sk, h, d), rec if hops else None,
-                   scratch, stream)
+                   scratch, stream, q.dtype)
         kk, vv = rec if hops else (k, v)
-        status = lib.cf_ring_flash_hop_bf16(
+        status = hop(
             q.data_ptr(), kk.data_ptr(), vv.data_ptr(),
             *q.stride()[:3], *kk.stride()[:3], *vv.stride()[:3],
             *state, b, sq, sk, h, d, c_scale,
@@ -478,12 +498,15 @@ def compact_ring_flash(q, k, v, k_base, v_base, payloads: Iterable, *, codec: st
         )
         _build.check(status, "compact_ring_flash")
         compact_ring_flash.launches += 1
+        compact_ring_flash.f32_launches += f32
         hops += 1
     if hops != ring_size:
         raise ValueError(f"ring of {ring_size} got {hops} hops")
     return out, lse
 
 
-#: flash launches (one per hop) since the count was last set to 0; the EF
-#: pass counts its own in ``ef_update_slot.launches``
+#: flash launches (one per hop) since the count was last set to 0, and those
+#: of them on fp32 q/k/v; the EF pass counts its own in
+#: ``ef_update_slot.launches``
 compact_ring_flash.launches = 0
+compact_ring_flash.f32_launches = 0

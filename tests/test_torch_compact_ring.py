@@ -373,8 +373,9 @@ def _declared_argtypes(name):
 def test_ef_launch_passes_the_c_entry_its_arguments(quantized):
     """The EF pass's launch hands ``cf_ef_update_slot`` its arguments in the
     order ``ops/_build.py`` declares them: the payload, slot ``src`` of both
-    stacks, the reconstruction, the int8 scratch and the shape; it counts one
-    launch on fp32 stacks and two on int8 stacks."""
+    stacks, the reconstruction, the int8 scratch, the shape and whether the
+    reconstruction is fp32; it counts one launch on fp32 stacks and two on
+    int8 stacks."""
     shards, kb, vb, payloads = _split_inputs("binary", 2, quantized, 2, 1, 96, seed=3)
     shape = tuple(shards[0][1].shape)
     n, c = 96, H * D
@@ -383,7 +384,7 @@ def test_ef_launch_passes_the_c_entry_its_arguments(quantized):
     scratch = trf._ef_scratch(quantized, n, c, "cpu")
     lib = _FakeLib()
     trf.ef_update_slot.launches = 0
-    trf._ef_launch(lib, kb, vb, 1, "binary", parts, shape, rec, scratch, 7)
+    trf._ef_launch(lib, kb, vb, 1, "binary", parts, shape, rec, scratch, 7, torch.bfloat16)
     (args,) = lib.calls
     assert len(args) == len(_declared_argtypes("cf_ef_update_slot"))
     pk, pv, uk, uv, vk, vv = parts
@@ -398,5 +399,5 @@ def test_ef_launch_passes_the_c_entry_its_arguments(quantized):
         assert args[7:13] == (kb[1].data_ptr(), None, None, vb[1].data_ptr(), None, None)
         assert args[15:18] == (None, None, 2)
     assert args[13:15] == (rec[0].data_ptr(), rec[1].data_ptr())
-    assert args[18:] == (1, 96, H, D, 0, int(quantized), 7)
+    assert args[18:] == (1, 96, H, D, 0, int(quantized), 0, 7)
     assert trf.ef_update_slot.launches == (2 if quantized else 1)

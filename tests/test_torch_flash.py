@@ -94,20 +94,6 @@ def test_math_path_matches_jax_with_mask_and_causal():
         _close(lse.numpy(), rl)
 
 
-def test_flash_route_takes_bf16_only(monkeypatch):
-    """A call the contract sends to the kernel must be bf16: the CUDA kernel
-    has no fp32 variant (the Pallas one has), so fp32 raises there instead
-    of failing inside the wrapper.  Routing is forced, as on a CUDA tensor."""
-    monkeypatch.setattr(tattn, "_flash_eligible", lambda *a: True)
-    q, k, v = map(torch.from_numpy, _qkv(1, 32, 64, 2, 72, seed=3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattn.attn_with_lse(q, k, v)
-    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
-    out, lse = tattn.attn_with_lse(qb, kb, vb)
-    ref_o, ref_l = tflash.flash_attn_with_lse_ref(qb, kb, vb)
-    assert torch.equal(out, ref_o) and torch.equal(lse, ref_l)
-
-
 @pytest.mark.parametrize(
     "q_shape,k_shape",
     [

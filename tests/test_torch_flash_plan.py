@@ -104,10 +104,10 @@ def test_banded_attention_keeps_the_shared_memory_body(d):
         assert body == "flash_tile" and dp == -(-d // 16) * 16 and warps == 2
     src = (REPO / "compactfusion_tpu_torch" / "ops" / "flash.py").read_text()
     window = src[src.index("def flash_attn_window_with_lse("):]
-    assert "*plan_args(flash_plan(b, h, s, d, wide=False))" in window
+    assert "launch_plan(b, h, s, d, q.dtype, wide=False)" in window
     # the ring hops (kernels 7 and 8's flash partial) take the same
     ring = (REPO / "compactfusion_tpu_torch" / "ops" / "ring_flash.py").read_text()
-    assert ring.count("plan_args(flash_plan(b, h, sq, d, wide=False))") == 2
+    assert ring.count("launch_plan(b, h, sq, d, q.dtype, wide=False)") == 2
 
 
 @pytest.mark.parametrize("b,s,ctas", [(2, 1024, 256), (1, 1024, 128), (2, 1000, 256)])
@@ -146,19 +146,27 @@ def test_tile_64_max_dp_follows_the_c_layout():
     assert _c_layout_bytes(512, 32, 32) == 33280 * 3 + 4608 + 2560 + 66048 + 128 * 3 <= 227 * 1024
 
 
-def _wide_layout_bytes(dp, warps):
-    """``flash_wide.cuh::WideLayout<dp, warps>::kBytes``, run from the C
-    source: its statements are Python once ``static constexpr int`` goes,
-    C's integer ``/`` is ``//`` and ``cdiv`` is a ceiling division."""
-    src = (REPO / "compactfusion_tpu_torch" / "csrc" / "flash_wide.cuh").read_text()
-    body = src[src.index("struct WideLayout {"):].split("{", 1)[1].split("\n};", 1)[0]
-    env = {"DP": dp, "NWARPS": warps, "cdiv": lambda a, b: -(-a // b),
-           "kWideBK": int(re.search(r"constexpr int kWideBK = (\d+);", src).group(1))}
-    for stmt in body.split(";"):
+def c_struct(header, name, **env):
+    """The members of ``struct name`` in a ``csrc`` header, run from the C
+    source: its statements are Python once comments and ``static constexpr
+    int`` go, C's integer ``/`` is ``//`` and ``cdiv`` is a ceiling
+    division; ``env`` holds its template arguments and the constants it
+    reads (``kWideBK`` and ``kRegBK`` are read from the header)."""
+    src = (REPO / "compactfusion_tpu_torch" / "csrc" / header).read_text()
+    body = src[src.index(f"struct {name} {{"):].split("{", 1)[1].split("\n};", 1)[0]
+    env = {"cdiv": lambda a, b: -(-a // b), **env}
+    for const in re.findall(r"constexpr int (k\w+BK) = (\d+);", src):
+        env.setdefault(const[0], int(const[1]))
+    for stmt in re.sub(r"//[^\n]*", "", body).split(";"):
         stmt = stmt.strip().removeprefix("static constexpr int ")
         if "=" in stmt:
             exec(stmt.replace("/", "//"), env)
     return env
+
+
+def _wide_layout_bytes(dp, warps, elem=2):
+    """``flash_wide.cuh::WideLayout<dp, warps, elem>``'s members."""
+    return c_struct("flash_wide.cuh", "WideLayout", DP=dp, NWARPS=warps, ELEM=elem)
 
 
 def test_wide_layout_fits_the_card():
@@ -227,29 +235,33 @@ BEFORE = {"flash_fwd_kernel<4, 64>": (64, "a"), "flash_fwd_kernel<2, 32>": (40, 
           "int2_quant_kernel<float, float>": (32, "m"), "int2_dequant_kernel<float>": (30, "n"),
           "flash_fwd_wide_kernel<512, 8>": (210, "o"), "binary_quant_vec_kernel<float, float>": (64, "t"),
           "binary_dequant_vec_kernel<float, 1>": (56, "v"), "int2_dequant_vec_kernel<float, 1>": (40, "w"),
-          "empty_kernel": (8, "u")}
+          "int2_quant_vec_kernel<float, float, 1>": (48, "x"), "empty_kernel": (8, "u")}
 
 
 def test_compare_tool_passes_when_only_redesigned_kernels_differ():
-    """Kernel 5's vector kernel may come and its scalar one (whose launcher
-    took the plan) may change; every other kernel (every flash body, the EF
-    pass, the probes, both binary quant kernels and all four dequant
-    kernels) must stay as it was."""
+    """The fp32 instantiations of kernels 1, 4, 7 and 8 may come; every
+    kernel the parent built (every bf16 flash body, the EF pass, the probes,
+    every quant and dequant kernel, INT2 quant's two among them) must stay
+    as it was, and a change to any of them fails."""
     tool = _compare_tool()
-    after = dict(BEFORE, **{"int2_quant_vec_kernel<float, float, 1>": (48, "x"),
-                            "int2_quant_kernel<float, float>": (33, "m2")})
-    ok, report = tool.verdict(_build(after), _build(BEFORE))
+    new = {"flash_fwd_reg_f32_kernel<80, 8>": (150, "x1"), "flash_window_reg_f32_kernel<80, 8>": (150, "x2"),
+           "ring_flash_hop_reg_f32_kernel<80, 2>": (120, "x3"), "flash_fwd_wide_f32_kernel<512, 8>": (200, "x4"),
+           "ef_update_fp32_f32rec_kernel": (32, "x5"), "ef_codes_int8_f32rec_kernel": (40, "x6")}
+    ok, report = tool.verdict(_build(dict(BEFORE, **new)), _build(BEFORE))
     assert ok and report["unmatched"] == []
     kernels = report["kernels"]
     for label in ("flash_fwd_reg_kernel<80, 8>", "flash_window_reg_kernel<80, 8>", "flash_fwd_kernel<4, 64>",
-                  "flash_fwd_wide_kernel<512, 8>", "ef_codes_int8_kernel", "dma_only_kernel",
+                  "flash_fwd_wide_kernel<512, 8>", "ef_update_fp32_kernel", "ef_codes_int8_kernel", "dma_only_kernel",
                   "binary_quant_kernel<float, float>", "binary_quant_vec_kernel<float, float>",
                   "binary_dequant_kernel<float>", "int2_dequant_kernel<float>", "binary_dequant_vec_kernel<float, 1>",
-                  "int2_dequant_vec_kernel<float, 1>", "empty_kernel"):
+                  "int2_dequant_vec_kernel<float, 1>", "int2_quant_kernel<float, float>",
+                  "int2_quant_vec_kernel<float, float, 1>", "empty_kernel"):
         assert kernels[label]["must_be_unchanged"] and kernels[label]["sass_equal"], label
-    assert not kernels["int2_quant_vec_kernel<float, float, 1>"]["must_be_unchanged"]
-    assert kernels["int2_quant_vec_kernel<float, float, 1>"]["other"] is None
-    assert not kernels["int2_quant_kernel<float, float>"]["must_be_unchanged"]
+    for label in new:
+        assert not kernels[label]["must_be_unchanged"], label
+    for label in ("int2_quant_vec_kernel<float, float, 1>", "int2_quant_kernel<float, float>"):
+        changed = dict(BEFORE, **{label: (BEFORE[label][0], "changed")})
+        assert not tool.verdict(_build(dict(changed, **new)), _build(BEFORE))[0], label
 
 
 @pytest.mark.parametrize("label,change", [
@@ -264,6 +276,8 @@ def test_compare_tool_passes_when_only_redesigned_kernels_differ():
     ("int2_dequant_vec_kernel<float, 1>", (40, "w2")),
     ("flash_fwd_wide_kernel<512, 8>", (212, "o")),
     ("flash_fwd_kernel<4, 64>", None),
+    ("int2_quant_vec_kernel<float, float, 1>", (48, "x2")),
+    ("int2_quant_kernel<float, float>", (33, "m2")),
 ])
 def test_compare_tool_fails_when_a_listed_kernel_changes(label, change):
     tool = _compare_tool()

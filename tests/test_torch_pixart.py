@@ -186,3 +186,29 @@ def test_unknown_timestep_spacing_is_a_value_error_in_both_packages():
     for schedule in (jdiff.ddpm_schedule, tdiff.ddpm_schedule):
         with pytest.raises(ValueError, match="unknown timestep spacing uniform"):
             schedule(20, timestep_spacing="uniform")
+
+
+def test_sincos_table_is_float64_rounded_once():
+    """PixArt-512's positional table (1024 x 1152): the sin and cos of the
+    JAX package's fp32 arguments, evaluated in double precision and rounded
+    to fp32 once (Python's ``math`` on sampled entries), the same bits
+    whatever torch's thread count (a pipeline's requests and a ring's ranks
+    must see one table), and within 1e-6 of the JAX package's fp32 table."""
+    import math
+
+    table = tcm.sincos_pos_embed_2d(1152, 32, 32, base_size=32)
+    threads = torch.get_num_threads()
+    try:
+        for n in (1, 3):
+            torch.set_num_threads(n)
+            assert torch.equal(tcm.sincos_pos_embed_2d(1152, 32, 32, base_size=32), table)
+    finally:
+        torch.set_num_threads(threads)
+    omega = (1.0 / (10000.0 ** (torch.arange(288, dtype=torch.float32) / 288.0))).numpy()
+    for i, j in np.random.default_rng(0).integers(0, (1024, 1152), size=(200, 2)):
+        row, col = divmod(int(i), 32)
+        pos, k = (col if j < 576 else row), int(j) % 576
+        x = float(np.float32(pos) * omega[k % 288])
+        assert table[i, j].item() == np.float32(math.sin(x) if k < 288 else math.cos(x))
+    np.testing.assert_allclose(table.numpy(), np.asarray(jcm.sincos_pos_embed_2d(1152, 32, 32, base_size=32)),
+                               rtol=0, atol=1e-6)

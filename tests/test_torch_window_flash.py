@@ -97,8 +97,9 @@ def test_window_contract_raises_where_the_kernel_does_not_apply():
     # the checks the wrapper runs before a launch on a CUDA tensor
     qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
     tflash._check_qkv(qb, kb, vb)
-    with pytest.raises(TypeError, match="bfloat16"):
-        tflash._check_qkv(q, k, v)
+    tflash._check_qkv(q, k, v)  # fp32 too, as the Pallas kernel takes the input dtype
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        tflash._check_qkv(*(t.half() for t in (q, k, v)))
     with pytest.raises(ValueError, match="multiple of 8"):
         tflash._check_qkv(qb[..., :60], kb[..., :60], vb[..., :60])
     qkv = torch.zeros((1, 64, 3 * 2 * 72 + 4), dtype=torch.bfloat16)  # a row stride of 436

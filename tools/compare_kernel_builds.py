@@ -17,11 +17,11 @@ once in a kernel that loads, computes, then stores).
 
 ``--unchanged`` names the instantiations that must be identical on both
 sides: a full label, or ``name<...>`` for every instantiation of ``name``
-(the default: every kernel but INT2 quant's, the vector kernel and the
-scalar one, whose launcher took the plan: every flash kernel of kernels 1,
-4 and 7 on all three bodies, kernel 8's EF pass, the probe and empty
-kernels, both binary quant kernels and all four dequant kernels: what the
-redesign of kernel 5 as a vector kernel must leave as it was).
+(the default: every kernel that was built before kernels 1, 4, 7 and 8
+took fp32: every bf16 flash kernel of kernels 1, 4 and 7 on all three
+bodies, kernel 8's EF pass writing bf16 reconstructions, the probe and
+empty kernels, and every quant and dequant kernel; the fp32
+instantiations, ``*_f32_kernel`` and ``*_f32rec_kernel``, are new).
 Prints one JSON object and exits 1 when one of them differs, is missing on
 either side or matches nothing; kernels outside the list may differ.
 Needs the CUDA toolkit (``nvcc``, ``cuobjdump``, ``cu++filt``), not a GPU.
@@ -43,7 +43,8 @@ UNCHANGED = ("flash_fwd_reg_kernel<...>", "flash_window_reg_kernel<...>", "ring_
              "ring_flash_hop_kernel<...>", "ef_update_fp32_kernel", "ef_minmax_int8_kernel",
              "ef_codes_int8_kernel", "flash_parts_kernel<...>", "dma_only_kernel", "plumb_kernel", "empty_kernel",
              "binary_quant_kernel<...>", "binary_quant_vec_kernel<...>", "binary_dequant_kernel<...>",
-             "binary_dequant_vec_kernel<...>", "int2_dequant_kernel<...>", "int2_dequant_vec_kernel<...>")
+             "binary_dequant_vec_kernel<...>", "int2_quant_kernel<...>", "int2_quant_vec_kernel<...>",
+             "int2_dequant_kernel<...>", "int2_dequant_vec_kernel<...>")
 # nvcc names each source's anonymous namespace after a hash of the source
 # (``_GLOBAL__N__0110b69f_13_flash_attn_cu_3b6b32e1``), and symbols in the
 # SASS carry it: an edit elsewhere in the file changes it
