@@ -257,57 +257,34 @@ int dispatch(const void* q, const void* k, const void* v, long long qsb, long lo
 
 }  // namespace
 
-extern "C" int cf_flash_attn_bf16(const void* q, const void* k, const void* v,
-                                  long long qsb, long long qss, long long qsh,
-                                  long long ksb, long long kss, long long ksh,
-                                  long long vsb, long long vss, long long vsh,
-                                  void* out, void* lse, const void* kv_lens,
-                                  int B, int Sq, int Sk, int H, int D, float scale,
-                                  int body, int dp, int warps, void* stream) {
-  return dispatch<__nv_bfloat16, false>(q, k, v, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, out,
-                                        lse, kv_lens, B, Sq, Sk, H, D, scale, 0, body, dp, warps,
-                                        stream);
-}
-
-// cf_flash_attn_bf16 on fp32 q/k/v and out: the register and wide bodies
-extern "C" int cf_flash_attn_f32(const void* q, const void* k, const void* v,
-                                 long long qsb, long long qss, long long qsh,
-                                 long long ksb, long long kss, long long ksh,
-                                 long long vsb, long long vss, long long vsh,
-                                 void* out, void* lse, const void* kv_lens,
-                                 int B, int Sq, int Sk, int H, int D, float scale,
-                                 int body, int dp, int warps, void* stream) {
-  return dispatch<float, false>(q, k, v, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, out, lse,
-                                kv_lens, B, Sq, Sk, H, D, scale, 0, body, dp, warps, stream);
+// Kernel 1 on bf16 q/k/v and out, or on fp32 ones with f32 (the register
+// and wide bodies only)
+extern "C" int cf_flash_attn(const void* q, const void* k, const void* v,
+                             long long qsb, long long qss, long long qsh,
+                             long long ksb, long long kss, long long ksh,
+                             long long vsb, long long vss, long long vsh,
+                             void* out, void* lse, const void* kv_lens,
+                             int B, int Sq, int Sk, int H, int D, float scale,
+                             int body, int dp, int warps, int f32, void* stream) {
+  auto run = f32 ? dispatch<float, false> : dispatch<__nv_bfloat16, false>;
+  return run(q, k, v, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, out, lse, kv_lens, B, Sq, Sk, H,
+             D, scale, 0, body, dp, warps, stream);
 }
 
 // Banded self-attention |i - j| <= window over S keys (Sq == Sk == S); a
-// window >= S - 1 is full attention.
-extern "C" int cf_flash_attn_window_bf16(const void* q, const void* k, const void* v,
-                                         long long qsb, long long qss, long long qsh,
-                                         long long ksb, long long kss, long long ksh,
-                                         long long vsb, long long vss, long long vsh,
-                                         void* out, void* lse, int B, int S, int H, int D,
-                                         int window, float scale, int body, int dp, int warps,
-                                         void* stream) {
+// window >= S - 1 is full attention.  bf16, or fp32 with f32 (the register
+// body only).
+extern "C" int cf_flash_attn_window(const void* q, const void* k, const void* v,
+                                    long long qsb, long long qss, long long qsh,
+                                    long long ksb, long long kss, long long ksh,
+                                    long long vsb, long long vss, long long vsh,
+                                    void* out, void* lse, int B, int S, int H, int D,
+                                    int window, float scale, int body, int dp, int warps,
+                                    int f32, void* stream) {
   if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<__nv_bfloat16, true>(q, k, v, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, out,
-                                       lse, nullptr, B, S, S, H, D, scale, window < S ? window : S,
-                                       body, dp, warps, stream);
-}
-
-// cf_flash_attn_window_bf16 on fp32 q/k/v and out: the register body
-extern "C" int cf_flash_attn_window_f32(const void* q, const void* k, const void* v,
-                                        long long qsb, long long qss, long long qsh,
-                                        long long ksb, long long kss, long long ksh,
-                                        long long vsb, long long vss, long long vsh,
-                                        void* out, void* lse, int B, int S, int H, int D,
-                                        int window, float scale, int body, int dp, int warps,
-                                        void* stream) {
-  if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<float, true>(q, k, v, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, out, lse,
-                               nullptr, B, S, S, H, D, scale, window < S ? window : S, body, dp,
-                               warps, stream);
+  auto run = f32 ? dispatch<float, true> : dispatch<__nv_bfloat16, true>;
+  return run(q, k, v, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, out, lse, nullptr, B, S, S, H, D,
+             scale, window < S ? window : S, body, dp, warps, stream);
 }
 
 extern "C" const char* cf_error_string(int err) {

@@ -2,8 +2,7 @@
 // flash_fwd_wide_f32_kernel (fp32) at 128 < d <= 512, on the body of
 // flash_wide.cuh, which says what it replaces and how it is laid out.  Its
 // own source, so that nvcc builds its instantiations beside flash_attn.cu's;
-// flash_attn.cu's entries cf_flash_attn_bf16 and cf_flash_attn_f32 hand it
-// the plans of the wide body.
+// flash_attn.cu's entry cf_flash_attn hands it the plans of the wide body.
 
 #include "flash_wide.cuh"
 

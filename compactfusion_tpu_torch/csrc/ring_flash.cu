@@ -3,7 +3,7 @@
 // memory; the last hop normalises and writes out (in the input dtype, bf16
 // or fp32) and LSE (fp32, natural log).  fp32 q/k/v take the register body
 // in 3xTF32 (flash_reg.cuh's note; ring_flash_hop_reg_f32_kernel, entry
-// cf_ring_flash_hop_f32), and the EF pass then writes fp32 reconstructions
+// cf_ring_flash_hop with f32), and the EF pass then writes fp32 reconstructions
 // (ef_update_fp32_f32rec_kernel, ef_codes_int8_f32rec_kernel), not rounded,
 // as ring_flash_pallas.py rounds them to the activation dtype.
 //
@@ -406,33 +406,22 @@ int ring_hop(const void* q, const void* k, const void* v, long long qsb, long lo
 // with the plan (body, dp, warps) of ops/flash.py::flash_plan: the register
 // body at a built (dp, warps) with D <= dp, or the shared-memory body with
 // dp = D rounded up to 16 and 4 or 2 warps; anything else is an error.
-extern "C" int cf_ring_flash_hop_bf16(const void* q, const void* k, const void* v,
-                                      long long qsb, long long qss, long long qsh,
-                                      long long ksb, long long kss, long long ksh,
-                                      long long vsb, long long vss, long long vsh,
-                                      void* m, void* l, void* acc, void* out, void* lse,
-                                      int B, int Sq, int Sk, int H, int D, float scale,
-                                      int first, int last, int body, int dp, int warps,
-                                      void* stream) {
-  return ring_hop<__nv_bfloat16>(q, k, v, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, m, l, acc, out,
-                                 lse, B, Sq, Sk, H, D, scale, first, last, body, dp, warps, stream);
-}
-
-// cf_ring_flash_hop_bf16 on fp32 q/k/v and out: the register body
-extern "C" int cf_ring_flash_hop_f32(const void* q, const void* k, const void* v,
-                                     long long qsb, long long qss, long long qsh,
-                                     long long ksb, long long kss, long long ksh,
-                                     long long vsb, long long vss, long long vsh,
-                                     void* m, void* l, void* acc, void* out, void* lse,
-                                     int B, int Sq, int Sk, int H, int D, float scale,
-                                     int first, int last, int body, int dp, int warps,
-                                     void* stream) {
-  return ring_hop<float>(q, k, v, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, m, l, acc, out, lse, B,
-                         Sq, Sk, H, D, scale, first, last, body, dp, warps, stream);
+// bf16 q/k/v and out, or fp32 ones with f32 (the register body only).
+extern "C" int cf_ring_flash_hop(const void* q, const void* k, const void* v,
+                                 long long qsb, long long qss, long long qsh,
+                                 long long ksb, long long kss, long long ksh,
+                                 long long vsb, long long vss, long long vsh,
+                                 void* m, void* l, void* acc, void* out, void* lse,
+                                 int B, int Sq, int Sk, int H, int D, float scale,
+                                 int first, int last, int body, int dp, int warps, int f32,
+                                 void* stream) {
+  auto run = f32 ? ring_hop<float> : ring_hop<__nv_bfloat16>;
+  return run(q, k, v, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, m, l, acc, out, lse, B, Sq, Sk, H,
+             D, scale, first, last, body, dp, warps, stream);
 }
 
 // The EF pass of one hop of the compressed ring (kernel 8's flash partial
-// is cf_ring_flash_hop_bf16, or _f32, on its output).  pk/pv: per-head packed codes
+// is cf_ring_flash_hop on its output).  pk/pv: per-head packed codes
 // (null for LOW_RANK); uk/uv (N, K), vk/vv (K, C) bf16 scales; kb/vb the
 // source slot of the EF stacks, (N, C) fp32, or uint8 codes with ks/km,
 // vs/vm its (1, C) bf16 scale and min when quantized (then B == 1, and

@@ -110,7 +110,7 @@ def load() -> ctypes.CDLL:
 def _declare(lib: ctypes.CDLL) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     L = ctypes.c_longlong
-    lib.cf_flash_attn_bf16.argtypes = [
+    lib.cf_flash_attn.argtypes = [
         P, P, P,          # q, k, v
         L, L, L,          # q strides (b, s, h) in elements
         L, L, L,          # k strides
@@ -119,12 +119,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         I, I, I, I, I,    # B, Sq, Sk, H, D
         F,                # softmax scale
         I, I, I,          # plan: body, padded head dim, warps per CTA (ops/flash.py)
+        I,                # q/k/v and out are fp32 (else bf16)
         P,                # stream
     ]
-    lib.cf_flash_attn_bf16.restype = I
-    lib.cf_flash_attn_f32.argtypes = lib.cf_flash_attn_bf16.argtypes  # fp32 q/k/v and out
-    lib.cf_flash_attn_f32.restype = I
-    lib.cf_flash_attn_window_bf16.argtypes = [
+    lib.cf_flash_attn.restype = I
+    lib.cf_flash_attn_window.argtypes = [
         P, P, P,          # q, k, v
         L, L, L,          # q strides (b, s, h) in elements
         L, L, L,          # k strides
@@ -134,11 +133,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         I,                # window
         F,                # softmax scale
         I, I, I,          # plan: body, padded head dim, warps per CTA
+        I,                # q/k/v and out are fp32 (else bf16)
         P,                # stream
     ]
-    lib.cf_flash_attn_window_bf16.restype = I
-    lib.cf_flash_attn_window_f32.argtypes = lib.cf_flash_attn_window_bf16.argtypes
-    lib.cf_flash_attn_window_f32.restype = I
+    lib.cf_flash_attn_window.restype = I
     for codec in ("binary", "int2"):
         quant, dequant = getattr(lib, f"cf_{codec}_quant"), getattr(lib, f"cf_{codec}_dequant")
         quant.argtypes = [
@@ -157,7 +155,7 @@ def _declare(lib: ctypes.CDLL) -> None:
             P,                 # stream
         ]
         dequant.restype = I
-    lib.cf_ring_flash_hop_bf16.argtypes = [
+    lib.cf_ring_flash_hop.argtypes = [
         P, P, P,          # q, k, v
         L, L, L,          # q strides (b, s, h) in elements
         L, L, L,          # k strides
@@ -168,11 +166,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         F,                # softmax scale
         I, I,             # first hop, last hop
         I, I, I,          # plan: body, padded head dim, warps per CTA
+        I,                # q/k/v and out are fp32 (else bf16)
         P,                # stream
     ]
-    lib.cf_ring_flash_hop_bf16.restype = I
-    lib.cf_ring_flash_hop_f32.argtypes = lib.cf_ring_flash_hop_bf16.argtypes  # fp32 q/k/v and out
-    lib.cf_ring_flash_hop_f32.restype = I
+    lib.cf_ring_flash_hop.restype = I
     lib.cf_ef_update_slot.argtypes = [
         P, P,             # packed codes of K and V (NULL for LOW_RANK)
         P, P, P, P, I,    # u_k, u_v (N,K), v_k, v_v (K,C) bf16, K

@@ -309,11 +309,11 @@ def flash_attn_with_lse(
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = _build.load()
-    status = (lib.cf_flash_attn_f32 if f32 else lib.cf_flash_attn_bf16)(
+    status = lib.cf_flash_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         out.data_ptr(), lse.data_ptr(), lens_ptr,
-        b, sq, sk, h, d, ctypes.c_float(scale), *plan_args(plan),
+        b, sq, sk, h, d, ctypes.c_float(scale), *plan_args(plan), int(f32),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, "flash_attn_with_lse")
@@ -384,11 +384,11 @@ def flash_attn_window_with_lse(
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     lib = _build.load()
-    status = (lib.cf_flash_attn_window_f32 if f32 else lib.cf_flash_attn_window_bf16)(
+    status = lib.cf_flash_attn_window(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         out.data_ptr(), lse.data_ptr(),
-        b, s, h, d, min(int(window), s), ctypes.c_float(scale), *plan_args(plan),
+        b, s, h, d, min(int(window), s), ctypes.c_float(scale), *plan_args(plan), int(f32),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, "flash_attn_window_with_lse")

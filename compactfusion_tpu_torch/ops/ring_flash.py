@@ -97,7 +97,6 @@ def ring_flash_attn_with_lse(q: torch.Tensor, kv_blocks: Iterable, ring_size: in
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty_like(m)
     lib = _build.load()
-    hop = lib.cf_ring_flash_hop_f32 if f32 else lib.cf_ring_flash_hop_bf16
     stream = torch.cuda.current_stream(q.device).cuda_stream
     fixed = (q.data_ptr(), *q.stride()[:3])
     state = (m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(), lse.data_ptr())
@@ -107,10 +106,10 @@ def ring_flash_attn_with_lse(q: torch.Tensor, kv_blocks: Iterable, ring_size: in
         if hops >= ring_size:
             raise ValueError(f"ring of {ring_size} got more hops")
         _check_kv(q, k, v)
-        status = hop(
+        status = lib.cf_ring_flash_hop(
             fixed[0], k.data_ptr(), v.data_ptr(), *fixed[1:], *k.stride()[:3], *v.stride()[:3],
             *state, b, sq, k.shape[1], h, d, c_scale,
-            int(hops == 0), int(hops == ring_size - 1), *plan, stream,
+            int(hops == 0), int(hops == ring_size - 1), *plan, int(f32), stream,
         )
         _build.check(status, "ring_flash_attn_with_lse")
         ring_flash_attn_with_lse.launches += 1
@@ -334,20 +333,20 @@ def _check_payload(codec, payload, b, sk, h, d):
     return pk, pv, uk, uv, vk, vv
 
 
-def ef_update_slot(k_base, v_base, src: int, codec: str, payload, shape, rec=None,
-                   dtype: torch.dtype = torch.bfloat16) -> None:
+def ef_update_slot(k_base, v_base, src: int, codec: str, payload, shape, rec=None) -> None:
     """The EF pass of kernel 8 for one hop: slot ``src`` of both EF stacks
     rebuilt from the hop's fused payload (base + delta) and written back IN
     PLACE as the slot's new base (int8 stacks requantized), and, given
-    ``rec`` = (rec_k, rec_v) (B, Sk, H, D), the reconstruction there in the
-    activation dtype ``dtype`` (bf16: rounded; fp32: as it is; ``rec`` is of
-    that dtype).  ``shape`` is (B, Sk, H, D) of the K/V the stacks hold
-    (int8 stacks at B == 1 only).
+    ``rec`` = (rec_k, rec_v) (B, Sk, H, D), the reconstruction there in
+    ``rec``'s dtype, the activations' (bf16: rounded; fp32: as it is).
+    ``shape`` is (B, Sk, H, D) of the K/V the stacks hold (int8 stacks at
+    B == 1 only).
 
     On CUDA stacks: one launch on fp32 stacks, two on int8 stacks (the
     per-channel min and max, then the codes), each counted in
-    ``ef_update_slot.launches`` (and, for fp32 activations, in
+    ``ef_update_slot.launches`` (and, with an fp32 ``rec``, in
     ``ef_update_slot.f32_launches``).  On CPU stacks the twin runs."""
+    dtype = torch.bfloat16 if rec is None else rec[0].dtype
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"EF pass: reconstructions in bfloat16 or float32, got {dtype}")
     if codec not in FUSED_CODECS:
@@ -478,7 +477,6 @@ def compact_ring_flash(q, k, v, k_base, v_base, payloads: Iterable, *, codec: st
            torch.empty((b, sk, h, d), dtype=q.dtype, device=q.device))
     scratch = _ef_scratch(quantized, n, c, q.device)
     lib = _build.load()
-    hop = lib.cf_ring_flash_hop_f32 if f32 else lib.cf_ring_flash_hop_bf16
     stream = torch.cuda.current_stream(q.device).cuda_stream
     state = (m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(), lse.data_ptr())
     c_scale = ctypes.c_float(scale)
@@ -490,11 +488,11 @@ def compact_ring_flash(q, k, v, k_base, v_base, payloads: Iterable, *, codec: st
                    _check_payload(codec, payload, b, sk, h, d), (b, sk, h, d), rec if hops else None,
                    scratch, stream, q.dtype)
         kk, vv = rec if hops else (k, v)
-        status = hop(
+        status = lib.cf_ring_flash_hop(
             q.data_ptr(), kk.data_ptr(), vv.data_ptr(),
             *q.stride()[:3], *kk.stride()[:3], *vv.stride()[:3],
             *state, b, sq, sk, h, d, c_scale,
-            int(hops == 0), int(hops == ring_size - 1), *plan, stream,
+            int(hops == 0), int(hops == ring_size - 1), *plan, int(f32), stream,
         )
         _build.check(status, "compact_ring_flash")
         compact_ring_flash.launches += 1

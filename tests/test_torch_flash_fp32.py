@@ -9,6 +9,7 @@ holds each fp32 kernel against its twin there); here every wrapper runs its
 twin on CPU tensors.
 """
 
+import ctypes
 from pathlib import Path
 
 import jax
@@ -114,6 +115,41 @@ def test_fp32_flash_tile_raises_not_implemented():
     ring = (REPO / "compactfusion_tpu_torch" / "ops" / "ring_flash.py").read_text()
     assert ring.count("launch_plan(b, h, sq, d, q.dtype, wide=False)") == 2
     assert "flash_plan(" not in ring
+
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+            "long long": ctypes.c_longlong, "int": ctypes.c_int, "float": ctypes.c_float}
+
+
+def _c_entries():
+    """{name: [ctypes type of each parameter]} of every ``extern "C"``
+    entry in ``compactfusion_tpu_torch/csrc/*.cu``."""
+    import re
+
+    entries = {}
+    for path in sorted((REPO / "compactfusion_tpu_torch" / "csrc").glob("*.cu")):
+        for name, params in re.findall(r'extern "C" [\w*]+\*? (cf_\w+)\(([^)]*)\)', path.read_text()):
+            types_ = [re.sub(r"\s*\w+$", "", p.strip()) for p in params.split(",")]
+            entries[name] = [_C_TYPES[t] for t in types_]
+    return entries
+
+
+@pytest.mark.parametrize("name", ["cf_flash_attn", "cf_flash_attn_window", "cf_ring_flash_hop",
+                                  "cf_ef_update_slot"])
+def test_c_entry_takes_one_dtype_flag_and_matches_its_declaration(name):
+    """Kernels 1, 4, 7 and the EF pass have one C entry each for both
+    dtypes, choosing fp32 by an int before the stream; ``ops/_build.py``
+    declares each entry's parameters as ``csrc/`` defines them, type for
+    type, so a wrapper cannot hand the kernel a shifted argument."""
+    from tests.test_torch_compact_ring import _declared_argtypes
+
+    entries = _c_entries()
+    assert not any(n.endswith(("_f32", "_bf16")) and n[:n.rindex("_")] in entries for n in entries)
+    declared = list(_declared_argtypes(name))
+    assert declared == entries[name]
+    assert declared[-2:] == [ctypes.c_int, ctypes.c_void_p]
+    src = "".join(p.read_text() for p in (REPO / "compactfusion_tpu_torch" / "ops").glob("*.py"))
+    assert f"lib.{name}(" in src
 
 
 # -- the fp32 plans and the layouts of csrc/ --------------------------------------
@@ -248,9 +284,8 @@ def test_fp32_compact_ring_twin_matches_pallas_interpret(ring):
 def test_fp32_ef_pass_twin_writes_fp32_reconstructions():
     """The EF pass's wrapper on CPU stacks with fp32 activations: ``rec``
     (fp32) holds the reconstruction as it is, the slot's new base bit for
-    bit, which bf16 could not hold; no launch is counted.  A reconstruction
-    of another dtype than ``dtype`` is refused on the card's path, and fp16
-    is refused."""
+    bit, which bf16 could not hold; no launch is counted.  The pass takes
+    the activation dtype from ``rec``, and an fp16 ``rec`` is refused."""
     q, k, v, kb, vb = _ring_inputs(2, seed=11)
     k0, v0 = (torch.from_numpy(np.ascontiguousarray(x[:, :S_LOCAL])) for x in (k, v))
     kw, vw = torch.from_numpy(kb.copy()), torch.from_numpy(vb.copy())
@@ -258,7 +293,7 @@ def test_fp32_ef_pass_twin_writes_fp32_reconstructions():
     shape = tuple(k0.shape)
     rec = tuple(torch.empty(shape, dtype=torch.float32) for _ in range(2))
     trf.ef_update_slot.launches = trf.ef_update_slot.f32_launches = 0
-    trf.ef_update_slot(kw, vw, 1, "binary", payload, shape, rec=rec, dtype=torch.float32)
+    trf.ef_update_slot(kw, vw, 1, "binary", payload, shape, rec=rec)
     assert trf.ef_update_slot.launches == trf.ef_update_slot.f32_launches == 0
     for r, slot in zip(rec, (kw[1], vw[1])):
         assert torch.equal(r.reshape(slot.shape), slot)
@@ -268,7 +303,8 @@ def test_fp32_ef_pass_twin_writes_fp32_reconstructions():
     for r, x in zip(rec, trf.ef_update_slot_ref(kt, vt, 1, "binary", payload)):
         assert x.dtype == torch.float32 and torch.equal(r, x.reshape(shape))
     with pytest.raises(TypeError, match="bfloat16 or float32"):
-        trf.ef_update_slot(kw, vw, 1, "binary", payload, shape, dtype=torch.float16)
+        trf.ef_update_slot(kw, vw, 1, "binary", payload, shape,
+                           rec=tuple(torch.empty(shape, dtype=torch.float16) for _ in range(2)))
 
 
 # -- the slice in fp32 ------------------------------------------------------------
