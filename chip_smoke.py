@@ -131,17 +131,44 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
     emulation and, fused, of the unfused run) of one process,
     the BINARY runs also 0 < err < 0.05 from lossless, EF caches equal
     across ranks, the same wire bytes on both routes.
+23. Kernels 1, 2/3, 5/6, 7 and 8 against their twins at the shapes
+    Ulysses and the patch gather give them (``sp_flash_cases``,
+    ``sp_ring_cases``): kernel 1 at U2 (B2 H8 S1024 d72), the U2 x R2 hop
+    (512 rows), the patch gather at R2 (512 query rows over 1024 keys, 16
+    heads) and FLUX's U2 and U2 x R2 hop 0 (12 heads of 128, the text rows
+    in each Ulysses rank's chunk); the quant pairs at the compressed
+    all-gather's N1024 C1152 and the compressed USP ring's N1024 C576 (the
+    vector plans, every plan pairing bit for bit); kernels 7 and 8 (BINARY
+    and INT2) at the U2 x R2 hop, 8 heads, and FLUX's at 12 heads of 128.
+24. PixArt-alpha 512 at full width and depth as Ulysses ranks on this card
+    (gloo): U2 in 2 processes, lossless; U2 x R2 in 4, lossless and BINARY
+    (the consistency check on), unfused and fused: lossless within
+    HALVES_REL_MAX of request 1, BINARY 0 < err < 0.05, fused within
+    RING_REL_MAX of unfused, EF deviation 0, the ring and all-to-all bytes
+    the shapes imply.
+25. The patch-parallel gather at R2 in 2 processes: sync (within
+    HALVES_REL_MAX), BINARY and INT2 (residual 1 + EF, warmup 4, the
+    consistency check on: 0 < err < 0.05, every slot equal across ranks),
+    DistriFusion's stale gather (0 < err <= PATCH_ASYNC_REL_MAX); the
+    gathered bytes W times the payloads', and the dense-over-compressed
+    ratio.
+26. FLUX.1-dev at phase 19's cut depth as U2 (2 processes) and U2 x R2 (4;
+    lossless and BINARY, unfused and fused), with phase 19's bounds against
+    one process running the same cut model.
+27. FBCache at R2 in 2 processes (PixArt), the probe summed over the ring:
+    threshold 0 bit-equal to phase 13's ring-2 lossless run, 1e6 18 skipped
+    steps on both ranks.
 
-Phases 4-15, 18-19 and 21-22 hold their latents against a lossless request and
+Phases 4-15, 18-19 and 21-27 hold their latents against a lossless request and
 their kernel launch counts against the counts the path implies (kernel 1's
 wide-body launches among them, one per decoded image, and those of
 kernels 2, 3, 5 and 6 on their vector plans, all of their launches); every
 count is set to 0 just before each of phases 3-11, 13-15, 16's probes
-(and the calibration), 18-19 and 21-22, in every process, and read just
+(and the calibration), 18-19, 21-22 and 24-27, in every process, and read just
 after; kernels 1, 4, 7 and 8 count their fp32 launches apart.  A probe
 counts a launch when it captures a CUDA graph, so phase 16 reports the
 launches the device ran (the captured count times the replays).  The
-``launches`` of the pipeline's kernels are those of phases 3-15, 18-19 and 21-22: what
+``launches`` of the pipeline's kernels are those of phases 3-15, 18-19 and 21-27: what
 kernel 1 ran inside the probes is reported beside them, under phase 16's
 ``launches_of_pipeline_kernels``.  The s/image of phases 13-15 is that of
 processes sharing one card, not a ring speed (so are phase 19's).
@@ -223,6 +250,10 @@ F32_FORWARD_REL_MAX = 2e-4
 # delta is near 0, so the last-bit differences of the two routes grow more)
 F32_RING_LOSSLESS_REL_MAX = 1e-5
 F32_RING_BINARY_REL_MAX = 1e-4
+# DistriFusion's stale patch gather vs lossless latents (phase 25): the
+# bound the JAX package's own test puts on it
+# (tests/models/test_pixart.py::test_patch_parallel_pipeline)
+PATCH_ASYNC_REL_MAX = 0.2
 # the probes' matmuls_only divides by l = the sum of a row's raw scores,
 # which can be near 0; it is compared on the rows with |l| >= 8 * sqrt(S),
 # where one bf16 ulp of the output stays below FLASH_OUT_ATOL
@@ -1421,13 +1452,15 @@ def port_kernels():
 
 
 def ring_compact(compress_type, **kw):
-    """The compressed ring across ranks of phases 14-15: residual 1 with
-    error feedback, warmup 4, the fused quant kernels on for the unfused
-    route."""
+    """The compressed ring across ranks of phases 14-15 (and the compressed
+    USP and patch gather of phases 24-26): residual 1 with error feedback
+    unless ``kw`` says otherwise, warmup 4, the fused quant kernels on for
+    the unfused route."""
     from compactfusion_tpu_torch.config import CompactConfig, CompressType
 
+    kw = {"residual": 1, "error_feedback": True, **kw}
     return CompactConfig(enabled=True, compress_type=CompressType(compress_type),
-                         warmup_steps=WARMUP, residual=1, error_feedback=True, fastpath=True, **kw)
+                         warmup_steps=WARMUP, fastpath=True, **kw)
 
 
 def ring_rank(rank, world, runs, family="pixart"):
@@ -1435,15 +1468,19 @@ def ring_rank(rank, world, runs, family="pixart"):
     gloo): the full-width models from the same seeds (``family`` "flux":
     FLUX.1-dev at phase 19's cut depth; "pixart-fp32": PixArt and its VAE in
     fp32, as in phase 21), then per run (name, ParallelConfig kwargs,
-    CompactConfig kwargs or None) request 1 with every launch count set to
-    0 before it; returns per run the whole latents, the launch counts, the
-    bytes this rank's ring shifts sent, the largest EF cache deviation
-    across the ring and s/image."""
+    CompactConfig kwargs or None, and optionally CacheAccelConfig kwargs)
+    request 1 with every launch count set to 0 before it; returns per run
+    the whole latents, the launch counts, the bytes this rank's ring shifts
+    sent, its all-to-alls sent to the other ranks and its tree gathers
+    gathered, the largest EF cache deviation across the ring (or the
+    patch gather's ranks), the skipped steps (None without a cache) and
+    s/image."""
     import torch
 
     from compactfusion_tpu_torch.compact import ring as compact_ring
     from compactfusion_tpu_torch.config import ParallelConfig
-    from compactfusion_tpu_torch.parallel.mesh import make_mesh
+    from compactfusion_tpu_torch.cache.accel import CacheAccelConfig
+    from compactfusion_tpu_torch.parallel.mesh import Mesh, make_mesh
     from compactfusion_tpu_torch.parallel.ring import ring_shift
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1456,19 +1493,23 @@ def ring_rank(rank, world, runs, family="pixart"):
         dtype = torch.float32 if family == "pixart-fp32" else None
         models, make_request, size = build_models(dev, dtype), request, 512
     out = {}
-    for name, par, compact in runs:
+    for name, par, compact, *cache in runs:
         parallel = ParallelConfig(**par)
         kw = {} if compact is None else {"compact": ring_compact(**compact)}
+        if cache:
+            kw["cache"] = CacheAccelConfig(**cache[0])
         pipe = (flux_pipeline if family == "flux" else pixart_pipeline)(*models, dev, parallel=parallel,
                                                                          mesh=make_mesh(parallel), **kw)
         _reset_counts(kernels)
-        ring_shift.nbytes = 0
+        ring_shift.nbytes = Mesh.all_to_all.nbytes = Mesh.all_gather_tree.nbytes = 0
         compact_ring.max_consistency_dev = 0.0
         lat, img, sec = make_request(pipe, 1)
         counts = _counts(kernels)
         check_image(img, f"{name} rank {rank}", size)
         out[name] = {"latents": lat.float().cpu().numpy(), "launches": counts,
-                     "wire_bytes": ring_shift.nbytes, "consistency_dev": compact_ring.max_consistency_dev,
+                     "wire_bytes": ring_shift.nbytes, "all_to_all_bytes": Mesh.all_to_all.nbytes,
+                     "gather_bytes": Mesh.all_gather_tree.nbytes,
+                     "consistency_dev": compact_ring.max_consistency_dev, "skips": pipe.last_skips,
                      "s_per_image": sec}
     return out
 
@@ -1737,7 +1778,8 @@ def flux_ring_phase(kernels, dev, codecs):
     and BINARY (residual 1 + EF, warmup 4, the consistency check on), each
     unfused and fused, every run against one process running the same cut
     model lossless, the fused runs against the unfused ones, with exact
-    launch counts on every rank.  Returns the phases."""
+    launch counts on every rank.  Returns (the phases, the one-process
+    latents)."""
     import torch
 
     from compactfusion_tpu_torch.parallel.mesh import spawn_local
@@ -1793,7 +1835,7 @@ def flux_ring_phase(kernels, dev, codecs):
           f"runs {got_bytes}, expected {want_bytes} (payload_nbytes {payload} per K or V)")
     if got_bytes != [want_bytes, want_bytes]:
         raise AssertionError("phase 19: the binary rings sent other bytes than their payloads")
-    return phases
+    return phases, one
 
 
 def f32_flash_cases(gen, dev):
@@ -1995,6 +2037,286 @@ def f32_ring_phase(kernels, dev, codecs, models, lossless):
     if got_bytes != [want_bytes, want_bytes]:
         raise AssertionError("phase 22: the binary rings sent other bytes than their payloads")
     return phases
+
+
+def sp_flash_cases(gen, dev):
+    """Kernel 1 at the shapes Ulysses and the patch gather give it: PixArt's
+    self-attention at U2 (the whole sequence, 8 heads of 72), a U2 x R2
+    hop (512 rows, 8 heads), the patch gather at R2 (512 query rows over
+    the 1024 gathered keys, 16 heads), and FLUX at U2 (the 512 text rows
+    in each Ulysses rank's chunk, 2 x 2560 query rows over the 512 text + 4096
+    image keys, 12 heads of 128), and at U2 x R2 the text-joined hop 0, hop 1
+    (the peer's 2048 image keys) and the fused route's joint block (the 512
+    text keys alone)."""
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def qkv(b, sq, sk, h, d):
+        return lambda: (rnd(b, sq, h, d), rnd(b, sk, h, d), rnd(b, sk, h, d))
+
+    def patch():
+        q, _, _ = _qkv_views(gen, dev, 2, 512)
+        return q, rnd(2, 1024, 16, 72), rnd(2, 1024, 16, 72)
+
+    fq, fk = 2 * (FLUX_TXT + FLUX_IMG // 2), FLUX_TXT + FLUX_IMG
+    hq, hk = 2 * (FLUX_TXT + FLUX_IMG // 4), FLUX_TXT + FLUX_IMG // 2
+    h = FLUX_HEADS // 2
+    return [
+        ("Ulysses U2 self-attn B2 H8 S1024 d72", qkv(2, 1024, 1024, 8, 72), 20),
+        ("U2 x R2 hop B2 H8 Sq512 Sk512 d72", qkv(2, 512, 512, 8, 72), 20),
+        ("patch gather R2 B2 H16 Sq512 Sk1024 d72", patch, 20),
+        (f"FLUX Ulysses U2 B1 H{h} Sq{fq} Sk{fk} d{FLUX_HEAD_DIM} (text rows in each chunk)",
+         qkv(1, fq, fk, h, FLUX_HEAD_DIM), 10),
+        (f"FLUX U2 x R2 hop 0 (text joint in front) B1 H{h} Sq{hq} Sk{hk} d{FLUX_HEAD_DIM}",
+         qkv(1, hq, hk, h, FLUX_HEAD_DIM), 10),
+        (f"FLUX U2 x R2 hop 1 B1 H{h} Sq{hq} Sk{hk - FLUX_TXT} d{FLUX_HEAD_DIM}",
+         qkv(1, hq, hk - FLUX_TXT, h, FLUX_HEAD_DIM), 10),
+        (f"FLUX U2 x R2 fused joint block B1 H{h} Sq{hq} Sk{FLUX_TXT} d{FLUX_HEAD_DIM}",
+         qkv(1, hq, FLUX_TXT, h, FLUX_HEAD_DIM), 10),
+    ]
+
+
+def sp_ring_cases(gen, dev):
+    """Kernel 7 at the U2 x R2 ring hop: PixArt's 512 rows of 8 heads a
+    rank (B2), and FLUX's 12 heads of 128 with the text rows in front of
+    the 2048 image rows of each Ulysses rank's chunk, rank 0's view."""
+    import torch
+
+    def make(b, sq, s_local, h, d):
+        q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(torch.bfloat16)
+        blocks = [tuple(torch.randn((b, s_local, h, d), generator=gen, device=dev).to(torch.bfloat16)
+                        for _ in range(2)) for _ in range(2)]
+        return q, blocks
+
+    fq, fs = 2 * (FLUX_TXT + FLUX_IMG // 4), FLUX_IMG // 2
+    return [((2, 2, 512), lambda: make(2, 512, 512, 8, 72)),
+            ((2, 1, fs), lambda: make(1, fq, fs, FLUX_HEADS // 2, FLUX_HEAD_DIM))]
+
+
+def check_sp_kernels(flash, quant, codecs, rf, timing, dev, gen):
+    """Phase 23: kernels 1, 7 and 8 at the shapes Ulysses and the patch
+    gather give them, and kernels 2/3 and 5/6 at the compressed all-gather's
+    N1024 C1152 (B2 x 512 tokens a rank, 16 heads of 72) and the compressed
+    USP ring's N1024 C576 (B2 x 2 x 256 tokens, 8 heads), kernels 2/3 also
+    at FLUX's compressed USP ring, N2048 C1536 (2 x 1024 tokens, 12 heads
+    of 128): every check and timing as in phases 2 and 12.  Returns the
+    rows by kernel."""
+    import torch
+
+    flash_rows = check_flash(flash, timing, dev, gen, sp_flash_cases(gen, dev), phase=23)
+    flux_usp = FLUX_IMG // 4 * 2, FLUX_HEADS // 2 * FLUX_HEAD_DIM
+    shapes = {"binary": ((1024, 1152), (1024, 576), flux_usp), "int2": ((1024, 1152), (1024, 576))}
+    quant_rows = {codec: [check_quant(quant, codecs, timing, dev, gen, codec, -1, torch.float32, shape, phase=23)
+                          for shape in shapes[codec]] for codec in shapes}
+    for codec, rows in quant_rows.items():
+        for r in rows:
+            if [r["quant_plan_bytes_per_thread"], r["dequant_plan_bytes_per_thread"]] != [quant.QUANT_VEC_BYTES] * 2:
+                raise AssertionError(f"phase 23: {r['shape']} did not take the vector plans")
+    ring_rows = check_ring_flash(rf, flash, timing, dev, gen, sp_ring_cases(gen, dev), phase=23)
+    fq = 2 * (FLUX_TXT + FLUX_IMG // 4)
+    cring_rows = [check_compact_ring(rf, flash, timing, dev, gen, 2, 2, 512, codec, -1, False, 8, 72, phase=23)
+                  for codec in ("binary", "int2")]
+    cring_rows.append(check_compact_ring(rf, flash, timing, dev, gen, 2, 1, FLUX_IMG // 2, "binary", -1, False,
+                                         FLUX_HEADS // 2, FLUX_HEAD_DIM, fq, phase=23))
+    return {"flash": flash_rows, "quant": quant_rows, "ring": ring_rows, "cring": cring_rows}
+
+
+def _payload_bytes(codecs, n, c, codec):
+    import torch
+
+    return codecs.payload_nbytes(codecs.encode(torch.ones(n, c), codecs.CompressType(codec)))
+
+
+def pixart_sp_phases(two, four, lossless_np, ring2_np, codecs):
+    """Phases 24, 25 and 27 from the runs of one 2-process spawn (``two``:
+    Ulysses 2, the patch gathers and FBCache at R2) and one 4-process spawn
+    (``four``: U2 x R2 lossless and BINARY, unfused and fused).
+    ``ring2_np``: phase 13's ring-2 lossless latents.  Returns the phases."""
+    hops, comp = 2 * DEPTH, STEPS - WARMUP
+    phases = {}
+    # -- 24: Ulysses ----------------------------------------------------------
+    phases["u2 lossless"] = ring_phase(24, two, "u2 lossless", lossless_np,
+                                       {"flash_attn_with_lse": DEPTH * STEPS + 1}, HALVES_REL_MAX)
+    expect = {"u2r2 lossless": {"flash_attn_with_lse": hops * STEPS + 1},
+              "u2r2 lossless fused": {"flash_attn_with_lse": 1, "ring_flash_attn_with_lse": hops * STEPS},
+              "u2r2 binary": {"flash_attn_with_lse": hops * STEPS + 1, "binary_quant_fastpath": hops * comp,
+                              "binary_dequant_fastpath": hops * comp},
+              "u2r2 binary fused": {"flash_attn_with_lse": hops * WARMUP + 1, "compact_ring_flash": hops * comp,
+                                    "ef_update_slot": hops * comp}}
+    for name, want in expect.items():
+        refs = []
+        if name.endswith("fused"):
+            unfused = name[:-len(" fused")]
+            refs = [(unfused, four[0][unfused]["latents"], RING_REL_MAX)]
+        if "binary" in name:
+            phases[name] = ring_phase(24, four, name, lossless_np, want, COMPRESSED_REL_ERR_MAX, refs, low=0.0)
+            if phases[name]["consistency_dev"] != 0.0:
+                raise AssertionError(f"{name}: EF caches differ across the ring")
+        else:
+            phases[name] = ring_phase(24, four, name, lossless_np, want, HALVES_REL_MAX, refs)
+    # the ring of U2 x R2: N = B2 x 256 tokens x U2 rows of (8 heads x 72) channels
+    n, c = 2 * 1024 // 4 * 2, 1152 // 2
+    want_bytes = DEPTH * (WARMUP * 2 * n * c * 4 + comp * 2 * _payload_bytes(codecs, n, c, "binary"))
+    got = [phases[k]["wire_bytes_per_rank"] for k in ("u2r2 binary", "u2r2 binary fused")]
+    a2a = {k: [r[k]["all_to_all_bytes"] for r in four] for k in expect}
+    # per layer and step: q, k, v and out, each (B2, 256 tokens, 16 heads of 72) in bf16, half of it sent
+    want_a2a = DEPTH * STEPS * 4 * (2 * 256 * 1152 * 2) // 2
+    print(f"[24] ring-shift bytes per rank of the binary runs {got}, expected {want_bytes}; all-to-all bytes "
+          f"sent per rank and image {sorted({b for v in a2a.values() for b in v})}, expected {want_a2a} "
+          f"(U2 in 2 processes: {[r['u2 lossless']['all_to_all_bytes'] for r in two]})")
+    if got != [want_bytes, want_bytes] or any(b != want_a2a for v in a2a.values() for b in v):
+        raise AssertionError("phase 24: the rings or the all-to-alls sent other bytes than the path implies")
+    if any(r["u2 lossless"]["all_to_all_bytes"] != 2 * want_a2a for r in two):
+        raise AssertionError("phase 24: the U2 all-to-alls sent other bytes than the path implies")
+    for k in expect:
+        phases[k]["all_to_all_bytes_per_rank"] = want_a2a
+    phases["u2 lossless"]["all_to_all_bytes_per_rank"] = 2 * want_a2a
+    # -- 25: the patch gather at R2 ------------------------------------------
+    n, c = 2 * 512, 1152
+    dense = 2 * n * c * 2  # K and V of one rank in bf16
+    phases["patch sync"] = ring_phase(25, two, "patch sync", lossless_np,
+                                      {"flash_attn_with_lse": DEPTH * STEPS + 1}, HALVES_REL_MAX)
+    want_gather = {"patch sync": DEPTH * STEPS * 2 * dense}
+    for codec in ("binary", "int2"):
+        name = f"patch {codec}"
+        phases[name] = ring_phase(
+            25, two, name, lossless_np,
+            {"flash_attn_with_lse": DEPTH * STEPS + 1, f"{codec}_quant_fastpath": 2 * DEPTH * comp,
+             f"{codec}_dequant_fastpath": 2 * 2 * DEPTH * comp}, COMPRESSED_REL_ERR_MAX, low=0.0)
+        payload = _payload_bytes(codecs, n, c, codec)
+        # warmup: the raw fp32 K/V; then the payloads; each gathered from W = 2 ranks
+        want_gather[name] = DEPTH * 2 * 2 * (WARMUP * n * c * 4 + comp * payload)
+        phases[name]["dense_over_compressed"] = (n * c * 2) / payload
+        if phases[name]["consistency_dev"] != 0.0:
+            raise AssertionError(f"{name}: the gathered slots differ across ranks")
+        print(f"[25] {name}: all W slots equal across ranks; payload {payload} bytes per K or V against "
+              f"{n * c * 2} dense bf16 ({phases[name]['dense_over_compressed']:.2f}x)")
+    phases["patch async"] = ring_phase(25, two, "patch async", lossless_np,
+                                       {"flash_attn_with_lse": DEPTH * STEPS + 1}, PATCH_ASYNC_REL_MAX, low=0.0)
+    want_gather["patch async"] = DEPTH * STEPS * 2 * dense
+    got_gather = {k: [r[k]["gather_bytes"] for r in two] for k in want_gather}
+    print(f"[25] gathered bytes per rank and image {got_gather}, expected {want_gather}")
+    if any(b != want_gather[k] for k, v in got_gather.items() for b in v):
+        raise AssertionError("phase 25: the patch gathers gathered other bytes than W x their payloads")
+    for k in want_gather:
+        phases[k]["gather_bytes_per_rank"] = want_gather[k]
+    # -- 27: FBCache at R2 ----------------------------------------------------
+    for thr, skips in ((0.0, 0), (1e6, STEPS - 2)):
+        name = f"ring2 fbcache {thr:g}"
+        # a skipped step runs block 0 alone: its two hops
+        want = {"flash_attn_with_lse": hops * (STEPS - skips) + 2 * skips + 1}
+        phases[name] = ring_phase(27, two, name, lossless_np, want,
+                                  HALVES_REL_MAX if skips == 0 else float("inf"), low=None if skips == 0 else 0.0)
+        got = [r[name]["skips"] for r in two]
+        if got != [skips, skips]:
+            raise AssertionError(f"{name}: skipped steps {got} on the ranks, expected {skips} on each")
+        phases[name]["skips"] = skips
+        if skips == 0:
+            if not (two[0][name]["latents"] == ring2_np).all():
+                raise AssertionError(f"{name}: not bit-equal to phase 13's ring-2 lossless run")
+            print(f"[27] {name}: bit-equal to phase 13's ring-2 lossless run; skipped steps {got}")
+        else:
+            print(f"[27] {name}: skipped steps {got} (the probe summed over the ring), kernel 1 launches "
+                  f"{want['flash_attn_with_lse']} per rank")
+    return phases
+
+
+def flux_sp_phases(two, four, one, codecs):
+    """Phase 26: FLUX.1-dev at phase 19's cut depth as Ulysses 2 (2
+    processes) and U2 x R2 (4 processes, lossless and BINARY, unfused and
+    fused), every run against ``one`` (one process running the same cut
+    model), with phase 19's bounds.  Returns the phases."""
+    layers = sum(FLUX_CUT)
+    hops, comp = 2 * layers, FLUX_STEPS - WARMUP
+    phases = {"flux u2 lossless": ring_phase(26, two, "flux u2 lossless", one,
+                                             {"flash_attn_with_lse": layers * FLUX_STEPS + 1}, RING_REL_MAX)}
+    expect = {"flux u2r2 lossless": {"flash_attn_with_lse": hops * FLUX_STEPS + 1},
+              "flux u2r2 lossless fused": {"flash_attn_with_lse": layers * FLUX_STEPS + 1,
+                                           "ring_flash_attn_with_lse": hops * FLUX_STEPS},
+              "flux u2r2 binary": {"flash_attn_with_lse": hops * FLUX_STEPS + 1,
+                                   "binary_quant_fastpath": hops * comp, "binary_dequant_fastpath": hops * comp},
+              "flux u2r2 binary fused": {"flash_attn_with_lse": hops * WARMUP + layers * comp + 1,
+                                         "compact_ring_flash": hops * comp, "ef_update_slot": hops * comp}}
+    for name, want in expect.items():
+        refs = []
+        if name.endswith("fused"):
+            unfused = name[:-len(" fused")]
+            refs = [(unfused, four[0][unfused]["latents"], RING_REL_MAX)]
+        if "binary" in name:
+            phases[name] = ring_phase(26, four, name, one, want, COMPRESSED_REL_ERR_MAX, refs, low=0.0)
+            if phases[name]["consistency_dev"] != 0.0:
+                raise AssertionError(f"{name}: EF caches differ across the ring")
+        else:
+            phases[name] = ring_phase(26, four, name, one, want, RING_REL_MAX, refs)
+    n, c = FLUX_IMG // 4 * 2, FLUX_HEADS // 2 * FLUX_HEAD_DIM
+    want_bytes = layers * (WARMUP * 2 * n * c * 4 + comp * 2 * _payload_bytes(codecs, n, c, "binary"))
+    got = [phases[k]["wire_bytes_per_rank"] for k in ("flux u2r2 binary", "flux u2r2 binary fused")]
+    print(f"[26] ring-shift bytes per rank of the binary runs {got}, expected {want_bytes}; all-to-all bytes "
+          f"per rank and image: U2 {two[0]['flux u2 lossless']['all_to_all_bytes']}, U2 x R2 "
+          f"{four[0]['flux u2r2 lossless']['all_to_all_bytes']}")
+    if got != [want_bytes, want_bytes]:
+        raise AssertionError("phase 26: the binary rings sent other bytes than their payloads")
+    return phases
+
+
+def sp_spawns(spawn_local):
+    """The spawns of phases 24-27: PixArt in 2 processes (U2, the patch
+    gathers and FBCache at R2) and in 4 (U2 x R2), FLUX at
+    phase 19's cut depth in 2 (U2) and in 4 (U2 x R2).  Returns them and
+    their seconds."""
+    binary = {"compress_type": "binary", "comp_rank": -1, "check_consistency": True}
+    patch = {"patch_gather": True, "check_consistency": True}
+    u2r2, fused = {"ulysses_degree": 2, "ring_degree": 2}, {"ulysses_degree": 2, "ring_degree": 2,
+                                                            "use_fused_ring": True}
+    r2 = {"ring_degree": 2}
+    usp_runs = [("u2r2 lossless", u2r2, None), ("u2r2 lossless fused", fused, None),
+                ("u2r2 binary", u2r2, binary), ("u2r2 binary fused", fused, binary)]
+    secs = {}
+    t0 = time.perf_counter()
+    pixart_two = spawn_local(ring_rank, 2, "gloo", [
+        ("u2 lossless", {"ulysses_degree": 2}, None),
+        ("patch sync", r2, {"compress_type": "identity", "patch_gather": True}),
+        ("patch binary", r2, dict(patch, compress_type="binary")),
+        ("patch int2", r2, dict(patch, compress_type="int2")),
+        ("patch async", r2, {"compress_type": "identity", "patch_gather": True, "patch_async": True,
+                             "error_feedback": False}),
+        ("ring2 fbcache 0", r2, None, {"mode": "fbcache", "threshold": 0.0}),
+        ("ring2 fbcache 1e+06", r2, None, {"mode": "fbcache", "threshold": 1e6})], threads=2)
+    secs["pixart 2 processes"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pixart_four = spawn_local(ring_rank, 4, "gloo", usp_runs, threads=2)
+    secs["pixart 4 processes"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flux_two = spawn_local(ring_rank, 2, "gloo", [("flux u2 lossless", {"ulysses_degree": 2}, None)], "flux",
+                           threads=2)
+    secs["flux 2 processes"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flux_four = spawn_local(ring_rank, 4, "gloo", [(f"flux {n}", p, c) for n, p, c in usp_runs], "flux",
+                            threads=2)
+    secs["flux 4 processes"] = time.perf_counter() - t0
+    print(f"[24-27] spawn seconds (model build, every run and the checks of the images): {secs}")
+    return pixart_two, pixart_four, flux_two, flux_four, secs
+
+
+def run_sp_phases(kernels, dev, gen, lossless_np, ring2_np, flux_one):
+    """Phases 23-27; returns (the kernel rows of phase 23, the phases, the
+    seconds of each phase)."""
+    from compactfusion_tpu_torch.compact import codecs
+    from compactfusion_tpu_torch.ops import flash, quant, ring_flash
+    from compactfusion_tpu_torch.parallel.mesh import spawn_local
+    from compactfusion_tpu_torch.probes import timing
+
+    t0 = time.perf_counter()
+    rows = check_sp_kernels(flash, quant, codecs, ring_flash, timing, dev, gen)
+    secs = {"23": time.perf_counter() - t0}
+    pixart_two, pixart_four, flux_two, flux_four, spawn_secs = sp_spawns(spawn_local)
+    phases = pixart_sp_phases(pixart_two, pixart_four, lossless_np, ring2_np, codecs)
+    phases.update(flux_sp_phases(flux_two, flux_four, flux_one, codecs))
+    secs.update({f"spawn: {k}": v for k, v in spawn_secs.items()})
+    print(f"[23-27] seconds: {secs}")
+    return rows, phases, secs
 
 
 def quant_entry(quant_rows, totals, codec, which, line):
@@ -2299,7 +2621,8 @@ def main():
     flux_phases, _ = flux_lossless_phase(kernels, dev)
     phases.update(flux_phases)
     torch.cuda.empty_cache()
-    phases.update(flux_ring_phase(kernels, dev, codecs))
+    flux_ring_phases, flux_one = flux_ring_phase(kernels, dev, codecs)
+    phases.update(flux_ring_phases)
     flash_rows += flux_rows["flash"]
     quant_rows["binary"] += flux_rows["quant"]
     ring_rows += flux_rows["ring"]
@@ -2313,6 +2636,17 @@ def main():
     phases.update(f32_phases)
     phases.update(f32_ring_phase(kernels, dev, codecs, f32_models, f32_lossless))
     del f32_models
+
+    # -- 23.-27. Ulysses, the patch gathers and the cache probes across ranks --
+    torch.cuda.empty_cache()
+    sp_rows, sp_phases, sp_secs = run_sp_phases(kernels, dev, gen, lossless_np,
+                                                two[0]["ring2 lossless"]["latents"], flux_one)
+    phases.update(sp_phases)
+    flash_rows += sp_rows["flash"]
+    for codec in ("binary", "int2"):
+        quant_rows[codec] += sp_rows["quant"][codec]
+    ring_rows += sp_rows["ring"]
+    cring_rows += sp_rows["cring"]
 
     totals = {fn.__name__: sum(p["launches"][fn.__name__] for p in phases.values()) for fn in kernels}
     for key in ROUTES.values():
@@ -2384,7 +2718,8 @@ def main():
          **{k: f32_rows["cring"][0]["ef"][k] for k in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by")},
          "shapes": [dict(r["ef"], shape=r["shape"]) for r in f32_rows["cring"]]},
     ], "sdpa_cross_attention": cross_rows, "fp32_ptxas": f32_rows["ptxas"], "phases": phases}
-    print(f"[done] phases 1-22 passed in {time.perf_counter() - t_run:.1f} s, the kernels' build included")
+    print(f"[done] phases 1-27 passed in {time.perf_counter() - t_run:.1f} s, the kernels' build included "
+          f"(phases 23-27: {sum(sp_secs.values()):.1f} s)")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

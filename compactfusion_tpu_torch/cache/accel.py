@@ -12,6 +12,9 @@
 
 The decision is a 0-dim tensor; ``models/pixart.pixart_forward`` reads it on
 the host once per step (the eager counterpart of the JAX ``lax.cond``).
+Under sequence parallelism the probe's sums run over the (ring, ulysses)
+ranks (``sp_axes``, an all-reduce on the mesh), so every rank takes the
+same branch.
 Incompatible with CompactFusion EF compression: skipped steps would desync
 the EF caches, and the pipelines refuse the combination.
 """
@@ -23,7 +26,6 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from compactfusion_tpu_torch import ROADMAP_HINT
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,8 +35,8 @@ class CacheAccelConfig:
     #: polynomial rescale coefficients (highest order first), TeaCache only;
     #: the default is the identity, FLUX uses the fitted polynomial below
     poly: Tuple[float, ...] = (1.0, 0.0)
-    #: mesh axes to sum the probe over under sequence parallelism (not
-    #: ported: the port runs on one device, where it stays ())
+    #: mesh axes to sum the probe over under sequence parallelism, so
+    #: every rank takes the same branch (the pipelines set them)
     sp_axes: Tuple[str, ...] = ()
 
 
@@ -66,11 +68,18 @@ def init_cache_state(probe_shape, residual_shape, dtype, device=None) -> CacheAc
     )
 
 
-def _rel_l1(cur, prev, sp_axes) -> torch.Tensor:
-    if sp_axes:
-        raise NotImplementedError(f"cache probes summed over sp axes {sp_axes}: {ROADMAP_HINT}")
+def _rel_l1(cur, prev, sp_axes, mesh=None) -> torch.Tensor:
+    """sum |cur - prev| / sum |prev|, each sum over every rank of
+    ``sp_axes`` (summed apart, then divided, as the JAX ``psum`` does)."""
     num = (cur.float() - prev.float()).abs().sum()
     den = prev.float().abs().sum()
+    if sp_axes:
+        if mesh is None:
+            raise ValueError(f"cache probes summed over {sp_axes} need this rank's mesh")
+        sums = torch.stack([num, den])
+        for ax in sp_axes:
+            sums = mesh.all_reduce_sum(sums, ax)
+        num, den = sums[0], sums[1]
     return num / torch.clamp(den, min=1e-8)
 
 
@@ -84,15 +93,16 @@ def _polyval(coeffs, x: torch.Tensor) -> torch.Tensor:
 
 
 def should_skip(cfg: CacheAccelConfig, state: CacheAccelState, probe: torch.Tensor,
-                force_compute=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                force_compute=None, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (skip: 0-dim bool, new_accum).
 
     ``probe`` is the first-block residual block0(x) - x (fbcache) or the
     modulated first-block input (teacache).  ``force_compute``: a bool (or
     0-dim bool tensor) forcing a full run; the pipelines pass
-    ``i == num_steps - 1`` so the final step always computes.
+    ``i == num_steps - 1`` so the final step always computes.  ``mesh``:
+    this rank's ``parallel.mesh.Mesh`` when ``cfg.sp_axes`` is not empty.
     """
-    rel = _rel_l1(probe, state.prev_probe, cfg.sp_axes)
+    rel = _rel_l1(probe, state.prev_probe, cfg.sp_axes, mesh)
     keep = None if force_compute is None else torch.logical_not(
         torch.as_tensor(force_compute, device=rel.device))
     if cfg.mode == "teacache":

@@ -34,7 +34,7 @@ from compactfusion_tpu_torch.config import CompactConfig, CompressType
 from compactfusion_tpu_torch.ops.attention import attn_with_lse
 from compactfusion_tpu_torch.ops.merge import merge_out_lse
 from compactfusion_tpu_torch.parallel.mesh import AXIS_RING, Mesh
-from compactfusion_tpu_torch.parallel.ring import _with_joint, ring_blocks
+from compactfusion_tpu_torch.parallel.ring import with_joint, ring_blocks
 
 
 class CompactRingState(NamedTuple):
@@ -71,12 +71,12 @@ def init_ring_state(ring_size: int, tokens: int, channels: int, dtype=torch.bflo
     return CompactRingState(k=tree_map(stacked, one), v=tree_map(stacked, one))
 
 
-def _slot(state: EFState, i: int) -> EFState:
+def slot(state: EFState, i: int) -> EFState:
     """Ring slot i of a stacked EF state (views into the stack)."""
     return tree_map(lambda a: a[i], state)
 
 
-def _set_slot(state: EFState, i: int, new: EFState) -> EFState:
+def set_slot(state: EFState, i: int, new: EFState) -> EFState:
     """Write ``new`` into ring slot i IN PLACE (the stack is reused rather
     than copied per update, which keeps one (R, N, C) buffer per layer).
     Works leaf by leaf, so int8-quantized entries update the same way."""
@@ -177,20 +177,20 @@ def compact_ring_attention(
         out, state = _fused_compact_ring(q, k, v, state, cfg, method, mesh, axis, scale,
                                          joint_k, joint_v, joint_strategy)
         if cfg.check_consistency:
-            _consistency_assert(state, mesh, axis)
+            consistency_assert(state, mesh, axis)
         return out, state
 
     kv_shape = tuple(k.shape)
     my = 0 if ring_size == 1 else mesh.axis_index(axis)
     # sender: compress the own K/V against the own slot (update_cache=True)
     awl = codecs.awl_row_scale(_as_nc(v)) if method == CompressType.LOW_RANK_AWL else None
-    payload_k, k_own = ef_compress(_as_nc(k), _slot(state.k, my), cfg, method, awl_scale=awl)
-    payload_v, v_own = ef_compress(_as_nc(v), _slot(state.v, my), cfg, method)
-    _set_slot(state.k, my, k_own)
-    _set_slot(state.v, my, v_own)
+    payload_k, k_own = ef_compress(_as_nc(k), slot(state.k, my), cfg, method, awl_scale=awl)
+    payload_v, v_own = ef_compress(_as_nc(v), slot(state.v, my), cfg, method)
+    set_slot(state.k, my, k_own)
+    set_slot(state.v, my, v_own)
 
     if ring_size == 1:
-        kk, vv = _with_joint(k, v, joint_k, joint_v, joint_strategy, 0, 1)
+        kk, vv = with_joint(k, v, joint_k, joint_v, joint_strategy, 0, 1)
         out, _ = attn_with_lse(q, kk, vv, scale=scale)
         return out.to(q.dtype), state
 
@@ -198,30 +198,30 @@ def compact_ring_attention(
     for step, (pk, pv) in enumerate(ring_blocks((payload_k, payload_v), mesh, axis)):
         if step > 0:
             src = (my - step) % ring_size
-            x_k, k_src = ef_decompress(pk, _slot(state.k, src), cfg, method)
-            x_v, v_src = ef_decompress(pv, _slot(state.v, src), cfg, method)
-            _set_slot(state.k, src, k_src)
-            _set_slot(state.v, src, v_src)
+            x_k, k_src = ef_decompress(pk, slot(state.k, src), cfg, method)
+            x_v, v_src = ef_decompress(pv, slot(state.v, src), cfg, method)
+            set_slot(state.k, src, k_src)
+            set_slot(state.v, src, v_src)
             blk_k = x_k.reshape(kv_shape).to(k.dtype)
             blk_v = x_v.reshape(kv_shape).to(v.dtype)
         else:
             # step 0 attends the local exact K/V
             blk_k, blk_v = k, v
-        kk, vv = _with_joint(blk_k, blk_v, joint_k, joint_v, joint_strategy, step, ring_size)
+        kk, vv = with_joint(blk_k, blk_v, joint_k, joint_v, joint_strategy, step, ring_size)
         block_out, block_lse = attn_with_lse(q, kk, vv, scale=scale)
         out, lse = merge_out_lse(out, lse, block_out, block_lse)
 
     if cfg.check_consistency:
-        _consistency_assert(state, mesh, axis)
+        consistency_assert(state, mesh, axis)
     return out.to(q.dtype), state
 
 
-#: the largest cache deviation across ranks that ``_consistency_assert``
+#: the largest cache deviation across ranks that ``consistency_assert``
 #: has seen in this process (set it to 0.0 to start a new count)
 max_consistency_dev = 0.0
 
 
-def _consistency_assert(state: CompactRingState, mesh: Mesh, axis: str) -> None:
+def consistency_assert(state: CompactRingState, mesh: Mesh, axis: str) -> None:
     """Every cache slot must be the same on every ring rank after the
     exchange (the reference's ``check_consistency`` at the end of the
     ring); raises AssertionError past 1e-2, as the JAX package does."""
@@ -251,8 +251,10 @@ def compact_usp_attention(
     joint_strategy: str = "none",
     fused: bool = False,
 ) -> Tuple[torch.Tensor, CompactRingState]:
-    """USP with the compressed ring as its inner loop (the joint handling
-    of ``parallel/usp.usp_wrap``, shared with the plain USP attention)."""
+    """USP with the compressed ring as its inner loop (the joint and
+    Ulysses handling of ``parallel/usp.usp_wrap``, shared with the plain USP
+    attention).  ``state``'s leaves are (R, N, C) at the ring loop's
+    shapes, after the all-to-all: N = B * S_local * U, C = (H / U) * D."""
     from compactfusion_tpu_torch.parallel.usp import usp_wrap
 
     def inner(q, k, v, joint_k, joint_v):
@@ -260,5 +262,5 @@ def compact_usp_attention(
                                       axis=ring_axis, scale=scale, joint_k=joint_k,
                                       joint_v=joint_v, joint_strategy=joint_strategy, fused=fused)
 
-    return usp_wrap(inner, q, k, v, ulysses_size=ulysses_size, joint_q=joint_q, joint_k=joint_k,
+    return usp_wrap(inner, q, k, v, ulysses_size=ulysses_size, mesh=mesh, joint_q=joint_q, joint_k=joint_k,
                     joint_v=joint_v, joint_strategy=joint_strategy)

@@ -3,10 +3,11 @@
 Every strategy has the call shape ``out, state = impl(q, k, v, state)`` on
 (B, S, H, D) tensors and an ``init_state`` that builds the per-layer state
 stacked on a leading layer axis.  Ported: :class:`SingleDeviceAttn`, the
-single-device compressed-ring emulation :class:`SimRingAttn`, and the ring
-across ranks, plain (:class:`USPAttn`) and compressed
-(:class:`CompactUSPAttn`), each on a ``parallel.mesh.Mesh``.  PipeFusion
-and Ulysses are not ported yet.
+single-device compressed-ring emulation :class:`SimRingAttn`, and
+sequence parallelism across ranks (Ulysses x ring), plain (:class:`USPAttn`)
+and compressed (:class:`CompactUSPAttn`), each on a ``parallel.mesh.Mesh``;
+the patch-parallel gather is ``parallel/patch.PatchParallelAttn``.
+PipeFusion is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,10 +22,10 @@ from compactfusion_tpu_torch.compact import codecs
 from compactfusion_tpu_torch.compact.engine import ef_compress, ef_decompress
 from compactfusion_tpu_torch.compact.ring import (
     CompactRingState,
-    _set_slot,
-    _slot,
     compact_usp_attention,
     init_ring_state,
+    set_slot,
+    slot,
 )
 from compactfusion_tpu_torch.config import CompactConfig, CompressType
 from compactfusion_tpu_torch.ops.attention import sdpa
@@ -52,8 +53,8 @@ class SingleDeviceAttn:
 
 @dataclasses.dataclass(frozen=True)
 class USPAttn:
-    """Uncompressed sequence parallelism: ring attention over the mesh's
-    ring axis (Ulysses not ported).  ``fused_ring``: the fused ring flash
+    """Uncompressed hybrid Ulysses x ring sequence parallelism over the
+    mesh's ulysses and ring axes.  ``fused_ring``: the fused ring flash
     kernel carries the ring."""
 
     mesh: Optional[Mesh]
@@ -87,8 +88,9 @@ class CompactUSPAttn:
     fused_ring: bool = False
 
     def init_state(self, n_layers, batch, seq_local, heads, head_dim, dtype, device=None):
-        """This rank's ring caches, leaves (L, R, N, C): R the mesh's ring
-        size, N = batch * seq_local, C = heads * head_dim (``Int8Payload``
+        """This rank's ring caches, leaves (L, R, N, C) at the ring loop's
+        shapes after the Ulysses all-to-all: R the mesh's ring size, N =
+        batch * seq_local * U, C = (heads / U) * head_dim (``Int8Payload``
         entries with ``cfg.quantized_cache``)."""
         ring_size = 1 if self.mesh is None else self.mesh.axis_size(AXIS_RING)
         return init_ring_state(ring_size, batch * seq_local * self.ulysses_size,
@@ -145,7 +147,7 @@ class SimRingAttn:
         v_chunks = torch.split(v, sc, dim=1)
         recon_k, recon_v = [], []
         for j in range(R):
-            k_st, v_st = _slot(state.k, j), _slot(state.v, j)
+            k_st, v_st = slot(state.k, j), slot(state.v, j)
             v_nc = v_chunks[j].reshape(b * sc, h * d)
             # AWL: key-importance weights from the local V, for the K fit only
             awl = codecs.awl_row_scale(v_nc) if self.method == CompressType.LOW_RANK_AWL else None
@@ -159,8 +161,8 @@ class SimRingAttn:
             rv, _ = ef_decompress(pv, v_st, self.cfg, self.method, update_cache=False)
             recon_k.append(rk.reshape(b, sc, h, d).to(k.dtype))
             recon_v.append(rv.reshape(b, sc, h, d).to(v.dtype))
-            _set_slot(state.k, j, k_new)
-            _set_slot(state.v, j, v_new)
+            set_slot(state.k, j, k_new)
+            set_slot(state.v, j, v_new)
 
         outs = []
         for i, q_i in enumerate(torch.split(q, sc, dim=1)):

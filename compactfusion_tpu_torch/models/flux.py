@@ -289,6 +289,7 @@ def flux_forward(
     cache_state=None,
     cache_force=None,
     pp_stages: int = 1,
+    mesh=None,
 ):
     """FLUX denoiser on this rank's image tokens.
 
@@ -304,7 +305,8 @@ def flux_forward(
     state_single), and the new cache state with ``cache_cfg`` (TeaCache /
     FBCache: the first double block runs, ``should_skip`` decides from its
     probe with one host read, and the rest of the stack either runs and
-    refreshes the cached image residual or is replaced by it).
+    refreshes the cached image residual or is replaced by it; ``mesh`` is
+    this rank's mesh when ``cache_cfg.sp_axes`` sums the probe over ranks).
     """
     if pp_stages > 1:
         raise NotImplementedError(f"PipeFusion (pp_stages > 1): {ROADMAP_HINT}")
@@ -325,7 +327,7 @@ def flux_forward(
                                          tp_axis=tp_axis, **rope)
         # FBCache probes the first block's residual, TeaCache its modulated input
         probe = (img1 - img) if cache_cfg.mode == "fbcache" else probe_in
-        skip, accum = should_skip(cache_cfg, cache_state, probe, force_compute=cache_force)
+        skip, accum = should_skip(cache_cfg, cache_state, probe, force_compute=cache_force, mesh=mesh)
         skipped = bool(skip)  # the step's one host read
         if skipped:
             img, residual = img1 + cache_state.residual.to(img1.dtype), cache_state.residual

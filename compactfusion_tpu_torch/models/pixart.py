@@ -127,6 +127,7 @@ def pixart_forward(
     cache_state=None,
     cache_force=None,
     text_kv: Optional[torch.Tensor] = None,
+    mesh=None,
 ):
     """Denoiser forward on patchified latent tokens.
 
@@ -142,8 +143,9 @@ def pixart_forward(
     TeaCache/FBCache.  Block 0 runs, ``should_skip`` decides from its probe
     (one host read of a 0-dim tensor, the eager ``lax.cond``), and blocks
     1.. either run and refresh the cached residual or are replaced by it;
-    ``cache_force`` forces the full run.  Then it returns (out, attn_state,
-    new cache_state).
+    ``cache_force`` forces the full run; ``mesh`` is this rank's mesh when
+    ``cache_cfg.sp_axes`` sums the probe over ranks.  Then it returns (out,
+    attn_state, new cache_state).
     """
     use_cache = cache_cfg is not None and cache_cfg.mode != "none"
     if pp_stages > 1:
@@ -198,7 +200,7 @@ def pixart_forward(
     x1 = block(0, x)
     # FBCache probes block 0's residual, TeaCache its modulated input
     probe = (x1 - x) if cache_cfg.mode == "fbcache" else probe_in
-    skip, accum = should_skip(cache_cfg, cache_state, probe, force_compute=cache_force)
+    skip, accum = should_skip(cache_cfg, cache_state, probe, force_compute=cache_force, mesh=mesh)
     skipped = bool(skip)  # the step's one host read
     if skipped:
         x, residual = x1 + cache_state.residual.to(x1.dtype), cache_state.residual

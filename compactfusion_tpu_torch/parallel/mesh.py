@@ -53,6 +53,46 @@ def rank_grid(parallel: ParallelConfig) -> np.ndarray:
     return np.arange(parallel.world_size).reshape(mesh_shape(parallel))
 
 
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [leaf for part in tree for leaf in _leaves(part)]
+
+
+def _rebuild(tree, leaves):
+    if isinstance(tree, torch.Tensor):
+        return next(leaves)
+    parts = [_rebuild(part, leaves) for part in tree]
+    return type(tree)(*parts) if hasattr(tree, "_fields") else type(tree)(parts)
+
+
+def pack_tree(tree):
+    """A tensor tree (a tensor, a tuple, a NamedTuple payload) as one uint8
+    buffer, leaves largest element size first so each starts aligned to it:
+    its bytes are exactly the leaves' bytes (``codecs.payload_nbytes``).
+    Returns (buffer, unpack): ``unpack(got)`` rebuilds a tree of the same
+    structure, shapes and dtypes, on the leaves' device, from a received
+    buffer, or from (W, nbytes) stacked ones as leaves with a leading W
+    axis."""
+    leaves = _leaves(tree)
+    order = sorted(range(len(leaves)), key=lambda i: -leaves[i].element_size())
+    flat = torch.cat([leaves[i].contiguous().reshape(-1).view(torch.uint8) for i in order])
+    device = leaves[0].device
+
+    def unpack(got):
+        got = got.to(device)
+        lead = tuple(got.shape[:-1])
+        out, off = [None] * len(leaves), 0
+        for i in order:
+            t = leaves[i]
+            n = t.numel() * t.element_size()
+            out[i] = got[..., off:off + n].contiguous().view(t.dtype).reshape(lead + tuple(t.shape))
+            off += n
+        return _rebuild(tree, iter(out))
+
+    return flat, unpack
+
+
 @dataclasses.dataclass(eq=False)
 class Mesh:
     """This rank's view of the mesh: its coordinate on every axis and one
@@ -98,6 +138,56 @@ class Mesh:
         parts = [torch.empty_like(buf) for _ in range(self.axis_size(axis))]
         dist.all_gather(parts, buf, group=self.groups[axis])
         return [p.to(t.device) for p in parts]
+
+    def all_to_all(self, t: torch.Tensor, axis: str, split_dim: int, concat_dim: int) -> torch.Tensor:
+        """The tiled all-to-all of JAX's ``lax.all_to_all(..., tiled=True)``:
+        block i of ``t`` along ``split_dim`` goes to rank i of ``axis``, and
+        the blocks this rank receives are concatenated along ``concat_dim``
+        in source-rank order.  The blocks travel as one contiguous (U, ...)
+        byte buffer (``dist.all_to_all_single``), so gloo's dtype coverage
+        does not matter.  ``Mesh.all_to_all.nbytes`` counts the bytes sent
+        to the other ranks."""
+        n = self.axis_size(axis)
+        if n == 1:
+            return t
+        if t.shape[split_dim] % n:
+            raise ValueError(f"all_to_all: dim {split_dim} of {tuple(t.shape)} does not split into {n}")
+        blocks = torch.stack(t.chunk(n, dim=split_dim))  # (U, *block), contiguous
+        buf = self.wire(blocks.reshape(-1).view(torch.uint8))
+        recv = torch.empty_like(buf)
+        dist.all_to_all_single(recv, buf, group=self.groups[axis])
+        Mesh.all_to_all.nbytes += buf.numel() * (n - 1) // n
+        got = recv.to(t.device).view(t.dtype).reshape(blocks.shape)
+        return torch.cat(got.unbind(0), dim=concat_dim)
+
+    def all_gather_tree(self, tree, axis: str, async_op: bool = False):
+        """Every rank's tensor tree (a tensor, a tuple, a NamedTuple payload)
+        along ``axis``, as one tree of the same structure whose leaves have
+        a leading axis of size W in source-rank order (JAX's
+        ``lax.all_gather`` of a pytree).  The leaves travel as one byte
+        buffer (:func:`pack_tree`).  ``async_op``: start the gather and
+        return a ``wait()`` that finishes it and returns the tree, so
+        compute can run in between.  ``Mesh.all_gather_tree.nbytes`` counts
+        the gathered bytes (W times the tree's)."""
+        n = self.axis_size(axis)
+        flat, unpack = pack_tree(tree)
+        buf = self.wire(flat)
+        parts = [buf] if n == 1 else [torch.empty_like(buf) for _ in range(n)]
+        work = None if n == 1 else dist.all_gather(parts, buf, group=self.groups[axis], async_op=True)
+        Mesh.all_gather_tree.nbytes += buf.numel() * n
+
+        def wait():
+            if work is not None:
+                work.wait()
+            return unpack(torch.stack(parts))
+
+        return wait if async_op else wait()
+
+
+#: bytes the all-to-alls sent to other ranks since the count was last set to 0
+Mesh.all_to_all.nbytes = 0
+#: bytes the tree gathers gathered since the count was last set to 0
+Mesh.all_gather_tree.nbytes = 0
 
 
 def make_mesh(parallel: ParallelConfig) -> Mesh:

@@ -21,20 +21,7 @@ import torch.distributed as dist
 
 from compactfusion_tpu_torch.ops.attention import attn_with_lse
 from compactfusion_tpu_torch.ops.merge import merge_out_lse
-from compactfusion_tpu_torch.parallel.mesh import AXIS_RING, Mesh
-
-
-def _leaves(tree):
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    return [leaf for part in tree for leaf in _leaves(part)]
-
-
-def _rebuild(tree, leaves):
-    if isinstance(tree, torch.Tensor):
-        return next(leaves)
-    parts = [_rebuild(part, leaves) for part in tree]
-    return type(tree)(*parts) if hasattr(tree, "_fields") else type(tree)(parts)
+from compactfusion_tpu_torch.parallel.mesh import AXIS_RING, Mesh, pack_tree
 
 
 def ring_shift(tree, mesh: Mesh, axis: str = AXIS_RING, async_op: bool = False):
@@ -42,20 +29,17 @@ def ring_shift(tree, mesh: Mesh, axis: str = AXIS_RING, async_op: bool = False):
     of ``axis`` and receive the previous rank's tree of the same structure,
     shapes and dtypes.
 
-    The leaves travel as one byte buffer, largest element size first so
-    every leaf starts aligned to it: the bytes on the wire are exactly the
-    leaves' bytes (``codecs.payload_nbytes``).  Under NCCL the buffer is
-    sent where it lies; under gloo a CUDA buffer goes through a host copy.
+    The leaves travel as one byte buffer (``parallel.mesh.pack_tree``):
+    the bytes on the wire are exactly the leaves' bytes
+    (``codecs.payload_nbytes``).  Under NCCL the buffer is sent where it
+    lies; under gloo a CUDA buffer goes through a host copy.
     ``async_op``: start the exchange and return a ``wait()`` that finishes
     it and returns the received tree, so a hop's compute can run in
     between.  ``ring_shift.nbytes`` counts the bytes sent."""
-    leaves = _leaves(tree)
     if mesh.axis_size(axis) == 1:
         return (lambda: tree) if async_op else tree
-    order = sorted(range(len(leaves)), key=lambda i: -leaves[i].element_size())
-    flat = [leaves[i].contiguous().reshape(-1).view(torch.uint8) for i in order]
-    device = leaves[0].device
-    buf = mesh.wire(torch.cat(flat))
+    flat, unpack = pack_tree(tree)
+    buf = mesh.wire(flat)
     recv = torch.empty_like(buf)
     group = mesh.groups[axis]
     works = dist.batch_isend_irecv([
@@ -67,14 +51,7 @@ def ring_shift(tree, mesh: Mesh, axis: str = AXIS_RING, async_op: bool = False):
     def wait():
         for w in works:
             w.wait()
-        got = recv.to(device)
-        out, off = [None] * len(leaves), 0
-        for i in order:
-            t = leaves[i]
-            n = t.numel() * t.element_size()
-            out[i] = got[off:off + n].view(t.dtype).reshape(t.shape)
-            off += n
-        return _rebuild(tree, iter(out))
+        return unpack(recv)
 
     return wait if async_op else wait()
 
@@ -97,7 +74,7 @@ def ring_blocks(tree, mesh: Optional[Mesh], axis: str = AXIS_RING) -> Iterator:
             cur = wait()
 
 
-def _with_joint(k, v, joint_k, joint_v, joint_strategy: str, step: int, ring_size: int):
+def with_joint(k, v, joint_k, joint_v, joint_strategy: str, step: int, ring_size: int):
     if joint_k is None or joint_strategy == "none":
         return k, v
     if joint_strategy == "front" and step == 0:
@@ -136,7 +113,7 @@ def ring_attention(
         raise ValueError("causal ring does not support joint tensors")
     ring_size = 1 if mesh is None else mesh.axis_size(axis)
     if ring_size == 1:
-        kk, vv = _with_joint(k, v, joint_k, joint_v, joint_strategy, 0, 1)
+        kk, vv = with_joint(k, v, joint_k, joint_v, joint_strategy, 0, 1)
         out, _ = attn_with_lse(q, kk, vv, scale=scale, causal=causal)
         return out
     if fused and not causal:
@@ -145,7 +122,7 @@ def ring_attention(
     my = mesh.axis_index(axis)
     out = lse = None
     for step, (blk_k, blk_v) in enumerate(ring_blocks((k, v), mesh, axis)):
-        kk, vv = _with_joint(blk_k, blk_v, joint_k, joint_v, joint_strategy, step, ring_size)
+        kk, vv = with_joint(blk_k, blk_v, joint_k, joint_v, joint_strategy, step, ring_size)
         block_out, block_lse = attn_with_lse(q, kk, vv, scale=scale, causal=causal and step == 0)
         if causal and step > my:
             # a later rank's block: computed, then gated out of the merge

@@ -7,12 +7,14 @@ of the port yet: the caller passes their outputs.
 
 Across ranks (``mesh=`` a ``parallel.mesh.Mesh`` of ``cfg.parallel``), each
 rank runs its share, as the JAX package's ``shard_map`` does: the batch
-over dp, the image tokens over the ring, the text replicated as the
-attention's joint front tensors; the ring attention is plain (``USPAttn``)
-or compressed (``CompactUSPAttn``), fused or not (``use_fused_ring``), and
-every rank gets the whole latents back.  Ulysses, PipeFusion
-(``num_pipeline_patch``, ``pp_degree``), TP, separate VAE ranks and the
-cache accelerators across ranks are not ported yet.
+over dp, the image tokens over (ring, ulysses), the text replicated as the
+attention's joint front tensors; the sequence-parallel attention is plain
+(``USPAttn``) or compressed (``CompactUSPAttn``, also with
+``compact.patch_gather``, which FLUX does not route elsewhere), fused or
+not (``use_fused_ring``); the cache probes sum over the (ring, ulysses)
+ranks, and every rank gets the whole latents back.  PipeFusion
+(``num_pipeline_patch``, ``pp_degree``), TP and separate VAE ranks are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from compactfusion_tpu_torch.models import common as cm
 from compactfusion_tpu_torch.models.attn_impl import CompactUSPAttn, SingleDeviceAttn, USPAttn
 from compactfusion_tpu_torch.models.flux import FluxConfig, flux_forward, flux_image_positions
 from compactfusion_tpu_torch.models.vae import VAEConfig, vae_decode
-from compactfusion_tpu_torch.parallel.mesh import AXIS_DP, Mesh
+from compactfusion_tpu_torch.parallel.mesh import AXIS_DP, AXIS_RING, AXIS_ULYSSES, Mesh
 from compactfusion_tpu_torch.pipelines import base
 from compactfusion_tpu_torch.schedulers.flow_match import (
     calculate_shift,
@@ -72,16 +74,13 @@ class FluxPipelineConfig:
                                    num_pipeline_patch=self.num_pipeline_patch,
                                    patch_pp_min_factor=2, family="flux")
         p = self.parallel
-        if (p.ulysses_degree > 1 or p.pp_degree > 1 or p.tp_degree > 1 or p.vae_parallel_size
-                or self.num_pipeline_patch > 1):
-            raise NotImplementedError(f"Ulysses, PipeFusion, TP or VAE ranks ({p}, "
+        if p.pp_degree > 1 or p.tp_degree > 1 or p.vae_parallel_size or self.num_pipeline_patch > 1:
+            raise NotImplementedError(f"PipeFusion, TP or VAE ranks ({p}, "
                                       f"num_pipeline_patch={self.num_pipeline_patch}): {ROADMAP_HINT}")
 
 
 def _attn_impl(cfg: FluxPipelineConfig, method: Optional[CompressType], mesh: Optional[Mesh]):
     c, p = cfg.compact, cfg.parallel
-    if c.enabled and c.patch_gather:
-        raise NotImplementedError(f"patch-parallel gather: {ROADMAP_HINT}")
     if c.enabled:
         return CompactUSPAttn(cfg=c, method=method, mesh=mesh, ulysses_size=p.ulysses_degree,
                               fused_ring=p.use_fused_ring)
@@ -153,7 +152,7 @@ class FluxPipeline:
         latents = latents.to(self.device, torch.float32)
         cos_i, sin_i = self.img_rope
         if mesh is not None:
-            # this rank's share: the batch over dp, the image tokens over the ring
+            # this rank's share: the batch over dp, the image tokens over (ring, ulysses)
             b_local = latents.shape[0] // p.dp_degree
             rows = slice(mesh.axis_index(AXIS_DP) * b_local, (mesh.axis_index(AXIS_DP) + 1) * b_local)
             txt, pooled = txt[rows], pooled[rows]
@@ -169,12 +168,12 @@ class FluxPipeline:
                     if m.guidance_embeds else None)
 
         use_cache = cfg.cache.mode != "none"
+        # the probes sum over every sequence-parallel rank
+        cache_cfg = dataclasses.replace(cfg.cache, sp_axes=(AXIS_RING, AXIS_ULYSSES) if p.sp_degree > 1 else ())
         cache_state = None
         if use_cache:
             if cfg.compact.enabled:
                 raise ValueError("cache acceleration is incompatible with compact compression")
-            if p.sp_degree > 1:
-                raise NotImplementedError(f"cache probes summed over the ring: {ROADMAP_HINT}")
             shp = (b, s_local, m.dim)
             cache_state = init_cache_state(shp, shp, torch.float32, self.device)
 
@@ -208,7 +207,7 @@ class FluxPipeline:
                     self.params, latents.to(m.dtype), txt.to(m.dtype), pooled, t, guidance, m,
                     img_rope=img_rope, txt_rope=txt_rope, attn=attn_d, attn_state_double=state_d,
                     attn_state_single=state_s, attn_single=attn_s,
-                    cache_cfg=cfg.cache if use_cache else None, cache_state=cache_state,
+                    cache_cfg=cache_cfg if use_cache else None, cache_state=cache_state, mesh=mesh,
                     # the final step always computes
                     cache_force=i == cfg.num_steps - 1,
                 )

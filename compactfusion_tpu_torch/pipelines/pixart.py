@@ -13,10 +13,14 @@ compression off: DiTFastAttn (``fast_attn_plan``, a (steps, depth) table of
 
 Across ranks (``mesh=`` a ``parallel.mesh.Mesh`` of ``cfg.parallel``),
 each rank runs its share, as the JAX package's ``shard_map`` does: the text
-split over cfg, the batch over dp, the tokens over the ring, the ring
-attention plain (``USPAttn``) or compressed (``CompactUSPAttn``), fused or
-not (``use_fused_ring``); every rank gets the whole latents back.
-Ulysses, PipeFusion, TP and separate VAE ranks are not ported yet.
+split over cfg, the batch over dp, the tokens over (ring, ulysses), the
+sequence-parallel attention plain (``USPAttn``) or compressed
+(``CompactUSPAttn``), fused or not (``use_fused_ring``), or, with
+``compact.patch_gather``, the patch-parallel gather (``PatchParallelAttn``:
+sync, compressed, or DistriFusion's stale gather with ``patch_async``);
+the cache probes sum over the (ring, ulysses) ranks; every rank gets the
+whole latents back.  PipeFusion, TP and separate VAE ranks are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -44,7 +48,8 @@ from compactfusion_tpu_torch.models.attn_impl import (
 )
 from compactfusion_tpu_torch.models.pixart import PixArtConfig, pixart_forward, precompute_text_kv
 from compactfusion_tpu_torch.models.vae import VAEConfig, vae_decode
-from compactfusion_tpu_torch.parallel.mesh import AXIS_CFG, AXIS_DP, Mesh
+from compactfusion_tpu_torch.parallel.mesh import AXIS_CFG, AXIS_DP, AXIS_RING, AXIS_ULYSSES, Mesh
+from compactfusion_tpu_torch.parallel.patch import PatchParallelAttn
 from compactfusion_tpu_torch.pipelines import base
 from compactfusion_tpu_torch.schedulers.diffusion import ddpm_schedule, dpm_init_state, dpm_step
 
@@ -88,8 +93,8 @@ class PixArtPipelineConfig:
         validate_parallel_geometry(self.parallel, heads=self.model.heads, tokens=self.tokens,
                                    depth=self.model.depth, family="pixart")
         p = self.parallel
-        if p.ulysses_degree > 1 or p.pp_degree > 1 or p.tp_degree > 1 or p.vae_parallel_size:
-            raise NotImplementedError(f"Ulysses, PipeFusion, TP or VAE ranks ({p}): {ROADMAP_HINT}")
+        if p.pp_degree > 1 or p.tp_degree > 1 or p.vae_parallel_size:
+            raise NotImplementedError(f"PipeFusion, TP or VAE ranks ({p}): {ROADMAP_HINT}")
 
 
 def _attn_impl(cfg: PixArtPipelineConfig, method: Optional[CompressType], mesh: Optional[Mesh]):
@@ -101,7 +106,15 @@ def _attn_impl(cfg: PixArtPipelineConfig, method: Optional[CompressType], mesh: 
         return FastAttnAttn(window_size=cfg.fast_attn_window,
                             cfg_batched=cfg.do_cfg and cfg.parallel.cfg_degree == 1)
     if c.enabled and c.patch_gather:
-        raise NotImplementedError(f"patch-parallel gather: {ROADMAP_HINT}")
+        # patches live on the ring axis, so ulysses must be 1
+        assert p.ulysses_degree == 1, "patch_gather requires ulysses_degree=1"
+        if c.patch_async:
+            mode = "async"
+        elif c.compress_type != CompressType.IDENTITY:
+            mode = "compact"
+        else:
+            mode = "sync"
+        return PatchParallelAttn(cfg=c, method=method, mode=mode, mesh=mesh)
     if c.enabled and c.simulate_ring > 0:
         assert p.sp_degree == 1, "simulate_ring runs on a single device"
         return SimRingAttn(cfg=c, method=method, ring_size=c.simulate_ring)
@@ -178,7 +191,7 @@ class PixArtPipeline:
         text_mask = text_mask.to(self.device)
         latents = latents.to(self.device, torch.float32)
         if mesh is not None:
-            # this rank's share: the batch over dp, the tokens over the ring
+            # this rank's share: the batch over dp, the tokens over (ring, ulysses)
             b_local = latents.shape[0] // p.dp_degree
             rows = slice(mesh.axis_index(AXIS_DP) * b_local, (mesh.axis_index(AXIS_DP) + 1) * b_local)
             text, text_mask = text[:, rows], text_mask[:, rows]
@@ -199,12 +212,12 @@ class PixArtPipeline:
 
         dpm_state = dpm_init_state(latents.shape, self.device)
         use_cache = cfg.cache.mode != "none"
+        # the probes sum over every sequence-parallel rank
+        cache_cfg = dataclasses.replace(cfg.cache, sp_axes=(AXIS_RING, AXIS_ULYSSES) if p.sp_degree > 1 else ())
         cache_state = None
         if use_cache:
             if cfg.compact.enabled:
                 raise ValueError("cache acceleration is incompatible with compact compression")
-            if p.sp_degree > 1:
-                raise NotImplementedError(f"cache probes summed over the ring: {ROADMAP_HINT}")
             shp = (n_model_batch, s_local, m.dim)
             cache_state = init_cache_state(shp, shp, torch.float32, self.device)
         # the text path is step-invariant: caption MLP + every block's
@@ -237,7 +250,7 @@ class PixArtPipeline:
                 fwd = pixart_forward(
                     self.params, x.to(m.dtype), t, None, m, pos_embed=pos_embed,
                     attn=attn, attn_state=attn_state, text_mask=text_mask, text_kv=text_kv,
-                    cache_cfg=cfg.cache if use_cache else None, cache_state=cache_state,
+                    cache_cfg=cache_cfg if use_cache else None, cache_state=cache_state, mesh=mesh,
                     # the final, quality-critical step always computes
                     cache_force=i == cfg.num_steps - 1,
                 )

@@ -129,12 +129,12 @@ def decision_values(monkeypatch):
     values = []
     real = tpix.should_skip
 
-    def recording(cfg, state, probe, force_compute=None):
+    def recording(cfg, state, probe, force_compute=None, mesh=None):
         if int(state.has_prev):
             rel = taccel._rel_l1(probe, state.prev_probe, ())
             values.append(float(rel) if cfg.mode == "fbcache"
                           else float(state.accum + taccel._polyval(cfg.poly, rel)))
-        return real(cfg, state, probe, force_compute=force_compute)
+        return real(cfg, state, probe, force_compute=force_compute, mesh=mesh)
 
     monkeypatch.setattr(tpix, "should_skip", recording)
     return values

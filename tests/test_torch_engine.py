@@ -22,7 +22,7 @@ from compactfusion_tpu.compact import engine as jengine
 from compactfusion_tpu_torch import config as tconfig
 from compactfusion_tpu_torch.compact import codecs as tcodecs
 from compactfusion_tpu_torch.compact import engine as tengine
-from compactfusion_tpu_torch.compact.ring import _set_slot, _slot, init_ring_state
+from compactfusion_tpu_torch.compact.ring import set_slot, slot, init_ring_state
 from compactfusion_tpu_torch.models.attn_impl import SimRingAttn
 
 REL = 1e-5
@@ -147,8 +147,8 @@ def test_ring_slots_update_in_place():
     assert st.k.base.shape == (2, 3, 4, 8) and st.v.delta_base.shape == (2, 3, 4, 8)
     layer = type(st)(*(type(s)(*(a[1] for a in s)) for s in st))
     new = tengine.EFState(base=torch.ones(4, 8), delta_base=torch.full((4, 8), 2.0))
-    _set_slot(layer.k, 2, new)
-    assert torch.equal(_slot(layer.k, 2).base, new.base)
+    set_slot(layer.k, 2, new)
+    assert torch.equal(slot(layer.k, 2).base, new.base)
     assert torch.equal(st.k.base[1, 2], new.base) and torch.equal(st.k.delta_base[1, 2], new.delta_base)
     assert st.k.base[0].abs().sum() == 0 and st.v.base.abs().sum() == 0
 
@@ -286,7 +286,7 @@ def test_quantized_ring_state_slots():
         np.testing.assert_array_equal(_np(t[1, 2]), _np(j))
     layer = tengine.EFState(*(tcodecs.Int8Payload(*(a[1] for a in e)) for e in st.k))
     new = tengine._requant_state(tengine.EFState(base=torch.ones(4, 8), delta_base=torch.eye(4, 8)))
-    _set_slot(layer, 2, new)
-    for t, n in zip(ring_leaves(_slot(layer, 2)), ring_leaves(new)):
+    set_slot(layer, 2, new)
+    for t, n in zip(ring_leaves(slot(layer, 2)), ring_leaves(new)):
         assert torch.equal(t, n)
     assert torch.equal(st.k.base.q[1, 2], new.base.q) and st.k.base.q[0].sum() == 0

@@ -145,7 +145,7 @@ def test_flux_ring_across_ranks_matches_jax(spawned, jax_run, config):
 
 def test_unported_flux_branches_raise(models, spawned):
     tm, tv = tflux.flux_tiny(), tvae.tiny_vae()
-    for kw in (dict(parallel=ParallelConfig(ulysses_degree=2)), dict(parallel=ParallelConfig(pp_degree=2)),
+    for kw in (dict(parallel=ParallelConfig(ulysses_degree=2, pp_degree=2)), dict(parallel=ParallelConfig(pp_degree=2)),
                dict(parallel=ParallelConfig(tp_degree=2)),
                dict(parallel=ParallelConfig(pp_degree=2), num_pipeline_patch=4)):
         with pytest.raises(NotImplementedError):
@@ -153,8 +153,12 @@ def test_unported_flux_branches_raise(models, spawned):
     with pytest.raises(ValueError, match="mesh"):  # a ring across ranks needs this rank's mesh
         FluxPipeline({}, None, FluxPipelineConfig(model=tm, vae=tv, parallel=ParallelConfig(ring_degree=2),
                                                   **SIZE), "cpu")
-    # cache probes summed over the ring
-    assert all(res["cache raises"] for res in spawned)
+    # the cache probes are ported: summed over the ring, every rank skips
+    # the same steps (all but the first and the last) and holds the same latents
+    for res in spawned:
+        skips, lat = res["cache skips"]
+        assert skips == 2 and np.isfinite(lat).all()
+        np.testing.assert_array_equal(lat, spawned[0]["cache skips"][1])
     pipe = _port(models)
     m = pipe.cfg.model
     args = (torch.zeros(1, 32, 16), torch.zeros(1, 8, 32), torch.zeros(1, 16), torch.full((1,), 500.0),

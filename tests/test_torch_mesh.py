@@ -108,7 +108,8 @@ def test_mesh_groups_across_gloo_ranks(spawned, layout):
         assert r["dev_same"] == 0.0 and r["dev_diff"] > 0.0
 
 
-@pytest.mark.parametrize("unported", [dict(ulysses_degree=2), dict(pp_degree=2), dict(tp_degree=2),
+# Ulysses is ported; PipeFusion under Ulysses is not
+@pytest.mark.parametrize("unported", [dict(ulysses_degree=2, pp_degree=2), dict(pp_degree=2), dict(tp_degree=2),
                                       dict(vae_parallel_size=1)],
                          ids=["ulysses", "pp", "tp", "vae_parallel_size"])
 def test_unported_parallel_configs_raise(unported):
@@ -126,5 +127,7 @@ def test_ported_parallel_configs_build_and_need_a_mesh():
         PixArtPipeline({}, {}, cfg, "cpu")
     with pytest.raises(ValueError, match="mesh of"):
         PixArtPipeline({}, {}, cfg, "cpu", mesh=tmesh.make_mesh(ParallelConfig()))
-    with pytest.raises(NotImplementedError, match="Ulysses"):
+    # Ulysses is ported: it needs this rank's mesh for its all-to-all
+    PixArtPipelineConfig(model=tm, vae=tv, height=64, width=64, parallel=ParallelConfig(ulysses_degree=2))
+    with pytest.raises(ValueError, match="Ulysses"):
         usp_wrap(lambda *a: a, *(torch.zeros(1, 2, 1, 8) for _ in range(3)), ulysses_size=2)

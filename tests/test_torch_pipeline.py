@@ -111,7 +111,7 @@ def test_generator_noise_and_unported_configs():
     with pytest.raises(ValueError):
         pipe(text, None)
     with pytest.raises(NotImplementedError):
-        PixArtPipelineConfig(model=tm, vae=tv, parallel=ParallelConfig(ulysses_degree=2),
+        PixArtPipelineConfig(model=tm, vae=tv, parallel=ParallelConfig(pp_degree=2),
                              height=64, width=64)
     across = PixArtPipelineConfig(model=tm, vae=tv, parallel=ParallelConfig(ring_degree=2),
                                   height=64, width=64)

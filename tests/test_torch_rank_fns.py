@@ -145,8 +145,9 @@ def flux_pipeline_latents(rank, world, configs, params, vae_params, inputs):
     """Per configuration (name, ParallelConfig kwargs, CompactConfig kwargs
     or None): the tiny fp32 FLUX pipeline's final latents on this rank from
     ``inputs`` = (txt, pooled, noise) and the largest EF cache deviation
-    across the ring; under "cache raises", whether a cache accelerator
-    across the ring raises NotImplementedError."""
+    across the ring; under "cache skips", FBCache at threshold 1e6 on a
+    ring of 2 (4 steps, the probe summed over the ring): its skipped steps
+    and latents."""
     import dataclasses
 
     from compactfusion_tpu_torch.cache.accel import CacheAccelConfig
@@ -170,13 +171,164 @@ def flux_pipeline_latents(rank, world, configs, params, vae_params, inputs):
         lat = pipe(txt, pooled, latents=noise, decode=False)
         res[name] = (lat.numpy(), tring.max_consistency_dev)
     parallel = ParallelConfig(ring_degree=2)
-    cached = FluxPipelineConfig(model=tm, vae=tv, parallel=parallel, num_steps=2, height=64, width=128,
-                                cache=CacheAccelConfig(mode="fbcache"))
-    try:
-        FluxPipeline(tparams, tvae_params, cached, "cpu", mesh=tmesh.make_mesh(parallel))(
-            txt, pooled, latents=noise, decode=False)
-    except NotImplementedError:
-        res["cache raises"] = True
-    else:
-        res["cache raises"] = False
+    cached = FluxPipelineConfig(model=tm, vae=tv, parallel=parallel, num_steps=4, height=64, width=128,
+                                cache=CacheAccelConfig(mode="fbcache", threshold=1e6))
+    pipe = FluxPipeline(tparams, tvae_params, cached, "cpu", mesh=tmesh.make_mesh(parallel))
+    lat = pipe(txt, pooled, latents=noise, decode=False)
+    res["cache skips"] = (pipe.last_skips, lat.numpy())
+    return res
+
+
+def _sp_meshes():
+    """Ulysses 2 x ring 2 and Ulysses 4 (every rank builds both, in this
+    order)."""
+    return {"u2r2": tmesh.make_mesh(ParallelConfig(ulysses_degree=2, ring_degree=2)),
+            "u4": tmesh.make_mesh(ParallelConfig(ulysses_degree=4))}
+
+
+def _sp_local(arrays, mesh):
+    """This rank's (ring, ulysses) token shard of each (B, S, ...) array."""
+    from compactfusion_tpu_torch.pipelines.base import slice_local_tokens
+
+    p = mesh.parallel
+    return tuple(slice_local_tokens(torch.from_numpy(a), mesh, p.ulysses_degree, p.ring_degree, dim=1)
+                 .contiguous() for a in arrays)
+
+
+def ulysses_outputs(rank, world, prim, attn_cases, attn_inputs, compact_steps):
+    """Per layout ("u2r2", "u4"): the three all-to-all primitives on this
+    rank's shard of ``prim`` = (x, joint) and the all-to-all bytes; per
+    ``attn_cases`` entry (layout, joint strategy, fused, with a joint
+    query): ``usp_attention``'s output on this rank's shard of
+    ``attn_inputs``; then ``compact_usp_attention`` BINARY at U2 x R2 over
+    ``compact_steps``, unfused and fused: per step the output, the EF stacks
+    and their largest deviation across the ring."""
+    from compactfusion_tpu_torch.parallel import ulysses as uly
+
+    meshes = _sp_meshes()
+    res = {"prim": {}, "attn": {}, "compact": {}}
+    for name, m in meshes.items():
+        u = m.parallel.ulysses_degree
+        (x,) = _sp_local(prim[:1], m)
+        tmesh.Mesh.all_to_all.nbytes = 0
+        a = uly.scatter_heads_gather_seq(x, m)
+        nbytes = tmesh.Mesh.all_to_all.nbytes
+        b = uly.scatter_seq_gather_heads(a, m)
+        j = uly.slice_joint_heads(torch.from_numpy(prim[1]), m, u)
+        res["prim"][name] = (a.numpy(), b.numpy(), j.numpy(), nbytes)
+    for case in attn_cases:
+        name, joint, fused, with_q = case
+        m = meshes[name]
+        q, k, v = _sp_local(attn_inputs[:3], m)
+        jq, jk, jv = (torch.from_numpy(a) for a in attn_inputs[3:])
+        kw = dict(joint_k=None if joint == "none" else jk, joint_v=None if joint == "none" else jv,
+                  joint_strategy=joint)
+        o = usp_attention(q, k, v, mesh=m, ulysses_size=m.parallel.ulysses_degree,
+                          joint_q=jq if with_q else None, fused_ring=fused, **kw)
+        res["attn"][case] = o.numpy()
+    m = meshes["u2r2"]
+    cfg = CompactConfig(enabled=True, compress_type=CompressType.BINARY, residual=1, error_feedback=True,
+                        warmup_steps=0)
+    for fused in (False, True):
+        per_step, state = [], None
+        for step in compact_steps:
+            q, k, v = _sp_local(step, m)
+            b, s, h, d = k.shape
+            if state is None:
+                state = tring.init_ring_state(2, b * s * 2, (h // 2) * d, torch.float32, 1)
+            out, state = tring.compact_usp_attention(q, k, v, state, cfg=cfg, method=cfg.compress_type,
+                                                     mesh=m, ulysses_size=2, fused=fused)
+            dev = max(check_consistency(state.k, m, "ring").item(), check_consistency(state.v, m, "ring").item())
+            per_step.append((out.numpy(), _stack_leaves(state), dev))
+        res["compact"][fused] = per_step
+    return res
+
+
+def patch_outputs(rank, world, runs, gather_runs):
+    """On a ring-4 mesh.  Per run (name, mode, CompactConfig kwargs or None,
+    steps of global (q, k, v), each step's method): ``PatchParallelAttn``'s
+    output on this rank's shard and its state leaves after every step.  Per
+    gather run (name, CompactConfig kwargs, steps of global (N * W, C)
+    inputs): ``compact_all_gather``'s reconstructions and stacks after every
+    step, and the bytes it gathered."""
+    from compactfusion_tpu_torch.compact.allgather import compact_all_gather
+    from compactfusion_tpu_torch.models.common import layer_of
+    from compactfusion_tpu_torch.parallel.patch import PatchParallelAttn
+
+    m = tmesh.make_mesh(ParallelConfig(ring_degree=4))
+    my = m.axis_index("ring")
+    res = {}
+    for name, mode, ckw, steps, methods in runs:
+        cfg = None if ckw is None else CompactConfig(**dict(ckw, compress_type=CompressType(ckw["compress_type"])))
+        state, per_step = None, []
+        for (q, k, v), method in zip(steps, methods):
+            ql, kl, vl = _sp_local((q, k, v), m)
+            impl = PatchParallelAttn(cfg=cfg, method=None if method is None else CompressType(method),
+                                     mode=mode, mesh=m)
+            if state is None:
+                b, s, h, d = kl.shape
+                state = impl.init_state(1, b, s, h, d, torch.float32)
+            out, _ = impl(ql, kl, vl, layer_of(state, 0))
+            leaves = [t.float().numpy().copy() for t in _leaves_of(state)]
+            per_step.append((out.numpy(), leaves))
+        res[name] = per_step
+    for name, ckw, steps in gather_runs:
+        cfg = CompactConfig(**dict(ckw, compress_type=CompressType(ckw["compress_type"])))
+        state, per_step = None, []
+        for x in steps:
+            n = x.shape[0] // 4
+            xl = torch.from_numpy(x[my * n:(my + 1) * n])
+            if state is None:
+                st = tring.init_ring_state(4, n, x.shape[1], torch.float32, cfg.residual, cfg.quantized_cache)
+                state = st.k
+            tmesh.Mesh.all_gather_tree.nbytes = 0
+            got, state = compact_all_gather(xl, state, cfg=cfg, method=cfg.compress_type, mesh=m)
+            leaves = [t.float().numpy().copy() for t in _leaves_of(state)]
+            per_step.append((got.numpy(), leaves, tmesh.Mesh.all_gather_tree.nbytes))
+        res[name] = per_step
+    return res
+
+
+def _leaves_of(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [leaf for part in tree if part is not None for leaf in _leaves_of(part)]
+
+
+def sp_pipeline_latents(rank, world, jobs):
+    """Per family ("pixart": the tiny fp32 PixArt at 64 x 64, inputs (text,
+    mask, noise) by batch; "flux": the tiny fp32 FLUX at 64 x 128, inputs
+    (txt, pooled, noise)) in ``jobs`` = {family: (configs, params,
+    vae_params, inputs)}, per configuration (name, ParallelConfig kwargs,
+    CompactConfig kwargs or None, CacheAccelConfig kwargs or None, batch):
+    the final latents on this rank, the largest EF cache deviation across
+    the ring and the skipped steps (None without a cache)."""
+    import dataclasses
+
+    from compactfusion_tpu_torch.cache.accel import CacheAccelConfig
+    from compactfusion_tpu_torch.io.from_jax import params_from_numpy
+    from compactfusion_tpu_torch.models import flux as tflux
+    from compactfusion_tpu_torch.models import pixart as tpix
+    from compactfusion_tpu_torch.models import vae as tvae
+    from compactfusion_tpu_torch.pipelines.flux import FluxPipeline, FluxPipelineConfig
+    from compactfusion_tpu_torch.pipelines.pixart import PixArtPipeline, PixArtPipelineConfig
+
+    tv = dataclasses.replace(tvae.tiny_vae(), dtype=torch.float32)
+    families = {"pixart": (PixArtPipeline, PixArtPipelineConfig, tpix.pixart_tiny(), dict(height=64, width=64)),
+                "flux": (FluxPipeline, FluxPipelineConfig, tflux.flux_tiny(), dict(height=64, width=128))}
+    res = {}
+    for family, (configs, params, vae_params, inputs) in jobs.items():
+        pipe_cls, cfg_cls, tm, size = families[family]
+        tm = dataclasses.replace(tm, dtype=torch.float32)
+        tparams, tvae_params = params_from_numpy(params), params_from_numpy(vae_params)
+        for name, par, compact, cache, batch in configs:
+            parallel = ParallelConfig(**par)
+            ckw = {} if compact is None else dict(compact, compress_type=CompressType(compact["compress_type"]))
+            cfg = cfg_cls(model=tm, vae=tv, parallel=parallel, num_steps=4, compact=CompactConfig(**ckw),
+                          cache=CacheAccelConfig(**(cache or {})), **size)
+            pipe = pipe_cls(tparams, tvae_params, cfg, "cpu", mesh=tmesh.make_mesh(parallel))
+            *args, noise = (torch.from_numpy(a) for a in (inputs[batch] if family == "pixart" else inputs))
+            tring.max_consistency_dev = 0.0
+            lat = pipe(*args, latents=noise, decode=False)
+            res[family, name] = (lat.numpy(), tring.max_consistency_dev, pipe.last_skips)
     return res

@@ -19,6 +19,9 @@ only the tiles not wholly inside their rows' bands; the model follows it at
 every tile height the plan can build (32, 64 and 128 rows of 64-key tiles).
 """
 
+import contextlib
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -41,15 +44,50 @@ def _close(t, ref):
     np.testing.assert_allclose(np.asarray(t), np.asarray(ref), atol=ATOL, rtol=0)
 
 
+@contextlib.contextmanager
+def _pinned():
+    """One torch thread, and the Pallas kernel compiled in this process at
+    the highest matmul precision rather than loaded from the persistent
+    compilation cache: nothing the rest of the run or another worker left
+    behind reaches the comparison."""
+    threads, cache = torch.get_num_threads(), jax.config.jax_enable_compilation_cache
+    torch.set_num_threads(1)
+    jax.config.update("jax_enable_compilation_cache", False)
+    try:
+        with jax.default_matmul_precision("highest"):
+            yield
+    finally:
+        torch.set_num_threads(threads)
+        jax.config.update("jax_enable_compilation_cache", cache)
+
+
+def _window_f64(q, k, v, w):
+    """Banded attention (|i - j| <= w) and its LSE in float64 (numpy)."""
+    q, k, v = (x.astype(np.float64) for x in (q, k, v))
+    s = np.einsum("bqhd,bkhd->bhqk", q, k) / np.sqrt(q.shape[-1])
+    i = np.arange(q.shape[1])
+    s = np.where(np.abs(i[:, None] - i[None, :]) <= w, s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    p = np.exp(s - m)
+    lse = np.log(p.sum(-1)) + m[..., 0]
+    return np.einsum("bhqk,bkhd->bqhd", p / p.sum(-1, keepdims=True), v), lse
+
+
 @pytest.mark.parametrize("w,bq,bk", [(32, 64, 128), (100, 128, 128)])
 def test_twin_matches_pallas_window_kernel(w, bq, bk):
     q, k, v = _qkv(1, 256, 2, 64, seed=w)
-    pal_o, pal_l = jflash(*map(jnp.asarray, (q, k, v)), block_q=bq, block_k=bk,
-                          interpret=True, window=w)
-    out, lse = tflash.flash_attn_window_with_lse_ref(*map(torch.from_numpy, (q, k, v)), w)
+    with _pinned():
+        pal_o, pal_l = jflash(*map(jnp.asarray, (q, k, v)), block_q=bq, block_k=bk,
+                              interpret=True, window=w)
+        out, lse = tflash.flash_attn_window_with_lse_ref(*map(torch.from_numpy, (q, k, v)), w)
     assert out.dtype == torch.float32 and lse.shape == (1, 2, 256)
     _close(out.numpy(), pal_o)
     _close(lse.numpy(), pal_l)
+    # both against the float64 value, so a fault on either side shows as such
+    ref_o, ref_l = _window_f64(q, k, v, w)
+    for o, l in ((out.numpy(), lse.numpy()), (pal_o, pal_l)):
+        _close(o, ref_o)
+        _close(l, ref_l)
 
 
 @pytest.mark.parametrize("w", [0, 4, 64, 300])
