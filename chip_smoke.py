@@ -158,17 +158,43 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
 27. FBCache at R2 in 2 processes (PixArt), the probe summed over the ring:
     threshold 0 bit-equal to phase 13's ring-2 lossless run, 1e6 18 skipped
     steps on both ranks.
+28. The prompt encoders at their published widths and depths: T5-XXL (24
+    layers, d_model 4096, 64 heads of 64, d_ff 10240) and CLIP-L with seeded
+    bf16 weights on the card behind the byte tokenizers
+    (``models/prompt.py``): FLUX's prompt batch at 512 tokens and PixArt's
+    cond/uncond pair at 120, ms per batch (CUDA events) and peak memory; both
+    encoders cut to 2 layers in fp32 within ENCODER_F32_REL_MAX of the CPU's
+    plain run; the int8 T5 (``--use_int8_t5_encoder``) against the bf16 one
+    at full depth within T5_INT8_REL, its parameters under
+    T5_INT8_BYTES_MAX of the bf16 bytes.  No port kernel may launch.
+29. ``xDiTParallel`` built from ``xFuserArgs`` on the README's argument
+    lists: PixArt-alpha 512 (20 steps, CFG) and FLUX.1-dev 1024 (28 steps,
+    guidance 3.5), ``prepare_run``, then 2 requests from prompts (s/image by
+    CUDA events, prompt encoding included; kernel 1's launches an image equal
+    to phase 3's and phase 18's); ``save`` writes a PNG, read back with the
+    port's own decoder; then FLUX.1-dev with ``--quantize_backbone_int8``:
+    latents within BACKBONE_INT8_REL_MAX of the bf16 run and a lower peak
+    memory.
+30. The HTTP service (``entrypoints/launch.py``) on PixArt-alpha 512 at
+    ``serve_batch`` 2 on localhost: ``/health``, then 4 concurrent
+    ``/generate`` requests, each answered with a 512 x 512 PNG and its
+    latency; at least one pipeline call packs 2 requests.
+31. ``examples/pixartalpha_example.py``'s ``main`` as 2 gloo processes on
+    the card at ``--ring_degree 2`` (``--output_type latent``), lossless and
+    ``--compact --compact_type binary``: lossless within HALVES_REL_MAX of
+    the one-process runner's request, BINARY within COMPRESSED_REL_ERR_MAX
+    and above 0; exact launch counts and ring-shift bytes per rank.
 
-Phases 4-15, 18-19 and 21-27 hold their latents against a lossless request and
+Phases 4-15, 18-19, 21-27, 29 and 31 hold their latents against a lossless request and
 their kernel launch counts against the counts the path implies (kernel 1's
 wide-body launches among them, one per decoded image, and those of
 kernels 2, 3, 5 and 6 on their vector plans, all of their launches); every
 count is set to 0 just before each of phases 3-11, 13-15, 16's probes
-(and the calibration), 18-19, 21-22 and 24-27, in every process, and read just
-after; kernels 1, 4, 7 and 8 count their fp32 launches apart.  A probe
+(and the calibration), 18-19, 21-22, 24-27 and each request or run of 28-31,
+in every process, and read just after; kernels 1, 4, 7 and 8 count their fp32 launches apart.  A probe
 counts a launch when it captures a CUDA graph, so phase 16 reports the
 launches the device ran (the captured count times the replays).  The
-``launches`` of the pipeline's kernels are those of phases 3-15, 18-19 and 21-27: what
+``launches`` of the pipeline's kernels are those of phases 3-15, 18-19 and 21-31: what
 kernel 1 ran inside the probes is reported beside them, under phase 16's
 ``launches_of_pipeline_kernels``.  The s/image of phases 13-15 is that of
 processes sharing one card, not a ring speed (so are phase 19's).
@@ -1237,13 +1263,24 @@ def build_models(dev, dtype=None):
     mcfg, vcfg = pixart_alpha_512(), sd_vae()
     if dtype is not None:
         mcfg, vcfg = dataclasses.replace(mcfg, dtype=dtype), dataclasses.replace(vcfg, dtype=dtype)
-    params = init_pixart(torch.Generator(device=dev).manual_seed(0), mcfg)
+    params = spice_pixart(init_pixart(torch.Generator(device=dev).manual_seed(0), mcfg))
+    vae_params = init_vae_decoder(torch.Generator(device=dev).manual_seed(1), vcfg)
+    return mcfg, vcfg, params, vae_params
+
+
+def spice_pixart(params):
+    """``params`` with the zero-init AdaLN tables (every block's
+    ``scale_shift_table`` and ``adaln_single``'s bias) drawn from N(0, 0.5^2)
+    with a fixed seed, in place: zero gates hide the attention, and the
+    compression error with it, under bf16 rounding."""
+    import numpy as np
+    import torch
+
     spice = np.random.default_rng(99)
     for tree, key in ((params["blocks"], "scale_shift_table"), (params["adaln_single"], "b")):
         tree[key] = torch.from_numpy(spice.standard_normal(tuple(tree[key].shape)) * 0.5).to(
-            device=dev, dtype=mcfg.dtype)
-    vae_params = init_vae_decoder(torch.Generator(device=dev).manual_seed(1), vcfg)
-    return mcfg, vcfg, params, vae_params
+            device=tree[key].device, dtype=tree[key].dtype)
+    return params
 
 
 def compressed_config(compress_type="binary", **kw):
@@ -2338,6 +2375,449 @@ def quant_entry(quant_rows, totals, codec, which, line):
             "library_ms": None, "shapes": rows, **by_plan}
 
 
+# -- phases 28-31: the entry points ----------------------------------------
+
+PIXART_ARGV = ["--model", "PixArt-alpha/PixArt-XL-2-512x512", "--height", "512", "--width", "512",
+               "--num_inference_steps", str(STEPS), "--prompt", "a small cactus with a happy face in the Sahara desert"]
+FLUX_ARGV = ["--model", "black-forest-labs/FLUX.1-dev", "--height", str(FLUX_SIZE), "--width", str(FLUX_SIZE),
+             "--num_inference_steps", str(FLUX_STEPS), "--prompt", "a photo of a cat"]
+#: the prompts of phases 28-29's requests
+PROMPTS = ("a tiny astronaut hatching from an egg on the moon", "an oil painting of a lighthouse at dawn")
+#: int8 T5 against bf16 T5 (tests/io/test_t5_int8.py's bounds): close, not equal
+T5_INT8_REL = (1e-6, 0.05)
+#: int8 weights' share of the bf16 bytes (tests/io/test_t5_int8.py)
+T5_INT8_BYTES_MAX = 0.62
+#: the int8 FLUX backbone against bf16, latents (tests/core/test_parallel_api.py:469)
+BACKBONE_INT8_REL_MAX = 0.1
+#: fp32 encoders on the card against the CPU's plain run (the north star's
+#: fp32 bound, tests/io/test_backbone_parity.py)
+ENCODER_F32_REL_MAX = 2e-4
+
+
+def _cli(argv):
+    from compactfusion_tpu_torch.args import FlexibleArgumentParser, xFuserArgs
+
+    parser = FlexibleArgumentParser()
+    xFuserArgs.add_cli_args(parser)
+    return xFuserArgs.from_cli_args(parser.parse_args(argv))
+
+
+def _nbytes_tree(tree):
+    if isinstance(tree, dict):
+        return sum(_nbytes_tree(t) for t in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def _events_s(fn):
+    """(fn's result, its seconds by CUDA events)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end) / 1e3
+
+
+def _cut(tree, n):
+    """The first ``n`` layers of a tree's stacked block axis."""
+    return {k: (v if k != "blocks" else {b: {p: t[:n] for p, t in w.items()} for b, w in v.items()})
+            for k, v in tree.items()}
+
+
+def _to_dev(tree, dev, dtype=None):
+    if isinstance(tree, dict):
+        return {k: _to_dev(v, dev, dtype) for k, v in tree.items()}
+    return tree.to(dev, dtype if dtype is not None and tree.is_floating_point() else tree.dtype)
+
+
+def prompt_phase(kernels, dev):
+    """Phase 28: T5-XXL and CLIP-L at their published widths and depths, seeded
+    bf16 weights on the card behind the byte tokenizers; FLUX's prompt batch
+    at 512 tokens and PixArt's cond/uncond pair at 120; both encoders cut to
+    2 layers in fp32 against the CPU's plain run of the same weights; the
+    int8 T5 against the bf16 one at full depth."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from compactfusion_tpu_torch.models import prompt as mp
+    from compactfusion_tpu_torch.models import text_encoders as te
+
+    t0 = time.perf_counter()
+    t5_cfg, clip_cfg = te.t5_xxl(), te.clip_l()
+    t5 = te.init_t5(torch.Generator(device=dev).manual_seed(7), t5_cfg)
+    clip = te.init_clip(torch.Generator(device=dev).manual_seed(8), clip_cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    enc = mp.PromptEncoder(mp._T5Bundle(mp.byte_unigram_tokenizer(), t5, t5_cfg),
+                           mp._CLIPBundle(mp.byte_clip_tokenizer(), clip, clip_cfg))
+    print(f"[28] T5-XXL ({t5_cfg.num_layers} layers, d_model {t5_cfg.d_model}, {t5_cfg.num_heads} heads of "
+          f"{t5_cfg.d_kv}, d_ff {t5_cfg.d_ff}; {_numel(t5) / 1e9:.3f}B parameters, {_nbytes_tree(t5) / 2**30:.3f} "
+          f"GiB bf16) and CLIP-L ({clip_cfg.num_layers} layers, d {clip_cfg.d_model}) drawn on the card in "
+          f"{build_s:.2f} s")
+    _reset_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    flux_prompt, pixart_pair = [PROMPTS[0]], ([PROMPTS[0]], [""])
+    for _ in range(2):  # warm-up
+        enc.encode_for_flux(flux_prompt, max_length=FLUX_TXT)
+        enc.encode_for_pixart(*pixart_pair, max_length=120)
+    flux_ms = [1e3 * _events_s(lambda: enc.encode_for_flux(flux_prompt, max_length=FLUX_TXT))[1] for _ in range(5)]
+    pixart_ms = [1e3 * _events_s(lambda: enc.encode_for_pixart(*pixart_pair, max_length=120))[1] for _ in range(5)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    txt, pooled = enc.encode_for_flux(flux_prompt, max_length=FLUX_TXT)
+    ptxt, pmask = enc.encode_for_pixart(*pixart_pair, max_length=120)
+    for what, t, shape in (("FLUX T5 states", txt, (1, FLUX_TXT, t5_cfg.d_model)),
+                           ("FLUX pooled", pooled, (1, clip_cfg.d_model)),
+                           ("PixArt cond/uncond", ptxt, (2, 1, 120, t5_cfg.d_model))):
+        if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"[28] {what}: shape {tuple(t.shape)} (expected {shape}) or not finite")
+    if any(_counts(kernels).values()):
+        raise AssertionError("[28] the text encoders launched a port kernel: their products are plain torch")
+    print(f"[28] FLUX prompt batch (B1, 512 tokens, T5-XXL + CLIP-L): {', '.join(f'{m:.3f}' for m in flux_ms)} ms; "
+          f"PixArt cond/uncond pair (2 x B1, 120 tokens): {', '.join(f'{m:.3f}' for m in pixart_ms)} ms; "
+          f"torch.cuda.max_memory_allocated {peak:.3f} GiB")
+
+    # 2 layers at full width in fp32: the card against the CPU's plain run
+    ids, mask = mp.byte_unigram_tokenizer()([PROMPTS[1]], max_length=120)
+    cids = mp.byte_clip_tokenizer()([PROMPTS[1]])
+    outs = {}
+    cut_t5 = dataclasses.replace(t5_cfg, num_layers=2, dtype=torch.float32)
+    cut_clip = dataclasses.replace(clip_cfg, num_layers=2, dtype=torch.float32)
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        p5 = _to_dev(_cut(t5, 2), d, torch.float32)
+        pc = _to_dev(_cut(clip, 2), d, torch.float32)
+        with torch.inference_mode():
+            outs[where] = (te.t5_encode(p5, torch.from_numpy(ids).long().to(d), cut_t5,
+                                         mask=torch.from_numpy(mask).to(d)).cpu().numpy(),
+                            te.clip_encode(pc, torch.from_numpy(cids).long().to(d), cut_clip)[1].cpu().numpy())
+    t5_rel = _rel_np(outs["card"][0], outs["cpu"][0])
+    clip_rel = _rel_np(outs["card"][1], outs["cpu"][1])
+    print(f"[28] 2 layers at full width in fp32, card vs CPU: T5 states rel err {t5_rel:.3e}, CLIP pooled "
+          f"{clip_rel:.3e} (bound {ENCODER_F32_REL_MAX})")
+    if not (t5_rel <= ENCODER_F32_REL_MAX and clip_rel <= ENCODER_F32_REL_MAX):
+        raise AssertionError("[28] the encoders on the card differ from the CPU's plain run")
+
+    # --use_int8_t5_encoder: the int8 T5 against the bf16 one, full depth.
+    # With init_t5's std-0.02 draws at d_model 4096 the unscaled attention
+    # logits have a std of ~13: near-hard attention, where the int8 rounding
+    # flips near-ties from layer to layer, so that comparison is reported,
+    # not bounded.  The bound applies to the same draws at T5's own
+    # initialisation scales (HF ``T5PreTrainedModel._init_weights``), which
+    # keep the logits near unit std as trained weights do.
+    def int8_vs_bf16(params):
+        q = te.quantize_t5_int8(params)
+        enc.t5.params = params
+        full = enc.encode_t5([PROMPTS[1]], FLUX_TXT)[0]
+        enc.t5.params = q
+        torch.cuda.reset_peak_memory_stats()
+        quant, q_s = _events_s(lambda: enc.encode_t5([PROMPTS[1]], FLUX_TXT)[0])
+        return rel_fro(quant, full), q_s, _nbytes_tree(q), torch.cuda.max_memory_allocated() / 2**30
+
+    raw_rel = int8_vs_bf16(t5)[0]
+    d, h, dk, ff = t5_cfg.d_model, t5_cfg.num_heads, t5_cfg.d_kv, t5_cfg.d_ff
+    stds = {"q": (d * dk) ** -0.5, "k": d ** -0.5, "v": d ** -0.5, "o": (h * dk) ** -0.5, "wi_0": d ** -0.5,
+            "wi_1": d ** -0.5, "wo": ff ** -0.5}
+    t5 = dict(t5, blocks={k: ({"w": (v["w"].float() * (stds[k] / 0.02)).to(v["w"].dtype)} if k in stds else v)
+                          for k, v in t5["blocks"].items()})
+    rel, q_s, q_bytes, q_peak = int8_vs_bf16(t5)
+    b_bytes = _nbytes_tree(t5)
+    enc.t5.params = t5
+    print(f"[28] int8 T5-XXL vs bf16, full depth: states rel err {rel:.5f} at T5's initialisation scales (bounds "
+          f"{T5_INT8_REL}), {raw_rel:.5f} on the std-0.02 draws (not bounded: near-hard attention); parameter "
+          f"bytes {q_bytes / 2**30:.3f} GiB = {q_bytes / b_bytes:.4f} x bf16 (bound {T5_INT8_BYTES_MAX}); "
+          f"{1e3 * q_s:.3f} ms; max_memory_allocated with both copies {q_peak:.3f} GiB")
+    if not (T5_INT8_REL[0] < rel < T5_INT8_REL[1] and q_bytes < T5_INT8_BYTES_MAX * b_bytes):
+        raise AssertionError("[28] the int8 T5 is outside its bounds")
+    return {"t5 and clip-l": {
+        "flux_prompt_ms": flux_ms, "pixart_pair_ms": pixart_ms, "max_memory_allocated_gib": peak,
+        "t5_params": _numel(t5), "cut_fp32_rel_err_vs_cpu": {"t5": t5_rel, "clip_pooled": clip_rel},
+        "int8_rel_err_vs_bf16": rel, "int8_rel_err_vs_bf16_std002": raw_rel, "int8_bytes_share": q_bytes / b_bytes,
+        "launches": _counts(kernels)}}
+
+
+def _request(runner):
+    """One request of a runner: (latents, image), decoded as ``runner()`` does."""
+    lat = runner(decode=False)
+    return lat, runner.pipeline.decode(lat)
+
+
+def runner_phase(kernels, pixart_launches, flux_launches, out_dir):
+    """Phase 29: ``xDiTParallel`` from the README's argument lists,
+    PixArt-alpha 512 and FLUX.1-dev 1024, from prompts; then FLUX.1-dev with
+    ``--quantize_backbone_int8``.  Returns (phases, the PixArt runner with
+    its launch request restored)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from compactfusion_tpu_torch.parallel_api import xDiTParallel
+    from compactfusion_tpu_torch.utils.image import read_png, to_uint8
+
+    phases, keep = {}, {}
+    for family, argv, size, launches in (("pixart", PIXART_ARGV, 512, pixart_launches),
+                                         ("flux", FLUX_ARGV, FLUX_SIZE, flux_launches)):
+        args = _cli(argv)
+        if family == "flux":  # the FLUX example's guidance rule
+            args.guidance_scale = 3.5 if args.guidance_scale == 4.5 else args.guidance_scale
+        engine, inp = args.create_config()
+        t0 = time.perf_counter()
+        runner = xDiTParallel(engine, inp)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        warm_s = _events_s(runner.prepare_run)[1]  # (prepare_run returns the runner: keep no reference)
+        torch.cuda.reset_peak_memory_stats()
+        secs, lat0, total = [], None, None
+        for i, prompt in enumerate(PROMPTS):
+            runner.input_config = dataclasses.replace(inp, prompt=(prompt,), seed=i + 1)
+            _reset_counts(kernels)
+            (lat, img), sec = _events_s(lambda: _request(runner))
+            ran = _counts(kernels)
+            _check_counts(f"[29] {family} request {i + 1}", ran, {"flash_attn_with_lse": launches, WIDE: 1})
+            check_image(img, f"[29] {family} request {i + 1}", size)
+            lat0 = lat if lat0 is None else lat0
+            total = ran if total is None else {k: total[k] + v for k, v in ran.items()}
+            secs.append(sec)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        runner.input_config = inp
+        path = runner.save(out_dir, prefix=f"runner_{family}", out=img)
+        with open(path, "rb") as f:
+            back = read_png(f.read())
+        if back.shape != tuple(img.shape[1:]) or not np.array_equal(back, to_uint8(img.float().cpu().numpy())[0]):
+            raise AssertionError(f"[29] {family}: the PNG read back is not the image ({back.shape})")
+        print(f"[29] {family} through xDiTParallel ({' '.join(argv[:2])}, guidance {inp.guidance_scale}): "
+              f"built in {build_s:.2f} s, prepare_run {warm_s:.4f} s, s/image {', '.join(f'{s:.4f}' for s in secs)} "
+              f"(CUDA events, prompt encoding included); kernel 1 {launches} launches an image (as phase "
+              f"{3 if family == 'pixart' else 18}), 1 on the wide body; max_memory_allocated {peak:.3f} GiB; "
+              f"PNG {path} read back, {back.shape}")
+        phases[f"runner {family}"] = {"s_per_image": secs, "prepare_run_s": warm_s, "build_s": build_s,
+                                      "max_memory_allocated_gib": peak, "launches": total}
+        keep[family] = (runner, lat0)
+    flux_lat = keep.pop("flux")[1]
+    bf16_peak = phases["runner flux"]["max_memory_allocated_gib"]
+    del runner, lat, img, lat0  # the bf16 FLUX runner leaves the card
+    torch.cuda.empty_cache()
+
+    args = _cli(FLUX_ARGV + ["--quantize_backbone_int8"])
+    args.guidance_scale = 3.5
+    engine, inp = args.create_config()
+    runner = xDiTParallel(engine, inp)
+    runner.input_config = dataclasses.replace(inp, prompt=(PROMPTS[0],), seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(kernels)
+    lat, sec = _events_s(lambda: runner(decode=False))
+    _check_counts("[29] flux int8", _counts(kernels), {"flash_attn_with_lse": flux_launches - 1, WIDE: 0})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rel = rel_fro(lat, flux_lat)
+    blocks = runner.pipeline.params["double_blocks"]["img_qkv"]
+    print(f"[29] FLUX.1-dev --quantize_backbone_int8: latents rel err vs bf16 {rel:.5f} (bound "
+          f"{BACKBONE_INT8_REL_MAX}, > 0); {sec:.4f} s for the latents; max_memory_allocated {peak:.3f} GiB "
+          f"(bf16 {bf16_peak:.3f}); block weights {blocks['w_q'].dtype}")
+    if not (0.0 < rel < BACKBONE_INT8_REL_MAX and peak < bf16_peak and blocks["w_q"].dtype == torch.int8):
+        raise AssertionError("[29] the int8 FLUX backbone is outside its bounds or takes no less memory")
+    phases["runner flux int8"] = {"s_latents": sec, "latent_rel_err_vs_bf16": rel,
+                                  "max_memory_allocated_gib": peak, "launches": _counts(kernels)}
+    del runner
+    torch.cuda.empty_cache()
+    return phases, keep["pixart"]
+
+
+def service_phase(kernels, pixart_launches):
+    """Phase 30: the HTTP service on PixArt-alpha 512 at serve_batch 2 on
+    localhost: /health, then 4 concurrent /generate requests."""
+    import base64
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from compactfusion_tpu_torch.entrypoints.launch import Engine, make_handler
+    from compactfusion_tpu_torch.utils.image import read_png
+
+    engine = Engine(_cli(PIXART_ARGV), serve_batch=2)
+    engine.batch_window_s = 0.5  # the 4 clients start together; packing must not hang on the thread start
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(engine))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def call(path, payload=None):
+        data = None if payload is None else json.dumps(payload).encode()
+        req = urllib.request.Request(base + path, data=data, headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+
+    try:
+        health = call("/health")
+        if health != (200, {"status": "ok"}):
+            raise AssertionError(f"[30] /health answered {health}")
+        _reset_counts(kernels)
+        results, barrier = [None] * 4, threading.Barrier(4)
+        t0 = time.perf_counter()
+
+        def client(i):
+            barrier.wait()
+            t = time.perf_counter()
+            code, body = call("/generate", {"prompt": PROMPTS[i % 2] + f" #{i}", "seed": 10 + i})
+            results[i] = (code, body, time.perf_counter() - t)
+
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join()
+        wall = time.perf_counter() - t0
+        for i, (code, body, wall_i) in enumerate(results):
+            if code != 200 or "latency_s" not in body:
+                raise AssertionError(f"[30] request {i}: {code} {str(body)[:200]}")
+            img = read_png(base64.b64decode(body["images"][0]))
+            if img.shape != tuple(body["shape"][1:]) or body["shape"][1] != engine._base_input.height:
+                raise AssertionError(f"[30] request {i}: PNG of shape {img.shape}")
+        stats = dict(engine.stats)
+        if stats["max_packed"] != 2:
+            raise AssertionError(f"[30] no pipeline call packed 2 requests: {stats}")
+        counts = _counts(kernels)
+        _check_counts("[30] service", counts, {"flash_attn_with_lse": stats["batches"] * pixart_launches,
+                                               WIDE: stats["batches"]})
+        lat = [body["latency_s"] for _, body, _ in results]
+        print(f"[30] HTTP service, PixArt-alpha 512, serve_batch 2: /health ok; 4 concurrent /generate in "
+              f"{wall:.3f} s: {stats['batches']} pipeline calls (max packed {stats['max_packed']}), PNGs 512 x 512 "
+              f"decoded; latency_s per request {lat}, client wall {[round(w, 4) for _, _, w in results]} s; "
+              f"kernel 1 {counts['flash_attn_with_lse']} launches ({pixart_launches} a call)")
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.close()
+    phase = {"latency_s": lat, "wall_s": wall, "batches": stats["batches"], "max_packed": stats["max_packed"],
+             "s_per_image": [l / 2 for l in lat], "launches": counts}
+    del engine
+    torch.cuda.empty_cache()
+    return {"service": phase}
+
+
+def example_rank(rank, world, runs):
+    """One rank of phase 31: the torchrun environment, then per run (name,
+    argv) ``pixartalpha_example.main`` with every launch count set to 0 before
+    it; returns the latents, the counts and the ring-shift bytes."""
+    import torch
+
+    from compactfusion_tpu_torch.examples import pixartalpha_example
+    from compactfusion_tpu_torch.parallel.ring import ring_shift
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world))
+    # the runner draws the same seeded weights as the parent's reference;
+    # both spice the AdaLN tables, or the zero gates hide the codec
+    from compactfusion_tpu_torch.models import pixart as model_pixart
+
+    init = model_pixart.init_pixart
+    model_pixart.init_pixart = lambda generator, cfg: spice_pixart(init(generator, cfg))
+    kernels = port_kernels()
+    out = {}
+    for name, argv in runs:
+        _reset_counts(kernels)
+        ring_shift.nbytes = 0
+        t0 = time.perf_counter()
+        lat, saved = pixartalpha_example.main(argv)
+        torch.cuda.synchronize()
+        out[name] = {"latents": lat.float().cpu().numpy(), "launches": _counts(kernels),
+                     "wire_bytes": ring_shift.nbytes, "saved": saved, "s": time.perf_counter() - t0}
+    return out
+
+
+def example_ring_phase(kernels, codecs, lossless_np):
+    """Phase 31: ``pixartalpha_example.main`` as 2 gloo processes on the card at
+    ``--ring_degree 2``, lossless and ``--compact --compact_type binary``,
+    against the one-process runner's latents of the same request."""
+    import numpy as np
+    import torch
+
+    from compactfusion_tpu_torch.parallel.mesh import spawn_local
+
+    ring = PIXART_ARGV + ["--ring_degree", "2", "--output_type", "latent"]
+    runs = [("example ring2 lossless", ring), ("example ring2 binary", ring + ["--compact", "--compact_type", "binary"])]
+    t0 = time.perf_counter()
+    two = spawn_local(example_rank, 2, "gloo", runs, threads=2)
+    spawn_s = time.perf_counter() - t0
+    hops, comp = 2 * DEPTH, STEPS - WARMUP
+    n, c = 2 * 1024 // 2, 1152  # CFG batch 2 x 512 tokens a rank, 16 heads of 72
+    payload = codecs.payload_nbytes(codecs.encode(torch.ones(n, c), codecs.CompressType.BINARY))
+    images = 2  # the example's warm-up call and its generate call
+    # --output_type latent: no VAE decode, so no wide-body launch
+    expect = {"example ring2 lossless": ({"flash_attn_with_lse": images * hops * STEPS, WIDE: 0},
+                                         images * DEPTH * STEPS * 2 * n * c * 2),
+              "example ring2 binary": ({"flash_attn_with_lse": images * hops * STEPS, WIDE: 0,
+                                        "binary_quant_fastpath": images * hops * comp,
+                                        "binary_dequant_fastpath": images * hops * comp},
+                                       images * DEPTH * (WARMUP * 2 * n * c * 4 + comp * 2 * payload))}
+    phases = {}
+    for name, _ in runs:
+        want_counts, want_bytes = expect[name]
+        want_counts = {**{key: want_counts.get(k, 0) for k, key in VEC.items()}, **want_counts}
+        lat = two[0][name]["latents"]
+        for r, res in enumerate(two):
+            if not np.array_equal(res[name]["latents"], lat):
+                raise AssertionError(f"[31] {name}: rank {r}'s latents differ from rank 0's")
+            _check_counts(f"[31] {name} rank {r}", res[name]["launches"], want_counts)
+            if res[name]["wire_bytes"] != want_bytes:
+                raise AssertionError(f"[31] {name} rank {r}: ring-shift bytes {res[name]['wire_bytes']}, "
+                                     f"expected {want_bytes}")
+        rel = _rel_np(lat, lossless_np)
+        bound, low = (HALVES_REL_MAX, None) if "lossless" in name else (COMPRESSED_REL_ERR_MAX, 0.0)
+        if not (rel <= bound and (low is None or rel > low)):
+            raise AssertionError(f"[31] {name}: latent rel err vs the one-process runner {rel} outside ({low}, {bound}]")
+        if "binary" in name:  # the codec acts: the compressed ring moves off the lossless one
+            vs_ring = _rel_np(lat, two[0]["example ring2 lossless"]["latents"])
+            print(f"[31] {name}: rel err vs the lossless ring {vs_ring:.6g} (bound {COMPRESSED_REL_ERR_MAX}, > 0)")
+            if not 0.0 < vs_ring <= COMPRESSED_REL_ERR_MAX:
+                raise AssertionError(f"[31] {name}: rel err vs the lossless ring {vs_ring}")
+        print(f"[31] {name} (pixartalpha_example.main in 2 gloo processes on one GPU): latents equal on both "
+              f"ranks; rel err vs the one-process runner {rel:.6g} (bound {bound}" + (", > 0" if low is not None else "")
+              + f"); ring-shift bytes per rank {want_bytes} as the shapes imply; main took "
+              f"{', '.join(f'{res[name]['s']:.2f}' for res in two)} s (2 images, shared card); saved "
+              f"{two[0][name]['saved']}")
+        phases[name] = {"latent_rel_err_vs_runner": rel, "wire_bytes_per_rank": want_bytes,
+                        "main_s": [res[name]["s"] for res in two],
+                        "launches": {k: sum(res[name]["launches"][k] for res in two) for k in two[0][name]["launches"]}}
+    print(f"[31] the spawn took {spawn_s:.1f} s")
+    return phases
+
+
+def run_entry_phases(kernels, dev, codecs, pixart_launches, flux_launches):
+    """Phases 28-31; returns (the phases, the seconds of each)."""
+    import tempfile
+
+    import torch
+
+    out_dir = tempfile.mkdtemp(prefix="cf_entry_")
+    secs, t0 = {}, time.perf_counter()
+    phases = prompt_phase(kernels, dev)
+    torch.cuda.empty_cache()
+    secs["28"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runner_phases, (pixart_runner, _) = runner_phase(kernels, pixart_launches, flux_launches, out_dir)
+    phases.update(runner_phases)
+    # the one-process reference of phase 31: the example's request (its
+    # prompt, seed 42) on the runner's weights with the AdaLN tables spiced
+    spice_pixart(pixart_runner.pipeline.params)
+    ref = pixart_runner(decode=False).float().cpu().numpy()
+    del pixart_runner
+    torch.cuda.empty_cache()
+    secs["29"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phases.update(service_phase(kernels, pixart_launches))
+    secs["30"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phases.update(example_ring_phase(kernels, codecs, ref))
+    secs["31"] = time.perf_counter() - t0
+    print(f"[28-31] seconds: {', '.join(f'{k} {v:.1f}' for k, v in secs.items())}")
+    return phases, secs
+
+
 def main():
     import torch
 
@@ -2427,6 +2907,7 @@ def main():
         print(f"[3] request seed {seed}: image (1, 512, 512, 3) in [{lo:.4f}, {hi:.4f}], "
               f"flash launches {launched}, {sec:.4f} s/image")
     phases = {"lossless": {"s_per_image": secs, "launches": _counts(kernels)}}
+    pixart_launches = launched  # kernel 1's launches an image, the VAE's included
 
     # -- 4.-7. full-width pipeline, compressed-ring emulations ---------------
     per_layer = CALLS_PER_LAYER
@@ -2648,6 +3129,15 @@ def main():
     ring_rows += sp_rows["ring"]
     cring_rows += sp_rows["cring"]
 
+    # -- 28.-31. the entry points: prompts in, images out -------------------
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the models of earlier phases leave the card
+    entry_phases, entry_secs = run_entry_phases(kernels, dev, codecs, pixart_launches,
+                                                phases["flux lossless"]["launches"]["flash_attn_with_lse"] // 3)
+    phases.update(entry_phases)
+
     totals = {fn.__name__: sum(p["launches"][fn.__name__] for p in phases.values()) for fn in kernels}
     for key in ROUTES.values():
         totals[key] = sum(p["launches"].get(key, 0) for p in phases.values())
@@ -2718,8 +3208,8 @@ def main():
          **{k: f32_rows["cring"][0]["ef"][k] for k in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by")},
          "shapes": [dict(r["ef"], shape=r["shape"]) for r in f32_rows["cring"]]},
     ], "sdpa_cross_attention": cross_rows, "fp32_ptxas": f32_rows["ptxas"], "phases": phases}
-    print(f"[done] phases 1-27 passed in {time.perf_counter() - t_run:.1f} s, the kernels' build included "
-          f"(phases 23-27: {sum(sp_secs.values()):.1f} s)")
+    print(f"[done] phases 1-31 passed in {time.perf_counter() - t_run:.1f} s, the kernels' build included "
+          f"(phases 23-27: {sum(sp_secs.values()):.1f} s; 28-31: {sum(entry_secs.values()):.1f} s)")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

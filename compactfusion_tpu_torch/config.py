@@ -1,13 +1,17 @@
 """Frozen configuration dataclasses (counterpart of ``compactfusion_tpu/config.py``).
 
 Same fields and defaults as the JAX package, so a configuration reads the
-same in both; ``tests/test_torch_package.py`` checks that they agree.
+same in both; ``tests/test_torch_package.py`` checks that they agree.  The
+engine tree (``EngineConfig`` and its parts, ``InputConfig``) is what
+``args.xFuserArgs.create_config`` builds and ``parallel_api.xDiTParallel``
+runs.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import math
 from typing import Callable, Optional, Tuple
 
 
@@ -180,3 +184,112 @@ def validate_parallel_geometry(
             f"{family}: transformer depth ({depth}) must split evenly over "
             f"pp_degree ({pp})"
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Which model to run (reference ``ModelConfig``)."""
+
+    model: str = "pixart-alpha"
+    pretrained_model_name_or_path: Optional[str] = None
+    dtype: str = "bfloat16"
+
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeConfig:
+    """Runtime toggles (reference ``RuntimeConfig``)."""
+
+    warmup_steps: int = 1
+    use_parallel_vae: bool = False
+    #: wrap generation in ``utils/prof`` scopes and log the summary
+    use_profiler: bool = False
+    #: accepted for CLI parity; the port runs eager
+    use_torch_compile: bool = False
+    use_teacache: bool = False
+    use_fbcache: bool = False
+    use_fast_attn: bool = False
+    #: VAE decode memory knobs (not ported: the VAE decode raises)
+    enable_tiling: bool = False
+    enable_slicing: bool = False
+    #: int8 weight-quantize the T5 text encoder (``--use_int8_t5_encoder``,
+    #: ``--use_fp8_t5_encoder``; ``models/text_encoders.quantize_t5_int8``)
+    quantize_t5: bool = False
+    #: int8 weight-quantize the DiT block stacks (``--quantize_backbone_int8``;
+    #: ``models/common.quantize_params_int8``)
+    quantize_backbone: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class FastAttnConfig:
+    """DiTFastAttn calibration settings."""
+
+    use_fast_attn: bool = False
+    n_step: int = 20
+    n_calib: int = 8
+    threshold: float = 0.5
+    window_size: int = 64
+    coco_path: Optional[str] = None
+    use_cache: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class InputConfig:
+    """Generation request shape (reference ``InputConfig``)."""
+
+    height: int = 512
+    width: int = 512
+    num_frames: int = 1
+    batch_size: int = 1
+    num_inference_steps: int = 20
+    guidance_scale: float = 4.5
+    seed: int = 42
+    max_sequence_length: int = 120
+    prompt: Tuple[str, ...] = ("",)
+    negative_prompt: Tuple[str, ...] = ("",)
+    #: identity image of the ConsisID family (not ported: raises)
+    img_file_path: Optional[str] = None
+    #: snap (height, width) to the nearest aspect-ratio bin at the model's
+    #: native area and resize the output back (PixArt family)
+    use_resolution_binning: bool = True
+    #: "pil" decodes to pixels; "latent" returns the raw latents
+    output_type: str = "pil"
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Top-level config tree (reference ``EngineConfig``)."""
+
+    model_config: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    runtime_config: RuntimeConfig = dataclasses.field(default_factory=RuntimeConfig)
+    parallel_config: ParallelConfig = dataclasses.field(default_factory=ParallelConfig)
+    fast_attn_config: FastAttnConfig = dataclasses.field(default_factory=FastAttnConfig)
+    compact_config: CompactConfig = dataclasses.field(default_factory=CompactConfig)
+
+
+def resolve_compress_schedule(
+    cfg: CompactConfig,
+    num_steps: int,
+    compress_func: Optional[Callable[[int, int], CompressType]] = None,
+) -> Tuple[CompressType, ...]:
+    """A (possibly callable) policy as a static per-step schedule, layer 0's."""
+    if compress_func is None:
+        return tuple(cfg.type_at(0, s) for s in range(num_steps))
+    return tuple(compress_func(0, s) for s in range(num_steps))
+
+
+def validate_against_device_count(parallel: ParallelConfig, n_devices: int) -> None:
+    total = parallel.world_size + parallel.vae_parallel_size
+    if total > n_devices:
+        raise ValueError(
+            f"parallel config needs {total} devices "
+            f"(dit {parallel.world_size} + vae {parallel.vae_parallel_size}) "
+            f"but only {n_devices} are available"
+        )
+    if n_devices % parallel.world_size != 0 and parallel.vae_parallel_size == 0:
+        raise ValueError(
+            f"world size {parallel.world_size} does not divide device count {n_devices}"
+        )
+
+
+def round_up(x: int, m: int) -> int:
+    return int(math.ceil(x / m) * m)

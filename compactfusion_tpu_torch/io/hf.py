@@ -1,29 +1,77 @@
-"""HuggingFace (diffusers) state dicts -> the port's parameter trees
-(counterpart of part of ``compactfusion_tpu/io/hf.py``).
+"""HuggingFace (diffusers, transformers) checkpoints -> the port's
+parameter trees (counterpart of part of ``compactfusion_tpu/io/hf.py``).
 
+:func:`load_safetensors` reads ``.safetensors`` files itself (an 8-byte
+little-endian header length, a JSON header, then the raw tensors), so no
+``safetensors`` package is needed; bf16 tensors come back as exact fp32.
 The state dict maps names to numpy arrays in torch layouts; the converters
 return the trees ``init_*`` builds, in torch tensors of ``cfg.dtype`` on the
 CPU:
 
   * a torch ``nn.Linear`` stores (out, in): transposed to (in, out);
+  * conv kernels (out, in, kh, kw) are transposed to HWIO;
+  * PixArt's patch-embed conv becomes a linear over raster-ordered (kh, kw,
+    c) patch vectors (``models/common.patchify``);
   * separate to_q/to_k/to_v projections are fused into one qkv matrix;
   * per-layer tensors are stacked on a leading layer axis;
   * the q and k columns of FLUX's qkv and its qk-norm gains are permuted
     per head from the checkpoint's interleaved rope layout to the
     rotate-half layout the model runs (``models/common.apply_rope_half``).
 
-Only FLUX's converter is ported so far.  This module imports numpy and
-torch, not JAX.
+Converters: T5, CLIP, PixArt, FLUX and the AutoencoderKL decoder.  This
+module imports numpy and torch, not JAX.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import struct
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
 from compactfusion_tpu_torch.models.common import rope_half_perm
+
+
+_ST_DTYPES = {"F64": np.float64, "F32": np.float32, "F16": np.float16, "I64": np.int64,
+              "I32": np.int32, "I16": np.int16, "I8": np.int8, "U8": np.uint8, "BOOL": np.bool_,
+              "U16": np.uint16, "U32": np.uint32, "U64": np.uint64}
+
+
+def _load_safetensors_file(path: str) -> Dict[str, np.ndarray]:
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+    data = np.memmap(path, dtype=np.uint8, mode="r", offset=8 + n)
+    state = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        begin, end = info["data_offsets"]
+        raw, shape = data[begin:end], tuple(info["shape"])
+        if info["dtype"] == "BF16":
+            # the bf16 bits are the top half of the fp32 ones
+            arr = (np.frombuffer(raw, "<u2").astype(np.uint32) << 16).view(np.float32)
+        elif info["dtype"] in _ST_DTYPES:
+            arr = np.frombuffer(raw, np.dtype(_ST_DTYPES[info["dtype"]]).newbyteorder("<"))
+        else:
+            raise ValueError(f"{path}: tensor {name!r} has dtype {info['dtype']}, which is not read")
+        state[name] = np.array(arr.reshape(shape), copy=True)
+    return state
+
+
+def load_safetensors(path: str) -> Dict[str, np.ndarray]:
+    """One ``.safetensors`` file, or every ``*.safetensors`` shard of a
+    directory in name order, as a dict of numpy arrays (bf16 as fp32)."""
+    if os.path.isdir(path):
+        state: Dict[str, np.ndarray] = {}
+        for name in sorted(os.listdir(path)):
+            if name.endswith(".safetensors"):
+                state.update(_load_safetensors_file(os.path.join(path, name)))
+        return state
+    return _load_safetensors_file(path)
 
 
 def _tensor(a: np.ndarray, dtype) -> torch.Tensor:
@@ -37,6 +85,35 @@ def _lin(state, name, dtype):
     if f"{name}.bias" in state:
         p["b"] = _tensor(state[f"{name}.bias"], dtype)
     return p
+
+
+def _lin_nobias(state, name, dtype):
+    return {"w": _tensor(state[f"{name}.weight"].T, dtype)}
+
+
+def _fused_kv(state, k, v, dtype):
+    p = {"w": _tensor(np.concatenate([state[f"{k}.weight"].T, state[f"{v}.weight"].T], axis=1), dtype)}
+    if f"{k}.bias" in state:
+        p["b"] = _tensor(np.concatenate([state[f"{k}.bias"], state[f"{v}.bias"]]), dtype)
+    return p
+
+
+def _conv(state, name, dtype):
+    """torch conv (O, I, kh, kw) -> {w (kh, kw, I, O), b}."""
+    return {"w": _tensor(state[f"{name}.weight"].transpose(2, 3, 1, 0), dtype),
+            "b": _tensor(state[f"{name}.bias"], dtype)}
+
+
+def _patch_conv_as_linear(state, name, dtype):
+    """Patch-embed conv (D, C, p, p) -> a linear over (p, p, C) raster patches."""
+    w = state[f"{name}.weight"]
+    d, c, p, _ = w.shape
+    return {"w": _tensor(w.transpose(2, 3, 1, 0).reshape(p * p * c, d), dtype),
+            "b": _tensor(state[f"{name}.bias"], dtype)}
+
+
+def _norm(state, name, dtype):
+    return {"g": _tensor(state[f"{name}.weight"], dtype), "b": _tensor(state[f"{name}.bias"], dtype)}
 
 
 def _fused_qkv(state, q, k, v, dtype):
@@ -134,4 +211,123 @@ def convert_flux(state: Dict[str, np.ndarray], cfg) -> Any:
     }
     if cfg.guidance_embeds:
         params["guidance_embed"] = _embedder(state, "time_text_embed.guidance_embedder", dt)
+    return params
+
+
+def convert_t5(state: Dict[str, np.ndarray], cfg) -> Any:
+    """``google/t5-v1_1-xxl`` encoder names -> ``models/text_encoders.init_t5``'s tree."""
+    dt = cfg.dtype
+    blocks = []
+    for i in range(cfg.num_layers):
+        p = f"encoder.block.{i}"
+        blocks.append({
+            "ln1": _rms(state, f"{p}.layer.0.layer_norm", dt),
+            "q": _lin_nobias(state, f"{p}.layer.0.SelfAttention.q", dt),
+            "k": _lin_nobias(state, f"{p}.layer.0.SelfAttention.k", dt),
+            "v": _lin_nobias(state, f"{p}.layer.0.SelfAttention.v", dt),
+            "o": _lin_nobias(state, f"{p}.layer.0.SelfAttention.o", dt),
+            "ln2": _rms(state, f"{p}.layer.1.layer_norm", dt),
+            "wi_0": _lin_nobias(state, f"{p}.layer.1.DenseReluDense.wi_0", dt),
+            "wi_1": _lin_nobias(state, f"{p}.layer.1.DenseReluDense.wi_1", dt),
+            "wo": _lin_nobias(state, f"{p}.layer.1.DenseReluDense.wo", dt),
+        })
+    return {
+        "embed": _tensor(state["shared.weight"], dt),
+        "rel_bias": _tensor(state["encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"], dt),
+        "blocks": _stack(blocks),
+        "final_ln": _rms(state, "encoder.final_layer_norm", dt),
+    }
+
+
+def convert_clip(state: Dict[str, np.ndarray], cfg) -> Any:
+    """``openai/clip-vit-large-patch14`` text names -> ``init_clip``'s tree
+    (with ``text_proj`` where the checkpoint has ``text_projection``)."""
+    dt = cfg.dtype
+    tm = "text_model"
+    blocks = []
+    for i in range(cfg.num_layers):
+        p = f"{tm}.encoder.layers.{i}"
+        blocks.append({
+            "ln1": _norm(state, f"{p}.layer_norm1", dt),
+            "q": _lin(state, f"{p}.self_attn.q_proj", dt),
+            "k": _lin(state, f"{p}.self_attn.k_proj", dt),
+            "v": _lin(state, f"{p}.self_attn.v_proj", dt),
+            "o": _lin(state, f"{p}.self_attn.out_proj", dt),
+            "ln2": _norm(state, f"{p}.layer_norm2", dt),
+            "fc1": _lin(state, f"{p}.mlp.fc1", dt),
+            "fc2": _lin(state, f"{p}.mlp.fc2", dt),
+        })
+    params = {
+        "token_embed": _tensor(state[f"{tm}.embeddings.token_embedding.weight"], dt),
+        "pos_embed": _tensor(state[f"{tm}.embeddings.position_embedding.weight"], dt),
+        "blocks": _stack(blocks),
+        "final_ln": _norm(state, f"{tm}.final_layer_norm", dt),
+    }
+    if "text_projection.weight" in state:
+        params["text_proj"] = {"w": _tensor(state["text_projection.weight"].T, dt)}
+    return params
+
+
+def convert_pixart(state: Dict[str, np.ndarray], cfg) -> Any:
+    """diffusers ``PixArtTransformer2DModel`` names -> ``models/pixart.init_pixart``'s tree."""
+    dt = cfg.dtype
+    blocks = []
+    for i in range(cfg.depth):
+        p = f"transformer_blocks.{i}"
+        blocks.append({
+            "scale_shift_table": _tensor(state[f"{p}.scale_shift_table"], dt),
+            "attn_qkv": _fused_qkv(state, f"{p}.attn1.to_q", f"{p}.attn1.to_k", f"{p}.attn1.to_v", dt),
+            "attn_out": _lin(state, f"{p}.attn1.to_out.0", dt),
+            "cross_q": _lin(state, f"{p}.attn2.to_q", dt),
+            "cross_kv": _fused_kv(state, f"{p}.attn2.to_k", f"{p}.attn2.to_v", dt),
+            "cross_out": _lin(state, f"{p}.attn2.to_out.0", dt),
+            "ffn": {"fc1": _lin(state, f"{p}.ff.net.0.proj", dt), "fc2": _lin(state, f"{p}.ff.net.2", dt)},
+        })
+    return {
+        "patch_embed": _patch_conv_as_linear(state, "pos_embed.proj", dt),
+        "t_embed": _embedder(state, "adaln_single.emb.timestep_embedder", dt),
+        "adaln_single": _lin(state, "adaln_single.linear", dt),
+        "caption_fc1": _lin(state, "caption_projection.linear_1", dt),
+        "caption_fc2": _lin(state, "caption_projection.linear_2", dt),
+        "blocks": _stack(blocks),
+        "final_scale_shift": _tensor(state["scale_shift_table"], dt),
+        "proj_out": _lin(state, "proj_out", dt),
+    }
+
+
+def convert_vae_decoder(state: Dict[str, np.ndarray], cfg) -> Any:
+    """diffusers ``AutoencoderKL`` decoder names -> ``models/vae.init_vae_decoder``'s tree."""
+    dt = cfg.dtype
+
+    def resnet(p):
+        out = {"norm1": _norm(state, f"{p}.norm1", dt), "conv1": _conv(state, f"{p}.conv1", dt),
+               "norm2": _norm(state, f"{p}.norm2", dt), "conv2": _conv(state, f"{p}.conv2", dt)}
+        if f"{p}.conv_shortcut.weight" in state:
+            out["shortcut"] = _conv(state, f"{p}.conv_shortcut", dt)
+        return out
+
+    mid = "decoder.mid_block"
+    params = {
+        "post_quant_conv": _conv(state, "post_quant_conv", dt),
+        "conv_in": _conv(state, "decoder.conv_in", dt),
+        "mid_res1": resnet(f"{mid}.resnets.0"),
+        "mid_attn": {
+            "norm": _norm(state, f"{mid}.attentions.0.group_norm", dt),
+            "q": _lin(state, f"{mid}.attentions.0.to_q", dt),
+            "k": _lin(state, f"{mid}.attentions.0.to_k", dt),
+            "v": _lin(state, f"{mid}.attentions.0.to_v", dt),
+            "out": _lin(state, f"{mid}.attentions.0.to_out.0", dt),
+        },
+        "mid_res2": resnet(f"{mid}.resnets.1"),
+        "norm_out": _norm(state, "decoder.conv_norm_out", dt),
+        "conv_out": _conv(state, "decoder.conv_out", dt),
+    }
+    up = []
+    for i in range(len(cfg.block_out_channels)):
+        p = f"decoder.up_blocks.{i}"
+        blk = {"resnets": [resnet(f"{p}.resnets.{j}") for j in range(cfg.layers_per_block + 1)]}
+        if f"{p}.upsamplers.0.conv.weight" in state:
+            blk["upsample_conv"] = _conv(state, f"{p}.upsamplers.0.conv", dt)
+        up.append(blk)
+    params["up"] = up
     return params

@@ -42,6 +42,11 @@ def init_rmsnorm(dim: int, dtype=torch.bfloat16, device=None, stack=()):
     return {"g": torch.ones((*stack, dim), dtype=dtype, device=device)}
 
 
+def init_layernorm(dim: int, dtype=torch.bfloat16, device=None, stack=()):
+    return {"g": torch.ones((*stack, dim), dtype=dtype, device=device),
+            "b": torch.zeros((*stack, dim), dtype=dtype, device=device)}
+
+
 def init_timestep_embedder(generator, dim: int, hidden: int, dtype=torch.bfloat16):
     return {
         "fc1": init_linear(generator, dim, hidden, dtype=dtype),
@@ -62,15 +67,66 @@ def init_ffn(generator, dim: int, hidden: int, bias: bool = True,
 # ---------------------------------------------------------------------------
 
 
+def dequant_weight(p, dtype) -> torch.Tensor:
+    """A linear's weight: ``w``, or the int8 form of
+    :func:`quantize_params_int8` dequantized to ``dtype`` (int8 codes times
+    the fp32 per-output-channel scale, then one rounding to ``dtype``)."""
+    if "w_q" in p:
+        return (p["w_q"].float() * p["scale"]).to(dtype)
+    return p["w"]
+
+
+def weight_shape(p) -> torch.Size:
+    """The shape of a linear's weight in either form (``w`` or ``w_q``);
+    a stacked block's leading axis is its depth."""
+    return (p["w_q"] if "w_q" in p else p["w"]).shape
+
+
 def linear(p, x: torch.Tensor) -> torch.Tensor:
     """``x @ w + b`` with JAX dtype promotion (an fp32 input against bf16
-    weights computes in fp32, as ``jnp.matmul`` does)."""
-    w = p["w"]
-    dt = torch.promote_types(x.dtype, w.dtype)
-    y = x.to(dt) @ w.to(dt)
+    weights computes in fp32, as ``jnp.matmul`` does); an int8 weight is
+    dequantized to the input's dtype, as the JAX ``linear`` does."""
+    if "w_q" in p:
+        y = x @ dequant_weight(p, x.dtype)
+    else:
+        w = p["w"]
+        dt = torch.promote_types(x.dtype, w.dtype)
+        y = x.to(dt) @ w.to(dt)
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+def quantize_params_int8(params, keys=None):
+    """Per-output-channel symmetric int8 weight quantization of every linear
+    in the tree (``{"w", "b"?}`` -> ``{"w_q", "scale", "b"?}``), as the JAX
+    ``quantize_params_int8``: the scale is the largest magnitude over the
+    input axis (second to last, so stacked (L, in, out) weights get one per
+    layer and output channel) over 127, 1 where that is 0, and the codes
+    round half to even.  ``keys``: the top-level keys to quantize (the
+    block stacks); the rest passes through."""
+
+    def quant(w):
+        w32 = w.to(torch.float32, copy=True)  # divided in place below, never the caller's weight
+        scale = w32.abs().amax(dim=-2, keepdim=True) / 127.0
+        scale = torch.where(scale == 0.0, torch.ones_like(scale), scale)
+        # in place on the fp32 copy: one temporary the size of a stack
+        q = w32.div_(scale).round_().clamp_(-127, 127).to(torch.int8)
+        return {"w_q": q, "scale": scale}
+
+    def walk(p):
+        if isinstance(p, dict):
+            if "w" in p and getattr(p["w"], "ndim", 0) >= 2:
+                out = quant(p["w"])
+                if "b" in p:
+                    out["b"] = p["b"]
+                return out
+            return {k: walk(v) for k, v in p.items()}
+        return p
+
+    if keys is None:
+        return walk(params)
+    return {k: (walk(v) if k in set(keys) else v) for k, v in params.items()}
 
 
 def layernorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -122,7 +178,8 @@ def sinusoidal_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0,
 
 def timestep_embedder(p, t: torch.Tensor, dim: int) -> torch.Tensor:
     """sinusoidal -> MLP (the diffusers ``TimestepEmbedding`` shape)."""
-    emb = sinusoidal_embedding(t, dim).to(p["fc1"]["w"].dtype)
+    w1 = p["fc1"].get("w", p["fc1"].get("w_q"))
+    emb = sinusoidal_embedding(t, dim).to(torch.bfloat16 if w1.dtype == torch.int8 else w1.dtype)
     return linear(p["fc2"], silu(linear(p["fc1"], emb)))
 
 
@@ -251,6 +308,15 @@ def layer_strategies(attn, attn_state, depth: int):
     if len(layers) != depth:
         raise ValueError(f"layer segments cover {len(layers)} of {depth} blocks")
     return layers
+
+
+def to_device(tree, device):
+    """A tree (dicts, lists) of tensors moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)
 
 
 def has_tensors(tree) -> bool:

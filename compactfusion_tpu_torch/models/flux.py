@@ -180,7 +180,7 @@ def flux_double_scan(blocks, img, txt, temb, cfg: FluxConfig, *, img_rope, txt_r
     # checkpoint's interleaved Wq/Wk columns)
     cos_i, sin_i = cm.rope_half_tables(*img_rope)
     cos_t, sin_t = cm.rope_half_tables(*txt_rope)
-    depth = blocks["img_mod"]["w"].shape[0]
+    depth = cm.weight_shape(blocks["img_mod"])[0]
     for l, (layer_attn, seg_state, seg_l) in enumerate(cm.layer_strategies(attn, attn_state, depth)):
         p = cm.layer_of(blocks, l)
         i_sh_a, i_sc_a, i_g_a, i_sh_m, i_sc_m, i_g_m = _mod(p["img_mod"], temb, 6)
@@ -221,7 +221,7 @@ def flux_single_scan(blocks, img, txt, temb, cfg: FluxConfig, *, img_rope, txt_r
     cos_i, sin_i = cm.rope_half_tables(*img_rope)
     cos_t, sin_t = cm.rope_half_tables(*txt_rope)
     s_txt = txt.shape[1]
-    depth = blocks["mod"]["w"].shape[0]
+    depth = cm.weight_shape(blocks["mod"])[0]
 
     def qkv_and_norm(p, x):
         sh, sc, g = _mod(p["mod"], temb, 3)

@@ -107,7 +107,7 @@ def precompute_text_kv(params, text: torch.Tensor) -> torch.Tensor:
     block's ``cross_kv`` -> (L, B, S_text, 2*dim)."""
     text = cm.linear(params["caption_fc2"], cm.gelu(cm.linear(params["caption_fc1"], text)))
     kv = params["blocks"]["cross_kv"]
-    return torch.stack([cm.linear(cm.layer_of(kv, l), text) for l in range(kv["w"].shape[0])])
+    return torch.stack([cm.linear(cm.layer_of(kv, l), text) for l in range(cm.weight_shape(kv)[0])])
 
 
 def pixart_forward(

@@ -1,0 +1,471 @@
+"""One-call parallelization API + model registry
+(counterpart of ``compactfusion_tpu/parallel_api.py``).
+
+Reference: ``xDiTParallel`` (``xfuser/parallel.py:23-54``): look up the
+pipeline for a model name, build it, warm it up, run it, save per rank.
+The registry maps a model-name pattern to a builder; ``xDiTParallel`` binds
+this rank's device (``parallel/mesh.py::init_distributed_environment``:
+the GPU, or an error where none is visible, unless the caller asks for the
+CPU), builds the mesh from the ``EngineConfig``, loads a checkpoint or
+draws seeded random weights on that device, and runs prompts through the
+real text path (tokenizer -> T5/CLIP -> embeddings) into the pipeline.
+
+Ported families: PixArt-alpha 512 and FLUX.1 (dev, schnell), with their
+``-tiny`` test configs.  The other families of the JAX registry resolve by
+the same patterns and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import re
+import time
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from compactfusion_tpu_torch.cache.accel import FLUX_TEACACHE_POLY, CacheAccelConfig
+from compactfusion_tpu_torch.config import EngineConfig, InputConfig
+from compactfusion_tpu_torch.models import common as cm
+from compactfusion_tpu_torch.utils.logger import init_logger
+
+logger = init_logger(__name__)
+
+_FAMILIES_HINT = "ROADMAP.md Queue 1 #5 (the remaining families)"
+_VAE_HINT = "ROADMAP.md Queue 1 #7 (tiled or sliced VAE decode, PixArt-Sigma)"
+
+
+def _cache_cfg(engine: EngineConfig, family: str = "") -> CacheAccelConfig:
+    """``--use_fbcache`` / ``--use_teacache`` -> a cache config with the
+    reference's default thresholds; FLUX's TeaCache takes its fitted
+    degree-4 rescale polynomial."""
+    rt = engine.runtime_config
+    if rt.use_fbcache:
+        return CacheAccelConfig(mode="fbcache", threshold=0.12)
+    if rt.use_teacache:
+        poly = FLUX_TEACACHE_POLY if family == "flux" else (1.0, 0.0)
+        return CacheAccelConfig(mode="teacache", threshold=0.25, poly=poly)
+    return CacheAccelConfig()
+
+
+def classify_height_width_bin(height: int, width: int, base_px: int,
+                              align: Optional[int] = None) -> Tuple[int, int]:
+    """Snap a requested (height, width) to the nearest aspect-ratio bin:
+    area-preserving, ``align``-aligned pairs at the model's native area, the
+    closest aspect ratio wins (the JAX package's derived bins; native
+    squares map to themselves)."""
+    if align is None:
+        align = max(16, base_px // 16)
+    area = base_px * base_px
+    target = height / width
+    cands = set()
+    for a in range(align, 2 * base_px + 1, align):
+        b = int(round(area / a / align)) * align
+        if b >= align:
+            cands.add((a, b))
+            cands.add((b, a))
+    best, best_d = (base_px, base_px), abs(target - 1.0)
+    for h, w in sorted(cands):
+        d = abs(target - h / w)
+        if d < best_d - 1e-9:
+            best, best_d = (h, w), d
+    return best
+
+
+def resize_and_crop(images: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """(B, H, W, C) images: aspect-preserving bilinear resize, then a
+    center crop to (height, width), the output leg of resolution binning.
+    Bilinear with antialiasing on the way down, as ``jax.image.resize``."""
+    b, h, w, c = images.shape
+    if (h, w) == (height, width):
+        return images
+    r = max(height / h, width / w)
+    nh, nw = max(int(round(h * r)), height), max(int(round(w * r)), width)
+    out = F.interpolate(images.permute(0, 3, 1, 2).float(), size=(nh, nw), mode="bilinear",
+                        align_corners=False, antialias=True).permute(0, 2, 3, 1).to(images.dtype)
+    top, left = (nh - height) // 2, (nw - width) // 2
+    return out[:, top:top + height, left:left + width]
+
+
+def _bin_input(inp: InputConfig, base_px: int) -> InputConfig:
+    """Resolution binning of the request (PixArt family)."""
+    if not inp.use_resolution_binning:
+        return inp
+    bh, bw = classify_height_width_bin(inp.height, inp.width, base_px)
+    if (bh, bw) != (inp.height, inp.width):
+        logger.info("resolution binning: %dx%d -> %dx%d (native area %d^2)",
+                    inp.height, inp.width, bh, bw, base_px)
+        inp = dataclasses.replace(inp, height=bh, width=bw)
+    return inp
+
+
+@dataclasses.dataclass
+class _Family:
+    name: str
+    pattern: str
+    build: Callable[..., Any]
+
+
+_REGISTRY: Dict[str, _Family] = {}
+
+
+def register_family(name: str, pattern: str):
+    def deco(fn):
+        _REGISTRY[name] = _Family(name, pattern, fn)
+        return fn
+
+    return deco
+
+
+def resolve_family(model_name: str) -> _Family:
+    low = model_name.lower()
+    for fam in _REGISTRY.values():
+        if re.search(fam.pattern, low):
+            return fam
+    raise ValueError(f"no pipeline registered for model {model_name!r}; "
+                     f"known: {[f.pattern for f in _REGISTRY.values()]}")
+
+
+# ---------------------------------------------------------------------------
+# family builders (seeded random weights on the device; a checkpoint
+# directory loads the diffusers layout)
+# ---------------------------------------------------------------------------
+
+
+def _vae_opts(vcfg, engine: EngineConfig):
+    """The VAE decode memory knobs (``--enable_tiling`` /
+    ``--enable_slicing``) are not ported: they raise here, at build time."""
+    rc = engine.runtime_config
+    if rc.enable_tiling or rc.enable_slicing:
+        raise NotImplementedError(f"--enable_tiling / --enable_slicing: {_VAE_HINT}")
+    return vcfg
+
+
+def _mesh(engine: EngineConfig):
+    from compactfusion_tpu_torch.parallel.mesh import make_mesh
+
+    par = engine.parallel_config
+    return make_mesh(par) if par.world_size > 1 else None
+
+
+def _transformer_state(checkpoint: str):
+    from compactfusion_tpu_torch.io import hf
+
+    tdir = os.path.join(checkpoint, "transformer")
+    return hf.load_safetensors(tdir if os.path.isdir(tdir) else checkpoint)
+
+
+@register_family("pixart", r"pixart")
+def _build_pixart(engine: EngineConfig, inp: InputConfig, checkpoint: Optional[str] = None,
+                  device="cuda"):
+    from compactfusion_tpu_torch.io import hf
+    from compactfusion_tpu_torch.models.pixart import init_pixart, pixart_alpha_512, pixart_tiny
+    from compactfusion_tpu_torch.models.vae import init_vae_decoder, sd_vae, tiny_vae
+    from compactfusion_tpu_torch.pipelines.pixart import PixArtPipeline, PixArtPipelineConfig
+
+    name = engine.model_config.model.lower()
+    if "tiny" in name:  # smoke-test configs
+        mcfg, vcfg = pixart_tiny(), tiny_vae()
+    elif "2k" in name or "sigma" in name or inp.height > 512:
+        # the JAX package picks PixArt-Sigma 1024 or 2K here
+        raise NotImplementedError(f"PixArt-Sigma ({engine.model_config.model}, {inp.height} px): {_VAE_HINT}")
+    else:
+        mcfg, vcfg = pixart_alpha_512(), sd_vae()
+    # snap to the model's native-area aspect bin; __call__ resizes back
+    inp = _bin_input(inp, mcfg.sample_size * 8)
+    if checkpoint:
+        params = cm.to_device(hf.convert_pixart(_transformer_state(checkpoint), mcfg), device)
+        vae_params = _load_vae2d(checkpoint, vcfg, device)
+    else:
+        params = init_pixart(torch.Generator(device=device).manual_seed(0), mcfg)
+        vae_params = init_vae_decoder(torch.Generator(device=device).manual_seed(1), vcfg)
+    pcfg = PixArtPipelineConfig(
+        model=mcfg,
+        vae=_vae_opts(vcfg, engine),
+        parallel=engine.parallel_config,
+        compact=engine.compact_config,
+        cache=_cache_cfg(engine),
+        num_steps=inp.num_inference_steps,
+        guidance_scale=inp.guidance_scale,
+        height=inp.height,
+        width=inp.width,
+    )
+    return PixArtPipeline(params, vae_params, pcfg, device, mesh=_mesh(engine)), pcfg
+
+
+@register_family("flux", r"flux")
+def _build_flux(engine: EngineConfig, inp: InputConfig, checkpoint: Optional[str] = None,
+                device="cuda"):
+    from compactfusion_tpu_torch.io import hf
+    from compactfusion_tpu_torch.models.flux import flux_dev, flux_schnell, flux_tiny, init_flux
+    from compactfusion_tpu_torch.models.vae import flux_vae, tiny_vae
+    from compactfusion_tpu_torch.pipelines.flux import FluxPipeline, FluxPipelineConfig
+
+    name = engine.model_config.model.lower()
+    if "tiny" in name:
+        mcfg = flux_tiny()
+        # FLUX packs 2x2 latent patches: VAE latents = in_channels // 4
+        vcfg = dataclasses.replace(tiny_vae(), latent_channels=mcfg.in_channels // 4)
+    else:
+        mcfg = flux_schnell() if "schnell" in name else flux_dev()
+        vcfg = flux_vae()
+    if checkpoint:
+        params = cm.to_device(hf.convert_flux(_transformer_state(checkpoint), mcfg), device)
+    else:
+        params = init_flux(torch.Generator(device=device).manual_seed(0), mcfg)
+    pcfg = FluxPipelineConfig(
+        model=mcfg,
+        vae=_vae_opts(vcfg, engine),
+        parallel=engine.parallel_config,
+        compact=engine.compact_config,
+        cache=_cache_cfg(engine, family="flux"),
+        num_steps=inp.num_inference_steps,
+        guidance_scale=inp.guidance_scale,
+        height=inp.height,
+        width=inp.width,
+    )
+    vae_params = _load_vae2d(checkpoint, vcfg, device)
+    return FluxPipeline(params, vae_params, pcfg, device, mesh=_mesh(engine)), pcfg
+
+
+def _unported(name: str, pattern: str):
+    def build(engine: EngineConfig, inp: InputConfig, checkpoint: Optional[str] = None, device="cuda"):
+        raise NotImplementedError(f"the {name} family ({engine.model_config.model}) is not ported: "
+                                  f"{_FAMILIES_HINT}")
+
+    register_family(name, pattern)(build)
+
+
+# the JAX registry's other families, in its order and with its patterns
+for _name, _pattern in (("sd3", r"stable-diffusion-3|sd3"), ("cogvideox", r"cogvideo"), ("latte", r"latte"),
+                        ("hunyuanvideo", r"hunyuanvideo"), ("consisid", r"consisid"),
+                        ("stepvideo", r"step[-_]?video"), ("hunyuandit", r"hunyuan(?!.?video)")):
+    _unported(_name, _pattern)
+
+
+def _load_vae2d(checkpoint: Optional[str], vcfg, device):
+    """2D image-VAE decoder params: the checkpoint's ``vae/`` subdir, or
+    seeded random weights (seed 11, as the JAX ``_load_vae2d``).
+    FLUX-era AutoencoderKL checkpoints drop ``post_quant_conv``: an identity
+    1x1 conv stands in, so the decoder math is shared."""
+    from compactfusion_tpu_torch.io import hf
+    from compactfusion_tpu_torch.models.vae import init_vae_decoder
+
+    if checkpoint:
+        vae_dir = os.path.join(checkpoint, "vae")
+        if os.path.isdir(vae_dir):
+            state = hf.load_safetensors(vae_dir)
+            if "post_quant_conv.weight" not in state:
+                c = vcfg.latent_channels
+                state["post_quant_conv.weight"] = np.eye(c, dtype=np.float32).reshape(c, c, 1, 1)
+                state["post_quant_conv.bias"] = np.zeros(c, np.float32)
+            return cm.to_device(hf.convert_vae_decoder(state, vcfg), device)
+    return init_vae_decoder(torch.Generator(device=device).manual_seed(11), vcfg)
+
+
+class xDiTParallel:
+    """One-call parallel runner (reference ``xfuser/parallel.py:23-54``).
+
+    ``xDiTParallel(engine_config, input_config, checkpoint=None,
+    device="cuda")``: with ``parallel_config.world_size > 1`` every rank of
+    a ``torchrun`` (or an initialised process group) builds one.  Prompts go
+    through the real text path (``models/prompt.py``): with a checkpoint
+    directory its tokenizers and encoders, without one byte-level
+    tokenizers over seeded random weights.  Random weights are drawn on the
+    bound device from ``torch.Generator``s seeded 0 (backbone), 1 (PixArt's
+    VAE; FLUX's 11, as ``_load_vae2d``) and 7 (the prompt encoder), as the
+    JAX builders seed ``PRNGKey``s: other draws, the same trees.
+    """
+
+    def __init__(self, engine_config: EngineConfig, input_config: InputConfig,
+                 checkpoint: Optional[str] = None, device: str = "cuda"):
+        from compactfusion_tpu_torch import ROADMAP_HINT
+        from compactfusion_tpu_torch.parallel.mesh import init_distributed_environment
+
+        self.engine_config = engine_config
+        self.input_config = input_config
+        if input_config.num_frames > 1 or input_config.img_file_path:
+            raise NotImplementedError(f"video output (num_frames={input_config.num_frames}) and identity "
+                                      f"images (img_file_path): {ROADMAP_HINT}")
+        # binds cuda:<local_rank> or raises where no GPU is visible; joins
+        # the torchrun process group when WORLD_SIZE > 1
+        self.device = init_distributed_environment("nccl" if device == "cuda" else "gloo", device)
+        fam = resolve_family(engine_config.model_config.model)
+        logger.info("building %s pipeline on %s (world size %d)", fam.name, self.device,
+                    engine_config.parallel_config.world_size)
+        self.family = fam.name
+        self.pipeline, self.pipeline_config = fam.build(engine_config, input_config, checkpoint, self.device)
+        if engine_config.runtime_config.quantize_backbone:
+            self._quantize_backbone_int8()
+        self.prompt_encoder = self._build_prompt_encoder(checkpoint)
+        if engine_config.fast_attn_config.use_fast_attn:
+            self._apply_fast_attn(engine_config.fast_attn_config)
+
+    def _apply_fast_attn(self, fa, latents: Optional[torch.Tensor] = None):
+        """DiTFastAttn: calibrate on captions -> a per-(step, layer) method
+        plan -> a JSON cache -> run with the plan.  PixArt family, sp/pp
+        degree 1 and compression off (else a warning and no plan, as in
+        JAX).  The calibration noise is ``latents`` when given, else drawn
+        from the request seed.  The cache file is
+        ``.cftpu_fastattn_torch_<model>_<steps>s_<depth>l_w<window>_t<threshold>.json``:
+        the JAX package's name with ``torch_``, so a plan the JAX package
+        calibrated is never read here."""
+        from compactfusion_tpu_torch.cache.fast_attn import calibrate_pixart, load_plan, save_plan
+        from compactfusion_tpu_torch.pipelines.pixart import PixArtPipeline
+
+        if self.family != "pixart":
+            logger.warning("use_fast_attn: only the PixArt family is wired; ignoring")
+            return
+        pcfg = self.pipeline_config
+        if pcfg.parallel.sp_degree > 1 or pcfg.parallel.pp_degree > 1 or pcfg.compact.enabled:
+            logger.warning("use_fast_attn needs sp/pp degree 1 and compression off; ignoring")
+            return
+        mcfg = pcfg.model
+        model_tag = re.sub(r"[^A-Za-z0-9._-]", "_", self.engine_config.model_config.model)
+        cache_path = (f".cftpu_fastattn_torch_{model_tag}_{pcfg.num_steps}s_{mcfg.depth}l"
+                      f"_w{fa.window_size}_t{fa.threshold:g}.json")
+        plan = None
+        if fa.use_cache and os.path.exists(cache_path):
+            plan = load_plan(cache_path)
+            if plan.shape != (pcfg.num_steps, mcfg.depth):
+                plan = None  # a cache of another config
+        if plan is None:
+            # calibration captions: the COCO file when given, else the request's prompts
+            prompts = list(self.input_config.prompt)
+            if fa.coco_path and os.path.exists(fa.coco_path):
+                with open(fa.coco_path) as f:
+                    anno = json.load(f)
+                n = max(fa.n_calib, 1)
+                if isinstance(anno, list):
+                    prompts = [str(c) for c in anno[:n]]
+                else:
+                    prompts = [d["caption"] for d in anno["annotations"][:n]]
+            txt, mask = self.prompt_encoder.encode_for_pixart(
+                prompts, [""] * len(prompts), max_length=self.input_config.max_sequence_length)
+            cal_cfg = dataclasses.replace(pcfg, fast_attn_window=fa.window_size)
+            logger.info("DiTFastAttn: calibrating %d steps x %d layers", pcfg.num_steps, mcfg.depth)
+            gen = torch.Generator(device=self.device).manual_seed(self.input_config.seed)
+            plan = calibrate_pixart(self.pipeline.params, cal_cfg, txt, mask, generator=gen,
+                                    threshold=fa.threshold, latents=latents)
+            if fa.use_cache:
+                save_plan(plan, cache_path)
+        self.pipeline_config = dataclasses.replace(
+            pcfg, fast_attn_plan=tuple(tuple(int(m) for m in row) for row in plan),
+            fast_attn_window=fa.window_size)
+        self.pipeline = PixArtPipeline(self.pipeline.params, self.pipeline.vae_params, self.pipeline_config,
+                                       self.device, mesh=self.pipeline.mesh)
+
+    #: the per-layer block stacks that ``--quantize_backbone_int8`` quantizes
+    #: (embedders and heads stay in the model dtype)
+    _INT8_BLOCK_KEYS = {"pixart": ("blocks",), "flux": ("double_blocks", "single_blocks")}
+
+    def _quantize_backbone_int8(self):
+        """``--quantize_backbone_int8``: int8 weights for the block stacks
+        (``cm.quantize_params_int8``; each matmul reads its weight
+        dequantized to the activation dtype)."""
+        par = self.engine_config.parallel_config
+        assert par.tp_degree == 1 and par.pp_degree == 1, (
+            "--quantize_backbone_int8 composes with dp/cfg/SP (weights replicated), not tp/pp")
+        keys = self._INT8_BLOCK_KEYS[self.family]
+        self.pipeline.params = cm.quantize_params_int8(self.pipeline.params, keys=keys)
+        logger.info("backbone block stacks %s quantized to int8", ", ".join(keys))
+
+    def _build_prompt_encoder(self, checkpoint: Optional[str]):
+        enc = self._make_prompt_encoder(checkpoint)
+        if self.engine_config.runtime_config.quantize_t5 and enc.t5 is not None:
+            # --use_int8_t5_encoder / --use_fp8_t5_encoder
+            from compactfusion_tpu_torch.models.text_encoders import quantize_t5_int8
+
+            enc.t5.params = quantize_t5_int8(enc.t5.params)
+            logger.info("T5 encoder weights quantized to int8")
+        return enc
+
+    def _make_prompt_encoder(self, checkpoint: Optional[str]):
+        from compactfusion_tpu_torch.models.prompt import PromptEncoder
+
+        mcfg = self.pipeline_config.model
+        if checkpoint and any(os.path.isdir(os.path.join(checkpoint, d)) for d in ("tokenizer", "tokenizer_2")):
+            from compactfusion_tpu_torch.models.text_encoders import clip_l, t5_xxl
+
+            if self.family == "flux":
+                return PromptEncoder.from_pretrained(checkpoint, t5_cfg=t5_xxl(), clip_l_cfg=clip_l(),
+                                                     device=self.device)
+            return PromptEncoder.from_pretrained(checkpoint, t5_cfg=t5_xxl(), device=self.device)
+        gen = torch.Generator(device=self.device).manual_seed(7)
+        if self.family == "flux":
+            return PromptEncoder.random(gen, text_dim=mcfg.text_dim, pooled_dim=mcfg.pooled_dim)
+        return PromptEncoder.random(gen, text_dim=mcfg.text_dim)
+
+    def prepare_run(self, generator: Optional[torch.Generator] = None):
+        """Warm-up call (reference ``pipe.prepare_run``): one generation,
+        waited for, before serving traffic."""
+        t0 = time.perf_counter()
+        self(generator=generator)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        logger.info("prepare_run: warmed up in %.1f s", time.perf_counter() - t0)
+        return self
+
+    def __call__(self, generator: Optional[torch.Generator] = None, decode: Optional[bool] = None,
+                 latents: Optional[torch.Tensor] = None):
+        """Run the request in ``input_config``: images (B, H, W, 3) in [0, 1],
+        or the final latents with ``output_type="latent"`` or ``decode=False``.
+        Noise: ``latents`` when given, else drawn from ``generator``
+        (default: one seeded with ``input_config.seed`` on the device)."""
+        if self.engine_config.runtime_config.use_profiler:
+            from compactfusion_tpu_torch.utils.prof import Profiler
+
+            with Profiler.scope("total"):
+                out = self._generate(generator, decode, latents)
+            logger.info("profiler summary:\n%s", Profiler.summary())
+            return out
+        return self._generate(generator, decode, latents)
+
+    def _generate(self, generator=None, decode=None, latents=None):
+        inp = self.input_config
+        if decode is None:
+            decode = inp.output_type != "latent"
+        if generator is None and latents is None:
+            generator = torch.Generator(device=self.device).manual_seed(inp.seed)
+        prompts = list(inp.prompt)
+        negative = list(inp.negative_prompt) * (len(prompts) if len(inp.negative_prompt) == 1 else 1)
+        seq = inp.max_sequence_length
+        enc = self.prompt_encoder
+        if self.family == "flux":
+            txt, pooled = enc.encode_for_flux(prompts, max_length=seq)
+            return self.pipeline(txt, pooled, generator=generator, latents=latents, decode=decode)
+        txt, mask = enc.encode_for_pixart(prompts, negative, max_length=seq)
+        out = self.pipeline(txt, mask, generator=generator, latents=latents, decode=decode)
+        pcfg = self.pipeline_config
+        if decode and (pcfg.height, pcfg.width) != (inp.height, inp.width):
+            # binning changed the generation size: resize back to the request
+            out = resize_and_crop(out, inp.height, inp.width)
+        return out
+
+    def save(self, directory: str, prefix: str = "cftpu", out=None):
+        """Write outputs of this rank (reference ``xDiTParallel.save``):
+        images as PNG, one per batch element (``utils/image.py``, no PIL);
+        latents as ``.npy``.  ``out``: an already generated result."""
+        import torch.distributed as dist
+
+        from compactfusion_tpu_torch.utils.image import to_uint8, write_png
+
+        os.makedirs(directory, exist_ok=True)
+        out = self() if out is None else out
+        arr = out.float().cpu().numpy() if isinstance(out, torch.Tensor) else np.asarray(out, np.float32)
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        if arr.ndim == 4 and arr.shape[-1] == 3:  # (B, H, W, 3) in [0, 1]
+            img8 = to_uint8(arr)
+            paths = []
+            for i in range(img8.shape[0]):
+                path = os.path.join(directory, f"{prefix}_rank{rank}_{i}.png")
+                write_png(path, img8[i])
+                paths.append(path)
+            return paths[0] if len(paths) == 1 else paths
+        path = os.path.join(directory, f"{prefix}_rank{rank}.npy")
+        np.save(path, arr)
+        return path

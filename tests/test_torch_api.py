@@ -1,0 +1,368 @@
+"""The port's entry points against the JAX package's: ``xFuserArgs`` ->
+``create_config``, resolution binning, ``resize_and_crop``, the registry,
+the ``xDiTParallel`` runner, ``save``, the HTTP service and the int8 and
+DiTFastAttn switches.
+
+The tiny runners (64 x 64, 3 steps, ``max_sequence_length`` 8) take the
+JAX runner's weights (backbone, VAE, text encoders) across in fp32 and the
+JAX runner's noise as ``latents=``: latents and images within 2e-4, the
+fp32 bound of tests/io/test_backbone_parity.py.  Ring 2 runs in 2 gloo
+processes against JAX's 2-device CPU mesh; the compressed run within a
+tenth of JAX's own distance from its lossless latents, as
+tests/test_torch_pipeline_ring.py holds the pipeline.
+"""
+
+import base64
+import dataclasses
+import io
+import json
+import threading
+import urllib.error
+import urllib.request
+from http.server import ThreadingHTTPServer
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from compactfusion_tpu import args as jargs
+from compactfusion_tpu import parallel_api as japi
+from compactfusion_tpu_torch import args as targs
+from compactfusion_tpu_torch import parallel_api as tapi
+from compactfusion_tpu_torch.config import CompressType
+from compactfusion_tpu_torch.entrypoints.launch import Engine, make_handler
+from compactfusion_tpu_torch.parallel import mesh as tmesh
+from compactfusion_tpu_torch.utils.image import read_png, to_uint8
+from tests.helpers import rel_err, spice_params
+from tests.test_torch_rank_fns import port_runner, runner_latents
+
+BOUND = 2e-4
+TINY = ["--height", "64", "--width", "64", "--num_inference_steps", "3", "--max_sequence_length", "8",
+        "--prompt", "a cat", "--seed", "5"]
+PIXART = ["--model", "pixart-tiny"] + TINY
+FLUX = ["--model", "flux-tiny"] + TINY
+
+
+def _config(mod, argv):
+    parser = mod.FlexibleArgumentParser()
+    mod.xFuserArgs.add_cli_args(parser)
+    return mod.xFuserArgs.from_cli_args(parser.parse_args(argv)).create_config()
+
+
+def _plain(obj):
+    """A config tree as nested plain values (enums by value) to compare."""
+    if dataclasses.is_dataclass(obj):
+        return {f.name: _plain(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+    return getattr(obj, "value", obj)
+
+
+# tests/core/test_args.py's argument lists, plus the ignored flags
+ARGVS = {
+    "reference-style": ["--model", "black-forest-labs/FLUX.1-dev", "--ulysses_degree", "2", "--ring_degree", "2",
+                        "--height", "1024", "--width=1024", "--num-inference-steps", "28",
+                        "--prompt", "a photo of a cat"],
+    "cfg-compact": ["--use_cfg_parallel", "--compact", "--compact_type", "int2", "--compact_warmup_steps", "3"],
+    "world-size": ["--ulysses_degree", "2", "--ring_degree", "2", "--use_cfg_parallel"],
+    "ignored-flags": ["--use_ray", "--use_onediff", "--enable_model_cpu_offload", "--enable_sequential_cpu_offload",
+                      "--use_torch_compile", "--use_cuda_graph", "--attn_layer_num_for_pp", "2", "2",
+                      "--ray_world_size", "4", "--dit_parallel_size", "2"],
+    "int8-and-fast-attn": ["--use_int8_t5_encoder", "--quantize_backbone_int8", "--use_fast_attn", "--threshold",
+                           "0.35", "--window_size", "4", "--n_calib", "3", "--use_cache"],
+    "fp8-t5-and-caches": ["--use_fp8_t5_encoder", "--use_fbcache", "--use_teacache", "--output_type", "latent",
+                          "--no_use_resolution_binning", "--negative_prompt", "blurry", "ugly"],
+    "compact-patch": ["--compact", "--compact_type", "low-rank", "--compact_rank", "4", "--compact_patch_gather",
+                      "--compact_patch_async", "--compact_residual", "2", "--use_fused_ring",
+                      "--data_parallel_degree", "2", "--prompt", "a", "b"],
+}
+
+
+@pytest.mark.parametrize("name", list(ARGVS))
+def test_create_config_matches_jax(name):
+    argv = ARGVS[name]
+    (je, ji), (te, ti) = _config(jargs, argv), _config(targs, argv)
+    assert _plain(te) == _plain(je)
+    assert _plain(ti) == _plain(ji)
+    assert te.parallel_config.world_size == je.parallel_config.world_size
+    if name == "cfg-compact":
+        assert te.compact_config.compress_type is CompressType.INT2
+
+
+def test_resolution_bins_match_jax():
+    for base in (64, 512, 1024):
+        for h in range(48, 2 * base + 1, max(8, base // 16)):
+            for w in (base // 2, base - 24, base, base + 40, 2 * base):
+                assert tapi.classify_height_width_bin(h, w, base) == japi.classify_height_width_bin(h, w, base)
+
+
+@pytest.mark.parametrize("size", [(37, 53), (16, 16), (100, 64), (48, 96)])
+def test_resize_and_crop_matches_jax(size):
+    x = np.random.default_rng(2).random((2, 24, 32, 3)).astype(np.float32)
+    want = np.asarray(japi.resize_and_crop(jnp.asarray(x), *size))
+    got = tapi.resize_and_crop(torch.from_numpy(x), *size).numpy()
+    assert got.shape == want.shape == (2, *size, 3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+NAMES = ["PixArt-alpha/PixArt-XL-2-512x512", "pixart-tiny", "black-forest-labs/FLUX.1-dev", "FLUX.1-schnell",
+         "flux-tiny", "stabilityai/stable-diffusion-3-medium", "sd3-tiny", "THUDM/CogVideoX-2b", "cogvideox1.5-tiny",
+         "maxin-cn/Latte-1", "tencent/HunyuanVideo", "BestWishYsh/ConsisID-preview", "stepfun-ai/stepvideo-t2v",
+         "step_video", "Tencent-Hunyuan/HunyuanDiT-v1.2", "hunyuanvideo-tiny", "hunyuandit-tiny"]
+
+
+def test_registry_resolves_every_name_jax_resolves():
+    assert [(f.name, f.pattern) for f in tapi._REGISTRY.values()] == \
+        [(f.name, f.pattern) for f in japi._REGISTRY.values()]
+    for name in NAMES:
+        assert tapi.resolve_family(name).name == japi.resolve_family(name).name, name
+    for mod in (tapi, japi):
+        with pytest.raises(ValueError, match="no pipeline registered"):
+            mod.resolve_family("stable-cascade")
+    engine, inp = _config(targs, ["--model", "sd3-tiny"])
+    for name in ("sd3", "cogvideox", "latte", "hunyuanvideo", "consisid", "stepvideo", "hunyuandit"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tapi._REGISTRY[name].build(engine, inp, None, "cpu")
+    # PixArt-Sigma and the VAE memory knobs wait on the same item
+    for argv in (["--model", "PixArt-alpha/PixArt-Sigma-XL-2-1024-MS"], ["--model", "pixart", "--height", "1024"],
+                 PIXART + ["--enable_tiling"], PIXART + ["--enable_slicing"]):
+        e, i = _config(targs, argv)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tapi.xDiTParallel(e, i, device="cpu")
+    for argv in (PIXART + ["--num_frames", "5"], PIXART + ["--img_file_path", "x.png"]):
+        with pytest.raises(NotImplementedError):
+            tapi.xDiTParallel(*_config(targs, argv), device="cpu")
+    # no CPU path unless the caller asks for it
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tapi.xDiTParallel(*_config(targs, PIXART))
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _f32(tree):
+    return jax.tree_util.tree_map(lambda a: a.astype(jnp.float32) if jnp.issubdtype(a.dtype, jnp.floating) else a,
+                                  tree)
+
+
+def jax_runner(argv, spice=False):
+    """The JAX runner from a command line, moved to fp32 (backbone, VAE and
+    text encoders; int8 codes stay int8), and its weights as numpy trees."""
+    e, i = _config(jargs, argv)
+    jr = japi.xDiTParallel(e, i)
+    pcfg = jr.pipeline_config
+    cfg = dataclasses.replace(pcfg, model=dataclasses.replace(pcfg.model, dtype=jnp.float32),
+                              vae=dataclasses.replace(pcfg.vae, dtype=jnp.float32))
+    params = _f32(jr.pipeline.params)
+    if spice:
+        params = spice_params(params)
+    jr.pipeline = type(jr.pipeline)(params, _f32(jr.pipeline.vae_params), cfg, jr.pipeline.mesh)
+    jr.pipeline_config = cfg
+    enc = jr.prompt_encoder
+    weights = {"params": _np(params), "vae": _np(jr.pipeline.vae_params)}
+    for name in ("t5", "clip_l"):
+        bundle = getattr(enc, name)
+        if bundle is not None:
+            bundle.params = _f32(bundle.params)
+            bundle.cfg = dataclasses.replace(bundle.cfg, dtype=jnp.float32)
+            weights[name] = _np(bundle.params)
+    enc._jit_t5, enc._jit_clip = None, {}
+    return jr, weights
+
+
+def jax_noise(jr):
+    """The noise the JAX runner draws from the request seed."""
+    cfg, inp = jr.pipeline_config, jr.input_config
+    m = cfg.model
+    width = m.in_channels if jr.family == "flux" else m.patch * m.patch * m.in_channels
+    return np.array(jax.random.normal(jax.random.PRNGKey(inp.seed), (len(inp.prompt), cfg.tokens, width),
+                                      jnp.float32))
+
+
+@pytest.fixture(scope="module")
+def jax_pixart():
+    return jax_runner(PIXART)
+
+
+@pytest.mark.parametrize("family", ["pixart", "flux", "pixart-int8", "flux-int8"])
+def test_tiny_runner_matches_jax(family, jax_pixart):
+    argv = {"pixart": PIXART, "flux": FLUX}[family.split("-")[0]]
+    if family.endswith("int8"):
+        argv = argv + ["--quantize_backbone_int8"]
+    jr, weights = jax_pixart if family == "pixart" else jax_runner(argv)
+    tr = port_runner(argv, weights)
+    if family.endswith("int8"):
+        blocks, key = ("blocks", "attn_qkv") if family.startswith("pixart") else ("double_blocks", "img_qkv")
+        assert tr.pipeline.params[blocks][key]["w_q"].dtype == torch.int8
+    noise = torch.from_numpy(jax_noise(jr))
+    jlat, jimg = np.asarray(jr(decode=False)), np.asarray(jr())
+    lat = tr(latents=noise, decode=False)
+    img = tr(latents=noise)
+    assert lat.shape == jlat.shape and img.shape == jimg.shape == (1, 16, 16, 3)
+    assert rel_err(lat.numpy(), jlat) < BOUND
+    assert rel_err(img.numpy(), jimg) < BOUND
+    # the generator path: the request seed, the same image twice
+    assert torch.equal(tr(), tr())
+
+
+def test_output_type_latent_prepare_run_and_save(tmp_path):
+    runner = port_runner(PIXART + ["--output_type", "latent", "--prompt", "a cat", "a dog"])
+    lat = runner.prepare_run()()
+    assert lat.shape == (2, 16, 16) and torch.isfinite(lat).all()
+    assert runner.save(str(tmp_path), out=lat).endswith("cftpu_rank0.npy")
+    np.testing.assert_array_equal(np.load(tmp_path / "cftpu_rank0.npy"), lat.numpy())
+    runner.input_config = dataclasses.replace(runner.input_config, output_type="pil")
+    img = runner()
+    paths = runner.save(str(tmp_path), prefix="img", out=img)
+    assert [p.rsplit("/", 1)[1] for p in paths] == ["img_rank0_0.png", "img_rank0_1.png"]
+    want = to_uint8(img.float().numpy())
+    for i, p in enumerate(paths):
+        np.testing.assert_array_equal(np.asarray(Image.open(p).convert("RGB")), want[i])
+        with open(p, "rb") as f:
+            np.testing.assert_array_equal(read_png(f.read()), want[i])
+
+
+def _http(url, payload=None):
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def test_http_service(tmp_path):
+    parser = targs.FlexibleArgumentParser()
+    targs.xFuserArgs.add_cli_args(parser)
+    engine = Engine(targs.xFuserArgs.from_cli_args(parser.parse_args(PIXART)), serve_batch=2, device="cpu")
+    engine.batch_window_s = 1.0
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(engine))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        assert engine.batch_size == 2
+        assert _http(base + "/health") == (200, {"status": "ok"})
+        code, r = _http(base + "/generate", {"prompt": "a red cube", "seed": 3, "height": 999,
+                                             "num_inference_steps": 50})
+        assert code == 200 and r["media_type"] == "image/png" and r["shape"] == [1, 16, 16, 3]
+        assert r["ignored_fields"] == ["height", "num_inference_steps"] and r["latency_s"] >= 0
+        png = base64.b64decode(r["images"][0])
+        assert np.asarray(Image.open(io.BytesIO(png))).shape == (16, 16, 3)
+        assert _http(base + "/generate", {"prompt": "a red cube", "seed": 3})[1]["images"] == r["images"]
+        code, r = _http(base + "/generate", {"prompt": "a cat", "save_disk_path": str(tmp_path / "out")})
+        assert code == 200 and r["save_to_disk"] and "ignored_fields" not in r
+        with open(r["output"], "rb") as f:
+            assert read_png(f.read()).shape == (16, 16, 3)
+        # 4 concurrent clients at serve_batch 2: packed 2 to a call
+        before = dict(engine.stats)
+        results = [None] * 4
+        barrier = threading.Barrier(4)
+
+        def client(i):
+            barrier.wait()
+            results[i] = _http(base + "/generate", {"prompt": f"prompt {i}", "seed": 7})
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert all(code == 200 and len(r["images"]) == 1 for code, r in results)
+        assert engine.stats["max_packed"] == 2
+        assert engine.stats["batches"] - before["batches"] < 4
+        assert engine.stats["requests"] - before["requests"] == 4
+        assert _http(base + "/stats")[1]["batch_size"] == 2
+        assert _http(base + "/nothing")[0] == 404
+
+        def dead():
+            raise RuntimeError("device lost")
+
+        engine._device_probe, engine._health_max_age_s = dead, 0.0
+        assert _http(base + "/health")[0] == 503
+    finally:
+        server.shutdown()
+        engine.close()
+
+
+def test_int8_switches_within_jax_bounds():
+    ref = port_runner(PIXART)
+    q = port_runner(PIXART + ["--quantize_backbone_int8", "--use_int8_t5_encoder"])
+    assert q.pipeline.params["blocks"]["attn_qkv"]["w_q"].dtype == torch.int8
+    # zero AdaLN gates hide the blocks: spice the tables, then quantize as the flag does
+    rng = np.random.default_rng(9)
+    blocks = ref.pipeline.params["blocks"]
+    blocks["scale_shift_table"] = torch.from_numpy(
+        rng.standard_normal(tuple(blocks["scale_shift_table"].shape)) * 0.5).to(torch.bfloat16)
+    q.pipeline.params = dict(ref.pipeline.params)
+    q._quantize_backbone_int8()
+    assert q.prompt_encoder.t5.params["embed_q"].dtype == torch.int8
+    # tests/core/test_parallel_api.py: int8 backbone latents within 0.1
+    out, want = q(decode=False), ref(decode=False)
+    assert torch.isfinite(out).all() and 0.0 < rel_err(out.numpy(), want.numpy()) < 0.1
+    # tests/io/test_t5_int8.py: close to the full weights, and not them
+    a = q.prompt_encoder.encode_t5(["a photo of a cat"], 16)[0].numpy()
+    b = ref.prompt_encoder.encode_t5(["a photo of a cat"], 16)[0].numpy()
+    assert 1e-6 < rel_err(a, b) < 0.05
+
+
+def test_fast_attn_plan_matches_jax(jax_pixart, tmp_path, monkeypatch):
+    from compactfusion_tpu.config import FastAttnConfig as JFast
+    from compactfusion_tpu_torch.config import FastAttnConfig
+
+    jr, weights = jax_pixart
+    kw = dict(use_fast_attn=True, threshold=0.35, window_size=4)
+    plain = jr.pipeline, jr.pipeline_config
+    jr._apply_fast_attn(JFast(**kw))
+    jplan, jlat = jr.pipeline_config.fast_attn_plan, np.asarray(jr(decode=False))
+    jr.pipeline, jr.pipeline_config = plain
+    tr = port_runner(PIXART, weights)
+    monkeypatch.chdir(tmp_path)
+    tr._apply_fast_attn(FastAttnConfig(use_cache=True, **kw), latents=torch.from_numpy(jax_noise(jr)))
+    assert tr.pipeline_config.fast_attn_plan == jplan
+    plan = np.asarray(tr.pipeline_config.fast_attn_plan)
+    assert plan.shape == (3, 2) and (plan != 0).any()
+    cached = tmp_path / ".cftpu_fastattn_torch_pixart-tiny_3s_2l_w4_t0.35.json"
+    assert json.loads(cached.read_text()) == plan.tolist()
+    assert tr.pipeline.cfg.fast_attn_window == 4
+    noise = torch.from_numpy(jax_noise(jr))
+    assert rel_err(tr(latents=noise, decode=False).numpy(), jlat) < BOUND
+
+
+def test_ring2_runner_matches_jax_cpu_mesh():
+    ring = PIXART + ["--ring_degree", "2"]
+    binary = ring + ["--compact", "--compact_type", "binary", "--compact_warmup_steps", "1"]
+    jl, weights = jax_runner(ring, spice=True)
+    jb, _ = jax_runner(binary, spice=True)
+    jb.pipeline = type(jb.pipeline)(jl.pipeline.params, jl.pipeline.vae_params, jb.pipeline_config,
+                                    jb.pipeline.mesh)
+    noise = jax_noise(jl)
+    want_l, want_b = np.asarray(jl(decode=False)), np.asarray(jb(decode=False))
+    ranks = tmesh.spawn_local(runner_latents, 2, "gloo", [("lossless", ring), ("binary", binary)], weights, noise,
+                              threads=1, timeout=300)
+    for r in ranks:
+        assert rel_err(r["lossless"]["latents"], want_l) < BOUND
+        jax_err = rel_err(want_b, want_l)
+        assert jax_err > 0 and rel_err(r["binary"]["latents"], want_b) < 0.1 * jax_err
+    np.testing.assert_array_equal(ranks[0]["binary"]["latents"], ranks[1]["binary"]["latents"])
+    assert ranks[0]["binary"]["wire_bytes"] < ranks[0]["lossless"]["wire_bytes"]
+
+
+def test_png_writer_against_pil_and_to_uint8_against_jax():
+    from compactfusion_tpu.utils.image import to_uint8 as jto_uint8
+    from compactfusion_tpu_torch.utils.image import png_bytes
+
+    x = np.random.default_rng(4).random((3, 9, 7, 3)).astype(np.float32) * 1.2 - 0.1
+    x[0, 0, 0] = [0.5 / 255, 254.5 / 255, 1.0]
+    np.testing.assert_array_equal(to_uint8(x), jto_uint8(x))
+    img8 = to_uint8(x)[1]
+    np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(png_bytes(img8)))), img8)
+    np.testing.assert_array_equal(read_png(png_bytes(img8)), img8)
+    buf = io.BytesIO()
+    Image.fromarray(np.tile(np.arange(9, dtype=np.uint8)[:, None, None], (1, 7, 3))).save(buf, format="PNG",
+                                                                                          optimize=True)
+    with pytest.raises(ValueError, match="filter"):  # PIL filters its rows: not the writer's form
+        read_png(buf.getvalue())

@@ -35,7 +35,10 @@ def test_importing_every_module_leaves_jax_out():
     for m in ("pipelines.pixart", "compact.lowrank", "compact.codecs", "ops.quant", "cache.accel",
               "cache.fast_attn", "ops.merge", "ops.ring_flash", "parallel.mesh", "parallel.ring",
               "parallel.usp", "ops.probes", "probes.timing", "probes.flash_parts", "probes.block_parts",
-              "models.flux", "pipelines.flux", "schedulers.flow_match", "io.hf"):
+              "models.flux", "pipelines.flux", "schedulers.flow_match", "io.hf", "args", "parallel_api",
+              "models.prompt", "models.text_encoders", "io.tokenizers", "utils.logger", "utils.image",
+              "utils.prof", "entrypoints.launch", "examples.configs", "examples.pixartalpha_example",
+              "examples.flux_example"):
         assert f"compactfusion_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -76,7 +79,8 @@ def test_scripts_import_neither_jax_nor_the_jax_package(script):
 
 
 @pytest.mark.parametrize(
-    "name", ["CompactConfig", "ParallelConfig", "CacheAccelConfig"]
+    "name", ["CompactConfig", "ParallelConfig", "CacheAccelConfig", "ModelConfig", "RuntimeConfig",
+             "FastAttnConfig", "InputConfig", "EngineConfig"]
 )
 def test_config_fields_and_defaults_match_jax(name):
     jmod, tmod = (jaccel, taccel) if name == "CacheAccelConfig" else (jconfig, tconfig)
@@ -85,7 +89,13 @@ def test_config_fields_and_defaults_match_jax(name):
     assert list(jf) == list(tf)
     for key, jd in jf.items():
         td = tf[key]
-        if isinstance(jd, jconfig.CompressType):
+        if jd is dataclasses.MISSING:  # a default_factory field: compare what each builds
+            jd, td = getattr(getattr(jmod, name)(), key), getattr(getattr(tmod, name)(), key)
+            if key == "compact_config":  # its CompressType members differ by class
+                assert (td.enabled, td.compress_type.value) == (jd.enabled, jd.compress_type.value)
+            else:
+                assert dataclasses.asdict(td) == dataclasses.asdict(jd), key
+        elif isinstance(jd, jconfig.CompressType):
             assert td.value == jd.value, key
         else:
             assert td == jd, key
@@ -121,3 +131,27 @@ def test_params_from_numpy_keeps_bf16_bits_and_tree():
     as32 = params_from_numpy(tree, dtype=torch.float32)
     assert as32["blocks"]["w"].dtype == torch.float32 and as32["n"].dtype == torch.int32
     np.testing.assert_array_equal(as32["blocks"]["w"].numpy(), w.astype(np.float32))
+
+
+def test_engine_helpers_match_jax():
+    """``resolve_compress_schedule``, ``validate_against_device_count`` and
+    ``round_up`` of the port's ``config.py`` against the JAX package's."""
+    for steps, warm in ((6, 2), (3, 4)):
+        kw = dict(enabled=True, warmup_steps=warm)
+        j = jconfig.resolve_compress_schedule(jconfig.CompactConfig(**kw), steps)
+        t = tconfig.resolve_compress_schedule(tconfig.CompactConfig(**kw), steps)
+        assert [x.value for x in t] == [x.value for x in j]
+    plan = lambda mod: lambda layer, step: mod.CompressType.INT2 if step % 2 else mod.CompressType.WARMUP  # noqa: E731
+    assert [x.value for x in tconfig.resolve_compress_schedule(tconfig.CompactConfig(), 4, plan(tconfig))] == \
+        [x.value for x in jconfig.resolve_compress_schedule(jconfig.CompactConfig(), 4, plan(jconfig))]
+    for par, n in ((dict(ring_degree=4), 8), (dict(ring_degree=4), 2), (dict(ring_degree=3), 8),
+                   (dict(ring_degree=2, vae_parallel_size=1), 3), (dict(ring_degree=2, vae_parallel_size=2), 3)):
+        errs = []
+        for mod in (jconfig, tconfig):
+            try:
+                mod.validate_against_device_count(mod.ParallelConfig(**par), n)
+                errs.append(None)
+            except ValueError as e:
+                errs.append(str(e))
+        assert errs[0] == errs[1], (par, n)
+    assert [tconfig.round_up(x, 8) for x in (0, 1, 8, 9, 120)] == [jconfig.round_up(x, 8) for x in (0, 1, 8, 9, 120)]

@@ -332,3 +332,51 @@ def sp_pipeline_latents(rank, world, jobs):
             lat = pipe(*args, latents=noise, decode=False)
             res[family, name] = (lat.numpy(), tring.max_consistency_dev, pipe.last_skips)
     return res
+
+
+def port_runner(argv, weights=None, device="cpu"):
+    """The port's ``xDiTParallel`` from a command line, on ``device``.  With
+    ``weights`` (numpy trees "params", "vae", "t5" and, for FLUX, "clip_l"),
+    the backbone and VAE configs go to fp32 and every weight is replaced by
+    the given one, so the runner computes what a JAX runner with the same
+    weights computes in fp32."""
+    import dataclasses
+
+    from compactfusion_tpu_torch.args import FlexibleArgumentParser, xFuserArgs
+    from compactfusion_tpu_torch.io.from_jax import params_from_numpy
+    from compactfusion_tpu_torch.parallel_api import xDiTParallel
+
+    parser = FlexibleArgumentParser()
+    xFuserArgs.add_cli_args(parser)
+    engine, inp = xFuserArgs.from_cli_args(parser.parse_args(argv)).create_config()
+    runner = xDiTParallel(engine, inp, device=device)
+    if weights is None:
+        return runner
+    f32 = torch.float32
+    pcfg = runner.pipeline_config
+    cfg = dataclasses.replace(pcfg, model=dataclasses.replace(pcfg.model, dtype=f32),
+                              vae=dataclasses.replace(pcfg.vae, dtype=f32))
+    runner.pipeline = type(runner.pipeline)(params_from_numpy(weights["params"], dtype=f32),
+                                            params_from_numpy(weights["vae"], dtype=f32), cfg, runner.device,
+                                            mesh=runner.pipeline.mesh)
+    runner.pipeline_config = cfg
+    enc = runner.prompt_encoder
+    for name in ("t5", "clip_l"):
+        bundle = getattr(enc, name)
+        if bundle is not None:
+            bundle.params = params_from_numpy(weights[name], dtype=f32)
+            bundle.cfg = dataclasses.replace(bundle.cfg, dtype=f32)
+    return runner
+
+
+def runner_latents(rank, world, runs, weights, noise):
+    """Per run (name, argv): :func:`port_runner` with ``weights`` on this
+    rank's CPU, run on ``noise``; the final latents and the bytes this
+    rank's ring shifts sent."""
+    out = {}
+    for name, argv in runs:
+        runner = port_runner(argv, weights)
+        ring_shift.nbytes = 0
+        lat = runner(latents=torch.from_numpy(noise), decode=False)
+        out[name] = {"latents": lat.numpy(), "wire_bytes": ring_shift.nbytes}
+    return out
