@@ -101,7 +101,7 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
     s/image and ``torch.cuda.max_memory_allocated``), then FBCache at
     threshold 0 (the lossless latents, no skip) and 1e6 (26 skipped steps,
     57 x 2 + 26 + 1 kernel 1 launches).
-19. FLUX.1-dev with its depth cut to 2 double + 4 single blocks (full
+19. FLUX.1-dev with its depth cut to 1 double + 2 single blocks (full
     width) as a ring of 2 processes on this GPU: lossless and BINARY
     (residual 1 + EF, warmup 4, the consistency check on), unfused and
     fused, each against one process running the same cut model lossless,
@@ -185,16 +185,52 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
     the one-process runner's request, BINARY within COMPRESSED_REL_ERR_MAX
     and above 0; exact launch counts and ring-shift bytes per rank.
 
-Phases 4-15, 18-19, 21-27, 29 and 31 hold their latents against a lossless request and
+32. Kernels 1, 2, 3, 5, 6, 7 and 8 (and 8's EF pass) against their twins
+    at CogVideoX-2b's shapes (30 heads of 64: kernel 1 on the register
+    body's DP 64 plan): kernel 1 over the 226 text + 17,550 video tokens at
+    the CFG batch 2, at Ulysses 2 (15 heads, both ranks' text rows among the
+    queries) and at the two hops of the unfused ring 2 (the text in front of
+    each rank's 8,775 rows), its twin on (batch row, 2 or 3 heads) slices
+    (the whole call's fp32 scores would take 76 GB), timed beside one
+    SDPA call on the whole shape; the quant pairs at N8775 and N17550 x C1920
+    (the vector plans, a rank's rows at B1 and B2; every plan pairing bit for
+    bit); kernels 7 and 8 (BINARY and INT2) at ring 2, B1, q holding the
+    text rows in front of the 8,775 local rows (a ragged last 64-row EF tile).
+33. CogVideoX-2b at full width and depth (30 blocks, dim 1920) through
+    ``xDiTParallel`` from the published command line (49 x 480 x 720, 50
+    steps, guidance 6, ``--max_sequence_length 226``), random weights with
+    spiced modulation biases, T5-XXL at full size behind the byte
+    tokenizer: a 2-step warm-up, then the request (kernel 1 exactly 30 x 50
+    times; s/video, s/step, encode and decode by CUDA events; peak memory):
+    a finite, non-constant (1, 49, 480, 720, 3) video in [0, 1]; the dense
+    and the tiled 3D VAE decode of its latents (seconds, peak memory); the
+    model cut to 2 blocks in fp32, one CFG forward at 9 frames on the card
+    against the CPU's plain run within ENCODER_F32_REL_MAX.
+34. CogVideoX-2b at full width and the whole 17,550 tokens, cut to 2 blocks,
+    6 steps, as 2 processes on this card (gloo): ring 2 lossless, BINARY and
+    INT2 (residual 1 + EF, warmup 2, the consistency check on), each unfused
+    and fused (the compressed rings take the unfused route, bit-equal to it:
+    the fused compressed ring needs a multiple of 8 query rows, and a rank
+    holds 226 + 8,775); Ulysses 2 lossless and BINARY (a ring of 1:
+    bit-equal to lossless); cfg 2 (bit-equal to one process running each
+    CFG half at B1).  The order floor is measured first: one process with
+    kernel 1 swapped for its plain twin, against the kernel's run.
+    Lossless runs within COG_RING_REL_MAX of one process running the same
+    cut model and of the twin's run, the fused lossless ring within it of
+    the unfused one; compressed 0 < err < 0.05; EF deviation 0; the ring,
+    all-to-all and cfg bytes the shapes imply.
+
+Phases 4-15, 18-19, 21-27, 29, 31 and 33-34 hold their latents against a lossless request and
 their kernel launch counts against the counts the path implies (kernel 1's
 wide-body launches among them, one per decoded image, and those of
 kernels 2, 3, 5 and 6 on their vector plans, all of their launches); every
 count is set to 0 just before each of phases 3-11, 13-15, 16's probes
-(and the calibration), 18-19, 21-22, 24-27 and each request or run of 28-31,
+(and the calibration), 18-19, 21-22, 24-27 and each request or run of 28-31
+and 33-34,
 in every process, and read just after; kernels 1, 4, 7 and 8 count their fp32 launches apart.  A probe
 counts a launch when it captures a CUDA graph, so phase 16 reports the
 launches the device ran (the captured count times the replays).  The
-``launches`` of the pipeline's kernels are those of phases 3-15, 18-19 and 21-31: what
+``launches`` of the pipeline's kernels are those of phases 3-15, 18-19, 21-31 and 33-34: what
 kernel 1 ran inside the probes is reported beside them, under phase 16's
 ``launches_of_pipeline_kernels``.  The s/image of phases 13-15 is that of
 processes sharing one card, not a ring speed (so are phase 19's).
@@ -315,8 +351,8 @@ FLUX_SIZE = 1024
 FLUX_TXT = 512
 FLUX_HEADS, FLUX_HEAD_DIM = 24, 128
 FLUX_IMG = (FLUX_SIZE // 16) ** 2
-# phase 19's depth: 2 double + 4 single blocks, FLUX's 1 : 2 ratio, at full width
-FLUX_CUT = (2, 4)
+# phase 19's depth: 1 double + 2 single blocks, FLUX's 1 : 2 ratio, at full width
+FLUX_CUT = (1, 2)
 # image tokens of one rank of a ring of 2
 FLUX_RING_LOCAL = FLUX_IMG // 2
 WINDOW = 64
@@ -334,10 +370,10 @@ CRING_CASES = ([(2, 2, 512, c, r, False) for c, r in _CODECS]
                + [(RING, 2, 1024 // RING, c, r, False) for c, r in _CODECS])
 
 
-def _time_ms(fn, iters):
+def _time_ms(fn, iters, warm=3):
     import torch
 
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -551,12 +587,14 @@ def check_flash(flash, timing, dev, gen, cases=None, phase=2):
     import torch
 
     rows = []
-    for name, make, iters in cases or flash_cases(gen, dev):
+    for name, make, iters, *sliced in cases or flash_cases(gen, dev):
+        # a fourth element: the twin runs on (batch row, that many heads) slices
+        twin = _sliced_twin(flash, sliced[0]) if sliced else flash.flash_attn_with_lse_ref
         qq, kk, vv, *lens = make()  # a fourth element: kv_lens
         kv = {"kv_lens": lens[0]} if lens else {}
         out, lse = flash.flash_attn_with_lse(qq, kk, vv, **kv)
         torch.cuda.synchronize()
-        ref_out, ref_lse = flash.flash_attn_with_lse_ref(qq, kk, vv, **kv)
+        ref_out, ref_lse = twin(qq, kk, vv, **kv)
         err_out, rel_out, err_lse, ok = _agree(out, ref_out, lse, ref_lse)
         b, sq, h, d = qq.shape
         plan = flash.flash_plan(b, h, sq, d, elem=qq.element_size())
@@ -566,7 +604,8 @@ def check_flash(flash, timing, dev, gen, cases=None, phase=2):
                                  for t in sets])
         n_sets = len(sets)
         del sets
-        plain_ms = _time_ms(lambda: flash.flash_attn_with_lse_ref(qq, kk, vv, **kv), iters)
+        del ref_out, ref_lse
+        plain_ms = _time_ms(lambda: twin(qq, kk, vv, **kv), 1 if sliced else iters, 1 if sliced else 3)
         key_mask = (torch.arange(kk.shape[1], device=dev) < lens[0][:, None])[:, None, None, :] if lens else None
         lib, backend = _library(qq, kk, vv, key_mask)
         library_ms = _time_ms(lib, iters)
@@ -575,13 +614,13 @@ def check_flash(flash, timing, dev, gen, cases=None, phase=2):
         work = (_nbytes(qq, kk, vv, out, lse), 4 * h * sq * keys * d)
         bound_ms, bound_by = _bound(*work, _peak(qq.dtype))
         rows.append({"shape": name, "max_abs_err_out": err_out, "rel_err_out": rel_out,
-                     "max_abs_err_lse": err_lse,
+                     "max_abs_err_lse": err_lse, **({"twin_heads_per_slice": sliced[0]} if sliced else {}),
                      "plan": list(plan), "ctas": _ctas(plan, b, h, sq), "ms": ms, "graph_ms": g_ms,
                      "plain_ms": plain_ms, "library_ms": library_ms, "library_backend": backend,
                      "bound_ms": bound_ms, "bound_by": bound_by, **_tc_bound(*work, qq.dtype),
                      "ptxas": _ptxas("flash", plan, qq.dtype)})
         print(f"[{phase}] flash {name}: out err {err_out:.3e}, rel {rel_out:.3e}, lse err {err_lse:.3e} "
-              f"({_tol_text(qq.dtype)}); plan {plan}, "
+              f"({_tol_text(qq.dtype)}{f'; twin on B1 H{sliced[0]} slices' if sliced else ''}); plan {plan}, "
               f"{rows[-1]['ctas']} CTAs; kernel "
               f"{ms:.4f} ms eager, {g_ms:.4f} ms by CUDA graphs on {n_sets} input sets; "
               f"twin {plain_ms:.4f} ms, SDPA ({backend}) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
@@ -1478,6 +1517,44 @@ def cfg_halves_apart():
         pp.precompute_text_kv, pp.pixart_forward = real_kv, real_fwd
 
 
+@contextlib.contextmanager
+def plain_attention():
+    """Within the block, every kernel-1 call of ``sdpa`` runs its plain twin
+    instead (on (batch row, :data:`COG_TWIN_HEADS` heads) slices): the same
+    function in another bf16 order, which sizes the order floor."""
+    from compactfusion_tpu_torch.ops import attention, flash
+
+    real = attention.flash_attn_with_lse
+    attention.flash_attn_with_lse = _sliced_twin(flash, COG_TWIN_HEADS)
+    try:
+        yield
+    finally:
+        attention.flash_attn_with_lse = real
+
+
+@contextlib.contextmanager
+def cog_halves_apart():
+    """Within the block, a CogVideoX pipeline of this process runs each CFG
+    half's forward alone, at B1, as a rank of cfg 2 runs its half (lossless
+    requests: no attention state)."""
+    import torch
+
+    from compactfusion_tpu_torch.pipelines import cogvideox as pc
+
+    real = pc.cogvideox_forward
+
+    def forward(params, x, txt, t, cfg, *, attn_state, **kw):
+        outs = [real(params, x_, txt_, t_, cfg, attn_state=attn_state, **kw)[0]
+                for x_, txt_, t_ in zip(x.chunk(2), txt.chunk(2), t.chunk(2))]
+        return torch.cat(outs), attn_state
+
+    pc.cogvideox_forward = forward
+    try:
+        yield
+    finally:
+        pc.cogvideox_forward = real
+
+
 def port_kernels():
     """Every kernel wrapper of the port (each counts its own launches)."""
     from compactfusion_tpu_torch.ops import flash, probes, quant, ring_flash
@@ -1689,6 +1766,8 @@ def check_flux_kernels(flash, quant, codecs, rf, timing, dev, gen):
 def _numel(tree):
     if isinstance(tree, dict):
         return sum(_numel(t) for t in tree.values())
+    if isinstance(tree, list):
+        return sum(_numel(t) for t in tree)
     return tree.numel()
 
 
@@ -1810,7 +1889,7 @@ def ring_phase(phase, results, name, lossless, expect, bound, references=(), low
 
 
 def flux_ring_phase(kernels, dev, codecs):
-    """Phase 19: FLUX.1-dev at full width, its depth cut to 2 double + 4
+    """Phase 19: FLUX.1-dev at full width, its depth cut to 1 double + 2
     single blocks, as a ring of 2 processes on this card (gloo): lossless
     and BINARY (residual 1 + EF, warmup 4, the consistency check on), each
     unfused and fused, every run against one process running the same cut
@@ -2818,6 +2897,458 @@ def run_entry_phases(kernels, dev, codecs, pixart_launches, flux_launches):
     return phases, secs
 
 
+# -- phases 32-34: CogVideoX-2b ----------------------------------------------
+
+COG_HEADS, COG_HEAD_DIM, COG_DIM = 30, 64, 1920
+#: T5 tokens (``--max_sequence_length 226``) and video tokens at 49 x 480 x 720
+#: (13 latent frames x 30 x 45 patches)
+COG_TXT, COG_VIDEO = 226, 13 * 30 * 45
+COG_RING_LOCAL = COG_VIDEO // 2  # 8,775 video rows a rank at ring 2 or Ulysses 2
+COG_STEPS, COG_GUIDANCE = 50, 6.0
+COG_ARGV = ["--model", "THUDM/CogVideoX-2b", "--height", "480", "--width", "720", "--num_frames", "49",
+            "--num_inference_steps", str(COG_STEPS), "--guidance_scale", str(COG_GUIDANCE),
+            "--max_sequence_length", str(COG_TXT), "--prompt", "a panda playing a guitar in a bamboo forest"]
+#: phase 34's cut: 2 of the 30 blocks at full width, 6 steps, the first 2 sent raw
+COG_CUT, COG_RING_STEPS, COG_WARMUP = 2, 6, 2
+#: phase 34's lossless runs vs one process, and fused vs unfused: only the
+#: bf16 order differs, as under RING_REL_MAX, but this model's order floor
+#: lies above that bound: one process with kernel 1 swapped for its plain
+#: twin (the same function in another order) lands 0.0225 from the kernel's
+#: run at 4 blocks and 6 steps of guidance 6, and the ring 2 runs 0.0232
+#: and 0.0235 (PERF.md §6, PR 15); phase 34 measures that floor in every
+#: run and holds each ring to this bound against both processes' runs
+COG_RING_REL_MAX = 0.03
+#: kernel 1's twin at the full sequence runs on (1 batch row, this many heads)
+#: slices: the fp32 scores of the whole B2 H30 S17776 call would take 76 GB
+COG_TWIN_HEADS = 2
+
+
+def _sliced_twin(flash, heads):
+    """Kernel 1's twin computed on (batch row, ``heads`` heads) slices of
+    the inputs and put back together: the same function, the scores of one
+    slice at a time."""
+    import torch
+
+    def twin(q, k, v, **kw):
+        outs, lses = [], []
+        for b in range(q.shape[0]):
+            parts = [flash.flash_attn_with_lse_ref(q[b:b + 1, :, h:h + heads], k[b:b + 1, :, h:h + heads],
+                                                   v[b:b + 1, :, h:h + heads], **kw)
+                     for h in range(0, q.shape[2], heads)]
+            outs.append(torch.cat([o for o, _ in parts], dim=2))
+            lses.append(torch.cat([lse for _, lse in parts], dim=1))
+        return torch.cat(outs), torch.cat(lses)
+
+    return twin
+
+
+def cog_flash_cases(gen, dev):
+    """Kernel 1 at CogVideoX-2b's shapes (30 heads of 64, the register
+    body's DP 64 plan): the self-attention over the 226 text + 17,550 video
+    tokens (column slices of one qkv tensor), the same at Ulysses 2 (15
+    heads; the queries hold each rank's text rows, 2 x 9,001, the keys the
+    text once and the 17,550 video rows) and the two hops of the unfused
+    ring 2 (hop 0 with the text in front of the local 8,775 rows' K/V), all
+    at the CFG batch 2; the twin on head slices.  The fused ring's text
+    block (Sk 226 < 512) takes the plain route, as the JAX routing rule
+    sends it to XLA."""
+    import torch
+
+    h, d, s_q, s_all = COG_HEADS, COG_HEAD_DIM, COG_TXT + COG_RING_LOCAL, COG_TXT + COG_VIDEO
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def qkv(b, heads, sq, sk):
+        return lambda: (rnd(b, sq, heads, d), rnd(b, sk, heads, d), rnd(b, sk, heads, d))
+
+    return [
+        (f"CogVideoX-2b self-attn B2 H{h} S{s_all} d{d}", lambda: _qkv_views(gen, dev, 2, s_all, h, d), 3,
+         COG_TWIN_HEADS),
+        (f"CogVideoX-2b Ulysses-2 B2 H{h // 2} Sq{2 * s_q} Sk{s_all} d{d}", qkv(2, h // 2, 2 * s_q, s_all), 3, 3),
+        (f"CogVideoX-2b ring-2 hop 0 (text joint in front) B2 H{h} Sq{s_q} Sk{s_q} d{d}", qkv(2, h, s_q, s_q), 5,
+         COG_TWIN_HEADS),
+        (f"CogVideoX-2b ring-2 hop 1 B2 H{h} Sq{s_q} Sk{COG_RING_LOCAL} d{d}", qkv(2, h, s_q, COG_RING_LOCAL), 5,
+         COG_TWIN_HEADS),
+    ]
+
+
+def cog_ring_cases(gen, dev):
+    """Kernel 7 at CogVideoX-2b's fused ring 2, rank 0's view at B1: q (the
+    226 text rows in front of the 8,775 local rows), its own K/V slices at
+    hop 0, the other rank's contiguous block at hop 1 (B1: the twin's fp32
+    scores of B2 would take 38 GB)."""
+    import torch
+
+    h, d = COG_HEADS, COG_HEAD_DIM
+
+    def make():
+        q = torch.randn((1, COG_TXT + COG_RING_LOCAL, h, d), generator=gen, device=dev).to(torch.bfloat16)
+        _, k0, v0 = _qkv_views(gen, dev, 1, COG_RING_LOCAL, h, d)
+        _, k1, v1 = _qkv_views(gen, dev, 1, COG_RING_LOCAL, h, d)
+        return q, [(k0, v0), (k1.contiguous(), v1.contiguous())]
+
+    return [((2, 1, COG_RING_LOCAL), make)]
+
+
+def check_cog_kernels(flash, quant, codecs, rf, timing, dev, gen):
+    """Phase 32: kernels 1, 2, 3, 5, 6, 7 and 8 (and 8's EF pass) against
+    their twins at CogVideoX-2b's shapes; returns the rows by kernel."""
+    import torch
+
+    flash_rows = check_flash(flash, timing, dev, gen, cog_flash_cases(gen, dev), phase=32)
+    for r in flash_rows:
+        if r["plan"][:2] != ["flash_reg_tile", COG_HEAD_DIM]:
+            raise AssertionError(f"{r['shape']}: plan {r['plan']}; the register body at DP 64 expected")
+    quant_rows = {"binary": [], "int2": []}
+    for n in (COG_RING_LOCAL, 2 * COG_RING_LOCAL):  # a rank's rows at B1 and at the CFG batch 2
+        for codec in ("binary", "int2"):
+            row = check_quant(quant, codecs, timing, dev, gen, codec, -1, torch.float32, (n, COG_DIM), phase=32)
+            if [row["quant_plan_bytes_per_thread"], row["dequant_plan_bytes_per_thread"]] != \
+                    [quant.QUANT_VEC_BYTES] * 2:
+                raise AssertionError(f"{row['shape']}: not the vector plans")
+            quant_rows[codec].append(row)
+    ring_rows = check_ring_flash(rf, flash, timing, dev, gen, cog_ring_cases(gen, dev), phase=32)
+    torch.cuda.empty_cache()
+    cring_rows = [check_compact_ring(rf, flash, timing, dev, gen, 2, 1, COG_RING_LOCAL, codec, -1, False,
+                                     COG_HEADS, COG_HEAD_DIM, COG_TXT + COG_RING_LOCAL, phase=32)
+                  for codec in ("binary", "int2")]
+    torch.cuda.empty_cache()
+    return {"flash": flash_rows, "quant": quant_rows, "ring": ring_rows, "cring": cring_rows}
+
+
+def _cut_blocks(params, n):
+    """The model with its stacked blocks cut to the first ``n`` (views)."""
+    from compactfusion_tpu_torch.models import common as cm
+
+    return {k: cm.layer_of(v, slice(0, n)) if k == "blocks" else v for k, v in params.items()}
+
+
+def cog_txt(dev, seed, dtype=None):
+    """(2, 1, 226, 4096) [cond, uncond] T5 states from ``seed``, as phase 34's
+    requests take them."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((2, 1, COG_TXT, 4096), generator=g, device=dev, dtype=torch.float32).to(
+        dtype or torch.bfloat16)
+
+
+def cog_pipeline_phase(kernels, dev):
+    """Phase 33: CogVideoX-2b at full width and depth through ``xDiTParallel``
+    (random weights, modulation biases spiced; T5-XXL at full size behind
+    the byte tokenizer): a 2-step warm-up, then the published request (50
+    steps, guidance 6, 49 x 480 x 720, decode included) with kernel 1
+    exactly 30 x 50 times; the tiled decode of its latents; a 2-block fp32
+    cut at 9 frames, one CFG forward on the card against the CPU's plain
+    run.  Returns the phases."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from compactfusion_tpu_torch.models import prompt as mp
+    from compactfusion_tpu_torch.models import text_encoders as te
+    from compactfusion_tpu_torch.models.cogvideox import cogvideox_forward
+    from compactfusion_tpu_torch.models import common as cm
+    from compactfusion_tpu_torch.parallel_api import xDiTParallel
+    from compactfusion_tpu_torch.pipelines.cogvideox import CogVideoXPipeline
+
+    t0 = time.perf_counter()
+    runner = xDiTParallel(*_cli(COG_ARGV).create_config())
+    pipe, pcfg = runner.pipeline, runner.pipeline_config
+    pipe.params = _spiced(pipe.params, np.random.default_rng(99))
+    t5_cfg = te.t5_xxl()
+    runner.prompt_encoder = mp.PromptEncoder(mp._T5Bundle(
+        mp.byte_unigram_tokenizer(), te.init_t5(torch.Generator(device=dev).manual_seed(7), t5_cfg), t5_cfg))
+    torch.cuda.synchronize()
+    m = pcfg.model
+    print(f"[33] CogVideoX-2b through xDiTParallel: {m.depth} blocks, dim {m.dim}, {m.heads} heads of "
+          f"{m.head_dim}, {_numel(pipe.params) / 1e9:.3f}B parameters in bf16, the 3D VAE "
+          f"({_numel(pipe.vae_params) / 1e6:.1f}M) and T5-XXL drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{pcfg.num_frames} x {pcfg.height} x {pcfg.width}: {pcfg.tokens} video + {COG_TXT} text tokens, "
+          f"{pcfg.num_steps} steps, guidance {pcfg.guidance_scale}")
+    if (pcfg.tokens, pcfg.num_steps, m.dim, m.depth) != (COG_VIDEO, COG_STEPS, COG_DIM, 30):
+        raise AssertionError(f"phase 33: {pcfg}")
+    warm = CogVideoXPipeline(pipe.params, pipe.vae_params, dataclasses.replace(pcfg, num_steps=2), dev)
+    _, warm_s = _events_s(lambda: warm(runner.prompt_encoder.encode_for_video(list(runner.input_config.prompt),
+                                                                              [""], COG_TXT),
+                                       generator=torch.Generator(device=dev).manual_seed(1), decode=False))
+    del warm
+    # the request through the runner; the encoder and the decode timed inside it
+    marks = {}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            out, marks[name] = _events_s(lambda: fn(*a, **kw))
+            return out
+        return call
+
+    held = {}
+
+    def decode(lat, real=pipe.decode):
+        # the request's latents kept; the decode's own peak above what is held
+        held["latents"], held["base"] = lat, torch.cuda.memory_allocated()
+        held["peak"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out, marks["decode"] = _events_s(lambda: real(lat))
+        held["decode_peak"] = torch.cuda.max_memory_allocated() - held["base"]
+        return out
+
+    runner.prompt_encoder.encode_for_video = timed("encode", runner.prompt_encoder.encode_for_video)
+    pipe.decode = decode
+    _reset_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    video, total = _events_s(runner)
+    peak = max(held["peak"], torch.cuda.max_memory_allocated()) / 2**30
+    counts = _counts(kernels)
+    _check_counts("CogVideoX-2b request", counts, {"flash_attn_with_lse": m.depth * COG_STEPS})
+    v32 = video.float()
+    lo, hi, std = v32.min().item(), v32.max().item(), v32.std().item()
+    if tuple(video.shape) != (1, 49, 480, 720, 3) or not bool(torch.isfinite(v32).all()) or lo < 0 or hi > 1 \
+            or std == 0.0:
+        raise AssertionError(f"CogVideoX-2b video {tuple(video.shape)} in [{lo}, {hi}], std {std}")
+    sample_s = total - marks["encode"] - marks["decode"]
+    print(f"[33] request: video (1, 49, 480, 720, 3) in [{lo:.4f}, {hi:.4f}], std {std:.4f}; {total:.4f} s/video "
+          f"(CUDA events: T5-XXL {marks['encode']:.4f} s, {COG_STEPS} steps {sample_s:.4f} s = "
+          f"{sample_s / COG_STEPS:.4f} s/step, dense 3D VAE decode {marks['decode']:.4f} s); warm-up (2 steps) "
+          f"{warm_s:.4f} s; kernel 1 {counts['flash_attn_with_lse']} launches ({m.depth} x {COG_STEPS}); "
+          f"torch.cuda.max_memory_allocated {peak:.3f} GiB")
+    phases = {"cogvideox-2b": {"s_per_video": total, "s_per_step": sample_s / COG_STEPS, "encode_s": marks["encode"],
+                               "decode_s": marks["decode"], "warmup_s": warm_s, "max_memory_allocated_gib": peak,
+                               "launches": counts}}
+    del v32
+    # the tiled decode of the request's latents, against its dense decode
+    lat, vcfg = held.pop("latents"), pcfg.vae
+    dense_s, dense_peak, base = marks["decode"], held["decode_peak"] / 2**30, held["base"]
+    dense = video
+    tiled_pipe = CogVideoXPipeline(pipe.params, pipe.vae_params,
+                                   dataclasses.replace(pcfg, vae=dataclasses.replace(vcfg, use_tiling=True)), dev)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(kernels)
+    tiled, tiled_s = _events_s(lambda: tiled_pipe.decode(lat))
+    tiled_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    _check_counts("tiled decode", _counts(kernels), {})
+    t32 = tiled.float()
+    if tuple(tiled.shape) != (1, 49, 480, 720, 3) or not bool(torch.isfinite(t32).all()) or t32.min() < 0 \
+            or t32.max() > 1:
+        raise AssertionError(f"tiled decode {tuple(tiled.shape)} not a finite video in [0, 1]")
+    tiled_rel = rel_fro(tiled, dense)
+    print(f"[33] 3D VAE decode of the request's latents: dense {dense_s:.4f} s (in the request), peak "
+          f"{dense_peak:.3f} GiB above the {base / 2**30:.3f} GiB held; tiled ({vcfg.tile_latent_size}-latent "
+          f"tiles, overlap "
+          f"{vcfg.tile_overlap_factor}) {tiled_s:.4f} s, peak {tiled_peak:.3f} GiB; tiled vs dense rel err "
+          f"{tiled_rel:.4f} (the tiles see less context: no bound)")
+    phases["cogvideox-2b"].update(dense_decode_s=dense_s, dense_decode_peak_gib=dense_peak, tiled_decode_s=tiled_s,
+                                  tiled_decode_peak_gib=tiled_peak, tiled_vs_dense_rel_err=tiled_rel)
+    del video, dense, tiled, t32, tiled_pipe, lat
+    # a 2-block fp32 cut at 9 frames (3 latent frames: 4,050 video tokens):
+    # one CFG forward on the card against the CPU's plain run
+    f32 = dataclasses.replace(m, depth=2, dtype=torch.float32)
+    cut = _to_dev(_cut_blocks(pipe.params, 2), dev, torch.float32)
+    f, hp, wp = 3, 30, 45
+    pos = cm.sincos_pos_embed_2d(m.dim, f * hp, wp)
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((2, f * hp * wp, m.token_in), generator=g, device=dev)
+    txt = torch.randn((2, COG_TXT, m.text_dim), generator=g, device=dev)
+    t = torch.full((2,), 999.0, device=dev)
+    _reset_counts(kernels)
+    with torch.inference_mode():
+        gpu, _ = cogvideox_forward(cut, x, txt, t, f32, pos_embed=pos.to(dev))
+        counts = _counts(kernels)
+        cpu, _ = cogvideox_forward(_to_dev(cut, "cpu"), x.cpu(), txt.cpu(), t.cpu(), f32, pos_embed=pos)
+    _check_counts("fp32 cut forward", counts, {"flash_attn_with_lse": 2, F32["flash_attn_with_lse"]: 2})
+    rel = rel_fro(gpu.cpu(), cpu)
+    print(f"[33] CogVideoX-2b cut to 2 blocks in fp32, one CFG forward at 9 x 480 x 720 ({f * hp * wp} video "
+          f"tokens): card vs the CPU's plain run rel err {rel:.3e} (bound {ENCODER_F32_REL_MAX}); kernel 1 "
+          f"{counts['flash_attn_with_lse']} fp32 launches")
+    if not rel <= ENCODER_F32_REL_MAX:
+        raise AssertionError(f"fp32 CogVideoX cut: card vs CPU {rel}")
+    phases["cogvideox-2b fp32 cut"] = {"rel_err_vs_cpu": rel, "launches": counts}
+    del runner, pipe, cut, gpu, cpu
+    return phases
+
+
+def cog_request(pipe, seed):
+    """Phase 34's request: T5 states (:func:`cog_txt`) and the noise from
+    ``seed``; returns (latents, seconds by CUDA events)."""
+    import torch
+
+    g = torch.Generator(device=pipe.device).manual_seed(seed)
+    txt = cog_txt(pipe.device, seed)
+    return _events_s(lambda: pipe(txt, generator=g, decode=False))
+
+
+def build_cog_cut(dev):
+    """Phase 34's model: CogVideoX-2b at full width, its first
+    :data:`COG_CUT` blocks, random weights from seed 0, modulation biases
+    spiced."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from compactfusion_tpu_torch.models.cogvideox import cogvideox_2b, init_cogvideox
+
+    mcfg = dataclasses.replace(cogvideox_2b(), depth=COG_CUT)
+    return mcfg, _spiced(init_cogvideox(torch.Generator(device=dev).manual_seed(0), mcfg), np.random.default_rng(99))
+
+
+def cog_pipeline(mcfg, params, dev, mesh=None, **kw):
+    """Phase 34's pipeline: 49 x 480 x 720, 6 steps, guidance 6, no VAE."""
+    from compactfusion_tpu_torch.pipelines.cogvideox import CogVideoXPipeline, CogVideoXPipelineConfig
+
+    cfg = CogVideoXPipelineConfig(model=mcfg, num_steps=COG_RING_STEPS, guidance_scale=COG_GUIDANCE, **kw)
+    return CogVideoXPipeline(params, None, cfg, dev, mesh=mesh)
+
+
+def cog_rank(rank, world, runs):
+    """One rank of phase 34 (``spawn_local`` on this GPU, gloo): the cut
+    model from its seeds, then per run (name, ParallelConfig kwargs,
+    CompactConfig kwargs or None) the request from seed 1 with every launch
+    count set to 0 before it; returns per run what :func:`ring_rank`
+    returns."""
+    import torch
+
+    from compactfusion_tpu_torch.compact import ring as compact_ring
+    from compactfusion_tpu_torch.config import CompactConfig, CompressType, ParallelConfig
+    from compactfusion_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from compactfusion_tpu_torch.parallel.ring import ring_shift
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    kernels = port_kernels()
+    mcfg, params = build_cog_cut(dev)
+    out = {}
+    for name, par, compact in runs:
+        parallel = ParallelConfig(**par)
+        kw = {} if compact is None else {"compact": CompactConfig(
+            enabled=True, warmup_steps=COG_WARMUP, residual=1, error_feedback=True, fastpath=True,
+            check_consistency=True, compress_type=CompressType(compact))}
+        pipe = cog_pipeline(mcfg, params, dev, parallel=parallel, mesh=make_mesh(parallel), **kw)
+        _reset_counts(kernels)
+        ring_shift.nbytes = Mesh.all_to_all.nbytes = Mesh.all_gather_tree.nbytes = 0
+        compact_ring.max_consistency_dev = 0.0
+        lat, sec = cog_request(pipe, 1)
+        out[name] = {"latents": lat.float().cpu().numpy(), "launches": _counts(kernels),
+                     "wire_bytes": ring_shift.nbytes, "all_to_all_bytes": Mesh.all_to_all.nbytes,
+                     "gather_bytes": Mesh.all_gather_tree.nbytes,
+                     "consistency_dev": compact_ring.max_consistency_dev, "skips": None, "s_per_image": sec}
+    return out
+
+
+def cog_ring_phase(kernels, dev, codecs):
+    """Phase 34: CogVideoX-2b at full width and the whole 17,550 video
+    tokens, cut to 2 blocks, 6 steps, as 2 processes on this card (gloo):
+    ring 2 lossless, BINARY and INT2 (residual 1 + EF, warmup 2, the
+    consistency check on), each unfused and fused (the compressed ones take
+    the unfused route: 9,001 query rows a rank); Ulysses 2 lossless and
+    BINARY; cfg 2.  Every run against one process running the same cut
+    model, the fused runs against the unfused ones, with exact launch
+    counts, EF caches equal across ranks and the bytes the shapes imply.
+    Returns the phases."""
+    import torch
+
+    from compactfusion_tpu_torch.parallel.mesh import spawn_local
+
+    mcfg, params = build_cog_cut(dev)
+    _reset_counts(kernels)
+    pipe = cog_pipeline(mcfg, params, dev)
+    lat, sec = cog_request(pipe, 1)
+    L, S, W = COG_CUT, COG_RING_STEPS, COG_WARMUP
+    _check_counts("CogVideoX cut, one process", _counts(kernels), {"flash_attn_with_lse": L * S})
+    with cog_halves_apart():
+        halves, halves_sec = cog_request(pipe, 1)
+    with plain_attention():
+        plain, plain_sec = cog_request(pipe, 1)
+    del params, pipe
+    torch.cuda.empty_cache()
+    one, halves, plain = (x.float().cpu().numpy() for x in (lat, halves, plain))
+    floor = _rel_np(plain, one)
+    print(f"[34] CogVideoX-2b cut to {L} of 30 blocks (full width, {COG_VIDEO} video + {COG_TXT} text tokens, "
+          f"{S} steps, guidance {COG_GUIDANCE}): one process, lossless, {sec:.4f} s; each CFG half's forward at "
+          f"B1 (as a cfg-2 rank runs it): rel err vs the B2 run {_rel_np(halves, one):.6g}, {halves_sec:.4f} s; "
+          f"kernel 1 swapped for its plain twin: rel err vs the kernel's run {floor:.6g}, {plain_sec:.4f} s")
+    ring2, fused2, u2 = {"ring_degree": 2}, {"ring_degree": 2, "use_fused_ring": True}, {"ulysses_degree": 2}
+    runs = [("cog ring2 lossless", ring2, None), ("cog ring2 lossless fused", fused2, None),
+            ("cog ring2 binary", ring2, "binary"), ("cog ring2 binary fused", fused2, "binary"),
+            ("cog ring2 int2", ring2, "int2"), ("cog ring2 int2 fused", fused2, "int2"),
+            ("cog u2 lossless", u2, None), ("cog u2 binary", u2, "binary"),
+            ("cog cfg2 lossless", {"cfg_degree": 2}, None)]
+    two = spawn_local(cog_rank, 2, "gloo", runs, threads=2)
+    hops, C = 2 * L, S - W
+    no_vae = {WIDE: 0}
+    expect = {
+        "cog ring2 lossless": {"flash_attn_with_lse": hops * S},
+        # the fused ring's text block (Sk 226) takes the plain route, not kernel 1
+        "cog ring2 lossless fused": {"ring_flash_attn_with_lse": hops * S},
+        "cog u2 lossless": {"flash_attn_with_lse": L * S},
+        # ring 1 under Ulysses 2: each rank compresses its own K/V into its
+        # own EF slot and attends the exact ones (the latents are U2 lossless's)
+        "cog u2 binary": {"flash_attn_with_lse": L * S, "binary_quant_fastpath": 2 * L * C},
+        "cog cfg2 lossless": {"flash_attn_with_lse": L * S},
+    }
+    for codec in ("binary", "int2"):
+        expect[f"cog ring2 {codec}"] = {"flash_attn_with_lse": hops * S, f"{codec}_quant_fastpath": hops * C,
+                                       f"{codec}_dequant_fastpath": hops * C}
+        # the fused compressed ring needs a multiple of 8 query rows (the JAX
+        # package's condition, compactfusion_tpu/compact/ring.py:209); with
+        # the 226 text rows in front a rank holds 9,001: the unfused route
+        expect[f"cog ring2 {codec} fused"] = expect[f"cog ring2 {codec}"]
+    phases = {}
+    for name, _, compact in runs:
+        # cfg 2 runs each half at B1: bit-equal to the one process doing so
+        refs = [("the CFG halves at B1", halves, 0.0)] if name == "cog cfg2 lossless" else []
+        if name.endswith("fused"):
+            refs.append((name[:-6], two[0][name[:-6]]["latents"], 0.0 if compact else COG_RING_REL_MAX))
+        if compact is not None:
+            phases[name] = ring_phase(34, two, name, one, dict(no_vae, **expect[name]), COMPRESSED_REL_ERR_MAX, refs,
+                                      low=0.0 if "ring2" in name else None)
+            if phases[name]["consistency_dev"] != 0.0:
+                raise AssertionError(f"{name}: EF caches differ across ranks")
+        else:
+            refs.append(("the plain twin's run", plain, COG_RING_REL_MAX))
+            phases[name] = ring_phase(34, two, name, one, dict(no_vae, **expect[name]), COG_RING_REL_MAX, refs)
+        phases[name]["latent_rel_err_order_floor"] = floor
+    u2_same = _rel_np(two[0]["cog u2 binary"]["latents"], two[0]["cog u2 lossless"]["latents"])
+    if u2_same != 0.0:
+        raise AssertionError(f"cog u2 binary: {u2_same} from U2 lossless; a ring of 1 attends the exact K/V")
+    # wire bytes per rank: the bf16 K/V of the CFG batch per layer and step
+    # (lossless), the raw fp32 K/V in warmup then the payloads (compressed);
+    # the same on both routes; Ulysses: every all-to-all of q, k, v and out
+    n, c = 2 * COG_RING_LOCAL, COG_DIM
+    for codec in ("binary", "int2"):
+        payload = codecs.payload_nbytes(codecs.encode(torch.ones(n, c), codecs.CompressType(codec)))
+        want = L * (W * 2 * n * c * 4 + C * 2 * payload)
+        got = [phases[f"cog ring2 {codec}" + f][ "wire_bytes_per_rank"] for f in ("", " fused")]
+        print(f"[34] {codec}: ring-shift bytes per rank {got}, expected {want} (payload_nbytes {payload} per K "
+              f"or V)")
+        if got != [want, want]:
+            raise AssertionError(f"phase 34: the {codec} rings sent other bytes than their payloads")
+    lossless_bytes = L * S * 2 * n * c * 2
+    if phases["cog ring2 lossless"]["wire_bytes_per_rank"] != lossless_bytes:
+        raise AssertionError(f"phase 34: the lossless ring sent "
+                             f"{phases['cog ring2 lossless']['wire_bytes_per_rank']} "
+                             f"bytes, {lossless_bytes} expected")
+    # Ulysses 2, per layer and step: q (the text rows in front of the local
+    # rows), k, v and out in bf16 at the CFG batch, half of each sent
+    want_a2a = L * S * (2 * (COG_TXT + COG_RING_LOCAL) + 2 * COG_RING_LOCAL) * 2 * c * 2 // 2
+    a2a = [r[k]["all_to_all_bytes"] for r in two for k in ("cog u2 lossless", "cog u2 binary")]
+    # cfg 2: each step's bf16 prediction of this rank's half, sent to the other
+    want_cfg = S * COG_VIDEO * mcfg.token_out * 2
+    cfg_bytes = [r["cog cfg2 lossless"]["wire_bytes"] for r in two]
+    print(f"[34] EF caches across the ring: largest deviation "
+          f"{max(phases[k]['consistency_dev'] for k, _, cc in runs if cc)}; lossless ring {lossless_bytes} bytes "
+          f"per "
+          f"rank; U2 all-to-all bytes per rank {sorted(set(a2a))}, expected {want_a2a}; cfg 2 exchange bytes per "
+          f"rank {sorted(set(cfg_bytes))}, expected {want_cfg}; u2 binary vs u2 lossless {u2_same}")
+    if any(b != want_a2a for b in a2a) or any(b != want_cfg for b in cfg_bytes):
+        raise AssertionError("phase 34: the all-to-alls or the cfg exchange sent other bytes than the path implies")
+    return phases
+
+
 def main():
     import torch
 
@@ -3138,6 +3669,25 @@ def main():
                                                 phases["flux lossless"]["launches"]["flash_attn_with_lse"] // 3)
     phases.update(entry_phases)
 
+    # -- 32.-34. CogVideoX-2b: kernels at d64, the model, the ring ------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    cog_secs, t0 = {}, time.perf_counter()
+    cog_rows = check_cog_kernels(flash, quant, codecs, ring_flash, timing, dev, gen)
+    cog_secs["32"], t0 = time.perf_counter() - t0, time.perf_counter()
+    phases.update(cog_pipeline_phase(kernels, dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    cog_secs["33"], t0 = time.perf_counter() - t0, time.perf_counter()
+    phases.update(cog_ring_phase(kernels, dev, codecs))
+    cog_secs["34"] = time.perf_counter() - t0
+    print(f"[32-34] seconds: {', '.join(f'{k} {v:.1f}' for k, v in cog_secs.items())}")
+    flash_rows += cog_rows["flash"]
+    for codec in ("binary", "int2"):
+        quant_rows[codec] += cog_rows["quant"][codec]
+    ring_rows += cog_rows["ring"]
+    cring_rows += cog_rows["cring"]
+
     totals = {fn.__name__: sum(p["launches"][fn.__name__] for p in phases.values()) for fn in kernels}
     for key in ROUTES.values():
         totals[key] = sum(p["launches"].get(key, 0) for p in phases.values())
@@ -3208,8 +3758,9 @@ def main():
          **{k: f32_rows["cring"][0]["ef"][k] for k in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by")},
          "shapes": [dict(r["ef"], shape=r["shape"]) for r in f32_rows["cring"]]},
     ], "sdpa_cross_attention": cross_rows, "fp32_ptxas": f32_rows["ptxas"], "phases": phases}
-    print(f"[done] phases 1-31 passed in {time.perf_counter() - t_run:.1f} s, the kernels' build included "
-          f"(phases 23-27: {sum(sp_secs.values()):.1f} s; 28-31: {sum(entry_secs.values()):.1f} s)")
+    print(f"[done] phases 1-34 passed in {time.perf_counter() - t_run:.1f} s, the kernels' build included "
+          f"(phases 23-27: {sum(sp_secs.values()):.1f} s; 28-31: {sum(entry_secs.values()):.1f} s; 32-34: "
+          f"{sum(cog_secs.values()):.1f} s)")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

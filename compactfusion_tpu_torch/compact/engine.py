@@ -202,20 +202,45 @@ def _ef_decompress_raw(payload, state: EFState, cfg: CompactConfig, method: Comp
     return reconstructed, state
 
 
+#: odd 64-bit multipliers (as signed int64) of :func:`bits_digest`
+_DIGEST_MULTS = (0x9E3779B97F4A7C15 - (1 << 64), 0xC2B2AE3D27D4EB4F - (1 << 64))
+
+
+def bits_digest(x: torch.Tensor) -> torch.Tensor:
+    """Two position-weighted sums (int64, wrapping) of x's bytes taken as
+    64-bit words: the first weighs word i by an odd number, so a copy that
+    differs in one word always differs in it, and in several words only
+    where the weighted differences cancel mod 2^64 in both sums."""
+    b = x.contiguous().reshape(-1).view(torch.uint8)
+    if b.numel() % 8:
+        b = torch.cat([b, b.new_zeros((-b.numel()) % 8)])
+    w = b.view(torch.int64)
+    i = torch.arange(w.numel(), device=w.device, dtype=torch.int64)
+    return torch.stack([(w * (i * _DIGEST_MULTS[0] | 1)).sum(), ((w ^ (i * _DIGEST_MULTS[1])) * (i | 1)).sum()])
+
+
 def check_consistency(state: EFState, mesh, axis: str) -> torch.Tensor:
     """Distributed invariant oracle (the reference's
     ``CompactCache.check_consistency``): the mean of every cache entry over
     the ``axis`` group of ``mesh`` (an all-reduce), and the largest absolute
     deviation of this rank's copy from it (a 0-dim fp32 tensor).  Every
     rank's copy of every slot must be identical: the deviation is 0 unless
-    sender and receiver error feedback diverged."""
+    sender and receiver error feedback diverged.
+
+    The ranks first gather each entry's :func:`bits_digest` (16 bytes an
+    entry, where the all-reduce moves the entry): equal on every rank, the
+    copies are the same and the deviation is 0 without the all-reduce;
+    else it runs as above.  Every rank sees every digest, so all take the
+    same branch."""
     n = mesh.axis_size(axis)
+    entries = [x for entry in state if entry is not None
+               for x in (entry if isinstance(entry, codecs.Int8Payload) else (entry,))]
+    digests = torch.stack([bits_digest(x) for x in entries])
+    if n == 1 or all(torch.equal(d, digests) for d in mesh.all_gather(digests, axis)):
+        return torch.zeros((), dtype=torch.float32, device=entries[0].device)
     devs = []
-    for entry in state:
-        if entry is None:
-            continue
-        for x in (entry if isinstance(entry, codecs.Int8Payload) else (entry,)):
-            x32 = x.float()
-            mean = mesh.all_reduce_sum(x32, axis) / n
-            devs.append((x32 - mean).abs().max())
+    for x in entries:
+        x32 = x.float()
+        mean = mesh.all_reduce_sum(x32, axis) / n
+        devs.append((x32 - mean).abs().max())
     return torch.stack(devs).max()

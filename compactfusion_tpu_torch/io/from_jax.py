@@ -3,7 +3,8 @@
 ``params_from_numpy`` takes the JAX package's parameter tree with numpy
 leaves (``jax.tree_util.tree_map(np.asarray, params)``) and returns the same
 tree of torch tensors: dicts stay dicts (the stacked leading layer axis of
-``init_pixart`` included), lists stay lists (the VAE's up blocks).  This
+``init_pixart``, ``init_flux`` and ``init_cogvideox`` included), lists stay
+lists (the up blocks and their resnets of the 2D and the 3D VAE).  This
 module imports neither jax nor the JAX package.
 """
 

@@ -14,11 +14,15 @@ CPU:
     c) patch vectors (``models/common.patchify``);
   * separate to_q/to_k/to_v projections are fused into one qkv matrix;
   * per-layer tensors are stacked on a leading layer axis;
-  * the q and k columns of FLUX's qkv and its qk-norm gains are permuted
-    per head from the checkpoint's interleaved rope layout to the
-    rotate-half layout the model runs (``models/common.apply_rope_half``).
+  * the q and k columns of FLUX's and CogVideoX's qkv and their qk-norm
+    affines are permuted per head from the checkpoint's interleaved rope
+    layout to the rotate-half layout the model runs
+    (``models/common.apply_rope_half``);
+  * 3D conv kernels (out, in, kt, kh, kw) are transposed to (kt, kh, kw,
+    in, out); a 2D kernel loads with kt = 1.
 
-Converters: T5, CLIP, PixArt, FLUX and the AutoencoderKL decoder.  This
+Converters: T5, CLIP, PixArt, FLUX, CogVideoX, the AutoencoderKL decoder and
+the CogVideoX causal 3D VAE decoder.  This
 module imports numpy and torch, not JAX.
 """
 
@@ -144,6 +148,14 @@ def _half_rope_rms(p):
     """The matching permutation of a per-head-dim qk-norm gain (rmsnorm's
     mean square does not depend on the order)."""
     return {"g": p["g"][..., torch.from_numpy(rope_half_perm(p["g"].shape[-1]))]}
+
+
+def _half_rope_norm(p):
+    """Same for an affine LayerNorm qk-norm (the CogVideoX family): its mean
+    and variance over the head dim do not depend on the order; gain and
+    bias relabel."""
+    perm = torch.from_numpy(rope_half_perm(p["g"].shape[-1]))
+    return {"g": p["g"][..., perm], "b": p["b"][..., perm]}
 
 
 def _rms(state, name, dtype):
@@ -328,6 +340,105 @@ def convert_vae_decoder(state: Dict[str, np.ndarray], cfg) -> Any:
         blk = {"resnets": [resnet(f"{p}.resnets.{j}") for j in range(cfg.layers_per_block + 1)]}
         if f"{p}.upsamplers.0.conv.weight" in state:
             blk["upsample_conv"] = _conv(state, f"{p}.upsamplers.0.conv", dt)
+        up.append(blk)
+    params["up"] = up
+    return params
+
+
+# ---------------------------------------------------------------------------
+# CogVideoX (diffusers CogVideoXTransformer3DModel naming)
+# ---------------------------------------------------------------------------
+
+
+def convert_cogvideox(state: Dict[str, np.ndarray], cfg) -> Any:
+    """diffusers ``CogVideoXTransformer3DModel`` names -> ``models/cogvideox.
+    init_cogvideox``'s tree (2B, 5B and 1.5-5B)."""
+    dt = cfg.dtype
+    blocks = []
+    for i in range(cfg.depth):
+        p = f"transformer_blocks.{i}"
+        blocks.append({
+            "mod_attn": _lin(state, f"{p}.norm1.linear", dt),
+            "norm1": _norm(state, f"{p}.norm1.norm", dt),
+            "mod_ff": _lin(state, f"{p}.norm2.linear", dt),
+            "norm2": _norm(state, f"{p}.norm2.norm", dt),
+            "qkv": _half_rope_qkv(_fused_qkv(state, f"{p}.attn1.to_q", f"{p}.attn1.to_k", f"{p}.attn1.to_v", dt),
+                                  cfg.heads),
+            "q_norm": _half_rope_norm(_norm(state, f"{p}.attn1.norm_q", dt)),
+            "k_norm": _half_rope_norm(_norm(state, f"{p}.attn1.norm_k", dt)),
+            "attn_out": _lin(state, f"{p}.attn1.to_out.0", dt),
+            "ffn": {"fc1": _lin(state, f"{p}.ff.net.0.proj", dt), "fc2": _lin(state, f"{p}.ff.net.2", dt)},
+        })
+    if cfg.patch_t > 1:
+        # CogVideoX 1.5: patch_embed.proj is a linear over (p_t, p, p, C)-packed
+        # tokens, the packing this model uses; proj_out's output features are
+        # (C, p_t, p, p)-ordered in the checkpoint, ours (p_t, p, p, C)
+        patch_embed = _lin(state, "patch_embed.proj", dt)
+        c, p_t, pp = cfg.out_channels, cfg.patch_t, cfg.patch
+        w = np.asarray(state["proj_out.weight"]).reshape(c, p_t, pp, pp, -1).transpose(1, 2, 3, 0, 4)
+        b = np.asarray(state["proj_out.bias"]).reshape(c, p_t, pp, pp).transpose(1, 2, 3, 0).reshape(-1)
+        proj_out = {"w": _tensor(w.reshape(-1, w.shape[-1]).T, dt), "b": _tensor(b, dt)}
+    else:
+        patch_embed = _patch_conv_as_linear(state, "patch_embed.proj", dt)
+        proj_out = _lin(state, "proj_out", dt)
+    out = {
+        "patch_embed": patch_embed,
+        "text_proj": _lin(state, "patch_embed.text_proj", dt),
+        "t_embed": _embedder(state, "time_embedding", dt),
+        "blocks": _stack(blocks),
+        "norm_final": _norm(state, "norm_final", dt),
+        "norm_out_mod": _lin(state, "norm_out.linear", dt),
+        "norm_out_norm": _norm(state, "norm_out.norm", dt),
+        "proj_out": proj_out,
+    }
+    if cfg.patch_t > 1:
+        out["ofs_embed"] = _embedder(state, "ofs_embedding", dt)  # the ofs branch (constant 2.0)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the CogVideoX causal 3D VAE decoder (diffusers AutoencoderKLCogVideoX naming)
+# ---------------------------------------------------------------------------
+
+
+def _conv3(state, name, dtype):
+    """torch Conv3d (O, I, T, H, W) -> {w (T, H, W, I, O), b}; a 4D Conv2d
+    weight (the upsampler's per-frame conv) loads with T = 1."""
+    w = state[f"{name}.weight"]
+    if w.ndim == 4:
+        w = w[:, :, None]
+    return {"w": _tensor(np.transpose(w, (2, 3, 4, 1, 0)), dtype), "b": _tensor(state[f"{name}.bias"], dtype)}
+
+
+def convert_vae3d_decoder(state: Dict[str, np.ndarray], cfg) -> Any:
+    """CogVideoX causal 3D VAE decoder -> ``models/vae3d.init_vae3d_decoder``'s tree."""
+    dt = cfg.dtype
+
+    def spatial_norm(p):
+        return {"norm": _norm(state, f"{p}.norm_layer", dt), "conv_y": _conv3(state, f"{p}.conv_y", dt),
+                "conv_b": _conv3(state, f"{p}.conv_b", dt)}
+
+    def resnet(p):
+        out = {"norm1": spatial_norm(f"{p}.norm1"), "conv1": _conv3(state, f"{p}.conv1.conv", dt),
+               "norm2": spatial_norm(f"{p}.norm2"), "conv2": _conv3(state, f"{p}.conv2.conv", dt)}
+        if f"{p}.conv_shortcut.weight" in state:
+            out["shortcut"] = _conv3(state, f"{p}.conv_shortcut", dt)
+        return out
+
+    mid = "decoder.mid_block"
+    params = {
+        "conv_in": _conv3(state, "decoder.conv_in.conv", dt),
+        "mid_res1": resnet(f"{mid}.resnets.0"),
+        "mid_res2": resnet(f"{mid}.resnets.1"),
+        "norm_out": spatial_norm("decoder.norm_out"),
+        "conv_out": _conv3(state, "decoder.conv_out.conv", dt),
+    }
+    up = []
+    for i in range(len(cfg.block_out_channels)):
+        p = f"decoder.up_blocks.{i}"
+        blk = {"resnets": [resnet(f"{p}.resnets.{j}") for j in range(cfg.layers_per_block + 1)]}
+        if f"{p}.upsamplers.0.conv.weight" in state:
+            blk["upsample_conv"] = _conv3(state, f"{p}.upsamplers.0.conv", dt)
         up.append(blk)
     params["up"] = up
     return params

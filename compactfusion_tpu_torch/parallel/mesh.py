@@ -73,7 +73,10 @@ def pack_tree(tree):
     Returns (buffer, unpack): ``unpack(got)`` rebuilds a tree of the same
     structure, shapes and dtypes, on the leaves' device, from a received
     buffer, or from (W, nbytes) stacked ones as leaves with a leading W
-    axis."""
+    axis.  Every rebuilt leaf starts 16-byte aligned: one that lies at an
+    offset that is not (after a leaf of an odd row count, CogVideoX's 8,775
+    or 17,550 rows of bf16 scales) is copied out, since the quant kernels'
+    vector plan takes aligned operands only."""
     leaves = _leaves(tree)
     order = sorted(range(len(leaves)), key=lambda i: -leaves[i].element_size())
     flat = torch.cat([leaves[i].contiguous().reshape(-1).view(torch.uint8) for i in order])
@@ -86,7 +89,10 @@ def pack_tree(tree):
         for i in order:
             t = leaves[i]
             n = t.numel() * t.element_size()
-            out[i] = got[..., off:off + n].contiguous().view(t.dtype).reshape(lead + tuple(t.shape))
+            part = got[..., off:off + n].contiguous()
+            if part.data_ptr() % 16:
+                part = part.clone()
+            out[i] = part.view(t.dtype).reshape(lead + tuple(t.shape))
             off += n
         return _rebuild(tree, iter(out))
 

@@ -10,9 +10,10 @@ CPU), builds the mesh from the ``EngineConfig``, loads a checkpoint or
 draws seeded random weights on that device, and runs prompts through the
 real text path (tokenizer -> T5/CLIP -> embeddings) into the pipeline.
 
-Ported families: PixArt-alpha 512 and FLUX.1 (dev, schnell), with their
-``-tiny`` test configs.  The other families of the JAX registry resolve by
-the same patterns and raise ``NotImplementedError``.
+Ported families: PixArt-alpha 512, FLUX.1 (dev, schnell) and CogVideoX
+(2B, 5B, 1.5-5B; text to video, the causal 3D VAE), with their ``-tiny``
+test configs.  The other families of the JAX registry resolve by the same
+patterns and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -240,11 +241,73 @@ def _unported(name: str, pattern: str):
     register_family(name, pattern)(build)
 
 
+def _load_vae3d(checkpoint: Optional[str], vcfg, device):
+    """CogVideoX-family 3D VAE decoder params: the checkpoint's ``vae/``
+    subdir, or seeded random weights (seed 11, as the JAX ``_load_vae3d``)."""
+    from compactfusion_tpu_torch.io import hf
+    from compactfusion_tpu_torch.models.vae3d import init_vae3d_decoder
+
+    if checkpoint:
+        vae_dir = os.path.join(checkpoint, "vae")
+        if os.path.isdir(vae_dir):
+            return cm.to_device(hf.convert_vae3d_decoder(hf.load_safetensors(vae_dir), vcfg), device)
+    return init_vae3d_decoder(torch.Generator(device=device).manual_seed(11), vcfg)
+
+
+def _build_cogvideox(engine: EngineConfig, inp: InputConfig, checkpoint: Optional[str] = None,
+                     device="cuda"):
+    from compactfusion_tpu_torch.io import hf
+    from compactfusion_tpu_torch.models.cogvideox import (
+        cogvideox_1_5_5b,
+        cogvideox_2b,
+        cogvideox_5b,
+        cogvideox_tiny,
+        init_cogvideox,
+    )
+    from compactfusion_tpu_torch.models.vae3d import cogvideox_vae, tiny_vae3d
+    from compactfusion_tpu_torch.pipelines.cogvideox import CogVideoXPipeline, CogVideoXPipelineConfig
+
+    name = engine.model_config.model.lower()
+    is_15 = "1.5" in name or "1-5" in name  # THUDM/CogVideoX1.5-5B
+    if "tiny" in name:
+        mcfg = cogvideox_tiny(patch_t=2 if is_15 else 1)
+    elif is_15:
+        mcfg = cogvideox_1_5_5b()
+    else:
+        mcfg = cogvideox_5b() if "5b" in name else cogvideox_2b()
+    if checkpoint and os.path.isdir(os.path.join(checkpoint, "transformer")):
+        params = cm.to_device(hf.convert_cogvideox(_transformer_state(checkpoint), mcfg), device)
+    else:
+        params = init_cogvideox(torch.Generator(device=device).manual_seed(0), mcfg)
+    if "tiny" in name:
+        vcfg = dataclasses.replace(tiny_vae3d(), latent_channels=mcfg.in_channels)
+    else:
+        vcfg = cogvideox_vae()
+        if engine.runtime_config.enable_tiling:
+            vcfg = dataclasses.replace(vcfg, use_tiling=True)
+    pcfg = CogVideoXPipelineConfig(
+        model=mcfg,
+        vae=vcfg,
+        parallel=engine.parallel_config,
+        compact=engine.compact_config,
+        num_steps=inp.num_inference_steps,
+        guidance_scale=inp.guidance_scale,
+        height=inp.height,
+        width=inp.width,
+        num_frames=inp.num_frames,
+    )
+    pipe = CogVideoXPipeline(params, _load_vae3d(checkpoint, vcfg, device), pcfg, device, mesh=_mesh(engine))
+    return pipe, pcfg
+
+
 # the JAX registry's other families, in its order and with its patterns
 for _name, _pattern in (("sd3", r"stable-diffusion-3|sd3"), ("cogvideox", r"cogvideo"), ("latte", r"latte"),
                         ("hunyuanvideo", r"hunyuanvideo"), ("consisid", r"consisid"),
                         ("stepvideo", r"step[-_]?video"), ("hunyuandit", r"hunyuan(?!.?video)")):
-    _unported(_name, _pattern)
+    if _name == "cogvideox":
+        register_family(_name, _pattern)(_build_cogvideox)
+    else:
+        _unported(_name, _pattern)
 
 
 def _load_vae2d(checkpoint: Optional[str], vcfg, device):
@@ -277,8 +340,9 @@ class xDiTParallel:
     directory its tokenizers and encoders, without one byte-level
     tokenizers over seeded random weights.  Random weights are drawn on the
     bound device from ``torch.Generator``s seeded 0 (backbone), 1 (PixArt's
-    VAE; FLUX's 11, as ``_load_vae2d``) and 7 (the prompt encoder), as the
-    JAX builders seed ``PRNGKey``s: other draws, the same trees.
+    VAE; FLUX's and CogVideoX's 11, as ``_load_vae2d`` and ``_load_vae3d``)
+    and 7 (the prompt encoder), as the JAX builders seed ``PRNGKey``s: other
+    draws, the same trees.
     """
 
     def __init__(self, engine_config: EngineConfig, input_config: InputConfig,
@@ -288,9 +352,10 @@ class xDiTParallel:
 
         self.engine_config = engine_config
         self.input_config = input_config
-        if input_config.num_frames > 1 or input_config.img_file_path:
-            raise NotImplementedError(f"video output (num_frames={input_config.num_frames}) and identity "
-                                      f"images (img_file_path): {ROADMAP_HINT}")
+        if input_config.img_file_path:
+            # ConsisID's identity image; num_frames is read by the video
+            # families and, as in the JAX package, ignored by the image ones
+            raise NotImplementedError(f"identity images (img_file_path): {ROADMAP_HINT}")
         # binds cuda:<local_rank> or raises where no GPU is visible; joins
         # the torchrun process group when WORLD_SIZE > 1
         self.device = init_distributed_environment("nccl" if device == "cuda" else "gloo", device)
@@ -361,7 +426,7 @@ class xDiTParallel:
 
     #: the per-layer block stacks that ``--quantize_backbone_int8`` quantizes
     #: (embedders and heads stay in the model dtype)
-    _INT8_BLOCK_KEYS = {"pixart": ("blocks",), "flux": ("double_blocks", "single_blocks")}
+    _INT8_BLOCK_KEYS = {"pixart": ("blocks",), "flux": ("double_blocks", "single_blocks"), "cogvideox": ("blocks",)}
 
     def _quantize_backbone_int8(self):
         """``--quantize_backbone_int8``: int8 weights for the block stacks
@@ -412,8 +477,9 @@ class xDiTParallel:
 
     def __call__(self, generator: Optional[torch.Generator] = None, decode: Optional[bool] = None,
                  latents: Optional[torch.Tensor] = None):
-        """Run the request in ``input_config``: images (B, H, W, 3) in [0, 1],
-        or the final latents with ``output_type="latent"`` or ``decode=False``.
+        """Run the request in ``input_config``: images (B, H, W, 3) in [0, 1]
+        (CogVideoX: videos (B, T, H, W, 3)), or the final latents with
+        ``output_type="latent"`` or ``decode=False``.
         Noise: ``latents`` when given, else drawn from ``generator``
         (default: one seeded with ``input_config.seed`` on the device)."""
         if self.engine_config.runtime_config.use_profiler:
@@ -438,6 +504,10 @@ class xDiTParallel:
         if self.family == "flux":
             txt, pooled = enc.encode_for_flux(prompts, max_length=seq)
             return self.pipeline(txt, pooled, generator=generator, latents=latents, decode=decode)
+        if self.family == "cogvideox":
+            # (2, B, S, D) cond/uncond T5 states at max_sequence_length, no mask
+            txt = enc.encode_for_video(prompts, negative, max_length=seq)
+            return self.pipeline(txt, generator=generator, latents=latents, decode=decode)
         txt, mask = enc.encode_for_pixart(prompts, negative, max_length=seq)
         out = self.pipeline(txt, mask, generator=generator, latents=latents, decode=decode)
         pcfg = self.pipeline_config
@@ -449,7 +519,7 @@ class xDiTParallel:
     def save(self, directory: str, prefix: str = "cftpu", out=None):
         """Write outputs of this rank (reference ``xDiTParallel.save``):
         images as PNG, one per batch element (``utils/image.py``, no PIL);
-        latents as ``.npy``.  ``out``: an already generated result."""
+        videos and latents as ``.npy``.  ``out``: an already generated result."""
         import torch.distributed as dist
 
         from compactfusion_tpu_torch.utils.image import to_uint8, write_png

@@ -1,6 +1,7 @@
 """Shared pipeline machinery (counterpart of ``compactfusion_tpu/pipelines/base.py``).
 
-CFG as a doubled batch or exchanged over the cfg axis, latent noise from a
+CFG as a doubled batch or exchanged over the cfg axis (CogVideoX's dynamic
+guidance table with it), latent noise from a
 ``torch.Generator``, EF state carried across step segments, and the
 compression schedule, layer-uniform or per-layer (``compress_func``).
 Under a mesh each rank holds its share of the latents: batch over dp,
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from compactfusion_tpu_torch.parallel.mesh import AXIS_CFG, AXIS_DP, AXIS_RING, AXIS_ULYSSES, Mesh
@@ -36,17 +38,22 @@ def slice_local_tokens(full: torch.Tensor, mesh: Optional[Mesh], ulysses_size: i
     return full.narrow(dim, idx * local, local)
 
 
-def cfg_combine(eps: torch.Tensor, guidance_scale: float, cfg_degree: int,
+def cfg_combine(eps: torch.Tensor, guidance_scale, cfg_degree: int,
                 mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Classifier-free guidance.  cfg_degree 1: on a [cond; uncond] batch.
     cfg_degree 2: this rank computed the cond (cfg index 0) or the uncond
     (1) prediction; the two exchange over the cfg axis and both form
-    ``uncond + g * (cond - uncond)``, so the latents stay the same on both."""
+    ``uncond + g * (cond - uncond)``, so the latents stay the same on both.
+    ``guidance_scale`` is a float, or a 0-d fp32 tensor (an entry of
+    :func:`dynamic_cfg_table`), which makes the result fp32 as the JAX
+    package's promotion does: ``cond - uncond`` in eps's dtype, then fp32."""
     if cfg_degree == 2:
         other = ring_shift((eps,), mesh, AXIS_CFG)[0]
         cond, uncond = (eps, other) if mesh.axis_index(AXIS_CFG) == 0 else (other, eps)
-        return uncond + guidance_scale * (cond - uncond)
-    cond, uncond = eps.chunk(2, dim=0)
+    else:
+        cond, uncond = eps.chunk(2, dim=0)
+    if isinstance(guidance_scale, torch.Tensor):
+        return uncond.float() + guidance_scale.item() * (cond - uncond).float()
     return uncond + guidance_scale * (cond - uncond)
 
 
@@ -67,6 +74,16 @@ def prepare_latents(generator: torch.Generator, batch: int, tokens: int, token_d
     z = torch.randn((batch, tokens, token_dim), generator=generator,
                     dtype=torch.float32, device=generator.device)
     return z.to(device=device, dtype=dtype)
+
+
+def dynamic_cfg_table(guidance_scale: float, timesteps, num_steps: int) -> torch.Tensor:
+    """Per-step CogVideoX dynamic-CFG scales: g(t) = 1 + g0 * (1 - cos(pi *
+    ((n - t) / n)^5)) / 2 with t the raw timestep value.  Taken on the host
+    in float64 and rounded to fp32 once: the phase reaches ~1e7 rad, far
+    past fp32's cosine."""
+    ts = np.asarray(timesteps, np.float64)
+    g = 1.0 + guidance_scale * ((1.0 - np.cos(np.pi * ((num_steps - ts) / num_steps) ** 5.0)) / 2.0)
+    return torch.from_numpy(g.astype(np.float32))
 
 
 def _structure(tree):

@@ -1,16 +1,18 @@
-"""DPM-Solver++ 2M on the DDPM schedule
+"""DPM-Solver++ 2M and the v-prediction DDIM step on the DDPM schedule
 (counterpart of part of ``compactfusion_tpu/schedulers/diffusion.py``).
 
 The schedule tables and the per-step scalars are fp32, as in the JAX
 package; the step index is a Python int, so the first/last-step branches
-are plain ``if``s.  DDIM/DDPM steppers and the CogVideoX schedule variants
-are not ported yet.
+are plain ``if``s.  The CogVideoX variants of the schedule (SNR shift,
+zero terminal SNR) are ported, with the DDIM steps (eta 0) for epsilon and
+v prediction; the ancestral DDPM stepper is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 
@@ -23,8 +25,11 @@ class DDPMSchedule(NamedTuple):
 def ddpm_schedule(num_steps: int, num_train_timesteps: int = 1000, beta_start: float = 0.0001,
                   beta_end: float = 0.02, beta_schedule: str = "scaled_linear",
                   set_alpha_to_one: bool = True,
-                  timestep_spacing: str = "leading") -> DDPMSchedule:
-    """Tables on the CPU (the per-step scalars are read on the host)."""
+                  timestep_spacing: str = "leading", snr_shift_scale: Optional[float] = None,
+                  rescale_zero_snr: bool = False) -> DDPMSchedule:
+    """Tables on the CPU (the per-step scalars are read on the host).
+    ``snr_shift_scale`` / ``rescale_zero_snr`` are the CogVideoX DDIM
+    variants (shift the SNR of the forward process; force terminal SNR 0)."""
     if beta_schedule == "scaled_linear":
         betas = torch.linspace(beta_start**0.5, beta_end**0.5, num_train_timesteps,
                                dtype=torch.float32) ** 2
@@ -34,13 +39,25 @@ def ddpm_schedule(num_steps: int, num_train_timesteps: int = 1000, beta_start: f
         raise ValueError(f"unknown beta schedule {beta_schedule}")
     alphas_cumprod = torch.cumprod(1.0 - betas, dim=0)
 
+    if snr_shift_scale is not None:
+        alphas_cumprod = alphas_cumprod / (snr_shift_scale + (1.0 - snr_shift_scale) * alphas_cumprod)
+    if rescale_zero_snr:
+        # Lin et al. 2023: shift and scale sqrt(alpha_bar) so the last step
+        # has SNR exactly 0 while the first is unchanged
+        ab = torch.sqrt(alphas_cumprod)
+        ab0, abt = ab[0], ab[-1]
+        ab = (ab - abt) * ab0 / (ab0 - abt)
+        alphas_cumprod = torch.clamp(ab**2, 1e-12, 1.0)
+
     if timestep_spacing == "leading":
         step = num_train_timesteps // num_steps
         timesteps = (torch.arange(num_steps) * step).flip(0).to(torch.int32)
     elif timestep_spacing == "trailing":
-        timesteps = torch.round(
-            torch.arange(num_train_timesteps, 0, -num_train_timesteps / num_steps)
-        ).to(torch.int32) - 1
+        # numpy's fp32 arange fills start + i * step in fp32 as the JAX
+        # package's does; torch's differs from it in the last bit at about
+        # half of the N in 1..1000 (48, 96, 112, ...), and rounds elsewhere
+        grid = np.arange(num_train_timesteps, 0, -num_train_timesteps / num_steps, dtype=np.float32)
+        timesteps = torch.from_numpy(np.round(grid).astype(np.int32)) - 1
     elif timestep_spacing == "linspace":
         # N+1 points over [0, T-1], reversed, dropping the final 0 (the
         # diffusers DPMSolverMultistepScheduler default)
@@ -56,6 +73,37 @@ def ddpm_schedule(num_steps: int, num_train_timesteps: int = 1000, beta_start: f
 def _alpha_at(sched: DDPMSchedule, t: int) -> torch.Tensor:
     """alphas_cumprod[t]; t < 0 means the final alpha."""
     return sched.alphas_cumprod[t] if t >= 0 else sched.final_alpha_cumprod
+
+
+def _pred_x0(sample32, eps32, a_t):
+    return (sample32 - torch.sqrt(1.0 - a_t).item() * eps32) / torch.sqrt(a_t).item()
+
+
+def ddim_step(sched: DDPMSchedule, i: int, num_steps: int, sample: torch.Tensor, eps: torch.Tensor,
+              num_train_timesteps: int = 1000) -> torch.Tensor:
+    """DDIM step (eta 0) for epsilon-prediction models, in fp32."""
+    t = int(sched.timesteps[i])
+    a_t = _alpha_at(sched, t)
+    a_prev = _alpha_at(sched, t - num_train_timesteps // num_steps)
+    x32, e32 = sample.float(), eps.float()
+    x0 = _pred_x0(x32, e32, a_t)
+    out = torch.sqrt(a_prev).item() * x0 + torch.sqrt(1.0 - a_prev).item() * e32
+    return out.to(sample.dtype)
+
+
+def ddim_step_v(sched: DDPMSchedule, i: int, num_steps: int, sample: torch.Tensor, v: torch.Tensor,
+                num_train_timesteps: int = 1000) -> torch.Tensor:
+    """DDIM step (eta 0) for v-prediction models (the CogVideoX family):
+    x0 = sqrt(a) x - sqrt(1 - a) v, eps = sqrt(a) v + sqrt(1 - a) x, in fp32."""
+    t = int(sched.timesteps[i])
+    a_t = _alpha_at(sched, t)
+    a_prev = _alpha_at(sched, t - num_train_timesteps // num_steps)
+    x32, v32 = sample.float(), v.float()
+    sa, sb = torch.sqrt(a_t).item(), torch.sqrt(1.0 - a_t).item()
+    x0 = sa * x32 - sb * v32
+    eps = sa * v32 + sb * x32
+    out = torch.sqrt(a_prev).item() * x0 + torch.sqrt(1.0 - a_prev).item() * eps
+    return out.to(sample.dtype)
 
 
 class DPMState(NamedTuple):

@@ -112,7 +112,7 @@ NAMES = ["PixArt-alpha/PixArt-XL-2-512x512", "pixart-tiny", "black-forest-labs/F
          "step_video", "Tencent-Hunyuan/HunyuanDiT-v1.2", "hunyuanvideo-tiny", "hunyuandit-tiny"]
 
 
-def test_registry_resolves_every_name_jax_resolves():
+def test_registry_resolves_every_name_jax_resolves(monkeypatch):
     assert [(f.name, f.pattern) for f in tapi._REGISTRY.values()] == \
         [(f.name, f.pattern) for f in japi._REGISTRY.values()]
     for name in NAMES:
@@ -121,18 +121,42 @@ def test_registry_resolves_every_name_jax_resolves():
         with pytest.raises(ValueError, match="no pipeline registered"):
             mod.resolve_family("stable-cascade")
     engine, inp = _config(targs, ["--model", "sd3-tiny"])
-    for name in ("sd3", "cogvideox", "latte", "hunyuanvideo", "consisid", "stepvideo", "hunyuandit"):
+    for name in ("sd3", "latte", "hunyuanvideo", "consisid", "stepvideo", "hunyuandit"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tapi._REGISTRY[name].build(engine, inp, None, "cpu")
+    # CogVideoX is ported: its builder gives the pipeline JAX's gives, per name
+    from compactfusion_tpu_torch.pipelines.cogvideox import CogVideoXPipeline
+
+    for name, (dim, patch_t, rotary) in (("cogvideox-tiny", (64, 1, True)), ("cogvideox1.5-tiny", (64, 2, True))):
+        e, i = _config(targs, ["--model", name, "--height", "32", "--width", "48", "--num_frames", "9"])
+        pipe, pcfg = tapi._REGISTRY["cogvideox"].build(e, i, None, "cpu")
+        assert isinstance(pipe, CogVideoXPipeline) and pcfg.num_frames == 9
+        assert (pcfg.model.dim, pcfg.model.patch_t, pcfg.model.use_rotary) == (dim, patch_t, rotary)
+    # the full-size configs by name, with --enable_tiling, without drawing their weights
+    from compactfusion_tpu_torch.models import cogvideox as tcog
+    from compactfusion_tpu_torch.models import vae3d as tvae3d
+
+    monkeypatch.setattr(tcog, "init_cogvideox", lambda gen, cfg: {})
+    monkeypatch.setattr(tvae3d, "init_vae3d_decoder", lambda gen, cfg: {})
+    for name, want in (("THUDM/CogVideoX-2b", tcog.cogvideox_2b()), ("THUDM/CogVideoX-5b", tcog.cogvideox_5b()),
+                       ("THUDM/CogVideoX1.5-5B", tcog.cogvideox_1_5_5b())):
+        e, i = _config(targs, ["--model", name, "--num_frames", "49", "--height", "480", "--width", "720",
+                               "--enable_tiling"])
+        _, pcfg = tapi._REGISTRY["cogvideox"].build(e, i, None, "cpu")
+        assert pcfg.model == want and pcfg.vae == dataclasses.replace(tvae3d.cogvideox_vae(), use_tiling=True)
     # PixArt-Sigma and the VAE memory knobs wait on the same item
     for argv in (["--model", "PixArt-alpha/PixArt-Sigma-XL-2-1024-MS"], ["--model", "pixart", "--height", "1024"],
                  PIXART + ["--enable_tiling"], PIXART + ["--enable_slicing"]):
         e, i = _config(targs, argv)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tapi.xDiTParallel(e, i, device="cpu")
-    for argv in (PIXART + ["--num_frames", "5"], PIXART + ["--img_file_path", "x.png"]):
-        with pytest.raises(NotImplementedError):
-            tapi.xDiTParallel(*_config(targs, argv), device="cpu")
+    # ConsisID's identity image still raises
+    with pytest.raises(NotImplementedError):
+        tapi.xDiTParallel(*_config(targs, PIXART + ["--img_file_path", "x.png"]), device="cpu")
+    # num_frames is read by the video families; PixArt ignores it, as in JAX
+    five = tapi.xDiTParallel(*_config(targs, PIXART + ["--num_frames", "5"]), device="cpu")
+    assert five.pipeline_config == tapi.xDiTParallel(*_config(targs, PIXART), device="cpu").pipeline_config
+    assert five(decode=False).shape == (1, 16, 16)
     # no CPU path unless the caller asks for it
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

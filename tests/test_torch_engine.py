@@ -290,3 +290,29 @@ def test_quantized_ring_state_slots():
     for t, n in zip(ring_leaves(slot(layer, 2)), ring_leaves(new)):
         assert torch.equal(t, n)
     assert torch.equal(st.k.base.q[1, 2], new.base.q) and st.k.base.q[0].sum() == 0
+
+
+@pytest.mark.parametrize("shape,dtype", [((2, 17550, 24), torch.float32), ((3, 5), torch.bfloat16),
+                                         ((7,), torch.int8)])
+def test_bits_digest_tells_copies_apart(shape, dtype):
+    """``check_consistency`` skips its all-reduce when every rank's
+    ``bits_digest`` is equal: equal bits give equal digests, and a change of
+    any one element (a flipped bit of it, anywhere) changes the digest."""
+    from compactfusion_tpu_torch.compact.engine import bits_digest
+
+    g = torch.Generator().manual_seed(3)
+    x = (torch.randn(shape, generator=g) * 50).to(dtype)
+    d = bits_digest(x)
+    assert d.shape == (2,) and d.dtype == torch.int64
+    assert torch.equal(bits_digest(x.clone()), d)
+    flat = x.reshape(-1).view(torch.uint8)
+    for pos in (0, flat.numel() // 2, flat.numel() - 1):
+        for bit in (0, 7):
+            y = flat.clone()
+            y[pos] ^= 1 << bit
+            assert not torch.equal(bits_digest(y.view(dtype).reshape(shape)), d), (pos, bit)
+    # two elements swapped: the position weights see it
+    if x.numel() > 1 and not torch.equal(x.reshape(-1)[0], x.reshape(-1)[-1]):
+        y = x.reshape(-1).clone()
+        y[0], y[-1] = x.reshape(-1)[-1], x.reshape(-1)[0]
+        assert not torch.equal(bits_digest(y.reshape(shape)), d)

@@ -38,7 +38,8 @@ def test_importing_every_module_leaves_jax_out():
               "models.flux", "pipelines.flux", "schedulers.flow_match", "io.hf", "args", "parallel_api",
               "models.prompt", "models.text_encoders", "io.tokenizers", "utils.logger", "utils.image",
               "utils.prof", "entrypoints.launch", "examples.configs", "examples.pixartalpha_example",
-              "examples.flux_example"):
+              "examples.flux_example", "models.cogvideox", "models.vae3d", "pipelines.cogvideox",
+              "examples.cogvideox_example"):
         assert f"compactfusion_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

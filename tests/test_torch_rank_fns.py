@@ -179,6 +179,35 @@ def flux_pipeline_latents(rank, world, configs, params, vae_params, inputs):
     return res
 
 
+def cogvideox_pipeline_latents(rank, world, configs, models, inputs):
+    """Per configuration (name, model form, ParallelConfig kwargs,
+    CompactConfig kwargs or None): the tiny fp32 CogVideoX pipeline's final
+    latents on this rank (32 x 48, 9 frames: 18 video tokens, 4 steps,
+    guidance 6) from ``inputs`` = (txt, noise), and the largest EF cache
+    deviation across the ring.  ``models``: {form: (use_rotary, params)}."""
+    import dataclasses
+
+    from compactfusion_tpu_torch.io.from_jax import params_from_numpy
+    from compactfusion_tpu_torch.models import cogvideox as tcog
+    from compactfusion_tpu_torch.pipelines.cogvideox import CogVideoXPipeline, CogVideoXPipelineConfig
+
+    built = {form: (dataclasses.replace(tcog.cogvideox_tiny(), use_rotary=rotary, dtype=torch.float32),
+                    params_from_numpy(params)) for form, (rotary, params) in models.items()}
+    txt, noise = (torch.from_numpy(a) for a in inputs)
+    res = {}
+    for name, form, par, compact in configs:
+        tm, tparams = built[form]
+        parallel = ParallelConfig(**par)
+        ckw = {} if compact is None else dict(compact, compress_type=CompressType(compact["compress_type"]))
+        cfg = CogVideoXPipelineConfig(model=tm, parallel=parallel, num_steps=4, height=32, width=48, num_frames=9,
+                                      compact=CompactConfig(**ckw))
+        pipe = CogVideoXPipeline(tparams, None, cfg, "cpu", mesh=tmesh.make_mesh(parallel))
+        tring.max_consistency_dev = 0.0
+        lat = pipe(txt, latents=noise, decode=False)
+        res[name] = (lat.numpy(), tring.max_consistency_dev)
+    return res
+
+
 def _sp_meshes():
     """Ulysses 2 x ring 2 and Ulysses 4 (every rank builds both, in this
     order)."""
