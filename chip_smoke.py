@@ -219,18 +219,40 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
     cut model and of the twin's run, the fused lossless ring within it of
     the unfused one; compressed 0 < err < 0.05; EF deviation 0; the ring,
     all-to-all and cfg bytes the shapes imply.
+35. Kernel 1 against its twin at PixArt's patch-pipeline shapes (the patch
+    queries, 512 rows at M = 2 and 256 at M = 4, against the whole
+    1,024-token K/V cache, B2), timed eager and by CUDA graphs beside SDPA;
+    then PixArt-alpha 512 at full width and depth through ``xDiTParallel``
+    from its prompt in 4 gloo processes on this card: sync PipeFusion pp2
+    (``--num_pipeline_patch 1``; bit-equal to the one-process runner
+    expected, within HALVES_REL_MAX), the patch pipeline at pp2 with M = 2
+    (the default) and with M = 4 after 2 warmup steps (PATCH_PP_REL from
+    sync), TP 2 (within HALVES_REL_MAX), pp2 x ring 2 BINARY (the
+    consistency check on: 0 < err < 0.05, EF deviation 0), and ring 2 with
+    2 VAE ranks (rank 0's image within VAE_RANKS_ATOL and VAE_RANKS_MEAN of
+    the one-process decode of its latents, no image on the other ranks);
+    exact launch counts on every rank (each stage's 14 blocks a forward,
+    the patch pipeline's (steps - warmup) x M patches).
+36. Kernel 1 against its twin at FLUX's patch shape (the 512 text rows in
+    front of a 1,024-row patch against 4,608 keys, 24 heads of 128); then
+    phase 19's FLUX.1-dev cut (padded with zero blocks to 2 + 2 under pp2)
+    and phase 34's CogVideoX-2b cut at full width, in 2 gloo processes:
+    FLUX sync pp2 within PP_FLUX_REL_MAX of one process running the same
+    padded model, the patch pipeline pp2 M = 4 within PATCH_PP_REL of
+    sync, TP 2 within RING_REL_MAX; CogVideoX sync pp2 and TP 2 within
+    COG_RING_REL_MAX of phase 34's one process; exact launch counts.
 
-Phases 4-15, 18-19, 21-27, 29, 31 and 33-34 hold their latents against a lossless request and
+Phases 4-15, 18-19, 21-27, 29, 31 and 33-36 hold their latents against a lossless request and
 their kernel launch counts against the counts the path implies (kernel 1's
 wide-body launches among them, one per decoded image, and those of
 kernels 2, 3, 5 and 6 on their vector plans, all of their launches); every
 count is set to 0 just before each of phases 3-11, 13-15, 16's probes
 (and the calibration), 18-19, 21-22, 24-27 and each request or run of 28-31
-and 33-34,
+and 33-36,
 in every process, and read just after; kernels 1, 4, 7 and 8 count their fp32 launches apart.  A probe
 counts a launch when it captures a CUDA graph, so phase 16 reports the
 launches the device ran (the captured count times the replays).  The
-``launches`` of the pipeline's kernels are those of phases 3-15, 18-19, 21-31 and 33-34: what
+``launches`` of the pipeline's kernels are those of phases 3-15, 18-19, 21-31 and 33-36: what
 kernel 1 ran inside the probes is reported beside them, under phase 16's
 ``launches_of_pipeline_kernels``.  The s/image of phases 13-15 is that of
 processes sharing one card, not a ring speed (so are phase 19's).
@@ -3248,7 +3270,7 @@ def cog_ring_phase(kernels, dev, codecs):
     BINARY; cfg 2.  Every run against one process running the same cut
     model, the fused runs against the unfused ones, with exact launch
     counts, EF caches equal across ranks and the bytes the shapes imply.
-    Returns the phases."""
+    Returns (the phases, the one-process latents)."""
     import torch
 
     from compactfusion_tpu_torch.parallel.mesh import spawn_local
@@ -3346,7 +3368,334 @@ def cog_ring_phase(kernels, dev, codecs):
           f"rank {sorted(set(cfg_bytes))}, expected {want_cfg}; u2 binary vs u2 lossless {u2_same}")
     if any(b != want_a2a for b in a2a) or any(b != want_cfg for b in cfg_bytes):
         raise AssertionError("phase 34: the all-to-alls or the cfg exchange sent other bytes than the path implies")
-    return phases
+    return phases, one
+
+
+# -- phases 35-36: PipeFusion, TP and the VAE ranks ---------------------------
+
+#: phase 35's PixArt command lines (through ``xDiTParallel``, from the prompt)
+PP_ARGV = PIXART_ARGV + ["--pipefusion_parallel_degree", "2"]
+#: the patch pipelines against sync PipeFusion: the stale K/V moves them off
+#: it (> 1e-6), within the JAX package's bound
+#: (tests/models/test_pixart.py::test_patch_pipelined_pipefusion)
+PATCH_PP_REL = (1e-6, 0.3)
+#: the VAE ranks' image against the one-process decode of the same latents
+#: (tests/core/test_parallel_api.py::test_vae_parallel_size_through_api)
+VAE_RANKS_ATOL, VAE_RANKS_MEAN = 2e-2, 2e-3
+#: FLUX's sync PipeFusion against one process running the same padded model
+PP_FLUX_REL_MAX = 1e-5
+#: phase 36's patch pipeline: M = 4 patches after 1 sync step (FLUX needs
+#: M >= 2 x pp); CogVideoX has no patch pipeline in the JAX package
+FLUX_PATCH = 4
+
+
+def patch_flash_cases(gen, dev):
+    """Kernel 1 at the patch pipelines' shapes: PixArt's patch queries (M =
+    2: 512 rows, M = 4: 256) against the whole 1,024-token K/V cache at the
+    CFG batch 2; FLUX's (M = 4) the 512 text rows in front of a 1,024-row
+    patch against the text and the 4,096-token cache (24 heads of 128)."""
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def pixart(sq):
+        def make():
+            q, _, _ = _qkv_views(gen, dev, 2, sq)
+            return q, rnd(2, 1024, 16, 72), rnd(2, 1024, 16, 72)
+        return make
+
+    fq, fk = FLUX_TXT + FLUX_IMG // FLUX_PATCH, FLUX_TXT + FLUX_IMG
+    return [
+        ("PixArt patch (M2) B2 H16 Sq512 Sk1024 d72", pixart(512), 20),
+        ("PixArt patch (M4) B2 H16 Sq256 Sk1024 d72", pixart(256), 20),
+        (f"FLUX patch (M4) B1 H24 Sq{fq} Sk{fk} d128",
+         lambda: (rnd(1, fq, 24, 128), rnd(1, fk, 24, 128), rnd(1, fk, 24, 128)), 10),
+    ]
+
+
+def pp_runner_rank(rank, world, runs):
+    """One rank of phase 35 (``spawn_local`` on this GPU, gloo): per run
+    (name, argv, whether the consistency check is on) ``xDiTParallel`` from
+    the command line (PixArt's AdaLN tables spiced, as phase 31's runner),
+    the request from its prompt with every launch count set to 0 before
+    it: its latents (None on a VAE rank), then the image as the runner
+    decodes it (rank 0's alone with VAE ranks, the VAE ranks decoding their
+    bands).  A rank past the run's mesh and VAE tail only joins its groups.
+    Returns per run the latents, the image, the counts, the largest EF
+    deviation across the ring and the seconds."""
+    import dataclasses
+
+    import torch
+
+    from compactfusion_tpu_torch.compact import ring as compact_ring
+    from compactfusion_tpu_torch.models import pixart as model_pixart
+    from compactfusion_tpu_torch.parallel import mesh as pmesh
+    from compactfusion_tpu_torch.parallel_api import xDiTParallel
+
+    init = model_pixart.init_pixart
+    model_pixart.init_pixart = lambda generator, cfg: spice_pixart(init(generator, cfg))
+    kernels = port_kernels()
+    out = {}
+    for name, argv, check in runs:
+        engine, inp = _cli(argv).create_config()
+        par = engine.parallel_config
+        if rank >= par.world_size + par.vae_parallel_size:
+            pmesh.make_mesh(par)
+            pmesh.make_vae_mesh(par)
+            out[name] = None
+            continue
+        if check:
+            engine = dataclasses.replace(engine, compact_config=dataclasses.replace(
+                engine.compact_config, check_consistency=True))
+        runner = xDiTParallel(engine, inp)
+        _reset_counts(kernels)
+        compact_ring.max_consistency_dev = 0.0
+        t0 = time.perf_counter()
+        lat = runner(decode=False)
+        if runner.tail:
+            runner.pipeline.decode_band(len(inp.prompt))
+            img = None
+        else:
+            img = runner.pipeline.decode(lat)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        out[name] = {"latents": None if lat is None else lat.float().cpu().numpy(),
+                     "image": None if img is None else img.float().cpu().numpy(), "launches": _counts(kernels),
+                     "consistency_dev": compact_ring.max_consistency_dev, "s": sec}
+        del runner, lat, img
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rank_counts(phase, name, ranks, expect):
+    """Every rank's counts against ``expect`` (a function of the rank, to
+    {kernel: count}, the routes' counts as :func:`_with_routes` implies);
+    returns the counts summed over the ranks."""
+    for r, res in enumerate(ranks):
+        _check_counts(f"[{phase}] {name} rank {r}", res["launches"], _with_routes(expect(r)))
+    return {k: sum(res["launches"][k] for res in ranks) for k in ranks[0]["launches"]}
+
+
+def pp_pixart_phase(kernels, flash, timing, dev, gen):
+    """Phase 35: kernel 1 at PixArt's patch shapes, then PixArt-alpha 512 at
+    full width and depth through ``xDiTParallel`` from the prompt, in 4 gloo
+    processes on this card: sync PipeFusion pp2 (``--num_pipeline_patch
+    1``), the patch pipeline at pp2 with M = 2 (the default) and with M = 4
+    after 2 warmup steps, TP 2, pp2 x ring 2 BINARY (the consistency check
+    on), and ring 2 with 2 VAE ranks; against the one-process runner's
+    request.  Returns (the phases, kernel 1's rows)."""
+    import numpy as np
+    import torch
+
+    from compactfusion_tpu_torch.parallel.mesh import spawn_local
+    from compactfusion_tpu_torch.parallel_api import xDiTParallel
+
+    rows = check_flash(flash, timing, dev, gen, patch_flash_cases(gen, dev)[:2], phase=35)
+    # the one-process reference: the same weights (spiced), prompt and seed
+    t0 = time.perf_counter()
+    runner = xDiTParallel(*_cli(PIXART_ARGV).create_config())
+    spice_pixart(runner.pipeline.params)
+    _reset_counts(kernels)
+    one = runner(decode=False)
+    _check_counts("[35] one process", _counts(kernels), {"flash_attn_with_lse": DEPTH * STEPS})
+    pipe = runner.pipeline
+    del runner  # the prompt encoder leaves the card; the pipeline decodes below
+    torch.cuda.empty_cache()
+    one_np = one.float().cpu().numpy()
+    ref_s = time.perf_counter() - t0
+    sync = PP_ARGV + ["--num_pipeline_patch", "1"]
+    runs = [("pp2 sync", sync, False), ("pp2 patch M2", PP_ARGV, False),
+            ("pp2 patch M4 warmup 2", PP_ARGV + ["--num_pipeline_patch", "4", "--warmup_steps", "2"], False),
+            ("tp2", PIXART_ARGV + ["--tensor_parallel_degree", "2"], False),
+            ("pp2 x ring2 binary", sync + ["--ring_degree", "2", "--compact", "--compact_type", "binary"], True),
+            ("ring2 + 2 VAE ranks", PIXART_ARGV + ["--ring_degree", "2", "--vae_parallel_size", "2"], False)]
+    t0 = time.perf_counter()
+    four = spawn_local(pp_runner_rank, 4, "gloo", runs, threads=2)
+    spawn_s = time.perf_counter() - t0
+    half, comp = DEPTH // 2, STEPS - WARMUP
+    # kernel 1 a rank: its stage's 14 blocks a forward; the patch pipeline's
+    # sync warmup steps and its priming step take the whole sequence, then
+    # (steps - warmup) x M patches; each rank decodes its image (one wide launch)
+    expect = {
+        "pp2 sync": lambda r: {"flash_attn_with_lse": half * STEPS + 1},
+        "pp2 patch M2": lambda r: {"flash_attn_with_lse": half * (1 + 2 * (STEPS - 1)) + 1},
+        "pp2 patch M4 warmup 2": lambda r: {"flash_attn_with_lse": half * (2 + 4 * (STEPS - 2)) + 1},
+        "tp2": lambda r: {"flash_attn_with_lse": DEPTH * STEPS + 1},
+        "pp2 x ring2 binary": lambda r: {"flash_attn_with_lse": 2 * half * STEPS + 1,
+                                         "binary_quant_fastpath": 2 * half * comp,
+                                         "binary_dequant_fastpath": 2 * half * comp},
+        # the DiT ranks decode nothing; each VAE rank's band runs the mid-block
+        # attention on the gathered map once
+        "ring2 + 2 VAE ranks": lambda r: ({"flash_attn_with_lse": 2 * DEPTH * STEPS, WIDE: 0} if r < 2
+                                          else {"flash_attn_with_lse": 1}),
+    }
+    phases = {}
+    sync_np = None
+    for name, argv, _ in runs:
+        ranks = [res[name] for res in four if res[name] is not None]
+        dit = [res for res in ranks if res["latents"] is not None]
+        lat = dit[0]["latents"]
+        for r, res in enumerate(dit):
+            if not np.array_equal(res["latents"], lat):
+                raise AssertionError(f"[35] {name}: rank {r}'s latents differ from rank 0's")
+        launches = _rank_counts(35, name, ranks, expect[name])
+        rel = _rel_np(lat, one_np)
+        rep = {"latent_rel_err_vs_one_process": rel, "s": [res["s"] for res in ranks], "launches": launches,
+               "launches_per_rank": [res["launches"] for res in ranks],
+               "consistency_dev": max(res["consistency_dev"] for res in ranks)}
+        line = f"[35] {name} ({len(ranks)} processes on one GPU, gloo): rel err vs one process {rel:.6g}"
+        if name == "pp2 sync":
+            sync_np = lat
+            ok = rel <= HALVES_REL_MAX
+            line += f" (bit-equal expected, bound {HALVES_REL_MAX})"
+        elif name.startswith("pp2 patch"):
+            rep["latent_rel_err_vs_sync"] = vs = _rel_np(lat, sync_np)
+            ok = PATCH_PP_REL[0] < vs < PATCH_PP_REL[1] and np.isfinite(lat).all()
+            line += f"; vs sync PipeFusion {vs:.6g} (bounds {PATCH_PP_REL})"
+        elif name == "tp2":
+            ok = rel <= HALVES_REL_MAX
+            line += f" (bound {HALVES_REL_MAX})"
+        elif "binary" in name:
+            ok = 0.0 < rel <= COMPRESSED_REL_ERR_MAX and rep["consistency_dev"] == 0.0
+            line += f" (bounds (0, {COMPRESSED_REL_ERR_MAX}]); EF deviation {rep['consistency_dev']}"
+        else:
+            img = dit[0]["image"]
+            if any(res["image"] is not None for res in ranks[1:]):
+                raise AssertionError(f"[35] {name}: a rank other than 0 holds an image")
+            check_image(torch.from_numpy(img), f"[35] {name} rank 0")
+            ref_img = pipe.decode(torch.from_numpy(lat).to(dev)).float().cpu().numpy()
+            err = np.abs(img - ref_img)
+            rep.update(image_max_abs_err=float(err.max()), image_mean_abs_err=float(err.mean()))
+            ok = rel <= HALVES_REL_MAX and err.max() <= VAE_RANKS_ATOL and err.mean() < VAE_RANKS_MEAN
+            line += (f" (bound {HALVES_REL_MAX}); rank 0's image vs the one-process decode of its latents: max abs "
+                     f"{err.max():.3e} (bound {VAE_RANKS_ATOL}), mean {err.mean():.3e} (bound {VAE_RANKS_MEAN}); "
+                     f"the other ranks hold none")
+        print(line + f"; seconds a rank (runner build excluded) {', '.join(f'{res['s']:.2f}' for res in ranks)}; "
+              f"launches per rank: {', '.join(f'{k} {v}' for k, v in ranks[0]['launches'].items() if v)}")
+        if not ok:
+            raise AssertionError(f"[35] {name}: outside its bounds")
+        phases[f"pixart {name}"] = rep
+    print(f"[35] one-process reference {ref_s:.1f} s; the spawn took {spawn_s:.1f} s")
+    del pipe
+    torch.cuda.empty_cache()
+    return phases, rows
+
+
+def stage_rank(rank, world, runs):
+    """One rank of phase 36 (``spawn_local`` on this GPU, gloo): phase 19's
+    FLUX.1-dev cut and phase 34's CogVideoX-2b cut from their seeds, then
+    per run (name, family, ParallelConfig kwargs, pipeline-config kwargs)
+    the request from seed 1 (FLUX decoded, CogVideoX not) with every launch
+    count set to 0 before it; returns per run the latents, the counts and
+    the seconds."""
+    import torch
+
+    from compactfusion_tpu_torch.config import ParallelConfig
+    from compactfusion_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    kernels = port_kernels()
+    models = {"flux": build_flux(dev, *FLUX_CUT), "cogvideox": build_cog_cut(dev)}
+    out = {}
+    for name, family, par, kw in runs:
+        parallel = ParallelConfig(**par)
+        mesh = make_mesh(parallel)
+        _reset_counts(kernels)
+        if family == "flux":
+            pipe = flux_pipeline(*models["flux"], dev, parallel=parallel, mesh=mesh, **kw)
+            lat, img, sec = flux_request(pipe, 1)
+            check_image(img, f"[36] {name} rank {rank}", FLUX_SIZE)
+        else:
+            pipe = cog_pipeline(*models["cogvideox"], dev, parallel=parallel, mesh=mesh, **kw)
+            lat, sec = cog_request(pipe, 1)
+        out[name] = {"latents": lat.float().cpu().numpy(), "launches": _counts(kernels), "s": sec}
+        del pipe
+    return out
+
+
+def pp_flux_cog_phase(kernels, flash, timing, dev, gen, flux_one, cog_one):
+    """Phase 36: kernel 1 at FLUX's patch shape; then FLUX.1-dev at phase
+    19's cut (1 + 2 blocks, padded to 2 + 2 under pp2) and CogVideoX-2b at
+    phase 34's (2 blocks, 6 steps), full width, in 2 gloo processes on this
+    card: FLUX sync pp2 against one process running the same padded model,
+    the patch pipeline pp2 M = 4 against sync, TP 2; CogVideoX sync pp2 and
+    TP 2 against phase 34's one process.  Returns (the phases, kernel 1's
+    rows)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from compactfusion_tpu_torch.models.flux import pad_flux_for_pp
+    from compactfusion_tpu_torch.parallel.mesh import spawn_local
+
+    rows = check_flash(flash, timing, dev, gen, patch_flash_cases(gen, dev)[2:], phase=36)
+    mcfg, vcfg, params, vae_params = build_flux(dev, *FLUX_CUT)
+    padded, pcfg = pad_flux_for_pp(params, mcfg, 2)
+    _reset_counts(kernels)
+    lat, img, sec = flux_request(flux_pipeline(pcfg, vcfg, padded, vae_params, dev), 1)
+    check_image(img, "[36] FLUX padded, one process", FLUX_SIZE)
+    pl = pcfg.double_layers + pcfg.single_layers
+    _check_counts("[36] FLUX padded, one process", _counts(kernels), {"flash_attn_with_lse": pl * FLUX_STEPS + 1,
+                                                                       WIDE: 1})
+    padded_np = lat.float().cpu().numpy()
+    del params, padded, vae_params, lat, img
+    torch.cuda.empty_cache()
+    pad_vs = _rel_np(padded_np, flux_one)
+    print(f"[36] FLUX.1-dev cut to {mcfg.double_layers} + {mcfg.single_layers} blocks, padded with zero blocks "
+          f"to {pcfg.double_layers} + {pcfg.single_layers} for pp2: one process {sec:.4f} s/image, rel err vs "
+          f"phase 19's unpadded run {pad_vs:.6g}")
+    runs = [("flux pp2 sync", "flux", {"pp_degree": 2}, {}),
+            ("flux pp2 patch M4", "flux", {"pp_degree": 2}, {"num_pipeline_patch": FLUX_PATCH}),
+            ("flux tp2", "flux", {"tp_degree": 2}, {}),
+            ("cog pp2 sync", "cogvideox", {"pp_degree": 2}, {}),
+            ("cog tp2", "cogvideox", {"tp_degree": 2}, {})]
+    t0 = time.perf_counter()
+    two = spawn_local(stage_rank, 2, "gloo", runs, threads=2)
+    spawn_s = time.perf_counter() - t0
+    fl, L = pl // 2, COG_CUT  # a FLUX stage's layers (1 double + 1 single), CogVideoX's blocks
+    expect = {"flux pp2 sync": {"flash_attn_with_lse": fl * FLUX_STEPS + 1},
+              # 1 sync step on the whole sequence, then 27 steps x 4 patches
+              "flux pp2 patch M4": {"flash_attn_with_lse": fl * (1 + FLUX_PATCH * (FLUX_STEPS - 1)) + 1},
+              "flux tp2": {"flash_attn_with_lse": (mcfg.double_layers + mcfg.single_layers) * FLUX_STEPS + 1},
+              "cog pp2 sync": {"flash_attn_with_lse": L // 2 * COG_RING_STEPS, WIDE: 0},
+              "cog tp2": {"flash_attn_with_lse": L * COG_RING_STEPS, WIDE: 0}}
+    phases = {}
+    for name, family, _, _ in runs:
+        ranks = [res[name] for res in two]
+        lat = ranks[0]["latents"]
+        if not all(np.array_equal(res["latents"], lat) for res in ranks):
+            raise AssertionError(f"[36] {name}: the ranks' latents differ")
+        launches = _rank_counts(36, name, ranks, lambda r: expect[name])
+        ref, ref_name = (padded_np, "one process (padded)") if family == "flux" else (cog_one, "phase 34's one process")
+        rel = _rel_np(lat, ref)
+        rep = {f"latent_rel_err_vs_{ref_name}": rel, "s": [res["s"] for res in ranks], "launches": launches,
+               "launches_per_rank": [res["launches"] for res in ranks]}
+        if name == "flux pp2 sync":
+            bound = (None, PP_FLUX_REL_MAX)
+        elif name == "flux pp2 patch M4":
+            rep["latent_rel_err_vs_sync"] = vs = _rel_np(lat, phases["flux pp2 sync"]["latents"])
+            bound = PATCH_PP_REL
+            rel = vs
+        elif name == "flux tp2":
+            bound = (None, RING_REL_MAX)
+        else:
+            bound = (None, COG_RING_REL_MAX)
+        ok = (bound[0] is None or rel > bound[0]) and rel <= bound[1] and np.isfinite(lat).all()
+        print(f"[36] {name} (2 processes on one GPU, gloo): latents equal on both ranks; rel err vs "
+              f"{'sync PipeFusion' if 'patch' in name else ref_name} {rel:.6g} (bounds {bound}); s/request "
+              f"{', '.join(f'{res['s']:.3f}' for res in ranks)}; launches per rank: "
+              f"{', '.join(f'{k} {v}' for k, v in ranks[0]['launches'].items() if v)}")
+        if not ok:
+            raise AssertionError(f"[36] {name}: outside its bounds")
+        phases[name] = dict(rep, latents=lat)
+    for rep in phases.values():
+        rep.pop("latents")
+    print(f"[36] the spawn took {spawn_s:.1f} s")
+    return phases, rows
 
 
 def main():
@@ -3679,7 +4028,8 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     cog_secs["33"], t0 = time.perf_counter() - t0, time.perf_counter()
-    phases.update(cog_ring_phase(kernels, dev, codecs))
+    cog_phases, cog_one = cog_ring_phase(kernels, dev, codecs)
+    phases.update(cog_phases)
     cog_secs["34"] = time.perf_counter() - t0
     print(f"[32-34] seconds: {', '.join(f'{k} {v:.1f}' for k, v in cog_secs.items())}")
     flash_rows += cog_rows["flash"]
@@ -3687,6 +4037,21 @@ def main():
         quant_rows[codec] += cog_rows["quant"][codec]
     ring_rows += cog_rows["ring"]
     cring_rows += cog_rows["cring"]
+
+    # -- 35.-36. PipeFusion, TP and the VAE ranks ------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    pp_secs, t0 = {}, time.perf_counter()
+    pp_phases, pp_rows = pp_pixart_phase(kernels, flash, timing, dev, gen)
+    phases.update(pp_phases)
+    pp_secs["35"], t0 = time.perf_counter() - t0, time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    stage_phases, stage_rows = pp_flux_cog_phase(kernels, flash, timing, dev, gen, flux_one, cog_one)
+    phases.update(stage_phases)
+    pp_secs["36"] = time.perf_counter() - t0
+    print(f"[35-36] seconds: {', '.join(f'{k} {v:.1f}' for k, v in pp_secs.items())}")
+    flash_rows += pp_rows + stage_rows
 
     totals = {fn.__name__: sum(p["launches"][fn.__name__] for p in phases.values()) for fn in kernels}
     for key in ROUTES.values():
@@ -3758,9 +4123,9 @@ def main():
          **{k: f32_rows["cring"][0]["ef"][k] for k in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by")},
          "shapes": [dict(r["ef"], shape=r["shape"]) for r in f32_rows["cring"]]},
     ], "sdpa_cross_attention": cross_rows, "fp32_ptxas": f32_rows["ptxas"], "phases": phases}
-    print(f"[done] phases 1-34 passed in {time.perf_counter() - t_run:.1f} s, the kernels' build included "
+    print(f"[done] phases 1-36 passed in {time.perf_counter() - t_run:.1f} s, the kernels' build included "
           f"(phases 23-27: {sum(sp_secs.values()):.1f} s; 28-31: {sum(entry_secs.values()):.1f} s; 32-34: "
-          f"{sum(cog_secs.values()):.1f} s)")
+          f"{sum(cog_secs.values()):.1f} s; 35-36: {sum(pp_secs.values()):.1f} s)")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

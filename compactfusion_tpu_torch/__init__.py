@@ -11,9 +11,10 @@ without the single-device compressed-ring emulation (``simulate_ring``),
 with every codec, residual order, int8-quantized EF caches, ``simulate``
 mode and per-layer ``compress_func`` plans, and the single-device
 accelerators (``cache/``: DiTFastAttn plans and their calibration,
-TeaCache and FBCache), sequence parallelism across ranks (``parallel/``:
-the ring, Ulysses and the hybrid USP, the patch-parallel gather with
-CompactFusion's compressed all-gather and DistriFusion's stale gather) and
+TeaCache and FBCache), parallelism across ranks (``parallel/``: the ring,
+Ulysses and the hybrid USP, the patch-parallel gather with CompactFusion's
+compressed all-gather and DistriFusion's stale gather, PipeFusion sync and
+patch-pipelined, tensor parallelism and the VAE ranks' banded decode) and
 the flash profiling probes (``probes/``); and FLUX.1 (``models/flux.py``,
 ``pipelines/flux.py``: flow-match Euler with embedded guidance, the
 16-channel VAE, the text as the ring's joint tensors, its checkpoint

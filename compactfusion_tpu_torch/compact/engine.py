@@ -231,13 +231,17 @@ def check_consistency(state: EFState, mesh, axis: str) -> torch.Tensor:
     entry, where the all-reduce moves the entry): equal on every rank, the
     copies are the same and the deviation is 0 without the all-reduce;
     else it runs as above.  Every rank sees every digest, so all take the
-    same branch."""
+    same branch.  A NaN or an Inf in any entry gives NaN, as ``x - mean``
+    does in the JAX oracle: equal copies share their non-finite entries, so
+    with equal digests every rank returns NaN; else the all-reduce carries
+    it."""
     n = mesh.axis_size(axis)
     entries = [x for entry in state if entry is not None
                for x in (entry if isinstance(entry, codecs.Int8Payload) else (entry,))]
     digests = torch.stack([bits_digest(x) for x in entries])
     if n == 1 or all(torch.equal(d, digests) for d in mesh.all_gather(digests, axis)):
-        return torch.zeros((), dtype=torch.float32, device=entries[0].device)
+        finite = bool(torch.stack([torch.isfinite(x).all() for x in entries]).all())
+        return torch.full((), 0.0 if finite else float("nan"), dtype=torch.float32, device=entries[0].device)
     devs = []
     for x in entries:
         x32 = x.float()

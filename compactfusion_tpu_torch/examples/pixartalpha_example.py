@@ -5,9 +5,19 @@
         --num_inference_steps 20 --prompt "a small cactus with a happy face"
     torchrun --nproc_per_node 4 -m compactfusion_tpu_torch.examples.pixartalpha_example \\
         --ulysses_degree 2 --ring_degree 2 --prompt "a small cactus with a happy face"
+    torchrun --nproc_per_node 2 -m compactfusion_tpu_torch.examples.pixartalpha_example \\
+        --pipefusion_parallel_degree 2 --prompt "a small cactus with a happy face"
+    torchrun --nproc_per_node 2 -m compactfusion_tpu_torch.examples.pixartalpha_example \\
+        --tensor_parallel_degree 2 --prompt "a small cactus with a happy face"
+    torchrun --nproc_per_node 4 -m compactfusion_tpu_torch.examples.pixartalpha_example \\
+        --ring_degree 2 --vae_parallel_size 2 --prompt "a small cactus with a happy face"
 
 Add ``--compact --compact_type binary`` for CompactFusion's compressed ring
-attention.  Runs on the GPU (one per rank under ``torchrun``); without a
+attention.  ``--pipefusion_parallel_degree 2`` runs PipeFusion's patch
+pipeline with ``--num_pipeline_patch`` 2 (the default, M = pp) after
+``--warmup_steps`` sync steps; ``--num_pipeline_patch 1`` runs it sync.  With
+``--vae_parallel_size`` the last ranks decode in height bands and only rank
+0 holds (and saves) the image.  Runs on the GPU (one per rank under ``torchrun``); without a
 checkpoint the weights are seeded random ones, so the machinery and its
 speed are real and the pixels are not art.  Writes one PNG per image and
 rank under ``results/``.
@@ -24,7 +34,8 @@ from compactfusion_tpu_torch.utils.prof import Profiler
 
 def main(argv=None):
     """Parse ``argv`` (default: the command line), warm up, generate, save;
-    returns (the images, the saved paths)."""
+    returns (the images, the saved paths), (None, None) on a rank that holds
+    none."""
     parser = FlexibleArgumentParser(description="PixArt-alpha example")
     xFuserArgs.add_cli_args(parser)
     ns = parser.parse_args(argv)
@@ -36,6 +47,9 @@ def main(argv=None):
             runner()
         with Profiler.scope("generate"):
             out = runner()
+    if out is None:  # a VAE rank, or another rank than 0 with VAE ranks
+        print("output: none on this rank")
+        return out, None
     arr = out.float().cpu().numpy()
     print(f"output: shape={arr.shape} finite={np.isfinite(arr).all()}")
     saved = runner.save("results", prefix="pixart_alpha", out=out)

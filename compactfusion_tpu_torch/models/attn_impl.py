@@ -6,8 +6,9 @@ stacked on a leading layer axis.  Ported: :class:`SingleDeviceAttn`, the
 single-device compressed-ring emulation :class:`SimRingAttn`, and
 sequence parallelism across ranks (Ulysses x ring), plain (:class:`USPAttn`)
 and compressed (:class:`CompactUSPAttn`), each on a ``parallel.mesh.Mesh``;
-the patch-parallel gather is ``parallel/patch.PatchParallelAttn``.
-PipeFusion is not ported yet.
+the patch-parallel gather is ``parallel/patch.PatchParallelAttn``; the
+patch-pipelined PipeFusion's stale-K/V attention is :class:`PatchKVAttn`,
+and :class:`PatchKVUlyssesAttn` under Ulysses.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ from compactfusion_tpu_torch.compact.ring import (
 )
 from compactfusion_tpu_torch.config import CompactConfig, CompressType
 from compactfusion_tpu_torch.ops.attention import sdpa
-from compactfusion_tpu_torch.parallel.mesh import AXIS_RING, Mesh
+from compactfusion_tpu_torch.parallel import ulysses as uly
+from compactfusion_tpu_torch.parallel.mesh import AXIS_RING, AXIS_ULYSSES, Mesh
 from compactfusion_tpu_torch.parallel.usp import usp_attention
 
 
@@ -105,6 +107,90 @@ class CompactUSPAttn:
             ulysses_size=self.ulysses_size, joint_q=joint_q, joint_k=joint_k, joint_v=joint_v,
             joint_strategy=joint_strategy if joint_q is not None else "none",
             fused=self.fused_ring)
+
+
+def _joint_front(q, k, v, joint_q, joint_k, joint_v, joint_strategy):
+    """The joint (text) rows in front of q, k and v: always fresh, never
+    cached (only image K/V ages)."""
+    if joint_q is None:
+        return q, k, v
+    if joint_strategy != "front":
+        raise ValueError(f"joint_strategy {joint_strategy!r}: only 'front'")
+    return (torch.cat([joint_q, q], dim=1), torch.cat([joint_k, k], dim=1),
+            torch.cat([joint_v, v], dim=1))
+
+
+def _write_patch(state, k, v, offset: int):
+    """Write the fresh patch K/V into the layer's full-sequence caches at
+    ``offset`` (in place) and return the caches in k's dtype."""
+    s = k.shape[1]
+    state["k_cache"][:, offset:offset + s] = k
+    state["v_cache"][:, offset:offset + s] = v
+    return state["k_cache"].to(k.dtype), state["v_cache"].to(v.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class PatchKVAttn:
+    """PipeFusion's patched attention: the current patch's fresh K/V are
+    written into the full-sequence K/V cache at its token ``offset``, and
+    the patch queries attend the whole, partly stale, sequence (reference
+    ``CacheManager._naive_cache_update``, ``cache_manager.py:105``).  The
+    pipeline sets ``offset`` for each micro-round (``dataclasses.replace``);
+    the JAX package keeps it in the state.
+
+    State (stacked per layer): ``k_cache``/``v_cache`` (L, B, S_total, H, D)
+    in the model dtype."""
+
+    offset: int = 0
+
+    def init_state(self, n_layers, batch, seq_total, heads, head_dim, dtype, device=None):
+        z = torch.zeros((n_layers, batch, seq_total, heads, head_dim), dtype=dtype, device=device)
+        return {"k_cache": z, "v_cache": z.clone()}
+
+    def __call__(self, q, k, v, state, *, joint_q=None, joint_k=None, joint_v=None,
+                 joint_strategy="front"):
+        k_full, v_full = _write_patch(state, k, v, self.offset)
+        q, k_full, v_full = _joint_front(q, k_full, v_full, joint_q, joint_k, joint_v, joint_strategy)
+        return sdpa(q, k_full, v_full), state
+
+
+@dataclasses.dataclass(frozen=True)
+class PatchKVUlyssesAttn:
+    """:class:`PatchKVAttn` under Ulysses (reference
+    ``CacheManager._sequence_parallel_cache_update``, ``cache_manager.py:
+    140``): the stale cache is sharded by heads (each Ulysses rank holds
+    H / U heads of every token), the fresh patch arrives sharded by tokens
+    and the all-to-all swaps it to heads; the cache takes it at ``offset``,
+    the patch queries attend the whole sequence, and the inverse all-to-all
+    restores the token sharding.  Joint (text) rows, replicated, are cut to
+    this rank's heads and their output heads gathered back."""
+
+    mesh: Mesh
+    ulysses_size: int
+    offset: int = 0
+
+    def init_state(self, n_layers, batch, seq_total, heads, head_dim, dtype, device=None):
+        z = torch.zeros((n_layers, batch, seq_total, heads // self.ulysses_size, head_dim), dtype=dtype,
+                        device=device)
+        return {"k_cache": z, "v_cache": z.clone()}
+
+    def __call__(self, q, k, v, state, *, joint_q=None, joint_k=None, joint_v=None,
+                 joint_strategy="front"):
+        m, u = self.mesh, self.ulysses_size
+        q, k, v = (uly.scatter_heads_gather_seq(t, m) for t in (q, k, v))  # (B, s_patch, H/U, D)
+        k_full, v_full = _write_patch(state, k, v, self.offset)
+        if joint_q is not None:
+            joint_q, joint_k, joint_v = (uly.slice_joint_heads(t, m, u) for t in (joint_q, joint_k, joint_v))
+        q, k_full, v_full = _joint_front(q, k_full, v_full, joint_q, joint_k, joint_v, joint_strategy)
+        out = sdpa(q, k_full, v_full)
+        if joint_q is None:
+            return uly.scatter_seq_gather_heads(out, m), state
+        s_j = joint_q.shape[1]
+        # the joint rows, computed for this rank's heads on every rank, get
+        # their heads back; the patch rows their token sharding
+        out_j = torch.cat(m.all_gather(out[:, :s_j].contiguous(), AXIS_ULYSSES), dim=2)
+        out_p = uly.scatter_seq_gather_heads(out[:, s_j:], m)
+        return torch.cat([out_j, out_p], dim=1), state
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,8 +11,9 @@ parameters are stacked on a leading layer axis, as ``init_cogvideox`` of
 the JAX package builds them, and the forward is a Python loop over it.
 
 Under sequence parallelism the video tokens are this rank's shard and the
-text rides as the attention's joint front tensors, as in FLUX.  PipeFusion
-and tensor parallelism are not ported yet.
+text rides as the attention's joint front tensors, as in FLUX.  Under sync
+PipeFusion the stack is this stage's blocks (``parallel/tp.py``); under
+tensor parallelism the ffn of the joined stream sums over the tp axis.
 """
 
 from __future__ import annotations
@@ -22,9 +23,9 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from compactfusion_tpu_torch import ROADMAP_HINT
 from compactfusion_tpu_torch.models import common as cm
 from compactfusion_tpu_torch.models.attn_impl import SingleDeviceAttn
+from compactfusion_tpu_torch.parallel.pipefusion import pipefusion_blocks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,6 +151,7 @@ def cogvideox_forward(
     attn_state=(),
     tp_axis: Optional[str] = None,
     pp_stages: int = 1,
+    mesh=None,
 ):
     """CogVideoX denoiser on this rank's video tokens.
 
@@ -158,9 +160,14 @@ def cogvideox_forward(
     local tokens (rotary models); pos_embed (S_local, dim) the sin-cos table
     (2B).  ``attn`` is one strategy or a tuple of ``(strategy, n_layers)``
     segments with ``attn_state`` the tuple of their states, updated in
-    place.  Returns (v prediction (B, S_local, token_out), attn_state)."""
-    if pp_stages > 1:
-        raise NotImplementedError(f"PipeFusion (pp_stages > 1): {ROADMAP_HINT}")
+    place.  Returns (v prediction (B, S_local, token_out), attn_state).
+    ``pp_stages`` > 1: sync PipeFusion over the pp axis of ``mesh``, the
+    blocks this stage's layers; ``tp_axis``: the ffn of the joined text +
+    video stream sums over that axis of ``mesh``."""
+    if (pp_stages > 1 or tp_axis is not None) and mesh is None:
+        raise ValueError(f"PipeFusion ({pp_stages} stages) or TP ({tp_axis}) needs this rank's mesh")
+    if pp_stages > 1 and isinstance(attn, (tuple, list)):
+        raise ValueError("per-layer compression plans do not compose with pp")
     h = cfg.heads
     vid = cm.linear(params["patch_embed"], video)
     if pos_embed is not None:
@@ -179,8 +186,8 @@ def cogvideox_forward(
     blocks = params["blocks"]
     s_txt = txt.shape[1]
     depth = cm.weight_shape(blocks["qkv"])[0]
-    for l, (layer_attn, seg_state, seg_l) in enumerate(cm.layer_strategies(attn, attn_state, depth)):
-        p = cm.layer_of(blocks, l)
+
+    def block(p, layer_attn, state, vid, txt):
         v_sh, v_sc, v_g, t_sh, t_sc, t_g = _mod6(p["mod_attn"], temb)
         vid_n = cm.layernorm(p["norm1"], vid, eps=1e-5) * (1 + v_sc) + v_sh
         txt_n = cm.layernorm(p["norm1"], txt, eps=1e-5) * (1 + t_sc) + t_sh
@@ -192,7 +199,7 @@ def cogvideox_forward(
         if video_rope is not None:
             vq, vk = cm.apply_rope_half(vq, cos_v, sin_v), cm.apply_rope_half(vk, cos_v, sin_v)
 
-        o, _ = layer_attn(vq, vk, vv, cm.layer_of(seg_state, seg_l), joint_q=tq, joint_k=tk, joint_v=tv)
+        o, _ = layer_attn(vq, vk, vv, state, joint_q=tq, joint_k=tk, joint_v=tv)
         proj = cm.linear(p["attn_out"], _unheads(o))  # text rows first
         txt = txt + t_g * proj[:, :s_txt]
         vid = vid + v_g * proj[:, s_txt:]
@@ -200,9 +207,21 @@ def cogvideox_forward(
         v_sh, v_sc, v_g, t_sh, t_sc, t_g = _mod6(p["mod_ff"], temb)
         vid_n = cm.layernorm(p["norm2"], vid, eps=1e-5) * (1 + v_sc) + v_sh
         txt_n = cm.layernorm(p["norm2"], txt, eps=1e-5) * (1 + t_sc) + t_sh
-        ff = cm.ffn(p["ffn"], torch.cat([txt_n, vid_n], dim=1), tp_axis=tp_axis)
+        ff = cm.ffn(p["ffn"], torch.cat([txt_n, vid_n], dim=1), tp_axis=tp_axis, mesh=mesh)
         txt = txt + t_g * ff[:, :s_txt]
         vid = vid + v_g * ff[:, s_txt:]
+        return vid, txt
+
+    def run_local(hh):
+        vid, txt = hh
+        for l, (layer_attn, seg_state, seg_l) in enumerate(cm.layer_strategies(attn, attn_state, depth)):
+            vid, txt = block(cm.layer_of(blocks, l), layer_attn, cm.layer_of(seg_state, seg_l), vid, txt)
+        return vid, txt
+
+    if pp_stages > 1:
+        vid, txt = pipefusion_blocks(run_local, (vid, txt), mesh)
+    else:
+        vid, txt = run_local((vid, txt))
 
     # norm_final over the joint sequence (the video rows kept), then
     # AdaLayerNorm: shift first, affine inner norm

@@ -352,10 +352,19 @@ def unpatchify(x: torch.Tensor, patch: int, hp: int, wp: int, channels: int) -> 
 # ---------------------------------------------------------------------------
 
 
-def ffn(p, x: torch.Tensor, act=gelu, tp_axis: Optional[str] = None) -> torch.Tensor:
-    """GELU MLP.  Tensor parallelism (``tp_axis``) is not ported yet."""
-    if tp_axis is not None:
-        from compactfusion_tpu_torch import ROADMAP_HINT
-
-        raise NotImplementedError(f"tensor-parallel ffn: {ROADMAP_HINT}")
-    return linear(p["fc2"], act(linear(p["fc1"], x)))
+def ffn(p, x: torch.Tensor, act=gelu, tp_axis: Optional[str] = None, mesh=None) -> torch.Tensor:
+    """GELU MLP.  With ``tp_axis``: this rank's fc1 columns and fc2 rows
+    (``parallel/tp.py``), the partial products summed over the tp axis of
+    ``mesh`` (``Mesh.all_reduce_sum``), fc2's bias added after the sum, as
+    the JAX ``ffn(tp_axis=)`` does (reference ``layers/feedforward.py``)."""
+    h = act(linear(p["fc1"], x))
+    if tp_axis is None:
+        return linear(p["fc2"], h)
+    if mesh is None:
+        raise ValueError(f"a tensor-parallel ffn ({tp_axis!r}) needs this rank's mesh")
+    w = dequant_weight(p["fc2"], h.dtype)
+    dt = torch.promote_types(h.dtype, w.dtype)
+    y = mesh.all_reduce_sum(h.to(dt) @ w.to(dt), tp_axis)
+    if "b" in p["fc2"]:
+        y = y + p["fc2"]["b"]
+    return y

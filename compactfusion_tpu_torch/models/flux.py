@@ -9,8 +9,11 @@ package, and each family's forward is a Python loop over that axis.
 
 Under sequence parallelism the image tokens are this rank's shard and the
 text tokens ride as joint front tensors of the attention strategy, so only
-image K/V crosses ranks (and is compressed).  PipeFusion and tensor
-parallelism are not ported yet.
+image K/V crosses ranks (and is compressed).  Under sync PipeFusion each
+family's stack is this stage's layers (``parallel/tp.py``, after
+:func:`pad_flux_for_pp`) and the two families run as two pipelines; under
+tensor parallelism both streams' ffns and the single blocks' MLP half sum
+over the tp axis.
 """
 
 from __future__ import annotations
@@ -20,10 +23,10 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from compactfusion_tpu_torch import ROADMAP_HINT
 from compactfusion_tpu_torch.cache.accel import CacheAccelState, next_probe, should_skip
 from compactfusion_tpu_torch.models import common as cm
 from compactfusion_tpu_torch.models.attn_impl import SingleDeviceAttn
+from compactfusion_tpu_torch.parallel.pipefusion import pipefusion_blocks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,9 +155,27 @@ def flux_image_positions(hp: int, wp: int, device=None) -> torch.Tensor:
 
 
 def pad_flux_for_pp(params, cfg: FluxConfig, ps: int):
-    """Identity padding of both block families for PipeFusion stages: not
-    ported yet (PipeFusion is not)."""
-    raise NotImplementedError(f"pad_flux_for_pp (PipeFusion): {ROADMAP_HINT}")
+    """Pad both block stacks with zero blocks so that each count divides
+    ``ps`` stages (FLUX.1 has 19 double blocks, a prime).  A block whose
+    modulation weights and biases are 0 has shift = scale = gate = 0, so
+    its attention and MLP are gated off and the stream passes it unchanged
+    (AdaLN-Zero).  Returns (padded params, padded cfg); the given tree when
+    both counts divide already."""
+    def pad(stack, extra):
+        if isinstance(stack, dict):
+            return {k: pad(v, extra) for k, v in stack.items()}
+        return torch.cat([stack, stack.new_zeros((extra,) + tuple(stack.shape[1:]))])
+
+    d_extra, s_extra = (-cfg.double_layers) % ps, (-cfg.single_layers) % ps
+    if d_extra == 0 and s_extra == 0:
+        return params, cfg
+    params = dict(params)
+    if d_extra:
+        params["double_blocks"] = pad(params["double_blocks"], d_extra)
+    if s_extra:
+        params["single_blocks"] = pad(params["single_blocks"], s_extra)
+    return params, dataclasses.replace(cfg, double_layers=cfg.double_layers + d_extra,
+                                       single_layers=cfg.single_layers + s_extra)
 
 
 def flux_time_embed(params, pooled, t, guidance, cfg: FluxConfig):
@@ -169,12 +190,13 @@ def flux_time_embed(params, pooled, t, guidance, cfg: FluxConfig):
 
 
 def flux_double_scan(blocks, img, txt, temb, cfg: FluxConfig, *, img_rope, txt_rope,
-                     attn=SingleDeviceAttn(), attn_state=(), tp_axis=None):
+                     attn=SingleDeviceAttn(), attn_state=(), tp_axis=None, mesh=None):
     """The double blocks (stacked) in order: -> (img, txt, attn_state).
 
     ``attn`` is one strategy or a tuple of ``(strategy, n_layers)`` segments
     (per-layer compression plans) with ``attn_state`` the tuple of their
-    states; states update in place and are returned."""
+    states; states update in place and are returned.  ``tp_axis``: the ffns
+    sum over that axis of ``mesh``."""
     h = cfg.heads
     # the params live in the rotate-half rope layout (io/hf.py permutes the
     # checkpoint's interleaved Wq/Wk columns)
@@ -202,13 +224,13 @@ def flux_double_scan(blocks, img, txt, temb, cfg: FluxConfig, *, img_rope, txt_r
 
         img = img + i_g_a * cm.linear(p["img_out"], _unheads(img_o))
         txt = txt + t_g_a * cm.linear(p["txt_out"], _unheads(txt_o))
-        img = img + i_g_m * cm.ffn(p["img_ffn"], _modulate(img, i_sh_m, i_sc_m), tp_axis=tp_axis)
-        txt = txt + t_g_m * cm.ffn(p["txt_ffn"], _modulate(txt, t_sh_m, t_sc_m), tp_axis=tp_axis)
+        img = img + i_g_m * cm.ffn(p["img_ffn"], _modulate(img, i_sh_m, i_sc_m), tp_axis=tp_axis, mesh=mesh)
+        txt = txt + t_g_m * cm.ffn(p["txt_ffn"], _modulate(txt, t_sh_m, t_sc_m), tp_axis=tp_axis, mesh=mesh)
     return img, txt, attn_state
 
 
 def flux_single_scan(blocks, img, txt, temb, cfg: FluxConfig, *, img_rope, txt_rope,
-                     attn=SingleDeviceAttn(), attn_state=(), tp_axis=None):
+                     attn=SingleDeviceAttn(), attn_state=(), tp_axis=None, mesh=None):
     """The single blocks (stacked) on the fused (txt | img) stream:
     -> (img, txt, attn_state).
 
@@ -231,7 +253,8 @@ def flux_single_scan(blocks, img, txt, temb, cfg: FluxConfig, *, img_rope, txt_r
 
     def out_proj(p, attn_out, xn, x, g):
         # [attn_out, gelu(mlp)] @ proj_out, the MLP half as a GELU FFN
-        y = cm.linear(p["out_attn"], attn_out) + cm.ffn(p["mlp"], xn, tp_axis=tp_axis)
+        # (split over tp; the attention half stays whole)
+        y = cm.linear(p["out_attn"], attn_out) + cm.ffn(p["mlp"], xn, tp_axis=tp_axis, mesh=mesh)
         return x + g * y
 
     if type(attn) is SingleDeviceAttn and not cm.has_tensors(attn_state):
@@ -307,13 +330,20 @@ def flux_forward(
     probe with one host read, and the rest of the stack either runs and
     refreshes the cached image residual or is replaced by it; ``mesh`` is
     this rank's mesh when ``cache_cfg.sp_axes`` sums the probe over ranks).
+
+    ``pp_stages`` > 1: sync PipeFusion over the pp axis of ``mesh``, the
+    double blocks as one pipeline and the single blocks as the next (each
+    stack this stage's layers, as the JAX package shards them).
+    ``tp_axis``: the ffns sum over that axis of ``mesh``.
     """
-    if pp_stages > 1:
-        raise NotImplementedError(f"PipeFusion (pp_stages > 1): {ROADMAP_HINT}")
+    if (pp_stages > 1 or tp_axis is not None) and mesh is None:
+        raise ValueError(f"PipeFusion ({pp_stages} stages) or TP ({tp_axis}) needs this rank's mesh")
+    if pp_stages > 1 and cache_cfg is not None and cache_cfg.mode != "none":
+        raise ValueError("TeaCache/FBCache does not compose with sync PipeFusion")
     img = cm.linear(params["x_embedder"], img)
     txt = cm.linear(params["context_embedder"], txt)
     temb = flux_time_embed(params, pooled, t, guidance, cfg)
-    rope = dict(img_rope=img_rope, txt_rope=txt_rope)
+    rope = dict(img_rope=img_rope, txt_rope=txt_rope, tp_axis=tp_axis, mesh=mesh)
 
     if cache_cfg is not None and cache_cfg.mode != "none":
         # skipped blocks would desync a strategy's state
@@ -324,7 +354,7 @@ def flux_forward(
         sh0, sc0 = mod0[:, None, : cfg.dim], mod0[:, None, cfg.dim: 2 * cfg.dim]
         probe_in = _modulate(img, sh0, sc0)
         img1, txt1, _ = flux_double_scan(cm.layer_of(blocks, slice(0, 1)), img, txt, temb, cfg, attn=attn,
-                                         tp_axis=tp_axis, **rope)
+                                         **rope)
         # FBCache probes the first block's residual, TeaCache its modulated input
         probe = (img1 - img) if cache_cfg.mode == "fbcache" else probe_in
         skip, accum = should_skip(cache_cfg, cache_state, probe, force_compute=cache_force, mesh=mesh)
@@ -333,9 +363,8 @@ def flux_forward(
             img, residual = img1 + cache_state.residual.to(img1.dtype), cache_state.residual
         else:
             img2, txt2, _ = flux_double_scan(cm.layer_of(blocks, slice(1, None)), img1, txt1, temb, cfg,
-                                             attn=attn, tp_axis=tp_axis, **rope)
-            img, _, _ = flux_single_scan(params["single_blocks"], img2, txt2, temb, cfg, attn=attn,
-                                         tp_axis=tp_axis, **rope)
+                                             attn=attn, **rope)
+            img, _, _ = flux_single_scan(params["single_blocks"], img2, txt2, temb, cfg, attn=attn, **rope)
             residual = (img - img1).to(cache_state.residual.dtype)
         new_cache = CacheAccelState(
             prev_probe=next_probe(cache_cfg, cache_state, probe, skip),
@@ -346,10 +375,25 @@ def flux_forward(
         )
         return flux_head(params, img, temb, cfg), attn_state_double, attn_state_single, new_cache
 
+    attn_s = attn if attn_single is None else attn_single
+    if pp_stages > 1:
+        if isinstance(attn, (tuple, list)) or attn_s is not attn:
+            raise ValueError("per-layer compression plans do not compose with pp")
+
+        def doubles(hh):
+            return flux_double_scan(params["double_blocks"], *hh, temb, cfg, attn=attn,
+                                    attn_state=attn_state_double, **rope)[:2]
+
+        def singles(hh):
+            return flux_single_scan(params["single_blocks"], *hh, temb, cfg, attn=attn,
+                                    attn_state=attn_state_single, **rope)[:2]
+
+        img, txt = pipefusion_blocks(doubles, (img, txt), mesh)
+        img, txt = pipefusion_blocks(singles, (img, txt), mesh)
+        return flux_head(params, img, temb, cfg), attn_state_double, attn_state_single
+
     img, txt, state_double = flux_double_scan(params["double_blocks"], img, txt, temb, cfg, attn=attn,
-                                              attn_state=attn_state_double, tp_axis=tp_axis, **rope)
-    img, txt, state_single = flux_single_scan(
-        params["single_blocks"], img, txt, temb, cfg,
-        attn=attn if attn_single is None else attn_single,
-        attn_state=attn_state_single, tp_axis=tp_axis, **rope)
+                                              attn_state=attn_state_double, **rope)
+    img, txt, state_single = flux_single_scan(params["single_blocks"], img, txt, temb, cfg, attn=attn_s,
+                                              attn_state=attn_state_single, **rope)
     return flux_head(params, img, temb, cfg), state_double, state_single

@@ -4,7 +4,8 @@ Patch embed + T5 caption projection, N blocks of [AdaLN-single
 self-attention, cross-attention to text, AdaLN-single GELU MLP], AdaLN final
 norm and a linear head predicting (noise, variance) per patch.  Block
 parameters are stacked on a leading layer axis, as in ``init_pixart`` of the
-JAX package, and the forward is a Python loop over that axis.
+JAX package, and the forward is a Python loop over that axis: the tree's
+own layers, which under PipeFusion are this stage's (``parallel/tp.py``).
 """
 
 from __future__ import annotations
@@ -14,11 +15,11 @@ from typing import Any, Optional
 
 import torch
 
-from compactfusion_tpu_torch import ROADMAP_HINT
 from compactfusion_tpu_torch.cache.accel import CacheAccelState, next_probe, should_skip
 from compactfusion_tpu_torch.models import common as cm
 from compactfusion_tpu_torch.models.attn_impl import SingleDeviceAttn
 from compactfusion_tpu_torch.ops.attention import sdpa
+from compactfusion_tpu_torch.parallel.pipefusion import pipefusion_blocks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,17 +128,27 @@ def pixart_forward(
     cache_state=None,
     cache_force=None,
     text_kv: Optional[torch.Tensor] = None,
+    x_is_hidden: bool = False,
+    return_hidden: bool = False,
     mesh=None,
 ):
     """Denoiser forward on patchified latent tokens.
 
-    x: (B, S, p*p*C); t: (B,) timesteps; text: (B, S_text, text_dim) (ignored
-    when ``text_kv`` from :func:`precompute_text_kv` is given); pos_embed
-    (S, dim); attn_state: per-layer state stacked on a leading layer axis
-    (updated in place by the compressing strategies).  A per-layer
-    compression plan passes ``attn`` as a tuple of ``(strategy, n_layers)``
-    segments covering the blocks in order, and ``attn_state`` as a tuple of
-    their states.  Returns (out (B, S, p*p*out_channels), attn_state).
+    x: (B, S, p*p*C), or the hidden tokens (B, S, dim) with ``x_is_hidden``
+    (the patch pipeline's later stages); t: (B,) timesteps; text: (B,
+    S_text, text_dim) (ignored when ``text_kv`` from
+    :func:`precompute_text_kv` is given); pos_embed (S, dim); attn_state:
+    per-layer state stacked on a leading layer axis (updated in place by the
+    compressing strategies).  A per-layer compression plan passes ``attn``
+    as a tuple of ``(strategy, n_layers)`` segments covering the blocks in
+    order, and ``attn_state`` as a tuple of their states.  Returns (out (B,
+    S, p*p*out_channels), attn_state), out the hidden tokens with
+    ``return_hidden``.  The blocks are the tree's layers (this stage's under
+    PipeFusion).
+
+    ``pp_stages`` > 1: sync PipeFusion over the pp axis of ``mesh``
+    (``parallel/pipefusion.py``).  ``tp_axis``: each ffn sums its partial
+    products over that axis of ``mesh``.
 
     ``cache_cfg`` (``CacheAccelConfig`` with a mode other than "none"):
     TeaCache/FBCache.  Block 0 runs, ``should_skip`` decides from its probe
@@ -148,12 +159,15 @@ def pixart_forward(
     attn_state, new cache_state).
     """
     use_cache = cache_cfg is not None and cache_cfg.mode != "none"
-    if pp_stages > 1:
-        raise NotImplementedError(f"PipeFusion (pp_stages > 1): {ROADMAP_HINT}")
-    layers = cm.layer_strategies(attn, attn_state, cfg.depth)
+    if pp_stages > 1 and mesh is None:
+        raise ValueError(f"PipeFusion over {pp_stages} stages needs this rank's mesh")
+    blocks = params["blocks"]
+    depth = cm.weight_shape(blocks["attn_qkv"])[0]
+    layers = cm.layer_strategies(attn, attn_state, depth)
     d, h = cfg.dim, cfg.heads
 
-    x = pixart_embed(params, x, pos_embed, cfg)
+    if not x_is_hidden:
+        x = pixart_embed(params, x, pos_embed, cfg)
     temb = cm.timestep_embedder(params["t_embed"], t, 256)  # (B, d)
     mod6 = cm.linear(params["adaln_single"], cm.silu(temb)).reshape(-1, 6, d)
 
@@ -161,8 +175,6 @@ def pixart_forward(
         text = cm.linear(params["caption_fc2"], cm.gelu(cm.linear(params["caption_fc1"], text)))
     # text masks are contiguous padding prefixes: a per-batch length
     kv_lens = None if text_mask is None else text_mask.sum(dim=-1).to(torch.int32)
-
-    blocks = params["blocks"]
 
     def block(l, x):
         layer_attn, seg_state, seg_l = layers[l]
@@ -185,16 +197,23 @@ def pixart_forward(
 
         # mlp
         xn = cm.layernorm({}, x) * (1 + sc_m) + sh_m
-        return x + g_m * cm.ffn(p["ffn"], xn, tp_axis=tp_axis)
+        return x + g_m * cm.ffn(p["ffn"], xn, tp_axis=tp_axis, mesh=mesh)
+
+    def run_local(x):
+        for l in range(depth):
+            x = block(l, x)
+        return x
 
     if not use_cache:
-        for l in range(cfg.depth):
-            x = block(l, x)
-        return pixart_head(params, x, temb, cfg), attn_state
+        x = pipefusion_blocks(run_local, x, mesh) if pp_stages > 1 else run_local(x)
+        return (x if return_hidden else pixart_head(params, x, temb, cfg)), attn_state
 
     # TeaCache / FBCache: skipped blocks would desync a strategy's state
     if cm.has_tensors(attn_state):
         raise ValueError("cache acceleration is incompatible with a stateful attention strategy")
+    if pp_stages > 1:
+        # block 0 and the rest are not one stage's blocks
+        raise ValueError("cache acceleration does not compose with PipeFusion")
     table0 = blocks["scale_shift_table"][0][None] + mod6
     probe_in = cm.layernorm({}, x) * (1 + table0[:, 1][:, None]) + table0[:, 0][:, None]
     x1 = block(0, x)
@@ -206,7 +225,7 @@ def pixart_forward(
         x, residual = x1 + cache_state.residual.to(x1.dtype), cache_state.residual
     else:
         x = x1
-        for l in range(1, cfg.depth):
+        for l in range(1, depth):
             x = block(l, x)
         residual = (x - x1).to(cache_state.residual.dtype)
     new_cache = CacheAccelState(
@@ -216,7 +235,7 @@ def pixart_forward(
         has_prev=torch.ones_like(cache_state.has_prev),
         skips=cache_state.skips + int(skipped),
     )
-    return pixart_head(params, x, temb, cfg), attn_state, new_cache
+    return (x if return_hidden else pixart_head(params, x, temb, cfg)), attn_state, new_cache
 
 
 def _cross_attn(q, k, v, mask, kv_lens=None):

@@ -12,7 +12,13 @@ collective over this rank's group of that axis.
 The backend is the caller's choice: NCCL when each rank has its own GPU;
 gloo when several ranks share one GPU (NCCL refuses two ranks on one
 device) or run on the CPU.  Under gloo, CUDA tensors travel through host
-copies (:meth:`Mesh.wire` and :meth:`Mesh.unwire`).
+copies (:meth:`Mesh.wire`).
+
+With ``vae_parallel_size`` the process group holds that many more ranks
+after the mesh's (the reference's separate VAE ranks,
+``parallel_state.py:297-308``): :func:`make_mesh` gives them no mesh, and
+:func:`make_vae_mesh` gives every rank the one-axis ``vae`` mesh of the
+tail, which decodes in height bands (``parallel/vae.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ AXIS_ULYSSES = "ulysses"
 AXIS_TP = "tp"
 
 MESH_AXIS_ORDER = (AXIS_DP, AXIS_CFG, AXIS_PP, AXIS_RING, AXIS_ULYSSES, AXIS_TP)
+#: the axis of the VAE tail ranks (:func:`make_vae_mesh`)
+AXIS_VAE = "vae"
 
 
 def mesh_shape(parallel: ParallelConfig) -> tuple:
@@ -189,6 +197,33 @@ class Mesh:
 
         return wait if async_op else wait()
 
+    def send_tree(self, tree, axis: str, index: int) -> None:
+        """Send a tensor tree, as one byte buffer (:func:`pack_tree`), to
+        the rank at ``index`` of ``axis``."""
+        flat, _ = pack_tree(tree)
+        dist.send(self.wire(flat), self.lines[axis][index], group=self.groups[axis])
+
+    def recv_tree(self, like, axis: str, index: int):
+        """The tree that the rank at ``index`` of ``axis`` sends with
+        :meth:`send_tree`: the structure, shapes and dtypes of ``like``, on
+        its leaves' device."""
+        flat, unpack = pack_tree(like)
+        buf = torch.empty(flat.shape, dtype=torch.uint8,
+                          device="cpu" if self.backend == "gloo" else flat.device)
+        dist.recv(buf, self.lines[axis][index], group=self.groups[axis])
+        return unpack(buf)
+
+    def broadcast_tree(self, tree, axis: str, index: int):
+        """The tree of the rank at ``index`` of ``axis``, bit for bit, on
+        every rank of the axis (JAX's ``psum`` of it masked to that rank).
+        Every rank passes a tree of the same structure, shapes and dtypes."""
+        if self.axis_size(axis) == 1:
+            return tree
+        flat, unpack = pack_tree(tree)
+        buf = self.wire(flat)
+        dist.broadcast(buf, self.lines[axis][index], group=self.groups[axis])
+        return unpack(buf)
+
 
 #: bytes the all-to-alls sent to other ranks since the count was last set to 0
 Mesh.all_to_all.nbytes = 0
@@ -196,13 +231,16 @@ Mesh.all_to_all.nbytes = 0
 Mesh.all_gather_tree.nbytes = 0
 
 
-def make_mesh(parallel: ParallelConfig) -> Mesh:
+def make_mesh(parallel: ParallelConfig) -> Optional[Mesh]:
     """Build this rank's mesh.  With ``world_size > 1`` the default process
     group must be initialised (``init_distributed_environment`` or
     ``spawn_local``) with at least ``parallel.world_size`` ranks; every rank
     must call this, in the same order as its other group creations, since
     each group is created collectively.  The groups take the default
-    group's backend."""
+    group's backend.  A rank past the mesh's ``world_size`` ranks (the VAE
+    tail, :func:`make_vae_mesh`, or a rank the configuration leaves idle, as
+    the JAX ``make_mesh`` leaves the devices past its mesh) takes part in
+    creating the groups and gets None."""
     grid = rank_grid(parallel)
     world = parallel.world_size
     if world == 1 and not dist.is_initialized():
@@ -213,22 +251,46 @@ def make_mesh(parallel: ParallelConfig) -> Mesh:
         rank = dist.get_rank()
         if dist.get_world_size() < world:
             raise ValueError(f"mesh needs {world} ranks, the process group has {dist.get_world_size()}")
-        if rank >= world:
-            raise ValueError(f"rank {rank} lies outside the {world}-rank mesh")
         backend = dist.get_backend()
-    where = np.argwhere(grid == rank)[0]
+    tail = rank >= world
+    where = None if tail else np.argwhere(grid == rank)[0]
     coords, groups, lines = {}, {}, {}
     for ax, name in enumerate(MESH_AXIS_ORDER):
-        coords[name] = int(where[ax])
         moved = np.moveaxis(grid, ax, -1).reshape(-1, grid.shape[ax])
-        groups[name] = None
         for line in moved:
             members = [int(r) for r in line]
             # every rank creates every group of the axis, in one order
             g = dist.new_group(members) if len(members) > 1 else None
             if rank in members:
                 groups[name], lines[name] = g, members
-    return Mesh(parallel, rank, backend, coords, groups, lines)
+        if not tail:
+            coords[name] = int(where[ax])
+    return None if tail else Mesh(parallel, rank, backend, coords, groups, lines)
+
+
+def make_vae_mesh(parallel: ParallelConfig) -> Optional[Mesh]:
+    """The VAE tail: ranks ``[world_size, world_size + vae_parallel_size)``
+    of the process group as one group (the JAX ``make_vae_mesh``; reference
+    ``parallel_state.py:297-308``), None without VAE ranks.  Every rank
+    calls it after :func:`make_mesh` (the group is created collectively).
+    On a tail rank it is a one-axis mesh (``AXIS_VAE``) whose coordinate is
+    the rank's band; on a DiT rank the coordinate is -1 and the group None,
+    and ``lines[AXIS_VAE]`` names the tail's ranks for the hand-off."""
+    n = parallel.vae_parallel_size
+    if n == 0:
+        return None
+    world = parallel.world_size
+    if not dist.is_initialized():
+        raise RuntimeError(f"VAE ranks need torch.distributed initialised first ({world} + {n} ranks)")
+    if dist.get_world_size() < world + n:
+        raise ValueError(f"{world} DiT ranks and {n} VAE ranks need {world + n} ranks, the process group "
+                         f"has {dist.get_world_size()}")
+    rank = dist.get_rank()
+    members = list(range(world, world + n))
+    g = dist.new_group(members) if n > 1 else None
+    mine = rank in members
+    return Mesh(parallel, rank, dist.get_backend(), {AXIS_VAE: rank - world if mine else -1},
+                {AXIS_VAE: g if mine else None}, {AXIS_VAE: members})
 
 
 def init_distributed_environment(backend: str, device: str = "cuda") -> torch.device:

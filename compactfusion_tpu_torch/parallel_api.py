@@ -14,6 +14,14 @@ Ported families: PixArt-alpha 512, FLUX.1 (dev, schnell) and CogVideoX
 (2B, 5B, 1.5-5B; text to video, the causal 3D VAE), with their ``-tiny``
 test configs.  The other families of the JAX registry resolve by the same
 patterns and raise ``NotImplementedError``.
+
+Every parallel flag of the JAX runner is taken: ``--pipefusion_parallel_
+degree`` (PixArt's default is the patch pipeline with M = pp, FLUX and
+CogVideoX run it sync), ``--tensor_parallel_degree`` and
+``--vae_parallel_size`` (the tail ranks decode PixArt in bands; FLUX's and
+CogVideoX's stay idle, as in the JAX package).  With VAE ranks the image
+reaches the caller on rank 0; a tail rank builds no prompt encoder and
+returns None.
 """
 
 from __future__ import annotations
@@ -146,11 +154,22 @@ def _vae_opts(vcfg, engine: EngineConfig):
     return vcfg
 
 
-def _mesh(engine: EngineConfig):
-    from compactfusion_tpu_torch.parallel.mesh import make_mesh
+def _meshes(engine: EngineConfig):
+    """(this rank's mesh, the VAE-tail mesh): (None, None) on one process;
+    the mesh is None on a tail rank, the VAE mesh None without a tail."""
+    from compactfusion_tpu_torch.parallel.mesh import make_mesh, make_vae_mesh
 
     par = engine.parallel_config
-    return make_mesh(par) if par.world_size > 1 else None
+    if par.world_size == 1 and not par.vae_parallel_size:
+        return None, None
+    return make_mesh(par), make_vae_mesh(par)
+
+
+def _is_tail(vae_mesh) -> bool:
+    """This rank belongs to the VAE tail (it runs no denoise)."""
+    from compactfusion_tpu_torch.parallel.mesh import AXIS_VAE
+
+    return vae_mesh is not None and vae_mesh.axis_index(AXIS_VAE) >= 0
 
 
 def _transformer_state(checkpoint: str):
@@ -178,11 +197,16 @@ def _build_pixart(engine: EngineConfig, inp: InputConfig, checkpoint: Optional[s
         mcfg, vcfg = pixart_alpha_512(), sd_vae()
     # snap to the model's native-area aspect bin; __call__ resizes back
     inp = _bin_input(inp, mcfg.sample_size * 8)
-    if checkpoint:
+    mesh, vae_mesh = _meshes(engine)
+    if _is_tail(vae_mesh):
+        params = None  # a VAE rank holds the decoder alone
+    elif checkpoint:
         params = cm.to_device(hf.convert_pixart(_transformer_state(checkpoint), mcfg), device)
-        vae_params = _load_vae2d(checkpoint, vcfg, device)
     else:
         params = init_pixart(torch.Generator(device=device).manual_seed(0), mcfg)
+    if checkpoint:
+        vae_params = _load_vae2d(checkpoint, vcfg, device)
+    else:
         vae_params = init_vae_decoder(torch.Generator(device=device).manual_seed(1), vcfg)
     pcfg = PixArtPipelineConfig(
         model=mcfg,
@@ -194,8 +218,11 @@ def _build_pixart(engine: EngineConfig, inp: InputConfig, checkpoint: Optional[s
         guidance_scale=inp.guidance_scale,
         height=inp.height,
         width=inp.width,
+        # PixArt's PipeFusion defaults to the patch pipeline with M = pp
+        num_pipeline_patch=engine.parallel_config.num_pipeline_patch or engine.parallel_config.pp_degree,
+        runtime_warmup_steps=engine.runtime_config.warmup_steps,
     )
-    return PixArtPipeline(params, vae_params, pcfg, device, mesh=_mesh(engine)), pcfg
+    return PixArtPipeline(params, vae_params, pcfg, device, mesh=mesh, vae_mesh=vae_mesh), pcfg
 
 
 @register_family("flux", r"flux")
@@ -214,10 +241,14 @@ def _build_flux(engine: EngineConfig, inp: InputConfig, checkpoint: Optional[str
     else:
         mcfg = flux_schnell() if "schnell" in name else flux_dev()
         vcfg = flux_vae()
-    if checkpoint:
+    mesh, vae_mesh = _meshes(engine)
+    if _is_tail(vae_mesh):
+        params = None  # FLUX's VAE-tail ranks stay idle
+    elif checkpoint:
         params = cm.to_device(hf.convert_flux(_transformer_state(checkpoint), mcfg), device)
     else:
         params = init_flux(torch.Generator(device=device).manual_seed(0), mcfg)
+    # as the JAX package's _build_flux: FLUX runs PipeFusion sync (num_pipeline_patch 1)
     pcfg = FluxPipelineConfig(
         model=mcfg,
         vae=_vae_opts(vcfg, engine),
@@ -229,8 +260,8 @@ def _build_flux(engine: EngineConfig, inp: InputConfig, checkpoint: Optional[str
         height=inp.height,
         width=inp.width,
     )
-    vae_params = _load_vae2d(checkpoint, vcfg, device)
-    return FluxPipeline(params, vae_params, pcfg, device, mesh=_mesh(engine)), pcfg
+    vae_params = None if _is_tail(vae_mesh) else _load_vae2d(checkpoint, vcfg, device)
+    return FluxPipeline(params, vae_params, pcfg, device, mesh=mesh, vae_mesh=vae_mesh), pcfg
 
 
 def _unported(name: str, pattern: str):
@@ -275,7 +306,10 @@ def _build_cogvideox(engine: EngineConfig, inp: InputConfig, checkpoint: Optiona
         mcfg = cogvideox_1_5_5b()
     else:
         mcfg = cogvideox_5b() if "5b" in name else cogvideox_2b()
-    if checkpoint and os.path.isdir(os.path.join(checkpoint, "transformer")):
+    mesh, vae_mesh = _meshes(engine)
+    if _is_tail(vae_mesh):
+        params = None  # CogVideoX's VAE-tail ranks stay idle
+    elif checkpoint and os.path.isdir(os.path.join(checkpoint, "transformer")):
         params = cm.to_device(hf.convert_cogvideox(_transformer_state(checkpoint), mcfg), device)
     else:
         params = init_cogvideox(torch.Generator(device=device).manual_seed(0), mcfg)
@@ -296,7 +330,8 @@ def _build_cogvideox(engine: EngineConfig, inp: InputConfig, checkpoint: Optiona
         width=inp.width,
         num_frames=inp.num_frames,
     )
-    pipe = CogVideoXPipeline(params, _load_vae3d(checkpoint, vcfg, device), pcfg, device, mesh=_mesh(engine))
+    vae_params = None if _is_tail(vae_mesh) else _load_vae3d(checkpoint, vcfg, device)
+    pipe = CogVideoXPipeline(params, vae_params, pcfg, device, mesh=mesh, vae_mesh=vae_mesh)
     return pipe, pcfg
 
 
@@ -364,10 +399,12 @@ class xDiTParallel:
                     engine_config.parallel_config.world_size)
         self.family = fam.name
         self.pipeline, self.pipeline_config = fam.build(engine_config, input_config, checkpoint, self.device)
-        if engine_config.runtime_config.quantize_backbone:
+        #: a rank of the VAE tail: no denoise, no text
+        self.tail = _is_tail(self.pipeline.vae_mesh)
+        if engine_config.runtime_config.quantize_backbone and not self.tail:
             self._quantize_backbone_int8()
-        self.prompt_encoder = self._build_prompt_encoder(checkpoint)
-        if engine_config.fast_attn_config.use_fast_attn:
+        self.prompt_encoder = None if self.tail else self._build_prompt_encoder(checkpoint)
+        if engine_config.fast_attn_config.use_fast_attn and not self.tail:
             self._apply_fast_attn(engine_config.fast_attn_config)
 
     def _apply_fast_attn(self, fa, latents: Optional[torch.Tensor] = None):
@@ -386,8 +423,14 @@ class xDiTParallel:
             logger.warning("use_fast_attn: only the PixArt family is wired; ignoring")
             return
         pcfg = self.pipeline_config
-        if pcfg.parallel.sp_degree > 1 or pcfg.parallel.pp_degree > 1 or pcfg.compact.enabled:
+        par = pcfg.parallel
+        if par.sp_degree > 1 or par.pp_degree > 1 or pcfg.compact.enabled:
             logger.warning("use_fast_attn needs sp/pp degree 1 and compression off; ignoring")
+            return
+        if par.tp_degree > 1:
+            # the calibration runs the whole model in one process; a TP rank
+            # holds its share of the ffns
+            logger.warning("use_fast_attn needs tp degree 1 in this port; ignoring")
             return
         mcfg = pcfg.model
         model_tag = re.sub(r"[^A-Za-z0-9._-]", "_", self.engine_config.model_config.model)
@@ -422,7 +465,7 @@ class xDiTParallel:
             pcfg, fast_attn_plan=tuple(tuple(int(m) for m in row) for row in plan),
             fast_attn_window=fa.window_size)
         self.pipeline = PixArtPipeline(self.pipeline.params, self.pipeline.vae_params, self.pipeline_config,
-                                       self.device, mesh=self.pipeline.mesh)
+                                       self.device, mesh=self.pipeline.mesh, vae_mesh=self.pipeline.vae_mesh)
 
     #: the per-layer block stacks that ``--quantize_backbone_int8`` quantizes
     #: (embedders and heads stay in the model dtype)
@@ -479,7 +522,9 @@ class xDiTParallel:
                  latents: Optional[torch.Tensor] = None):
         """Run the request in ``input_config``: images (B, H, W, 3) in [0, 1]
         (CogVideoX: videos (B, T, H, W, 3)), or the final latents with
-        ``output_type="latent"`` or ``decode=False``.
+        ``output_type="latent"`` or ``decode=False``.  With VAE ranks the
+        images reach rank 0 alone: the other ranks, and the tail ranks,
+        return None.
         Noise: ``latents`` when given, else drawn from ``generator``
         (default: one seeded with ``input_config.seed`` on the device)."""
         if self.engine_config.runtime_config.use_profiler:
@@ -498,6 +543,10 @@ class xDiTParallel:
         if generator is None and latents is None:
             generator = torch.Generator(device=self.device).manual_seed(inp.seed)
         prompts = list(inp.prompt)
+        if self.tail:
+            if self.family == "pixart" and decode:
+                self.pipeline.decode_band(len(prompts))
+            return None
         negative = list(inp.negative_prompt) * (len(prompts) if len(inp.negative_prompt) == 1 else 1)
         seq = inp.max_sequence_length
         enc = self.prompt_encoder
@@ -511,7 +560,7 @@ class xDiTParallel:
         txt, mask = enc.encode_for_pixart(prompts, negative, max_length=seq)
         out = self.pipeline(txt, mask, generator=generator, latents=latents, decode=decode)
         pcfg = self.pipeline_config
-        if decode and (pcfg.height, pcfg.width) != (inp.height, inp.width):
+        if decode and out is not None and (pcfg.height, pcfg.width) != (inp.height, inp.width):
             # binning changed the generation size: resize back to the request
             out = resize_and_crop(out, inp.height, inp.width)
         return out
@@ -519,13 +568,17 @@ class xDiTParallel:
     def save(self, directory: str, prefix: str = "cftpu", out=None):
         """Write outputs of this rank (reference ``xDiTParallel.save``):
         images as PNG, one per batch element (``utils/image.py``, no PIL);
-        videos and latents as ``.npy``.  ``out``: an already generated result."""
+        videos and latents as ``.npy``.  ``out``: an already generated result.
+        A rank that holds no result (a VAE-tail rank, or a rank other than 0
+        with VAE ranks) writes nothing and returns None."""
         import torch.distributed as dist
 
         from compactfusion_tpu_torch.utils.image import to_uint8, write_png
 
-        os.makedirs(directory, exist_ok=True)
         out = self() if out is None else out
+        if out is None:
+            return None
+        os.makedirs(directory, exist_ok=True)
         arr = out.float().cpu().numpy() if isinstance(out, torch.Tensor) else np.asarray(out, np.float32)
         rank = dist.get_rank() if dist.is_initialized() else 0
         if arr.ndim == 4 and arr.shape[-1] == 3:  # (B, H, W, 3) in [0, 1]

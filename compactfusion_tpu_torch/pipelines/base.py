@@ -67,6 +67,12 @@ def gather_latents(local: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     return torch.cat(mesh.all_gather(x, AXIS_DP), dim=0)
 
 
+def gather_batch(local: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """(B_local, S, C) -> the whole batch (B, S, C) on every rank, gathered
+    over dp (the patch pipelines, whose ranks hold every token)."""
+    return local if mesh is None else torch.cat(mesh.all_gather(local, AXIS_DP), dim=0)
+
+
 def prepare_latents(generator: torch.Generator, batch: int, tokens: int, token_dim: int,
                     dtype=torch.bfloat16, device=None) -> torch.Tensor:
     """Standard-normal noise tokens (B, tokens, token_dim), drawn in fp32 on

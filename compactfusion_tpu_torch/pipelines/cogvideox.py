@@ -12,8 +12,13 @@ split over cfg, the batch over dp, the video tokens over (ring, ulysses),
 the text as the attention's joint front tensors; the sequence-parallel
 attention plain (``USPAttn``) or compressed (``CompactUSPAttn``), fused or
 not, with per-layer ``compress_func`` plans and EF caches carried across
-step segments; every rank gets the whole latents back.  PipeFusion, TP and
-separate VAE ranks are not ported yet.
+step segments; every rank gets the whole latents back.  Each rank holds
+its part of the params (``parallel/tp.py``): with ``pp_degree`` > 1 its
+stage's blocks, run as sync PipeFusion (the JAX package has no patch
+pipeline for CogVideoX), with ``tp_degree`` > 1 its share of the ffn of
+the joined text + video stream.  CogVideoX has no VAE-rank path, as in the
+JAX package: with ``vae_parallel_size`` the tail ranks (``vae_mesh=``) stay
+idle and return None, and the DiT ranks decode.
 
 Unlike the JAX config, :class:`CogVideoXPipelineConfig` names its VAE
 config (``vae``), as the port's other pipelines do.
@@ -26,7 +31,6 @@ from typing import Optional, Tuple
 
 import torch
 
-from compactfusion_tpu_torch import ROADMAP_HINT
 from compactfusion_tpu_torch.config import (
     CompactConfig,
     CompressType,
@@ -37,7 +41,8 @@ from compactfusion_tpu_torch.models import common as cm
 from compactfusion_tpu_torch.models.attn_impl import CompactUSPAttn, SingleDeviceAttn, USPAttn
 from compactfusion_tpu_torch.models.cogvideox import CogVideoXConfig, cogvideox_forward, video_positions
 from compactfusion_tpu_torch.models.vae3d import VAE3DConfig, cogvideox_vae, vae3d_decode
-from compactfusion_tpu_torch.parallel.mesh import AXIS_CFG, AXIS_DP, Mesh
+from compactfusion_tpu_torch.parallel.mesh import AXIS_CFG, AXIS_DP, AXIS_TP, AXIS_VAE, Mesh
+from compactfusion_tpu_torch.parallel.tp import local_params
 from compactfusion_tpu_torch.pipelines import base
 from compactfusion_tpu_torch.schedulers.diffusion import ddim_step_v, ddpm_schedule
 
@@ -86,9 +91,6 @@ class CogVideoXPipelineConfig:
     def __post_init__(self):
         validate_parallel_geometry(self.parallel, heads=self.model.heads, tokens=self.tokens,
                                    depth=self.model.depth, family="cogvideox")
-        p = self.parallel
-        if p.pp_degree > 1 or p.tp_degree > 1 or p.vae_parallel_size:
-            raise NotImplementedError(f"PipeFusion, TP or VAE ranks ({p}): {ROADMAP_HINT}")
 
 
 def _attn_impl(cfg: CogVideoXPipelineConfig, method: Optional[CompressType], mesh: Optional[Mesh]):
@@ -119,18 +121,22 @@ class CogVideoXPipeline:
     parallel)``) and calls it with the same text and noise."""
 
     def __init__(self, params, vae_params, cfg: CogVideoXPipelineConfig, device="cuda",
-                 mesh: Optional[Mesh] = None):
-        if cfg.parallel.world_size > 1 and mesh is None:
+                 mesh: Optional[Mesh] = None, vae_mesh: Optional[Mesh] = None):
+        #: a rank of the VAE tail: CogVideoX gives it no work
+        self.tail = vae_mesh is not None and vae_mesh.axis_index(AXIS_VAE) >= 0
+        if cfg.parallel.world_size > 1 and mesh is None and not self.tail:
             raise ValueError(f"{cfg.parallel} runs across ranks: pass this rank's mesh")
         if mesh is not None and mesh.parallel != cfg.parallel:
             raise ValueError(f"mesh of {mesh.parallel} for a pipeline of {cfg.parallel}")
         # float32 matmuls and convolutions in full fp32 on the GPU (no TF32)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        self.params = params
+        # this rank's stage of the blocks and share of the ffns
+        self.params = None if self.tail else local_params(params, mesh)
         self.vae_params = vae_params
         self.cfg = cfg
         self.mesh = mesh
+        self.vae_mesh = vae_mesh
         self.device = torch.device(device)
         m = cfg.model
         f, hp, wp = cfg.grid
@@ -150,8 +156,11 @@ class CogVideoXPipeline:
         """txt (2, B, S_txt, text_dim) = [cond, uncond] T5 states.  Noise
         comes from ``latents`` (B, tokens, token_in) when given, else from
         ``generator``.  Returns the video (B, T, H, W, 3) in [0, 1], or the
-        final latent tokens when not ``decode`` or without VAE params."""
+        final latent tokens when not ``decode`` or without VAE params; None
+        on an idle VAE-tail rank."""
         cfg = self.cfg
+        if self.tail:
+            return None
         if latents is None:
             if generator is None:
                 raise ValueError("pass a torch.Generator or explicit latents")
@@ -199,7 +208,7 @@ class CogVideoXPipeline:
                     return a.init_state(n_layers, n_model_batch, s_local, m.heads, m.head_dim, torch.float32, dev)
                 if isinstance(attn, tuple):
                     return tuple(init(a, n_l) for a, n_l in attn)
-                return init(attn, m.depth)
+                return init(attn, m.depth // p.pp_degree)  # this stage's layers
 
             attn_state = base.carry_ef_state(attn_state, fresh, self.device)  # EF caches across segments
             for i in steps:
@@ -207,7 +216,9 @@ class CogVideoXPipeline:
                                device=self.device)
                 x = torch.cat([latents, latents], dim=0) if n_model_batch > b else latents
                 v, attn_state = cogvideox_forward(self.params, x.to(m.dtype), txt, t, m, video_rope=rope,
-                                                  pos_embed=pe, attn=attn, attn_state=attn_state)
+                                                  pos_embed=pe, attn=attn, attn_state=attn_state, mesh=mesh,
+                                                  tp_axis=AXIS_TP if p.tp_degree > 1 else None,
+                                                  pp_stages=p.pp_degree)
                 if cfg.do_cfg:
                     g = self.dyn_cfg[i] if cfg.use_dynamic_cfg else cfg.guidance_scale
                     v = base.cfg_combine(v, g, p.cfg_degree, mesh)

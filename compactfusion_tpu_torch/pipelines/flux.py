@@ -12,9 +12,15 @@ attention's joint front tensors; the sequence-parallel attention is plain
 (``USPAttn``) or compressed (``CompactUSPAttn``, also with
 ``compact.patch_gather``, which FLUX does not route elsewhere), fused or
 not (``use_fused_ring``); the cache probes sum over the (ring, ulysses)
-ranks, and every rank gets the whole latents back.  PipeFusion
-(``num_pipeline_patch``, ``pp_degree``), TP and separate VAE ranks are not
-ported yet.
+ranks, and every rank gets the whole latents back.  Each rank holds its
+part of the params (``parallel/tp.py``): with ``pp_degree`` > 1 both block
+families are first padded with identity blocks (``pad_flux_for_pp``) and
+each stage holds its layers of each, run as sync PipeFusion
+(``num_pipeline_patch`` 1) or as the patch pipeline
+(``pipelines/flux_patch_pp.py``); with ``tp_degree`` > 1 its share of every
+ffn and of the single blocks' MLP.  FLUX has no VAE-rank path, as in the
+JAX package: with ``vae_parallel_size`` the tail ranks (``vae_mesh=``) stay
+idle and return None, and the DiT ranks decode.
 """
 
 from __future__ import annotations
@@ -24,7 +30,6 @@ from typing import Optional, Tuple
 
 import torch
 
-from compactfusion_tpu_torch import ROADMAP_HINT
 from compactfusion_tpu_torch.cache.accel import CacheAccelConfig, init_cache_state
 from compactfusion_tpu_torch.config import (
     CompactConfig,
@@ -34,9 +39,10 @@ from compactfusion_tpu_torch.config import (
 )
 from compactfusion_tpu_torch.models import common as cm
 from compactfusion_tpu_torch.models.attn_impl import CompactUSPAttn, SingleDeviceAttn, USPAttn
-from compactfusion_tpu_torch.models.flux import FluxConfig, flux_forward, flux_image_positions
+from compactfusion_tpu_torch.models.flux import FluxConfig, flux_forward, flux_image_positions, pad_flux_for_pp
 from compactfusion_tpu_torch.models.vae import VAEConfig, vae_decode
-from compactfusion_tpu_torch.parallel.mesh import AXIS_DP, AXIS_RING, AXIS_ULYSSES, Mesh
+from compactfusion_tpu_torch.parallel.mesh import AXIS_DP, AXIS_RING, AXIS_TP, AXIS_ULYSSES, AXIS_VAE, Mesh
+from compactfusion_tpu_torch.parallel.tp import local_params
 from compactfusion_tpu_torch.pipelines import base
 from compactfusion_tpu_torch.schedulers.flow_match import (
     calculate_shift,
@@ -56,8 +62,11 @@ class FluxPipelineConfig:
     guidance_scale: float = 3.5
     height: int = 1024
     width: int = 1024
-    #: PipeFusion micro-patches per image (not ported: > 1 raises)
+    #: PipeFusion micro-patches per image (M > 1 with pp > 1: the patch
+    #: pipeline, reference --num_pipeline_patch)
     num_pipeline_patch: int = 1
+    #: full-sequence sync steps before patch mode
+    runtime_warmup_steps: int = 1
 
     @property
     def grid(self) -> Tuple[int, int]:
@@ -70,13 +79,17 @@ class FluxPipelineConfig:
         return hp * wp
 
     def __post_init__(self):
+        # no depth check: FLUX pads both block families to divide the
+        # stages; M >= 2*pp keeps the patch pipeline's 2*pp virtual stages full
         validate_parallel_geometry(self.parallel, heads=self.model.heads, tokens=self.tokens,
                                    num_pipeline_patch=self.num_pipeline_patch,
                                    patch_pp_min_factor=2, family="flux")
-        p = self.parallel
-        if p.pp_degree > 1 or p.tp_degree > 1 or p.vae_parallel_size or self.num_pipeline_patch > 1:
-            raise NotImplementedError(f"PipeFusion, TP or VAE ranks ({p}, "
-                                      f"num_pipeline_patch={self.num_pipeline_patch}): {ROADMAP_HINT}")
+        if self.parallel.pp_degree > 1 and self.cache.mode != "none":
+            raise ValueError("TeaCache/FBCache does not compose with PipeFusion")
+
+    @property
+    def patch_pipelined(self) -> bool:
+        return self.parallel.pp_degree > 1 and self.num_pipeline_patch > 1
 
 
 def _attn_impl(cfg: FluxPipelineConfig, method: Optional[CompressType], mesh: Optional[Mesh]):
@@ -107,18 +120,26 @@ class FluxPipeline:
     parallel)``) and calls it with the same text and noise."""
 
     def __init__(self, params, vae_params, cfg: FluxPipelineConfig, device="cuda",
-                 mesh: Optional[Mesh] = None):
-        if cfg.parallel.world_size > 1 and mesh is None:
+                 mesh: Optional[Mesh] = None, vae_mesh: Optional[Mesh] = None):
+        #: a rank of the VAE tail: FLUX gives it no work
+        self.tail = vae_mesh is not None and vae_mesh.axis_index(AXIS_VAE) >= 0
+        if cfg.parallel.world_size > 1 and mesh is None and not self.tail:
             raise ValueError(f"{cfg.parallel} runs across ranks: pass this rank's mesh")
         if mesh is not None and mesh.parallel != cfg.parallel:
             raise ValueError(f"mesh of {mesh.parallel} for a pipeline of {cfg.parallel}")
         # float32 matmuls and convolutions in full fp32 on the GPU (no TF32)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        self.params = params
+        #: the model the blocks run: padded with identity blocks under pp
+        self.model = cfg.model
+        if cfg.parallel.pp_degree > 1 and not self.tail:
+            params, self.model = pad_flux_for_pp(params, cfg.model, cfg.parallel.pp_degree)
+        # this rank's stage of each block family and share of the ffns
+        self.params = None if self.tail else local_params(params, mesh)
         self.vae_params = vae_params
         self.cfg = cfg
         self.mesh = mesh
+        self.vae_mesh = vae_mesh
         self.device = torch.device(device)
         m = cfg.model
         # FLUX overrides the scheduler's sigmas with linspace(1, 1/N, N)
@@ -134,19 +155,26 @@ class FluxPipeline:
         pooled embedding.  Noise comes from ``latents`` (B, tokens,
         in_channels) when given, else from ``generator``.  Returns images
         (B, H, W, 3) in [0, 1], or the final latent tokens when not
-        ``decode``."""
+        ``decode``; None on an idle VAE-tail rank."""
         cfg = self.cfg
+        if self.tail:
+            return None
         if latents is None:
             if generator is None:
                 raise ValueError("pass a torch.Generator or explicit latents")
             latents = base.prepare_latents(generator, txt.shape[0], cfg.tokens, cfg.model.in_channels,
                                            torch.float32, self.device)
-        latents = self._sample(txt, pooled, latents)
+        if cfg.patch_pipelined:
+            from compactfusion_tpu_torch.pipelines.flux_patch_pp import flux_patch_pp_sample
+
+            latents = flux_patch_pp_sample(self, txt, pooled, latents)
+        else:
+            latents = self._sample(txt, pooled, latents)
         return self.decode(latents) if decode and self.vae_params is not None else latents
 
     @torch.inference_mode()
     def _sample(self, txt, pooled, latents):
-        cfg, m, p, mesh = self.cfg, self.cfg.model, self.cfg.parallel, self.mesh
+        cfg, m, p, mesh = self.cfg, self.model, self.cfg.parallel, self.mesh
         txt = txt.to(self.device)
         pooled = pooled.to(self.device)
         latents = latents.to(self.device, torch.float32)
@@ -198,8 +226,9 @@ class FluxPipeline:
 
             # EF caches carry across step segments, per family: a per-layer
             # plan can change one family's strategy and not the other's
-            state_d = base.carry_ef_state(state_d, fresh(attn_d, m.double_layers), self.device)
-            state_s = base.carry_ef_state(state_s, fresh(attn_s, m.single_layers), self.device)
+            # (this stage's layers of each family under PipeFusion)
+            state_d = base.carry_ef_state(state_d, fresh(attn_d, m.double_layers // p.pp_degree), self.device)
+            state_s = base.carry_ef_state(state_s, fresh(attn_s, m.single_layers // p.pp_degree), self.device)
             for i in steps:
                 t = torch.full((b,), float(self.sched.timesteps[i]), dtype=torch.float32,
                                device=self.device)
@@ -210,6 +239,7 @@ class FluxPipeline:
                     cache_cfg=cache_cfg if use_cache else None, cache_state=cache_state, mesh=mesh,
                     # the final step always computes
                     cache_force=i == cfg.num_steps - 1,
+                    tp_axis=AXIS_TP if p.tp_degree > 1 else None, pp_stages=p.pp_degree,
                 )
                 if use_cache:
                     v, state_d, state_s, cache_state = fwd

@@ -19,8 +19,15 @@ sequence-parallel attention plain (``USPAttn``) or compressed
 ``compact.patch_gather``, the patch-parallel gather (``PatchParallelAttn``:
 sync, compressed, or DistriFusion's stale gather with ``patch_async``);
 the cache probes sum over the (ring, ulysses) ranks; every rank gets the
-whole latents back.  PipeFusion, TP and separate VAE ranks are not ported
-yet.
+whole latents back.  Each rank holds its part of the params
+(``parallel/tp.py``): with ``pp_degree`` > 1 its stage's blocks, run as
+sync PipeFusion (``num_pipeline_patch`` 1) or as the patch pipeline
+(``pipelines/pixart_patch_pp.py``, M > 1 patches after
+``runtime_warmup_steps`` sync steps); with ``tp_degree`` > 1 its share of
+every ffn.  With ``vae_parallel_size`` the VAE ranks (``vae_mesh=``, from
+``parallel.mesh.make_vae_mesh``) skip the denoise and decode in height
+bands (``parallel/vae.py``); the image reaches rank 0, and the other ranks
+return None.
 """
 
 from __future__ import annotations
@@ -30,7 +37,6 @@ from typing import Optional, Tuple
 
 import torch
 
-from compactfusion_tpu_torch import ROADMAP_HINT
 from compactfusion_tpu_torch.cache.accel import CacheAccelConfig, init_cache_state
 from compactfusion_tpu_torch.cache.fast_attn import FastAttnAttn, optimize_plan
 from compactfusion_tpu_torch.config import (
@@ -48,8 +54,10 @@ from compactfusion_tpu_torch.models.attn_impl import (
 )
 from compactfusion_tpu_torch.models.pixart import PixArtConfig, pixart_forward, precompute_text_kv
 from compactfusion_tpu_torch.models.vae import VAEConfig, vae_decode
-from compactfusion_tpu_torch.parallel.mesh import AXIS_CFG, AXIS_DP, AXIS_RING, AXIS_ULYSSES, Mesh
+from compactfusion_tpu_torch.parallel.mesh import AXIS_CFG, AXIS_DP, AXIS_RING, AXIS_TP, AXIS_ULYSSES, AXIS_VAE, Mesh
 from compactfusion_tpu_torch.parallel.patch import PatchParallelAttn
+from compactfusion_tpu_torch.parallel.tp import local_params
+from compactfusion_tpu_torch.parallel.vae import decode_on_vae_ranks, recv_from_vae_ranks, send_to_vae_ranks
 from compactfusion_tpu_torch.pipelines import base
 from compactfusion_tpu_torch.schedulers.diffusion import ddpm_schedule, dpm_init_state, dpm_step
 
@@ -67,6 +75,11 @@ class PixArtPipelineConfig:
     #: DiTFastAttn window size
     fast_attn_window: int = 64
     num_steps: int = 20
+    #: PipeFusion micro-patches per image (M > 1 with pp > 1: the
+    #: patch-pipelined path, reference --num_pipeline_patch)
+    num_pipeline_patch: int = 1
+    #: full-sequence sync steps before patch mode (reference --warmup_steps)
+    runtime_warmup_steps: int = 1
     guidance_scale: float = 4.5
     height: int = 512
     width: int = 512
@@ -91,10 +104,12 @@ class PixArtPipelineConfig:
 
     def __post_init__(self):
         validate_parallel_geometry(self.parallel, heads=self.model.heads, tokens=self.tokens,
-                                   depth=self.model.depth, family="pixart")
-        p = self.parallel
-        if p.pp_degree > 1 or p.tp_degree > 1 or p.vae_parallel_size:
-            raise NotImplementedError(f"PipeFusion, TP or VAE ranks ({p}): {ROADMAP_HINT}")
+                                   depth=self.model.depth, num_pipeline_patch=self.num_pipeline_patch,
+                                   family="pixart")
+
+    @property
+    def patch_pipelined(self) -> bool:
+        return self.parallel.pp_degree > 1 and self.num_pipeline_patch > 1
 
 
 def _attn_impl(cfg: PixArtPipelineConfig, method: Optional[CompressType], mesh: Optional[Mesh]):
@@ -133,17 +148,23 @@ class PixArtPipeline:
     and calls it with the same text and noise."""
 
     def __init__(self, params, vae_params, cfg: PixArtPipelineConfig, device,
-                 mesh: Optional[Mesh] = None):
-        if cfg.parallel.world_size > 1 and mesh is None:
+                 mesh: Optional[Mesh] = None, vae_mesh: Optional[Mesh] = None):
+        if cfg.parallel.vae_parallel_size and vae_mesh is None:
+            raise ValueError(f"{cfg.parallel} has VAE ranks: pass the VAE mesh (make_vae_mesh)")
+        #: a VAE rank skips the denoise and decodes its band
+        self.tail = vae_mesh is not None and vae_mesh.axis_index(AXIS_VAE) >= 0
+        if cfg.parallel.world_size > 1 and mesh is None and not self.tail:
             raise ValueError(f"{cfg.parallel} runs across ranks: pass this rank's mesh")
         if mesh is not None and mesh.parallel != cfg.parallel:
             raise ValueError(f"mesh of {mesh.parallel} for a pipeline of {cfg.parallel}")
         self.mesh = mesh
+        self.vae_mesh = vae_mesh
         # float32 matmuls and convolutions in full fp32 on the GPU: cuDNN
         # convolutions default to TF32, which keeps ~3 decimal digits
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        self.params = params
+        # this rank's stage of the blocks and share of the ffns
+        self.params = None if self.tail else local_params(params, mesh)
         self.vae_params = vae_params
         self.cfg = cfg
         self.device = torch.device(device)
@@ -170,8 +191,13 @@ class PixArtPipeline:
         S_text) bool or None.  Noise comes from ``latents`` (B, tokens,
         p*p*C) when given, else from ``generator``.  Returns images
         (B, H, W, 3) in [0, 1], or the final latent tokens when not
-        ``decode``."""
+        ``decode``.  With VAE ranks the images reach rank 0 alone: a VAE
+        rank, and any other rank, returns None when decoding."""
         cfg = self.cfg
+        if self.tail:
+            if decode:
+                self.decode_band(text.shape[1])
+            return None
         if text_mask is None:
             text_mask = torch.ones(text.shape[:3], dtype=torch.bool)
         if latents is None:
@@ -181,7 +207,12 @@ class PixArtPipeline:
             latents = base.prepare_latents(generator, text.shape[1], cfg.tokens,
                                            m.patch * m.patch * m.in_channels,
                                            torch.float32, self.device)
-        latents = self._sample(text, text_mask, latents)
+        if cfg.patch_pipelined:
+            from compactfusion_tpu_torch.pipelines.pixart_patch_pp import patch_pp_sample
+
+            latents = patch_pp_sample(self, text, text_mask, latents)
+        else:
+            latents = self._sample(text, text_mask, latents)
         return self.decode(latents) if decode else latents
 
     @torch.inference_mode()
@@ -223,11 +254,12 @@ class PixArtPipeline:
         # the text path is step-invariant: caption MLP + every block's
         # cross K/V once per image, kept in the model dtype
         text_kv = precompute_text_kv(self.params, text).to(m.dtype)
+        tp_axis = AXIS_TP if p.tp_degree > 1 else None
         attn_state = None
         for plan, steps in base.compact_layer_segments(cfg.compact, cfg.num_steps, m.depth):
             if isinstance(plan, tuple) and len(plan) > 1:
                 # per-layer plan: one strategy and one EF state per layer segment
-                assert not use_cache, "per-layer compression plans compose with SP/CFG/DP only"
+                assert not use_cache and p.pp_degree == 1, "per-layer compression plans compose with SP/CFG/DP only"
                 attn = tuple((_attn_impl(cfg, method, mesh), n_l) for method, n_l in plan)
             else:
                 attn = _attn_impl(cfg, plan[0][0] if isinstance(plan, tuple) else plan, mesh)
@@ -238,7 +270,7 @@ class PixArtPipeline:
                                         torch.float32, dev)
                 if isinstance(attn, tuple):
                     return tuple(init(a, n_l) for a, n_l in attn)
-                return init(attn, m.depth)
+                return init(attn, m.depth // p.pp_degree)  # this stage's layers
 
             attn_state = base.carry_ef_state(attn_state, fresh, self.device)
             for i in steps:
@@ -252,7 +284,7 @@ class PixArtPipeline:
                     attn=attn, attn_state=attn_state, text_mask=text_mask, text_kv=text_kv,
                     cache_cfg=cache_cfg if use_cache else None, cache_state=cache_state, mesh=mesh,
                     # the final, quality-critical step always computes
-                    cache_force=i == cfg.num_steps - 1,
+                    cache_force=i == cfg.num_steps - 1, tp_axis=tp_axis, pp_stages=p.pp_degree,
                 )
                 if use_cache:
                     out, attn_state, cache_state = fwd
@@ -266,10 +298,31 @@ class PixArtPipeline:
         return base.gather_latents(latents, mesh)
 
     @torch.inference_mode()
-    def decode(self, latent_tokens: torch.Tensor) -> torch.Tensor:
-        """Latent tokens (B, tokens, p*p*C) -> images (B, H, W, 3) in [0, 1]."""
+    def decode_band(self, batch: int) -> None:
+        """On a VAE rank: wait for the latents of ``batch`` images from rank
+        0, decode this rank's band and hand the image back
+        (``parallel/vae.py``)."""
+        m = self.cfg.model
+        hp, wp = self.cfg.grid
+        decode_on_vae_ranks(self.vae_params, (batch, hp * m.patch, wp * m.patch, m.in_channels), self.cfg.vae,
+                            self.vae_mesh, self.device)
+
+    @torch.inference_mode()
+    def decode(self, latent_tokens: torch.Tensor) -> Optional[torch.Tensor]:
+        """Latent tokens (B, tokens, p*p*C) -> images (B, H, W, 3) in [0, 1].
+        With VAE ranks, rank 0 hands the latents to them and receives the
+        image; the other DiT ranks return None."""
         m = self.cfg.model
         hp, wp = self.cfg.grid
         lat = cm.unpatchify(latent_tokens.to(self.device), m.patch, hp, wp, m.in_channels)
-        img = vae_decode(self.vae_params, lat, self.cfg.vae)
+        if self.vae_mesh is None:
+            img = vae_decode(self.vae_params, lat, self.cfg.vae)
+        elif self.vae_mesh.rank == 0:
+            send_to_vae_ranks(lat, self.vae_mesh)
+            b, h, w, _ = lat.shape
+            up = self.cfg.vae.upscale_factor
+            img = recv_from_vae_ranks((b, h * up, w * up, self.cfg.vae.out_channels), self.cfg.vae,
+                                      self.vae_mesh, self.device)
+        else:
+            return None
         return torch.clamp(img * 0.5 + 0.5, 0.0, 1.0)

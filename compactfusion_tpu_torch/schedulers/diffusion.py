@@ -3,7 +3,8 @@
 
 The schedule tables and the per-step scalars are fp32, as in the JAX
 package; the step index is a Python int, so the first/last-step branches
-are plain ``if``s.  The CogVideoX variants of the schedule (SNR shift,
+are plain ``if``s; :func:`dpm_step_patch` steps one patch of the latents
+with its own state (patch-pipelined PipeFusion).  The CogVideoX variants of the schedule (SNR shift,
 zero terminal SNR) are ported, with the DDIM steps (eta 0) for epsilon and
 v prediction; the ancestral DDPM stepper is not ported yet.
 """
@@ -147,3 +148,14 @@ def dpm_step(sched: DDPMSchedule, i: int, num_steps: int, sample: torch.Tensor,
         d = x0
     out = (sigma_n / sigma_t).item() * x32 - (alpha_n * torch.expm1(-h)).item() * d
     return out.to(sample.dtype), DPMState(prev_x0=x0, prev_lambda=lam_t, have_prev=True)
+
+
+def dpm_step_patch(sched: DDPMSchedule, i: int, num_steps: int, sample: torch.Tensor, eps: torch.Tensor,
+                   prev_x0: torch.Tensor, prev_lambda: torch.Tensor, have_prev: bool):
+    """:func:`dpm_step` on a slice of the latents with its own scalar state:
+    the patch-pipelined PipeFusion advances each image patch through the
+    schedule on its own (reference patch-gated scheduler wrappers).  Returns
+    (new sample, this step's x0, this step's lambda)."""
+    out, st = dpm_step(sched, i, num_steps, sample, eps,
+                       DPMState(prev_x0=prev_x0, prev_lambda=prev_lambda, have_prev=have_prev))
+    return out, st.prev_x0, st.prev_lambda

@@ -356,23 +356,80 @@ def test_fast_attn_plan_matches_jax(jax_pixart, tmp_path, monkeypatch):
     assert rel_err(tr(latents=noise, decode=False).numpy(), jlat) < BOUND
 
 
-def test_ring2_runner_matches_jax_cpu_mesh():
-    ring = PIXART + ["--ring_degree", "2"]
-    binary = ring + ["--compact", "--compact_type", "binary", "--compact_warmup_steps", "1"]
-    jl, weights = jax_runner(ring, spice=True)
-    jb, _ = jax_runner(binary, spice=True)
-    jb.pipeline = type(jb.pipeline)(jl.pipeline.params, jl.pipeline.vae_params, jb.pipeline_config,
-                                    jb.pipeline.mesh)
+RING2 = PIXART + ["--ring_degree", "2"]
+BINARY2 = RING2 + ["--compact", "--compact_type", "binary", "--compact_warmup_steps", "1"]
+# PixArt's PipeFusion defaults to the patch pipeline with M = pp (2 here)
+PP2 = PIXART + ["--pipefusion_parallel_degree", "2"]
+TP2 = PIXART + ["--tensor_parallel_degree", "2"]
+FAST_ATTN = ["--use_fast_attn", "--window_size", "4"]
+RUNS2 = [("lossless", RING2), ("binary", BINARY2), ("pp2", PP2), ("tp2", TP2),
+         ("pp2-fast-attn", PP2 + FAST_ATTN), ("tp2-fast-attn", TP2 + FAST_ATTN)]
+
+
+@pytest.fixture(scope="module")
+def runners2():
+    """The JAX runners of the 2-rank command lines (one weight tree, the
+    lossless ring's) and the port's in 2 gloo processes."""
+    jl, weights = jax_runner(RING2, spice=True)
+    jax_runs = {"lossless": jl}
+    for name, argv in RUNS2[1:4]:
+        jr, _ = jax_runner(argv, spice=True)
+        jr.pipeline = type(jr.pipeline)(jl.pipeline.params, jl.pipeline.vae_params, jr.pipeline_config,
+                                        jr.pipeline.mesh)
+        jax_runs[name] = jr
     noise = jax_noise(jl)
-    want_l, want_b = np.asarray(jl(decode=False)), np.asarray(jb(decode=False))
-    ranks = tmesh.spawn_local(runner_latents, 2, "gloo", [("lossless", ring), ("binary", binary)], weights, noise,
-                              threads=1, timeout=300)
+    want = {name: np.asarray(jr(decode=False)) for name, jr in jax_runs.items()}
+    ranks = tmesh.spawn_local(runner_latents, 2, "gloo", RUNS2, weights, noise, threads=1, timeout=300)
+    return want, ranks
+
+
+def test_ring2_runner_matches_jax_cpu_mesh(runners2):
+    want, ranks = runners2
+    want_l, want_b = want["lossless"], want["binary"]
     for r in ranks:
         assert rel_err(r["lossless"]["latents"], want_l) < BOUND
         jax_err = rel_err(want_b, want_l)
         assert jax_err > 0 and rel_err(r["binary"]["latents"], want_b) < 0.1 * jax_err
     np.testing.assert_array_equal(ranks[0]["binary"]["latents"], ranks[1]["binary"]["latents"])
     assert ranks[0]["binary"]["wire_bytes"] < ranks[0]["lossless"]["wire_bytes"]
+
+
+def test_pp2_and_tp2_runners_match_jax_cpu_mesh(runners2):
+    """``--pipefusion_parallel_degree 2`` (PixArt: the patch pipeline, M =
+    2, one sync warmup step) and ``--tensor_parallel_degree 2`` from the
+    command line, against JAX's runners on 2 CPU devices; DiTFastAttn is
+    ignored with a warning at pp 2, as in JAX, and at tp 2 (a recorded
+    divergence: the calibration runs the whole model): the same latents."""
+    want, ranks = runners2
+    for r in ranks:
+        for name in ("pp2", "tp2"):
+            assert rel_err(r[name]["latents"], want[name]) < BOUND, name
+            np.testing.assert_array_equal(r[f"{name}-fast-attn"]["latents"], r[name]["latents"])
+    # the patch pipeline is not the sync one: the stale K/V is used
+    assert rel_err(want["pp2"], want["lossless"]) > 1e-6
+
+
+def test_int8_backbone_refused_at_tp_or_pp():
+    """``--quantize_backbone_int8`` composes with dp/cfg/SP only: both
+    runners refuse a tp or pp layout with an AssertionError."""
+    from types import SimpleNamespace
+
+    for argv in (TP2, PP2):
+        for mod in (tapi, japi):
+            engine, _ = _config(targs if mod is tapi else jargs, argv)
+            with pytest.raises(AssertionError, match="tp"):
+                mod.xDiTParallel._quantize_backbone_int8(SimpleNamespace(engine_config=engine))
+
+
+def test_save_on_a_rank_without_an_image(tmp_path):
+    """A rank that holds no image (a VAE-tail rank, or a rank other than 0
+    with VAE ranks) gets None from the runner: ``save`` writes nothing and
+    returns None (the ranks themselves run in tests/test_torch_parallel_vae.py)."""
+    runner = port_runner(PIXART)
+    runner._generate = lambda *a: None
+    assert runner() is None
+    assert runner.save(str(tmp_path / "out")) is None
+    assert not (tmp_path / "out").exists()
 
 
 def test_png_writer_against_pil_and_to_uint8_against_jax():

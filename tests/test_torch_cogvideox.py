@@ -217,9 +217,10 @@ def test_unported_forward_branches_raise(tiny):
     _, tm, _, tp = tiny["5b-rope"]
     vid, txt, t = (torch.from_numpy(a) for a in _fwd_inputs(tm))
     rope = tcm.rope_frequencies(tcog.video_positions(2, 4, 4), tm.axes_dim)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # PipeFusion and TP are ported: without this rank's mesh they raise
+    with pytest.raises(ValueError, match="mesh"):
         tcog.cogvideox_forward(tp, vid, txt, t, tm, video_rope=rope, pp_stages=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="mesh"):
         tcog.cogvideox_forward(tp, vid, txt, t, tm, video_rope=rope, tp_axis="tp")
 
 

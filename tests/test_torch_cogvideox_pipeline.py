@@ -194,9 +194,11 @@ def test_geometry_errors_match_jax_and_unported_branches_raise():
     four = CogVideoXPipelineConfig(model=tcog.cogvideox_2b(), parallel=ParallelConfig(ulysses_degree=2, ring_degree=2),
                                    num_frames=5)
     assert four.grid == (2, 30, 45)
+    # PipeFusion and TP are ported: the configs build, the pipelines need this rank's mesh
     for par in (dict(pp_degree=2), dict(tp_degree=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            CogVideoXPipelineConfig(model=tcog.cogvideox_tiny(), parallel=ParallelConfig(**par), **SIZE)
+        staged = CogVideoXPipelineConfig(model=tcog.cogvideox_tiny(), parallel=ParallelConfig(**par), **SIZE)
+        with pytest.raises(ValueError, match="mesh"):
+            CogVideoXPipeline({}, None, staged, "cpu")
     with pytest.raises(ValueError, match="mesh"):
         CogVideoXPipeline({}, None, CogVideoXPipelineConfig(model=tcog.cogvideox_tiny(),
                                                             parallel=ParallelConfig(ring_degree=2), **SIZE), "cpu")

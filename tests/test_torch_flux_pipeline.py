@@ -145,11 +145,13 @@ def test_flux_ring_across_ranks_matches_jax(spawned, jax_run, config):
 
 def test_unported_flux_branches_raise(models, spawned):
     tm, tv = tflux.flux_tiny(), tvae.tiny_vae()
+    # PipeFusion (sync and patch-pipelined) and TP are ported: the configs
+    # build, the pipelines need this rank's mesh
     for kw in (dict(parallel=ParallelConfig(ulysses_degree=2, pp_degree=2)), dict(parallel=ParallelConfig(pp_degree=2)),
                dict(parallel=ParallelConfig(tp_degree=2)),
                dict(parallel=ParallelConfig(pp_degree=2), num_pipeline_patch=4)):
-        with pytest.raises(NotImplementedError):
-            FluxPipelineConfig(model=tm, vae=tv, **SIZE, **kw)
+        with pytest.raises(ValueError, match="mesh"):
+            FluxPipeline({}, None, FluxPipelineConfig(model=tm, vae=tv, **SIZE, **kw), "cpu")
     with pytest.raises(ValueError, match="mesh"):  # a ring across ranks needs this rank's mesh
         FluxPipeline({}, None, FluxPipelineConfig(model=tm, vae=tv, parallel=ParallelConfig(ring_degree=2),
                                                   **SIZE), "cpu")
@@ -165,9 +167,9 @@ def test_unported_flux_branches_raise(models, spawned):
             torch.full((1,), 3500.0), m)
     rope = dict(img_rope=pipe.img_rope,
                 txt_rope=tcm.rope_frequencies(torch.zeros((8, 3), dtype=torch.int64), m.axes_dim))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="mesh"):
         tflux.flux_forward(pipe.params, *args, pp_stages=2, **rope)
-    with pytest.raises(NotImplementedError):
-        tflux.pad_flux_for_pp(pipe.params, m, 2)
-    with pytest.raises(NotImplementedError):
+    # 2 + 2 blocks divide 2 stages: no padding
+    assert tflux.pad_flux_for_pp(pipe.params, m, 2) == (pipe.params, m)
+    with pytest.raises(ValueError, match="mesh"):
         tflux.flux_forward(pipe.params, *args, tp_axis="tp", **rope)

@@ -26,7 +26,7 @@ from compactfusion_tpu_torch.parallel import mesh as tmesh
 from compactfusion_tpu_torch.parallel.ring import ring_shift
 from compactfusion_tpu_torch.parallel.usp import usp_wrap
 from compactfusion_tpu_torch.pipelines.pixart import PixArtPipeline, PixArtPipelineConfig
-from tests.test_torch_rank_fns import mesh_checks
+from tests.test_torch_rank_fns import mesh_checks, nonfinite_consistency
 
 LAYOUTS = [dict(dp_degree=2, ring_degree=2), dict(cfg_degree=2, ring_degree=2), dict(ring_degree=4),
            dict(dp_degree=2, cfg_degree=2, ring_degree=2), dict(ulysses_degree=2, ring_degree=2, tp_degree=2),
@@ -108,14 +108,16 @@ def test_mesh_groups_across_gloo_ranks(spawned, layout):
         assert r["dev_same"] == 0.0 and r["dev_diff"] > 0.0
 
 
-# Ulysses is ported; PipeFusion under Ulysses is not
+# PipeFusion (with Ulysses too), TP and the VAE ranks are ported: each
+# configuration builds, and its pipeline raises without this rank's meshes
 @pytest.mark.parametrize("unported", [dict(ulysses_degree=2, pp_degree=2), dict(pp_degree=2), dict(tp_degree=2),
                                       dict(vae_parallel_size=1)],
                          ids=["ulysses", "pp", "tp", "vae_parallel_size"])
 def test_unported_parallel_configs_raise(unported):
     tm, tv = tpix.pixart_tiny(), tvae.tiny_vae()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PixArtPipelineConfig(model=tm, vae=tv, parallel=ParallelConfig(**unported), height=64, width=64)
+    cfg = PixArtPipelineConfig(model=tm, vae=tv, parallel=ParallelConfig(**unported), height=64, width=64)
+    with pytest.raises(ValueError, match="mesh"):
+        PixArtPipeline({}, {}, cfg, "cpu")
 
 
 def test_ported_parallel_configs_build_and_need_a_mesh():
@@ -131,3 +133,46 @@ def test_ported_parallel_configs_build_and_need_a_mesh():
     PixArtPipelineConfig(model=tm, vae=tv, height=64, width=64, parallel=ParallelConfig(ulysses_degree=2))
     with pytest.raises(ValueError, match="Ulysses"):
         usp_wrap(lambda *a: a, *(torch.zeros(1, 2, 1, 8) for _ in range(3)), ulysses_size=2)
+
+
+def _jax_oracle(value):
+    """JAX's oracle on a 2-device ring whose caches are equal on both
+    devices, with ``value`` in one slot (None: clean): the deviation and
+    whether ``_consistency_assert`` raised."""
+    from jax.sharding import PartitionSpec as P
+
+    from compactfusion_tpu.compact import ring as jring
+    from compactfusion_tpu.compact.engine import check_consistency as jcheck
+
+    st = jring.init_ring_state(2, 4, 8, jnp.float32, 1)
+    if value is not None:
+        st = st._replace(k=st.k._replace(base=st.k.base.at[1, 2, 3].set(value)))
+    mesh = jmesh.make_mesh(JParallel(ring_degree=2), devices=jax.devices()[:2])
+    spec = jax.tree_util.tree_map(lambda _: P(), st)
+
+    def run(fn):
+        return jax.shard_map(fn, mesh=mesh, in_specs=(spec,), out_specs=P(), check_vma=False)(st)
+
+    dev = float(run(lambda s: jcheck(s.k, "ring")))
+    try:
+        jax.block_until_ready(run(lambda s: (jring._consistency_assert(s, "ring"), jnp.zeros(()))[1]))
+        raised = False
+    except Exception:  # the host callback's AssertionError, as the runtime wraps it
+        raised = True
+    return dev, raised
+
+
+def test_consistency_oracle_flags_nonfinite_caches():
+    """Caches equal on both ranks but holding a NaN or an Inf in one slot:
+    the oracle returns a non-finite deviation and ``consistency_assert``
+    raises, as JAX's does on a 2-device mesh; clean caches still give 0."""
+    ranks = tmesh.spawn_local(nonfinite_consistency, 2, "gloo", threads=1, timeout=120)
+    for case, value in (("clean", None), ("nan", float("nan")), ("inf", float("inf"))):
+        jdev, jraised = _jax_oracle(value)
+        for res in ranks:
+            dev, raised = res[case]
+            assert raised == jraised == (value is not None), case
+            if value is None:
+                assert dev == jdev == 0.0
+            else:
+                assert np.isnan(dev) and not np.isfinite(jdev), case

@@ -39,7 +39,8 @@ def test_importing_every_module_leaves_jax_out():
               "models.prompt", "models.text_encoders", "io.tokenizers", "utils.logger", "utils.image",
               "utils.prof", "entrypoints.launch", "examples.configs", "examples.pixartalpha_example",
               "examples.flux_example", "models.cogvideox", "models.vae3d", "pipelines.cogvideox",
-              "examples.cogvideox_example"):
+              "examples.cogvideox_example", "parallel.tp", "parallel.pipefusion", "parallel.vae",
+              "pipelines.pixart_patch_pp", "pipelines.flux_patch_pp"):
         assert f"compactfusion_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -110,9 +110,11 @@ def test_generator_noise_and_unported_configs():
     assert bool(torch.isfinite(a.float()).all())
     with pytest.raises(ValueError):
         pipe(text, None)
-    with pytest.raises(NotImplementedError):
-        PixArtPipelineConfig(model=tm, vae=tv, parallel=ParallelConfig(pp_degree=2),
-                             height=64, width=64)
+    # PipeFusion is ported: its stages need this rank's mesh
+    staged = PixArtPipelineConfig(model=tm, vae=tv, parallel=ParallelConfig(pp_degree=2),
+                                  height=64, width=64)
+    with pytest.raises(ValueError, match="mesh"):
+        PixArtPipeline(params, vparams, staged, "cpu")
     across = PixArtPipelineConfig(model=tm, vae=tv, parallel=ParallelConfig(ring_degree=2),
                                   height=64, width=64)
     with pytest.raises(ValueError, match="mesh"):  # a ring across ranks needs this rank's mesh

@@ -74,17 +74,27 @@ def test_pixart_forward_matches_jax(tiny):
 
 
 def test_unported_branches_raise(tiny):
-    """PipeFusion still raises; the cache accelerators are ported and refuse
-    a stateful attention strategy; per-layer plans are ported, and segments
-    that do not cover the blocks are refused."""
+    """PipeFusion and TP are ported and raise without this rank's mesh; the
+    cache accelerators are ported and refuse a stateful attention strategy;
+    per-layer plans are ported, and segments that do not cover the blocks
+    are refused."""
     from compactfusion_tpu_torch.cache.accel import CacheAccelConfig, init_cache_state
 
     _, tcfg, _, tparams = tiny
     x = torch.zeros(1, 16, 16)
     kw = dict(pos_embed=torch.zeros(16, tcfg.dim))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="mesh"):
         tpix.pixart_forward(tparams, x, torch.zeros(1), torch.zeros(1, 3, 32), tcfg,
                             pp_stages=2, **kw)
+    with pytest.raises(ValueError, match="mesh"):
+        tpix.pixart_forward(tparams, x, torch.zeros(1), torch.zeros(1, 3, 32), tcfg,
+                            tp_axis="tp", **kw)
+    # the cache's block 0 and the rest are not one stage's blocks
+    with pytest.raises(ValueError, match="PipeFusion"):
+        tpix.pixart_forward(tparams, x, torch.zeros(1), torch.zeros(1, 3, 32), tcfg, pp_stages=2,
+                            mesh=object(), cache_cfg=CacheAccelConfig(mode="teacache"),
+                            cache_state=init_cache_state((1, 16, tcfg.dim), (1, 16, tcfg.dim), torch.float32),
+                            **kw)
     cache = dict(cache_cfg=CacheAccelConfig(mode="teacache"),
                  cache_state=init_cache_state((1, 16, tcfg.dim), (1, 16, tcfg.dim), torch.float32))
     with pytest.raises(ValueError):

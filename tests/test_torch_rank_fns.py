@@ -387,7 +387,7 @@ def port_runner(argv, weights=None, device="cpu"):
                               vae=dataclasses.replace(pcfg.vae, dtype=f32))
     runner.pipeline = type(runner.pipeline)(params_from_numpy(weights["params"], dtype=f32),
                                             params_from_numpy(weights["vae"], dtype=f32), cfg, runner.device,
-                                            mesh=runner.pipeline.mesh)
+                                            mesh=runner.pipeline.mesh, vae_mesh=runner.pipeline.vae_mesh)
     runner.pipeline_config = cfg
     enc = runner.prompt_encoder
     for name in ("t5", "clip_l"):
@@ -409,3 +409,170 @@ def runner_latents(rank, world, runs, weights, noise):
         lat = runner(latents=torch.from_numpy(noise), decode=False)
         out[name] = {"latents": lat.numpy(), "wire_bytes": ring_shift.nbytes}
     return out
+
+
+def nonfinite_consistency(rank, world):
+    """On a ring of 2: the consistency oracle and ``consistency_assert`` on
+    caches equal on both ranks, clean ("clean"), with one NaN slot ("nan")
+    and with one +Inf slot ("inf"): the deviation, whether the assert
+    raised, and the bytes the oracle gathered."""
+    m = tmesh.make_mesh(ParallelConfig(ring_degree=2))
+    res = {}
+    for case, value in (("clean", None), ("nan", float("nan")), ("inf", float("inf"))):
+        st = tring.init_ring_state(2, 4, 8, torch.float32, 1)
+        if value is not None:
+            st.k.base[1, 2, 3] = value
+        dev = check_consistency(st.k, m, "ring").item()
+        try:
+            tring.consistency_assert(st, m, "ring")
+            raised = False
+        except AssertionError:
+            raised = True
+        res[case] = (dev, raised)
+    return res
+
+
+def _join_groups(parallel):
+    """A rank that runs no part of ``parallel`` still takes part in
+    creating its process groups (``new_group`` is collective)."""
+    tmesh.make_mesh(parallel)
+    tmesh.make_vae_mesh(parallel)
+
+
+def _family(family, model_kw):
+    """(pipeline class, config class, fp32 model, size kwargs) of a tiny family."""
+    import dataclasses
+
+    from compactfusion_tpu_torch.models import cogvideox as tcog
+    from compactfusion_tpu_torch.models import flux as tflux
+    from compactfusion_tpu_torch.models import pixart as tpix
+    from compactfusion_tpu_torch.pipelines.cogvideox import CogVideoXPipeline, CogVideoXPipelineConfig
+    from compactfusion_tpu_torch.pipelines.flux import FluxPipeline, FluxPipelineConfig
+    from compactfusion_tpu_torch.pipelines.pixart import PixArtPipeline, PixArtPipelineConfig
+
+    pipe_cls, cfg_cls, model, size = {
+        "pixart": (PixArtPipeline, PixArtPipelineConfig, tpix.pixart_tiny(), dict(height=64, width=64)),
+        "flux": (FluxPipeline, FluxPipelineConfig, tflux.flux_tiny(), dict(height=64, width=128)),
+        "cogvideox": (CogVideoXPipeline, CogVideoXPipelineConfig, tcog.cogvideox_tiny(),
+                      dict(height=32, width=48, num_frames=9)),
+    }[family]
+    return pipe_cls, cfg_cls, dataclasses.replace(model, dtype=torch.float32, **model_kw), size
+
+
+def parallel_pipeline_latents(rank, world, jobs):
+    """Per family ("pixart": inputs (text, mask, noise); "flux": (txt,
+    pooled, noise); "cogvideox": (txt, noise)) in ``jobs`` = {family:
+    (model overrides, configurations, params, vae_params, inputs)}, per
+    configuration (name, ParallelConfig kwargs, CompactConfig kwargs or
+    None, pipeline-config kwargs): the tiny fp32 pipeline's final latents
+    on this rank and the largest EF cache deviation across the ring, or
+    None on a rank the configuration leaves idle."""
+    import dataclasses
+
+    from compactfusion_tpu_torch.io.from_jax import params_from_numpy
+    from compactfusion_tpu_torch.models import vae as tvae
+
+    tv = dataclasses.replace(tvae.tiny_vae(), dtype=torch.float32)
+    res = {}
+    for family, (model_kw, configs, params, vae_params, inputs) in jobs.items():
+        pipe_cls, cfg_cls, tm, size = _family(family, model_kw)
+        tparams = params_from_numpy(params)
+        tvae_params = None if vae_params is None else params_from_numpy(vae_params)
+        *args, noise = (torch.from_numpy(a) for a in inputs)
+        for name, par, compact, extra in configs:
+            parallel = ParallelConfig(**par)
+            mesh = tmesh.make_mesh(parallel)
+            if mesh is None:
+                res[family, name] = None
+                continue
+            ckw = {} if compact is None else dict(compact, compress_type=CompressType(compact["compress_type"]))
+            kw = dict(size, **dict(dict(num_steps=4), **extra))
+            if family != "cogvideox":
+                kw["vae"] = tv
+            cfg = cfg_cls(model=tm, parallel=parallel, compact=CompactConfig(**ckw), **kw)
+            pipe = pipe_cls(tparams, tvae_params, cfg, "cpu", mesh=mesh)
+            tring.max_consistency_dev = 0.0
+            lat = pipe(*args, latents=noise, decode=False)
+            res[family, name] = (lat.numpy(), tring.max_consistency_dev)
+    return res
+
+
+def tp_ffn_outputs(rank, world, params, x):
+    """The tiny ffn (``params``, numpy) on ``x`` at tp 4: this rank's share
+    (``parallel/tp.py``) summed over the tp axis."""
+    from compactfusion_tpu_torch.io.from_jax import params_from_numpy
+    from compactfusion_tpu_torch.models import common as cm
+    from compactfusion_tpu_torch.parallel.tp import local_params
+
+    m = tmesh.make_mesh(ParallelConfig(tp_degree=4))
+    local = local_params({"blocks": {"ffn": params_from_numpy(params)}}, m)["blocks"]["ffn"]
+    return cm.ffn(local, torch.from_numpy(x), tp_axis="tp", mesh=m).numpy()
+
+
+def vae_band_outputs(rank, world, cases, params, lat):
+    """Per case (bands n, "fp32" or "bf16"): the tiny VAE's banded decode
+    of ``lat`` over a ring of n ranks (``parallel/vae.py``), this rank's
+    band of the image (None on an idle rank)."""
+    import dataclasses
+
+    from compactfusion_tpu_torch.io.from_jax import params_from_numpy
+    from compactfusion_tpu_torch.models import vae as tvae
+    from compactfusion_tpu_torch.parallel.vae import parallel_vae_decode
+
+    res = {}
+    for n, dtype in cases:
+        dt = torch.float32 if dtype == "fp32" else torch.bfloat16
+        cfg = dataclasses.replace(tvae.tiny_vae(), dtype=dt)
+        m = tmesh.make_mesh(ParallelConfig(ring_degree=n))
+        if m is None:
+            res[n, dtype] = None
+            continue
+        hb = lat.shape[1] // n
+        band = torch.from_numpy(lat[:, rank * hb:(rank + 1) * hb])
+        res[n, dtype] = parallel_vae_decode(params_from_numpy(params, dtype=dt), band, cfg, m, "ring").float().numpy()
+    return res
+
+
+def runner_images(rank, world, runs):
+    """Per run (name, argv, noise): the port's ``xDiTParallel`` on this
+    rank's CPU with its own seeded weights, run on ``noise`` and decoded: the images
+    (None where the rank holds none), and whether ``save`` (which runs the
+    request again) returned a path and the files it wrote.
+    A rank past the run's mesh and VAE tail only joins its groups."""
+    import os
+    import tempfile
+
+    from compactfusion_tpu_torch.args import FlexibleArgumentParser, xFuserArgs
+
+    out = {}
+    for name, argv, noise in runs:
+        parser = FlexibleArgumentParser()
+        xFuserArgs.add_cli_args(parser)
+        engine, _ = xFuserArgs.from_cli_args(parser.parse_args(argv)).create_config()
+        par = engine.parallel_config
+        if rank >= par.world_size + par.vae_parallel_size:
+            _join_groups(par)
+            out[name] = None
+            continue
+        runner = port_runner(argv)
+        img = runner(latents=torch.from_numpy(noise))
+        with tempfile.TemporaryDirectory() as d:
+            saved = runner.save(d)  # every rank runs the request again
+            files = sorted(os.listdir(d)) if os.path.isdir(d) else []
+        out[name] = (None if img is None else img.float().numpy(), saved is not None, files)
+    return out
+
+
+def tp_outputs(rank, world, ffn_args, jobs):
+    """:func:`tp_ffn_outputs` on the first 4 ranks, then
+    :func:`parallel_pipeline_latents` of ``jobs`` (one spawn for both)."""
+    ffn = tp_ffn_outputs(rank, world, *ffn_args) if rank < 4 else None
+    if rank >= 4:
+        _join_groups(ParallelConfig(tp_degree=4))
+    return ffn, parallel_pipeline_latents(rank, world, jobs)
+
+
+def vae_outputs(rank, world, band_args, runs):
+    """:func:`vae_band_outputs` of ``band_args``, then :func:`runner_images`
+    of ``runs`` (one spawn for both)."""
+    return vae_band_outputs(rank, world, *band_args), runner_images(rank, world, runs)
