@@ -57,19 +57,22 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
     least 128 CTAs; so must kernel 8's flash partial, and kernel 8 and its
     EF pass (``ef_update_slot``, checked alone against its twin) are timed
     eager and by CUDA graphs on cloned stacks.
-13. The pipeline as a ring of 2 processes that share this GPU (a gloo
-    group: NCCL refuses two ranks on one device), lossless, unfused and
-    through the fused ring kernel, against request 1's lossless latents;
-    first cfg 2 alone (each process one CFG half, no ring), which runs the
-    model at a ring-2 rank's rows per GEMM without the ring.  Before the
-    ranks, this process runs request 1 with each CFG half's forward alone
-    at B1, as a cfg-2 rank does: what the batch alone moves against the B2
-    request.  Every run of phases 13-15 is also held against it.
+13. The pipeline cut to SP_CUT (7) of its 28 blocks (the script's
+    time limit) as a ring of 2 processes that share this GPU (a
+    gloo group: NCCL refuses two ranks on one device), lossless, unfused
+    and through the fused ring kernel, against request 1's lossless
+    latents of one process on the same cut; first cfg 2 alone (each
+    process one CFG half, no ring), which runs the model at a ring-2
+    rank's rows per GEMM without the ring.  Before the ranks, this process
+    runs request 1 on the cut with each CFG half's forward alone at B1, as
+    a cfg-2 rank does: what the batch alone moves against the B2 request.
+    Every run of phases 13-15 is also held against it.  Phases 13-15, 24,
+    25 and 27 share one spawn of 2 processes and one of 4.
 14. The same ring with BINARY compression (warmup 4), unfused and through
     the fused compressed ring kernel, against the single-process ring-2
     emulation of the same request, against each other and against lossless;
     both send the same bytes.
-15. cfg 2 x ring 2 in 4 processes: fused LOW_RANK r4 on int8 EF caches
+15. cfg 2 x ring 2 in 4 processes (the cut): fused LOW_RANK r4 on int8 EF caches
     (B 1 per rank) with the consistency check on: the caches stay equal.
 16. The flash profiling probes (``compactfusion_tpu_torch/probes``): each
     stage mask of ``flash_parts`` (kernel 1's register body) and
@@ -124,11 +127,12 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
     CFG forward of request 1's first step against the same forward on this
     machine's CPU through the plain versions, within F32_FORWARD_REL_MAX;
     DiTFastAttn's fixed mixed plan in fp32 (kernel 4).
-22. That fp32 pipeline as a ring of 2 processes on this GPU (gloo),
+22. That fp32 pipeline, cut to SP_CUT (7) of its 28 blocks
+    (the script's time limit), as a ring of 2 processes on this GPU (gloo),
     lossless and BINARY (the consistency check on), unfused and fused:
-    every run within F32_RING_LOSSLESS_REL_MAX (lossless, of phase 21's
-    request 1) or F32_RING_BINARY_REL_MAX (BINARY, of the fp32 ring-2
-    emulation and, fused, of the unfused run) of one process,
+    every run within F32_RING_LOSSLESS_REL_MAX (lossless, of one process's
+    request 1 on the same cut) or F32_RING_BINARY_REL_MAX (BINARY, of the
+    fp32 ring-2 emulation of the cut and, fused, of the unfused run) of one process,
     the BINARY runs also 0 < err < 0.05 from lossless, EF caches equal
     across ranks, the same wire bytes on both routes.
 23. Kernels 1, 2/3, 5/6, 7 and 8 against their twins at the shapes
@@ -140,10 +144,12 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
     all-gather's N1024 C1152 and the compressed USP ring's N1024 C576 (the
     vector plans, every plan pairing bit for bit); kernels 7 and 8 (BINARY
     and INT2) at the U2 x R2 hop, 8 heads, and FLUX's at 12 heads of 128.
-24. PixArt-alpha 512 at full width and depth as Ulysses ranks on this card
-    (gloo): U2 in 2 processes, lossless; U2 x R2 in 4, lossless and BINARY
-    (the consistency check on), unfused and fused: lossless within
-    HALVES_REL_MAX of request 1, BINARY 0 < err < 0.05, fused within
+24. PixArt-alpha 512 at full width, its depth cut to SP_CUT (7) of 28
+    blocks (the script's time limit), as Ulysses ranks on this
+    card (gloo): U2 in 2 processes, lossless; U2 x R2 in 4, lossless and
+    BINARY (the consistency check on), unfused and fused: lossless within
+    HALVES_REL_MAX of one process's request 1 on the same cut, BINARY 0 <
+    err < 0.05, fused within
     RING_REL_MAX of unfused, EF deviation 0, the ring and all-to-all bytes
     the shapes imply.
 25. The patch-parallel gather at R2 in 2 processes: sync (within
@@ -152,12 +158,13 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
     DistriFusion's stale gather (0 < err <= PATCH_ASYNC_REL_MAX); the
     gathered bytes W times the payloads', and the dense-over-compressed
     ratio.
-26. FLUX.1-dev at phase 19's cut depth as U2 (2 processes) and U2 x R2 (4;
+26. FLUX.1-dev at phase 19's cut depth as U2 (2 processes, phase 19's
+    spawn) and U2 x R2 (4;
     lossless and BINARY, unfused and fused), with phase 19's bounds against
     one process running the same cut model.
-27. FBCache at R2 in 2 processes (PixArt), the probe summed over the ring:
-    threshold 0 bit-equal to phase 13's ring-2 lossless run, 1e6 18 skipped
-    steps on both ranks.
+27. FBCache at R2 in 2 processes (PixArt's cut), the probe summed over the
+    ring: threshold 0 bit-equal to phase 13's ring-2 lossless run, 1e6
+    RANK_STEPS - 2 skipped steps on both ranks.
 28. The prompt encoders at their published widths and depths: T5-XXL (24
     layers, d_model 4096, 64 heads of 64, d_ff 10240) and CLIP-L with seeded
     bf16 weights on the card behind the byte tokenizers
@@ -180,7 +187,8 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
     ``/generate`` requests, each answered with a 512 x 512 PNG and its
     latency; at least one pipeline call packs 2 requests.
 31. ``examples/pixartalpha_example.py``'s ``main`` as 2 gloo processes on
-    the card at ``--ring_degree 2`` (``--output_type latent``), lossless and
+    the card (PixArt at RUNNER_CUT (14) of its 28 blocks, the script's
+    time limit) at ``--ring_degree 2`` (``--output_type latent``), lossless and
     ``--compact --compact_type binary``: lossless within HALVES_REL_MAX of
     the one-process runner's request, BINARY within COMPRESSED_REL_ERR_MAX
     and above 0; exact launch counts and ring-shift bytes per rank.
@@ -197,17 +205,18 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
     bit); kernels 7 and 8 (BINARY and INT2) at ring 2, B1, q holding the
     text rows in front of the 8,775 local rows (a ragged last 64-row EF tile).
 33. CogVideoX-2b at full width and depth (30 blocks, dim 1920) through
-    ``xDiTParallel`` from the published command line (49 x 480 x 720, 50
-    steps, guidance 6, ``--max_sequence_length 226``), random weights with
+    ``xDiTParallel`` from the published command line (49 x 480 x 720,
+    guidance 6, ``--max_sequence_length 226``) at 10 of its 50 steps since
+    (the script's time limit), random weights with
     spiced modulation biases, T5-XXL at full size behind the byte
-    tokenizer: a 2-step warm-up, then the request (kernel 1 exactly 30 x 50
+    tokenizer: a 2-step warm-up, then the request (kernel 1 exactly 30 x 10
     times; s/video, s/step, encode and decode by CUDA events; peak memory):
     a finite, non-constant (1, 49, 480, 720, 3) video in [0, 1]; the dense
     and the tiled 3D VAE decode of its latents (seconds, peak memory); the
     model cut to 2 blocks in fp32, one CFG forward at 9 frames on the card
     against the CPU's plain run within ENCODER_F32_REL_MAX.
 34. CogVideoX-2b at full width and the whole 17,550 tokens, cut to 2 blocks,
-    6 steps, as 2 processes on this card (gloo): ring 2 lossless, BINARY and
+    4 steps, as 2 processes on this card (gloo): ring 2 lossless, BINARY and
     INT2 (residual 1 + EF, warmup 2, the consistency check on), each unfused
     and fused (the compressed rings take the unfused route, bit-equal to it:
     the fused compressed ring needs a multiple of 8 query rows, and a rank
@@ -222,7 +231,8 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
 35. Kernel 1 against its twin at PixArt's patch-pipeline shapes (the patch
     queries, 512 rows at M = 2 and 256 at M = 4, against the whole
     1,024-token K/V cache, B2), timed eager and by CUDA graphs beside SDPA;
-    then PixArt-alpha 512 at full width and depth through ``xDiTParallel``
+    then PixArt-alpha 512 at full width, at RUNNER_CUT (14) of its 28
+    blocks (the script's time limit), through ``xDiTParallel``
     from its prompt in 4 gloo processes on this card: sync PipeFusion pp2
     (``--num_pipeline_patch 1``; bit-equal to the one-process runner
     expected, within HALVES_REL_MAX), the patch pipeline at pp2 with M = 2
@@ -231,7 +241,7 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
     consistency check on: 0 < err < 0.05, EF deviation 0), and ring 2 with
     2 VAE ranks (rank 0's image within VAE_RANKS_ATOL and VAE_RANKS_MEAN of
     the one-process decode of its latents, no image on the other ranks);
-    exact launch counts on every rank (each stage's 14 blocks a forward,
+    exact launch counts on every rank (each stage's 7 blocks a forward,
     the patch pipeline's (steps - warmup) x M patches).
 36. Kernel 1 against its twin at FLUX's patch shape (the 512 text rows in
     front of a 1,024-row patch against 4,608 keys, 24 heads of 128); then
@@ -241,18 +251,66 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
     padded model, the patch pipeline pp2 M = 4 within PATCH_PP_REL of
     sync, TP 2 within RING_REL_MAX; CogVideoX sync pp2 and TP 2 within
     COG_RING_REL_MAX of phase 34's one process; exact launch counts.
+37. Kernels 1-8 against their twins at SD3-medium's shapes (the 197 text
+    rows in front of 4,096 image rows, 24 heads of 64: self-attention,
+    Ulysses 2, the ring-2 hops, the patch at M = 2), HunyuanDiT v1.2's (16
+    heads of 88 on the register body at DP 96, whose instantiations must
+    not spill; the 8 padded columns must not reach out or the LSE),
+    PixArt-Sigma's (4,096 and 16,384 tokens; kernel 4 at 16,384, w64) and
+    the 2K VAE's dense mid-attention (65,536 rows of d = 512 in one wide
+    launch, its twin on 4,096-row query slices); the quant pairs at the
+    rings' N4096 x C1536 and C1408; kernels 7 and 8 at HunyuanDiT's and
+    Sigma's ring 2.
+38. The 2D VAE's decode knobs on random weights (B2): SD3's and FLUX.1's
+    1024 px latents and Sigma 2K's 256 x 256 (SDXL VAE): dense, sliced
+    (each image bit-equal to its decode alone; within SLICED_REL_MAX of the
+    B2 decode) and tiled (0 < err < TILED_REL_MAX); seconds and peak memory
+    of each; kernel 1 once a call, a slice or a tile.
+39. SD3-medium (24 blocks, dim 1536, 2.06B parameters) through
+    ``xDiTParallel`` from its command line at 1024 x 1024, 28 steps,
+    guidance 7, spiced modulation: a warm-up request, then the request
+    (kernel 1 exactly 24 x 28 + 1 times, a valid image, s/image by CUDA
+    events, peak memory); the 2-block fp32 cut's CFG forward (512 px) on the card
+    against the CPU within ENCODER_F32_REL_MAX.
+40. HunyuanDiT v1.2 (40 blocks, 16 heads of 88) likewise at 25 steps,
+    guidance 5 (kernel 1 40 x 25 + 1 times); its 2 + 2-block fp32 cut.
+41. PixArt-Sigma 1024 and 2K through ``xDiTParallel`` (20 steps; 2K with
+    ``--enable_tiling``: kernel 1 28 x 20 times and once per VAE tile of
+    512 latent pixels or more); then 2K with phase 9's mixed DiTFastAttn
+    plan (kernel 4 at 16,384 tokens; the launches the plan implies).
+42. SD3-medium and HunyuanDiT v1.2 at full width and 1024 x 1024, cut to 2
+    and 2 + 2 blocks, 6 steps, in 2 gloo processes: ring 2 lossless,
+    BINARY and INT2, unfused and fused (SD3's compressed fused runs take
+    the unfused route: 2,245 query rows a rank), U2, cfg 2, sync pp2
+    (HunyuanDiT's skip stacks crossing to the mirror stage), the patch
+    pipelines (M 2, M 4), TP 2; against one process on the same cut, the
+    CFG halves at B1 and the bf16 order floor (kernel 1 swapped for its
+    twin) measured in the same run: lossless and TP within max(RING_REL_MAX,
+    ORDER_FLOOR_FACTOR x floor), sync pp2 within PP_FLUX_REL_MAX, cfg 2
+    bit-equal to the halves, compressed 0 < err < 0.05 with EF deviation 0,
+    the patch pipelines in PATCH_PP_REL of sync; exact launch counts; the
+    ring, cfg and all-to-all bytes the shapes imply.
+Phase 34 also runs its cut in fp32 (the bf16 weights, the same request):
+ring 2 lossless, unfused and fused, within F32_RING_LOSSLESS_REL_MAX of
+the fp32 one process; BINARY within F32_RING_BINARY_REL_MAX of the same
+BINARY ring with kernel 1 swapped for its plain twin (the emulation takes
+no joint text rows) and 0 < err < 0.05 from lossless; EF deviation 0.
 
-Phases 4-15, 18-19, 21-27, 29, 31 and 33-36 hold their latents against a lossless request and
+Every PixArt and FLUX run on a cut model across gloo processes (phases
+13-15, 19, 22, 24-27, 36), and the one-process run it is held against, takes
+RANK_STEPS (10) steps, not their 20 and 28: the script's time limit.
+
+Phases 4-15, 18-19, 21-27, 29, 31, 33-36 and 38-42 hold their latents against a lossless request and
 their kernel launch counts against the counts the path implies (kernel 1's
 wide-body launches among them, one per decoded image, and those of
 kernels 2, 3, 5 and 6 on their vector plans, all of their launches); every
 count is set to 0 just before each of phases 3-11, 13-15, 16's probes
-(and the calibration), 18-19, 21-22, 24-27 and each request or run of 28-31
-and 33-36,
+(and the calibration), 18-19, 21-22, 24-27 and each request or run of 28-31,
+33-36 and 38-42,
 in every process, and read just after; kernels 1, 4, 7 and 8 count their fp32 launches apart.  A probe
 counts a launch when it captures a CUDA graph, so phase 16 reports the
 launches the device ran (the captured count times the replays).  The
-``launches`` of the pipeline's kernels are those of phases 3-15, 18-19, 21-31 and 33-36: what
+``launches`` of the pipeline's kernels are those of phases 3-15, 18-19, 21-31, 33-36 and 38-42: what
 kernel 1 ran inside the probes is reported beside them, under phase 16's
 ``launches_of_pipeline_kernels``.  The s/image of phases 13-15 is that of
 processes sharing one card, not a ring speed (so are phase 19's).
@@ -377,6 +435,16 @@ FLUX_IMG = (FLUX_SIZE // 16) ** 2
 FLUX_CUT = (1, 2)
 # image tokens of one rank of a ring of 2
 FLUX_RING_LOCAL = FLUX_IMG // 2
+#: phases 13-15's, 22's and 24-27's PixArt: its first 7 of 28 blocks at
+#: full width, so that the whole script keeps within its 1200 s with phases
+#: 37-42 (at full depth their gloo runs took ~200 s of 881 s on an H100)
+SP_CUT = 7
+#: the steps of the cut PixArt and FLUX runs across gloo processes and of
+#: the one-process runs they are held against (phases 13-15, 19, 22, 24-27 and
+#: 36; not 20 and 28): gloo sends the ring shifts, gathers and
+#: stage hand-offs through host memory, about half of the script's time at
+#: the full step counts on an H100
+RANK_STEPS = 10
 WINDOW = 64
 RING = 8
 WARMUP = 4
@@ -503,12 +571,22 @@ def _library(q, k, v, mask=None):
     return (lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)), backend
 
 
+#: the device time of one replay of graph_ms's longer graph: 120 calls of a
+#: kernel up to 0.42 ms, fewer of a longer one (at least 12), where the
+#: dispatch cost the graphs take out is a smaller share (120 calls of
+#: CogVideoX's 26 ms kernel took 15 s of replays for one number)
+GRAPH_REPLAY_MS = 50.0
+
+
 def graph_ms(timing, calls):
-    """ms per call without dispatch cost: CUDA graphs of 20 and 120 calls
-    (``timing.per_call_ms``), each call on the next of ``calls`` (one per
-    input set, as many as fill 4x the L2), so each reads its inputs from
-    DRAM."""
-    return timing.per_call_ms(timing.rotate(calls), 20, 120)[0]
+    """ms per call without dispatch cost: CUDA graphs of n and 6n calls
+    (``timing.per_call_ms``; n = 20, or fewer for a call longer than
+    GRAPH_REPLAY_MS / 120, at least 2), each call on the next of ``calls``
+    (one per input set, as many as fill 4x the L2), so each reads its
+    inputs from DRAM."""
+    fn = timing.rotate(calls)
+    n_hi = min(120, max(12, int(GRAPH_REPLAY_MS / _time_ms(fn, 1, 1))))
+    return timing.per_call_ms(fn, n_hi // 6, n_hi)[0]
 
 
 def _qkv_views(gen, dev, b, s, h=16, d=72, dtype=None):
@@ -610,8 +688,10 @@ def check_flash(flash, timing, dev, gen, cases=None, phase=2):
 
     rows = []
     for name, make, iters, *sliced in cases or flash_cases(gen, dev):
-        # a fourth element: the twin runs on (batch row, that many heads) slices
-        twin = _sliced_twin(flash, sliced[0]) if sliced else flash.flash_attn_with_lse_ref
+        # a fourth element: the twin runs on (batch row, that many heads)
+        # slices, or on (batch row, heads, query rows) slices for a pair
+        twin = _sliced_twin(flash, *(sliced[0] if isinstance(sliced[0], tuple) else (sliced[0],))) \
+            if sliced else flash.flash_attn_with_lse_ref
         qq, kk, vv, *lens = make()  # a fourth element: kv_lens
         kv = {"kv_lens": lens[0]} if lens else {}
         out, lse = flash.flash_attn_with_lse(qq, kk, vv, **kv)
@@ -621,9 +701,11 @@ def check_flash(flash, timing, dev, gen, cases=None, phase=2):
         b, sq, h, d = qq.shape
         plan = flash.flash_plan(b, h, sq, d, elem=qq.element_size())
         ms = _time_ms(lambda: flash.flash_attn_with_lse(qq, kk, vv, **kv), iters)
-        sets = [(qq, kk, vv, *lens)] + [make() for _ in range(timing.copies(_nbytes(qq, kk, vv, out, lse)) - 1)]
+        # one eager call (a shape of a second or more): no graphs of 140 calls
+        sets = [(qq, kk, vv, *lens)] + [make() for _ in range(timing.copies(_nbytes(qq, kk, vv, out, lse)) - 1)
+                                        if iters > 1]
         g_ms = graph_ms(timing, [lambda t=t: flash.flash_attn_with_lse(*t[:3], **({"kv_lens": t[3]} if lens else {}))
-                                 for t in sets])
+                                 for t in sets]) if iters > 1 else None
         n_sets = len(sets)
         del sets
         del ref_out, ref_lse
@@ -636,16 +718,18 @@ def check_flash(flash, timing, dev, gen, cases=None, phase=2):
         work = (_nbytes(qq, kk, vv, out, lse), 4 * h * sq * keys * d)
         bound_ms, bound_by = _bound(*work, _peak(qq.dtype))
         rows.append({"shape": name, "max_abs_err_out": err_out, "rel_err_out": rel_out,
-                     "max_abs_err_lse": err_lse, **({"twin_heads_per_slice": sliced[0]} if sliced else {}),
-                     "plan": list(plan), "ctas": _ctas(plan, b, h, sq), "ms": ms, "graph_ms": g_ms,
+                     "max_abs_err_lse": err_lse, **({"twin_slice": sliced[0]} if sliced else {}),
+                     "plan": list(plan), "ctas": _ctas(plan, b, h, sq), "ms": ms,
+                     **({"graph_ms": g_ms} if g_ms is not None else {}),
                      "plain_ms": plain_ms, "library_ms": library_ms, "library_backend": backend,
                      "bound_ms": bound_ms, "bound_by": bound_by, **_tc_bound(*work, qq.dtype),
                      "ptxas": _ptxas("flash", plan, qq.dtype)})
         print(f"[{phase}] flash {name}: out err {err_out:.3e}, rel {rel_out:.3e}, lse err {err_lse:.3e} "
-              f"({_tol_text(qq.dtype)}{f'; twin on B1 H{sliced[0]} slices' if sliced else ''}); plan {plan}, "
+              f"({_tol_text(qq.dtype)}{f'; twin on B1 H/rows {sliced[0]} slices' if sliced else ''}); plan {plan}, "
               f"{rows[-1]['ctas']} CTAs; kernel "
-              f"{ms:.4f} ms eager, {g_ms:.4f} ms by CUDA graphs on {n_sets} input sets; "
-              f"twin {plain_ms:.4f} ms, SDPA ({backend}) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"{ms:.4f} ms eager, "
+              + (f"{g_ms:.4f} ms by CUDA graphs on {n_sets} input sets; " if g_ms is not None else "")
+              + f"twin {plain_ms:.4f} ms, SDPA ({backend}) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}){_tc_text(rows[-1])}; ptxas {rows[-1]['ptxas']}")
         if not ok:
             raise AssertionError(f"flash kernel disagrees with its twin at {name}")
@@ -686,16 +770,19 @@ def check_window(flash, dev, gen, cases=None, timing=None, phase=2):
     import torch
 
     rows = []
-    for name, make, w in cases or window_cases(gen, dev):
+    for name, make, w, *sliced in cases or window_cases(gen, dev):
+        # a fourth element: the twin runs on (batch row, that many heads) slices
+        twin = (_sliced_twin(flash, sliced[0], ref=flash.flash_attn_window_with_lse_ref) if sliced
+                else flash.flash_attn_window_with_lse_ref)
         qq, kk, vv = make()
         out, lse = flash.flash_attn_window_with_lse(qq, kk, vv, w)
         torch.cuda.synchronize()
-        ref_out, ref_lse = flash.flash_attn_window_with_lse_ref(qq, kk, vv, w)
+        ref_out, ref_lse = twin(qq, kk, vv, w)
         err_out, rel_out, err_lse, ok = _agree(out, ref_out, lse, ref_lse)
         if qq.dtype == torch.bfloat16:
             ok = err_out <= FLASH_OUT_ATOL and err_lse <= FLASH_LSE_ATOL
         ms = _time_ms(lambda: flash.flash_attn_window_with_lse(qq, kk, vv, w), 20)
-        plain_ms = _time_ms(lambda: flash.flash_attn_window_with_lse_ref(qq, kk, vv, w), 20)
+        plain_ms = _time_ms(lambda: twin(qq, kk, vv, w), 1 if sliced else 20, 1 if sliced else 3)
         b, s, h, d = qq.shape
         plan = flash.flash_plan(b, h, s, d, wide=False, elem=qq.element_size())
         lib, backend = _library(qq, kk, vv, flash.window_mask(s, w, dev))
@@ -1307,12 +1394,13 @@ def check_image(img, what, size=512):
     return lo, hi
 
 
-def build_models(dev, dtype=None):
+def build_models(dev, dtype=None, depth=None):
     """Full-width PixArt-alpha 512 + SD-VAE with random weights from fixed
     seeds; the zero-init AdaLN tables are spiced so attention (and
     compression error) reaches the output at trained-model-like magnitude.
     ``dtype``: both configs in that dtype (phases 21-22: fp32; the VAE, as
-    in the JAX package, follows its own config), else their bf16."""
+    in the JAX package, follows its own config), else their bf16.
+    ``depth``: the model's first ``depth`` blocks (phases 24-27)."""
     import dataclasses
 
     import numpy as np
@@ -1326,6 +1414,8 @@ def build_models(dev, dtype=None):
         mcfg, vcfg = dataclasses.replace(mcfg, dtype=dtype), dataclasses.replace(vcfg, dtype=dtype)
     params = spice_pixart(init_pixart(torch.Generator(device=dev).manual_seed(0), mcfg))
     vae_params = init_vae_decoder(torch.Generator(device=dev).manual_seed(1), vcfg)
+    if depth is not None:
+        mcfg, params = dataclasses.replace(mcfg, depth=depth), _cut_blocks(params, depth)
     return mcfg, vcfg, params, vae_params
 
 
@@ -1600,10 +1690,11 @@ def ring_compact(compress_type, **kw):
 
 
 def ring_rank(rank, world, runs, family="pixart"):
-    """One rank of phases 13-15, 19 and 22 (``spawn_local`` on this GPU,
-    gloo): the full-width models from the same seeds (``family`` "flux":
-    FLUX.1-dev at phase 19's cut depth; "pixart-fp32": PixArt and its VAE in
-    fp32, as in phase 21), then per run (name, ParallelConfig kwargs,
+    """One rank of phases 13-15, 19, 22 and 24-27 (``spawn_local`` on this
+    GPU, gloo): the full-width models from the same seeds (``family``
+    "flux": FLUX.1-dev at phase 19's cut depth; "pixart-fp32": PixArt and
+    its VAE in fp32, as in phase 21; "pixart-cut", "pixart-fp32-cut":
+    either cut to :data:`SP_CUT` blocks), then per run (name, ParallelConfig kwargs,
     CompactConfig kwargs or None, and optionally CacheAccelConfig kwargs)
     request 1 with every launch count set to 0 before it; returns per run
     the whole latents, the launch counts, the bytes this rank's ring shifts
@@ -1626,8 +1717,9 @@ def ring_rank(rank, world, runs, family="pixart"):
     if family == "flux":
         models, make_request, size = build_flux(dev, *FLUX_CUT), flux_request, FLUX_SIZE
     else:
-        dtype = torch.float32 if family == "pixart-fp32" else None
-        models, make_request, size = build_models(dev, dtype), request, 512
+        dtype = torch.float32 if family.startswith("pixart-fp32") else None
+        depth = SP_CUT if family.endswith("-cut") else None
+        models, make_request, size = build_models(dev, dtype, depth), request, 512
     out = {}
     for name, par, compact, *cache in runs:
         parallel = ParallelConfig(**par)
@@ -1635,7 +1727,8 @@ def ring_rank(rank, world, runs, family="pixart"):
         if cache:
             kw["cache"] = CacheAccelConfig(**cache[0])
         pipe = (flux_pipeline if family == "flux" else pixart_pipeline)(*models, dev, parallel=parallel,
-                                                                         mesh=make_mesh(parallel), **kw)
+                                                                         mesh=make_mesh(parallel),
+                                                                         steps=RANK_STEPS, **kw)
         _reset_counts(kernels)
         ring_shift.nbytes = Mesh.all_to_all.nbytes = Mesh.all_gather_tree.nbytes = 0
         compact_ring.max_consistency_dev = 0.0
@@ -1650,12 +1743,13 @@ def ring_rank(rank, world, runs, family="pixart"):
     return out
 
 
-def pixart_pipeline(mcfg, vcfg, params, vae_params, dev, mesh=None, **kw):
-    """The full-width PixArt pipeline of phases 3-15 (20 steps, CFG 4.5)."""
+def pixart_pipeline(mcfg, vcfg, params, vae_params, dev, mesh=None, steps=STEPS, **kw):
+    """The full-width PixArt pipeline of phases 3-15 (20 steps unless
+    ``steps`` says otherwise, CFG 4.5)."""
     from compactfusion_tpu_torch.pipelines.pixart import PixArtPipeline, PixArtPipelineConfig
 
     return PixArtPipeline(params, vae_params, PixArtPipelineConfig(
-        model=mcfg, vae=vcfg, num_steps=STEPS, guidance_scale=4.5, **kw), dev, mesh=mesh)
+        model=mcfg, vae=vcfg, num_steps=steps, guidance_scale=4.5, **kw), dev, mesh=mesh)
 
 
 def _spiced(tree, rng, path=""):
@@ -1691,11 +1785,12 @@ def build_flux(dev, double_layers=19, single_layers=38):
     return mcfg, vcfg, params, init_vae_decoder(torch.Generator(device=dev).manual_seed(1), vcfg)
 
 
-def flux_pipeline(mcfg, vcfg, params, vae_params, dev, mesh=None, **kw):
-    """The FLUX.1-dev pipeline of phases 18-19: 28 steps, guidance 3.5, 1024 x 1024."""
+def flux_pipeline(mcfg, vcfg, params, vae_params, dev, mesh=None, steps=FLUX_STEPS, **kw):
+    """The FLUX.1-dev pipeline of phases 18-19: 28 steps unless ``steps``
+    says otherwise, guidance 3.5, 1024 x 1024."""
     from compactfusion_tpu_torch.pipelines.flux import FluxPipeline, FluxPipelineConfig
 
-    cfg = FluxPipelineConfig(model=mcfg, vae=vcfg, num_steps=FLUX_STEPS, guidance_scale=FLUX_GUIDANCE,
+    cfg = FluxPipelineConfig(model=mcfg, vae=vcfg, num_steps=steps, guidance_scale=FLUX_GUIDANCE,
                              height=FLUX_SIZE, width=FLUX_SIZE, **kw)
     return FluxPipeline(params, vae_params, cfg, dev, mesh=mesh)
 
@@ -1916,8 +2011,8 @@ def flux_ring_phase(kernels, dev, codecs):
     and BINARY (residual 1 + EF, warmup 4, the consistency check on), each
     unfused and fused, every run against one process running the same cut
     model lossless, the fused runs against the unfused ones, with exact
-    launch counts on every rank.  Returns (the phases, the one-process
-    latents)."""
+    launch counts on every rank; the same spawn runs phase 26's U2.  Returns
+    (the phases, the one-process latents, the spawn's results)."""
     import torch
 
     from compactfusion_tpu_torch.parallel.mesh import spawn_local
@@ -1926,30 +2021,31 @@ def flux_ring_phase(kernels, dev, codecs):
     layers = n_double + n_single
     models = build_flux(dev, n_double, n_single)
     _reset_counts(kernels)
-    lat, img, sec = flux_request(flux_pipeline(*models, dev), 1)
+    lat, img, sec = flux_request(flux_pipeline(*models, dev, steps=RANK_STEPS), 1)
     check_image(img, "FLUX cut, one process", FLUX_SIZE)
     _check_counts("FLUX cut, one process", _counts(kernels),
-                  {"flash_attn_with_lse": layers * FLUX_STEPS + 1, WIDE: 1})
+                  {"flash_attn_with_lse": layers * RANK_STEPS + 1, WIDE: 1})
     del models
     torch.cuda.empty_cache()
     one = lat.float().cpu().numpy()
     print(f"[19] FLUX.1-dev with its depth cut to {n_double} double + {n_single} single blocks (FLUX's 1 : 2 "
-          f"ratio; full width, {FLUX_STEPS} steps, {FLUX_SIZE} x {FLUX_SIZE}): one process, lossless, "
+          f"ratio; full width, {RANK_STEPS} steps, {FLUX_SIZE} x {FLUX_SIZE}): one process, lossless, "
           f"{sec:.4f} s/image")
     ring2, fused2 = {"ring_degree": 2}, {"ring_degree": 2, "use_fused_ring": True}
     binary = {"compress_type": "binary", "comp_rank": -1, "check_consistency": True}
     names = ("flux ring2 lossless", "flux ring2 lossless fused", "flux ring2 binary", "flux ring2 binary fused")
     two = spawn_local(ring_rank, 2, "gloo", list(zip(names, (ring2, fused2, ring2, fused2),
-                                                     (None, None, binary, binary))), "flux", threads=2)
+                                                     (None, None, binary, binary)))
+                      + [("flux u2 lossless", {"ulysses_degree": 2}, None)], "flux", threads=2)
     # ring 2: two hops per attention; the unfused ring launches kernel 1 per
     # hop (the text joins hop 0's K/V), the fused one kernel 7 per hop and
     # kernel 1 once for the text block; the fused compressed ring runs its
     # warmup steps unfused, then kernel 8 and its EF pass per hop; each rank
     # decodes its image (one wide-body launch)
-    hops, comp = 2 * layers, FLUX_STEPS - WARMUP
-    expect = [{"flash_attn_with_lse": hops * FLUX_STEPS + 1},
-              {"flash_attn_with_lse": layers * FLUX_STEPS + 1, "ring_flash_attn_with_lse": hops * FLUX_STEPS},
-              {"flash_attn_with_lse": hops * FLUX_STEPS + 1, "binary_quant_fastpath": hops * comp,
+    hops, comp = 2 * layers, RANK_STEPS - WARMUP
+    expect = [{"flash_attn_with_lse": hops * RANK_STEPS + 1},
+              {"flash_attn_with_lse": layers * RANK_STEPS + 1, "ring_flash_attn_with_lse": hops * RANK_STEPS},
+              {"flash_attn_with_lse": hops * RANK_STEPS + 1, "binary_quant_fastpath": hops * comp,
                "binary_dequant_fastpath": hops * comp},
               {"flash_attn_with_lse": hops * WARMUP + layers * comp + 1, "compact_ring_flash": hops * comp,
                "ef_update_slot": hops * comp}]
@@ -1973,7 +2069,7 @@ def flux_ring_phase(kernels, dev, codecs):
           f"runs {got_bytes}, expected {want_bytes} (payload_nbytes {payload} per K or V)")
     if got_bytes != [want_bytes, want_bytes]:
         raise AssertionError("phase 19: the binary rings sent other bytes than their payloads")
-    return phases, one
+    return phases, one, two
 
 
 def f32_flash_cases(gen, dev):
@@ -2060,7 +2156,7 @@ def f32_pipeline_phase(kernels, dev):
     VAE's on the wide body), one CFG forward of request 1's first step on
     the card against the same forward on this machine's CPU through the
     plain versions, then DiTFastAttn's fixed mixed plan (kernel 4 in fp32).
-    Returns (phases, models, request 1's latents)."""
+    Returns (phases, models)."""
     import torch
 
     from compactfusion_tpu_torch.cache.fast_attn import optimize_plan
@@ -2116,40 +2212,48 @@ def f32_pipeline_phase(kernels, dev):
         pixart_pipeline(*models, dev, fast_attn_plan=tuple(tuple(int(m) for m in row) for row in mixed_plan()),
                         fast_attn_window=WINDOW),
         kernels, lossless, *plan_launches(mixed), f32=True)
-    return phases, models, lossless
+    return phases, models
 
 
-def f32_ring_phase(kernels, dev, codecs, models, lossless):
-    """Phase 22: the fp32 pipeline of phase 21 as a ring of 2 gloo processes
+def f32_ring_phase(kernels, dev, codecs, models):
+    """Phase 22: the fp32 pipeline of phase 21, cut to :data:`SP_CUT`
+    blocks, as a ring of 2 gloo processes
     on this card, lossless and BINARY (residual 1 + EF, warmup 4, the
     consistency check on), each unfused and fused: every run within
-    :data:`F32_RING_LOSSLESS_REL_MAX` (the lossless runs, of phase 21's
-    request 1) or :data:`F32_RING_BINARY_REL_MAX` (the BINARY runs, of the
-    fp32 ring-2 emulation and, fused, of the unfused run) of one process
+    :data:`F32_RING_LOSSLESS_REL_MAX` (the lossless runs, of request 1 of
+    one process on the same cut) or :data:`F32_RING_BINARY_REL_MAX` (the
+    BINARY runs, of the cut's fp32 ring-2 emulation and, fused, of the
+    unfused run) of one process
     computing the same function, the BINARY runs also 0 < err < 0.05 from lossless,
     EF caches equal across ranks, the same wire bytes on both routes, every
     flash launch an fp32 one.  Returns the phases."""
+    import dataclasses
+
     import torch
 
     from compactfusion_tpu_torch.parallel.mesh import spawn_local
 
+    mcfg, vcfg, params, vae_params = models
+    models = dataclasses.replace(mcfg, depth=SP_CUT), vcfg, _cut_blocks(params, SP_CUT), vae_params
+    lossless, _, sec = request(pixart_pipeline(*models, dev, steps=RANK_STEPS), 1)
     lossless_np = lossless.float().cpu().numpy()
+    print(f"[22] fp32 PixArt cut to its first {SP_CUT} of {DEPTH} blocks: one process, lossless, {sec:.4f} s/image")
     _reset_counts(kernels)
     sim_lat, sim_img, sim_sec = request(pixart_pipeline(
-        *models, dev, compact=ring_compact("binary", comp_rank=-1, simulate_ring=2)), 1)
+        *models, dev, steps=RANK_STEPS, compact=ring_compact("binary", comp_rank=-1, simulate_ring=2)), 1)
     check_image(sim_img, "fp32 ring-2 emulation")
     sim_np = sim_lat.float().cpu().numpy()
     print(f"[22] single-process fp32 ring-2 binary emulation: rel err vs lossless {_rel_np(sim_np, lossless_np):.6f}, "
           f"{sim_sec:.4f} s/image")
-    hops, comp = 2 * DEPTH, STEPS - WARMUP
+    hops, comp = 2 * SP_CUT, RANK_STEPS - WARMUP
     ring2, fused2 = {"ring_degree": 2}, {"ring_degree": 2, "use_fused_ring": True}
     binary = {"compress_type": "binary", "comp_rank": -1, "check_consistency": True}
     names = ("fp32 ring2 lossless", "fp32 ring2 lossless fused", "fp32 ring2 binary", "fp32 ring2 binary fused")
     two = spawn_local(ring_rank, 2, "gloo", list(zip(names, (ring2, fused2, ring2, fused2),
-                                                     (None, None, binary, binary))), "pixart-fp32", threads=2)
-    expect = [{"flash_attn_with_lse": hops * STEPS + 1},
-              {"flash_attn_with_lse": 1, "ring_flash_attn_with_lse": hops * STEPS},
-              {"flash_attn_with_lse": hops * STEPS + 1, "binary_quant_fastpath": hops * comp,
+                                                     (None, None, binary, binary))), "pixart-fp32-cut", threads=2)
+    expect = [{"flash_attn_with_lse": hops * RANK_STEPS + 1},
+              {"flash_attn_with_lse": 1, "ring_flash_attn_with_lse": hops * RANK_STEPS},
+              {"flash_attn_with_lse": hops * RANK_STEPS + 1, "binary_quant_fastpath": hops * comp,
                "binary_dequant_fastpath": hops * comp},
               {"flash_attn_with_lse": hops * WARMUP + 1, "compact_ring_flash": hops * comp,
                "ef_update_slot": hops * comp}]
@@ -2168,7 +2272,7 @@ def f32_ring_phase(kernels, dev, codecs, models, lossless):
                                       f32=True)
     n, c = 2 * 1024 // 2, 1152
     payload = codecs.payload_nbytes(codecs.encode(torch.ones(n, c), codecs.CompressType.BINARY))
-    want_bytes = DEPTH * (WARMUP * 2 * n * c * 4 + comp * 2 * payload)
+    want_bytes = SP_CUT * (WARMUP * 2 * n * c * 4 + comp * 2 * payload)
     got_bytes = [phases[k]["wire_bytes_per_rank"] for k in names[2:]]
     print(f"[22] EF caches across the ring: largest deviation {max(phases[k]['consistency_dev'] for k in names[2:])}; "
           f"ring-shift bytes per rank of the binary runs {got_bytes}, expected {want_bytes}")
@@ -2267,19 +2371,22 @@ def _payload_bytes(codecs, n, c, codec):
     return codecs.payload_nbytes(codecs.encode(torch.ones(n, c), codecs.CompressType(codec)))
 
 
-def pixart_sp_phases(two, four, lossless_np, ring2_np, codecs):
-    """Phases 24, 25 and 27 from the runs of one 2-process spawn (``two``:
-    Ulysses 2, the patch gathers and FBCache at R2) and one 4-process spawn
-    (``four``: U2 x R2 lossless and BINARY, unfused and fused).
-    ``ring2_np``: phase 13's ring-2 lossless latents.  Returns the phases."""
-    hops, comp = 2 * DEPTH, STEPS - WARMUP
+def pixart_sp_phases(two, four, lossless_np, codecs):
+    """Phases 24, 25 and 27 from the runs of :func:`pixart_spawns`' 2-process
+    spawn (``two``: ring 2, Ulysses 2, the patch gathers and FBCache at R2)
+    and its 4-process spawn (``four``: U2 x R2 lossless and BINARY, unfused
+    and fused), PixArt cut to :data:`SP_CUT` blocks; ``lossless_np``: one
+    process's latents of the same cut model.  Returns the phases."""
+    depth = SP_CUT
+    hops, comp = 2 * depth, RANK_STEPS - WARMUP
     phases = {}
+    ring2_np = two[0]["ring2 lossless"]["latents"]  # phase 13's
     # -- 24: Ulysses ----------------------------------------------------------
     phases["u2 lossless"] = ring_phase(24, two, "u2 lossless", lossless_np,
-                                       {"flash_attn_with_lse": DEPTH * STEPS + 1}, HALVES_REL_MAX)
-    expect = {"u2r2 lossless": {"flash_attn_with_lse": hops * STEPS + 1},
-              "u2r2 lossless fused": {"flash_attn_with_lse": 1, "ring_flash_attn_with_lse": hops * STEPS},
-              "u2r2 binary": {"flash_attn_with_lse": hops * STEPS + 1, "binary_quant_fastpath": hops * comp,
+                                       {"flash_attn_with_lse": depth * RANK_STEPS + 1}, HALVES_REL_MAX)
+    expect = {"u2r2 lossless": {"flash_attn_with_lse": hops * RANK_STEPS + 1},
+              "u2r2 lossless fused": {"flash_attn_with_lse": 1, "ring_flash_attn_with_lse": hops * RANK_STEPS},
+              "u2r2 binary": {"flash_attn_with_lse": hops * RANK_STEPS + 1, "binary_quant_fastpath": hops * comp,
                               "binary_dequant_fastpath": hops * comp},
               "u2r2 binary fused": {"flash_attn_with_lse": hops * WARMUP + 1, "compact_ring_flash": hops * comp,
                                     "ef_update_slot": hops * comp}}
@@ -2296,11 +2403,11 @@ def pixart_sp_phases(two, four, lossless_np, ring2_np, codecs):
             phases[name] = ring_phase(24, four, name, lossless_np, want, HALVES_REL_MAX, refs)
     # the ring of U2 x R2: N = B2 x 256 tokens x U2 rows of (8 heads x 72) channels
     n, c = 2 * 1024 // 4 * 2, 1152 // 2
-    want_bytes = DEPTH * (WARMUP * 2 * n * c * 4 + comp * 2 * _payload_bytes(codecs, n, c, "binary"))
+    want_bytes = depth * (WARMUP * 2 * n * c * 4 + comp * 2 * _payload_bytes(codecs, n, c, "binary"))
     got = [phases[k]["wire_bytes_per_rank"] for k in ("u2r2 binary", "u2r2 binary fused")]
     a2a = {k: [r[k]["all_to_all_bytes"] for r in four] for k in expect}
     # per layer and step: q, k, v and out, each (B2, 256 tokens, 16 heads of 72) in bf16, half of it sent
-    want_a2a = DEPTH * STEPS * 4 * (2 * 256 * 1152 * 2) // 2
+    want_a2a = depth * RANK_STEPS * 4 * (2 * 256 * 1152 * 2) // 2
     print(f"[24] ring-shift bytes per rank of the binary runs {got}, expected {want_bytes}; all-to-all bytes "
           f"sent per rank and image {sorted({b for v in a2a.values() for b in v})}, expected {want_a2a} "
           f"(U2 in 2 processes: {[r['u2 lossless']['all_to_all_bytes'] for r in two]})")
@@ -2315,25 +2422,25 @@ def pixart_sp_phases(two, four, lossless_np, ring2_np, codecs):
     n, c = 2 * 512, 1152
     dense = 2 * n * c * 2  # K and V of one rank in bf16
     phases["patch sync"] = ring_phase(25, two, "patch sync", lossless_np,
-                                      {"flash_attn_with_lse": DEPTH * STEPS + 1}, HALVES_REL_MAX)
-    want_gather = {"patch sync": DEPTH * STEPS * 2 * dense}
+                                      {"flash_attn_with_lse": depth * RANK_STEPS + 1}, HALVES_REL_MAX)
+    want_gather = {"patch sync": depth * RANK_STEPS * 2 * dense}
     for codec in ("binary", "int2"):
         name = f"patch {codec}"
         phases[name] = ring_phase(
             25, two, name, lossless_np,
-            {"flash_attn_with_lse": DEPTH * STEPS + 1, f"{codec}_quant_fastpath": 2 * DEPTH * comp,
-             f"{codec}_dequant_fastpath": 2 * 2 * DEPTH * comp}, COMPRESSED_REL_ERR_MAX, low=0.0)
+            {"flash_attn_with_lse": depth * RANK_STEPS + 1, f"{codec}_quant_fastpath": 2 * depth * comp,
+             f"{codec}_dequant_fastpath": 2 * 2 * depth * comp}, COMPRESSED_REL_ERR_MAX, low=0.0)
         payload = _payload_bytes(codecs, n, c, codec)
         # warmup: the raw fp32 K/V; then the payloads; each gathered from W = 2 ranks
-        want_gather[name] = DEPTH * 2 * 2 * (WARMUP * n * c * 4 + comp * payload)
+        want_gather[name] = depth * 2 * 2 * (WARMUP * n * c * 4 + comp * payload)
         phases[name]["dense_over_compressed"] = (n * c * 2) / payload
         if phases[name]["consistency_dev"] != 0.0:
             raise AssertionError(f"{name}: the gathered slots differ across ranks")
         print(f"[25] {name}: all W slots equal across ranks; payload {payload} bytes per K or V against "
               f"{n * c * 2} dense bf16 ({phases[name]['dense_over_compressed']:.2f}x)")
     phases["patch async"] = ring_phase(25, two, "patch async", lossless_np,
-                                       {"flash_attn_with_lse": DEPTH * STEPS + 1}, PATCH_ASYNC_REL_MAX, low=0.0)
-    want_gather["patch async"] = DEPTH * STEPS * 2 * dense
+                                       {"flash_attn_with_lse": depth * RANK_STEPS + 1}, PATCH_ASYNC_REL_MAX, low=0.0)
+    want_gather["patch async"] = depth * RANK_STEPS * 2 * dense
     got_gather = {k: [r[k]["gather_bytes"] for r in two] for k in want_gather}
     print(f"[25] gathered bytes per rank and image {got_gather}, expected {want_gather}")
     if any(b != want_gather[k] for k, v in got_gather.items() for b in v):
@@ -2341,10 +2448,10 @@ def pixart_sp_phases(two, four, lossless_np, ring2_np, codecs):
     for k in want_gather:
         phases[k]["gather_bytes_per_rank"] = want_gather[k]
     # -- 27: FBCache at R2 ----------------------------------------------------
-    for thr, skips in ((0.0, 0), (1e6, STEPS - 2)):
+    for thr, skips in ((0.0, 0), (1e6, RANK_STEPS - 2)):
         name = f"ring2 fbcache {thr:g}"
         # a skipped step runs block 0 alone: its two hops
-        want = {"flash_attn_with_lse": hops * (STEPS - skips) + 2 * skips + 1}
+        want = {"flash_attn_with_lse": hops * (RANK_STEPS - skips) + 2 * skips + 1}
         phases[name] = ring_phase(27, two, name, lossless_np, want,
                                   HALVES_REL_MAX if skips == 0 else float("inf"), low=None if skips == 0 else 0.0)
         got = [r[name]["skips"] for r in two]
@@ -2353,7 +2460,7 @@ def pixart_sp_phases(two, four, lossless_np, ring2_np, codecs):
         phases[name]["skips"] = skips
         if skips == 0:
             if not (two[0][name]["latents"] == ring2_np).all():
-                raise AssertionError(f"{name}: not bit-equal to phase 13's ring-2 lossless run")
+                raise AssertionError(f"{name}: not bit-equal to the ring-2 lossless run")
             print(f"[27] {name}: bit-equal to phase 13's ring-2 lossless run; skipped steps {got}")
         else:
             print(f"[27] {name}: skipped steps {got} (the probe summed over the ring), kernel 1 launches "
@@ -2367,13 +2474,13 @@ def flux_sp_phases(two, four, one, codecs):
     fused), every run against ``one`` (one process running the same cut
     model), with phase 19's bounds.  Returns the phases."""
     layers = sum(FLUX_CUT)
-    hops, comp = 2 * layers, FLUX_STEPS - WARMUP
+    hops, comp = 2 * layers, RANK_STEPS - WARMUP
     phases = {"flux u2 lossless": ring_phase(26, two, "flux u2 lossless", one,
-                                             {"flash_attn_with_lse": layers * FLUX_STEPS + 1}, RING_REL_MAX)}
-    expect = {"flux u2r2 lossless": {"flash_attn_with_lse": hops * FLUX_STEPS + 1},
-              "flux u2r2 lossless fused": {"flash_attn_with_lse": layers * FLUX_STEPS + 1,
-                                           "ring_flash_attn_with_lse": hops * FLUX_STEPS},
-              "flux u2r2 binary": {"flash_attn_with_lse": hops * FLUX_STEPS + 1,
+                                             {"flash_attn_with_lse": layers * RANK_STEPS + 1}, RING_REL_MAX)}
+    expect = {"flux u2r2 lossless": {"flash_attn_with_lse": hops * RANK_STEPS + 1},
+              "flux u2r2 lossless fused": {"flash_attn_with_lse": layers * RANK_STEPS + 1,
+                                           "ring_flash_attn_with_lse": hops * RANK_STEPS},
+              "flux u2r2 binary": {"flash_attn_with_lse": hops * RANK_STEPS + 1,
                                    "binary_quant_fastpath": hops * comp, "binary_dequant_fastpath": hops * comp},
               "flux u2r2 binary fused": {"flash_attn_with_lse": hops * WARMUP + layers * comp + 1,
                                          "compact_ring_flash": hops * comp, "ef_update_slot": hops * comp}}
@@ -2399,48 +2506,53 @@ def flux_sp_phases(two, four, one, codecs):
     return phases
 
 
-def sp_spawns(spawn_local):
-    """The spawns of phases 24-27: PixArt in 2 processes (U2, the patch
-    gathers and FBCache at R2) and in 4 (U2 x R2), FLUX at
-    phase 19's cut depth in 2 (U2) and in 4 (U2 x R2).  Returns them and
-    their seconds."""
-    binary = {"compress_type": "binary", "comp_rank": -1, "check_consistency": True}
+#: phase 15's run: cfg 2 x ring 2 in 4 processes, fused LOW_RANK r4 on int8 EF caches
+CFG2_RING2 = "cfg2 x ring2 low-rank r4 int8 fused"
+
+
+def pixart_spawns(spawn_local):
+    """The PixArt spawns of phases 13-15, 24, 25 and 27, PixArt cut to
+    :data:`SP_CUT` blocks: in 2 processes cfg 2, ring 2 lossless and
+    BINARY (unfused and fused), U2, the patch gathers and FBCache at R2; in
+    4 cfg 2 x ring 2 (:data:`CFG2_RING2`) and U2 x R2 lossless and BINARY,
+    unfused and fused.  Returns them and their seconds."""
+    binary = {"compress_type": "binary", "comp_rank": -1}
+    checked = dict(binary, check_consistency=True)
     patch = {"patch_gather": True, "check_consistency": True}
-    u2r2, fused = {"ulysses_degree": 2, "ring_degree": 2}, {"ulysses_degree": 2, "ring_degree": 2,
-                                                            "use_fused_ring": True}
-    r2 = {"ring_degree": 2}
-    usp_runs = [("u2r2 lossless", u2r2, None), ("u2r2 lossless fused", fused, None),
-                ("u2r2 binary", u2r2, binary), ("u2r2 binary fused", fused, binary)]
+    ring2, fused2 = {"ring_degree": 2}, {"ring_degree": 2, "use_fused_ring": True}
+    u2r2, u2r2_fused = {"ulysses_degree": 2, "ring_degree": 2}, {"ulysses_degree": 2, "ring_degree": 2,
+                                                                  "use_fused_ring": True}
     secs = {}
     t0 = time.perf_counter()
-    pixart_two = spawn_local(ring_rank, 2, "gloo", [
+    two = spawn_local(ring_rank, 2, "gloo", [
+        ("cfg2 lossless", {"cfg_degree": 2}, None),
+        ("ring2 lossless", ring2, None), ("ring2 lossless fused", fused2, None),
+        ("ring2 binary", ring2, binary), ("ring2 binary fused", fused2, binary),
         ("u2 lossless", {"ulysses_degree": 2}, None),
-        ("patch sync", r2, {"compress_type": "identity", "patch_gather": True}),
-        ("patch binary", r2, dict(patch, compress_type="binary")),
-        ("patch int2", r2, dict(patch, compress_type="int2")),
-        ("patch async", r2, {"compress_type": "identity", "patch_gather": True, "patch_async": True,
-                             "error_feedback": False}),
-        ("ring2 fbcache 0", r2, None, {"mode": "fbcache", "threshold": 0.0}),
-        ("ring2 fbcache 1e+06", r2, None, {"mode": "fbcache", "threshold": 1e6})], threads=2)
-    secs["pixart 2 processes"] = time.perf_counter() - t0
+        ("patch sync", ring2, {"compress_type": "identity", "patch_gather": True}),
+        ("patch binary", ring2, dict(patch, compress_type="binary")),
+        ("patch int2", ring2, dict(patch, compress_type="int2")),
+        ("patch async", ring2, {"compress_type": "identity", "patch_gather": True, "patch_async": True,
+                                "error_feedback": False}),
+        ("ring2 fbcache 0", ring2, None, {"mode": "fbcache", "threshold": 0.0}),
+        ("ring2 fbcache 1e+06", ring2, None, {"mode": "fbcache", "threshold": 1e6})], "pixart-cut", threads=2)
+    secs["2 processes"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    pixart_four = spawn_local(ring_rank, 4, "gloo", usp_runs, threads=2)
-    secs["pixart 4 processes"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    flux_two = spawn_local(ring_rank, 2, "gloo", [("flux u2 lossless", {"ulysses_degree": 2}, None)], "flux",
-                           threads=2)
-    secs["flux 2 processes"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    flux_four = spawn_local(ring_rank, 4, "gloo", [(f"flux {n}", p, c) for n, p, c in usp_runs], "flux",
-                            threads=2)
-    secs["flux 4 processes"] = time.perf_counter() - t0
-    print(f"[24-27] spawn seconds (model build, every run and the checks of the images): {secs}")
-    return pixart_two, pixart_four, flux_two, flux_four, secs
+    four = spawn_local(ring_rank, 4, "gloo", [
+        (CFG2_RING2, {"cfg_degree": 2, "ring_degree": 2, "use_fused_ring": True},
+         {"compress_type": "low-rank", "comp_rank": 4, "quantized_cache": True, "check_consistency": True}),
+        ("u2r2 lossless", u2r2, None), ("u2r2 lossless fused", u2r2_fused, None),
+        ("u2r2 binary", u2r2, checked), ("u2r2 binary fused", u2r2_fused, checked)], "pixart-cut", threads=2)
+    secs["4 processes"] = time.perf_counter() - t0
+    return two, four, secs
 
 
-def run_sp_phases(kernels, dev, gen, lossless_np, ring2_np, flux_one):
+def run_sp_phases(kernels, dev, gen, lossless_np, pixart_two, pixart_four, flux_one, flux_two):
     """Phases 23-27; returns (the kernel rows of phase 23, the phases, the
-    seconds of each phase)."""
+    seconds of each phase).  PixArt's runs (cut to :data:`SP_CUT` blocks)
+    come from :func:`pixart_spawns`, held against ``lossless_np``, one
+    process's request 1 on the same cut; FLUX's U2 from phase 19's spawn
+    (``flux_two``), its U2 x R2 from a spawn of 4 here."""
     from compactfusion_tpu_torch.compact import codecs
     from compactfusion_tpu_torch.ops import flash, quant, ring_flash
     from compactfusion_tpu_torch.parallel.mesh import spawn_local
@@ -2449,10 +2561,17 @@ def run_sp_phases(kernels, dev, gen, lossless_np, ring2_np, flux_one):
     t0 = time.perf_counter()
     rows = check_sp_kernels(flash, quant, codecs, ring_flash, timing, dev, gen)
     secs = {"23": time.perf_counter() - t0}
-    pixart_two, pixart_four, flux_two, flux_four, spawn_secs = sp_spawns(spawn_local)
-    phases = pixart_sp_phases(pixart_two, pixart_four, lossless_np, ring2_np, codecs)
+    binary = {"compress_type": "binary", "comp_rank": -1, "check_consistency": True}
+    u2r2, fused = {"ulysses_degree": 2, "ring_degree": 2}, {"ulysses_degree": 2, "ring_degree": 2,
+                                                            "use_fused_ring": True}
+    t0 = time.perf_counter()
+    flux_four = spawn_local(ring_rank, 4, "gloo", [("flux u2r2 lossless", u2r2, None),
+                                                   ("flux u2r2 lossless fused", fused, None),
+                                                   ("flux u2r2 binary", u2r2, binary),
+                                                   ("flux u2r2 binary fused", fused, binary)], "flux", threads=2)
+    secs["spawn: flux 4 processes"] = time.perf_counter() - t0
+    phases = pixart_sp_phases(pixart_two, pixart_four, lossless_np, codecs)
     phases.update(flux_sp_phases(flux_two, flux_four, flux_one, codecs))
-    secs.update({f"spawn: {k}": v for k, v in spawn_secs.items()})
     print(f"[23-27] seconds: {secs}")
     return rows, phases, secs
 
@@ -2480,6 +2599,28 @@ def quant_entry(quant_rows, totals, codec, which, line):
 
 PIXART_ARGV = ["--model", "PixArt-alpha/PixArt-XL-2-512x512", "--height", "512", "--width", "512",
                "--num_inference_steps", str(STEPS), "--prompt", "a small cactus with a happy face in the Sahara desert"]
+#: phases 31's and 35's PixArt-alpha 512 (through the entry points in gloo
+#: processes, and the one-process runs they are held against): 14 of its 28
+#: blocks at full width, its 20 steps kept (at 10 steps the full
+#: depth's bf16 order floor rose past HALVES_REL_MAX: 0.0215)
+RUNNER_CUT = 14
+
+
+@contextlib.contextmanager
+def pixart_depth(depth):
+    """Within the block, ``xDiTParallel`` builds PixArt-alpha 512 with
+    ``depth`` blocks (``models.pixart.pixart_alpha_512`` swapped; its seeded
+    weights are drawn at that depth)."""
+    import dataclasses
+
+    from compactfusion_tpu_torch.models import pixart as model_pixart
+
+    real = model_pixart.pixart_alpha_512
+    model_pixart.pixart_alpha_512 = lambda: dataclasses.replace(real(), depth=depth)
+    try:
+        yield
+    finally:
+        model_pixart.pixart_alpha_512 = real
 FLUX_ARGV = ["--model", "black-forest-labs/FLUX.1-dev", "--height", str(FLUX_SIZE), "--width", str(FLUX_SIZE),
              "--num_inference_steps", str(FLUX_STEPS), "--prompt", "a photo of a cat"]
 #: the prompts of phases 28-29's requests
@@ -2823,7 +2964,8 @@ def example_rank(rank, world, runs):
         _reset_counts(kernels)
         ring_shift.nbytes = 0
         t0 = time.perf_counter()
-        lat, saved = pixartalpha_example.main(argv)
+        with pixart_depth(RUNNER_CUT):
+            lat, saved = pixartalpha_example.main(argv)
         torch.cuda.synchronize()
         out[name] = {"latents": lat.float().cpu().numpy(), "launches": _counts(kernels),
                      "wire_bytes": ring_shift.nbytes, "saved": saved, "s": time.perf_counter() - t0}
@@ -2844,17 +2986,17 @@ def example_ring_phase(kernels, codecs, lossless_np):
     t0 = time.perf_counter()
     two = spawn_local(example_rank, 2, "gloo", runs, threads=2)
     spawn_s = time.perf_counter() - t0
-    hops, comp = 2 * DEPTH, STEPS - WARMUP
+    hops, comp = 2 * RUNNER_CUT, STEPS - WARMUP
     n, c = 2 * 1024 // 2, 1152  # CFG batch 2 x 512 tokens a rank, 16 heads of 72
     payload = codecs.payload_nbytes(codecs.encode(torch.ones(n, c), codecs.CompressType.BINARY))
     images = 2  # the example's warm-up call and its generate call
     # --output_type latent: no VAE decode, so no wide-body launch
     expect = {"example ring2 lossless": ({"flash_attn_with_lse": images * hops * STEPS, WIDE: 0},
-                                         images * DEPTH * STEPS * 2 * n * c * 2),
+                                         images * RUNNER_CUT * STEPS * 2 * n * c * 2),
               "example ring2 binary": ({"flash_attn_with_lse": images * hops * STEPS, WIDE: 0,
                                         "binary_quant_fastpath": images * hops * comp,
                                         "binary_dequant_fastpath": images * hops * comp},
-                                       images * DEPTH * (WARMUP * 2 * n * c * 4 + comp * 2 * payload))}
+                                       images * RUNNER_CUT * (WARMUP * 2 * n * c * 4 + comp * 2 * payload))}
     phases = {}
     for name, _ in runs:
         want_counts, want_bytes = expect[name]
@@ -2894,6 +3036,8 @@ def run_entry_phases(kernels, dev, codecs, pixart_launches, flux_launches):
 
     import torch
 
+    from compactfusion_tpu_torch.parallel_api import xDiTParallel
+
     out_dir = tempfile.mkdtemp(prefix="cf_entry_")
     secs, t0 = {}, time.perf_counter()
     phases = prompt_phase(kernels, dev)
@@ -2902,11 +3046,15 @@ def run_entry_phases(kernels, dev, codecs, pixart_launches, flux_launches):
     t0 = time.perf_counter()
     runner_phases, (pixart_runner, _) = runner_phase(kernels, pixart_launches, flux_launches, out_dir)
     phases.update(runner_phases)
-    # the one-process reference of phase 31: the example's request (its
-    # prompt, seed 42) on the runner's weights with the AdaLN tables spiced
-    spice_pixart(pixart_runner.pipeline.params)
-    ref = pixart_runner(decode=False).float().cpu().numpy()
     del pixart_runner
+    # the one-process reference of phase 31: the example's request (its
+    # prompt, seed 42) on the runner's weights at RUNNER_CUT blocks with the
+    # AdaLN tables spiced
+    with pixart_depth(RUNNER_CUT):
+        ref_runner = xDiTParallel(*_cli(PIXART_ARGV).create_config())
+    spice_pixart(ref_runner.pipeline.params)
+    ref = ref_runner(decode=False).float().cpu().numpy()
+    del ref_runner
     torch.cuda.empty_cache()
     secs["29"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2926,12 +3074,15 @@ COG_HEADS, COG_HEAD_DIM, COG_DIM = 30, 64, 1920
 #: (13 latent frames x 30 x 45 patches)
 COG_TXT, COG_VIDEO = 226, 13 * 30 * 45
 COG_RING_LOCAL = COG_VIDEO // 2  # 8,775 video rows a rank at ring 2 or Ulysses 2
-COG_STEPS, COG_GUIDANCE = 50, 6.0
+#: phase 33's request: the published command line at 10 of its 50 steps (the
+#: script's time limit; s/step is what the phase measures)
+COG_STEPS, COG_GUIDANCE = 10, 6.0
 COG_ARGV = ["--model", "THUDM/CogVideoX-2b", "--height", "480", "--width", "720", "--num_frames", "49",
             "--num_inference_steps", str(COG_STEPS), "--guidance_scale", str(COG_GUIDANCE),
             "--max_sequence_length", str(COG_TXT), "--prompt", "a panda playing a guitar in a bamboo forest"]
-#: phase 34's cut: 2 of the 30 blocks at full width, 6 steps, the first 2 sent raw
-COG_CUT, COG_RING_STEPS, COG_WARMUP = 2, 6, 2
+#: phase 34's cut: 2 of the 30 blocks at full width, 4 steps,
+#: the first 2 sent raw
+COG_CUT, COG_RING_STEPS, COG_WARMUP = 2, 4, 2
 #: phase 34's lossless runs vs one process, and fused vs unfused: only the
 #: bf16 order differs, as under RING_REL_MAX, but this model's order floor
 #: lies above that bound: one process with kernel 1 swapped for its plain
@@ -2945,20 +3096,24 @@ COG_RING_REL_MAX = 0.03
 COG_TWIN_HEADS = 2
 
 
-def _sliced_twin(flash, heads):
-    """Kernel 1's twin computed on (batch row, ``heads`` heads) slices of
-    the inputs and put back together: the same function, the scores of one
-    slice at a time."""
+def _sliced_twin(flash, heads, rows=None, ref=None):
+    """Kernel 1's twin (or ``ref``, a twin of the same call form with its
+    extra arguments) computed on (batch row, ``heads`` heads, ``rows``
+    query rows; default all) slices of the inputs and put back together:
+    the same function, the scores of one slice at a time."""
     import torch
 
-    def twin(q, k, v, **kw):
+    ref = ref or flash.flash_attn_with_lse_ref
+
+    def twin(q, k, v, *args, **kw):
         outs, lses = [], []
+        step = rows or q.shape[1]
         for b in range(q.shape[0]):
-            parts = [flash.flash_attn_with_lse_ref(q[b:b + 1, :, h:h + heads], k[b:b + 1, :, h:h + heads],
-                                                   v[b:b + 1, :, h:h + heads], **kw)
-                     for h in range(0, q.shape[2], heads)]
-            outs.append(torch.cat([o for o, _ in parts], dim=2))
-            lses.append(torch.cat([lse for _, lse in parts], dim=1))
+            parts = [[ref(q[b:b + 1, r:r + step, h:h + heads], k[b:b + 1, :, h:h + heads],
+                          v[b:b + 1, :, h:h + heads], *args, **kw)
+                      for r in range(0, q.shape[1], step)] for h in range(0, q.shape[2], heads)]
+            outs.append(torch.cat([torch.cat([o for o, _ in hp], dim=1) for hp in parts], dim=2))
+            lses.append(torch.cat([torch.cat([lse for _, lse in hp], dim=2) for hp in parts], dim=1))
         return torch.cat(outs), torch.cat(lses)
 
     return twin
@@ -3059,9 +3214,9 @@ def cog_txt(dev, seed, dtype=None):
 def cog_pipeline_phase(kernels, dev):
     """Phase 33: CogVideoX-2b at full width and depth through ``xDiTParallel``
     (random weights, modulation biases spiced; T5-XXL at full size behind
-    the byte tokenizer): a 2-step warm-up, then the published request (50
-    steps, guidance 6, 49 x 480 x 720, decode included) with kernel 1
-    exactly 30 x 50 times; the tiled decode of its latents; a 2-block fp32
+    the byte tokenizer): a 2-step warm-up, then the published request at
+    :data:`COG_STEPS` steps (guidance 6, 49 x 480 x 720, decode included)
+    with kernel 1 exactly 30 x COG_STEPS times; the tiled decode of its latents; a 2-block fp32
     cut at 9 frames, one CFG forward on the card against the CPU's plain
     run.  Returns the phases."""
     import dataclasses
@@ -3202,10 +3357,10 @@ def cog_request(pipe, seed):
     return _events_s(lambda: pipe(txt, generator=g, decode=False))
 
 
-def build_cog_cut(dev):
+def build_cog_cut(dev, dtype=None):
     """Phase 34's model: CogVideoX-2b at full width, its first
     :data:`COG_CUT` blocks, random weights from seed 0, modulation biases
-    spiced."""
+    spiced; with ``dtype`` (fp32) the same bf16 weights in that dtype."""
     import dataclasses
 
     import numpy as np
@@ -3214,22 +3369,26 @@ def build_cog_cut(dev):
     from compactfusion_tpu_torch.models.cogvideox import cogvideox_2b, init_cogvideox
 
     mcfg = dataclasses.replace(cogvideox_2b(), depth=COG_CUT)
-    return mcfg, _spiced(init_cogvideox(torch.Generator(device=dev).manual_seed(0), mcfg), np.random.default_rng(99))
+    params = _spiced(init_cogvideox(torch.Generator(device=dev).manual_seed(0), mcfg), np.random.default_rng(99))
+    if dtype is None:
+        return mcfg, params
+    return dataclasses.replace(mcfg, dtype=dtype), _to_dev(params, dev, dtype)
 
 
 def cog_pipeline(mcfg, params, dev, mesh=None, **kw):
-    """Phase 34's pipeline: 49 x 480 x 720, 6 steps, guidance 6, no VAE."""
+    """Phase 34's pipeline: 49 x 480 x 720, :data:`COG_RING_STEPS` steps, guidance 6, no VAE."""
     from compactfusion_tpu_torch.pipelines.cogvideox import CogVideoXPipeline, CogVideoXPipelineConfig
 
     cfg = CogVideoXPipelineConfig(model=mcfg, num_steps=COG_RING_STEPS, guidance_scale=COG_GUIDANCE, **kw)
     return CogVideoXPipeline(params, None, cfg, dev, mesh=mesh)
 
 
-def cog_rank(rank, world, runs):
+def cog_rank(rank, world, runs, dtype=None):
     """One rank of phase 34 (``spawn_local`` on this GPU, gloo): the cut
-    model from its seeds, then per run (name, ParallelConfig kwargs,
-    CompactConfig kwargs or None) the request from seed 1 with every launch
-    count set to 0 before it; returns per run what :func:`ring_rank`
+    model from its seeds (in ``dtype`` when given), then per run (name,
+    ParallelConfig kwargs, CompactConfig codec or None, and optionally True:
+    kernel 1 swapped for its plain twin) the request from seed 1 with every
+    launch count set to 0 before it; returns per run what :func:`ring_rank`
     returns."""
     import torch
 
@@ -3242,9 +3401,9 @@ def cog_rank(rank, world, runs):
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     kernels = port_kernels()
-    mcfg, params = build_cog_cut(dev)
+    mcfg, params = build_cog_cut(dev, dtype)
     out = {}
-    for name, par, compact in runs:
+    for name, par, compact, *plain in runs:
         parallel = ParallelConfig(**par)
         kw = {} if compact is None else {"compact": CompactConfig(
             enabled=True, warmup_steps=COG_WARMUP, residual=1, error_feedback=True, fastpath=True,
@@ -3253,7 +3412,8 @@ def cog_rank(rank, world, runs):
         _reset_counts(kernels)
         ring_shift.nbytes = Mesh.all_to_all.nbytes = Mesh.all_gather_tree.nbytes = 0
         compact_ring.max_consistency_dev = 0.0
-        lat, sec = cog_request(pipe, 1)
+        with plain_attention() if plain and plain[0] else contextlib.nullcontext():
+            lat, sec = cog_request(pipe, 1)
         out[name] = {"latents": lat.float().cpu().numpy(), "launches": _counts(kernels),
                      "wire_bytes": ring_shift.nbytes, "all_to_all_bytes": Mesh.all_to_all.nbytes,
                      "gather_bytes": Mesh.all_gather_tree.nbytes,
@@ -3263,7 +3423,7 @@ def cog_rank(rank, world, runs):
 
 def cog_ring_phase(kernels, dev, codecs):
     """Phase 34: CogVideoX-2b at full width and the whole 17,550 video
-    tokens, cut to 2 blocks, 6 steps, as 2 processes on this card (gloo):
+    tokens, cut to 2 blocks, :data:`COG_RING_STEPS` steps, as 2 processes on this card (gloo):
     ring 2 lossless, BINARY and INT2 (residual 1 + EF, warmup 2, the
     consistency check on), each unfused and fused (the compressed ones take
     the unfused route: 9,001 query rows a rank); Ulysses 2 lossless and
@@ -3448,7 +3608,8 @@ def pp_runner_rank(rank, world, runs):
         if check:
             engine = dataclasses.replace(engine, compact_config=dataclasses.replace(
                 engine.compact_config, check_consistency=True))
-        runner = xDiTParallel(engine, inp)
+        with pixart_depth(RUNNER_CUT):
+            runner = xDiTParallel(engine, inp)
         _reset_counts(kernels)
         compact_ring.max_consistency_dev = 0.0
         t0 = time.perf_counter()
@@ -3479,7 +3640,7 @@ def _rank_counts(phase, name, ranks, expect):
 
 def pp_pixart_phase(kernels, flash, timing, dev, gen):
     """Phase 35: kernel 1 at PixArt's patch shapes, then PixArt-alpha 512 at
-    full width and depth through ``xDiTParallel`` from the prompt, in 4 gloo
+    full width and :data:`RUNNER_CUT` blocks through ``xDiTParallel`` from the prompt, in 4 gloo
     processes on this card: sync PipeFusion pp2 (``--num_pipeline_patch
     1``), the patch pipeline at pp2 with M = 2 (the default) and with M = 4
     after 2 warmup steps, TP 2, pp2 x ring 2 BINARY (the consistency check
@@ -3494,11 +3655,12 @@ def pp_pixart_phase(kernels, flash, timing, dev, gen):
     rows = check_flash(flash, timing, dev, gen, patch_flash_cases(gen, dev)[:2], phase=35)
     # the one-process reference: the same weights (spiced), prompt and seed
     t0 = time.perf_counter()
-    runner = xDiTParallel(*_cli(PIXART_ARGV).create_config())
+    with pixart_depth(RUNNER_CUT):
+        runner = xDiTParallel(*_cli(PIXART_ARGV).create_config())
     spice_pixart(runner.pipeline.params)
     _reset_counts(kernels)
     one = runner(decode=False)
-    _check_counts("[35] one process", _counts(kernels), {"flash_attn_with_lse": DEPTH * STEPS})
+    _check_counts("[35] one process", _counts(kernels), {"flash_attn_with_lse": RUNNER_CUT * STEPS})
     pipe = runner.pipeline
     del runner  # the prompt encoder leaves the card; the pipeline decodes below
     torch.cuda.empty_cache()
@@ -3513,21 +3675,21 @@ def pp_pixart_phase(kernels, flash, timing, dev, gen):
     t0 = time.perf_counter()
     four = spawn_local(pp_runner_rank, 4, "gloo", runs, threads=2)
     spawn_s = time.perf_counter() - t0
-    half, comp = DEPTH // 2, STEPS - WARMUP
-    # kernel 1 a rank: its stage's 14 blocks a forward; the patch pipeline's
+    half, comp = RUNNER_CUT // 2, STEPS - WARMUP
+    # kernel 1 a rank: its stage's RUNNER_CUT / 2 blocks a forward; the patch pipeline's
     # sync warmup steps and its priming step take the whole sequence, then
     # (steps - warmup) x M patches; each rank decodes its image (one wide launch)
     expect = {
         "pp2 sync": lambda r: {"flash_attn_with_lse": half * STEPS + 1},
         "pp2 patch M2": lambda r: {"flash_attn_with_lse": half * (1 + 2 * (STEPS - 1)) + 1},
         "pp2 patch M4 warmup 2": lambda r: {"flash_attn_with_lse": half * (2 + 4 * (STEPS - 2)) + 1},
-        "tp2": lambda r: {"flash_attn_with_lse": DEPTH * STEPS + 1},
+        "tp2": lambda r: {"flash_attn_with_lse": RUNNER_CUT * STEPS + 1},
         "pp2 x ring2 binary": lambda r: {"flash_attn_with_lse": 2 * half * STEPS + 1,
                                          "binary_quant_fastpath": 2 * half * comp,
                                          "binary_dequant_fastpath": 2 * half * comp},
         # the DiT ranks decode nothing; each VAE rank's band runs the mid-block
         # attention on the gathered map once
-        "ring2 + 2 VAE ranks": lambda r: ({"flash_attn_with_lse": 2 * DEPTH * STEPS, WIDE: 0} if r < 2
+        "ring2 + 2 VAE ranks": lambda r: ({"flash_attn_with_lse": 2 * RUNNER_CUT * STEPS, WIDE: 0} if r < 2
                                           else {"flash_attn_with_lse": 1}),
     }
     phases = {}
@@ -3605,7 +3767,7 @@ def stage_rank(rank, world, runs):
         mesh = make_mesh(parallel)
         _reset_counts(kernels)
         if family == "flux":
-            pipe = flux_pipeline(*models["flux"], dev, parallel=parallel, mesh=mesh, **kw)
+            pipe = flux_pipeline(*models["flux"], dev, parallel=parallel, mesh=mesh, steps=RANK_STEPS, **kw)
             lat, img, sec = flux_request(pipe, 1)
             check_image(img, f"[36] {name} rank {rank}", FLUX_SIZE)
         else:
@@ -3619,7 +3781,7 @@ def stage_rank(rank, world, runs):
 def pp_flux_cog_phase(kernels, flash, timing, dev, gen, flux_one, cog_one):
     """Phase 36: kernel 1 at FLUX's patch shape; then FLUX.1-dev at phase
     19's cut (1 + 2 blocks, padded to 2 + 2 under pp2) and CogVideoX-2b at
-    phase 34's (2 blocks, 6 steps), full width, in 2 gloo processes on this
+    phase 34's (2 blocks, :data:`COG_RING_STEPS` steps), full width, in 2 gloo processes on this
     card: FLUX sync pp2 against one process running the same padded model,
     the patch pipeline pp2 M = 4 against sync, TP 2; CogVideoX sync pp2 and
     TP 2 against phase 34's one process.  Returns (the phases, kernel 1's
@@ -3636,10 +3798,10 @@ def pp_flux_cog_phase(kernels, flash, timing, dev, gen, flux_one, cog_one):
     mcfg, vcfg, params, vae_params = build_flux(dev, *FLUX_CUT)
     padded, pcfg = pad_flux_for_pp(params, mcfg, 2)
     _reset_counts(kernels)
-    lat, img, sec = flux_request(flux_pipeline(pcfg, vcfg, padded, vae_params, dev), 1)
+    lat, img, sec = flux_request(flux_pipeline(pcfg, vcfg, padded, vae_params, dev, steps=RANK_STEPS), 1)
     check_image(img, "[36] FLUX padded, one process", FLUX_SIZE)
     pl = pcfg.double_layers + pcfg.single_layers
-    _check_counts("[36] FLUX padded, one process", _counts(kernels), {"flash_attn_with_lse": pl * FLUX_STEPS + 1,
+    _check_counts("[36] FLUX padded, one process", _counts(kernels), {"flash_attn_with_lse": pl * RANK_STEPS + 1,
                                                                        WIDE: 1})
     padded_np = lat.float().cpu().numpy()
     del params, padded, vae_params, lat, img
@@ -3657,10 +3819,10 @@ def pp_flux_cog_phase(kernels, flash, timing, dev, gen, flux_one, cog_one):
     two = spawn_local(stage_rank, 2, "gloo", runs, threads=2)
     spawn_s = time.perf_counter() - t0
     fl, L = pl // 2, COG_CUT  # a FLUX stage's layers (1 double + 1 single), CogVideoX's blocks
-    expect = {"flux pp2 sync": {"flash_attn_with_lse": fl * FLUX_STEPS + 1},
-              # 1 sync step on the whole sequence, then 27 steps x 4 patches
-              "flux pp2 patch M4": {"flash_attn_with_lse": fl * (1 + FLUX_PATCH * (FLUX_STEPS - 1)) + 1},
-              "flux tp2": {"flash_attn_with_lse": (mcfg.double_layers + mcfg.single_layers) * FLUX_STEPS + 1},
+    expect = {"flux pp2 sync": {"flash_attn_with_lse": fl * RANK_STEPS + 1},
+              # 1 sync step on the whole sequence, then RANK_STEPS - 1 steps x 4 patches
+              "flux pp2 patch M4": {"flash_attn_with_lse": fl * (1 + FLUX_PATCH * (RANK_STEPS - 1)) + 1},
+              "flux tp2": {"flash_attn_with_lse": (mcfg.double_layers + mcfg.single_layers) * RANK_STEPS + 1},
               "cog pp2 sync": {"flash_attn_with_lse": L // 2 * COG_RING_STEPS, WIDE: 0},
               "cog tp2": {"flash_attn_with_lse": L * COG_RING_STEPS, WIDE: 0}}
     phases = {}
@@ -3698,6 +3860,727 @@ def pp_flux_cog_phase(kernels, flash, timing, dev, gen, flux_one, cog_one):
     return phases, rows
 
 
+# -- phases 37-42: SD3-medium, HunyuanDiT v1.2, PixArt-Sigma, the tiled VAE ----
+
+#: SD3-medium at 1024 x 1024: 4,096 image tokens; the text rows are the 77
+#: CLIP rows and the runner's --max_sequence_length (120) T5 rows
+SD3_IMG, SD3_TXT, SD3_HEADS, SD3_HEAD_DIM, SD3_DIM = 4096, 77 + 120, 24, 64, 1536
+SD3_STEPS, SD3_GUIDANCE = 28, 7.0
+#: HunyuanDiT v1.2 at 1024 x 1024: 16 heads of 88 (the register body at DP 96)
+HY_IMG, HY_HEADS, HY_HEAD_DIM, HY_DIM = 4096, 16, 88, 1408
+HY_STEPS, HY_GUIDANCE = 25, 5.0
+#: PixArt-Sigma 2K: 128 x 128 patches; its VAE's dense mid-attention holds
+#: 256 x 256 latent pixels
+SIGMA_2K_IMG, VAE_2K_ROWS = 16384, 65536
+PROMPT = "a tiny astronaut hatching from an egg on the moon"
+SD3_ARGV = ["--model", "stabilityai/stable-diffusion-3-medium", "--height", "1024", "--width", "1024",
+            "--num_inference_steps", str(SD3_STEPS), "--guidance_scale", str(SD3_GUIDANCE), "--prompt", PROMPT]
+HY_ARGV = ["--model", "Tencent-Hunyuan/HunyuanDiT-v1.2", "--height", "1024", "--width", "1024",
+           "--num_inference_steps", str(HY_STEPS), "--guidance_scale", str(HY_GUIDANCE), "--prompt", PROMPT]
+SIGMA_ARGV = ["--model", "PixArt-alpha/PixArt-Sigma-XL-2-1024-MS", "--height", "1024", "--width", "1024",
+              "--num_inference_steps", str(STEPS), "--prompt", PROMPT]
+SIGMA_2K_ARGV = ["--model", "PixArt-alpha/PixArt-Sigma-XL-2-2K-MS", "--height", "2048", "--width", "2048",
+                 "--num_inference_steps", str(STEPS), "--enable_tiling", "--prompt", PROMPT]
+#: the tiled decode against the dense one: the tiles lose the mid-attention's
+#: context across them, within the JAX tests' bound
+#: (tests/core/test_vae_tiling.py::test_tiled_decode_shape_and_seam_error)
+TILED_REL_MAX = 0.5
+#: the sliced decode (B1 a call) against the dense B2 one on the card: each
+#: image of the sliced decode is its own B1 dense decode bit for bit, but
+#: cuBLAS, cuDNN and the reductions pick their kernels by shape, so B1 and
+#: B2 sum in other orders; held as the other bf16 order effects are
+#: (RING_REL_MAX).  Bit-equal on the CPU (tests/test_torch_vae_tiling.py)
+SLICED_REL_MAX = RING_REL_MAX
+#: phase 42's cut: SD3's first 2 blocks, HunyuanDiT's first 2 down and 2 up
+#: blocks (under pp2 each stage holds 1 + 1, the skip channel crosses), at
+#: full width, 6 steps, the first 2 sent raw
+IMG_CUT = {"sd3": 2, "hunyuandit": 4}
+IMG_CUT_STEPS, IMG_CUT_WARMUP = 6, 2
+#: the patch pipelines of phase 42: SD3's M = 2 (M >= pp), HunyuanDiT's
+#: M = 4 (its down/up virtual pipeline needs M >= 2 x pp)
+IMG_PATCH = {"sd3": 2, "hunyuandit": 4}
+#: phase 42's lossless runs against one process: at the bf16 order floor,
+#: measured in the same run (one process with kernel 1 swapped for its
+#: plain twin), this many times over, and never tighter than RING_REL_MAX
+ORDER_FLOOR_FACTOR = 1.5
+
+
+def image_flash_cases(gen, dev):
+    """Kernel 1 at the three families' shapes (bf16, the CFG batch 2):
+    SD3-medium's joint self-attention (the 197 text rows in front of the
+    4,096 image rows, 24 heads of 64), its Ulysses-2, ring-2 and patch
+    (M = 2) shapes; HunyuanDiT's (16 heads of 88: DP 96), likewise; PixArt-
+    Sigma's at 1024 (4,096 tokens) and 2K (16,384); the twin on head
+    slices where the whole call's scores would not fit."""
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def qkv(b, heads, sq, sk, d):
+        return lambda: (rnd(b, sq, heads, d), rnd(b, sk, heads, d), rnd(b, sk, heads, d))
+
+    h, d, s_all, s_loc = SD3_HEADS, SD3_HEAD_DIM, SD3_TXT + SD3_IMG, SD3_TXT + SD3_IMG // 2
+    hh, hd = HY_HEADS, HY_HEAD_DIM
+    return [
+        (f"SD3 joint self-attn B2 H{h} S{s_all} d{d}", lambda: _qkv_views(gen, dev, 2, s_all, h, d), 10, 6),
+        (f"SD3 Ulysses-2 B2 H{h // 2} Sq{2 * s_loc} Sk{s_all} d{d}", qkv(2, h // 2, 2 * s_loc, s_all, d), 10, 6),
+        (f"SD3 ring-2 hop 0 (text joint in front) B2 H{h} Sq{s_loc} Sk{s_loc} d{d}", qkv(2, h, s_loc, s_loc, d), 10, 6),
+        (f"SD3 ring-2 hop 1 B2 H{h} Sq{s_loc} Sk{SD3_IMG // 2} d{d}", qkv(2, h, s_loc, SD3_IMG // 2, d), 10, 6),
+        (f"SD3 patch (M2) B2 H{h} Sq{s_loc} Sk{s_all} d{d}", qkv(2, h, s_loc, s_all, d), 10, 6),
+        (f"HunyuanDiT self-attn B2 H{hh} S{HY_IMG} d{hd}", lambda: _qkv_views(gen, dev, 2, HY_IMG, hh, hd), 10, 4),
+        (f"HunyuanDiT Ulysses-2 B2 H{hh // 2} S{HY_IMG} d{hd}", qkv(2, hh // 2, HY_IMG, HY_IMG, hd), 10, 4),
+        (f"HunyuanDiT ring-2 hop B2 H{hh} Sq{HY_IMG // 2} Sk{HY_IMG // 2} d{hd}",
+         qkv(2, hh, HY_IMG // 2, HY_IMG // 2, hd), 10, 4),
+        (f"HunyuanDiT patch (M4) B2 H{hh} Sq{HY_IMG // 4} Sk{HY_IMG} d{hd}", qkv(2, hh, HY_IMG // 4, HY_IMG, hd), 10,
+         4),
+        ("PixArt-Sigma 1024 self-attn B2 H16 S4096 d72", lambda: _qkv_views(gen, dev, 2, 4096), 10, 4),
+        (f"PixArt-Sigma 2K self-attn B2 H16 S{SIGMA_2K_IMG} d72", lambda: _qkv_views(gen, dev, 2, SIGMA_2K_IMG), 3, 1),
+        (f"2K VAE dense mid-attn B1 H1 S{VAE_2K_ROWS} d512",
+         lambda: tuple(rnd(1, VAE_2K_ROWS, 1, 512) for _ in range(3)), 1, (1, 4096)),
+    ]
+
+
+def image_ring_cases(gen, dev):
+    """Kernel 7 at HunyuanDiT's fused ring 2 (2,048 image rows a rank, 16
+    heads of 88) and PixArt-Sigma 1024's, rank 0's view at the CFG batch 2."""
+    def make(s_local, h, d):
+        shards = [_qkv_views(gen, dev, 2, s_local, h, d) for _ in range(2)]
+        return shards[0][0], [(shards[0][1], shards[0][2]), (shards[1][1].contiguous(), shards[1][2].contiguous())]
+
+    return [((2, 2, HY_IMG // 2), lambda: make(HY_IMG // 2, HY_HEADS, HY_HEAD_DIM)),
+            ((2, 2, 2048), lambda: make(2048, 16, 72))]
+
+
+def check_image_kernels(flash, quant, codecs, rf, timing, dev, gen):
+    """Phase 37: kernels 1, 2, 3, 4, 5, 6, 7 and 8 (and 8's EF pass)
+    against their twins at SD3-medium's, HunyuanDiT v1.2's and
+    PixArt-Sigma's shapes and the 2K VAE's dense mid-attention (65,536 rows
+    of d = 512, one wide-body launch); a head dim of 88 must take the
+    register body at DP 96, whose instantiations must not spill.  Returns
+    the rows by kernel."""
+    import torch
+
+    flash_rows = check_flash(flash, timing, dev, gen, image_flash_cases(gen, dev), phase=37)
+    for r in flash_rows:
+        if "d88" in r["shape"]:
+            said = r["ptxas"] or ""
+            if r["plan"][:2] != ["flash_reg_tile", 96] or "0 bytes spill stores" not in said:
+                raise AssertionError(f"{r['shape']}: plan {r['plan']}, ptxas {said}; DP 96 without spills expected")
+    torch.cuda.empty_cache()
+    window_rows, _ = check_window(flash, dev, gen, [
+        (f"PixArt-Sigma 2K B2 H16 S{SIGMA_2K_IMG} d72 w{WINDOW}", lambda: _qkv_views(gen, dev, 2, SIGMA_2K_IMG),
+         WINDOW, 2)], timing, phase=37)
+    quant_rows = {"binary": [], "int2": []}
+    for n, c in ((SD3_IMG, SD3_DIM), (HY_IMG, HY_DIM)):  # a ring-2 rank's image rows at the CFG batch 2
+        for codec in ("binary", "int2"):
+            row = check_quant(quant, codecs, timing, dev, gen, codec, -1, torch.float32, (n, c), phase=37)
+            if [row["quant_plan_bytes_per_thread"], row["dequant_plan_bytes_per_thread"]] != \
+                    [quant.QUANT_VEC_BYTES] * 2:
+                raise AssertionError(f"{row['shape']}: not the vector plans")
+            quant_rows[codec].append(row)
+    ring_rows = check_ring_flash(rf, flash, timing, dev, gen, image_ring_cases(gen, dev), phase=37)
+    for r in ring_rows:
+        if "d88" in r["shape"] and r["plan"][:2] != ["flash_reg_tile", 96]:
+            raise AssertionError(f"{r['shape']}: plan {r['plan']}; the register body at DP 96 expected")
+    cring_rows = [check_compact_ring(rf, flash, timing, dev, gen, 2, 2, HY_IMG // 2, codec, -1, False, HY_HEADS,
+                                     HY_HEAD_DIM, phase=37) for codec in ("binary", "int2")]
+    cring_rows.append(check_compact_ring(rf, flash, timing, dev, gen, 2, 2, 2048, "binary", -1, False, phase=37))
+    torch.cuda.empty_cache()
+    return {"flash": flash_rows, "window": window_rows, "quant": quant_rows, "ring": ring_rows,
+            "cring": cring_rows}
+
+
+def vae_flash_tiles(h, w, vcfg):
+    """The tiles of a tiled decode of h x w latents whose mid-attention
+    takes kernel 1: those of at least 512 latent pixels (``ops/attention.
+    py``'s rule; a smaller edge tile takes the plain route)."""
+    tl = vcfg.tile_latent_size
+    stride = int(tl * (1 - vcfg.tile_overlap_factor))
+    return sum(min(tl, h - i) * min(tl, w - j) >= 512 for i in range(0, h, stride) for j in range(0, w, stride))
+
+
+def vae_phase(kernels, dev):
+    """Phase 38: the 2D VAE's decode memory knobs on random weights and
+    latents (B2) at SD3's and FLUX.1's 1024 px latents (128 x 128 x 16) and
+    PixArt-Sigma 2K's (256 x 256 x 4, the SDXL VAE): each image of the
+    sliced decode bit-equal to the dense decode of that image alone, and
+    within SLICED_REL_MAX of the dense B2 decode; the tiled decode within
+    TILED_REL_MAX of it (and not equal: the tiles see less); each one's
+    seconds by CUDA events and peak memory above the latents; kernel 1's
+    wide-body launches one per decode call (the dense B2 mid-attention,
+    each slice, each tile of 512 latent pixels or more).  Returns the
+    phases."""
+    import dataclasses
+
+    import torch
+
+    from compactfusion_tpu_torch.models import vae as mvae
+
+    sdxl = dataclasses.replace(mvae.sd_vae(), scaling_factor=0.13025)
+    phases = {}
+    for name, vcfg, hw in (("SD3 1024", mvae.sd3_vae(), 128), ("FLUX.1 1024", mvae.flux_vae(), 128),
+                           ("PixArt-Sigma 2K", sdxl, 256)):
+        params = mvae.init_vae_decoder(torch.Generator(device=dev).manual_seed(11), vcfg)
+        g = torch.Generator(device=dev).manual_seed(3)
+        lat = torch.randn((2, hw, hw, vcfg.latent_channels), generator=g, device=dev) * 0.8
+        tiles = vae_flash_tiles(hw, hw, vcfg)
+        rep, outs = {}, {}
+        for mode, kw, wide in (("dense", {}, 1), ("sliced", {"use_slicing": True}, 2),
+                               ("tiled", {"use_tiling": True}, tiles)):
+            cfg = dataclasses.replace(vcfg, **kw)
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts(kernels)
+            with torch.inference_mode():
+                img, sec = _events_s(lambda: mvae.vae_decode(params, lat, cfg))
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            _check_counts(f"[38] {name} {mode}", _counts(kernels), {"flash_attn_with_lse": wide, WIDE: wide})
+            f = img.float()
+            if tuple(img.shape) != (2, 8 * hw, 8 * hw, 3) or not bool(torch.isfinite(f).all()):
+                raise AssertionError(f"[38] {name} {mode}: image {tuple(img.shape)} not finite")
+            outs[mode] = img
+            rep[mode] = {"s": sec, "peak_gib": peak, "wide_launches": wide}
+        with torch.inference_mode():
+            alone = mvae.vae_decode(params, lat[:1], vcfg)
+        sliced_equal = torch.equal(outs["sliced"][:1], alone)
+        sliced_rel = rel_fro(outs["sliced"], outs["dense"])
+        tiled_rel = rel_fro(outs["tiled"], outs["dense"])
+        print(f"[38] {name} VAE decode, B2 x {hw} x {hw} x {vcfg.latent_channels} latents -> {8 * hw} px: dense "
+              f"{rep['dense']['s']:.4f} s, peak {rep['dense']['peak_gib']:.3f} GiB (the mid-attention B2 S{hw * hw} "
+              f"d512 in one wide-body launch); sliced {rep['sliced']['s']:.4f} s, peak {rep['sliced']['peak_gib']:.3f} "
+              f"GiB, image 0 bit-equal to its decode alone: {sliced_equal}, rel err vs the B2 decode {sliced_rel:.3e} "
+              f"(bound {SLICED_REL_MAX}); tiled ({tiles} tiles on kernel 1 of {vcfg.tile_latent_size} latent px an "
+              f"image) {rep['tiled']['s']:.4f} s, peak {rep['tiled']['peak_gib']:.3f} GiB, rel err vs dense "
+              f"{tiled_rel:.4f} (bound (0, {TILED_REL_MAX}))")
+        if not sliced_equal or not sliced_rel <= SLICED_REL_MAX or not 0.0 < tiled_rel < TILED_REL_MAX:
+            raise AssertionError(f"[38] {name}: sliced equal {sliced_equal}, rel err {sliced_rel}, tiled rel err "
+                                 f"{tiled_rel}")
+        phases[f"vae {name}"] = dict(rep, sliced_rel_err_vs_dense=sliced_rel, tiled_rel_err_vs_dense=tiled_rel,
+                                     launches=_counts(kernels))
+        del params, lat, outs, img, f, alone
+        torch.cuda.empty_cache()
+    return phases
+
+
+def _valid_image(img, what, size):
+    """A finite (1, size, size, 3) image in [0, 1] that is not constant;
+    returns (min, max, std)."""
+    import torch
+
+    f = img.float()
+    lo, hi, std = f.min().item(), f.max().item(), f.std().item()
+    if tuple(img.shape) != (1, size, size, 3) or not bool(torch.isfinite(f).all()) or lo < 0 or hi > 1 \
+            or std == 0.0:
+        raise AssertionError(f"{what}: image {tuple(img.shape)} in [{lo}, {hi}], std {std}")
+    return lo, hi, std
+
+
+def runner_request(kernels, runner, what, expect, size=1024):
+    """One request of a runner from its prompt, every count set to 0 before
+    it: (latents, image, seconds by CUDA events, peak memory in GiB, the
+    counts, the image's (min, max, std)), the counts held to ``expect`` and
+    the image to :func:`_valid_image`."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(kernels)
+    (lat, img), sec = _events_s(lambda: _request(runner))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = _counts(kernels)
+    _check_counts(what, counts, expect)
+    return lat, img, sec, peak, counts, _valid_image(img, what, size)
+
+
+#: the fp32 cuts' patch grid (phases 39-40): 32 x 32 patches of 2 latent
+#: pixels, 512 px
+F32_CUT_GRID = 32
+
+
+def f32_cut_forward(family, params, mcfg, dev, kernels):
+    """A 2-block (SD3) or 2 + 2-block (HunyuanDiT) cut of the full-width
+    model in fp32: one CFG forward (B2, 512 px, as
+    phase 33's cut runs 9 of 49 frames: the CPU's run of 1024 px took ~13 s a
+    family; text from a seed) on the card against the CPU's plain run;
+    returns (rel err, the card's counts)."""
+    import dataclasses
+
+    import torch
+
+    from compactfusion_tpu_torch.models import common as cm
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    t = torch.full((2,), 999.0, device=dev)
+    n = IMG_CUT[family]
+    if family == "sd3":
+        from compactfusion_tpu_torch.models.sd3 import sd3_forward
+
+        m = dataclasses.replace(mcfg, depth=n, dtype=torch.float32)
+        cut = _to_dev(_cut_blocks(params, n), dev, torch.float32)
+        x = torch.randn((2, F32_CUT_GRID ** 2, m.patch ** 2 * m.in_channels), generator=g, device=dev)
+        txt = torch.randn((2, SD3_TXT, m.text_dim), generator=g, device=dev)
+        pooled = torch.randn((2, m.pooled_dim), generator=g, device=dev)
+        pos = cm.cropped_pos_embed_2d(m.dim, F32_CUT_GRID, F32_CUT_GRID, m.pos_embed_max_size, m.base_size)
+
+        def run(p, d):
+            return sd3_forward(p, x.to(d), txt.to(d), pooled.to(d), t.to(d), m, pos_embed=pos.to(d))[0]
+    else:
+        from compactfusion_tpu_torch.models.hunyuandit import hunyuandit_forward, hunyuandit_positions
+
+        m = dataclasses.replace(mcfg, depth=n, dtype=torch.float32)
+        cut = _to_dev({k: cm.layer_of(v, slice(0, n // 2)) if k in ("down_blocks", "up_blocks") else v
+                       for k, v in params.items()}, dev, torch.float32)
+        x = torch.randn((2, F32_CUT_GRID ** 2, m.patch ** 2 * m.in_channels), generator=g, device=dev)
+        text = torch.randn((2, 120, m.text_dim), generator=g, device=dev)
+        mask = torch.ones((2, 120), dtype=torch.bool, device=dev)
+        mask[1, 9:] = False  # a padded uncond prompt
+        rope = cm.rope_frequencies(hunyuandit_positions(F32_CUT_GRID, F32_CUT_GRID), m.rope_axes)
+
+        def run(p, d):
+            return hunyuandit_forward(p, x.to(d), t.to(d), text.to(d), m, rope=tuple(r.to(d) for r in rope),
+                                      text_mask=mask.to(d))[0]
+    _reset_counts(kernels)
+    with torch.inference_mode():
+        gpu = run(cut, dev)
+        counts = _counts(kernels)
+        cpu = run(_to_dev(cut, "cpu"), "cpu")
+    return rel_fro(gpu.cpu(), cpu), counts
+
+
+def family_runner_phase(kernels, dev, family):
+    """Phase 39 (SD3-medium) or 40 (HunyuanDiT v1.2): the model at full width
+    and depth through ``xDiTParallel`` from the published command line
+    (1024 x 1024; 28 steps, guidance 7 / 25 steps, guidance 5), random
+    weights with spiced modulation biases and the runner's prompt encoder:
+    a warm-up request, then the request: a valid image, kernel 1 exactly
+    depth x steps times (the CFG batch in one launch a layer) and once on
+    the wide body (the VAE), s/image by CUDA events, peak memory; then the
+    fp32 cut's CFG forward on the card against the CPU.  Returns the
+    phases."""
+    import numpy as np
+    import torch
+
+    from compactfusion_tpu_torch.parallel_api import xDiTParallel
+
+    phase, argv, steps = (39, SD3_ARGV, SD3_STEPS) if family == "sd3" else (40, HY_ARGV, HY_STEPS)
+    t0 = time.perf_counter()
+    runner = xDiTParallel(*_cli(argv).create_config())
+    runner.pipeline.params = _spiced(runner.pipeline.params, np.random.default_rng(99))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    pipe, pcfg = runner.pipeline, runner.pipeline_config
+    m = pcfg.model
+    expect = {"flash_attn_with_lse": m.depth * steps + 1, WIDE: 1}
+    _, warm_s = _events_s(lambda: _request(runner))
+    lat, img, sec, peak, counts, (lo, hi, std) = runner_request(kernels, runner, f"[{phase}] {family}", expect)
+    print(f"[{phase}] {family} through xDiTParallel ({' '.join(argv[:2])}): {m.depth} blocks, dim {m.dim}, "
+          f"{m.heads} heads of {m.head_dim}, {_numel(pipe.params) / 1e9:.3f}B parameters in bf16, built in "
+          f"{build_s:.2f} s; {pcfg.num_steps} steps, guidance {pcfg.guidance_scale}, {pcfg.tokens} image tokens; "
+          f"image (1, 1024, 1024, 3) in [{lo:.4f}, {hi:.4f}], std {std:.4f}; {sec:.4f} s/image (CUDA events, the "
+          f"prompt encoding and the decode included; warm-up {warm_s:.4f} s); kernel 1 "
+          f"{counts['flash_attn_with_lse']} launches ({m.depth} x {steps} + the VAE's); "
+          f"torch.cuda.max_memory_allocated {peak:.3f} GiB")
+    phases = {f"{family} 1024": {"s_per_image": sec, "warmup_s": warm_s, "build_s": build_s,
+                                 "max_memory_allocated_gib": peak, "launches": counts}}
+    rel, counts = f32_cut_forward(family, pipe.params, m, dev, kernels)
+    n = IMG_CUT[family]
+    _check_counts(f"[{phase}] fp32 cut", counts, {"flash_attn_with_lse": n, F32["flash_attn_with_lse"]: n})
+    print(f"[{phase}] {family} cut to {n} blocks in fp32, one CFG forward at {F32_CUT_GRID * 16} px: card vs the CPU's plain run "
+          f"rel err {rel:.3e} (bound {ENCODER_F32_REL_MAX}); kernel 1 {counts['flash_attn_with_lse']} fp32 launches")
+    if not rel <= ENCODER_F32_REL_MAX:
+        raise AssertionError(f"[{phase}] fp32 {family} cut: card vs CPU {rel}")
+    phases[f"{family} fp32 cut"] = {"rel_err_vs_cpu": rel, "launches": counts}
+    del runner, pipe, lat, img
+    return phases
+
+
+def sigma_phase(kernels, dev):
+    """Phase 41: PixArt-Sigma 1024 and 2K at full width and depth through
+    ``xDiTParallel`` (20 steps, guidance 4.5, AdaLN tables spiced): one
+    request each, 2K with ``--enable_tiling`` (kernel 1 28 x 20 times plus
+    once per VAE tile of 512 latent pixels or more); then Sigma 2K with
+    phase 9's mixed DiTFastAttn plan
+    (kernel 4 at S16384; the full and window launches the plan implies).
+    Returns the phases."""
+    import dataclasses
+
+    import torch
+
+    from compactfusion_tpu_torch.cache.fast_attn import optimize_plan
+    from compactfusion_tpu_torch.models import pixart as model_pixart
+    from compactfusion_tpu_torch.parallel_api import xDiTParallel
+    from compactfusion_tpu_torch.pipelines.pixart import PixArtPipeline
+
+    init = model_pixart.init_pixart
+    model_pixart.init_pixart = lambda generator, cfg: spice_pixart(init(generator, cfg))
+    phases = {}
+    try:
+        for name, argv, size in (("pixart-sigma 1024", SIGMA_ARGV, 1024), ("pixart-sigma 2k tiled", SIGMA_2K_ARGV,
+                                                                           2048)):
+            t0 = time.perf_counter()
+            runner = xDiTParallel(*_cli(argv).create_config())
+            build_s = time.perf_counter() - t0
+            pcfg = runner.pipeline_config
+            vcfg = pcfg.vae
+            tiles = vae_flash_tiles(size // 8, size // 8, vcfg) if vcfg.use_tiling else 1
+            expect = {"flash_attn_with_lse": DEPTH * STEPS + tiles, WIDE: tiles}
+            lat, img, sec, peak, counts, (lo, hi, std) = runner_request(kernels, runner, f"[41] {name}", expect,
+                                                                        size)
+            print(f"[41] {name} through xDiTParallel ({' '.join(argv[:2])}, {pcfg.height} x {pcfg.width}, "
+                  f"interpolation scale {pcfg.model.interpolation_scale}, VAE scaling {vcfg.scaling_factor}"
+                  f"{', tiled decode' if vcfg.use_tiling else ''}): built in {build_s:.2f} s; image in "
+                  f"[{lo:.4f}, {hi:.4f}], std {std:.4f}; {sec:.4f} s/image (CUDA events, the first request: "
+                  f"no warm-up); kernel 1 {counts['flash_attn_with_lse']} launches ({DEPTH} x {STEPS} + {tiles} "
+                  f"VAE {'tiles' if tiles > 1 else 'decode'}); max_memory_allocated {peak:.3f} GiB")
+            phases[name] = {"s_per_image": sec, "build_s": build_s, "max_memory_allocated_gib": peak,
+                            "launches": counts}
+        # Sigma 2K with the mixed DiTFastAttn plan, the runner's request
+        mixed = mixed_plan()
+        full, window = plan_launches(optimize_plan(mixed))
+        pipe = runner.pipeline
+        runner.pipeline = PixArtPipeline(pipe.params, pipe.vae_params, dataclasses.replace(
+            pcfg, fast_attn_plan=tuple(tuple(int(v) for v in row) for row in mixed), fast_attn_window=WINDOW),
+            dev)
+        expect = {"flash_attn_with_lse": full - 1 + tiles, "flash_attn_window_with_lse": window, WIDE: tiles}
+        plan_lat, _, plan_sec, plan_peak, counts, _ = runner_request(kernels, runner, "[41] sigma 2k mixed plan",
+                                                                     expect, 2048)
+        rel = rel_fro(plan_lat, lat)
+        print(f"[41] pixart-sigma 2k with phase 9's mixed DiTFastAttn plan (window {WINDOW}): latent rel err vs "
+              f"the plain request {rel:.6f}; {plan_sec:.4f} s/image; kernel 1 {counts['flash_attn_with_lse']}, "
+              f"kernel 4 {counts['flash_attn_window_with_lse']} launches (as the plan implies: "
+              f"{full - 1} + {tiles} and {window}); max_memory_allocated {plan_peak:.3f} GiB")
+        if not 0.0 < rel < float("inf"):
+            raise AssertionError(f"[41] sigma 2k mixed plan: rel err {rel}")
+        phases["pixart-sigma 2k mixed plan"] = {"s_per_image": plan_sec, "latent_rel_err": rel,
+                                                "max_memory_allocated_gib": plan_peak, "launches": counts}
+        del runner, pipe, lat, img, plan_lat
+    finally:
+        model_pixart.init_pixart = init
+    return phases
+
+
+def build_image_cut(family, dev):
+    """Phase 42's model: SD3-medium or HunyuanDiT v1.2 at full width, cut to
+    :data:`IMG_CUT` blocks, random weights from seed 0, modulation biases
+    spiced."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    if family == "sd3":
+        from compactfusion_tpu_torch.models.sd3 import init_sd3, sd3_medium
+
+        mcfg = dataclasses.replace(sd3_medium(), depth=IMG_CUT[family])
+        params = init_sd3(torch.Generator(device=dev).manual_seed(0), mcfg)
+    else:
+        from compactfusion_tpu_torch.models.hunyuandit import hunyuandit_v12, init_hunyuandit
+
+        mcfg = dataclasses.replace(hunyuandit_v12(), depth=IMG_CUT[family])
+        params = init_hunyuandit(torch.Generator(device=dev).manual_seed(0), mcfg)
+    return mcfg, _spiced(params, np.random.default_rng(99))
+
+
+def image_cut_pipeline(family, mcfg, params, dev, mesh=None, **kw):
+    """Phase 42's pipeline: 1024 x 1024, 6 steps, the family's guidance, no VAE."""
+    if family == "sd3":
+        from compactfusion_tpu_torch.models.vae import sd3_vae
+        from compactfusion_tpu_torch.pipelines.sd3 import SD3Pipeline, SD3PipelineConfig
+
+        cfg = SD3PipelineConfig(model=mcfg, vae=sd3_vae(), num_steps=IMG_CUT_STEPS, guidance_scale=SD3_GUIDANCE, **kw)
+        return SD3Pipeline(params, None, cfg, dev, mesh=mesh)
+    from compactfusion_tpu_torch.pipelines.hunyuandit import HunyuanDiTPipeline, HunyuanDiTPipelineConfig
+
+    cfg = HunyuanDiTPipelineConfig(model=mcfg, num_steps=IMG_CUT_STEPS, guidance_scale=HY_GUIDANCE, **kw)
+    return HunyuanDiTPipeline(params, None, cfg, dev, mesh=mesh)
+
+
+def image_cut_request(pipe, family, seed):
+    """Phase 42's request from ``seed``: SD3's (2, 1, 197, 4096) text states
+    and (2, 1, 2048) pooled vectors, or HunyuanDiT's (2, 1, 120, 1024) text
+    states with the uncond prompt padded after 9 tokens; then the noise.
+    Returns (latents, seconds by CUDA events)."""
+    import torch
+
+    dev, m = pipe.device, pipe.cfg.model
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if family == "sd3":
+        txt = torch.randn((2, 1, SD3_TXT, m.text_dim), generator=g, device=dev).to(torch.bfloat16)
+        second = torch.randn((2, 1, m.pooled_dim), generator=g, device=dev)
+    else:
+        txt = torch.randn((2, 1, 120, m.text_dim), generator=g, device=dev).to(torch.bfloat16)
+        second = torch.ones((2, 1, 120), dtype=torch.bool, device=dev)
+        second[1, :, 9:] = False
+    return _events_s(lambda: pipe(txt, second, generator=g, decode=False))
+
+
+@contextlib.contextmanager
+def image_halves_apart(family):
+    """Within the block, an SD3 or HunyuanDiT pipeline of this process runs
+    each CFG half's forward alone, at B1, as a rank of cfg 2 runs its half
+    (lossless requests: no attention state)."""
+    import torch
+
+    if family == "sd3":
+        from compactfusion_tpu_torch.pipelines import sd3 as mod
+
+        real = mod.sd3_forward
+
+        def forward(params, x, txt, pooled, t, cfg, *, attn_state, **kw):
+            outs = [real(params, x_, txt_, p_, t_, cfg, attn_state=attn_state, **kw)[0]
+                    for x_, txt_, p_, t_ in zip(x.chunk(2), txt.chunk(2), pooled.chunk(2), t.chunk(2))]
+            return torch.cat(outs), attn_state
+
+        mod.sd3_forward = forward
+    else:
+        from compactfusion_tpu_torch.pipelines import hunyuandit as mod
+
+        real = mod.hunyuandit_forward
+
+        def forward(params, x, t, text, cfg, *, text_mask, attn_state_down, attn_state_up, **kw):
+            outs = [real(params, x_, t_, text_, cfg, text_mask=m_, attn_state_down=attn_state_down,
+                         attn_state_up=attn_state_up, **kw)[0]
+                    for x_, t_, text_, m_ in zip(x.chunk(2), t.chunk(2), text.chunk(2), text_mask.chunk(2))]
+            return torch.cat(outs), attn_state_down, attn_state_up
+
+        mod.hunyuandit_forward = forward
+    name = "sd3_forward" if family == "sd3" else "hunyuandit_forward"
+    try:
+        yield
+    finally:
+        setattr(mod, name, real)
+
+
+def image_rank(rank, world, runs):
+    """One rank of phase 42 (``spawn_local`` on this GPU, gloo): both cut
+    models from their seeds, then per run (name, family, ParallelConfig
+    kwargs, CompactConfig codec or None, pipeline-config kwargs) the request
+    from seed 1 with every count set to 0 before it; returns per run what
+    :func:`ring_rank` returns."""
+    import torch
+
+    from compactfusion_tpu_torch.compact import ring as compact_ring
+    from compactfusion_tpu_torch.config import CompactConfig, CompressType, ParallelConfig
+    from compactfusion_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from compactfusion_tpu_torch.parallel.ring import ring_shift
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    kernels = port_kernels()
+    models = {f: build_image_cut(f, dev) for f in IMG_CUT}
+    out = {}
+    for name, family, par, codec, extra in runs:
+        parallel = ParallelConfig(**par)
+        kw = dict(extra)
+        if codec is not None:
+            kw["compact"] = CompactConfig(enabled=True, warmup_steps=IMG_CUT_WARMUP, residual=1, error_feedback=True,
+                                          fastpath=True, check_consistency=True, compress_type=CompressType(codec))
+        pipe = image_cut_pipeline(family, *models[family], dev, parallel=parallel, mesh=make_mesh(parallel), **kw)
+        _reset_counts(kernels)
+        ring_shift.nbytes = Mesh.all_to_all.nbytes = Mesh.all_gather_tree.nbytes = 0
+        compact_ring.max_consistency_dev = 0.0
+        lat, sec = image_cut_request(pipe, family, 1)
+        out[name] = {"latents": lat.float().cpu().numpy(), "launches": _counts(kernels),
+                     "wire_bytes": ring_shift.nbytes, "all_to_all_bytes": Mesh.all_to_all.nbytes,
+                     "gather_bytes": Mesh.all_gather_tree.nbytes,
+                     "consistency_dev": compact_ring.max_consistency_dev, "skips": None, "s_per_image": sec}
+        del pipe
+    return out
+
+
+def image_ring_phase(kernels, dev, codecs):
+    """Phase 42: SD3-medium and HunyuanDiT v1.2 at full width and 1024 x 1024,
+    cut to :data:`IMG_CUT` blocks, 6 steps, as 2 gloo processes on this
+    card: ring 2 lossless, BINARY and INT2 (residual 1 + EF, warmup 2, the
+    consistency check on), each unfused and fused; Ulysses 2; cfg 2; sync
+    PipeFusion pp2 (HunyuanDiT's with the mirror skip channel); the patch
+    pipeline (SD3 M = 2, HunyuanDiT M = 4); TP 2.  One process runs the
+    same cut first: lossless, each CFG half at B1, and with kernel 1
+    swapped for its plain twin (the bf16 order floor).  Lossless runs,
+    sync pp2 and TP 2 within max(RING_REL_MAX, ORDER_FLOOR_FACTOR x the
+    floor) of one process (sync pp2 also within PP_FLUX_REL_MAX); cfg 2
+    bit-equal to the halves at B1; the fused lossless ring against the
+    unfused one; compressed 0 < err < 0.05 with EF deviation 0; the patch
+    pipelines in PATCH_PP_REL of sync; exact launch counts; the ring, cfg
+    and all-to-all bytes the shapes imply.  SD3's fused compressed ring
+    takes the unfused route (197 text + 2,048 image query rows a rank, not
+    a multiple of 8); HunyuanDiT's takes kernel 8.  Returns the phases."""
+    import numpy as np
+    import torch
+
+    from compactfusion_tpu_torch.parallel.mesh import spawn_local
+
+    S, W = IMG_CUT_STEPS, IMG_CUT_WARMUP
+    refs = {}
+    for family in IMG_CUT:
+        mcfg, params = build_image_cut(family, dev)
+        pipe = image_cut_pipeline(family, mcfg, params, dev)
+        _reset_counts(kernels)
+        lat, sec = image_cut_request(pipe, family, 1)
+        _check_counts(f"[42] {family} cut, one process", _counts(kernels),
+                      {"flash_attn_with_lse": IMG_CUT[family] * S})
+        with image_halves_apart(family):
+            halves, _ = image_cut_request(pipe, family, 1)
+        with plain_attention():
+            plain, plain_sec = image_cut_request(pipe, family, 1)
+        one, halves, plain = (x.float().cpu().numpy() for x in (lat, halves, plain))
+        floor = _rel_np(plain, one)
+        refs[family] = {"one": one, "halves": halves, "floor": floor,
+                        "bound": max(RING_REL_MAX, ORDER_FLOOR_FACTOR * floor), "s": sec}
+        print(f"[42] {family} cut to {IMG_CUT[family]} blocks (full width, 1024 x 1024, {S} steps): one process, "
+              f"lossless, {sec:.4f} s; CFG halves at B1 vs the B2 run {_rel_np(halves, one):.6g}; kernel 1 swapped "
+              f"for its plain twin: rel err vs the kernel's run {floor:.6g} ({plain_sec:.4f} s): lossless bound "
+              f"{refs[family]['bound']:.6g}")
+        del params, pipe
+        torch.cuda.empty_cache()
+    ring2, fused2 = {"ring_degree": 2}, {"ring_degree": 2, "use_fused_ring": True}
+    runs = []
+    for f in IMG_CUT:
+        runs += [(f"{f} ring2 lossless", f, ring2, None, {}), (f"{f} ring2 lossless fused", f, fused2, None, {})]
+        runs += [(f"{f} ring2 {c}" + s, f, par, c, {}) for c in ("binary", "int2")
+                 for s, par in (("", ring2), (" fused", fused2))]
+        runs += [(f"{f} u2 lossless", f, {"ulysses_degree": 2}, None, {}),
+                 (f"{f} cfg2 lossless", f, {"cfg_degree": 2}, None, {}),
+                 (f"{f} pp2 sync", f, {"pp_degree": 2}, None, {}),
+                 (f"{f} pp2 patch M{IMG_PATCH[f]}", f, {"pp_degree": 2}, None,
+                  {"num_pipeline_patch": IMG_PATCH[f]}),
+                 (f"{f} tp2", f, {"tp_degree": 2}, None, {})]
+    t0 = time.perf_counter()
+    two = spawn_local(image_rank, 2, "gloo", runs, threads=2)
+    spawn_s = time.perf_counter() - t0
+    phases = {}
+    for f in IMG_CUT:
+        L, C, ref = IMG_CUT[f], S - W, refs[f]
+        hops = 2 * L
+        # the fused compressed ring: SD3's 197 + 2,048 query rows are not a
+        # multiple of 8 (the unfused route, as in the JAX package); HunyuanDiT's 2,048 are
+        fused_c = f == "hunyuandit"
+        patch_warm = 1  # runtime_warmup_steps; HunyuanDiT primes its caches with one more forward
+        patch = L // 2 * (patch_warm + (f == "hunyuandit") + IMG_PATCH[f] * (S - patch_warm))
+        expect = {f"{f} ring2 lossless": {"flash_attn_with_lse": hops * S},
+                  # SD3's fused ring: its text block (Sk 197 < 512) takes the plain route
+                  f"{f} ring2 lossless fused": {"ring_flash_attn_with_lse": hops * S},
+                  f"{f} u2 lossless": {"flash_attn_with_lse": L * S},
+                  f"{f} cfg2 lossless": {"flash_attn_with_lse": L * S},
+                  f"{f} pp2 sync": {"flash_attn_with_lse": L // 2 * S},
+                  f"{f} pp2 patch M{IMG_PATCH[f]}": {"flash_attn_with_lse": patch},
+                  f"{f} tp2": {"flash_attn_with_lse": L * S}}
+        for codec in ("binary", "int2"):
+            q, dq = f"{codec}_quant_fastpath", f"{codec}_dequant_fastpath"
+            expect[f"{f} ring2 {codec}"] = {"flash_attn_with_lse": hops * S, q: hops * C, dq: hops * C}
+            expect[f"{f} ring2 {codec} fused"] = ({"flash_attn_with_lse": hops * W, "compact_ring_flash": hops * C,
+                                                   "ef_update_slot": hops * C} if fused_c
+                                                  else expect[f"{f} ring2 {codec}"])
+        for name, fam, _, codec, _ in runs:
+            if fam != f:
+                continue
+            want = dict({WIDE: 0}, **expect[name])
+            if codec is not None:
+                more = [(name[:-6], two[0][name[:-6]]["latents"], COMPRESSED_REL_ERR_MAX)] if name.endswith(
+                    "fused") else []
+                phases[name] = ring_phase(42, two, name, ref["one"], want, COMPRESSED_REL_ERR_MAX, more, low=0.0)
+                if phases[name]["consistency_dev"] != 0.0:
+                    raise AssertionError(f"{name}: EF caches differ across ranks")
+            elif "patch" in name:
+                phases[name] = ring_phase(42, two, name, two[0][f"{f} pp2 sync"]["latents"], want, PATCH_PP_REL[1],
+                                          low=PATCH_PP_REL[0])
+            else:
+                more = []
+                if name.endswith("fused"):
+                    more.append((name[:-6], two[0][name[:-6]]["latents"], ref["bound"]))
+                if "cfg2" in name:
+                    more.append(("the CFG halves at B1", ref["halves"], 0.0))
+                bound = PP_FLUX_REL_MAX if "pp2 sync" in name else ref["bound"]
+                phases[name] = ring_phase(42, two, name, ref["one"], want, bound, more)
+            phases[name]["latent_rel_err_order_floor"] = ref["floor"]
+        # bytes per rank: the ring's bf16 image K/V of the CFG batch per layer
+        # and step (lossless), the raw fp32 K/V in warmup then the payloads
+        # (compressed); cfg 2: each step's bf16 prediction; Ulysses 2: q (the
+        # text rows in front of the local rows), k, v and out, half of each
+        n, c = 2 * (SD3_IMG if f == "sd3" else HY_IMG) // 2, SD3_DIM if f == "sd3" else HY_DIM
+        want = {f"{f} ring2 lossless": L * S * 2 * n * c * 2}
+        for codec in ("binary", "int2"):
+            payload = codecs.payload_nbytes(codecs.encode(torch.ones(n, c), codecs.CompressType(codec)))
+            want[f"{f} ring2 {codec}"] = want[f"{f} ring2 {codec} fused"] = L * (W * 2 * n * c * 4 + C * 2 * payload)
+        txt = SD3_TXT if f == "sd3" else 0
+        out_ch = 64 if f == "sd3" else 16  # the velocity, or eps without the learned-variance half
+        want_cfg = S * (SD3_IMG if f == "sd3" else HY_IMG) * out_ch * 2
+        want_a2a = L * S * (2 * (txt + n // 2) + 2 * (n // 2)) * 2 * c * 2 // 2
+        got = {k: phases[k]["wire_bytes_per_rank"] for k in want}
+        cfg_bytes = [r[f"{f} cfg2 lossless"]["wire_bytes"] for r in two]
+        a2a = [r[f"{f} u2 lossless"]["all_to_all_bytes"] for r in two]
+        print(f"[42] {f}: ring-shift bytes per rank {got}, expected {want}; cfg 2 exchange {sorted(set(cfg_bytes))}, "
+              f"expected {want_cfg}; U2 all-to-all {sorted(set(a2a))}, expected {want_a2a}")
+        if got != want or any(b != want_cfg for b in cfg_bytes) or any(b != want_a2a for b in a2a):
+            raise AssertionError(f"[42] {f}: the rings, the cfg exchange or the all-to-alls sent other bytes")
+    print(f"[42] the spawn took {spawn_s:.1f} s")
+    return phases
+
+
+def cog_f32_ring_phase(kernels, dev, codecs):
+    """Phase 34 in fp32: the same cut model (its bf16 weights in fp32) and
+    request, one process, then 2 gloo processes on this card: ring 2
+    lossless, unfused and fused, within F32_RING_LOSSLESS_REL_MAX of the
+    one process; BINARY (residual 1 + EF, warmup 2, the consistency check
+    on), unfused and fused (the fused route takes the unfused one at 9,001
+    query rows a rank: bit-equal), within F32_RING_BINARY_REL_MAX of the
+    same BINARY ring run with kernel 1 swapped for its plain twin (the fp32
+    reference of the ring's arithmetic: CogVideoX's text rows ride as joint
+    tensors, which the single-process ring emulation does not take) and 0 <
+    err < 0.05 from lossless; EF deviation 0; every flash launch an fp32
+    one.  Returns the phases."""
+    import torch
+
+    from compactfusion_tpu_torch.parallel.mesh import spawn_local
+
+    mcfg, params = build_cog_cut(dev, torch.float32)
+    _reset_counts(kernels)
+    lat, sec = cog_request(cog_pipeline(mcfg, params, dev), 1)
+    L, S, W = COG_CUT, COG_RING_STEPS, COG_WARMUP
+    _check_counts("CogVideoX fp32 cut, one process", _counts(kernels),
+                  _all_f32({"flash_attn_with_lse": L * S}))
+    one = lat.float().cpu().numpy()
+    del params, lat
+    torch.cuda.empty_cache()
+    print(f"[34] CogVideoX-2b cut to {L} blocks in fp32 (the bf16 weights, the same request): one process, "
+          f"lossless, {sec:.4f} s")
+    ring2, fused2 = {"ring_degree": 2}, {"ring_degree": 2, "use_fused_ring": True}
+    runs = [("fp32 cog ring2 lossless", ring2, None), ("fp32 cog ring2 lossless fused", fused2, None),
+            ("fp32 cog ring2 binary", ring2, "binary"), ("fp32 cog ring2 binary fused", fused2, "binary"),
+            ("fp32 cog ring2 binary, kernel 1's twin", ring2, "binary", True)]
+    two = spawn_local(cog_rank, 2, "gloo", runs, torch.float32, threads=2)
+    hops, C = 2 * L, S - W
+    binary = {"flash_attn_with_lse": hops * S, "binary_quant_fastpath": hops * C,
+              "binary_dequant_fastpath": hops * C}
+    expect = {"fp32 cog ring2 lossless": {"flash_attn_with_lse": hops * S},
+              "fp32 cog ring2 lossless fused": {"ring_flash_attn_with_lse": hops * S},
+              "fp32 cog ring2 binary": binary, "fp32 cog ring2 binary fused": binary,
+              "fp32 cog ring2 binary, kernel 1's twin": dict(binary, flash_attn_with_lse=0)}
+    twin = two[0]["fp32 cog ring2 binary, kernel 1's twin"]["latents"]
+    phases = {}
+    for name, _, codec, *_ in runs:
+        want = dict({WIDE: 0}, **expect[name])
+        if codec is None:
+            phases[name] = ring_phase(34, two, name, one, want, F32_RING_LOSSLESS_REL_MAX, f32=True)
+        else:
+            refs = [] if "twin" in name else [("the BINARY ring on kernel 1's twin", twin, F32_RING_BINARY_REL_MAX)]
+            if name.endswith("fused"):
+                refs.append((name[:-6], two[0][name[:-6]]["latents"], 0.0))
+            phases[name] = ring_phase(34, two, name, one, want, COMPRESSED_REL_ERR_MAX, refs, low=0.0, f32=True)
+            if phases[name]["consistency_dev"] != 0.0:
+                raise AssertionError(f"{name}: EF caches differ across ranks")
+    n, c = 2 * COG_RING_LOCAL, COG_DIM
+    payload = codecs.payload_nbytes(codecs.encode(torch.ones(n, c), codecs.CompressType.BINARY))
+    want = {"fp32 cog ring2 lossless": L * S * 2 * n * c * 4,
+            **{k: L * (W * 2 * n * c * 4 + C * 2 * payload) for k, _, cc, *_ in runs if cc}}
+    got = {k: phases[k]["wire_bytes_per_rank"] for k in want}
+    print(f"[34] fp32: ring-shift bytes per rank {got}, expected {want}")
+    if got != want:
+        raise AssertionError("phase 34 (fp32): the rings sent other bytes than the path implies")
+    return phases
+
+
 def main():
     import torch
 
@@ -3720,6 +4603,12 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     kernels = port_kernels()
+    secs_by_phase, t_mark = {}, [t_run]
+
+    def mark(key):
+        """The seconds since the last mark, as phase ``key``'s."""
+        now = time.perf_counter()
+        secs_by_phase[key], t_mark[0] = now - t_mark[0], now
 
     # -- 1. device and build ------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3733,6 +4622,7 @@ def main():
     for kernel, said in PTXAS.items():
         print(f"[1] ptxas {kernel}: {said}")
 
+    mark("1")
     # -- 2. kernels vs twins ----------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
     flash_rows = check_flash(flash, timing, dev, gen)
@@ -3757,6 +4647,7 @@ def main():
     print(f"[2] empty kernel: {floor_ms:.5f} ms per launch by CUDA graphs (the floor under graph_ms)")
     cross_rows = check_cross_attention(attention, timing, dev, gen)
 
+    mark("2")
     # -- 3. full-width pipeline, compression off -----------------------------
     mcfg, vcfg, params, vae_params = build_models(dev)
 
@@ -3789,6 +4680,7 @@ def main():
     phases = {"lossless": {"s_per_image": secs, "launches": _counts(kernels)}}
     pixart_launches = launched  # kernel 1's launches an image, the VAE's included
 
+    mark("3")
     # -- 4.-7. full-width pipeline, compressed-ring emulations ---------------
     per_layer = CALLS_PER_LAYER
     runs = [
@@ -3808,6 +4700,7 @@ def main():
         print(f"[{phase}] {what}: wire compression vs dense bf16 K/V {r['wire_compression_vs_bf16']:.2f}x")
         phases[what] = r
 
+    mark("4-7")
     # -- 8.-10. DiTFastAttn: per-(step, layer) method plans, window 64 -------
     def plan_pipeline(plan):
         return pipeline(fast_attn_plan=tuple(tuple(int(m) for m in row) for row in plan),
@@ -3824,6 +4717,7 @@ def main():
         9, "fast-attn mixed plan (all seven methods)", plan_pipeline(mixed), kernels, lossless,
         *plan_launches(optimize_plan(mixed)))
 
+    mark("8-9")
     _reset_counts(kernels)
     calibrated, cal_s = calibrated_plan(params, mcfg, vcfg, dev)
     hist = {m: int((calibrated == m).sum()) for m in range(7)}
@@ -3836,6 +4730,7 @@ def main():
     phases["fast-attn calibrated plan"] = dict(r, calibration_s=cal_s, methods=hist,
                                                calibration_launches=cal_launches)
 
+    mark("10")
     # -- 11. TeaCache / FBCache -------------------------------------------------
     def cache_full(skips):  # blocks 1-27 skipped on a skipped step; + VAE
         return DEPTH * (STEPS - skips) + skips + 1
@@ -3851,22 +4746,36 @@ def main():
             raise AssertionError(f"{name}: {r['skips']} skipped steps, expected {want}")
         phases[name] = r
 
+    mark("11")
     # -- 12. the ring kernels vs their twins, one rank's view ------------------
     ring_rows = check_ring_flash(ring_flash, flash, timing, dev, gen)
     cring_rows = [check_compact_ring(ring_flash, flash, timing, dev, gen, *case) for case in CRING_CASES]
 
+    mark("12")
     # -- 13.-15. the ring across processes that share this GPU ----------------
     # NCCL refuses two ranks on one device, so the ranks join a gloo group
     # and their ring shifts go through host memory; all compute runs here.
-    # First, in this process, request 1 with each CFG half's text path and
-    # backbone forward run alone at B1, as a rank of cfg 2 runs its half:
-    # what the model's batch alone moves against the B2 request
-    lossless_np = lossless.float().cpu().numpy()
+    # PixArt cut to its first SP_CUT blocks (full width), as phases 22 and
+    # 24-27, whose runs share these two spawns.  First, in this process,
+    # request 1 on the cut, then with each CFG half's text path and backbone
+    # forward run alone at B1, as a rank of cfg 2 runs its half: what the
+    # model's batch alone moves against the B2 request
+    import dataclasses
+
+    cut_models = dataclasses.replace(mcfg, depth=SP_CUT), vcfg, _cut_blocks(params, SP_CUT), vae_params
+    cut_pipe = pixart_pipeline(*cut_models, dev, steps=RANK_STEPS)
+    _reset_counts(kernels)
+    cut_lat, cut_img, cut_sec = request(cut_pipe, 1)
+    check_image(cut_img, "PixArt cut, one process")
+    _check_counts("PixArt cut, one process", _counts(kernels), {"flash_attn_with_lse": SP_CUT * RANK_STEPS + 1, WIDE: 1})
+    lossless_np = cut_lat.float().cpu().numpy()
+    print(f"[13] PixArt-alpha 512 cut to its first {SP_CUT} of {DEPTH} blocks (full width): one process, "
+          f"lossless, {cut_sec:.4f} s/image")
     _reset_counts(kernels)
     with cfg_halves_apart():
-        halves_lat, halves_img, halves_sec = request(pipe, 1)
+        halves_lat, halves_img, halves_sec = request(cut_pipe, 1)
     check_image(halves_img, "CFG halves at B1")
-    if (flash.flash_attn_with_lse.launches, flash.flash_attn_with_lse.wide_launches) != (2 * DEPTH * STEPS + 1, 1):
+    if (flash.flash_attn_with_lse.launches, flash.flash_attn_with_lse.wide_launches) != (2 * SP_CUT * RANK_STEPS + 1, 1):
         raise AssertionError(f"CFG halves at B1: flash launched {flash.flash_attn_with_lse.launches} times, "
                              f"{flash.flash_attn_with_lse.wide_launches} on the wide body")
     halves_np = halves_lat.float().cpu().numpy()
@@ -3876,36 +4785,34 @@ def main():
     phases["cfg halves at B1"] = {"latent_rel_err_vs_lossless": halves_rel, "s_per_image": halves_sec,
                                   "launches": _counts(kernels)}
     halves_ref = ("the CFG halves at B1", halves_np, HALVES_REL_MAX)
-    hops, comp_steps = 2 * DEPTH, STEPS - WARMUP  # ring 2: two hops per self-attention
-    ring2, fused2 = {"ring_degree": 2}, {"ring_degree": 2, "use_fused_ring": True}
-    binary = {"compress_type": "binary", "comp_rank": -1}
-    two = spawn_local(ring_rank, 2, "gloo", [
-        ("cfg2 lossless", {"cfg_degree": 2}, None),
-        ("ring2 lossless", ring2, None), ("ring2 lossless fused", fused2, None),
-        ("ring2 binary", ring2, binary), ("ring2 binary fused", fused2, binary)], threads=2)
-    # no ring: each rank runs the model on its CFG half, which the one-process
-    # run above does too
-    phases["cfg2 lossless"] = ring_phase(13, two, "cfg2 lossless", lossless_np,
-                                         {"flash_attn_with_lse": DEPTH * STEPS + 1}, RING_REL_MAX,
-                                         [("the CFG halves at B1", halves_np, CFG2_VS_HALVES_MAX)])
-    phases["ring2 lossless"] = ring_phase(13, two, "ring2 lossless", lossless_np,
-                                          {"flash_attn_with_lse": hops * STEPS + 1}, RING_REL_MAX,
-                                          [halves_ref])
-    phases["ring2 lossless fused"] = ring_phase(
-        13, two, "ring2 lossless fused", lossless_np,
-        {"flash_attn_with_lse": 1, "ring_flash_attn_with_lse": hops * STEPS}, RING_REL_MAX, [halves_ref])
-    # the single-process emulation of the same ring: same codec, chunking and batch
+    # the single-process emulation of the ring: same codec, chunking and batch
     _reset_counts(kernels)
-    sim_lat, sim_img, sim_sec = request(pipeline(ring_compact("binary", comp_rank=-1, simulate_ring=2)), 1)
+    sim_lat, sim_img, sim_sec = request(pixart_pipeline(
+        *cut_models, dev, steps=RANK_STEPS, compact=ring_compact("binary", comp_rank=-1, simulate_ring=2)), 1)
     check_image(sim_img, "ring-2 emulation")
     sim_np = sim_lat.float().cpu().numpy()
     print(f"[14] single-process ring-2 binary emulation: rel err vs lossless "
           f"{_rel_np(sim_np, lossless_np):.6f}, vs the CFG halves at B1 {_rel_np(sim_np, halves_np):.6f}, "
           f"{sim_sec:.4f} s/image")
+    del cut_pipe, cut_lat, cut_img, halves_lat, halves_img, sim_lat, sim_img
     sim_ref = ("the ring-2 emulation", sim_np, RING_REL_MAX)
+    pixart_two, pixart_four, pixart_spawn_secs = pixart_spawns(spawn_local)
+    two, four = pixart_two, pixart_four
+    hops, comp_steps = 2 * SP_CUT, RANK_STEPS - WARMUP  # ring 2: two hops per self-attention
+    # no ring: each rank runs the model on its CFG half, which the one-process
+    # run above does too
+    phases["cfg2 lossless"] = ring_phase(13, two, "cfg2 lossless", lossless_np,
+                                         {"flash_attn_with_lse": SP_CUT * RANK_STEPS + 1}, RING_REL_MAX,
+                                         [("the CFG halves at B1", halves_np, CFG2_VS_HALVES_MAX)])
+    phases["ring2 lossless"] = ring_phase(13, two, "ring2 lossless", lossless_np,
+                                          {"flash_attn_with_lse": hops * RANK_STEPS + 1}, RING_REL_MAX,
+                                          [halves_ref])
+    phases["ring2 lossless fused"] = ring_phase(
+        13, two, "ring2 lossless fused", lossless_np,
+        {"flash_attn_with_lse": 1, "ring_flash_attn_with_lse": hops * RANK_STEPS}, RING_REL_MAX, [halves_ref])
     phases["ring2 binary"] = ring_phase(
         14, two, "ring2 binary", lossless_np,
-        {"flash_attn_with_lse": hops * STEPS + 1, "binary_quant_fastpath": hops * comp_steps,
+        {"flash_attn_with_lse": hops * RANK_STEPS + 1, "binary_quant_fastpath": hops * comp_steps,
          "binary_dequant_fastpath": hops * comp_steps}, COMPRESSED_REL_ERR_MAX, [sim_ref, halves_ref],
         low=0.0)
     phases["ring2 binary fused"] = ring_phase(
@@ -3916,26 +4823,24 @@ def main():
     # wire bytes: the raw fp32 K/V in warmup, then the payloads; the same on both routes
     n, c = 2 * 1024 // 2, 1152
     payload = codecs.payload_nbytes(codecs.encode(torch.ones(n, c), codecs.CompressType.BINARY))
-    want_bytes = DEPTH * (WARMUP * 2 * n * c * 4 + comp_steps * 2 * payload)
+    want_bytes = SP_CUT * (WARMUP * 2 * n * c * 4 + comp_steps * 2 * payload)
     got_bytes = [phases[k]["wire_bytes_per_rank"] for k in ("ring2 binary", "ring2 binary fused")]
     print(f"[14] fused vs unfused latent rel err {fused_vs:.6f} (bound {RING_REL_MAX}); ring-shift "
           f"bytes per rank {got_bytes}, expected {want_bytes} (payload_nbytes {payload} per K or V)")
     if not (fused_vs <= RING_REL_MAX and got_bytes == [want_bytes, want_bytes]):
         raise AssertionError("phase 14: the fused ring drifts from the unfused one or sends other bytes")
-    name = "cfg2 x ring2 low-rank r4 int8 fused"
-    four = spawn_local(ring_rank, 4, "gloo", [
-        (name, {"cfg_degree": 2, "ring_degree": 2, "use_fused_ring": True},
-         {"compress_type": "low-rank", "comp_rank": 4, "quantized_cache": True, "check_consistency": True})],
-        threads=2)
     # int8 EF caches: the EF pass launches twice per hop (min-max, then codes)
-    phases[name] = ring_phase(15, four, name, lossless_np,
-                              {"flash_attn_with_lse": hops * WARMUP + 1, "compact_ring_flash": hops * comp_steps,
-                               "ef_update_slot": 2 * hops * comp_steps},
-                              COMPRESSED_REL_ERR_MAX, [halves_ref], low=0.0)
-    print(f"[15] EF caches across the ring: largest deviation {phases[name]['consistency_dev']}")
-    if phases[name]["consistency_dev"] != 0.0:
-        raise AssertionError(f"{name}: EF caches differ across ranks")
+    phases[CFG2_RING2] = ring_phase(15, four, CFG2_RING2, lossless_np,
+                                    {"flash_attn_with_lse": hops * WARMUP + 1, "compact_ring_flash": hops * comp_steps,
+                                     "ef_update_slot": 2 * hops * comp_steps},
+                                    COMPRESSED_REL_ERR_MAX, [halves_ref], low=0.0)
+    print(f"[15] EF caches across the ring: largest deviation {phases[CFG2_RING2]['consistency_dev']}")
+    if phases[CFG2_RING2]["consistency_dev"] != 0.0:
+        raise AssertionError(f"{CFG2_RING2}: EF caches differ across ranks")
+    print(f"[13-15] spawn seconds (model build, every run of phases 13-15, 24, 25 and 27, the checks of the "
+          f"images): {pixart_spawn_secs}")
 
+    mark("13-15")
     # -- 16. the flash profiling probes -----------------------------------------
     part_rows, plumb_row = check_probes(ops_probes, flash, flash_parts, timing, dev, gen)
     _reset_counts(kernels)
@@ -3974,34 +4879,41 @@ def main():
                         "block_rows": plain(block_rows),
                         "block_breakdown": [{"part": p, "ms": c, "share": s} for p, c, s in breakdown]}
 
+    mark("16")
     # -- 17.-19. FLUX.1-dev ----------------------------------------------------
     # PixArt's models leave the card first
     del pipe, params, vae_params
     torch.cuda.empty_cache()
     flux_rows = check_flux_kernels(flash, quant, codecs, ring_flash, timing, dev, gen)
+    mark("17")
     flux_phases, _ = flux_lossless_phase(kernels, dev)
     phases.update(flux_phases)
     torch.cuda.empty_cache()
-    flux_ring_phases, flux_one = flux_ring_phase(kernels, dev, codecs)
+    mark("18")
+    flux_ring_phases, flux_one, flux_two = flux_ring_phase(kernels, dev, codecs)
     phases.update(flux_ring_phases)
     flash_rows += flux_rows["flash"]
     quant_rows["binary"] += flux_rows["quant"]
     ring_rows += flux_rows["ring"]
     cring_rows += flux_rows["cring"]
 
+    mark("19")
     # -- 20.-22. kernels 1, 4, 7 and 8 in fp32; PixArt in fp32 ----------------
     torch.cuda.empty_cache()
     f32_rows = check_f32_kernels(flash, ring_flash, timing, dev, gen)
     torch.cuda.empty_cache()
-    f32_phases, f32_models, f32_lossless = f32_pipeline_phase(kernels, dev)
+    mark("20")
+    f32_phases, f32_models = f32_pipeline_phase(kernels, dev)
     phases.update(f32_phases)
-    phases.update(f32_ring_phase(kernels, dev, codecs, f32_models, f32_lossless))
+    mark("21")
+    phases.update(f32_ring_phase(kernels, dev, codecs, f32_models))
     del f32_models
 
+    mark("22")
     # -- 23.-27. Ulysses, the patch gathers and the cache probes across ranks --
     torch.cuda.empty_cache()
-    sp_rows, sp_phases, sp_secs = run_sp_phases(kernels, dev, gen, lossless_np,
-                                                two[0]["ring2 lossless"]["latents"], flux_one)
+    sp_rows, sp_phases, _ = run_sp_phases(kernels, dev, gen, lossless_np, pixart_two, pixart_four,
+                                          flux_one, flux_two)
     phases.update(sp_phases)
     flash_rows += sp_rows["flash"]
     for codec in ("binary", "int2"):
@@ -4009,15 +4921,17 @@ def main():
     ring_rows += sp_rows["ring"]
     cring_rows += sp_rows["cring"]
 
+    mark("23-27")
     # -- 28.-31. the entry points: prompts in, images out -------------------
     import gc
 
     gc.collect()
     torch.cuda.empty_cache()  # the models of earlier phases leave the card
-    entry_phases, entry_secs = run_entry_phases(kernels, dev, codecs, pixart_launches,
+    entry_phases, _ = run_entry_phases(kernels, dev, codecs, pixart_launches,
                                                 phases["flux lossless"]["launches"]["flash_attn_with_lse"] // 3)
     phases.update(entry_phases)
 
+    mark("28-31")
     # -- 32.-34. CogVideoX-2b: kernels at d64, the model, the ring ------------
     gc.collect()
     torch.cuda.empty_cache()
@@ -4030,7 +4944,11 @@ def main():
     cog_secs["33"], t0 = time.perf_counter() - t0, time.perf_counter()
     cog_phases, cog_one = cog_ring_phase(kernels, dev, codecs)
     phases.update(cog_phases)
-    cog_secs["34"] = time.perf_counter() - t0
+    cog_secs["34"], t0 = time.perf_counter() - t0, time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases.update(cog_f32_ring_phase(kernels, dev, codecs))
+    cog_secs["34 fp32"] = time.perf_counter() - t0
     print(f"[32-34] seconds: {', '.join(f'{k} {v:.1f}' for k, v in cog_secs.items())}")
     flash_rows += cog_rows["flash"]
     for codec in ("binary", "int2"):
@@ -4038,6 +4956,7 @@ def main():
     ring_rows += cog_rows["ring"]
     cring_rows += cog_rows["cring"]
 
+    mark("32-34")
     # -- 35.-36. PipeFusion, TP and the VAE ranks ------------------------------
     gc.collect()
     torch.cuda.empty_cache()
@@ -4052,6 +4971,31 @@ def main():
     pp_secs["36"] = time.perf_counter() - t0
     print(f"[35-36] seconds: {', '.join(f'{k} {v:.1f}' for k, v in pp_secs.items())}")
     flash_rows += pp_rows + stage_rows
+
+    mark("35-36")
+    # -- 37.-42. SD3-medium, HunyuanDiT v1.2, PixArt-Sigma, the tiled VAE -----
+    image_secs = {}
+    for key, run in (("37", lambda: check_image_kernels(flash, quant, codecs, ring_flash, timing, dev, gen)),
+                     ("38", lambda: vae_phase(kernels, dev)), ("39", lambda: family_runner_phase(kernels, dev, "sd3")),
+                     ("40", lambda: family_runner_phase(kernels, dev, "hunyuandit")),
+                     ("41", lambda: sigma_phase(kernels, dev)), ("42", lambda: image_ring_phase(kernels, dev, codecs))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        got = run()
+        image_secs[key] = time.perf_counter() - t0
+        if key == "37":
+            image_rows = got
+        else:
+            phases.update(got)
+    print(f"[37-42] seconds: {', '.join(f'{k} {v:.1f}' for k, v in image_secs.items())}")
+    mark("37-42")
+    flash_rows += image_rows["flash"]
+    window_rows += image_rows["window"]
+    for codec in ("binary", "int2"):
+        quant_rows[codec] += image_rows["quant"][codec]
+    ring_rows += image_rows["ring"]
+    cring_rows += image_rows["cring"]
 
     totals = {fn.__name__: sum(p["launches"][fn.__name__] for p in phases.values()) for fn in kernels}
     for key in ROUTES.values():
@@ -4123,9 +5067,9 @@ def main():
          **{k: f32_rows["cring"][0]["ef"][k] for k in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by")},
          "shapes": [dict(r["ef"], shape=r["shape"]) for r in f32_rows["cring"]]},
     ], "sdpa_cross_attention": cross_rows, "fp32_ptxas": f32_rows["ptxas"], "phases": phases}
-    print(f"[done] phases 1-36 passed in {time.perf_counter() - t_run:.1f} s, the kernels' build included "
-          f"(phases 23-27: {sum(sp_secs.values()):.1f} s; 28-31: {sum(entry_secs.values()):.1f} s; 32-34: "
-          f"{sum(cog_secs.values()):.1f} s; 35-36: {sum(pp_secs.values()):.1f} s)")
+    report["seconds_by_phase"] = secs_by_phase
+    print(f"[done] phases 1-42 passed in {time.perf_counter() - t_run:.1f} s, the kernels' build included "
+          f"(seconds by phase: {', '.join(f'{k} {v:.1f}' for k, v in secs_by_phase.items())})")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

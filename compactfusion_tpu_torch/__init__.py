@@ -19,10 +19,14 @@ the flash profiling probes (``probes/``); and FLUX.1 (``models/flux.py``,
 ``pipelines/flux.py``: flow-match Euler with embedded guidance, the
 16-channel VAE, the text as the ring's joint tensors, its checkpoint
 converter in ``io/hf.py``); the entry points (``args.py``, ``parallel_api.py``, the
-prompt encoders, the HTTP service, ``examples/``); and CogVideoX text-to-video
+prompt encoders, the HTTP service, ``examples/``); CogVideoX text-to-video
 (``models/cogvideox.py``, ``pipelines/cogvideox.py``: v-prediction DDIM on
 the zero-terminal-SNR schedule with dynamic CFG, the causal 3D VAE in
-``models/vae3d.py``).  Its TPU kernels are hand-written CUDA C++
+``models/vae3d.py``); SD3-medium (``models/sd3.py``, ``pipelines/sd3.py``
+and its patch pipeline), HunyuanDiT v1.2 (``models/hunyuandit.py``,
+``pipelines/hunyuandit.py``: the long skips, mirrored between pipeline
+stages) and PixArt-Sigma 1024 and 2K; and the 2D VAE's tiled and sliced
+decode.  Its TPU kernels are hand-written CUDA C++
 under ``csrc/``, built with ``nvcc`` at first use (``ops/_build.py``).  Anything outside that slice raises
 ``NotImplementedError`` pointing at ``ROADMAP.md``.
 """

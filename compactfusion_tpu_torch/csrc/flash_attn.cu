@@ -62,6 +62,11 @@
 // flash_wide.cuh, the first two shared with the ring kernels of
 // ring_flash.cu; the wide kernel is built in its own source,
 // flash_wide.cu, which nvcc compiles beside this one.
+//
+// ops/_build.py compiles this source twice, in parallel: CF_FLASH_PART 1
+// holds the full-attention entry (and the error string), 2 the banded one.
+// Each part instantiates only the kernels its entry reaches; without the
+// define both entries are built.
 
 #include "flash_wide.cuh"  // the wide body's launch (flash_wide.cu)
 
@@ -257,6 +262,7 @@ int dispatch(const void* q, const void* k, const void* v, long long qsb, long lo
 
 }  // namespace
 
+#if !defined(CF_FLASH_PART) || CF_FLASH_PART == 1
 // Kernel 1 on bf16 q/k/v and out, or on fp32 ones with f32 (the register
 // and wide bodies only)
 extern "C" int cf_flash_attn(const void* q, const void* k, const void* v,
@@ -271,6 +277,12 @@ extern "C" int cf_flash_attn(const void* q, const void* k, const void* v,
              D, scale, 0, body, dp, warps, stream);
 }
 
+extern "C" const char* cf_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+#endif
+
+#if !defined(CF_FLASH_PART) || CF_FLASH_PART == 2
 // Banded self-attention |i - j| <= window over S keys (Sq == Sk == S); a
 // window >= S - 1 is full attention.  bf16, or fp32 with f32 (the register
 // body only).
@@ -286,7 +298,4 @@ extern "C" int cf_flash_attn_window(const void* q, const void* k, const void* v,
   return run(q, k, v, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, out, lse, nullptr, B, S, S, H, D,
              scale, window < S ? window : S, body, dp, warps, stream);
 }
-
-extern "C" const char* cf_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+#endif

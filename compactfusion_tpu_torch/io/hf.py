@@ -21,7 +21,7 @@ CPU:
   * 3D conv kernels (out, in, kt, kh, kw) are transposed to (kt, kh, kw,
     in, out); a 2D kernel loads with kt = 1.
 
-Converters: T5, CLIP, PixArt, FLUX, CogVideoX, the AutoencoderKL decoder and
+Converters: T5, CLIP, PixArt, FLUX, SD3, HunyuanDiT, CogVideoX, the AutoencoderKL decoder and
 the CogVideoX causal 3D VAE decoder.  This
 module imports numpy and torch, not JAX.
 """
@@ -442,3 +442,116 @@ def convert_vae3d_decoder(state: Dict[str, np.ndarray], cfg) -> Any:
         up.append(blk)
     params["up"] = up
     return params
+
+
+def convert_sd3(state: Dict[str, np.ndarray], cfg) -> Any:
+    """diffusers ``SD3Transformer2DModel`` names -> ``models/sd3.init_sd3``'s tree.
+
+    The last block is ``context_pre_only``: its ``norm1_context`` is
+    AdaLN-Continuous, a (d -> 2d) linear giving [scale, shift], laid out
+    here as AdaLN-Zero's 6d [shift, scale, gate 0, 0, 0, 0], so the
+    symmetric block reproduces the continuous norm with the text updates
+    gated off; its missing text out-projection and text ffn are zeros."""
+    dt, d = cfg.dtype, cfg.dim
+    blocks = []
+    for i in range(cfg.depth):
+        p = f"transformer_blocks.{i}"
+        w_ctx = np.asarray(state[f"{p}.norm1_context.linear.weight"]).T
+        b_ctx = np.asarray(state[f"{p}.norm1_context.linear.bias"])
+        if w_ctx.shape[1] == 2 * d:
+            txt_mod = {"w": _tensor(np.concatenate([w_ctx[:, d:], w_ctx[:, :d], np.zeros((d, 4 * d), w_ctx.dtype)],
+                                                   axis=1), dt),
+                       "b": _tensor(np.concatenate([b_ctx[d:], b_ctx[:d], np.zeros(4 * d, b_ctx.dtype)]), dt)}
+        else:
+            txt_mod = _lin(state, f"{p}.norm1_context.linear", dt)
+        blk = {
+            "img_mod": _lin(state, f"{p}.norm1.linear", dt),
+            "txt_mod": txt_mod,
+            "img_qkv": _fused_qkv(state, f"{p}.attn.to_q", f"{p}.attn.to_k", f"{p}.attn.to_v", dt),
+            "txt_qkv": _fused_qkv(state, f"{p}.attn.add_q_proj", f"{p}.attn.add_k_proj", f"{p}.attn.add_v_proj", dt),
+            "img_out": _lin(state, f"{p}.attn.to_out.0", dt),
+            "img_ffn": {"fc1": _lin(state, f"{p}.ff.net.0.proj", dt), "fc2": _lin(state, f"{p}.ff.net.2", dt)},
+        }
+        if f"{p}.attn.to_add_out.weight" in state:
+            blk["txt_out"] = _lin(state, f"{p}.attn.to_add_out", dt)
+            blk["txt_ffn"] = {"fc1": _lin(state, f"{p}.ff_context.net.0.proj", dt),
+                              "fc2": _lin(state, f"{p}.ff_context.net.2", dt)}
+        else:
+            def zeros(n_in, n_out):
+                return {"w": torch.zeros((n_in, n_out), dtype=dt), "b": torch.zeros((n_out,), dtype=dt)}
+
+            blk["txt_out"] = zeros(d, d)
+            blk["txt_ffn"] = {"fc1": zeros(d, cfg.mlp_ratio * d), "fc2": zeros(cfg.mlp_ratio * d, d)}
+        if cfg.qk_norm:
+            blk["img_q_norm"] = _rms(state, f"{p}.attn.norm_q", dt)
+            blk["img_k_norm"] = _rms(state, f"{p}.attn.norm_k", dt)
+            blk["txt_q_norm"] = _rms(state, f"{p}.attn.norm_added_q", dt)
+            blk["txt_k_norm"] = _rms(state, f"{p}.attn.norm_added_k", dt)
+        blocks.append(blk)
+    return {
+        "patch_embed": _patch_conv_as_linear(state, "pos_embed.proj", dt),
+        "context_embedder": _lin(state, "context_embedder", dt),
+        "t_embed": _embedder(state, "time_text_embed.timestep_embedder", dt),
+        "pooled_embed": _embedder(state, "time_text_embed.text_embedder", dt),
+        "blocks": _stack(blocks),
+        "norm_out_mod": _lin(state, "norm_out.linear", dt),
+        "proj_out": _lin(state, "proj_out", dt),
+    }
+
+
+def convert_hunyuandit(state: Dict[str, np.ndarray], cfg) -> Any:
+    """diffusers ``HunyuanDiT2DModel`` names (v1.2: no style or size
+    conditioning) -> ``models/hunyuandit.init_hunyuandit``'s tree.  The
+    checkpoint has skip weights for blocks past depth/2 only: the first up
+    block (up slot 0) gets zeros, never read by the forward."""
+    dt = cfg.dtype
+
+    def block(i, with_skip):
+        p = f"blocks.{i}"
+        out = {
+            "mod_shift": _lin(state, f"{p}.norm1.linear", dt),
+            "norm1": _norm(state, f"{p}.norm1.norm", dt),
+            "attn_qkv": _fused_qkv(state, f"{p}.attn1.to_q", f"{p}.attn1.to_k", f"{p}.attn1.to_v", dt),
+            "q_norm": _norm(state, f"{p}.attn1.norm_q", dt),
+            "k_norm": _norm(state, f"{p}.attn1.norm_k", dt),
+            "attn_out": _lin(state, f"{p}.attn1.to_out.0", dt),
+            "norm2": _norm(state, f"{p}.norm2", dt),
+            "cross_q": _lin(state, f"{p}.attn2.to_q", dt),
+            "cross_kv": _fused_kv(state, f"{p}.attn2.to_k", f"{p}.attn2.to_v", dt),
+            "cross_q_norm": _norm(state, f"{p}.attn2.norm_q", dt),
+            "cross_k_norm": _norm(state, f"{p}.attn2.norm_k", dt),
+            "cross_out": _lin(state, f"{p}.attn2.to_out.0", dt),
+            "norm3": _norm(state, f"{p}.norm3", dt),
+            "ffn": {"fc1": _lin(state, f"{p}.ff.net.0.proj", dt), "fc2": _lin(state, f"{p}.ff.net.2", dt)},
+        }
+        if with_skip:
+            if f"{p}.skip_linear.weight" in state:
+                out["skip_norm"] = _norm(state, f"{p}.skip_norm", dt)
+                out["skip_proj"] = _lin(state, f"{p}.skip_linear", dt)
+            else:
+                d = state[f"{p}.attn1.to_q.weight"].shape[0]
+                out["skip_norm"] = {"g": torch.zeros((2 * d,), dtype=dt), "b": torch.zeros((2 * d,), dtype=dt)}
+                out["skip_proj"] = {"w": torch.zeros((2 * d, d), dtype=dt), "b": torch.zeros((d,), dtype=dt)}
+        return out
+
+    half, te = cfg.depth // 2, "time_extra_emb"
+    return {
+        "patch_embed": _patch_conv_as_linear(state, "pos_embed.proj", dt),
+        "t_embed": _embedder(state, f"{te}.timestep_embedder", dt),
+        "text_embedder": {"fc1": _lin(state, "text_embedder.linear_1", dt),
+                          "fc2": _lin(state, "text_embedder.linear_2", dt)},
+        "text_pad": _tensor(state["text_embedding_padding"], dt),
+        "pooler": {
+            "pos": _tensor(state[f"{te}.pooler.positional_embedding"], dt),
+            "q": _lin(state, f"{te}.pooler.q_proj", dt),
+            "k": _lin(state, f"{te}.pooler.k_proj", dt),
+            "v": _lin(state, f"{te}.pooler.v_proj", dt),
+            "out": _lin(state, f"{te}.pooler.c_proj", dt),
+        },
+        "extra_embedder": {"fc1": _lin(state, f"{te}.extra_embedder.linear_1", dt),
+                           "fc2": _lin(state, f"{te}.extra_embedder.linear_2", dt)},
+        "down_blocks": _stack([block(i, False) for i in range(half)]),
+        "up_blocks": _stack([block(i, True) for i in range(half, cfg.depth)]),
+        "norm_out_mod": _lin(state, "norm_out.linear", dt),
+        "proj_out": _lin(state, "proj_out", dt),
+    }

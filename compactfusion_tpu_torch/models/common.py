@@ -225,6 +225,21 @@ def sincos_pos_embed_2d(dim: int, h_patches: int, w_patches: int,
     return torch.cat([_sincos_embed_1d(cols, half), _sincos_embed_1d(rows, half)], dim=-1)
 
 
+def cropped_pos_embed_2d(dim: int, h_patches: int, w_patches: int, max_size: int, base_size: int,
+                         interpolation_scale: float = 1.0) -> torch.Tensor:
+    """SD3's positional table (H*W, dim), fp32 on the CPU: the (max_size,
+    max_size) table at ``base_size`` scaling, center-cropped to the grid
+    (diffusers ``PatchEmbed.cropped_pos_embed``).  The positions are the
+    JAX package's fp32 quotients; sin and cos as :func:`sincos_pos_embed_2d`
+    takes them."""
+    coords = torch.arange(max_size, dtype=torch.float32) / (max_size / base_size) / interpolation_scale
+    top, left = (max_size - h_patches) // 2, (max_size - w_patches) // 2
+    rows = coords[top:top + h_patches].repeat_interleave(w_patches)
+    cols = coords[left:left + w_patches].repeat(h_patches)
+    half = dim // 2
+    return torch.cat([_sincos_embed_1d(cols, half), _sincos_embed_1d(rows, half)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # RoPE (FLUX style, axis-split rotary)
 # ---------------------------------------------------------------------------

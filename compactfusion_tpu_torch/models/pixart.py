@@ -49,6 +49,17 @@ def pixart_alpha_512() -> PixArtConfig:
     return PixArtConfig()
 
 
+def pixart_sigma_1024() -> PixArtConfig:
+    """PixArt-Sigma-XL-2-1024-MS: the alpha backbone at 128 x 128 latents,
+    positions scaled by interpolation_scale 2."""
+    return PixArtConfig(sample_size=128, interpolation_scale=2.0)
+
+
+def pixart_sigma_2k() -> PixArtConfig:
+    """PixArt-Sigma-XL-2-2K-MS (the reference's DiTFastAttn target)."""
+    return PixArtConfig(sample_size=256, interpolation_scale=4.0)
+
+
 def pixart_tiny() -> PixArtConfig:
     """Scaled-down config for tests."""
     return PixArtConfig(dim=64, depth=2, heads=4, text_dim=32, sample_size=8)

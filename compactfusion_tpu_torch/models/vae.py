@@ -5,8 +5,11 @@ Inside :func:`_conv` the NHWC activation is viewed as NCHW in PyTorch's
 channels-last memory format, so ``F.conv2d`` needs no copy of it.  The
 mid-block attention (one head of d=512 over 64x64 = 4096 tokens at 512 px,
 128x128 = 16384 with FLUX at 1024 px) meets the flash routing contract and
-runs the flash kernel on the GPU.
-Tiled and sliced decode are not ported yet.
+runs the flash kernel on the GPU.  The decode memory knobs dispatch as in
+the JAX package: ``use_slicing`` decodes one batch element at a time
+(exact), ``use_tiling`` decodes overlapping spatial tiles blended with
+linear ramps (diffusers ``AutoencoderKL.tiled_decode``; each tile's
+mid-attention runs over that tile's rows alone).
 """
 
 from __future__ import annotations
@@ -17,7 +20,6 @@ from typing import Any, Tuple
 import torch
 import torch.nn.functional as F
 
-from compactfusion_tpu_torch import ROADMAP_HINT
 from compactfusion_tpu_torch.models import common as cm
 from compactfusion_tpu_torch.ops.attention import sdpa
 
@@ -32,9 +34,14 @@ class VAEConfig:
     scaling_factor: float = 0.18215
     shift_factor: float = 0.0
     dtype: Any = torch.bfloat16
-    #: decode memory knobs of the JAX package; not ported (decode raises)
+    #: decode memory knobs (reference --enable_slicing / --enable_tiling):
+    #: slicing decodes one batch element at a time (exact); tiling decodes
+    #: overlapping tiles of ``tile_latent_size`` latent px blended over
+    #: ``tile_overlap_factor`` of a tile (approximate at the seams)
     use_slicing: bool = False
     use_tiling: bool = False
+    tile_latent_size: int = 64  # diffusers tile_latent_min_size (latent px)
+    tile_overlap_factor: float = 0.25
 
     @property
     def upscale_factor(self) -> int:
@@ -48,6 +55,11 @@ def sd_vae() -> VAEConfig:
 def flux_vae() -> VAEConfig:
     """FLUX's 16-channel AutoencoderKL (scaling and shift of the checkpoint)."""
     return VAEConfig(latent_channels=16, scaling_factor=0.3611, shift_factor=0.1159)
+
+
+def sd3_vae() -> VAEConfig:
+    """SD3's 16-channel AutoencoderKL (scaling and shift of the checkpoint)."""
+    return VAEConfig(latent_channels=16, scaling_factor=1.5305, shift_factor=0.0609)
 
 
 def tiny_vae() -> VAEConfig:
@@ -184,8 +196,59 @@ def _vae_decode_dense(params, latents: torch.Tensor, cfg: VAEConfig) -> torch.Te
     return _conv(params["conv_out"], x)
 
 
+def _blend_v(above: torch.Tensor, cur: torch.Tensor, extent: int) -> torch.Tensor:
+    """Blend ``cur``'s top rows into ``above``'s bottom rows with a linear
+    ramp (diffusers ``AutoencoderKL.blend_v``)."""
+    n = min(above.shape[1], cur.shape[1], extent)
+    w = (torch.arange(n, dtype=torch.float32, device=cur.device) / n).to(cur.dtype)
+    mixed = above[:, -n:] * (1.0 - w)[None, :, None, None] + cur[:, :n] * w[None, :, None, None]
+    return torch.cat([mixed, cur[:, n:]], dim=1)
+
+
+def _blend_h(left: torch.Tensor, cur: torch.Tensor, extent: int) -> torch.Tensor:
+    """Blend ``cur``'s left columns into ``left``'s right columns
+    (diffusers ``AutoencoderKL.blend_h``)."""
+    n = min(left.shape[2], cur.shape[2], extent)
+    w = (torch.arange(n, dtype=torch.float32, device=cur.device) / n).to(cur.dtype)
+    mixed = left[:, :, -n:] * (1.0 - w)[None, None, :, None] + cur[:, :, :n] * w[None, None, :, None]
+    return torch.cat([mixed, cur[:, :, n:]], dim=2)
+
+
+def vae_decode_tiled(params, latents: torch.Tensor, cfg: VAEConfig) -> torch.Tensor:
+    """Decode overlapping tiles of ``cfg.tile_latent_size`` latent px taken
+    at a stride of ``tile * (1 - overlap)``; each decoded tile is blended
+    into its top and left neighbours over ``tile_sample * overlap`` output
+    px and cropped to the stride (diffusers ``tiled_decode``).  The blend
+    sources are the neighbours as decoded, never as blended.  Peak
+    activation memory is that of one tile."""
+    b, h, w, _ = latents.shape
+    tl = cfg.tile_latent_size
+    if h <= tl and w <= tl:
+        return _vae_decode_dense(params, latents, cfg)
+    f = cfg.upscale_factor
+    stride = max(1, int(tl * (1.0 - cfg.tile_overlap_factor)))
+    blend = int(tl * f * cfg.tile_overlap_factor)
+    row_limit = tl * f - blend
+    rows = [[_vae_decode_dense(params, latents[:, i:i + tl, j:j + tl, :], cfg) for j in range(0, w, stride)]
+            for i in range(0, h, stride)]
+    out_rows = []
+    for i, row in enumerate(rows):
+        out_row = []
+        for j, tile in enumerate(row):
+            if i > 0:
+                tile = _blend_v(rows[i - 1][j], tile, blend)
+            if j > 0:
+                tile = _blend_h(row[j - 1], tile, blend)
+            out_row.append(tile[:, :row_limit, :row_limit])
+        out_rows.append(torch.cat(out_row, dim=2))
+    return torch.cat(out_rows, dim=1)[:, :h * f, :w * f]
+
+
 def vae_decode(params, latents: torch.Tensor, cfg: VAEConfig) -> torch.Tensor:
-    """(B, h, w, latent_channels) scaled latents -> (B, H, W, 3) in [-1, 1]."""
-    if cfg.use_tiling or cfg.use_slicing:
-        raise NotImplementedError(f"tiled/sliced VAE decode: {ROADMAP_HINT}")
-    return _vae_decode_dense(params, latents, cfg)
+    """(B, h, w, latent_channels) scaled latents -> (B, H, W, 3) in [-1, 1];
+    ``use_slicing`` decodes the batch one element at a time, ``use_tiling``
+    in tiles (:func:`vae_decode_tiled`)."""
+    inner = vae_decode_tiled if cfg.use_tiling else _vae_decode_dense
+    if cfg.use_slicing and latents.shape[0] > 1:
+        return torch.cat([inner(params, latents[i:i + 1], cfg) for i in range(latents.shape[0])], dim=0)
+    return inner(params, latents, cfg)

@@ -25,6 +25,10 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+#: sources compiled as several objects, one ``nvcc -c`` per define, all in
+#: parallel: flash_attn.cu's full and banded kernels (its one object took 78
+#: of the build's 79 s on an H100 machine's 8 cores)
+PARTS = {"flash_attn.cu": ("-DCF_FLASH_PART=1", "-DCF_FLASH_PART=2")}
 
 #: seconds the last build took (0.0 when the library was already built)
 last_build_seconds = 0.0
@@ -52,19 +56,25 @@ def library_path() -> Path:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    h.update(repr(sorted(PARTS.items())).encode())
     return BUILD_DIR / f"libcftorch_{h.hexdigest()[:16]}.so"
 
 
 def compile_objects(csrc: Path, obj_dir: Path):
-    """One ``nvcc -c`` per ``csrc/*.cu``, all started together, into
-    ``obj_dir``; returns (the objects, what the compiler printed)."""
+    """One ``nvcc -c`` per ``csrc/*.cu`` (per part of one in
+    :data:`PARTS`), all started together, into ``obj_dir``; returns (the
+    objects, what the compiler printed)."""
     obj_dir.mkdir(parents=True, exist_ok=True)
-    cus = sorted(csrc.glob("*.cu"))
-    objs = [obj_dir / f"{cu.stem}.o" for cu in cus]
+    jobs = []  # (source, object stem, defines)
+    for cu in sorted(csrc.glob("*.cu")):
+        parts = PARTS.get(cu.name)
+        jobs += [(cu, f"{cu.stem}.{i}", [d]) for i, d in enumerate(parts, 1)] if parts else [(cu, cu.stem, [])]
+    cus = [cu for cu, _, _ in jobs]
+    objs = [obj_dir / f"{stem}.o" for _, stem, _ in jobs]
     procs = [
-        subprocess.Popen([_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-c", "-I", str(csrc), "-o", str(obj), str(cu)],
-                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for cu, obj in zip(cus, objs)
+        subprocess.Popen([_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, *define, "-c", "-I", str(csrc), "-o", str(obj),
+                          str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for (cu, _, define), obj in zip(jobs, objs)
     ]
     log, failed = "", []
     for cu, proc in zip(cus, procs):

@@ -41,3 +41,22 @@ def pipefusion_blocks(run_local: Callable[[Any], Any], h: Any, mesh: Optional[Me
     if s < n - 1:
         mesh.send_tree(h, axis, s + 1)
     return mesh.broadcast_tree(h, axis, n - 1)
+
+
+def mirror_exchange(tree: Any, mesh: Optional[Mesh], axis: str = AXIS_PP) -> Any:
+    """Swap a tensor tree with the mirror stage over ``axis``: stage s gets
+    stage P-1-s's tree (HunyuanDiT's skip channel; the JAX package's
+    ``ppermute`` with the mirror permutation).  Of each pair the lower stage
+    sends first and the higher one receives first, so the two never wait
+    on each other; a middle stage (odd P) keeps its own tree."""
+    n = 1 if mesh is None else mesh.axis_size(axis)
+    s = 0 if mesh is None else mesh.axis_index(axis)
+    m = n - 1 - s
+    if m == s:
+        return tree
+    if s < m:
+        mesh.send_tree(tree, axis, m)
+        return mesh.recv_tree(tree, axis, m)
+    got = mesh.recv_tree(tree, axis, m)
+    mesh.send_tree(tree, axis, m)
+    return got

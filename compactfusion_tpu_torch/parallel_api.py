@@ -10,16 +10,19 @@ CPU), builds the mesh from the ``EngineConfig``, loads a checkpoint or
 draws seeded random weights on that device, and runs prompts through the
 real text path (tokenizer -> T5/CLIP -> embeddings) into the pipeline.
 
-Ported families: PixArt-alpha 512, FLUX.1 (dev, schnell) and CogVideoX
-(2B, 5B, 1.5-5B; text to video, the causal 3D VAE), with their ``-tiny``
-test configs.  The other families of the JAX registry resolve by the same
-patterns and raise ``NotImplementedError``.
+Ported families: PixArt-alpha 512 and PixArt-Sigma (1024, 2K), FLUX.1
+(dev, schnell), SD3-medium, HunyuanDiT v1.2 and CogVideoX (2B, 5B,
+1.5-5B; text to video, the causal 3D VAE), with their ``-tiny`` test
+configs; the 2D VAE's ``--enable_tiling`` / ``--enable_slicing``.  The
+other families of the JAX registry (Latte, HunyuanVideo, ConsisID,
+Step-Video) resolve by the same patterns and raise ``NotImplementedError``.
 
 Every parallel flag of the JAX runner is taken: ``--pipefusion_parallel_
-degree`` (PixArt's default is the patch pipeline with M = pp, FLUX and
-CogVideoX run it sync), ``--tensor_parallel_degree`` and
-``--vae_parallel_size`` (the tail ranks decode PixArt in bands; FLUX's and
-CogVideoX's stay idle, as in the JAX package).  With VAE ranks the image
+degree`` (PixArt's default is the patch pipeline with M = pp; FLUX, SD3,
+HunyuanDiT and CogVideoX run it sync, as their JAX builders do),
+``--tensor_parallel_degree`` and ``--vae_parallel_size`` (the tail ranks
+decode PixArt in bands; those of the other families stay idle, as in the
+JAX package).  With VAE ranks the image
 reaches the caller on rank 0; a tail rank builds no prompt encoder and
 returns None.
 """
@@ -44,8 +47,7 @@ from compactfusion_tpu_torch.utils.logger import init_logger
 
 logger = init_logger(__name__)
 
-_FAMILIES_HINT = "ROADMAP.md Queue 1 #5 (the remaining families)"
-_VAE_HINT = "ROADMAP.md Queue 1 #7 (tiled or sliced VAE decode, PixArt-Sigma)"
+_FAMILIES_HINT = "ROADMAP.md Queue 1 (the remaining families)"
 
 
 def _cache_cfg(engine: EngineConfig, family: str = "") -> CacheAccelConfig:
@@ -146,11 +148,12 @@ def resolve_family(model_name: str) -> _Family:
 
 
 def _vae_opts(vcfg, engine: EngineConfig):
-    """The VAE decode memory knobs (``--enable_tiling`` /
-    ``--enable_slicing``) are not ported: they raise here, at build time."""
+    """The runtime VAE decode memory knobs (``--enable_tiling`` /
+    ``--enable_slicing``) on a 2D ``VAEConfig``; the 3D VAE's builder wires
+    ``--enable_tiling`` itself."""
     rc = engine.runtime_config
     if rc.enable_tiling or rc.enable_slicing:
-        raise NotImplementedError(f"--enable_tiling / --enable_slicing: {_VAE_HINT}")
+        vcfg = dataclasses.replace(vcfg, use_tiling=rc.enable_tiling, use_slicing=rc.enable_slicing)
     return vcfg
 
 
@@ -183,18 +186,29 @@ def _transformer_state(checkpoint: str):
 def _build_pixart(engine: EngineConfig, inp: InputConfig, checkpoint: Optional[str] = None,
                   device="cuda"):
     from compactfusion_tpu_torch.io import hf
-    from compactfusion_tpu_torch.models.pixart import init_pixart, pixart_alpha_512, pixart_tiny
+    from compactfusion_tpu_torch.models.pixart import (
+        init_pixart,
+        pixart_alpha_512,
+        pixart_sigma_1024,
+        pixart_sigma_2k,
+        pixart_tiny,
+    )
     from compactfusion_tpu_torch.models.vae import init_vae_decoder, sd_vae, tiny_vae
     from compactfusion_tpu_torch.pipelines.pixart import PixArtPipeline, PixArtPipelineConfig
 
     name = engine.model_config.model.lower()
     if "tiny" in name:  # smoke-test configs
         mcfg, vcfg = pixart_tiny(), tiny_vae()
-    elif "2k" in name or "sigma" in name or inp.height > 512:
-        # the JAX package picks PixArt-Sigma 1024 or 2K here
-        raise NotImplementedError(f"PixArt-Sigma ({engine.model_config.model}, {inp.height} px): {_VAE_HINT}")
     else:
-        mcfg, vcfg = pixart_alpha_512(), sd_vae()
+        if "2k" in name or inp.height > 1024:
+            mcfg = pixart_sigma_2k()
+        elif "sigma" in name or inp.height > 512:
+            mcfg = pixart_sigma_1024()
+        else:
+            mcfg = pixart_alpha_512()
+        # PixArt-alpha ships the SD 1.x VAE (scaling 0.18215), Sigma the
+        # SDXL one (0.13025)
+        vcfg = sd_vae() if mcfg == pixart_alpha_512() else dataclasses.replace(sd_vae(), scaling_factor=0.13025)
     # snap to the model's native-area aspect bin; __call__ resizes back
     inp = _bin_input(inp, mcfg.sample_size * 8)
     mesh, vae_mesh = _meshes(engine)
@@ -335,12 +349,78 @@ def _build_cogvideox(engine: EngineConfig, inp: InputConfig, checkpoint: Optiona
     return pipe, pcfg
 
 
+def _build_sd3(engine: EngineConfig, inp: InputConfig, checkpoint: Optional[str] = None, device="cuda"):
+    from compactfusion_tpu_torch.io import hf
+    from compactfusion_tpu_torch.models.sd3 import init_sd3, sd3_medium, sd3_tiny
+    from compactfusion_tpu_torch.models.vae import sd3_vae, tiny_vae
+    from compactfusion_tpu_torch.pipelines.sd3 import SD3Pipeline, SD3PipelineConfig
+
+    if "tiny" in engine.model_config.model.lower():
+        mcfg = sd3_tiny()
+        vcfg = dataclasses.replace(tiny_vae(), latent_channels=mcfg.in_channels)
+    else:
+        mcfg, vcfg = sd3_medium(), sd3_vae()
+    mesh, vae_mesh = _meshes(engine)
+    if _is_tail(vae_mesh):
+        params = None  # SD3's VAE-tail ranks stay idle
+    elif checkpoint:
+        params = cm.to_device(hf.convert_sd3(_transformer_state(checkpoint), mcfg), device)
+    else:
+        params = init_sd3(torch.Generator(device=device).manual_seed(0), mcfg)
+    # as the JAX package's _build_sd3: PipeFusion runs sync (num_pipeline_patch 1)
+    pcfg = SD3PipelineConfig(
+        model=mcfg,
+        vae=_vae_opts(vcfg, engine),
+        parallel=engine.parallel_config,
+        compact=engine.compact_config,
+        num_steps=inp.num_inference_steps,
+        guidance_scale=inp.guidance_scale,
+        height=inp.height,
+        width=inp.width,
+    )
+    vae_params = None if _is_tail(vae_mesh) else _load_vae2d(checkpoint, vcfg, device)
+    return SD3Pipeline(params, vae_params, pcfg, device, mesh=mesh, vae_mesh=vae_mesh), pcfg
+
+
+def _build_hunyuan(engine: EngineConfig, inp: InputConfig, checkpoint: Optional[str] = None, device="cuda"):
+    from compactfusion_tpu_torch.io import hf
+    from compactfusion_tpu_torch.models.hunyuandit import hunyuandit_tiny, hunyuandit_v12, init_hunyuandit
+    from compactfusion_tpu_torch.models.vae import sd_vae, tiny_vae
+    from compactfusion_tpu_torch.pipelines.hunyuandit import HunyuanDiTPipeline, HunyuanDiTPipelineConfig
+
+    if "tiny" in engine.model_config.model.lower():
+        mcfg, vcfg = hunyuandit_tiny(), tiny_vae()
+    else:
+        # HunyuanDiT ships the SDXL 4-channel VAE (scaling 0.13025)
+        mcfg, vcfg = hunyuandit_v12(), dataclasses.replace(sd_vae(), scaling_factor=0.13025)
+    mesh, vae_mesh = _meshes(engine)
+    if _is_tail(vae_mesh):
+        params = None  # HunyuanDiT's VAE-tail ranks stay idle
+    elif checkpoint and os.path.isdir(os.path.join(checkpoint, "transformer")):
+        params = cm.to_device(hf.convert_hunyuandit(_transformer_state(checkpoint), mcfg), device)
+    else:
+        params = init_hunyuandit(torch.Generator(device=device).manual_seed(0), mcfg)
+    pcfg = HunyuanDiTPipelineConfig(
+        model=mcfg,
+        vae=_vae_opts(vcfg, engine),
+        parallel=engine.parallel_config,
+        compact=engine.compact_config,
+        num_steps=inp.num_inference_steps,
+        guidance_scale=inp.guidance_scale,
+        height=inp.height,
+        width=inp.width,
+    )
+    vae_params = None if _is_tail(vae_mesh) else _load_vae2d(checkpoint, vcfg, device)
+    return HunyuanDiTPipeline(params, vae_params, pcfg, device, mesh=mesh, vae_mesh=vae_mesh), pcfg
+
+
 # the JAX registry's other families, in its order and with its patterns
+_PORTED = {"sd3": _build_sd3, "cogvideox": _build_cogvideox, "hunyuandit": _build_hunyuan}
 for _name, _pattern in (("sd3", r"stable-diffusion-3|sd3"), ("cogvideox", r"cogvideo"), ("latte", r"latte"),
                         ("hunyuanvideo", r"hunyuanvideo"), ("consisid", r"consisid"),
                         ("stepvideo", r"step[-_]?video"), ("hunyuandit", r"hunyuan(?!.?video)")):
-    if _name == "cogvideox":
-        register_family(_name, _pattern)(_build_cogvideox)
+    if _name in _PORTED:
+        register_family(_name, _pattern)(_PORTED[_name])
     else:
         _unported(_name, _pattern)
 
@@ -377,7 +457,7 @@ class xDiTParallel:
     bound device from ``torch.Generator``s seeded 0 (backbone), 1 (PixArt's
     VAE; FLUX's and CogVideoX's 11, as ``_load_vae2d`` and ``_load_vae3d``)
     and 7 (the prompt encoder), as the JAX builders seed ``PRNGKey``s: other
-    draws, the same trees.
+    draws, the same trees (SD3 and HunyuanDiT: backbone 0, VAE 11).
     """
 
     def __init__(self, engine_config: EngineConfig, input_config: InputConfig,
@@ -469,7 +549,8 @@ class xDiTParallel:
 
     #: the per-layer block stacks that ``--quantize_backbone_int8`` quantizes
     #: (embedders and heads stay in the model dtype)
-    _INT8_BLOCK_KEYS = {"pixart": ("blocks",), "flux": ("double_blocks", "single_blocks"), "cogvideox": ("blocks",)}
+    _INT8_BLOCK_KEYS = {"pixart": ("blocks",), "flux": ("double_blocks", "single_blocks"), "sd3": ("blocks",),
+                        "hunyuandit": ("down_blocks", "up_blocks"), "cogvideox": ("blocks",)}
 
     def _quantize_backbone_int8(self):
         """``--quantize_backbone_int8``: int8 weights for the block stacks
@@ -497,8 +578,11 @@ class xDiTParallel:
 
         mcfg = self.pipeline_config.model
         if checkpoint and any(os.path.isdir(os.path.join(checkpoint, d)) for d in ("tokenizer", "tokenizer_2")):
-            from compactfusion_tpu_torch.models.text_encoders import clip_l, t5_xxl
+            from compactfusion_tpu_torch.models.text_encoders import clip_g, clip_l, clip_l_proj, t5_xxl
 
+            if self.family == "sd3":
+                return PromptEncoder.from_pretrained(checkpoint, t5_cfg=t5_xxl(), clip_l_cfg=clip_l_proj(),
+                                                     clip_g_cfg=clip_g(), device=self.device)
             if self.family == "flux":
                 return PromptEncoder.from_pretrained(checkpoint, t5_cfg=t5_xxl(), clip_l_cfg=clip_l(),
                                                      device=self.device)
@@ -506,6 +590,9 @@ class xDiTParallel:
         gen = torch.Generator(device=self.device).manual_seed(7)
         if self.family == "flux":
             return PromptEncoder.random(gen, text_dim=mcfg.text_dim, pooled_dim=mcfg.pooled_dim)
+        if self.family == "sd3":
+            lo = min(768, mcfg.pooled_dim // 2)
+            return PromptEncoder.random(gen, text_dim=mcfg.text_dim, pooled_dim=lo, clip_g_dim=mcfg.pooled_dim - lo)
         return PromptEncoder.random(gen, text_dim=mcfg.text_dim)
 
     def prepare_run(self, generator: Optional[torch.Generator] = None):
@@ -553,14 +640,19 @@ class xDiTParallel:
         if self.family == "flux":
             txt, pooled = enc.encode_for_flux(prompts, max_length=seq)
             return self.pipeline(txt, pooled, generator=generator, latents=latents, decode=decode)
+        if self.family == "sd3":
+            txt, pooled = enc.encode_for_sd3(prompts, negative, max_length=seq)
+            return self.pipeline(txt, pooled, generator=generator, latents=latents, decode=decode)
         if self.family == "cogvideox":
             # (2, B, S, D) cond/uncond T5 states at max_sequence_length, no mask
             txt = enc.encode_for_video(prompts, negative, max_length=seq)
             return self.pipeline(txt, generator=generator, latents=latents, decode=decode)
+        # PixArt and HunyuanDiT: (2, B, S, D) states and their masks
         txt, mask = enc.encode_for_pixart(prompts, negative, max_length=seq)
         out = self.pipeline(txt, mask, generator=generator, latents=latents, decode=decode)
         pcfg = self.pipeline_config
-        if decode and out is not None and (pcfg.height, pcfg.width) != (inp.height, inp.width):
+        if (decode and out is not None and self.family == "pixart"
+                and (pcfg.height, pcfg.width) != (inp.height, inp.width)):
             # binning changed the generation size: resize back to the request
             out = resize_and_crop(out, inp.height, inp.width)
         return out

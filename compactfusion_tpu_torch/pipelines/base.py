@@ -57,6 +57,20 @@ def cfg_combine(eps: torch.Tensor, guidance_scale, cfg_degree: int,
     return uncond + guidance_scale * (cond - uncond)
 
 
+def split_cfg(first: torch.Tensor, second: torch.Tensor, do_cfg: bool, cfg_degree: int,
+              mesh: Optional[Mesh]):
+    """Two (2, B, ...) [cond, uncond] inputs (text states with their masks or
+    pooled vectors) -> this rank's model batch of each: the cfg rank's half
+    (cfg_degree 2), [cond; uncond] stacked on the batch axis (a doubled
+    batch), or cond alone without CFG."""
+    if do_cfg and cfg_degree == 2:
+        i = mesh.axis_index(AXIS_CFG)
+        return first[i], second[i]
+    if do_cfg:
+        return torch.cat([first[0], first[1]], dim=0), torch.cat([second[0], second[1]], dim=0)
+    return first[0], second[0]
+
+
 def gather_latents(local: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     """(B_local, S_local, C) shards -> the whole (B, S, C) on every rank:
     tokens gathered over ulysses then ring, the batch over dp."""

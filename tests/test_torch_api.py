@@ -121,9 +121,53 @@ def test_registry_resolves_every_name_jax_resolves(monkeypatch):
         with pytest.raises(ValueError, match="no pipeline registered"):
             mod.resolve_family("stable-cascade")
     engine, inp = _config(targs, ["--model", "sd3-tiny"])
-    for name in ("sd3", "latte", "hunyuanvideo", "consisid", "stepvideo", "hunyuandit"):
+    for name in ("latte", "hunyuanvideo", "consisid", "stepvideo"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tapi._REGISTRY[name].build(engine, inp, None, "cpu")
+    # SD3 and HunyuanDiT are ported: their builders give the pipelines
+    # JAX's give, per name, with the VAE knobs on
+    from compactfusion_tpu.models import hunyuandit as jhy
+    from compactfusion_tpu.models import sd3 as jsd3
+    from compactfusion_tpu.models import vae as jvae
+    from compactfusion_tpu_torch.pipelines.hunyuandit import HunyuanDiTPipeline
+    from compactfusion_tpu_torch.pipelines.sd3 import SD3Pipeline
+
+    def same(port_cfg, jax_cfg):
+        strip = lambda c: {k: v for k, v in _plain(c).items() if k != "dtype"}  # noqa: E731
+        return strip(port_cfg) == strip(jax_cfg)
+
+    for name, cls, (jm, jv) in (
+            ("sd3-tiny", SD3Pipeline, (jsd3.sd3_tiny(), dataclasses.replace(jvae.tiny_vae(), latent_channels=4))),
+            ("hunyuandit-tiny", HunyuanDiTPipeline, (jhy.hunyuandit_tiny(), jvae.tiny_vae()))):
+        e, i = _config(targs, ["--model", name, "--height", "64", "--width", "64", "--enable_tiling",
+                               "--enable_slicing"])
+        pipe, pcfg = tapi._REGISTRY[tapi.resolve_family(name).name].build(e, i, None, "cpu")
+        assert isinstance(pipe, cls) and same(pcfg.model, jm)
+        assert same(pcfg.vae, dataclasses.replace(jv, use_tiling=True, use_slicing=True))
+    from compactfusion_tpu.models import pixart as jpix
+    from compactfusion_tpu_torch.models import hunyuandit as thy
+    from compactfusion_tpu_torch.models import pixart as tpix
+    from compactfusion_tpu_torch.models import sd3 as tsd3
+    from compactfusion_tpu_torch.models import vae as tvae
+
+    for mod, fn in ((tsd3, "init_sd3"), (thy, "init_hunyuandit"), (tpix, "init_pixart"), (tvae, "init_vae_decoder")):
+        monkeypatch.setattr(mod, fn, lambda gen, cfg: {})
+    sdxl = dataclasses.replace(jvae.sd_vae(), scaling_factor=0.13025)
+    for argv, family, jm, jv in (
+            (["--model", "stabilityai/stable-diffusion-3-medium"], "sd3", jsd3.sd3_medium(), jvae.sd3_vae()),
+            (["--model", "Tencent-Hunyuan/HunyuanDiT-v1.2"], "hunyuandit", jhy.hunyuandit_v12(), sdxl),
+            (["--model", "PixArt-alpha/PixArt-Sigma-XL-2-1024-MS"], "pixart", jpix.pixart_sigma_1024(), sdxl),
+            (["--model", "pixart", "--height", "1024"], "pixart", jpix.pixart_sigma_1024(), sdxl),
+            (["--model", "PixArt-alpha/PixArt-Sigma-XL-2-2K-MS", "--height", "2048", "--width", "2048"], "pixart",
+             jpix.pixart_sigma_2k(), sdxl),
+            (["--model", "pixart", "--height", "1536", "--width", "1536"], "pixart", jpix.pixart_sigma_2k(), sdxl),
+            (["--model", "PixArt-alpha/PixArt-XL-2-512x512"], "pixart", jpix.pixart_alpha_512(), jvae.sd_vae())):
+        e, i = _config(targs, argv + ["--enable_tiling"])
+        _, pcfg = tapi._REGISTRY[family].build(e, i, None, "cpu")
+        assert same(pcfg.model, jm) and same(pcfg.vae, dataclasses.replace(jv, use_tiling=True)), argv
+        if family == "pixart":  # binned at the model's native area
+            base = jm.sample_size * 8
+            assert (pcfg.height, pcfg.width) == japi.classify_height_width_bin(i.height, i.width, base)
     # CogVideoX is ported: its builder gives the pipeline JAX's gives, per name
     from compactfusion_tpu_torch.pipelines.cogvideox import CogVideoXPipeline
 
@@ -144,12 +188,14 @@ def test_registry_resolves_every_name_jax_resolves(monkeypatch):
                                "--enable_tiling"])
         _, pcfg = tapi._REGISTRY["cogvideox"].build(e, i, None, "cpu")
         assert pcfg.model == want and pcfg.vae == dataclasses.replace(tvae3d.cogvideox_vae(), use_tiling=True)
-    # PixArt-Sigma and the VAE memory knobs wait on the same item
-    for argv in (["--model", "PixArt-alpha/PixArt-Sigma-XL-2-1024-MS"], ["--model", "pixart", "--height", "1024"],
-                 PIXART + ["--enable_tiling"], PIXART + ["--enable_slicing"]):
-        e, i = _config(targs, argv)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tapi.xDiTParallel(e, i, device="cpu")
+    # the VAE memory knobs run through the runner: tiling and slicing pass
+    # the tiny latents through to the dense decode, bit for bit
+    monkeypatch.undo()
+    dense = tapi.xDiTParallel(*_config(targs, PIXART), device="cpu")()
+    for knob in ("--enable_tiling", "--enable_slicing"):
+        run = tapi.xDiTParallel(*_config(targs, PIXART + [knob]), device="cpu")
+        assert run.pipeline_config.vae.use_tiling == (knob == "--enable_tiling")
+        assert torch.equal(run(), dense)
     # ConsisID's identity image still raises
     with pytest.raises(NotImplementedError):
         tapi.xDiTParallel(*_config(targs, PIXART + ["--img_file_path", "x.png"]), device="cpu")

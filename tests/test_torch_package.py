@@ -40,7 +40,9 @@ def test_importing_every_module_leaves_jax_out():
               "utils.prof", "entrypoints.launch", "examples.configs", "examples.pixartalpha_example",
               "examples.flux_example", "models.cogvideox", "models.vae3d", "pipelines.cogvideox",
               "examples.cogvideox_example", "parallel.tp", "parallel.pipefusion", "parallel.vae",
-              "pipelines.pixart_patch_pp", "pipelines.flux_patch_pp"):
+              "pipelines.pixart_patch_pp", "pipelines.flux_patch_pp", "models.sd3", "pipelines.sd3",
+              "pipelines.sd3_patch_pp", "models.hunyuandit", "pipelines.hunyuandit", "pipelines.hunyuandit_patch_pp",
+              "examples.sd3_example", "examples.hunyuandit_example", "examples.pixartsigma_example"):
         assert f"compactfusion_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -69,7 +71,7 @@ def _imports(path):
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/profile_torch.py", "tools/compare_kernel_builds.py",
-                                    "tools/time_flash.py", "tools/time_cross_attn.py",
+                                    "tools/time_flash.py", "tools/time_cross_attn.py", "tools/time_chip_smoke.py",
                                     "compactfusion_tpu_torch/probes/flash_parts.py",
                                     "compactfusion_tpu_torch/probes/block_parts.py"])
 def test_scripts_import_neither_jax_nor_the_jax_package(script):

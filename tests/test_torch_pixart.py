@@ -146,9 +146,14 @@ def test_tiny_vae_decode_matches_jax():
     out = tvae.vae_decode(_to_torch(jparams), torch.from_numpy(lat), tcfg)
     assert out.shape == (2, 16, 16, 3)
     assert rel_err(out.numpy(), ref) < BOUND
-    with pytest.raises(NotImplementedError):
-        tvae.vae_decode(_to_torch(jparams), torch.from_numpy(lat),
-                        dataclasses.replace(tcfg, use_tiling=True))
+    # the tiled decode: a latent within one tile passes through bit for bit;
+    # 4-px tiles hold JAX's tiled decode
+    assert torch.equal(tvae.vae_decode(_to_torch(jparams), torch.from_numpy(lat),
+                                       dataclasses.replace(tcfg, use_tiling=True)), out)
+    small = dict(use_tiling=True, tile_latent_size=4)
+    tiled = tvae.vae_decode(_to_torch(jparams), torch.from_numpy(lat), dataclasses.replace(tcfg, **small))
+    want = jax.jit(jvae.vae_decode, static_argnums=2)(jparams, jnp.asarray(lat), dataclasses.replace(jcfg, **small))
+    assert rel_err(tiled.numpy(), want) < BOUND
 
 
 def test_torch_inits_build_the_jax_tree():

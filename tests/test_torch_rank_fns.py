@@ -445,23 +445,31 @@ def _family(family, model_kw):
 
     from compactfusion_tpu_torch.models import cogvideox as tcog
     from compactfusion_tpu_torch.models import flux as tflux
+    from compactfusion_tpu_torch.models import hunyuandit as thy
     from compactfusion_tpu_torch.models import pixart as tpix
+    from compactfusion_tpu_torch.models import sd3 as tsd3
     from compactfusion_tpu_torch.pipelines.cogvideox import CogVideoXPipeline, CogVideoXPipelineConfig
     from compactfusion_tpu_torch.pipelines.flux import FluxPipeline, FluxPipelineConfig
+    from compactfusion_tpu_torch.pipelines.hunyuandit import HunyuanDiTPipeline, HunyuanDiTPipelineConfig
     from compactfusion_tpu_torch.pipelines.pixart import PixArtPipeline, PixArtPipelineConfig
+    from compactfusion_tpu_torch.pipelines.sd3 import SD3Pipeline, SD3PipelineConfig
 
     pipe_cls, cfg_cls, model, size = {
         "pixart": (PixArtPipeline, PixArtPipelineConfig, tpix.pixart_tiny(), dict(height=64, width=64)),
         "flux": (FluxPipeline, FluxPipelineConfig, tflux.flux_tiny(), dict(height=64, width=128)),
         "cogvideox": (CogVideoXPipeline, CogVideoXPipelineConfig, tcog.cogvideox_tiny(),
                       dict(height=32, width=48, num_frames=9)),
+        "sd3": (SD3Pipeline, SD3PipelineConfig, tsd3.sd3_tiny(), dict(height=64, width=128)),
+        "hunyuandit": (HunyuanDiTPipeline, HunyuanDiTPipelineConfig, thy.hunyuandit_tiny(),
+                       dict(height=64, width=128)),
     }[family]
     return pipe_cls, cfg_cls, dataclasses.replace(model, dtype=torch.float32, **model_kw), size
 
 
 def parallel_pipeline_latents(rank, world, jobs):
-    """Per family ("pixart": inputs (text, mask, noise); "flux": (txt,
-    pooled, noise); "cogvideox": (txt, noise)) in ``jobs`` = {family:
+    """Per family ("pixart" and "hunyuandit": inputs (text, mask, noise);
+    "flux": (txt, pooled, noise); "sd3": (txt, pooled, noise) with txt and
+    pooled [cond, uncond]; "cogvideox": (txt, noise)) in ``jobs`` = {family:
     (model overrides, configurations, params, vae_params, inputs)}, per
     configuration (name, ParallelConfig kwargs, CompactConfig kwargs or
     None, pipeline-config kwargs): the tiny fp32 pipeline's final latents
