@@ -4581,6 +4581,538 @@ def cog_f32_ring_phase(kernels, dev, codecs):
     return phases
 
 
+# -- phases 43-47: observability, Latte-1, ConsisID-preview, HunyuanVideo --
+
+VID_PROMPT = "a corgi running along a beach at sunset, waves in the background"
+#: phase 44: Latte-1 as published (512 x 512, 16 frames, CFG 7.5) at 10 of
+#: its 50 steps (the script's time limit; s/step is what the phase measures)
+LATTE_STEPS = 10
+LATTE_ARGV = ["--model", "maxin-cn/Latte-1", "--height", "512", "--width", "512", "--num_frames", "16",
+              "--num_inference_steps", str(LATTE_STEPS), "--guidance_scale", "7.5", "--max_sequence_length", "120",
+              "--prompt", VID_PROMPT]
+#: phase 45: ConsisID-preview at 49 x 480 x 720, 4 of its 50 steps
+CON_STEPS = 4
+CON_ARGV = ["--model", "BestWishYsh/ConsisID-preview", "--height", "480", "--width", "720", "--num_frames", "49",
+            "--num_inference_steps", str(CON_STEPS), "--guidance_scale", "6", "--max_sequence_length", "226",
+            "--prompt", VID_PROMPT]
+#: phase 46: HunyuanVideo-T2V at 33 x 544 x 960 (cut from the published 129
+#: x 720 x 1280: the time limit), 4 of its 50 steps
+HV_STEPS, HV_TXT = 4, 256
+HV_ARGV = ["--model", "tencent/HunyuanVideo", "--height", "544", "--width", "960", "--num_frames", "33",
+           "--num_inference_steps", str(HV_STEPS), "--guidance_scale", "6", "--max_sequence_length", str(HV_TXT),
+           "--prompt", VID_PROMPT]
+#: token counts of those requests: Latte's frames of 32 x 32 patches,
+#: ConsisID's 13 x 30 x 45, HunyuanVideo's 9 x 34 x 60
+LATTE_FRAME, CON_VIDEO, CON_TXT, HV_VIDEO = 1024, 13 * 30 * 45, 226, 9 * 34 * 60
+#: phase 47: each family at full width cut to these blocks (Latte: pairs;
+#: HunyuanVideo: double, single), VID_CUT_STEPS steps (the first sent raw),
+#: and sizes cut where the gloo ring's bytes would dominate (ConsisID 13
+#: frames: 5,400 tokens; HunyuanVideo 5 frames: 4,080, an even latent frame
+#: count so that a rank's 2,040 rows plus 256 text rows are a multiple of 8
+#: and the fused compressed ring is on the path)
+VID_CUT = {"latte": 2, "consisid": 2, "hunyuanvideo": (1, 2)}
+VID_CUT_STEPS, VID_CUT_WARMUP = 3, 1
+VID_CUT_SIZE = {"latte": dict(height=512, width=512, num_frames=16),
+                "consisid": dict(height=480, width=720, num_frames=13),
+                "hunyuanvideo": dict(height=544, width=960, num_frames=5)}
+#: phase 43's collector run: PixArt at full width cut to 2 blocks, 2 steps
+COLLECT_CUT, COLLECT_STEPS = 2, 2
+
+
+def observability_phase(kernels, dev, codecs):
+    """Phase 43, the stats half: PixArt-alpha 512's ring-8 BINARY emulation
+    at full width cut to :data:`SP_CUT` blocks, :data:`RANK_STEPS` steps,
+    once plain and once with ``log_stats``: the latents and launch counts
+    equal (the taps change nothing), ``StatsLogger``'s keys, steps and
+    record counts (one per compressed step, layer and ring chunk), finite
+    metrics, 64-value spectra with the activation's above its delta's, the
+    compression ratio of the chunks' payloads, and the JSON dumps grouped
+    by step.  Returns the phases."""
+    import tempfile
+
+    import torch
+
+    from compactfusion_tpu_torch.compact.stats import StatsLogger
+    from compactfusion_tpu_torch.config import CompressType
+
+    mcfg, vcfg, params, vae_params = build_models(dev, depth=SP_CUT)
+    runs = {}
+    for name, compact in (("plain", compressed_config()), ("log_stats", compressed_config(log_stats=True))):
+        StatsLogger.reset()
+        pipe = pixart_pipeline(mcfg, vcfg, params, vae_params, dev, steps=RANK_STEPS, compact=compact)
+        _reset_counts(kernels)
+        lat, img, sec = request(pipe, 1)
+        check_image(img, f"[43] ring-8 binary emulation, {name}")
+        runs[name] = (lat, sec, _counts(kernels))
+    log = StatsLogger.instance()
+    n = (RANK_STEPS - WARMUP) * SP_CUT * RING
+    if not torch.equal(runs["plain"][0], runs["log_stats"][0]) or runs["plain"][2] != runs["log_stats"][2]:
+        raise AssertionError("[43] the log_stats taps changed the latents or the launches")
+    keys = (sorted(log.records), sorted(log.spectra))
+    if keys != (["k", "v"], ["k-activation", "k-delta"]):
+        raise AssertionError(f"[43] StatsLogger keys {keys}")
+    for key in ("k", "v"):
+        recs = log.records[key]
+        if len(recs) != n or {s for s, _ in recs} != {-1}:
+            raise AssertionError(f"[43] {key}: {len(recs)} records, expected {n} at step -1")
+        for _, m in recs:
+            if not (all(v == v and abs(v) < float("inf") for v in m.values()) and 0 < m["rel_err"] < 1
+                    and m["cos_sim"] > 0.5):
+                raise AssertionError(f"[43] {key}: metrics {m}")
+    for key in ("k-activation", "k-delta"):
+        if len(log.spectra[key]) != n or any(len(r) != 64 for r in log.spectra[key]):
+            raise AssertionError(f"[43] {key}: {len(log.spectra[key])} spectra")
+    top = [(a[0], d[0]) for a, d in zip(log.spectra["k-activation"], log.spectra["k-delta"])]
+    payload = codecs.payload_nbytes(codecs.encode(torch.ones(CHUNK), CompressType.BINARY))
+    log.account_volume(2 * n * payload, 2 * n * CHUNK[0] * CHUNK[1] * 2)  # K and V, bf16 on the wire
+    with tempfile.TemporaryDirectory() as tmp:
+        eig = log.dump_eigenvalues(os.path.join(tmp, "eig.json"), depth=SP_CUT * RING)
+        err = log.dump_err_vs_steps(os.path.join(tmp, "err.json"), depth=SP_CUT * RING)
+    if len(eig["k-delta"]) != RANK_STEPS - WARMUP or len(err["k"]) != RANK_STEPS - WARMUP:
+        raise AssertionError("[43] the dumps are not grouped by denoise step")
+    mean_rel = sum(m["rel_err"] for _, m in log.records["k"]) / n
+    print(f"[43] PixArt-alpha 512 cut to {SP_CUT} blocks, ring-8 binary emulation, {RANK_STEPS} steps: latents and "
+          f"launches bit-equal with log_stats on; {runs['plain'][1]:.4f} s plain, {runs['log_stats'][1]:.4f} s with "
+          f"the taps (the spectra's svdvals on the card); StatsLogger keys {keys}, {n} records and spectra a key; K "
+          f"mean rel err {mean_rel:.4f}, err by step {[round(e['rel_err'], 4) for e in err['k']]}; top singular "
+          f"value activation/delta {top[0][0]:.2f}/{top[0][1]:.2f} (first), {top[-1][0]:.2f}/{top[-1][1]:.2f} "
+          f"(last); compression ratio {log.compression_ratio:.2f}x")
+    summary = log.summary()
+    print("[43] StatsLogger.summary(): " + summary.replace("\n", " | "))
+    StatsLogger.reset()
+    return {"observability log_stats": {"s_per_image": [runs["plain"][1], runs["log_stats"][1]],
+                                        "records_per_key": n, "k_mean_rel_err": mean_rel,
+                                        "k_rel_err_by_step": [e["rel_err"] for e in err["k"]],
+                                        "compression_ratio": log.compression_ratio,
+                                        "launches": runs["log_stats"][2]}}
+
+
+def _video_ok(video, what, shape):
+    import torch
+
+    v32 = video.float()
+    lo, hi, std = v32.min().item(), v32.max().item(), v32.std().item()
+    if tuple(video.shape) != shape or not bool(torch.isfinite(v32).all()) or lo < 0 or hi > 1 or std == 0.0:
+        raise AssertionError(f"{what}: video {tuple(video.shape)} in [{lo}, {hi}], std {std}")
+    return lo, hi, std
+
+
+def video_runner_phase(phase, name, argv, kernels, expect, shape, setup=None):
+    """One request of a video family through ``xDiTParallel`` at the
+    published width and depth (random weights, modulation biases spiced;
+    the runner's seeded prompt encoder): its seconds by CUDA events, the
+    decode's apart, the peak memory, the launch counts against ``expect``
+    and the video's validity.  ``setup(runner)`` runs after the build.
+    Returns (the phases, the runner)."""
+    import numpy as np
+    import torch
+
+    from compactfusion_tpu_torch.parallel_api import xDiTParallel
+
+    t0 = time.perf_counter()
+    runner = xDiTParallel(*_cli(argv).create_config())
+    pipe, pcfg = runner.pipeline, runner.pipeline_config
+    pipe.params = _spiced(pipe.params, np.random.default_rng(99))
+    if setup is not None:
+        setup(runner)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    marks = {}
+
+    def decode(lat, real=pipe.decode):
+        out, marks["decode"] = _events_s(lambda: real(lat))
+        return out
+
+    pipe.decode = decode
+    _reset_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    video, total = _events_s(runner)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = _counts(kernels)
+    _check_counts(f"[{phase}] {name}", counts, expect)
+    lo, hi, std = _video_ok(video, f"[{phase}] {name}", shape)
+    steps = pcfg.num_steps
+    sample_s = total - marks["decode"]
+    print(f"[{phase}] {name} through xDiTParallel: {_numel(pipe.params) / 1e9:.3f}B parameters in bf16 drawn on the "
+          f"card with the VAE ({_numel(pipe.vae_params) / 1e6:.1f}M) in {build_s:.1f} s; {pcfg.num_frames} x "
+          f"{pcfg.height} x {pcfg.width}, {pcfg.tokens} tokens, {steps} steps: video {tuple(video.shape)} in "
+          f"[{lo:.4f}, {hi:.4f}], std {std:.4f}; {total:.4f} s/video (CUDA events: prompt + {steps} steps "
+          f"{sample_s:.4f} s = {sample_s / steps:.4f} s/step, decode {marks['decode']:.4f} s); "
+          f"torch.cuda.max_memory_allocated {peak:.3f} GiB; launches "
+          f"{', '.join(f'{k} {v}' for k, v in counts.items() if v)}")
+    return {name: {"s_per_video": total, "s_per_step": sample_s / steps, "decode_s": marks["decode"],
+                   "build_s": build_s, "max_memory_allocated_gib": peak, "launches": counts}}, runner
+
+
+def latte_phase(kernels, flash, timing, dev, gen):
+    """Phase 44: kernel 1 at Latte-1's spatial self-attention (the CFG
+    batch's 2 x 16 frames of 1,024 tokens, 16 heads of 72, DP 80) against
+    its twin; Latte-1 at full width and depth (28 spatial + 28 temporal
+    blocks) through ``xDiTParallel``, 512 x 512, 16 frames, CFG 7.5,
+    :data:`LATTE_STEPS` steps, every frame through the SD VAE: kernel 1
+    once a spatial block and step, plus the VAE's one wide launch (the
+    temporal attention over 16 frames and the cross-attention to 120 tokens
+    take ``sdpa``'s plain route).  Returns (the phases, the flash rows)."""
+    rows = check_flash(flash, timing, dev, gen, [
+        (f"Latte-1 spatial self-attn B32 H16 S{LATTE_FRAME} d72", lambda: _qkv_views(gen, dev, 32, LATTE_FRAME), 5,
+         4)], phase=44)
+    phases, runner = video_runner_phase(44, "latte-1", LATTE_ARGV, kernels,
+                                        {"flash_attn_with_lse": 28 * LATTE_STEPS + 1, WIDE: 1},
+                                        (1, 16, 512, 512, 3))
+    del runner
+    return phases, rows
+
+
+def consisid_phase(kernels, flash, quant, codecs, timing, dev, gen):
+    """Phase 45: kernel 1 at ConsisID-preview's self-attention (B2 H48
+    S17,776 d64) against its twin on head slices; kernels 2, 3, 5 and 6 at
+    its ring-2 rows (2 x 8,775 at C3,072) bit for bit; the face encoder
+    (``lfe_forward`` at ``lfe_consisid`` width, seeded weights) on the
+    stand-in features of a PNG this phase writes; ConsisID-preview at full
+    width and depth (42 blocks) through ``xDiTParallel`` with
+    ``--img_file_path`` on that PNG, 49 x 480 x 720, :data:`CON_STEPS`
+    steps, the 3D VAE: kernel 1 once a block and step (the perceiver
+    cross-attention to 5 identity tokens takes the plain route).  Returns
+    (the phases, rows by kernel)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from compactfusion_tpu_torch.models.face import image_face_features, init_lfe, lfe_consisid
+    from compactfusion_tpu_torch.utils.image import write_png
+
+    s_all = CON_TXT + CON_VIDEO
+    flash_rows = check_flash(flash, timing, dev, gen, [
+        (f"ConsisID self-attn B2 H48 S{s_all} d64", lambda: _qkv_views(gen, dev, 2, s_all, 48, 64), 3,
+         COG_TWIN_HEADS)], phase=45)
+    quant_rows = {codec: [check_quant(quant, codecs, timing, dev, gen, codec, -1, torch.float32,
+                                      (2 * (CON_VIDEO // 2), 3072), phase=45)] for codec in ("binary", "int2")}
+    tmp = tempfile.mkdtemp()
+    face = os.path.join(tmp, "face.png")
+    yy, xx = np.mgrid[0:256, 0:192]
+    write_png(face, np.stack([128 + 100 * np.sin(xx / 11.0), 128 + 90 * np.cos(yy / 9.0), (xx + yy) % 256],
+                             -1).astype(np.uint8))
+    lcfg = lfe_consisid()
+    lfe = init_lfe(torch.Generator(device=dev).manual_seed(13), lcfg)
+    held = {}
+
+    def setup(runner):
+        id_cond, hidden = image_face_features(face, lcfg, dev)
+        tokens, held["lfe_s"] = _events_s(lambda: runner.pipeline.encode_face(lfe, id_cond, hidden, lcfg))
+        if tuple(tokens.shape) != (1, lcfg.num_queries, lcfg.output_dim) or not bool(torch.isfinite(tokens).all()):
+            raise AssertionError(f"[45] face encoder: tokens {tuple(tokens.shape)}")
+        held["ids"] = runner._encode_identity(face)
+
+    phases, runner = video_runner_phase(45, "consisid-preview", CON_ARGV + ["--img_file_path", face], kernels,
+                                        {"flash_attn_with_lse": 42 * CON_STEPS}, (1, 49, 480, 720, 3), setup)
+    ids = held["ids"]
+    print(f"[45] face encoder (lfe_consisid, {_numel(lfe) / 1e6:.1f}M fp32 parameters, seeded) on the PNG's stand-in "
+          f"features: (1, 32, 2048) identity tokens in {held['lfe_s']:.4f} s; the runner's identity tokens "
+          f"{tuple(ids.shape)} from the seed-303 projection (no face-encoder checkpoint), norm "
+          f"{ids.float().norm().item():.3f}")
+    phases["consisid-preview"]["face_encoder_s"] = held["lfe_s"]
+    del runner, lfe
+    os.remove(face)
+    os.rmdir(tmp)
+    return phases, {"flash": flash_rows, "quant": quant_rows}
+
+
+def hv_ring_cases(gen, dev, s_local, txt):
+    """Kernel 7 at HunyuanVideo's fused ring 2, rank 0's view at B1: q (the
+    text rows in front of the local rows), its own K/V, the other rank's."""
+    import torch
+
+    def make():
+        q = torch.randn((1, txt + s_local, 24, 128), generator=gen, device=dev).to(torch.bfloat16)
+        _, k0, v0 = _qkv_views(gen, dev, 1, s_local, 24, 128)
+        _, k1, v1 = _qkv_views(gen, dev, 1, s_local, 24, 128)
+        return q, [(k0, v0), (k1.contiguous(), v1.contiguous())]
+
+    return [((2, 1, s_local), make)]
+
+
+def hunyuanvideo_phase(kernels, flash, quant, codecs, rf, timing, dev, gen):
+    """Phase 46: kernel 1 at HunyuanVideo's joint self-attention (B1 H24
+    S18,360 + 256 d128) and at its VAE's mid attention (one query frame of
+    8,160 tokens over its key prefix: the first frame's 8,160 and the last
+    frame's 73,440 keys, d512 on the wide body); kernels 2, 3, 5 and 6 at
+    its ring-2 rows (9,180 at C3,072); kernels 7 and 8 at phase 47's fused
+    ring 2 (2,040 rows a rank, 256 text rows); then HunyuanVideo-T2V at
+    full width and depth (20 double + 40 single blocks, 24 heads of 128)
+    through ``xDiTParallel``, 33 x 544 x 960, :data:`HV_STEPS` steps, the
+    causal 3D VAE: kernel 1 once a block and step plus 9 wide launches of
+    the VAE's mid attention (one per latent frame; the token refiner's
+    masked attention takes the math path).  Returns (the phases, rows by
+    kernel)."""
+    import torch
+
+    hw = 68 * 120  # latent tokens a frame at 544 x 960
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def mid(frames):
+        return lambda: (rnd(1, hw, 1, 512), rnd(1, frames * hw, 1, 512), rnd(1, frames * hw, 1, 512))
+
+    s_all = HV_VIDEO + HV_TXT
+    flash_rows = check_flash(flash, timing, dev, gen, [
+        (f"HunyuanVideo joint self-attn B1 H24 S{s_all} d128", lambda: _qkv_views(gen, dev, 1, s_all, 24, 128), 3,
+         COG_TWIN_HEADS),
+        (f"HunyuanVideo VAE mid-attn, first frame B1 H1 Sq{hw} Sk{hw} d512", mid(1), 5, (1, 2040)),
+        (f"HunyuanVideo VAE mid-attn, last frame B1 H1 Sq{hw} Sk{9 * hw} d512", mid(9), 3, (1, 2040))], phase=46)
+    quant_rows = {codec: [check_quant(quant, codecs, timing, dev, gen, codec, -1, torch.float32,
+                                      (HV_VIDEO // 2, 3072), phase=46)] for codec in ("binary", "int2")}
+    cut_local = VID_CUT_SIZE["hunyuanvideo"]
+    s_local = (((cut_local["num_frames"] - 1) // 4 + 1) * (cut_local["height"] // 16) * (cut_local["width"] // 16)) // 2
+    ring_rows = check_ring_flash(rf, flash, timing, dev, gen, hv_ring_cases(gen, dev, s_local, HV_TXT), phase=46)
+    cring_rows = [check_compact_ring(rf, flash, timing, dev, gen, 2, 1, s_local, "binary", -1, False, 24, 128,
+                                     HV_TXT + s_local, phase=46)]
+    torch.cuda.empty_cache()
+    phases, runner = video_runner_phase(46, "hunyuanvideo-t2v", HV_ARGV, kernels,
+                                        {"flash_attn_with_lse": 60 * HV_STEPS + 9, WIDE: 9}, (1, 33, 544, 960, 3))
+    del runner
+    return phases, {"flash": flash_rows, "quant": quant_rows, "ring": ring_rows, "cring": cring_rows}
+
+
+def build_video_cut(family, dev):
+    """Phase 47's model of ``family`` at full width cut to :data:`VID_CUT`,
+    random weights from seed 0, modulation biases spiced."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    if family == "latte":
+        from compactfusion_tpu_torch.models.latte import init_latte, latte_1
+
+        mcfg = dataclasses.replace(latte_1(), num_pairs=VID_CUT[family])
+        return mcfg, init_latte(g, mcfg)
+    if family == "consisid":
+        from compactfusion_tpu_torch.models.consisid import consisid_preview, init_consisid
+
+        mcfg = dataclasses.replace(consisid_preview(), depth=VID_CUT[family])
+        return mcfg, _spiced(init_consisid(g, mcfg), np.random.default_rng(99))
+    from compactfusion_tpu_torch.models.hunyuanvideo import hunyuanvideo_config, init_hunyuanvideo
+
+    d, s = VID_CUT[family]
+    mcfg = dataclasses.replace(hunyuanvideo_config(), double_layers=d, single_layers=s)
+    return mcfg, _spiced(init_hunyuanvideo(g, mcfg), np.random.default_rng(99))
+
+
+def video_cut_pipeline(family, mcfg, params, dev, mesh=None, **kw):
+    """Phase 47's pipeline: :data:`VID_CUT_SIZE`, :data:`VID_CUT_STEPS`
+    steps, no VAE."""
+    size = dict(VID_CUT_SIZE[family], num_steps=VID_CUT_STEPS, **kw)
+    if family == "latte":
+        from compactfusion_tpu_torch.pipelines.latte import LattePipeline, LattePipelineConfig
+
+        return LattePipeline(params, None, LattePipelineConfig(model=mcfg, guidance_scale=7.5, **size), dev, mesh=mesh)
+    if family == "consisid":
+        from compactfusion_tpu_torch.pipelines.consisid import ConsisIDPipeline, ConsisIDPipelineConfig
+
+        return ConsisIDPipeline(params, None, ConsisIDPipelineConfig(model=mcfg, guidance_scale=6.0, **size), dev,
+                                mesh=mesh)
+    from compactfusion_tpu_torch.pipelines.hunyuanvideo import HunyuanVideoPipeline, HunyuanVideoPipelineConfig
+
+    return HunyuanVideoPipeline(params, None, HunyuanVideoPipelineConfig(model=mcfg, **size), dev, mesh=mesh)
+
+
+def video_cut_request(pipe, family, seed):
+    """Phase 47's request from ``seed``: the text states (Latte with its
+    mask, ConsisID's [cond, uncond] and identity tokens, HunyuanVideo's
+    LLaMA-width states) and the noise; returns (latents, seconds)."""
+    import torch
+
+    dev = pipe.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if family == "latte":
+        text = torch.randn((2, 1, 120, 4096), generator=g, device=dev)
+        return _events_s(lambda: pipe(text, None, generator=g, decode=False))
+    if family == "consisid":
+        txt = torch.randn((2, 1, CON_TXT, 4096), generator=g, device=dev)
+        ids = torch.randn((1, 5, 2048), generator=g, device=dev)
+        return _events_s(lambda: pipe(txt, generator=g, id_states=ids, decode=False))
+    txt = torch.randn((1, HV_TXT, 4096), generator=g, device=dev)
+    return _events_s(lambda: pipe(txt, generator=g, decode=False))
+
+
+def video_rank(rank, world, runs, collect_dir):
+    """One rank of phases 43 and 47 (``spawn_local`` on this GPU, gloo).
+    Run "pixart collect": PixArt-alpha 512 at full width cut to
+    :data:`COLLECT_CUT` blocks, :data:`COLLECT_STEPS` steps, ring 2 BINARY
+    with the fused ring asked for, ``CFTPU_COLLECT_DIR`` set to
+    ``collect_dir``.  Then per run (name, family, ParallelConfig kwargs,
+    CompactConfig codec or None) the family's cut request from seed 1 with
+    every count set to 0 before it; returns per run what :func:`ring_rank`
+    returns."""
+    import torch
+
+    from compactfusion_tpu_torch.compact import ring as compact_ring
+    from compactfusion_tpu_torch.config import CompactConfig, CompressType, ParallelConfig
+    from compactfusion_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from compactfusion_tpu_torch.parallel.ring import ring_shift
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    kernels = port_kernels()
+    out = {}
+    mcfg, vcfg, params, vae_params = build_models(dev, depth=COLLECT_CUT)
+    parallel = ParallelConfig(ring_degree=2, use_fused_ring=True)
+    compact = CompactConfig(enabled=True, warmup_steps=1, residual=1, error_feedback=True, fastpath=True,
+                            compress_type=CompressType.BINARY)
+    pipe = pixart_pipeline(mcfg, vcfg, params, vae_params, dev, steps=COLLECT_STEPS, parallel=parallel,
+                           mesh=make_mesh(parallel), compact=compact)
+    os.environ["CFTPU_COLLECT_DIR"] = collect_dir
+    _reset_counts(kernels)
+    g = torch.Generator(device=dev).manual_seed(1)
+    text = torch.randn((2, 1, 120, 4096), generator=g, device=dev)
+    pipe(text, None, generator=g, decode=False)
+    torch.cuda.synchronize()
+    del os.environ["CFTPU_COLLECT_DIR"]
+    out["pixart collect"] = {"launches": _counts(kernels)}
+    del pipe, params, vae_params
+    models = {}
+    for name, family, par, codec in runs:
+        if family not in models:
+            models[family] = build_video_cut(family, dev)
+        parallel = ParallelConfig(**par)
+        kw = {}
+        if codec is not None:
+            kw["compact"] = CompactConfig(enabled=True, warmup_steps=VID_CUT_WARMUP, residual=1, error_feedback=True,
+                                          fastpath=True, check_consistency=True, compress_type=CompressType(codec))
+        pipe = video_cut_pipeline(family, *models[family], dev, mesh=make_mesh(parallel), parallel=parallel, **kw)
+        _reset_counts(kernels)
+        ring_shift.nbytes = Mesh.all_to_all.nbytes = Mesh.all_gather_tree.nbytes = 0
+        compact_ring.max_consistency_dev = 0.0
+        lat, sec = video_cut_request(pipe, family, 1)
+        out[name] = {"latents": lat.float().cpu().numpy(), "launches": _counts(kernels),
+                     "wire_bytes": ring_shift.nbytes, "all_to_all_bytes": Mesh.all_to_all.nbytes,
+                     "gather_bytes": Mesh.all_gather_tree.nbytes,
+                     "consistency_dev": compact_ring.max_consistency_dev, "skips": None, "s_per_image": sec}
+        del pipe
+    return out
+
+
+def video_ring_phase(kernels, dev):
+    """Phase 43's collector half and phase 47, in one spawn of 2 gloo
+    processes on this card.  43: every rank writes q/k/v/kbase/vbase once a
+    layer and step and its latents once a step, with the shapes of its
+    ring shard, and the fused compressed ring stays off while collecting
+    (kernel 8 never launches; the quant kernels do).  47: each new family
+    at full width cut to :data:`VID_CUT` blocks, :data:`VID_CUT_STEPS`
+    steps (warmup 1, the consistency check on): Latte at Ulysses 2 (the
+    frame all-to-alls) and cfg 2; ConsisID with identity tokens at ring 2
+    lossless and BINARY (a rank's 2,700 rows plus 226 text rows: the
+    unfused route, as in JAX); HunyuanVideo at U2 and at ring 2 lossless and
+    BINARY, each unfused and fused (kernels 7 and 8).  One process runs
+    each cut first, also with kernel 1 swapped for its twin (the bf16 order
+    floor).  Lossless runs within max(RING_REL_MAX, ORDER_FLOOR_FACTOR x the
+    floor) of one process; fused within that of unfused; compressed 0 <
+    err < max(0.05, ORDER_FLOOR_FACTOR x the floor) with EF deviation 0;
+    exact launch counts; the Latte all-to-all bytes the shapes imply.
+    Returns the phases."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from compactfusion_tpu_torch.parallel.mesh import spawn_local
+
+    S, W = VID_CUT_STEPS, VID_CUT_WARMUP
+    refs = {}
+    for family in VID_CUT:
+        mcfg, params = build_video_cut(family, dev)
+        pipe = video_cut_pipeline(family, mcfg, params, dev)
+        _reset_counts(kernels)
+        lat, sec = video_cut_request(pipe, family, 1)
+        with plain_attention():
+            plain, _ = video_cut_request(pipe, family, 1)
+        one, plain = lat.float().cpu().numpy(), plain.float().cpu().numpy()
+        floor = _rel_np(plain, one)
+        refs[family] = {"one": one, "floor": floor, "bound": max(RING_REL_MAX, ORDER_FLOOR_FACTOR * floor),
+                        "s": sec, "tokens": pipe.cfg.tokens}
+        print(f"[47] {family} cut to {VID_CUT[family]} blocks (full width, {VID_CUT_SIZE[family]}, {S} steps), one "
+              f"process: {sec:.4f} s; kernel 1 swapped for its twin: rel err {floor:.6g}; lossless bound "
+              f"{refs[family]['bound']:.6g}")
+        del pipe, params
+    ring2, fused2 = {"ring_degree": 2}, {"ring_degree": 2, "use_fused_ring": True}
+    runs = [("latte u2 lossless", "latte", {"ulysses_degree": 2}, None),
+            ("latte cfg2 lossless", "latte", {"cfg_degree": 2}, None),
+            ("consisid ring2 lossless", "consisid", ring2, None), ("consisid ring2 binary", "consisid", ring2, "binary"),
+            ("hunyuanvideo u2 lossless", "hunyuanvideo", {"ulysses_degree": 2}, None),
+            ("hunyuanvideo ring2 lossless", "hunyuanvideo", ring2, None),
+            ("hunyuanvideo ring2 lossless fused", "hunyuanvideo", fused2, None),
+            ("hunyuanvideo ring2 binary", "hunyuanvideo", ring2, "binary"),
+            ("hunyuanvideo ring2 binary fused", "hunyuanvideo", fused2, "binary")]
+    collect_dir = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    two = spawn_local(video_rank, 2, "gloo", runs, collect_dir, threads=2)
+    spawn_s = time.perf_counter() - t0
+    # 43: the collector's files
+    names = sorted(os.listdir(collect_dir))
+    want = sorted(f"{t}_n{i:05d}_r{r}.npy" for t in ("q", "k", "v", "kbase", "vbase") for r in range(2)
+                  for i in range(COLLECT_CUT * COLLECT_STEPS))
+    want += [f"latents_n{i:05d}_r{r}.npy" for r in range(2) for i in range(COLLECT_STEPS)]
+    shapes = {t: np.load(os.path.join(collect_dir, f"{t}_n00000_r1.npy"), mmap_mode="r").shape
+              for t in ("q", "kbase", "latents")}
+    finite = all(np.isfinite(np.load(os.path.join(collect_dir, n))).all() for n in names)
+    nbytes = sum(os.path.getsize(os.path.join(collect_dir, n)) for n in names)
+    shutil.rmtree(collect_dir)
+    col = [r["pixart collect"]["launches"] for r in two]
+    print(f"[43] collector: ring 2 BINARY, fused ring asked for, {COLLECT_CUT} blocks x {COLLECT_STEPS} steps, 2 "
+          f"gloo ranks: {len(names)} files ({nbytes / 2**20:.1f} MiB), shapes q {shapes['q']}, kbase "
+          f"{shapes['kbase']}, latents {shapes['latents']}, all finite {finite}; kernel 8 launches "
+          f"{[c['compact_ring_flash'] for c in col]}, binary quant {[c['binary_quant_fastpath'] for c in col]}")
+    if names != sorted(want) or not finite or shapes != {"q": (2, 512, 16, 72), "kbase": (1024, 1152),
+                                                         "latents": (1, 512, 16)}:
+        raise AssertionError(f"[43] collector files {names[:6]}... or shapes {shapes}")
+    if any(c["compact_ring_flash"] or not c["binary_quant_fastpath"] for c in col):
+        raise AssertionError("[43] the fused ring ran while collecting, or the quant kernels did not")
+    phases = {"observability collector": {"files": len(names), "bytes": nbytes,
+                                          "launches": {k: sum(c[k] for c in col) for k in col[0]}}}
+    # 47
+    layers = {"latte": VID_CUT["latte"], "consisid": VID_CUT["consisid"], "hunyuanvideo": sum(VID_CUT["hunyuanvideo"])}
+    for name, family, par, codec in runs:
+        L, ref, hops = layers[family], refs[family], 2 * layers[family]
+        if family == "latte":
+            want = {"flash_attn_with_lse": L * S}
+        elif "fused" in name and codec is None:
+            want = {"ring_flash_attn_with_lse": hops * S}  # the 256 text keys take the plain route
+        elif "fused" in name:
+            want = {"flash_attn_with_lse": hops * W, "compact_ring_flash": hops * (S - W),
+                    "ef_update_slot": hops * (S - W)}
+        elif "ring2" in name:
+            want = {"flash_attn_with_lse": hops * S}
+            if codec is not None:
+                want.update({f"{codec}_quant_fastpath": hops * (S - W), f"{codec}_dequant_fastpath": hops * (S - W)})
+        else:
+            want = {"flash_attn_with_lse": L * S}
+        want = dict({WIDE: 0}, **want)
+        if codec is not None:
+            # the codec's error sits on top of the bf16 order floor, which
+            # for ConsisID's cut (guidance 6 on the zero-SNR schedule) is 0.04
+            bound = max(COMPRESSED_REL_ERR_MAX, ORDER_FLOOR_FACTOR * ref["floor"])
+            more = [(name[:-6], two[0][name[:-6]]["latents"], bound)] if name.endswith("fused") else []
+            phases[name] = ring_phase(47, two, name, ref["one"], want, bound, more, low=0.0)
+            if phases[name]["consistency_dev"] != 0.0:
+                raise AssertionError(f"{name}: EF caches differ across ranks")
+        else:
+            more = [(name[:-6], two[0][name[:-6]]["latents"], ref["bound"])] if name.endswith("fused") else []
+            phases[name] = ring_phase(47, two, name, ref["one"], want, ref["bound"], more)
+        phases[name]["latent_rel_err_order_floor"] = ref["floor"]
+    # Latte U2: each temporal block's two all-to-alls move half of the
+    # rank's (B 2, 8 frames, 1,024 tokens, 1,152) bf16 activations away
+    want_a2a = VID_CUT["latte"] * S * 2 * (2 * 8 * LATTE_FRAME * 1152 * 2) // 2
+    a2a = sorted({r["latte u2 lossless"]["all_to_all_bytes"] for r in two})
+    print(f"[47] Latte U2 all-to-all bytes per rank {a2a}, expected {want_a2a}; the spawn took {spawn_s:.1f} s")
+    if a2a != [want_a2a]:
+        raise AssertionError("[47] Latte's frame all-to-alls sent other bytes")
+    return phases
+
+
 def main():
     import torch
 
@@ -4997,6 +5529,34 @@ def main():
     ring_rows += image_rows["ring"]
     cring_rows += image_rows["cring"]
 
+    # -- 43.-47. observability; Latte-1, ConsisID-preview, HunyuanVideo-T2V ---
+    video_secs = {}
+    for key, run in (("43", lambda: observability_phase(kernels, dev, codecs)),
+                     ("44", lambda: latte_phase(kernels, flash, timing, dev, gen)),
+                     ("45", lambda: consisid_phase(kernels, flash, quant, codecs, timing, dev, gen)),
+                     ("46", lambda: hunyuanvideo_phase(kernels, flash, quant, codecs, ring_flash, timing, dev, gen)),
+                     ("43, 47", lambda: video_ring_phase(kernels, dev))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        got = run()
+        video_secs[key] = time.perf_counter() - t0
+        if key in ("43", "43, 47"):
+            phases.update(got)
+            continue
+        got_phases, rows = got
+        phases.update(got_phases)
+        if key == "44":
+            flash_rows += rows
+            continue
+        flash_rows += rows["flash"]
+        for codec in ("binary", "int2"):
+            quant_rows[codec] += rows["quant"][codec]
+        ring_rows += rows.get("ring", [])
+        cring_rows += rows.get("cring", [])
+    print(f"[43-47] seconds: {', '.join(f'{k} {v:.1f}' for k, v in video_secs.items())}")
+    mark("43-47")
+
     totals = {fn.__name__: sum(p["launches"][fn.__name__] for p in phases.values()) for fn in kernels}
     for key in ROUTES.values():
         totals[key] = sum(p["launches"].get(key, 0) for p in phases.values())
@@ -5068,7 +5628,7 @@ def main():
          "shapes": [dict(r["ef"], shape=r["shape"]) for r in f32_rows["cring"]]},
     ], "sdpa_cross_attention": cross_rows, "fp32_ptxas": f32_rows["ptxas"], "phases": phases}
     report["seconds_by_phase"] = secs_by_phase
-    print(f"[done] phases 1-42 passed in {time.perf_counter() - t_run:.1f} s, the kernels' build included "
+    print(f"[done] phases 1-47 passed in {time.perf_counter() - t_run:.1f} s, the kernels' build included "
           f"(seconds by phase: {', '.join(f'{k} {v:.1f}' for k, v in secs_by_phase.items())})")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,8 +25,12 @@ the zero-terminal-SNR schedule with dynamic CFG, the causal 3D VAE in
 ``models/vae3d.py``); SD3-medium (``models/sd3.py``, ``pipelines/sd3.py``
 and its patch pipeline), HunyuanDiT v1.2 (``models/hunyuandit.py``,
 ``pipelines/hunyuandit.py``: the long skips, mirrored between pipeline
-stages) and PixArt-Sigma 1024 and 2K; and the 2D VAE's tiled and sliced
-decode.  Its TPU kernels are hand-written CUDA C++
+stages) and PixArt-Sigma 1024 and 2K; the 2D VAE's tiled and sliced
+decode; Latte-1 (``models/latte.py``: frame-aligned sequence parallelism),
+ConsisID (``models/consisid.py``, the face encoder in ``models/face.py``)
+and HunyuanVideo (``models/hunyuanvideo.py``, the causal HV VAE in
+``models/vae3d.py``); and the compression statistics and activation
+collector (``compact/stats.py``, ``utils/collector.py``).  Its TPU kernels are hand-written CUDA C++
 under ``csrc/``, built with ``nvcc`` at first use (``ops/_build.py``).  Anything outside that slice raises
 ``NotImplementedError`` pointing at ``ROADMAP.md``.
 """

@@ -21,8 +21,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from compactfusion_tpu_torch import ROADMAP_HINT
-from compactfusion_tpu_torch.compact import codecs
+from compactfusion_tpu_torch.compact import codecs, stats
 from compactfusion_tpu_torch.compact.engine import (
     EFState,
     check_consistency,
@@ -35,6 +34,7 @@ from compactfusion_tpu_torch.ops.attention import attn_with_lse
 from compactfusion_tpu_torch.ops.merge import merge_out_lse
 from compactfusion_tpu_torch.parallel.mesh import AXIS_RING, Mesh
 from compactfusion_tpu_torch.parallel.ring import with_joint, ring_blocks
+from compactfusion_tpu_torch.utils import collector
 
 
 class CompactRingState(NamedTuple):
@@ -115,6 +115,9 @@ def _fused_route(q, k, state: CompactRingState, cfg: CompactConfig, method: Comp
         # channel) over one batch row's tokens
         and (not cfg.quantized_cache or b == 1)
         and not cfg.log_stats
+        # the fused kernel has no collector taps: the unfused ring keeps the
+        # offline-analysis dumps complete
+        and not collector.enabled()
         and q.shape[1] % 8 == 0
         and d % 8 == 0
         and state.k.delta_base is None
@@ -169,9 +172,15 @@ def compact_ring_attention(
     source slot at decompress time) and returned.  ``method`` is the codec
     of this denoise step (WARMUP sends the raw K/V).  ``fused`` takes the
     fused compressed ring where its conditions hold (:func:`_fused_route`).
-    Returns (out in q.dtype, state)."""
-    if cfg.log_stats:
-        raise NotImplementedError(f"log_stats taps: {ROADMAP_HINT}")
+    Returns (out in q.dtype, state).
+
+    Taps (unfused route), as the JAX package's: with ``CFTPU_COLLECT_DIR``
+    the collector dumps this rank's q/k/v and its post-EF bases (``kbase``,
+    ``vbase``) under the ring index; with ``cfg.log_stats`` and a codec
+    other than WARMUP and IDENTITY on dense caches, the spectra of K and of
+    its delta against the own slot, and, at residual 1 + EF, the K and V
+    codec error against the post-EF base (keys tagged ``@r{ring index}``
+    when the mesh spans more than one rank)."""
     ring_size = 1 if mesh is None else mesh.axis_size(axis)
     if _fused_route(q, k, state, cfg, method, ring_size, fused):
         out, state = _fused_compact_ring(q, k, v, state, cfg, method, mesh, axis, scale,
@@ -182,10 +191,26 @@ def compact_ring_attention(
 
     kv_shape = tuple(k.shape)
     my = 0 if ring_size == 1 else mesh.axis_index(axis)
+    if collector.enabled():
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            collector.collect(t, name, rank=my)
+    taps = cfg.log_stats and not cfg.quantized_cache and method not in (CompressType.WARMUP,
+                                                                        CompressType.IDENTITY)
+    tag = my if mesh is not None and mesh.parallel.world_size > 1 else None
+    if taps:
+        k_nc = _as_nc(k).float()
+        stats.log_spectrum_inside_jit("k-activation", k_nc, rank=tag)
+        stats.log_spectrum_inside_jit("k-delta", k_nc - slot(state.k, my).base.float(), rank=tag)
     # sender: compress the own K/V against the own slot (update_cache=True)
     awl = codecs.awl_row_scale(_as_nc(v)) if method == CompressType.LOW_RANK_AWL else None
     payload_k, k_own = ef_compress(_as_nc(k), slot(state.k, my), cfg, method, awl_scale=awl)
     payload_v, v_own = ef_compress(_as_nc(v), slot(state.v, my), cfg, method)
+    if taps and cfg.residual == 1 and cfg.error_feedback:
+        stats.log_inside_jit("k", -1, stats.compression_metrics(_as_nc(k), k_own.base), rank=tag)
+        stats.log_inside_jit("v", -1, stats.compression_metrics(_as_nc(v), v_own.base), rank=tag)
+    if collector.enabled() and isinstance(k_own.base, torch.Tensor):
+        collector.collect(k_own.base, "kbase", rank=my)
+        collector.collect(v_own.base, "vbase", rank=my)
     set_slot(state.k, my, k_own)
     set_slot(state.v, my, v_own)
 

@@ -21,9 +21,10 @@ CPU:
   * 3D conv kernels (out, in, kt, kh, kw) are transposed to (kt, kh, kw,
     in, out); a 2D kernel loads with kt = 1.
 
-Converters: T5, CLIP, PixArt, FLUX, SD3, HunyuanDiT, CogVideoX, the AutoencoderKL decoder and
-the CogVideoX causal 3D VAE decoder.  This
-module imports numpy and torch, not JAX.
+Converters: T5, CLIP, PixArt, FLUX, SD3, HunyuanDiT, CogVideoX, Latte,
+HunyuanVideo, ConsisID and its face encoder, the AutoencoderKL decoder and
+the CogVideoX and HunyuanVideo causal 3D VAE decoders.  This module imports
+numpy and torch, not JAX.
 """
 
 from __future__ import annotations
@@ -555,3 +556,184 @@ def convert_hunyuandit(state: Dict[str, np.ndarray], cfg) -> Any:
         "norm_out_mod": _lin(state, "norm_out.linear", dt),
         "proj_out": _lin(state, "proj_out", dt),
     }
+
+
+# ---------------------------------------------------------------------------
+# Latte, HunyuanVideo and ConsisID (diffusers naming)
+# ---------------------------------------------------------------------------
+
+
+def convert_latte(state: Dict[str, np.ndarray], cfg) -> Any:
+    """diffusers ``LatteTransformer3DModel`` names -> ``models/latte.init_latte``'s tree."""
+    dt = cfg.dtype
+
+    def attn1(p):
+        return {"scale_shift_table": _tensor(state[f"{p}.scale_shift_table"], dt),
+                "attn_qkv": _fused_qkv(state, f"{p}.attn1.to_q", f"{p}.attn1.to_k", f"{p}.attn1.to_v", dt),
+                "attn_out": _lin(state, f"{p}.attn1.to_out.0", dt)}
+
+    def ffn(p):
+        return {"fc1": _lin(state, f"{p}.ff.net.0.proj", dt), "fc2": _lin(state, f"{p}.ff.net.2", dt)}
+
+    def spatial(i):
+        p = f"transformer_blocks.{i}"
+        return {**attn1(p), "cross_q": _lin(state, f"{p}.attn2.to_q", dt),
+                "cross_kv": _fused_kv(state, f"{p}.attn2.to_k", f"{p}.attn2.to_v", dt),
+                "cross_out": _lin(state, f"{p}.attn2.to_out.0", dt), "ffn": ffn(p)}
+
+    def temporal(i):
+        p = f"temporal_transformer_blocks.{i}"
+        return {**attn1(p), "ffn": ffn(p)}
+
+    return {
+        "patch_embed": _patch_conv_as_linear(state, "pos_embed.proj", dt),
+        "t_embed": _embedder(state, "adaln_single.emb.timestep_embedder", dt),
+        "adaln_single": _lin(state, "adaln_single.linear", dt),
+        "caption_fc1": _lin(state, "caption_projection.linear_1", dt),
+        "caption_fc2": _lin(state, "caption_projection.linear_2", dt),
+        "spatial_blocks": _stack([spatial(i) for i in range(cfg.num_pairs)]),
+        "temporal_blocks": _stack([temporal(i) for i in range(cfg.num_pairs)]),
+        "final_scale_shift": _tensor(state["scale_shift_table"], dt),
+        "proj_out": _lin(state, "proj_out", dt),
+    }
+
+
+class _Overlay(dict):
+    """A read-through view of a state dict with some names replaced (the
+    JAX package's ``_OverlayState``): reads of other names reach the base
+    state, so a caller tracking which names were read sees them."""
+
+    def __init__(self, base, over):
+        super().__init__(over)
+        self._base = base
+
+    def __getitem__(self, name):
+        return super().__getitem__(name) if dict.__contains__(self, name) else self._base[name]
+
+    def __contains__(self, name):
+        return dict.__contains__(self, name) or name in self._base
+
+
+def convert_hunyuanvideo(state: Dict[str, np.ndarray], cfg) -> Any:
+    """diffusers ``HunyuanVideoTransformer3DModel`` names -> ``models/
+    hunyuanvideo.init_hunyuanvideo``'s tree: the FLUX-named double and
+    single blocks through :func:`convert_flux`, ``x_embedder`` a (1, 2, 2)
+    Conv3d flattened to a linear over the (t, h, w, c) patch vector, and
+    ``context_embedder.*`` the token refiner."""
+    dt = cfg.dtype
+    w = state["x_embedder.proj.weight"]
+    o, i_, kt, kh, kw = w.shape
+    wr = np.transpose(w, (0, 2, 3, 4, 1)).reshape(o, kt * kh * kw * i_)
+    params = convert_flux(_Overlay(state, {
+        "context_embedder.weight": np.zeros((cfg.dim, cfg.text_dim), np.float32),
+        "context_embedder.bias": np.zeros((cfg.dim,), np.float32),
+        "x_embedder.weight": wr, "x_embedder.bias": state["x_embedder.proj.bias"]}), cfg)
+    del params["context_embedder"]
+    ref = "context_embedder"
+    blocks = []
+    for i in range(cfg.refiner_layers):
+        p = f"{ref}.token_refiner.refiner_blocks.{i}"
+        blocks.append({
+            "norm1": _norm(state, f"{p}.norm1", dt),
+            "attn_qkv": _fused_qkv(state, f"{p}.attn.to_q", f"{p}.attn.to_k", f"{p}.attn.to_v", dt),
+            "attn_out": _lin(state, f"{p}.attn.to_out.0", dt),
+            "norm2": _norm(state, f"{p}.norm2", dt),
+            "ffn": {"fc1": _lin(state, f"{p}.ff.net.0.proj", dt), "fc2": _lin(state, f"{p}.ff.net.2", dt)},
+            "ada": _lin(state, f"{p}.norm_out.linear", dt),
+        })
+    params["refiner"] = {
+        "t_embed": _embedder(state, f"{ref}.time_text_embed.timestep_embedder", dt),
+        "c_embed": _embedder(state, f"{ref}.time_text_embed.text_embedder", dt),
+        "proj_in": _lin(state, f"{ref}.proj_in", dt),
+        "blocks": _stack(blocks),
+    }
+    return params
+
+
+def convert_consisid(state: Dict[str, np.ndarray], cfg) -> Any:
+    """ConsisID: :func:`convert_cogvideox`'s tree plus the
+    ``perceiver_cross_attention.{j}`` modules (bias-free q/kv/out and their
+    LayerNorms), stacked.  A checkpoint without perceiver tensors gets zero
+    projections with unit norms, which leaves the model CogVideoX.  The
+    face encoder is :func:`convert_local_facial_extractor`'s."""
+    params = convert_cogvideox(state, cfg)
+    dt, d = cfg.dtype, cfg.dim
+    pers = []
+    for j in range(cfg.perceivers):
+        p = f"perceiver_cross_attention.{j}"
+        if f"{p}.to_q.weight" in state:
+            pers.append({"norm1": _norm(state, f"{p}.norm1", dt), "norm2": _norm(state, f"{p}.norm2", dt),
+                         "q": _lin_nobias(state, f"{p}.to_q", dt), "kv": _lin_nobias(state, f"{p}.to_kv", dt),
+                         "out": _lin_nobias(state, f"{p}.to_out", dt)})
+        else:
+            pers.append({"norm1": {"g": torch.ones((cfg.id_dim,), dtype=dt), "b": torch.zeros((cfg.id_dim,), dtype=dt)},
+                         "norm2": {"g": torch.ones((d,), dtype=dt), "b": torch.zeros((d,), dtype=dt)},
+                         "q": {"w": torch.zeros((d, d), dtype=dt)},
+                         "kv": {"w": torch.zeros((cfg.id_dim, 2 * d), dtype=dt)},
+                         "out": {"w": torch.zeros((d, d), dtype=dt)}})
+    params["perceiver"] = _stack(pers)
+    return params
+
+
+def convert_local_facial_extractor(state: Dict[str, np.ndarray], cfg, prefix: str = "local_facial_extractor.") -> Any:
+    """ConsisID's face encoder -> ``models/face.init_lfe``'s tree.  ``prefix``
+    is its place in the ``ConsisIDTransformer3DModel`` state dict ("" for a
+    checkpoint of the extractor alone); ``latents`` and ``proj_out`` are raw
+    (in, out) parameters, not transposed."""
+    dt = cfg.dtype
+
+    def mlp3(p):
+        return {"fc1": _lin(state, f"{p}.0", dt), "ln1": _norm(state, f"{p}.1", dt), "fc2": _lin(state, f"{p}.3", dt),
+                "ln2": _norm(state, f"{p}.4", dt), "fc3": _lin(state, f"{p}.6", dt)}
+
+    layers = []
+    for i in range(cfg.depth):
+        p = f"{prefix}layers.{i}"
+        layers.append({
+            "attn": {"norm1": _norm(state, f"{p}.0.norm1", dt), "norm2": _norm(state, f"{p}.0.norm2", dt),
+                     "q": _lin_nobias(state, f"{p}.0.to_q", dt), "kv": _lin_nobias(state, f"{p}.0.to_kv", dt),
+                     "out": _lin_nobias(state, f"{p}.0.to_out", dt)},
+            "ffn": {"ln": _norm(state, f"{p}.1.0", dt), "fc1": _lin_nobias(state, f"{p}.1.1", dt),
+                    "fc2": _lin_nobias(state, f"{p}.1.3", dt)},
+        })
+    return {
+        "latents": _tensor(state[f"{prefix}latents"], dt),
+        "proj_out": _tensor(state[f"{prefix}proj_out"], dt),
+        "id_mapping": mlp3(f"{prefix}id_embedding_mapping"),
+        "mappings": [mlp3(f"{prefix}mapping_{i}") for i in range(cfg.num_scale)],
+        "layers": layers,
+    }
+
+
+def convert_hv_vae3d_decoder(state: Dict[str, np.ndarray], cfg) -> Any:
+    """HunyuanVideo causal 3D VAE decoder (``AutoencoderKLHunyuanVideo``) ->
+    ``models/vae3d.init_hv_vae3d_decoder``'s tree."""
+    dt = cfg.dtype
+
+    def resnet(p):
+        out = {"norm1": _norm(state, f"{p}.norm1", dt), "conv1": _conv3(state, f"{p}.conv1.conv", dt),
+               "norm2": _norm(state, f"{p}.norm2", dt), "conv2": _conv3(state, f"{p}.conv2.conv", dt)}
+        if f"{p}.conv_shortcut.conv.weight" in state:
+            out["shortcut"] = _conv3(state, f"{p}.conv_shortcut.conv", dt)
+        return out
+
+    mid = "decoder.mid_block"
+    params = {
+        "conv_in": _conv3(state, "decoder.conv_in.conv", dt),
+        "mid_res1": resnet(f"{mid}.resnets.0"),
+        "mid_attn": {"norm": _norm(state, f"{mid}.attentions.0.group_norm", dt),
+                     **{k: _lin(state, f"{mid}.attentions.0.to_{k}", dt) for k in ("q", "k", "v")},
+                     "out": _lin(state, f"{mid}.attentions.0.to_out.0", dt)},
+        "mid_res2": resnet(f"{mid}.resnets.1"),
+        "norm_out": _norm(state, "decoder.conv_norm_out", dt),
+        "conv_out": _conv3(state, "decoder.conv_out.conv", dt),
+    }
+    up = []
+    for i in range(len(cfg.block_out_channels)):
+        p = f"decoder.up_blocks.{i}"
+        blk = {"resnets": [resnet(f"{p}.resnets.{j}") for j in range(cfg.layers_per_block + 1)]}
+        if f"{p}.upsamplers.0.conv.conv.weight" in state:
+            blk["upsample_conv"] = _conv3(state, f"{p}.upsamplers.0.conv.conv", dt)
+        up.append(blk)
+    params["up"] = up
+    return params

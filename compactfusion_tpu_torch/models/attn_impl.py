@@ -18,8 +18,7 @@ from typing import Optional
 
 import torch
 
-from compactfusion_tpu_torch import ROADMAP_HINT
-from compactfusion_tpu_torch.compact import codecs
+from compactfusion_tpu_torch.compact import codecs, stats
 from compactfusion_tpu_torch.compact.engine import ef_compress, ef_decompress
 from compactfusion_tpu_torch.compact.ring import (
     CompactRingState,
@@ -220,9 +219,17 @@ class SimRingAttn:
     def __call__(self, q, k, v, state: CompactRingState, *, joint_q=None, joint_k=None,
                  joint_v=None, joint_strategy="front"):
         """``state``: this layer's caches, leaves (R, N, C).  The slots are
-        updated in place and the same state is returned."""
-        if self.cfg.log_stats:
-            raise NotImplementedError(f"log_stats taps: {ROADMAP_HINT}")
+        updated in place and the same state is returned.  With
+        ``cfg.log_stats`` each chunk records the spectra of its K and of its
+        K delta against the slot's base (IDENTITY included: with EF that
+        delta is the true step delta), and, on the codecs with residual 1 +
+        EF, the K and V codec error against the post-EF base, under the
+        wire ring's keys (one device: untagged, as in the JAX package)."""
+        c = self.cfg
+        taps = c.log_stats and not c.quantized_cache and self.method != CompressType.WARMUP
+        spectra = taps and c.residual >= 1
+        metrics = (taps and self.method != CompressType.IDENTITY and c.residual == 1
+                   and c.error_feedback)
         if joint_q is not None:
             raise ValueError("joint queries are not emulated")
         b, s, h, d = k.shape
@@ -234,11 +241,13 @@ class SimRingAttn:
         recon_k, recon_v = [], []
         for j in range(R):
             k_st, v_st = slot(state.k, j), slot(state.v, j)
-            v_nc = v_chunks[j].reshape(b * sc, h * d)
+            k_nc, v_nc = k_chunks[j].reshape(b * sc, h * d), v_chunks[j].reshape(b * sc, h * d)
+            if spectra:
+                stats.log_spectrum_inside_jit("k-activation", k_nc.float())
+                stats.log_spectrum_inside_jit("k-delta", k_nc.float() - k_st.base.float())
             # AWL: key-importance weights from the local V, for the K fit only
             awl = codecs.awl_row_scale(v_nc) if self.method == CompressType.LOW_RANK_AWL else None
-            pk, k_new = ef_compress(k_chunks[j].reshape(b * sc, h * d), k_st, self.cfg, self.method,
-                                    awl_scale=awl)
+            pk, k_new = ef_compress(k_nc, k_st, self.cfg, self.method, awl_scale=awl)
             pv, v_new = ef_compress(v_nc, v_st, self.cfg, self.method)
             # receiver view from the PRE-compress state: identical to the
             # sender's new base (the EF consistency invariant); taken before
@@ -247,6 +256,9 @@ class SimRingAttn:
             rv, _ = ef_decompress(pv, v_st, self.cfg, self.method, update_cache=False)
             recon_k.append(rk.reshape(b, sc, h, d).to(k.dtype))
             recon_v.append(rv.reshape(b, sc, h, d).to(v.dtype))
+            if metrics:
+                stats.log_inside_jit("k", -1, stats.compression_metrics(k_nc, k_new.base))
+                stats.log_inside_jit("v", -1, stats.compression_metrics(v_nc, v_new.base))
             set_slot(state.k, j, k_new)
             set_slot(state.v, j, v_new)
 

@@ -25,6 +25,7 @@ import torch
 
 from compactfusion_tpu_torch.models import common as cm
 from compactfusion_tpu_torch.models.attn_impl import SingleDeviceAttn
+from compactfusion_tpu_torch.parallel.mesh import AXIS_PP
 from compactfusion_tpu_torch.parallel.pipefusion import pipefusion_blocks
 
 
@@ -152,6 +153,7 @@ def cogvideox_forward(
     tp_axis: Optional[str] = None,
     pp_stages: int = 1,
     mesh=None,
+    after_block=None,
 ):
     """CogVideoX denoiser on this rank's video tokens.
 
@@ -163,7 +165,9 @@ def cogvideox_forward(
     place.  Returns (v prediction (B, S_local, token_out), attn_state).
     ``pp_stages`` > 1: sync PipeFusion over the pp axis of ``mesh``, the
     blocks this stage's layers; ``tp_axis``: the ffn of the joined text +
-    video stream sums over that axis of ``mesh``."""
+    video stream sums over that axis of ``mesh``.  ``after_block(layer,
+    vid) -> vid`` runs after every block with the block's index in the whole
+    stack (ConsisID's identity injection, ``models/consisid.py``)."""
     if (pp_stages > 1 or tp_axis is not None) and mesh is None:
         raise ValueError(f"PipeFusion ({pp_stages} stages) or TP ({tp_axis}) needs this rank's mesh")
     if pp_stages > 1 and isinstance(attn, (tuple, list)):
@@ -212,10 +216,15 @@ def cogvideox_forward(
         vid = vid + v_g * ff[:, s_txt:]
         return vid, txt
 
+    # this stage's first layer in the whole stack
+    first = mesh.axis_index(AXIS_PP) * depth if pp_stages > 1 else 0
+
     def run_local(hh):
         vid, txt = hh
         for l, (layer_attn, seg_state, seg_l) in enumerate(cm.layer_strategies(attn, attn_state, depth)):
             vid, txt = block(cm.layer_of(blocks, l), layer_attn, cm.layer_of(seg_state, seg_l), vid, txt)
+            if after_block is not None:
+                vid = after_block(first + l, vid)
         return vid, txt
 
     if pp_stages > 1:

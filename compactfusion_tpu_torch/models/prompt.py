@@ -1,7 +1,9 @@
 """Prompt encoding: tokenizers + text encoders per model family
 (counterpart of ``compactfusion_tpu/models/prompt.py``).
 
-    PromptEncoder.from_pretrained(root)   # diffusers-layout checkpoint dir
+    PromptEncoder.from_pretrained(root)   # diffusers-layout checkpoint dir,
+                                          # weights on the GPU (device="cpu"
+                                          # keeps them on the CPU)
     PromptEncoder.random(generator, ...)  # no checkpoint: byte-level
                                           # tokenizers + seeded random
                                           # encoder weights (the real
@@ -130,12 +132,13 @@ class PromptEncoder:
     @classmethod
     def from_pretrained(cls, root: str, t5_cfg: Optional[T5Config] = None,
                         clip_l_cfg: Optional[CLIPTextConfig] = None,
-                        clip_g_cfg: Optional[CLIPTextConfig] = None, device="cpu") -> "PromptEncoder":
+                        clip_g_cfg: Optional[CLIPTextConfig] = None, device="cuda") -> "PromptEncoder":
         """Load from a diffusers-layout checkpoint directory: each of
         ``tokenizer{,_2,_3}/`` with its ``text_encoder{,_2,_3}/`` is T5 where
         it holds ``spiece.model`` and CLIP where it holds ``vocab.json``
         (the first CLIP is CLIP-L, a second CLIP-G), as the JAX loader reads
-        them; the weights go to ``device``."""
+        them; the weights go to ``device``, the GPU unless the caller
+        asks for the CPU, as the family builders' ``device="cuda"``."""
         from compactfusion_tpu_torch.io import hf
 
         t5 = clip_l = clip_g = None

@@ -25,7 +25,21 @@ with its causal halo of input frames, which is the same function; the
 norm gathers its fp32 sums chunk by chunk (:data:`NORM_CHUNK_ELEMS`) and
 normalizes one chunk at a time, so no fp32 copy of a whole level exists.
 ``tests/test_torch_cogvideox.py`` holds the chunked forms against the
-unchunked ones.  The HunyuanVideo decoder half is not ported yet.
+unchunked ones.
+
+The HunyuanVideo decoder (diffusers ``AutoencoderKLHunyuanVideo``, the
+``hv_*`` half): plain GroupNorm resnets (statistics over T, H, W and C/g in
+fp32, summed over frame chunks), causal convs with replicate padding in
+time and space everywhere (shortcut and upsampler included), time
+upsampling in the last ``temporal_compress_levels`` non-final up blocks,
+and a single-head mid attention at C = 512 over all T*h*w latent tokens
+under a causal frame mask.  The JAX package hands that mask to the dense
+math path; at 33 x 544 x 960 its fp32 score matrix alone would take 21.6
+GB.  Here the mask is read as what it is, a key prefix per query frame:
+frame f's queries attend frames 0..f, one unmasked call each
+(:func:`_mid_attn_hv`), which on the GPU is kernel 1's wide body at Sk =
+(f + 1) * h * w.  ``tests/test_torch_vae3d_hv.py`` holds it against JAX's
+masked path.
 """
 
 from __future__ import annotations
@@ -37,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from compactfusion_tpu_torch.models import common as cm
+from compactfusion_tpu_torch.ops.attention import sdpa
 
 #: elements (input or output, the larger) of one conv call
 CONV_CHUNK_ELEMS = 1 << 30
@@ -353,3 +368,176 @@ def vae3d_decode(params, latents: torch.Tensor, cfg: VAE3DConfig) -> torch.Tenso
             x = _upsample3(up["upsample_conv"], x, i < cfg.temporal_compress_levels)
     x = _spatial_norm(params["norm_out"], x, zq, g, silu=True)
     return _conv3(params["conv_out"], x, causal=True)
+
+
+# ---------------------------------------------------------------------------
+# the HunyuanVideo causal 3D VAE decoder (AutoencoderKLHunyuanVideo)
+# ---------------------------------------------------------------------------
+
+
+def hunyuanvideo_vae() -> VAE3DConfig:
+    """HunyuanVideo's causal 3D VAE (decoded by :func:`hv_vae3d_decode`)."""
+    return VAE3DConfig(block_out_channels=(128, 256, 512, 512), layers_per_block=2, scaling_factor=0.476986)
+
+
+def tiny_hv_vae3d() -> VAE3DConfig:
+    return VAE3DConfig(latent_channels=4, block_out_channels=(8, 16), layers_per_block=1, norm_num_groups=4,
+                       temporal_compress_levels=1)
+
+
+def init_hv_vae3d_decoder(generator: torch.Generator, cfg: VAE3DConfig):
+    """Random init on the generator's device: the tree of the JAX
+    ``init_hv_vae3d_decoder`` (plain GroupNorms, the mid attention)."""
+    dt, dev = cfg.dtype, generator.device
+    chans = list(reversed(cfg.block_out_channels))
+
+    def resnet(c_in, c_out):
+        p = {"norm1": cm.init_layernorm(c_in, dt, dev), "conv1": _init_conv3(generator, c_in, c_out, dtype=dt),
+             "norm2": cm.init_layernorm(c_out, dt, dev), "conv2": _init_conv3(generator, c_out, c_out, dtype=dt)}
+        if c_in != c_out:
+            p["shortcut"] = _init_conv3(generator, c_in, c_out, (1, 1, 1), dt)
+        return p
+
+    c0 = chans[0]
+    p = {
+        "conv_in": _init_conv3(generator, cfg.latent_channels, c0, dtype=dt),
+        "mid_res1": resnet(c0, c0),
+        "mid_attn": {"norm": cm.init_layernorm(c0, dt, dev),
+                     **{k: cm.init_linear(generator, c0, c0, dtype=dt) for k in ("q", "k", "v", "out")}},
+        "mid_res2": resnet(c0, c0),
+        "norm_out": cm.init_layernorm(chans[-1], dt, dev),
+        "conv_out": _init_conv3(generator, chans[-1], cfg.out_channels, dtype=dt),
+    }
+    up, c_prev = [], c0
+    for i, c in enumerate(chans):
+        blk = {"resnets": [resnet(c_prev if j == 0 else c, c) for j in range(cfg.layers_per_block + 1)]}
+        c_prev = c
+        if i < len(chans) - 1:
+            blk["upsample_conv"] = _init_conv3(generator, c, c, dtype=dt)
+        up.append(blk)
+    p["up"] = up
+    return p
+
+
+def _edge_pad_hw(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+    """Replicate padding of (B, T, H, W, C) in H and W."""
+    if ph:
+        x = torch.cat([x[:, :, :1].expand(-1, -1, ph, -1, -1), x, x[:, :, -1:].expand(-1, -1, ph, -1, -1)], dim=2)
+    if pw:
+        x = torch.cat([x[:, :, :, :1].expand(-1, -1, -1, pw, -1), x, x[:, :, :, -1:].expand(-1, -1, -1, pw, -1)],
+                      dim=3)
+    return x
+
+
+def _causal_conv3_repl(p, x: torch.Tensor, frames=None) -> torch.Tensor:
+    """HunyuanVideoCausalConv3d on (B, T, H, W, C): replicate padding
+    everywhere, kt - 1 copies of the first frame in front.  ``frames``
+    (idx, T_out): the input is the frames ``idx`` of ``x`` (the upsampler's
+    frame map), gathered chunk by chunk.  Computed over chunks of output
+    frames, each from its causal window."""
+    kt, kh, kw = p["w"].shape[:3]
+    w = p["w"].to(x.dtype).permute(4, 3, 0, 1, 2)
+    bias = p["b"].to(x.dtype)
+    src = list(range(x.shape[1])) if frames is None else frames
+    t = len(src)
+    b, _, hh, ww, c = x.shape
+    up = 2 if frames is not None else 1
+
+    def window(t0, t1):
+        idx = [src[max(j, 0)] for j in range(t0 - (kt - 1), t1)]
+        xs = x.index_select(1, torch.tensor(idx, device=x.device)) if idx != list(range(x.shape[1])) else x
+        if up > 1:
+            xs = xs.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+        xs = _edge_pad_hw(xs, (kh - 1) // 2, (kw - 1) // 2)
+        return F.conv3d(xs.permute(0, 4, 1, 2, 3), w, bias).permute(0, 2, 3, 4, 1)
+
+    per_frame = b * hh * ww * up * up * max(c, w.shape[0])
+    chunks = _frame_chunks(t, per_frame, CONV_CHUNK_ELEMS)
+    if len(chunks) == 1:
+        return window(0, t)
+    out = x.new_empty((b, t, hh * up, ww * up, w.shape[0]))
+    for t0, t1 in chunks:
+        out[:, t0:t1] = window(t0, t1)
+    return out
+
+
+def _plain_groupnorm3(p, x: torch.Tensor, groups: int, eps: float = 1e-6, silu: bool = False) -> torch.Tensor:
+    """torch GroupNorm over (T, H, W, C/g), time included, and silu of it
+    with ``silu``: the fp32 statistics (E[x], E[x^2], variance clamped at
+    0) summed over frame chunks, each chunk then normalized on its own."""
+    b, t, hh, ww, c = x.shape
+    cg = c // groups
+    chunks = _frame_chunks(t, b * hh * ww * c, NORM_CHUNK_ELEMS)
+    s1 = x.new_zeros((b, 1, 1, 1, groups, 1), dtype=torch.float32)
+    s2 = torch.zeros_like(s1)
+    for t0, t1 in chunks:
+        xc = x[:, t0:t1].float().reshape(b, t1 - t0, hh, ww, groups, cg)
+        s1 += xc.sum(dim=(1, 2, 3, 5), keepdim=True)
+        s2 += xc.square().sum(dim=(1, 2, 3, 5), keepdim=True)
+    n = t * hh * ww * cg
+    mu = s1 / n
+    inv = torch.rsqrt(torch.clamp(s2 / n - mu * mu, min=0.0) + eps)
+    g, beta = p["g"].float(), p["b"].float()
+    out = torch.empty_like(x)
+    for t0, t1 in chunks:
+        xc = x[:, t0:t1].float().reshape(b, t1 - t0, hh, ww, groups, cg)
+        y = (((xc - mu) * inv).reshape(b, t1 - t0, hh, ww, c) * g + beta).to(x.dtype)
+        out[:, t0:t1] = cm.silu(y) if silu else y
+    return out
+
+
+def _resnet3_hv(p, x, groups):
+    h = _causal_conv3_repl(p["conv1"], _plain_groupnorm3(p["norm1"], x, groups, silu=True))
+    h = _causal_conv3_repl(p["conv2"], _plain_groupnorm3(p["norm2"], h, groups, silu=True))
+    if "shortcut" in p:
+        x = _causal_conv3_repl(p["shortcut"], x)
+    return h.add_(x)
+
+
+def _mid_attn_hv(p, x, groups):
+    """Single-head attention over the T*h*w tokens under the causal frame
+    mask, as one unmasked call per query frame over its key prefix (module
+    note): the same function as the masked call, without its score
+    matrix."""
+    b, t, hh, ww, c = x.shape
+    hw = hh * ww
+    y = _plain_groupnorm3(p["norm"], x, groups).reshape(b, t * hw, c)
+    q, k, v = (cm.linear(p[n], y)[:, :, None, :] for n in ("q", "k", "v"))
+    o = torch.empty_like(q)
+    for f in range(t):
+        rows, keys = slice(f * hw, (f + 1) * hw), slice(0, (f + 1) * hw)
+        o[:, rows] = sdpa(q[:, rows], k[:, keys], v[:, keys])
+    o = cm.linear(p["out"], o[:, :, 0].to(x.dtype))
+    return x + o.reshape(b, t, hh, ww, c)
+
+
+def _upsample3_hv(p, x: torch.Tensor, temporal: bool) -> torch.Tensor:
+    """HunyuanVideoUpsampleCausal3D: nearest 2x in (h, w); with ``temporal``
+    the first frame kept once and the others doubled; then the causal
+    conv.  The upsampled frames are made chunk by chunk inside the conv."""
+    t = x.shape[1]
+    idx = [0] + [1 + i // 2 for i in range(2 * (t - 1))] if temporal and t > 1 else list(range(t))
+    return _causal_conv3_repl(p, x, frames=idx)
+
+
+def hv_vae3d_decode(params, latents: torch.Tensor, cfg: VAE3DConfig) -> torch.Tensor:
+    """HunyuanVideo decode: (B, T_lat, h, w, C) scaled latents -> (B, T, 8h,
+    8w, 3) with T = (T_lat - 1) * temporal_ratio + 1; tiled with
+    ``cfg.use_tiling``."""
+    if cfg.use_tiling:
+        dense = dataclasses.replace(cfg, use_tiling=False)
+        return _tiled_decode3d(lambda z: hv_vae3d_decode(params, z, dense), latents, cfg)
+    g = cfg.norm_num_groups
+    x = _causal_conv3_repl(params["conv_in"], (latents / cfg.scaling_factor).to(cfg.dtype))
+    x = _resnet3_hv(params["mid_res1"], x, g)
+    x = _mid_attn_hv(params["mid_attn"], x, g)
+    x = _resnet3_hv(params["mid_res2"], x, g)
+    n_up = len(params["up"])
+    for i, up in enumerate(params["up"]):
+        for r in up["resnets"]:
+            x = _resnet3_hv(r, x, g)
+        if "upsample_conv" in up:
+            # time upsampling at the last temporal_compress_levels non-final up blocks
+            x = _upsample3_hv(up["upsample_conv"], x, i >= n_up - 1 - cfg.temporal_compress_levels)
+    x = _plain_groupnorm3(params["norm_out"], x, g, silu=True)
+    return _causal_conv3_repl(params["conv_out"], x)

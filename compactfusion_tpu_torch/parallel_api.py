@@ -11,11 +11,13 @@ draws seeded random weights on that device, and runs prompts through the
 real text path (tokenizer -> T5/CLIP -> embeddings) into the pipeline.
 
 Ported families: PixArt-alpha 512 and PixArt-Sigma (1024, 2K), FLUX.1
-(dev, schnell), SD3-medium, HunyuanDiT v1.2 and CogVideoX (2B, 5B,
-1.5-5B; text to video, the causal 3D VAE), with their ``-tiny`` test
-configs; the 2D VAE's ``--enable_tiling`` / ``--enable_slicing``.  The
-other families of the JAX registry (Latte, HunyuanVideo, ConsisID,
-Step-Video) resolve by the same patterns and raise ``NotImplementedError``.
+(dev, schnell), SD3-medium, HunyuanDiT v1.2, CogVideoX (2B, 5B, 1.5-5B;
+text to video, the causal 3D VAE), Latte-1 (the per-frame 2D VAE),
+HunyuanVideo-T2V (its causal 3D VAE) and ConsisID-preview (with
+``--img_file_path``: identity tokens from the face image), with their
+``-tiny`` test configs; the 2D VAE's ``--enable_tiling`` /
+``--enable_slicing``.  Step-Video, the one other family of the JAX
+registry, resolves by the same pattern and raises ``NotImplementedError``.
 
 Every parallel flag of the JAX runner is taken: ``--pipefusion_parallel_
 degree`` (PixArt's default is the patch pipeline with M = pp; FLUX, SD3,
@@ -349,6 +351,107 @@ def _build_cogvideox(engine: EngineConfig, inp: InputConfig, checkpoint: Optiona
     return pipe, pcfg
 
 
+def _build_latte(engine: EngineConfig, inp: InputConfig, checkpoint: Optional[str] = None, device="cuda"):
+    from compactfusion_tpu_torch.io import hf
+    from compactfusion_tpu_torch.models.latte import init_latte, latte_1, latte_tiny
+    from compactfusion_tpu_torch.models.vae import sd_vae, tiny_vae
+    from compactfusion_tpu_torch.pipelines.latte import LattePipeline, LattePipelineConfig
+
+    if "tiny" in engine.model_config.model.lower():
+        mcfg, vcfg = latte_tiny(), tiny_vae()
+    else:
+        mcfg, vcfg = latte_1(), sd_vae()
+    if checkpoint and os.path.isdir(os.path.join(checkpoint, "transformer")):
+        params = cm.to_device(hf.convert_latte(_transformer_state(checkpoint), mcfg), device)
+    else:
+        params = init_latte(torch.Generator(device=device).manual_seed(0), mcfg)
+    vcfg = _vae_opts(vcfg, engine)
+    pcfg = LattePipelineConfig(model=mcfg, vae=vcfg, parallel=engine.parallel_config,
+                               compact=engine.compact_config, num_steps=inp.num_inference_steps,
+                               guidance_scale=inp.guidance_scale, height=inp.height, width=inp.width,
+                               num_frames=inp.num_frames)
+    mesh, _ = _meshes(engine)
+    return LattePipeline(params, _load_vae2d(checkpoint, vcfg, device), pcfg, device, mesh=mesh), pcfg
+
+
+def _build_hunyuanvideo(engine: EngineConfig, inp: InputConfig, checkpoint: Optional[str] = None, device="cuda"):
+    from compactfusion_tpu_torch.io import hf
+    from compactfusion_tpu_torch.models.hunyuanvideo import (
+        hunyuanvideo_config,
+        hunyuanvideo_tiny,
+        init_hunyuanvideo,
+    )
+    from compactfusion_tpu_torch.models.vae3d import hunyuanvideo_vae, init_hv_vae3d_decoder, tiny_hv_vae3d
+    from compactfusion_tpu_torch.pipelines.hunyuanvideo import HunyuanVideoPipeline, HunyuanVideoPipelineConfig
+
+    tiny = "tiny" in engine.model_config.model.lower()
+    mcfg = hunyuanvideo_tiny() if tiny else hunyuanvideo_config()
+    if tiny:
+        # the tokens are 2x2-packed: the VAE's latent channels are in_channels / 4
+        vcfg = dataclasses.replace(tiny_hv_vae3d(), latent_channels=mcfg.in_channels // 4)
+    else:
+        vcfg = hunyuanvideo_vae()
+        if engine.runtime_config.enable_tiling:
+            vcfg = dataclasses.replace(vcfg, use_tiling=True)
+    mesh, vae_mesh = _meshes(engine)
+    tdir = os.path.join(checkpoint, "transformer") if checkpoint else ""
+    if _is_tail(vae_mesh):
+        params = None  # HunyuanVideo's VAE-tail ranks stay idle
+    elif tdir and os.path.isdir(tdir):
+        params = cm.to_device(hf.convert_hunyuanvideo(hf.load_safetensors(tdir), mcfg), device)
+    else:
+        params = init_hunyuanvideo(torch.Generator(device=device).manual_seed(0), mcfg)
+    vae_params = None
+    if not _is_tail(vae_mesh):
+        vdir = os.path.join(checkpoint, "vae") if checkpoint else ""
+        if vdir and os.path.isdir(vdir):
+            vae_params = cm.to_device(hf.convert_hv_vae3d_decoder(hf.load_safetensors(vdir), vcfg), device)
+        else:
+            # seed 12, as the JAX builder's
+            vae_params = init_hv_vae3d_decoder(torch.Generator(device=device).manual_seed(12), vcfg)
+    pcfg = HunyuanVideoPipelineConfig(model=mcfg, vae=vcfg, parallel=engine.parallel_config,
+                                      compact=engine.compact_config, num_steps=inp.num_inference_steps,
+                                      guidance_scale=inp.guidance_scale, height=inp.height, width=inp.width,
+                                      num_frames=inp.num_frames)
+    return HunyuanVideoPipeline(params, vae_params, pcfg, device, mesh=mesh, vae_mesh=vae_mesh), pcfg
+
+
+def _build_consisid(engine: EngineConfig, inp: InputConfig, checkpoint: Optional[str] = None, device="cuda"):
+    from compactfusion_tpu_torch.io import hf
+    from compactfusion_tpu_torch.models.consisid import consisid_preview, consisid_tiny, init_consisid
+    from compactfusion_tpu_torch.models.face import lfe_consisid
+    from compactfusion_tpu_torch.models.vae3d import cogvideox_vae, tiny_vae3d
+    from compactfusion_tpu_torch.pipelines.consisid import ConsisIDPipeline, ConsisIDPipelineConfig
+
+    tiny = "tiny" in engine.model_config.model.lower()
+    mcfg = consisid_tiny() if tiny else consisid_preview()
+    mesh, vae_mesh = _meshes(engine)
+    lfe_params = None
+    if _is_tail(vae_mesh):
+        params = None  # ConsisID's VAE-tail ranks stay idle
+    elif checkpoint and os.path.isdir(os.path.join(checkpoint, "transformer")):
+        state = _transformer_state(checkpoint)
+        params = cm.to_device(hf.convert_consisid(state, mcfg), device)
+        if "local_facial_extractor.latents" in state:
+            lfe_params = cm.to_device(hf.convert_local_facial_extractor(state, lfe_consisid()), device)
+    else:
+        params = init_consisid(torch.Generator(device=device).manual_seed(0), mcfg)
+    if tiny:
+        vcfg = dataclasses.replace(tiny_vae3d(), latent_channels=mcfg.in_channels)
+    else:
+        vcfg = cogvideox_vae()
+        if engine.runtime_config.enable_tiling:
+            vcfg = dataclasses.replace(vcfg, use_tiling=True)
+    pcfg = ConsisIDPipelineConfig(model=mcfg, vae=vcfg, parallel=engine.parallel_config,
+                                  compact=engine.compact_config, num_steps=inp.num_inference_steps,
+                                  guidance_scale=inp.guidance_scale, height=inp.height, width=inp.width,
+                                  num_frames=inp.num_frames)
+    vae_params = None if _is_tail(vae_mesh) else _load_vae3d(checkpoint, vcfg, device)
+    pipe = ConsisIDPipeline(params, vae_params, pcfg, device, mesh=mesh, vae_mesh=vae_mesh)
+    pipe.lfe_params = lfe_params  # the face encoder for pipe.encode_face
+    return pipe, pcfg
+
+
 def _build_sd3(engine: EngineConfig, inp: InputConfig, checkpoint: Optional[str] = None, device="cuda"):
     from compactfusion_tpu_torch.io import hf
     from compactfusion_tpu_torch.models.sd3 import init_sd3, sd3_medium, sd3_tiny
@@ -415,7 +518,8 @@ def _build_hunyuan(engine: EngineConfig, inp: InputConfig, checkpoint: Optional[
 
 
 # the JAX registry's other families, in its order and with its patterns
-_PORTED = {"sd3": _build_sd3, "cogvideox": _build_cogvideox, "hunyuandit": _build_hunyuan}
+_PORTED = {"sd3": _build_sd3, "cogvideox": _build_cogvideox, "latte": _build_latte,
+           "hunyuanvideo": _build_hunyuanvideo, "consisid": _build_consisid, "hunyuandit": _build_hunyuan}
 for _name, _pattern in (("sd3", r"stable-diffusion-3|sd3"), ("cogvideox", r"cogvideo"), ("latte", r"latte"),
                         ("hunyuanvideo", r"hunyuanvideo"), ("consisid", r"consisid"),
                         ("stepvideo", r"step[-_]?video"), ("hunyuandit", r"hunyuan(?!.?video)")):
@@ -462,15 +566,10 @@ class xDiTParallel:
 
     def __init__(self, engine_config: EngineConfig, input_config: InputConfig,
                  checkpoint: Optional[str] = None, device: str = "cuda"):
-        from compactfusion_tpu_torch import ROADMAP_HINT
         from compactfusion_tpu_torch.parallel.mesh import init_distributed_environment
 
         self.engine_config = engine_config
         self.input_config = input_config
-        if input_config.img_file_path:
-            # ConsisID's identity image; num_frames is read by the video
-            # families and, as in the JAX package, ignored by the image ones
-            raise NotImplementedError(f"identity images (img_file_path): {ROADMAP_HINT}")
         # binds cuda:<local_rank> or raises where no GPU is visible; joins
         # the torchrun process group when WORLD_SIZE > 1
         self.device = init_distributed_environment("nccl" if device == "cuda" else "gloo", device)
@@ -550,7 +649,9 @@ class xDiTParallel:
     #: the per-layer block stacks that ``--quantize_backbone_int8`` quantizes
     #: (embedders and heads stay in the model dtype)
     _INT8_BLOCK_KEYS = {"pixart": ("blocks",), "flux": ("double_blocks", "single_blocks"), "sd3": ("blocks",),
-                        "hunyuandit": ("down_blocks", "up_blocks"), "cogvideox": ("blocks",)}
+                        "hunyuandit": ("down_blocks", "up_blocks"), "cogvideox": ("blocks",),
+                        "latte": ("spatial_blocks", "temporal_blocks"), "consisid": ("blocks",),
+                        "hunyuanvideo": ("double_blocks", "single_blocks")}
 
     def _quantize_backbone_int8(self):
         """``--quantize_backbone_int8``: int8 weights for the block stacks
@@ -595,6 +696,24 @@ class xDiTParallel:
             return PromptEncoder.random(gen, text_dim=mcfg.text_dim, pooled_dim=lo, clip_g_dim=mcfg.pooled_dim - lo)
         return PromptEncoder.random(gen, text_dim=mcfg.text_dim)
 
+    def _encode_identity(self, img_path: str) -> torch.Tensor:
+        """``--img_file_path`` -> ConsisID identity tokens (B, id_tokens,
+        id_dim), the same for every prompt: with the checkpoint's face encoder
+        the image features run through it, else the seeded stand-in
+        projection gives them (``models/face.py``), as the JAX runner does."""
+        from compactfusion_tpu_torch.models.face import image_face_features, image_to_id_states, lfe_consisid
+
+        pcfg = self.pipeline_config
+        lfe_params = self.pipeline.lfe_params
+        if lfe_params is not None:
+            lcfg = lfe_consisid()
+            id_cond, id_vit = image_face_features(img_path, lcfg, self.device)
+            states = self.pipeline.encode_face(lfe_params, id_cond, id_vit, lcfg)[:, :pcfg.id_tokens]
+        else:
+            states = image_to_id_states(img_path, pcfg.id_tokens, pcfg.model.id_dim, self.device)
+        b = len(self.input_config.prompt)
+        return states.expand((b,) + tuple(states.shape[1:]))
+
     def prepare_run(self, generator: Optional[torch.Generator] = None):
         """Warm-up call (reference ``pipe.prepare_run``): one generation,
         waited for, before serving traffic."""
@@ -608,7 +727,7 @@ class xDiTParallel:
     def __call__(self, generator: Optional[torch.Generator] = None, decode: Optional[bool] = None,
                  latents: Optional[torch.Tensor] = None):
         """Run the request in ``input_config``: images (B, H, W, 3) in [0, 1]
-        (CogVideoX: videos (B, T, H, W, 3)), or the final latents with
+        (the video families: videos (B, T, H, W, 3)), or the final latents with
         ``output_type="latent"`` or ``decode=False``.  With VAE ranks the
         images reach rank 0 alone: the other ranks, and the tail ranks,
         return None.
@@ -643,11 +762,18 @@ class xDiTParallel:
         if self.family == "sd3":
             txt, pooled = enc.encode_for_sd3(prompts, negative, max_length=seq)
             return self.pipeline(txt, pooled, generator=generator, latents=latents, decode=decode)
-        if self.family == "cogvideox":
+        if self.family in ("cogvideox", "consisid"):
             # (2, B, S, D) cond/uncond T5 states at max_sequence_length, no mask
             txt = enc.encode_for_video(prompts, negative, max_length=seq)
+            if self.family == "consisid":
+                ids = self._encode_identity(inp.img_file_path) if inp.img_file_path else None
+                return self.pipeline(txt, generator=generator, latents=latents, id_states=ids, decode=decode)
             return self.pipeline(txt, generator=generator, latents=latents, decode=decode)
-        # PixArt and HunyuanDiT: (2, B, S, D) states and their masks
+        if self.family == "hunyuanvideo":
+            # the cond states only (embedded guidance), all tokens valid, zero pooled vector
+            txt = enc.encode_for_video(prompts, negative, max_length=seq)
+            return self.pipeline(txt, generator=generator, latents=latents, decode=decode)
+        # PixArt, HunyuanDiT and Latte: (2, B, S, D) states and their masks
         txt, mask = enc.encode_for_pixart(prompts, negative, max_length=seq)
         out = self.pipeline(txt, mask, generator=generator, latents=latents, decode=decode)
         pcfg = self.pipeline_config

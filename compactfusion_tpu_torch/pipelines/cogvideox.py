@@ -215,15 +215,19 @@ class CogVideoXPipeline:
                 t = torch.full((n_model_batch,), float(self.sched.timesteps[i]), dtype=torch.float32,
                                device=self.device)
                 x = torch.cat([latents, latents], dim=0) if n_model_batch > b else latents
-                v, attn_state = cogvideox_forward(self.params, x.to(m.dtype), txt, t, m, video_rope=rope,
-                                                  pos_embed=pe, attn=attn, attn_state=attn_state, mesh=mesh,
-                                                  tp_axis=AXIS_TP if p.tp_degree > 1 else None,
-                                                  pp_stages=p.pp_degree)
+                v, attn_state = self._forward(x.to(m.dtype), txt, t, rope, pe, attn, attn_state)
                 if cfg.do_cfg:
                     g = self.dyn_cfg[i] if cfg.use_dynamic_cfg else cfg.guidance_scale
                     v = base.cfg_combine(v, g, p.cfg_degree, mesh)
                 latents = ddim_step_v(self.sched, i, cfg.num_steps, latents, v)
         return base.gather_latents(latents, mesh)
+
+    def _forward(self, x, txt, t, rope, pe, attn, attn_state):
+        """One denoiser call on this rank's model batch."""
+        m, p = self.cfg.model, self.cfg.parallel
+        return cogvideox_forward(self.params, x, txt, t, m, video_rope=rope, pos_embed=pe, attn=attn,
+                                 attn_state=attn_state, mesh=self.mesh, tp_axis=AXIS_TP if p.tp_degree > 1 else None,
+                                 pp_stages=p.pp_degree)
 
     @torch.inference_mode()
     def decode(self, latent_tokens: torch.Tensor) -> torch.Tensor:

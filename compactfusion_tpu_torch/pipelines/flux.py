@@ -49,6 +49,7 @@ from compactfusion_tpu_torch.schedulers.flow_match import (
     flow_match_schedule,
     flow_match_step,
 )
+from compactfusion_tpu_torch.utils import collector
 
 
 @dataclasses.dataclass(frozen=True)
@@ -246,6 +247,8 @@ class FluxPipeline:
                 else:
                     v, state_d, state_s = fwd
                 latents = flow_match_step(self.sched, i, latents, v)
+                if collector.enabled():
+                    collector.collect(latents, "latents")  # per-step tap (reference pipeline_flux.py:481)
         self.last_skips = int(cache_state.skips) if use_cache else None
         return base.gather_latents(latents, mesh)
 

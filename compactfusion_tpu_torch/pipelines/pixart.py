@@ -60,6 +60,7 @@ from compactfusion_tpu_torch.parallel.tp import local_params
 from compactfusion_tpu_torch.parallel.vae import decode_on_vae_ranks, recv_from_vae_ranks, send_to_vae_ranks
 from compactfusion_tpu_torch.pipelines import base
 from compactfusion_tpu_torch.schedulers.diffusion import ddpm_schedule, dpm_init_state, dpm_step
+from compactfusion_tpu_torch.utils import collector
 
 
 @dataclasses.dataclass(frozen=True)
@@ -294,6 +295,8 @@ class PixArtPipeline:
                 if cfg.do_cfg:
                     eps = base.cfg_combine(eps, cfg.guidance_scale, p.cfg_degree, mesh)
                 latents, dpm_state = dpm_step(self.sched, i, cfg.num_steps, latents, eps, dpm_state)
+                if collector.enabled():
+                    collector.collect(latents, "latents")  # per-step tap (reference pipeline_flux.py:481)
         self.last_skips = int(cache_state.skips) if use_cache else None
         return base.gather_latents(latents, mesh)
 

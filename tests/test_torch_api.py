@@ -121,9 +121,10 @@ def test_registry_resolves_every_name_jax_resolves(monkeypatch):
         with pytest.raises(ValueError, match="no pipeline registered"):
             mod.resolve_family("stable-cascade")
     engine, inp = _config(targs, ["--model", "sd3-tiny"])
-    for name in ("latte", "hunyuanvideo", "consisid", "stepvideo"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tapi._REGISTRY[name].build(engine, inp, None, "cpu")
+    # Step-Video alone is left unported: its builder raises
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tapi._REGISTRY["stepvideo"].build(engine, inp, None, "cpu")
+    assert [n for n, f in tapi._REGISTRY.items() if f.build.__name__ == "build"] == ["stepvideo"]
     # SD3 and HunyuanDiT are ported: their builders give the pipelines
     # JAX's give, per name, with the VAE knobs on
     from compactfusion_tpu.models import hunyuandit as jhy
@@ -191,14 +192,15 @@ def test_registry_resolves_every_name_jax_resolves(monkeypatch):
     # the VAE memory knobs run through the runner: tiling and slicing pass
     # the tiny latents through to the dense decode, bit for bit
     monkeypatch.undo()
-    dense = tapi.xDiTParallel(*_config(targs, PIXART), device="cpu")()
+    plain = tapi.xDiTParallel(*_config(targs, PIXART), device="cpu")
+    dense, dense_latents = plain(), plain(decode=False)
     for knob in ("--enable_tiling", "--enable_slicing"):
         run = tapi.xDiTParallel(*_config(targs, PIXART + [knob]), device="cpu")
         assert run.pipeline_config.vae.use_tiling == (knob == "--enable_tiling")
         assert torch.equal(run(), dense)
-    # ConsisID's identity image still raises
-    with pytest.raises(NotImplementedError):
-        tapi.xDiTParallel(*_config(targs, PIXART + ["--img_file_path", "x.png"]), device="cpu")
+    # the identity image is read by ConsisID alone; PixArt ignores it, as in JAX
+    with_img = tapi.xDiTParallel(*_config(targs, PIXART + ["--img_file_path", "x.png"]), device="cpu")
+    assert torch.equal(with_img(decode=False), dense_latents)
     # num_frames is read by the video families; PixArt ignores it, as in JAX
     five = tapi.xDiTParallel(*_config(targs, PIXART + ["--num_frames", "5"]), device="cpu")
     assert five.pipeline_config == tapi.xDiTParallel(*_config(targs, PIXART), device="cpu").pipeline_config
@@ -491,5 +493,9 @@ def test_png_writer_against_pil_and_to_uint8_against_jax():
     buf = io.BytesIO()
     Image.fromarray(np.tile(np.arange(9, dtype=np.uint8)[:, None, None], (1, 7, 3))).save(buf, format="PNG",
                                                                                           optimize=True)
-    with pytest.raises(ValueError, match="filter"):  # PIL filters its rows: not the writer's form
+    # PIL filters its rows; the reader undoes every filter (ConsisID's identity images)
+    np.testing.assert_array_equal(read_png(buf.getvalue()), np.asarray(Image.open(io.BytesIO(buf.getvalue()))))
+    buf = io.BytesIO()
+    Image.fromarray(np.arange(63, dtype=np.uint16).reshape(9, 7) * 1000).save(buf, format="PNG")
+    with pytest.raises(ValueError, match="unsupported PNG"):  # 16-bit: not a form the reader takes
         read_png(buf.getvalue())

@@ -22,7 +22,7 @@ from compactfusion_tpu.compact import engine as jengine
 from compactfusion_tpu_torch import config as tconfig
 from compactfusion_tpu_torch.compact import codecs as tcodecs
 from compactfusion_tpu_torch.compact import engine as tengine
-from compactfusion_tpu_torch.compact.ring import set_slot, slot, init_ring_state
+from compactfusion_tpu_torch.compact.ring import init_ring_state, set_slot, slot, tree_map
 from compactfusion_tpu_torch.models.attn_impl import SimRingAttn
 
 REL = 1e-5
@@ -122,8 +122,9 @@ def test_fastpath_compress_matches_codec_path():
 
 def test_fastpath_gate():
     """The gate of the fused kernels: residual 1 + EF, BINARY or INT2, no
-    simulate, CUDA tensors.  Quantized caches and INT2 are ported; the
-    ``log_stats`` taps of the ring emulation are not and still raise."""
+    simulate, CUDA tensors.  Quantized caches and INT2 are ported, and the
+    ring emulation runs with ``log_stats`` and records its metrics (the
+    taps are held against JAX's in tests/test_torch_stats.py)."""
     cfg = tconfig.CompactConfig(enabled=True)
     B, I2 = tconfig.CompressType.BINARY, tconfig.CompressType.INT2
     assert tengine._use_fastpath(cfg, B, on_cuda=True)
@@ -137,9 +138,13 @@ def test_fastpath_gate():
     assert not tengine._use_fastpath(cfg, tconfig.CompressType.LOW_RANK, True)
     st = tengine.init_ef_state((4, 8), quantized=True)
     assert isinstance(st.base, tcodecs.Int8Payload) and isinstance(st.delta_base, tcodecs.Int8Payload)
-    with pytest.raises(NotImplementedError):
-        SimRingAttn(dataclasses.replace(cfg, log_stats=True), B, 2)(
-            *(torch.zeros(1, 4, 1, 8) for _ in range(3)), init_ring_state(2, 2, 8, torch.float32))
+    from compactfusion_tpu_torch.compact.stats import StatsLogger
+
+    StatsLogger.reset()
+    SimRingAttn(dataclasses.replace(cfg, log_stats=True), B, 2)(
+        *(torch.ones(1, 4, 1, 8) for _ in range(3)), init_ring_state(2, 2, 8, torch.float32))
+    log = StatsLogger.instance()
+    assert [len(log.records[k]) for k in ("k", "v")] == [2, 2] and len(log.spectra["k-delta"]) == 2
 
 
 def test_ring_slots_update_in_place():
@@ -196,9 +201,15 @@ def test_attention_strategies_match_jax(joint):
         assert _rel(out.numpy(), ref) <= REL, step
         assert _rel(tst.k.base.numpy(), jst.k.base) <= REL
         assert _rel(tst.v.base.numpy(), jst.v.base) <= REL
-    with pytest.raises(NotImplementedError):
-        tattn.SimRingAttn(dataclasses.replace(tcfg, log_stats=True), tm, 2)(
-            *map(torch.from_numpy, (q, k, v)), tst)
+    # the log_stats taps record and leave the output as it was
+    from compactfusion_tpu_torch.compact.stats import StatsLogger
+
+    StatsLogger.reset()
+    again = tree_map(torch.clone, tst)
+    logged, _ = tattn.SimRingAttn(dataclasses.replace(tcfg, log_stats=True), tm, 2)(
+        *map(torch.from_numpy, (q, k, v)), again)
+    plain, _ = tattn.SimRingAttn(tcfg, tm, 2)(*map(torch.from_numpy, (q, k, v)), tree_map(torch.clone, tst))
+    assert torch.equal(logged, plain) and len(StatsLogger.instance().records["k"]) == 2
 
 
 def _tree_np(state):

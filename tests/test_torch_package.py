@@ -42,7 +42,10 @@ def test_importing_every_module_leaves_jax_out():
               "examples.cogvideox_example", "parallel.tp", "parallel.pipefusion", "parallel.vae",
               "pipelines.pixart_patch_pp", "pipelines.flux_patch_pp", "models.sd3", "pipelines.sd3",
               "pipelines.sd3_patch_pp", "models.hunyuandit", "pipelines.hunyuandit", "pipelines.hunyuandit_patch_pp",
-              "examples.sd3_example", "examples.hunyuandit_example", "examples.pixartsigma_example"):
+              "examples.sd3_example", "examples.hunyuandit_example", "examples.pixartsigma_example",
+              "compact.stats", "utils.collector", "models.face", "models.consisid", "pipelines.consisid",
+              "models.latte", "pipelines.latte", "models.hunyuanvideo", "pipelines.hunyuanvideo",
+              "examples.latte_example", "examples.consisid_example", "examples.hunyuanvideo_example"):
         assert f"compactfusion_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -584,3 +584,106 @@ def vae_outputs(rank, world, band_args, runs):
     """:func:`vae_band_outputs` of ``band_args``, then :func:`runner_images`
     of ``runs`` (one spawn for both)."""
     return vae_band_outputs(rank, world, *band_args), runner_images(rank, world, runs)
+
+
+def stats_ring_outputs(rank, world, steps, collect_dir, s_local):
+    """On a ring of 2: ``compact_ring_attention`` over ``steps`` (a WARMUP
+    step, then BINARY; residual 1 + EF, ``log_stats`` on) with the collector
+    writing to ``collect_dir``, the fused route asked for (collection keeps
+    it off); returns this rank's StatsLogger records and spectra, and
+    whether the fused route would be taken with and without collection."""
+    import dataclasses
+    import os
+
+    from compactfusion_tpu_torch.compact.stats import StatsLogger
+
+    os.environ["CFTPU_COLLECT_DIR"] = collect_dir
+    m = tmesh.make_mesh(ParallelConfig(ring_degree=2))
+    cfg = CompactConfig(enabled=True, compress_type=CompressType.BINARY, residual=1, error_feedback=True,
+                        warmup_steps=1, log_stats=True)
+    StatsLogger.reset()
+    b, _, h, d = steps[0][0].shape
+    state = tring.init_ring_state(2, b * s_local, h * d, torch.float32, 1)
+    outs = []
+    for i, step in enumerate(steps):
+        q, k, v = _local(step, m, s_local)
+        out, state = tring.compact_ring_attention(q, k, v, state, cfg=cfg, method=cfg.type_at(0, i), mesh=m,
+                                                  fused=True)
+        outs.append(out.numpy())
+    quiet = dataclasses.replace(cfg, log_stats=False)
+    routes = [tring._fused_route(q, k, state, quiet, CompressType.BINARY, 2, True)]
+    del os.environ["CFTPU_COLLECT_DIR"]
+    routes.append(tring._fused_route(q, k, state, quiet, CompressType.BINARY, 2, True))
+    log = StatsLogger.instance()
+    return {"records": dict(log.records), "spectra": dict(log.spectra), "outs": outs, "fused_routes": routes}
+
+
+def latte_latents(rank, world, configs, params, vae_params, inputs):
+    """Per configuration (name, ParallelConfig kwargs): the tiny fp32 Latte
+    pipeline's final latents on this rank (32 x 32, 4 frames, 3 DDIM steps
+    at guidance 4.5) from ``inputs`` = (text, mask, noise), and the bytes
+    its all-to-alls sent; None on a rank the configuration leaves idle."""
+    import dataclasses
+
+    from compactfusion_tpu_torch.io.from_jax import params_from_numpy
+    from compactfusion_tpu_torch.models.latte import latte_tiny
+    from compactfusion_tpu_torch.models.vae import tiny_vae
+    from compactfusion_tpu_torch.pipelines.latte import LattePipeline, LattePipelineConfig
+
+    tm = dataclasses.replace(latte_tiny(), dtype=torch.float32)
+    tv = dataclasses.replace(tiny_vae(), dtype=torch.float32)
+    tparams = params_from_numpy(params)
+    text, mask, noise = (torch.from_numpy(a) for a in inputs)
+    res = {}
+    for name, par in configs:
+        parallel = ParallelConfig(**par)
+        mesh = tmesh.make_mesh(parallel)
+        if mesh is None:
+            res[name] = None
+            continue
+        cfg = LattePipelineConfig(model=tm, vae=tv, parallel=parallel, num_steps=3, guidance_scale=4.5, height=32,
+                                  width=32, num_frames=4)
+        tmesh.Mesh.all_to_all.nbytes = 0
+        lat = LattePipeline(tparams, None, cfg, "cpu", mesh=mesh)(text, mask, latents=noise, decode=False)
+        res[name] = (lat.numpy(), tmesh.Mesh.all_to_all.nbytes)
+    return res
+
+
+def video_pipeline_latents(rank, world, family, configs, params, inputs):
+    """Per configuration (name, ParallelConfig kwargs, CompactConfig kwargs
+    or None) of the tiny fp32 ``family`` pipeline ("consisid": inputs (txt,
+    ids, noise), 32 x 48, 9 frames, guidance 6; "hunyuanvideo": (txt, mask,
+    noise), 32 x 32, 5 frames), 3 steps: the final latents on this rank and
+    the largest EF cache deviation across the ring."""
+    import dataclasses
+
+    from compactfusion_tpu_torch.io.from_jax import params_from_numpy
+
+    if family == "consisid":
+        from compactfusion_tpu_torch.models.consisid import consisid_tiny as tiny
+        from compactfusion_tpu_torch.pipelines.consisid import ConsisIDPipeline as Pipe
+        from compactfusion_tpu_torch.pipelines.consisid import ConsisIDPipelineConfig as Cfg
+
+        size = dict(height=32, width=48, num_frames=9, guidance_scale=6.0)
+    else:
+        from compactfusion_tpu_torch.models.hunyuanvideo import hunyuanvideo_tiny as tiny
+        from compactfusion_tpu_torch.pipelines.hunyuanvideo import HunyuanVideoPipeline as Pipe
+        from compactfusion_tpu_torch.pipelines.hunyuanvideo import HunyuanVideoPipelineConfig as Cfg
+
+        size = dict(height=32, width=32, num_frames=5)
+    tm = dataclasses.replace(tiny(), dtype=torch.float32)
+    tparams = params_from_numpy(params)
+    a, b, noise = (torch.from_numpy(x) for x in inputs)
+    res = {}
+    for name, par, compact in configs:
+        parallel = ParallelConfig(**par)
+        ckw = {} if compact is None else dict(compact, compress_type=CompressType(compact["compress_type"]))
+        cfg = Cfg(model=tm, parallel=parallel, compact=CompactConfig(**ckw), num_steps=3, **size)
+        pipe = Pipe(tparams, None, cfg, "cpu", mesh=tmesh.make_mesh(parallel))
+        tring.max_consistency_dev = 0.0
+        if family == "consisid":
+            lat = pipe(a, latents=noise, id_states=b, decode=False)
+        else:
+            lat = pipe(a, None, b, latents=noise, decode=False)
+        res[name] = (lat.numpy(), tring.max_consistency_dev)
+    return res

@@ -409,10 +409,23 @@ def test_from_pretrained_matches_jax(tmp_path):
     j = jprompt.PromptEncoder.from_pretrained(str(tmp_path), t5_cfg=t5_make(jte, jnp.float32),
                                               clip_l_cfg=clip_make(jte, jnp.float32))
     t = tprompt.PromptEncoder.from_pretrained(str(tmp_path), t5_cfg=t5_make(tte, torch.float32),
-                                              clip_l_cfg=clip_make(tte, torch.float32))
+                                              clip_l_cfg=clip_make(tte, torch.float32), device="cpu")
     assert t.clip_g is None and t.t5.tokenizer.encode("the cat") == j.t5.tokenizer.encode("the cat")
     prompts = ["the photo of a cat", "lower newer"]
     want, got = j.encode_for_flux(prompts, max_length=10), t.encode_for_flux(prompts, max_length=10)
     assert got[0].shape == (2, 10, 128) and got[1].shape == (2, 24)
     for g, w in zip(got, want):
         assert rel_err(g.numpy(), np.asarray(w)) < BOUND
+
+
+def test_from_pretrained_defaults_to_the_gpu():
+    """An entry point runs on the card unless the caller asks for the CPU:
+    ``from_pretrained``'s default device is "cuda", as the family
+    builders' (read from the signature; no GPU needed)."""
+    import inspect
+
+    from compactfusion_tpu_torch import parallel_api as tapi
+
+    assert inspect.signature(tprompt.PromptEncoder.from_pretrained).parameters["device"].default == "cuda"
+    assert inspect.signature(tapi._build_consisid).parameters["device"].default == "cuda"
+    assert inspect.signature(tapi.xDiTParallel).parameters["device"].default == "cuda"
