@@ -290,6 +290,27 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
     bit-equal to the halves, compressed 0 < err < 0.05 with EF deviation 0,
     the patch pipelines in PATCH_PP_REL of sync; exact launch counts; the
     ring, cfg and all-to-all bytes the shapes imply.
+43-47. The stats and collector taps; Latte-1, ConsisID-preview and
+    HunyuanVideo-T2V at full width and depth through ``xDiTParallel``, and
+    cut in depth across 2 gloo processes (``observability_phase``,
+    ``latte_phase``, ``consisid_phase``, ``hunyuanvideo_phase``,
+    ``video_ring_phase``).
+48. Kernel 1 at Step-Video-T2V's B2 H48 S18,972 d128 against its twin on
+    head slices and cuDNN, kernels 2, 3, 5-8 at phase 49's shapes, then
+    Step-Video-T2V at full width and depth (48 blocks, 58.7 GB of bf16
+    weights) through ``xDiTParallel`` at 204 x 544 x 992, SV_STEPS steps,
+    CFG 9: s/step, peak memory, kernel 1 once a block and step, the
+    latents (1, 18,972, 64) finite (``stepvideo_phase``).
+49. Step-Video cut to SV_CUT blocks in 2 gloo processes: TP 2, U2, cfg 2,
+    ring 2 lossless (fused or not) and BINARY (also on kernel 1's twin) at
+    544 x 992 x 34; BINARY unfused and fused (kernel 8) at 512 x 512 x 17;
+    lossless within max(RING_REL_MAX, ORDER_FLOOR_FACTOR x floor) of one
+    process, BINARY within SV_BINARY_REL_MAX of it and within the lossless
+    bound of its twin ring and of unfused; EF deviation 0
+    (``stepvideo_ring_phase``).
+50. The fp32 ``flash_tile`` launches (kernel 1 at d 576 and 1024, kernel 4
+    at d 256, kernels 7 and 8 at d 256) within TILE_F32_REL_MAX of their
+    fp32 twins (``check_tile_f32_kernels``), which no model path runs.
 Phase 34 also runs its cut in fp32 (the bf16 weights, the same request):
 ring 2 lossless, unfused and fused, within F32_RING_LOSSLESS_REL_MAX of
 the fp32 one process; BINARY within F32_RING_BINARY_REL_MAX of the same
@@ -641,16 +662,19 @@ def _peak(dtype):
 
 def _ptxas(kind, plan, dtype):
     """What ptxas said of the kernel instantiation a launch of ``kind``
-    (flash, window, ring) at ``plan`` runs, or None for ``flash_tile``."""
+    (flash, window, ring) at ``plan`` runs (``flash_tile``'s by warps and
+    keys a tile)."""
     import torch
 
     body, dp, warps = plan
     name = {("flash", "flash_reg_tile"): "flash_fwd_reg", ("flash", "flash_wide_tile"): "flash_fwd_wide",
             ("window", "flash_reg_tile"): "flash_window_reg",
-            ("ring", "flash_reg_tile"): "ring_flash_hop_reg"}.get((kind, body))
+            ("ring", "flash_reg_tile"): "ring_flash_hop_reg", ("flash", "flash_tile"): "flash_fwd",
+            ("window", "flash_tile"): "flash_window", ("ring", "flash_tile"): "ring_flash_hop"}.get((kind, body))
     if name is None:
         return None
-    return PTXAS.get(f"{name}{'_f32' if dtype == torch.float32 else ''}_kernel<{dp}, {warps}>")
+    args = f"{warps}, {16 * warps}" if body == "flash_tile" else f"{dp}, {warps}"
+    return PTXAS.get(f"{name}{'_f32' if dtype == torch.float32 else ''}_kernel<{args}>")
 
 
 def flash_cases(gen, dev):
@@ -5113,6 +5137,335 @@ def video_ring_phase(kernels, dev):
     return phases
 
 
+#: phase 48: Step-Video-T2V at the published geometry (204 x 544 x 992: 36
+#: latent frames of 17 x 31 tokens), full width and depth (48 blocks of dim
+#: 6144, 48 heads of 128: 58.7 GB of bf16 weights), SV_STEPS of its 50
+#: steps with CFG 9 batched; the text SV_TXT tokens (the cross-attention
+#: takes sdpa's plain route below 512 keys)
+SV_STEPS, SV_TXT = 2, 256
+SV_ARGV = ["--model", "stepfun-ai/Step-Video-T2V", "--height", "544", "--width", "992", "--num_frames", "204",
+           "--num_inference_steps", str(SV_STEPS), "--guidance_scale", "9", "--max_sequence_length", str(SV_TXT),
+           "--prompt", VID_PROMPT]
+SV_VIDEO = 36 * 17 * 31
+#: phase 49: Step-Video at full width cut to SV_CUT blocks, SV_CUT_STEPS
+#: steps (the first sent raw), at 544 x 992 with 34 frames (6 latent frames:
+#: 3,162 tokens, 1,581 a rank: odd, so the fused compressed ring is not on
+#: the path, as in JAX) and, for the fused compressed ring (kernel 8), at
+#: 512 x 512 with 17 frames (768 tokens, 384 a rank)
+SV_CUT, SV_CUT_STEPS, SV_CUT_WARMUP = 2, 3, 1
+SV_CUT_SIZE = dict(height=544, width=992, num_frames=34)
+SV_FUSED_SIZE = dict(height=512, width=512, num_frames=17)
+#: phase 49's BINARY rings against lossless: the codec acts (> 0) and stays
+#: within this; at CFG 9 the cut's BINARY ring lands 0.094 from lossless
+#: against a bf16 order floor of 0.037 (PERF.md §6), past phase 47's
+#: max(0.05, 1.5 x floor), so the ring's arithmetic is held instead to the
+#: same BINARY ring run on kernel 1's twin (and fused to unfused) within the
+#: lossless bound
+SV_BINARY_REL_MAX = 0.2
+#: phase 50: the fp32 flash_tile launches against their twins (TF32 off),
+#: relative Frobenius error of out (the register and wide bodies' fp32 rows read up to 2e-6)
+TILE_F32_REL_MAX = 2e-6
+
+
+def _spiced_tables(tree, rng, path=""):
+    """``tree`` with Step-Video's ``scale_shift_table`` leaves (every block's
+    and the head's ``final_scale_shift``) drawn from N(0, 0.5^2), as
+    ``tests/helpers.py::spice_params`` spices them: at 0 the modulation
+    rests on the adaln projection alone."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _spiced_tables(v, rng, f"{path}/{k}") for k, v in tree.items()}
+    if "scale_shift" in path:
+        return torch.from_numpy(rng.standard_normal(tuple(tree.shape)) * 0.5).to(tree.device, tree.dtype)
+    return tree
+
+
+def sv_ring_cases(gen, dev, s_local):
+    """Kernel 7 at Step-Video's fused ring 2 (phase 49's 512 x 512 cut), rank
+    0's view at the CFG batch B2: q, its own K/V, the other rank's."""
+    def make():
+        q, k0, v0 = _qkv_views(gen, dev, 2, s_local, 48, 128)
+        _, k1, v1 = _qkv_views(gen, dev, 2, s_local, 48, 128)
+        return q, [(k0, v0), (k1.contiguous(), v1.contiguous())]
+
+    return [((2, 2, s_local), make)]
+
+
+def stepvideo_phase(kernels, flash, quant, codecs, rf, timing, dev, gen):
+    """Phase 48: kernel 1 at Step-Video's self-attention (B2 H48 S18,972
+    d128) against its twin on head slices, eager and by CUDA graphs beside
+    cuDNN's SDPA; kernels 2, 3, 5 and 6 at phase 49's ring-2 rows (2 x 1,581
+    at C6,144); kernels 7 and 8 at phase 49's fused ring 2 (384 rows a rank,
+    B2); then Step-Video-T2V at full width and depth through
+    ``xDiTParallel`` (48 blocks, seeded weights drawn one layer at a time on
+    the card, the scale-shift tables spiced, the seeded prompt encoder at
+    text width 6,144), 204 x 544 x 992, :data:`SV_STEPS` steps at CFG 9:
+    kernel 1 once a block and step, the latents (1, 18,972, 64) finite.
+    Returns (the phases, rows by kernel)."""
+    import numpy as np
+    import torch
+
+    from compactfusion_tpu_torch.parallel_api import xDiTParallel
+
+    flash_rows = check_flash(flash, timing, dev, gen, [
+        (f"Step-Video self-attn B2 H48 S{SV_VIDEO} d128", lambda: _qkv_views(gen, dev, 2, SV_VIDEO, 48, 128), 3,
+         COG_TWIN_HEADS)], phase=48)
+    rows_ring2 = 2 * (sv_tokens(SV_CUT_SIZE) // 2)  # B2 x a rank's tokens at ring 2
+    quant_rows = {codec: [check_quant(quant, codecs, timing, dev, gen, codec, -1, torch.float32, (rows_ring2, 6144),
+                                      phase=48)] for codec in ("binary", "int2")}
+    s_fused = sv_tokens(SV_FUSED_SIZE) // 2
+    ring_rows = check_ring_flash(rf, flash, timing, dev, gen, sv_ring_cases(gen, dev, s_fused), phase=48)
+    cring_rows = [check_compact_ring(rf, flash, timing, dev, gen, 2, 2, s_fused, "binary", -1, False, 48, 128,
+                                     phase=48)]
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    runner = xDiTParallel(*_cli(SV_ARGV).create_config())
+    pipe, pcfg = runner.pipeline, runner.pipeline_config
+    pipe.params = _spiced_tables(pipe.params, np.random.default_rng(99))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    weight_bytes, n_params = _nbytes_tree(pipe.params), _numel(pipe.params)
+    marks = {}
+
+    def sample(*a, real=pipe._sample):
+        out, marks["sample"] = _events_s(lambda: real(*a))
+        return out
+
+    pipe._sample = sample
+    _reset_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    lat, total = _events_s(runner)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = _counts(kernels)
+    _check_counts("[48] step-video-t2v", counts, {"flash_attn_with_lse": 48 * SV_STEPS})
+    l32 = lat.float()
+    std = l32.std().item()
+    if tuple(lat.shape) != (1, SV_VIDEO, 64) or not bool(torch.isfinite(l32).all()) or std == 0.0:
+        raise AssertionError(f"[48] step-video-t2v: latents {tuple(lat.shape)}, std {std}")
+    s_step = marks["sample"] / SV_STEPS
+    print(f"[48] Step-Video-T2V through xDiTParallel: 48 blocks, dim 6144, 48 heads of 128, {n_params / 1e9:.3f}B "
+          f"parameters, {weight_bytes / 1e9:.2f} GB ({weight_bytes / 2**30:.2f} GiB) of bf16 weights drawn on the card "
+          f"layer by layer with the prompt encoder in {build_s:.1f} s; {pcfg.num_frames} x {pcfg.height} x "
+          f"{pcfg.width}: {pcfg.tokens} tokens, {SV_TXT} text tokens, {SV_STEPS} steps at CFG {pcfg.guidance_scale}: "
+          f"latents {tuple(lat.shape)} finite, std {std:.4f}; {total:.4f} s a request (CUDA events: prompt "
+          f"{total - marks['sample']:.4f} s, {SV_STEPS} steps {marks['sample']:.4f} s = {s_step:.4f} s/step); "
+          f"torch.cuda.max_memory_allocated {peak:.3f} GiB; kernel 1 {counts['flash_attn_with_lse']} launches")
+    phases = {"step-video-t2v": {"s_per_request": total, "s_per_step": s_step, "build_s": build_s,
+                                 "weight_bytes": weight_bytes, "parameters": n_params,
+                                 "max_memory_allocated_gib": peak, "launches": counts}}
+    del runner, pipe, lat, l32
+    return phases, {"flash": flash_rows, "quant": quant_rows, "ring": ring_rows, "cring": cring_rows}
+
+
+def sv_tokens(size):
+    """The video tokens of a Step-Video request of ``size``."""
+    from compactfusion_tpu_torch.models.stepvideo import stepvideo_t2v
+    from compactfusion_tpu_torch.pipelines.stepvideo import StepVideoPipelineConfig
+
+    return StepVideoPipelineConfig(model=stepvideo_t2v(), **size).tokens
+
+
+def build_sv_cut(dev):
+    """Phase 49's model: Step-Video at full width cut to :data:`SV_CUT`
+    blocks, seeded weights (seed 0), the scale-shift tables spiced."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from compactfusion_tpu_torch.models.stepvideo import init_stepvideo, stepvideo_t2v
+
+    mcfg = dataclasses.replace(stepvideo_t2v(), depth=SV_CUT)
+    return mcfg, _spiced_tables(init_stepvideo(torch.Generator(device=dev).manual_seed(0), mcfg),
+                                np.random.default_rng(99))
+
+
+def sv_cut_pipeline(mcfg, params, dev, size, mesh=None, **kw):
+    """Phase 49's pipeline at ``size``: :data:`SV_CUT_STEPS` steps, CFG 9."""
+    from compactfusion_tpu_torch.pipelines.stepvideo import StepVideoPipeline, StepVideoPipelineConfig
+
+    return StepVideoPipeline(params, StepVideoPipelineConfig(model=mcfg, num_steps=SV_CUT_STEPS, **size, **kw), dev,
+                             mesh=mesh)
+
+
+def sv_cut_request(pipe, seed):
+    """Phase 49's request from ``seed``: [cond, uncond] text states at width
+    6,144 and the noise; returns (latents, seconds)."""
+    import torch
+
+    g = torch.Generator(device=pipe.device).manual_seed(seed)
+    txt = torch.randn((2, 1, SV_TXT, 6144), generator=g, device=pipe.device)
+    return _events_s(lambda: pipe(txt, generator=g))
+
+
+def sv_rank(rank, world, runs):
+    """One rank of phase 49 (``spawn_local`` on this GPU, gloo): per run
+    (name, size, ParallelConfig kwargs, CompactConfig codec or None, and
+    optionally True: kernel 1 swapped for its plain twin) the cut request
+    from seed 1 with every count set to 0 before it; returns per run what
+    :func:`ring_rank` returns."""
+    import torch
+
+    from compactfusion_tpu_torch.compact import ring as compact_ring
+    from compactfusion_tpu_torch.config import CompactConfig, CompressType, ParallelConfig
+    from compactfusion_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from compactfusion_tpu_torch.parallel.ring import ring_shift
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    kernels = port_kernels()
+    mcfg, params = build_sv_cut(dev)
+    out = {}
+    for name, size, par, codec, *plain in runs:
+        parallel = ParallelConfig(**par)
+        kw = {}
+        if codec is not None:
+            kw["compact"] = CompactConfig(enabled=True, warmup_steps=SV_CUT_WARMUP, residual=1, error_feedback=True,
+                                          fastpath=True, check_consistency=True, compress_type=CompressType(codec))
+        pipe = sv_cut_pipeline(mcfg, params, dev, size, mesh=make_mesh(parallel), parallel=parallel, **kw)
+        _reset_counts(kernels)
+        ring_shift.nbytes = Mesh.all_to_all.nbytes = Mesh.all_gather_tree.nbytes = 0
+        compact_ring.max_consistency_dev = 0.0
+        with plain_attention() if plain and plain[0] else contextlib.nullcontext():
+            lat, sec = sv_cut_request(pipe, 1)
+        out[name] = {"latents": lat.float().cpu().numpy(), "launches": _counts(kernels),
+                     "wire_bytes": ring_shift.nbytes, "all_to_all_bytes": Mesh.all_to_all.nbytes,
+                     "gather_bytes": Mesh.all_gather_tree.nbytes,
+                     "consistency_dev": compact_ring.max_consistency_dev, "skips": None, "s_per_image": sec}
+        del pipe
+    return out
+
+
+def stepvideo_ring_phase(kernels, dev):
+    """Phase 49: Step-Video at full width cut to :data:`SV_CUT` blocks,
+    :data:`SV_CUT_STEPS` steps (warmup 1, the consistency check on), in one
+    spawn of 2 gloo processes on this card: at 544 x 992 x 34 TP 2 (every
+    attention projection split by heads, the ffn Megatron-split), U2, cfg 2,
+    ring 2 lossless unfused and fused (kernel 7), ring 2 BINARY unfused
+    (kernels 2 and 3), also with kernel 1 swapped for its twin; at 512 x 512
+    x 17 ring 2 BINARY unfused and fused (kernel 8).  One process runs each
+    size first, also with kernel 1 swapped for its twin (the bf16 order
+    floor).  Lossless runs within max(RING_REL_MAX, ORDER_FLOOR_FACTOR x
+    the floor) of one process, fused within that of unfused; compressed 0 <
+    err <= :data:`SV_BINARY_REL_MAX` from lossless and within the lossless
+    bound of the same BINARY ring on kernel 1's twin (544 x 992) or unfused
+    (512 x 512), EF deviation 0; exact launch counts; the Ulysses
+    all-to-all bytes the shapes imply.  Returns the phases."""
+    from compactfusion_tpu_torch.parallel.mesh import spawn_local
+
+    S, W, L = SV_CUT_STEPS, SV_CUT_WARMUP, SV_CUT
+    mcfg, params = build_sv_cut(dev)
+    refs = {}
+    for key, size in (("cut", SV_CUT_SIZE), ("fused", SV_FUSED_SIZE)):
+        pipe = sv_cut_pipeline(mcfg, params, dev, size)
+        _reset_counts(kernels)
+        lat, sec = sv_cut_request(pipe, 1)
+        _check_counts(f"[49] step-video {key}, one process", _counts(kernels), {"flash_attn_with_lse": L * S})
+        with plain_attention():
+            plain, _ = sv_cut_request(pipe, 1)
+        one, plain = lat.float().cpu().numpy(), plain.float().cpu().numpy()
+        floor = _rel_np(plain, one)
+        refs[key] = {"one": one, "floor": floor, "bound": max(RING_REL_MAX, ORDER_FLOOR_FACTOR * floor)}
+        print(f"[49] Step-Video cut to {L} blocks (full width, {size}: {pipe.cfg.tokens} tokens, {S} steps), one "
+              f"process: {sec:.4f} s; kernel 1 swapped for its twin: rel err {floor:.6g}; lossless bound "
+              f"{refs[key]['bound']:.6g}")
+        del pipe
+    del params
+    ring2, fused2 = {"ring_degree": 2}, {"ring_degree": 2, "use_fused_ring": True}
+    runs = [("sv tp2", SV_CUT_SIZE, {"tp_degree": 2}, None),
+            ("sv u2", SV_CUT_SIZE, {"ulysses_degree": 2}, None),
+            ("sv cfg2", SV_CUT_SIZE, {"cfg_degree": 2}, None),
+            ("sv ring2 lossless", SV_CUT_SIZE, ring2, None),
+            ("sv ring2 lossless fused", SV_CUT_SIZE, fused2, None),
+            ("sv ring2 binary", SV_CUT_SIZE, ring2, "binary"),
+            ("sv ring2 binary twin", SV_CUT_SIZE, ring2, "binary", True),
+            ("sv 512 ring2 binary", SV_FUSED_SIZE, ring2, "binary"),
+            ("sv 512 ring2 binary fused", SV_FUSED_SIZE, fused2, "binary")]
+    t0 = time.perf_counter()
+    two = spawn_local(sv_rank, 2, "gloo", runs, threads=2)
+    spawn_s = time.perf_counter() - t0
+    phases = {}
+    for name, size, par, codec, *plain in runs:
+        ref = refs["fused" if size is SV_FUSED_SIZE else "cut"]
+        hops = 2 * L
+        # an unfused hop of 384 keys (512 x 512) takes the math path: the
+        # routing contract sends kernel 1 no call with fewer than 512 keys
+        hop_flash = 0 if plain or size is SV_FUSED_SIZE else hops
+        if "fused" in name and codec is None:
+            want = {"ring_flash_attn_with_lse": hops * S}
+        elif "fused" in name:
+            want = {"flash_attn_with_lse": hop_flash * W, "compact_ring_flash": hops * (S - W),
+                    "ef_update_slot": hops * (S - W)}
+        elif "ring2" in name:
+            want = {"flash_attn_with_lse": hop_flash * S}
+            if codec is not None:
+                want.update({f"{codec}_quant_fastpath": hops * (S - W), f"{codec}_dequant_fastpath": hops * (S - W)})
+        else:
+            want = {"flash_attn_with_lse": L * S}
+        want = dict({WIDE: 0}, **want)
+        if codec is not None:
+            mate = {"sv ring2 binary": "sv ring2 binary twin"}.get(name, name[:-6] if name.endswith("fused") else None)
+            more = [] if mate is None else [(mate, two[0][mate]["latents"], ref["bound"])]
+            phases[name] = ring_phase(49, two, name, ref["one"], want, SV_BINARY_REL_MAX, more, low=0.0)
+            if phases[name]["consistency_dev"] != 0.0:
+                raise AssertionError(f"{name}: EF caches differ across ranks")
+        else:
+            more = [(name[:-6], two[0][name[:-6]]["latents"], ref["bound"])] if name.endswith("fused") else []
+            phases[name] = ring_phase(49, two, name, ref["one"], want, ref["bound"], more)
+        phases[name]["latent_rel_err_order_floor"] = ref["floor"]
+    # TP 2: three all-reduces a block and step (attention out, cross out, ffn)
+    # of the rank's (B2, 3,162, 6,144) bf16 partial sums; U2: four
+    # all-to-alls a block and step of half of (B2, 1,581, 6,144) bf16 each
+    tokens = sv_tokens(SV_CUT_SIZE)
+    want_a2a = L * S * 4 * (2 * (tokens // 2) * 6144 * 2) // 2
+    a2a = sorted({r["sv u2"]["all_to_all_bytes"] for r in two})
+    print(f"[49] U2 all-to-all bytes per rank {a2a}, expected {want_a2a}; the spawn took {spawn_s:.1f} s")
+    if a2a != [want_a2a]:
+        raise AssertionError("[49] Step-Video's Ulysses all-to-alls sent other bytes")
+    return phases
+
+
+def check_tile_f32_kernels(flash, rf, timing, dev, gen):
+    """Phase 50: the fp32 instantiations of the shared-memory body
+    (``flash_tile_f32.cuh``), which no model path runs, against their fp32
+    twins (TF32 off): kernel 1 at d = 576 and 1024, kernel 4 at d = 256
+    (w 64 and 0), kernel 7 and kernel 8 (BINARY, fp32 bases) at d = 256 on
+    a ring of 2; out within :data:`TILE_F32_REL_MAX` relative, LSE within
+    :data:`F32_LSE_ATOL`, kernel 8's stacks and reconstructions bit for bit;
+    each timed beside SDPA on fp32.  Returns the rows by kernel."""
+    import torch
+
+    f32 = torch.float32
+
+    def rnd(b, s, h, d):
+        return lambda: tuple(torch.randn((b, s, h, d), generator=gen, device=dev) for _ in range(3))
+
+    flash_rows = check_flash(flash, timing, dev, gen, [
+        ("fp32 flash_tile B1 H4 S2048 d576", rnd(1, 2048, 4, 576), 5),
+        ("fp32 flash_tile B1 H2 S2048 d1024", rnd(1, 2048, 2, 1024), 5)], phase=50)
+    window_rows, _ = check_window(flash, dev, gen, [
+        (f"fp32 flash_tile B1 H8 S2048 d256 w{w}", rnd(1, 2048, 8, 256), w) for w in (WINDOW, 0)], timing, phase=50)
+
+    def ring_make():
+        shards = [rnd(1, 1024, 8, 256)() for _ in range(2)]
+        return shards[0][0], [(shards[0][1], shards[0][2]), (shards[1][1].contiguous(), shards[1][2].contiguous())]
+
+    ring_rows = check_ring_flash(rf, flash, timing, dev, gen, [((2, 1, 1024), ring_make)], phase=50)
+    cring_rows = [check_compact_ring(rf, flash, timing, dev, gen, 2, 1, 1024, "binary", -1, False, 8, 256,
+                                     phase=50, dtype=f32)]
+    for what, rows in (("kernel 1", flash_rows), ("kernel 4", window_rows), ("kernel 7", ring_rows),
+                       ("kernel 8", cring_rows)):
+        for r in rows:
+            if r["plan"][0] != "flash_tile" or not r["rel_err_out"] <= TILE_F32_REL_MAX:
+                raise AssertionError(f"[50] {what} {r['shape']}: plan {r['plan']}, rel err {r['rel_err_out']} "
+                                     f"(bound {TILE_F32_REL_MAX})")
+    print(f"[50] fp32 flash_tile: kernels 1, 4, 7 and 8 within {TILE_F32_REL_MAX} of their twins (relative)")
+    return {"flash": flash_rows, "window": window_rows, "ring": ring_rows, "cring": cring_rows}
+
+
 def main():
     import torch
 
@@ -5557,6 +5910,32 @@ def main():
     print(f"[43-47] seconds: {', '.join(f'{k} {v:.1f}' for k, v in video_secs.items())}")
     mark("43-47")
 
+    # -- 48.-49. Step-Video-T2V; 50. the fp32 flash_tile -------------------------
+    sv_secs = {}
+    for key, run in (("48", lambda: stepvideo_phase(kernels, flash, quant, codecs, ring_flash, timing, dev, gen)),
+                     ("49", lambda: stepvideo_ring_phase(kernels, dev)),
+                     ("50", lambda: check_tile_f32_kernels(flash, ring_flash, timing, dev, gen))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        got = run()
+        sv_secs[key] = time.perf_counter() - t0
+        if key == "49":
+            phases.update(got)
+        elif key == "48":
+            got_phases, rows = got
+            phases.update(got_phases)
+            flash_rows += rows["flash"]
+            for codec in ("binary", "int2"):
+                quant_rows[codec] += rows["quant"][codec]
+            ring_rows += rows["ring"]
+            cring_rows += rows["cring"]
+        else:
+            for kind in ("flash", "window", "ring", "cring"):
+                f32_rows[kind] += got[kind]
+    print(f"[48-50] seconds: {', '.join(f'{k} {v:.1f}' for k, v in sv_secs.items())}")
+    mark("48-50")
+
     totals = {fn.__name__: sum(p["launches"][fn.__name__] for p in phases.values()) for fn in kernels}
     for key in ROUTES.values():
         totals[key] = sum(p["launches"].get(key, 0) for p in phases.values())
@@ -5628,7 +6007,7 @@ def main():
          "shapes": [dict(r["ef"], shape=r["shape"]) for r in f32_rows["cring"]]},
     ], "sdpa_cross_attention": cross_rows, "fp32_ptxas": f32_rows["ptxas"], "phases": phases}
     report["seconds_by_phase"] = secs_by_phase
-    print(f"[done] phases 1-47 passed in {time.perf_counter() - t_run:.1f} s, the kernels' build included "
+    print(f"[done] phases 1-50 passed in {time.perf_counter() - t_run:.1f} s, the kernels' build included "
           f"(seconds by phase: {', '.join(f'{k} {v:.1f}' for k, v in secs_by_phase.items())})")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

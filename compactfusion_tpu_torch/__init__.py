@@ -29,8 +29,10 @@ stages) and PixArt-Sigma 1024 and 2K; the 2D VAE's tiled and sliced
 decode; Latte-1 (``models/latte.py``: frame-aligned sequence parallelism),
 ConsisID (``models/consisid.py``, the face encoder in ``models/face.py``)
 and HunyuanVideo (``models/hunyuanvideo.py``, the causal HV VAE in
-``models/vae3d.py``); and the compression statistics and activation
-collector (``compact/stats.py``, ``utils/collector.py``).  Its TPU kernels are hand-written CUDA C++
+``models/vae3d.py``); Step-Video-T2V (``models/stepvideo.py``,
+``pipelines/stepvideo.py``: tensor-parallel throughout, latents out); and
+the compression statistics and activation collector (``compact/stats.py``,
+``utils/collector.py``).  Its TPU kernels are hand-written CUDA C++
 under ``csrc/``, built with ``nvcc`` at first use (``ops/_build.py``).  Anything outside that slice raises
 ``NotImplementedError`` pointing at ``ROADMAP.md``.
 """

@@ -1,6 +1,7 @@
 // Non-causal flash attention with a natural-log LSE, bf16 or fp32 in, fp32
-// math (fp32 in: the register and wide bodies only, their products in
-// 3xTF32, flash_reg.cuh's note; the *_f32_kernel instantiations):
+// math (fp32 in: the products in 3xTF32, flash_reg.cuh's note; the
+// *_f32_kernel instantiations, flash_tile_f32.cuh's body where flash_tile
+// serves bf16):
 // full attention (flash_fwd_reg_kernel for head dims up to 128, on the
 // register body of flash_reg.cuh; flash_fwd_wide_kernel for 128 < d <= 512,
 // on the wide body of flash_wide.cuh, the register body split over warps by
@@ -68,6 +69,7 @@
 // Each part instantiates only the kernels its entry reaches; without the
 // define both entries are built.
 
+#include "flash_tile_f32.cuh"  // the shared-memory body on fp32
 #include "flash_wide.cuh"  // the wide body's launch (flash_wide.cu)
 
 namespace {
@@ -176,36 +178,61 @@ flash_window_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
                                       blockIdx.z, Carry{});
 }
 
-template <int NWARPS, int BK, bool BAND>
-int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-           Strides sq, Strides sk, Strides sv, __nv_bfloat16* out, float* lse,
-           const int* kv_lens, int B, int Sq, int Sk, int H, int D, float scale_log2,
-           int window, cudaStream_t stream) {
+template <int NWARPS, int BK>
+__global__ void __launch_bounds__(32 * NWARPS)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, Strides sq, Strides sk, Strides sv,
+                     float* __restrict__ out, float* __restrict__ lse,
+                     const int* __restrict__ kv_lens, int H, int Sq, int Sk, int D,
+                     float scale_log2, int /*window*/) {
+  const int b = blockIdx.z;
+  const int kv_len = kv_lens != nullptr ? min(max(kv_lens[b], 0), Sk) : Sk;
+  flash_tile_f32<NWARPS, BK, false, false>(q, k, v, sq, sk, sv, out, lse, kv_len, H, Sq, Sk, D,
+                                           scale_log2, 0, blockIdx.x * 16 * NWARPS, blockIdx.y, b,
+                                           Carry{});
+}
+
+template <int NWARPS, int BK>
+__global__ void __launch_bounds__(32 * NWARPS)
+flash_window_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, Strides sq, Strides sk, Strides sv,
+                        float* __restrict__ out, float* __restrict__ lse,
+                        const int* __restrict__ /*kv_lens*/, int H, int Sq, int Sk, int D,
+                        float scale_log2, int window) {
+  flash_tile_f32<NWARPS, BK, true, false>(q, k, v, sq, sk, sv, out, lse, Sk, H, Sq, Sk, D,
+                                          scale_log2, window, blockIdx.x * 16 * NWARPS, blockIdx.y,
+                                          blockIdx.z, Carry{});
+}
+
+// The shared-memory body on T elements: flash_tile (bf16) or flash_tile_f32
+template <typename T, int NWARPS, int BK, bool BAND>
+int launch(const T* q, const T* k, const T* v, Strides sq, Strides sk, Strides sv, T* out, float* lse,
+           const int* kv_lens, int B, int Sq, int Sk, int H, int D, float scale_log2, int window,
+           cudaStream_t stream) {
   constexpr int BQ = 16 * NWARPS;
-  const Layout L = make_layout(D, BQ, BK);
+  constexpr bool kF32 = sizeof(T) == 4;
+  const int bytes = kF32 ? make_layout_f32(D, BQ, BK).bytes : make_layout(D, BQ, BK).bytes;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  // only the kernel of the plan's kind is instantiated
-  if constexpr (BAND) {
-    auto kern = flash_window_kernel<NWARPS, BK>;
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    kern<<<grid, 32 * NWARPS, L.bytes, stream>>>(q, k, v, sq, sk, sv, out, lse, kv_lens, H, Sq,
-                                                 Sk, D, scale_log2, window);
-  } else {
-    auto kern = flash_fwd_kernel<NWARPS, BK>;
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    kern<<<grid, 32 * NWARPS, L.bytes, stream>>>(q, k, v, sq, sk, sv, out, lse, kv_lens, H, Sq,
-                                                 Sk, D, scale_log2, window);
-  }
+  // only the kernel of the plan's kind and dtype is instantiated
+  auto kern = [] {
+    if constexpr (kF32 && BAND) return flash_window_f32_kernel<NWARPS, BK>;
+    else if constexpr (kF32) return flash_fwd_f32_kernel<NWARPS, BK>;
+    else if constexpr (BAND) return flash_window_kernel<NWARPS, BK>;
+    else return flash_fwd_kernel<NWARPS, BK>;
+  }();
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<grid, 32 * NWARPS, bytes, stream>>>(q, k, v, sq, sk, sv, out, lse, kv_lens, H, Sq, Sk, D,
+                                             scale_log2, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Launch the plan (body, dp, warps) on T elements: the register body at a
 // built (dp, warps) with D <= dp; full attention also the wide body at a
-// built (dp, warps); or, bf16 only, the shared-memory body with dp = D
-// rounded up to 16 and 2 warps (32x32 tiles), or, banded, 4 (64x64);
-// anything else is an error.  BAND takes the banded kernel of the same body.
+// built (dp, warps); or the shared-memory body (flash_tile, or on fp32
+// flash_tile_f32) with dp = D rounded up to 16 and 2 warps (32x32 tiles),
+// or, banded, 4 (64x64); anything else is an error.  BAND takes the banded
+// kernel of the same body.
 template <typename T, bool BAND>
 int dispatch(const void* q, const void* k, const void* v, long long qsb, long long qss,
              long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
@@ -240,31 +267,26 @@ int dispatch(const void* q, const void* k, const void* v, long long qsb, long lo
     return cf_flash_wide_launch(q, k, v, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, out, lse,
                                 kv_lens, B, Sq, Sk, H, D, sl2, dp, warps, kF32, stream);
   }
-  if constexpr (kF32) {
-    return static_cast<int>(refused);  // flash_tile is bf16's
-  } else {
-    if (body != kTileBody || dp != round_up(D, 16)) return static_cast<int>(refused);
-    // 32x32 tiles with 2 warps (d=520: ~174 KB of shared memory); banded, also
-    // 64x64 tiles with 4
-    if (warps == 2) {
-      return launch<2, 32, BAND>(qp, kp, vp, sq, sk, sv, op, lp, lens, B, Sq, Sk, H, D, sl2,
-                                 window, st);
-    }
-    if constexpr (BAND) {
-      if (warps == 4) {
-        return launch<4, 64, BAND>(qp, kp, vp, sq, sk, sv, op, lp, lens, B, Sq, Sk, H, D, sl2,
-                                   window, st);
-      }
-    }
-    return static_cast<int>(refused);
+  if (body != kTileBody || dp != round_up(D, 16)) return static_cast<int>(refused);
+  // 32x32 tiles with 2 warps (d=520: ~174 KB of shared memory in bf16); banded,
+  // also 64x64 tiles with 4
+  if (warps == 2) {
+    return launch<T, 2, 32, BAND>(qp, kp, vp, sq, sk, sv, op, lp, lens, B, Sq, Sk, H, D, sl2, window,
+                                  st);
   }
+  if constexpr (BAND) {
+    if (warps == 4) {
+      return launch<T, 4, 64, BAND>(qp, kp, vp, sq, sk, sv, op, lp, lens, B, Sq, Sk, H, D, sl2,
+                                    window, st);
+    }
+  }
+  return static_cast<int>(refused);
 }
 
 }  // namespace
 
 #if !defined(CF_FLASH_PART) || CF_FLASH_PART == 1
-// Kernel 1 on bf16 q/k/v and out, or on fp32 ones with f32 (the register
-// and wide bodies only)
+// Kernel 1 on bf16 q/k/v and out, or on fp32 ones with f32
 extern "C" int cf_flash_attn(const void* q, const void* k, const void* v,
                              long long qsb, long long qss, long long qsh,
                              long long ksb, long long kss, long long ksh,
@@ -284,8 +306,7 @@ extern "C" const char* cf_error_string(int err) {
 
 #if !defined(CF_FLASH_PART) || CF_FLASH_PART == 2
 // Banded self-attention |i - j| <= window over S keys (Sq == Sk == S); a
-// window >= S - 1 is full attention.  bf16, or fp32 with f32 (the register
-// body only).
+// window >= S - 1 is full attention.  bf16, or fp32 with f32.
 extern "C" int cf_flash_attn_window(const void* q, const void* k, const void* v,
                                     long long qsb, long long qss, long long qsh,
                                     long long ksb, long long kss, long long ksh,

@@ -12,7 +12,8 @@
 // the stage probe run on the register body of flash_reg.cuh, and kernel 1
 // up to 512 (the VAE's d=512) on the wide body of flash_wide.cuh.  This
 // body serves what is left, which no path of the pipeline runs: kernel 1
-// above d = 512, and kernels 4 and 7 above d = 128.
+// above d = 512, and kernels 4 and 7 above d = 128; on fp32 inputs its
+// counterpart is flash_tile_f32.cuh's.
 #pragma once
 
 #include <cuda_runtime.h>

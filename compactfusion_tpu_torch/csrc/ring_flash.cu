@@ -3,7 +3,8 @@
 // memory; the last hop normalises and writes out (in the input dtype, bf16
 // or fp32) and LSE (fp32, natural log).  fp32 q/k/v take the register body
 // in 3xTF32 (flash_reg.cuh's note; ring_flash_hop_reg_f32_kernel, entry
-// cf_ring_flash_hop with f32), and the EF pass then writes fp32 reconstructions
+// cf_ring_flash_hop with f32; above d = 128 flash_tile_f32.cuh's body,
+// ring_flash_hop_f32_kernel), and the EF pass then writes fp32 reconstructions
 // (ef_update_fp32_f32rec_kernel, ef_codes_int8_f32rec_kernel), not rounded,
 // as ring_flash_pallas.py rounds them to the activation dtype.
 //
@@ -59,7 +60,7 @@
 //    int8 decode q * scale is exact too.  The explicit _rn intrinsics keep
 //    the remaining rounding steps as the plain twin takes them.
 
-#include "flash_reg.cuh"
+#include "flash_tile_f32.cuh"
 
 namespace {
 
@@ -93,6 +94,16 @@ ring_flash_hop_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   flash_tile<NWARPS, BK, false, true>(q, k, v, sq, sk, sv, out, lse, Sk, H, Sq, Sk, D,
                                       scale_log2, 0, blockIdx.x * 16 * NWARPS, blockIdx.y,
                                       blockIdx.z, carry);
+}
+
+template <int NWARPS, int BK>
+__global__ void __launch_bounds__(32 * NWARPS)
+ring_flash_hop_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, Strides sq, Strides sk, Strides sv,
+                          float* __restrict__ out, float* __restrict__ lse, int H, int Sq, int Sk, int D,
+                          float scale_log2, Carry carry) {
+  flash_tile_f32<NWARPS, BK, false, true>(q, k, v, sq, sk, sv, out, lse, Sk, H, Sq, Sk, D, scale_log2, 0,
+                                          blockIdx.x * 16 * NWARPS, blockIdx.y, blockIdx.z, carry);
 }
 
 // The EF pass of kernel 8: one hop's payload applied to the source slot of
@@ -323,17 +334,22 @@ int set_smem(Kern kern, int bytes) {
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
-template <int NWARPS, int BK>
-int launch_ring_hop(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                    Strides sq, Strides sk, Strides sv, __nv_bfloat16* out, float* lse, int B,
-                    int Sq, int Sk, int H, int D, float scale_log2, Carry carry,
+// A hop on the shared-memory body of T elements: flash_tile (bf16) or
+// flash_tile_f32
+template <typename T, int NWARPS, int BK>
+int launch_ring_hop(const T* q, const T* k, const T* v, Strides sq, Strides sk, Strides sv, T* out,
+                    float* lse, int B, int Sq, int Sk, int H, int D, float scale_log2, Carry carry,
                     cudaStream_t stream) {
   constexpr int BQ = 16 * NWARPS;
-  const Layout L = make_layout(D, BQ, BK);
-  if (int e = set_smem(ring_flash_hop_kernel<NWARPS, BK>, L.bytes)) return e;
+  constexpr bool kF32 = sizeof(T) == 4;
+  const int bytes = kF32 ? make_layout_f32(D, BQ, BK).bytes : make_layout(D, BQ, BK).bytes;
+  auto kern = [] {
+    if constexpr (kF32) return ring_flash_hop_f32_kernel<NWARPS, BK>;
+    else return ring_flash_hop_kernel<NWARPS, BK>;
+  }();
+  if (int e = set_smem(kern, bytes)) return e;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  ring_flash_hop_kernel<NWARPS, BK><<<grid, 32 * NWARPS, L.bytes, stream>>>(
-      q, k, v, sq, sk, sv, out, lse, H, Sq, Sk, D, scale_log2, carry);
+  kern<<<grid, 32 * NWARPS, bytes, stream>>>(q, k, v, sq, sk, sv, out, lse, H, Sq, Sk, D, scale_log2, carry);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -354,8 +370,9 @@ int launch_ring_hop_reg(const T* q, const T* k, const T* v, Strides sq, Strides 
 }
 
 // One hop at the plan (body, dp, warps) on T elements: the register body at
-// a built (dp, warps) with D <= dp, or, bf16 only, the shared-memory body
-// with dp = D rounded up to 16 and 4 or 2 warps; anything else is an error
+// a built (dp, warps) with D <= dp, or the shared-memory body (flash_tile,
+// or on fp32 flash_tile_f32) with dp = D rounded up to 16 and 4 or 2 warps;
+// anything else is an error
 template <typename T>
 int ring_hop(const void* q, const void* k, const void* v, long long qsb, long long qss,
              long long qsh, long long ksb, long long kss, long long ksh, long long vsb, long long vss,
@@ -385,18 +402,14 @@ int ring_hop(const void* q, const void* k, const void* v, long long qsb, long lo
 #undef CF_REG_CASE
     return static_cast<int>(refused);
   }
-  if constexpr (sizeof(T) == 4) {
-    return static_cast<int>(refused);  // flash_tile is bf16's
-  } else {
-    if (body != kTileBody || dp != round_up(D, 16)) return static_cast<int>(refused);
-    if (warps == 4) {
-      return launch_ring_hop<4, 64>(qp, kp, vp, sq, sk, sv, op, lp, B, Sq, Sk, H, D, sl2, carry, st);
-    }
-    if (warps == 2) {
-      return launch_ring_hop<2, 32>(qp, kp, vp, sq, sk, sv, op, lp, B, Sq, Sk, H, D, sl2, carry, st);
-    }
-    return static_cast<int>(refused);
+  if (body != kTileBody || dp != round_up(D, 16)) return static_cast<int>(refused);
+  if (warps == 4) {
+    return launch_ring_hop<T, 4, 64>(qp, kp, vp, sq, sk, sv, op, lp, B, Sq, Sk, H, D, sl2, carry, st);
   }
+  if (warps == 2) {
+    return launch_ring_hop<T, 2, 32>(qp, kp, vp, sq, sk, sv, op, lp, B, Sq, Sk, H, D, sl2, carry, st);
+  }
+  return static_cast<int>(refused);
 }
 
 }  // namespace
@@ -406,7 +419,7 @@ int ring_hop(const void* q, const void* k, const void* v, long long qsb, long lo
 // with the plan (body, dp, warps) of ops/flash.py::flash_plan: the register
 // body at a built (dp, warps) with D <= dp, or the shared-memory body with
 // dp = D rounded up to 16 and 4 or 2 warps; anything else is an error.
-// bf16 q/k/v and out, or fp32 ones with f32 (the register body only).
+// bf16 q/k/v and out, or fp32 ones with f32.
 extern "C" int cf_ring_flash_hop(const void* q, const void* k, const void* v,
                                  long long qsb, long long qss, long long qsh,
                                  long long ksb, long long kss, long long ksh,

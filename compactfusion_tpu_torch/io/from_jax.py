@@ -3,7 +3,9 @@
 ``params_from_numpy`` takes the JAX package's parameter tree with numpy
 leaves (``jax.tree_util.tree_map(np.asarray, params)``) and returns the same
 tree of torch tensors: dicts stay dicts (the stacked leading layer axis of
-``init_pixart``, ``init_flux`` and ``init_cogvideox`` included), lists stay
+``init_pixart``, ``init_flux``, ``init_cogvideox`` and ``init_stepvideo``
+included, Step-Video's head-axis projections in their (d, n, H, hd) and
+(H, hd, d) layouts), lists stay
 lists (the up blocks and their resnets of the 2D and the 3D VAE).  This
 module imports neither jax nor the JAX package.
 """

@@ -19,10 +19,13 @@ CPU:
     layout to the rotate-half layout the model runs
     (``models/common.apply_rope_half``);
   * 3D conv kernels (out, in, kt, kh, kw) are transposed to (kt, kh, kw,
-    in, out); a 2D kernel loads with kt = 1.
+    in, out); a 2D kernel loads with kt = 1;
+  * Step-Video's per-head packed projections keep their head axis: (d, n,
+    H, hd) in, (H, hd, d) out.
 
 Converters: T5, CLIP, PixArt, FLUX, SD3, HunyuanDiT, CogVideoX, Latte,
-HunyuanVideo, ConsisID and its face encoder, the AutoencoderKL decoder and
+HunyuanVideo, ConsisID and its face encoder, Step-Video, the AutoencoderKL
+decoder and
 the CogVideoX and HunyuanVideo causal 3D VAE decoders.  This module imports
 numpy and torch, not JAX.
 """
@@ -648,6 +651,67 @@ def convert_hunyuanvideo(state: Dict[str, np.ndarray], cfg) -> Any:
         "blocks": _stack(blocks),
     }
     return params
+
+
+def convert_stepvideo(state: Dict[str, np.ndarray], cfg) -> Any:
+    """Step-Video-T2V checkpoint (the vendored ``step_video_t2v`` naming) ->
+    ``models/stepvideo.init_stepvideo``'s tree: ``attn1.wqkv`` rows grouped
+    per head (h, [q|k|v], hd) -> (d, 3, H, hd); ``attn2.wq`` (h, hd) -> (d,
+    1, H, hd) and ``attn2.wkv`` (h, [k|v], hd) -> (d, 2, H, hd); the output
+    projections' columns per head -> (H, hd, d); bias-free projections get
+    zero biases, the qk norms are affine RMSNorms; the top level is the
+    PixArt-style AdaLayerNormSingle and caption projection."""
+    dt = cfg.dtype
+    d, h, hd = cfg.dim, cfg.heads, cfg.head_dim
+
+    def packed_qkv(name):
+        w = np.asarray(state[f"{name}.weight"]).reshape(h, 3, hd, d)
+        b = state.get(f"{name}.bias")
+        b = np.zeros((3, h, hd), np.float32) if b is None else np.asarray(b).reshape(h, 3, hd).transpose(1, 0, 2)
+        return {"w": _tensor(np.transpose(w, (3, 1, 0, 2)), dt), "b": _tensor(b, dt)}
+
+    def q_only(name):
+        w = np.asarray(state[f"{name}.weight"]).reshape(h, hd, d)
+        return {"w": _tensor(np.transpose(w, (2, 0, 1))[:, None], dt), "b": torch.zeros((1, h, hd), dtype=dt)}
+
+    def kv_only(name):
+        w = np.asarray(state[f"{name}.weight"]).reshape(h, 2, hd, d)
+        return {"w": _tensor(np.transpose(w, (3, 1, 0, 2)), dt), "b": torch.zeros((2, h, hd), dtype=dt)}
+
+    def head_out(name):
+        w = np.asarray(state[f"{name}.weight"]).reshape(d, h, hd)
+        b = state.get(f"{name}.bias")
+        return {"w": _tensor(np.transpose(w, (1, 2, 0)), dt),
+                "b": _tensor(np.zeros((d,), np.float32) if b is None else b, dt)}
+
+    blocks = []
+    for i in range(cfg.depth):
+        p = f"transformer_blocks.{i}"
+        blocks.append({
+            "scale_shift_table": _tensor(state[f"{p}.scale_shift_table"], dt),
+            "norm1": _norm(state, f"{p}.norm1", dt),
+            "qkv": packed_qkv(f"{p}.attn1.wqkv"),
+            "q_norm": _rms(state, f"{p}.attn1.q_norm", dt),
+            "k_norm": _rms(state, f"{p}.attn1.k_norm", dt),
+            "attn_out": head_out(f"{p}.attn1.wo"),
+            "cross_q": q_only(f"{p}.attn2.wq"),
+            "cross_kv": kv_only(f"{p}.attn2.wkv"),
+            "cross_q_norm": _rms(state, f"{p}.attn2.q_norm", dt),
+            "cross_k_norm": _rms(state, f"{p}.attn2.k_norm", dt),
+            "cross_out": head_out(f"{p}.attn2.wo"),
+            "norm2": _norm(state, f"{p}.norm2", dt),
+            "ffn": {"fc1": _lin(state, f"{p}.ff.net.0.proj", dt), "fc2": _lin(state, f"{p}.ff.net.2", dt)},
+        })
+    return {
+        "patch_embed": _patch_conv_as_linear(state, "pos_embed.proj", dt),
+        "text_proj": {"fc1": _lin(state, "caption_projection.linear_1", dt),
+                      "fc2": _lin(state, "caption_projection.linear_2", dt)},
+        "t_embed": _embedder(state, "adaln_single.emb.timestep_embedder", dt),
+        "adaln": _lin(state, "adaln_single.linear", dt),
+        "blocks": _stack(blocks),
+        "final_scale_shift": _tensor(state["scale_shift_table"], dt),
+        "proj_out": _lin(state, "proj_out", dt),
+    }
 
 
 def convert_consisid(state: Dict[str, np.ndarray], cfg) -> Any:

@@ -6,9 +6,9 @@ the main branch (:func:`flash_attn_with_lse`) and the ``window=`` branch
 kernels are in ``csrc/flash_attn.cu``.  On a CUDA tensor a wrapper launches
 its kernel or raises; on a CPU tensor it runs its twin.  The kernels take
 bf16 or fp32 q/k/v, as the Pallas kernels take the input dtype: fp32 runs
-the register and wide bodies in 3xTF32 (``csrc/flash_reg.cuh``), and an
-fp32 call that needs ``flash_tile`` (kernel 1 above d = 512, kernels 4 and
-7 above d = 128) raises ``NotImplementedError``.
+every body in 3xTF32 (``csrc/flash_reg.cuh``), ``flash_tile`` (kernel 1
+above d = 512, kernels 4 and 7 above d = 128) as its fp32 counterpart
+``csrc/flash_tile_f32.cuh``, which streams the head dim in slices.
 
 Which body, padded head dim and tile height a launch takes is decided here,
 before the launch, by :func:`flash_plan` (so the CPU tests see it), and the C
@@ -40,7 +40,8 @@ REG_BK = 64
 WIDE_BK = 32
 
 #: the tile bodies a plan names, numbered as the C entry points take them:
-#: ``flash_common.cuh::flash_tile`` (shared-memory scores and accumulator),
+#: ``flash_common.cuh::flash_tile`` (shared-memory scores and accumulator;
+#: on fp32 ``flash_tile_f32.cuh::flash_tile_f32``),
 #: ``flash_reg.cuh::flash_reg_tile`` (register fragments) and
 #: ``flash_wide.cuh::flash_wide_tile`` (register fragments, the head dim
 #: split over warps)
@@ -70,6 +71,8 @@ WIDE_GROUPS = 2
 #: owns the shared memory: 64x64 tiles stay under 200 KB up to DP 256, and
 #: a plan whose layout the card cannot hold fails at its launch
 TILE_64_MAX_DP = 256
+#: head-dim columns per staged slice of ``flash_tile_f32`` (``kTileF32Slice``)
+TILE_F32_SLICE = 64
 
 
 def _round_up(x: int, m: int) -> int:
@@ -124,6 +127,32 @@ def wide_layout(dp: int, warps: int, elem: int = 2) -> dict:
             "stages": stages, "bytes": q_bytes + stages * 2 * tile_bytes + xch_bytes}
 
 
+def _align128(x: int) -> int:
+    return _round_up(x, 128)
+
+
+def tile_layout(d: int, warps: int, elem: int = 2) -> dict:
+    """The shared memory of one ``flash_tile`` CTA at head dim ``d`` on
+    ``warps`` warps (16 query rows each; K/V tiles of 32 keys on 2 warps, 64
+    on 4): bf16 as ``flash_common.cuh::make_layout`` lays it out (the full
+    Q, K, V tiles, scores, probabilities and accumulator), fp32 as
+    ``flash_tile_f32.cuh::make_layout_f32`` (Q, K and V slices of
+    :data:`TILE_F32_SLICE` columns, the probabilities, the full-width
+    accumulator, the rows' max and sum); ``bytes`` in all."""
+    bq, bk, dp = 16 * warps, 16 * warps, _round_up(d, 16)
+    if elem == 2:
+        parts = [bq * (dp + 8) * 2, bk * (dp + 8) * 2, bk * (dp + 8) * 2, bq * (bk + 4) * 4, bq * (bk + 8) * 2,
+                 bq * (dp + 4) * 4, bq * 4, bq * 4, bq * 4]
+    else:
+        s = TILE_F32_SLICE
+        parts = [bq * (s + 4) * 4, bk * (s + 4) * 4, bk * (s + 8) * 4, bq * (bk + 4) * 4, bq * (dp + 8) * 4,
+                 bq * 4, bq * 4]
+    off = 0
+    for p in parts:
+        off = _align128(off + p)
+    return {"dp": dp, "bq": bq, "bk": bk, "bytes": off}
+
+
 def flash_plan(b: int, h: int, sq: int, d: int, wide: bool = True, elem: int = 2) -> Tuple[str, int, int]:
     """(body, padded head dim, warps per CTA) of a flash launch of ``b``
     batches, ``h`` heads and ``sq`` queries of head dim ``d`` in ``elem``-byte
@@ -161,8 +190,9 @@ def flash_plan(b: int, h: int, sq: int, d: int, wide: bool = True, elem: int = 2
     fp32 takes the same plans: every one fits its fp32 layout
     (:func:`reg_layout`, :func:`wide_layout`; at DP 128 and 8 warps the
     register body holds 2 stages, 202,752 bytes, and at the VAE's DP 512 the
-    wide body 2 stages of 16-key tiles, 206,336 bytes).  ``flash_tile`` is
-    bf16's: the wrappers refuse an fp32 plan of it (:func:`launch_plan`)."""
+    wide body 2 stages of 16-key tiles, 206,336 bytes), and ``flash_tile``
+    its fp32 layout (:func:`tile_layout`: the head dim in slices, 163,584
+    bytes at kernel 1's d = 1024)."""
     if d % 8:
         raise ValueError(f"flash kernel: head dim must be a multiple of 8, got {d}")
     if elem not in ELEM_SIZES.values():
@@ -263,12 +293,8 @@ def _check_qkv(q, k, v) -> None:
 
 def launch_plan(b: int, h: int, sq: int, d: int, dtype: torch.dtype, wide: bool = True):
     """(:func:`flash_plan` of a launch on ``dtype`` q/k/v, whether it is
-    fp32); an fp32 plan of ``flash_tile`` raises ``NotImplementedError``."""
-    f32 = dtype == torch.float32
-    plan = flash_plan(b, h, sq, d, wide=wide, elem=elem_size(dtype))
-    if f32 and plan[0] == "flash_tile":
-        raise NotImplementedError(f"fp32 flash attention at d={d} on flash_tile: {ROADMAP_HINT}")
-    return plan, f32
+    fp32)."""
+    return flash_plan(b, h, sq, d, wide=wide, elem=elem_size(dtype)), dtype == torch.float32
 
 
 def flash_attn_with_lse(

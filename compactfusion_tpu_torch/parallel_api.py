@@ -10,14 +10,14 @@ CPU), builds the mesh from the ``EngineConfig``, loads a checkpoint or
 draws seeded random weights on that device, and runs prompts through the
 real text path (tokenizer -> T5/CLIP -> embeddings) into the pipeline.
 
-Ported families: PixArt-alpha 512 and PixArt-Sigma (1024, 2K), FLUX.1
-(dev, schnell), SD3-medium, HunyuanDiT v1.2, CogVideoX (2B, 5B, 1.5-5B;
-text to video, the causal 3D VAE), Latte-1 (the per-frame 2D VAE),
-HunyuanVideo-T2V (its causal 3D VAE) and ConsisID-preview (with
-``--img_file_path``: identity tokens from the face image), with their
-``-tiny`` test configs; the 2D VAE's ``--enable_tiling`` /
-``--enable_slicing``.  Step-Video, the one other family of the JAX
-registry, resolves by the same pattern and raises ``NotImplementedError``.
+Every family of the JAX registry: PixArt-alpha 512 and PixArt-Sigma (1024,
+2K), FLUX.1 (dev, schnell), SD3-medium, HunyuanDiT v1.2, CogVideoX (2B,
+5B, 1.5-5B; text to video, the causal 3D VAE), Latte-1 (the per-frame 2D
+VAE), HunyuanVideo-T2V (its causal 3D VAE), ConsisID-preview (with
+``--img_file_path``: identity tokens from the face image) and
+Step-Video-T2V (fully tensor-parallel; latents out, as the JAX pipeline has
+no Step-Video VAE), with their ``-tiny`` test configs; the 2D VAE's
+``--enable_tiling`` / ``--enable_slicing``.
 
 Every parallel flag of the JAX runner is taken: ``--pipefusion_parallel_
 degree`` (PixArt's default is the patch pipeline with M = pp; FLUX, SD3,
@@ -48,9 +48,6 @@ from compactfusion_tpu_torch.models import common as cm
 from compactfusion_tpu_torch.utils.logger import init_logger
 
 logger = init_logger(__name__)
-
-_FAMILIES_HINT = "ROADMAP.md Queue 1 (the remaining families)"
-
 
 def _cache_cfg(engine: EngineConfig, family: str = "") -> CacheAccelConfig:
     """``--use_fbcache`` / ``--use_teacache`` -> a cache config with the
@@ -278,14 +275,6 @@ def _build_flux(engine: EngineConfig, inp: InputConfig, checkpoint: Optional[str
     )
     vae_params = None if _is_tail(vae_mesh) else _load_vae2d(checkpoint, vcfg, device)
     return FluxPipeline(params, vae_params, pcfg, device, mesh=mesh, vae_mesh=vae_mesh), pcfg
-
-
-def _unported(name: str, pattern: str):
-    def build(engine: EngineConfig, inp: InputConfig, checkpoint: Optional[str] = None, device="cuda"):
-        raise NotImplementedError(f"the {name} family ({engine.model_config.model}) is not ported: "
-                                  f"{_FAMILIES_HINT}")
-
-    register_family(name, pattern)(build)
 
 
 def _load_vae3d(checkpoint: Optional[str], vcfg, device):
@@ -517,16 +506,33 @@ def _build_hunyuan(engine: EngineConfig, inp: InputConfig, checkpoint: Optional[
     return HunyuanDiTPipeline(params, vae_params, pcfg, device, mesh=mesh, vae_mesh=vae_mesh), pcfg
 
 
-# the JAX registry's other families, in its order and with its patterns
-_PORTED = {"sd3": _build_sd3, "cogvideox": _build_cogvideox, "latte": _build_latte,
-           "hunyuanvideo": _build_hunyuanvideo, "consisid": _build_consisid, "hunyuandit": _build_hunyuan}
-for _name, _pattern in (("sd3", r"stable-diffusion-3|sd3"), ("cogvideox", r"cogvideo"), ("latte", r"latte"),
-                        ("hunyuanvideo", r"hunyuanvideo"), ("consisid", r"consisid"),
-                        ("stepvideo", r"step[-_]?video"), ("hunyuandit", r"hunyuan(?!.?video)")):
-    if _name in _PORTED:
-        register_family(_name, _pattern)(_PORTED[_name])
+def _build_stepvideo(engine: EngineConfig, inp: InputConfig, checkpoint: Optional[str] = None, device="cuda"):
+    from compactfusion_tpu_torch.io import hf
+    from compactfusion_tpu_torch.models.stepvideo import init_stepvideo, stepvideo_t2v, stepvideo_tiny
+    from compactfusion_tpu_torch.pipelines.stepvideo import StepVideoPipeline, StepVideoPipelineConfig
+
+    mcfg = stepvideo_tiny() if "tiny" in engine.model_config.model.lower() else stepvideo_t2v()
+    mesh, vae_mesh = _meshes(engine)
+    if _is_tail(vae_mesh):
+        params = None  # Step-Video's VAE-tail ranks stay idle
+    elif checkpoint and os.path.isdir(os.path.join(checkpoint, "transformer")):
+        params = cm.to_device(hf.convert_stepvideo(_transformer_state(checkpoint), mcfg), device)
     else:
-        _unported(_name, _pattern)
+        # drawn one layer at a time on the device (init_stepvideo)
+        params = init_stepvideo(torch.Generator(device=device).manual_seed(0), mcfg)
+    pcfg = StepVideoPipelineConfig(model=mcfg, parallel=engine.parallel_config, compact=engine.compact_config,
+                                   num_steps=inp.num_inference_steps, guidance_scale=inp.guidance_scale,
+                                   height=inp.height, width=inp.width, num_frames=inp.num_frames)
+    return StepVideoPipeline(params, pcfg, device, mesh=mesh, vae_mesh=vae_mesh), pcfg
+
+
+# the JAX registry's other families, in its order and with its patterns
+for _name, _pattern, _build in (
+        ("sd3", r"stable-diffusion-3|sd3", _build_sd3), ("cogvideox", r"cogvideo", _build_cogvideox),
+        ("latte", r"latte", _build_latte), ("hunyuanvideo", r"hunyuanvideo", _build_hunyuanvideo),
+        ("consisid", r"consisid", _build_consisid), ("stepvideo", r"step[-_]?video", _build_stepvideo),
+        ("hunyuandit", r"hunyuan(?!.?video)", _build_hunyuan)):
+    register_family(_name, _pattern)(_build)
 
 
 def _load_vae2d(checkpoint: Optional[str], vcfg, device):
@@ -561,7 +567,8 @@ class xDiTParallel:
     bound device from ``torch.Generator``s seeded 0 (backbone), 1 (PixArt's
     VAE; FLUX's and CogVideoX's 11, as ``_load_vae2d`` and ``_load_vae3d``)
     and 7 (the prompt encoder), as the JAX builders seed ``PRNGKey``s: other
-    draws, the same trees (SD3 and HunyuanDiT: backbone 0, VAE 11).
+    draws, the same trees (SD3 and HunyuanDiT: backbone 0, VAE 11;
+    Step-Video: backbone 0, drawn one layer at a time, and no VAE).
     """
 
     def __init__(self, engine_config: EngineConfig, input_config: InputConfig,
@@ -656,11 +663,15 @@ class xDiTParallel:
     def _quantize_backbone_int8(self):
         """``--quantize_backbone_int8``: int8 weights for the block stacks
         (``cm.quantize_params_int8``; each matmul reads its weight
-        dequantized to the activation dtype)."""
+        dequantized to the activation dtype).  Step-Video has no int8 key
+        map, as in the JAX package: a warning, and the weights stay bf16."""
         par = self.engine_config.parallel_config
         assert par.tp_degree == 1 and par.pp_degree == 1, (
             "--quantize_backbone_int8 composes with dp/cfg/SP (weights replicated), not tp/pp")
-        keys = self._INT8_BLOCK_KEYS[self.family]
+        keys = self._INT8_BLOCK_KEYS.get(self.family)
+        if keys is None:
+            logger.warning("quantize_backbone_int8: no int8 key map for family %s; weights stay bf16", self.family)
+            return
         self.pipeline.params = cm.quantize_params_int8(self.pipeline.params, keys=keys)
         logger.info("backbone block stacks %s quantized to int8", ", ".join(keys))
 
@@ -762,9 +773,13 @@ class xDiTParallel:
         if self.family == "sd3":
             txt, pooled = enc.encode_for_sd3(prompts, negative, max_length=seq)
             return self.pipeline(txt, pooled, generator=generator, latents=latents, decode=decode)
-        if self.family in ("cogvideox", "consisid"):
+        if self.family in ("cogvideox", "consisid", "stepvideo"):
             # (2, B, S, D) cond/uncond T5 states at max_sequence_length, no mask
             txt = enc.encode_for_video(prompts, negative, max_length=seq)
+            if self.family == "stepvideo" and self.device.type == "cuda":
+                # the encoder's freed activations leave PyTorch's cache
+                # before the 30B denoise
+                torch.cuda.empty_cache()
             if self.family == "consisid":
                 ids = self._encode_identity(inp.img_file_path) if inp.img_file_path else None
                 return self.pipeline(txt, generator=generator, latents=latents, id_states=ids, decode=decode)

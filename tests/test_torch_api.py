@@ -121,10 +121,16 @@ def test_registry_resolves_every_name_jax_resolves(monkeypatch):
         with pytest.raises(ValueError, match="no pipeline registered"):
             mod.resolve_family("stable-cascade")
     engine, inp = _config(targs, ["--model", "sd3-tiny"])
-    # Step-Video alone is left unported: its builder raises
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi._REGISTRY["stepvideo"].build(engine, inp, None, "cpu")
-    assert [n for n, f in tapi._REGISTRY.items() if f.build.__name__ == "build"] == ["stepvideo"]
+    # every family is ported: each registered build function is a family's own,
+    # Step-Video's among them
+    assert all(f.build.__name__ == f"_build_{'hunyuan' if n == 'hunyuandit' else n}"
+               for n, f in tapi._REGISTRY.items())
+    from compactfusion_tpu_torch.pipelines.stepvideo import StepVideoPipeline
+
+    sv_engine, sv_inp = _config(targs, ["--model", "stepvideo-tiny", "--height", "128", "--width", "128",
+                                        "--num_frames", "17"])
+    sv_pipe, sv_cfg = tapi._REGISTRY["stepvideo"].build(sv_engine, sv_inp, None, "cpu")
+    assert isinstance(sv_pipe, StepVideoPipeline) and sv_cfg.tokens == 48
     # SD3 and HunyuanDiT are ported: their builders give the pipelines
     # JAX's give, per name, with the VAE knobs on
     from compactfusion_tpu.models import hunyuandit as jhy

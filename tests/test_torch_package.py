@@ -45,7 +45,8 @@ def test_importing_every_module_leaves_jax_out():
               "examples.sd3_example", "examples.hunyuandit_example", "examples.pixartsigma_example",
               "compact.stats", "utils.collector", "models.face", "models.consisid", "pipelines.consisid",
               "models.latte", "pipelines.latte", "models.hunyuanvideo", "pipelines.hunyuanvideo",
-              "examples.latte_example", "examples.consisid_example", "examples.hunyuanvideo_example"):
+              "examples.latte_example", "examples.consisid_example", "examples.hunyuanvideo_example",
+              "models.stepvideo", "pipelines.stepvideo", "examples.stepvideo_example"):
         assert f"compactfusion_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -687,3 +687,35 @@ def video_pipeline_latents(rank, world, family, configs, params, inputs):
             lat = pipe(a, None, b, latents=noise, decode=False)
         res[name] = (lat.numpy(), tring.max_consistency_dev)
     return res
+
+
+def stepvideo_latents(rank, world, configs, params, inputs):
+    """Per configuration (name, ParallelConfig kwargs, CompactConfig kwargs
+    or None) of the tiny fp32 Step-Video pipeline (128 x 128, 17 frames: 48
+    tokens, 3 steps at guidance 9) from ``inputs`` = (txt [cond, uncond],
+    noise): the final latents on this rank and the largest EF cache
+    deviation across the ring; None on a rank the configuration leaves
+    idle.  Every rank passes the full tree and cuts its own share."""
+    import dataclasses
+
+    from compactfusion_tpu_torch.io.from_jax import params_from_numpy
+    from compactfusion_tpu_torch.models.stepvideo import stepvideo_tiny
+    from compactfusion_tpu_torch.pipelines.stepvideo import StepVideoPipeline, StepVideoPipelineConfig
+
+    tm = dataclasses.replace(stepvideo_tiny(), dtype=torch.float32)
+    tparams = params_from_numpy(params)
+    txt, noise = (torch.from_numpy(a) for a in inputs)
+    res = {}
+    for name, par, compact in configs:
+        parallel = ParallelConfig(**par)
+        mesh = tmesh.make_mesh(parallel)
+        if mesh is None:
+            res[name] = None
+            continue
+        ckw = {} if compact is None else dict(compact, compress_type=CompressType(compact["compress_type"]))
+        cfg = StepVideoPipelineConfig(model=tm, parallel=parallel, compact=CompactConfig(**ckw), num_steps=3,
+                                      height=128, width=128, num_frames=17)
+        tring.max_consistency_dev = 0.0
+        lat = StepVideoPipeline(tparams, cfg, "cpu", mesh=mesh)(txt, latents=noise)
+        res[name] = (lat.numpy(), tring.max_consistency_dev)
+    return res
