@@ -311,6 +311,20 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
 50. The fp32 ``flash_tile`` launches (kernel 1 at d 576 and 1024, kernel 4
     at d 256, kernels 7 and 8 at d 256) within TILE_F32_REL_MAX of their
     fp32 twins (``check_tile_f32_kernels``), which no model path runs.
+51. The quality-eval package on the card (``quality_phase``): InceptionV3,
+    VGG16-LPIPS and I3D in fp32 on seeded weights, each against the same
+    module on the CPU (FEATURE_REL_MAX), ms per batch and peak memory; PSNR,
+    SSIM and LPIPS of phases 4-7's images against phase 3's lossless one
+    (lossless against itself 120 dB, SSIM 1, LPIPS 0), PSNR and SSIM within
+    METRIC_CARD_REL_MAX of the CPU's; ``video_psnr``, ``video_ssim`` and
+    I3D on a 16 x 224^2 crop of phase 44's Latte video against its 8-bit
+    round trip; ``ddpm_step`` converging; phase 43's spectra through
+    ``tensor_viz.energy_curves``.  No kernel of the port runs here.
+52. ``examples/external_usp_example.py`` (U2 x R2, USP_SEQ tokens, kernel
+    1's fp32 route) and ``examples/per_layer_schedule_example.py`` (PixArt
+    at SP_CUT blocks, ring EXAMPLE_RING, EXAMPLE_STEPS steps, beside a
+    lossless and an all-BINARY run) in one spawn of 4 gloo processes
+    (``examples_phase``).
 Phase 34 also runs its cut in fp32 (the bf16 weights, the same request):
 ring 2 lossless, unfused and fused, within F32_RING_LOSSLESS_REL_MAX of
 the fp32 one process; BINARY within F32_RING_BINARY_REL_MAX of the same
@@ -1547,7 +1561,7 @@ def compressed_phase(phase, what, pipe, kernels, lossless, expect):
     launched = ", ".join(f"{k} {v}" for k, v in counts.items())
     print(f"[{phase}] {what}: latent rel err vs lossless {rel:.6f} (bound {COMPRESSED_REL_ERR_MAX}), "
           f"{sec:.4f} s/image; launches: {launched}")
-    return {"s_per_image": sec, "latent_rel_err": rel, "launches": counts}
+    return {"s_per_image": sec, "latent_rel_err": rel, "launches": counts, "image": img}
 
 
 def mixed_plan():
@@ -4651,7 +4665,7 @@ def observability_phase(kernels, dev, codecs):
     record counts (one per compressed step, layer and ring chunk), finite
     metrics, 64-value spectra with the activation's above its delta's, the
     compression ratio of the chunks' payloads, and the JSON dumps grouped
-    by step.  Returns the phases."""
+    by step.  Returns (the phases, the eigenvalue dump)."""
     import tempfile
 
     import torch
@@ -4708,7 +4722,7 @@ def observability_phase(kernels, dev, codecs):
                                         "records_per_key": n, "k_mean_rel_err": mean_rel,
                                         "k_rel_err_by_step": [e["rel_err"] for e in err["k"]],
                                         "compression_ratio": log.compression_ratio,
-                                        "launches": runs["log_stats"][2]}}
+                                        "launches": runs["log_stats"][2]}}, eig
 
 
 def _video_ok(video, what, shape):
@@ -4727,7 +4741,7 @@ def video_runner_phase(phase, name, argv, kernels, expect, shape, setup=None):
     the runner's seeded prompt encoder): its seconds by CUDA events, the
     decode's apart, the peak memory, the launch counts against ``expect``
     and the video's validity.  ``setup(runner)`` runs after the build.
-    Returns (the phases, the runner)."""
+    Returns (the phases, the runner, the video)."""
     import numpy as np
     import torch
 
@@ -4765,7 +4779,7 @@ def video_runner_phase(phase, name, argv, kernels, expect, shape, setup=None):
           f"torch.cuda.max_memory_allocated {peak:.3f} GiB; launches "
           f"{', '.join(f'{k} {v}' for k, v in counts.items() if v)}")
     return {name: {"s_per_video": total, "s_per_step": sample_s / steps, "decode_s": marks["decode"],
-                   "build_s": build_s, "max_memory_allocated_gib": peak, "launches": counts}}, runner
+                   "build_s": build_s, "max_memory_allocated_gib": peak, "launches": counts}}, runner, video
 
 
 def latte_phase(kernels, flash, timing, dev, gen):
@@ -4776,15 +4790,16 @@ def latte_phase(kernels, flash, timing, dev, gen):
     :data:`LATTE_STEPS` steps, every frame through the SD VAE: kernel 1
     once a spatial block and step, plus the VAE's one wide launch (the
     temporal attention over 16 frames and the cross-attention to 120 tokens
-    take ``sdpa``'s plain route).  Returns (the phases, the flash rows)."""
+    take ``sdpa``'s plain route).  Returns (the phases, the flash rows, the
+    video)."""
     rows = check_flash(flash, timing, dev, gen, [
         (f"Latte-1 spatial self-attn B32 H16 S{LATTE_FRAME} d72", lambda: _qkv_views(gen, dev, 32, LATTE_FRAME), 5,
          4)], phase=44)
-    phases, runner = video_runner_phase(44, "latte-1", LATTE_ARGV, kernels,
-                                        {"flash_attn_with_lse": 28 * LATTE_STEPS + 1, WIDE: 1},
-                                        (1, 16, 512, 512, 3))
+    phases, runner, video = video_runner_phase(44, "latte-1", LATTE_ARGV, kernels,
+                                               {"flash_attn_with_lse": 28 * LATTE_STEPS + 1, WIDE: 1},
+                                               (1, 16, 512, 512, 3))
     del runner
-    return phases, rows
+    return phases, rows, video
 
 
 def consisid_phase(kernels, flash, quant, codecs, timing, dev, gen):
@@ -4828,7 +4843,7 @@ def consisid_phase(kernels, flash, quant, codecs, timing, dev, gen):
             raise AssertionError(f"[45] face encoder: tokens {tuple(tokens.shape)}")
         held["ids"] = runner._encode_identity(face)
 
-    phases, runner = video_runner_phase(45, "consisid-preview", CON_ARGV + ["--img_file_path", face], kernels,
+    phases, runner, _ = video_runner_phase(45, "consisid-preview", CON_ARGV + ["--img_file_path", face], kernels,
                                         {"flash_attn_with_lse": 42 * CON_STEPS}, (1, 49, 480, 720, 3), setup)
     ids = held["ids"]
     print(f"[45] face encoder (lfe_consisid, {_numel(lfe) / 1e6:.1f}M fp32 parameters, seeded) on the PNG's stand-in "
@@ -4893,7 +4908,7 @@ def hunyuanvideo_phase(kernels, flash, quant, codecs, rf, timing, dev, gen):
     cring_rows = [check_compact_ring(rf, flash, timing, dev, gen, 2, 1, s_local, "binary", -1, False, 24, 128,
                                      HV_TXT + s_local, phase=46)]
     torch.cuda.empty_cache()
-    phases, runner = video_runner_phase(46, "hunyuanvideo-t2v", HV_ARGV, kernels,
+    phases, runner, _ = video_runner_phase(46, "hunyuanvideo-t2v", HV_ARGV, kernels,
                                         {"flash_attn_with_lse": 60 * HV_STEPS + 9, WIDE: 9}, (1, 33, 544, 960, 3))
     del runner
     return phases, {"flash": flash_rows, "quant": quant_rows, "ring": ring_rows, "cring": cring_rows}
@@ -5466,6 +5481,352 @@ def check_tile_f32_kernels(flash, rf, timing, dev, gen):
     return {"flash": flash_rows, "window": window_rows, "ring": ring_rows, "cring": cring_rows}
 
 
+# -- 51.-52. quality eval, ddpm_step, tensor_viz; the last two examples --------
+
+#: the extractors' fp32 features on the card against the CPU's (the
+#: north star's fp32 bound)
+FEATURE_REL_MAX = 2e-4
+#: PSNR and SSIM on the card against the CPU's, relative
+METRIC_CARD_REL_MAX = 1e-4
+#: the extractors' batches: InceptionV3 at B8 x 299^2, VGG16-LPIPS at B2
+#: pairs of 512^2, I3D at B2 x 16 x 224^2
+INCEPTION_B, LPIPS_PAIRS, I3D_B = 8, 2, 2
+#: phase 52's PixArt runs (per-layer plan, all-BINARY, lossless) at ring 4
+EXAMPLE_STEPS = 10
+EXAMPLE_RING = 4
+#: the external USP example's tokens on the card: a hop's 512 keys meet
+#: kernel 1's routing contract
+USP_SEQ = 1024
+
+
+def _spiced_biases(tree, gen):
+    """Every conv bias of an extractor tree drawn from N(0, 0.1^2) (the
+    seeded trees' biases are 0, which a BatchNorm fold never leaves)."""
+    import torch
+
+    for p in tree.values():
+        p["b"] = torch.randn(p["b"].shape, generator=gen, device=p["b"].device) * 0.1
+    return tree
+
+
+def _to_cpu(tree):
+    return {k: {n: t.cpu() for n, t in p.items()} for k, p in tree.items()}
+
+
+def _time_batch_ms(fn, iters=3):
+    """ms a call by CUDA events after one warm call, and the peak memory
+    (GiB) of the calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end) / iters, torch.cuda.max_memory_allocated() / 2**30
+
+
+def _card_vs_cpu(what, card, cpu, bound):
+    import torch
+
+    rel = (torch.linalg.vector_norm(card.cpu().double() - cpu.double())
+           / torch.linalg.vector_norm(cpu.double())).item()
+    if not rel <= bound:
+        raise AssertionError(f"[51] {what}: card vs CPU rel err {rel} > {bound}")
+    return rel
+
+
+def quality_phase(kernels, dev, images, video, eig):
+    """Phase 51: the eval extractors in fp32 on the card on seeded weights
+    (InceptionV3 B8 x 299^2, VGG16-LPIPS B2 pairs at 512^2, I3D B2 x 16 x
+    224^2), sample 0 of each against the same module on the CPU within
+    FEATURE_REL_MAX, ms per batch and peak memory; PSNR, SSIM and LPIPS of
+    every compressed image of phases 4-7 against phase 3's lossless image
+    of the same seed (``images``: name -> (1, 512, 512, 3) on the card,
+    "lossless" among them), PSNR and SSIM within METRIC_CARD_REL_MAX of the
+    CPU's; ``video_psnr``, ``video_ssim`` and I3D features on a 16-frame
+    224^2 centre crop of phase 44's Latte video (``video``) against its
+    8-bit round trip; ``ddpm_step`` converging on the card; phase 43's
+    eigenvalue dump (``eig``) through ``tensor_viz.energy_curves``.  No
+    kernel of the port is on this path (the JAX package left these convs to
+    XLA; here they are cuDNN's): every count must stay 0.  Returns the
+    phase's numbers."""
+    import numpy as np
+    import torch
+
+    from compactfusion_tpu_torch.eval import i3d, inception, metrics, vgg
+    from compactfusion_tpu_torch.schedulers import diffusion
+    from compactfusion_tpu_torch.utils import tensor_viz
+
+    _reset_counts(kernels)
+    gen = torch.Generator(device=dev).manual_seed(51)
+    inc = _spiced_biases(inception.init_inception_v3(gen), gen)
+    seeded = _spiced_biases(vgg.init_vgg16(gen), gen)
+    # the seeded VGG16 goes through the converter a user loads weights with,
+    # from a torchvision-named state dict, onto the card by default
+    vgg_p = vgg.convert_vgg16({f"features.{idx}.{leaf}": seeded[f"conv{idx}"][k].cpu().numpy()
+                               for idx, _, _ in vgg.VGG16_CONVS for k, leaf in (("w", "weight"), ("b", "bias"))})
+    if not all(p[k].is_cuda and torch.equal(p[k], seeded[n][k]) for n, p in vgg_p.items() for k in p):
+        raise AssertionError("[51] convert_vgg16 did not put the seeded weights on the card bit for bit")
+    del seeded
+    i3d_p = _spiced_biases(i3d.init_i3d(gen), gen)
+    lossless = images["lossless"]
+    codecs_ = [k for k in images if k != "lossless"]
+    # -- the extractors: card against CPU, ms per batch -----------------------
+    x_inc = torch.rand((INCEPTION_B, 299, 299, 3), generator=gen, device=dev) * 2 - 1
+    feats, inc_ms, inc_gib = _time_batch_ms(lambda: inception.inception_pool_features(inc, x_inc))
+    inc_rel = _card_vs_cpu("InceptionV3 pool features", feats[:1],
+                           inception.inception_pool_features(_to_cpu(inc), x_inc[:1].cpu()), FEATURE_REL_MAX)
+    lpips = vgg.make_lpips(vgg_p)
+    pairs = [images[k] for k in codecs_[:LPIPS_PAIRS]]
+    a = torch.cat([lossless] * LPIPS_PAIRS) * 2 - 1
+    b = torch.cat(pairs) * 2 - 1
+    d, vgg_ms, vgg_gib = _time_batch_ms(lambda: lpips(a, b))
+    with torch.no_grad():
+        taps = torch.cat([t.flatten() for t in vgg.vgg16_features(vgg_p, a[:1])])
+        cpu_taps = torch.cat([t.flatten() for t in vgg.vgg16_features(_to_cpu(vgg_p), a[:1].cpu())])
+    vgg_rel = _card_vs_cpu("VGG16's five LPIPS taps", taps, cpu_taps, FEATURE_REL_MAX)
+    lpips_rel = _card_vs_cpu("LPIPS", d[:1], vgg.make_lpips(_to_cpu(vgg_p))(a[:1].cpu(), b[:1].cpu()),
+                             FEATURE_REL_MAX)
+    del taps, cpu_taps
+    f, h, w = video.shape[1:4]
+    top, left = (h - 224) // 2, (w - 224) // 2
+    crop = video[:1, :16, top:top + 224, left:left + 224].float()
+    crop8 = torch.round(crop * 255) / 255  # what an 8-bit file of the video holds
+    clips = torch.cat([crop, crop8])[:I3D_B] * 2 - 1
+    logits, i3d_ms, i3d_gib = _time_batch_ms(lambda: i3d.i3d_features(i3d_p, clips))
+    i3d_rel = _card_vs_cpu("I3D logits", logits[:1], i3d.i3d_features(_to_cpu(i3d_p), clips[:1].cpu()),
+                           FEATURE_REL_MAX)
+    pre = i3d.i3d_features(i3d_p, clips, pre_logits=True)
+    for what, t, shape in (("inception", feats, (INCEPTION_B, 2048)), ("lpips", d, (LPIPS_PAIRS,)),
+                           ("i3d", logits, (I3D_B, 400)), ("i3d pre-logits", pre, (I3D_B, 1024))):
+        if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"[51] {what}: {tuple(t.shape)}, finite {bool(torch.isfinite(t).all())}")
+    print(f"[51] extractors in fp32 on the card (seeded weights, TF32 off): InceptionV3 B{INCEPTION_B} x 299^2 "
+          f"{inc_ms:.3f} ms/batch (peak {inc_gib:.2f} GiB), card vs CPU {inc_rel:.3g}; VGG16-LPIPS "
+          f"{LPIPS_PAIRS} pairs at 512^2 {vgg_ms:.3f} ms/batch (peak {vgg_gib:.2f} GiB), card vs CPU {vgg_rel:.3g} "
+          f"(the taps), {lpips_rel:.3g} (the distance); "
+          f"I3D B{I3D_B} x 16 x 224^2 {i3d_ms:.3f} ms/batch (peak {i3d_gib:.2f} GiB), card vs CPU {i3d_rel:.3g} "
+          f"(bound {FEATURE_REL_MAX})")
+    # -- PSNR, SSIM, LPIPS per codec against the lossless image ----------------
+    per_codec = {}
+    for name in ["lossless"] + codecs_:
+        img = images[name]
+        p_card, s_card = metrics.psnr(img, lossless).item(), metrics.ssim(img, lossless).item()
+        p_cpu, s_cpu = metrics.psnr(img.cpu(), lossless.cpu()).item(), metrics.ssim(img.cpu(), lossless.cpu()).item()
+        lp = lpips(img * 2 - 1, lossless * 2 - 1).item()
+        for what, card, cpu in (("PSNR", p_card, p_cpu), ("SSIM", s_card, s_cpu)):
+            if not abs(card - cpu) <= METRIC_CARD_REL_MAX * abs(cpu):
+                raise AssertionError(f"[51] {name}: {what} {card} on the card, {cpu} on the CPU")
+        if name == "lossless":
+            ok = p_card == 120.0 and abs(s_card - 1) <= 1e-6 and lp == 0.0
+        else:
+            ok = np.isfinite(p_card) and p_card < 120.0 and s_card < 1.0 and lp > 0.0
+        if not ok:
+            raise AssertionError(f"[51] {name} vs lossless: PSNR {p_card}, SSIM {s_card}, LPIPS {lp}")
+        per_codec[name] = {"psnr_db": p_card, "ssim": s_card, "lpips_seeded_vgg": lp}
+        print(f"[51] {name} vs the lossless image (seed 1): PSNR {p_card:.4f} dB, SSIM {s_card:.6f}, LPIPS "
+              f"(seeded VGG16) {lp:.6g}; card vs CPU PSNR {abs(p_card - p_cpu) / abs(p_cpu):.2g}, SSIM "
+              f"{abs(s_card - s_cpu) / abs(s_cpu):.2g} relative")
+    # -- the video metrics on phase 44's Latte video ---------------------------
+    vp, vs = metrics.video_psnr(crop8, crop).item(), metrics.video_ssim(crop8, crop).item()
+    vp_cpu, vs_cpu = metrics.video_psnr(crop8.cpu(), crop.cpu()).item(), metrics.video_ssim(crop8.cpu(), crop.cpu()).item()
+    if not (abs(vp - vp_cpu) <= METRIC_CARD_REL_MAX * vp_cpu and abs(vs - vs_cpu) <= METRIC_CARD_REL_MAX * vs_cpu
+            and 40.0 < vp < 120.0 and 0.9 < vs < 1.0 and metrics.video_psnr(crop, crop).item() == 120.0):
+        raise AssertionError(f"[51] Latte video crop vs its 8-bit round trip: PSNR {vp} ({vp_cpu} on the CPU), "
+                             f"SSIM {vs} ({vs_cpu})")
+    fd = (logits[0] - logits[1]).norm().item()
+    print(f"[51] Latte-1 video (phase 44), 16 x 224^2 centre crop vs its 8-bit round trip: video_psnr {vp:.4f} dB, "
+          f"video_ssim {vs:.6f} (CPU {vp_cpu:.4f}, {vs_cpu:.6f}); I3D logits finite, |diff| {fd:.4g}")
+    # -- ddpm_step on the card ------------------------------------------------
+    n = 25
+    sched = diffusion.ddpm_schedule(n)
+    g = torch.Generator(device=dev).manual_seed(0)
+    # x0 inside [-1, 1], the range DDPM's clip of its x0 prediction assumes
+    x0 = torch.rand((4, 8), generator=g, device=dev) * 1.8 - 0.9
+    a0 = sched.alphas_cumprod[int(sched.timesteps[0])].item()
+    x = a0**0.5 * x0 + (1 - a0) ** 0.5 * torch.randn((4, 8), generator=g, device=dev)
+    for i in range(n):
+        a = sched.alphas_cumprod[int(sched.timesteps[i])].item()
+        x = diffusion.ddpm_step(sched, i, n, x, (x - a**0.5 * x0) / (1 - a) ** 0.5, g)
+    ddpm_rel = (torch.linalg.vector_norm(x - x0) / torch.linalg.vector_norm(x0)).item()
+    if not (x.is_cuda and ddpm_rel < 0.35):
+        raise AssertionError(f"[51] ddpm_step with the exact eps: rel err {ddpm_rel} to x0 (bound 0.35)")
+    print(f"[51] ddpm_step, {n} ancestral steps with the exact eps on the card: rel err to x0 {ddpm_rel:.3g} "
+          f"(bound 0.35)")
+    # -- phase 43's spectra through tensor_viz ---------------------------------
+    curves = {}
+    if eig["_shapes"] != {key: list(CHUNK) for key in ("k-activation", "k-delta")}:
+        raise AssertionError(f"[51] the dump records the shapes {eig['_shapes']}, not {CHUNK}")
+    for key, rows in eig.items():
+        if key == "_shapes":
+            continue
+        e = tensor_viz.energy_curves(rows, eig["_shapes"][key])
+        cum = np.stack([c for _, c in e["curves"]])
+        if not (e["k"] == 64 and np.isfinite(cum).all() and (np.diff(cum, axis=1) >= 0).all()
+                and np.allclose(cum[:, -1], 1.0)):
+            raise AssertionError(f"[51] tensor_viz curves of {key}: k {e['k']}")
+        curves[key] = {"energy_at_rank_4": float(cum[:, 3].mean()), "energy_at_rank_16": float(cum[:, 15].mean()),
+                       "baseline_at_rank_4": float(e["baseline"][3]), "curves": len(e["curves"])}
+        print(f"[51] tensor_viz.energy_curves({key}, top {e['k']} of {e['of']}, a {CHUNK[0]} x {CHUNK[1]} matrix): "
+              f"{len(e['curves'])} curves, mean "
+              f"energy within the top 64 at rank 4 {curves[key]['energy_at_rank_4']:.4f}, at rank 16 "
+              f"{curves[key]['energy_at_rank_16']:.4f}; iid-Gaussian baseline at rank 4 "
+              f"{curves[key]['baseline_at_rank_4']:.4f}")
+    counts = _counts(kernels)
+    _check_counts("[51] the quality eval", counts, {})
+    return {"quality eval": {"launches": counts, "feature_card_vs_cpu_rel": {"inception": inc_rel, "vgg16_taps": vgg_rel,
+                                                                         "lpips": lpips_rel, "i3d": i3d_rel},
+                             "ms_per_batch": {"inception_b8_299": inc_ms, "lpips_2pairs_512": vgg_ms,
+                                              "i3d_b2_16x224": i3d_ms},
+                             "peak_gib": {"inception": inc_gib, "lpips": vgg_gib, "i3d": i3d_gib},
+                             "per_codec": per_codec, "latte_crop_vs_8bit": {"video_psnr_db": vp, "video_ssim": vs},
+                             "ddpm_rel_err": ddpm_rel, "tensor_viz": curves}}
+
+
+def examples_rank(rank, world, lossless_argv, binary_argv, per_layer_argv):
+    """One rank of phase 52: the torchrun environment, then
+    ``external_usp_example.main`` at USP_SEQ tokens; PixArt-alpha 512 at
+    full width cut to SP_CUT blocks (AdaLN spiced) at ring EXAMPLE_RING
+    through ``xDiTParallel``, lossless and all-BINARY, one request each;
+    then ``per_layer_schedule_example.main`` with the EF consistency check
+    on.  Every launch count set to 0 before each; returns the USP error,
+    the latents, the counts and the EF deviation of each run."""
+    import gc
+
+    import torch
+
+    from compactfusion_tpu_torch.compact import ring as compact_ring
+    from compactfusion_tpu_torch.examples import external_usp_example, per_layer_schedule_example
+    from compactfusion_tpu_torch.models import pixart as model_pixart
+    from compactfusion_tpu_torch.parallel_api import xDiTParallel
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world))
+    init = model_pixart.init_pixart
+    model_pixart.init_pixart = lambda generator, cfg: spice_pixart(init(generator, cfg))
+    kernels = port_kernels()
+    out = {}
+    _reset_counts(kernels)
+    t0 = time.perf_counter()
+    err = external_usp_example.main(seq_len=USP_SEQ)
+    torch.cuda.synchronize()
+    out["usp"] = {"rel_err": err, "launches": _counts(kernels), "s": time.perf_counter() - t0}
+    for name, argv in (("lossless", lossless_argv), ("binary", binary_argv)):
+        with pixart_depth(SP_CUT):
+            runner = xDiTParallel(*_cli(argv).create_config())
+        _reset_counts(kernels)
+        compact_ring.max_consistency_dev = 0.0
+        t0 = time.perf_counter()
+        lat = runner(decode=False)
+        torch.cuda.synchronize()
+        out[name] = {"latents": lat.float().cpu().numpy(), "launches": _counts(kernels),
+                     "consistency_dev": compact_ring.max_consistency_dev, "s": time.perf_counter() - t0}
+        del runner, lat
+        gc.collect()
+        torch.cuda.empty_cache()
+    _reset_counts(kernels)
+    compact_ring.max_consistency_dev = 0.0
+    t0 = time.perf_counter()
+    with pixart_depth(SP_CUT):
+        lat, saved = per_layer_schedule_example.main(per_layer_argv, check_consistency=True)
+    torch.cuda.synchronize()
+    out["per_layer"] = {"latents": lat.float().cpu().numpy(), "launches": _counts(kernels), "saved": saved,
+                        "consistency_dev": compact_ring.max_consistency_dev, "s": time.perf_counter() - t0}
+    return out
+
+
+def examples_phase():
+    """Phase 52: both examples' ``main`` in one spawn of 4 gloo processes on
+    the card (:func:`examples_rank`): the external USP example at U2 x R2
+    within its 2e-5 through kernel 1's fp32 route (one launch a ring hop);
+    PixArt-alpha 512 cut to SP_CUT blocks at ring EXAMPLE_RING, EXAMPLE_STEPS
+    steps: the per-layer plan (warmup 2, layers 0-1 IDENTITY, BINARY after)
+    with finite latents equal on every rank, the launches of kernels 1, 2
+    and 3 the plan implies (its warm-up and its generate call), EF deviation
+    0, within COMPRESSED_REL_ERR_MAX of lossless; the all-BINARY run (warmup
+    2) likewise, and apart from the plan's (err > 0)."""
+    import numpy as np
+
+    from compactfusion_tpu_torch.examples import external_usp_example, per_layer_schedule_example as plan
+    from compactfusion_tpu_torch.parallel.mesh import spawn_local
+
+    ring = PIXART_ARGV + ["--ring_degree", str(EXAMPLE_RING), "--num_inference_steps", str(EXAMPLE_STEPS),
+                          "--output_type", "latent"]
+    binary = ring + ["--compact", "--compact_type", "binary", "--compact_warmup_steps", str(plan.WARMUP_STEPS)]
+    t0 = time.perf_counter()
+    ranks = spawn_local(examples_rank, 4, "gloo", ring, binary, ring, threads=2)
+    spawn_s = time.perf_counter() - t0
+    # -- the external USP example ---------------------------------------------
+    hops = external_usp_example.RING
+    for r, res in enumerate(ranks):
+        usp = res["usp"]
+        _check_counts(f"[52] external USP rank {r}", usp["launches"],
+                      {"flash_attn_with_lse": hops, F32["flash_attn_with_lse"]: hops})
+        if not usp["rel_err"] < external_usp_example.REL_MAX:
+            raise AssertionError(f"[52] external USP rank {r}: rel err {usp['rel_err']}")
+    print(f"[52] external_usp_example.main (a toy nn.Module block, U{external_usp_example.ULYSSES} x "
+          f"R{external_usp_example.RING}, {USP_SEQ} tokens, fp32) in 4 gloo processes: rel err vs one device "
+          f"{', '.join(f'{res['usp']['rel_err']:.3g}' for res in ranks)} (bound {external_usp_example.REL_MAX}); "
+          f"kernel 1's fp32 route {hops} launches a rank")
+    # -- the per-layer plan against lossless and all-BINARY --------------------
+    from compactfusion_tpu_torch.ops.attention import _flash_shape_ok
+
+    depth, comp = SP_CUT, EXAMPLE_STEPS - plan.WARMUP_STEPS
+    # a hop's q and K/V: the CFG batch's 1,024 / R tokens, 16 heads of 72;
+    # at ring 4 its 256 keys are under kernel 1's routing contract (the
+    # plain math path attends), at ring 2 they meet it
+    local = (2, 1024 // EXAMPLE_RING, 16, 72)
+    per_hop = depth * EXAMPLE_STEPS * EXAMPLE_RING * int(_flash_shape_ok(local, local))
+    binary_layers = depth - plan.LOSSLESS_LAYERS
+
+    def quant(layers, requests):  # a rank encodes its K and V, decodes R - 1 of each
+        return {"binary_quant_fastpath": requests * 2 * layers * comp,
+                "binary_dequant_fastpath": requests * 2 * (EXAMPLE_RING - 1) * layers * comp}
+
+    expect = {"lossless": {"flash_attn_with_lse": per_hop},
+              "binary": {"flash_attn_with_lse": per_hop, **quant(depth, 1)},
+              "per_layer": {"flash_attn_with_lse": 2 * per_hop, **quant(binary_layers, 2)}}
+    lossless = ranks[0]["lossless"]["latents"]
+    phases = {}
+    for name in ("lossless", "binary", "per_layer"):
+        lat = ranks[0][name]["latents"]
+        for r, res in enumerate(ranks):
+            _check_counts(f"[52] {name} rank {r}", res[name]["launches"], {**_with_routes(expect[name]), WIDE: 0})
+            if not np.array_equal(res[name]["latents"], lat) or res[name]["consistency_dev"] != 0.0:
+                raise AssertionError(f"[52] {name} rank {r}: latents differ from rank 0's or EF deviation "
+                                     f"{res[name]['consistency_dev']}")
+        if not np.isfinite(lat).all():
+            raise AssertionError(f"[52] {name}: non-finite latents")
+        rel = _rel_np(lat, lossless)
+        if name != "lossless" and not 0.0 < rel <= COMPRESSED_REL_ERR_MAX:
+            raise AssertionError(f"[52] {name}: rel err vs lossless {rel}")
+        phases[f"example {name}"] = {"latent_rel_err_vs_lossless": rel, "s": [res[name]["s"] for res in ranks],
+                                     "launches": {k: sum(res[name]["launches"][k] for res in ranks)
+                                                  for k in ranks[0][name]["launches"]}}
+    apart = _rel_np(ranks[0]["per_layer"]["latents"], ranks[0]["binary"]["latents"])
+    if not apart > 0.0:
+        raise AssertionError("[52] the per-layer plan's latents equal the all-BINARY run's")
+    print(f"[52] PixArt-alpha 512 cut to {depth} blocks, ring {EXAMPLE_RING} in 4 gloo processes, {EXAMPLE_STEPS} "
+          f"steps: per_layer_schedule_example.main (warmup {plan.WARMUP_STEPS}, layers 0-{plan.LOSSLESS_LAYERS - 1} "
+          f"IDENTITY, {binary_layers} BINARY; 2 requests) rel err vs lossless "
+          f"{phases['example per_layer']['latent_rel_err_vs_lossless']:.6g}, all-BINARY "
+          f"{phases['example binary']['latent_rel_err_vs_lossless']:.6g} (bound {COMPRESSED_REL_ERR_MAX}), plan vs "
+          f"all-BINARY {apart:.6g}; EF deviation 0; launches a rank as the plan implies "
+          f"({', '.join(f'{k} {v}' for k, v in ranks[0]['per_layer']['launches'].items() if v)}); saved "
+          f"{ranks[0]['per_layer']['saved']}; seconds lossless/binary/per-layer "
+          f"{ranks[0]['lossless']['s']:.2f}/{ranks[0]['binary']['s']:.2f}/{ranks[0]['per_layer']['s']:.2f}; the spawn "
+          f"{spawn_s:.1f} s")
+    phases["example external usp"] = {"rel_err": [res["usp"]["rel_err"] for res in ranks],
+                                      "launches": {k: sum(res["usp"]["launches"][k] for res in ranks)
+                                                   for k in ranks[0]["usp"]["launches"]}}
+    phases["example per_layer"]["plan_vs_binary_rel_err"] = apart
+    return phases
+
+
 def main():
     import torch
 
@@ -5558,7 +5919,7 @@ def main():
         if any(fn.launches for fn in kernels[1:]):
             raise AssertionError("compression off, yet a quant or window kernel launched")
         if lossless is None:
-            lossless = lat
+            lossless, images = lat, {"lossless": img}
         secs.append(sec)
         print(f"[3] request seed {seed}: image (1, 512, 512, 3) in [{lo:.4f}, {hi:.4f}], "
               f"flash launches {launched}, {sec:.4f} s/image")
@@ -5581,6 +5942,7 @@ def main():
     ]
     for phase, what, compact, plan, expect in runs:
         r = compressed_phase(phase, what, pipeline(compact), kernels, lossless, expect)
+        images[what] = r.pop("image")
         r["wire_compression_vs_bf16"] = wire_compression(codecs, plan)
         print(f"[{phase}] {what}: wire compression vs dense bf16 K/V {r['wire_compression_vs_bf16']:.2f}x")
         phases[what] = r
@@ -5894,14 +6256,18 @@ def main():
         t0 = time.perf_counter()
         got = run()
         video_secs[key] = time.perf_counter() - t0
+        if key == "43":
+            got, eig = got
         if key in ("43", "43, 47"):
             phases.update(got)
             continue
-        got_phases, rows = got
-        phases.update(got_phases)
         if key == "44":
+            got_phases, rows, latte_video = got
+            phases.update(got_phases)
             flash_rows += rows
             continue
+        got_phases, rows = got
+        phases.update(got_phases)
         flash_rows += rows["flash"]
         for codec in ("binary", "int2"):
             quant_rows[codec] += rows["quant"][codec]
@@ -5935,6 +6301,17 @@ def main():
                 f32_rows[kind] += got[kind]
     print(f"[48-50] seconds: {', '.join(f'{k} {v:.1f}' for k, v in sv_secs.items())}")
     mark("48-50")
+
+    # -- 51. quality eval, ddpm_step, tensor_viz; 52. the last two examples ------
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases.update(quality_phase(kernels, dev, images, latte_video, eig))
+    del images, latte_video
+    mark("51")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases.update(examples_phase())
+    mark("52")
 
     totals = {fn.__name__: sum(p["launches"][fn.__name__] for p in phases.values()) for fn in kernels}
     for key in ROUTES.values():
@@ -6007,7 +6384,7 @@ def main():
          "shapes": [dict(r["ef"], shape=r["shape"]) for r in f32_rows["cring"]]},
     ], "sdpa_cross_attention": cross_rows, "fp32_ptxas": f32_rows["ptxas"], "phases": phases}
     report["seconds_by_phase"] = secs_by_phase
-    print(f"[done] phases 1-50 passed in {time.perf_counter() - t_run:.1f} s, the kernels' build included "
+    print(f"[done] phases 1-52 passed in {time.perf_counter() - t_run:.1f} s, the kernels' build included "
           f"(seconds by phase: {', '.join(f'{k} {v:.1f}' for k, v in secs_by_phase.items())})")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,9 +32,25 @@ and HunyuanVideo (``models/hunyuanvideo.py``, the causal HV VAE in
 ``models/vae3d.py``); Step-Video-T2V (``models/stepvideo.py``,
 ``pipelines/stepvideo.py``: tensor-parallel throughout, latents out); and
 the compression statistics and activation collector (``compact/stats.py``,
-``utils/collector.py``).  Its TPU kernels are hand-written CUDA C++
-under ``csrc/``, built with ``nvcc`` at first use (``ops/_build.py``).  Anything outside that slice raises
-``NotImplementedError`` pointing at ``ROADMAP.md``.
+``utils/collector.py``); and around the core, the environment registry
+(``envs.py``), the quality metrics and their feature extractors (``eval/``:
+PSNR, SSIM, LPIPS on VGG16, InceptionV3 for FID, I3D for FVD), the DDPM
+ancestral step, the offline plots (``utils/tensor_viz.py``) and the
+per-layer-schedule and external-USP examples.  Its TPU kernels are
+hand-written CUDA C++ under ``csrc/``, built with ``nvcc`` at first use
+(``ops/_build.py``).  What the port leaves out on purpose (the XLA cache,
+``jit_init``, ``scan_segments``, the TPU-only flash flags) is listed in
+``ROADMAP.md``.
 """
 
 ROADMAP_HINT = "not ported yet; see ROADMAP.md (PyTorch/CUDA port queues)"
+
+from compactfusion_tpu_torch.config import (  # noqa: E402,F401
+    CompactConfig,
+    EngineConfig,
+    InputConfig,
+    ModelConfig,
+    ParallelConfig,
+    RuntimeConfig,
+)
+from compactfusion_tpu_torch.parallel.mesh import make_mesh  # noqa: E402,F401

@@ -50,6 +50,7 @@ class StatsLogger:
     def __init__(self):
         self.records = collections.defaultdict(list)  # key -> [(step, metrics)]
         self.spectra = collections.defaultdict(list)  # key -> [[sv...], ...]
+        self.shapes = {}  # key -> [N, C] of the matrix its spectra were cut from
         self.sent_bytes = 0
         self.raw_bytes = 0
 
@@ -82,13 +83,18 @@ class StatsLogger:
     def dump_eigenvalues(self, path: str, depth: Optional[int] = None):
         """JSON eigenvalue dump (reference ``save_eigenvalues``): with
         ``depth``, each key's spectra grouped ``[step][layer] -> [sv...]``,
-        else one flat list."""
+        else one flat list.  One divergence: where :func:`log_spectrum_inside_jit`
+        recorded them, ``"_shapes"`` maps each key to the [N, C] of the
+        matrix its top-k spectra were cut from, which ``utils/tensor_viz.py``
+        needs to draw a top-k spectrum against the right baseline."""
         out = {}
         for key, rows in self.spectra.items():
             if depth and len(rows) % depth == 0:
                 out[key] = [rows[i:i + depth] for i in range(0, len(rows), depth)]
             else:
                 out[key] = rows
+        if self.shapes:
+            out["_shapes"] = dict(self.shapes)
         with open(path, "w") as f:
             json.dump(out, f)
         return out
@@ -142,6 +148,8 @@ def spectrum(x: torch.Tensor, top_k: int = 64) -> torch.Tensor:
 
 
 def log_spectrum_inside_jit(key: str, x: torch.Tensor, top_k: int = 64, rank=None):
-    """Record the top-k singular values of ``x`` under ``key``."""
-    StatsLogger.instance().spectra[_tagged(key, rank)].append(
-        [float(v) for v in spectrum(x, top_k).reshape(-1).tolist()])
+    """Record the top-k singular values of ``x`` under ``key``, and the
+    shape of the matrix they were cut from."""
+    log, key = StatsLogger.instance(), _tagged(key, rank)
+    log.spectra[key].append([float(v) for v in spectrum(x, top_k).reshape(-1).tolist()])
+    log.shapes[key] = [int(n) for n in x.shape[-2:]]

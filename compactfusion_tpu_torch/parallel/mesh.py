@@ -24,7 +24,6 @@ tail, which decodes in height bands (``parallel/vae.py``).
 from __future__ import annotations
 
 import dataclasses
-import os
 import queue
 import time
 import traceback
@@ -34,6 +33,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from compactfusion_tpu_torch import envs
 from compactfusion_tpu_torch.config import ParallelConfig
 
 AXIS_DP = "dp"
@@ -303,9 +303,9 @@ def init_distributed_environment(backend: str, device: str = "cuda") -> torch.de
     group.  Returns the device."""
     if device not in ("cuda", "cpu"):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    rank = int(os.environ.get("RANK", "0"))
-    local = int(os.environ.get("LOCAL_RANK", str(rank)))
+    world = envs.WORLD_SIZE or 1
+    rank = envs.RANK or 0
+    local = rank if envs.LOCAL_RANK is None else envs.LOCAL_RANK
     if device == "cpu":
         bound = torch.device("cpu")
     elif not torch.cuda.is_available():
@@ -315,8 +315,9 @@ def init_distributed_environment(backend: str, device: str = "cuda") -> torch.de
         bound = torch.device("cuda", local % torch.cuda.device_count())
         torch.cuda.set_device(bound)
     if world > 1 and not dist.is_initialized():
-        addr = os.environ["MASTER_ADDR"]
-        port = os.environ["MASTER_PORT"]
+        addr, port = envs.MASTER_ADDR, envs.MASTER_PORT
+        if addr is None or port is None:
+            raise KeyError("MASTER_ADDR and MASTER_PORT must be set for WORLD_SIZE > 1")
         dist.init_process_group(backend, init_method=f"tcp://{addr}:{port}", rank=rank,
                                 world_size=world)
     return bound

@@ -6,7 +6,10 @@ package; the step index is a Python int, so the first/last-step branches
 are plain ``if``s; :func:`dpm_step_patch` steps one patch of the latents
 with its own state (patch-pipelined PipeFusion).  The CogVideoX variants of the schedule (SNR shift,
 zero terminal SNR) are ported, with the DDIM steps (eta 0) for epsilon and
-v prediction; the ancestral DDPM stepper is not ported yet.
+v prediction, and the ancestral DDPM step (:func:`ddpm_step`), whose noise
+comes from the caller's ``torch.Generator`` where JAX draws from a
+``PRNGKey`` (a recorded divergence; :func:`ddpm_posterior` is the rest of
+the step, held against JAX).
 """
 
 from __future__ import annotations
@@ -105,6 +108,38 @@ def ddim_step_v(sched: DDPMSchedule, i: int, num_steps: int, sample: torch.Tenso
     eps = sa * v32 + sb * x32
     out = torch.sqrt(a_prev).item() * x0 + torch.sqrt(1.0 - a_prev).item() * eps
     return out.to(sample.dtype)
+
+
+def ddpm_posterior(sched: DDPMSchedule, i: int, num_steps: int, sample: torch.Tensor, eps: torch.Tensor,
+                   num_train_timesteps: int = 1000):
+    """DDPM's posterior q(x_{t-1} | x_t, x0) at step ``i`` (DDPM eq. 7), x0
+    predicted from ``eps`` and clipped to [-1, 1]: (the fp32 mean, its
+    standard deviation as a float; 0 at the last step)."""
+    t = int(sched.timesteps[i])
+    t_prev = t - num_train_timesteps // num_steps
+    a_t = _alpha_at(sched, t)
+    a_prev = _alpha_at(sched, t_prev)
+    alpha_t = a_t / a_prev
+    beta_t = 1.0 - alpha_t
+    x32, e32 = sample.float(), eps.float()
+    x0 = torch.clamp(_pred_x0(x32, e32, a_t), -1.0, 1.0)
+    coef_x0 = (torch.sqrt(a_prev) * beta_t / (1.0 - a_t)).item()
+    coef_xt = (torch.sqrt(alpha_t) * (1.0 - a_prev) / (1.0 - a_t)).item()
+    mean = coef_x0 * x0 + coef_xt * x32
+    var = torch.clamp(beta_t * (1.0 - a_prev) / (1.0 - a_t), min=1e-20)
+    return mean, torch.sqrt(var).item() if t_prev >= 0 else 0.0
+
+
+def ddpm_step(sched: DDPMSchedule, i: int, num_steps: int, sample: torch.Tensor, eps: torch.Tensor,
+              generator: torch.Generator, num_train_timesteps: int = 1000) -> torch.Tensor:
+    """One DDPM ancestral step: the posterior mean plus its standard
+    deviation times fp32 noise drawn from ``generator`` (on the sample's
+    device; no draw at the last step, where the deviation is 0)."""
+    mean, std = ddpm_posterior(sched, i, num_steps, sample, eps, num_train_timesteps)
+    if std:
+        mean = mean + std * torch.randn(sample.shape, generator=generator, dtype=torch.float32,
+                                        device=sample.device)
+    return mean.to(sample.dtype)
 
 
 class DPMState(NamedTuple):

@@ -28,11 +28,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from compactfusion_tpu_torch import envs
+
 _SEQ: dict = {}
 
 
 def _dir() -> str:
-    return os.environ.get("CFTPU_COLLECT_DIR", "")
+    return envs.CFTPU_COLLECT_DIR
 
 
 def enabled() -> bool:

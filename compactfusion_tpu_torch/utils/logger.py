@@ -8,15 +8,16 @@ root logger.
 from __future__ import annotations
 
 import logging
-import os
 import sys
+
+from compactfusion_tpu_torch import envs
 
 _FORMAT = "%(levelname)s %(asctime)s [%(name)s] %(message)s"
 _configured = False
 
 
 def _level() -> int:
-    name = os.environ.get("CFTPU_LOGGING_LEVEL", os.environ.get("XDIT_LOGGING_LEVEL", "INFO")).upper()
+    name = envs.CFTPU_LOGGING_LEVEL.upper()
     return getattr(logging, name, logging.INFO)
 
 

@@ -226,10 +226,14 @@ def _f32(tree):
                                   tree)
 
 
-def jax_runner(argv, spice=False):
+def jax_runner(argv, spice=False, configure=None):
     """The JAX runner from a command line, moved to fp32 (backbone, VAE and
-    text encoders; int8 codes stay int8), and its weights as numpy trees."""
+    text encoders; int8 codes stay int8), and its weights as numpy trees.
+    ``configure(engine, input)`` returns the configs to build it from, as an
+    example script edits them after ``create_config``."""
     e, i = _config(jargs, argv)
+    if configure is not None:
+        e, i = configure(e, i)
     jr = japi.xDiTParallel(e, i)
     pcfg = jr.pipeline_config
     cfg = dataclasses.replace(pcfg, model=dataclasses.replace(pcfg.model, dtype=jnp.float32),

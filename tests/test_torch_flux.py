@@ -303,3 +303,72 @@ def test_flux_vae_matches_jax():
     fields = {f.name for f in dataclasses.fields(t)} - {"dtype"}
     assert {f: getattr(t, f) for f in fields} == {f: getattr(j, f) for f in fields}
     assert (t.latent_channels, t.scaling_factor, t.shift_factor) == (16, 0.3611, 0.1159)
+
+
+# ---------------------------------------------------------------------------
+# FLUX records: the sparse codec on the relayouted K; the EF-cache bytes
+# ---------------------------------------------------------------------------
+
+
+def test_sparse_codec_on_relayouted_flux_k_matches_jax():
+    """``encode_sparse``/``sim_sparse`` (1:8) on FLUX's K (24 heads of 128)
+    after the rope relayout (``rope_half_perm``, the converters' head-dim
+    order): bit-equal to JAX's codec on JAX's relayouted K.  The payload
+    differs from the one for the interleaved layout, since the relayout
+    moves each rope pair's channels (j, j+1) to j/2 and 64 + j/2 and so
+    changes the 8-channel groups (docs/PERF.md:151-158)."""
+    from compactfusion_tpu.compact import codecs as jcodecs
+    from compactfusion_tpu_torch.compact import codecs as tcodecs
+
+    cfg = tflux.flux_dev()
+    heads, dh = cfg.heads, cfg.dim // cfg.heads
+    rng = np.random.default_rng(7)
+    k = (rng.standard_normal((256, heads, dh)) * rng.uniform(0.2, 2.0, dh)).astype(np.float32)
+    perm = tcm.rope_half_perm(dh)
+    np.testing.assert_array_equal(perm, jcm.rope_half_perm(dh))
+    k_t = torch.from_numpy(k)[..., torch.from_numpy(perm)].reshape(256, heads * dh)
+    k_j = jnp.take(jnp.asarray(k), jnp.asarray(jcm.rope_half_perm(dh)), axis=-1).reshape(256, heads * dh)
+    got, want = tcodecs.encode_sparse(k_t, 8), jcodecs.encode_sparse(k_j, 8)
+    np.testing.assert_array_equal(got.values.float().numpy(), np.asarray(want.values, np.float32))
+    np.testing.assert_array_equal(got.indices.numpy(), np.asarray(want.indices))
+    np.testing.assert_array_equal(tcodecs.sim_sparse(k_t, 8).numpy(), np.asarray(jcodecs.sim_sparse(k_j, 8)))
+    plain = tcodecs.encode_sparse(torch.from_numpy(k).reshape(256, heads * dh), 8)
+    assert not torch.equal(plain.indices, got.indices)
+    assert not torch.equal(plain.values.float().sort(dim=-1).values, got.values.float().sort(dim=-1).values)
+
+
+def _ring8_ef_bytes(heads, head_dim, layers, tokens, quantized):
+    """Bytes of one rank's EF caches at ring 8 (K and V, every layer), from
+    ``CompactUSPAttn.init_state`` on the meta device."""
+    from compactfusion_tpu_torch.models.attn_impl import CompactUSPAttn
+    from compactfusion_tpu_torch.parallel import mesh as tmesh
+
+    ring = 8
+    par = tmesh.ParallelConfig(ring_degree=ring)
+    mesh = tmesh.Mesh(par, 0, None, {tmesh.AXIS_RING: 0}, {tmesh.AXIS_RING: None},
+                      {tmesh.AXIS_RING: list(range(ring))})
+    strategy = CompactUSPAttn(CompactConfig(enabled=True, quantized_cache=quantized), CompressType.BINARY, mesh)
+    state = strategy.init_state(layers, 1, tokens // ring, heads, head_dim, torch.bfloat16, device="meta")
+    return sum(t.numel() * t.element_size() for t in jax.tree_util.tree_leaves(
+        state, is_leaf=lambda x: isinstance(x, torch.Tensor)))
+
+
+@pytest.mark.parametrize("model", ["flux-1024", "cogvideox-49f"])
+def test_ring8_ef_cache_bytes_match_the_records(model):
+    """Per-device EF-cache bytes at ring 8 against docs/PERF.md:320-326:
+    FLUX.1-dev at 1024 px (57 layers, 4,096 image tokens; the text rows are
+    never cached) 2.87 GB in bf16 and 1.45 GB with int8 caches;
+    CogVideoX-5B at 49 frames (42 layers, 17,550 tokens, 2,193 a rank, B 1
+    a rank) 9.05 GB and 4.54 GB."""
+    from compactfusion_tpu_torch.models import cogvideox as tcog
+
+    if model == "flux-1024":
+        cfg = tflux.flux_dev()
+        dims = (cfg.heads, cfg.dim // cfg.heads, cfg.double_layers + cfg.single_layers, (1024 // 16) ** 2)
+        want = (2.87, 1.45)
+    else:
+        cfg = tcog.cogvideox_5b()
+        dims = (cfg.heads, cfg.dim // cfg.heads, cfg.depth, 13 * (480 // 16) * (720 // 16))
+        want = (9.05, 4.54)
+    got = tuple(round(_ring8_ef_bytes(*dims, quantized=q) / 1e9, 2) for q in (False, True))
+    assert got == want

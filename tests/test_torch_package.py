@@ -46,7 +46,9 @@ def test_importing_every_module_leaves_jax_out():
               "compact.stats", "utils.collector", "models.face", "models.consisid", "pipelines.consisid",
               "models.latte", "pipelines.latte", "models.hunyuanvideo", "pipelines.hunyuanvideo",
               "examples.latte_example", "examples.consisid_example", "examples.hunyuanvideo_example",
-              "models.stepvideo", "pipelines.stepvideo", "examples.stepvideo_example"):
+              "models.stepvideo", "pipelines.stepvideo", "examples.stepvideo_example", "envs", "eval",
+              "eval.metrics", "eval.vgg", "eval.inception", "eval.i3d", "utils.tensor_viz",
+              "examples.per_layer_schedule_example", "examples.external_usp_example"):
         assert f"compactfusion_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -60,6 +62,47 @@ def test_importing_every_module_leaves_jax_out():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+#: JAX modules whose counterpart has another name in the port
+PORT_NAMES = {"ops/flash_pallas.py": "ops/flash.py", "ops/quant_pallas.py": "ops/quant.py",
+              "ops/ring_flash_pallas.py": "ops/ring_flash.py"}
+#: JAX modules left out on purpose (ROADMAP.md's do-not-port list: TPU-only)
+DO_NOT_PORT = {"utils/jax_cache.py"}
+JAX_MODULES = sorted(str(p.relative_to(REPO / "compactfusion_tpu")) for p in (REPO / "compactfusion_tpu").rglob("*.py"))
+JAX_EXAMPLES = sorted(p.name for p in (REPO / "examples").glob("*.py"))
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Each module of ``compactfusion_tpu/`` (and each script of the JAX
+    ``examples/``) has its counterpart at the same path in the port, its
+    port name in ``PORT_NAMES`` or its place on ``DO_NOT_PORT``."""
+    assert not set(PORT_NAMES) & DO_NOT_PORT
+    modules = JAX_MODULES + [f"examples/{name}" for name in JAX_EXAMPLES]
+    assert len(modules) > 90 and set(PORT_NAMES) | DO_NOT_PORT <= set(modules)
+    missing = [m for m in modules
+               if m not in DO_NOT_PORT and not (REPO / "compactfusion_tpu_torch" / PORT_NAMES.get(m, m)).is_file()]
+    assert missing == []
+
+
+def test_package_exports_match_jax():
+    """``compactfusion_tpu_torch`` exports the config classes and
+    ``make_mesh`` as ``compactfusion_tpu/__init__.py`` does (the port has no
+    ``MeshSpec``); ``eval`` and ``schedulers`` export JAX's names."""
+    import compactfusion_tpu
+    from compactfusion_tpu import eval as jeval
+    from compactfusion_tpu import schedulers as jsched
+    from compactfusion_tpu_torch import eval as teval
+    from compactfusion_tpu_torch import schedulers as tsched
+
+    for name in ("CompactConfig", "EngineConfig", "InputConfig", "ModelConfig", "ParallelConfig", "RuntimeConfig",
+                 "make_mesh"):
+        assert getattr(compactfusion_tpu, name).__name__ == getattr(compactfusion_tpu_torch, name).__name__
+        assert getattr(compactfusion_tpu_torch, name).__module__.startswith("compactfusion_tpu_torch.")
+    assert not hasattr(compactfusion_tpu_torch, "MeshSpec")
+    for jmod, tmod in ((jeval, teval), (jsched, tsched)):
+        public = [n for n in dir(jmod) if not n.startswith("_") and not isinstance(getattr(jmod, n), type(jmod))]
+        assert [n for n in public if not hasattr(tmod, n)] == []
 
 
 def _imports(path):

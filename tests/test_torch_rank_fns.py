@@ -363,24 +363,15 @@ def sp_pipeline_latents(rank, world, jobs):
     return res
 
 
-def port_runner(argv, weights=None, device="cpu"):
-    """The port's ``xDiTParallel`` from a command line, on ``device``.  With
-    ``weights`` (numpy trees "params", "vae", "t5" and, for FLUX, "clip_l"),
-    the backbone and VAE configs go to fp32 and every weight is replaced by
-    the given one, so the runner computes what a JAX runner with the same
-    weights computes in fp32."""
+def carry_weights(runner, weights):
+    """Replace every weight of an ``xDiTParallel`` runner by the given numpy
+    trees ("params", "vae", "t5" and, for FLUX, "clip_l") with the backbone
+    and VAE configs in fp32: the runner then computes what a JAX runner
+    with the same weights computes in fp32."""
     import dataclasses
 
-    from compactfusion_tpu_torch.args import FlexibleArgumentParser, xFuserArgs
     from compactfusion_tpu_torch.io.from_jax import params_from_numpy
-    from compactfusion_tpu_torch.parallel_api import xDiTParallel
 
-    parser = FlexibleArgumentParser()
-    xFuserArgs.add_cli_args(parser)
-    engine, inp = xFuserArgs.from_cli_args(parser.parse_args(argv)).create_config()
-    runner = xDiTParallel(engine, inp, device=device)
-    if weights is None:
-        return runner
     f32 = torch.float32
     pcfg = runner.pipeline_config
     cfg = dataclasses.replace(pcfg, model=dataclasses.replace(pcfg.model, dtype=f32),
@@ -396,6 +387,19 @@ def port_runner(argv, weights=None, device="cpu"):
             bundle.params = params_from_numpy(weights[name], dtype=f32)
             bundle.cfg = dataclasses.replace(bundle.cfg, dtype=f32)
     return runner
+
+
+def port_runner(argv, weights=None, device="cpu"):
+    """The port's ``xDiTParallel`` from a command line, on ``device``; with
+    ``weights``, :func:`carry_weights` on it."""
+    from compactfusion_tpu_torch.args import FlexibleArgumentParser, xFuserArgs
+    from compactfusion_tpu_torch.parallel_api import xDiTParallel
+
+    parser = FlexibleArgumentParser()
+    xFuserArgs.add_cli_args(parser)
+    engine, inp = xFuserArgs.from_cli_args(parser.parse_args(argv)).create_config()
+    runner = xDiTParallel(engine, inp, device=device)
+    return runner if weights is None else carry_weights(runner, weights)
 
 
 def runner_latents(rank, world, runs, weights, noise):
@@ -719,3 +723,41 @@ def stepvideo_latents(rank, world, configs, params, inputs):
         lat = StepVideoPipeline(tparams, cfg, "cpu", mesh=mesh)(txt, latents=noise)
         res[name] = (lat.numpy(), tring.max_consistency_dev)
     return res
+
+
+def examples_outputs(rank, world, argv, weights, noise, lossless_layers, out_dir):
+    """The two last examples on 4 ranks: ``external_usp_example.main`` on
+    this rank's CPU (U2 x R2), then ``per_layer_schedule_example.main`` at
+    ``argv`` (ring 2: ranks 2 and 3 only join its groups) with the first
+    ``lossless_layers`` layers IDENTITY, its runner on the CPU with
+    ``weights`` carried across and ``noise`` as every call's latents, the EF
+    consistency check on, saving under ``out_dir``.  Returns the USP error,
+    then the latents, the largest EF deviation and the saved paths."""
+    import os
+
+    from compactfusion_tpu_torch.args import FlexibleArgumentParser, xFuserArgs
+    from compactfusion_tpu_torch.examples import external_usp_example
+    from compactfusion_tpu_torch.examples import per_layer_schedule_example as example
+
+    out = {"usp_rel_err": external_usp_example.main(device=torch.device("cpu"))}
+    parser = FlexibleArgumentParser()
+    xFuserArgs.add_cli_args(parser)
+    par = xFuserArgs.from_cli_args(parser.parse_args(argv)).create_config()[0].parallel_config
+    if rank >= par.world_size:
+        _join_groups(par)
+        return out
+
+    class Carried(example.xDiTParallel):
+        def __init__(self, engine_config, input_config, checkpoint=None, device="cuda"):
+            super().__init__(engine_config, input_config, checkpoint, device="cpu")
+            carry_weights(self, weights)
+
+        def __call__(self, generator=None, decode=None, latents=None):
+            return super().__call__(generator, decode, torch.from_numpy(noise) if latents is None else latents)
+
+    example.xDiTParallel, example.LOSSLESS_LAYERS = Carried, lossless_layers
+    os.chdir(out_dir)
+    tring.max_consistency_dev = 0.0
+    lat, saved = example.main(argv, check_consistency=True)
+    out.update(latents=lat.numpy(), consistency_dev=tring.max_consistency_dev, saved=saved)
+    return out
