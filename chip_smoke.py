@@ -237,7 +237,10 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
     (``--num_pipeline_patch 1``; bit-equal to the one-process runner
     expected, within HALVES_REL_MAX), the patch pipeline at pp2 with M = 2
     (the default) and with M = 4 after 2 warmup steps (PATCH_PP_REL from
-    sync), TP 2 (within HALVES_REL_MAX), pp2 x ring 2 BINARY (the
+    sync), TP 2 (within HALVES_REL_MAX), TP 2 with DiTFastAttn from a
+    cached plan (phase 21's mixed plan on the 14 blocks, the runner's cache
+    file; within HALVES_REL_MAX of the one-process runner running the same
+    cached plan, kernel 4 launched as the plan implies), pp2 x ring 2 BINARY (the
     consistency check on: 0 < err < 0.05, EF deviation 0), and ring 2 with
     2 VAE ranks (rank 0's image within VAE_RANKS_ATOL and VAE_RANKS_MEAN of
     the one-process decode of its latents, no image on the other ranks);
@@ -292,7 +295,8 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
     ring, cfg and all-to-all bytes the shapes imply.
 43-47. The stats and collector taps; Latte-1, ConsisID-preview and
     HunyuanVideo-T2V at full width and depth through ``xDiTParallel``, and
-    cut in depth across 2 gloo processes (``observability_phase``,
+    cut in depth across 2 gloo processes (Latte also at tp 2 and pp 2,
+    pp bit-equal to one process; ``observability_phase``,
     ``latte_phase``, ``consisid_phase``, ``hunyuanvideo_phase``,
     ``video_ring_phase``).
 48. Kernel 1 at Step-Video-T2V's B2 H48 S18,972 d128 against its twin on
@@ -3612,10 +3616,11 @@ def patch_flash_cases(gen, dev):
     ]
 
 
-def pp_runner_rank(rank, world, runs):
+def pp_runner_rank(rank, world, runs, plan_dir):
     """One rank of phase 35 (``spawn_local`` on this GPU, gloo): per run
     (name, argv, whether the consistency check is on) ``xDiTParallel`` from
     the command line (PixArt's AdaLN tables spiced, as phase 31's runner),
+    built in ``plan_dir`` (where a DiTFastAttn run finds its cached plan),
     the request from its prompt with every launch count set to 0 before
     it: its latents (None on a VAE rank), then the image as the runner
     decodes it (rank 0's alone with VAE ranks, the VAE ranks decoding their
@@ -3646,7 +3651,7 @@ def pp_runner_rank(rank, world, runs):
         if check:
             engine = dataclasses.replace(engine, compact_config=dataclasses.replace(
                 engine.compact_config, check_consistency=True))
-        with pixart_depth(RUNNER_CUT):
+        with pixart_depth(RUNNER_CUT), contextlib.chdir(plan_dir):
             runner = xDiTParallel(engine, inp)
         _reset_counts(kernels)
         compact_ring.max_consistency_dev = 0.0
@@ -3681,14 +3686,22 @@ def pp_pixart_phase(kernels, flash, timing, dev, gen):
     full width and :data:`RUNNER_CUT` blocks through ``xDiTParallel`` from the prompt, in 4 gloo
     processes on this card: sync PipeFusion pp2 (``--num_pipeline_patch
     1``), the patch pipeline at pp2 with M = 2 (the default) and with M = 4
-    after 2 warmup steps, TP 2, pp2 x ring 2 BINARY (the consistency check
-    on), and ring 2 with 2 VAE ranks; against the one-process runner's
-    request.  Returns (the phases, kernel 1's rows)."""
+    after 2 warmup steps, TP 2, TP 2 with DiTFastAttn from a cached plan
+    (phase 21's mixed plan on the cut's blocks, written as the runner's
+    cache file first), pp2 x ring 2 BINARY (the consistency check on), and
+    ring 2 with 2 VAE ranks; against the one-process runner's request (the
+    DiTFastAttn run against one process running the same cached plan).
+    Returns (the phases, kernel 1's rows)."""
+    import shutil
+    import tempfile
+
     import numpy as np
     import torch
 
+    from compactfusion_tpu_torch.cache.fast_attn import optimize_plan, save_plan
+    from compactfusion_tpu_torch.config import FastAttnConfig
     from compactfusion_tpu_torch.parallel.mesh import spawn_local
-    from compactfusion_tpu_torch.parallel_api import xDiTParallel
+    from compactfusion_tpu_torch.parallel_api import fast_attn_cache_path, xDiTParallel
 
     rows = check_flash(flash, timing, dev, gen, patch_flash_cases(gen, dev)[:2], phase=35)
     # the one-process reference: the same weights (spiced), prompt and seed
@@ -3700,19 +3713,43 @@ def pp_pixart_phase(kernels, flash, timing, dev, gen):
     one = runner(decode=False)
     _check_counts("[35] one process", _counts(kernels), {"flash_attn_with_lse": RUNNER_CUT * STEPS})
     pipe = runner.pipeline
+    # the cached plan, and one process running it (the runner finds it in
+    # the working directory, as a tp rank does below)
+    fast = FastAttnConfig(use_fast_attn=True, use_cache=True, window_size=WINDOW)
+    plan_dir = tempfile.mkdtemp()
+    plan = mixed_plan()[:, :RUNNER_CUT]
+    save_plan(plan, os.path.join(plan_dir, fast_attn_cache_path(PIXART_ARGV[1], STEPS, RUNNER_CUT, fast)))
+    with contextlib.chdir(plan_dir):
+        runner._apply_fast_attn(fast)
+    if runner.pipeline_config.fast_attn_plan != tuple(map(tuple, plan.tolist())):
+        raise AssertionError("[35] the one-process runner did not take the cached plan")
+    plan_full, plan_window = plan_launches(optimize_plan(plan))
+    _reset_counts(kernels)
+    planned, plan_s = _events_s(lambda: runner(decode=False))
+    planned_counts = _counts(kernels)
+    # no decode here: the VAE's one full launch is not in the count
+    _check_counts("[35] one process, cached plan", planned_counts,
+                  {"flash_attn_with_lse": plan_full - 1, "flash_attn_window_with_lse": plan_window})
     del runner  # the prompt encoder leaves the card; the pipeline decodes below
     torch.cuda.empty_cache()
-    one_np = one.float().cpu().numpy()
+    one_np, planned_np = one.float().cpu().numpy(), planned.float().cpu().numpy()
     ref_s = time.perf_counter() - t0
+    print(f"[35] one process with the cached plan ({plan_full - 1} full and {plan_window} window launches of "
+          f"{RUNNER_CUT * STEPS} layer-steps): {plan_s:.4f} s; rel err vs no plan {_rel_np(planned_np, one_np):.6g}")
+    phases = {"pixart one process cached plan": {"s": plan_s, "launches": planned_counts,
+                                                 "latent_rel_err_vs_no_plan": _rel_np(planned_np, one_np)}}
     sync = PP_ARGV + ["--num_pipeline_patch", "1"]
     runs = [("pp2 sync", sync, False), ("pp2 patch M2", PP_ARGV, False),
             ("pp2 patch M4 warmup 2", PP_ARGV + ["--num_pipeline_patch", "4", "--warmup_steps", "2"], False),
             ("tp2", PIXART_ARGV + ["--tensor_parallel_degree", "2"], False),
+            ("tp2 fast-attn cached plan", PIXART_ARGV + ["--tensor_parallel_degree", "2", "--use_fast_attn",
+                                                         "--use_cache", "--window_size", str(WINDOW)], False),
             ("pp2 x ring2 binary", sync + ["--ring_degree", "2", "--compact", "--compact_type", "binary"], True),
             ("ring2 + 2 VAE ranks", PIXART_ARGV + ["--ring_degree", "2", "--vae_parallel_size", "2"], False)]
     t0 = time.perf_counter()
-    four = spawn_local(pp_runner_rank, 4, "gloo", runs, threads=2)
+    four = spawn_local(pp_runner_rank, 4, "gloo", runs, plan_dir, threads=2)
     spawn_s = time.perf_counter() - t0
+    shutil.rmtree(plan_dir)
     half, comp = RUNNER_CUT // 2, STEPS - WARMUP
     # kernel 1 a rank: its stage's RUNNER_CUT / 2 blocks a forward; the patch pipeline's
     # sync warmup steps and its priming step take the whole sequence, then
@@ -3722,6 +3759,9 @@ def pp_pixart_phase(kernels, flash, timing, dev, gen):
         "pp2 patch M2": lambda r: {"flash_attn_with_lse": half * (1 + 2 * (STEPS - 1)) + 1},
         "pp2 patch M4 warmup 2": lambda r: {"flash_attn_with_lse": half * (2 + 4 * (STEPS - 2)) + 1},
         "tp2": lambda r: {"flash_attn_with_lse": RUNNER_CUT * STEPS + 1},
+        # each tp rank's attention is whole: the plan's launches, and the decode's
+        "tp2 fast-attn cached plan": lambda r: {"flash_attn_with_lse": plan_full,
+                                                "flash_attn_window_with_lse": plan_window},
         "pp2 x ring2 binary": lambda r: {"flash_attn_with_lse": 2 * half * STEPS + 1,
                                          "binary_quant_fastpath": 2 * half * comp,
                                          "binary_dequant_fastpath": 2 * half * comp},
@@ -3730,7 +3770,6 @@ def pp_pixart_phase(kernels, flash, timing, dev, gen):
         "ring2 + 2 VAE ranks": lambda r: ({"flash_attn_with_lse": 2 * RUNNER_CUT * STEPS, WIDE: 0} if r < 2
                                           else {"flash_attn_with_lse": 1}),
     }
-    phases = {}
     sync_np = None
     for name, argv, _ in runs:
         ranks = [res[name] for res in four if res[name] is not None]
@@ -3756,6 +3795,10 @@ def pp_pixart_phase(kernels, flash, timing, dev, gen):
         elif name == "tp2":
             ok = rel <= HALVES_REL_MAX
             line += f" (bound {HALVES_REL_MAX})"
+        elif name == "tp2 fast-attn cached plan":
+            rep["latent_rel_err_vs_one_process_same_plan"] = vs = _rel_np(lat, planned_np)
+            ok = vs <= HALVES_REL_MAX
+            line += f"; vs one process with the same plan {vs:.6g} (bound {HALVES_REL_MAX})"
         elif "binary" in name:
             ok = 0.0 < rel <= COMPRESSED_REL_ERR_MAX and rep["consistency_dev"] == 0.0
             line += f" (bounds (0, {COMPRESSED_REL_ERR_MAX}]); EF deviation {rep['consistency_dev']}"
@@ -5043,7 +5086,9 @@ def video_ring_phase(kernels, dev):
     (kernel 8 never launches; the quant kernels do).  47: each new family
     at full width cut to :data:`VID_CUT` blocks, :data:`VID_CUT_STEPS`
     steps (warmup 1, the consistency check on): Latte at Ulysses 2 (the
-    frame all-to-alls) and cfg 2; ConsisID with identity tokens at ring 2
+    frame all-to-alls), cfg 2, tp 2 (the ffns split; within the lossless
+    bound) and pp 2 (every rank the whole model: one process's latents bit
+    for bit); ConsisID with identity tokens at ring 2
     lossless and BINARY (a rank's 2,700 rows plus 226 text rows: the
     unfused route, as in JAX); HunyuanVideo at U2 and at ring 2 lossless and
     BINARY, each unfused and fused (kernels 7 and 8).  One process runs
@@ -5080,6 +5125,7 @@ def video_ring_phase(kernels, dev):
     ring2, fused2 = {"ring_degree": 2}, {"ring_degree": 2, "use_fused_ring": True}
     runs = [("latte u2 lossless", "latte", {"ulysses_degree": 2}, None),
             ("latte cfg2 lossless", "latte", {"cfg_degree": 2}, None),
+            ("latte tp2", "latte", {"tp_degree": 2}, None), ("latte pp2", "latte", {"pp_degree": 2}, None),
             ("consisid ring2 lossless", "consisid", ring2, None), ("consisid ring2 binary", "consisid", ring2, "binary"),
             ("hunyuanvideo u2 lossless", "hunyuanvideo", {"ulysses_degree": 2}, None),
             ("hunyuanvideo ring2 lossless", "hunyuanvideo", ring2, None),
@@ -5140,6 +5186,8 @@ def video_ring_phase(kernels, dev):
                 raise AssertionError(f"{name}: EF caches differ across ranks")
         else:
             more = [(name[:-6], two[0][name[:-6]]["latents"], ref["bound"])] if name.endswith("fused") else []
+            if name == "latte pp2":  # the whole model on the whole weights
+                more = [("one process, bit for bit", ref["one"], 0.0)]
             phases[name] = ring_phase(47, two, name, ref["one"], want, ref["bound"], more)
         phases[name]["latent_rel_err_order_floor"] = ref["floor"]
     # Latte U2: each temporal block's two all-to-alls move half of the

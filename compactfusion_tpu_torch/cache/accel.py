@@ -16,7 +16,8 @@ Under sequence parallelism the probe's sums run over the (ring, ulysses)
 ranks (``sp_axes``, an all-reduce on the mesh), so every rank takes the
 same branch.
 Incompatible with CompactFusion EF compression: skipped steps would desync
-the EF caches, and the pipelines refuse the combination.
+the EF caches, and the pipelines refuse the combination.  Incompatible with
+PipeFusion too (:data:`PIPEFUSION_REFUSAL`).
 """
 
 from __future__ import annotations
@@ -26,6 +27,13 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+#: why PixArt and FLUX refuse a cache under PipeFusion.  The JAX package
+#: runs it, but there each stage runs only its own blocks and passes no
+#: activations on, so its pp-2 latents leave its pp-1 latents with the same
+#: cache (tests/test_torch_cache_accel.py::test_jax_cache_under_pipefusion_leaves_one_stage)
+PIPEFUSION_REFUSAL = ("TeaCache/FBCache does not compose with PipeFusion: the cache probes block 0 to decide "
+                      "whether to skip the rest, and block 0 and the rest are not one stage's blocks (the JAX "
+                      "package's result there is not its one-process result: ROADMAP.md, Recorded divergences)")
 
 
 @dataclasses.dataclass(frozen=True)

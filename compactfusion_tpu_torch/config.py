@@ -208,7 +208,8 @@ class RuntimeConfig:
     use_teacache: bool = False
     use_fbcache: bool = False
     use_fast_attn: bool = False
-    #: VAE decode memory knobs (not ported: the VAE decode raises)
+    #: VAE decode memory knobs: the 2D VAE's tiled and per-image decode
+    #: (``parallel_api._vae_opts``); the 3D VAE families set its tiling themselves
     enable_tiling: bool = False
     enable_slicing: bool = False
     #: int8 weight-quantize the T5 text encoder (``--use_int8_t5_encoder``,
@@ -246,7 +247,8 @@ class InputConfig:
     max_sequence_length: int = 120
     prompt: Tuple[str, ...] = ("",)
     negative_prompt: Tuple[str, ...] = ("",)
-    #: identity image of the ConsisID family (not ported: raises)
+    #: identity image of the ConsisID family: a PNG through the face
+    #: encoder to its identity tokens (``parallel_api._encode_identity``)
     img_file_path: Optional[str] = None
     #: snap (height, width) to the nearest aspect-ratio bin at the model's
     #: native area and resize the output back (PixArt family)

@@ -23,7 +23,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from compactfusion_tpu_torch.cache.accel import CacheAccelState, next_probe, should_skip
+from compactfusion_tpu_torch.cache.accel import PIPEFUSION_REFUSAL, CacheAccelState, next_probe, should_skip
 from compactfusion_tpu_torch.models import common as cm
 from compactfusion_tpu_torch.models.attn_impl import SingleDeviceAttn
 from compactfusion_tpu_torch.parallel.pipefusion import pipefusion_blocks
@@ -339,7 +339,7 @@ def flux_forward(
     if (pp_stages > 1 or tp_axis is not None) and mesh is None:
         raise ValueError(f"PipeFusion ({pp_stages} stages) or TP ({tp_axis}) needs this rank's mesh")
     if pp_stages > 1 and cache_cfg is not None and cache_cfg.mode != "none":
-        raise ValueError("TeaCache/FBCache does not compose with sync PipeFusion")
+        raise ValueError(PIPEFUSION_REFUSAL)
     img = cm.linear(params["x_embedder"], img)
     txt = cm.linear(params["context_embedder"], txt)
     temb = flux_time_embed(params, pooled, t, guidance, cfg)

@@ -138,6 +138,7 @@ def latte_forward(
     temporal_pos_embed: torch.Tensor,
     mesh: Optional[Mesh] = None,
     text_mask: Optional[torch.Tensor] = None,
+    tp_axis: Optional[str] = None,
 ):
     """Latte denoiser on this rank's frames.
 
@@ -145,7 +146,10 @@ def latte_forward(
     pos_embed (spatial_tokens, dim), the same table every frame;
     temporal_pos_embed (frames_total, dim); ``mesh``: the frames are
     sharded over its (ring, ulysses) ranks when ``frames_local <
-    frames_total``.  Returns (out, ()): Latte has no attention state."""
+    frames_total``.  ``tp_axis``: every block's ffn holds this rank's share
+    (``parallel/tp.py::local_params``) and sums it over that axis of
+    ``mesh``; the attention stays whole on every rank.  Returns (out, ()):
+    Latte has no attention state."""
     b = x.shape[0]
     d, h = cfg.dim, cfg.heads
     f_l, s_sp = frames_local, spatial_tokens
@@ -182,7 +186,7 @@ def latte_forward(
         lens_r = kv_lens.repeat_interleave(f_l, dim=0) if kv_lens is not None else None
         o = _cross_attn(q, heads(kt), heads(vt), None, kv_lens=lens_r)
         xs = xs + cm.linear(p["cross_out"], unheads(o))
-        xs = xs + table_r[:, 5][:, None] * cm.ffn(p["ffn"], modulate(table_r, xs, 3, 4))
+        xs = xs + table_r[:, 5][:, None] * cm.ffn(p["ffn"], modulate(table_r, xs, 3, 4), tp_axis=tp_axis, mesh=mesh)
         return xs.reshape(b, f_l * s_sp, d)
 
     def to_temporal(x):
@@ -205,7 +209,7 @@ def latte_forward(
         table_r = (p["scale_shift_table"][None] + mod6).repeat_interleave(xt.shape[0] // b, dim=0)
         q, k, v = (heads(y) for y in cm.linear(p["attn_qkv"], modulate(table_r, xt, 0, 1)).chunk(3, dim=-1))
         xt = xt + table_r[:, 2][:, None] * cm.linear(p["attn_out"], unheads(_temporal_sdpa(q, k, v)))
-        xt = xt + table_r[:, 5][:, None] * cm.ffn(p["ffn"], modulate(table_r, xt, 3, 4))
+        xt = xt + table_r[:, 5][:, None] * cm.ffn(p["ffn"], modulate(table_r, xt, 3, 4), tp_axis=tp_axis, mesh=mesh)
         return from_temporal(xt)
 
     for i in range(cfg.num_pairs):

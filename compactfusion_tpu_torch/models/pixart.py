@@ -15,7 +15,7 @@ from typing import Any, Optional
 
 import torch
 
-from compactfusion_tpu_torch.cache.accel import CacheAccelState, next_probe, should_skip
+from compactfusion_tpu_torch.cache.accel import PIPEFUSION_REFUSAL, CacheAccelState, next_probe, should_skip
 from compactfusion_tpu_torch.models import common as cm
 from compactfusion_tpu_torch.models.attn_impl import SingleDeviceAttn
 from compactfusion_tpu_torch.ops.attention import sdpa
@@ -223,8 +223,7 @@ def pixart_forward(
     if cm.has_tensors(attn_state):
         raise ValueError("cache acceleration is incompatible with a stateful attention strategy")
     if pp_stages > 1:
-        # block 0 and the rest are not one stage's blocks
-        raise ValueError("cache acceleration does not compose with PipeFusion")
+        raise ValueError(PIPEFUSION_REFUSAL)
     table0 = blocks["scale_shift_table"][0][None] + mod6
     probe_in = cm.layernorm({}, x) * (1 + table0[:, 1][:, None]) + table0[:, 0][:, None]
     x1 = block(0, x)

@@ -555,6 +555,16 @@ def _load_vae2d(checkpoint: Optional[str], vcfg, device):
     return init_vae_decoder(torch.Generator(device=device).manual_seed(11), vcfg)
 
 
+def fast_attn_cache_path(model: str, num_steps: int, depth: int, fa) -> str:
+    """The DiTFastAttn plan cache of ``model`` at ``num_steps`` x ``depth``
+    under the ``FastAttnConfig`` ``fa``:
+    ``.cftpu_fastattn_torch_<model>_<steps>s_<depth>l_w<window>_t<threshold>.json``,
+    the JAX package's name with ``torch_``, so a plan the JAX package
+    calibrated is never read here."""
+    model_tag = re.sub(r"[^A-Za-z0-9._-]", "_", model)
+    return f".cftpu_fastattn_torch_{model_tag}_{num_steps}s_{depth}l_w{fa.window_size}_t{fa.threshold:g}.json"
+
+
 class xDiTParallel:
     """One-call parallel runner (reference ``xfuser/parallel.py:23-54``).
 
@@ -597,13 +607,14 @@ class xDiTParallel:
         """DiTFastAttn: calibrate on captions -> a per-(step, layer) method
         plan -> a JSON cache -> run with the plan.  PixArt family, sp/pp
         degree 1 and compression off (else a warning and no plan, as in
-        JAX).  The calibration noise is ``latents`` when given, else drawn
-        from the request seed.  The cache file is
-        ``.cftpu_fastattn_torch_<model>_<steps>s_<depth>l_w<window>_t<threshold>.json``:
-        the JAX package's name with ``torch_``, so a plan the JAX package
-        calibrated is never read here."""
+        JAX).  At tp > 1 only a cached plan runs (``fa.use_cache`` and the
+        file present, of shape (steps, depth)): a tp rank's attention is
+        whole, so the plan applies unchanged on every rank.  Without one, a
+        warning and no plan: calibrating needs one process (the JAX package
+        asserts one device there).  The calibration noise is ``latents``
+        when given, else drawn from the request seed.  The cache file is
+        :func:`fast_attn_cache_path` in the working directory."""
         from compactfusion_tpu_torch.cache.fast_attn import calibrate_pixart, load_plan, save_plan
-        from compactfusion_tpu_torch.pipelines.pixart import PixArtPipeline
 
         if self.family != "pixart":
             logger.warning("use_fast_attn: only the PixArt family is wired; ignoring")
@@ -613,20 +624,17 @@ class xDiTParallel:
         if par.sp_degree > 1 or par.pp_degree > 1 or pcfg.compact.enabled:
             logger.warning("use_fast_attn needs sp/pp degree 1 and compression off; ignoring")
             return
-        if par.tp_degree > 1:
-            # the calibration runs the whole model in one process; a TP rank
-            # holds its share of the ffns
-            logger.warning("use_fast_attn needs tp degree 1 in this port; ignoring")
-            return
         mcfg = pcfg.model
-        model_tag = re.sub(r"[^A-Za-z0-9._-]", "_", self.engine_config.model_config.model)
-        cache_path = (f".cftpu_fastattn_torch_{model_tag}_{pcfg.num_steps}s_{mcfg.depth}l"
-                      f"_w{fa.window_size}_t{fa.threshold:g}.json")
+        cache_path = fast_attn_cache_path(self.engine_config.model_config.model, pcfg.num_steps, mcfg.depth, fa)
         plan = None
         if fa.use_cache and os.path.exists(cache_path):
             plan = load_plan(cache_path)
             if plan.shape != (pcfg.num_steps, mcfg.depth):
                 plan = None  # a cache of another config
+        if plan is None and par.tp_degree > 1:
+            logger.warning("use_fast_attn at tp degree %d runs only a cached plan (--use_cache and %s); "
+                           "calibrating needs tp degree 1; ignoring", par.tp_degree, cache_path)
+            return
         if plan is None:
             # calibration captions: the COCO file when given, else the request's prompts
             prompts = list(self.input_config.prompt)
@@ -647,11 +655,8 @@ class xDiTParallel:
                                     threshold=fa.threshold, latents=latents)
             if fa.use_cache:
                 save_plan(plan, cache_path)
-        self.pipeline_config = dataclasses.replace(
-            pcfg, fast_attn_plan=tuple(tuple(int(m) for m in row) for row in plan),
-            fast_attn_window=fa.window_size)
-        self.pipeline = PixArtPipeline(self.pipeline.params, self.pipeline.vae_params, self.pipeline_config,
-                                       self.device, mesh=self.pipeline.mesh, vae_mesh=self.pipeline.vae_mesh)
+        self.pipeline = self.pipeline.with_fast_attn(plan, fa.window_size)
+        self.pipeline_config = self.pipeline.cfg
 
     #: the per-layer block stacks that ``--quantize_backbone_int8`` quantizes
     #: (embedders and heads stay in the model dtype)

@@ -30,7 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from compactfusion_tpu_torch.cache.accel import CacheAccelConfig, init_cache_state
+from compactfusion_tpu_torch.cache.accel import PIPEFUSION_REFUSAL, CacheAccelConfig, init_cache_state
 from compactfusion_tpu_torch.config import (
     CompactConfig,
     CompressType,
@@ -86,7 +86,7 @@ class FluxPipelineConfig:
                                    num_pipeline_patch=self.num_pipeline_patch,
                                    patch_pp_min_factor=2, family="flux")
         if self.parallel.pp_degree > 1 and self.cache.mode != "none":
-            raise ValueError("TeaCache/FBCache does not compose with PipeFusion")
+            raise ValueError(PIPEFUSION_REFUSAL)
 
     @property
     def patch_pipelined(self) -> bool:

@@ -11,8 +11,17 @@ over dp, whole frames over the (ring, ulysses) ranks (``models/latte.py``:
 spatial attention stays local, each temporal block takes two
 all-to-alls); every rank gets the whole latents back.  Latte's layout has
 no ring K/V exchange, so a compression config is accepted and has no
-effect, as in the JAX package; PipeFusion and tensor parallelism raise
-(the JAX pipeline replicates Latte's weights over every axis).
+effect, as in the JAX package.  Tensor parallelism splits every block's
+ffn over tp (``parallel/tp.py::local_params``: fc1 by columns, fc2 by rows,
+the sum over tp), as the port's other families do; the result is the
+one-process run's within the fp32 floor.  The JAX pipeline passes
+``tp_axis`` but hands every rank the whole weights, so its tp-2 run sums
+the whole ffn twice and leaves its one-device run
+(``tests/test_torch_latte.py::test_jax_tp2_sums_whole_ffns``): the port
+holds tp to the JAX one-device run, not to that.
+PipeFusion has no Latte stages (neither block stack is a ``BLOCK_KEYS``
+stack), so a pp rank runs the whole model on the whole weights, as the JAX
+pipeline does: its latents are one process's, bit for bit.
 
 Unlike the JAX config, :class:`LattePipelineConfig` names its VAE config
 (``vae``), as the port's other pipelines do.
@@ -29,7 +38,8 @@ from compactfusion_tpu_torch.config import CompactConfig, ParallelConfig
 from compactfusion_tpu_torch.models import common as cm
 from compactfusion_tpu_torch.models.latte import LatteConfig, latte_forward
 from compactfusion_tpu_torch.models.vae import VAEConfig, sd_vae, vae_decode
-from compactfusion_tpu_torch.parallel.mesh import AXIS_CFG, AXIS_DP, Mesh
+from compactfusion_tpu_torch.parallel.mesh import AXIS_CFG, AXIS_DP, AXIS_TP, Mesh
+from compactfusion_tpu_torch.parallel.tp import local_params
 from compactfusion_tpu_torch.pipelines import base
 from compactfusion_tpu_torch.schedulers.diffusion import ddim_step, ddpm_schedule
 
@@ -73,9 +83,6 @@ class LattePipelineConfig:
                 f"{self.parallel.ulysses_degree} = {sp}) — Latte shards "
                 f"frames, not flat tokens, so spatial attention stays local"
             )
-        if self.parallel.pp_degree > 1 or self.parallel.tp_degree > 1:
-            raise ValueError("latte: PipeFusion and tensor parallelism are not Latte layouts "
-                             "(its weights are replicated on every rank)")
 
 
 class LattePipeline:
@@ -95,7 +102,8 @@ class LattePipeline:
         # float32 matmuls and convolutions in full fp32 on the GPU (no TF32)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        self.params = params
+        #: this rank's share: the ffns split over tp; no stage cut over pp
+        self.params = local_params(params, mesh)
         self.vae_params = vae_params
         self.cfg = cfg
         self.mesh = mesh
@@ -150,13 +158,14 @@ class LattePipeline:
         b = latents.shape[0]
         nb = 2 * b if cfg.do_cfg and not cfg_split else b
         f_local = cfg.num_frames // p.sp_degree
+        tp_axis = AXIS_TP if p.tp_degree > 1 else None
         for i in range(cfg.num_steps):
             t = torch.full((nb,), float(self.sched.timesteps[i]), dtype=torch.float32, device=self.device)
             x = torch.cat([latents, latents], dim=0) if nb > b else latents
             out, _ = latte_forward(self.params, x.to(m.dtype), t, text, m, frames_local=f_local,
                                    frames_total=cfg.num_frames, spatial_tokens=cfg.spatial_tokens,
                                    pos_embed=self.pos_embed, temporal_pos_embed=self.temporal_pos_embed, mesh=mesh,
-                                   text_mask=text_mask)
+                                   text_mask=text_mask, tp_axis=tp_axis)
             eps = out[..., : out.shape[-1] // 2]  # drop the learned-variance half
             if cfg.do_cfg:
                 eps = base.cfg_combine(eps, cfg.guidance_scale, p.cfg_degree, mesh)

@@ -32,6 +32,7 @@ return None.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional, Tuple
 
@@ -142,6 +143,18 @@ def _attn_impl(cfg: PixArtPipelineConfig, method: Optional[CompressType], mesh: 
     return SingleDeviceAttn()
 
 
+def _plan_table(cfg: PixArtPipelineConfig):
+    """The optimized DiTFastAttn table of ``cfg`` (host integers), or None:
+    FULL -> FULL_NO_RESIDUAL where no later step reads the cached residual
+    (skips the residual-refresh window pass)."""
+    if cfg.fast_attn_plan is None:
+        return None
+    table = optimize_plan(cfg.fast_attn_plan)
+    if table.shape != (cfg.num_steps, cfg.model.depth):
+        raise ValueError(f"fast_attn_plan is {table.shape}, expected {(cfg.num_steps, cfg.model.depth)}")
+    return table
+
+
 class PixArtPipeline:
     """User-facing pipeline: ``PixArtPipeline(params, vae_params, cfg,
     device, mesh=None)``.  With ``cfg.parallel.world_size > 1`` every rank
@@ -175,16 +188,20 @@ class PixArtPipeline:
             interpolation_scale=cfg.model.interpolation_scale,
         ).to(self.device)
         self.sched = ddpm_schedule(cfg.num_steps, timestep_spacing="linspace")
-        # FULL -> FULL_NO_RESIDUAL where no later step reads the cached
-        # residual (skips the residual-refresh window pass); host integers
-        self.plan_table = None
-        if cfg.fast_attn_plan is not None:
-            self.plan_table = optimize_plan(cfg.fast_attn_plan)
-            if self.plan_table.shape != (cfg.num_steps, cfg.model.depth):
-                raise ValueError(f"fast_attn_plan is {self.plan_table.shape}, expected "
-                                 f"{(cfg.num_steps, cfg.model.depth)}")
+        self.plan_table = _plan_table(cfg)
         #: skipped steps of the last request (TeaCache/FBCache), else None
         self.last_skips = None
+
+    def with_fast_attn(self, plan, window: int) -> "PixArtPipeline":
+        """This pipeline, on this rank's weights as they are, running the
+        DiTFastAttn ``plan`` ((steps, depth) method ids) with ``window``.  A
+        new pipeline from ``self.params`` would cut a tp or pp rank's share
+        a second time."""
+        new = copy.copy(self)
+        new.cfg = dataclasses.replace(self.cfg, fast_attn_plan=tuple(tuple(int(m) for m in row) for row in plan),
+                                      fast_attn_window=window)
+        new.plan_table = _plan_table(new.cfg)
+        return new
 
     def __call__(self, text, text_mask, generator: Optional[torch.Generator] = None,
                  latents: Optional[torch.Tensor] = None, decode: bool = True):

@@ -420,24 +420,38 @@ BINARY2 = RING2 + ["--compact", "--compact_type", "binary", "--compact_warmup_st
 PP2 = PIXART + ["--pipefusion_parallel_degree", "2"]
 TP2 = PIXART + ["--tensor_parallel_degree", "2"]
 FAST_ATTN = ["--use_fast_attn", "--window_size", "4"]
+#: a (3 steps, 2 layers) DiTFastAttn plan that both runners find cached at
+#: threshold 0.5 (layer 0 FULL, WINDOW, SHARE; layer 1 FULL, FULL_CFG,
+#: WINDOW_CFG), each package under its own file name
+CACHED_PLAN = [[0, 0], [1, 3], [2, 4]]
+PLAN_FILES = (".cftpu_fastattn_torch_pixart-tiny_3s_2l_w4_t0.5.json", ".cftpu_fastattn_pixart-tiny_3s_2l_w4_t0.5.json")
 RUNS2 = [("lossless", RING2), ("binary", BINARY2), ("pp2", PP2), ("tp2", TP2),
-         ("pp2-fast-attn", PP2 + FAST_ATTN), ("tp2-fast-attn", TP2 + FAST_ATTN)]
+         ("tp2-fast-attn", TP2 + FAST_ATTN + ["--use_cache"]), ("pp2-fast-attn", PP2 + FAST_ATTN),
+         ("tp2-fast-attn-no-plan", TP2 + FAST_ATTN + ["--use_cache", "--threshold", "0.25"])]
 
 
 @pytest.fixture(scope="module")
-def runners2():
+def runners2(tmp_path_factory):
     """The JAX runners of the 2-rank command lines (one weight tree, the
-    lossless ring's) and the port's in 2 gloo processes."""
-    jl, weights = jax_runner(RING2, spice=True)
-    jax_runs = {"lossless": jl}
-    for name, argv in RUNS2[1:4]:
-        jr, _ = jax_runner(argv, spice=True)
-        jr.pipeline = type(jr.pipeline)(jl.pipeline.params, jl.pipeline.vae_params, jr.pipeline_config,
-                                        jr.pipeline.mesh)
-        jax_runs[name] = jr
+    lossless ring's) and the port's in 2 gloo processes, all run from a
+    directory that holds :data:`CACHED_PLAN` under :data:`PLAN_FILES`."""
+    plan_dir = tmp_path_factory.mktemp("plans")
+    for name in PLAN_FILES:
+        (plan_dir / name).write_text(json.dumps(CACHED_PLAN))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.chdir(plan_dir)
+        jl, weights = jax_runner(RING2, spice=True)
+        jax_runs = {"lossless": jl}
+        for name, argv in RUNS2[1:5]:
+            jr, _ = jax_runner(argv, spice=True)
+            jr.pipeline = type(jr.pipeline)(jl.pipeline.params, jl.pipeline.vae_params, jr.pipeline_config,
+                                            jr.pipeline.mesh)
+            jax_runs[name] = jr
+    assert jax_runs["tp2-fast-attn"].pipeline_config.fast_attn_plan == tuple(map(tuple, CACHED_PLAN))
     noise = jax_noise(jl)
     want = {name: np.asarray(jr(decode=False)) for name, jr in jax_runs.items()}
-    ranks = tmesh.spawn_local(runner_latents, 2, "gloo", RUNS2, weights, noise, threads=1, timeout=300)
+    ranks = tmesh.spawn_local(runner_latents, 2, "gloo", RUNS2, weights, noise, str(plan_dir), threads=1,
+                              timeout=300)
     return want, ranks
 
 
@@ -455,16 +469,47 @@ def test_ring2_runner_matches_jax_cpu_mesh(runners2):
 def test_pp2_and_tp2_runners_match_jax_cpu_mesh(runners2):
     """``--pipefusion_parallel_degree 2`` (PixArt: the patch pipeline, M =
     2, one sync warmup step) and ``--tensor_parallel_degree 2`` from the
-    command line, against JAX's runners on 2 CPU devices; DiTFastAttn is
-    ignored with a warning at pp 2, as in JAX, and at tp 2 (a recorded
-    divergence: the calibration runs the whole model): the same latents."""
+    command line, against JAX's runners on 2 CPU devices.  DiTFastAttn at
+    tp 2 runs the cached plan, as JAX's runner does; at tp 2 without a
+    cached plan (none at that threshold) and at pp 2 it is ignored with a
+    warning: the plain latents."""
     want, ranks = runners2
     for r in ranks:
-        for name in ("pp2", "tp2"):
+        for name in ("pp2", "tp2", "tp2-fast-attn"):
             assert rel_err(r[name]["latents"], want[name]) < BOUND, name
-            np.testing.assert_array_equal(r[f"{name}-fast-attn"]["latents"], r[name]["latents"])
+        # the plan ran: not the plain tp-2 latents
+        assert rel_err(r["tp2-fast-attn"]["latents"], r["tp2"]["latents"]) > 1e-6
+        assert r["tp2"]["warnings"] == r["tp2-fast-attn"]["warnings"] == []
+        for name, plain, why in (("tp2-fast-attn-no-plan", "tp2", "runs only a cached plan"),
+                                 ("pp2-fast-attn", "pp2", "needs sp/pp degree 1")):
+            np.testing.assert_array_equal(r[name]["latents"], r[plain]["latents"])
+            assert len(r[name]["warnings"]) == 1 and why in r[name]["warnings"][0], r[name]["warnings"]
     # the patch pipeline is not the sync one: the stale K/V is used
     assert rel_err(want["pp2"], want["lossless"]) > 1e-6
+
+
+def test_calibration_needs_one_device_in_both():
+    """Both packages calibrate DiTFastAttn in one process only: at tp 2 the
+    JAX calibration fails its assertion, and the port's runner (above) runs
+    only a cached plan."""
+    from compactfusion_tpu.cache.fast_attn import calibrate_pixart as jcalibrate
+    from compactfusion_tpu.config import ParallelConfig as JParallel
+    from compactfusion_tpu.models.pixart import pixart_tiny
+    from compactfusion_tpu.models.vae import tiny_vae
+    from compactfusion_tpu.pipelines.pixart import PixArtPipelineConfig as JCfg
+    from compactfusion_tpu_torch.cache.fast_attn import calibrate_pixart
+    from compactfusion_tpu_torch.config import ParallelConfig
+    from compactfusion_tpu_torch.models.pixart import pixart_tiny as tpixart_tiny
+    from compactfusion_tpu_torch.models.vae import tiny_vae as ttiny_vae
+    from compactfusion_tpu_torch.pipelines.pixart import PixArtPipelineConfig
+
+    size = dict(num_steps=3, height=64, width=64)
+    jc = JCfg(model=pixart_tiny(), vae=tiny_vae(), parallel=JParallel(tp_degree=2), **size)
+    with pytest.raises(AssertionError, match="single device"):
+        jcalibrate({}, jc, jnp.zeros((2, 1, 6, 32)), None, jax.random.PRNGKey(0))
+    tc = PixArtPipelineConfig(model=tpixart_tiny(), vae=ttiny_vae(), parallel=ParallelConfig(tp_degree=2), **size)
+    with pytest.raises(AssertionError, match="single device"):
+        calibrate_pixart({}, tc, torch.zeros((2, 1, 6, 32)), None)
 
 
 def test_int8_backbone_refused_at_tp_or_pp():

@@ -240,3 +240,58 @@ def test_whole_slice_with_cache_matches_jax(tiny, mode, decision_values):
         np.testing.assert_array_equal(lossless, base(
             torch.from_numpy(text), torch.from_numpy(mask), latents=torch.from_numpy(latents0),
             decode=False).numpy())
+
+
+#: the reason both refusals name
+REASON = "block 0 and the rest are not one stage's blocks"
+
+
+@pytest.mark.parametrize("family", ["pixart", "flux"])
+def test_cache_under_pipefusion_refused_with_the_reason(tiny, family):
+    """TeaCache/FBCache at pp > 1 stays refused in PixArt and FLUX (the
+    model and FLUX's pipeline config), and the message says why."""
+    from compactfusion_tpu_torch.config import ParallelConfig
+    from compactfusion_tpu_torch.models import flux as tflux
+    from compactfusion_tpu_torch.pipelines.flux import FluxPipelineConfig
+
+    cache = taccel.CacheAccelConfig(mode="fbcache")
+    if family == "pixart":
+        tm = tiny["tm"]
+        with pytest.raises(ValueError, match=REASON):
+            tpix.pixart_forward(tiny["tparams"], torch.zeros(1, 16, 16), torch.zeros(1), torch.zeros(1, 3, 32), tm,
+                                pos_embed=torch.zeros(16, tm.dim), pp_stages=2, mesh=object(), cache_cfg=cache,
+                                cache_state=taccel.init_cache_state((1, 16, tm.dim), (1, 16, tm.dim), torch.float32))
+        return
+    tm = tflux.flux_tiny()
+    with pytest.raises(ValueError, match=REASON):
+        FluxPipelineConfig(model=tm, vae=tvae.tiny_vae(), parallel=ParallelConfig(pp_degree=2), cache=cache,
+                           height=64, width=128)
+    with pytest.raises(ValueError, match=REASON):
+        tflux.flux_forward({}, torch.zeros(1, 32, 16), torch.zeros(1, 8, 32), torch.zeros(1, 16), torch.zeros(1),
+                           None, tm, img_rope=(), txt_rope=(), pp_stages=2, mesh=object(), cache_cfg=cache)
+
+
+def test_jax_cache_under_pipefusion_leaves_one_stage(tiny):
+    """The recorded divergence behind that refusal: under the JAX package's
+    PipeFusion the cache branch comes first, each stage runs only its own
+    blocks and passes no activations on.  PixArt at pp 2 with FBCache
+    (6 steps, threshold 0.05) then leaves pp 1 with the same cache, where
+    pp 2 without a cache is pp 1 bit for bit."""
+    rng = np.random.default_rng(0)
+    text = rng.standard_normal((2, 1, 6, tiny["jm"].text_dim)).astype(np.float32)
+    mask = np.ones((2, 1, 6), bool)
+    mask[1, 0, 4:] = False
+    latents0 = rng.standard_normal((1, 16, 16)).astype(np.float32)
+
+    def run(pp, mode):
+        jc = jpipes.PixArtPipelineConfig(model=tiny["jm"], vae=tiny["jv"], parallel=JParallel(pp_degree=pp),
+                                         cache=jaccel.CacheAccelConfig(mode=mode, threshold=0.05), num_steps=6,
+                                         height=64, width=64)
+        pipe = jpipes.PixArtPipeline(tiny["jparams"], tiny["jvae"], jc,
+                                     make_mesh(jc.parallel, devices=jax.devices()[:pp]))
+        return np.asarray(pipe._sample(tiny["jparams"], jnp.asarray(text), jnp.asarray(mask), jnp.asarray(latents0)))
+
+    err = rel_err(run(2, "fbcache"), run(1, "fbcache"))
+    print(f"JAX PixArt FBCache pp 2 vs pp 1: {err:.3g}")  # the recorded figure (pytest -s)
+    assert err > 1e-3
+    np.testing.assert_array_equal(run(2, "none"), run(1, "none"))

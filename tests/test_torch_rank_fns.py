@@ -391,27 +391,54 @@ def carry_weights(runner, weights):
 
 def port_runner(argv, weights=None, device="cpu"):
     """The port's ``xDiTParallel`` from a command line, on ``device``; with
-    ``weights``, :func:`carry_weights` on it."""
+    ``weights``, :func:`carry_weights` on it.  A DiTFastAttn switch then
+    applies after the weights are in, to the runner's own (on a tp rank:
+    already cut) pipeline, as it applies to seeded weights."""
+    import dataclasses
+
     from compactfusion_tpu_torch.args import FlexibleArgumentParser, xFuserArgs
     from compactfusion_tpu_torch.parallel_api import xDiTParallel
 
     parser = FlexibleArgumentParser()
     xFuserArgs.add_cli_args(parser)
     engine, inp = xFuserArgs.from_cli_args(parser.parse_args(argv)).create_config()
+    fast = engine.fast_attn_config
+    if weights is not None and fast.use_fast_attn:
+        engine = dataclasses.replace(engine, fast_attn_config=dataclasses.replace(fast, use_fast_attn=False))
     runner = xDiTParallel(engine, inp, device=device)
-    return runner if weights is None else carry_weights(runner, weights)
+    if weights is None:
+        return runner
+    carry_weights(runner, weights)
+    if fast.use_fast_attn:
+        runner._apply_fast_attn(fast)
+    return runner
 
 
-def runner_latents(rank, world, runs, weights, noise):
+def runner_latents(rank, world, runs, weights, noise, cwd=None):
     """Per run (name, argv): :func:`port_runner` with ``weights`` on this
-    rank's CPU, run on ``noise``; the final latents and the bytes this
-    rank's ring shifts sent."""
+    rank's CPU, run on ``noise``, from the directory ``cwd`` when given; the
+    final latents, the bytes this rank's ring shifts sent and the warnings
+    the port logged while the runner was built."""
+    import logging
+    import os
+
+    class Collect(logging.Handler):
+        messages = []
+
+        def emit(self, record):
+            self.messages.append(record.getMessage())
+
+    if cwd is not None:
+        os.chdir(cwd)
+    handler = Collect(logging.WARNING)
+    logging.getLogger("compactfusion_tpu_torch").addHandler(handler)
     out = {}
     for name, argv in runs:
+        handler.messages = []
         runner = port_runner(argv, weights)
         ring_shift.nbytes = 0
         lat = runner(latents=torch.from_numpy(noise), decode=False)
-        out[name] = {"latents": lat.numpy(), "wire_bytes": ring_shift.nbytes}
+        out[name] = {"latents": lat.numpy(), "wire_bytes": ring_shift.nbytes, "warnings": handler.messages}
     return out
 
 
@@ -625,8 +652,10 @@ def stats_ring_outputs(rank, world, steps, collect_dir, s_local):
 def latte_latents(rank, world, configs, params, vae_params, inputs):
     """Per configuration (name, ParallelConfig kwargs): the tiny fp32 Latte
     pipeline's final latents on this rank (32 x 32, 4 frames, 3 DDIM steps
-    at guidance 4.5) from ``inputs`` = (text, mask, noise), and the bytes
-    its all-to-alls sent; None on a rank the configuration leaves idle."""
+    at guidance 4.5) from ``inputs`` = (text, mask, noise), the bytes its
+    all-to-alls sent and the hidden width of this rank's first spatial ffn;
+    None on a rank the configuration leaves idle.  Under "one process": the
+    same run in this process without a mesh."""
     import dataclasses
 
     from compactfusion_tpu_torch.io.from_jax import params_from_numpy
@@ -638,18 +667,21 @@ def latte_latents(rank, world, configs, params, vae_params, inputs):
     tv = dataclasses.replace(tiny_vae(), dtype=torch.float32)
     tparams = params_from_numpy(params)
     text, mask, noise = (torch.from_numpy(a) for a in inputs)
-    res = {}
+    size = dict(num_steps=3, guidance_scale=4.5, height=32, width=32, num_frames=4)
+    one = LattePipeline(tparams, None, LattePipelineConfig(model=tm, vae=tv, **size), "cpu")
+    res = {"one process": (one(text, mask, latents=noise, decode=False).numpy(),)}
     for name, par in configs:
         parallel = ParallelConfig(**par)
         mesh = tmesh.make_mesh(parallel)
         if mesh is None:
             res[name] = None
             continue
-        cfg = LattePipelineConfig(model=tm, vae=tv, parallel=parallel, num_steps=3, guidance_scale=4.5, height=32,
-                                  width=32, num_frames=4)
+        cfg = LattePipelineConfig(model=tm, vae=tv, parallel=parallel, **size)
         tmesh.Mesh.all_to_all.nbytes = 0
-        lat = LattePipeline(tparams, None, cfg, "cpu", mesh=mesh)(text, mask, latents=noise, decode=False)
-        res[name] = (lat.numpy(), tmesh.Mesh.all_to_all.nbytes)
+        pipe = LattePipeline(tparams, None, cfg, "cpu", mesh=mesh)
+        lat = pipe(text, mask, latents=noise, decode=False)
+        hidden = pipe.params["spatial_blocks"]["ffn"]["fc1"]["w"].shape[-1]
+        res[name] = (lat.numpy(), tmesh.Mesh.all_to_all.nbytes, hidden)
     return res
 
 
