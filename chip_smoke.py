@@ -312,9 +312,10 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
     process, BINARY within SV_BINARY_REL_MAX of it and within the lossless
     bound of its twin ring and of unfused; EF deviation 0
     (``stepvideo_ring_phase``).
-50. The fp32 ``flash_tile`` launches (kernel 1 at d 576 and 1024, kernel 4
-    at d 256, kernels 7 and 8 at d 256) within TILE_F32_REL_MAX of their
-    fp32 twins (``check_tile_f32_kernels``), which no model path runs.
+50. Kernel 1 at d 576 and 1024, kernel 4 at d 256 (w 64 and 0), kernels 7
+    and 8 at d 256, in bf16 and in fp32, on TILE_BODY, within FLASH_OUT_REL_MAX
+    (bf16) or TILE_F32_REL_MAX (fp32) of their twins (``check_tile_kernels``),
+    which no model path runs.
 51. The quality-eval package on the card (``quality_phase``): InceptionV3,
     VGG16-LPIPS and I3D in fp32 on seeded weights, each against the same
     module on the CPU (FEATURE_REL_MAX), ms per batch and peak memory; PSNR,
@@ -678,21 +679,24 @@ def _peak(dtype):
     return PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
 
 
-def _ptxas(kind, plan, dtype):
+def _ptxas(flash, kind, plan, dtype):
     """What ptxas said of the kernel instantiation a launch of ``kind``
-    (flash, window, ring) at ``plan`` runs (``flash_tile``'s by warps and
-    keys a tile)."""
+    (flash, window, ring) at ``plan`` of ``flash``'s tree runs (the wide
+    body's by one CTA's padded head dim; kernel 1's split over a cluster
+    apart), or None."""
     import torch
 
     body, dp, warps = plan
+    if body == "flash_wide_tile":
+        parts = flash.wide_parts(dp) if hasattr(flash, "wide_parts") else 1
+        dp //= parts
+        if kind == "flash" and parts > 1:
+            kind = "split"
     name = {("flash", "flash_reg_tile"): "flash_fwd_reg", ("flash", "flash_wide_tile"): "flash_fwd_wide",
-            ("window", "flash_reg_tile"): "flash_window_reg",
-            ("ring", "flash_reg_tile"): "ring_flash_hop_reg", ("flash", "flash_tile"): "flash_fwd",
-            ("window", "flash_tile"): "flash_window", ("ring", "flash_tile"): "ring_flash_hop"}.get((kind, body))
-    if name is None:
-        return None
-    args = f"{warps}, {16 * warps}" if body == "flash_tile" else f"{dp}, {warps}"
-    return PTXAS.get(f"{name}{'_f32' if dtype == torch.float32 else ''}_kernel<{args}>")
+            ("split", "flash_wide_tile"): "flash_fwd_wide_split", ("window", "flash_reg_tile"): "flash_window_reg",
+            ("window", "flash_wide_tile"): "flash_window_wide", ("ring", "flash_reg_tile"): "ring_flash_hop_reg",
+            ("ring", "flash_wide_tile"): "ring_flash_hop_wide"}.get((kind, body))
+    return name and PTXAS.get(f"{name}{'_f32' if dtype == torch.float32 else ''}_kernel<{dp}, {warps}>")
 
 
 def flash_cases(gen, dev):
@@ -714,10 +718,23 @@ def flash_cases(gen, dev):
     ]
 
 
-def _ctas(plan, b, h, sq):
-    from compactfusion_tpu_torch.ops.flash import plan_rows
+def _plan(flash, b, h, sq, d, elem, kernel_1=True):
+    """``flash``'s plan of a launch; kernels 4, 7 and 8 (``kernel_1`` False)
+    on a checkout whose ``flash_plan`` still tells them from kernel 1 (a
+    ``wide`` argument: older checkouts that ``tools/time_flash.py --root``
+    times) plan with ``wide=False``, as their wrappers there do."""
+    import inspect
 
-    return b * h * -(-sq // plan_rows(plan))
+    old = not kernel_1 and "wide" in inspect.signature(flash.flash_plan).parameters
+    return flash.flash_plan(b, h, sq, d, elem=elem, **({"wide": False} if old else {}))
+
+
+def _ctas(flash, plan, b, h, sq):
+    """CTAs of a launch at ``plan`` on ``flash``'s tree (one a query tile
+    where the tree has no ``plan_ctas``)."""
+    if hasattr(flash, "plan_ctas"):
+        return flash.plan_ctas(plan, b, h, sq)
+    return b * h * -(-sq // flash.plan_rows(plan))
 
 
 def check_flash(flash, timing, dev, gen, cases=None, phase=2):
@@ -725,7 +742,7 @@ def check_flash(flash, timing, dev, gen, cases=None, phase=2):
     shapes, :func:`flash_cases`); returns a report.  Each shape is timed
     eager on one input set (``ms``) and by CUDA graphs on inputs from DRAM
     (``graph_ms``).  A head dim up to 128 must take the register body, one
-    in (128, 512] the wide body."""
+    in (128, 512] the wide body (phase 50 holds wider ones to it)."""
     import torch
 
     rows = []
@@ -761,11 +778,11 @@ def check_flash(flash, timing, dev, gen, cases=None, phase=2):
         bound_ms, bound_by = _bound(*work, _peak(qq.dtype))
         rows.append({"shape": name, "max_abs_err_out": err_out, "rel_err_out": rel_out,
                      "max_abs_err_lse": err_lse, **({"twin_slice": sliced[0]} if sliced else {}),
-                     "plan": list(plan), "ctas": _ctas(plan, b, h, sq), "ms": ms,
+                     "plan": list(plan), "ctas": _ctas(flash, plan, b, h, sq), "ms": ms,
                      **({"graph_ms": g_ms} if g_ms is not None else {}),
                      "plain_ms": plain_ms, "library_ms": library_ms, "library_backend": backend,
                      "bound_ms": bound_ms, "bound_by": bound_by, **_tc_bound(*work, qq.dtype),
-                     "ptxas": _ptxas("flash", plan, qq.dtype)})
+                     "ptxas": _ptxas(flash, "flash", plan, qq.dtype)})
         print(f"[{phase}] flash {name}: out err {err_out:.3e}, rel {rel_out:.3e}, lse err {err_lse:.3e} "
               f"({_tol_text(qq.dtype)}{f'; twin on B1 H/rows {sliced[0]} slices' if sliced else ''}); plan {plan}, "
               f"{rows[-1]['ctas']} CTAs; kernel "
@@ -826,16 +843,16 @@ def check_window(flash, dev, gen, cases=None, timing=None, phase=2):
         ms = _time_ms(lambda: flash.flash_attn_window_with_lse(qq, kk, vv, w), 20)
         plain_ms = _time_ms(lambda: twin(qq, kk, vv, w), 1 if sliced else 20, 1 if sliced else 3)
         b, s, h, d = qq.shape
-        plan = flash.flash_plan(b, h, s, d, wide=False, elem=qq.element_size())
+        plan = _plan(flash, b, h, s, d, qq.element_size(), kernel_1=False)
         lib, backend = _library(qq, kk, vv, flash.window_mask(s, w, dev))
         library_ms = _time_ms(lib, 20)
         work = (_nbytes(qq, kk, vv, out, lse), 4 * b * h * d * band_pairs(s, w))
         bound_ms, bound_by = _bound(*work, _peak(qq.dtype))
         rows.append({"shape": name, "max_abs_err_out": err_out, "max_abs_err_lse": err_lse,
-                     "plan": list(plan), "ctas": _ctas(plan, b, h, s),
+                     "plan": list(plan), "ctas": _ctas(flash, plan, b, h, s),
                      "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                      "library_backend": backend, "bound_ms": bound_ms, "bound_by": bound_by,
-                     **_tc_bound(*work, qq.dtype), "ptxas": _ptxas("window", plan, qq.dtype)})
+                     **_tc_bound(*work, qq.dtype), "ptxas": _ptxas(flash, "window", plan, qq.dtype)})
         if timing is not None:
             sets = [(qq, kk, vv)] + [make() for _ in range(timing.copies(_nbytes(qq, kk, vv, out, lse)) - 1)]
             rows[-1]["graph_ms"] = graph_ms(timing, [lambda t=t: flash.flash_attn_window_with_lse(*t, w)
@@ -1131,7 +1148,7 @@ def check_ring_flash(rf, flash, timing, dev, gen, cases=None, phase=12):
         ref_out, ref_lse = rf.ring_flash_attn_with_lse_ref(q, iter(blocks), ring)
         err_out, rel_out, err_lse, ok = _agree(out, ref_out, lse, ref_lse)
         name = f"ring {ring} B{b} H{h} Sq{sq} Sk{ring}x{s_local} d{d}"
-        plan = flash.flash_plan(b, h, sq, d, wide=False, elem=q.element_size())
+        plan = _plan(flash, b, h, sq, d, q.element_size(), kernel_1=False)
         ms = _time_ms(lambda: rf.ring_flash_attn_with_lse(q, iter(blocks), ring), 20)
         k_all = torch.cat([k for k, _ in blocks], dim=1)
         v_all = torch.cat([v for _, v in blocks], dim=1)
@@ -1147,10 +1164,10 @@ def check_ring_flash(rf, flash, timing, dev, gen, cases=None, phase=12):
         work = (nbytes, 4 * b * h * sq * k_all.shape[1] * d)
         bound_ms, bound_by = _bound(*work, _peak(q.dtype))
         rows.append({"shape": name, "max_abs_err_out": err_out, "rel_err_out": rel_out,
-                     "max_abs_err_lse": err_lse, "plan": list(plan), "ctas": _ctas(plan, b, h, sq),
+                     "max_abs_err_lse": err_lse, "plan": list(plan), "ctas": _ctas(flash, plan, b, h, sq),
                      "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
                      "library_ms": library_ms, "library_backend": backend, "bound_ms": bound_ms,
-                     "bound_by": bound_by, **_tc_bound(*work, q.dtype), "ptxas": _ptxas("ring", plan, q.dtype)})
+                     "bound_by": bound_by, **_tc_bound(*work, q.dtype), "ptxas": _ptxas(flash, "ring", plan, q.dtype)})
         print(f"[{phase}] ring flash {name}: out err {err_out:.3e}, rel {rel_out:.3e}, lse err {err_lse:.3e} "
               f"({_tol_text(q.dtype)}); plan {plan}, {rows[-1]['ctas']} CTAs per hop; "
               f"kernel {ms:.4f} ms eager ({ring} launches), {g_ms:.4f} ms by CUDA graphs on {n_sets} "
@@ -1278,8 +1295,8 @@ def check_compact_ring(rf, flash, timing, dev, gen, ring, b, s_local, codec, ran
     base_rel = max(_rel(_decoded(stacks[0][0]), _decoded(kr)), _rel(_decoded(stacks[0][1]), _decoded(vr)))
     consistent = all(_same(stacks[r][i], stacks[0][i]) for r in range(ring) for i in range(2))
     name = cring_name(ring, b, s_local, codec, rank, quantized, h, d, q_rows, dtype)
-    plan = flash.flash_plan(b, h, sq, d, wide=False, elem=shards[0][0].element_size())
-    ctas = _ctas(plan, b, h, sq)
+    plan = _plan(flash, b, h, sq, d, shards[0][0].element_size(), kernel_1=False)
+    ctas = _ctas(flash, plan, b, h, sq)
     ok = ok and base_rel <= QUANT_NEW_BASE_RTOL and consistent
     if f32:  # the stacks bit for bit
         ok = ok and _same(stacks[0][0], kr) and _same(stacks[0][1], vr)
@@ -1336,7 +1353,7 @@ def check_compact_ring(rf, flash, timing, dev, gen, ring, b, s_local, codec, ran
     row = {"shape": name, "max_abs_err_out": err_out, "rel_err_out": rel_out, "max_abs_err_lse": err_lse,
            "new_base_rel_err": base_rel, "ranks_bit_equal": consistent, "plan": list(plan),
            "ctas": ctas, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, **_tc_bound(*work, act), "ptxas": _ptxas("ring", plan, act),
+           "bound_by": bound_by, **_tc_bound(*work, act), "ptxas": _ptxas(flash, "ring", plan, act),
            "ef": {"max_abs_err": ef_err, "new_base_rel_err": ef_rel, "rec_bit_equal": rec_equal,
                   "ms": ef_ms, "graph_ms": ef_g_ms, "plain_ms": ef_plain_ms, "bound_ms": ef_bound_ms,
                   "bound_by": ef_bound_by, "ptxas": PTXAS.get(ef_kernel)}}
@@ -5225,9 +5242,13 @@ SV_FUSED_SIZE = dict(height=512, width=512, num_frames=17)
 #: same BINARY ring run on kernel 1's twin (and fused to unfused) within the
 #: lossless bound
 SV_BINARY_REL_MAX = 0.2
-#: phase 50: the fp32 flash_tile launches against their twins (TF32 off),
-#: relative Frobenius error of out (the register and wide bodies' fp32 rows read up to 2e-6)
+#: phase 50: the fp32 launches above the register body against their twins
+#: (TF32 off), relative Frobenius error of out (the register and wide
+#: bodies' fp32 rows read up to 2e-6)
 TILE_F32_REL_MAX = 2e-6
+#: the body phase 50's launches take: kernel 1 above d = 512, kernels 4, 7
+#: and 8 above d = 128
+TILE_BODY = "flash_wide_tile"
 
 
 def _spiced_tables(tree, rng, path=""):
@@ -5491,42 +5512,65 @@ def stepvideo_ring_phase(kernels, dev):
     return phases
 
 
-def check_tile_f32_kernels(flash, rf, timing, dev, gen):
-    """Phase 50: the fp32 instantiations of the shared-memory body
-    (``flash_tile_f32.cuh``), which no model path runs, against their fp32
-    twins (TF32 off): kernel 1 at d = 576 and 1024, kernel 4 at d = 256
-    (w 64 and 0), kernel 7 and kernel 8 (BINARY, fp32 bases) at d = 256 on
-    a ring of 2; out within :data:`TILE_F32_REL_MAX` relative, LSE within
-    :data:`F32_LSE_ATOL`, kernel 8's stacks and reconstructions bit for bit;
-    each timed beside SDPA on fp32.  Returns the rows by kernel."""
+def tile_checks(flash, rf, timing, dev, gen, dtype):
+    """Phase 50's cases on ``dtype`` q/k/v, each a (kernel, name, check)
+    whose check returns its rows: kernel 1 at d 576 and 1024, kernel 4 at
+    d 256 (w 64 and 0), kernel 7 and kernel 8 (BINARY K1, fp32 bases) at
+    d 256 on a ring of 2, each timed beside SDPA.  The checks hold out and
+    LSE to :func:`_limits` and kernel 8's stacks and reconstructions bit for
+    bit (:func:`check_compact_ring`)."""
     import torch
 
-    f32 = torch.float32
+    tag = "fp32" if dtype == torch.float32 else "bf16"
 
     def rnd(b, s, h, d):
-        return lambda: tuple(torch.randn((b, s, h, d), generator=gen, device=dev) for _ in range(3))
-
-    flash_rows = check_flash(flash, timing, dev, gen, [
-        ("fp32 flash_tile B1 H4 S2048 d576", rnd(1, 2048, 4, 576), 5),
-        ("fp32 flash_tile B1 H2 S2048 d1024", rnd(1, 2048, 2, 1024), 5)], phase=50)
-    window_rows, _ = check_window(flash, dev, gen, [
-        (f"fp32 flash_tile B1 H8 S2048 d256 w{w}", rnd(1, 2048, 8, 256), w) for w in (WINDOW, 0)], timing, phase=50)
+        return lambda: tuple(torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype) for _ in range(3))
 
     def ring_make():
         shards = [rnd(1, 1024, 8, 256)() for _ in range(2)]
         return shards[0][0], [(shards[0][1], shards[0][2]), (shards[1][1].contiguous(), shards[1][2].contiguous())]
 
-    ring_rows = check_ring_flash(rf, flash, timing, dev, gen, [((2, 1, 1024), ring_make)], phase=50)
-    cring_rows = [check_compact_ring(rf, flash, timing, dev, gen, 2, 1, 1024, "binary", -1, False, 8, 256,
-                                     phase=50, dtype=f32)]
-    for what, rows in (("kernel 1", flash_rows), ("kernel 4", window_rows), ("kernel 7", ring_rows),
-                       ("kernel 8", cring_rows)):
-        for r in rows:
-            if r["plan"][0] != "flash_tile" or not r["rel_err_out"] <= TILE_F32_REL_MAX:
-                raise AssertionError(f"[50] {what} {r['shape']}: plan {r['plan']}, rel err {r['rel_err_out']} "
-                                     f"(bound {TILE_F32_REL_MAX})")
-    print(f"[50] fp32 flash_tile: kernels 1, 4, 7 and 8 within {TILE_F32_REL_MAX} of their twins (relative)")
-    return {"flash": flash_rows, "window": window_rows, "ring": ring_rows, "cring": cring_rows}
+    def flash_case(h, d):
+        name = f"{tag} B1 H{h} S2048 d{d}"
+        return ("kernel 1", name, lambda: check_flash(flash, timing, dev, gen, [(name, rnd(1, 2048, h, d), 5)],
+                                                      phase=50))
+
+    def window_case(w):
+        name = f"{tag} B1 H8 S2048 d256 w{w}"
+        return ("kernel 4", name, lambda: check_window(flash, dev, gen, [(name, rnd(1, 2048, 8, 256), w)], timing,
+                                                       phase=50)[0])
+
+    return [flash_case(4, 576), flash_case(2, 1024), window_case(WINDOW), window_case(0),
+            ("kernel 7", f"{tag} ring 2 B1 H8 Sq1024 Sk2x1024 d256",
+             lambda: check_ring_flash(rf, flash, timing, dev, gen, [((2, 1, 1024), ring_make)], phase=50)),
+            ("kernel 8", f"{tag} ring 2 B1 H8 S1024 d256 binary K1",
+             lambda: [check_compact_ring(rf, flash, timing, dev, gen, 2, 1, 1024, "binary", -1, False, 8, 256,
+                                         phase=50, dtype=dtype)])]
+
+
+def check_tile_kernels(flash, rf, timing, dev, gen):
+    """Phase 50: kernel 1 above d = 512 and kernels 4, 7 and 8 above
+    d = 128, which no model path runs, in bf16 and in fp32 against their
+    twins (TF32 off) at :func:`tile_checks`' cases: on :data:`TILE_BODY`,
+    out within :func:`_limits`' bounds and, relative, within
+    FLASH_OUT_REL_MAX (bf16) or :data:`TILE_F32_REL_MAX` (fp32), LSE within
+    FLASH_LSE_ATOL or F32_LSE_ATOL.  Returns the rows by dtype and
+    kernel."""
+    import torch
+
+    kinds = {"kernel 1": "flash", "kernel 4": "window", "kernel 7": "ring", "kernel 8": "cring"}
+    got = {}
+    for dtype, rel_max in ((torch.bfloat16, FLASH_OUT_REL_MAX), (torch.float32, TILE_F32_REL_MAX)):
+        rows = got[dtype] = {kind: [] for kind in kinds.values()}
+        for what, name, check in tile_checks(flash, rf, timing, dev, gen, dtype):
+            for r in check():
+                if r["plan"][0] != TILE_BODY or not r["rel_err_out"] <= rel_max:
+                    raise AssertionError(f"[50] {what} {r['shape']}: plan {r['plan']}, rel err {r['rel_err_out']} "
+                                         f"(body {TILE_BODY}, bound {rel_max})")
+                rows[kinds[what]].append(r)
+    print(f"[50] {TILE_BODY} above the register body, bf16 and fp32: kernels 1, 4, 7 and 8 within "
+          f"{FLASH_OUT_REL_MAX} (bf16) and {TILE_F32_REL_MAX} (fp32) of their twins (relative)")
+    return got
 
 
 # -- 51.-52. quality eval, ddpm_step, tensor_viz; the last two examples --------
@@ -6324,11 +6368,11 @@ def main():
     print(f"[43-47] seconds: {', '.join(f'{k} {v:.1f}' for k, v in video_secs.items())}")
     mark("43-47")
 
-    # -- 48.-49. Step-Video-T2V; 50. the fp32 flash_tile -------------------------
+    # -- 48.-49. Step-Video-T2V; 50. the wide body above d 128, bf16 and fp32 ---
     sv_secs = {}
     for key, run in (("48", lambda: stepvideo_phase(kernels, flash, quant, codecs, ring_flash, timing, dev, gen)),
                      ("49", lambda: stepvideo_ring_phase(kernels, dev)),
-                     ("50", lambda: check_tile_f32_kernels(flash, ring_flash, timing, dev, gen))):
+                     ("50", lambda: check_tile_kernels(flash, ring_flash, timing, dev, gen))):
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -6345,8 +6389,13 @@ def main():
             ring_rows += rows["ring"]
             cring_rows += rows["cring"]
         else:
+            bf16, fp32 = got[torch.bfloat16], got[torch.float32]
+            flash_rows += bf16["flash"]
+            window_rows += bf16["window"]
+            ring_rows += bf16["ring"]
+            cring_rows += bf16["cring"]
             for kind in ("flash", "window", "ring", "cring"):
-                f32_rows[kind] += got[kind]
+                f32_rows[kind] += fp32[kind]
     print(f"[48-50] seconds: {', '.join(f'{k} {v:.1f}' for k, v in sv_secs.items())}")
     mark("48-50")
 
@@ -6386,7 +6435,7 @@ def main():
     report = {"kernels": [
         flash_entry("flash_attn_with_lse", "compactfusion_tpu/ops/flash_pallas.py:593", flash_rows,
                     launches_by_route={"register body (d <= 128)": totals["flash_attn_with_lse"] - totals[WIDE],
-                                       "wide body (128 < d <= 512)": totals[WIDE]},
+                                       "wide body (d > 128)": totals[WIDE]},
                     launches_in_probes=phases["probes"]["launches_of_pipeline_kernels"]["flash_attn_with_lse"]),
         dict(quant_entry(quant_rows, totals, "binary", "quant", 118), launch_floor_ms=floor_ms),
         dict(quant_entry(quant_rows, totals, "binary", "dequant", 159), launch_floor_ms=floor_ms),
@@ -6417,7 +6466,7 @@ def main():
         flash_entry("flash_attn_with_lse (fp32)", "compactfusion_tpu/ops/flash_pallas.py:593", f32_rows["flash"],
                     key=F32["flash_attn_with_lse"],
                     launches_by_route={"register body (d <= 128)": totals[F32["flash_attn_with_lse"]] - totals[F32_WIDE],
-                                       "wide body (128 < d <= 512), csrc/flash_wide.cu": totals[F32_WIDE]}),
+                                       "wide body (d > 128), csrc/flash_wide.cu": totals[F32_WIDE]}),
         flash_entry("flash_attn_window_with_lse (fp32)", "compactfusion_tpu/ops/flash_pallas.py:508",
                     f32_rows["window"], key=F32["flash_attn_window_with_lse"]),
         flash_entry("ring_flash_attn_with_lse (fp32)", "compactfusion_tpu/ops/ring_flash_pallas.py:347",

@@ -1,15 +1,15 @@
 // Non-causal flash attention with a natural-log LSE, bf16 or fp32 in, fp32
 // math (fp32 in: the products in 3xTF32, flash_reg.cuh's note; the
-// *_f32_kernel instantiations, flash_tile_f32.cuh's body where flash_tile
-// serves bf16):
+// *_f32_kernel instantiations):
 // full attention (flash_fwd_reg_kernel for head dims up to 128, on the
-// register body of flash_reg.cuh; flash_fwd_wide_kernel for 128 < d <= 512,
-// on the wide body of flash_wide.cuh, the register body split over warps by
-// head-dim slices; flash_fwd_kernel on flash_common.cuh's shared-memory
-// body above) and banded attention |i - j| <= w (flash_window_reg_kernel on
-// the register body up to 128; flash_window_kernel above).  The host picks
-// the body, padded head dim and warps per CTA (ops/flash.py::flash_plan) and
-// passes them in; the entry points launch exactly that or return an error.
+// register body of flash_reg.cuh; the wide body of flash_wide.cuh above,
+// the register body split over warps by head-dim slices and above d = 512
+// over the CTAs of a cluster, launched from flash_wide.cu) and banded
+// attention |i - j| <= w (flash_window_reg_kernel on the register body up
+// to 128; flash_window_wide_kernel on the wide body above).  The host picks
+// the body, padded head dim and warps per CTA (ops/flash.py::flash_plan)
+// and passes them in; the entry points launch exactly that or return an
+// error.
 //
 // Replaces: compactfusion_tpu/ops/flash_pallas.py::flash_attn_with_lse, main
 // branch (kernels _flash_kernel / _flash_kernel_heads, pallas_call at
@@ -24,33 +24,14 @@
 // with a head dim too wide for one warp's register accumulator: the wide
 // body's note (flash_wide.cuh) says how its warps share a row.
 //
-// Design of the shared-memory body (flash_common.cuh; the register bodies
-// have their own notes):
-//  * one CTA per (q-tile, head, batch); the TPU's sequential KV grid axis
-//    becomes an in-block loop over K/V tiles staged in shared memory;
-//  * warp w owns query rows [16w, 16w+16) of the tile end to end: its score
-//    strip (WMMA 16x16x16 bf16 -> fp32), the online softmax of those rows
-//    (fp32 m/l, exp2 domain), and its rows of the fp32 accumulator, so the
-//    only block-wide barriers are around the K/V tile loads;
-//  * the head dim is zero-padded to a multiple of 16 in shared memory, and
-//    q/k/v are read through their (b, s, h) strides;
-//  * the accumulator lives in dynamic shared memory, not registers, which is
-//    what lets any head dim run: 64x64 tiles (4 warps; banded attention up
-//    to DP 256) while the layout fits in ~200 KB, 32x32 tiles (2 warps)
-//    above, with cudaFuncAttributeMaxDynamicSharedMemorySize raised past
-//    48 KB.  Full attention takes it only above d = 512;
-//  * keys at or past min(kv_lens[b], Sk) are masked; tiles wholly past it
-//    are skipped.  A row with no valid key writes 0 and LSE -inf, the
-//    attn_with_lse convention.
-//
 // The banded kernel (DiTFastAttn's window attention; Sq == Sk, no kv_lens),
-// on the register or the shared-memory body:
+// on the register or the wide body:
 //  * off-band tiles are skipped, not masked: the q-tile at q0 visits only the
 //    KV tiles from that of max(0, q0 - w) to that of min(S - 1, q0 + BQ - 1
 //    + w), and masks |i - j| > w inside them, so the work scales with S * w
-//    (at w=64, S=1024, 64x64 tiles an inner q-tile visits 3 of 16 KV tiles,
-//    a 128-row tile 4); the register body masks only the tiles not wholly
-//    inside a warp's band, and a warp with no key in a visited tile skips it;
+//    (at w=64, S=1024, a 128-row tile visits 4 of 16 64-key tiles); only the
+//    tiles not wholly inside a warp's (a row group's) band are masked, and a
+//    warp (a row group) with no key in a visited tile skips it;
 //  * a visited tile may hold no key of some row (w=4, q0=64: row 127 has
 //    none in tile 0), so the running max can still be -inf after a tile and
 //    the exponent is taken against 0 there instead of -inf - -inf = NaN;
@@ -59,18 +40,16 @@
 //    products (127,936 band pairs per head; ~1.2 us at 989 TFLOP/s): memory,
 //    where the full kernel is bound by math.
 
-// The tile bodies live in flash_common.cuh, flash_reg.cuh and
-// flash_wide.cuh, the first two shared with the ring kernels of
-// ring_flash.cu; the wide kernel is built in its own source,
-// flash_wide.cu, which nvcc compiles beside this one.
+// The tile bodies live in flash_reg.cuh and flash_wide.cuh, shared with the
+// ring kernels of ring_flash.cu; kernel 1's wide kernels are built in their
+// own source, flash_wide.cu, which nvcc compiles beside this one.
 //
 // ops/_build.py compiles this source twice, in parallel: CF_FLASH_PART 1
 // holds the full-attention entry (and the error string), 2 the banded one.
 // Each part instantiates only the kernels its entry reaches; without the
 // define both entries are built.
 
-#include "flash_tile_f32.cuh"  // the shared-memory body on fp32
-#include "flash_wide.cuh"  // the wide body's launch (flash_wide.cu)
+#include "flash_wide.cuh"  // the wide body, kernel 1's launch in flash_wide.cu
 
 namespace {
 
@@ -152,87 +131,51 @@ int launch_reg(const T* q, const T* k, const T* v, Strides sq, Strides sk, Strid
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NWARPS, int BK>
+// kernel 4 on the wide body: CTA part (the cluster rank) of the query tile
+// blockIdx.x / parts holds the columns [part DP, (part + 1) DP)
+template <int DP, int NWARPS>
 __global__ void __launch_bounds__(32 * NWARPS)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, Strides sq, Strides sk, Strides sv,
-                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                 const int* __restrict__ kv_lens, int H, int Sq, int Sk, int D,
-                 float scale_log2, int /*window*/) {
-  const int b = blockIdx.z;
-  const int kv_len = kv_lens != nullptr ? min(max(kv_lens[b], 0), Sk) : Sk;
-  flash_tile<NWARPS, BK, false, false>(q, k, v, sq, sk, sv, out, lse, kv_len, H, Sq, Sk, D,
-                                       scale_log2, 0, blockIdx.x * 16 * NWARPS, blockIdx.y, b,
-                                       Carry{});
+flash_window_wide_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v, Strides sq, Strides sk, Strides sv,
+                         __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int H, int S, int D,
+                         float scale_log2, int window) {
+  using L = WideLayout<DP, NWARPS, 2, true>;
+  flash_wide_tile<__nv_bfloat16, DP, NWARPS, true, false, true>(
+      q, k, v, sq, sk, sv, out, lse, S, H, S, D, scale_log2, blockIdx.x / cluster_size() * 16 * L::kGroups,
+      blockIdx.y, blockIdx.z, Carry{}, window);
 }
 
-template <int NWARPS, int BK>
+template <int DP, int NWARPS>
 __global__ void __launch_bounds__(32 * NWARPS)
-flash_window_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, Strides sq, Strides sk, Strides sv,
-                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                    const int* __restrict__ /*kv_lens*/, int H, int Sq, int Sk, int D,
-                    float scale_log2, int window) {
-  flash_tile<NWARPS, BK, true, false>(q, k, v, sq, sk, sv, out, lse, Sk, H, Sq, Sk, D,
-                                      scale_log2, window, blockIdx.x * 16 * NWARPS, blockIdx.y,
-                                      blockIdx.z, Carry{});
+flash_window_wide_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, Strides sq, Strides sk, Strides sv,
+                             float* __restrict__ out, float* __restrict__ lse, int H, int S, int D,
+                             float scale_log2, int window) {
+  using L = WideLayout<DP, NWARPS, 4, true>;
+  flash_wide_tile<float, DP, NWARPS, true, false, true>(
+      q, k, v, sq, sk, sv, out, lse, S, H, S, D, scale_log2, blockIdx.x / cluster_size() * 16 * L::kGroups,
+      blockIdx.y, blockIdx.z, Carry{}, window);
 }
 
-template <int NWARPS, int BK>
-__global__ void __launch_bounds__(32 * NWARPS)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, Strides sq, Strides sk, Strides sv,
-                     float* __restrict__ out, float* __restrict__ lse,
-                     const int* __restrict__ kv_lens, int H, int Sq, int Sk, int D,
-                     float scale_log2, int /*window*/) {
-  const int b = blockIdx.z;
-  const int kv_len = kv_lens != nullptr ? min(max(kv_lens[b], 0), Sk) : Sk;
-  flash_tile_f32<NWARPS, BK, false, false>(q, k, v, sq, sk, sv, out, lse, kv_len, H, Sq, Sk, D,
-                                           scale_log2, 0, blockIdx.x * 16 * NWARPS, blockIdx.y, b,
-                                           Carry{});
-}
-
-template <int NWARPS, int BK>
-__global__ void __launch_bounds__(32 * NWARPS)
-flash_window_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, Strides sq, Strides sk, Strides sv,
-                        float* __restrict__ out, float* __restrict__ lse,
-                        const int* __restrict__ /*kv_lens*/, int H, int Sq, int Sk, int D,
-                        float scale_log2, int window) {
-  flash_tile_f32<NWARPS, BK, true, false>(q, k, v, sq, sk, sv, out, lse, Sk, H, Sq, Sk, D,
-                                          scale_log2, window, blockIdx.x * 16 * NWARPS, blockIdx.y,
-                                          blockIdx.z, Carry{});
-}
-
-// The shared-memory body on T elements: flash_tile (bf16) or flash_tile_f32
-template <typename T, int NWARPS, int BK, bool BAND>
-int launch(const T* q, const T* k, const T* v, Strides sq, Strides sk, Strides sv, T* out, float* lse,
-           const int* kv_lens, int B, int Sq, int Sk, int H, int D, float scale_log2, int window,
-           cudaStream_t stream) {
-  constexpr int BQ = 16 * NWARPS;
-  constexpr bool kF32 = sizeof(T) == 4;
-  const int bytes = kF32 ? make_layout_f32(D, BQ, BK).bytes : make_layout(D, BQ, BK).bytes;
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  // only the kernel of the plan's kind and dtype is instantiated
+template <typename T, int DP, int NWARPS>
+int launch_window_wide(const T* q, const T* k, const T* v, Strides sq, Strides sk, Strides sv, T* out,
+                       float* lse, int B, int S, int H, int D, float scale_log2, int window, int parts,
+                       cudaStream_t stream) {
+  using L = WideLayout<DP, NWARPS, static_cast<int>(sizeof(T)), true>;
+  constexpr int BQ = 16 * L::kGroups;
   auto kern = [] {
-    if constexpr (kF32 && BAND) return flash_window_f32_kernel<NWARPS, BK>;
-    else if constexpr (kF32) return flash_fwd_f32_kernel<NWARPS, BK>;
-    else if constexpr (BAND) return flash_window_kernel<NWARPS, BK>;
-    else return flash_fwd_kernel<NWARPS, BK>;
+    if constexpr (sizeof(T) == 4) return flash_window_wide_f32_kernel<DP, NWARPS>;
+    else return flash_window_wide_kernel<DP, NWARPS>;
   }();
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kern<<<grid, 32 * NWARPS, bytes, stream>>>(q, k, v, sq, sk, sv, out, lse, kv_lens, H, Sq, Sk, D,
-                                             scale_log2, window);
-  return static_cast<int>(cudaGetLastError());
+  return launch_split(kern, parts, dim3((S + BQ - 1) / BQ, H, B), 32 * NWARPS, L::kBytes, stream, q, k, v, sq, sk,
+                      sv, out, lse, H, S, D, scale_log2, window);
 }
 
 // Launch the plan (body, dp, warps) on T elements: the register body at a
-// built (dp, warps) with D <= dp; full attention also the wide body at a
-// built (dp, warps); or the shared-memory body (flash_tile, or on fp32
-// flash_tile_f32) with dp = D rounded up to 16 and 2 warps (32x32 tiles),
-// or, banded, 4 (64x64); anything else is an error.  BAND takes the banded
-// kernel of the same body.
+// built (dp, warps) with D <= dp, or the wide body: full attention through
+// cf_flash_wide_launch, banded on clusters of wide_parts(dp) CTAs, each at
+// (dp / parts, warps), one of CF_WIDE_PLANS; anything else is an error.
+// BAND takes the banded kernel of the same body.
 template <typename T, bool BAND>
 int dispatch(const void* q, const void* k, const void* v, long long qsb, long long qss,
              long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
@@ -262,25 +205,21 @@ int dispatch(const void* q, const void* k, const void* v, long long qsb, long lo
 #undef CF_REG_CASE
     return static_cast<int>(refused);
   }
-  if (body == kWideBody) {
-    if (BAND) return static_cast<int>(refused);
-    return cf_flash_wide_launch(q, k, v, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, out, lse,
-                                kv_lens, B, Sq, Sk, H, D, sl2, dp, warps, kF32, stream);
+  if (body != kWideBody) return static_cast<int>(refused);
+  if constexpr (!BAND) {
+    return cf_flash_wide_launch(q, k, v, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, out, lse, kv_lens, B, Sq,
+                                Sk, H, D, sl2, dp, warps, kF32, stream);
+  } else {
+    const int parts = wide_parts(dp);
+    if (parts == 0 || D <= (parts - 1) * (dp / parts)) return static_cast<int>(refused);
+#define CF_WIDE_CASE(DPV, W)                                                                                \
+  if (dp / parts == DPV && warps == W) {                                                                     \
+    return launch_window_wide<T, DPV, W>(qp, kp, vp, sq, sk, sv, op, lp, B, Sq, H, D, sl2, window, parts, st); \
   }
-  if (body != kTileBody || dp != round_up(D, 16)) return static_cast<int>(refused);
-  // 32x32 tiles with 2 warps (d=520: ~174 KB of shared memory in bf16); banded,
-  // also 64x64 tiles with 4
-  if (warps == 2) {
-    return launch<T, 2, 32, BAND>(qp, kp, vp, sq, sk, sv, op, lp, lens, B, Sq, Sk, H, D, sl2, window,
-                                  st);
+    CF_WIDE_PLANS(CF_WIDE_CASE)
+#undef CF_WIDE_CASE
+    return static_cast<int>(refused);
   }
-  if constexpr (BAND) {
-    if (warps == 4) {
-      return launch<T, 4, 64, BAND>(qp, kp, vp, sq, sk, sv, op, lp, lens, B, Sq, Sk, H, D, sl2,
-                                    window, st);
-    }
-  }
-  return static_cast<int>(refused);
 }
 
 }  // namespace

@@ -1,6 +1,6 @@
 // The register-resident flash tile body for Hopper: kernel 1 (non-causal
 // attention with a natural-log LSE, head dims up to 128; csrc/flash_attn.cu;
-// wider heads up to 512 take flash_wide.cuh, this body split over warps),
+// wider heads take flash_wide.cuh, this body split over warps),
 // kernel 4 (the same, banded: BAND), kernel 7 (one ring hop folded into an
 // fp32 (m, l, acc) state; csrc/ring_flash.cu) and the flash partial of
 // kernel 8 (kernel 7's launch on the reconstructed K/V) run on it, and so
@@ -15,8 +15,8 @@
 // products are 4 * B * H * S^2 * D = 9.66 GFLOP, 9.77 us at 989 TFLOP/s
 // bf16, against 19 MB of q/k/v/out (5.6 us at 3.35 TB/s).
 //
-// Design, against the three costs of the shared-memory body
-// (flash_common.cuh::flash_tile):
+// Design, against the three costs of a shared-memory body (WMMA scores,
+// probabilities and accumulator staged in shared memory on every tile):
 //  * the products never leave registers: warp w owns query rows
 //    [16w, 16w + 16) of the tile; its scores S (16 x BK) and its
 //    accumulator O (16 x DP) are fp32 fragments of
@@ -69,9 +69,31 @@
 // production kernel takes all stages, for which each switch compiles away.
 #pragma once
 
-#include "flash_common.cuh"
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math_constants.h>
+#include <stdint.h>
 
 namespace {
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+struct Strides {
+  long long b, s, h;  // in elements; the head-dim stride is 1
+};
+
+// The running softmax state of a ring (CARRY, kernels 7 and 8): m and l
+// (B, H, Sq) in the exp2 domain of scaled scores, acc (B, H, Sq, D), all
+// fp32.  A body's state of its rows starts from and ends in it instead of
+// fresh registers, so a ring folds one hop per launch into it: first = no
+// state yet, last = normalise and write out/LSE.
+struct Carry {
+  float* m;
+  float* l;
+  float* acc;
+  int first, last;
+};
 
 // The stages of the tile body.  Switched off, each computes what the
 // doctored Pallas kernel of _prof_kernel_parts.py computes in its place:
@@ -98,7 +120,7 @@ constexpr int kRegBK = 64;  // keys per K/V tile
 
 // The bodies a plan names (ops/flash.py::BODIES); the wide body is
 // flash_wide.cuh's
-enum Body : int { kTileBody = 0, kRegBody = 1, kWideBody = 2 };
+enum Body : int { kRegBody = 1, kWideBody = 2 };
 
 // The (DP, warps) pairs the register kernels are built for: what
 // ops/flash.py::flash_plan can choose (REG_BUILT there)
@@ -293,7 +315,7 @@ __device__ __forceinline__ void fp32_pv(float (&o)[NO][4], const float (&s)[NS][
 // The tile body: the query tile [q0, q0 + 16 * NWARPS) of head h, batch b
 // against the keys [0, kv_len) in tiles of kRegBK.  CARRY: the state
 // (m, l, O) of the tile starts from (after the first hop) and ends in
-// (before the last) device memory, as in flash_tile.  A row with no key
+// (before the last) device memory (Carry).  A row with no key
 // writes 0 and LSE -inf.  With a stage switched off (PARTS) the probe
 // passes the factor of its scores as scale_log2: scale * log2e with the
 // exponent, the plain scale without it.

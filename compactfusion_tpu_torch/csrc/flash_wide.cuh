@@ -1,11 +1,19 @@
-// The wide-head flash tile body for Hopper: kernel 1 (non-causal attention
-// with a natural-log LSE, optional kv_lens) at head dims 128 < d <= 512,
-// launched as flash_fwd_wide_kernel (csrc/flash_wide.cu) by kernel 1's
-// entry in csrc/flash_attn.cu.  The SD-VAE's mid-block attention (B1 H1
-// S4096 d512) is the shape on the path.
+// The wide-head flash tile body for Hopper: every flash kernel above the
+// register body's head dims of 128 runs on it.  Kernel 1 (non-causal
+// attention with a natural-log LSE, optional kv_lens; flash_fwd_wide_kernel
+// up to d = 512, flash_fwd_wide_split_kernel above, both in
+// csrc/flash_wide.cu), kernel 4 (banded, BAND: flash_window_wide_kernel in
+// csrc/flash_attn.cu) and kernels 7 and 8's flash partial (one ring hop
+// folded into the fp32 (m, l, acc) state, CARRY: ring_flash_hop_wide_kernel
+// in csrc/ring_flash.cu).  The SD-VAE's mid-block attention (B1 H1 S4096
+// d512, kernel 1) is the shape on the path; no model path runs the others.
 //
 // Replaces: compactfusion_tpu/ops/flash_pallas.py::flash_attn_with_lse,
-// main branch (pallas_call at flash_pallas.py:593), at the wide heads.
+// main branch (pallas_call at flash_pallas.py:593) and window= branch
+// (:508), and compactfusion_tpu/ops/ring_flash_pallas.py::
+// ring_flash_attn_with_lse (:347) and compact_binary_ring_flash's flash
+// partial (:954), at the wide heads.  The Pallas kernels take any head dim;
+// this body takes d <= kWidePart * kWideMaxParts (2048).
 //
 // What bounds it on an H100: operations.  At B1 H1 S4096 d512 the two
 // products are 4 * S^2 * D = 34.4 GFLOP, 34.7 us at 989 TFLOP/s bf16,
@@ -13,14 +21,14 @@
 // all of K/V (8 MB) from L2, so the L2 traffic is CTAs x 8 MB.
 //
 // Design: flash_reg.cuh's register body with the head dim split across
-// warps.  A register accumulator of 16 rows x 512 fp32 would take 256
-// registers a thread, so:
-//  * the padded head dim DP is cut into NSL slices of DS <= 128 columns
-//    (ops/flash.py::flash_plan picks DP; NSL = ceil(DP / 128)).  A CTA holds
-//    2 row groups of 16 query rows x NSL slices, one warp each: warp (r, s)
-//    keeps O[16 rows of r, slice s] as mma.sync.m16n8k16 fp32 fragments (64
-//    registers a thread at DS 128) and Q[rows, slice s] as A fragments
-//    loaded once;
+// warps, and above d = 512 across the CTAs of a cluster.  A register
+// accumulator of 16 rows x 512 fp32 would take 256 registers a thread, so:
+//  * the padded head dim of a CTA, DP, is cut into NSL slices of DS <= 128
+//    columns (ops/flash.py::flash_plan picks DP; NSL = ceil(DP / 128)).  A
+//    CTA holds 2 row groups of 16 query rows x NSL slices, one warp each:
+//    warp (r, s) keeps O[16 rows of r, slice s] as mma.sync.m16n8k16 fp32
+//    fragments (64 registers a thread at DS 128) and Q[rows, slice s] as A
+//    fragments loaded once;
 //  * per K/V tile of kWideBK keys, warp (r, s) computes the partial scores
 //    Q[:, s] K[:, s]^T over its slice alone; the NSL partials of a row group
 //    meet in a shared-memory exchange (16 x kWideBK fp32 per warp, stored as
@@ -39,16 +47,51 @@
 //    past D are zero-filled by the copy, rows are DP + 8 elements (an odd
 //    number of 16-byte segments: ldmatrix without bank conflicts), and
 //    q/k/v are read through their (b, s, h) strides.
-// A row with no key writes 0 and LSE -inf.  The body is for full
-// attention alone: banded attention and the ring hop (kernels 4 and 7) take
-// flash_common.cuh::flash_tile above d = 128.
+// A row with no key writes 0 and LSE -inf.
 //
-// fp32 (flash_fwd_wide_f32_kernel) runs flash_reg.cuh's 3xTF32 products
-// (fp32_scores, fp32_pv; Q read from shared memory at every tile) on the
-// same plans.  Its rows are DP + 4 floats, and a 32-key K+V tile would be
-// 132 KB at DP 512, so its tiles hold 16 keys: at DP 512 the Q tile
-// (66,048 bytes), two stages of K and V (132,096) and the exchange (8,192)
-// come to 206,336 bytes; three stages do not fit.
+// SPLIT (every kernel but kernel 1 up to d = 512): one CTA can hold at most
+// kWidePart (512) columns of the head dim (Q, the K/V ring and the
+// accumulators fit 227 KB and the register file no further), so a wider
+// head takes a cluster of parts = ceil(d / 512) CTAs (at most kWideMaxParts)
+// on the same query rows, CTA p holding columns [p DP, (p + 1) DP) of q, k,
+// v and out: each is the CTA above on its columns.  Each CTA adds its
+// slices' partials as above; slice 0 of each row group then publishes the
+// CTA's sum in its shared memory, one cluster barrier (barrier.cluster) per
+// tile, and every warp reads the sums of every CTA of the cluster (mapa,
+// ld.shared::cluster, all of a CTA's in flight together) and adds them in
+// CTA order, so all warps of the cluster hold the same scores bit for bit.
+// The sums are double-buffered by the parity of the tile: a CTA writes tile
+// t + 1's while a slower peer may still read tile t's, and it rewrites tile
+// t's buffer only after the barrier of tile t + 1, which that peer reaches
+// after its reads.  A last cluster barrier keeps every CTA resident until
+// its peers are done with its sums.  At parts = 1 (kernels 4 and 7 up to
+// d = 512) there is no cluster barrier.  Where a ring of 2 stages lets two
+// CTAs share an SM (DP 288 and below in bf16, 256 in fp32), SPLIT takes 2:
+// with 4 warps a CTA, one CTA per SM left each SM sub-partition one warp to
+// issue from.
+//
+// BAND (kernel 4; self-attention, Sq == kv_len): keys with |i - j| > window
+// are left out.  The K/V loop visits only the tiles that the band of the
+// CTA's rows touches, from that of max(0, q0 - window) to that of
+// min(S - 1, q0 + BQ - 1 + window); a tile is masked only where it is not
+// wholly inside the band of every row of the group, and a group whose 16
+// rows have no key in a visited tile skips its products there (on a
+// cluster of more CTAs it still takes the barriers).  A row may have no key in the first tiles it
+// visits (w=4; w=0): its max stays -inf and the exponents are taken against
+// 0, as for a row with no key yet.
+//
+// CARRY (kernels 7 and 8): the state (m, l, O) of the tile starts from
+// (after the first hop) and ends in (before the last) device memory, as in
+// flash_reg.cuh: every warp reads the rows' m and l and its own columns of
+// acc, and slice 0 of part 0 writes m and l back.
+//
+// fp32 (the *_f32_kernel instantiations) runs flash_reg.cuh's 3xTF32
+// products (fp32_scores, fp32_pv; Q read from shared memory at every tile)
+// on the same plans.  Its rows are DP + 4 floats, and a 32-key K+V tile
+// would be 132 KB at DP 512, so its tiles hold 16 keys: at DP 512 the Q
+// tile (66,048 bytes), two stages of K and V (132,096) and the exchange
+// (8,192; 12,288 with SPLIT's sums) come to 206,336 bytes (210,432);
+// three stages do not fit.
 #pragma once
 
 #include "flash_reg.cuh"
@@ -56,18 +99,27 @@
 namespace {
 
 constexpr int kWideBK = 32;  // keys per bf16 K/V tile
+constexpr int kWidePart = 512;   // widest padded head dim one CTA holds
+constexpr int kWideMaxParts = 4;  // CTAs of a cluster, at most
 
-// The (DP, warps) pairs the wide kernel is built for: what
-// ops/flash.py::flash_plan can choose (WIDE_BUILT there).  DP is NSL slices
-// of DS columns, and warps = 2 row groups x NSL
+// The (DP, warps) pairs the wide kernels are built for, DP a CTA's part of
+// the padded head dim: what ops/flash.py::flash_plan can choose (WIDE_BUILT
+// there).  DP is NSL slices of DS columns, and warps = 2 row groups x NSL.
+// Kernel 1 up to d = 512 and kernels 4 and 7 at every width take them all
 #define CF_WIDE_PLANS(X) X(160, 4) X(192, 4) X(256, 4) X(288, 6) X(384, 6) X(512, 8)
+// ... and kernel 1 above d = 512, split over a cluster, these
+// (WIDE_SPLIT_BUILT)
+#define CF_WIDE_SPLIT_PLANS(X) X(288, 6) X(384, 6) X(512, 8)
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // The shared memory of one CTA for ELEM-byte elements (ops/flash.py::
-// wide_layout mirrors it): the Q tile, the K/V ring and the exchange; tiles
-// of kWideBK keys in bf16, half as many in fp32
-template <int DP, int NWARPS, int ELEM = 2>
+// wide_layout mirrors it): the Q tile, the K/V ring and the exchange (with
+// SPLIT also two buffers of the row groups' sums); tiles of kWideBK keys in
+// bf16, half as many in fp32.  The ring takes 3 stages where they fit, but
+// with SPLIT 2 where that lets two CTAs share an SM's 228 KB (the system
+// keeps 1 KB of it per CTA)
+template <int DP, int NWARPS, int ELEM = 2, bool SPLIT = false>
 struct WideLayout {
   static constexpr int kSlices = cdiv(DP, 128);
   static constexpr int kDs = DP / kSlices;
@@ -76,8 +128,9 @@ struct WideLayout {
   static constexpr int kLd = DP + 16 / ELEM;
   static constexpr int kQBytes = 16 * kGroups * kLd * ELEM;
   static constexpr int kTileBytes = kBK * kLd * ELEM;
-  static constexpr int kXchBytes = NWARPS * 16 * kBK * 4;
-  static constexpr int kStages = 2 + (kQBytes + 3 * 2 * kTileBytes + kXchBytes <= 227 * 1024);
+  static constexpr int kXchBytes = NWARPS * 16 * kBK * 4 + SPLIT * 2 * kGroups * 16 * kBK * 4;
+  static constexpr bool kTwoCtas = SPLIT && 2 * (kQBytes + 2 * 2 * kTileBytes + kXchBytes + 1024) <= 228 * 1024;
+  static constexpr int kStages = 2 + (!kTwoCtas && kQBytes + 3 * 2 * kTileBytes + kXchBytes <= 227 * 1024);
   static constexpr int kBytes = kQBytes + kStages * 2 * kTileBytes + kXchBytes;
 };
 
@@ -86,16 +139,49 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// This CTA's rank in its cluster, and the cluster's CTAs
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+__device__ __forceinline__ int cluster_size() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// Every thread of the cluster: the shared-memory writes before it are seen
+// by the reads after it, in every CTA of the cluster
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// 16 bytes at `p` (this CTA's shared memory) in CTA `rank` of the cluster
+__device__ __forceinline__ float4 ld_cluster(const float4* p, int rank) {
+  unsigned a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  float4 x;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
+               : "r"(a)
+               : "memory");
+  return x;
+}
+
 // The query tile [q0, q0 + 16 kGroups) of head h, batch b against the keys
-// [0, kv_len) in tiles of L::kBK
-template <typename T, int DP, int NWARPS>
+// [0, kv_len) in tiles of L::kBK; with SPLIT on this CTA's part of the head
+// dim (the note above).  BAND takes `window`, CARRY `carry`.
+template <typename T, int DP, int NWARPS, bool BAND = false, bool CARRY = false, bool SPLIT = false>
 __device__ __forceinline__ void
 flash_wide_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, Strides sq,
                 Strides sk, Strides sv, T* __restrict__ out, float* __restrict__ lse, int kv_len,
-                int H, int Sq, int D, float scale_log2, int q0, int h, int b) {
+                int H, int Sq, int D, float scale_log2, int q0, int h, int b, Carry carry = Carry{},
+                int window = 0) {
   constexpr bool kF32 = sizeof(T) == 4;
   using Ops = MmaOps<T>;
-  using L = WideLayout<DP, NWARPS, static_cast<int>(sizeof(T))>;
+  using L = WideLayout<DP, NWARPS, static_cast<int>(sizeof(T)), SPLIT>;
   constexpr int BK = L::kBK, NSL = L::kSlices, DS = L::kDs, BQ = 16 * L::kGroups;
   constexpr int NT = 32 * NWARPS, LD = L::kLd, STAGES = L::kStages;
   constexpr int NS = BK / 8;        // score fragments (8 keys each) per row strip
@@ -104,10 +190,12 @@ flash_wide_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   static_assert(NSL > 1 && DS * NSL == DP && DS % 16 == 0 && DS <= 128, "slices of 16..128 columns");
   static_assert(L::kGroups * NSL == NWARPS, "warps = row groups x slices");
   static_assert(L::kBytes <= 227 * 1024, "the layout must fit one CTA's shared memory");
+  static_assert(!(BAND && CARRY) && (SPLIT || !(BAND || CARRY)), "kernel 4 bands, kernels 7 and 8 carry");
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
   T* ring = reinterpret_cast<T*>(smem + L::kQBytes);  // stage s: K at 2s, V at 2s + 1
   float4* xch = reinterpret_cast<float4*>(smem + L::kQBytes + STAGES * 2 * L::kTileBytes);
+  float4* xsum = xch + NWARPS * NS * 32;  // SPLIT: [tile parity][group] sums of the CTA's slices
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, tig = lane % 4;  // the mma layout: row group, thread in group
@@ -118,18 +206,35 @@ flash_wide_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const T* qbh = q + b * sq.b + h * sq.h;
   const T* kbh = k + b * sk.b + h * sk.h;
   const T* vbh = v + b * sv.b + h * sv.h;
-  const int t_end = (kv_len + BK - 1) / BK;
+  // SPLIT: this CTA, part `part` of the cluster's `parts`, holds the columns
+  // [cp, cp + DP) of the head dim, dl of them below D
+  int part = 0, parts = 1, cp = 0, dl = D;
+  if constexpr (SPLIT) {
+    part = cluster_rank();
+    parts = cluster_size();
+    cp = part * DP;
+    dl = min(D - cp, DP);
+    qbh += cp;
+    kbh += cp;
+    vbh += cp;
+    out += cp;
+  }
+  int t_lo = 0, t_end = (kv_len + BK - 1) / BK;
+  if constexpr (BAND) {  // the K/V tiles the band of rows [q0, q0 + BQ) touches
+    t_lo = max(0, q0 - window) / BK;
+    t_end = min(kv_len - 1, q0 + BQ - 1 + window) / BK + 1;
+  }
 
   auto load_kv = [&](int t) {
     T* Ks = ring + (t % STAGES) * 2 * BK * LD;
-    async_tile<T, BK, DP, LD, NT>(Ks, kbh, sk.s, t * BK, kv_len, D, tid);
-    async_tile<T, BK, DP, LD, NT>(Ks + BK * LD, vbh, sv.s, t * BK, kv_len, D, tid);
+    async_tile<T, BK, DP, LD, NT>(Ks, kbh, sk.s, t * BK, kv_len, dl, tid);
+    async_tile<T, BK, DP, LD, NT>(Ks + BK * LD, vbh, sv.s, t * BK, kv_len, dl, tid);
   };
-  // group 0: Q and tile 0; group s: tile s
-  async_tile<T, BQ, DP, LD, NT>(Qs, qbh, sq.s, q0, Sq, D, tid);
+  // group 0: Q and tile t_lo; group s: tile t_lo + s
+  async_tile<T, BQ, DP, LD, NT>(Qs, qbh, sq.s, q0, Sq, dl, tid);
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < t_end) load_kv(s);
+    if (t_lo + s < t_end) load_kv(t_lo + s);
     cp_async_commit();
   }
 
@@ -138,12 +243,38 @@ flash_wide_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   float mA = -CUDART_INF_F, mB = -CUDART_INF_F, lA = 0.f, lB = 0.f;  // l: this thread's part
 #pragma unroll
   for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  if constexpr (CARRY) {
+    if (!carry.first) {
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        const int c = c0 + n * 8 + tig * 2;
+        if (c < dl && rowA < Sq) {
+          const float2 x = *reinterpret_cast<const float2*>(carry.acc + (row0 + rowA) * D + cp + c);
+          o[n][0] = x.x;
+          o[n][1] = x.y;
+        }
+        if (c < dl && rowB < Sq) {
+          const float2 x = *reinterpret_cast<const float2*>(carry.acc + (row0 + rowB) * D + cp + c);
+          o[n][2] = x.x;
+          o[n][3] = x.y;
+        }
+      }
+      if (rowA < Sq) {
+        mA = carry.m[row0 + rowA];
+        if (tig == 0) lA = carry.l[row0 + rowA];  // one part per quad
+      }
+      if (rowB < Sq) {
+        mB = carry.m[row0 + rowB];
+        if (tig == 0) lB = carry.l[row0 + rowB];
+      }
+    }
+  }
   unsigned qf[kF32 ? 1 : KQ][4];  // bf16: Q's A fragments of the slice
   const T* qw = Qs + (r0 + (lane % 16)) * LD + c0 + (lane / 16) * 8;
   float4* xmine = xch + warp * NS * 32 + lane;          // this warp's partial scores
   const float4* xgrp = xch + grp * NSL * NS * 32 + lane;  // the group's, slice by slice
 
-  for (int t = 0; t < t_end; ++t) {
+  for (int t = t_lo; t < t_end; ++t) {
     const int k0 = t * BK;
     cp_async_wait<STAGES - 2>();  // this thread's copies of tile t (and Q) landed
     __syncthreads();  // everyone's landed; everyone is done with tile t - 1 and the exchange
@@ -152,34 +283,49 @@ flash_wide_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     const T* Ks = ring + (t % STAGES) * 2 * BK * LD;
     const T* Vs = Ks + BK * LD;
     if constexpr (!kF32) {
-      if (t == 0) {
+      if (t == t_lo) {
 #pragma unroll
         for (int kk = 0; kk < KQ; ++kk) ldmatrix_x4(qf[kk], qw + kk * 16);
       }
+    }
+    // BAND: whether the group's rows [w0, w0 + 16) have no key in the tile,
+    // and whether the tile lies wholly inside every one of their bands
+    bool skip = false, band_ragged = false;
+    if constexpr (BAND) {
+      const int w0 = q0 + r0;
+      skip = k0 > w0 + 15 + window || k0 + BK - 1 < w0 - window;
+      band_ragged = w0 + 15 - k0 > window || k0 + BK - 1 - w0 > window || k0 + BK > kv_len;
     }
 
     // partial scores of this warp's 16 rows over its slice: fp32 fragments
     float s[NS][4];
 #pragma unroll
     for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    if constexpr (kF32) {
-      fp32_scores<NS, KQ>(s, reinterpret_cast<const float*>(Qs), reinterpret_cast<const float*>(Ks), r0,
-                          c0, LD, lane);
-    } else {
+    if (!skip) {
+      if constexpr (kF32) {
+        fp32_scores<NS, KQ>(s, reinterpret_cast<const float*>(Qs), reinterpret_cast<const float*>(Ks), r0,
+                            c0, LD, lane);
+      } else {
 #pragma unroll
-    for (int kk = 0; kk < KQ; ++kk) {
+        for (int kk = 0; kk < KQ; ++kk) {
 #pragma unroll
-      for (int np = 0; np < NS / 2; ++np) {  // keys [16 np, 16 np + 16)
-        unsigned kf[4];
-        ldmatrix_x4(kf, Ks + (np * 16 + (lane % 8) + (lane / 16) * 8) * LD + c0 + kk * 16 +
-                            ((lane / 8) % 2) * 8);
-        Ops::mma(s[2 * np], qf[kk], kf[0], kf[1]);
-        Ops::mma(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+          for (int np = 0; np < NS / 2; ++np) {  // keys [16 np, 16 np + 16)
+            unsigned kf[4];
+            ldmatrix_x4(kf, Ks + (np * 16 + (lane % 8) + (lane / 16) * 8) * LD + c0 + kk * 16 +
+                                ((lane / 8) % 2) * 8);
+            Ops::mma(s[2 * np], qf[kk], kf[0], kf[1]);
+            Ops::mma(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+          }
+        }
       }
-    }
     }
 
     // the group's full scores: the slices' partials added in slice order
+    // (SPLIT on a cluster of more than one CTA: then the CTAs' sums, in
+    // CTA order, through the buffer of the tile's parity)
+    if constexpr (SPLIT) {
+      if (skip && parts == 1) continue;
+    }
 #pragma unroll
     for (int n = 0; n < NS; ++n) xmine[n * 32] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
     bar_sync(1 + grp, 32 * NSL);
@@ -199,9 +345,45 @@ flash_wide_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       s[n][2] = x.z;
       s[n][3] = x.w;
     }
+    if constexpr (SPLIT) {
+      if (parts > 1) {
+        // slice 0 of each group publishes the CTA's sum; every warp adds
+        // the parts' sums in part order
+        float4* xs = xsum + ((t & 1) * L::kGroups + grp) * NS * 32 + lane;
+        if (sl == 0) {
+#pragma unroll
+          for (int n = 0; n < NS; ++n) xs[n * 32] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+        }
+        cluster_sync();
+        if (skip) continue;
+        float4 x[NS];
+#pragma unroll
+        for (int n = 0; n < NS; ++n) x[n] = ld_cluster(xs + n * 32, 0);
+        for (int p = 1; p < parts; ++p) {
+          float4 y[NS];
+#pragma unroll
+          for (int n = 0; n < NS; ++n) y[n] = ld_cluster(xs + n * 32, p);
+#pragma unroll
+          for (int n = 0; n < NS; ++n) {
+            x[n].x += y[n].x;
+            x[n].y += y[n].y;
+            x[n].z += y[n].z;
+            x[n].w += y[n].w;
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          s[n][0] = x[n].x;
+          s[n][1] = x[n].y;
+          s[n][2] = x[n].z;
+          s[n][3] = x[n].w;
+        }
+      }
+    }
 
-    // scale, mask the keys at or past kv_len (only the last tile has any),
-    // and the running max of the two rows across the quad
+    // scale, mask the keys at or past kv_len (only the last tile has any)
+    // and, with BAND, those off the band, and the running max of the two
+    // rows across the quad
     const bool ragged = k0 + BK > kv_len;
     float xA = -CUDART_INF_F, xB = -CUDART_INF_F;
 #pragma unroll
@@ -209,7 +391,12 @@ flash_wide_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         float x = s[n][i] * scale_log2;
-        if (ragged && k0 + n * 8 + tig * 2 + (i % 2) >= kv_len) x = -CUDART_INF_F;
+        if constexpr (BAND) {
+          const int col = k0 + n * 8 + tig * 2 + (i % 2);
+          if (band_ragged && (col >= kv_len || abs((i < 2 ? rowA : rowB) - col) > window)) x = -CUDART_INF_F;
+        } else {
+          if (ragged && k0 + n * 8 + tig * 2 + (i % 2) >= kv_len) x = -CUDART_INF_F;
+        }
         s[n][i] = x;
       }
       xA = fmaxf(xA, fmaxf(s[n][0], s[n][1]));
@@ -266,6 +453,9 @@ flash_wide_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     }
   }
   cp_async_wait<0>();  // no copy outlives the block
+  if constexpr (SPLIT) {
+    if (parts > 1) cluster_sync();  // no CTA leaves while a peer reads its sums
+  }
 
   // the whole row sums: the quad's parts
   lA += __shfl_xor_sync(0xffffffffu, lA, 1);
@@ -273,22 +463,80 @@ flash_wide_tile(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   lB += __shfl_xor_sync(0xffffffffu, lB, 1);
   lB += __shfl_xor_sync(0xffffffffu, lB, 2);
 
+  if constexpr (CARRY) {
+    if (!carry.last) {  // hand this warp's columns of the rows to the next hop
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        const int c = c0 + n * 8 + tig * 2;
+        if (c >= dl) continue;
+        if (rowA < Sq) {
+          *reinterpret_cast<float2*>(carry.acc + (row0 + rowA) * D + cp + c) = make_float2(o[n][0], o[n][1]);
+        }
+        if (rowB < Sq) {
+          *reinterpret_cast<float2*>(carry.acc + (row0 + rowB) * D + cp + c) = make_float2(o[n][2], o[n][3]);
+        }
+      }
+      if (sl == 0 && part == 0 && tig == 0) {
+        if (rowA < Sq) {
+          carry.m[row0 + rowA] = mA;
+          carry.l[row0 + rowA] = lA;
+        }
+        if (rowB < Sq) {
+          carry.m[row0 + rowB] = mB;
+          carry.l[row0 + rowB] = lB;
+        }
+      }
+      return;
+    }
+  }
+
   // normalise and write this warp's columns: out (B, Sq, H, D); slice 0
-  // writes lse (B, H, Sq)
+  // (of part 0) writes lse (B, H, Sq)
   const float invA = lA > 0.f ? 1.f / lA : 0.f, invB = lB > 0.f ? 1.f / lB : 0.f;
   T* outA = out + ((static_cast<long long>(b) * Sq + rowA) * H + h) * D;
   T* outB = out + ((static_cast<long long>(b) * Sq + rowB) * H + h) * D;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
     const int c = c0 + n * 8 + tig * 2;
-    if (c >= D) continue;
+    if (c >= dl) continue;
     if (rowA < Sq) Ops::store2(outA + c, o[n][0] * invA, o[n][1] * invA);
     if (rowB < Sq) Ops::store2(outB + c, o[n][2] * invB, o[n][3] * invB);
   }
-  if (sl == 0 && tig == 0) {
+  if (sl == 0 && tig == 0 && part == 0) {
     if (rowA < Sq) lse[row0 + rowA] = lA > 0.f ? (mA + log2f(lA)) * kLn2 : -CUDART_INF_F;
     if (rowB < Sq) lse[row0 + rowB] = lB > 0.f ? (mB + log2f(lB)) * kLn2 : -CUDART_INF_F;
   }
+}
+
+// The parts of a split plan of padded head dim `dp` (each CTA's is dp /
+// parts, at most kWidePart), or 0 where dp is no such plan
+__host__ __device__ inline int wide_parts(int dp) {
+  const int parts = cdiv(dp, kWidePart);
+  return parts <= kWideMaxParts && dp % parts == 0 ? parts : 0;
+}
+
+// Launch `kern` on (q tiles x parts, H, B) CTAs of `threads` threads and
+// `bytes` of shared memory in clusters of `parts` CTAs along x
+template <typename... Params, typename... Args>
+int launch_split(void (*kern)(Params...), int parts, dim3 grid, int threads, int bytes, cudaStream_t stream,
+                 Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid.x * parts, grid.y, grid.z);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = parts;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, args...);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
 }  // namespace

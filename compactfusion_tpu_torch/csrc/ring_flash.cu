@@ -1,16 +1,16 @@
 // The fused ring kernels, one flash launch per ring hop, each folding its
 // hop into a running fp32 online-softmax state (m, l, acc) in device
 // memory; the last hop normalises and writes out (in the input dtype, bf16
-// or fp32) and LSE (fp32, natural log).  fp32 q/k/v take the register body
+// or fp32) and LSE (fp32, natural log).  fp32 q/k/v take the same bodies
 // in 3xTF32 (flash_reg.cuh's note; ring_flash_hop_reg_f32_kernel, entry
-// cf_ring_flash_hop with f32; above d = 128 flash_tile_f32.cuh's body,
-// ring_flash_hop_f32_kernel), and the EF pass then writes fp32 reconstructions
+// cf_ring_flash_hop with f32; above d = 128 ring_flash_hop_wide_f32_kernel),
+// and the EF pass then writes fp32 reconstructions
 // (ef_update_fp32_f32rec_kernel, ef_codes_int8_f32rec_kernel), not rounded,
 // as ring_flash_pallas.py rounds them to the activation dtype.
 //
 // Replaces: compactfusion_tpu/ops/ring_flash_pallas.py
 //  * ring_flash_attn_with_lse (_ring_kernel, pallas_call at :347): the
-//    uncompressed ring, here ring_flash_hop_reg_kernel (ring_flash_hop_kernel
+//    uncompressed ring, here ring_flash_hop_reg_kernel (ring_flash_hop_wide_kernel
 //    for head dims above 128);
 //  * compact_binary_ring_flash (_cring_kernel, pallas_call at :954): the
 //    compressed ring, here two launches per hop in stream order: the EF pass
@@ -36,7 +36,8 @@
 //    loop.  Head dims up to 128 take the register body (flash_reg.cuh,
 //    ring_flash_hop_reg_kernel) with the tile height ops/flash.py::flash_plan
 //    picks (at ring 8, Sq = 128, shorter tiles fill the card), wider ones
-//    the shared-memory body (ring_flash_hop_kernel);
+//    the wide body (flash_wide.cuh, ring_flash_hop_wide_kernel: the head dim
+//    over warps, and above d = 512 over the CTAs of a cluster);
 //  * the EF pass is its own launch over tiles of 32 channels x 64 rows of
 //    the slot (K and V on the grid's z): hundreds of CTAs (1,152 at ring 2
 //    B2).  With residual 1 the reconstruction IS the slot's new base, which
@@ -60,7 +61,7 @@
 //    int8 decode q * scale is exact too.  The explicit _rn intrinsics keep
 //    the remaining rounding steps as the plain twin takes them.
 
-#include "flash_tile_f32.cuh"
+#include "flash_wide.cuh"
 
 namespace {
 
@@ -85,25 +86,30 @@ ring_flash_hop_reg_f32_kernel(const float* __restrict__ q, const float* __restri
                                           blockIdx.x * 16 * NWARPS, blockIdx.y, blockIdx.z, carry);
 }
 
-template <int NWARPS, int BK>
+// kernels 7 and 8's hop on the wide body: CTA part (the cluster rank) of the
+// query tile blockIdx.x / parts holds the columns [part DP, (part + 1) DP)
+template <int DP, int NWARPS>
 __global__ void __launch_bounds__(32 * NWARPS)
-ring_flash_hop_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, Strides sq, Strides sk, Strides sv,
-                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int H, int Sq,
-                      int Sk, int D, float scale_log2, Carry carry) {
-  flash_tile<NWARPS, BK, false, true>(q, k, v, sq, sk, sv, out, lse, Sk, H, Sq, Sk, D,
-                                      scale_log2, 0, blockIdx.x * 16 * NWARPS, blockIdx.y,
-                                      blockIdx.z, carry);
+ring_flash_hop_wide_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v, Strides sq, Strides sk, Strides sv,
+                           __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int H, int Sq,
+                           int Sk, int D, float scale_log2, Carry carry) {
+  using L = WideLayout<DP, NWARPS, 2, true>;
+  flash_wide_tile<__nv_bfloat16, DP, NWARPS, false, true, true>(
+      q, k, v, sq, sk, sv, out, lse, Sk, H, Sq, D, scale_log2, blockIdx.x / cluster_size() * 16 * L::kGroups,
+      blockIdx.y, blockIdx.z, carry);
 }
 
-template <int NWARPS, int BK>
+template <int DP, int NWARPS>
 __global__ void __launch_bounds__(32 * NWARPS)
-ring_flash_hop_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, Strides sq, Strides sk, Strides sv,
-                          float* __restrict__ out, float* __restrict__ lse, int H, int Sq, int Sk, int D,
-                          float scale_log2, Carry carry) {
-  flash_tile_f32<NWARPS, BK, false, true>(q, k, v, sq, sk, sv, out, lse, Sk, H, Sq, Sk, D, scale_log2, 0,
-                                          blockIdx.x * 16 * NWARPS, blockIdx.y, blockIdx.z, carry);
+ring_flash_hop_wide_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, Strides sq, Strides sk, Strides sv,
+                               float* __restrict__ out, float* __restrict__ lse, int H, int Sq, int Sk,
+                               int D, float scale_log2, Carry carry) {
+  using L = WideLayout<DP, NWARPS, 4, true>;
+  flash_wide_tile<float, DP, NWARPS, false, true, true>(
+      q, k, v, sq, sk, sv, out, lse, Sk, H, Sq, D, scale_log2, blockIdx.x / cluster_size() * 16 * L::kGroups,
+      blockIdx.y, blockIdx.z, carry);
 }
 
 // The EF pass of kernel 8: one hop's payload applied to the source slot of
@@ -334,23 +340,19 @@ int set_smem(Kern kern, int bytes) {
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
-// A hop on the shared-memory body of T elements: flash_tile (bf16) or
-// flash_tile_f32
-template <typename T, int NWARPS, int BK>
-int launch_ring_hop(const T* q, const T* k, const T* v, Strides sq, Strides sk, Strides sv, T* out,
-                    float* lse, int B, int Sq, int Sk, int H, int D, float scale_log2, Carry carry,
-                    cudaStream_t stream) {
-  constexpr int BQ = 16 * NWARPS;
-  constexpr bool kF32 = sizeof(T) == 4;
-  const int bytes = kF32 ? make_layout_f32(D, BQ, BK).bytes : make_layout(D, BQ, BK).bytes;
+// A hop on the wide body of T elements, on clusters of `parts` CTAs
+template <typename T, int DP, int NWARPS>
+int launch_ring_hop_wide(const T* q, const T* k, const T* v, Strides sq, Strides sk, Strides sv, T* out,
+                         float* lse, int B, int Sq, int Sk, int H, int D, float scale_log2, Carry carry,
+                         int parts, cudaStream_t stream) {
+  using L = WideLayout<DP, NWARPS, static_cast<int>(sizeof(T)), true>;
+  constexpr int BQ = 16 * L::kGroups;
   auto kern = [] {
-    if constexpr (kF32) return ring_flash_hop_f32_kernel<NWARPS, BK>;
-    else return ring_flash_hop_kernel<NWARPS, BK>;
+    if constexpr (sizeof(T) == 4) return ring_flash_hop_wide_f32_kernel<DP, NWARPS>;
+    else return ring_flash_hop_wide_kernel<DP, NWARPS>;
   }();
-  if (int e = set_smem(kern, bytes)) return e;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kern<<<grid, 32 * NWARPS, bytes, stream>>>(q, k, v, sq, sk, sv, out, lse, H, Sq, Sk, D, scale_log2, carry);
-  return static_cast<int>(cudaGetLastError());
+  return launch_split(kern, parts, dim3((Sq + BQ - 1) / BQ, H, B), 32 * NWARPS, L::kBytes, stream, q, k, v, sq,
+                      sk, sv, out, lse, H, Sq, Sk, D, scale_log2, carry);
 }
 
 template <typename T, int DP, int NWARPS>
@@ -370,8 +372,8 @@ int launch_ring_hop_reg(const T* q, const T* k, const T* v, Strides sq, Strides 
 }
 
 // One hop at the plan (body, dp, warps) on T elements: the register body at
-// a built (dp, warps) with D <= dp, or the shared-memory body (flash_tile,
-// or on fp32 flash_tile_f32) with dp = D rounded up to 16 and 4 or 2 warps;
+// a built (dp, warps) with D <= dp, or the wide body on clusters of
+// wide_parts(dp) CTAs, each at (dp / parts, warps), one of CF_WIDE_PLANS;
 // anything else is an error
 template <typename T>
 int ring_hop(const void* q, const void* k, const void* v, long long qsb, long long qss,
@@ -402,13 +404,14 @@ int ring_hop(const void* q, const void* k, const void* v, long long qsb, long lo
 #undef CF_REG_CASE
     return static_cast<int>(refused);
   }
-  if (body != kTileBody || dp != round_up(D, 16)) return static_cast<int>(refused);
-  if (warps == 4) {
-    return launch_ring_hop<T, 4, 64>(qp, kp, vp, sq, sk, sv, op, lp, B, Sq, Sk, H, D, sl2, carry, st);
+  const int parts = wide_parts(dp);
+  if (body != kWideBody || parts == 0 || D <= (parts - 1) * (dp / parts)) return static_cast<int>(refused);
+#define CF_WIDE_CASE(DPV, W)                                                                                    \
+  if (dp / parts == DPV && warps == W) {                                                                         \
+    return launch_ring_hop_wide<T, DPV, W>(qp, kp, vp, sq, sk, sv, op, lp, B, Sq, Sk, H, D, sl2, carry, parts, st); \
   }
-  if (warps == 2) {
-    return launch_ring_hop<T, 2, 32>(qp, kp, vp, sq, sk, sv, op, lp, B, Sq, Sk, H, D, sl2, carry, st);
-  }
+  CF_WIDE_PLANS(CF_WIDE_CASE)
+#undef CF_WIDE_CASE
   return static_cast<int>(refused);
 }
 
@@ -417,8 +420,8 @@ int ring_hop(const void* q, const void* k, const void* v, long long qsb, long lo
 // One hop of the uncompressed ring: q (B, Sq, H, D) against this hop's
 // k/v (B, Sk, H, D), folded into the state m, l (B, H, Sq), acc (B, H, Sq, D),
 // with the plan (body, dp, warps) of ops/flash.py::flash_plan: the register
-// body at a built (dp, warps) with D <= dp, or the shared-memory body with
-// dp = D rounded up to 16 and 4 or 2 warps; anything else is an error.
+// body at a built (dp, warps) with D <= dp, or the wide body (ring_hop's
+// note); anything else is an error.
 // bf16 q/k/v and out, or fp32 ones with f32.
 extern "C" int cf_ring_flash_hop(const void* q, const void* k, const void* v,
                                  long long qsb, long long qss, long long qsh,

@@ -2,8 +2,9 @@
 parameter trees (counterpart of part of ``compactfusion_tpu/io/hf.py``).
 
 :func:`load_safetensors` reads ``.safetensors`` files itself (an 8-byte
-little-endian header length, a JSON header, then the raw tensors), so no
-``safetensors`` package is needed; bf16 tensors come back as exact fp32.
+little-endian header length, a JSON header, then the raw tensors), and
+:func:`save_safetensors` writes them, so no ``safetensors`` package is
+needed; bf16 tensors come back as exact fp32.
 The state dict maps names to numpy arrays in torch layouts; the converters
 return the trees ``init_*`` builds, in torch tensors of ``cfg.dtype`` on the
 CPU:
@@ -80,6 +81,36 @@ def load_safetensors(path: str) -> Dict[str, np.ndarray]:
                 state.update(_load_safetensors_file(os.path.join(path, name)))
         return state
     return _load_safetensors_file(path)
+
+
+def save_safetensors(state: Dict[str, Any], path: str) -> None:
+    """Write ``state`` (name -> numpy array or CPU torch tensor; torch bf16
+    as BF16) as one ``.safetensors`` file, in the layout
+    :func:`load_safetensors` reads: the header's JSON (padded with spaces to
+    a multiple of 8 bytes), then every tensor's little-endian bytes in name
+    order, back to back."""
+    names = {v: k for k, v in _ST_DTYPES.items()}
+    header, blobs, offset = {}, [], 0
+    for name in sorted(state):
+        t = state[name]
+        if isinstance(t, torch.Tensor) and t.dtype == torch.bfloat16:
+            code, arr = "BF16", t.detach().cpu().contiguous().view(torch.int16).numpy().astype("<i2")
+        else:
+            arr = np.asarray(t.detach().cpu() if isinstance(t, torch.Tensor) else t)
+            if arr.dtype.type not in names:
+                raise ValueError(f"save_safetensors: tensor {name!r} has dtype {arr.dtype}, which is not written")
+            code, arr = names[arr.dtype.type], arr.astype(arr.dtype.newbyteorder("<"), order="C", copy=False)
+        blob = arr.tobytes()
+        header[name] = {"dtype": code, "shape": list(arr.shape), "data_offsets": [offset, offset + len(blob)]}
+        blobs.append(blob)
+        offset += len(blob)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for blob in blobs:
+            f.write(blob)
 
 
 def _tensor(a: np.ndarray, dtype) -> torch.Tensor:

@@ -231,7 +231,7 @@ def _cufilt() -> str:
 
 def kernel_labels(mangled) -> dict:
     """{mangled name: its label}: the name as ``cu++filt -p`` demangles it,
-    e.g. ``flash_fwd_kernel<4, 64>``, without the anonymous namespace nvcc
+    e.g. ``flash_fwd_reg_kernel<80, 8>``, without the anonymous namespace nvcc
     gives each ``csrc`` source (its name changes with the source) and the
     casts of integer template arguments."""
     mangled = list(mangled)

@@ -6,9 +6,10 @@ the main branch (:func:`flash_attn_with_lse`) and the ``window=`` branch
 kernels are in ``csrc/flash_attn.cu``.  On a CUDA tensor a wrapper launches
 its kernel or raises; on a CPU tensor it runs its twin.  The kernels take
 bf16 or fp32 q/k/v, as the Pallas kernels take the input dtype: fp32 runs
-every body in 3xTF32 (``csrc/flash_reg.cuh``), ``flash_tile`` (kernel 1
-above d = 512, kernels 4 and 7 above d = 128) as its fp32 counterpart
-``csrc/flash_tile_f32.cuh``, which streams the head dim in slices.
+every body in 3xTF32 (``csrc/flash_reg.cuh``).  Head dims up to 128 take
+the register body, wider ones (up to :data:`WIDE_MAX_D`) the wide body,
+which splits the head dim over warps and, above d = 512, over the CTAs of
+a cluster (``csrc/flash_wide.cuh``).
 
 Which body, padded head dim and tile height a launch takes is decided here,
 before the launch, by :func:`flash_plan` (so the CPU tests see it), and the C
@@ -40,12 +41,10 @@ REG_BK = 64
 WIDE_BK = 32
 
 #: the tile bodies a plan names, numbered as the C entry points take them:
-#: ``flash_common.cuh::flash_tile`` (shared-memory scores and accumulator;
-#: on fp32 ``flash_tile_f32.cuh::flash_tile_f32``),
 #: ``flash_reg.cuh::flash_reg_tile`` (register fragments) and
 #: ``flash_wide.cuh::flash_wide_tile`` (register fragments, the head dim
-#: split over warps)
-BODIES = {"flash_tile": 0, "flash_reg_tile": 1, "flash_wide_tile": 2}
+#: split over warps and, above d = 512, over the CTAs of a cluster)
+BODIES = {"flash_reg_tile": 1, "flash_wide_tile": 2}
 #: padded head dims of the register body
 REG_DPS = (64, 80, 96, 128)
 #: warps per CTA of the register body (16 query rows each), tried in this
@@ -57,45 +56,62 @@ MIN_CTAS = 128
 #: (dp, warps) the register kernels are built for: ``CF_REG_PLANS`` in
 #: ``csrc/flash_reg.cuh``, which lists every plan and nothing else
 REG_BUILT = frozenset((dp, w) for dp in REG_DPS for w in REG_WARPS)
-#: widest head-dim slice one warp of the wide body holds, and the widest
-#: head dim the wide body takes (kernel 1 only)
+#: widest head-dim slice one warp of the wide body holds
 WIDE_SLICE = 128
-WIDE_MAX_D = 512
+#: widest padded head dim one CTA of the wide body holds (``kWidePart`` in
+#: ``csrc/flash_wide.cuh``), the most CTAs a cluster splits a head over
+#: (``kWideMaxParts``), and so the widest head dim the kernels take
+WIDE_PART = 512
+WIDE_MAX_PARTS = 4
+WIDE_MAX_D = WIDE_PART * WIDE_MAX_PARTS
 #: row groups (16 query rows each, one warp per slice) per CTA of the wide
 #: body: 32-row tiles.  At the VAE's B1 H1 S4096 d512 on an H100, 4 groups
 #: (64-row tiles, 64 CTAs) took 0.4381 ms by CUDA graphs against 0.2943
 #: (``tools/time_flash.py --sweep``, ``PERF.md`` §6)
 WIDE_GROUPS = 2
-#: widest padded head dim ``flash_tile`` takes in 64x64 tiles (4 warps);
-#: wider heads take 32x32 tiles (2 warps).  ``flash_common.cuh::make_layout``
-#: owns the shared memory: 64x64 tiles stay under 200 KB up to DP 256, and
-#: a plan whose layout the card cannot hold fails at its launch
-TILE_64_MAX_DP = 256
-#: head-dim columns per staged slice of ``flash_tile_f32`` (``kTileF32Slice``)
-TILE_F32_SLICE = 64
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def wide_parts(dp: int) -> int:
+    """CTAs of a cluster that a wide-body plan of padded head dim ``dp``
+    splits the head over, each holding ``dp // parts`` columns."""
+    return -(-dp // WIDE_PART)
+
+
 def wide_slices(dp: int) -> int:
-    """Head-dim slices of a wide-body plan of padded head dim ``dp``."""
-    return -(-dp // WIDE_SLICE)
+    """Head-dim slices (warps per row group) of one CTA of a wide-body plan
+    of padded head dim ``dp``."""
+    return -(-(dp // wide_parts(dp)) // WIDE_SLICE)
 
 
-def _wide_dp(d: int) -> int:
-    """The wide body's padded head dim: ceil(d / 128) slices, each the
-    smallest of :data:`REG_DPS` that holds its share of d rounded up to 16."""
+def _part_dp(d: int) -> int:
+    """One CTA's padded head dim for ``d`` <= 512 columns: ceil(d / 128)
+    slices, each the smallest of :data:`REG_DPS` that holds its share of d
+    rounded up to 16."""
     slices = -(-d // WIDE_SLICE)
     return slices * next(p for p in REG_DPS if p >= _round_up(-(-d // slices), 16))
 
 
-#: padded head dims of the wide body: every one the rule gives
-WIDE_DPS = tuple(sorted({_wide_dp(d) for d in range(REG_DPS[-1] + 8, WIDE_MAX_D + 1, 8)}))
-#: (dp, warps) the wide kernel is built for: ``CF_WIDE_PLANS`` in
-#: ``csrc/flash_wide.cuh``
+def _wide_dp(d: int) -> int:
+    """The wide body's padded head dim: ceil(d / 512) CTAs of one
+    :func:`_part_dp` each, of their share of d rounded up to 8."""
+    parts = -(-d // WIDE_PART)
+    return parts * _part_dp(_round_up(-(-d // parts), 8))
+
+
+#: padded head dims of one CTA of the wide body: every one the rule gives
+WIDE_DPS = tuple(sorted({_part_dp(d) for d in range(REG_DPS[-1] + 8, WIDE_PART + 1, 8)}))
+#: (dp, warps) of one CTA the wide kernels are built for: ``CF_WIDE_PLANS`` in
+#: ``csrc/flash_wide.cuh`` (kernel 1 up to d = 512 on one CTA, kernels 4 and
+#: 7 at every width on clusters of one or more)
 WIDE_BUILT = frozenset((dp, WIDE_GROUPS * wide_slices(dp)) for dp in WIDE_DPS)
+#: ... and those of kernel 1 above d = 512, on clusters of 2 or more CTAs:
+#: ``CF_WIDE_SPLIT_PLANS``
+WIDE_SPLIT_BUILT = frozenset((dp // wide_parts(dp), WIDE_GROUPS * wide_slices(dp))
+                             for dp in map(_wide_dp, range(WIDE_PART + 8, WIDE_MAX_D + 1, 8)))
 
 
 def reg_layout(dp: int, warps: int, elem: int = 2) -> dict:
@@ -112,56 +128,35 @@ def reg_layout(dp: int, warps: int, elem: int = 2) -> dict:
             "bytes": q_bytes + stages * 2 * tile_bytes}
 
 
-def wide_layout(dp: int, warps: int, elem: int = 2) -> dict:
-    """The shared memory of one wide-body CTA, as ``WideLayout<dp, warps,
-    elem>`` in ``csrc/flash_wide.cuh`` lays it out: K/V tiles of ``bk`` keys
-    (:data:`WIDE_BK` in bf16, half as many in fp32), rows of ``ld`` elements,
-    the Q tile of its row groups, ``stages`` K and V tiles (3 where they fit,
-    else 2) and the exchange of partial scores, ``bytes`` in all."""
+def wide_layout(dp: int, warps: int, elem: int = 2, split: bool = False) -> dict:
+    """The shared memory of one wide-body CTA holding ``dp`` columns, as
+    ``WideLayout<dp, warps, elem, split>`` in ``csrc/flash_wide.cuh`` lays it
+    out: K/V tiles of ``bk`` keys (:data:`WIDE_BK` in bf16, half as many in
+    fp32), rows of ``ld`` elements, the Q tile of its row groups, ``stages``
+    K and V tiles and the exchange of partial scores (with ``split``, the
+    kernels that may run on a cluster, also two buffers of the row groups'
+    sums), ``bytes`` in all.  The ring takes 3 stages where they fit, but
+    with ``split`` 2 where that lets two CTAs share an SM's 228 KB
+    (``two_ctas``; the system keeps 1 KB of it per CTA)."""
     bk, ld = WIDE_BK * 2 // elem, dp + 16 // elem
-    q_bytes = 16 * (warps // wide_slices(dp)) * ld * elem
+    groups = warps // -(-dp // WIDE_SLICE)
+    q_bytes = 16 * groups * ld * elem
     tile_bytes = bk * ld * elem
-    xch_bytes = warps * 16 * bk * 4
-    stages = 3 if q_bytes + 3 * 2 * tile_bytes + xch_bytes <= SMEM_MAX else 2
+    xch_bytes = warps * 16 * bk * 4 + split * 2 * groups * 16 * bk * 4
+    two_ctas = split and 2 * (q_bytes + 2 * 2 * tile_bytes + xch_bytes + 1024) <= 228 * 1024
+    stages = 3 if not two_ctas and q_bytes + 3 * 2 * tile_bytes + xch_bytes <= SMEM_MAX else 2
     return {"bk": bk, "ld": ld, "q_bytes": q_bytes, "tile_bytes": tile_bytes, "xch_bytes": xch_bytes,
-            "stages": stages, "bytes": q_bytes + stages * 2 * tile_bytes + xch_bytes}
+            "two_ctas": bool(two_ctas), "stages": stages, "bytes": q_bytes + stages * 2 * tile_bytes + xch_bytes}
 
 
-def _align128(x: int) -> int:
-    return _round_up(x, 128)
-
-
-def tile_layout(d: int, warps: int, elem: int = 2) -> dict:
-    """The shared memory of one ``flash_tile`` CTA at head dim ``d`` on
-    ``warps`` warps (16 query rows each; K/V tiles of 32 keys on 2 warps, 64
-    on 4): bf16 as ``flash_common.cuh::make_layout`` lays it out (the full
-    Q, K, V tiles, scores, probabilities and accumulator), fp32 as
-    ``flash_tile_f32.cuh::make_layout_f32`` (Q, K and V slices of
-    :data:`TILE_F32_SLICE` columns, the probabilities, the full-width
-    accumulator, the rows' max and sum); ``bytes`` in all."""
-    bq, bk, dp = 16 * warps, 16 * warps, _round_up(d, 16)
-    if elem == 2:
-        parts = [bq * (dp + 8) * 2, bk * (dp + 8) * 2, bk * (dp + 8) * 2, bq * (bk + 4) * 4, bq * (bk + 8) * 2,
-                 bq * (dp + 4) * 4, bq * 4, bq * 4, bq * 4]
-    else:
-        s = TILE_F32_SLICE
-        parts = [bq * (s + 4) * 4, bk * (s + 4) * 4, bk * (s + 8) * 4, bq * (bk + 4) * 4, bq * (dp + 8) * 4,
-                 bq * 4, bq * 4]
-    off = 0
-    for p in parts:
-        off = _align128(off + p)
-    return {"dp": dp, "bq": bq, "bk": bk, "bytes": off}
-
-
-def flash_plan(b: int, h: int, sq: int, d: int, wide: bool = True, elem: int = 2) -> Tuple[str, int, int]:
+def flash_plan(b: int, h: int, sq: int, d: int, elem: int = 2) -> Tuple[str, int, int]:
     """(body, padded head dim, warps per CTA) of a flash launch of ``b``
     batches, ``h`` heads and ``sq`` queries of head dim ``d`` in ``elem``-byte
-    elements (2: bf16, 4: fp32).  ``wide``: whether the launch may take the
-    wide body (kernel 1; kernels 4 and 7 pass False).
+    elements (2: bf16, 4: fp32); kernels 1, 4, 7 and 8's flash partial take
+    the same rule.
 
-    Attention up to d = 128 (kernel 1, and kernels 4 and 7 and kernel 8's
-    flash partial by the same rule) takes the register body at the smallest of :data:`REG_DPS` that holds
-    d rounded up to 16 (d=72 -> 80), with the tallest tile of
+    Up to d = 128 the register body at the smallest of :data:`REG_DPS` that
+    holds d rounded up to 16 (d=72 -> 80), with the tallest tile of
     :data:`REG_WARPS` that still gives :data:`MIN_CTAS` CTAs: 128-row tiles
     (8 warps) for PixArt's self-attention (256 CTAs; 8% faster than 4 warps
     on an H100) and a ring-2 hop at B2 (128), 64 rows at B1, 32 rows for a
@@ -178,25 +173,26 @@ def flash_plan(b: int, h: int, sq: int, d: int, wide: bool = True, elem: int = 2
     §6) 8 warps took 0.0223 ms, 4 warps 0.0226 and 2 warps 0.0289 at B2,
     and 0.0122, 0.0126 and 0.0189 at the CFG half.
 
-    Kernel 1 at 128 < d <= 512 (the VAE's d=512) takes the wide body: the
-    head dim in ceil(d / 128) slices of one of :data:`REG_DPS` each (d=512:
-    4 x 128; d=136: 2 x 80), one warp per (16-row group, slice), with
+    Above d = 128 the wide body: the head dim in ceil(d / 512) parts, one CTA
+    of a cluster each (:func:`wide_parts`), each part in ceil(part / 128)
+    slices of one of :data:`REG_DPS` (d=512: 4 x 128; d=136: 2 x 80; d=576:
+    2 CTAs of 3 x 96), one warp per (16-row group, slice), with
     :data:`WIDE_GROUPS` row groups a CTA (the VAE's B1 H1 S4096: 32-row
-    tiles, 8 warps, 128 CTAs).  Wider heads, and kernels 4 and 7 above d = 128, take
-    ``flash_tile``: 64x64 tiles up to :data:`TILE_64_MAX_DP`, 32x32 tiles on
-    2 warps above; full attention takes it only above d = 512, in 32x32
-    tiles.
+    tiles, 8 warps, 128 CTAs).  ``dp`` is the whole padded head dim, parts
+    x one CTA's; ``warps`` those of one CTA.  Wider heads than
+    :data:`WIDE_MAX_D` raise.
 
     fp32 takes the same plans: every one fits its fp32 layout
     (:func:`reg_layout`, :func:`wide_layout`; at DP 128 and 8 warps the
-    register body holds 2 stages, 202,752 bytes, and at the VAE's DP 512 the
-    wide body 2 stages of 16-key tiles, 206,336 bytes), and ``flash_tile``
-    its fp32 layout (:func:`tile_layout`: the head dim in slices, 163,584
-    bytes at kernel 1's d = 1024)."""
+    register body holds 2 stages, 202,752 bytes, and at DP 512 the wide body
+    2 stages of 16-key tiles, 206,336 bytes, 210,432 with the split's sums)."""
     if d % 8:
         raise ValueError(f"flash kernel: head dim must be a multiple of 8, got {d}")
     if elem not in ELEM_SIZES.values():
         raise ValueError(f"flash kernel: elements of 2 (bf16) or 4 (fp32) bytes, got {elem}")
+    if d > WIDE_MAX_D:
+        raise ValueError(f"flash kernel: head dim at most {WIDE_MAX_D} ({WIDE_MAX_PARTS} CTAs of {WIDE_PART} "
+                         f"columns), got {d} ({ROADMAP_HINT})")
     if d <= REG_DPS[-1]:
         dp = next(p for p in REG_DPS if p >= _round_up(d, 16))
         for warps in REG_WARPS:
@@ -204,13 +200,10 @@ def flash_plan(b: int, h: int, sq: int, d: int, wide: bool = True, elem: int = 2
                 break
         assert reg_layout(dp, warps, elem)["bytes"] <= SMEM_MAX
         return "flash_reg_tile", dp, warps
-    if wide and d <= WIDE_MAX_D:
-        dp = _wide_dp(d)
-        warps = WIDE_GROUPS * wide_slices(dp)
-        assert wide_layout(dp, warps, elem)["bytes"] <= SMEM_MAX
-        return "flash_wide_tile", dp, warps
-    dp = _round_up(d, 16)
-    return "flash_tile", dp, 4 if dp <= TILE_64_MAX_DP else 2
+    dp = _wide_dp(d)
+    warps = WIDE_GROUPS * wide_slices(dp)
+    assert wide_layout(dp // wide_parts(dp), warps, elem, split=True)["bytes"] <= SMEM_MAX
+    return "flash_wide_tile", dp, warps
 
 
 def plan_rows(plan: Tuple[str, int, int]) -> int:
@@ -218,6 +211,14 @@ def plan_rows(plan: Tuple[str, int, int]) -> int:
     row group of one warp per head-dim slice."""
     body, dp, warps = plan
     return 16 * warps // (wide_slices(dp) if body == "flash_wide_tile" else 1)
+
+
+def plan_ctas(plan: Tuple[str, int, int], b: int, h: int, sq: int) -> int:
+    """CTAs of a launch of ``b`` batches, ``h`` heads and ``sq`` queries at
+    ``plan``: one per query tile, or on the wide body one per part of the
+    head dim of each query tile."""
+    body, dp, _ = plan
+    return b * h * -(-sq // plan_rows(plan)) * (wide_parts(dp) if body == "flash_wide_tile" else 1)
 
 
 def plan_args(plan: Tuple[str, int, int]) -> Tuple[int, int, int]:
@@ -291,10 +292,10 @@ def _check_qkv(q, k, v) -> None:
     _check_kv(q, k, v)
 
 
-def launch_plan(b: int, h: int, sq: int, d: int, dtype: torch.dtype, wide: bool = True):
+def launch_plan(b: int, h: int, sq: int, d: int, dtype: torch.dtype):
     """(:func:`flash_plan` of a launch on ``dtype`` q/k/v, whether it is
     fp32)."""
-    return flash_plan(b, h, sq, d, wide=wide, elem=elem_size(dtype)), dtype == torch.float32
+    return flash_plan(b, h, sq, d, elem=elem_size(dtype)), dtype == torch.float32
 
 
 def flash_attn_with_lse(
@@ -406,7 +407,7 @@ def flash_attn_window_with_lse(
     b, s, h, d = q.shape
     if scale is None:
         scale = d**-0.5
-    plan, f32 = launch_plan(b, h, s, d, q.dtype, wide=False)
+    plan, f32 = launch_plan(b, h, s, d, q.dtype)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     lib = _build.load()

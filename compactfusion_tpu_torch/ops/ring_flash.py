@@ -89,7 +89,7 @@ def ring_flash_attn_with_lse(q: torch.Tensor, kv_blocks: Iterable, ring_size: in
     b, sq, h, d = q.shape
     if scale is None:
         scale = d**-0.5
-    plan, f32 = launch_plan(b, h, sq, d, q.dtype, wide=False)
+    plan, f32 = launch_plan(b, h, sq, d, q.dtype)
     plan = plan_args(plan)
     m = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
@@ -466,7 +466,7 @@ def compact_ring_flash(q, k, v, k_base, v_base, payloads: Iterable, *, codec: st
     _check_base("v", v_base, ring_size, n, c, quantized)
     if scale is None:
         scale = d**-0.5
-    plan, f32 = launch_plan(b, h, sq, d, q.dtype, wide=False)
+    plan, f32 = launch_plan(b, h, sq, d, q.dtype)
     plan = plan_args(plan)
     m = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)

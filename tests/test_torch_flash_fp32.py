@@ -100,142 +100,81 @@ def test_fp32_view_not_16_byte_aligned_raises():
 
 
 def test_fp32_flash_tile_raises_not_implemented():
-    """Since the fp32 body of ``flash_tile`` (``csrc/flash_tile_f32.cuh``)
-    an fp32 launch that needs it (kernel 1 above d = 512, kernels 4 and 7
-    above d = 128) no longer raises: it takes the bf16 plan of the same
-    call, run on the fp32 instantiations.  Every wrapper plans through
-    ``launch_plan``, and the C entries refuse no fp32 plan of it any more."""
-    for d, wide in ((520, True), (136, False), (512, False), (1024, True)):
-        assert tflash.launch_plan(1, 1, 4096, d, torch.float32, wide=wide) == \
-            (tflash.launch_plan(1, 1, 4096, d, torch.bfloat16, wide=wide)[0], True)
-        assert tflash.launch_plan(1, 1, 4096, d, torch.float32, wide=wide)[0][0] == "flash_tile"
+    """An fp32 launch above the register body (kernel 1, 4, 7 or 8's flash
+    partial above d = 128) takes the plan of the same call on bf16, the
+    wide body, run on its fp32 instantiations; every wrapper plans through
+    ``launch_plan``, and no fp32 plan raises up to the widest head dim."""
+    for d in (136, 512, 520, 1024, 1552, 2048):
+        got = tflash.launch_plan(1, 1, 4096, d, torch.float32)
+        assert got == (tflash.launch_plan(1, 1, 4096, d, torch.bfloat16)[0], True)
+        assert got[0][0] == "flash_wide_tile"
     assert tflash.launch_plan(1, 1, 4096, 512, torch.float32) == (("flash_wide_tile", 512, 8), True)
     src = (REPO / "compactfusion_tpu_torch" / "ops" / "flash.py").read_text()
     assert "NotImplementedError" not in src
     assert src.count("launch_plan(b, h, sq, d, q.dtype)") == 1
-    assert src.count("launch_plan(b, h, s, d, q.dtype, wide=False)") == 1
+    assert src.count("launch_plan(b, h, s, d, q.dtype)") == 1
     ring = (REPO / "compactfusion_tpu_torch" / "ops" / "ring_flash.py").read_text()
-    assert ring.count("launch_plan(b, h, sq, d, q.dtype, wide=False)") == 2
+    assert ring.count("launch_plan(b, h, sq, d, q.dtype)") == 2
     assert "flash_plan(" not in ring
     for cu in ("flash_attn.cu", "ring_flash.cu"):
         assert "flash_tile is bf16's" not in (REPO / "compactfusion_tpu_torch" / "csrc" / cu).read_text()
 
 
-def _tile_plans():
-    """Every (kind, warps, d) a ``flash_tile`` plan takes on bf16 today, up
-    to the widest whose bf16 layout fits 227 KB: kernel 1 above d = 512 (2
-    warps), kernels 4 and 7 above d = 128 (4 warps up to DP 256, 2 above)."""
+def _wide_plans():
+    """Every (d, elem, split, one CTA's dp, warps) a wide plan takes: each
+    multiple of 8 above 128 up to the widest head dim, in bf16 and fp32, on
+    the kernels of one CTA (kernel 1 up to d = 512) and on the split ones
+    (kernels 4, 7 and 8 at every width, kernel 1 above 512)."""
     out = []
-    for kind, wide in (("kernel 1", True), ("kernels 4, 7, 8", False)):
-        for d in range(8, 2048, 8):
-            body, dp, warps = tflash.flash_plan(1, 1, 4096, d, wide=wide, elem=4)
-            if body == "flash_tile" and tflash.tile_layout(d, warps, 2)["bytes"] <= tflash.SMEM_MAX:
-                out.append((kind, warps, d))
+    for d in range(136, tflash.WIDE_MAX_D + 1, 8):
+        for elem in (2, 4):
+            body, dp, warps = tflash.flash_plan(1, 1, 4096, d, elem=elem)
+            assert body == "flash_wide_tile"
+            parts = tflash.wide_parts(dp)
+            for split in ((False, True) if parts == 1 else (True,)):
+                out.append((d, elem, split, dp // parts, warps))
     return out
 
 
 def test_fp32_flash_tile_plans_fit_the_card():
-    """The fp32 layout of every ``flash_tile`` instantiation (2 warps with
-    32-key tiles, 4 with 64) fits 227 KB at every d its bf16 plan takes
-    today, and at kernel 1's d = 1024, where the bf16 layout does not fit;
-    ``tile_layout`` mirrors ``make_layout`` and ``make_layout_f32`` (their
-    statements run here)."""
-    plans = _tile_plans()
-    assert {(k, w) for k, w, _ in plans} == {("kernel 1", 2), ("kernels 4, 7, 8", 4), ("kernels 4, 7, 8", 2)}
-    assert max(d for k, w, d in plans if w == 2) == 688 and max(d for k, w, d in plans if w == 4) == 256
-    for kind, warps, d in plans + [("kernel 1", 2, 1024)]:
-        assert tflash.tile_layout(d, warps, 4)["bytes"] <= tflash.SMEM_MAX, (kind, warps, d)
-    assert tflash.tile_layout(1024, 2, 2)["bytes"] > tflash.SMEM_MAX
-    assert tflash.tile_layout(1024, 2, 4)["bytes"] == 163584
-    assert tflash.tile_layout(256, 4, 4)["bytes"] == 138752
-    # the C layouts, evaluated from their statements
-    import re
-
-    src = (REPO / "compactfusion_tpu_torch" / "csrc")
-    for name, path, elem in (("make_layout_f32", "flash_tile_f32.cuh", 4), ("make_layout", "flash_common.cuh", 2)):
-        text = (src / path).read_text()
-        body = text[text.index(f"inline {'LayoutF32' if elem == 4 else 'Layout'} {name}("):]
-        body = body[body.index("{") + 1:body.index("return L;")]
-        consts = {"kTileF32Slice": tflash.TILE_F32_SLICE}
-        for d, warps in ((1024, 2), (576, 2), (256, 4), (520, 2), (136, 4)):
-            env = dict(consts, d=d, bq=16 * warps, bk=16 * warps, off=0)
-            env["round_up"] = lambda x, m: -(-x // m) * m
-            env["align128"] = lambda x: -(-x // 128) * 128
-            stmts = body.replace("LayoutF32 L;", "").replace("Layout L;", "").replace("int off", "off")
-            stmts = re.sub(r"L\.(\w+)", r"L_\1", stmts)
-            exec("\n".join(x.strip() for x in stmts.split(";") if x.strip()), {}, env)
-            assert env["L_bytes"] == tflash.tile_layout(d, warps, elem)["bytes"], (name, d, warps)
+    """Every head dim that is a multiple of 8 gets a plan in bf16 and fp32
+    up to ``WIDE_MAX_D`` (2048), built (``CF_WIDE_PLANS``,
+    ``CF_WIDE_SPLIT_PLANS``), whose layout fits 227 KB: ``wide_layout``
+    against ``WideLayout``'s statements, run here."""
+    plans = _wide_plans()
+    assert len({(d, elem) for d, elem, *_ in plans}) == 2 * len(range(136, 2049, 8))
+    for d, elem, split, dp, warps in plans:
+        built = tflash.WIDE_BUILT if split and d <= tflash.WIDE_PART or not split else tflash.WIDE_SPLIT_BUILT
+        assert (dp, warps) in built, (d, elem, split)
+        assert tflash.wide_layout(dp, warps, elem, split)["bytes"] <= tflash.SMEM_MAX, (d, elem, split)
+    for dp, warps in tflash.WIDE_BUILT:
+        for elem in (2, 4):
+            for split in (False, True):
+                c = _wide_layout_c(dp, warps, elem, split)
+                assert c["kBytes"] == tflash.wide_layout(dp, warps, elem, split)["bytes"] <= tflash.SMEM_MAX
 
 
-def _tile_f32_model(q, k, v, warps, window=None, scale=None):
-    """A torch model of ``flash_tile_f32``'s schedule on (B, S, H, D) fp32
-    inputs: per query tile of 16 x warps rows, K/V tiles of 16 x warps keys;
-    each tile's scores summed over head-dim slices of ``TILE_F32_SLICE``
-    columns, in slice order; the online softmax per tile in the exp2 domain
-    with the exponent taken against 0 while a row has no key; O rescaled by
-    alpha as each slice of it takes its product; the band's tiles only."""
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    bq = bk = 16 * warps
-    sl2 = (scale if scale is not None else d ** -0.5) * 1.4426950408889634
-    out = torch.zeros_like(q)
-    lse = torch.zeros((b, h, sq))
-    qf, kf, vf = (t.double().float() for t in (q, k, v))
-    for q0 in range(0, sq, bq):
-        rows = torch.arange(q0, min(q0 + bq, sq))
-        qt = qf[:, rows]
-        m = torch.full((b, h, len(rows)), float("-inf"))
-        l = torch.zeros((b, h, len(rows)))
-        o = torch.zeros((b, h, len(rows), d))
-        t_lo, t_end = 0, -(-sk // bk)
-        if window is not None:
-            t_lo, t_end = max(0, q0 - window) // bk, min(sk - 1, q0 + bq - 1 + window) // bk + 1
-        for t in range(t_lo, t_end):
-            cols = torch.arange(t * bk, min(t * bk + bk, sk))
-            s = torch.zeros((b, h, len(rows), len(cols)))
-            for c0 in range(0, d, tflash.TILE_F32_SLICE):
-                sl = slice(c0, c0 + tflash.TILE_F32_SLICE)
-                s = s + torch.einsum("bqhd,bkhd->bhqk", qt[..., sl], kf[:, cols][..., sl])
-            keep = torch.ones((len(rows), len(cols)), dtype=torch.bool)
-            if window is not None:
-                keep = (rows[:, None] - cols[None, :]).abs() <= window
-            x = torch.where(keep, s * sl2, torch.tensor(float("-inf")))
-            m_new = torch.maximum(m, x.amax(-1))
-            m_ref = torch.where(torch.isneginf(m_new), torch.zeros(()), m_new)
-            p = torch.exp2(x - m_ref[..., None])
-            alpha = torch.exp2(m - m_ref)
-            l = l * alpha + p.sum(-1)
-            m = m_new
-            for c0 in range(0, d, tflash.TILE_F32_SLICE):
-                sl = slice(c0, c0 + tflash.TILE_F32_SLICE)
-                o[..., sl] = o[..., sl] * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p,
-                                                                           vf[:, cols][..., sl])
-        inv = torch.where(l > 0, 1.0 / l, torch.zeros(()))
-        out[:, rows] = (o * inv[..., None]).permute(0, 2, 1, 3)
-        lse[:, :, rows] = torch.where(l > 0, (m + torch.log2(l)) * 0.6931471805599453,
-                                      torch.tensor(float("-inf")))
-    return out, lse
-
-
-@pytest.mark.parametrize("d,warps,window", [(576, 2, None), (1024, 2, None), (256, 4, 24), (200, 4, 0)])
-def test_fp32_flash_tile_twin_and_schedule_match_pallas_interpret(d, warps, window):
-    """The twin that the fp32 ``flash_tile`` launches are held to on the
-    card (``chip_smoke.py`` phase 50), and a torch model of the fp32 body's
-    schedule, against the Pallas kernel in interpret mode at kernel 1's
-    d = 576 and 1024 and kernel 4's banded d = 256 and 200 (w = 24 and 0):
-    out within 2e-6 relative, LSE within 1e-5."""
+@pytest.mark.parametrize("d,window", [(576, None), (1024, None), (2048, None), (256, 24), (200, 0), (576, 9)])
+def test_fp32_flash_tile_twin_and_schedule_match_pallas_interpret(d, window):
+    """The twin that the fp32 wide-body launches are held to on the card
+    (``chip_smoke.py`` phase 50), and a torch model of the body's fp32
+    schedule (``tests/test_torch_wide_flash.py::wide_model``: 16-key tiles,
+    the partials added in (CTA, slice) order, P in fp32), against the
+    Pallas kernel in interpret mode at kernel 1's d = 576, 1024 and 2048
+    (clusters of 2 and 4 CTAs) and kernel 4's banded d = 256, 200 and 576
+    (w = 24, 0 and 9): out within 2e-6 relative, LSE within 1e-5."""
     from compactfusion_tpu.ops.flash_pallas import flash_attn_with_lse as jflash
+    from tests.test_torch_wide_flash import wide_model
 
     s = 80
-    q, k, v = _qkv(1, s, s, 2, d, seed=d + warps)
+    q, k, v = _qkv(1, s, s, 2, d, seed=d + (window or 0))
     kw = {} if window is None else {"window": window}
     pal_o, pal_l = jflash(*map(jnp.asarray, (q.numpy(), k.numpy(), v.numpy())), block_q=32, block_k=128,
                           interpret=True, **kw)
     pal_o, pal_l = np.asarray(pal_o), np.asarray(pal_l)
     twin = tflash.flash_attn_with_lse(q, k, v, window=window)  # a CPU tensor: the twin
-    model = _tile_f32_model(q, k, v, warps, window)
-    assert tflash.launch_plan(1, 2, s, d, torch.float32, wide=window is None)[0] == \
-        ("flash_tile", -(-d // 16) * 16, warps)
+    model = wide_model(q, k, v, window=window, elem=4)
+    assert tflash.launch_plan(1, 2, s, d, torch.float32)[0][0] == "flash_wide_tile"
     for out, lse in (twin, model):
         assert out.dtype == torch.float32
         assert rel_err(out.numpy(), pal_o) < 2e-6
@@ -284,8 +223,8 @@ def _reg_layout_c(dp, warps, elem):
     return c_struct("flash_reg.cuh", "RegLayout", DP=dp, NWARPS=warps, ELEM=elem)
 
 
-def _wide_layout_c(dp, warps, elem):
-    return c_struct("flash_wide.cuh", "WideLayout", DP=dp, NWARPS=warps, ELEM=elem)
+def _wide_layout_c(dp, warps, elem, split=False):
+    return c_struct("flash_wide.cuh", "WideLayout", DP=dp, NWARPS=warps, ELEM=elem, SPLIT=split)
 
 
 def _conflict_free(ld):
@@ -329,14 +268,18 @@ def test_fp32_at_dp_128_takes_two_stages():
 @pytest.mark.parametrize("dp,warps", sorted(tflash.WIDE_BUILT))
 def test_fp32_wide_plans_fit_the_card(dp, warps):
     """The wide body in fp32: tiles of 16 keys, rows of DP + 4 floats, the
-    layout of ``WideLayout<DP, warps, 4>``; at the VAE's d=512 the Q tile,
-    2 stages and the exchange come to 206,336 bytes, and 3 stages do not
+    layout of ``WideLayout<DP, warps, 4>`` (and of the split kernels'
+    ``WideLayout<DP, warps, 4, true>``); at the VAE's d=512 the Q tile, 2
+    stages and the exchange come to 206,336 bytes, and 3 stages do not
     fit."""
+    for split in (False, True):
+        got = tflash.wide_layout(dp, warps, 4, split)
+        c = _wide_layout_c(dp, warps, 4, split)
+        assert (got["bk"], got["ld"], got["q_bytes"], got["tile_bytes"], got["xch_bytes"], got["stages"],
+                got["bytes"]) == (c["kBK"], c["kLd"], c["kQBytes"], c["kTileBytes"], c["kXchBytes"], c["kStages"],
+                                  c["kBytes"])
+        assert got["bytes"] <= tflash.SMEM_MAX
     got = tflash.wide_layout(dp, warps, 4)
-    c = _wide_layout_c(dp, warps, 4)
-    assert (got["bk"], got["ld"], got["q_bytes"], got["tile_bytes"], got["xch_bytes"], got["stages"],
-            got["bytes"]) == (c["kBK"], c["kLd"], c["kQBytes"], c["kTileBytes"], c["kXchBytes"], c["kStages"],
-                              c["kBytes"])
     assert got["bk"] == 16 and got["ld"] == dp + 4 and _conflict_free(got["ld"])
     assert got["bytes"] <= tflash.SMEM_MAX
     # bf16 keeps 32-key tiles and its layout

@@ -55,14 +55,43 @@ def test_head_dims_up_to_128_take_the_smallest_padded_dim(d, dp):
     assert (body, got) == ("flash_reg_tile", dp) and (got, warps) in flash.REG_BUILT
 
 
-@pytest.mark.parametrize("d,warps", [(136, 4), (256, 4), (264, 2), (512, 2)])
+@pytest.mark.parametrize("d,warps", [(136, 4), (256, 4), (264, 6), (512, 8)])
 def test_wide_heads_keep_the_shared_memory_body(d, warps):
-    """Kernels 4 and 7 (``wide=False``) keep ``flash_tile`` above d=128:
-    64x64 tiles up to a padded head dim of 256, 32x32 tiles on 2 warps
-    above; kernel 1 keeps it only above d=512, in 32x32 tiles."""
-    assert flash.flash_plan(1, 1, 4096, d, wide=False) == ("flash_tile", -(-d // 16) * 16, warps)
-    for d1 in (520, 1024):
-        assert flash.flash_plan(1, 1, 4096, d1) == ("flash_tile", -(-d1 // 16) * 16, 2)
+    """Kernels 4 and 7 take kernel 1's plan: the wide body above d=128,
+    whose CTA keeps the Q tile, the K/V ring and the exchange in shared
+    memory and the accumulator in registers, on one CTA up to d=512 and on
+    a cluster above."""
+    plan = flash.flash_plan(1, 1, 4096, d)
+    assert plan[0] == "flash_wide_tile" and plan[2] == warps and plan[1:] in flash.WIDE_BUILT
+    assert flash.wide_parts(plan[1]) == 1
+    for d1, dp, warps1 in ((520, 576, 6), (1024, 1024, 8)):
+        assert flash.flash_plan(1, 1, 4096, d1) == ("flash_wide_tile", dp, warps1)
+        assert flash.wide_parts(dp) == 2
+
+
+@pytest.mark.parametrize("d,dp,parts,warps", [(520, 576, 2, 6), (576, 576, 2, 6), (768, 768, 2, 6),
+                                              (1024, 1024, 2, 8), (1032, 1152, 3, 6), (1536, 1536, 3, 8),
+                                              (1544, 2048, 4, 8), (1552, 2048, 4, 8), (2048, 2048, 4, 8)])
+def test_heads_above_512_split_over_a_cluster(d, dp, parts, warps):
+    """Above d=512 the head dim is cut into ceil(d / 512) parts, one CTA of
+    a cluster each, every part a plan of one CTA of the wide body
+    (``WIDE_SPLIT_BUILT``) with at least one column of d, and the grid has
+    one CTA per (query tile, part)."""
+    for elem in (2, 4):
+        plan = flash.flash_plan(1, 2, 1000, d, elem=elem)
+        assert plan == ("flash_wide_tile", dp, warps)
+        assert flash.wide_parts(dp) == parts and (dp // parts, warps) in flash.WIDE_SPLIT_BUILT
+        assert (parts - 1) * (dp // parts) < d <= dp
+        assert flash.plan_rows(plan) == 32 and flash.plan_ctas(plan, 1, 2, 1000) == 2 * 32 * parts
+
+
+def test_head_dims_past_the_widest_plan_raise():
+    """The widest head dim is 4 CTAs of 512 columns; wider ones raise before
+    a launch, naming the limit."""
+    assert flash.WIDE_MAX_D == 2048 and flash.flash_plan(1, 1, 64, 2048)[0] == "flash_wide_tile"
+    for elem in (2, 4):
+        with pytest.raises(ValueError, match="head dim at most 2048"):
+            flash.flash_plan(1, 1, 64, 2056, elem=elem)
 
 
 @pytest.mark.parametrize("d,dp,slices,warps,ctas", [(136, 160, 2, 4, 128), (256, 256, 2, 4, 128),
@@ -80,34 +109,39 @@ def test_kernel_1_takes_the_wide_body_above_128(d, dp, slices, warps, ctas):
     assert big == plan and _ctas(big, 2, 2, 4096) == 4 * ctas
 
 
-@pytest.mark.parametrize("d", range(136, 513, 8))
+@pytest.mark.parametrize("d", range(136, flash.WIDE_MAX_D + 1, 8))
 def test_wide_slices_cover_the_head_dim(d):
-    """Every wide head dim is cut into slices of 16..128 columns, a multiple
-    of 16 each, none of them wholly padding."""
+    """Every wide head dim is cut into parts of at most 512 columns, one CTA
+    each, every CTA with at least one column of d, and each part into
+    slices of 16..128 columns, a multiple of 16 each; on one CTA none of
+    them is wholly padding (a cluster's parts are one of the three built
+    widths, so its last CTA may hold padded slices: d = 584 takes 2 x 384)."""
     _, dp, warps = flash.flash_plan(1, 1, 4096, d)
-    slices = flash.wide_slices(dp)
-    ds = dp // slices
-    assert ds * slices == dp >= d and ds % 16 == 0 and ds <= flash.WIDE_SLICE
-    assert ds * (slices - 1) < d and warps % slices == 0
+    parts, slices = flash.wide_parts(dp), flash.wide_slices(dp)
+    ds = dp // parts // slices
+    assert ds * slices * parts == dp >= d and ds % 16 == 0 and ds <= flash.WIDE_SLICE
+    assert dp // parts <= flash.WIDE_PART and (parts - 1) * (dp // parts) < d and warps % slices == 0
+    if parts == 1:
+        assert ds * (slices - 1) < d
 
 
 @pytest.mark.parametrize("d", [64, 72, 512])
 def test_banded_attention_keeps_the_shared_memory_body(d):
-    """Only above a head dim of 128: the banded kernel takes ``flash_plan``'s
-    plan, which keeps ``flash_tile`` there (d=512: 32x32 tiles on 2 warps)
-    and takes the register body up to 128 (and the C entry of the banded
-    kernel launches the plan of either body)."""
-    body, dp, warps = flash.flash_plan(2, 16, 1024, d, wide=False)
+    """The banded kernel and the ring hops (kernels 7 and 8's flash partial)
+    plan as kernel 1 does: the register body up to d=128, the wide body
+    above (d=512: 4 slices of 128, 8 warps, one CTA); the wrappers call
+    ``launch_plan`` with no other argument."""
+    body, dp, warps = flash.flash_plan(2, 16, 1024, d)
     if d <= 128:
         assert body == "flash_reg_tile" and (dp, warps) in flash.REG_BUILT
     else:
-        assert body == "flash_tile" and dp == -(-d // 16) * 16 and warps == 2
+        assert (body, dp, warps) == ("flash_wide_tile", 512, 8)
     src = (REPO / "compactfusion_tpu_torch" / "ops" / "flash.py").read_text()
     window = src[src.index("def flash_attn_window_with_lse("):]
-    assert "launch_plan(b, h, s, d, q.dtype, wide=False)" in window
-    # the ring hops (kernels 7 and 8's flash partial) take the same
+    assert "launch_plan(b, h, s, d, q.dtype)" in window
     ring = (REPO / "compactfusion_tpu_torch" / "ops" / "ring_flash.py").read_text()
-    assert ring.count("launch_plan(b, h, sq, d, q.dtype, wide=False)") == 2
+    assert ring.count("launch_plan(b, h, sq, d, q.dtype)") == 2
+    assert "wide=" not in src + ring
 
 
 @pytest.mark.parametrize("b,s,ctas", [(2, 1024, 256), (1, 1024, 128), (2, 1000, 256)])
@@ -123,76 +157,76 @@ def test_plans_the_kernels_do_not_take_raise():
         flash.flash_plan(1, 1, 64, 60)
 
 
-def _c_layout_bytes(d, bq, bk):
-    """``flash_common.cuh::make_layout(d, bq, bk).bytes``, run from the C
-    source: its statements are also Python once ``L.`` is a name prefix."""
-    src = (REPO / "compactfusion_tpu_torch" / "csrc" / "flash_common.cuh").read_text()
-    body = src[src.index("inline Layout make_layout("):].split("{", 1)[1].split("\n}", 1)[0]
-    env = {"d": d, "bq": bq, "bk": bk, "round_up": lambda x, m: -(-x // m) * m,
-           "align128": lambda x: (x + 127) & ~127}
-    for stmt in body.replace("L.", "L_").split(";"):
-        stmt = stmt.strip().removeprefix("int ")
-        if "=" in stmt:
-            exec(stmt, env)
-    return env["L_bytes"]
-
-
-def test_tile_64_max_dp_follows_the_c_layout():
-    """``TILE_64_MAX_DP`` is the widest padded head dim whose 64x64 layout
-    stays under 200 KB, and the VAE's d=512 fits the card in 32x32 tiles."""
-    assert _c_layout_bytes(72, 64, 64) == 11264 * 3 + 17408 + 9216 + 21504 + 256 * 3
-    assert _c_layout_bytes(flash.TILE_64_MAX_DP, 64, 64) <= 200 * 1024
-    assert _c_layout_bytes(flash.TILE_64_MAX_DP + 16, 64, 64) > 200 * 1024
-    assert _c_layout_bytes(512, 32, 32) == 33280 * 3 + 4608 + 2560 + 66048 + 128 * 3 <= 227 * 1024
-
-
 def c_struct(header, name, **env):
     """The members of ``struct name`` in a ``csrc`` header, run from the C
     source: its statements are Python once comments and ``static constexpr
-    int`` go, C's integer ``/`` is ``//`` and ``cdiv`` is a ceiling
-    division; ``env`` holds its template arguments and the constants it
-    reads (``kWideBK`` and ``kRegBK`` are read from the header)."""
+    int`` (or ``bool``) go, C's integer ``/`` is ``//``, ``&&`` and ``!`` are
+    ``and`` and ``not``, and ``cdiv`` is a ceiling division; ``env`` holds
+    its template arguments and the constants it reads (``kWideBK`` and
+    ``kRegBK`` are read from the header)."""
     src = (REPO / "compactfusion_tpu_torch" / "csrc" / header).read_text()
     body = src[src.index(f"struct {name} {{"):].split("{", 1)[1].split("\n};", 1)[0]
     env = {"cdiv": lambda a, b: -(-a // b), **env}
     for const in re.findall(r"constexpr int (k\w+BK) = (\d+);", src):
         env.setdefault(const[0], int(const[1]))
     for stmt in re.sub(r"//[^\n]*", "", body).split(";"):
-        stmt = stmt.strip().removeprefix("static constexpr int ")
+        stmt = re.sub(r"^static constexpr (int|bool) ", "", stmt.strip())
         if "=" in stmt:
-            exec(stmt.replace("/", "//"), env)
+            stmt = re.sub(r"!(?!=)", " not ", stmt.replace("&&", " and ").replace("/", "//"))
+            exec(stmt, env)
     return env
 
 
-def _wide_layout_bytes(dp, warps, elem=2):
-    """``flash_wide.cuh::WideLayout<dp, warps, elem>``'s members."""
-    return c_struct("flash_wide.cuh", "WideLayout", DP=dp, NWARPS=warps, ELEM=elem)
+def _wide_layout_bytes(dp, warps, elem=2, split=False):
+    """``flash_wide.cuh::WideLayout<dp, warps, elem, split>``'s members."""
+    return c_struct("flash_wide.cuh", "WideLayout", DP=dp, NWARPS=warps, ELEM=elem, SPLIT=split)
 
 
-def test_wide_layout_fits_the_card():
-    """Every built wide plan's shared memory (Q tile, K/V ring, exchange)
-    fits the 227 KB a CTA may take; the VAE's plan has room for 2 ring
-    stages, and the narrower heads take 3 stages."""
+@pytest.mark.parametrize("split", [False, True])
+def test_wide_layout_fits_the_card(split):
+    """Every built wide plan's shared memory (Q tile, K/V ring, exchange;
+    the split kernels' also the row groups' sums) fits the 227 KB a CTA may
+    take, as ``ops/flash.py::wide_layout`` mirrors it; the VAE's plan has
+    room for 2 ring stages, the narrower heads take 3, and the split
+    kernels 2 where two CTAs then share an SM."""
     for dp, warps in flash.WIDE_BUILT:
-        env = _wide_layout_bytes(dp, warps)
-        assert env["kBytes"] <= 227 * 1024 and env["kStages"] in (2, 3)
-        assert env["kSlices"] == flash.wide_slices(dp) and env["kGroups"] * env["kSlices"] == warps
+        for elem in (2, 4):
+            env = _wide_layout_bytes(dp, warps, elem, split)
+            mine = flash.wide_layout(dp, warps, elem, split)
+            assert env["kBytes"] <= 227 * 1024 and env["kStages"] in (2, 3)
+            assert (env["kBytes"], env["kStages"], env["kXchBytes"], bool(env["kTwoCtas"])) == \
+                (mine["bytes"], mine["stages"], mine["xch_bytes"], mine["two_ctas"])
+            assert env["kSlices"] == flash.wide_slices(dp) and env["kGroups"] * env["kSlices"] == warps
+            if mine["two_ctas"]:
+                assert 2 * (mine["bytes"] + 1024) <= 228 * 1024
     vae = _wide_layout_bytes(512, 8)
     assert (vae["kStages"], vae["kBytes"]) == (2, 33280 + 2 * 2 * 33280 + 16384)
     assert _wide_layout_bytes(160, 4)["kStages"] == 3
+    assert [flash.wide_layout(dp, 2 * flash.wide_slices(dp), 2, True)["two_ctas"] for dp in flash.WIDE_DPS] == \
+        [True, True, True, True, False, False]
 
 
 def test_every_wide_plan_is_built():
-    """``WIDE_BUILT`` lists the pairs of ``CF_WIDE_PLANS`` in
-    ``csrc/flash_wide.cuh``: every (DP, warps) the rule can choose at
-    128 < d <= 512, and nothing it cannot."""
+    """``WIDE_BUILT`` lists the pairs of ``CF_WIDE_PLANS`` and
+    ``WIDE_SPLIT_BUILT`` those of ``CF_WIDE_SPLIT_PLANS`` in
+    ``csrc/flash_wide.cuh``: every (DP, warps) of one CTA the rule can
+    choose at 128 < d <= 512 (every flash kernel) and above (kernel 1's
+    split kernels), and nothing it cannot."""
     src = (REPO / "compactfusion_tpu_torch" / "csrc" / "flash_wide.cuh").read_text()
-    macro = src[src.index("#define CF_WIDE_PLANS"):].split("\n\n")[0]
-    built = {(int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)", macro)}
-    assert built == flash.WIDE_BUILT
-    chosen = {flash.flash_plan(b, h, sq, d)[1:] for d in range(136, 513, 8)
-              for b, h, sq in ((1, 1, 4096), (1, 1, 64), (2, 2, 4096))}
-    assert chosen == built
+    for macro_name, want, ds in (("CF_WIDE_PLANS", flash.WIDE_BUILT, range(136, 513, 8)),
+                                 ("CF_WIDE_SPLIT_PLANS", flash.WIDE_SPLIT_BUILT, range(520, flash.WIDE_MAX_D + 1, 8))):
+        macro = src[src.index(f"#define {macro_name}("):].split("\n", 1)[0]
+        built = {(int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)", macro)}
+        assert built == want, macro_name
+        chosen = set()
+        for d in ds:
+            for b, h, sq in ((1, 1, 4096), (1, 1, 64), (2, 2, 4096)):
+                _, dp, warps = flash.flash_plan(b, h, sq, d)
+                chosen.add((dp // flash.wide_parts(dp), warps))
+        assert chosen == built, macro_name
+    assert flash.WIDE_SPLIT_BUILT < flash.WIDE_BUILT
+    assert int(re.search(r"constexpr int kWidePart = (\d+);", src).group(1)) == flash.WIDE_PART
+    assert int(re.search(r"constexpr int kWideMaxParts = (\d+);", src).group(1)) == flash.WIDE_MAX_PARTS
 
 
 def test_every_plan_is_built():
@@ -224,44 +258,57 @@ def _build(labels):
             {k: h for k, (_, h) in labels.items()})
 
 
-BEFORE = {"flash_fwd_kernel<4, 64>": (64, "a"), "flash_fwd_kernel<2, 32>": (40, "b"),
-          "flash_window_kernel<4, 64>": (64, "c"), "flash_window_kernel<2, 32>": (40, "d"),
-          "flash_window_reg_kernel<80, 8>": (130, "e"), "ring_flash_hop_kernel<4, 64>": (64, "f"),
-          "flash_fwd_reg_kernel<80, 8>": (135, "g"), "ring_flash_hop_reg_kernel<80, 2>": (96, "h"),
+BEFORE = {"flash_fwd_kernel<2, 32>": (40, "b"), "flash_window_kernel<4, 64>": (64, "c"),
+          "flash_window_kernel<2, 32>": (40, "d"), "ring_flash_hop_kernel<4, 64>": (64, "f"),
+          "flash_fwd_f32_kernel<2, 32>": (48, "b4"), "flash_window_f32_kernel<4, 64>": (72, "c4"),
+          "ring_flash_hop_f32_kernel<4, 64>": (64, "f4"),
+          "flash_window_reg_kernel<80, 8>": (130, "e"), "flash_fwd_reg_kernel<80, 8>": (135, "g"),
+          "ring_flash_hop_reg_kernel<80, 2>": (96, "h"), "flash_fwd_reg_f32_kernel<80, 8>": (142, "g4"),
+          "flash_window_reg_f32_kernel<80, 8>": (146, "e4"), "ring_flash_hop_reg_f32_kernel<80, 2>": (140, "h4"),
           "flash_parts_kernel<31>": (135, "i"), "dma_only_kernel": (40, "j"), "plumb_kernel": (32, "p"),
           "ef_update_fp32_kernel": (40, "q"), "ef_minmax_int8_kernel": (40, "r"),
-          "ef_codes_int8_kernel": (40, "s"),
+          "ef_codes_int8_kernel": (40, "s"), "ef_update_fp32_f32rec_kernel": (32, "q4"),
+          "ef_codes_int8_f32rec_kernel": (40, "s4"),
           "binary_quant_kernel<float, float>": (32, "k"), "binary_dequant_kernel<float>": (30, "l"),
           "int2_quant_kernel<float, float>": (32, "m"), "int2_dequant_kernel<float>": (30, "n"),
-          "flash_fwd_wide_kernel<512, 8>": (210, "o"), "binary_quant_vec_kernel<float, float>": (64, "t"),
+          "flash_fwd_wide_kernel<512, 8>": (210, "o"), "flash_fwd_wide_f32_kernel<512, 8>": (157, "o4"),
+          "binary_quant_vec_kernel<float, float>": (64, "t"),
           "binary_dequant_vec_kernel<float, 1>": (56, "v"), "int2_dequant_vec_kernel<float, 1>": (40, "w"),
           "int2_quant_vec_kernel<float, float, 1>": (48, "x"), "empty_kernel": (8, "u")}
+#: the shared-memory body's kernels, which the wide body's took the place of
+REDESIGNED = {k for k in BEFORE if re.match(r"(flash_fwd|flash_window|ring_flash_hop)(_f32)?_kernel<", k)}
+NEW = {"flash_window_wide_kernel<256, 4>": (174, "y1"), "ring_flash_hop_wide_kernel<256, 4>": (176, "y2"),
+       "flash_fwd_wide_split_kernel<512, 8>": (233, "y3"), "flash_window_wide_f32_kernel<256, 4>": (164, "y4"),
+       "ring_flash_hop_wide_f32_kernel<256, 4>": (191, "y5"), "flash_fwd_wide_split_f32_kernel<512, 8>": (156, "y6")}
 
 
 def test_compare_tool_passes_when_only_redesigned_kernels_differ():
-    """The fp32 instantiations of kernels 1, 4, 7 and 8 may come; every
-    kernel the parent built (every bf16 flash body, the EF pass, the probes,
-    every quant and dequant kernel, INT2 quant's two among them) must stay
-    as it was, and a change to any of them fails."""
+    """The shared-memory body's kernels may go and the wide body's banded,
+    ring and split kernels come; every other kernel the parent built
+    (every register-body and kernel-1 wide-body kernel in bf16 and fp32,
+    the EF pass, the probes, every quant and dequant kernel, INT2 quant's
+    two among them) must stay as it was, and a change to any of them
+    fails."""
     tool = _compare_tool()
-    new = {"flash_fwd_reg_f32_kernel<80, 8>": (150, "x1"), "flash_window_reg_f32_kernel<80, 8>": (150, "x2"),
-           "ring_flash_hop_reg_f32_kernel<80, 2>": (120, "x3"), "flash_fwd_wide_f32_kernel<512, 8>": (200, "x4"),
-           "ef_update_fp32_f32rec_kernel": (32, "x5"), "ef_codes_int8_f32rec_kernel": (40, "x6")}
-    ok, report = tool.verdict(_build(dict(BEFORE, **new)), _build(BEFORE))
-    assert ok and report["unmatched"] == []
+    after = {k: v for k, v in BEFORE.items() if k not in REDESIGNED} | NEW
+    ok, report = tool.verdict(_build(after), _build(BEFORE))
+    assert len(REDESIGNED) == 7 and ok and report["unmatched"] == []
     kernels = report["kernels"]
-    for label in ("flash_fwd_reg_kernel<80, 8>", "flash_window_reg_kernel<80, 8>", "flash_fwd_kernel<4, 64>",
-                  "flash_fwd_wide_kernel<512, 8>", "ef_update_fp32_kernel", "ef_codes_int8_kernel", "dma_only_kernel",
+    for label in ("flash_fwd_reg_kernel<80, 8>", "flash_window_reg_kernel<80, 8>", "flash_fwd_wide_kernel<512, 8>",
+                  "flash_fwd_reg_f32_kernel<80, 8>", "flash_window_reg_f32_kernel<80, 8>",
+                  "ring_flash_hop_reg_f32_kernel<80, 2>", "flash_fwd_wide_f32_kernel<512, 8>",
+                  "ef_update_fp32_kernel", "ef_codes_int8_kernel", "ef_update_fp32_f32rec_kernel",
+                  "ef_codes_int8_f32rec_kernel", "dma_only_kernel",
                   "binary_quant_kernel<float, float>", "binary_quant_vec_kernel<float, float>",
                   "binary_dequant_kernel<float>", "int2_dequant_kernel<float>", "binary_dequant_vec_kernel<float, 1>",
                   "int2_dequant_vec_kernel<float, 1>", "int2_quant_kernel<float, float>",
                   "int2_quant_vec_kernel<float, float, 1>", "empty_kernel"):
         assert kernels[label]["must_be_unchanged"] and kernels[label]["sass_equal"], label
-    for label in new:
+    for label in NEW.keys() | REDESIGNED:
         assert not kernels[label]["must_be_unchanged"], label
     for label in ("int2_quant_vec_kernel<float, float, 1>", "int2_quant_kernel<float, float>"):
-        changed = dict(BEFORE, **{label: (BEFORE[label][0], "changed")})
-        assert not tool.verdict(_build(dict(changed, **new)), _build(BEFORE))[0], label
+        changed = dict(after, **{label: (BEFORE[label][0], "changed")})
+        assert not tool.verdict(_build(changed), _build(BEFORE))[0], label
 
 
 @pytest.mark.parametrize("label,change", [
@@ -275,9 +322,11 @@ def test_compare_tool_passes_when_only_redesigned_kernels_differ():
     ("binary_quant_vec_kernel<float, float>", (64, "t2")),
     ("int2_dequant_vec_kernel<float, 1>", (40, "w2")),
     ("flash_fwd_wide_kernel<512, 8>", (212, "o")),
-    ("flash_fwd_kernel<4, 64>", None),
+    ("flash_fwd_wide_f32_kernel<512, 8>", None),
     ("int2_quant_vec_kernel<float, float, 1>", (48, "x2")),
     ("int2_quant_kernel<float, float>", (33, "m2")),
+    ("ring_flash_hop_reg_f32_kernel<80, 2>", (140, "h5")),
+    ("ef_codes_int8_f32rec_kernel", (41, "s4")),
 ])
 def test_compare_tool_fails_when_a_listed_kernel_changes(label, change):
     tool = _compare_tool()

@@ -154,6 +154,6 @@ def test_head_dim_88_takes_the_register_body_at_dp_96(b, h, sq):
     for elem in (2, 4):
         plan = flash.flash_plan(b, h, sq, 88, elem=elem)
         assert plan[:2] == ("flash_reg_tile", 96) and (96, plan[2]) in flash.REG_BUILT
-        assert flash.flash_plan(b, h, sq, 88, wide=False, elem=elem) == plan
+        assert flash.launch_plan(b, h, sq, 88, {2: torch.bfloat16, 4: torch.float32}[elem])[0] == plan
         assert flash.reg_layout(96, plan[2], elem)["bytes"] <= flash.SMEM_MAX
     assert all(flash.reg_layout(96, w, e)["bytes"] <= flash.SMEM_MAX for w in flash.REG_WARPS for e in (2, 4))

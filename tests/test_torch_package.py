@@ -85,24 +85,39 @@ def test_every_jax_module_has_a_counterpart():
     assert missing == []
 
 
+#: names a JAX ``__init__.py`` exports that the port leaves out on purpose:
+#: the JAX mesh machinery its process-group ``Mesh`` replaced
+DELIBERATELY_ABSENT = {"parallel": {"MeshSpec", "AXIS_SEQ"}}
+
+
 def test_package_exports_match_jax():
     """``compactfusion_tpu_torch`` exports the config classes and
     ``make_mesh`` as ``compactfusion_tpu/__init__.py`` does (the port has no
-    ``MeshSpec``); ``eval`` and ``schedulers`` export JAX's names."""
+    ``MeshSpec``); ``eval``, ``schedulers``, ``compact``, ``ops``, ``cache``,
+    ``parallel`` and ``utils`` export JAX's names, each the port's own
+    counterpart, but for :data:`DELIBERATELY_ABSENT`."""
+    import importlib
+
     import compactfusion_tpu
-    from compactfusion_tpu import eval as jeval
-    from compactfusion_tpu import schedulers as jsched
-    from compactfusion_tpu_torch import eval as teval
-    from compactfusion_tpu_torch import schedulers as tsched
 
     for name in ("CompactConfig", "EngineConfig", "InputConfig", "ModelConfig", "ParallelConfig", "RuntimeConfig",
                  "make_mesh"):
         assert getattr(compactfusion_tpu, name).__name__ == getattr(compactfusion_tpu_torch, name).__name__
         assert getattr(compactfusion_tpu_torch, name).__module__.startswith("compactfusion_tpu_torch.")
     assert not hasattr(compactfusion_tpu_torch, "MeshSpec")
-    for jmod, tmod in ((jeval, teval), (jsched, tsched)):
-        public = [n for n in dir(jmod) if not n.startswith("_") and not isinstance(getattr(jmod, n), type(jmod))]
-        assert [n for n in public if not hasattr(tmod, n)] == []
+    for sub in ("eval", "schedulers", "compact", "ops", "cache", "parallel", "utils"):
+        jmod = importlib.import_module(f"compactfusion_tpu.{sub}")
+        tmod = importlib.import_module(f"compactfusion_tpu_torch.{sub}")
+        public = {n for n in dir(jmod) if not n.startswith("_") and not isinstance(getattr(jmod, n), type(jmod))}
+        absent = DELIBERATELY_ABSENT.get(sub, set())
+        assert absent <= public and not any(hasattr(tmod, n) for n in absent), sub
+        assert sorted(n for n in public - absent if not hasattr(tmod, n)) == [], sub
+        for n in public - absent:
+            got = getattr(tmod, n)
+            if callable(got):
+                assert got.__module__.startswith("compactfusion_tpu_torch."), (sub, n)
+            else:
+                assert got == getattr(jmod, n), (sub, n)
 
 
 def _imports(path):

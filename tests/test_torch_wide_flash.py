@@ -1,30 +1,40 @@
-"""Kernel 1's wide-head route (``csrc/flash_wide.cuh``) on the CPU.
+"""The wide-head route (``csrc/flash_wide.cuh``) of kernels 1, 4, 7 and 8
+on the CPU.
 
 The CUDA body runs only on the card, so its schedule is modelled here in
-torch: per K/V tile of ``kWideBK`` keys, each head-dim slice's partial
-scores, added in slice order (the exchange between the warps of a row
-group), the online softmax in the exp2 domain with P rounded to bf16 before
-the PV product, and each slice's accumulator.  The model is held against
-the JAX ``flash_attn_with_lse`` (the Pallas kernel in interpret mode, as
+torch: per K/V tile of ``kWideBK`` keys (half as many in fp32), each
+head-dim slice's partial scores, added in (CTA, slice) order (the exchange
+between the warps of a row group, across the CTAs of a cluster above
+d = 512), the online softmax in the exp2 domain with P rounded to bf16
+before the PV product (kept in fp32 on fp32 inputs), each slice's
+accumulator, the band's mask (kernel 4) and the state carried from hop to
+hop (kernels 7 and 8).  The model is held against the JAX
+``flash_attn_with_lse`` (the Pallas kernel in interpret mode, as
 ``tests/test_torch_flash.py`` runs it) at d=512 with ragged ``kv_lens``, at
 the tolerances ``chip_smoke.py`` holds the kernel to against its twin (out
 2e-2: P and the output round to bf16; LSE 1e-3), and against the port's
-twin at the other wide head dims.  Faults of one slice's warps, planted in
-the model, show what ``chip_smoke.py``'s relative limit on out catches at
-the VAE's shape.
+twins at the other wide head dims, banded and on a ring.  Faults of one
+slice's warps, planted in the model, show what ``chip_smoke.py``'s relative
+limit on out catches at the VAE's shape.
 """
 
 import importlib.util
 import re
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
+from jax.sharding import Mesh as JMesh
+from jax.sharding import PartitionSpec as P
 
+from compactfusion_tpu.ops import ring_flash_pallas as jrf
 from compactfusion_tpu.ops.flash_pallas import flash_attn_with_lse as jflash
 from compactfusion_tpu_torch.ops import flash as tflash
+from compactfusion_tpu_torch.ops import ring_flash as trf
 
 OUT_ATOL = 2e-2
 LSE_ATOL = 1e-3
@@ -47,50 +57,63 @@ def _qkv(b, sq, sk, h, d, seed):
 FAULTS = ("unscaled", "lost_keys")
 
 
-def wide_model(q, k, v, kv_lens=None, fault=None):
-    """The wide body's arithmetic at ``flash_plan``'s plan, fp32 q/k/v
-    (B, S, H, D) -> (out (B, S, H, D), lse (B, H, S)); rows are independent,
-    so every row group of the grid is computed at once.  ``fault``: one of
-    :data:`FAULTS`, planted in slice 1."""
+def wide_model(q, k, v, kv_lens=None, fault=None, window=None, hops=None, elem=2):
+    """The wide body's arithmetic at ``flash_plan``'s plan for ``elem``-byte
+    elements (2: P rounded to bf16, 32-key tiles; 4: P in fp32, 16-key
+    tiles), fp32 q/k/v (B, S, H, D) -> (out (B, S, H, D), lse (B, H, S));
+    rows are independent, so every row group of the grid is computed at
+    once, and a visited tile with no key of a row leaves its state as it
+    was, so the band's tile schedule need not be modelled, only its mask.
+    ``window``: kernel 4's band (Sq == Sk); ``hops``: kernel 7's (k, v) of
+    every hop after the first, the state carried from hop to hop; ``fault``:
+    one of :data:`FAULTS`, planted in slice 1."""
     b, sq, h, d = q.shape
-    sk = k.shape[1]
-    body, dp, _ = tflash.flash_plan(b, h, sq, d)
+    body, dp, _ = tflash.flash_plan(b, h, sq, d, elem=elem)
     assert body == "flash_wide_tile"
-    slices = tflash.wide_slices(dp)
-    ds = dp // slices
-    qp, kp, vp = (torch.nn.functional.pad(t, (0, dp - d)) for t in (q, k, v))
+    parts, slices = tflash.wide_parts(dp), tflash.wide_slices(dp)
+    ds = dp // parts // slices  # the slices of CTA p are p * slices .. p * slices + slices - 1
+    bk = BK * 2 // elem
+    pad = lambda t: torch.nn.functional.pad(t, (0, dp - d))  # noqa: E731
+    qp = pad(q)
+    kvs = [(pad(k), pad(v))] + [(pad(kh), pad(vh)) for kh, vh in hops or ()]
     out = torch.zeros((b, sq, h, d))
     lse = torch.empty((b, h, sq))
+    rows = torch.arange(sq)
     for bi in range(b):
-        kv_len = sk if kv_lens is None else min(max(int(kv_lens[bi]), 0), sk)
         for hi in range(h):
             qq = qp[bi, :, hi]
             m = torch.full((sq,), float("-inf"))
             l = torch.zeros(sq)
             o = torch.zeros((sq, dp))
-            for k0 in range(0, kv_len, BK):
-                kk, vv = kp[bi, k0:k0 + BK, hi], vp[bi, k0:k0 + BK, hi]
-                cols = torch.arange(k0, k0 + kk.shape[0])
-                part = [qq[:, s * ds:(s + 1) * ds] @ kk[:, s * ds:(s + 1) * ds].T for s in range(slices)]
-                sc = part[0]
-                for p_s in part[1:]:  # the exchange: slice order 0..NSL-1
-                    sc = sc + p_s
-                sc = torch.where(cols[None, :] < kv_len, sc * (d**-0.5 * LOG2E), torch.tensor(float("-inf")))
-                m_new = torch.maximum(m, sc.amax(-1))
-                ref = torch.where(m_new == float("-inf"), torch.zeros_like(m_new), m_new)
-                p = torch.exp2(sc - ref[:, None])
-                alpha = torch.exp2(m - ref)
-                l = l * alpha + p.sum(-1)
-                pb = p.to(torch.bfloat16).float()
-                for s in range(slices):  # each slice's warp: its own columns of O
-                    cs = slice(s * ds, (s + 1) * ds)
-                    a, p_s = alpha, pb
-                    if s == 1 and fault == "unscaled":
-                        a = torch.ones_like(alpha)
-                    if s == 1 and fault == "lost_keys" and k0 + BK >= kv_len:
-                        p_s = torch.cat([pb[:, :16], torch.zeros_like(pb[:, 16:])], dim=1)
-                    o[:, cs] = o[:, cs] * a[:, None] + p_s @ vv[:, cs]
-                m = m_new
+            for kp, vp in kvs:
+                sk = kp.shape[1]
+                kv_len = sk if kv_lens is None else min(max(int(kv_lens[bi]), 0), sk)
+                for k0 in range(0, kv_len, bk):
+                    kk, vv = kp[bi, k0:k0 + bk, hi], vp[bi, k0:k0 + bk, hi]
+                    cols = torch.arange(k0, k0 + kk.shape[0])
+                    part = [qq[:, j * ds:(j + 1) * ds] @ kk[:, j * ds:(j + 1) * ds].T for j in range(parts * slices)]
+                    sc = part[0]
+                    for p_s in part[1:]:  # the exchange: (CTA, slice) order
+                        sc = sc + p_s
+                    keep = cols[None, :] < kv_len
+                    if window is not None:
+                        keep = keep & ((rows[:, None] - cols[None, :]).abs() <= window)
+                    sc = torch.where(keep, sc * (d**-0.5 * LOG2E), torch.tensor(float("-inf")))
+                    m_new = torch.maximum(m, sc.amax(-1))
+                    ref = torch.where(m_new == float("-inf"), torch.zeros_like(m_new), m_new)
+                    p = torch.exp2(sc - ref[:, None])
+                    alpha = torch.exp2(m - ref)
+                    l = l * alpha + p.sum(-1)
+                    pb = p.to(torch.bfloat16).float() if elem == 2 else p
+                    for j in range(parts * slices):  # each slice's warp: its own columns of O
+                        cs = slice(j * ds, (j + 1) * ds)
+                        a, p_s = alpha, pb
+                        if j == 1 and fault == "unscaled":
+                            a = torch.ones_like(alpha)
+                        if j == 1 and fault == "lost_keys" and k0 + bk >= kv_len:
+                            p_s = torch.cat([pb[:, :16], torch.zeros_like(pb[:, 16:])], dim=1)
+                        o[:, cs] = o[:, cs] * a[:, None] + p_s @ vv[:, cs]
+                    m = m_new
             inv = torch.where(l > 0, 1.0 / l, torch.zeros_like(l))
             out[bi, :, hi] = (o * inv[:, None])[:, :d]
             lse[bi, hi] = torch.where(l > 0, (m + torch.log2(l)) / LOG2E, torch.tensor(float("-inf")))
@@ -122,9 +145,11 @@ def test_wide_model_matches_jax_flash_at_d512(b, s, lens):
     _close(lse.numpy(), ref_l.numpy(), LSE_ATOL)
 
 
-@pytest.mark.parametrize("d,lens", [(136, (70, 3)), (264, (0, 50)), (384, None)])
+@pytest.mark.parametrize("d,lens", [(136, (70, 3)), (264, (0, 50)), (384, None), (576, (70, 0)), (1032, None),
+                                    (2048, (9, 70))])
 def test_wide_model_matches_the_twin(d, lens):
-    """The other slice widths (2 x 80, 3 x 96, 3 x 128), a row with no key
+    """The other slice widths (2 x 80, 3 x 96, 3 x 128) and clusters of 2, 3
+    and 4 CTAs (2 x 3 x 96, 3 x 3 x 128, 4 x 4 x 128), a row with no key
     included (0 and LSE -inf, the twin's convention)."""
     q, k, v = map(torch.from_numpy, _qkv(2, 40, 70, 2, d, seed=d))
     tl = None if lens is None else torch.tensor(lens)
@@ -134,6 +159,73 @@ def test_wide_model_matches_the_twin(d, lens):
     _close(lse.numpy(), ref_l.numpy(), LSE_ATOL)
     if lens is not None and 0 in lens:
         assert (out[lens.index(0)] == 0).all()
+
+
+def _bf16(*arrays):
+    """fp32 arrays with bf16 values (the kernels' inputs on the bf16 route)."""
+    return tuple(torch.from_numpy(a).to(torch.bfloat16).float().numpy() for a in arrays)
+
+
+def test_kernel_1_twin_and_model_match_pallas_interpret_at_d576():
+    """Kernel 1 at d = 576 (a cluster of 2 CTAs of 3 x 96 columns): the twin
+    that the launches are held to on the card and the model of the split
+    schedule, on bf16 values, against the Pallas kernel in interpret mode."""
+    q, k, v = _bf16(*_qkv(1, 48, 80, 2, 576, seed=576))
+    pal_o, pal_l = jflash(*map(jnp.asarray, (q, k, v)), block_q=16, block_k=128, interpret=True)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    assert tflash.flash_plan(1, 2, 48, 576) == ("flash_wide_tile", 576, 6)
+    for out, lse in (tflash.flash_attn_with_lse(tq, tk, tv), wide_model(tq, tk, tv)):
+        _close(out.numpy(), pal_o, OUT_ATOL)
+        _close(lse.numpy(), pal_l, LSE_ATOL)
+
+
+@pytest.mark.parametrize("d,w", [(256, 9), (256, 0), (576, 20)])
+def test_kernel_4_twin_and_model_match_pallas_interpret(d, w):
+    """Kernel 4 on the wide body (d = 256 on one CTA, d = 576 on a cluster
+    of 2): the banded twin and the model against the Pallas window kernel
+    in interpret mode, w = 0 (the diagonal alone) included."""
+    q, k, v = _bf16(*_qkv(1, 70, 70, 2, d, seed=d + w))
+    pal_o, pal_l = jflash(*map(jnp.asarray, (q, k, v)), block_q=16, block_k=128, interpret=True, window=w)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    for out, lse in (tflash.flash_attn_window_with_lse(tq, tk, tv, w), wide_model(tq, tk, tv, window=w)):
+        _close(out.numpy(), pal_o, OUT_ATOL)
+        _close(lse.numpy(), pal_l, LSE_ATOL)
+
+
+def _jax_ring(ring, q, k, v):
+    """The Pallas ring kernel (interpret mode) on a ring of ``ring`` CPU
+    devices, q/k/v (B, S, H, D) sequence-sharded over it: out, lse."""
+    mesh = JMesh(np.array(jax.devices()[:ring]), ("ring",))
+    spec = P(None, "ring", None, None)
+
+    def body(q, k, v):
+        return jrf.ring_flash_attn_with_lse(q, k, v, axis_name="ring", ring_size=ring,
+                                            mesh_axes=(("ring", ring),), block_q=16, block_k=128,
+                                            interpret=pltpu.InterpretParams(dma_execution_mode="eager"))
+
+    fn = jax.jit(jax.shard_map(body, mesh=mesh, in_specs=(spec, spec, spec),
+                               out_specs=(spec, P(None, None, "ring")), check_vma=False))
+    out, lse = fn(*map(jnp.asarray, (q, k, v)))
+    return np.asarray(out), np.asarray(lse)
+
+
+def test_kernel_7_twin_and_model_match_pallas_interpret_at_d256():
+    """Kernel 7 at d = 256 on a ring of 2: rank 0's hops (its own K/V, then
+    rank 1's) through the twin and through the model with the state
+    carried from hop to hop, against the Pallas ring kernel in interpret
+    mode on a 2-device CPU mesh."""
+    ring, s_local = 2, 40
+    q, k, v = _bf16(*_qkv(1, ring * s_local, ring * s_local, 2, 256, seed=7))
+    pal_o, pal_l = _jax_ring(ring, q, k, v)
+    tq, tk, tv = (torch.from_numpy(np.ascontiguousarray(x)) for x in (q, k, v))
+    q0 = tq[:, :s_local].contiguous()
+    blocks = [(tk[:, r * s_local:(r + 1) * s_local].contiguous(), tv[:, r * s_local:(r + 1) * s_local].contiguous())
+              for r in range(ring)]
+    twin = trf.ring_flash_attn_with_lse(q0, iter(blocks), ring)
+    model = wide_model(q0, *blocks[0], hops=blocks[1:])
+    for out, lse in (twin, model):
+        _close(out.numpy(), pal_o[:, :s_local], OUT_ATOL)
+        _close(lse.numpy(), pal_l[:, :, :s_local], LSE_ATOL)
 
 
 def test_slice_order_of_the_exchange_is_fixed():

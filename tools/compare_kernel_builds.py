@@ -8,7 +8,7 @@ Compiles ``compactfusion_tpu_torch/csrc`` of this checkout and of
 of the parent commit) with the flags of ``ops/_build.py``, one ``nvcc -c``
 per source, all started together, into a temporary directory.  For every
 kernel instantiation of either side (labels from ``_build.kernel_labels``,
-e.g. ``flash_fwd_kernel<4, 64>``), it compares what ``ptxas -v`` said of it
+e.g. ``flash_fwd_reg_kernel<80, 8>``), it compares what ``ptxas -v`` said of it
 (stack, spills, registers, barriers, constant memory) and its SASS
 (``cuobjdump -sass``, read by :func:`sass_text`), and reports the global
 loads its SASS issues before the first global store
@@ -17,11 +17,13 @@ once in a kernel that loads, computes, then stores).
 
 ``--unchanged`` names the instantiations that must be identical on both
 sides: a full label, or ``name<...>`` for every instantiation of ``name``
-(the default: every kernel that was built before kernels 1, 4, 7 and 8
-took fp32: every bf16 flash kernel of kernels 1, 4 and 7 on all three
-bodies, kernel 8's EF pass writing bf16 reconstructions, the probe and
-empty kernels, and every quant and dequant kernel; the fp32
-instantiations, ``*_f32_kernel`` and ``*_f32rec_kernel``, are new).
+(the default: every flash kernel of kernels 1, 4 and 7 on the register
+body and kernel 1's on the wide body up to d = 512, in bf16 and fp32,
+kernel 8's EF pass, the probe and empty kernels, and every quant and
+dequant kernel; the wide body's banded, ring and split kernels,
+``flash_window_wide*``, ``ring_flash_hop_wide*`` and
+``flash_fwd_wide_split*``, which took the place of the shared-memory
+body's, are not on it while the other side predates them).
 Prints one JSON object and exits 1 when one of them differs, is missing on
 either side or matches nothing; kernels outside the list may differ.
 Needs the CUDA toolkit (``nvcc``, ``cuobjdump``, ``cu++filt``), not a GPU.
@@ -39,9 +41,10 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 UNCHANGED = ("flash_fwd_reg_kernel<...>", "flash_window_reg_kernel<...>", "ring_flash_hop_reg_kernel<...>",
-             "flash_fwd_wide_kernel<...>", "flash_fwd_kernel<...>", "flash_window_kernel<...>",
-             "ring_flash_hop_kernel<...>", "ef_update_fp32_kernel", "ef_minmax_int8_kernel",
-             "ef_codes_int8_kernel", "flash_parts_kernel<...>", "dma_only_kernel", "plumb_kernel", "empty_kernel",
+             "flash_fwd_wide_kernel<...>", "flash_fwd_reg_f32_kernel<...>", "flash_window_reg_f32_kernel<...>",
+             "ring_flash_hop_reg_f32_kernel<...>", "flash_fwd_wide_f32_kernel<...>", "ef_update_fp32_kernel",
+             "ef_minmax_int8_kernel", "ef_codes_int8_kernel", "ef_update_fp32_f32rec_kernel",
+             "ef_codes_int8_f32rec_kernel", "flash_parts_kernel<...>", "dma_only_kernel", "plumb_kernel", "empty_kernel",
              "binary_quant_kernel<...>", "binary_quant_vec_kernel<...>", "binary_dequant_kernel<...>",
              "binary_dequant_vec_kernel<...>", "int2_quant_kernel<...>", "int2_quant_vec_kernel<...>",
              "int2_dequant_kernel<...>", "int2_dequant_vec_kernel<...>")

@@ -39,8 +39,8 @@ NAMES = PIXART + ("flux_lossless",)
 
 # kernel-name patterns, first match wins
 CATEGORIES = (
-    ("flash kernel", ("flash_fwd_kernel", "flash_fwd_reg_kernel", "flash_fwd_wide_kernel")),
-    ("window flash kernel", ("flash_window_kernel",)),
+    ("flash kernel", ("flash_fwd_reg_kernel", "flash_fwd_wide_kernel", "flash_fwd_wide_split_kernel")),
+    ("window flash kernel", ("flash_window_reg_kernel", "flash_window_wide_kernel")),
     ("quant kernel", ("binary_quant_kernel",)),
     ("dequant kernel", ("binary_dequant_kernel",)),
     ("int2 quant kernel", ("int2_quant_kernel",)),

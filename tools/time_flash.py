@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Check and time kernels 1 to 8 of a checkout at the path's shapes.
 
-    python3 tools/time_flash.py [--root OTHER_ROOT] [--sweep] [--quant] [--out FILE]
+    python3 tools/time_flash.py [--root OTHER_ROOT] [--sweep] [--quant] [--tile] [--out FILE]
 
 Imports ``compactfusion_tpu_torch`` from ``--root`` (default: this
 checkout; e.g. an unpacked ``git archive`` of the parent commit) and the
@@ -18,11 +18,13 @@ relative Frobenius error (kernel 1 held to ``FLASH_OUT_REL_MAX``), eager
 for kernel 4; none computes kernel 8) and ``bound_ms``.  Kernel 8 writes
 its EF stacks, so its twin runs on a fresh copy of the stacks the kernel's
 first call started from, and each timed input set has stacks of its own.
-Kernel 1 is also checked, untimed, where the tree has the wide body
-(``ops/flash.py::WIDE_BUILT``), at the wide head dims off the path
-(:data:`WIDE_CASES`: every built padded head dim of the wide body, ragged
-``kv_lens``, a batch with no key, whose rows must give LSE -inf as the
-twin's do).  Kernels 2 and 5 (binary and INT2 quant) at
+Kernels 1, 4 and 7 are also checked, untimed, where the tree splits the
+wide body over clusters (``ops/flash.py::WIDE_SPLIT_BUILT``), at wide head
+dims off the path (:data:`WIDE_CASES`, :data:`WINDOW_WIDE_CASES`,
+:data:`RING_WIDE_CASES`: every padded head dim of one CTA, clusters of 2 to
+4 CTAs up to d = 2048, ragged ``kv_lens``, a batch with no key, whose rows
+must give LSE -inf as the twin's do), in bf16 (with ``--tile`` also in
+fp32).  Kernels 2 and 5 (binary and INT2 quant) at
 :data:`QUANT_CASES` (binary: phase 2's K=1 and K=2 cases, ``quant_case``,
 first; INT2 on fp32 and bf16 bases at C1152 and C1160, and at K2), with a
 few deltas of 0 planted: packed bytes against the twin's, the new base
@@ -34,7 +36,11 @@ base and to the twin's, the plan, eager ``ms`` and ``graph_ms`` on input
 sets each quantized by the tree's own quant kernel.  Where the tree has
 the empty kernel (``ops/probes.py::empty``), its time by the same CUDA
 graphs, the floor of a launch.  ``--quant`` times only kernels 2, 3, 5 and
-6 and the empty kernel.  With ``--sweep`` (a tree with ``ops/flash.py::flash_plan``), a
+6 and the empty kernel.  ``--tile`` checks and times only phase 50's cases
+(``chip_smoke.tile_checks``: kernel 1 above d = 512, kernels 4, 7 and 8
+above d = 128), in bf16 and in fp32, each against its twin under phase
+50's bounds; a case the tree's kernel refuses or gets wrong is recorded
+with its ``error`` and the others still run.  With ``--sweep`` (a tree with ``ops/flash.py::flash_plan``), a
 shape whose plan takes the register body is also timed at every tile
 height built for its padded head dim (``graph_ms_by_warps``), with
 ``flash_plan`` swapped for one that keeps the body and padded head dim but
@@ -135,32 +141,61 @@ def row(smoke, timing, name, run, ref, sets, iters, nbytes, ops, library=None, s
 
 
 #: (B, Sq, Sk, H, d, kv_lens) of kernel 1's checks at the wide head dims
-#: off the path (the VAE's d=512 is one of ``flash_cases``)
+#: off the path (the VAE's d=512 is one of ``flash_cases``): every padded
+#: head dim of one CTA, then clusters of 2, 3 and 4 CTAs (d 520 to 2048)
 WIDE_CASES = [(2, 200, 300, 3, 136, (300, 17)), (1, 50, 80, 1, 192, (33,)), (1, 96, 256, 2, 256, None),
-              (2, 77, 129, 1, 264, (0, 100)), (1, 64, 1000, 2, 384, None), (2, 130, 96, 1, 512, (96, 5))]
+              (2, 77, 129, 1, 264, (0, 100)), (1, 64, 1000, 2, 384, None), (2, 130, 96, 1, 512, (96, 5)),
+              (2, 70, 90, 1, 520, (90, 0)), (1, 40, 300, 2, 1032, None), (1, 33, 64, 1, 1552, (50,)),
+              (1, 64, 100, 1, 2048, None)]
+#: (B, S, H, d, window) of kernel 4's checks on the wide body: one CTA
+#: (d 136, 264), clusters of 2 and 4 (d 576, 2048)
+WINDOW_WIDE_CASES = [(1, 100, 2, 136, 4), (2, 70, 1, 264, 0), (1, 130, 1, 576, 9), (1, 64, 1, 2048, 3)]
+#: (ring, B, Sq, Sk a hop, H, d) of kernel 7's checks on the wide body
+RING_WIDE_CASES = [(2, 1, 50, 70, 2, 200), (3, 1, 40, 33, 1, 600), (2, 2, 33, 40, 1, 1032), (2, 1, 64, 64, 1, 2048)]
 
 
-def wide_row(smoke, flash, dev, gen, case):
-    """Kernel 1 at one of :data:`WIDE_CASES` against its twin, untimed."""
+def wide_rows(smoke, flash, ring_flash, dev, gen, dtype):
+    """Kernels 1, 4 and 7 at :data:`WIDE_CASES`, :data:`WINDOW_WIDE_CASES`
+    and :data:`RING_WIDE_CASES` on ``dtype`` q/k/v against their twins,
+    untimed, held to ``chip_smoke._limits``: out and LSE, and rows with no
+    key -inf as the twin's."""
     import torch
 
-    b, sq, sk, h, d, lens = case
-
     def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    q, k, v = rnd(b, sq, h, d), rnd(b, sk, h, d), rnd(b, sk, h, d)
-    kl = None if lens is None else torch.tensor(lens, device=dev, dtype=torch.int32)
-    out, lse = flash.flash_attn_with_lse(q, k, v, kv_lens=kl)
-    torch.cuda.synchronize()
-    name = f"kernel 1 B{b} Sq{sq} Sk{sk} H{h} d{d} kv_lens {lens}"
-    err_out, rel_out, err_lse = errors(smoke, out, lse, *flash.flash_attn_with_lse_ref(q, k, v, kv_lens=kl),
-                                       smoke.FLASH_OUT_REL_MAX)
-    plan = flash.flash_plan(b, h, sq, d)
-    print(f"{name}: plan {plan}; out err {err_out:.3e}, rel {rel_out:.3e}, lse err {err_lse:.3e}, "
-          f"-inf rows as the twin's")
-    return {"shape": name, "plan": plan, "max_abs_err_out": err_out, "rel_err_out": rel_out,
-            "max_abs_err_lse": err_lse}
+    def agree(name, plan, got, ref):
+        torch.cuda.synchronize()
+        err_out, rel_out, err_lse, ok = smoke._agree(got[0], ref[0], got[1], ref[1])
+        print(f"{name}: plan {plan}; out err {err_out:.3e}, rel {rel_out:.3e}, lse err {err_lse:.3e} "
+              f"({smoke._tol_text(dtype)})")
+        if not ok:
+            raise AssertionError(f"{name}: the kernel disagrees with its twin")
+        return {"shape": name, "plan": plan, "max_abs_err_out": err_out, "rel_err_out": rel_out,
+                "max_abs_err_lse": err_lse}
+
+    tag = str(dtype).replace("torch.", "")
+    rows = []
+    for b, sq, sk, h, d, lens in WIDE_CASES:
+        q, k, v = rnd(b, sq, h, d), rnd(b, sk, h, d), rnd(b, sk, h, d)
+        kl = None if lens is None else torch.tensor(lens, device=dev, dtype=torch.int32)
+        rows.append(agree(f"kernel 1 {tag} B{b} Sq{sq} Sk{sk} H{h} d{d} kv_lens {lens}",
+                          flash.flash_plan(b, h, sq, d, elem=q.element_size()),
+                          flash.flash_attn_with_lse(q, k, v, kv_lens=kl),
+                          flash.flash_attn_with_lse_ref(q, k, v, kv_lens=kl)))
+    for b, s, h, d, w in WINDOW_WIDE_CASES:
+        q, k, v = rnd(b, s, h, d), rnd(b, s, h, d), rnd(b, s, h, d)
+        rows.append(agree(f"kernel 4 {tag} B{b} S{s} H{h} d{d} w{w}", flash.flash_plan(b, h, s, d, elem=q.element_size()),
+                          flash.flash_attn_window_with_lse(q, k, v, w),
+                          flash.flash_attn_window_with_lse_ref(q, k, v, w)))
+    for ring, b, sq, sk, h, d in RING_WIDE_CASES:
+        q = rnd(b, sq, h, d)
+        blocks = [(rnd(b, sk, h, d), rnd(b, sk, h, d)) for _ in range(ring)]
+        rows.append(agree(f"kernel 7 {tag} ring {ring} B{b} Sq{sq} Sk{ring}x{sk} H{h} d{d}",
+                          flash.flash_plan(b, h, sq, d, elem=q.element_size()),
+                          ring_flash.ring_flash_attn_with_lse(q, iter(blocks), ring),
+                          ring_flash.ring_flash_attn_with_lse_ref(q, iter(blocks), ring)))
+    return rows
 
 
 #: (codec, (N, C), scale rank, x dtype, base dtype) of the quant pairs:
@@ -277,6 +312,8 @@ def main(argv=None):
                     help="also time every built tile height of the register body's plans")
     ap.add_argument("--quant", action="store_true",
                     help="time only the quant kernels (2, 3, 5 and 6) and the empty kernel")
+    ap.add_argument("--tile", action="store_true",
+                    help="check and time only phase 50's cases, in bf16 and fp32")
     ap.add_argument("--out", type=Path, help="also write the JSON here")
     args = ap.parse_args(argv)
     smoke = _smoke()
@@ -309,10 +346,16 @@ def main(argv=None):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    rows = [] if args.quant else flash_rows(smoke, timing, flash, ring_flash, dev, gen, sweep, sets_of)
-    rows += [quant_row(smoke, timing, quant, codecs, dev, gen, case) for case in QUANT_CASES]
-    rows += [dequant_row(smoke, timing, quant, codecs, dev, gen, case) for case in QUANT_CASES]
-    if hasattr(ops_probes, "empty"):
+    if args.tile:
+        rows = tile_rows(smoke, timing, flash, ring_flash, dev, gen)
+        if hasattr(flash, "WIDE_SPLIT_BUILT"):
+            rows += [r for dtype in (torch.bfloat16, torch.float32)
+                     for r in wide_rows(smoke, flash, ring_flash, dev, gen, dtype)]
+    else:
+        rows = [] if args.quant else flash_rows(smoke, timing, flash, ring_flash, dev, gen, sweep, sets_of)
+        rows += [quant_row(smoke, timing, quant, codecs, dev, gen, case) for case in QUANT_CASES]
+        rows += [dequant_row(smoke, timing, quant, codecs, dev, gen, case) for case in QUANT_CASES]
+    if hasattr(ops_probes, "empty") and not args.tile:
         floor = smoke.launch_floor_ms(ops_probes, timing, dev)
         rows.append({"shape": "empty kernel", "graph_ms": floor})
         print(f"empty kernel: graphs {floor:.5f} ms per launch")
@@ -322,6 +365,29 @@ def main(argv=None):
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(line + "\n")
     print(line)
+    if any("error" in r for r in rows):
+        raise SystemExit("time_flash: a kernel failed or disagrees with its twin")
+
+
+def tile_rows(smoke, timing, flash, ring_flash, dev, gen):
+    """Phase 50's cases (``chip_smoke.tile_checks``) in bf16, then fp32:
+    every case's rows, or, where its launch is refused or it disagrees
+    with its twin, one row with the ``error``."""
+    import torch
+
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for what, name, check in smoke.tile_checks(flash, ring_flash, dev=dev, gen=gen, timing=timing,
+                                                   dtype=dtype):
+            try:
+                got = check()
+            except (AssertionError, RuntimeError) as e:
+                torch.cuda.synchronize()
+                print(f"{what} {name}: failed: {e}")
+                rows.append({"kernel": what, "shape": name, "error": str(e)})
+                continue
+            rows += [dict(r, kernel=what) for r in got]
+    return rows
 
 
 def flash_rows(smoke, timing, flash, ring_flash, dev, gen, sweep, sets_of):
@@ -337,8 +403,8 @@ def flash_rows(smoke, timing, flash, ring_flash, dev, gen, sweep, sets_of):
                         sets_of(make, first, smoke._nbytes(q, k, v, q)), iters, smoke._nbytes(q, k, v),
                         4 * b * h * sq * k.shape[1] * d, smoke._library(q, k, v), sweep(b, h, sq, d),
                         smoke.FLASH_OUT_REL_MAX))
-    if hasattr(flash, "WIDE_BUILT"):
-        rows += [wide_row(smoke, flash, dev, gen, case) for case in WIDE_CASES]
+    if hasattr(flash, "WIDE_SPLIT_BUILT"):
+        rows += wide_rows(smoke, flash, ring_flash, dev, gen, torch.bfloat16)
     for name, make, w in smoke.window_cases(gen, dev):
         q, k, v = first = make()
         b, s, h, d = q.shape
@@ -347,7 +413,7 @@ def flash_rows(smoke, timing, flash, ring_flash, dev, gen, sweep, sets_of):
                         lambda t, w=w: flash.flash_attn_window_with_lse_ref(*t, w),
                         sets_of(make, first, smoke._nbytes(q, k, v, q)), 20, smoke._nbytes(q, k, v),
                         4 * b * h * d * smoke.band_pairs(s, w),
-                        smoke._library(q, k, v, flash.window_mask(s, w, dev)), sweep(b, h, s, d, wide=False)))
+                        smoke._library(q, k, v, flash.window_mask(s, w, dev)), sweep(b, h, s, d)))
     for (ring, b, s_local), make in smoke.ring_cases(gen, dev):
         q, blocks = first = make()
         k_all = torch.cat([k for k, _ in blocks], dim=1)
@@ -357,7 +423,7 @@ def flash_rows(smoke, timing, flash, ring_flash, dev, gen, sweep, sets_of):
                         lambda t, n=ring: ring_flash.ring_flash_attn_with_lse_ref(t[0], iter(t[1]), n),
                         sets_of(make, first, smoke._nbytes(q, k_all, v_all, q)), 20,
                         smoke._nbytes(q, k_all, v_all), 4 * b * 16 * s_local * k_all.shape[1] * 72,
-                        smoke._library(q, k_all, v_all), sweep(b, 16, s_local, 72, wide=False)))
+                        smoke._library(q, k_all, v_all), sweep(b, 16, s_local, 72)))
     for case in smoke.CRING_CASES:
         ring, b, s_local, codec, rank, quantized = case
         shards, kb0, vb0, payloads = smoke.cring_inputs(ring_flash, gen, dev, *case)
