@@ -15,10 +15,13 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
    (window) flash attention, the 1-bit quant pair at K=1 and K=2, the 2-bit
    (INT2) pair on fp32 and bf16 bases.  Flash and banded attention also
    name their plan (``ops/flash.py::flash_plan``: body, padded head dim,
-   warps) and CTAs (the banded kernel must take the register body), and
-   flash is timed without dispatch cost on inputs read from DRAM
+   warps) and CTAs (the banded kernel must take the register body, bf16
+   kernels 1 and 7 up to d=128 the wgmma body, ``csrc/flash_wgmma.cuh``),
+   and flash is timed without dispatch cost on inputs read from DRAM
    (``graph_ms``: CUDA graphs, ``probes/timing.py``).  The VAE's d=512
-   attention must take the wide body.  The quant pairs are also timed by
+   attention must take the wide body.  Kernel 1 also runs the wgmma body's
+   edge cases (``wgmma_edge_cases``: a batch of no key, a ragged Sq and Sk
+   at d88 on 64-row tiles over K/V column slices).  The quant pairs are also timed by
    CUDA graphs on inputs from DRAM, beside the time of an empty kernel
    (the least a launch costs).  Both quants and both dequants run both
    their plans (``ops/quant.py::quant_plan``): the vector kernel at C=1152
@@ -53,10 +56,12 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
     ring 2 at the path's shape (512 tokens per rank, B 2 and B 1) and ring 8
     (128 tokens per rank); BINARY at K=1 and K=2, INT2 and LOW_RANK r4 on
     fp32 stacks, and on int8 stacks at B 1.  Kernel 7 is timed as kernel 1
-    in phase 2 (plan, ``graph_ms``), and its ring-8 hop must launch at
-    least 128 CTAs; so must kernel 8's flash partial, and kernel 8 and its
+    in phase 2 (plan, ``graph_ms``), and a ring-8 hop on the register body
+    must launch at least 128 CTAs (the wgmma body's 64-row tiles give 64);
+    so must kernel 8's flash partial there, and kernel 8 and its
     EF pass (``ef_update_slot``, checked alone against its twin) are timed
-    eager and by CUDA graphs on cloned stacks.
+    eager and by CUDA graphs on cloned stacks.  Kernel 7 also runs a ring 3
+    of 700 queries against hops of 513 keys (``ring_edge_cases``).
 13. The pipeline cut to SP_CUT (7) of its 28 blocks (the script's
     time limit) as a ring of 2 processes that share this GPU (a
     gloo group: NCCL refuses two ranks on one device), lossless, unfused
@@ -77,7 +82,8 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
 16. The flash profiling probes (``compactfusion_tpu_torch/probes``): each
     stage mask of ``flash_parts`` (kernel 1's register body) and
     ``dma_only`` against its twin at B2 H16 S1024 d72 (``full`` bit-equal
-    to kernel 1 on the same views,
+    to kernel 1 launched on the same register-body plan, ``ops/probes.py::
+    PLAN``, on the same views,
     ``dma_only`` bit-equal to its twin, the others by largest and relative
     error), ``plumb`` bit-equal to its twin on column slices of one qkv
     tensor and timed on enough of them in turn that each call reads from
@@ -90,7 +96,7 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
 
 17. Kernels 1, 2, 3, 7 and 8 against their twins at FLUX.1-dev's shapes:
     kernel 1 over the 512 text + 4096 image tokens at 24 heads of 128 (the
-    register body at DP 128: 8 warps, 864 CTAs), at the two hops of the
+    wgmma body at DP 128: 8 consumer warps, 864 CTAs), at the two hops of the
     unfused ring 2 (the text in front of hop 0's K/V) and the fused ring's
     text block, and on the wide body at the VAE's 128 x 128 tokens; the
     1-bit pair at N2048 C3072 (the vector plans); kernels 7 and 8 (and 8's
@@ -194,7 +200,7 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
     and above 0; exact launch counts and ring-shift bytes per rank.
 
 32. Kernels 1, 2, 3, 5, 6, 7 and 8 (and 8's EF pass) against their twins
-    at CogVideoX-2b's shapes (30 heads of 64: kernel 1 on the register
+    at CogVideoX-2b's shapes (30 heads of 64: kernel 1 on the wgmma
     body's DP 64 plan): kernel 1 over the 226 text + 17,550 video tokens at
     the CFG batch 2, at Ulysses 2 (15 heads, both ranks' text rows among the
     queries) and at the two hops of the unfused ring 2 (the text in front of
@@ -257,7 +263,7 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
 37. Kernels 1-8 against their twins at SD3-medium's shapes (the 197 text
     rows in front of 4,096 image rows, 24 heads of 64: self-attention,
     Ulysses 2, the ring-2 hops, the patch at M = 2), HunyuanDiT v1.2's (16
-    heads of 88 on the register body at DP 96, whose instantiations must
+    heads of 88 on the wgmma body at DP 96, whose instantiations must
     not spill; the 8 padded columns must not reach out or the LSE),
     PixArt-Sigma's (4,096 and 16,384 tokens; kernel 4 at 16,384, w64) and
     the 2K VAE's dense mid-attention (65,536 rows of d = 512 in one wide
@@ -518,14 +524,19 @@ def _time_ms(fn, iters, warm=3):
 
 #: {(wrapper, its count of the launches of one route): the route's key in a
 #: phase's launch counts, beside every wrapper's own}: kernel 1's on the wide
-#: body (the VAE's d=512), and kernels 2, 3, 5 and 6 on their vector plans
+#: body (the VAE's d=512), kernels 1, 7 and 8's on the wgmma body (bf16 at d
+#: <= 128), and kernels 2, 3, 5 and 6 on their vector plans
 #: (``ops/quant.py::quant_plan``)
 #: {kernel: the key of its launches on fp32 q/k/v}: kernels 1, 4, 7 and 8,
 #: and 8's EF pass writing fp32 reconstructions
 F32 = {name: f"{name} (fp32)" for name in ("flash_attn_with_lse", "flash_attn_window_with_lse",
                                            "ring_flash_attn_with_lse", "compact_ring_flash", "ef_update_slot")}
 F32_WIDE = "flash_attn_with_lse (fp32, wide body)"
+#: {kernel: the key of its launches on the wgmma body}
+WG = {name: f"{name} (wgmma body)" for name in ("flash_attn_with_lse", "ring_flash_attn_with_lse",
+                                                "compact_ring_flash")}
 ROUTES = {("flash_attn_with_lse", "wide_launches"): "flash_attn_with_lse (wide body)",
+          **{(name, "wgmma_launches"): key for name, key in WG.items()},
           **{(f"{codec}_{side}_fastpath", "vec_launches"): f"{codec}_{side}_fastpath (vector plan)"
              for codec in ("binary", "int2") for side in ("quant", "dequant")},
           **{(name, "f32_launches"): key for name, key in F32.items()},
@@ -551,6 +562,13 @@ def _counts(kernels):
     for (name, attr), key in ROUTES.items():
         counts[key] = getattr(by_name[name], attr)
     return counts
+
+
+def _ring_routes(totals, name):
+    """The launches of kernel 7 or 8's flash partial by body: the wgmma body
+    (bf16 at d <= 128) and the others (fp32, ring-8 hops, d > 128)."""
+    return {"wgmma body (bf16, d <= 128), csrc/flash_wgmma.cu": totals[WG[name]],
+            "register or wide body, csrc/ring_flash.cu": totals[name] - totals[WG[name]]}
 
 
 def _with_routes(expect):
@@ -693,6 +711,7 @@ def _ptxas(flash, kind, plan, dtype):
         if kind == "flash" and parts > 1:
             kind = "split"
     name = {("flash", "flash_reg_tile"): "flash_fwd_reg", ("flash", "flash_wide_tile"): "flash_fwd_wide",
+            ("flash", "flash_wgmma_tile"): "flash_fwd_wgmma", ("ring", "flash_wgmma_tile"): "ring_flash_hop_wgmma",
             ("split", "flash_wide_tile"): "flash_fwd_wide_split", ("window", "flash_reg_tile"): "flash_window_reg",
             ("window", "flash_wide_tile"): "flash_window_wide", ("ring", "flash_reg_tile"): "ring_flash_hop_reg",
             ("ring", "flash_wide_tile"): "ring_flash_hop_wide"}.get((kind, body))
@@ -718,15 +737,60 @@ def flash_cases(gen, dev):
     ]
 
 
-def _plan(flash, b, h, sq, d, elem, kernel_1=True):
-    """``flash``'s plan of a launch; kernels 4, 7 and 8 (``kernel_1`` False)
-    on a checkout whose ``flash_plan`` still tells them from kernel 1 (a
-    ``wide`` argument: older checkouts that ``tools/time_flash.py --root``
-    times) plan with ``wide=False``, as their wrappers there do."""
+def wgmma_edge_cases(gen, dev):
+    """Kernel 1 on the wgmma body at edge inputs: PixArt's self-attention
+    with a batch of no key (``kv_lens`` (1000, 0): rows of 0 and LSE -inf),
+    and 64-row tiles over a ragged Sq and Sk (1,000 queries against 777
+    keys, neither a multiple of a tile) at d 88 (DP 96), K and V column
+    slices of one kv tensor."""
+    import torch
+
+    def with_lens():
+        return (*_qkv_views(gen, dev, 2, 1024), torch.tensor([1000, 0], device=dev, dtype=torch.int32))
+
+    def ragged():
+        q = torch.randn((2, 1000, 8, 88), generator=gen, device=dev).to(torch.bfloat16)
+        kv = torch.randn((2, 777, 2 * 8 * 88), generator=gen, device=dev).to(torch.bfloat16)
+        return (q, *(t.view(2, 777, 8, 88) for t in kv.split(8 * 88, dim=-1)))
+
+    return [("kv_lens (1000, 0) B2 H16 S1024 d72", with_lens, 20),
+            ("ragged B2 H8 Sq1000 Sk777 d88 (K/V column slices)", ragged, 20)]
+
+
+def ring_edge_cases(gen, dev):
+    """Kernel 7 on the wgmma body with Sq != Sk, both ragged: ring 3, B1
+    H16, 700 queries against hops of 513 keys at d 72 (64-row tiles)."""
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    return [((3, 1, 513), lambda: (rnd(1, 700, 16, 72), [(rnd(1, 513, 16, 72), rnd(1, 513, 16, 72))
+                                                          for _ in range(3)]))]
+
+
+def _plan(flash, b, h, sq, d, elem, kernel=1):
+    """``flash``'s plan of a launch of ``kernel`` (1, 4 or 7; kernel 8's
+    flash partial asks as 7).  A checkout whose ``flash_plan`` does not name
+    the kernel (older checkouts that ``tools/time_flash.py --root`` times)
+    has one rule for all, and where it still tells kernels 4, 7 and 8 from
+    kernel 1 by a ``wide`` argument they plan with ``wide=False``, as their
+    wrappers there do."""
     import inspect
 
-    old = not kernel_1 and "wide" in inspect.signature(flash.flash_plan).parameters
+    params = inspect.signature(flash.flash_plan).parameters
+    if "kernel" in params:
+        return flash.flash_plan(b, h, sq, d, elem=elem, kernel=kernel)
+    old = kernel != 1 and "wide" in params
     return flash.flash_plan(b, h, sq, d, elem=elem, **({"wide": False} if old else {}))
+
+
+def _main_body(dtype):
+    """The body kernels 1 and 7 (and 8's flash partial) must take at d <=
+    128: the wgmma body on bf16, the register body on fp32."""
+    import torch
+
+    return "flash_wgmma_tile" if dtype == torch.bfloat16 else "flash_reg_tile"
 
 
 def _ctas(flash, plan, b, h, sq):
@@ -758,7 +822,7 @@ def check_flash(flash, timing, dev, gen, cases=None, phase=2):
         ref_out, ref_lse = twin(qq, kk, vv, **kv)
         err_out, rel_out, err_lse, ok = _agree(out, ref_out, lse, ref_lse)
         b, sq, h, d = qq.shape
-        plan = flash.flash_plan(b, h, sq, d, elem=qq.element_size())
+        plan = _plan(flash, b, h, sq, d, qq.element_size())
         ms = _time_ms(lambda: flash.flash_attn_with_lse(qq, kk, vv, **kv), iters)
         # one eager call (a shape of a second or more): no graphs of 140 calls
         sets = [(qq, kk, vv, *lens)] + [make() for _ in range(timing.copies(_nbytes(qq, kk, vv, out, lse)) - 1)
@@ -794,8 +858,8 @@ def check_flash(flash, timing, dev, gen, cases=None, phase=2):
             raise AssertionError(f"flash kernel disagrees with its twin at {name}")
         if 128 < d <= 512 and plan[0] != "flash_wide_tile":
             raise AssertionError(f"flash at {name}: plan {plan} is not the wide body")
-        if d <= 128 and plan[0] != "flash_reg_tile":
-            raise AssertionError(f"flash at {name}: plan {plan} is not the register body")
+        if d <= 128 and plan[0] != _main_body(qq.dtype):
+            raise AssertionError(f"flash at {name}: plan {plan}, not the {_main_body(qq.dtype)}")
     return rows
 
 
@@ -843,7 +907,7 @@ def check_window(flash, dev, gen, cases=None, timing=None, phase=2):
         ms = _time_ms(lambda: flash.flash_attn_window_with_lse(qq, kk, vv, w), 20)
         plain_ms = _time_ms(lambda: twin(qq, kk, vv, w), 1 if sliced else 20, 1 if sliced else 3)
         b, s, h, d = qq.shape
-        plan = _plan(flash, b, h, s, d, qq.element_size(), kernel_1=False)
+        plan = _plan(flash, b, h, s, d, qq.element_size(), kernel=4)
         lib, backend = _library(qq, kk, vv, flash.window_mask(s, w, dev))
         library_ms = _time_ms(lib, 20)
         work = (_nbytes(qq, kk, vv, out, lse), 4 * b * h * d * band_pairs(s, w))
@@ -1148,7 +1212,7 @@ def check_ring_flash(rf, flash, timing, dev, gen, cases=None, phase=12):
         ref_out, ref_lse = rf.ring_flash_attn_with_lse_ref(q, iter(blocks), ring)
         err_out, rel_out, err_lse, ok = _agree(out, ref_out, lse, ref_lse)
         name = f"ring {ring} B{b} H{h} Sq{sq} Sk{ring}x{s_local} d{d}"
-        plan = _plan(flash, b, h, sq, d, q.element_size(), kernel_1=False)
+        plan = _plan(flash, b, h, sq, d, q.element_size(), kernel=7)
         ms = _time_ms(lambda: rf.ring_flash_attn_with_lse(q, iter(blocks), ring), 20)
         k_all = torch.cat([k for k, _ in blocks], dim=1)
         v_all = torch.cat([v for _, v in blocks], dim=1)
@@ -1176,8 +1240,13 @@ def check_ring_flash(rf, flash, timing, dev, gen, cases=None, phase=12):
               f"ptxas {rows[-1]['ptxas']}")
         if not ok:
             raise AssertionError(f"ring flash kernel disagrees with its twin at {name}")
-        if ring == RING and rows[-1]["ctas"] < 128:
+        # the register body's 32-row tiles must fill the card at ring 8; the
+        # wgmma body's 64-row tiles (64 CTAs) measured faster there than
+        # the register body's 128 (ops/flash.py::flash_plan)
+        if ring == RING and plan[0] == "flash_reg_tile" and rows[-1]["ctas"] < 128:
             raise AssertionError(f"ring flash at ring {RING}: {rows[-1]['ctas']} CTAs per hop, fewer than 128")
+        if d <= 128 and plan[0] != _main_body(q.dtype):
+            raise AssertionError(f"ring flash at {name}: plan {plan}, not the {_main_body(q.dtype)}")
     return rows
 
 
@@ -1295,7 +1364,7 @@ def check_compact_ring(rf, flash, timing, dev, gen, ring, b, s_local, codec, ran
     base_rel = max(_rel(_decoded(stacks[0][0]), _decoded(kr)), _rel(_decoded(stacks[0][1]), _decoded(vr)))
     consistent = all(_same(stacks[r][i], stacks[0][i]) for r in range(ring) for i in range(2))
     name = cring_name(ring, b, s_local, codec, rank, quantized, h, d, q_rows, dtype)
-    plan = _plan(flash, b, h, sq, d, shards[0][0].element_size(), kernel_1=False)
+    plan = _plan(flash, b, h, sq, d, shards[0][0].element_size(), kernel=7)
     ctas = _ctas(flash, plan, b, h, sq)
     ok = ok and base_rel <= QUANT_NEW_BASE_RTOL and consistent
     if f32:  # the stacks bit for bit
@@ -1303,8 +1372,10 @@ def check_compact_ring(rf, flash, timing, dev, gen, ring, b, s_local, codec, ran
     if not ok:
         raise AssertionError(f"compact ring kernel disagrees with its twin at {name}: out {err_out} "
                              f"(rel {rel_out}), lse {err_lse}, bases {base_rel}, ranks bit-equal {consistent}")
-    if ctas < 128:
+    if plan[0] == "flash_reg_tile" and ctas < 128:  # as kernel 7's at ring 8
         raise AssertionError(f"compact ring at {name}: the flash partial has {ctas} CTAs, fewer than 128")
+    if d <= 128 and plan[0] != _main_body(act):
+        raise AssertionError(f"compact ring at {name}: plan {plan}, not the {_main_body(act)}")
 
     # the EF pass alone, on rank 0's own payload (slot 0), after hop 0 (rec kept)
     shape = (b, s_local, h, d)
@@ -1385,7 +1456,7 @@ def check_probes(ops_probes, flash, stage_probe, timing, dev, gen):
 
     q, k, v = stage_probe.make_inputs(gen)
     s = q.shape[1]
-    kernel1, _ = flash.flash_attn_with_lse(q, k, v)
+    kernel1, _ = flash.flash_attn_with_lse(q, k, v, plan=ops_probes.PLAN)  # the body the probe is built from
     rows = []
     for name, parts in stage_probe.VARIANTS.items():
         if parts is None:
@@ -1574,6 +1645,9 @@ def compressed_phase(phase, what, pipe, kernels, lossless, expect):
         if name == "flash_attn_with_lse":
             if count < DEPTH * STEPS:
                 raise AssertionError(f"{what}: flash launched {count} < {DEPTH * STEPS} times")
+        elif name == WG["flash_attn_with_lse"]:  # every bf16 launch below the VAE's d=512
+            if count != counts["flash_attn_with_lse"] - counts[WIDE]:
+                raise AssertionError(f"{what}: {count} of kernel 1's launches on the wgmma body")
         elif count != want:
             raise AssertionError(f"{what}: {name} launched {count} times, expected {want}")
     rel = (torch.linalg.vector_norm(lat - lossless) / torch.linalg.vector_norm(lossless)).item()
@@ -1647,9 +1721,7 @@ def accel_phase(phase, what, pipe, kernels, lossless, full, window, exact=False,
     want = {"flash_attn_with_lse": full, "flash_attn_window_with_lse": window, WIDE: 1}
     if f32:
         want = _all_f32(want)
-    for name, count in counts.items():
-        if count != want.get(name, 0):
-            raise AssertionError(f"{what}: {name} launched {count} times, expected {want.get(name, 0)}")
+    _check_counts(what, counts, want)
     rel = (torch.linalg.vector_norm(lat - lossless) / torch.linalg.vector_norm(lossless)).item()
     exact = exact or pipe.last_skips == 0  # a cache that skips nothing is the lossless path
     if not (rel <= 1e-6 if exact else 0.0 < rel < float("inf")):
@@ -1925,9 +1997,9 @@ def check_flux_kernels(flash, quant, codecs, rf, timing, dev, gen):
 
     flash_rows = check_flash(flash, timing, dev, gen, flux_flash_cases(gen, dev), phase=17)
     self_attn = flash_rows[0]
-    if (self_attn["plan"], self_attn["ctas"]) != (["flash_reg_tile", FLUX_HEAD_DIM, 8], 864):
+    if (self_attn["plan"], self_attn["ctas"]) != (["flash_wgmma_tile", FLUX_HEAD_DIM, 8], 864):
         raise AssertionError(f"FLUX self-attention: plan {self_attn['plan']}, {self_attn['ctas']} CTAs; "
-                             f"the register body at DP 128, 8 warps and 864 CTAs expected")
+                             f"the wgmma body at DP 128, 8 consumer warps and 864 CTAs expected")
     shape = (FLUX_RING_LOCAL, FLUX_HEADS * FLUX_HEAD_DIM)
     quant_rows = [check_quant(quant, codecs, timing, dev, gen, "binary", -1, torch.float32, shape, phase=17)]
     if [quant_rows[0]["quant_plan_bytes_per_thread"], quant_rows[0]["dequant_plan_bytes_per_thread"]] != \
@@ -1948,8 +2020,12 @@ def _numel(tree):
 
 
 def _check_counts(what, counts, expect):
-    """Every kernel's (and route's) launches equal ``expect``, else 0."""
+    """Every kernel's (and route's) launches equal ``expect``, else 0; a
+    count of launches on the wgmma body (:data:`WG`) only where ``expect``
+    names it (a phase that asks which body its launches took)."""
     for name, count in counts.items():
+        if name in WG.values() and name not in expect:
+            continue
         if count != expect.get(name, 0):
             raise AssertionError(f"{what}: {name} launched {count} times, expected {expect.get(name, 0)}")
 
@@ -1979,7 +2055,8 @@ def flux_lossless_phase(kernels, dev):
         lat, img, sec = flux_request(pipe, seed)
         lo, hi = check_image(img, f"FLUX request seed {seed}", FLUX_SIZE)
         ran = {k: v - before[k] for k, v in _counts(kernels).items()}
-        _check_counts(f"FLUX request seed {seed}", ran, {"flash_attn_with_lse": blocks * FLUX_STEPS + 1, WIDE: 1})
+        _check_counts(f"FLUX request seed {seed}", ran, {"flash_attn_with_lse": blocks * FLUX_STEPS + 1, WIDE: 1,
+                                                         WG["flash_attn_with_lse"]: blocks * FLUX_STEPS})
         lossless = lat if lossless is None else lossless
         secs.append(sec)
         print(f"[18] FLUX request seed {seed}: image (1, {FLUX_SIZE}, {FLUX_SIZE}, 3) in [{lo:.4f}, {hi:.4f}], "
@@ -2002,7 +2079,7 @@ def flux_lossless_phase(kernels, dev):
         # probe yet) and the last (always computed); a skipped step runs the
         # first double block alone
         want = blocks * (FLUX_STEPS - skips) + skips + 1
-        _check_counts(name, counts, {"flash_attn_with_lse": want, WIDE: 1})
+        _check_counts(name, counts, {"flash_attn_with_lse": want, WIDE: 1, WG["flash_attn_with_lse"]: want - 1})
         rel = rel_fro(lat, lossless)
         if cached.last_skips != skips or not (rel <= 1e-6 if skips == 0 else 0.0 < rel < float("inf")):
             raise AssertionError(f"{name}: {cached.last_skips} skipped steps (expected {skips}), latent rel "
@@ -2038,10 +2115,7 @@ def ring_phase(phase, results, name, lossless, expect, bound, references=(), low
     for i, r in enumerate(runs):
         if not np.array_equal(r["latents"], lat):
             raise AssertionError(f"{name}: rank {i}'s latents differ from rank 0's")
-        for kname, count in r["launches"].items():
-            if count != expect.get(kname, 0):
-                raise AssertionError(f"{name} rank {i}: {kname} launched {count} times, "
-                                     f"expected {expect.get(kname, 0)}")
+        _check_counts(f"{name} rank {i}", r["launches"], expect)
     rel = _rel_np(lat, lossless)
     if not (rel <= bound and (low is None or rel > low)):
         raise AssertionError(f"{name}: latent rel err vs lossless {rel} outside ({low}, {bound}]")
@@ -3234,8 +3308,8 @@ def check_cog_kernels(flash, quant, codecs, rf, timing, dev, gen):
 
     flash_rows = check_flash(flash, timing, dev, gen, cog_flash_cases(gen, dev), phase=32)
     for r in flash_rows:
-        if r["plan"][:2] != ["flash_reg_tile", COG_HEAD_DIM]:
-            raise AssertionError(f"{r['shape']}: plan {r['plan']}; the register body at DP 64 expected")
+        if r["plan"][:2] != ["flash_wgmma_tile", COG_HEAD_DIM]:
+            raise AssertionError(f"{r['shape']}: plan {r['plan']}; the wgmma body at DP 64 expected")
     quant_rows = {"binary": [], "int2": []}
     for n in (COG_RING_LOCAL, 2 * COG_RING_LOCAL):  # a rank's rows at B1 and at the CFG batch 2
         for codec in ("binary", "int2"):
@@ -3339,7 +3413,8 @@ def cog_pipeline_phase(kernels, dev):
     video, total = _events_s(runner)
     peak = max(held["peak"], torch.cuda.max_memory_allocated()) / 2**30
     counts = _counts(kernels)
-    _check_counts("CogVideoX-2b request", counts, {"flash_attn_with_lse": m.depth * COG_STEPS})
+    _check_counts("CogVideoX-2b request", counts, {"flash_attn_with_lse": m.depth * COG_STEPS,
+                                                   WG["flash_attn_with_lse"]: m.depth * COG_STEPS})
     v32 = video.float()
     lo, hi, std = v32.min().item(), v32.max().item(), v32.std().item()
     if tuple(video.shape) != (1, 49, 480, 720, 3) or not bool(torch.isfinite(v32).all()) or lo < 0 or hi > 1 \
@@ -4063,7 +4138,7 @@ def check_image_kernels(flash, quant, codecs, rf, timing, dev, gen):
     for r in flash_rows:
         if "d88" in r["shape"]:
             said = r["ptxas"] or ""
-            if r["plan"][:2] != ["flash_reg_tile", 96] or "0 bytes spill stores" not in said:
+            if r["plan"][:2] != ["flash_wgmma_tile", 96] or "0 bytes spill stores" not in said:
                 raise AssertionError(f"{r['shape']}: plan {r['plan']}, ptxas {said}; DP 96 without spills expected")
     torch.cuda.empty_cache()
     window_rows, _ = check_window(flash, dev, gen, [
@@ -4079,8 +4154,8 @@ def check_image_kernels(flash, quant, codecs, rf, timing, dev, gen):
             quant_rows[codec].append(row)
     ring_rows = check_ring_flash(rf, flash, timing, dev, gen, image_ring_cases(gen, dev), phase=37)
     for r in ring_rows:
-        if "d88" in r["shape"] and r["plan"][:2] != ["flash_reg_tile", 96]:
-            raise AssertionError(f"{r['shape']}: plan {r['plan']}; the register body at DP 96 expected")
+        if "d88" in r["shape"] and r["plan"][:2] != ["flash_wgmma_tile", 96]:
+            raise AssertionError(f"{r['shape']}: plan {r['plan']}; the wgmma body at DP 96 expected")
     cring_rows = [check_compact_ring(rf, flash, timing, dev, gen, 2, 2, HY_IMG // 2, codec, -1, False, HY_HEADS,
                                      HY_HEAD_DIM, phase=37) for codec in ("binary", "int2")]
     cring_rows.append(check_compact_ring(rf, flash, timing, dev, gen, 2, 2, 2048, "binary", -1, False, phase=37))
@@ -4856,7 +4931,8 @@ def latte_phase(kernels, flash, timing, dev, gen):
         (f"Latte-1 spatial self-attn B32 H16 S{LATTE_FRAME} d72", lambda: _qkv_views(gen, dev, 32, LATTE_FRAME), 5,
          4)], phase=44)
     phases, runner, video = video_runner_phase(44, "latte-1", LATTE_ARGV, kernels,
-                                               {"flash_attn_with_lse": 28 * LATTE_STEPS + 1, WIDE: 1},
+                                               {"flash_attn_with_lse": 28 * LATTE_STEPS + 1, WIDE: 1,
+                                                WG["flash_attn_with_lse"]: 28 * LATTE_STEPS},
                                                (1, 16, 512, 512, 3))
     del runner
     return phases, rows, video
@@ -4904,7 +4980,8 @@ def consisid_phase(kernels, flash, quant, codecs, timing, dev, gen):
         held["ids"] = runner._encode_identity(face)
 
     phases, runner, _ = video_runner_phase(45, "consisid-preview", CON_ARGV + ["--img_file_path", face], kernels,
-                                        {"flash_attn_with_lse": 42 * CON_STEPS}, (1, 49, 480, 720, 3), setup)
+                                        {"flash_attn_with_lse": 42 * CON_STEPS, WG["flash_attn_with_lse"]: 42 * CON_STEPS},
+                                           (1, 49, 480, 720, 3), setup)
     ids = held["ids"]
     print(f"[45] face encoder (lfe_consisid, {_numel(lfe) / 1e6:.1f}M fp32 parameters, seeded) on the PNG's stand-in "
           f"features: (1, 32, 2048) identity tokens in {held['lfe_s']:.4f} s; the runner's identity tokens "
@@ -4969,7 +5046,8 @@ def hunyuanvideo_phase(kernels, flash, quant, codecs, rf, timing, dev, gen):
                                      HV_TXT + s_local, phase=46)]
     torch.cuda.empty_cache()
     phases, runner, _ = video_runner_phase(46, "hunyuanvideo-t2v", HV_ARGV, kernels,
-                                        {"flash_attn_with_lse": 60 * HV_STEPS + 9, WIDE: 9}, (1, 33, 544, 960, 3))
+                                        {"flash_attn_with_lse": 60 * HV_STEPS + 9, WIDE: 9,
+                                            WG["flash_attn_with_lse"]: 60 * HV_STEPS}, (1, 33, 544, 960, 3))
     del runner
     return phases, {"flash": flash_rows, "quant": quant_rows, "ring": ring_rows, "cring": cring_rows}
 
@@ -5323,7 +5401,8 @@ def stepvideo_phase(kernels, flash, quant, codecs, rf, timing, dev, gen):
     lat, total = _events_s(runner)
     peak = torch.cuda.max_memory_allocated() / 2**30
     counts = _counts(kernels)
-    _check_counts("[48] step-video-t2v", counts, {"flash_attn_with_lse": 48 * SV_STEPS})
+    _check_counts("[48] step-video-t2v", counts, {"flash_attn_with_lse": 48 * SV_STEPS,
+                                                  WG["flash_attn_with_lse"]: 48 * SV_STEPS})
     l32 = lat.float()
     std = l32.std().item()
     if tuple(lat.shape) != (1, SV_VIDEO, 64) or not bool(torch.isfinite(l32).all()) or std == 0.0:
@@ -5964,6 +6043,7 @@ def main():
     # -- 2. kernels vs twins ----------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
     flash_rows = check_flash(flash, timing, dev, gen)
+    flash_rows += check_flash(flash, timing, dev, gen, wgmma_edge_cases(gen, dev))
     window_rows, window_vs_full = check_window(flash, dev, gen)
     quant_rows = {
         "binary": [check_quant(quant, codecs, timing, dev, gen, "binary", r, torch.float32)
@@ -6088,6 +6168,7 @@ def main():
     mark("11")
     # -- 12. the ring kernels vs their twins, one rank's view ------------------
     ring_rows = check_ring_flash(ring_flash, flash, timing, dev, gen)
+    ring_rows += check_ring_flash(ring_flash, flash, timing, dev, gen, ring_edge_cases(gen, dev))
     cring_rows = [check_compact_ring(ring_flash, flash, timing, dev, gen, *case) for case in CRING_CASES]
 
     mark("12")
@@ -6433,9 +6514,12 @@ def main():
                 **{k: rows[0][k] for k in ("graph_ms", "bound_3xtf32_ms") if k in rows[0]}, **extra}
 
     report = {"kernels": [
-        flash_entry("flash_attn_with_lse", "compactfusion_tpu/ops/flash_pallas.py:593", flash_rows,
-                    launches_by_route={"register body (d <= 128)": totals["flash_attn_with_lse"] - totals[WIDE],
-                                       "wide body (d > 128)": totals[WIDE]},
+        flash_entry("flash_attn_with_lse", "compactfusion_tpu/ops/flash_pallas.py:593", flash_rows, "flash_wgmma.cu",
+                    launches_by_route={
+                        "wgmma body (bf16, d <= 128), csrc/flash_wgmma.cu": totals[WG["flash_attn_with_lse"]],
+                        "register body (d <= 128), csrc/flash_attn.cu":
+                            totals["flash_attn_with_lse"] - totals[WIDE] - totals[WG["flash_attn_with_lse"]],
+                        "wide body (d > 128), csrc/flash_wide.cu": totals[WIDE]},
                     launches_in_probes=phases["probes"]["launches_of_pipeline_kernels"]["flash_attn_with_lse"]),
         dict(quant_entry(quant_rows, totals, "binary", "quant", 118), launch_floor_ms=floor_ms),
         dict(quant_entry(quant_rows, totals, "binary", "dequant", 159), launch_floor_ms=floor_ms),
@@ -6444,9 +6528,10 @@ def main():
         flash_entry("flash_attn_window_with_lse", "compactfusion_tpu/ops/flash_pallas.py:508", window_rows,
                     ms_vs_full_kernel=window_vs_full),
         flash_entry("ring_flash_attn_with_lse", "compactfusion_tpu/ops/ring_flash_pallas.py:347", ring_rows,
-                    "ring_flash.cu"),
+                    "flash_wgmma.cu", launches_by_route=_ring_routes(totals, "ring_flash_attn_with_lse")),
         flash_entry("compact_ring_flash", "compactfusion_tpu/ops/ring_flash_pallas.py:954",
-                    [{k: v for k, v in r.items() if k != "ef"} for r in cring_rows], "ring_flash.cu"),
+                    [{k: v for k, v in r.items() if k != "ef"} for r in cring_rows], "flash_wgmma.cu",
+                    launches_by_route=_ring_routes(totals, "compact_ring_flash")),
         {"name": "ef_update_slot", "route": "cuda", "source": "compactfusion_tpu_torch/csrc/ring_flash.cu",
          "replaces": "compactfusion_tpu/ops/ring_flash_pallas.py:954", "launches": totals["ef_update_slot"],
          "max_abs_err": max(r["ef"]["max_abs_err"] for r in cring_rows), "library_ms": None,

@@ -2,7 +2,9 @@
 // math (fp32 in: the products in 3xTF32, flash_reg.cuh's note; the
 // *_f32_kernel instantiations):
 // full attention (flash_fwd_reg_kernel for head dims up to 128, on the
-// register body of flash_reg.cuh; the wide body of flash_wide.cuh above,
+// register body of flash_reg.cuh, which fp32 takes; bf16 takes the wgmma
+// body, flash_fwd_wgmma_kernel in flash_wgmma.cu; the wide body of
+// flash_wide.cuh above,
 // the register body split over warps by head-dim slices and above d = 512
 // over the CTAs of a cluster, launched from flash_wide.cu) and banded
 // attention |i - j| <= w (flash_window_reg_kernel on the register body up

@@ -1,10 +1,13 @@
-// The register-resident flash tile body for Hopper: kernel 1 (non-causal
-// attention with a natural-log LSE, head dims up to 128; csrc/flash_attn.cu;
-// wider heads take flash_wide.cuh, this body split over warps),
-// kernel 4 (the same, banded: BAND), kernel 7 (one ring hop folded into an
-// fp32 (m, l, acc) state; csrc/ring_flash.cu) and the flash partial of
-// kernel 8 (kernel 7's launch on the reconstructed K/V) run on it, and so
-// does the stage probe of kernel 1 (csrc/probes.cu).
+// The register-resident flash tile body (mma.sync, cp.async), head dims up
+// to 128 (wider heads take flash_wide.cuh, this body split over warps).
+// Which launches take it (ops/flash.py::flash_plan): kernel 4 (banded:
+// BAND) always; kernels 1 (non-causal attention with a natural-log LSE;
+// csrc/flash_attn.cu) and 7 (one ring hop folded into an fp32 (m, l, acc)
+// state; csrc/ring_flash.cu), and with 7 the flash partial of kernel 8, on
+// fp32 q/k/v, and on bf16 only for a launch with no key (their other bf16
+// launches take flash_wgmma.cuh's wgmma body); and the stage probe of
+// kernel 1 (csrc/probes.cu), which a tool may hold against kernel 1 on
+// this body's plan (flash_attn_with_lse's plan argument).
 //
 // Replaces: compactfusion_tpu/ops/flash_pallas.py::flash_attn_with_lse,
 // main branch (pallas_call at flash_pallas.py:593) and window= branch

@@ -33,10 +33,11 @@
 // Design:
 //  * kernel 7 is kernel 1's body with CARRY: one CTA per (q-tile, head,
 //    batch), the state of its rows loaded before and stored after the K/V
-//    loop.  Head dims up to 128 take the register body (flash_reg.cuh,
-//    ring_flash_hop_reg_kernel) with the tile height ops/flash.py::flash_plan
-//    picks (at ring 8, Sq = 128, shorter tiles fill the card), wider ones
-//    the wide body (flash_wide.cuh, ring_flash_hop_wide_kernel: the head dim
+//    loop.  Head dims up to 128 take, on bf16, the wgmma body
+//    (flash_wgmma.cuh, ring_flash_hop_wgmma_kernel in flash_wgmma.cu), and on
+//    fp32 the register body (flash_reg.cuh, ring_flash_hop_reg_kernel here),
+//    with the tile height ops/flash.py::flash_plan picks; wider ones the
+//    wide body (flash_wide.cuh, ring_flash_hop_wide_kernel: the head dim
 //    over warps, and above d = 512 over the CTAs of a cluster);
 //  * the EF pass is its own launch over tiles of 32 channels x 64 rows of
 //    the slot (K and V on the grid's z): hundreds of CTAs (1,152 at ring 2

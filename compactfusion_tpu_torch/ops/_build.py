@@ -27,8 +27,10 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 #: sources compiled as several objects, one ``nvcc -c`` per define, all in
 #: parallel: flash_attn.cu's full and banded kernels (its one object took 78
-#: of the build's 79 s on an H100 machine's 8 cores)
-PARTS = {"flash_attn.cu": ("-DCF_FLASH_PART=1", "-DCF_FLASH_PART=2")}
+#: of the build's 79 s on an H100 machine's 8 cores), and flash_wgmma.cu's
+#: kernel 1 and kernel 7
+PARTS = {"flash_attn.cu": ("-DCF_FLASH_PART=1", "-DCF_FLASH_PART=2"),
+         "flash_wgmma.cu": ("-DCF_WG_PART=1", "-DCF_WG_PART=2")}
 
 #: seconds the last build took (0.0 when the library was already built)
 last_build_seconds = 0.0
@@ -147,6 +149,33 @@ def _declare(lib: ctypes.CDLL) -> None:
         P,                # stream
     ]
     lib.cf_flash_attn_window.restype = I
+    lib.cf_tma_map.argtypes = [
+        P, P,             # the map (128 bytes, written), the view's first element
+        L, L, L, L,       # dims (D, S, H, B) in elements
+        L, L, L,          # byte strides of S, H, B
+        I, I, I,          # box columns, box rows, swizzle bytes (ops/flash.py::tma_view)
+    ]
+    lib.cf_tma_map.restype = I
+    lib.cf_flash_wgmma.argtypes = [
+        P, P, P, P, P, P,  # the maps of q, k, v (cf_tma_map): 64-column boxes, the tail's or NULL
+        P, P, P,          # out (B,Sq,H,D) contiguous, lse (B,H,Sq), kv_lens or NULL
+        I, I, I, I, I,    # B, Sq, Sk, H, D
+        F,                # softmax scale
+        I, I,             # plan: padded head dim, consumer warps per CTA (ops/flash.py)
+        P,                # stream
+    ]
+    lib.cf_flash_wgmma.restype = I
+    lib.cf_ring_flash_hop_wgmma.argtypes = [
+        P, P, P, P, P, P,  # the maps of q, k, v (cf_tma_map): 64-column boxes, the tail's or NULL
+        P, P, P,          # running state m, l (B,H,Sq), acc (B,H,Sq,D) fp32
+        P, P,             # out (B,Sq,H,D) contiguous, lse (B,H,Sq)
+        I, I, I, I, I,    # B, Sq, Sk, H, D
+        F,                # softmax scale
+        I, I,             # first hop, last hop
+        I, I,             # plan: padded head dim, consumer warps per CTA
+        P,                # stream
+    ]
+    lib.cf_ring_flash_hop_wgmma.restype = I
     for codec in ("binary", "int2"):
         quant, dequant = getattr(lib, f"cf_{codec}_quant"), getattr(lib, f"cf_{codec}_dequant")
         quant.argtypes = [

@@ -7,9 +7,11 @@ kernels are in ``csrc/flash_attn.cu``.  On a CUDA tensor a wrapper launches
 its kernel or raises; on a CPU tensor it runs its twin.  The kernels take
 bf16 or fp32 q/k/v, as the Pallas kernels take the input dtype: fp32 runs
 every body in 3xTF32 (``csrc/flash_reg.cuh``).  Head dims up to 128 take
-the register body, wider ones (up to :data:`WIDE_MAX_D`) the wide body,
-which splits the head dim over warps and, above d = 512, over the CTAs of
-a cluster (``csrc/flash_wide.cuh``).
+the wgmma body (``csrc/flash_wgmma.cuh``: kernels 1, 7 and 8's flash
+partial on bf16) or the register body (kernel 4 and every fp32 launch),
+wider ones (up to :data:`WIDE_MAX_D`) the wide body, which splits the head
+dim over warps and, above d = 512, over the CTAs of a cluster
+(``csrc/flash_wide.cuh``).
 
 Which body, padded head dim and tile height a launch takes is decided here,
 before the launch, by :func:`flash_plan` (so the CPU tests see it), and the C
@@ -41,10 +43,13 @@ REG_BK = 64
 WIDE_BK = 32
 
 #: the tile bodies a plan names, numbered as the C entry points take them:
-#: ``flash_reg.cuh::flash_reg_tile`` (register fragments) and
+#: ``flash_reg.cuh::flash_reg_tile`` (register fragments),
 #: ``flash_wide.cuh::flash_wide_tile`` (register fragments, the head dim
-#: split over warps and, above d = 512, over the CTAs of a cluster)
-BODIES = {"flash_reg_tile": 1, "flash_wide_tile": 2}
+#: split over warps and, above d = 512, over the CTAs of a cluster) and
+#: ``flash_wgmma.cuh::flash_wgmma_tile`` (wgmma, TMA and a producer
+#: warpgroup; its own entry points, ``cf_flash_wgmma`` and
+#: ``cf_ring_flash_hop_wgmma``)
+BODIES = {"flash_reg_tile": 1, "flash_wide_tile": 2, "flash_wgmma_tile": 3}
 #: padded head dims of the register body
 REG_DPS = (64, 80, 96, 128)
 #: warps per CTA of the register body (16 query rows each), tried in this
@@ -56,6 +61,18 @@ MIN_CTAS = 128
 #: (dp, warps) the register kernels are built for: ``CF_REG_PLANS`` in
 #: ``csrc/flash_reg.cuh``, which lists every plan and nothing else
 REG_BUILT = frozenset((dp, w) for dp in REG_DPS for w in REG_WARPS)
+#: the kernels that take the wgmma body on bf16 q/k/v at d <= 128: kernel 1
+#: and kernel 7 (kernel 8's flash partial is kernel 7's hop); kernel 4
+#: keeps the register body
+WG_KERNELS = frozenset((1, 7))
+#: keys per K/V tile of the wgmma body (``kWgBK`` in ``csrc/flash_wgmma.cuh``)
+WG_BK = 128
+#: consumer warps per CTA of the wgmma body (16 query rows each, a
+#: warpgroup per 64 rows): 128-row and 64-row tiles (:func:`flash_plan`)
+WG_WARPS = (8, 4)
+#: (dp, warps) the wgmma kernels are built for: ``CF_WG_PLANS`` in
+#: ``csrc/flash_wgmma.cuh``, which lists every plan and nothing else
+WG_BUILT = frozenset((dp, w) for dp in REG_DPS for w in WG_WARPS)
 #: widest head-dim slice one warp of the wide body holds
 WIDE_SLICE = 128
 #: widest padded head dim one CTA of the wide body holds (``kWidePart`` in
@@ -128,6 +145,25 @@ def reg_layout(dp: int, warps: int, elem: int = 2) -> dict:
             "bytes": q_bytes + stages * 2 * tile_bytes}
 
 
+def wgmma_layout(dp: int, warps: int) -> dict:
+    """The shared memory of one wgmma-body CTA of ``warps`` consumer warps, as
+    ``WgLayout<dp, warps>`` in ``csrc/flash_wgmma.cuh`` lays it out from a
+    1024-byte aligned base: the Q tile (16 * warps rows), ``stages`` stages
+    of a K and a V tile of :data:`WG_BK` keys, each ``wide`` blocks of 64
+    columns (128-byte swizzle) and a block of ``tail`` columns (0, 16 or 32:
+    32- or 64-byte swizzle), so d 72 and 88 stay at 80 and 96 columns, not
+    128; then the barriers; up to 4 stages, and with one consumer warpgroup
+    room for two CTAs an SM where two of 2 stages fit (``two_ctas``);
+    ``bytes`` in all, the alignment slack included."""
+    q_bytes, tile_bytes = 16 * warps * dp * 2, WG_BK * dp * 2
+    fixed = q_bytes + 1024 + 256
+    two_ctas = warps == 4 and 2 * (fixed + 2 * 2 * tile_bytes + 1024) <= 228 * 1024
+    room = 228 * 1024 // 2 - 1024 if two_ctas else SMEM_MAX
+    stages = min(4, (room - fixed) // (2 * tile_bytes))
+    return {"wide": dp // 64, "tail": dp % 64, "q_bytes": q_bytes, "tile_bytes": tile_bytes,
+            "two_ctas": two_ctas, "stages": stages, "bytes": fixed + stages * 2 * tile_bytes}
+
+
 def wide_layout(dp: int, warps: int, elem: int = 2, split: bool = False) -> dict:
     """The shared memory of one wide-body CTA holding ``dp`` columns, as
     ``WideLayout<dp, warps, elem, split>`` in ``csrc/flash_wide.cuh`` lays it
@@ -149,13 +185,33 @@ def wide_layout(dp: int, warps: int, elem: int = 2, split: bool = False) -> dict
             "two_ctas": bool(two_ctas), "stages": stages, "bytes": q_bytes + stages * 2 * tile_bytes + xch_bytes}
 
 
-def flash_plan(b: int, h: int, sq: int, d: int, elem: int = 2) -> Tuple[str, int, int]:
+def flash_plan(b: int, h: int, sq: int, d: int, elem: int = 2, kernel: Optional[int] = None) -> Tuple[str, int, int]:
     """(body, padded head dim, warps per CTA) of a flash launch of ``b``
     batches, ``h`` heads and ``sq`` queries of head dim ``d`` in ``elem``-byte
-    elements (2: bf16, 4: fp32); kernels 1, 4, 7 and 8's flash partial take
-    the same rule.
+    elements (2: bf16, 4: fp32) for ``kernel`` (1, 4 or 7; kernel 8's flash
+    partial asks as 7; None: the register and wide bodies' rule, which
+    kernel 4, every fp32 launch and the stage probe take).
 
-    Up to d = 128 the register body at the smallest of :data:`REG_DPS` that
+    Kernels 1 and 7 (:data:`WG_KERNELS`) on bf16 up to d = 128 take the
+    wgmma body (``csrc/flash_wgmma.cuh``) at the register body's padded head
+    dim, ``warps`` its consumer warps: 128-row tiles (8 warps, two consumer
+    warpgroups sharing each K/V tile and taking turns at the tensor cores)
+    where they give :data:`MIN_CTAS` CTAs, else 64-row tiles (4 warps, one
+    warpgroup), however few CTAs those give.  On an H100 by CUDA graphs
+    (``tools/time_flash.py --reg --sweep``, ``PERF.md`` §6), 128-row
+    against 64-row tiles: FLUX's self-attention 0.4258 against 0.6071 ms,
+    HunyuanDiT 0.4174 against 0.7689, PixArt-alpha 0.0332 against 0.0441,
+    PixArt's ring-2 hop at B2 (128 CTAs) 0.0232 against 0.0300; with fewer
+    than 128 CTAs 64-row tiles win: the ring-2 hop at B1 0.0167 against
+    0.0196, a ring-8 hop (64 CTAs) 0.0343 against 0.0427, where the
+    register body's 128 CTAs took 0.0560.  At DP 64 the two heights are
+    close and split both ways (SD3 0.5524 against 0.5065, CogVideoX 10.64
+    against 11.01), and the rule keeps one.  A row's result does not depend
+    on the tile height, so cfg halves, Ulysses heads and ring shards stay
+    bit-equal to the whole launch.
+
+    Otherwise up to d = 128 (kernel 4, fp32, a launch with no key, the
+    stage probe) the register body at the smallest of :data:`REG_DPS` that
     holds d rounded up to 16 (d=72 -> 80), with the tallest tile of
     :data:`REG_WARPS` that still gives :data:`MIN_CTAS` CTAs: 128-row tiles
     (8 warps) for PixArt's self-attention (256 CTAs; 8% faster than 4 warps
@@ -195,6 +251,11 @@ def flash_plan(b: int, h: int, sq: int, d: int, elem: int = 2) -> Tuple[str, int
                          f"columns), got {d} ({ROADMAP_HINT})")
     if d <= REG_DPS[-1]:
         dp = next(p for p in REG_DPS if p >= _round_up(d, 16))
+        if elem == 2 and kernel in WG_KERNELS:
+            tall = b * h * math.ceil(sq / (16 * WG_WARPS[0])) >= MIN_CTAS
+            warps = WG_WARPS[0] if tall else WG_WARPS[-1]
+            assert wgmma_layout(dp, warps)["bytes"] <= SMEM_MAX
+            return "flash_wgmma_tile", dp, warps
         for warps in REG_WARPS:
             if b * h * math.ceil(sq / (16 * warps)) >= MIN_CTAS:
                 break
@@ -207,8 +268,9 @@ def flash_plan(b: int, h: int, sq: int, d: int, elem: int = 2) -> Tuple[str, int
 
 
 def plan_rows(plan: Tuple[str, int, int]) -> int:
-    """Query rows per CTA of a plan: 16 a warp, or, on the wide body, 16 a
-    row group of one warp per head-dim slice."""
+    """Query rows per CTA of a plan: 16 a warp (on the wgmma body a consumer
+    warp), or, on the wide body, 16 a row group of one warp per head-dim
+    slice."""
     body, dp, warps = plan
     return 16 * warps // (wide_slices(dp) if body == "flash_wide_tile" else 1)
 
@@ -292,10 +354,60 @@ def _check_qkv(q, k, v) -> None:
     _check_kv(q, k, v)
 
 
-def launch_plan(b: int, h: int, sq: int, d: int, dtype: torch.dtype):
-    """(:func:`flash_plan` of a launch on ``dtype`` q/k/v, whether it is
-    fp32)."""
-    return flash_plan(b, h, sq, d, elem=elem_size(dtype)), dtype == torch.float32
+def launch_plan(b: int, h: int, sq: int, d: int, dtype: torch.dtype, kernel: Optional[int] = None):
+    """(:func:`flash_plan` of a launch of ``kernel`` on ``dtype`` q/k/v,
+    whether it is fp32)."""
+    return flash_plan(b, h, sq, d, elem=elem_size(dtype), kernel=kernel), dtype == torch.float32
+
+
+def tma_view(name: str, t: torch.Tensor, dp: int, rows: int) -> dict:
+    """The TMA tensor maps through which the wgmma body reads a bf16 (B, S,
+    H, D) view ``t`` (``name``: q, k or v) in tiles of ``rows`` rows at
+    padded head dim ``dp``, as ``cf_tma_map`` in ``csrc/flash_wgmma.cu``
+    takes each: ``dims`` (D, S, H, B) in elements (S at least 1),
+    ``strides`` the byte strides of S, H and B, and per map (the 64-column
+    blocks', then at DP 80 and 96 the tail block's) its ``boxes`` (columns,
+    rows, 1, 1) and ``swizzles`` (bytes: two per column).  Columns D..dp-1
+    and rows past S read as zeros.  Raises on a view TMA cannot read (the
+    kernels' contract: a unit head-dim stride, 16-byte multiples of the
+    other strides and of the start)."""
+    _check_bshd(name, t, t.shape[-1])
+    b, s, h, d = t.shape
+    e, widths = t.element_size(), (64,) + ((dp % 64,) if dp % 64 else ())
+    return {"dims": (d, max(s, 1), h, b), "strides": (t.stride(1) * e, t.stride(2) * e, t.stride(0) * e),
+            "boxes": tuple((w, rows, 1, 1) for w in widths), "swizzles": tuple(2 * w for w in widths)}
+
+
+#: encoded tensor maps by (device, address, shape, strides, dp, rows): a map
+#: holds no data, so a view of the same geometry at a recycled address takes
+#: the map encoded for it before (a model's loop gets the same addresses from
+#: the caching allocator step after step); emptied at TMA_CACHE_MAX entries
+_TMA_MAPS: dict = {}
+TMA_CACHE_MAX = 4096
+
+
+def tma_map(lib, name: str, t: torch.Tensor, dp: int, rows: int) -> tuple:
+    """The encoded TMA tensor maps of :func:`tma_view` (128-byte buffers, as
+    the wgmma entry points take them: the 64-column boxes', then the
+    tail's or None), from :data:`_TMA_MAPS` where they were encoded
+    before."""
+    key = (t.get_device(), t.data_ptr(), t.shape, t.stride(), dp, rows)
+    maps = _TMA_MAPS.get(key)
+    if maps is None:
+        from compactfusion_tpu_torch.ops import _build
+
+        view = tma_view(name, t, dp, rows)
+        maps = []
+        for box, swizzle in zip(view["boxes"], view["swizzles"]):
+            buf = ctypes.create_string_buffer(128)
+            status = lib.cf_tma_map(buf, t.data_ptr(), *view["dims"], *view["strides"], *box[:2], swizzle)
+            _build.check(status, f"TMA tensor map of {name} {tuple(t.shape)} strides {t.stride()}")
+            maps.append(buf)
+        maps = (maps[0], maps[1] if len(maps) > 1 else None)
+        if len(_TMA_MAPS) >= TMA_CACHE_MAX:
+            _TMA_MAPS.clear()
+        _TMA_MAPS[key] = maps
+    return maps
 
 
 def flash_attn_with_lse(
@@ -305,12 +417,18 @@ def flash_attn_with_lse(
     scale: Optional[float] = None,
     kv_lens: Optional[torch.Tensor] = None,
     window: Optional[int] = None,
+    plan: Optional[Tuple[str, int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q (B, Sq, H, D), k/v (B, Sk, H, D), bf16 or fp32 -> out (B, Sq, H, D)
     in q.dtype and lse (B, H, Sq) fp32.  ``kv_lens`` (B,) int: per-batch
     valid key prefix.
     ``window``: banded attention |i - j| <= window, delegated to
-    :func:`flash_attn_window_with_lse` (Sq == Sk, no ``kv_lens``)."""
+    :func:`flash_attn_window_with_lse` (Sq == Sk, no ``kv_lens``).
+    ``plan``: a plan of :func:`flash_plan` to launch instead of kernel 1's
+    own, for tools and probes that hold or time one body against another
+    (the stage probe's register body); the model path never passes one.
+    A launch with no key (Sk = 0) takes the register body: a tensor map
+    cannot describe an empty tensor."""
     if window is not None:
         if kv_lens is not None:
             raise ValueError("flash kernel: window excludes kv_lens masking")
@@ -332,30 +450,44 @@ def flash_attn_with_lse(
     if scale is None:
         scale = d**-0.5
 
-    plan, f32 = launch_plan(b, h, sq, d, q.dtype)
+    f32 = q.dtype == torch.float32
+    if plan is None:
+        plan, _ = launch_plan(b, h, sq, d, q.dtype, kernel=1 if sk else None)
+    elif plan[0] == "flash_wgmma_tile" and f32:
+        raise ValueError("flash kernel: the wgmma body takes bf16 q/k/v")
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = _build.load()
-    status = lib.cf_flash_attn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        out.data_ptr(), lse.data_ptr(), lens_ptr,
-        b, sq, sk, h, d, ctypes.c_float(scale), *plan_args(plan), int(f32),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if plan[0] == "flash_wgmma_tile":
+        _, dp, warps = plan
+        status = lib.cf_flash_wgmma(
+            *tma_map(lib, "q", q, dp, plan_rows(plan)), *tma_map(lib, "k", k, dp, WG_BK), *tma_map(lib, "v", v, dp, WG_BK),
+            out.data_ptr(), lse.data_ptr(), lens_ptr, b, sq, sk, h, d, ctypes.c_float(scale), dp, warps, stream,
+        )
+    else:
+        status = lib.cf_flash_attn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            out.data_ptr(), lse.data_ptr(), lens_ptr,
+            b, sq, sk, h, d, ctypes.c_float(scale), *plan_args(plan), int(f32), stream,
+        )
     _build.check(status, "flash_attn_with_lse")
     wide = plan[0] == "flash_wide_tile"
     flash_attn_with_lse.launches += 1
     flash_attn_with_lse.wide_launches += wide
+    flash_attn_with_lse.wgmma_launches += plan[0] == "flash_wgmma_tile"
     flash_attn_with_lse.f32_launches += f32
     flash_attn_with_lse.f32_wide_launches += f32 and wide
     return out, lse
 
 
 #: kernel launches since the count was last set to 0, those of them on the
-#: wide body, on fp32 q/k/v, and on fp32 q/k/v on the wide body
+#: wide body, on the wgmma body, on fp32 q/k/v, and on fp32 q/k/v on the
+#: wide body
 flash_attn_with_lse.launches = 0
 flash_attn_with_lse.wide_launches = 0
+flash_attn_with_lse.wgmma_launches = 0
 flash_attn_with_lse.f32_launches = 0
 flash_attn_with_lse.f32_wide_launches = 0
 

@@ -52,6 +52,30 @@ def _attn_partial(q, k, v, scale):
     return _attn_math(q, k, v, scale, False, None, None)
 
 
+def _hop(lib, plan, q, q_map, k, v, state, scale, first, last, f32, stream) -> Tuple[int, bool]:
+    """One launch of kernel 7's hop of q against k/v at ``plan`` (the wgmma
+    body's through ``q_map``, q's tensor map encoded once a call; a hop with
+    no key takes the register body: a tensor map cannot describe an empty
+    tensor), folded into ``state`` (m, l, acc, out, lse pointers); returns
+    the C status and whether it ran on the wgmma body."""
+    from compactfusion_tpu_torch.ops.flash import WG_BK, launch_plan, plan_args, tma_map
+
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if plan[0] == "flash_wgmma_tile" and sk:
+        _, dp, warps = plan
+        return lib.cf_ring_flash_hop_wgmma(
+            *q_map, *tma_map(lib, "k", k, dp, WG_BK), *tma_map(lib, "v", v, dp, WG_BK), *state,
+            b, sq, sk, h, d, scale, int(first), int(last), dp, warps, stream,
+        ), True
+    if plan[0] == "flash_wgmma_tile":
+        plan, _ = launch_plan(b, h, sq, d, q.dtype)
+    return lib.cf_ring_flash_hop(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *state, b, sq, sk, h, d, scale, int(first), int(last), *plan_args(plan), int(f32), stream,
+    ), False
+
+
 # -- kernel 7: the uncompressed ring --------------------------------------------
 
 
@@ -77,20 +101,20 @@ def ring_flash_attn_with_lse(q: torch.Tensor, kv_blocks: Iterable, ring_size: in
     the local shard first.  A row with no key gives 0 and LSE -inf.
 
     On CUDA tensors: one launch per hop with ``ops.flash.flash_plan``'s
-    plan; q and the state are checked once per call, each hop's k/v as it
+    plan for kernel 7; q and the state are checked once per call (on the
+    wgmma body q's tensor map is encoded once), each hop's k/v as it
     comes."""
     if not q.is_cuda:
         return ring_flash_attn_with_lse_ref(q, kv_blocks, ring_size, scale)
 
     from compactfusion_tpu_torch.ops import _build
-    from compactfusion_tpu_torch.ops.flash import _check_kv, _check_q, launch_plan, plan_args
+    from compactfusion_tpu_torch.ops.flash import _check_kv, _check_q, launch_plan, plan_rows, tma_map
 
     _check_q(q)
     b, sq, h, d = q.shape
     if scale is None:
         scale = d**-0.5
-    plan, f32 = launch_plan(b, h, sq, d, q.dtype)
-    plan = plan_args(plan)
+    plan, f32 = launch_plan(b, h, sq, d, q.dtype, kernel=7)
     m = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     acc = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
@@ -98,7 +122,7 @@ def ring_flash_attn_with_lse(q: torch.Tensor, kv_blocks: Iterable, ring_size: in
     lse = torch.empty_like(m)
     lib = _build.load()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    fixed = (q.data_ptr(), *q.stride()[:3])
+    q_map = tma_map(lib, "q", q, plan[1], plan_rows(plan)) if plan[0] == "flash_wgmma_tile" else None
     state = (m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(), lse.data_ptr())
     c_scale = ctypes.c_float(scale)
     hops = 0
@@ -106,13 +130,10 @@ def ring_flash_attn_with_lse(q: torch.Tensor, kv_blocks: Iterable, ring_size: in
         if hops >= ring_size:
             raise ValueError(f"ring of {ring_size} got more hops")
         _check_kv(q, k, v)
-        status = lib.cf_ring_flash_hop(
-            fixed[0], k.data_ptr(), v.data_ptr(), *fixed[1:], *k.stride()[:3], *v.stride()[:3],
-            *state, b, sq, k.shape[1], h, d, c_scale,
-            int(hops == 0), int(hops == ring_size - 1), *plan, int(f32), stream,
-        )
+        status, wg = _hop(lib, plan, q, q_map, k, v, state, c_scale, hops == 0, hops == ring_size - 1, f32, stream)
         _build.check(status, "ring_flash_attn_with_lse")
         ring_flash_attn_with_lse.launches += 1
+        ring_flash_attn_with_lse.wgmma_launches += wg
         ring_flash_attn_with_lse.f32_launches += f32
         hops += 1
     if hops != ring_size:
@@ -120,9 +141,10 @@ def ring_flash_attn_with_lse(q: torch.Tensor, kv_blocks: Iterable, ring_size: in
     return out, lse
 
 
-#: kernel launches (one per hop) since the count was last set to 0, and
-#: those of them on fp32 q/k/v
+#: kernel launches (one per hop) since the count was last set to 0, those of
+#: them on the wgmma body, and those on fp32 q/k/v
 ring_flash_attn_with_lse.launches = 0
+ring_flash_attn_with_lse.wgmma_launches = 0
 ring_flash_attn_with_lse.f32_launches = 0
 
 
@@ -444,7 +466,8 @@ def compact_ring_flash(q, k, v, k_base, v_base, payloads: Iterable, *, codec: st
     the requant runs over the slot's N = Sk rows); ``payloads`` yields
     ``ring_size`` payload tuples of :func:`fused_ring_payload`, the own
     first.  Returns (out (B, S, H, D), lse (B, H, S) fp32).
-    ``compact_ring_flash.launches`` counts the flash launches (one per hop),
+    ``compact_ring_flash.launches`` counts the flash launches (one per hop;
+    ``wgmma_launches`` those on the wgmma body),
     ``ef_update_slot.launches`` the EF pass's."""
     if codec not in FUSED_CODECS:
         raise ValueError(f"fused ring codec must be one of {FUSED_CODECS}, got {codec!r}")
@@ -456,7 +479,7 @@ def compact_ring_flash(q, k, v, k_base, v_base, payloads: Iterable, *, codec: st
                                       ring_size=ring_size, scale=scale)
 
     from compactfusion_tpu_torch.ops import _build
-    from compactfusion_tpu_torch.ops.flash import _check_qkv, launch_plan, plan_args
+    from compactfusion_tpu_torch.ops.flash import _check_qkv, launch_plan, plan_rows, tma_map
 
     _check_qkv(q, k, v)
     b, sq, h, d = q.shape
@@ -466,8 +489,7 @@ def compact_ring_flash(q, k, v, k_base, v_base, payloads: Iterable, *, codec: st
     _check_base("v", v_base, ring_size, n, c, quantized)
     if scale is None:
         scale = d**-0.5
-    plan, f32 = launch_plan(b, h, sq, d, q.dtype)
-    plan = plan_args(plan)
+    plan, f32 = launch_plan(b, h, sq, d, q.dtype, kernel=7)
     m = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     acc = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
@@ -478,6 +500,7 @@ def compact_ring_flash(q, k, v, k_base, v_base, payloads: Iterable, *, codec: st
     scratch = _ef_scratch(quantized, n, c, q.device)
     lib = _build.load()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    q_map = tma_map(lib, "q", q, plan[1], plan_rows(plan)) if plan[0] == "flash_wgmma_tile" else None
     state = (m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(), lse.data_ptr())
     c_scale = ctypes.c_float(scale)
     hops = 0
@@ -488,14 +511,10 @@ def compact_ring_flash(q, k, v, k_base, v_base, payloads: Iterable, *, codec: st
                    _check_payload(codec, payload, b, sk, h, d), (b, sk, h, d), rec if hops else None,
                    scratch, stream, q.dtype)
         kk, vv = rec if hops else (k, v)
-        status = lib.cf_ring_flash_hop(
-            q.data_ptr(), kk.data_ptr(), vv.data_ptr(),
-            *q.stride()[:3], *kk.stride()[:3], *vv.stride()[:3],
-            *state, b, sq, sk, h, d, c_scale,
-            int(hops == 0), int(hops == ring_size - 1), *plan, int(f32), stream,
-        )
+        status, wg = _hop(lib, plan, q, q_map, kk, vv, state, c_scale, hops == 0, hops == ring_size - 1, f32, stream)
         _build.check(status, "compact_ring_flash")
         compact_ring_flash.launches += 1
+        compact_ring_flash.wgmma_launches += wg
         compact_ring_flash.f32_launches += f32
         hops += 1
     if hops != ring_size:
@@ -503,8 +522,9 @@ def compact_ring_flash(q, k, v, k_base, v_base, payloads: Iterable, *, codec: st
     return out, lse
 
 
-#: flash launches (one per hop) since the count was last set to 0, and those
-#: of them on fp32 q/k/v; the EF pass counts its own in
-#: ``ef_update_slot.launches``
+#: flash launches (one per hop) since the count was last set to 0, those of
+#: them on the wgmma body, and those on fp32 q/k/v; the EF pass counts its
+#: own in ``ef_update_slot.launches``
 compact_ring_flash.launches = 0
+compact_ring_flash.wgmma_launches = 0
 compact_ring_flash.f32_launches = 0

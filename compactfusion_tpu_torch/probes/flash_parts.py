@@ -11,8 +11,10 @@ names on; its delta against ``full`` is what the missing stage costs:
 * ``no_scale``, ``no_max``, ``no_exp``, ``no_qk``, ``no_av`` — one stage
   off (``ops/probes.py`` says what stands in for it);
 * ``matmuls_only`` — the two products alone;
-* ``real`` — ``ops.flash.flash_attn_with_lse``, kernel 1 as the pipeline
-  calls it (with its LSE);
+* ``real`` — ``ops.flash.flash_attn_with_lse``, kernel 1 with its LSE, on
+  the register-body plan the probe is built from (``ops/probes.py::PLAN``;
+  the pipeline's bf16 launches take the wgmma body, ``csrc/flash_wgmma.cuh``,
+  which this probe does not take apart);
 * ``sdpa`` — one ``scaled_dot_product_attention`` call (cuDNN on an H100):
   the yardstick, never on the pipeline's path.
 
@@ -76,7 +78,7 @@ def make_inputs(generator: torch.Generator, b=B, h=H, s=S, d=D):
 def call(name: str, q, k, v):
     """A no-argument call of variant ``name`` on the (B, S, H, D) views."""
     if name == "real":
-        return lambda: ops_flash.flash_attn_with_lse(q, k, v)[0]
+        return lambda: ops_flash.flash_attn_with_lse(q, k, v, plan=ops_probes.PLAN)[0]
     if name == "sdpa":
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         return lambda: F.scaled_dot_product_attention(qt, kt, vt).transpose(1, 2)

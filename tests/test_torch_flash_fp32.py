@@ -111,11 +111,15 @@ def test_fp32_flash_tile_raises_not_implemented():
     assert tflash.launch_plan(1, 1, 4096, 512, torch.float32) == (("flash_wide_tile", 512, 8), True)
     src = (REPO / "compactfusion_tpu_torch" / "ops" / "flash.py").read_text()
     assert "NotImplementedError" not in src
-    assert src.count("launch_plan(b, h, sq, d, q.dtype)") == 1
+    # kernel 1 and the ring hops name their kernel, whose bf16 launches up to
+    # d = 128 take the wgmma body; fp32 takes the rule without it
+    assert src.count("launch_plan(b, h, sq, d, q.dtype, kernel=1 if sk else None)") == 1
     assert src.count("launch_plan(b, h, s, d, q.dtype)") == 1
     ring = (REPO / "compactfusion_tpu_torch" / "ops" / "ring_flash.py").read_text()
-    assert ring.count("launch_plan(b, h, sq, d, q.dtype)") == 2
+    assert ring.count("launch_plan(b, h, sq, d, q.dtype, kernel=7)") == 2
     assert "flash_plan(" not in ring
+    for d in (72, 128):
+        assert tflash.launch_plan(1, 1, 4096, d, torch.float32, kernel=7)[0][0] == "flash_reg_tile"
     for cu in ("flash_attn.cu", "ring_flash.cu"):
         assert "flash_tile is bf16's" not in (REPO / "compactfusion_tpu_torch" / "csrc" / cu).read_text()
 

@@ -140,7 +140,11 @@ def test_banded_attention_keeps_the_shared_memory_body(d):
     window = src[src.index("def flash_attn_window_with_lse("):]
     assert "launch_plan(b, h, s, d, q.dtype)" in window
     ring = (REPO / "compactfusion_tpu_torch" / "ops" / "ring_flash.py").read_text()
-    assert ring.count("launch_plan(b, h, sq, d, q.dtype)") == 2
+    # the ring hops ask as kernel 7, whose bf16 launches up to d=128 take the
+    # wgmma body (tests/test_torch_flash_wgmma_plan.py); fp32 keeps this rule
+    assert ring.count("launch_plan(b, h, sq, d, q.dtype, kernel=7)") == 2
+    for d1 in (64, 72):
+        assert flash.flash_plan(2, 16, 1024, d1, elem=4, kernel=7)[0] == "flash_reg_tile"
     assert "wide=" not in src + ring
 
 
@@ -275,40 +279,46 @@ BEFORE = {"flash_fwd_kernel<2, 32>": (40, "b"), "flash_window_kernel<4, 64>": (6
           "binary_quant_vec_kernel<float, float>": (64, "t"),
           "binary_dequant_vec_kernel<float, 1>": (56, "v"), "int2_dequant_vec_kernel<float, 1>": (40, "w"),
           "int2_quant_vec_kernel<float, float, 1>": (48, "x"), "empty_kernel": (8, "u")}
+#: the wide body's banded, ring and split kernels, which the parent added
+WIDE_NEW = {"flash_window_wide_kernel<256, 4>": (174, "y1"), "ring_flash_hop_wide_kernel<256, 4>": (176, "y2"),
+            "flash_fwd_wide_split_kernel<512, 8>": (233, "y3"), "flash_window_wide_f32_kernel<256, 4>": (164, "y4"),
+            "ring_flash_hop_wide_f32_kernel<256, 4>": (191, "y5"),
+            "flash_fwd_wide_split_f32_kernel<512, 8>": (156, "y6")}
 #: the shared-memory body's kernels, which the wide body's took the place of
 REDESIGNED = {k for k in BEFORE if re.match(r"(flash_fwd|flash_window|ring_flash_hop)(_f32)?_kernel<", k)}
-NEW = {"flash_window_wide_kernel<256, 4>": (174, "y1"), "ring_flash_hop_wide_kernel<256, 4>": (176, "y2"),
-       "flash_fwd_wide_split_kernel<512, 8>": (233, "y3"), "flash_window_wide_f32_kernel<256, 4>": (164, "y4"),
-       "ring_flash_hop_wide_f32_kernel<256, 4>": (191, "y5"), "flash_fwd_wide_split_f32_kernel<512, 8>": (156, "y6")}
+#: the parent of the wgmma body: the register, wide and split kernels
+PARENT = {k: v for k, v in BEFORE.items() if k not in REDESIGNED} | WIDE_NEW
+#: the wgmma body's kernels, new on this side
+NEW = {"flash_fwd_wgmma_kernel<128, 8>": (168, "z1"), "flash_fwd_wgmma_kernel<64, 4>": (128, "z2"),
+       "ring_flash_hop_wgmma_kernel<128, 8>": (168, "z3"), "ring_flash_hop_wgmma_kernel<80, 4>": (128, "z4")}
 
 
 def test_compare_tool_passes_when_only_redesigned_kernels_differ():
-    """The shared-memory body's kernels may go and the wide body's banded,
-    ring and split kernels come; every other kernel the parent built
-    (every register-body and kernel-1 wide-body kernel in bf16 and fp32,
-    the EF pass, the probes, every quant and dequant kernel, INT2 quant's
-    two among them) must stay as it was, and a change to any of them
-    fails."""
+    """The wgmma body's kernels may come; every other kernel the parent
+    built (every register-body and wide-body kernel in bf16 and fp32, the
+    wide body's banded, ring and split kernels among them, the EF pass, the
+    probes, every quant and dequant kernel, INT2 quant's two among them)
+    must stay as it was, and a change to any of them fails."""
     tool = _compare_tool()
-    after = {k: v for k, v in BEFORE.items() if k not in REDESIGNED} | NEW
-    ok, report = tool.verdict(_build(after), _build(BEFORE))
+    after = PARENT | NEW
+    ok, report = tool.verdict(_build(after), _build(PARENT))
     assert len(REDESIGNED) == 7 and ok and report["unmatched"] == []
     kernels = report["kernels"]
     for label in ("flash_fwd_reg_kernel<80, 8>", "flash_window_reg_kernel<80, 8>", "flash_fwd_wide_kernel<512, 8>",
                   "flash_fwd_reg_f32_kernel<80, 8>", "flash_window_reg_f32_kernel<80, 8>",
                   "ring_flash_hop_reg_f32_kernel<80, 2>", "flash_fwd_wide_f32_kernel<512, 8>",
-                  "ef_update_fp32_kernel", "ef_codes_int8_kernel", "ef_update_fp32_f32rec_kernel",
+                  *WIDE_NEW, "ef_update_fp32_kernel", "ef_codes_int8_kernel", "ef_update_fp32_f32rec_kernel",
                   "ef_codes_int8_f32rec_kernel", "dma_only_kernel",
                   "binary_quant_kernel<float, float>", "binary_quant_vec_kernel<float, float>",
                   "binary_dequant_kernel<float>", "int2_dequant_kernel<float>", "binary_dequant_vec_kernel<float, 1>",
                   "int2_dequant_vec_kernel<float, 1>", "int2_quant_kernel<float, float>",
                   "int2_quant_vec_kernel<float, float, 1>", "empty_kernel"):
         assert kernels[label]["must_be_unchanged"] and kernels[label]["sass_equal"], label
-    for label in NEW.keys() | REDESIGNED:
+    for label in NEW:
         assert not kernels[label]["must_be_unchanged"], label
-    for label in ("int2_quant_vec_kernel<float, float, 1>", "int2_quant_kernel<float, float>"):
-        changed = dict(after, **{label: (BEFORE[label][0], "changed")})
-        assert not tool.verdict(_build(changed), _build(BEFORE))[0], label
+    for label in ("int2_quant_vec_kernel<float, float, 1>", "int2_quant_kernel<float, float>", *WIDE_NEW):
+        changed = dict(after, **{label: (PARENT[label][0], "changed")})
+        assert not tool.verdict(_build(changed), _build(PARENT))[0], label
 
 
 @pytest.mark.parametrize("label,change", [
@@ -327,15 +337,18 @@ def test_compare_tool_passes_when_only_redesigned_kernels_differ():
     ("int2_quant_kernel<float, float>", (33, "m2")),
     ("ring_flash_hop_reg_f32_kernel<80, 2>", (140, "h5")),
     ("ef_codes_int8_f32rec_kernel", (41, "s4")),
+    ("flash_window_wide_kernel<256, 4>", (175, "y1")),
+    ("ring_flash_hop_wide_f32_kernel<256, 4>", (191, "y5b")),
+    ("flash_fwd_wide_split_kernel<512, 8>", None),
 ])
 def test_compare_tool_fails_when_a_listed_kernel_changes(label, change):
     tool = _compare_tool()
-    after = dict(BEFORE)
+    after = dict(PARENT)
     if change is None:
         del after[label]
     else:
         after[label] = change
-    ok, report = tool.verdict(_build(after), _build(BEFORE))
+    ok, report = tool.verdict(_build(after), _build(PARENT))
     assert not ok and report["kernels"][label]["must_be_unchanged"]
 
 
@@ -348,9 +361,9 @@ def test_compare_tool_patterns():
     assert tool.matches("flash_fwd_kernel<2, 32>", "flash_fwd_kernel<2, 32>")
     assert not tool.matches("flash_fwd_kernel<4, 64>", "flash_fwd_kernel<2, 32>")
     # a pattern that names nothing fails: a renamed kernel cannot pass unseen
-    ok, report = tool.verdict(_build(BEFORE), _build(BEFORE), ["flash_tile_kernel<...>"])
+    ok, report = tool.verdict(_build(PARENT), _build(PARENT), ["flash_tile_kernel<...>"])
     assert not ok and report["unmatched"] == ["flash_tile_kernel<...>"]
-    assert tool.verdict(_build(BEFORE), _build(BEFORE))[0]
+    assert tool.verdict(_build(PARENT), _build(PARENT))[0]
 
 
 def test_compare_tool_reads_sass_without_the_sources_namespace_name():

@@ -18,12 +18,11 @@ once in a kernel that loads, computes, then stores).
 ``--unchanged`` names the instantiations that must be identical on both
 sides: a full label, or ``name<...>`` for every instantiation of ``name``
 (the default: every flash kernel of kernels 1, 4 and 7 on the register
-body and kernel 1's on the wide body up to d = 512, in bf16 and fp32,
-kernel 8's EF pass, the probe and empty kernels, and every quant and
-dequant kernel; the wide body's banded, ring and split kernels,
-``flash_window_wide*``, ``ring_flash_hop_wide*`` and
-``flash_fwd_wide_split*``, which took the place of the shared-memory
-body's, are not on it while the other side predates them).
+body and on the wide body, kernel 1's split over a cluster among them, in
+bf16 and fp32, kernel 8's EF pass, the probe and empty kernels, and every
+quant and dequant kernel; the wgmma body's kernels,
+``flash_fwd_wgmma*`` and ``ring_flash_hop_wgmma*``, are not on it while the
+other side predates them).
 Prints one JSON object and exits 1 when one of them differs, is missing on
 either side or matches nothing; kernels outside the list may differ.
 Needs the CUDA toolkit (``nvcc``, ``cuobjdump``, ``cu++filt``), not a GPU.
@@ -42,7 +41,10 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 UNCHANGED = ("flash_fwd_reg_kernel<...>", "flash_window_reg_kernel<...>", "ring_flash_hop_reg_kernel<...>",
              "flash_fwd_wide_kernel<...>", "flash_fwd_reg_f32_kernel<...>", "flash_window_reg_f32_kernel<...>",
-             "ring_flash_hop_reg_f32_kernel<...>", "flash_fwd_wide_f32_kernel<...>", "ef_update_fp32_kernel",
+             "ring_flash_hop_reg_f32_kernel<...>", "flash_fwd_wide_f32_kernel<...>",
+             "flash_window_wide_kernel<...>", "ring_flash_hop_wide_kernel<...>", "flash_fwd_wide_split_kernel<...>",
+             "flash_window_wide_f32_kernel<...>", "ring_flash_hop_wide_f32_kernel<...>",
+             "flash_fwd_wide_split_f32_kernel<...>", "ef_update_fp32_kernel",
              "ef_minmax_int8_kernel", "ef_codes_int8_kernel", "ef_update_fp32_f32rec_kernel",
              "ef_codes_int8_f32rec_kernel", "flash_parts_kernel<...>", "dma_only_kernel", "plumb_kernel", "empty_kernel",
              "binary_quant_kernel<...>", "binary_quant_vec_kernel<...>", "binary_dequant_kernel<...>",

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Check and time kernels 1 to 8 of a checkout at the path's shapes.
 
-    python3 tools/time_flash.py [--root OTHER_ROOT] [--sweep] [--quant] [--tile] [--out FILE]
+    python3 tools/time_flash.py [--root OTHER_ROOT] [--sweep] [--quant] [--tile] [--reg] [--out FILE]
 
 Imports ``compactfusion_tpu_torch`` from ``--root`` (default: this
 checkout; e.g. an unpacked ``git archive`` of the parent commit) and the
@@ -40,11 +40,19 @@ graphs, the floor of a launch.  ``--quant`` times only kernels 2, 3, 5 and
 (``chip_smoke.tile_checks``: kernel 1 above d = 512, kernels 4, 7 and 8
 above d = 128), in bf16 and in fp32, each against its twin under phase
 50's bounds; a case the tree's kernel refuses or gets wrong is recorded
-with its ``error`` and the others still run.  With ``--sweep`` (a tree with ``ops/flash.py::flash_plan``), a
-shape whose plan takes the register body is also timed at every tile
-height built for its padded head dim (``graph_ms_by_warps``), with
-``flash_plan`` swapped for one that keeps the body and padded head dim but
-not the warps.
+with its ``error`` and the others still run.  ``--reg`` checks and
+times only the launches of kernels 1, 7 and 8 at d <= 128 that lose most
+to one cuDNN call (:data:`REG_K1_CASES`, :data:`REG_K7_CASES`,
+:data:`REG_K8_CASES`: the models' self-attention, ring hops and fused
+compressed hops), each against its twin on a (batch 0, 2 heads) slice of
+the same launch under phase 2's bounds, with its plan, CTAs, eager ``ms``,
+``graph_ms``, SDPA's time, the bound and the ``exp2`` floor (every score's
+exp2 on the SFU, 16 a clock per SM, at the card's top SM clock).  With
+``--sweep`` (a tree with ``ops/flash.py::flash_plan``), a shape whose plan
+takes the register or the wgmma body is also timed at every tile height
+built for its padded head dim (``graph_ms_by_warps``), with ``flash_plan``
+swapped for one that keeps the body and padded head dim but not the
+warps.
 Prints the card's name and power limit, one line per shape and one JSON
 line (also written to ``--out``); exits non-zero without a CUDA device or
 when a kernel disagrees with its twin.
@@ -106,9 +114,11 @@ def errors(smoke, out, lse, ref_out, ref_lse, rel_max=None):
     return err_out, rel_out, err_lse
 
 
-def row(smoke, timing, name, run, ref, sets, iters, nbytes, ops, library=None, sweep=None, rel_max=None):
+def row(smoke, timing, name, run, ref, sets, iters, nbytes, ops, library=None, sweep=None, rel_max=None,
+        view=None):
     """Errors of ``run`` against ``ref`` (each a call of one input set) on
-    the first set (:func:`errors`), then its eager and graph times,
+    the first set (:func:`errors`; ``view``: the part of run's (out, lse)
+    that ref computes), then its eager and graph times,
     ``library``'s ((a call, its backend) or None) and the bound of
     ``nbytes`` of inputs, out and LSE against ``ops`` bf16 operations.
     ``sweep``: (the flash module, the plan, its built (dp, warps) pairs) to
@@ -117,7 +127,7 @@ def row(smoke, timing, name, run, ref, sets, iters, nbytes, ops, library=None, s
 
     out, lse = run(sets[0])
     torch.cuda.synchronize()
-    err_out, rel_out, err_lse = errors(smoke, out, lse, *ref(sets[0]), rel_max)
+    err_out, rel_out, err_lse = errors(smoke, *(view or (lambda o, x: (o, x)))(out, lse), *ref(sets[0]), rel_max)
     bound_ms, bound_by = smoke._bound(nbytes + smoke._nbytes(out, lse), ops, smoke.PEAK_BF16_FLOPS)
     r = {"shape": name, "max_abs_err_out": err_out, "rel_err_out": rel_out, "max_abs_err_lse": err_lse,
          "ms": smoke._time_ms(lambda: run(sets[0]), iters),
@@ -126,8 +136,10 @@ def row(smoke, timing, name, run, ref, sets, iters, nbytes, ops, library=None, s
          "library_backend": None if library is None else library[1],
          "bound_ms": bound_ms, "bound_by": bound_by}
     alts = ""
-    if sweep is not None and sweep[1][0] == "flash_reg_tile":
+    if sweep is not None and sweep[1][0] in ("flash_reg_tile", "flash_wgmma_tile"):
         flash, plan, built = sweep
+        if plan[0] == "flash_wgmma_tile":
+            built = flash.WG_BUILT
         r["plan"], r["graph_ms_by_warps"] = list(plan), {}
         for w in sorted(w for dp, w in built if dp == plan[1]):
             with tile_height(flash, plan[0], w):
@@ -314,6 +326,8 @@ def main(argv=None):
                     help="time only the quant kernels (2, 3, 5 and 6) and the empty kernel")
     ap.add_argument("--tile", action="store_true",
                     help="check and time only phase 50's cases, in bf16 and fp32")
+    ap.add_argument("--reg", action="store_true",
+                    help="check and time only the d <= 128 launches of kernels 1, 7 and 8 that lose most to cuDNN")
     ap.add_argument("--out", type=Path, help="also write the JSON here")
     args = ap.parse_args(argv)
     smoke = _smoke()
@@ -338,15 +352,20 @@ def main(argv=None):
     if args.sweep and not hasattr(flash, "REG_BUILT"):
         raise SystemExit(f"time_flash: {args.root} has no register-body plans to sweep")
 
-    def sweep(b, h, sq, d, **kw):
-        return (flash, flash.flash_plan(b, h, sq, d, **kw), flash.REG_BUILT) if args.sweep else None
+    def sweep(b, h, sq, d, kernel=1, **kw):
+        return (flash, smoke._plan(flash, b, h, sq, d, 2, kernel), flash.REG_BUILT) if args.sweep else None
 
     def sets_of(make, first, nbytes):
         return [first] + [make() for _ in range(timing.copies(nbytes) - 1)]
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    if args.tile:
+    if args.reg:
+        clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                               capture_output=True, text=True, check=True).stdout.strip()
+        print(f"max SM clock {clock} MHz")
+        rows = reg_rows(smoke, timing, flash, ring_flash, dev, gen, sweep, sets_of, float(clock) * 1e6)
+    elif args.tile:
         rows = tile_rows(smoke, timing, flash, ring_flash, dev, gen)
         if hasattr(flash, "WIDE_SPLIT_BUILT"):
             rows += [r for dtype in (torch.bfloat16, torch.float32)
@@ -355,7 +374,7 @@ def main(argv=None):
         rows = [] if args.quant else flash_rows(smoke, timing, flash, ring_flash, dev, gen, sweep, sets_of)
         rows += [quant_row(smoke, timing, quant, codecs, dev, gen, case) for case in QUANT_CASES]
         rows += [dequant_row(smoke, timing, quant, codecs, dev, gen, case) for case in QUANT_CASES]
-    if hasattr(ops_probes, "empty") and not args.tile:
+    if hasattr(ops_probes, "empty") and not (args.tile or args.reg):
         floor = smoke.launch_floor_ms(ops_probes, timing, dev)
         rows.append({"shape": "empty kernel", "graph_ms": floor})
         print(f"empty kernel: graphs {floor:.5f} ms per launch")
@@ -367,6 +386,105 @@ def main(argv=None):
     print(line)
     if any("error" in r for r in rows):
         raise SystemExit("time_flash: a kernel failed or disagrees with its twin")
+
+
+#: (name, B, S, H, d) of kernel 1's self-attention launches at d <= 128
+#: that lose most to one cuDNN call (PERF.md §6)
+REG_K1_CASES = [("PixArt-alpha 512", 2, 1024, 16, 72), ("SD3-medium joint", 2, 4293, 24, 64),
+                ("HunyuanDiT v1.2", 2, 4096, 16, 88), ("PixArt-Sigma 2K", 2, 16384, 16, 72),
+                ("FLUX.1-dev", 1, 4608, 24, 128), ("HunyuanVideo", 1, 18616, 24, 128),
+                ("CogVideoX-2b", 2, 17776, 30, 64), ("ConsisID", 2, 17776, 48, 64), ("Step-Video-T2V", 2, 18972, 48, 128)]
+#: (name, ring, B, Sq, Sk a hop, H, d) of kernel 7's ring hops (rank 0's
+#: queries hold the text rows in front of its image rows), and PixArt's
+#: ring-2 hops at B2 and B1 and ring-8 hop, where the tile height changes
+REG_K7_CASES = [("FLUX ring 2", 2, 1, 2560, 2048, 24, 128), ("FLUX U2 x R2", 2, 1, 3072, 2048, 12, 128),
+                ("HunyuanVideo ring 2", 2, 1, 2296, 2040, 24, 128), ("CogVideoX ring 2", 2, 1, 9001, 8775, 30, 64),
+                ("PixArt ring 2", 2, 2, 512, 512, 16, 72), ("PixArt ring 2 B1", 2, 1, 512, 512, 16, 72),
+                ("PixArt ring 8", 8, 2, 128, 128, 16, 72)]
+#: (name, B, Sq, S a rank, H, d) of kernel 8 (BINARY, K1, fp32 EF stacks)
+#: at FLUX's and CogVideoX's ring 2
+REG_K8_CASES = [("FLUX ring 2", 1, 2560, 2048, 24, 128), ("CogVideoX ring 2", 1, 9001, 8775, 30, 64)]
+
+
+def reg_rows(smoke, timing, flash, ring_flash, dev, gen, sweep, sets_of, clock_hz):
+    """The rows of ``--reg``: kernels 1 and 7 at :data:`REG_K1_CASES` and
+    :data:`REG_K7_CASES`, each checked on its (batch 0, 2 heads) slice, and
+    kernel 8 at :data:`REG_K8_CASES` (its twin on the whole launch, stacks
+    and all), each with its plan, CTAs and ``exp2_floor_ms``."""
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def head_slice(out, lse):
+        return out[:1, :, :2], lse[:1, :2]
+
+    def floor(scores):
+        return scores / (16 * 132 * clock_hz) * 1e3
+
+    def extra(r, kernel, b, h, sq, d, scores):
+        plan = smoke._plan(flash, b, h, sq, d, 2, kernel)
+        r.update(plan=list(plan), ctas=smoke._ctas(flash, plan, b, h, sq), exp2_floor_ms=floor(scores))
+        print(f"  plan {plan}, {r['ctas']} CTAs; exp2 floor {r['exp2_floor_ms']:.4f} ms")
+        return r
+
+    rows = []
+    for name, b, s, h, d in REG_K1_CASES:
+        make = (lambda: smoke._qkv_views(gen, dev, b, s, h, d)) if s <= 4096 else \
+            (lambda: (rnd(b, s, h, d), rnd(b, s, h, d), rnd(b, s, h, d)))
+        q, k, v = first = make()
+        iters = 3 if s > 10000 else 20
+        r = row(smoke, timing, f"kernel 1 {name} B{b} H{h} S{s} d{d}", lambda t: flash.flash_attn_with_lse(*t),
+                lambda t: flash.flash_attn_with_lse_ref(*(x[:1, :, :2] for x in t)),
+                sets_of(make, first, smoke._nbytes(q, k, v, q)), iters, smoke._nbytes(q, k, v),
+                4 * b * h * s * s * d, smoke._library(q, k, v), sweep(b, h, s, d), smoke.FLASH_OUT_REL_MAX,
+                view=head_slice)
+        rows.append(extra(r, 1, b, h, s, d, b * h * s * s))
+        del q, k, v, first
+        torch.cuda.empty_cache()
+    for name, ring, b, sq, sk, h, d in REG_K7_CASES:
+        def make(ring=ring, b=b, sq=sq, sk=sk, h=h, d=d):
+            return rnd(b, sq, h, d), [(rnd(b, sk, h, d), rnd(b, sk, h, d)) for _ in range(ring)]
+
+        q, blocks = first = make()
+        k_all = torch.cat([k for k, _ in blocks], dim=1)
+        v_all = torch.cat([v for _, v in blocks], dim=1)
+        r = row(smoke, timing, f"kernel 7 {name} B{b} H{h} Sq{sq} Sk{ring}x{sk} d{d}",
+                lambda t, n=ring: ring_flash.ring_flash_attn_with_lse(t[0], iter(t[1]), n),
+                lambda t, n=ring: ring_flash.ring_flash_attn_with_lse_ref(
+                    t[0][:1, :, :2], iter([(k[:1, :, :2], v[:1, :, :2]) for k, v in t[1]]), n),
+                sets_of(make, first, smoke._nbytes(q, k_all, v_all, q)), 20 if sq < 4000 else 5,
+                smoke._nbytes(q, k_all, v_all), 4 * b * h * sq * ring * sk * d, smoke._library(q, k_all, v_all),
+                sweep(b, h, sq, d, kernel=7), smoke.FLASH_OUT_REL_MAX, view=head_slice)
+        rows.append(extra(r, 7, b, h, sq, d, b * h * sq * ring * sk))
+        del q, blocks, first, k_all, v_all
+        torch.cuda.empty_cache()
+    for name, b, sq, s_local, h, d in REG_K8_CASES:
+        shards, kb0, vb0, payloads = smoke.cring_inputs(ring_flash, gen, dev, 2, b, s_local, "binary", -1, False,
+                                                        h, d, sq)
+        q, k, v = shards[0]
+        stack_bytes = 2 * 2 * b * s_local * h * d * 4
+
+        def run(t, shards=shards, payloads=payloads):
+            return ring_flash.compact_ring_flash(*shards[0], *t, smoke.arriving(payloads, 0), codec="binary", my=0,
+                                                 ring_size=2)
+
+        def ref(t, shards=shards, payloads=payloads, kb0=kb0, vb0=vb0):
+            return ring_flash.compact_ring_flash_ref(*shards[0], smoke._clone(kb0), smoke._clone(vb0),
+                                                     smoke.arriving(payloads, 0), codec="binary", my=0, ring_size=2)
+
+        def stacks(kb0=kb0, vb0=vb0):
+            return smoke._clone(kb0), smoke._clone(vb0)
+
+        payload_bytes = sum(smoke._nbytes(*p_) for p_ in payloads)
+        r = row(smoke, timing, f"kernel 8 {name} BINARY K1 fp32 stacks B{b} H{h} Sq{sq} S{s_local} d{d}", run, ref,
+                sets_of(stacks, stacks(), stack_bytes + smoke._nbytes(q, k, v)), 5,
+                smoke._nbytes(q, k, v) + payload_bytes + 2 * stack_bytes, 4 * b * h * sq * 2 * s_local * d,
+                rel_max=smoke.FLASH_OUT_REL_MAX)
+        rows.append(extra(r, 7, b, h, sq, d, b * h * sq * 2 * s_local))
+        del shards, kb0, vb0, payloads, q, k, v
+        torch.cuda.empty_cache()
+    return rows
 
 
 def tile_rows(smoke, timing, flash, ring_flash, dev, gen):
