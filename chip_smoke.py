@@ -107,9 +107,13 @@ Phases (each prints its lines; any failure ends the run with a non-zero exit):
     1024 x 1024, random weights with spiced modulation biases, T5 states
     (1, 512, 4096) and a pooled vector (1, 768) from each request's seed:
     3 requests (kernel 1 exactly 57 x 28 + 1 times, once on the wide body;
-    s/image and ``torch.cuda.max_memory_allocated``), then FBCache at
-    threshold 0 (the lossless latents, no skip) and 1e6 (26 skipped steps,
-    57 x 2 + 26 + 1 kernel 1 launches).
+    s/image and ``torch.cuda.max_memory_allocated``); request 1 again with
+    the tracer switched on (``utils/prof.py``): the same latents, its
+    summary window holds the request, its decode, 28 steps and 57 x 28
+    attention spans with device times and the wgmma route, and the
+    ``flash.body.*`` counters equal kernel 1's route counters; then FBCache
+    at threshold 0 (the lossless latents, no skip) and 1e6 (26 skipped
+    steps, 57 x 2 + 26 + 1 kernel 1 launches).
 19. FLUX.1-dev with its depth cut to 1 double + 2 single blocks (full
     width) as a ring of 2 processes on this GPU: lossless and BINARY
     (residual 1 + EF, warmup 4, the consistency check on), unfused and
@@ -546,21 +550,26 @@ WIDE = ROUTES["flash_attn_with_lse", "wide_launches"]
 VEC = {name: key for (name, attr), key in ROUTES.items() if attr == "vec_launches"}
 
 
-def _reset_counts(kernels):
-    for fn in kernels:
-        fn.launches = 0
-        for name, attr in ROUTES:
-            if fn.__name__ == name:
-                setattr(fn, attr, 0)
+def _counter(name):
+    """The port's counter ``name`` (``utils/prof.py``)."""
+    from compactfusion_tpu_torch.utils.prof import Profiler
+
+    return Profiler.counter(name)
+
+
+def _reset_counters():
+    """Zero the port's counters (``utils/prof.py``)."""
+    from compactfusion_tpu_torch.utils.prof import Profiler
+
+    Profiler.reset()
 
 
 def _counts(kernels):
     """{wrapper name: its launches} of the kernels, and under the keys of
     :data:`ROUTES` the launches of those routes."""
-    counts = {fn.__name__: fn.launches for fn in kernels}
-    by_name = {fn.__name__: fn for fn in kernels}
+    counts = {fn.__name__: _counter(f"{fn.__name__}.launches") for fn in kernels}
     for (name, attr), key in ROUTES.items():
-        counts[key] = getattr(by_name[name], attr)
+        counts[key] = _counter(f"{name}.{attr}")
     return counts
 
 
@@ -995,13 +1004,14 @@ def check_across_plans(quant, codec, name, x, base, u, v, packed, new_base, x_ha
         return view.copy_(t)
 
     x_off, base_off = off4(x), off4(base)
-    before = q.vec_launches
+    q_vec, dq_vec = f"{q.__name__}.vec_launches", f"{dq.__name__}.vec_launches"
+    before = _counter(q_vec)
     packed_off, new_base_off = q(x_off, base, u, v)
-    if quant.quant_plan(per_byte, base, v, x=x_off) != 1 or q.vec_launches != before:
+    if quant.quant_plan(per_byte, base, v, x=x_off) != 1 or _counter(q_vec) != before:
         raise AssertionError(f"{name}: quant took the vector plan on an x view 4 bytes into its storage")
-    before = dq.vec_launches
+    before = _counter(dq_vec)
     pairs["quant vector -> dequant on a base view 4 bytes in"] = (dq(packed, base_off, u, v), new_base)
-    if quant.quant_plan(per_byte, base_off, v, packed=packed) != 1 or dq.vec_launches != before:
+    if quant.quant_plan(per_byte, base_off, v, packed=packed) != 1 or _counter(dq_vec) != before:
         raise AssertionError(f"{name}: dequant took the vector plan on a base view 4 bytes into its storage")
     pairs["quant on an x view 4 bytes in -> dequant vector"] = (dq(packed_off, base, u, v), new_base_off)
     if not (torch.equal(packed_off, packed) and torch.equal(new_base_off, new_base)):
@@ -1635,7 +1645,7 @@ def compressed_phase(phase, what, pipe, kernels, lossless, expect):
     flash kernel, which must run) and the latent error against lossless."""
     import torch
 
-    _reset_counts(kernels)
+    _reset_counters()
     lat, img, sec = request(pipe, 1)
     counts = _counts(kernels)
     check_image(img, what)
@@ -1712,7 +1722,7 @@ def accel_phase(phase, what, pipe, kernels, lossless, full, window, exact=False,
     pipeline runs in fp32, every flash launch an fp32 one."""
     import torch
 
-    _reset_counts(kernels)
+    _reset_counters()
     lat, img, sec = request(pipe, 1)
     counts = _counts(kernels)
     check_image(img, what)
@@ -1838,8 +1848,7 @@ def ring_rank(rank, world, runs, family="pixart"):
     from compactfusion_tpu_torch.compact import ring as compact_ring
     from compactfusion_tpu_torch.config import ParallelConfig
     from compactfusion_tpu_torch.cache.accel import CacheAccelConfig
-    from compactfusion_tpu_torch.parallel.mesh import Mesh, make_mesh
-    from compactfusion_tpu_torch.parallel.ring import ring_shift
+    from compactfusion_tpu_torch.parallel.mesh import make_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1860,15 +1869,15 @@ def ring_rank(rank, world, runs, family="pixart"):
         pipe = (flux_pipeline if family == "flux" else pixart_pipeline)(*models, dev, parallel=parallel,
                                                                          mesh=make_mesh(parallel),
                                                                          steps=RANK_STEPS, **kw)
-        _reset_counts(kernels)
-        ring_shift.nbytes = Mesh.all_to_all.nbytes = Mesh.all_gather_tree.nbytes = 0
+        _reset_counters()
         compact_ring.max_consistency_dev = 0.0
         lat, img, sec = make_request(pipe, 1)
         counts = _counts(kernels)
         check_image(img, f"{name} rank {rank}", size)
         out[name] = {"latents": lat.float().cpu().numpy(), "launches": counts,
-                     "wire_bytes": ring_shift.nbytes, "all_to_all_bytes": Mesh.all_to_all.nbytes,
-                     "gather_bytes": Mesh.all_gather_tree.nbytes,
+                     "wire_bytes": _counter("ring_shift.nbytes"),
+                     "all_to_all_bytes": _counter("Mesh.all_to_all.nbytes"),
+                     "gather_bytes": _counter("Mesh.all_gather_tree.nbytes"),
                      "consistency_dev": compact_ring.max_consistency_dev, "skips": pipe.last_skips,
                      "s_per_image": sec}
     return out
@@ -2049,7 +2058,7 @@ def flux_lossless_phase(kernels, dev):
     pipe = flux_pipeline(*models, dev)
     torch.cuda.reset_peak_memory_stats()
     secs, lossless = [], None
-    _reset_counts(kernels)
+    _reset_counters()
     for seed in (1, 2, 3):
         before = _counts(kernels)
         lat, img, sec = flux_request(pipe, seed)
@@ -2066,12 +2075,13 @@ def flux_lossless_phase(kernels, dev):
           f"{peak:.3f} GiB")
     phases = {"flux lossless": {"s_per_image": secs, "max_memory_allocated_gib": peak,
                                 "launches": _counts(kernels)}}
+    phases["flux traced"] = flux_traced_request(kernels, pipe, lossless, blocks)
     from compactfusion_tpu_torch.cache.accel import CacheAccelConfig
 
     for thr, skips in ((0.0, 0), (1e6, FLUX_STEPS - 2)):
         name = f"flux fbcache {thr:g}"
         cached = flux_pipeline(*models, dev, cache=CacheAccelConfig(mode="fbcache", threshold=thr))
-        _reset_counts(kernels)
+        _reset_counters()
         lat, img, sec = flux_request(cached, 1)
         counts = _counts(kernels)
         check_image(img, name, FLUX_SIZE)
@@ -2090,6 +2100,47 @@ def flux_lossless_phase(kernels, dev):
                         "launches": counts}
     del pipe, models
     return phases, lossless
+
+
+def flux_traced_request(kernels, pipe, lossless, blocks):
+    """Phase 18's request at seed 1 under the tracer switched on, in a
+    ``total`` scope as ``RuntimeConfig.use_profiler`` runs it: the latents
+    of the untraced request; the summary's window holds the request and its
+    decode, a span per step and per block's attention with device times,
+    and the flash route on every attention span; and the tile-body
+    counters agree with kernel 1's route counters."""
+    from compactfusion_tpu_torch.utils.prof import Profiler
+
+    _reset_counters()
+    Profiler.enable()
+    try:
+        with Profiler.scope("total"):
+            lat, img, sec = flux_request(pipe, 1)
+        table = Profiler.span_table()
+        summary = Profiler.summary()
+    finally:
+        Profiler.enable(False)
+    check_image(img, "FLUX traced request", FLUX_SIZE)
+    rel = rel_fro(lat, lossless)
+    calls = blocks * FLUX_STEPS
+    rows = {name: table.get(name, {}).get("count") for name in ("total", "request", "decode", "step", "attention")}
+    want = {"total": 1, "request": 1, "decode": 1, "step": FLUX_STEPS, "attention": calls}
+    route = table.get("attention", {}).get("attrs")
+    bodies = {key: _counter(key) for key in ("flash.body.flash_wgmma_tile", "flash.body.flash_wide_tile",
+                                             "flash_attn_with_lse.wgmma_launches",
+                                             "flash_attn_with_lse.wide_launches")}
+    if (rel > 1e-6 or rows != want or route != {"body": ["flash_wgmma_tile"], "dp": [128], "warps": [8]}
+            or any(table[n]["device_ms"] is None for n in want)
+            or bodies != {"flash.body.flash_wgmma_tile": calls, "flash.body.flash_wide_tile": 1,
+                          "flash_attn_with_lse.wgmma_launches": calls, "flash_attn_with_lse.wide_launches": 1}):
+        raise AssertionError(f"FLUX traced request: latent rel err vs untraced {rel}, span counts {rows} "
+                             f"(expected {want}), attention route {route}, body counters {bodies}\n{summary}")
+    print(f"[18] FLUX traced request (tracer on, seed 1): latent rel err vs untraced {rel:.3e}, {sec:.4f} "
+          f"s/image; spans {rows}; attention route {route}; body counters {bodies}; summary: "
+          + " | ".join(line.strip() for line in summary.splitlines()[:12]))
+    return {"s_per_image": sec, "latent_rel_err": rel, "spans": rows, "body_counters": bodies,
+            "launches": _counts(kernels), "device_ms": {n: table[n]["device_ms"] for n in want},
+            "self_device_ms": {n: table[n]["self_device_ms"] for n in want}}
 
 
 def _rel_np(a, b):
@@ -2153,7 +2204,7 @@ def flux_ring_phase(kernels, dev, codecs):
     n_double, n_single = FLUX_CUT
     layers = n_double + n_single
     models = build_flux(dev, n_double, n_single)
-    _reset_counts(kernels)
+    _reset_counters()
     lat, img, sec = flux_request(flux_pipeline(*models, dev, steps=RANK_STEPS), 1)
     check_image(img, "FLUX cut, one process", FLUX_SIZE)
     _check_counts("FLUX cut, one process", _counts(kernels),
@@ -2303,7 +2354,7 @@ def f32_pipeline_phase(kernels, dev):
           f"{mcfg.head_dim}, SD-VAE in {models[1].dtype}), built in {time.perf_counter() - t0:.1f} s")
     want = _all_f32(_with_routes({"flash_attn_with_lse": DEPTH * STEPS + 1}))
     secs, lossless = [], None
-    _reset_counts(kernels)
+    _reset_counters()
     for seed in (1, 2):
         before = _counts(kernels)
         lat, img, sec = request(pipe, seed)
@@ -2323,7 +2374,7 @@ def f32_pipeline_phase(kernels, dev):
     mask = torch.ones((2, 1, 120), dtype=torch.bool, device=dev)
     x = base.prepare_latents(g, 1, pipe.cfg.tokens, mcfg.patch**2 * mcfg.in_channels, torch.float32, dev)
     t = torch.full((2,), float(pipe.sched.timesteps[0]), dtype=torch.float32, device=dev)
-    _reset_counts(kernels)
+    _reset_counters()
     gpu = cfg_forward(models[2], mcfg, pipe.pos_embed, text, mask, x, t)
     counts = _counts(kernels)
     _check_counts("fp32 CFG forward", counts, _all_f32({"flash_attn_with_lse": DEPTH}))
@@ -2371,7 +2422,7 @@ def f32_ring_phase(kernels, dev, codecs, models):
     lossless, _, sec = request(pixart_pipeline(*models, dev, steps=RANK_STEPS), 1)
     lossless_np = lossless.float().cpu().numpy()
     print(f"[22] fp32 PixArt cut to its first {SP_CUT} of {DEPTH} blocks: one process, lossless, {sec:.4f} s/image")
-    _reset_counts(kernels)
+    _reset_counters()
     sim_lat, sim_img, sim_sec = request(pixart_pipeline(
         *models, dev, steps=RANK_STEPS, compact=ring_compact("binary", comp_rank=-1, simulate_ring=2)), 1)
     check_image(sim_img, "fp32 ring-2 emulation")
@@ -2833,7 +2884,7 @@ def prompt_phase(kernels, dev):
           f"{t5_cfg.d_kv}, d_ff {t5_cfg.d_ff}; {_numel(t5) / 1e9:.3f}B parameters, {_nbytes_tree(t5) / 2**30:.3f} "
           f"GiB bf16) and CLIP-L ({clip_cfg.num_layers} layers, d {clip_cfg.d_model}) drawn on the card in "
           f"{build_s:.2f} s")
-    _reset_counts(kernels)
+    _reset_counters()
     torch.cuda.reset_peak_memory_stats()
     flux_prompt, pixart_pair = [PROMPTS[0]], ([PROMPTS[0]], [""])
     for _ in range(2):  # warm-up
@@ -2948,7 +2999,7 @@ def runner_phase(kernels, pixart_launches, flux_launches, out_dir):
         secs, lat0, total = [], None, None
         for i, prompt in enumerate(PROMPTS):
             runner.input_config = dataclasses.replace(inp, prompt=(prompt,), seed=i + 1)
-            _reset_counts(kernels)
+            _reset_counters()
             (lat, img), sec = _events_s(lambda: _request(runner))
             ran = _counts(kernels)
             _check_counts(f"[29] {family} request {i + 1}", ran, {"flash_attn_with_lse": launches, WIDE: 1})
@@ -2983,7 +3034,7 @@ def runner_phase(kernels, pixart_launches, flux_launches, out_dir):
     runner.input_config = dataclasses.replace(inp, prompt=(PROMPTS[0],), seed=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _reset_counts(kernels)
+    _reset_counters()
     lat, sec = _events_s(lambda: runner(decode=False))
     _check_counts("[29] flux int8", _counts(kernels), {"flash_attn_with_lse": flux_launches - 1, WIDE: 0})
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3031,7 +3082,7 @@ def service_phase(kernels, pixart_launches):
         health = call("/health")
         if health != (200, {"status": "ok"}):
             raise AssertionError(f"[30] /health answered {health}")
-        _reset_counts(kernels)
+        _reset_counters()
         results, barrier = [None] * 4, threading.Barrier(4)
         t0 = time.perf_counter()
 
@@ -3082,7 +3133,6 @@ def example_rank(rank, world, runs):
     import torch
 
     from compactfusion_tpu_torch.examples import pixartalpha_example
-    from compactfusion_tpu_torch.parallel.ring import ring_shift
 
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world))
     # the runner draws the same seeded weights as the parent's reference;
@@ -3094,14 +3144,13 @@ def example_rank(rank, world, runs):
     kernels = port_kernels()
     out = {}
     for name, argv in runs:
-        _reset_counts(kernels)
-        ring_shift.nbytes = 0
+        _reset_counters()
         t0 = time.perf_counter()
         with pixart_depth(RUNNER_CUT):
             lat, saved = pixartalpha_example.main(argv)
         torch.cuda.synchronize()
         out[name] = {"latents": lat.float().cpu().numpy(), "launches": _counts(kernels),
-                     "wire_bytes": ring_shift.nbytes, "saved": saved, "s": time.perf_counter() - t0}
+                     "wire_bytes": _counter("ring_shift.nbytes"), "saved": saved, "s": time.perf_counter() - t0}
     return out
 
 
@@ -3408,7 +3457,7 @@ def cog_pipeline_phase(kernels, dev):
 
     runner.prompt_encoder.encode_for_video = timed("encode", runner.prompt_encoder.encode_for_video)
     pipe.decode = decode
-    _reset_counts(kernels)
+    _reset_counters()
     torch.cuda.reset_peak_memory_stats()
     video, total = _events_s(runner)
     peak = max(held["peak"], torch.cuda.max_memory_allocated()) / 2**30
@@ -3437,7 +3486,7 @@ def cog_pipeline_phase(kernels, dev):
     tiled_pipe = CogVideoXPipeline(pipe.params, pipe.vae_params,
                                    dataclasses.replace(pcfg, vae=dataclasses.replace(vcfg, use_tiling=True)), dev)
     torch.cuda.reset_peak_memory_stats()
-    _reset_counts(kernels)
+    _reset_counters()
     tiled, tiled_s = _events_s(lambda: tiled_pipe.decode(lat))
     tiled_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
     _check_counts("tiled decode", _counts(kernels), {})
@@ -3464,7 +3513,7 @@ def cog_pipeline_phase(kernels, dev):
     x = torch.randn((2, f * hp * wp, m.token_in), generator=g, device=dev)
     txt = torch.randn((2, COG_TXT, m.text_dim), generator=g, device=dev)
     t = torch.full((2,), 999.0, device=dev)
-    _reset_counts(kernels)
+    _reset_counters()
     with torch.inference_mode():
         gpu, _ = cogvideox_forward(cut, x, txt, t, f32, pos_embed=pos.to(dev))
         counts = _counts(kernels)
@@ -3528,8 +3577,7 @@ def cog_rank(rank, world, runs, dtype=None):
 
     from compactfusion_tpu_torch.compact import ring as compact_ring
     from compactfusion_tpu_torch.config import CompactConfig, CompressType, ParallelConfig
-    from compactfusion_tpu_torch.parallel.mesh import Mesh, make_mesh
-    from compactfusion_tpu_torch.parallel.ring import ring_shift
+    from compactfusion_tpu_torch.parallel.mesh import make_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3543,14 +3591,14 @@ def cog_rank(rank, world, runs, dtype=None):
             enabled=True, warmup_steps=COG_WARMUP, residual=1, error_feedback=True, fastpath=True,
             check_consistency=True, compress_type=CompressType(compact))}
         pipe = cog_pipeline(mcfg, params, dev, parallel=parallel, mesh=make_mesh(parallel), **kw)
-        _reset_counts(kernels)
-        ring_shift.nbytes = Mesh.all_to_all.nbytes = Mesh.all_gather_tree.nbytes = 0
+        _reset_counters()
         compact_ring.max_consistency_dev = 0.0
         with plain_attention() if plain and plain[0] else contextlib.nullcontext():
             lat, sec = cog_request(pipe, 1)
         out[name] = {"latents": lat.float().cpu().numpy(), "launches": _counts(kernels),
-                     "wire_bytes": ring_shift.nbytes, "all_to_all_bytes": Mesh.all_to_all.nbytes,
-                     "gather_bytes": Mesh.all_gather_tree.nbytes,
+                     "wire_bytes": _counter("ring_shift.nbytes"),
+                     "all_to_all_bytes": _counter("Mesh.all_to_all.nbytes"),
+                     "gather_bytes": _counter("Mesh.all_gather_tree.nbytes"),
                      "consistency_dev": compact_ring.max_consistency_dev, "skips": None, "s_per_image": sec}
     return out
 
@@ -3570,7 +3618,7 @@ def cog_ring_phase(kernels, dev, codecs):
     from compactfusion_tpu_torch.parallel.mesh import spawn_local
 
     mcfg, params = build_cog_cut(dev)
-    _reset_counts(kernels)
+    _reset_counters()
     pipe = cog_pipeline(mcfg, params, dev)
     lat, sec = cog_request(pipe, 1)
     L, S, W = COG_CUT, COG_RING_STEPS, COG_WARMUP
@@ -3745,7 +3793,7 @@ def pp_runner_rank(rank, world, runs, plan_dir):
                 engine.compact_config, check_consistency=True))
         with pixart_depth(RUNNER_CUT), contextlib.chdir(plan_dir):
             runner = xDiTParallel(engine, inp)
-        _reset_counts(kernels)
+        _reset_counters()
         compact_ring.max_consistency_dev = 0.0
         t0 = time.perf_counter()
         lat = runner(decode=False)
@@ -3801,7 +3849,7 @@ def pp_pixart_phase(kernels, flash, timing, dev, gen):
     with pixart_depth(RUNNER_CUT):
         runner = xDiTParallel(*_cli(PIXART_ARGV).create_config())
     spice_pixart(runner.pipeline.params)
-    _reset_counts(kernels)
+    _reset_counters()
     one = runner(decode=False)
     _check_counts("[35] one process", _counts(kernels), {"flash_attn_with_lse": RUNNER_CUT * STEPS})
     pipe = runner.pipeline
@@ -3816,7 +3864,7 @@ def pp_pixart_phase(kernels, flash, timing, dev, gen):
     if runner.pipeline_config.fast_attn_plan != tuple(map(tuple, plan.tolist())):
         raise AssertionError("[35] the one-process runner did not take the cached plan")
     plan_full, plan_window = plan_launches(optimize_plan(plan))
-    _reset_counts(kernels)
+    _reset_counters()
     planned, plan_s = _events_s(lambda: runner(decode=False))
     planned_counts = _counts(kernels)
     # no decode here: the VAE's one full launch is not in the count
@@ -3938,7 +3986,7 @@ def stage_rank(rank, world, runs):
     for name, family, par, kw in runs:
         parallel = ParallelConfig(**par)
         mesh = make_mesh(parallel)
-        _reset_counts(kernels)
+        _reset_counters()
         if family == "flux":
             pipe = flux_pipeline(*models["flux"], dev, parallel=parallel, mesh=mesh, steps=RANK_STEPS, **kw)
             lat, img, sec = flux_request(pipe, 1)
@@ -3970,7 +4018,7 @@ def pp_flux_cog_phase(kernels, flash, timing, dev, gen, flux_one, cog_one):
     rows = check_flash(flash, timing, dev, gen, patch_flash_cases(gen, dev)[2:], phase=36)
     mcfg, vcfg, params, vae_params = build_flux(dev, *FLUX_CUT)
     padded, pcfg = pad_flux_for_pp(params, mcfg, 2)
-    _reset_counts(kernels)
+    _reset_counters()
     lat, img, sec = flux_request(flux_pipeline(pcfg, vcfg, padded, vae_params, dev, steps=RANK_STEPS), 1)
     check_image(img, "[36] FLUX padded, one process", FLUX_SIZE)
     pl = pcfg.double_layers + pcfg.single_layers
@@ -4204,7 +4252,7 @@ def vae_phase(kernels, dev):
             cfg = dataclasses.replace(vcfg, **kw)
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
-            _reset_counts(kernels)
+            _reset_counters()
             with torch.inference_mode():
                 img, sec = _events_s(lambda: mvae.vae_decode(params, lat, cfg))
             peak = (torch.cuda.max_memory_allocated() - base) / 2**30
@@ -4257,7 +4305,7 @@ def runner_request(kernels, runner, what, expect, size=1024):
     import torch
 
     torch.cuda.reset_peak_memory_stats()
-    _reset_counts(kernels)
+    _reset_counters()
     (lat, img), sec = _events_s(lambda: _request(runner))
     peak = torch.cuda.max_memory_allocated() / 2**30
     counts = _counts(kernels)
@@ -4312,7 +4360,7 @@ def f32_cut_forward(family, params, mcfg, dev, kernels):
         def run(p, d):
             return hunyuandit_forward(p, x.to(d), t.to(d), text.to(d), m, rope=tuple(r.to(d) for r in rope),
                                       text_mask=mask.to(d))[0]
-    _reset_counts(kernels)
+    _reset_counters()
     with torch.inference_mode():
         gpu = run(cut, dev)
         counts = _counts(kernels)
@@ -4534,8 +4582,7 @@ def image_rank(rank, world, runs):
 
     from compactfusion_tpu_torch.compact import ring as compact_ring
     from compactfusion_tpu_torch.config import CompactConfig, CompressType, ParallelConfig
-    from compactfusion_tpu_torch.parallel.mesh import Mesh, make_mesh
-    from compactfusion_tpu_torch.parallel.ring import ring_shift
+    from compactfusion_tpu_torch.parallel.mesh import make_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4550,13 +4597,13 @@ def image_rank(rank, world, runs):
             kw["compact"] = CompactConfig(enabled=True, warmup_steps=IMG_CUT_WARMUP, residual=1, error_feedback=True,
                                           fastpath=True, check_consistency=True, compress_type=CompressType(codec))
         pipe = image_cut_pipeline(family, *models[family], dev, parallel=parallel, mesh=make_mesh(parallel), **kw)
-        _reset_counts(kernels)
-        ring_shift.nbytes = Mesh.all_to_all.nbytes = Mesh.all_gather_tree.nbytes = 0
+        _reset_counters()
         compact_ring.max_consistency_dev = 0.0
         lat, sec = image_cut_request(pipe, family, 1)
         out[name] = {"latents": lat.float().cpu().numpy(), "launches": _counts(kernels),
-                     "wire_bytes": ring_shift.nbytes, "all_to_all_bytes": Mesh.all_to_all.nbytes,
-                     "gather_bytes": Mesh.all_gather_tree.nbytes,
+                     "wire_bytes": _counter("ring_shift.nbytes"),
+                     "all_to_all_bytes": _counter("Mesh.all_to_all.nbytes"),
+                     "gather_bytes": _counter("Mesh.all_gather_tree.nbytes"),
                      "consistency_dev": compact_ring.max_consistency_dev, "skips": None, "s_per_image": sec}
         del pipe
     return out
@@ -4589,7 +4636,7 @@ def image_ring_phase(kernels, dev, codecs):
     for family in IMG_CUT:
         mcfg, params = build_image_cut(family, dev)
         pipe = image_cut_pipeline(family, mcfg, params, dev)
-        _reset_counts(kernels)
+        _reset_counters()
         lat, sec = image_cut_request(pipe, family, 1)
         _check_counts(f"[42] {family} cut, one process", _counts(kernels),
                       {"flash_attn_with_lse": IMG_CUT[family] * S})
@@ -4708,7 +4755,7 @@ def cog_f32_ring_phase(kernels, dev, codecs):
     from compactfusion_tpu_torch.parallel.mesh import spawn_local
 
     mcfg, params = build_cog_cut(dev, torch.float32)
-    _reset_counts(kernels)
+    _reset_counters()
     lat, sec = cog_request(cog_pipeline(mcfg, params, dev), 1)
     L, S, W = COG_CUT, COG_RING_STEPS, COG_WARMUP
     _check_counts("CogVideoX fp32 cut, one process", _counts(kernels),
@@ -4813,7 +4860,7 @@ def observability_phase(kernels, dev, codecs):
     for name, compact in (("plain", compressed_config()), ("log_stats", compressed_config(log_stats=True))):
         StatsLogger.reset()
         pipe = pixart_pipeline(mcfg, vcfg, params, vae_params, dev, steps=RANK_STEPS, compact=compact)
-        _reset_counts(kernels)
+        _reset_counters()
         lat, img, sec = request(pipe, 1)
         check_image(img, f"[43] ring-8 binary emulation, {name}")
         runs[name] = (lat, sec, _counts(kernels))
@@ -4897,7 +4944,7 @@ def video_runner_phase(phase, name, argv, kernels, expect, shape, setup=None):
         return out
 
     pipe.decode = decode
-    _reset_counts(kernels)
+    _reset_counters()
     torch.cuda.reset_peak_memory_stats()
     video, total = _events_s(runner)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -5128,8 +5175,7 @@ def video_rank(rank, world, runs, collect_dir):
 
     from compactfusion_tpu_torch.compact import ring as compact_ring
     from compactfusion_tpu_torch.config import CompactConfig, CompressType, ParallelConfig
-    from compactfusion_tpu_torch.parallel.mesh import Mesh, make_mesh
-    from compactfusion_tpu_torch.parallel.ring import ring_shift
+    from compactfusion_tpu_torch.parallel.mesh import make_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5143,7 +5189,7 @@ def video_rank(rank, world, runs, collect_dir):
     pipe = pixart_pipeline(mcfg, vcfg, params, vae_params, dev, steps=COLLECT_STEPS, parallel=parallel,
                            mesh=make_mesh(parallel), compact=compact)
     os.environ["CFTPU_COLLECT_DIR"] = collect_dir
-    _reset_counts(kernels)
+    _reset_counters()
     g = torch.Generator(device=dev).manual_seed(1)
     text = torch.randn((2, 1, 120, 4096), generator=g, device=dev)
     pipe(text, None, generator=g, decode=False)
@@ -5161,13 +5207,13 @@ def video_rank(rank, world, runs, collect_dir):
             kw["compact"] = CompactConfig(enabled=True, warmup_steps=VID_CUT_WARMUP, residual=1, error_feedback=True,
                                           fastpath=True, check_consistency=True, compress_type=CompressType(codec))
         pipe = video_cut_pipeline(family, *models[family], dev, mesh=make_mesh(parallel), parallel=parallel, **kw)
-        _reset_counts(kernels)
-        ring_shift.nbytes = Mesh.all_to_all.nbytes = Mesh.all_gather_tree.nbytes = 0
+        _reset_counters()
         compact_ring.max_consistency_dev = 0.0
         lat, sec = video_cut_request(pipe, family, 1)
         out[name] = {"latents": lat.float().cpu().numpy(), "launches": _counts(kernels),
-                     "wire_bytes": ring_shift.nbytes, "all_to_all_bytes": Mesh.all_to_all.nbytes,
-                     "gather_bytes": Mesh.all_gather_tree.nbytes,
+                     "wire_bytes": _counter("ring_shift.nbytes"),
+                     "all_to_all_bytes": _counter("Mesh.all_to_all.nbytes"),
+                     "gather_bytes": _counter("Mesh.all_gather_tree.nbytes"),
                      "consistency_dev": compact_ring.max_consistency_dev, "skips": None, "s_per_image": sec}
         del pipe
     return out
@@ -5205,7 +5251,7 @@ def video_ring_phase(kernels, dev):
     for family in VID_CUT:
         mcfg, params = build_video_cut(family, dev)
         pipe = video_cut_pipeline(family, mcfg, params, dev)
-        _reset_counts(kernels)
+        _reset_counters()
         lat, sec = video_cut_request(pipe, family, 1)
         with plain_attention():
             plain, _ = video_cut_request(pipe, family, 1)
@@ -5396,7 +5442,7 @@ def stepvideo_phase(kernels, flash, quant, codecs, rf, timing, dev, gen):
         return out
 
     pipe._sample = sample
-    _reset_counts(kernels)
+    _reset_counters()
     torch.cuda.reset_peak_memory_stats()
     lat, total = _events_s(runner)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -5473,8 +5519,7 @@ def sv_rank(rank, world, runs):
 
     from compactfusion_tpu_torch.compact import ring as compact_ring
     from compactfusion_tpu_torch.config import CompactConfig, CompressType, ParallelConfig
-    from compactfusion_tpu_torch.parallel.mesh import Mesh, make_mesh
-    from compactfusion_tpu_torch.parallel.ring import ring_shift
+    from compactfusion_tpu_torch.parallel.mesh import make_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5489,14 +5534,14 @@ def sv_rank(rank, world, runs):
             kw["compact"] = CompactConfig(enabled=True, warmup_steps=SV_CUT_WARMUP, residual=1, error_feedback=True,
                                           fastpath=True, check_consistency=True, compress_type=CompressType(codec))
         pipe = sv_cut_pipeline(mcfg, params, dev, size, mesh=make_mesh(parallel), parallel=parallel, **kw)
-        _reset_counts(kernels)
-        ring_shift.nbytes = Mesh.all_to_all.nbytes = Mesh.all_gather_tree.nbytes = 0
+        _reset_counters()
         compact_ring.max_consistency_dev = 0.0
         with plain_attention() if plain and plain[0] else contextlib.nullcontext():
             lat, sec = sv_cut_request(pipe, 1)
         out[name] = {"latents": lat.float().cpu().numpy(), "launches": _counts(kernels),
-                     "wire_bytes": ring_shift.nbytes, "all_to_all_bytes": Mesh.all_to_all.nbytes,
-                     "gather_bytes": Mesh.all_gather_tree.nbytes,
+                     "wire_bytes": _counter("ring_shift.nbytes"),
+                     "all_to_all_bytes": _counter("Mesh.all_to_all.nbytes"),
+                     "gather_bytes": _counter("Mesh.all_gather_tree.nbytes"),
                      "consistency_dev": compact_ring.max_consistency_dev, "skips": None, "s_per_image": sec}
         del pipe
     return out
@@ -5524,7 +5569,7 @@ def stepvideo_ring_phase(kernels, dev):
     refs = {}
     for key, size in (("cut", SV_CUT_SIZE), ("fused", SV_FUSED_SIZE)):
         pipe = sv_cut_pipeline(mcfg, params, dev, size)
-        _reset_counts(kernels)
+        _reset_counters()
         lat, sec = sv_cut_request(pipe, 1)
         _check_counts(f"[49] step-video {key}, one process", _counts(kernels), {"flash_attn_with_lse": L * S})
         with plain_attention():
@@ -5733,7 +5778,7 @@ def quality_phase(kernels, dev, images, video, eig):
     from compactfusion_tpu_torch.schedulers import diffusion
     from compactfusion_tpu_torch.utils import tensor_viz
 
-    _reset_counts(kernels)
+    _reset_counters()
     gen = torch.Generator(device=dev).manual_seed(51)
     inc = _spiced_biases(inception.init_inception_v3(gen), gen)
     seeded = _spiced_biases(vgg.init_vgg16(gen), gen)
@@ -5881,7 +5926,7 @@ def examples_rank(rank, world, lossless_argv, binary_argv, per_layer_argv):
     model_pixart.init_pixart = lambda generator, cfg: spice_pixart(init(generator, cfg))
     kernels = port_kernels()
     out = {}
-    _reset_counts(kernels)
+    _reset_counters()
     t0 = time.perf_counter()
     err = external_usp_example.main(seq_len=USP_SEQ)
     torch.cuda.synchronize()
@@ -5889,7 +5934,7 @@ def examples_rank(rank, world, lossless_argv, binary_argv, per_layer_argv):
     for name, argv in (("lossless", lossless_argv), ("binary", binary_argv)):
         with pixart_depth(SP_CUT):
             runner = xDiTParallel(*_cli(argv).create_config())
-        _reset_counts(kernels)
+        _reset_counters()
         compact_ring.max_consistency_dev = 0.0
         t0 = time.perf_counter()
         lat = runner(decode=False)
@@ -5899,7 +5944,7 @@ def examples_rank(rank, world, lossless_argv, binary_argv, per_layer_argv):
         del runner, lat
         gc.collect()
         torch.cuda.empty_cache()
-    _reset_counts(kernels)
+    _reset_counters()
     compact_ring.max_consistency_dev = 0.0
     t0 = time.perf_counter()
     with pixart_depth(SP_CUT):
@@ -6075,20 +6120,20 @@ def main():
         return pixart_pipeline(mcfg, vcfg, params, vae_params, dev, **kw)
 
     pipe = pipeline()
-    _reset_counts(kernels)
+    _reset_counters()
     lossless = None
     secs = []
     for seed in (1, 2, 3):
-        before = flash.flash_attn_with_lse.launches
-        wide_before = flash.flash_attn_with_lse.wide_launches
+        before = _counter("flash_attn_with_lse.launches")
+        wide_before = _counter("flash_attn_with_lse.wide_launches")
         lat, img, sec = request(pipe, seed)
         lo, hi = check_image(img, f"request seed {seed}")
-        launched = flash.flash_attn_with_lse.launches - before
+        launched = _counter("flash_attn_with_lse.launches") - before
         if launched < DEPTH * STEPS:
             raise AssertionError(f"request seed {seed}: flash launched {launched} < {DEPTH * STEPS} times")
-        if flash.flash_attn_with_lse.wide_launches - wide_before != 1:
+        if _counter("flash_attn_with_lse.wide_launches") - wide_before != 1:
             raise AssertionError(f"request seed {seed}: the VAE's attention did not launch the wide body once")
-        if any(fn.launches for fn in kernels[1:]):
+        if any(_counter(f"{fn.__name__}.launches") for fn in kernels[1:]):
             raise AssertionError("compression off, yet a quant or window kernel launched")
         if lossless is None:
             lossless, images = lat, {"lossless": img}
@@ -6137,7 +6182,7 @@ def main():
         *plan_launches(optimize_plan(mixed)))
 
     mark("8-9")
-    _reset_counts(kernels)
+    _reset_counters()
     calibrated, cal_s = calibrated_plan(params, mcfg, vcfg, dev)
     hist = {m: int((calibrated == m).sum()) for m in range(7)}
     cal_launches = _counts(kernels)
@@ -6184,20 +6229,20 @@ def main():
 
     cut_models = dataclasses.replace(mcfg, depth=SP_CUT), vcfg, _cut_blocks(params, SP_CUT), vae_params
     cut_pipe = pixart_pipeline(*cut_models, dev, steps=RANK_STEPS)
-    _reset_counts(kernels)
+    _reset_counters()
     cut_lat, cut_img, cut_sec = request(cut_pipe, 1)
     check_image(cut_img, "PixArt cut, one process")
     _check_counts("PixArt cut, one process", _counts(kernels), {"flash_attn_with_lse": SP_CUT * RANK_STEPS + 1, WIDE: 1})
     lossless_np = cut_lat.float().cpu().numpy()
     print(f"[13] PixArt-alpha 512 cut to its first {SP_CUT} of {DEPTH} blocks (full width): one process, "
           f"lossless, {cut_sec:.4f} s/image")
-    _reset_counts(kernels)
+    _reset_counters()
     with cfg_halves_apart():
         halves_lat, halves_img, halves_sec = request(cut_pipe, 1)
     check_image(halves_img, "CFG halves at B1")
-    if (flash.flash_attn_with_lse.launches, flash.flash_attn_with_lse.wide_launches) != (2 * SP_CUT * RANK_STEPS + 1, 1):
-        raise AssertionError(f"CFG halves at B1: flash launched {flash.flash_attn_with_lse.launches} times, "
-                             f"{flash.flash_attn_with_lse.wide_launches} on the wide body")
+    halves = (_counter("flash_attn_with_lse.launches"), _counter("flash_attn_with_lse.wide_launches"))
+    if halves != (2 * SP_CUT * RANK_STEPS + 1, 1):
+        raise AssertionError(f"CFG halves at B1: flash launched {halves[0]} times, {halves[1]} on the wide body")
     halves_np = halves_lat.float().cpu().numpy()
     halves_rel = _rel_np(halves_np, lossless_np)
     print(f"[13] one process, each CFG half's forward at B1 (as a cfg-2 rank runs it): rel err vs the "
@@ -6206,7 +6251,7 @@ def main():
                                   "launches": _counts(kernels)}
     halves_ref = ("the CFG halves at B1", halves_np, HALVES_REL_MAX)
     # the single-process emulation of the ring: same codec, chunking and batch
-    _reset_counts(kernels)
+    _reset_counters()
     sim_lat, sim_img, sim_sec = request(pixart_pipeline(
         *cut_models, dev, steps=RANK_STEPS, compact=ring_compact("binary", comp_rank=-1, simulate_ring=2)), 1)
     check_image(sim_img, "ring-2 emulation")
@@ -6263,10 +6308,10 @@ def main():
     mark("13-15")
     # -- 16. the flash profiling probes -----------------------------------------
     part_rows, plumb_row = check_probes(ops_probes, flash, flash_parts, timing, dev, gen)
-    _reset_counts(kernels)
+    _reset_counters()
     stage_rows = flash_parts.run()
     block_rows = block_parts.run()
-    counted = {fn.__name__: fn.launches for fn in kernels}
+    counted = {fn.__name__: _counter(f"{fn.__name__}.launches") for fn in kernels}
     ran = {k: sum(r["launches"].get(k, 0) for r in stage_rows + block_rows) for k in counted}
     for k in ("flash_parts", "plumb"):
         if not counted[k]:

@@ -24,6 +24,7 @@ def run(argv, description: str, model: str, prefix: str, runner_cls, **defaults)
     engine_config, input_config = args.create_config()
 
     runner = runner_cls(engine_config, input_config)
+    Profiler.enable()
     with Profiler.scope("total"):
         with Profiler.scope("warmup"):
             runner()

@@ -44,6 +44,7 @@ def main(argv=None):
     engine_config, input_config = args.create_config()
 
     runner = xDiTParallel(engine_config, input_config)
+    Profiler.enable()
     with Profiler.scope("total"):
         with Profiler.scope("warmup"):
             runner()

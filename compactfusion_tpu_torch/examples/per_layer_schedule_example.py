@@ -70,6 +70,7 @@ def main(argv=None, check_consistency: bool = False):
     )
 
     runner = xDiTParallel(engine_config, input_config)
+    Profiler.enable()
     with Profiler.scope("total"):
         with Profiler.scope("warmup"):
             runner(decode=False)

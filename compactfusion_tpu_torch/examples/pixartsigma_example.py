@@ -39,6 +39,7 @@ def main(argv=None):
     engine_config, input_config = xFuserArgs.from_cli_args(ns).create_config()
 
     runner = xDiTParallel(engine_config, input_config)
+    Profiler.enable()
     with Profiler.scope("total"):
         with Profiler.scope("warmup"):
             runner()

@@ -27,6 +27,7 @@ from compactfusion_tpu_torch.cache.accel import PIPEFUSION_REFUSAL, CacheAccelSt
 from compactfusion_tpu_torch.models import common as cm
 from compactfusion_tpu_torch.models.attn_impl import SingleDeviceAttn
 from compactfusion_tpu_torch.parallel.pipefusion import pipefusion_blocks
+from compactfusion_tpu_torch.utils.prof import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,35 +198,42 @@ def flux_double_scan(blocks, img, txt, temb, cfg: FluxConfig, *, img_rope, txt_r
     (per-layer compression plans) with ``attn_state`` the tuple of their
     states; states update in place and are returned.  ``tp_axis``: the ffns
     sum over that axis of ``mesh``."""
-    h = cfg.heads
-    # the params live in the rotate-half rope layout (io/hf.py permutes the
-    # checkpoint's interleaved Wq/Wk columns)
-    cos_i, sin_i = cm.rope_half_tables(*img_rope)
-    cos_t, sin_t = cm.rope_half_tables(*txt_rope)
-    depth = cm.weight_shape(blocks["img_mod"])[0]
-    for l, (layer_attn, seg_state, seg_l) in enumerate(cm.layer_strategies(attn, attn_state, depth)):
-        p = cm.layer_of(blocks, l)
-        i_sh_a, i_sc_a, i_g_a, i_sh_m, i_sc_m, i_g_m = _mod(p["img_mod"], temb, 6)
-        t_sh_a, t_sc_a, t_g_a, t_sh_m, t_sc_m, t_g_m = _mod(p["txt_mod"], temb, 6)
-
-        img_n = _modulate(img, i_sh_a, i_sc_a)
-        txt_n = _modulate(txt, t_sh_a, t_sc_a)
-        iq, ik, iv = (_heads(x, h) for x in cm.linear(p["img_qkv"], img_n).chunk(3, dim=-1))
-        tq, tk, tv = (_heads(x, h) for x in cm.linear(p["txt_qkv"], txt_n).chunk(3, dim=-1))
-        iq, ik = cm.rmsnorm(p["img_q_norm"], iq), cm.rmsnorm(p["img_k_norm"], ik)
-        tq, tk = cm.rmsnorm(p["txt_q_norm"], tq), cm.rmsnorm(p["txt_k_norm"], tk)
-        iq, ik = cm.apply_rope_half(iq, cos_i, sin_i), cm.apply_rope_half(ik, cos_i, sin_i)
-        tq, tk = cm.apply_rope_half(tq, cos_t, sin_t), cm.apply_rope_half(tk, cos_t, sin_t)
-
-        o, _ = layer_attn(iq, ik, iv, cm.layer_of(seg_state, seg_l), joint_q=tq, joint_k=tk,
-                          joint_v=tv)
-        s_txt = txt.shape[1]
-        txt_o, img_o = o[:, :s_txt], o[:, s_txt:]
-
-        img = img + i_g_a * cm.linear(p["img_out"], _unheads(img_o))
-        txt = txt + t_g_a * cm.linear(p["txt_out"], _unheads(txt_o))
-        img = img + i_g_m * cm.ffn(p["img_ffn"], _modulate(img, i_sh_m, i_sc_m), tp_axis=tp_axis, mesh=mesh)
-        txt = txt + t_g_m * cm.ffn(p["txt_ffn"], _modulate(txt, t_sh_m, t_sc_m), tp_axis=tp_axis, mesh=mesh)
+    with span("double_blocks"):
+        h = cfg.heads
+        # the params live in the rotate-half rope layout (io/hf.py permutes the
+        # checkpoint's interleaved Wq/Wk columns)
+        cos_i, sin_i = cm.rope_half_tables(*img_rope)
+        cos_t, sin_t = cm.rope_half_tables(*txt_rope)
+        depth = cm.weight_shape(blocks["img_mod"])[0]
+        for l, (layer_attn, seg_state, seg_l) in enumerate(cm.layer_strategies(attn, attn_state, depth)):
+            with span("modulate"):
+                p = cm.layer_of(blocks, l)
+                i_sh_a, i_sc_a, i_g_a, i_sh_m, i_sc_m, i_g_m = _mod(p["img_mod"], temb, 6)
+                t_sh_a, t_sc_a, t_g_a, t_sh_m, t_sc_m, t_g_m = _mod(p["txt_mod"], temb, 6)
+                img_n = _modulate(img, i_sh_a, i_sc_a)
+                txt_n = _modulate(txt, t_sh_a, t_sc_a)
+            with span("qkv"):
+                iq, ik, iv = (_heads(x, h) for x in cm.linear(p["img_qkv"], img_n).chunk(3, dim=-1))
+                tq, tk, tv = (_heads(x, h) for x in cm.linear(p["txt_qkv"], txt_n).chunk(3, dim=-1))
+            with span("qk_norm_rope"):
+                iq, ik = cm.rmsnorm(p["img_q_norm"], iq), cm.rmsnorm(p["img_k_norm"], ik)
+                tq, tk = cm.rmsnorm(p["txt_q_norm"], tq), cm.rmsnorm(p["txt_k_norm"], tk)
+                iq, ik = cm.apply_rope_half(iq, cos_i, sin_i), cm.apply_rope_half(ik, cos_i, sin_i)
+                tq, tk = cm.apply_rope_half(tq, cos_t, sin_t), cm.apply_rope_half(tk, cos_t, sin_t)
+            with span("attention"):
+                o, _ = layer_attn(iq, ik, iv, cm.layer_of(seg_state, seg_l), joint_q=tq, joint_k=tk,
+                                  joint_v=tv)
+                s_txt = txt.shape[1]
+                txt_o, img_o = o[:, :s_txt], o[:, s_txt:]
+            with span("out_gate"):
+                img = img + i_g_a * cm.linear(p["img_out"], _unheads(img_o))
+                txt = txt + t_g_a * cm.linear(p["txt_out"], _unheads(txt_o))
+            with span("modulate"):
+                img_n = _modulate(img, i_sh_m, i_sc_m)
+                txt_n = _modulate(txt, t_sh_m, t_sc_m)
+            with span("ffn_gate"):
+                img = img + i_g_m * cm.ffn(p["img_ffn"], img_n, tp_axis=tp_axis, mesh=mesh)
+                txt = txt + t_g_m * cm.ffn(p["txt_ffn"], txt_n, tp_axis=tp_axis, mesh=mesh)
     return img, txt, attn_state
 
 
@@ -239,57 +247,74 @@ def flux_single_scan(blocks, img, txt, temb, cfg: FluxConfig, *, img_rope, txt_r
     type) the stream stays concatenated across the blocks and q/k rotate by
     one fused rope table (rope is positionwise, so concat∘rope ==
     rope∘concat); any other strategy gets the text rows as joint tensors."""
-    h = cfg.heads
-    cos_i, sin_i = cm.rope_half_tables(*img_rope)
-    cos_t, sin_t = cm.rope_half_tables(*txt_rope)
-    s_txt = txt.shape[1]
-    depth = cm.weight_shape(blocks["mod"])[0]
+    with span("single_blocks"):
+        h = cfg.heads
+        cos_i, sin_i = cm.rope_half_tables(*img_rope)
+        cos_t, sin_t = cm.rope_half_tables(*txt_rope)
+        s_txt = txt.shape[1]
+        depth = cm.weight_shape(blocks["mod"])[0]
 
-    def qkv_and_norm(p, x):
-        sh, sc, g = _mod(p["mod"], temb, 3)
-        xn = _modulate(x, sh, sc)
-        q, k, v = (_heads(y, h) for y in cm.linear(p["qkv"], xn).chunk(3, dim=-1))
-        return xn, cm.rmsnorm(p["q_norm"], q), cm.rmsnorm(p["k_norm"], k), v, g
+        def modulate(p, x):
+            sh, sc, g = _mod(p["mod"], temb, 3)
+            return _modulate(x, sh, sc), g
 
-    def out_proj(p, attn_out, xn, x, g):
-        # [attn_out, gelu(mlp)] @ proj_out, the MLP half as a GELU FFN
-        # (split over tp; the attention half stays whole)
-        y = cm.linear(p["out_attn"], attn_out) + cm.ffn(p["mlp"], xn, tp_axis=tp_axis, mesh=mesh)
-        return x + g * y
+        def qkv(p, xn):
+            return (_heads(y, h) for y in cm.linear(p["qkv"], xn).chunk(3, dim=-1))
 
-    if type(attn) is SingleDeviceAttn and not cm.has_tensors(attn_state):
-        cos_f = torch.cat([cos_t, cos_i], dim=0)
-        sin_f = torch.cat([sin_t, sin_i], dim=0)
-        x = torch.cat([txt, img], dim=1)
-        for l in range(depth):
-            p = cm.layer_of(blocks, l)
-            xn, q, k, v, g = qkv_and_norm(p, x)
-            q, k = cm.apply_rope_half(q, cos_f, sin_f), cm.apply_rope_half(k, cos_f, sin_f)
-            o, _ = attn(q, k, v, ())
-            x = out_proj(p, _unheads(o), xn, x, g)
-        return x[:, s_txt:], x[:, :s_txt], attn_state
+        def out_proj(p, o, xn, x, g):
+            # [attn_out, gelu(mlp)] @ proj_out, the MLP half as a GELU FFN
+            # (split over tp; the attention half stays whole)
+            y = cm.linear(p["out_attn"], _unheads(o)) + cm.ffn(p["mlp"], xn, tp_axis=tp_axis, mesh=mesh)
+            return x + g * y
 
-    for l, (layer_attn, seg_state, seg_l) in enumerate(cm.layer_strategies(attn, attn_state, depth)):
-        p = cm.layer_of(blocks, l)
-        x = torch.cat([txt, img], dim=1)
-        xn, q, k, v, g = qkv_and_norm(p, x)
-        # the joint (text) rows are the first s_txt tokens of the stream
-        tq, iq = q[:, :s_txt], q[:, s_txt:]
-        tk, ik = k[:, :s_txt], k[:, s_txt:]
-        tv, iv = v[:, :s_txt], v[:, s_txt:]
-        iq, ik = cm.apply_rope_half(iq, cos_i, sin_i), cm.apply_rope_half(ik, cos_i, sin_i)
-        tq, tk = cm.apply_rope_half(tq, cos_t, sin_t), cm.apply_rope_half(tk, cos_t, sin_t)
-        o, _ = layer_attn(iq, ik, iv, cm.layer_of(seg_state, seg_l), joint_q=tq, joint_k=tk,
-                          joint_v=tv)
-        x = out_proj(p, _unheads(o), xn, x, g)
-        img, txt = x[:, s_txt:], x[:, :s_txt]
-    return img, txt, attn_state
+        if type(attn) is SingleDeviceAttn and not cm.has_tensors(attn_state):
+            cos_f = torch.cat([cos_t, cos_i], dim=0)
+            sin_f = torch.cat([sin_t, sin_i], dim=0)
+            x = torch.cat([txt, img], dim=1)
+            for l in range(depth):
+                with span("modulate"):
+                    p = cm.layer_of(blocks, l)
+                    xn, g = modulate(p, x)
+                with span("qkv"):
+                    q, k, v = qkv(p, xn)
+                with span("qk_norm_rope"):
+                    q, k = cm.rmsnorm(p["q_norm"], q), cm.rmsnorm(p["k_norm"], k)
+                    q, k = cm.apply_rope_half(q, cos_f, sin_f), cm.apply_rope_half(k, cos_f, sin_f)
+                with span("attention"):
+                    o, _ = attn(q, k, v, ())
+                with span("ffn_gate"):
+                    x = out_proj(p, o, xn, x, g)
+            return x[:, s_txt:], x[:, :s_txt], attn_state
+
+        for l, (layer_attn, seg_state, seg_l) in enumerate(cm.layer_strategies(attn, attn_state, depth)):
+            with span("modulate"):
+                p = cm.layer_of(blocks, l)
+                x = torch.cat([txt, img], dim=1)
+                xn, g = modulate(p, x)
+            with span("qkv"):
+                q, k, v = qkv(p, xn)
+            with span("qk_norm_rope"):
+                q, k = cm.rmsnorm(p["q_norm"], q), cm.rmsnorm(p["k_norm"], k)
+                # the joint (text) rows are the first s_txt tokens of the stream
+                tq, iq = q[:, :s_txt], q[:, s_txt:]
+                tk, ik = k[:, :s_txt], k[:, s_txt:]
+                iq, ik = cm.apply_rope_half(iq, cos_i, sin_i), cm.apply_rope_half(ik, cos_i, sin_i)
+                tq, tk = cm.apply_rope_half(tq, cos_t, sin_t), cm.apply_rope_half(tk, cos_t, sin_t)
+            with span("attention"):
+                tv, iv = v[:, :s_txt], v[:, s_txt:]
+                o, _ = layer_attn(iq, ik, iv, cm.layer_of(seg_state, seg_l), joint_q=tq, joint_k=tk,
+                                  joint_v=tv)
+            with span("ffn_gate"):
+                x = out_proj(p, o, xn, x, g)
+                img, txt = x[:, s_txt:], x[:, :s_txt]
+        return img, txt, attn_state
 
 
 def flux_head(params, img, temb, cfg: FluxConfig):
     """AdaLN-Continuous norm_out + proj_out -> velocity tokens."""
-    scale, shift = _mod(params["norm_out_mod"], temb, 2)
-    return cm.linear(params["proj_out"], _modulate(img, shift, scale))
+    with span("head"):
+        scale, shift = _mod(params["norm_out_mod"], temb, 2)
+        return cm.linear(params["proj_out"], _modulate(img, shift, scale))
 
 
 def flux_forward(
@@ -340,9 +365,10 @@ def flux_forward(
         raise ValueError(f"PipeFusion ({pp_stages} stages) or TP ({tp_axis}) needs this rank's mesh")
     if pp_stages > 1 and cache_cfg is not None and cache_cfg.mode != "none":
         raise ValueError(PIPEFUSION_REFUSAL)
-    img = cm.linear(params["x_embedder"], img)
-    txt = cm.linear(params["context_embedder"], txt)
-    temb = flux_time_embed(params, pooled, t, guidance, cfg)
+    with span("embed"):
+        img = cm.linear(params["x_embedder"], img)
+        txt = cm.linear(params["context_embedder"], txt)
+        temb = flux_time_embed(params, pooled, t, guidance, cfg)
     rope = dict(img_rope=img_rope, txt_rope=txt_rope, tp_axis=tp_axis, mesh=mesh)
 
     if cache_cfg is not None and cache_cfg.mode != "none":

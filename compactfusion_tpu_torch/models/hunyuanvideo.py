@@ -39,6 +39,7 @@ from compactfusion_tpu_torch.models.flux import (
 from compactfusion_tpu_torch.models.cogvideox import video_positions
 from compactfusion_tpu_torch.ops.attention import attn_with_lse
 from compactfusion_tpu_torch.parallel.pipefusion import pipefusion_blocks
+from compactfusion_tpu_torch.utils.prof import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,9 +163,11 @@ def hunyuanvideo_forward(
     (default ``attn``).  Returns (velocity, state_double, state_single)."""
     if (pp_stages > 1 or tp_axis is not None) and mesh is None:
         raise ValueError(f"PipeFusion ({pp_stages} stages) or TP ({tp_axis}) needs this rank's mesh")
-    img = cm.linear(params["x_embedder"], video)
-    txt = token_refiner(params["refiner"], txt.to(cfg.dtype), t, cfg, mask=text_mask)
-    temb = flux_time_embed(params, pooled, t, guidance, cfg)
+    with span("embed"):
+        img = cm.linear(params["x_embedder"], video)
+        temb = flux_time_embed(params, pooled, t, guidance, cfg)
+    with span("refiner"):
+        txt = token_refiner(params["refiner"], txt.to(cfg.dtype), t, cfg, mask=text_mask)
     rope = dict(img_rope=video_rope, txt_rope=txt_rope, tp_axis=tp_axis, mesh=mesh)
     attn_s = attn if attn_single is None else attn_single
     if pp_stages > 1:

@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from compactfusion_tpu_torch import ROADMAP_HINT
+from compactfusion_tpu_torch.utils.prof import annotate, count, tracing
 
 #: bytes per element of the dtypes the kernels take (the ``ELEM`` of
 #: ``RegLayout`` and ``WideLayout``)
@@ -473,23 +474,25 @@ def flash_attn_with_lse(
             b, sq, sk, h, d, ctypes.c_float(scale), *plan_args(plan), int(f32), stream,
         )
     _build.check(status, "flash_attn_with_lse")
+    # the Profiler's counters: launches, those on the wide body, on the wgmma
+    # body, on fp32 q/k/v, and on fp32 q/k/v on the wide body
     wide = plan[0] == "flash_wide_tile"
-    flash_attn_with_lse.launches += 1
-    flash_attn_with_lse.wide_launches += wide
-    flash_attn_with_lse.wgmma_launches += plan[0] == "flash_wgmma_tile"
-    flash_attn_with_lse.f32_launches += f32
-    flash_attn_with_lse.f32_wide_launches += f32 and wide
+    count("flash_attn_with_lse.launches")
+    count("flash_attn_with_lse.wide_launches", wide)
+    count("flash_attn_with_lse.wgmma_launches", plan[0] == "flash_wgmma_tile")
+    count("flash_attn_with_lse.f32_launches", f32)
+    count("flash_attn_with_lse.f32_wide_launches", f32 and wide)
+    launched(plan)
     return out, lse
 
 
-#: kernel launches since the count was last set to 0, those of them on the
-#: wide body, on the wgmma body, on fp32 q/k/v, and on fp32 q/k/v on the
-#: wide body
-flash_attn_with_lse.launches = 0
-flash_attn_with_lse.wide_launches = 0
-flash_attn_with_lse.wgmma_launches = 0
-flash_attn_with_lse.f32_launches = 0
-flash_attn_with_lse.f32_wide_launches = 0
+def launched(plan: Tuple[str, int, int]):
+    """Count a flash launch under its tile body (``flash.body.<body>``)
+    and, while tracing, put its route on the innermost open span (the
+    ``attention`` span of a block)."""
+    count(f"flash.body.{plan[0]}")
+    if tracing():
+        annotate({"body": plan[0], "dp": plan[1], "warps": plan[2]})
 
 
 def window_mask(s: int, window: int, device=None) -> torch.Tensor:
@@ -551,12 +554,7 @@ def flash_attn_window_with_lse(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, "flash_attn_window_with_lse")
-    flash_attn_window_with_lse.launches += 1
-    flash_attn_window_with_lse.f32_launches += f32
+    count("flash_attn_window_with_lse.launches")
+    count("flash_attn_window_with_lse.f32_launches", f32)
+    launched(plan)
     return out, lse
-
-
-#: kernel launches since the count was last set to 0, and those of them on
-#: fp32 q/k/v
-flash_attn_window_with_lse.launches = 0
-flash_attn_window_with_lse.f32_launches = 0

@@ -37,6 +37,7 @@ from typing import Iterable
 import torch
 
 from compactfusion_tpu_torch.ops.flash import _check_qkv, flash_plan
+from compactfusion_tpu_torch.utils.prof import count
 
 STAGES = ("qk", "scale", "max", "exp", "av")
 _BITS = {"qk": 1, "scale": 2, "max": 4, "exp": 8, "av": 16}
@@ -138,12 +139,8 @@ def flash_parts(q, k, v, parts) -> torch.Tensor:
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, "flash_parts")
-    flash_parts.launches += 1
+    count("flash_parts.launches")
     return out
-
-
-#: kernel launches since the count was last set to 0
-flash_parts.launches = 0
 
 
 def plumb_ref(q, k, v) -> torch.Tensor:
@@ -173,12 +170,8 @@ def plumb(q, k, v) -> torch.Tensor:
         out.data_ptr(), b, s, h, d, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, "plumb")
-    plumb.launches += 1
+    count("plumb.launches")
     return out
-
-
-#: kernel launches since the count was last set to 0
-plumb.launches = 0
 
 
 def empty(device) -> None:

@@ -16,6 +16,7 @@ from typing import Tuple
 import torch
 
 from compactfusion_tpu_torch.compact.packing import pack_2bit, pack_bits, unpack_2bit, unpack_bits
+from compactfusion_tpu_torch.utils.prof import count
 
 _FLOATS = (torch.float32, torch.bfloat16)
 
@@ -163,9 +164,8 @@ def binary_quant_fastpath(x, base, u, v) -> Tuple[torch.Tensor, torch.Tensor]:
         return binary_quant_fastpath_ref(x, base, u, v)
     plan = quant_plan(8, base, v, x=x)
     out = _quant_launch("cf_binary_quant", x, base, u, v, 8, plan)
-    binary_quant_fastpath.launches += 1
-    if plan > 1:
-        binary_quant_fastpath.vec_launches += 1
+    count("binary_quant_fastpath.launches")
+    count("binary_quant_fastpath.vec_launches", plan > 1)
     return out
 
 
@@ -175,9 +175,8 @@ def binary_dequant_fastpath(packed, base, u, v) -> torch.Tensor:
         return binary_dequant_fastpath_ref(packed, base, u, v)
     plan = quant_plan(8, base, v, packed=packed)
     out = _dequant_launch("cf_binary_dequant", packed, base, u, v, 8, plan)
-    binary_dequant_fastpath.launches += 1
-    if plan > 1:
-        binary_dequant_fastpath.vec_launches += 1
+    count("binary_dequant_fastpath.launches")
+    count("binary_dequant_fastpath.vec_launches", plan > 1)
     return out
 
 
@@ -189,9 +188,8 @@ def int2_quant_fastpath(x, base, u, v) -> Tuple[torch.Tensor, torch.Tensor]:
         return int2_quant_fastpath_ref(x, base, u, v)
     plan = quant_plan(4, base, v, x=x)
     out = _quant_launch("cf_int2_quant", x, base, u, v, 4, plan)
-    int2_quant_fastpath.launches += 1
-    if plan > 1:
-        int2_quant_fastpath.vec_launches += 1
+    count("int2_quant_fastpath.launches")
+    count("int2_quant_fastpath.vec_launches", plan > 1)
     return out
 
 
@@ -201,19 +199,6 @@ def int2_dequant_fastpath(packed, base, u, v) -> torch.Tensor:
         return int2_dequant_fastpath_ref(packed, base, u, v)
     plan = quant_plan(4, base, v, packed=packed)
     out = _dequant_launch("cf_int2_dequant", packed, base, u, v, 4, plan)
-    int2_dequant_fastpath.launches += 1
-    if plan > 1:
-        int2_dequant_fastpath.vec_launches += 1
+    count("int2_dequant_fastpath.launches")
+    count("int2_dequant_fastpath.vec_launches", plan > 1)
     return out
-
-
-#: kernel launches since the counts were last set to 0 (those on the vector
-#: plan also apart)
-binary_quant_fastpath.launches = 0
-binary_quant_fastpath.vec_launches = 0
-binary_dequant_fastpath.launches = 0
-binary_dequant_fastpath.vec_launches = 0
-int2_quant_fastpath.launches = 0
-int2_quant_fastpath.vec_launches = 0
-int2_dequant_fastpath.launches = 0
-int2_dequant_fastpath.vec_launches = 0

@@ -38,6 +38,7 @@ import torch
 from compactfusion_tpu_torch.compact import codecs
 from compactfusion_tpu_torch.compact.codecs import Int8Payload
 from compactfusion_tpu_torch.ops.merge import merge_out_lse
+from compactfusion_tpu_torch.utils.prof import count
 
 FUSED_CODECS = ("binary", "int2", "lowrank")
 _CODEC_ID = {"binary": 0, "int2": 1, "lowrank": 2}
@@ -52,12 +53,12 @@ def _attn_partial(q, k, v, scale):
     return _attn_math(q, k, v, scale, False, None, None)
 
 
-def _hop(lib, plan, q, q_map, k, v, state, scale, first, last, f32, stream) -> Tuple[int, bool]:
+def _hop(lib, plan, q, q_map, k, v, state, scale, first, last, f32, stream) -> Tuple[int, tuple]:
     """One launch of kernel 7's hop of q against k/v at ``plan`` (the wgmma
     body's through ``q_map``, q's tensor map encoded once a call; a hop with
     no key takes the register body: a tensor map cannot describe an empty
     tensor), folded into ``state`` (m, l, acc, out, lse pointers); returns
-    the C status and whether it ran on the wgmma body."""
+    the C status and the plan it ran."""
     from compactfusion_tpu_torch.ops.flash import WG_BK, launch_plan, plan_args, tma_map
 
     b, sq, h, d = q.shape
@@ -67,13 +68,13 @@ def _hop(lib, plan, q, q_map, k, v, state, scale, first, last, f32, stream) -> T
         return lib.cf_ring_flash_hop_wgmma(
             *q_map, *tma_map(lib, "k", k, dp, WG_BK), *tma_map(lib, "v", v, dp, WG_BK), *state,
             b, sq, sk, h, d, scale, int(first), int(last), dp, warps, stream,
-        ), True
+        ), plan
     if plan[0] == "flash_wgmma_tile":
         plan, _ = launch_plan(b, h, sq, d, q.dtype)
     return lib.cf_ring_flash_hop(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *state, b, sq, sk, h, d, scale, int(first), int(last), *plan_args(plan), int(f32), stream,
-    ), False
+    ), plan
 
 
 # -- kernel 7: the uncompressed ring --------------------------------------------
@@ -108,7 +109,7 @@ def ring_flash_attn_with_lse(q: torch.Tensor, kv_blocks: Iterable, ring_size: in
         return ring_flash_attn_with_lse_ref(q, kv_blocks, ring_size, scale)
 
     from compactfusion_tpu_torch.ops import _build
-    from compactfusion_tpu_torch.ops.flash import _check_kv, _check_q, launch_plan, plan_rows, tma_map
+    from compactfusion_tpu_torch.ops.flash import _check_kv, _check_q, launch_plan, launched, plan_rows, tma_map
 
     _check_q(q)
     b, sq, h, d = q.shape
@@ -130,22 +131,18 @@ def ring_flash_attn_with_lse(q: torch.Tensor, kv_blocks: Iterable, ring_size: in
         if hops >= ring_size:
             raise ValueError(f"ring of {ring_size} got more hops")
         _check_kv(q, k, v)
-        status, wg = _hop(lib, plan, q, q_map, k, v, state, c_scale, hops == 0, hops == ring_size - 1, f32, stream)
+        status, ran = _hop(lib, plan, q, q_map, k, v, state, c_scale, hops == 0, hops == ring_size - 1, f32, stream)
         _build.check(status, "ring_flash_attn_with_lse")
-        ring_flash_attn_with_lse.launches += 1
-        ring_flash_attn_with_lse.wgmma_launches += wg
-        ring_flash_attn_with_lse.f32_launches += f32
+        # the Profiler's counters: launches (one per hop), those on the wgmma
+        # body, and those on fp32 q/k/v
+        count("ring_flash_attn_with_lse.launches")
+        count("ring_flash_attn_with_lse.wgmma_launches", ran[0] == "flash_wgmma_tile")
+        count("ring_flash_attn_with_lse.f32_launches", f32)
+        launched(ran)
         hops += 1
     if hops != ring_size:
         raise ValueError(f"ring of {ring_size} got {hops} hops")
     return out, lse
-
-
-#: kernel launches (one per hop) since the count was last set to 0, those of
-#: them on the wgmma body, and those on fp32 q/k/v
-ring_flash_attn_with_lse.launches = 0
-ring_flash_attn_with_lse.wgmma_launches = 0
-ring_flash_attn_with_lse.f32_launches = 0
 
 
 # -- kernel 8: the compressed ring ----------------------------------------------
@@ -365,7 +362,7 @@ def ef_update_slot(k_base, v_base, src: int, codec: str, payload, shape, rec=Non
     B == 1 only).
 
     On CUDA stacks: one launch on fp32 stacks, two on int8 stacks (the
-    per-channel min and max, then the codes), each counted in
+    per-channel min and max, then the codes), each counted under
     ``ef_update_slot.launches`` (and, with an fp32 ``rec``, in
     ``ef_update_slot.f32_launches``).  On CPU stacks the twin runs."""
     dtype = torch.bfloat16 if rec is None else rec[0].dtype
@@ -441,14 +438,10 @@ def _ef_launch(lib, k_base, v_base, src, codec, parts, shape, rec, scratch, stre
         int(dtype == torch.float32), stream,
     )
     _build.check(status, "ef_update_slot")
-    ef_update_slot.launches += 2 if quantized else 1
-    ef_update_slot.f32_launches += (2 if quantized else 1) * (dtype == torch.float32)
-
-
-#: kernel launches (one per hop on fp32 stacks, two on int8) since the count
-#: was last set to 0, and those of them for fp32 activations
-ef_update_slot.launches = 0
-ef_update_slot.f32_launches = 0
+    # the Profiler's counters: launches (one per hop on fp32 stacks, two on
+    # int8), and those of them for fp32 activations
+    count("ef_update_slot.launches", 2 if quantized else 1)
+    count("ef_update_slot.f32_launches", (2 if quantized else 1) * (dtype == torch.float32))
 
 
 def compact_ring_flash(q, k, v, k_base, v_base, payloads: Iterable, *, codec: str, my: int,
@@ -466,7 +459,7 @@ def compact_ring_flash(q, k, v, k_base, v_base, payloads: Iterable, *, codec: st
     the requant runs over the slot's N = Sk rows); ``payloads`` yields
     ``ring_size`` payload tuples of :func:`fused_ring_payload`, the own
     first.  Returns (out (B, S, H, D), lse (B, H, S) fp32).
-    ``compact_ring_flash.launches`` counts the flash launches (one per hop;
+    The counter ``compact_ring_flash.launches`` counts the flash launches (one per hop;
     ``wgmma_launches`` those on the wgmma body),
     ``ef_update_slot.launches`` the EF pass's."""
     if codec not in FUSED_CODECS:
@@ -479,7 +472,7 @@ def compact_ring_flash(q, k, v, k_base, v_base, payloads: Iterable, *, codec: st
                                       ring_size=ring_size, scale=scale)
 
     from compactfusion_tpu_torch.ops import _build
-    from compactfusion_tpu_torch.ops.flash import _check_qkv, launch_plan, plan_rows, tma_map
+    from compactfusion_tpu_torch.ops.flash import _check_qkv, launch_plan, launched, plan_rows, tma_map
 
     _check_qkv(q, k, v)
     b, sq, h, d = q.shape
@@ -511,20 +504,17 @@ def compact_ring_flash(q, k, v, k_base, v_base, payloads: Iterable, *, codec: st
                    _check_payload(codec, payload, b, sk, h, d), (b, sk, h, d), rec if hops else None,
                    scratch, stream, q.dtype)
         kk, vv = rec if hops else (k, v)
-        status, wg = _hop(lib, plan, q, q_map, kk, vv, state, c_scale, hops == 0, hops == ring_size - 1, f32, stream)
+        status, ran = _hop(lib, plan, q, q_map, kk, vv, state, c_scale, hops == 0, hops == ring_size - 1, f32,
+                           stream)
         _build.check(status, "compact_ring_flash")
-        compact_ring_flash.launches += 1
-        compact_ring_flash.wgmma_launches += wg
-        compact_ring_flash.f32_launches += f32
+        # the Profiler's counters: flash launches (one per hop), those on the
+        # wgmma body, and those on fp32 q/k/v; the EF pass counts its own in
+        # ``ef_update_slot.launches``
+        count("compact_ring_flash.launches")
+        count("compact_ring_flash.wgmma_launches", ran[0] == "flash_wgmma_tile")
+        count("compact_ring_flash.f32_launches", f32)
+        launched(ran)
         hops += 1
     if hops != ring_size:
         raise ValueError(f"ring of {ring_size} got {hops} hops")
     return out, lse
-
-
-#: flash launches (one per hop) since the count was last set to 0, those of
-#: them on the wgmma body, and those on fp32 q/k/v; the EF pass counts its
-#: own in ``ef_update_slot.launches``
-compact_ring_flash.launches = 0
-compact_ring_flash.wgmma_launches = 0
-compact_ring_flash.f32_launches = 0

@@ -35,6 +35,7 @@ import torch.distributed as dist
 
 from compactfusion_tpu_torch import envs
 from compactfusion_tpu_torch.config import ParallelConfig
+from compactfusion_tpu_torch.utils.prof import count
 
 AXIS_DP = "dp"
 AXIS_CFG = "cfg"
@@ -159,7 +160,7 @@ class Mesh:
         the blocks this rank receives are concatenated along ``concat_dim``
         in source-rank order.  The blocks travel as one contiguous (U, ...)
         byte buffer (``dist.all_to_all_single``), so gloo's dtype coverage
-        does not matter.  ``Mesh.all_to_all.nbytes`` counts the bytes sent
+        does not matter.  The counter ``Mesh.all_to_all.nbytes`` counts the bytes sent
         to the other ranks."""
         n = self.axis_size(axis)
         if n == 1:
@@ -170,7 +171,7 @@ class Mesh:
         buf = self.wire(blocks.reshape(-1).view(torch.uint8))
         recv = torch.empty_like(buf)
         dist.all_to_all_single(recv, buf, group=self.groups[axis])
-        Mesh.all_to_all.nbytes += buf.numel() * (n - 1) // n
+        count("Mesh.all_to_all.nbytes", buf.numel() * (n - 1) // n)
         got = recv.to(t.device).view(t.dtype).reshape(blocks.shape)
         return torch.cat(got.unbind(0), dim=concat_dim)
 
@@ -181,14 +182,14 @@ class Mesh:
         ``lax.all_gather`` of a pytree).  The leaves travel as one byte
         buffer (:func:`pack_tree`).  ``async_op``: start the gather and
         return a ``wait()`` that finishes it and returns the tree, so
-        compute can run in between.  ``Mesh.all_gather_tree.nbytes`` counts
+        compute can run in between.  The counter ``Mesh.all_gather_tree.nbytes`` counts
         the gathered bytes (W times the tree's)."""
         n = self.axis_size(axis)
         flat, unpack = pack_tree(tree)
         buf = self.wire(flat)
         parts = [buf] if n == 1 else [torch.empty_like(buf) for _ in range(n)]
         work = None if n == 1 else dist.all_gather(parts, buf, group=self.groups[axis], async_op=True)
-        Mesh.all_gather_tree.nbytes += buf.numel() * n
+        count("Mesh.all_gather_tree.nbytes", buf.numel() * n)
 
         def wait():
             if work is not None:
@@ -223,12 +224,6 @@ class Mesh:
         buf = self.wire(flat)
         dist.broadcast(buf, self.lines[axis][index], group=self.groups[axis])
         return unpack(buf)
-
-
-#: bytes the all-to-alls sent to other ranks since the count was last set to 0
-Mesh.all_to_all.nbytes = 0
-#: bytes the tree gathers gathered since the count was last set to 0
-Mesh.all_gather_tree.nbytes = 0
 
 
 def make_mesh(parallel: ParallelConfig) -> Optional[Mesh]:

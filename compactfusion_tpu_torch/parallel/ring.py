@@ -22,6 +22,7 @@ import torch.distributed as dist
 from compactfusion_tpu_torch.ops.attention import attn_with_lse
 from compactfusion_tpu_torch.ops.merge import merge_out_lse
 from compactfusion_tpu_torch.parallel.mesh import AXIS_RING, Mesh, pack_tree
+from compactfusion_tpu_torch.utils.prof import count
 
 
 def ring_shift(tree, mesh: Mesh, axis: str = AXIS_RING, async_op: bool = False):
@@ -35,7 +36,7 @@ def ring_shift(tree, mesh: Mesh, axis: str = AXIS_RING, async_op: bool = False):
     lies; under gloo a CUDA buffer goes through a host copy.
     ``async_op``: start the exchange and return a ``wait()`` that finishes
     it and returns the received tree, so a hop's compute can run in
-    between.  ``ring_shift.nbytes`` counts the bytes sent."""
+    between.  The counter ``ring_shift.nbytes`` counts the bytes sent."""
     if mesh.axis_size(axis) == 1:
         return (lambda: tree) if async_op else tree
     flat, unpack = pack_tree(tree)
@@ -46,7 +47,7 @@ def ring_shift(tree, mesh: Mesh, axis: str = AXIS_RING, async_op: bool = False):
         dist.P2POp(dist.isend, buf, mesh.peer(axis, +1), group=group),
         dist.P2POp(dist.irecv, recv, mesh.peer(axis, -1), group=group),
     ])
-    ring_shift.nbytes += buf.numel()
+    count("ring_shift.nbytes", buf.numel())
 
     def wait():
         for w in works:
@@ -54,10 +55,6 @@ def ring_shift(tree, mesh: Mesh, axis: str = AXIS_RING, async_op: bool = False):
         return unpack(recv)
 
     return wait if async_op else wait()
-
-
-#: bytes sent by ring_shift since the count was last set to 0
-ring_shift.nbytes = 0
 
 
 def ring_blocks(tree, mesh: Optional[Mesh], axis: str = AXIS_RING) -> Iterator:

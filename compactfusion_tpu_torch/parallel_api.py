@@ -752,6 +752,7 @@ class xDiTParallel:
         if self.engine_config.runtime_config.use_profiler:
             from compactfusion_tpu_torch.utils.prof import Profiler
 
+            Profiler.enable()
             with Profiler.scope("total"):
                 out = self._generate(generator, decode, latents)
             logger.info("profiler summary:\n%s", Profiler.summary())

@@ -50,6 +50,7 @@ from compactfusion_tpu_torch.schedulers.flow_match import (
     flow_match_step,
 )
 from compactfusion_tpu_torch.utils import collector
+from compactfusion_tpu_torch.utils.prof import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,21 +158,22 @@ class FluxPipeline:
         in_channels) when given, else from ``generator``.  Returns images
         (B, H, W, 3) in [0, 1], or the final latent tokens when not
         ``decode``; None on an idle VAE-tail rank."""
-        cfg = self.cfg
-        if self.tail:
-            return None
-        if latents is None:
-            if generator is None:
-                raise ValueError("pass a torch.Generator or explicit latents")
-            latents = base.prepare_latents(generator, txt.shape[0], cfg.tokens, cfg.model.in_channels,
-                                           torch.float32, self.device)
-        if cfg.patch_pipelined:
-            from compactfusion_tpu_torch.pipelines.flux_patch_pp import flux_patch_pp_sample
+        with span("request"):
+            cfg = self.cfg
+            if self.tail:
+                return None
+            if latents is None:
+                if generator is None:
+                    raise ValueError("pass a torch.Generator or explicit latents")
+                latents = base.prepare_latents(generator, txt.shape[0], cfg.tokens, cfg.model.in_channels,
+                                               torch.float32, self.device)
+            if cfg.patch_pipelined:
+                from compactfusion_tpu_torch.pipelines.flux_patch_pp import flux_patch_pp_sample
 
-            latents = flux_patch_pp_sample(self, txt, pooled, latents)
-        else:
-            latents = self._sample(txt, pooled, latents)
-        return self.decode(latents) if decode and self.vae_params is not None else latents
+                latents = flux_patch_pp_sample(self, txt, pooled, latents)
+            else:
+                latents = self._sample(txt, pooled, latents)
+            return self.decode(latents) if decode and self.vae_params is not None else latents
 
     @torch.inference_mode()
     def _sample(self, txt, pooled, latents):
@@ -231,28 +233,31 @@ class FluxPipeline:
             state_d = base.carry_ef_state(state_d, fresh(attn_d, m.double_layers // p.pp_degree), self.device)
             state_s = base.carry_ef_state(state_s, fresh(attn_s, m.single_layers // p.pp_degree), self.device)
             for i in steps:
-                t = torch.full((b,), float(self.sched.timesteps[i]), dtype=torch.float32,
-                               device=self.device)
-                fwd = flux_forward(
-                    self.params, latents.to(m.dtype), txt.to(m.dtype), pooled, t, guidance, m,
-                    img_rope=img_rope, txt_rope=txt_rope, attn=attn_d, attn_state_double=state_d,
-                    attn_state_single=state_s, attn_single=attn_s,
-                    cache_cfg=cache_cfg if use_cache else None, cache_state=cache_state, mesh=mesh,
-                    # the final step always computes
-                    cache_force=i == cfg.num_steps - 1,
-                    tp_axis=AXIS_TP if p.tp_degree > 1 else None, pp_stages=p.pp_degree,
-                )
-                if use_cache:
-                    v, state_d, state_s, cache_state = fwd
-                else:
-                    v, state_d, state_s = fwd
-                latents = flow_match_step(self.sched, i, latents, v)
-                if collector.enabled():
-                    collector.collect(latents, "latents")  # per-step tap (reference pipeline_flux.py:481)
+                with span("step", {"i": i}):
+                    t = torch.full((b,), float(self.sched.timesteps[i]), dtype=torch.float32,
+                                   device=self.device)
+                    fwd = flux_forward(
+                        self.params, latents.to(m.dtype), txt.to(m.dtype), pooled, t, guidance, m,
+                        img_rope=img_rope, txt_rope=txt_rope, attn=attn_d, attn_state_double=state_d,
+                        attn_state_single=state_s, attn_single=attn_s,
+                        cache_cfg=cache_cfg if use_cache else None, cache_state=cache_state, mesh=mesh,
+                        # the final step always computes
+                        cache_force=i == cfg.num_steps - 1,
+                        tp_axis=AXIS_TP if p.tp_degree > 1 else None, pp_stages=p.pp_degree,
+                    )
+                    if use_cache:
+                        v, state_d, state_s, cache_state = fwd
+                    else:
+                        v, state_d, state_s = fwd
+                    with span("scheduler"):
+                        latents = flow_match_step(self.sched, i, latents, v)
+                    if collector.enabled():
+                        collector.collect(latents, "latents")  # per-step tap (reference pipeline_flux.py:481)
         self.last_skips = int(cache_state.skips) if use_cache else None
         return base.gather_latents(latents, mesh)
 
     @torch.inference_mode()
     def decode(self, latent_tokens: torch.Tensor) -> torch.Tensor:
         """Latent tokens (B, tokens, 64) -> images (B, H, W, 3) in [0, 1]."""
-        return decode_latents(self.vae_params, latent_tokens.to(self.device), self.cfg)
+        with span("decode"):
+            return decode_latents(self.vae_params, latent_tokens.to(self.device), self.cfg)

@@ -49,6 +49,7 @@ from compactfusion_tpu_torch.parallel.mesh import AXIS_DP, AXIS_TP, AXIS_VAE, Me
 from compactfusion_tpu_torch.parallel.tp import local_params
 from compactfusion_tpu_torch.pipelines import base
 from compactfusion_tpu_torch.schedulers.flow_match import flow_match_schedule, flow_match_step
+from compactfusion_tpu_torch.utils.prof import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,23 +139,24 @@ class HunyuanVideoPipeline:
         ``generator``.  Returns the video (B, T, H, W, 3) in [0, 1], or the
         final latent tokens when not ``decode`` or without VAE params; None
         on an idle VAE-tail rank."""
-        cfg = self.cfg
-        if self.tail:
-            return None
-        if txt.dim() == 4:
-            txt = txt[0]
-        b = txt.shape[0]
-        if pooled is None:
-            pooled = torch.zeros((b, cfg.model.pooled_dim), dtype=torch.float32)
-        if text_mask is None:
-            text_mask = torch.ones(txt.shape[:2], dtype=torch.bool)
-        if latents is None:
-            if generator is None:
-                raise ValueError("pass a torch.Generator or explicit latents")
-            latents = base.prepare_latents(generator, b, cfg.tokens, cfg.model.in_channels, torch.float32,
-                                           self.device)
-        latents = self._sample(txt, text_mask, pooled, latents)
-        return self.decode(latents) if decode and self.vae_params is not None else latents
+        with span("request"):
+            cfg = self.cfg
+            if self.tail:
+                return None
+            if txt.dim() == 4:
+                txt = txt[0]
+            b = txt.shape[0]
+            if pooled is None:
+                pooled = torch.zeros((b, cfg.model.pooled_dim), dtype=torch.float32)
+            if text_mask is None:
+                text_mask = torch.ones(txt.shape[:2], dtype=torch.bool)
+            if latents is None:
+                if generator is None:
+                    raise ValueError("pass a torch.Generator or explicit latents")
+                latents = base.prepare_latents(generator, b, cfg.tokens, cfg.model.in_channels, torch.float32,
+                                               self.device)
+            latents = self._sample(txt, text_mask, pooled, latents)
+            return self.decode(latents) if decode and self.vae_params is not None else latents
 
     @torch.inference_mode()
     def _sample(self, txt, text_mask, pooled, latents):
@@ -200,17 +202,21 @@ class HunyuanVideoPipeline:
             state_d = base.carry_ef_state(state_d, fresh(attn_d, m.double_layers // p.pp_degree), self.device)
             state_s = base.carry_ef_state(state_s, fresh(attn_s, m.single_layers // p.pp_degree), self.device)
             for i in steps:
-                t = torch.full((b,), float(self.sched.timesteps[i]), dtype=torch.float32, device=self.device)
-                v, state_d, state_s = hunyuanvideo_forward(
-                    self.params, latents.to(m.dtype), txt, pooled, t, guidance, m, video_rope=(cos_v, sin_v),
-                    txt_rope=txt_rope, text_mask=text_mask, attn=attn_d, attn_state_double=state_d,
-                    attn_state_single=state_s, attn_single=attn_s, mesh=mesh,
-                    tp_axis=AXIS_TP if p.tp_degree > 1 else None, pp_stages=p.pp_degree)
-                latents = flow_match_step(self.sched, i, latents, v)
+                with span("step", {"i": i}):
+                    t = torch.full((b,), float(self.sched.timesteps[i]), dtype=torch.float32, device=self.device)
+                    v, state_d, state_s = hunyuanvideo_forward(
+                        self.params, latents.to(m.dtype), txt, pooled, t, guidance, m, video_rope=(cos_v, sin_v),
+                        txt_rope=txt_rope, text_mask=text_mask, attn=attn_d, attn_state_double=state_d,
+                        attn_state_single=state_s, attn_single=attn_s, mesh=mesh,
+                        tp_axis=AXIS_TP if p.tp_degree > 1 else None, pp_stages=p.pp_degree)
+                    with span("scheduler"):
+                        latents = flow_match_step(self.sched, i, latents, v)
         return base.gather_latents(latents, mesh)
 
     @torch.inference_mode()
     def decode(self, latent_tokens: torch.Tensor) -> torch.Tensor:
         """Latent tokens (B, tokens, 64) -> video (B, T, H, W, 3) in [0, 1]."""
-        vid = hv_vae3d_decode(self.vae_params, unpack_latents(latent_tokens.to(self.device), self.cfg), self.cfg.vae)
-        return torch.clamp(vid * 0.5 + 0.5, 0.0, 1.0)
+        with span("decode"):
+            vid = hv_vae3d_decode(self.vae_params, unpack_latents(latent_tokens.to(self.device), self.cfg),
+                                  self.cfg.vae)
+            return torch.clamp(vid * 0.5 + 0.5, 0.0, 1.0)

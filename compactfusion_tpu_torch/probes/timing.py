@@ -35,6 +35,8 @@ from typing import Callable, Dict, Iterable, Sequence, Tuple
 
 import torch
 
+from compactfusion_tpu_torch.utils.prof import Profiler
+
 REPS = 3
 
 
@@ -68,7 +70,7 @@ def rotate(calls: Sequence[Callable[[], object]]) -> Callable[[], object]:
 
 def counts(kernels) -> Dict[str, int]:
     """{wrapper name: its launch count} of the kernels' wrappers."""
-    return {fn.__name__: fn.launches for fn in kernels}
+    return {fn.__name__: Profiler.counter(f"{fn.__name__}.launches") for fn in kernels}
 
 
 def capture(fn: Callable[[], object], n: int, kernels: Iterable = ()) -> Tuple[torch.cuda.CUDAGraph, Dict[str, int]]:

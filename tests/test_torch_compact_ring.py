@@ -46,6 +46,7 @@ from compactfusion_tpu_torch.compact import ring as tring
 from compactfusion_tpu_torch.config import CompactConfig, CompressType
 from compactfusion_tpu_torch.ops import ring_flash as trf
 from compactfusion_tpu_torch.parallel import mesh as tmesh
+from compactfusion_tpu_torch.utils.prof import Profiler
 from tests.helpers import rel_err
 from tests.test_torch_lowrank import jax_init_q
 from tests.test_torch_rank_fns import compact_ring_outputs
@@ -334,10 +335,10 @@ def test_ef_update_slot_runs_its_twin_on_cpu():
     shape = tuple(shards[0][1].shape)
     kr, vr, kw, vw = _clone(kb0), _clone(vb0), _clone(kb0), _clone(vb0)
     rec = tuple(torch.empty(shape, dtype=torch.bfloat16) for _ in range(2))
-    trf.ef_update_slot.launches = 0
+    Profiler.reset()
     trf.ef_update_slot(kw, vw, 1, "binary", payloads[1], shape, rec=rec)
     want = trf.ef_update_slot_ref(kr, vr, 1, "binary", payloads[1])
-    assert torch.equal(kw, kr) and torch.equal(vw, vr) and trf.ef_update_slot.launches == 0
+    assert torch.equal(kw, kr) and torch.equal(vw, vr) and Profiler.counter("ef_update_slot.launches") == 0
     for r, x in zip(rec, want):
         assert torch.equal(r, x.reshape(shape).to(torch.bfloat16))
     with pytest.raises(ValueError, match="B == 1"):
@@ -383,7 +384,7 @@ def test_ef_launch_passes_the_c_entry_its_arguments(quantized):
     rec = tuple(torch.empty(shape, dtype=torch.bfloat16) for _ in range(2))
     scratch = trf._ef_scratch(quantized, n, c, "cpu")
     lib = _FakeLib()
-    trf.ef_update_slot.launches = 0
+    Profiler.reset()
     trf._ef_launch(lib, kb, vb, 1, "binary", parts, shape, rec, scratch, 7, torch.bfloat16)
     (args,) = lib.calls
     assert len(args) == len(_declared_argtypes("cf_ef_update_slot"))
@@ -400,4 +401,4 @@ def test_ef_launch_passes_the_c_entry_its_arguments(quantized):
         assert args[15:18] == (None, None, 2)
     assert args[13:15] == (rec[0].data_ptr(), rec[1].data_ptr())
     assert args[18:] == (1, 96, H, D, 0, int(quantized), 0, 7)
-    assert trf.ef_update_slot.launches == (2 if quantized else 1)
+    assert Profiler.counter("ef_update_slot.launches") == (2 if quantized else 1)

@@ -18,6 +18,7 @@ from compactfusion_tpu.ops import attention as jattn
 from compactfusion_tpu.ops.flash_pallas import flash_attn_with_lse as jflash
 from compactfusion_tpu_torch.ops import attention as tattn
 from compactfusion_tpu_torch.ops import flash as tflash
+from compactfusion_tpu_torch.utils.prof import Profiler
 
 ATOL = 2e-4
 
@@ -68,16 +69,16 @@ def test_twin_matches_jax_flash_and_math(b, sq, sk, h, d, lens):
 
 def test_wrapper_on_cpu_runs_the_twin_without_counting():
     q, k, v = map(torch.from_numpy, _qkv(1, 32, 64, 2, 72, seed=5))
-    tflash.flash_attn_with_lse.launches = 0
+    Profiler.reset()
     out, lse = tflash.flash_attn_with_lse(q, k, v)
     ref_o, ref_l = tflash.flash_attn_with_lse_ref(q, k, v)
     assert torch.equal(out, ref_o) and torch.equal(lse, ref_l)
-    assert tflash.flash_attn_with_lse.launches == 0
+    assert Profiler.counter("flash_attn_with_lse.launches") == 0
     # window= delegates to the banded wrapper, which runs its twin here
     win_o, win_l = tflash.flash_attn_with_lse(q, k[:, :32], v[:, :32], window=8)
     ref_o, ref_l = tflash.flash_attn_window_with_lse_ref(q, k[:, :32], v[:, :32], 8)
     assert torch.equal(win_o, ref_o) and torch.equal(win_l, ref_l)
-    assert tflash.flash_attn_with_lse.launches == 0
+    assert Profiler.counter("flash_attn_with_lse.launches") == 0
 
 
 def test_math_path_matches_jax_with_mask_and_causal():

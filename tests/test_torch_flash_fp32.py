@@ -25,6 +25,7 @@ from compactfusion_tpu.ops import ring_flash_pallas as jrf
 from compactfusion_tpu_torch.ops import attention as tattn
 from compactfusion_tpu_torch.ops import flash as tflash
 from compactfusion_tpu_torch.ops import ring_flash as trf
+from compactfusion_tpu_torch.utils.prof import Profiler
 from tests.helpers import rel_err
 from tests.test_torch_flash_plan import c_struct
 
@@ -364,9 +365,9 @@ def test_fp32_ef_pass_twin_writes_fp32_reconstructions():
     payload = trf.fused_ring_payload(k0, v0, kw[1], vw[1], "binary", -1)
     shape = tuple(k0.shape)
     rec = tuple(torch.empty(shape, dtype=torch.float32) for _ in range(2))
-    trf.ef_update_slot.launches = trf.ef_update_slot.f32_launches = 0
+    Profiler.reset()
     trf.ef_update_slot(kw, vw, 1, "binary", payload, shape, rec=rec)
-    assert trf.ef_update_slot.launches == trf.ef_update_slot.f32_launches == 0
+    assert Profiler.counter("ef_update_slot.launches") == Profiler.counter("ef_update_slot.f32_launches") == 0
     for r, slot in zip(rec, (kw[1], vw[1])):
         assert torch.equal(r.reshape(slot.shape), slot)
         assert not torch.equal(r, r.to(torch.bfloat16).float())

@@ -23,6 +23,7 @@ import torch
 from compactfusion_tpu.ops import quant_pallas as jqp
 from compactfusion_tpu_torch.compact.packing import pack_2bit, unpack_2bit
 from compactfusion_tpu_torch.ops import quant as tqp
+from compactfusion_tpu_torch.utils.prof import Profiler
 from tests.test_torch_dequant_vec import VEC, _FakeLib, _int2_data, _torch, dequant_model
 from tests.test_torch_quant_vec import REL
 
@@ -142,21 +143,20 @@ def test_int2_quant_wrapper_hands_the_entry_its_plan_and_counts_it(c, plan, monk
     monkeypatch.setattr(_build, "load", lambda: lib)
     monkeypatch.setattr(tqp, "_stream", lambda t: 7)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
-    monkeypatch.setattr(tqp.int2_quant_fastpath, "launches", 0)
-    monkeypatch.setattr(tqp.int2_quant_fastpath, "vec_launches", 0)
+    Profiler.reset()
     packed, new_base = tqp.int2_quant_fastpath(x, base, u, v)
     ((name, args),) = lib.calls
     assert name == "cf_int2_quant" and len(args) == len(_declared_argtypes(name))
     assert args[:6] == (x.data_ptr(), base.data_ptr(), u.data_ptr(), v.data_ptr(), packed.data_ptr(),
                         new_base.data_ptr())
     assert args[6:] == (8, c, 1, 0, 0, plan, 7)
-    assert tqp.int2_quant_fastpath.launches == 1
-    assert tqp.int2_quant_fastpath.vec_launches == (1 if plan > 1 else 0)
+    assert Profiler.counter("int2_quant_fastpath.launches") == 1
+    assert Profiler.counter("int2_quant_fastpath.vec_launches") == (1 if plan > 1 else 0)
     refused = _FakeLib(status=1)
     monkeypatch.setattr(_build, "load", lambda: refused)
     with pytest.raises(RuntimeError, match="invalid argument"):
         tqp.int2_quant_fastpath(x, base, u, v)
-    assert len(refused.calls) == 1 and tqp.int2_quant_fastpath.launches == 1
+    assert len(refused.calls) == 1 and Profiler.counter("int2_quant_fastpath.launches") == 1
 
 
 def test_chip_smoke_expects_every_int2_quant_launch_on_the_vector_plan():

@@ -134,6 +134,7 @@ def _imports(path):
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/profile_torch.py", "tools/compare_kernel_builds.py",
                                     "tools/time_flash.py", "tools/time_cross_attn.py", "tools/time_chip_smoke.py",
+                                    "tools/trace_split.py",
                                     "compactfusion_tpu_torch/probes/flash_parts.py",
                                     "compactfusion_tpu_torch/probes/block_parts.py"])
 def test_scripts_import_neither_jax_nor_the_jax_package(script):

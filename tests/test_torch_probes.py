@@ -38,6 +38,7 @@ from compactfusion_tpu_torch.ops import flash as tflash
 from compactfusion_tpu_torch.ops import probes
 from compactfusion_tpu_torch.probes import flash_parts as fp
 from compactfusion_tpu_torch.probes import timing
+from compactfusion_tpu_torch.utils.prof import Profiler, count
 
 REPO = Path(__file__).resolve().parent.parent
 ATOL = 2e-2
@@ -166,11 +167,11 @@ def test_plumb_is_bit_equal_to_the_pallas_plumb(monkeypatch, b, s, h, d):
 
 def test_wrappers_on_cpu_run_their_twins_without_counting():
     q, k, v = (to_torch(a).transpose(1, 2) for a in bf16_inputs((1, 2, 128, 72), seed=3))
-    probes.flash_parts.launches = probes.plumb.launches = 0
+    Profiler.reset()
     for parts in STAGED.values():
         assert torch.equal(probes.flash_parts(q, k, v, parts), probes.flash_parts_ref(q, k, v, parts))
     assert torch.equal(probes.plumb(q, k, v), probes.plumb_ref(q, k, v))
-    assert probes.flash_parts.launches == 0 and probes.plumb.launches == 0
+    assert Profiler.counter("flash_parts.launches") == 0 and Profiler.counter("plumb.launches") == 0
     # every stage on is kernel 1: its twin agrees with kernel 1's
     full = probes.flash_parts_ref(q, k, v, probes.STAGES).float()
     ref, _ = tflash.flash_attn_with_lse_ref(q, k, v)
@@ -248,9 +249,10 @@ def test_replayed_launches_count_once_per_replay():
     def kernel():
         pass
 
-    kernel.launches = 5
+    Profiler.reset()
+    count("kernel.launches", 5)
     before = timing.counts([kernel])
-    kernel.launches += 1 + 20 + 120  # a warm-up call, then two captures
+    count("kernel.launches", 1 + 20 + 120)  # a warm-up call, then two captures
     ran = timing._ran([kernel], before, [({"kernel": 20}, 3), ({"kernel": 120}, 3)])
     assert ran == {"kernel": 1 + 3 * 20 + 3 * 120}
 

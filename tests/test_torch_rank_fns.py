@@ -16,6 +16,7 @@ from compactfusion_tpu_torch.config import CompactConfig, CompressType, Parallel
 from compactfusion_tpu_torch.parallel import mesh as tmesh
 from compactfusion_tpu_torch.parallel.ring import ring_attention, ring_shift
 from compactfusion_tpu_torch.parallel.usp import usp_attention
+from compactfusion_tpu_torch.utils.prof import Profiler
 
 
 def _ring_meshes():
@@ -41,11 +42,11 @@ def mesh_checks(rank, world, layouts):
         payload = (torch.full((2, 3), rank, dtype=torch.uint8),
                    torch.full((5,), rank + 0.5, dtype=torch.bfloat16),
                    torch.full((1, 2), rank * 10.0, dtype=torch.float32))
-        ring_shift.nbytes = 0
+        Profiler.reset()
         got = ring_shift(payload, m, "ring")
         r["shift"] = [t.float().flatten().tolist() for t in got]
         r["shift_dtypes"] = [str(t.dtype) for t in got]
-        r["shift_bytes"] = ring_shift.nbytes
+        r["shift_bytes"] = Profiler.counter("ring_shift.nbytes")
         r["gather"] = [t.item() for t in m.all_gather(torch.tensor([float(rank)]), "ring")]
         r["sum"] = m.all_reduce_sum(torch.tensor([float(rank)]), "ring").item()
         st = tring.init_ring_state(m.axis_size("ring"), 4, 8, torch.float32, 1)
@@ -68,13 +69,13 @@ def ring_outputs(rank, world, cases, inputs, s_local):
         jq, jk, jv = (torch.from_numpy(a) for a in inputs[ring][3:])
         kw = dict(joint_k=None if joint == "none" else jk, joint_v=None if joint == "none" else jv,
                   joint_strategy=joint)
-        ring_shift.nbytes = 0
+        Profiler.reset()
         if with_q:
             o = usp_attention(q, k, v, mesh=m, joint_q=jq, fused_ring=fused, **kw)
         else:
             o = ring_attention(q, k, v, mesh=m, causal=causal, fused=fused, **kw)
         out[case] = o.numpy()
-        nbytes[case] = ring_shift.nbytes
+        nbytes[case] = Profiler.counter("ring_shift.nbytes")
     return out, nbytes
 
 
@@ -239,9 +240,9 @@ def ulysses_outputs(rank, world, prim, attn_cases, attn_inputs, compact_steps):
     for name, m in meshes.items():
         u = m.parallel.ulysses_degree
         (x,) = _sp_local(prim[:1], m)
-        tmesh.Mesh.all_to_all.nbytes = 0
+        Profiler.reset()
         a = uly.scatter_heads_gather_seq(x, m)
-        nbytes = tmesh.Mesh.all_to_all.nbytes
+        nbytes = Profiler.counter("Mesh.all_to_all.nbytes")
         b = uly.scatter_seq_gather_heads(a, m)
         j = uly.slice_joint_heads(torch.from_numpy(prim[1]), m, u)
         res["prim"][name] = (a.numpy(), b.numpy(), j.numpy(), nbytes)
@@ -310,10 +311,10 @@ def patch_outputs(rank, world, runs, gather_runs):
             if state is None:
                 st = tring.init_ring_state(4, n, x.shape[1], torch.float32, cfg.residual, cfg.quantized_cache)
                 state = st.k
-            tmesh.Mesh.all_gather_tree.nbytes = 0
+            Profiler.reset()
             got, state = compact_all_gather(xl, state, cfg=cfg, method=cfg.compress_type, mesh=m)
             leaves = [t.float().numpy().copy() for t in _leaves_of(state)]
-            per_step.append((got.numpy(), leaves, tmesh.Mesh.all_gather_tree.nbytes))
+            per_step.append((got.numpy(), leaves, Profiler.counter("Mesh.all_gather_tree.nbytes")))
         res[name] = per_step
     return res
 
@@ -436,9 +437,10 @@ def runner_latents(rank, world, runs, weights, noise, cwd=None):
     for name, argv in runs:
         handler.messages = []
         runner = port_runner(argv, weights)
-        ring_shift.nbytes = 0
+        Profiler.reset()
         lat = runner(latents=torch.from_numpy(noise), decode=False)
-        out[name] = {"latents": lat.numpy(), "wire_bytes": ring_shift.nbytes, "warnings": handler.messages}
+        out[name] = {"latents": lat.numpy(), "wire_bytes": Profiler.counter("ring_shift.nbytes"),
+                     "warnings": handler.messages}
     return out
 
 
@@ -677,11 +679,11 @@ def latte_latents(rank, world, configs, params, vae_params, inputs):
             res[name] = None
             continue
         cfg = LattePipelineConfig(model=tm, vae=tv, parallel=parallel, **size)
-        tmesh.Mesh.all_to_all.nbytes = 0
+        Profiler.reset()
         pipe = LattePipeline(tparams, None, cfg, "cpu", mesh=mesh)
         lat = pipe(text, mask, latents=noise, decode=False)
         hidden = pipe.params["spatial_blocks"]["ffn"]["fc1"]["w"].shape[-1]
-        res[name] = (lat.numpy(), tmesh.Mesh.all_to_all.nbytes, hidden)
+        res[name] = (lat.numpy(), Profiler.counter("Mesh.all_to_all.nbytes"), hidden)
     return res
 
 

@@ -31,6 +31,7 @@ from compactfusion_tpu.cache.fast_attn import window_mask as jwindow_mask
 from compactfusion_tpu.ops import attention as jattn
 from compactfusion_tpu.ops.flash_pallas import flash_attn_with_lse as jflash
 from compactfusion_tpu_torch.ops import flash as tflash
+from compactfusion_tpu_torch.utils.prof import Profiler
 
 ATOL = 2e-5
 
@@ -113,15 +114,14 @@ def test_twin_matches_jax_masked_sdpa(w):
 
 def test_window_argument_delegates_on_cpu_without_counting():
     q, k, v = map(torch.from_numpy, _qkv(1, 64, 2, 72, seed=5))
-    tflash.flash_attn_with_lse.launches = 0
-    tflash.flash_attn_window_with_lse.launches = 0
+    Profiler.reset()
     out, lse = tflash.flash_attn_with_lse(q, k, v, window=8)
     ref_o, ref_l = tflash.flash_attn_window_with_lse_ref(q, k, v, 8)
     assert torch.equal(out, ref_o) and torch.equal(lse, ref_l)
     out2, _ = tflash.flash_attn_window_with_lse(q, k, v, 8, scale=0.1)
     assert torch.equal(out2, tflash.flash_attn_window_with_lse_ref(q, k, v, 8, scale=0.1)[0])
-    assert tflash.flash_attn_with_lse.launches == 0
-    assert tflash.flash_attn_window_with_lse.launches == 0
+    assert Profiler.counter("flash_attn_with_lse.launches") == 0
+    assert Profiler.counter("flash_attn_window_with_lse.launches") == 0
 
 
 def test_window_contract_raises_where_the_kernel_does_not_apply():

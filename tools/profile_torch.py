@@ -13,11 +13,10 @@ and FBCache at threshold 0.12; and ``chip_smoke.py``'s phase-18 FLUX.1-dev
 (``flux_lossless``: 19 + 38 blocks at full width, 28 steps, guidance 3.5,
 1024 x 1024, spiced modulation biases).  For each it runs ``--warm`` requests, times
 two more with CUDA events, then profiles one request with
-``torch.profiler`` (CPU + CUDA) and
-sums the device time and launches of its kernels by category (the QR
-category is ``torch.linalg.qr``'s cuSOLVER kernels).  The device busy share is
-that sum over the mean unprofiled time (one stream, so kernels do not
-overlap).  Prints a summary per pipeline and writes everything, with the
+``torch.profiler`` (CPU + CUDA) and reduces it with the benchmark's
+``cfbench/trace.py`` (``from_profiler``): the device time and launches of
+its kernels by ``category``, and the device's busy seconds within the
+traced window.  Prints a summary per pipeline and writes everything, with the
 card's ``nvidia-smi`` name, power limit and SM clock, to ``--out``.
 ``--only`` profiles a subset of the pipelines (``NAMES``); ``--root``
 profiles another checkout's package (e.g. an unpacked ``git archive`` of
@@ -37,29 +36,6 @@ PIXART = ("lossless", "compressed_ring8", "int2_ring8", "low_rank4_ring8", "laye
           "fast_attn_calibrated", "fast_attn_mixed", "fbcache_0.12")
 NAMES = PIXART + ("flux_lossless",)
 
-# kernel-name patterns, first match wins
-CATEGORIES = (
-    ("flash kernel", ("flash_fwd_reg_kernel", "flash_fwd_wide_kernel", "flash_fwd_wide_split_kernel")),
-    ("window flash kernel", ("flash_window_reg_kernel", "flash_window_wide_kernel")),
-    ("quant kernel", ("binary_quant_kernel",)),
-    ("dequant kernel", ("binary_dequant_kernel",)),
-    ("int2 quant kernel", ("int2_quant_kernel",)),
-    ("int2 dequant kernel", ("int2_dequant_kernel",)),
-    ("QR (cuSOLVER/MAGMA)", ("geqr", "orgqr", "ormqr", "larf", "cusolver", "magma", "householder")),
-    ("matmul (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
-    ("conv (cuDNN)", ("conv", "cudnn", "implicit_convolve")),
-    ("copies/cat", ("CatArray", "copy", "Memcpy", "Memset")),
-    ("reductions", ("reduce_kernel",)),
-    ("elementwise", ("elementwise",)),
-)
-
-
-def category(name):
-    for cat, keys in CATEGORIES:
-        if any(k in name for k in keys):
-            return cat
-    return "other"
-
 
 def _harness():
     """This checkout's chip_smoke.py, by path (another root may hold its own)."""
@@ -71,8 +47,12 @@ def _harness():
 
 def profile_pipeline(request, pipe, warm, seed):
     """``request(pipe, seed)``: one image, as ``chip_smoke.py`` makes it."""
+    import collections
+
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from cfbench.trace import category, from_profiler
 
     for _ in range(warm):
         request(pipe, seed)
@@ -80,27 +60,19 @@ def profile_pipeline(request, pipe, warm, seed):
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, _, profiled_wall = request(pipe, seed)
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_cat, n_cat, by_name = {}, {}, {}
-    for e in kernels:
-        us = e.time_range.elapsed_us()
-        cat = category(e.name)
-        by_cat[cat] = by_cat.get(cat, 0.0) + us / 1e6
-        n_cat[cat] = n_cat.get(cat, 0) + 1
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + us / 1e6, n + 1)
-    busy = sum(by_cat.values())
-    top = sorted(((t, n, name[:90]) for name, (t, n) in by_name.items()), reverse=True)[:20]
+        torch.cuda.synchronize()
+    trace = from_profiler(prof, pipe.cfg.num_steps)
+    launches = collections.Counter(category(name) for name, _, _, kind, _ in trace.device if kind == "kernel")
     return {
         "wall_s_unprofiled": walls,
         "wall_s_profiled": profiled_wall,
-        "device_kernel_s": busy,
-        "busy_share_vs_unprofiled_wall": busy / (sum(walls) / len(walls)),
-        "kernel_launches": len(kernels),
+        "busy_s": trace.busy_s,
+        "window_s": trace.window_s,
+        "kernel_launches": trace.kernels,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "by_category_s": dict(sorted(by_cat.items(), key=lambda kv: -kv[1])),
-        "launches_by_category": n_cat,
-        "top": top,
+        "by_category_s": dict(sorted(trace.seconds_by_category().items(), key=lambda kv: -kv[1])),
+        "launches_by_category": dict(launches),
+        "top": trace.device_ops(20),
     }
 
 
@@ -119,6 +91,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch: no CUDA device")
     chip_smoke = _harness()
+    sys.path.insert(0, ROOT)  # cfbench, this checkout's
     sys.path.insert(0, os.path.abspath(args.root))
     from compactfusion_tpu_torch.cache.accel import CacheAccelConfig
     from compactfusion_tpu_torch.pipelines.pixart import PixArtPipeline, PixArtPipelineConfig
@@ -161,8 +134,8 @@ def main():
     for name in (n for n in NAMES if n in args.only):
         r = report[name]
         print(name, json.dumps({k: v for k, v in r.items() if k != "top"}))
-        for t, n, kname in r["top"][:12]:
-            print(f"  {t:10.4f} s x {n:6d}  {kname}")
+        for kname, t in r["top"][:12]:
+            print(f"  {t:10.4f} s  {kname[:90]}")
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)

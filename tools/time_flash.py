@@ -231,8 +231,11 @@ KERNEL = {("binary", "quant"): "kernel 2 binary", ("binary", "dequant"): "kernel
 def plan_of(quant, wrapper, per_byte, base, v, **operands):
     """The tree's plan of a quant or dequant launch in packed bytes per
     thread (``ops/quant.py::quant_plan``), or None where the tree's
-    ``wrapper`` has no vector plan (no ``vec_launches``)."""
-    return quant.quant_plan(per_byte, base, v, **operands) if hasattr(wrapper, "vec_launches") else None
+    ``wrapper`` has no vector plan (a wrapper that counts its own launches
+    but no ``vec_launches``; where the wrappers count in ``utils/prof.py``,
+    all four have one)."""
+    vector = hasattr(wrapper, "vec_launches") or not hasattr(wrapper, "launches")
+    return quant.quant_plan(per_byte, base, v, **operands) if vector else None
 
 
 def dequant_row(smoke, timing, quant, codecs, dev, gen, case):
